@@ -1,0 +1,346 @@
+// One SAN-M encoder layer (w8a16) as a fixed sequence of launches on one
+// stream. Replaces lele_tpu/kernels/sanm_block.py:sanm_layer_w8_pallas
+// (`_kernel`) and, looped over the layers by the Python wrapper, the
+// whole-stack sanm_stack_w8_pallas (`_stack_kernel`).
+//
+//   1. LN1                       layer_norm_rows
+//   2. qkv = w8(h)               w8_gemm (h rounded to bf16, tensor cores)
+//   3. ctx + fsmn                attn_fsmn: tensor-core attention per (head,
+//                                64-query tile), + FSMN over V*mask
+//   4. x += w8(ctx + fsmn)       w8_gemm, residual in the epilogue, in place
+//   5. LN2                       layer_norm_rows
+//   6. f1 = relu(w8(h2))         w8_gemm, ReLU in the epilogue
+//   7. x += w8(f1)               w8_gemm, residual in the epilogue, in place
+//
+// What bounds it on the H100: per layer the int8 weights (3.1 MB at d512,
+// ffn 2048) stream once, and at T ~ 171 rows each launch does little work,
+// so the layer is bound by launch latency and the weight stream, not by the
+// tensor cores. Attention grows as T^2: at the 60 s bucket (T ~ 1004) K and
+// V of one head no longer fit shared memory, so attn_fsmn walks 64-key tiles
+// (a running max and sum first, then P.V) and never holds the T x T scores.
+// Head dims 32, 64 and 128 are compiled. The TPU kernel also keeps the
+// activation on chip across layers and prefetches layer i+1's weights during
+// layer i; here that is left to a later persistent kernel or CUDA graph.
+#include <math.h>
+
+#include "w8_gemm.cuh"
+
+namespace lele {
+
+__device__ __forceinline__ float load_f32(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+
+// sum over a block of 128 threads
+__device__ __forceinline__ float block_sum128(float v, float* sh) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const float t = sh[0] + sh[1] + sh[2] + sh[3];
+  __syncthreads();
+  return t;
+}
+
+// y[t] = (x[t] - mean) * rsqrt(var + eps) * g + b, one block per row,
+// two-pass statistics as in the JAX `_ln`.
+__global__ void __launch_bounds__(128)
+layer_norm_rows(const float* __restrict__ x, const float* __restrict__ g,
+                const float* __restrict__ b, float* __restrict__ y, int D, float eps) {
+  __shared__ float sh[4];
+  const float* xr = x + (size_t)blockIdx.x * D;
+  float* yr = y + (size_t)blockIdx.x * D;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < D; i += 128) s += xr[i];
+  const float mu = block_sum128(s, sh) / D;
+  float s2 = 0.f;
+  for (int i = threadIdx.x; i < D; i += 128) {
+    const float d = xr[i] - mu;
+    s2 += d * d;
+  }
+  const float r = rsqrtf(block_sum128(s2, sh) / D + eps);
+  for (int i = threadIdx.x; i < D; i += 128) yr[i] = (xr[i] - mu) * r * g[i] + b[i];
+}
+
+constexpr int ATT_BQ = 64;    // query rows per block: 16 per warp
+constexpr int ATT_BKEY = 64;  // keys per tile
+constexpr int FSMN_ROWS = 32; // output rows per FSMN chunk
+constexpr int FSMN_KMAX = 16; // most FSMN taps
+
+__host__ __device__ constexpr int attn_smem_bytes(int hd) {
+  // max(K and V bf16 tiles, FSMN rows + halo and taps in f32)
+  return 2 * ATT_BKEY * (hd + 8) * 2 > (FSMN_ROWS + 2 * FSMN_KMAX - 1) * hd * 4
+             ? 2 * ATT_BKEY * (hd + 8) * 2
+             : (FSMN_ROWS + 2 * FSMN_KMAX - 1) * hd * 4;
+}
+
+// rows [k0, k0 + ATT_BKEY) of one head of q/k/v (f32, row stride D3) → bf16
+// tile in shared memory; rows past T are zero
+template <int HD>
+__device__ __forceinline__ void stage_rows(uint16_t (*dst)[HD + 8], const float* src,
+                                           int D3, int k0, int T) {
+  for (int i = threadIdx.x; i < ATT_BKEY * HD / 4; i += 128) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4, t = k0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < T) v = *reinterpret_cast<const float4*>(src + (size_t)t * D3 + c);
+    uint2 p;
+    p.x = bf16_bits(v.x) | (uint32_t(bf16_bits(v.y)) << 16);
+    p.y = bf16_bits(v.z) | (uint32_t(bf16_bits(v.w)) << 16);
+    *reinterpret_cast<uint2*>(&dst[r][c]) = p;
+  }
+}
+
+// Attention + FSMN for one (head, 64-query tile), on the tensor cores.
+// Each of the 4 warps owns 16 query rows; Q stays in registers as bf16
+// mma fragments. Two passes over 64-key tiles staged in shared memory (bf16):
+// the first keeps each row's running max and sum of exp (online softmax), the
+// second forms the normalised probabilities, rounds them to bf16 (as the TPU
+// kernel does before its P.V dot) and multiplies V. S = Q.K^T and O = P.V are
+// mma.sync m16n8k16 (bf16 operands, f32 sums); the S accumulators are repacked
+// in registers as P's A fragments. The T x T scores are never stored. Keys
+// past T are skipped (-inf); masked keys get the additive (m - 1) * 1e9 bias.
+// Then out = ctx + FSMN, the depthwise k-tap conv over the unrounded V * mask
+// (k <= 16), from rows staged in shared memory.
+template <int HD, typename FW>
+__global__ void __launch_bounds__(128)
+attn_fsmn(const float* __restrict__ qkv, const float* __restrict__ mask,
+          const FW* __restrict__ fsmn_w, float* __restrict__ out, int T, int D,
+          int fsmn_k, float inv_sqrt_hd) {
+  constexpr int KS = HD / 16;        // k-steps over the head dim
+  constexpr int NT = ATT_BKEY / 8;   // n8 tiles of keys
+  constexpr int OT = HD / 8;         // n8 tiles of the output
+  // K and V tiles during attention; V * mask rows and FSMN taps after it
+  __shared__ __align__(16) unsigned char smem[attn_smem_bytes(HD)];
+  __shared__ float bias[ATT_BKEY];
+  auto Ks = reinterpret_cast<uint16_t (*)[HD + 8]>(smem);
+  auto Vs = reinterpret_cast<uint16_t (*)[HD + 8]>(smem + ATT_BKEY * (HD + 8) * 2);
+  const int h = blockIdx.x, q0 = blockIdx.y * ATT_BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int D3 = 3 * D;
+  const float* Qg = qkv + h * HD;
+  const float* Kg = qkv + D + h * HD;
+  const float* Vg = qkv + 2 * D + h * HD;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  auto q_pair = [&](int r, int c) -> uint32_t {
+    if (r >= T) return 0u;
+    const float2 v = *reinterpret_cast<const float2*>(Qg + (size_t)r * D3 + c);
+    return bf16_bits(v.x) | (uint32_t(bf16_bits(v.y)) << 16);
+  };
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = ks * 16 + tg * 2;
+    qa[ks][0] = q_pair(rows[0], c);
+    qa[ks][1] = q_pair(rows[1], c);
+    qa[ks][2] = q_pair(rows[0], c + 8);
+    qa[ks][3] = q_pair(rows[1], c + 8);
+  }
+
+  auto stage = [&](int k0, bool with_v) {
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<HD>(Ks, Kg, D3, k0, T);
+    if (with_v) stage_rows<HD>(Vs, Vg, D3, k0, T);
+    if (tid < ATT_BKEY) {
+      const int t = k0 + tid;
+      bias[tid] = t < T ? (mask[t] - 1.f) * 1e9f : -INFINITY;
+    }
+    __syncthreads();
+  };
+  // s[j][e]: row rows[e >> 1], key j*8 + tg*2 + (e & 1) of the tile
+  auto scores = [&](float (&s)[NT][4]) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t b[2];
+        b[0] = ld_pair(&Ks[j * 8 + g][ks * 16 + tg * 2]);
+        b[1] = ld_pair(&Ks[j * 8 + g][ks * 16 + tg * 2 + 8]);
+        mma_bf16_16816(s[j], qa[ks], b);
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * inv_sqrt_hd + bias[j * 8 + tg * 2 + (e & 1)];
+  };
+  // a row's values sit in the 4 neighbouring lanes of one quad
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < T; k0 += ATT_BKEY) {
+    stage(k0, false);
+    float s[NT][4];
+    scores(s);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      const float m_new = fmaxf(m_run[hr], quad_max(mx));  // finite: key k0 < T
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        psum += expf(s[j][2 * hr] - m_new) + expf(s[j][2 * hr + 1] - m_new);
+      l_run[hr] = l_run[hr] * expf(m_run[hr] - m_new) + quad_sum(psum);
+      m_run[hr] = m_new;
+    }
+  }
+
+  float o[OT][4];
+#pragma unroll
+  for (int nt = 0; nt < OT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  for (int k0 = 0; k0 < T; k0 += ATT_BKEY) {
+    stage(k0, true);
+    float s[NT][4];
+    scores(s);
+    uint32_t pb[NT][2];  // bf16 pairs of P: [j][0] row 0, [j][1] row 1
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        pb[j][hr] = bf16_bits(expf(s[j][2 * hr] - m_run[hr]) / l_run[hr]) |
+                    (uint32_t(bf16_bits(expf(s[j][2 * hr + 1] - m_run[hr]) / l_run[hr])) << 16);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      const uint32_t pa[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0], pb[2 * kk + 1][1]};
+#pragma unroll
+      for (int nt = 0; nt < OT; ++nt) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, &Vs[kk * 16 + (lane & 15)][nt * 8]);
+        mma_bf16_16816(o[nt], pa, b);
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with Ks and Vs
+#pragma unroll
+  for (int nt = 0; nt < OT; ++nt) {
+    const int c = h * HD + nt * 8 + tg * 2;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (rows[hr] < T)
+        *reinterpret_cast<float2*>(out + (size_t)rows[hr] * D + c) =
+            make_float2(o[nt][2 * hr], o[nt][2 * hr + 1]);
+    }
+  }
+  // FSMN over 32-row chunks: stage the chunk's V * mask rows (with the
+  // conv's halo) and the taps in the freed shared memory, then each output
+  // reads its k taps from there
+  auto vm = reinterpret_cast<float (*)[HD]>(smem);
+  auto ws = reinterpret_cast<float (*)[HD]>(smem + (FSMN_ROWS + FSMN_KMAX - 1) * HD * 4);
+  const int pad = (fsmn_k - 1) / 2;
+  for (int i = tid; i < fsmn_k * HD; i += 128)
+    ws[i / HD][i % HD] = load_f32(fsmn_w, (i / HD) * D + h * HD + i % HD);
+  for (int r0 = 0; r0 < ATT_BQ; r0 += FSMN_ROWS) {
+    const int t0 = q0 + r0;
+    if (t0 >= T) break;  // the same for the whole block
+    __syncthreads();  // ctx is written (and the previous chunk consumed)
+    for (int i = tid; i < (FSMN_ROWS + fsmn_k - 1) * HD; i += 128) {
+      const int r = i / HD, d = i % HD, tt = t0 - pad + r;
+      vm[r][d] = (tt >= 0 && tt < T) ? Vg[(size_t)tt * D3 + d] * mask[tt] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < FSMN_ROWS * HD; i += 128) {
+      const int r = i / HD, d = i % HD, t = t0 + r;
+      if (t >= T) break;  // i only grows
+      float f = 0.f;
+      for (int kk = 0; kk < fsmn_k; ++kk) f += vm[r + kk][d] * ws[kk][d];
+      out[(size_t)t * D + h * HD + d] += f;  // ctx + fsmn
+    }
+  }
+}
+
+template <int HD>
+inline void launch_attn_fsmn(const float* qkv, const float* mask, const void* fsmn_w,
+                             int fsmn_bf16, float* out, int T, int D, int H, int fsmn_k,
+                             cudaStream_t s) {
+  const dim3 grid(H, (T + ATT_BQ - 1) / ATT_BQ);
+  const float inv = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  if (fsmn_bf16)
+    attn_fsmn<HD, __nv_bfloat16><<<grid, 128, 0, s>>>(
+        qkv, mask, static_cast<const __nv_bfloat16*>(fsmn_w), out, T, D, fsmn_k, inv);
+  else
+    attn_fsmn<HD, float><<<grid, 128, 0, s>>>(
+        qkv, mask, static_cast<const float*>(fsmn_w), out, T, D, fsmn_k, inv);
+}
+
+}  // namespace lele
+
+#define LELE_CHECK_LAUNCH()                          \
+  do {                                               \
+    const cudaError_t e_ = cudaGetLastError();       \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+// One layer, in place on x [T, D] f32. mask [T] f32 (1 = valid). Linears:
+// int8 w [K, N], f32 scale [N] and bias [N] (bias may be null). fsmn_w
+// [fsmn_k, D] is bf16 when fsmn_bf16, else f32. Scratch: h [T, D],
+// qkv [T, 3D], ctx [T, D], f1 [T, F], all f32. Returns cudaGetLastError().
+extern "C" int sanm_layer_w8(
+    void* x, const void* mask, int T, int D, int H, int F, int fsmn_k,
+    const void* g1, const void* b1, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* fsmn_w, int fsmn_bf16, const void* wo,
+    const void* so, const void* bo, const void* g2, const void* b2, const void* w1,
+    const void* s1, const void* bf1, const void* w2, const void* s2, const void* bf2,
+    void* h, void* qkv, void* ctx, void* f1, void* stream) {
+  using namespace lele;
+  if (T == 0) return 0;
+  const int hd = D / H;
+  if (hd * H != D || (hd != 32 && hd != 64 && hd != 128) || fsmn_k < 1 ||
+      fsmn_k > FSMN_KMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* X = static_cast<float*>(x);
+  float* Hb = static_cast<float*>(h);
+  float* QKV = static_cast<float*>(qkv);
+  float* CTX = static_cast<float*>(ctx);
+  float* F1 = static_cast<float*>(f1);
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  const float eps = 1e-12f;
+
+  layer_norm_rows<<<T, 128, 0, s>>>(X, f32(g1), f32(b1), Hb, D, eps);
+  LELE_CHECK_LAUNCH();
+  launch_w8_gemm(Hb, A_F32_AS_BF16, i8(wqkv), QKV, T, D, 3 * D,
+                 Epilogue{f32(sqkv), f32(bqkv), nullptr, 0}, s);
+  LELE_CHECK_LAUNCH();
+  switch (hd) {
+    case 32:
+      launch_attn_fsmn<32>(QKV, f32(mask), fsmn_w, fsmn_bf16, CTX, T, D, H, fsmn_k, s);
+      break;
+    case 64:
+      launch_attn_fsmn<64>(QKV, f32(mask), fsmn_w, fsmn_bf16, CTX, T, D, H, fsmn_k, s);
+      break;
+    default:
+      launch_attn_fsmn<128>(QKV, f32(mask), fsmn_w, fsmn_bf16, CTX, T, D, H, fsmn_k, s);
+      break;
+  }
+  LELE_CHECK_LAUNCH();
+  launch_w8_gemm(CTX, A_F32_AS_BF16, i8(wo), X, T, D, D,
+                 Epilogue{f32(so), f32(bo), X, 0}, s);
+  LELE_CHECK_LAUNCH();
+  layer_norm_rows<<<T, 128, 0, s>>>(X, f32(g2), f32(b2), Hb, D, eps);
+  LELE_CHECK_LAUNCH();
+  launch_w8_gemm(Hb, A_F32_AS_BF16, i8(w1), F1, T, D, F,
+                 Epilogue{f32(s1), f32(bf1), nullptr, 1}, s);
+  LELE_CHECK_LAUNCH();
+  launch_w8_gemm(F1, A_F32_AS_BF16, i8(w2), X, T, F, D,
+                 Epilogue{f32(s2), f32(bf2), X, 0}, s);
+  LELE_CHECK_LAUNCH();
+  return 0;
+}

@@ -1,0 +1,31 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Sources are under `lele_tpu_torch/csrc/`; `_build` compiles them with nvcc
+at first use. Each wrapper keeps a launch count as an attribute
+(`w8_matmul.launches`, ...); `launch_counts()` reads them all and
+`reset_launch_counts()` sets them to 0.
+"""
+
+from .quant_matmul import quantize_weight_int8, w8_matmul, w8_matmul_plain  # noqa: F401
+from .sanm_block import (  # noqa: F401
+    fused_layer_available,
+    sanm_layer_w8,
+    sanm_layer_w8_plain,
+    sanm_stack_w8,
+    sanm_stack_w8_plain,
+)
+
+KERNEL_WRAPPERS = {
+    "w8_gemm": w8_matmul,
+    "sanm_layer_w8": sanm_layer_w8,
+    "sanm_stack_w8": sanm_stack_w8,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

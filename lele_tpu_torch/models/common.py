@@ -1,0 +1,90 @@
+"""Shared building blocks (counterpart of lele_tpu/models/common.py).
+
+Params are nested dicts of tensors, in the JAX package's layouts: linear
+weights [d_in, d_out], activations feature-last [B, T, D].
+
+"bf16 operands, f32 accumulation" (JAX's `preferred_element_type=f32`) is
+written as a float32 product of bf16-rounded operands: the product of two
+bf16 values is exact in float32, whereas torch's bf16 matmul would return
+bf16. On a card this needs `torch.backends.cuda.matmul.allow_tf32 = False`
+(PyTorch's default).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..params import tree_map
+
+Params = dict[str, Any]
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                bias: bool = True) -> Params:
+    """Uniform(-1/sqrt(d_in), 1/sqrt(d_in)) weight [d_in, d_out], zero bias."""
+    scale = 1.0 / np.sqrt(d_in)
+    w = torch.rand((d_in, d_out), generator=gen, device=gen.device) * (2 * scale) - scale
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def init_layer_norm(gen: torch.Generator, d: int) -> Params:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=gen.device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=gen.device)}
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """x rounded to `dtype` and carried as float32 (no-op for None/float32)."""
+    if dtype is None:
+        return x.float()
+    return x.to(dtype).float()
+
+
+def linear(p: Params, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x @ w (+ b) with operands rounded to `dtype`, accumulated in float32."""
+    y = round_to(x, dtype) @ round_to(p["w"], dtype)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
+def sinusoidal_positions(t: int, d: int, offset: int = 1) -> np.ndarray:
+    """FunASR-style sinusoidal position encoding (positions start at 1)."""
+    pos = np.arange(offset, t + offset, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d, 2, dtype=np.float64) * -(np.log(10000.0) / d))
+    pe = np.zeros((t, d), np.float64)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def positions_on(t: int, d: int, device: torch.device) -> torch.Tensor:
+    """`sinusoidal_positions(t, d)` as a float32 tensor on `device`, made once
+    per (t, d, device): one per bucket, as the JAX program bakes it in as a
+    constant. Callers must not write to it."""
+    return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
+
+
+def cast_big_params(params: Params, dtype: torch.dtype) -> Params:
+    """Every floating leaf of rank ≥ 2 (linear weights, `prefix`, `fsmn.w`)
+    becomes `dtype`; norms, biases and int8 weights stay as they are."""
+    def cast(a):
+        if a.ndim >= 2 and a.is_floating_point():
+            return a.to(dtype)
+        return a
+
+    return tree_map(cast, params)

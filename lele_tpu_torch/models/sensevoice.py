@@ -1,0 +1,331 @@
+"""SenseVoice-style ASR encoder, w8a16 (counterpart of lele_tpu/models/sensevoice.py).
+
+560-dim LFR fbank features → 4 prefix query frames → embed linear +
+sinusoidal positions → N SAN-M blocks (self-attention + FSMN memory conv)
+→ after_norm → CTC vocab head → greedy CTC decode.
+
+On a CUDA tensor at batch 1 with w8-prepared params the routing is the JAX
+package's TPU routing (models/sensevoice.py:328-340, 425-441, 477-478):
+stacked layers go through the `sanm_stack_w8` kernel, per-layer params
+through `sanm_layer_w8`, and the CTC head through the `w8_matmul` kernel.
+On the CPU the same wrappers take their plain versions. `plain=True` runs
+every kernel's plain version on any device: it is the oracle the kernels
+are held against on the card, never the main path.
+
+Not ported yet (each raises NotImplementedError): dynamic-int8 linears
+(`quantized`), w4a16 (`weight_int4`), MoE (`n_experts`), batch > 1 serving
+(`transcribe_batch`), long-form audio (`transcribe_long`).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from lele_tpu.runtime.bucketing import max_bucket_samples, pad_pcm
+
+from .. import default_device
+from ..features import FbankConfig, FbankFrontend, fbank_features
+from ..kernels import (
+    fused_layer_available,
+    sanm_layer_w8,
+    sanm_layer_w8_plain,
+    sanm_stack_w8,
+    sanm_stack_w8_plain,
+    w8_matmul,
+    w8_matmul_plain,
+)
+from ..kernels.quant_matmul import quantize_weight_int8
+from ..kernels.sanm_block import fsmn_conv, layer_view
+from .common import (
+    Params,
+    init_layer_norm,
+    init_linear,
+    layer_norm,
+    linear,
+    positions_on,
+    round_to,
+)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass
+class SenseVoiceConfig:
+    input_dim: int = 560  # 80 mel × LFR m=7
+    d_model: int = 512
+    n_heads: int = 4
+    ffn_dim: int = 2048
+    n_layers: int = 50
+    fsmn_kernel: int = 11
+    vocab_size: int = 25055
+    n_prefix: int = 4  # language / event / emotion / textnorm query frames
+    dropout: float = 0.0  # inference
+    dtype: str = "bfloat16"
+    quantized: bool = False  # dynamic-int8 linears: not ported
+    quant_pallas: bool = False  # (JAX only)
+    weight_int4: bool = False  # w4a16: not ported
+    weight_int8: bool = False  # w8a16: int8 weights, per-output-channel scales
+    fused_block: bool = True  # batch 1 + weight_int8: the layer/stack kernels
+    remat: bool = False  # (JAX training only)
+    n_experts: int = 0  # MoE FFN: not ported
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+def _check_ported(cfg: SenseVoiceConfig) -> None:
+    if cfg.quantized or cfg.weight_int4 or cfg.n_experts > 0:
+        raise NotImplementedError(
+            "the port runs SenseVoice in f32/bf16 and w8a16 only; dynamic-int8, "
+            "w4a16 and MoE are not ported yet")
+
+
+def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
+    """Random f32 params on `gen`'s device, shapes and scales as the JAX init."""
+    _check_ported(cfg)
+    dev = gen.device
+    p: Params = {
+        "embed": init_linear(gen, cfg.input_dim, cfg.d_model),
+        "prefix": torch.randn((cfg.n_prefix, cfg.input_dim), generator=gen,
+                              device=dev) * 0.02,
+        "after_norm": init_layer_norm(gen, cfg.d_model),
+        "ctc": init_linear(gen, cfg.d_model, cfg.vocab_size),
+        "layers": [],
+    }
+    d = cfg.d_model
+    for _ in range(cfg.n_layers):
+        p["layers"].append({
+            "norm1": init_layer_norm(gen, d),
+            "qkv": init_linear(gen, d, 3 * d),
+            "fsmn": {"w": torch.randn((cfg.fsmn_kernel, d), generator=gen, device=dev)
+                     * (1.0 / np.sqrt(cfg.fsmn_kernel))},
+            "out": init_linear(gen, d, d),
+            "norm2": init_layer_norm(gen, d),
+            "ffn1": init_linear(gen, d, cfg.ffn_dim),
+            "ffn2": init_linear(gen, cfg.ffn_dim, d),
+        })
+    return p
+
+
+_W8_LINEAR_KEYS = ("qkv", "out", "ffn1", "ffn2", "ctc")
+
+
+def prepare_w8_params(params: Params, drop_fp: bool = True) -> Params:
+    """Per-output-channel symmetric int8 quantisation of every big linear
+    (layer linears and CTC head) into "wq8"/"ws8"; with drop_fp the float
+    weight is removed."""
+    def prep(p):
+        wq, scale = quantize_weight_int8(p["w"], axis=0)
+        out = dict(p)
+        out["wq8"] = wq
+        out["ws8"] = scale
+        if drop_fp:
+            del out["w"]
+        return out
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: (prep(v) if k in _W8_LINEAR_KEYS and isinstance(v, dict)
+                        and "w" in v else walk(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
+
+
+def stack_layer_params(params: Params) -> Params:
+    """[{layer}, ...] → one tree with a leading layer axis on every leaf
+    ("layers_stacked"). Run once at load time: it copies every weight."""
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return torch.stack(xs)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers_stacked"] = stack(*params["layers"])
+    return out
+
+
+def _ops(plain: bool):
+    """(w8 GEMM, layer, stack): the kernel wrappers, or their plain versions."""
+    if plain:
+        return w8_matmul_plain, sanm_layer_w8_plain, sanm_stack_w8_plain
+    return w8_matmul, sanm_layer_w8, sanm_stack_w8
+
+
+def _w8_linear(p: Params, x: torch.Tensor, dtype: torch.dtype, w8=w8_matmul):
+    lead = x.shape[:-1]
+    y = w8(x.reshape(-1, x.shape[-1]).to(dtype), p["wq8"], p["ws8"])
+    y = y.reshape(*lead, p["wq8"].shape[-1])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceConfig,
+               plain: bool = False) -> torch.Tensor:
+    """SAN-M: multi-head self-attention + FSMN memory conv on values.
+
+    x: [B, T, D]; mask: [B, T] (1 = valid). Pre-norm residual wiring."""
+    dt = cfg.compute_dtype
+    B, T, D = x.shape
+    w8, layer, _ = _ops(plain)
+    if cfg.weight_int8 and cfg.fused_block and B == 1 and fused_layer_available(cfg, p):
+        y = layer(x[0].float(), mask[0].float(), p, cfg.n_heads, cfg.fsmn_kernel)
+        return y[None].to(x.dtype)
+    if cfg.weight_int8:
+        def lin(pp, v):
+            return _w8_linear(pp, v, dt, w8) if "wq8" in pp else linear(pp, v, dtype=dt)
+    else:
+        def lin(pp, v):
+            return linear(pp, v, dtype=dt)
+    H = cfg.n_heads
+    hd = D // H
+
+    h = layer_norm(p["norm1"], x)
+    q, k, v = lin(p["qkv"], h).float().split(D, dim=-1)
+    fsmn = fsmn_conv(v * mask[..., None], p["fsmn"]["w"])
+
+    def heads(a):  # [B, T, D] → [B, H, T, hd]
+        return round_to(a, dt).reshape(B, T, H, hd).transpose(1, 2)
+
+    scores = (heads(q) @ heads(k).transpose(-1, -2)) / math.sqrt(hd)
+    scores = torch.where(mask[:, None, None, :] > 0, scores,
+                         torch.full_like(scores, -1e9))
+    attn = torch.softmax(scores, dim=-1)
+    ctx = (round_to(attn, dt) @ heads(v)).transpose(1, 2).reshape(B, T, D)
+    x = x + lin(p["out"], ctx + fsmn).to(x.dtype)
+
+    h2 = layer_norm(p["norm2"], x)
+    ff = lin(p["ffn2"], torch.relu(lin(p["ffn1"], h2)))
+    return x + ff.to(x.dtype)
+
+
+def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
+                      cfg: SenseVoiceConfig, plain: bool = False) -> torch.Tensor:
+    """feats: [B, T, 560]; mask: [B, T] → logits f32 [B, T+4, vocab]."""
+    _check_ported(cfg)
+    B, T, _ = feats.shape
+    w8, _, stack = _ops(plain)
+    x = feats.float()
+    if cfg.n_prefix > 0:
+        prefix = p["prefix"][: cfg.n_prefix].float().expand(B, cfg.n_prefix, cfg.input_dim)
+        x = torch.cat([prefix, x], dim=1)
+        mask = torch.cat([torch.ones((B, cfg.n_prefix), dtype=mask.dtype,
+                                     device=mask.device), mask], dim=1)
+    Tt = T + cfg.n_prefix
+    x = x * (cfg.d_model**0.5) / (cfg.input_dim**0.5)
+    x = linear(p["embed"], x, dtype=cfg.compute_dtype).float()
+    x = x + positions_on(Tt, cfg.d_model, x.device)
+    if "layers_stacked" in p:
+        stacked = p["layers_stacked"]
+        if (cfg.weight_int8 and cfg.fused_block and B == 1
+                and fused_layer_available(cfg, stacked)):
+            x = stack(x[0], mask[0].float(), stacked, cfg.n_heads, cfg.fsmn_kernel)[None]
+        else:
+            for i in range(stacked["norm1"]["g"].shape[0]):
+                x = sanm_block(layer_view(stacked, i), x, mask, cfg, plain)
+    else:
+        for lp in p["layers"]:
+            x = sanm_block(lp, x, mask, cfg, plain)
+    x = layer_norm(p["after_norm"], x)
+    if cfg.weight_int8 and "wq8" in p["ctc"]:
+        logits = _w8_linear(p["ctc"], x, cfg.compute_dtype, w8)
+    else:
+        logits = linear(p["ctc"], x, dtype=cfg.compute_dtype)
+    return logits.float()
+
+
+@dataclass
+class SenseVoiceModel:
+    """Front-end + encoder on one device; `forward_fn()(params, pcm)` runs
+    waveform → logits with no host round trip."""
+
+    cfg: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
+    params: Params | None = None
+    fbank: FbankFrontend | None = None
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        self.device = torch.device(self.device) if self.device is not None else default_device()
+        if self.fbank is None:
+            self.fbank = FbankFrontend(FbankConfig(), self.device)
+
+    def init(self, seed: int = 0) -> Params:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.params = init_sensevoice(gen, self.cfg)
+        return self.params
+
+    def features(self, pcm):
+        return self.fbank(pcm)
+
+    def forward_fn(self, plain: bool = False):
+        """(params, pcm [n]) → logits [1, T+4, vocab]."""
+        cfg, fbank = self.cfg, self.fbank
+
+        @torch.inference_mode()
+        def fn(params, pcm):
+            feats = fbank(pcm)[None]
+            mask = torch.ones(feats.shape[:2], dtype=torch.float32, device=feats.device)
+            return sensevoice_encode(params, feats, mask, cfg, plain=plain)
+
+        return fn
+
+    def forward_bucketed_fn(self, plain: bool = False):
+        """(params, pcm_padded, n_valid) → (logits, frame_mask): masked CMVN
+        and attention, so the bucket's padding never reaches the valid frames."""
+        cfg, fb = self.cfg, self.fbank
+
+        @torch.inference_mode()
+        def fn(params, pcm, n_valid):
+            feats, fmask = fbank_features(pcm, fb.config, fb.window, fb.mel_t,
+                                          n_valid=n_valid)
+            logits = sensevoice_encode(params, feats[None], fmask[None], cfg, plain=plain)
+            return logits, fmask
+
+        return fn
+
+    def transcribe_ids(self, pcm: np.ndarray, blank_id: int = 0) -> list[int]:
+        """Bucketed waveform → token ids; the per-frame argmax runs on the
+        device, so only [T] int32 comes back."""
+        if len(pcm) > max_bucket_samples():
+            raise NotImplementedError(
+                f"audio of {len(pcm)} samples is longer than the largest bucket "
+                f"({max_bucket_samples()} samples); transcribe_long is not ported yet")
+        frame_ids, valid = self._bucketed_argmax(pcm)
+        return _collapse_ids(frame_ids[:valid], blank_id)
+
+    def _bucketed_argmax(self, pcm: np.ndarray):
+        if self.params is None:
+            self.init()
+        padded, true_len = pad_pcm(np.asarray(pcm, np.float32))
+        logits, fmask = self.forward_bucketed_fn()(self.params, padded, true_len)
+        ids = logits[0, self.cfg.n_prefix:].argmax(dim=-1).to(torch.int32)
+        return ids.cpu().numpy(), int(fmask.sum().item())
+
+
+def _collapse_ids(frame_ids, blank_id: int = 0) -> list[int]:
+    """CTC collapse: drop repeats, then blanks."""
+    out = []
+    prev = -1
+    for t in np.asarray(frame_ids).reshape(-1):
+        t = int(t)
+        if t != prev and t != blank_id:
+            out.append(t)
+        prev = t
+    return out
+
+
+def greedy_ctc_decode(logits, blank_id: int = 0) -> list[int]:
+    """Greedy CTC: argmax per frame, collapse repeats, drop blanks."""
+    if isinstance(logits, torch.Tensor):
+        logits = logits.detach().cpu().numpy()
+    return _collapse_ids(np.asarray(logits).argmax(-1), blank_id)

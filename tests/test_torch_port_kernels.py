@@ -1,0 +1,155 @@
+"""The plain versions of the port's kernels against the JAX TPU kernels.
+
+The JAX side runs its Pallas kernels in interpret mode on the CPU (as
+tests/test_pallas_parity.py does) and its jnp references. Inputs are made
+with numpy from a seed and weights are converted through
+lele_tpu_torch.params. On the CPU every wrapper takes its plain version; the
+CUDA kernels themselves are held against these plain versions on the card
+by chip_smoke.py.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lele_tpu.kernels.quant_matmul import _w8_matmul_jnp, w8_matmul_pallas
+from lele_tpu.kernels.sanm_block import sanm_layer_w8_pallas, sanm_stack_w8_pallas
+from lele_tpu.models import SenseVoiceConfig as JConfig
+from lele_tpu.models import init_sensevoice as jinit
+from lele_tpu.models import prepare_w8_params as jprepare
+from lele_tpu.models import stack_layer_params as jstack
+from lele_tpu.models.common import cast_big_params as jcast
+from lele_tpu.models.sensevoice import sanm_block as jsanm_block
+from lele_tpu_torch import kernels as K
+from lele_tpu_torch.params import from_numpy_tree
+
+REPO = Path(__file__).resolve().parent.parent
+# the w8 GEMM's products are exact in f32 on both sides (bf16 x int8, or
+# f32 x int8 at HIGHEST); only the summation order differs
+GEMM_RTOL = 1e-5
+# the bounds of tests/test_pallas_parity.py::test_fused_sanm_layer_matches_block
+LAYER_RTOL = 2e-2
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("m,k,n", [(23, 70, 45), (16, 64, 128), (5, 130, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w8_matmul_plain_matches_pallas_and_jnp(m, k, n, dtype):
+    rng = np.random.default_rng(m * k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    ws = (rng.random(n) * 1e-2 + 1e-3).astype(np.float32)
+    xj = jnp.asarray(x).astype(dtype)
+    want_pallas = np.asarray(w8_matmul_pallas(xj, jnp.asarray(wq), jnp.asarray(ws),
+                                              tn=128, tk=64, interpret=True))
+    want_jnp = np.asarray(_w8_matmul_jnp(xj, jnp.asarray(wq), jnp.asarray(ws)))
+    got = K.w8_matmul_plain(from_numpy_tree(np.asarray(xj)), torch.from_numpy(wq),
+                            torch.from_numpy(ws)).numpy()
+    assert got.shape == (m, n) and got.dtype == np.float32
+    for want in (want_pallas, want_jnp):
+        np.testing.assert_allclose(got, want, rtol=GEMM_RTOL,
+                                   atol=GEMM_RTOL * np.abs(want).max())
+
+
+def _layer_params(key, n_layers, bf16):
+    cfg = JConfig(n_layers=n_layers, d_model=256, ffn_dim=384, vocab_size=32,
+                  n_heads=2, dtype="float32", weight_int8=True, fused_block=False)
+    params = jinit(jax.random.PRNGKey(key), cfg)
+    if bf16:
+        params = jcast(params, jnp.bfloat16)
+    return cfg, jprepare(params)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32_params", "bf16_params"])
+def test_sanm_layer_plain_matches_pallas_and_jnp_block(bf16):
+    cfg, params = _layer_params(3, 1, bf16)
+    lp = params["layers"][0]
+    T = 23
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((T, cfg.d_model)).astype(np.float32) * 0.3
+    mask = np.ones((T,), np.float32)
+    mask[-4:] = 0.0  # the padded tail must not leak into valid rows
+    valid = int(mask.sum())
+    want_pallas = np.asarray(sanm_layer_w8_pallas(
+        jnp.asarray(x), jnp.asarray(mask), lp, cfg.n_heads, cfg.fsmn_kernel,
+        interpret=True))
+    want_jnp = np.asarray(jsanm_block(lp, jnp.asarray(x)[None], jnp.asarray(mask)[None],
+                                      cfg))[0]
+    got = K.sanm_layer_w8_plain(torch.from_numpy(x), torch.from_numpy(mask),
+                                from_numpy_tree(_np_tree(lp)), cfg.n_heads,
+                                cfg.fsmn_kernel).numpy()
+    for want in (want_pallas, want_jnp):
+        np.testing.assert_allclose(
+            got[:valid], want[:valid], rtol=LAYER_RTOL,
+            atol=np.abs(want[:valid]).max() * LAYER_RTOL)
+
+
+def test_sanm_stack_plain_matches_pallas():
+    cfg, params = _layer_params(4, 3, True)
+    stacked = jstack(params)["layers_stacked"]
+    T = 19
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((T, cfg.d_model)).astype(np.float32) * 0.3
+    mask = np.ones((T,), np.float32)
+    mask[-3:] = 0.0
+    valid = int(mask.sum())
+    want = np.asarray(sanm_stack_w8_pallas(jnp.asarray(x), jnp.asarray(mask), stacked,
+                                           cfg.n_heads, cfg.fsmn_kernel, interpret=True))
+    got = K.sanm_stack_w8_plain(torch.from_numpy(x), torch.from_numpy(mask),
+                                from_numpy_tree(_np_tree(stacked)), cfg.n_heads,
+                                cfg.fsmn_kernel).numpy()
+    np.testing.assert_allclose(got[:valid], want[:valid], rtol=LAYER_RTOL,
+                               atol=np.abs(want[:valid]).max() * LAYER_RTOL)
+
+
+def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    cfg, params = _layer_params(5, 2, True)
+    tp = from_numpy_tree(_np_tree(jstack(params)))
+    st = tp["layers_stacked"]
+    lp0 = K.sanm_block.layer_view(st, 0)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((9, cfg.d_model)).astype(np.float32))
+    mask = torch.ones(9)
+    K.reset_launch_counts()
+    torch.testing.assert_close(K.w8_matmul(x, lp0["qkv"]["wq8"], lp0["qkv"]["ws8"]),
+                               K.w8_matmul_plain(x, lp0["qkv"]["wq8"], lp0["qkv"]["ws8"]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        K.sanm_layer_w8(x, mask, lp0, cfg.n_heads, cfg.fsmn_kernel),
+        K.sanm_layer_w8_plain(x, mask, lp0, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
+    torch.testing.assert_close(
+        K.sanm_stack_w8(x, mask, st, cfg.n_heads, cfg.fsmn_kernel),
+        K.sanm_stack_w8_plain(x, mask, st, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
+    assert K.launch_counts() == {"w8_gemm": 0, "sanm_layer_w8": 0, "sanm_stack_w8": 0}
+
+
+def test_kernel_entry_refuses_a_cpu_tensor():
+    """The kernel path never quietly takes the plain version."""
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.quant_matmul.w8_matmul_kernel(x, torch.zeros((8, 3), dtype=torch.int8),
+                                        torch.ones(3))
+
+
+def test_kernel_modules_import_without_nvcc_or_triton():
+    code = (
+        "import sys; sys.modules['triton'] = None; sys.modules['jax'] = None\n"
+        "import lele_tpu_torch.kernels as K\n"
+        "from lele_tpu_torch.kernels import _build\n"
+        "assert not _build._libs\n"
+        "assert K.launch_counts() == {'w8_gemm': 0, 'sanm_layer_w8': 0, 'sanm_stack_w8': 0}\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={"PATH": "/nonexistent",
+                                                      "PYTHONPATH": str(REPO)})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -1,0 +1,200 @@
+"""The port's SenseVoice w8a16 slice against lele_tpu's, at a small size.
+
+Weights are made by the JAX package (torch cannot reproduce jax.random),
+prepared there, and carried over through lele_tpu_torch.params; PCM is made
+with numpy from a seed. The JAX model runs on the CPU (its jnp paths), the
+port on the CPU takes its kernels' plain versions.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lele_tpu.models import SenseVoiceConfig as JConfig
+from lele_tpu.models import SenseVoiceModel as JModel
+from lele_tpu.models.common import cast_big_params as jcast
+from lele_tpu.models.sensevoice import _collapse_ids as j_collapse_ids
+from lele_tpu.models.sensevoice import prepare_w8_params as jprepare
+from lele_tpu.models.sensevoice import stack_layer_params as jstack
+from lele_tpu.runtime.bucketing import pad_pcm
+from lele_tpu_torch.models import (
+    SenseVoiceConfig,
+    SenseVoiceModel,
+    cast_big_params,
+    greedy_ctc_decode,
+    prepare_w8_params,
+    stack_layer_params,
+)
+from lele_tpu_torch.models.sensevoice import _collapse_ids
+from lele_tpu_torch.params import from_numpy_tree
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = dict(n_layers=2, d_model=256, n_heads=2, ffn_dim=384, vocab_size=64,
+             weight_int8=True)
+LOGIT_REL = 1e-2  # max|d| / max|ref| of the logits
+ARGMAX_AGREE = 0.98  # share of frames whose argmax agrees
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _speechlike(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    env = 10.0 ** (-2.0 * (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)))
+    sig = np.sin(2 * np.pi * (150 + 1500 * t) * t) + 0.5 * rng.standard_normal(t.size)
+    return (0.3 * env * sig).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    """The JAX model with f32 masters, and its bf16 → w8 prepared params."""
+    m = JModel(JConfig(**SMALL))
+    m.init(0)
+    f32 = m.params
+    m.params = jprepare(jcast(f32, jnp.bfloat16))
+    return m, f32
+
+
+def _port(jm, stacked: bool):
+    params = jstack(jm.params) if stacked else jm.params
+    tm = SenseVoiceModel(SenseVoiceConfig(**SMALL), device="cpu")
+    tm.params = from_numpy_tree(_np_tree(params))
+    return tm, params
+
+
+def _agree(got, want):
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    return rel, agree
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32_masters", "bf16_masters"])
+def test_prepare_w8_params_matches_jax(bf16):
+    """At the main path's layer widths (d512, ffn 2048). w/scale can land on
+    an exact .5 (bf16 masters often hold w = amax/2), and XLA rewrites the
+    quotient differently at some shapes, so a few entries may differ by 1."""
+    m = JModel(JConfig(n_layers=1, vocab_size=64, weight_int8=True))
+    m.init(1)
+    src = jcast(m.params, jnp.bfloat16) if bf16 else m.params
+    want = _np_tree(jprepare(src))
+    got = prepare_w8_params(from_numpy_tree(_np_tree(src)))
+    pairs = [(got["ctc"], want["ctc"])]
+    pairs += [(g[k], w[k]) for g, w in zip(got["layers"], want["layers"])
+              for k in ("qkv", "out", "ffn1", "ffn2")]
+    for g, w in pairs:
+        assert "w" not in g and g["wq8"].dtype == torch.int8
+        gq = g["wq8"].numpy().astype(np.int32)
+        wq = w["wq8"].astype(np.int32)
+        assert (gq == wq).mean() >= 0.9999
+        assert np.abs(gq - wq).max() <= 1
+        np.testing.assert_allclose(g["ws8"].numpy(), w["ws8"], rtol=1e-6)
+
+
+def test_bf16_carry_over_and_cast_are_bit_exact(jax_model):
+    _, f32 = jax_model
+    want = _np_tree(jcast(f32, jnp.bfloat16))
+    carried = from_numpy_tree(want)
+    cast = cast_big_params(from_numpy_tree(_np_tree(f32)), torch.bfloat16)
+    for tree in (carried, cast):
+        for name in ("prefix",):
+            assert tree[name].dtype == torch.bfloat16
+            np.testing.assert_array_equal(tree[name].view(torch.int16).numpy(),
+                                          want[name].view(np.int16))
+        for g, w in zip(tree["layers"], want["layers"]):
+            for path in (("fsmn", "w"), ("qkv", "w"), ("ffn2", "w")):
+                t, a = g[path[0]][path[1]], w[path[0]][path[1]]
+                assert t.dtype == torch.bfloat16
+                np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                              a.view(np.int16))
+            assert g["norm1"]["g"].dtype == torch.float32  # rank 1 stays f32
+
+
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "per_layer"])
+def test_forward_fn_logits_match_jax(jax_model, stacked):
+    jm, _ = jax_model
+    tm, params = _port(jm, stacked)
+    pcm = _speechlike(1.7, seed=21)
+    want = np.asarray(jax.jit(jm.forward_fn())(params, pcm))
+    got = tm.forward_fn()(tm.params, pcm).numpy()
+    assert got.shape == want.shape == (1, 4 + 28, SMALL["vocab_size"])
+    rel, agree = _agree(got, want)
+    assert rel <= LOGIT_REL and agree >= ARGMAX_AGREE, (rel, agree)
+
+
+def test_forward_bucketed_fn_matches_jax(jax_model):
+    jm, _ = jax_model
+    tm, params = _port(jm, True)
+    padded, n_valid = pad_pcm(_speechlike(2.4, seed=22))
+    want_l, want_m = jax.jit(jm.forward_bucketed_fn())(params, padded, n_valid)
+    got_l, got_m = tm.forward_bucketed_fn()(tm.params, padded, n_valid)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    assert 0 < got_m.sum() < got_m.numel()  # the bucket really pads
+    rel, agree = _agree(got_l.numpy(), np.asarray(want_l))
+    assert rel <= LOGIT_REL and agree >= ARGMAX_AGREE, (rel, agree)
+
+
+def test_transcribe_ids_match_jax_bucketed_argmax(jax_model):
+    jm, _ = jax_model
+    jm8 = JModel(jm.cfg, params=jstack(jm.params), fbank=jm.fbank)
+    tm, _ = _port(jm, True)
+    frames = same = 0
+    for i, seconds in enumerate((0.8, 2.5, 4.2)):
+        pcm = _speechlike(seconds, seed=30 + i)
+        want_ids, want_valid = jm8._bucketed_argmax(pcm)
+        got_ids, got_valid = tm._bucketed_argmax(pcm)
+        assert got_valid == want_valid and got_ids.dtype == np.int32
+        frames += got_valid
+        same += int((got_ids[:got_valid] == want_ids[:want_valid]).sum())
+        ids = tm.transcribe_ids(pcm)
+        assert ids == _collapse_ids(got_ids[:got_valid])
+    assert same / frames >= ARGMAX_AGREE, same / frames
+
+
+def test_collapse_ids_and_greedy_decode_match_jax():
+    rng = np.random.default_rng(7)
+    for n in (0, 1, 17, 200):
+        ids = rng.integers(0, 4, n)
+        assert _collapse_ids(ids) == j_collapse_ids(ids)
+        assert _collapse_ids(ids, blank_id=2) == j_collapse_ids(ids, blank_id=2)
+    logits = rng.standard_normal((30, 5)).astype(np.float32)
+    assert greedy_ctc_decode(torch.from_numpy(logits)) == j_collapse_ids(logits.argmax(-1))
+
+
+def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
+    tm = SenseVoiceModel(SenseVoiceConfig(**SMALL), device="cpu")
+    with pytest.raises(NotImplementedError, match="transcribe_long"):
+        tm.transcribe_ids(np.zeros(61 * 16000, np.float32))
+
+
+def test_port_runs_without_jax():
+    """The card machine has no JAX: the port must import and run without it."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from lele_tpu_torch.models import *\n"
+        "from lele_tpu_torch.serving import SenseVoiceEngine\n"
+        "cfg = SenseVoiceConfig(n_layers=2, d_model=64, n_heads=2, ffn_dim=96,\n"
+        "                       vocab_size=40, weight_int8=True)\n"
+        "m = SenseVoiceModel(cfg, device='cpu'); m.init(0)\n"
+        "m.params = stack_layer_params(prepare_w8_params(\n"
+        "    cast_big_params(m.params, torch.bfloat16)))\n"
+        "pcm = np.random.default_rng(0).standard_normal(20000).astype(np.float32) * 0.1\n"
+        "ids = SenseVoiceEngine(model=m).model.transcribe_ids(pcm)\n"
+        "logits = m.forward_fn()(m.params, pcm)\n"
+        "assert logits.shape == (1, 4 + 21, 40) and torch.isfinite(logits).all()\n"
+        "assert all(0 <= i < 40 for i in ids)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
