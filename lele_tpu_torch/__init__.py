@@ -6,13 +6,16 @@ module layout and names, so each module here has a counterpart there:
 - ``lele_tpu_torch.params``    JAX param pytree (numpy leaves) → torch tensors
 - ``lele_tpu_torch.features``  audio front-end: framing, fbank, LFR, CMVN
 - ``lele_tpu_torch.models``    SenseVoice w8a16 (the main path)
+- ``lele_tpu_torch.runtime``   length bucketing
+- ``lele_tpu_torch.utils``     the WAV parser
 - ``lele_tpu_torch.kernels``   hand-written Hopper kernels (CUDA C++ under
                                ``csrc/``), each beside its plain PyTorch version
 - ``lele_tpu_torch.serving``   ``SenseVoiceEngine``
 
 A kernel wrapper takes its plain version only for a tensor that lies on the
-CPU; for a CUDA tensor it launches the kernel or raises. Nothing here imports
-jax.
+CPU; for a CUDA tensor it launches the kernel or raises. Entry points run on
+the card; the CPU is taken only when the caller passes ``device="cpu"``.
+Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
@@ -23,5 +26,9 @@ __version__ = "0.1.0"
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The first CUDA card; raises where there is none (a caller that wants
+    the CPU passes device="cpu" to the entry point)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card found: the port runs on the card; pass "
+                           "device='cpu' to run its plain versions on the CPU")
+    return torch.device("cuda", 0)

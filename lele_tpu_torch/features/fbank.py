@@ -4,22 +4,55 @@
 symmetric Hann window → zero-pad to n_fft → rFFT (float32) → power
 spectrum → 80-bin HTK mel (a plain matmul) → log(max(x, 1e-5)) → LFR → CMVN.
 All frames at once, on the device the PCM lies on. The window and the mel
-filterbank come from the JAX package's numpy-only `filters` module.
+filterbank come from the port's `filters` module.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from lele_tpu.features.fbank import FbankConfig
-from lele_tpu.features.filters import hann_window, mel_filterbank
-
 from .cmvn import cmvn
+from .filters import hann_window, mel_filterbank
 from .framing import frame_signal
 from .lfr import lfr_stack
 
 __all__ = ["FbankConfig", "FbankFrontend", "fbank_features"]
+
+
+@dataclass
+class FbankConfig:
+    """The front-end's settings (those of lele_tpu/features/fbank.py)."""
+
+    sample_rate: int = 16000
+    n_mels: int = 80
+    frame_length_ms: float = 25.0
+    frame_shift_ms: float = 10.0
+    f_min: float = 20.0
+    preemphasis: float = 0.97
+    scale: float = 32768.0
+    log_floor: float = 1e-5
+    lfr_m: int = 7
+    lfr_n: int = 6
+    apply_lfr: bool = True
+    apply_cmvn: bool = True
+
+    @property
+    def frame_len(self) -> int:
+        return int(self.sample_rate * self.frame_length_ms / 1000.0)
+
+    @property
+    def hop_len(self) -> int:
+        return int(self.sample_rate * self.frame_shift_ms / 1000.0)
+
+    @property
+    def n_fft(self) -> int:
+        return 1024 if self.frame_len > 400 else 512
+
+    def num_frames(self, n_samples: int) -> int:
+        return (n_samples - self.frame_len) // self.hop_len + 1
 
 
 class FbankFrontend:

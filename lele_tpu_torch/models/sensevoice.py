@@ -25,8 +25,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from lele_tpu.runtime.bucketing import max_bucket_samples, pad_pcm
-
 from .. import default_device
 from ..features import FbankConfig, FbankFrontend, fbank_features
 from ..kernels import (
@@ -40,6 +38,7 @@ from ..kernels import (
 )
 from ..kernels.quant_matmul import quantize_weight_int8
 from ..kernels.sanm_block import fsmn_conv, layer_view
+from ..runtime.bucketing import max_bucket_samples, pad_pcm
 from .common import (
     Params,
     init_layer_norm,
@@ -246,7 +245,9 @@ def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
 @dataclass
 class SenseVoiceModel:
     """Front-end + encoder on one device; `forward_fn()(params, pcm)` runs
-    waveform → logits with no host round trip."""
+    waveform → logits with no host round trip. `device` defaults to
+    `default_device()`, which raises where there is no CUDA card: the CPU
+    is taken only when the caller passes device="cpu"."""
 
     cfg: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
     params: Params | None = None

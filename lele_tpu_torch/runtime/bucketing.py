@@ -1,0 +1,49 @@
+"""Length bucketing for variable-length audio (the port's copy of what it
+needs from lele_tpu/runtime/bucketing.py).
+
+Each audio length pads up to one of a few buckets, so a model sees a small
+set of input shapes; the true length travels beside the padded PCM and masks
+the padding downstream.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+# powers-of-√2-ish audio buckets in seconds at 16 kHz: ≤29% padding waste
+DEFAULT_AUDIO_BUCKETS_S = (1, 2, 3, 5, 7, 10, 15, 20, 30, 45, 60)
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(buckets[-1])
+
+
+def max_bucket_samples(
+    sr: int = 16000, buckets_s: Sequence[int] = DEFAULT_AUDIO_BUCKETS_S
+) -> int:
+    return int(buckets_s[-1]) * sr
+
+
+def pad_pcm(
+    pcm: np.ndarray, sr: int = 16000, buckets_s: Sequence[int] = DEFAULT_AUDIO_BUCKETS_S
+) -> tuple[np.ndarray, int]:
+    """→ (padded_pcm, true_len), zero-padded to the smallest bucket that
+    holds it. Audio longer than the largest bucket raises."""
+    n = len(pcm)
+    limit = max_bucket_samples(sr, buckets_s)
+    if n > limit:
+        raise ValueError(
+            f"audio of {n} samples ({n / sr:.1f}s) exceeds the largest bucket "
+            f"({buckets_s[-1]}s); long-form audio needs transcribe_long"
+        )
+    target = bucket_for(n, [b * sr for b in buckets_s])
+    if n == target:
+        return np.asarray(pcm, np.float32), n
+    out = np.zeros(target, np.float32)
+    out[:n] = pcm
+    return out, n

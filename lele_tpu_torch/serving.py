@@ -8,14 +8,13 @@ from typing import Any
 
 import numpy as np
 
-from lele_tpu.utils.wav import decode_wav_bytes
+from .utils.wav import decode_wav_bytes
 
 
 def decode_wav(data: bytes) -> tuple[np.ndarray, int]:
-    """WAV bytes → (mono f32 samples, sample_rate), by the pure-Python parser
-    of lele_tpu.utils.wav (its native decoder sits in a package that imports
-    jax)."""
-    return decode_wav_bytes(data, label="<request>", try_native=False)
+    """WAV bytes → (mono f32 samples, sample_rate), by the port's pure-Python
+    parser."""
+    return decode_wav_bytes(data, label="<request>")
 
 
 def resample(pcm: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
@@ -32,7 +31,9 @@ def resample(pcm: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
 @dataclass
 class SenseVoiceEngine:
-    """recognize(wav_bytes) → token ids (or text with a tokenizer)."""
+    """recognize(wav_bytes) → token ids (or text with a tokenizer). With no
+    model it builds a random-weight `SenseVoiceModel` on `default_device()`,
+    which raises where there is no CUDA card."""
 
     model: Any = None
     tokenizer: Any = None

@@ -175,9 +175,10 @@ def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
 
 
 def test_port_runs_without_jax():
-    """The card machine has no JAX: the port must import and run without it."""
+    """The card machine has no JAX: the port must import and run without it,
+    and without the JAX package."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
         "from lele_tpu_torch.models import *\n"
         "from lele_tpu_torch.serving import SenseVoiceEngine\n"
@@ -191,8 +192,8 @@ def test_port_runs_without_jax():
         "logits = m.forward_fn()(m.params, pcm)\n"
         "assert logits.shape == (1, 4 + 21, 40) and torch.isfinite(logits).all()\n"
         "assert all(0 <= i < 40 for i in ids)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()\n"
-        "               if v is not None)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
