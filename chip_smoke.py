@@ -6,18 +6,30 @@
 1. builds every kernel under lele_tpu_torch/csrc/ with nvcc;
 2. prints the card's name and power limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and in its working types;
-4. drives the main path at full width: SenseVoice w8a16 (50 layers, d512,
-   vocab 25,055, random weights from a seed) behind SenseVoiceEngine,
+   main paths' shapes and in their working types: the w8a16 GEMM, layer and
+   stack; the dynamic-quantized int8 GEMM; the exact-DQL SAN-M stack, layer
+   by layer on the plain version's own activations, and whole;
+4. drives the native main path at full width: SenseVoice w8a16 (50 layers,
+   d512, vocab 25,055, random weights from a seed) behind SenseVoiceEngine,
    answering three WAV requests (1.0 s, 4.3 s, 10 s), and checks from the
    launch counts that every kernel ran; then holds the 10 s logits of the
    kernel path against the plain path;
-5. times each kernel and its plain version, and the 10 s forward, with CUDA
-   events (median of warm runs);
-6. prints one JSON line of kernels, and last {"ok": true, "device": ...}.
+5. times each kernel, its plain version, its bound on the card and, where one
+   PyTorch call computes the same product, that call, with CUDA events
+   (median of warm runs); and the native 10 s forward;
+6. drives the compiled main path at full width: the SenseVoiceSmall-layout
+   int8 ONNX graph (50 layers, d512, 4 heads, ffn 2048, vocab 25,055, int8
+   CTC head, random weights from a seed) behind SenseVoiceOnnx, answering
+   three requests (1.0 s, 4.3 s, 10 s) on the fused kernels, with launch
+   counts and pattern hits checked; holds its 10 s logits against the per-op
+   path compiled from the same bytes; times compile, request and RTF on both;
+   traces three compiled 10 s forwards with torch.profiler and prints the
+   device's busy share and time by kernel;
+7. prints one JSON line of kernels, the card, and last
+   {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
-check fails. Imports no jax.
+check fails. Imports no jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -31,13 +43,34 @@ import time
 import wave
 
 SEED = 0
+GRAPH_SEED = 2026
 SR = 16000
 REQUEST_SECONDS = (1.0, 4.3, 10.0)
 T_MAIN = 171  # 10 s: 998 fbank frames → 167 LFR frames + 4 prefix frames
 T_RAGGED = 87  # 4.3 s padded to the 5 s bucket: 83 LFR + 4, of which 76 valid
 VALID_RAGGED = 76
+# the compiled graph's rows: SenseVoiceOnnx pads PCM to steps of 32 LFR
+# frames of audio; 10 s → 192 frames + 4 prefix, 171 valid; 4.3 s → 96 + 4
+T_DQL = 196
+VALID_DQL = 171
+T_DQL_RAGGED = 100
+VALID_DQL_RAGGED = 76
 GEMM_SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
 TIMED_RUNS = 20
+# NVIDIA's data sheet, H100 SXM, dense: HBM 3.35 TB/s; bf16 989 TFLOP/s,
+# int8 1,979 TOP/s, f32 outside the tensor cores 67 TFLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# kernel 4 whole against its plain version: one moved int8 code in an early
+# layer carries through the 50 DQL layers at the graph's quantization noise
+# (a 1e-7 relative perturbation of the input moves the plain stack by
+# mean|d| 0.021 std, max 0.023 max|ref|: scripts/torch_port_dql_noise.py)
+STACK_NOISE_MEAN = 0.05
+STACK_NOISE_MAX = 0.1
+# the compiled 10 s logits, fused vs per-op, at the same noise (the probe
+# reads MAE 0.025 std and argmax agreement 0.94-0.96 for a 1e-7 input step)
+LOGIT_NOISE_MAE = 0.05
+LOGIT_NOISE_AGREE = 0.90
 
 
 class Checks:
@@ -101,6 +134,66 @@ def time_ms(fn, runs: int = TIMED_RUNS, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host-clock time of fn() (which ends in a device sync), warm."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, ops: dict[str, float]) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(got, ref):
+    """(max|d|, max|ref|, mean|d| / std(ref))."""
+    d = (got - ref).abs()
+    return d.max().item(), ref.abs().max().item(), (d.mean() / ref.std()).item()
+
+
+def random_dql_stack(L, D, F, k, dev, gen):
+    """Stacked exact-DQL layer operands at full width, from a generator."""
+    import torch
+
+    st = {}
+    for key, k_, n_ in (("qkv", D, 3 * D), ("out", D, D), ("ffn1", D, F), ("ffn2", F, D)):
+        wq = torch.randint(-127, 128, (L, k_, n_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        st[key] = {"wq": wq, "colsum": wq.to(torch.int32).sum(1, keepdim=True, dtype=torch.int32),
+                   "ws": torch.full((L, 1, n_), 1.0 / (127 * k_ ** 0.5), device=dev),
+                   "b": 0.02 * torch.randn((L, 1, n_), generator=gen, device=dev)}
+    for key in ("norm1", "norm2"):
+        st[key] = {"g": 1 + 0.1 * torch.randn((L, 1, D), generator=gen, device=dev),
+                   "b": 0.1 * torch.randn((L, 1, D), generator=gen, device=dev)}
+    st["fsmn"] = torch.randn((L, k, D), generator=gen, device=dev) / k ** 0.5
+    return st
+
+
+def dql_masks(L, T, n_valid, dev):
+    """The graph's [L, T] attention key bias (-1e4 past the valid rows) and
+    FSMN value mask."""
+    import torch
+
+    bias = torch.zeros((L, T), device=dev)
+    bias[:, n_valid:] = -1e4
+    vmask = torch.zeros((L, T), device=dev)
+    vmask[:, :n_valid] = 1.0
+    return bias, vmask
+
+
+def layer_slice(stacked, i):
+    return {k: ({kk: vv[i:i + 1] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i:i + 1]) for k, v in stacked.items()}
+
+
 def main() -> int:
     import torch
 
@@ -121,6 +214,8 @@ def main() -> int:
         prepare_w8_params,
         stack_layer_params,
     )
+    from lele_tpu_torch.models.checkpoints import SenseVoiceOnnx
+    from lele_tpu_torch.onnx.synth import build_sanm_int8_model
     from lele_tpu_torch.serving import SenseVoiceEngine
 
     # the plain versions are the oracle: full f32 products, no TF32
@@ -155,6 +250,7 @@ def main() -> int:
         model.params["ctc"]["wq8"]))
     print(f"  model: {cfg.n_layers} layers, d{cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{wbytes / 1e6:.1f} MB of int8 weights resident")
+    L, D, F, H, FK = cfg.n_layers, cfg.d_model, cfg.ffn_dim, cfg.n_heads, cfg.fsmn_kernel
 
     err = {name: 0.0 for name in K.KERNEL_WRAPPERS}
     print("== 3. kernels vs plain on the card")
@@ -177,11 +273,11 @@ def main() -> int:
                     f"max|d| {d:.3e} <= {tol:g} * {scale:.3e}")
 
     def layer_check(T, n_valid, lp, name, fn, plain):
-        x = torch.randn((T, cfg.d_model), generator=gen, device=dev) * 0.5
+        x = torch.randn((T, D), generator=gen, device=dev) * 0.5
         mask = torch.zeros((T,), device=dev)
         mask[:n_valid] = 1.0
-        got = fn(x, mask, lp, cfg.n_heads, cfg.fsmn_kernel)
-        ref = plain(x, mask, lp, cfg.n_heads, cfg.fsmn_kernel)
+        got = fn(x, mask, lp, H, FK)
+        ref = plain(x, mask, lp, H, FK)
         torch.cuda.synchronize()
         g, r = got[:n_valid], ref[:n_valid]
         d = (g - r).abs().max().item()
@@ -200,6 +296,84 @@ def main() -> int:
     layer_check(T_MAIN, T_MAIN, stacked, "sanm_stack_w8", K.sanm_stack_w8,
                 K.sanm_stack_w8_plain)
 
+    # kernel 5: the same device scale and zero point on both sides, an exact
+    # int32 sum and one f32 epilogue, so the two should agree bit for bit
+    for T in (T_DQL, T_RAGGED):
+        for (k_, n_) in GEMM_SHAPES:
+            wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
+                               dtype=torch.int8)
+            colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+            x = torch.randn((T, k_), generator=gen, device=dev) * 2.0
+            _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+            w_scale = 2.5e-3
+            got = K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, w_scale)
+            ref = K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, w_scale)
+            torch.cuda.synchronize()
+            d = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            err["dq_gemm"] = max(err["dq_gemm"], d)
+            checks.require(got.shape == ref.shape and d <= 1e-6 * scale,
+                           f"dq_gemm [{T},{k_}]x[{k_},{n_}]: max|d| {d:.3e} "
+                           f"<= 1e-6 * {scale:.3e}")
+
+    # the ragged edges: K not a multiple of 16 and an odd N (kernel 5); the
+    # other head dims kernel 4 compiles (32, 64) on two small layers
+    x = torch.randn((5, 130), generator=gen, device=dev)
+    wq = torch.randint(-127, 128, (130, 33), generator=gen, device=dev, dtype=torch.int8)
+    colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+    _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+    got = K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, 1e-2)
+    ref = K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, 1e-2)
+    d, scale, _ = compare(got, ref)
+    checks.require(d <= 1e-6 * scale, f"dq_gemm [5,130]x[130,33]: max|d| {d:.3e} "
+                                      f"<= 1e-6 * {scale:.3e}")
+    for heads in (4, 2):
+        small = random_dql_stack(2, 128, 256, FK, dev, gen)
+        bias, vmask = dql_masks(2, 45, 40, dev)
+        x = torch.randn((45, 128), generator=gen, device=dev)
+        got = K.sanm_stack_dql(x, bias, vmask, small, heads, FK, (FK - 1) // 2)
+        ref = K.sanm_stack_dql_plain(x, bias, vmask, small, heads, FK, (FK - 1) // 2)
+        d, scale, _ = compare(got, ref)
+        checks.require(torch.allclose(got, ref, rtol=2e-2, atol=2e-2 * scale),
+                       f"sanm_stack_dql head dim {128 // heads}, 2 layers, T=45: "
+                       f"max|d|/max|ref| {d / scale:.3e}, rtol 2e-2, atol 2e-2*max|ref|")
+
+    # kernel 4 at full width: each of the 50 layers on the plain version's
+    # own activation (the layer tolerance), then the whole stack
+    dql = random_dql_stack(L, D, F, FK, dev, gen)
+    pad_left = (FK - 1) // 2
+    for T, n_valid in ((T_DQL, VALID_DQL), (T_DQL_RAGGED, VALID_DQL_RAGGED)):
+        bias, vmask = dql_masks(L, T, n_valid, dev)
+        x = torch.randn((T, D), generator=gen, device=dev)
+        worst, ok = 0.0, True
+        for i in range(L):
+            li = layer_slice(dql, i)
+            got = K.sanm_stack_dql(x, bias[i:i + 1], vmask[i:i + 1], li, H, FK, pad_left)
+            ref = K.sanm_stack_dql_plain(x, bias[i:i + 1], vmask[i:i + 1], li, H, FK,
+                                         pad_left)
+            d, scale, _ = compare(got, ref)
+            err["sanm_stack_dql"] = max(err["sanm_stack_dql"], d)
+            worst = max(worst, d / scale)
+            ok = ok and bool(torch.isfinite(got).all()) and torch.allclose(
+                got, ref, rtol=2e-2, atol=2e-2 * scale)
+            x = ref
+        checks.require(ok, f"sanm_stack_dql T={T} valid={n_valid}, each of {L} layers: "
+                           f"max|d|/max|ref| {worst:.3e}, rtol 2e-2, atol 2e-2*max|ref|")
+        x = torch.randn((T, D), generator=gen, device=dev)
+        got = K.sanm_stack_dql(x, bias, vmask, dql, H, FK, pad_left)
+        ref = K.sanm_stack_dql_plain(x, bias, vmask, dql, H, FK, pad_left)
+        noise = K.sanm_stack_dql_plain(x * (1 + 1e-7 * torch.randn(
+            x.shape, generator=gen, device=dev)), bias, vmask, dql, H, FK, pad_left)
+        d, scale, mean = compare(got, ref)
+        nd, _, nmean = compare(noise, ref)
+        checks.require(
+            bool(torch.isfinite(got).all()) and mean <= STACK_NOISE_MEAN
+            and d <= STACK_NOISE_MAX * scale,
+            f"sanm_stack_dql T={T}, {L} layers whole: mean|d| {mean:.3e} std, "
+            f"max|d|/max|ref| {d / scale:.3e} (plain vs plain at a 1e-7 input step: "
+            f"{nmean:.3e} std, {nd / scale:.3e}); gate {STACK_NOISE_MEAN} std, "
+            f"{STACK_NOISE_MAX}")
+
     print("== 4. main path: SenseVoiceEngine.recognize at full width")
     engine = SenseVoiceEngine(model=model)
     requests = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
@@ -212,8 +386,8 @@ def main() -> int:
                        f"request {s} s: {len(ids)} tokens, ids in [0, vocab)")
     n_req = len(requests)
     print(f"  launch counts over {n_req} requests: {launches}")
-    checks.require(launches["sanm_layer_w8"] == cfg.n_layers * n_req,
-                   f"sanm_layer_w8 launched {cfg.n_layers} times per request")
+    checks.require(launches["sanm_layer_w8"] == L * n_req,
+                   f"sanm_layer_w8 launched {L} times per request")
     checks.require(launches["sanm_stack_w8"] == n_req, "sanm_stack_w8 once per request")
     checks.require(launches["w8_gemm"] == n_req, "w8_gemm (CTC head) once per request")
 
@@ -231,7 +405,7 @@ def main() -> int:
     checks.require(agree >= 0.98, f"10 s frame-argmax agreement {agree:.4f} >= 0.98")
 
     print(f"== 5. timings (CUDA events, median of {TIMED_RUNS}; {card})")
-    ms, plain_ms = {}, {}
+    ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
     for (k_, n_) in GEMM_SHAPES:
         x = torch.randn((T_MAIN, k_), generator=gen, device=dev).to(torch.bfloat16)
         wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
@@ -242,19 +416,169 @@ def main() -> int:
         print(f"  w8_gemm [{T_MAIN},{k_}]x[{k_},{n_}] bf16: kernel {a:.4f} ms, "
               f"plain {b:.4f} ms  ({card})")
         ms["w8_gemm"], plain_ms["w8_gemm"] = a, b  # the last is the CTC head
-    x = torch.randn((T_MAIN, cfg.d_model), generator=gen, device=dev) * 0.5
+    # the CTC head's one library call: bf16 x by a weight dequantized to bf16
+    w_bf16 = (wq.float() * ws).to(torch.bfloat16)
+    library_ms["w8_gemm"] = time_ms(lambda: torch.matmul(x, w_bf16))
+    bounds["w8_gemm"] = bound(T_MAIN * k_ * 2 + k_ * n_ + n_ * 4 + T_MAIN * n_ * 4,
+                              {"bf16": 2 * T_MAIN * k_ * n_})
+    x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
     mask = torch.ones((T_MAIN,), device=dev)
-    for name, tree in (("sanm_layer_w8", lp0), ("sanm_stack_w8", stacked)):
+    w8_layer_bytes = D * 3 * D + D * D + D * F + F * D + 4 * (3 * D + D + F + D) * 2 \
+        + 4 * (4 * D + FK * D)
+    w8_layer_ops = 2 * T_MAIN * D * (4 * D + 2 * F) + 4 * T_MAIN * T_MAIN * D
+    for name, tree, n_layers in (("sanm_layer_w8", lp0, 1), ("sanm_stack_w8", stacked, L)):
         fn, plain = K.KERNEL_WRAPPERS[name], getattr(K, f"{name}_plain")
-        ms[name] = time_ms(lambda: fn(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel))
-        plain_ms[name] = time_ms(
-            lambda: plain(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel))
+        ms[name] = time_ms(lambda: fn(x, mask, tree, H, FK))
+        plain_ms[name] = time_ms(lambda: plain(x, mask, tree, H, FK))
+        library_ms[name] = None
+        bounds[name] = bound(n_layers * w8_layer_bytes + 2 * T_MAIN * D * 4,
+                             {"bf16": n_layers * w8_layer_ops})
         print(f"  {name} T={T_MAIN}: kernel {ms[name]:.4f} ms, "
               f"plain {plain_ms[name]:.4f} ms  ({card})")
     f_ms = time_ms(lambda: fwd(model.params, pcm10))
     fp_ms = time_ms(lambda: fwd_plain(model.params, pcm10))
     print(f"  forward_fn 10 s: kernel path {f_ms:.4f} ms (RTF {f_ms / 1e4:.3e}), "
           f"plain path {fp_ms:.4f} ms (RTF {fp_ms / 1e4:.3e})  ({card})")
+    # the w8a16 stack at the compiled path's T, beside kernel 4 below
+    x196 = torch.randn((T_DQL, D), generator=gen, device=dev) * 0.5
+    mask196 = torch.ones((T_DQL,), device=dev)
+    w8_196 = time_ms(lambda: K.sanm_stack_w8(x196, mask196, stacked, H, FK))
+    print(f"  sanm_stack_w8 T={T_DQL}: kernel {w8_196:.4f} ms  ({card})")
+
+    # kernel 5 at the CTC head of the compiled graph, and its library yardstick
+    k_, n_ = GEMM_SHAPES[-1]
+    wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+    colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+    x = torch.randn((T_DQL, k_), generator=gen, device=dev)
+    _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+    ms["dq_gemm"] = time_ms(lambda: K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, 2.5e-3))
+    plain_ms["dq_gemm"] = time_ms(
+        lambda: K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, 2.5e-3))
+    # torch._int_mm takes i8 operands with N a multiple of 8: the head's
+    # 25,055 columns padded to 25,056; it forms the int32 product only
+    a_i8 = (K.quant_matmul.dql_quantize(x, a_scale, a_zp) - 128).to(torch.int8)
+    w_pad = torch.zeros((k_, -(-n_ // 8) * 8), dtype=torch.int8, device=dev)
+    w_pad[:, :n_] = wq
+    try:  # a yardstick only: the port never calls it
+        library_ms["dq_gemm"] = time_ms(lambda: torch._int_mm(a_i8, w_pad))
+    except RuntimeError as e:
+        print(f"  torch._int_mm refused the operands: {e}")
+        library_ms["dq_gemm"] = None
+    bounds["dq_gemm"] = bound(T_DQL * k_ * 4 + k_ * n_ + n_ * 4 + T_DQL * n_ * 4,
+                              {"int8": 2 * T_DQL * k_ * n_})
+    print(f"  dq_gemm [{T_DQL},{k_}]x[{k_},{n_}]: kernel {ms['dq_gemm']:.4f} ms, "
+          f"plain {plain_ms['dq_gemm']:.4f} ms, torch._int_mm (N padded to "
+          f"{w_pad.shape[1]}) {library_ms['dq_gemm']} ms  ({card})")
+    bias, vmask = dql_masks(L, T_DQL, VALID_DQL, dev)
+    x = torch.randn((T_DQL, D), generator=gen, device=dev)
+    ms["sanm_stack_dql"] = time_ms(
+        lambda: K.sanm_stack_dql(x, bias, vmask, dql, H, FK, pad_left))
+    plain_ms["sanm_stack_dql"] = time_ms(
+        lambda: K.sanm_stack_dql_plain(x, bias, vmask, dql, H, FK, pad_left), runs=5)
+    library_ms["sanm_stack_dql"] = None
+    # per layer: int8 weights; colsum, ws and b (4 bytes each per output);
+    # norms and FSMN taps; the [T] key bias and value mask. Then x in, y out
+    dql_bytes = L * (D * 3 * D + D * D + D * F + F * D + 12 * (5 * D + F)
+                     + 4 * (4 * D + FK * D) + 8 * T_DQL) + 2 * T_DQL * D * 4
+    bounds["sanm_stack_dql"] = bound(dql_bytes, {
+        "int8": L * 2 * T_DQL * D * (4 * D + 2 * F),
+        "f32": L * 4 * T_DQL * T_DQL * D})
+    print(f"  sanm_stack_dql T={T_DQL}, {L} layers: kernel {ms['sanm_stack_dql']:.4f} ms, "
+          f"plain {plain_ms['sanm_stack_dql']:.4f} ms  ({card})")
+    for name, (b_ms, by) in bounds.items():
+        print(f"  bound {name}: {b_ms * 1e3:.2f} us by {by}; kernel at "
+              f"{100 * b_ms / ms[name]:.2f}% of it  ({card})")
+
+    print("== 6. compiled main path: SenseVoiceOnnx.transcribe at full width")
+    t0 = time.perf_counter()
+    graph = build_sanm_int8_model(L=50, d=512, h=4, ffn=2048, vocab=25055,
+                                  int8_head=True, seed=GRAPH_SEED)
+    print(f"  graph: {len(graph) / 1e6:.1f} MB of ONNX bytes, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sv = SenseVoiceOnnx(graph, device=dev)
+    sv_ref = SenseVoiceOnnx(graph, device=dev, patterns=[])
+    requests = [synth_speechlike(s, rng) for s in REQUEST_SECONDS]
+    compile_s = {}
+    for s, pcm in zip(REQUEST_SECONDS, requests):  # one trace per bucket
+        t0 = time.perf_counter()
+        sv.transcribe(pcm)
+        compile_s[s] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sv_ref.transcribe(requests[-1])
+    compile_ref_s = time.perf_counter() - t0
+    print(f"  first request per bucket (trace + run): "
+          f"{', '.join(f'{s} s: {v:.2f} s' for s, v in compile_s.items())}; "
+          f"per-op 10 s: {compile_ref_s:.2f} s  ({card})")
+    K.reset_launch_counts()
+    answers = [sv.transcribe(pcm) for pcm in requests]
+    torch.cuda.synchronize()
+    dql_launches = K.launch_counts()
+    vocab = 25055
+    for s, ids in zip(REQUEST_SECONDS, answers):
+        checks.require(len(ids) > 0 and all(0 <= i < vocab for i in ids),
+                       f"compiled request {s} s: {len(ids)} tokens, ids in [0, vocab)")
+    print(f"  launch counts over {n_req} requests: {dql_launches}")
+    checks.require(dql_launches["sanm_stack_dql"] == n_req, "sanm_stack_dql once per request")
+    checks.require(dql_launches["dq_gemm"] == n_req, "dq_gemm (CTC head) once per request")
+    checks.require(all(dql_launches[k] == 0 for k in ("w8_gemm", "sanm_layer_w8",
+                                                      "sanm_stack_w8")),
+                   "no w8a16 kernel on the compiled path")
+    for t_pad, cm in sorted(sv._cms.items()):
+        hits = cm.stats["pattern_hits"]
+        checks.require(hits.get("sanm_fused_layers") == 50
+                       and hits.get("dql_matmul_dataflow", 0) >= 1,
+                       f"pattern hits at {t_pad} frames: {hits}")
+    checks.require(sv_ref._cms and all(not cm.stats["pattern_hits"]
+                                       for cm in sv_ref._cms.values()),
+                   "the per-op path matches no pattern")
+
+    pcm10 = requests[-1]
+    got, ref = sv.logits(pcm10), sv_ref.logits(pcm10)
+    noise = sv_ref.logits(pcm10 * (1 + 1e-7 * np.random.default_rng(SEED + 2)
+                                   .standard_normal(pcm10.size)).astype(np.float32))
+    torch.cuda.synchronize()
+    _, _, mae = compare(got, ref)
+    _, _, n_mae = compare(noise, ref)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    n_agree = (noise.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    checks.require(tuple(got.shape) == (1, VALID_DQL, vocab)
+                   and bool(torch.isfinite(got).all()),
+                   f"compiled 10 s logits {tuple(got.shape)} finite")
+    checks.require(mae <= LOGIT_NOISE_MAE and agree >= LOGIT_NOISE_AGREE,
+                   f"compiled 10 s logits fused vs per-op: MAE {mae:.3e} std, argmax "
+                   f"agreement {agree:.4f} (per-op vs per-op at a 1e-7 PCM step: "
+                   f"{n_mae:.3e} std, {n_agree:.4f}); gate {LOGIT_NOISE_MAE} std, "
+                   f"{LOGIT_NOISE_AGREE}")
+    req_ms = host_ms(lambda: sv.transcribe(pcm10))
+    req_ref_ms = host_ms(lambda: sv_ref.transcribe(pcm10), runs=3)
+    cm10 = sv._cms[max(sv._cms)]
+    inputs10 = sv._inputs(sv._pad_frames(sv.frontend(pcm10), max(sv._cms)), VALID_DQL - 4)
+    graph_ms = time_ms(lambda: cm10(**inputs10))
+    print(f"  10 s request (host clock, median): fused {req_ms:.3f} ms (RTF "
+          f"{req_ms / 1e4:.3e}), per-op {req_ref_ms:.3f} ms (RTF {req_ref_ms / 1e4:.3e}); "
+          f"the fused graph alone {graph_ms:.3f} ms by CUDA events  ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cm10(**inputs10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cm10(**inputs10)
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_time(e):  # the attribute's name moved between torch versions
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else e.self_cuda_time_total
+
+    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
+    dev_us = sum(dev_time(e) for e in rows)
+    print(f"  profile, 3 compiled 10 s forwards: device {dev_us / 3:.1f} us a forward "
+          f"over {span_us / 3:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
+    for e in sorted(rows, key=lambda e: -dev_time(e))[:12]:
+        print(f"    {dev_time(e) / 3:10.1f} us  x{e.count // 3:<5d} {e.key[:90]}")
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -265,19 +589,27 @@ def main() -> int:
     replaces = {
         "w8_gemm": ("lele_tpu_torch/csrc/w8_gemm.cu",
                     "lele_tpu/kernels/quant_matmul.py:267",
-                    "bf16 max|d| <= 1e-3*max|ref|, f32 <= 1e-5*max|ref|"),
+                    "bf16 max|d| <= 1e-3*max|ref|, f32 <= 1e-5*max|ref|", launches),
         "sanm_layer_w8": ("lele_tpu_torch/csrc/sanm_layer.cu",
                           "lele_tpu/kernels/sanm_block.py:110",
-                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows"),
+                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows", launches),
         "sanm_stack_w8": ("lele_tpu_torch/csrc/sanm_layer.cu",
                           "lele_tpu/kernels/sanm_block.py:229",
-                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows"),
+                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows", launches),
+        "dq_gemm": ("lele_tpu_torch/csrc/dq_gemm.cu",
+                    "lele_tpu/kernels/quant_matmul.py:142",
+                    "max|d| <= 1e-6*max|ref|", dql_launches),
+        "sanm_stack_dql": ("lele_tpu_torch/csrc/sanm_dql.cu",
+                           "lele_tpu/kernels/sanm_block.py:434",
+                           "each layer rtol 2e-2, atol 2e-2*max|ref|; whole stack "
+                           f"mean|d| <= {STACK_NOISE_MEAN} std", dql_launches),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err[name], "tolerance": tol,
-         "ms": ms[name], "plain_ms": plain_ms[name]}
-        for name, (src, rep, tol) in replaces.items()
+         "launches": counts[name], "max_abs_err": err[name], "tolerance": tol,
+         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library_ms[name]}
+        for name, (src, rep, tol, counts) in replaces.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

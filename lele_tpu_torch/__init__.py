@@ -5,9 +5,13 @@ module layout and names, so each module here has a counterpart there:
 
 - ``lele_tpu_torch.params``    JAX param pytree (numpy leaves) → torch tensors
 - ``lele_tpu_torch.features``  audio front-end: framing, fbank, LFR, CMVN
-- ``lele_tpu_torch.models``    SenseVoice w8a16 (the main path)
-- ``lele_tpu_torch.runtime``   length bucketing
-- ``lele_tpu_torch.utils``     the WAV parser
+- ``lele_tpu_torch.models``    SenseVoice w8a16, and ``SenseVoiceOnnx`` over a
+                               compiled ONNX graph (``models.checkpoints``)
+- ``lele_tpu_torch.onnx``      wire codec, loader, graph builder, SAN-M synth
+- ``lele_tpu_torch.ops``       ONNX op emitters (numpy when folding, torch
+                               on the device)
+- ``lele_tpu_torch.compiler``  ``compile_model``: trace once, replay after
+- ``lele_tpu_torch.runtime``   ``CompiledModel``, length bucketing
 - ``lele_tpu_torch.kernels``   hand-written Hopper kernels (CUDA C++ under
                                ``csrc/``), each beside its plain PyTorch version
 - ``lele_tpu_torch.serving``   ``SenseVoiceEngine``

@@ -1,0 +1,123 @@
+"""Compiler front door: ONNX model → CompiledModel (counterpart of
+lele_tpu/compiler/__init__.py).
+
+`compile_model(model, input_shapes=..., patterns=None, device=None)` loads
+(a path, bytes or an `OnnxModel`), pins the input signature, and traces the
+graph once on the device (compiler/tracer.py). `patterns=None` takes the
+default patterns (the fused SAN-M stack and the fused DQL GEMM);
+`patterns=[]` gives the per-op path. `device` defaults to the card and
+raises where there is none. The JAX package's mesh, AOT, image-stem and
+precision/compute options have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from .. import default_device
+from ..onnx.loader import DTYPE_MAP, OnnxModel
+from ..runtime.engine import CompiledModel
+from .tracer import GraphTracer
+
+
+class Compiler:
+    def __init__(self):
+        self._overrides: dict[str, Callable] = {}
+        self._patterns: list | None = None
+        self._strict = False
+
+    def with_override(self, op_type: str, fn: Callable) -> "Compiler":
+        self._overrides[op_type] = fn
+        return self
+
+    def with_pattern(self, fn: Callable) -> "Compiler":
+        """Prepend a pattern to the default list."""
+        from .patterns import DEFAULT_PATTERNS
+
+        if self._patterns is None:
+            self._patterns = list(DEFAULT_PATTERNS)
+        self._patterns.insert(0, fn)
+        return self
+
+    def with_patterns(self, patterns: Sequence) -> "Compiler":
+        """Replace the pattern list ([] gives the per-op path)."""
+        self._patterns = list(patterns)
+        return self
+
+    def with_strict(self, strict: bool = True) -> "Compiler":
+        self._strict = strict
+        return self
+
+    def compile(self, model: OnnxModel | str | Path | bytes,
+                input_shapes: dict[str, Sequence[int]] | None = None,
+                dim_values: dict[str, int] | None = None,
+                device: torch.device | str | None = None) -> CompiledModel:
+        if isinstance(model, (bytes, bytearray, memoryview)):
+            model = OnnxModel.from_bytes(bytes(model))
+        elif not isinstance(model, OnnxModel):
+            model = OnnxModel.load(model)
+        if model.model.functions:
+            raise NotImplementedError("models with local functions are not "
+                                      "ported yet (the JAX package inlines them)")
+        device = torch.device(device) if device is not None else default_device()
+        specs = resolve_input_specs(model, input_shapes, dim_values)
+        tracer = GraphTracer(model, overrides=self._overrides,
+                             patterns=self._patterns, strict=self._strict)
+        trace = tracer.build(specs, device)
+        return CompiledModel(trace, specs, input_order=model.input_names(),
+                             output_names=model.output_names(), stats=tracer.stats)
+
+
+def resolve_input_specs(
+    model: OnnxModel,
+    input_shapes: dict[str, Sequence[int]] | None = None,
+    dim_values: dict[str, int] | None = None,
+) -> dict[str, tuple[tuple, Any]]:
+    """Static input signature from graph metadata + user overrides. Dynamic
+    dims (dim_param or 0/-1) must be pinned via input_shapes (per input) or
+    dim_values (per named dim)."""
+    input_shapes = input_shapes or {}
+    dim_values = dim_values or {}
+    specs: dict[str, tuple[tuple, Any]] = {}
+    for name, onnx_dt, dims in model.input_info():
+        np_dt = DTYPE_MAP.get(onnx_dt, np.dtype(np.float32))
+        if name in input_shapes:
+            shape = tuple(int(d) for d in input_shapes[name])
+        else:
+            shape = []
+            for d in dims:
+                if isinstance(d, str):
+                    if d not in dim_values:
+                        raise ValueError(
+                            f"input {name!r} has dynamic dim {d!r}; pass "
+                            f"input_shapes={{{name!r}: (...)}} or "
+                            f"dim_values={{{d!r}: N}}")
+                    shape.append(int(dim_values[d]))
+                elif d <= 0:
+                    raise ValueError(f"input {name!r} has unknown dim; pass input_shapes")
+                else:
+                    shape.append(int(d))
+            shape = tuple(shape)
+        specs[name] = (shape, np_dt)
+    return specs
+
+
+def compile_model(
+    model: OnnxModel | str | Path | bytes,
+    input_shapes: dict[str, Sequence[int]] | None = None,
+    dim_values: dict[str, int] | None = None,
+    overrides: dict[str, Callable] | None = None,
+    strict: bool = False,
+    patterns: Sequence | None = None,
+    device: torch.device | str | None = None,
+) -> CompiledModel:
+    c = Compiler()
+    for k, v in (overrides or {}).items():
+        c.with_override(k, v)
+    if patterns is not None:
+        c.with_patterns(patterns)
+    return c.with_strict(strict).compile(model, input_shapes, dim_values, device)

@@ -1,0 +1,22 @@
+// C entry for the dynamic-quantized int8 GEMM (kernel 5; design and bounds
+// in dq_gemm.cuh). Replaces lele_tpu/kernels/quant_matmul.py:
+// fused_dq_matmul_pallas.
+#include "dq_gemm.cuh"
+
+// y[M,N] f32 = ((q(x) - 128) @ w - (zp - 128) * colsum) * (a_scale * w_scale),
+// q(x) = clamp(rint(x / a_scale) + zp, 0, 255). x f32 [M,K], w int8 [K,N],
+// colsum int32 [N]; a_scale and a_zp are f32 scalars on the device; qbuf is
+// int8 scratch [M, K] for the codes of x. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int dq_gemm(const void* x, const void* w, const void* colsum,
+                       const void* a_scale, const void* a_zp, float w_scale, void* y,
+                       void* qbuf, int M, int K, int N, void* stream) {
+  const lele::DqlSrc src{static_cast<const float*>(a_scale),
+                         static_cast<const float*>(a_zp), nullptr};
+  const lele::DqEpilogue ep{static_cast<const int*>(colsum), nullptr, w_scale,
+                            nullptr, nullptr, 0, nullptr};
+  lele::launch_dq_gemm(static_cast<const float*>(x), static_cast<int8_t*>(qbuf),
+                       static_cast<const int8_t*>(w), static_cast<float*>(y), M, K, N, src, ep,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,11 +6,20 @@ at first use. Each wrapper keeps a launch count as an attribute
 `reset_launch_counts()` sets them to 0.
 """
 
-from .quant_matmul import quantize_weight_int8, w8_matmul, w8_matmul_plain  # noqa: F401
+from .quant_matmul import (  # noqa: F401
+    dynamic_quantize_u8,
+    fused_dq_matmul,
+    fused_dq_matmul_plain,
+    quantize_weight_int8,
+    w8_matmul,
+    w8_matmul_plain,
+)
 from .sanm_block import (  # noqa: F401
     fused_layer_available,
     sanm_layer_w8,
     sanm_layer_w8_plain,
+    sanm_stack_dql,
+    sanm_stack_dql_plain,
     sanm_stack_w8,
     sanm_stack_w8_plain,
 )
@@ -19,6 +28,8 @@ KERNEL_WRAPPERS = {
     "w8_gemm": w8_matmul,
     "sanm_layer_w8": sanm_layer_w8,
     "sanm_stack_w8": sanm_stack_w8,
+    "dq_gemm": fused_dq_matmul,
+    "sanm_stack_dql": sanm_stack_dql,
 }
 
 

@@ -8,8 +8,8 @@ library is never loaded. `build()` starts one `nvcc` per source, all at
 once. Nothing here runs when the module is imported.
 
 Every C entry point takes pointers and the CUDA stream as `void*`, ints as
-`int`, and returns `cudaGetLastError()` after its launches; `check()` raises
-on a non-zero code.
+`int`, floats as `float`, and returns `cudaGetLastError()` after its
+launches; `check()` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -117,3 +117,4 @@ def check(stem: str, name: str, code: int) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float

@@ -1,6 +1,7 @@
-"""Weight-only int8 GEMM (w8a16): counterpart of lele_tpu/kernels/quant_matmul.py.
+"""int8 GEMMs: counterpart of lele_tpu/kernels/quant_matmul.py.
 
-`w8_matmul` replaces `w8_matmul_pallas` (lele_tpu/kernels/quant_matmul.py:267).
+Weight-only int8 (w8a16): `w8_matmul` replaces `w8_matmul_pallas`
+(lele_tpu/kernels/quant_matmul.py:267).
 The kernel is csrc/w8_gemm.cu (design and bounds in csrc/w8_gemm.cuh):
 bf16 x runs on the tensor cores (`mma.sync`, f32 accumulate), f32 x as true
 f32 FMA; int8 weights are converted in registers and the per-output-channel
@@ -8,8 +9,23 @@ scale is applied in the epilogue. On the main path it is the CTC head,
 [T, 512] x [512, 25055]. JAX's default there is its jnp dequant-dot; the
 port launches the kernel.
 
-`w8_matmul` takes the plain version only for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises. `w8_matmul.launches` counts launches.
+Dynamic-quantized int8 (a8w8, exact ONNX DynamicQuantizeLinear semantics):
+`fused_dq_matmul` replaces `fused_dq_matmul_pallas`
+(lele_tpu/kernels/quant_matmul.py:142). The kernel is csrc/dq_gemm.cu
+(design and bounds in csrc/dq_gemm.cuh): x f32 is quantized once to u8
+codes shifted to i8 (a pass over x into a scratch buffer the wrapper
+allocates), multiplied on the int8 tensor cores (`mma.sync` m16n8k32, s32
+sums, exact), and the epilogue subtracts
+(zp−128)·colsum and scales by a_scale·w_scale. a_scale and a_zp are device
+scalars the kernel reads through pointers, so no linear waits on the host.
+Quantization divides by the scale, as ONNX and the JAX package's jnp path
+do (`_fused_dq_matmul_jnp`); the Pallas kernel multiplies by the reciprocal,
+which lands one step off at rounding boundaries. On the compiled main path
+it is the CTC head, [T, 512] x [512, 25055].
+
+Each wrapper takes its plain version only for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises. `w8_matmul.launches` and
+`fused_dq_matmul.launches` count launches.
 """
 
 from __future__ import annotations
@@ -21,6 +37,8 @@ from . import _build
 _STEM = "w8_gemm"
 _AMODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_DQ_STEM = "dq_gemm"
+_dq_fn = None
 
 
 def quantize_weight_int8(w: torch.Tensor, axis: int = 0):
@@ -83,3 +101,105 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -> torch
 
 
 w8_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dynamic-quantized int8 GEMM (kernel: csrc/dq_gemm.cu)
+
+
+def dql_scale_zp(x: torch.Tensor):
+    """ONNX DynamicQuantizeLinear's scale and zero point of x, as f32
+    device scalars: min and max clamped to include 0, scale = range / 255,
+    zp = round_half_even(clip(-min / scale, 0, 255)) (scale 1 for an
+    all-zero x)."""
+    x = x.to(torch.float32)
+    x_min = torch.clamp(x.min(), max=0.0)
+    x_max = torch.clamp(x.max(), min=0.0)
+    # a device divisor: on a card torch divides by a host scalar as a
+    # multiplication by its reciprocal, which is not the IEEE quotient
+    scale = (x_max - x_min) / torch.full_like(x_max, 255.0)
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    zp = torch.round(torch.clamp(-x_min / safe, 0.0, 255.0))
+    return scale, zp
+
+
+def dql_quantize(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
+    """u8 codes of x as f32: clip(round_half_even(x / scale) + zp, 0, 255),
+    by division, as ONNX specifies."""
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return torch.clamp(torch.round(x.to(torch.float32) / safe) + zp, 0.0, 255.0)
+
+
+def dynamic_quantize_u8(x: torch.Tensor):
+    """ONNX DynamicQuantizeLinear: (q f32 in [0, 255], scale, zp f32), as
+    lele_tpu/kernels/quant_matmul.py:dynamic_quantize_u8."""
+    scale, zp = dql_scale_zp(x)
+    return dql_quantize(x, scale, zp), scale, zp
+
+
+def fused_dq_matmul_plain(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Tensor,
+                          a_scale: torch.Tensor, a_zp: torch.Tensor,
+                          w_scale: float) -> torch.Tensor:
+    """((q(x) − 128) @ wq − (zp − 128)·colsum) · (a_scale·w_scale), f32 [M, N].
+
+    The int32 sum is formed as an exact float64 product (|sum| < 2^53), then
+    rounded to f32 once, as the int32 → f32 cast rounds it."""
+    ai = dql_quantize(x, a_scale, a_zp).to(torch.float64) - 128.0
+    acc = ai @ wq.to(torch.float64)
+    acc = acc - (a_zp.to(torch.float64) - 128.0) * w_colsum.reshape(1, -1).to(torch.float64)
+    return acc.to(torch.float32) * (a_scale * w_scale)
+
+
+def _dq_check(x, wq, w_colsum, a_scale, a_zp):
+    if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0]:
+        raise ValueError(f"fused_dq_matmul: shapes {tuple(x.shape)} @ {tuple(wq.shape)}")
+    if (x.dtype != torch.float32 or wq.dtype != torch.int8
+            or w_colsum.dtype != torch.int32):
+        raise TypeError(f"fused_dq_matmul: dtypes {x.dtype}, {wq.dtype}, {w_colsum.dtype}")
+    if w_colsum.numel() != wq.shape[1]:
+        raise ValueError("fused_dq_matmul: one column sum per output channel")
+    for t in (a_scale, a_zp):
+        if t.numel() != 1 or t.dtype != torch.float32:
+            raise ValueError("fused_dq_matmul: a_scale and a_zp are f32 scalars")
+    for t in (wq, w_colsum, a_scale, a_zp):
+        if t.device != x.device:
+            raise ValueError("fused_dq_matmul: tensors on different devices")
+
+
+def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float):
+    """Launch csrc/dq_gemm.cu on x's card and stream."""
+    global _dq_fn
+    if not x.is_cuda:
+        raise ValueError(f"fused_dq_matmul_kernel: x lies on {x.device}, not on a CUDA card")
+    _dq_check(x, wq, w_colsum, a_scale, a_zp)
+    if _dq_fn is None:
+        P, I, F = _build.P, _build.I, _build.F
+        _dq_fn = _build.bind(_DQ_STEM, "dq_gemm", [P, P, P, P, P, F, P, P, I, I, I, P])
+    x, wq, w_colsum = x.contiguous(), wq.contiguous(), w_colsum.contiguous()
+    a_scale, a_zp = a_scale.contiguous(), a_zp.contiguous()
+    M, K = x.shape
+    N = wq.shape[1]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _dq_fn(x.data_ptr(), wq.data_ptr(), w_colsum.data_ptr(), a_scale.data_ptr(),
+                  a_zp.data_ptr(), float(w_scale), y.data_ptr(), codes.data_ptr(), M, K, N,
+                  stream)
+    _build.check(_DQ_STEM, "dq_gemm", code)
+    fused_dq_matmul.launches += 1
+    return y
+
+
+def fused_dq_matmul(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Tensor,
+                    a_scale: torch.Tensor, a_zp: torch.Tensor,
+                    w_scale: float) -> torch.Tensor:
+    """x f32 [M, K], wq i8 [K, N] (u8 weights pre-shifted by −128), w_colsum
+    i32 [N], a_scale and a_zp f32 device scalars (from `dql_scale_zp`),
+    w_scale a float → f32 [M, N]."""
+    if x.device.type == "cpu":
+        _dq_check(x, wq, w_colsum, a_scale, a_zp)
+        return fused_dq_matmul_plain(x, wq, w_colsum, a_scale, a_zp, w_scale)
+    return fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale)
+
+
+fused_dq_matmul.launches = 0

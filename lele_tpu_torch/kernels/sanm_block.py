@@ -1,6 +1,6 @@
-"""SAN-M encoder layer, w8a16: counterpart of lele_tpu/kernels/sanm_block.py.
+"""SAN-M encoder layers: counterpart of lele_tpu/kernels/sanm_block.py.
 
-Replaces two TPU kernels:
+Replaces three TPU kernels. w8a16 (int8 weights, f32/bf16 activations):
 
 - `sanm_layer_w8` ← `sanm_layer_w8_pallas` (lele_tpu/kernels/sanm_block.py:110):
   one layer, LN1 → w8 qkv → FSMN over V·mask + per-head attention → w8 out
@@ -18,10 +18,30 @@ The TPU kernel's weight prefetch across layers is not ported yet.
 The plain versions follow the JAX jnp block (models/sensevoice.py:321-397)
 with the kernel's numerics: bf16-rounded operands, f32 sums, masked keys
 replaced by -1e9, the FSMN written as shifted adds (no cuDNN conv, so no
-TF32 on a card). A wrapper takes its plain version only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises. `sanm_layer_w8.launches`
-counts layer launches (a stack of L layers adds L), `sanm_stack_w8.launches`
-counts stack calls.
+TF32 on a card).
+
+Exact ONNX DynamicQuantizeLinear semantics (the compiled-ONNX path):
+
+- `sanm_stack_dql` ← `sanm_stack_dql_pallas`
+  (lele_tpu/kernels/sanm_block.py:434): L layers whose four linears are
+  DQL → MatMulInteger → dequant, with f32 attention under the graph's
+  additive key bias, and the FSMN over values times the graph's value mask
+  with the graph's left pad. The kernel is csrc/sanm_dql.cu (design and
+  bounds there). It pads no rows, so every min/max covers exactly the T
+  rows of the graph; the bucket's padded frames are real rows of the graph
+  and enter them. The plain version follows `_stack_kernel_dql` with the
+  same arithmetic: division in quantization, exact int32 sums (as float64
+  products), f32 attention. It is written op for op as the per-op trace of
+  the same graph computes the layer (the ONNX emitters' LayerNormalization,
+  Softmax and Conv), so on one device the fused and per-op paths give the
+  same bits: DQL's global min/max makes a deep int8 graph amplify any
+  difference in the last bit (see PERF.md), and the two paths are the
+  oracle for each other.
+
+A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
+it launches the kernel or raises. `sanm_layer_w8.launches` counts layer
+launches (a stack of L layers adds L); `sanm_stack_w8.launches` and
+`sanm_stack_dql.launches` count stack calls.
 """
 
 from __future__ import annotations
@@ -32,7 +52,7 @@ import torch
 
 from ..params import tree_map
 from . import _build
-from .quant_matmul import w8_matmul_plain
+from .quant_matmul import dql_quantize, dql_scale_zp, w8_matmul_plain
 
 _STEM = "sanm_layer"
 _HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu
@@ -241,3 +261,194 @@ def sanm_stack_w8(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
 
 sanm_layer_w8.launches = 0
 sanm_stack_w8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exact-DQL stack (kernel: csrc/sanm_dql.cu)
+
+_DQL_STEM = "sanm_dql"
+DQL_HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_dql.cu
+DQL_T_MAX = 2048  # csrc/sanm_dql.cu DQ_ATT_TMAX: a block's score rows in shared memory
+_dql_fn = None
+
+# a stacked linear's operands, in the C entry's order
+_DQL_LIN = ("wq", "colsum", "ws", "b")
+
+
+def sanm_stack_dql_supported(D: int, n_heads: int | None, T: int) -> bool:
+    """Whether the kernel takes these widths: a head dim it compiles and at
+    most DQL_T_MAX rows (with n_heads None: whether any head split could)."""
+    if not 1 <= T <= DQL_T_MAX:
+        return False
+    if n_heads is None:
+        return any(D % hd == 0 for hd in DQL_HEAD_DIMS)
+    return D % n_heads == 0 and D // n_heads in DQL_HEAD_DIMS
+
+
+def _dql_linear_plain(x, p, i: int):
+    """Layer i of a stacked DQL linear: exact DQL → int8 dot → dequant + bias
+    (the Pallas `_dql_dot` on unpadded rows)."""
+    scale, zp = dql_scale_zp(x)
+    ai = dql_quantize(x, scale, zp).to(torch.float64) - 128.0
+    acc = ai @ p["wq"][i].to(torch.float64)
+    acc = acc - (zp.to(torch.float64) - 128.0) * p["colsum"][i].to(torch.float64)
+    return acc.to(torch.float32) * (scale * p["ws"][i]) + p["b"][i]
+
+
+def _ln_eps(x, g, b, eps: float):
+    """ONNX LayerNormalization over the last axis, as its emitter computes it."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return (x - mu) * (1.0 / torch.sqrt(var + eps)) * g + b
+
+
+def _fsmn_dql_plain(vm: torch.Tensor, w: torch.Tensor, pad_left: int) -> torch.Tensor:
+    """The graph's depthwise FSMN conv over vm [T, D] with taps w [k, D] and
+    pad_left zero rows before (k - 1 - pad_left after), as the Conv emitter
+    computes it (cuDNN's TF32 off)."""
+    k, D = w.shape
+    xt = torch.nn.functional.pad(vm.t()[None], (pad_left, k - 1 - pad_left))
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    allow_tf32=False):
+        out = torch.nn.functional.conv1d(xt, w.t().reshape(D, 1, k), groups=D)
+    return out[0].t()
+
+
+def sanm_stack_dql_plain(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor,
+                         stacked, n_heads: int, fsmn_k: int, pad_left: int,
+                         eps1: float = 1e-5, eps2: float = 1e-5,
+                         att_scale: float | None = None) -> torch.Tensor:
+    """The stack one layer after another, in plain PyTorch (arguments as
+    `sanm_stack_dql`)."""
+    T, D = x.shape
+    L = stacked["qkv"]["wq"].shape[0]
+    hd = D // n_heads
+    if stacked["fsmn"].shape[1] != fsmn_k:
+        raise ValueError("sanm_stack_dql: fsmn weight does not have fsmn_k taps")
+    if att_scale is None:
+        att_scale = 1.0 / math.sqrt(hd)
+    x = x.to(torch.float32)
+    for i in range(L):
+        h = _ln_eps(x, stacked["norm1"]["g"][i], stacked["norm1"]["b"][i], eps1)
+        q, k, v = _dql_linear_plain(h, stacked["qkv"], i).split(D, dim=-1)
+        fsmn = _fsmn_dql_plain(v * vmask[i].reshape(T, 1), stacked["fsmn"][i],
+                               pad_left)
+        qh = q.reshape(1, T, n_heads, hd).permute(0, 2, 1, 3)  # [1, H, T, hd]
+        kh = k.reshape(1, T, n_heads, hd).permute(0, 2, 3, 1)  # [1, H, hd, T]
+        vh = v.reshape(1, T, n_heads, hd).permute(0, 2, 1, 3)
+        sc = torch.matmul(qh, kh) * att_scale + attn_bias[i].reshape(1, 1, 1, T)
+        att = torch.softmax(sc, dim=-1)
+        ctx = torch.matmul(att, vh).permute(0, 2, 1, 3).reshape(T, D)
+        x1 = x + _dql_linear_plain(ctx + fsmn, stacked["out"], i)
+        h2 = _ln_eps(x1, stacked["norm2"]["g"][i], stacked["norm2"]["b"][i], eps2)
+        f1 = torch.relu(_dql_linear_plain(h2, stacked["ffn1"], i))
+        x = x1 + _dql_linear_plain(f1, stacked["ffn2"], i)
+    return x
+
+
+def _dql_operands(stacked, device, L: int, D: int, F: int, fsmn_k: int):
+    """The stack's tensors in the C entry's order, checked for device,
+    dtype, contiguity and shape."""
+    want = []
+    for key, k_, n_ in (("qkv", D, 3 * D), ("out", D, D), ("ffn1", D, F),
+                        ("ffn2", F, D)):
+        for name, dt, shape in (("wq", torch.int8, (L, k_, n_)),
+                                ("colsum", torch.int32, (L, 1, n_)),
+                                ("ws", torch.float32, (L, 1, n_)),
+                                ("b", torch.float32, (L, 1, n_))):
+            want.append((f"{key}.{name}", stacked[key][name], dt, shape))
+    for key in ("norm1", "norm2"):
+        for name in ("g", "b"):
+            want.append((f"{key}.{name}", stacked[key][name], torch.float32, (L, 1, D)))
+    want.append(("fsmn", stacked["fsmn"], torch.float32, (L, fsmn_k, D)))
+    out = {}
+    for label, t, dt, shape in want:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"sanm_stack_dql: {label} must be contiguous on {device}")
+        if t.dtype != dt:
+            raise TypeError(f"sanm_stack_dql: {label} is {t.dtype}, wants {dt}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"sanm_stack_dql: {label} has shape {tuple(t.shape)}, "
+                             f"wants {shape}")
+        out[label] = t
+    return out
+
+
+def _dql_check(x, attn_bias, vmask, stacked, fsmn_k: int, pad_left: int):
+    """The operands both versions take: (checked stack tensors, bias and
+    value mask as contiguous f32 [L, T] on x's device)."""
+    T, D = x.shape
+    L = stacked["qkv"]["wq"].shape[0]
+    F = stacked["ffn1"]["wq"].shape[-1]
+    if not 0 <= pad_left < fsmn_k:
+        raise ValueError(f"sanm_stack_dql: pad_left {pad_left} for {fsmn_k} taps")
+    ops = _dql_operands(stacked, x.device, L, D, F, fsmn_k)
+    bias = attn_bias.to(device=x.device, dtype=torch.float32).contiguous()
+    vm = vmask.to(device=x.device, dtype=torch.float32).contiguous()
+    if bias.shape != (L, T) or vm.shape != (L, T):
+        raise ValueError("sanm_stack_dql: attn_bias and vmask must be [L, T]")
+    return ops, bias, vm
+
+
+def sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads: int, fsmn_k: int,
+                          pad_left: int, eps1: float, eps2: float,
+                          att_scale: float | None):
+    """Launch csrc/sanm_dql.cu on x's card and stream; returns a fresh
+    f32 [T, D] that every layer updated in place."""
+    global _dql_fn
+    if not x.is_cuda:
+        raise ValueError(f"sanm_stack_dql: x lies on {x.device}, not on a CUDA card")
+    T, D = x.shape
+    if not sanm_stack_dql_supported(D, n_heads, T):
+        raise ValueError(f"sanm_stack_dql: D={D}, {n_heads} heads, T={T} are outside "
+                         f"the kernel (head dims {DQL_HEAD_DIMS}, T <= {DQL_T_MAX})")
+    ops, bias, vm = _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
+    L, F = bias.shape[0], ops["ffn1.wq"].shape[-1]
+    if att_scale is None:
+        att_scale = 1.0 / math.sqrt(D // n_heads)
+    if _dql_fn is None:
+        P, I, Fl = _build.P, _build.I, _build.F
+        _dql_fn = _build.bind(_DQL_STEM, "sanm_stack_dql",
+                              [P, I, I, I, I, I, I, I, Fl, Fl, Fl, P, P]
+                              + [P] * 16 + [P] * 4 + [P] + [P] * 5 + [P, P])
+    y = x.to(torch.float32).contiguous().clone()
+    scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
+               for n in (D, 3 * D, D, F)]  # h, qkv, ctx + fsmn, f1
+    scratch.append(torch.empty((T, max(D, F)), dtype=torch.int8, device=x.device))
+    minmax = torch.empty((L, 4, 2), dtype=torch.int32, device=x.device)
+    lin = [ops[f"{key}.{name}"].data_ptr() for key in ("qkv", "out", "ffn1", "ffn2")
+           for name in _DQL_LIN]
+    norms = [ops[f"{key}.{name}"].data_ptr() for key in ("norm1", "norm2")
+             for name in ("g", "b")]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _dql_fn(y.data_ptr(), T, D, n_heads, F, L, fsmn_k, pad_left,
+                   float(eps1), float(eps2), float(att_scale),
+                   bias.data_ptr(), vm.data_ptr(), *lin, *norms,
+                   ops["fsmn"].data_ptr(), *(s.data_ptr() for s in scratch),
+                   minmax.data_ptr(), stream)
+    _build.check(_DQL_STEM, "sanm_stack_dql", code)
+    sanm_stack_dql.launches += 1
+    return y
+
+
+def sanm_stack_dql(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor,
+                   stacked, n_heads: int, fsmn_k: int, pad_left: int,
+                   eps1: float = 1e-5, eps2: float = 1e-5,
+                   att_scale: float | None = None) -> torch.Tensor:
+    """L SAN-M layers with exact compiled-int8 (DQL/a8w8) semantics.
+
+    x f32 [T, D]; attn_bias f32 [L, T] (added over the key axis); vmask f32
+    [L, T] (multiplies values ahead of the FSMN); stacked: per linear
+    {"wq" i8 [L, K, N], "colsum" i32 [L, 1, N], "ws" f32 [L, 1, N], "b" f32
+    [L, 1, N]} under qkv/out/ffn1/ffn2, norm1/norm2 {"g", "b"} f32 [L, 1, D],
+    fsmn f32 [L, k, D]. Returns f32 [T, D]. Both versions take the same
+    operands, checked alike."""
+    if x.device.type == "cpu":
+        _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
+        return sanm_stack_dql_plain(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
+                                    pad_left, eps1, eps2, att_scale)
+    return sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
+                                 pad_left, eps1, eps2, att_scale)
+
+
+sanm_stack_dql.launches = 0

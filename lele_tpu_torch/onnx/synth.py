@@ -1,0 +1,242 @@
+"""Synthetic real-topology SAN-M int8 ONNX graphs (numpy only): the port's
+copy of `build_sanm_int8_model` / `build_sanm_int8_graph` /
+`serialize_sanm_graph` from lele_tpu/onnx/synth.py. The same seed gives the
+same bytes as the JAX package's builder.
+
+The graph has the FunASR int8 export layout: interleaved
+DynamicQuantizeLinear → MatMulInteger → Cast/Mul/Add chains, the 4-input
+signature (speech, speech_lengths, language, textnorm), FSMN depthwise convs,
+prefix query frames and a dynamic-length position slice. At
+`L=50, d=512, h=4, ffn=2048, vocab=25055, int8_head=True` it is the
+SenseVoiceSmall-class flagship at full width, with random weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import builder as ob
+
+
+def build_sanm_int8_model(
+    L: int = 4,
+    d: int = 128,
+    h: int = 4,
+    ffn: int = 256,
+    vocab: int = 512,
+    din: int = 560,
+    maxlen: int = 2048,
+    fsmn_k: int = 11,
+    seed: int = 2026,
+    rng: np.random.Generator | None = None,
+    int8_head: bool = False,
+) -> bytes:
+    """int8_head: emit the CTC projection as a DQL → MatMulInteger chain
+    too, as real int8 exports do for the [d, vocab] head. Default False
+    gives the bytes of fixtures/sensevoice.onnx's layout."""
+    nodes, inits, inputs, outputs = build_sanm_int8_graph(
+        L=L, d=d, h=h, ffn=ffn, vocab=vocab, din=din, maxlen=maxlen,
+        fsmn_k=fsmn_k, seed=seed, rng=rng, int8_head=int8_head,
+    )
+    return serialize_sanm_graph(nodes, inits, inputs, outputs)
+
+
+def serialize_sanm_graph(nodes, inits, inputs, outputs) -> bytes:
+    return ob.build_model_bytes(
+        nodes,
+        inputs=inputs,
+        outputs=outputs,
+        initializers=[ob.tensor_from_array(v, k) for k, v in inits.items()],
+        name="sensevoice_sanm_int8",
+    )
+
+
+def build_sanm_int8_graph(
+    L: int = 4,
+    d: int = 128,
+    h: int = 4,
+    ffn: int = 256,
+    vocab: int = 512,
+    din: int = 560,
+    maxlen: int = 2048,
+    fsmn_k: int = 11,
+    seed: int = 2026,
+    rng: np.random.Generator | None = None,
+    int8_head: bool = False,
+):
+    """The graph before serialization — (nodes, inits, inputs, outputs) as
+    plain builder dicts, for callers that perturb it before serializing
+    (export variants the SAN-M matcher must fuse or bail on)."""
+    rng = rng if rng is not None else np.random.default_rng(seed)
+
+    def w(*shape, scale=None):
+        s = scale if scale is not None else 1.0 / np.sqrt(shape[0])
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    def q_u8(arr):
+        """Symmetric-ish u8 weight quantization with zp=128 (the clean i8
+        case real exports use for most tensors)."""
+        s = float(np.abs(arr).max() / 127.0) or 1.0
+        q = np.clip(np.round(arr / s) + 128, 0, 255).astype(np.uint8)
+        return q, np.float32(s)
+
+    inits: dict[str, np.ndarray] = {}
+    nodes: list[dict] = []
+
+    def int8_chain(x_name, out_name, w_f32, bias, tag, interleave):
+        """DQL → MatMulInteger → (interleaved) Mul(scale) / Cast → Mul →
+        Add bias — the real export layout where chain nodes are separated
+        by other computation."""
+        wq, wsc = q_u8(w_f32)
+        inits[f"w_{tag}"] = wq
+        inits[f"wz_{tag}"] = np.uint8(128)
+        inits[f"ws_{tag}"] = wsc
+        inits[f"b_{tag}"] = bias
+        chain = [
+            ob.node("DynamicQuantizeLinear", [x_name],
+                    [f"q_{tag}", f"as_{tag}", f"az_{tag}"]),
+            ob.node("MatMulInteger",
+                    [f"q_{tag}", f"w_{tag}", f"az_{tag}", f"wz_{tag}"],
+                    [f"mm_{tag}"]),
+            ob.node("Mul", [f"as_{tag}", f"ws_{tag}"], [f"cs_{tag}"]),
+            ob.node("Cast", [f"mm_{tag}"], [f"mf_{tag}"], to=1),
+            ob.node("Mul", [f"mf_{tag}", f"cs_{tag}"], [f"sc_{tag}"]),
+            ob.node("Add", [f"sc_{tag}", f"b_{tag}"], [out_name]),
+        ]
+        merged = []
+        ext = list(interleave)
+        for c in chain:
+            merged.append(c)
+            if ext:
+                merged.append(ext.pop(0))
+        merged.extend(ext)
+        nodes.extend(merged)
+
+    inits.update({
+        "lang_table": w(16, din, scale=0.05),
+        "tn_table": w(4, din, scale=0.05),
+        "event_emo": w(1, 2, din, scale=0.05),
+        "embed_w": w(din, d),
+        "embed_b": np.zeros(d, np.float32),
+        "pos_table": w(1, maxlen, d, scale=0.02),
+        "in_scale": np.float32(np.sqrt(d) / np.sqrt(din)),
+        "after_g": np.ones(d, np.float32),
+        "after_b": np.zeros(d, np.float32),
+        "ctc_w": w(d, vocab),
+        "ctc_b": np.zeros(vocab, np.float32),
+        "c4": np.asarray([4], np.int64),
+        "axes1": np.asarray([1], np.int64),
+        "starts0": np.asarray([0], np.int64),
+        "zero_i": np.asarray(0, np.int64),
+        "inv_sqrt_hd": np.float32(1.0 / np.sqrt(d // h)),
+        "neg1e4": np.float32(-1e4),
+        "one_f": np.float32(1.0),
+        "shape_heads": np.asarray([1, -1, h, d // h], np.int64),
+        "shape_flat": np.asarray([1, -1, d], np.int64),
+        "c4_end": np.asarray([2], np.int64),
+        "one_i": np.asarray(1, np.int64),
+    })
+    nodes += [
+        # prefix query frames from language/textnorm ids (real 4-input sig)
+        ob.node("Gather", ["lang_table", "language"], ["lang_e"]),
+        ob.node("Unsqueeze", ["lang_e", "axes1"], ["lang_e3"]),
+        ob.node("Gather", ["tn_table", "textnorm"], ["tn_e"]),
+        ob.node("Unsqueeze", ["tn_e", "axes1"], ["tn_e3"]),
+        ob.node("Concat", ["lang_e3", "event_emo", "tn_e3"], ["prefix"],
+                axis=1),
+        ob.node("Concat", ["prefix", "speech"], ["x_in"], axis=1),
+        ob.node("Mul", ["x_in", "in_scale"], ["x_s"]),
+        ob.node("MatMul", ["x_s", "embed_w"], ["x_e0"]),
+        ob.node("Add", ["x_e0", "embed_b"], ["x_e"]),
+        # dynamic-length position slice: Shape→Slice→Slice chain (folds at
+        # trace time — the static/dynamic split the tracer exists for)
+        ob.node("Shape", ["x_e"], ["xshape"]),
+        ob.node("Slice", ["xshape", "axes1", "c4_end", "starts0"], ["t4_v"]),
+        ob.node("Slice", ["pos_table", "starts0", "t4_v", "axes1"], ["pos"]),
+        ob.node("Add", ["x_e", "pos"], ["x_0"]),
+        # valid-length mask from speech_lengths
+        ob.node("Squeeze", ["t4_v"], ["t4_s"]),
+        ob.node("Add", ["speech_lengths", "c4"], ["len4"]),
+        ob.node("Range", ["zero_i", "t4_s", "one_i"], ["t_range"]),
+        ob.node("Less", ["t_range", "len4"], ["mask_b"]),
+        ob.node("Cast", ["mask_b"], ["mask_f"], to=1),
+        ob.node("Unsqueeze", ["mask_f", "starts0"], ["mask2"]),   # [1,T4]
+    ]
+
+    x = "x_0"
+    for li in range(L):
+        t = f"l{li}"
+        inits[f"g1_{t}"] = np.ones(d, np.float32)
+        inits[f"bt1_{t}"] = np.zeros(d, np.float32)
+        inits[f"g2_{t}"] = np.ones(d, np.float32)
+        inits[f"bt2_{t}"] = np.zeros(d, np.float32)
+        inits[f"fsmn_w_{t}"] = w(d, 1, fsmn_k, scale=1.0 / np.sqrt(fsmn_k))
+        nodes.append(ob.node("LayerNormalization",
+                             [x, f"g1_{t}", f"bt1_{t}"], [f"ln1_{t}"]))
+        # qkv int8 chain, interleaved with the mask-prep nodes of this block
+        side = [
+            ob.node("Sub", ["one_f", "mask2"], [f"imask_{t}"]),
+            ob.node("Mul", [f"imask_{t}", "neg1e4"], [f"mbias0_{t}"]),
+            ob.node("Unsqueeze", [f"mbias0_{t}", "axes1"], [f"mbias1_{t}"]),
+            ob.node("Unsqueeze", [f"mbias1_{t}", "axes1"], [f"mbias_{t}"]),
+        ]
+        int8_chain(f"ln1_{t}", f"qkv_{t}",
+                   w(d, 3 * d), np.zeros(3 * d, np.float32), f"qkv{li}",
+                   side)
+        nodes += [
+            ob.node("Split", [f"qkv_{t}"], [f"q_{t}", f"k_{t}", f"v_{t}"],
+                    axis=2, num_outputs=3),
+            ob.node("Reshape", [f"q_{t}", "shape_heads"], [f"qr_{t}"]),
+            ob.node("Transpose", [f"qr_{t}"], [f"qh_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("Reshape", [f"k_{t}", "shape_heads"], [f"kr_{t}"]),
+            ob.node("Transpose", [f"kr_{t}"], [f"kh_{t}"], perm=[0, 2, 3, 1]),
+            ob.node("Reshape", [f"v_{t}", "shape_heads"], [f"vr_{t}"]),
+            ob.node("Transpose", [f"vr_{t}"], [f"vh_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("MatMul", [f"qh_{t}", f"kh_{t}"], [f"sc0_{t}"]),
+            ob.node("Mul", [f"sc0_{t}", "inv_sqrt_hd"], [f"sc1_{t}"]),
+            ob.node("Add", [f"sc1_{t}", f"mbias_{t}"], [f"sc2_{t}"]),
+            ob.node("Softmax", [f"sc2_{t}"], [f"at_{t}"], axis=-1),
+            ob.node("MatMul", [f"at_{t}", f"vh_{t}"], [f"cx0_{t}"]),
+            ob.node("Transpose", [f"cx0_{t}"], [f"cx1_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("Reshape", [f"cx1_{t}", "shape_flat"], [f"cx_{t}"]),
+            # FSMN memory conv on masked values
+            ob.node("Unsqueeze", ["mask2", "axes1"], [f"mv0_{t}"]),  # [1,1,T4]
+            ob.node("Transpose", [f"v_{t}"], [f"vt_{t}"], perm=[0, 2, 1]),
+            ob.node("Mul", [f"vt_{t}", f"mv0_{t}"], [f"vm_{t}"]),
+            ob.node("Conv", [f"vm_{t}", f"fsmn_w_{t}"], [f"fs0_{t}"],
+                    group=d, pads=[(fsmn_k - 1) // 2, fsmn_k // 2]),
+            ob.node("Transpose", [f"fs0_{t}"], [f"fs_{t}"], perm=[0, 2, 1]),
+            ob.node("Add", [f"cx_{t}", f"fs_{t}"], [f"ao_{t}"]),
+        ]
+        int8_chain(f"ao_{t}", f"att_{t}",
+                   w(d, d), np.zeros(d, np.float32), f"out{li}", [])
+        nodes.append(ob.node("Add", [x, f"att_{t}"], [f"x1_{t}"]))
+        nodes.append(ob.node("LayerNormalization",
+                             [f"x1_{t}", f"g2_{t}", f"bt2_{t}"], [f"ln2_{t}"]))
+        int8_chain(f"ln2_{t}", f"ff1_{t}",
+                   w(d, ffn), np.zeros(ffn, np.float32), f"ff1{li}", [])
+        nodes.append(ob.node("Relu", [f"ff1_{t}"], [f"fr_{t}"]))
+        int8_chain(f"fr_{t}", f"ff2_{t}",
+                   w(ffn, d), np.zeros(d, np.float32), f"ff2{li}", [])
+        nodes.append(ob.node("Add", [f"x1_{t}", f"ff2_{t}"], [f"x2_{t}"]))
+        x = f"x2_{t}"
+
+    nodes.append(
+        ob.node("LayerNormalization", [x, "after_g", "after_b"], ["xf"]))
+    if int8_head:
+        ctc_w = inits.pop("ctc_w")
+        ctc_b = inits.pop("ctc_b")
+        int8_chain("xf", "logits", ctc_w, ctc_b, "ctc", [])
+    else:
+        nodes += [
+            ob.node("MatMul", ["xf", "ctc_w"], ["lg0"]),
+            ob.node("Add", ["lg0", "ctc_b"], ["logits"]),
+        ]
+    inputs = [
+        ob.value_info("speech", 1, [1, "T", din]),
+        ob.value_info("speech_lengths", 7, [1]),
+        ob.value_info("language", 6, [1]),
+        ob.value_info("textnorm", 6, [1]),
+    ]
+    outputs = [ob.value_info("logits", 1, [1, "T4", vocab])]
+    return nodes, inits, inputs, outputs

@@ -1,0 +1,11 @@
+"""ONNX op emitters of the port (counterpart of lele_tpu.ops): numpy when the
+tracer folds a node, torch when the node runs on the device.
+
+Importing this package registers every emitter in ``registry.OPS``: the ones
+the SAN-M int8 graph uses, and Identity, Div and ReduceSum, which its common
+export variants add. Any other op type follows the JAX dispatch rule: a
+warning and an empty value, or a raise in strict mode.
+"""
+
+from . import activation_ops, math_ops, nn_ops, quant_ops, tensor_ops  # noqa: F401
+from .registry import OPS, OpContext, make_ctx, op  # noqa: F401

@@ -1,0 +1,28 @@
+"""Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
+Relu and Softmax."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .registry import OpContext, op
+
+
+@op("Relu")
+def relu(ctx: OpContext, x):
+    if ctx.is_fold:
+        return np.maximum(x, np.asarray(0, dtype=np.asarray(x).dtype))
+    return torch.relu(x)
+
+
+@op("Softmax", foldable=False)
+def softmax(ctx: OpContext, x):
+    if ctx.opset >= 13:
+        return torch.softmax(x, dim=ctx.attr("axis", -1))
+    # opset < 13: flatten to 2-D at axis, softmax over the trailing block
+    axis = ctx.attr("axis", 1)
+    shape = tuple(x.shape)
+    axis = axis if axis >= 0 else axis + len(shape)
+    lead = int(np.prod(shape[:axis])) if axis else 1
+    return torch.softmax(x.reshape(lead, -1), dim=-1).reshape(shape)

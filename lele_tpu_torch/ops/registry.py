@@ -1,0 +1,142 @@
+"""Op registry + emitter context (counterpart of lele_tpu/ops/registry.py).
+
+An emitter runs one ONNX node. It is written once against ``ctx.xp``:
+numpy when the tracer folds a node whose inputs are all static, torch when
+the node is dynamic (its inputs are tensors on the model's device). Emitters
+branch on ``ctx.is_fold`` only where the two libraries' names differ.
+
+Dispatch precedence is the JAX package's: pattern rewrite → user override
+→ builtin emitter → fallback (warning + zeros, or a raise in strict mode).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+
+from ..onnx import schema, tensor_to_array
+from ..onnx.schema import Proto
+
+OPS: dict[str, "OpDef"] = {}  # default-domain (ai.onnx) emitters, by op_type
+
+_DEFAULT_DOMAINS = ("", "ai.onnx")
+
+
+def canon_domain(domain: str | None) -> str:
+    """'' and 'ai.onnx' both name the default operator set."""
+    return "" if (domain or "") in _DEFAULT_DOMAINS else domain
+
+
+@dataclass
+class OpDef:
+    name: str
+    fn: Callable
+    foldable: bool  # safe to evaluate with numpy at trace time
+    # input positions that must stay host-static (shape/axes arguments); the
+    # tracer never converts these to device values
+    static_args: tuple = ()
+
+
+def op(name: str, foldable: bool = True, static_args: tuple = ()):
+    def deco(fn):
+        OPS[name] = OpDef(name, fn, foldable, static_args)
+        return fn
+
+    return deco
+
+
+def lookup_op(domain: str | None, op_type: str) -> "OpDef | None":
+    """Default-domain nodes find their emitter; the port has no contrib
+    (non-default domain) emitters yet."""
+    if canon_domain(domain):
+        return None
+    return OPS.get(op_type)
+
+
+def parse_attr(a: Proto) -> Any:
+    t = a.type
+    if t == schema.ATTR_INT:
+        return int(a.i)
+    if t == schema.ATTR_FLOAT:
+        return float(a.f)
+    if t == schema.ATTR_STRING:
+        s = a.s
+        if isinstance(s, memoryview):  # wire's >256B zero-copy fast path
+            s = bytes(s)
+        return s.decode() if isinstance(s, bytes) else s
+    if t == schema.ATTR_INTS:
+        return [int(v) for v in a.ints]
+    if t == schema.ATTR_FLOATS:
+        return [float(v) for v in a.floats]
+    if t == schema.ATTR_TENSOR:
+        return tensor_to_array(a.t)
+    if t == schema.ATTR_GRAPH:
+        return a.g
+    if t == schema.ATTR_STRINGS:
+        return [
+            v.decode() if isinstance(v, (bytes, memoryview)) else v for v in a.strings
+        ]
+    if t == schema.ATTR_TENSORS:
+        return [tensor_to_array(v) for v in a.tensors]
+    if t == schema.ATTR_GRAPHS:
+        return list(a.graphs)
+    # untyped attribute (some exporters omit type): best effort
+    if a.has("i"):
+        return int(a.i)
+    if a.has("f"):
+        return float(a.f)
+    if a.has("ints"):
+        return [int(v) for v in a.ints]
+    return None
+
+
+@dataclass
+class OpContext:
+    """Per-node emitter context.
+
+    xp      numpy (folding) or torch (a dynamic node)
+    attrs   parsed node attributes
+    opset   model's ai.onnx opset version (semantics switch per opset)
+    node    the NodeProto wrapper
+    tracer  the GraphTracer
+    """
+
+    xp: Any
+    attrs: dict[str, Any]
+    opset: int
+    node: Proto | None = None
+    tracer: Any = None
+
+    @property
+    def is_fold(self) -> bool:
+        return self.xp is np
+
+    def attr(self, name: str, default: Any = None) -> Any:
+        return self.attrs.get(name, default)
+
+    def attr_ints(self, name: str, default=None) -> list[int] | None:
+        v = self.attrs.get(name)
+        if v is None:
+            return default
+        return [int(x) for x in v] if isinstance(v, (list, tuple)) else [int(v)]
+
+
+def make_ctx(xp, node: Proto, opset: int, tracer=None) -> OpContext:
+    attrs = {a.name: parse_attr(a) for a in node.attribute}
+    return OpContext(xp=xp, attrs=attrs, opset=opset, node=node, tracer=tracer)
+
+
+def static_ints(v, what: str = "value") -> list[int]:
+    """Require a trace-time static integer vector (shapes, axes, ...)."""
+    if v is None:
+        raise ValueError(f"{what}: missing")
+    if not isinstance(v, (np.ndarray, np.generic, int, list, tuple)):
+        raise ValueError(f"{what} must be trace-time static, got a device value "
+                         "(a runtime graph input); constant folding should "
+                         "have resolved it")
+    arr = np.asarray(v)
+    if arr.dtype == object or not np.issubdtype(arr.dtype, np.number):
+        raise ValueError(f"{what}: not numeric")
+    return [int(x) for x in np.atleast_1d(arr)]

@@ -1,2 +1,2 @@
-"""Runtime of the port (counterpart of lele_tpu.runtime): length bucketing
-(runtime.bucketing)."""
+"""Runtime of the port (counterpart of lele_tpu.runtime): `CompiledModel`
+(runtime.engine) and length bucketing (runtime.bucketing)."""

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""A/B of two versions of the port's exact-DQL kernels on one card.
+
+    python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR]
+
+Builds csrc/dq_gemm.cu and csrc/sanm_dql.cu from both directories (the new
+one defaults to lele_tpu_torch/csrc), binds each through the port's own
+wrappers (the C entries must share their signatures), and times in turns,
+old new new old, with CUDA events (median of 30 warm runs each):
+
+- `dq_gemm` at the compiled graph's four layer linears and its CTC head,
+  T = 196 rows (10 s of audio);
+- `sanm_stack_dql`, 50 layers at d512, ffn 2048, T = 196.
+
+It checks that the two versions give the same bits (both compute the same
+exact arithmetic) and prints the card's name and power limit beside every
+time. Random operands come from a seed on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+STEMS = ("dq_gemm", "sanm_dql")
+T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
+SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
+
+
+def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
+    from lele_tpu_torch.kernels import _build
+
+    procs = {}
+    for stem in STEMS:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+               str(out / f"lib{stem}.so"), str(csrc / f"{stem}.cu")]
+        procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for stem, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"{csrc}/{stem}.cu:\n{log}")
+        lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
+        lib.lele_error_string.argtypes = [ctypes.c_int]
+        lib.lele_error_string.restype = ctypes.c_char_p
+        libs[stem] = lib
+    return libs
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.kernels import _build, quant_matmul, sanm_block
+
+    old = Path(argv[0]).resolve()
+    new = Path(argv[1]).resolve() if len(argv) > 1 else REPO / "lele_tpu_torch" / "csrc"
+    card = cs.card_identity()
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "old").mkdir()
+        (Path(d) / "new").mkdir()
+        libs = {"old": build(old, Path(d) / "old"), "new": build(new, Path(d) / "new")}
+
+        def use(version):
+            for stem in STEMS:
+                _build._libs[stem] = libs[version][stem]
+            quant_matmul._dq_fn = None
+            sanm_block._dql_fn = None
+
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        cases = []
+        for k_, n_ in SHAPES:
+            wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
+                               dtype=torch.int8)
+            colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+            x = torch.randn((T, k_), generator=gen, device=dev)
+            _, s, zp = K.dynamic_quantize_u8(x)
+            cases.append((f"dq_gemm [{T},{k_}]x[{k_},{n_}]",
+                          lambda x=x, wq=wq, c=colsum, s=s, zp=zp:
+                          K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3)))
+        st = cs.random_dql_stack(L, D, F, FK, dev, gen)
+        bias, vmask = cs.dql_masks(L, T, 171, dev)
+        x = torch.randn((T, D), generator=gen, device=dev)
+        cases.append((f"sanm_stack_dql T={T} L={L}",
+                      lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2)))
+        for name, fn in cases:
+            times = {"old": [], "new": []}
+            outs = {}
+            for version in ("old", "new", "new", "old"):
+                use(version)
+                try:
+                    outs[version] = fn()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    print(f"{name}: the {version} version fails: {e}")
+                    return 1
+                times[version].append(cs.time_ms(fn, runs=30))
+            same = torch.equal(outs["old"], outs["new"])
+            print(f"{name}: old {statistics.mean(times['old']):.4f} ms "
+                  f"({', '.join(f'{t:.4f}' for t in times['old'])}), new "
+                  f"{statistics.mean(times['new']):.4f} ms "
+                  f"({', '.join(f'{t:.4f}' for t in times['new'])}), same bits {same}  ({card})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -138,12 +138,19 @@ def test_default_device_raises_without_a_card(no_card):
 def test_entry_points_raise_without_a_card(no_card):
     """Each entry point called without device="cpu" raises; it does not
     carry on on the CPU."""
+    from lele_tpu_torch.compiler import compile_model
     from lele_tpu_torch.models import SenseVoiceConfig, SenseVoiceModel
+    from lele_tpu_torch.models.checkpoints import SenseVoiceOnnx
+    from lele_tpu_torch.onnx.synth import build_sanm_int8_model
     from lele_tpu_torch.serving import SenseVoiceEngine
 
+    graph = build_sanm_int8_model(L=1, d=64, h=2, ffn=96, vocab=32)
     for make in (lambda: SenseVoiceModel(SenseVoiceConfig(n_layers=1)),
-                 lambda: SenseVoiceEngine()):
+                 lambda: SenseVoiceEngine(),
+                 lambda: SenseVoiceOnnx(graph),
+                 lambda: compile_model(graph, input_shapes={"speech": (1, 8, 560)})):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()
-    # the same model runs where the caller asks for the CPU
-    SenseVoiceModel(SenseVoiceConfig(n_layers=1), device="cpu")
+    # the same calls run where the caller asks for the CPU
+    SenseVoiceOnnx(graph, device="cpu")
+    compile_model(graph, input_shapes={"speech": (1, 8, 560)}, device="cpu")

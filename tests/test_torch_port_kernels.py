@@ -129,7 +129,28 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     torch.testing.assert_close(
         K.sanm_stack_w8(x, mask, st, cfg.n_heads, cfg.fsmn_kernel),
         K.sanm_stack_w8_plain(x, mask, st, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
-    assert K.launch_counts() == {"w8_gemm": 0, "sanm_layer_w8": 0, "sanm_stack_w8": 0}
+    wq = lp0["qkv"]["wq8"]
+    colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+    _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+    torch.testing.assert_close(
+        K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, 0.01),
+        K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, 0.01), rtol=0, atol=0)
+    D, F = cfg.d_model, st["ffn1"]["wq8"].shape[-1]
+    dql = {key: {"wq": st[key]["wq8"], "colsum": st[key]["wq8"].to(torch.int32).sum(
+                     1, keepdim=True, dtype=torch.int32),
+                 "ws": torch.full((2, 1, n), 1e-3), "b": torch.zeros((2, 1, n))}
+           for key, n in (("qkv", 3 * D), ("out", D), ("ffn1", F), ("ffn2", D))}
+    dql.update(norm1={"g": torch.ones((2, 1, D)), "b": torch.zeros((2, 1, D))},
+               norm2={"g": torch.ones((2, 1, D)), "b": torch.zeros((2, 1, D))},
+               fsmn=st["fsmn"]["w"].float().contiguous())
+    bias, vmask = torch.zeros((2, 9)), torch.ones((2, 9))
+    torch.testing.assert_close(
+        K.sanm_stack_dql(x, bias, vmask, dql, cfg.n_heads, cfg.fsmn_kernel, 5),
+        K.sanm_stack_dql_plain(x, bias, vmask, dql, cfg.n_heads, cfg.fsmn_kernel, 5),
+        rtol=0, atol=0)
+    assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
+    assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
+                                      "dq_gemm", "sanm_stack_dql"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -146,7 +167,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "import lele_tpu_torch.kernels as K\n"
         "from lele_tpu_torch.kernels import _build\n"
         "assert not _build._libs\n"
-        "assert K.launch_counts() == {'w8_gemm': 0, 'sanm_layer_w8': 0, 'sanm_stack_w8': 0}\n"
+        "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
+        "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql')}\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -176,10 +176,20 @@ def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
 
 def test_port_runs_without_jax():
     """The card machine has no JAX: the port must import and run without it,
-    and without the JAX package."""
+    and without the JAX package. Both slices run: the native engine and the
+    compiled graph behind SenseVoiceOnnx."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
+        "from lele_tpu_torch.models.checkpoints import SenseVoiceOnnx\n"
+        "from lele_tpu_torch.onnx.synth import build_sanm_int8_model\n"
+        "sv = SenseVoiceOnnx(build_sanm_int8_model(L=2, d=64, h=2, ffn=96, vocab=40,\n"
+        "                                          int8_head=True), device='cpu')\n"
+        "pcm = np.random.default_rng(1).standard_normal(30000).astype(np.float32) * 0.1\n"
+        "ids = sv.transcribe(pcm)\n"
+        "assert all(0 <= i < 40 for i in ids)\n"
+        "hits = sv._compiled(32).stats['pattern_hits']\n"
+        "assert hits['sanm_fused_layers'] == 2 and hits['dql_matmul_dataflow'] == 1, hits\n"
         "from lele_tpu_torch.models import *\n"
         "from lele_tpu_torch.serving import SenseVoiceEngine\n"
         "cfg = SenseVoiceConfig(n_layers=2, d_model=64, n_heads=2, ffn_dim=96,\n"
