@@ -25,7 +25,20 @@
    path compiled from the same bytes; times compile, request and RTF on both;
    traces three compiled 10 s forwards with torch.profiler and prints the
    device's busy share and time by kernel;
-7. prints one JSON line of kernels, the card, and last
+7. holds kernel 6 (the LSTM recurrence) against its plain version at the
+   Silero shapes: the native offline scan (S = 1,875 and 18,750 chunks,
+   B = 1, H = 128), the fixture's graph (S = 3 and 2), a ragged one;
+8. drives Silero VAD native at full width (d_hidden 128, convs
+   128/64/64/128, random weights from a seed): `SileroVad.speech_probs`
+   and `segments` on 1, 10 and 60 s of audio at 16 kHz and 10 s at 8 kHz,
+   one `lstm_seq` launch per request, kernel path against the plain path;
+9. drives `SileroOnnx` on fixtures/silero.onnx at 16 and 8 kHz on 10 s:
+   one `lstm_seq` launch per chunk, the If on each rate's front-end, held
+   against the same graph compiled with `overrides={"LSTM": lstm_plain}`;
+10. times kernel 6, its plain version, its bound, cuDNN's LSTM, the
+   streaming step and the RTFs of both Silero paths, and profiles one
+   compiled 10 s request;
+11. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -41,6 +54,7 @@ import subprocess
 import sys
 import time
 import wave
+from pathlib import Path
 
 SEED = 0
 GRAPH_SEED = 2026
@@ -71,6 +85,17 @@ STACK_NOISE_MAX = 0.1
 # reads MAE 0.025 std and argmax agreement 0.94-0.96 for a 1e-7 input step)
 LOGIT_NOISE_MAE = 0.05
 LOGIT_NOISE_AGREE = 0.90
+# kernel 6 vs its plain version: both f32 FMA; the recurrence is contractive,
+# so the summation-order difference stays at a few f32 ulps of the states
+# (the first call read max|d| <= 3e-7 up to S = 18,750)
+LSTM_TOL = 1e-5
+# Silero probabilities, kernel path vs plain path (the same states, through
+# the head's sigmoid)
+VAD_PROB_TOL = 1e-5
+VAD_SECONDS = (1.0, 10.0, 60.0)
+VAD_LONG_SECONDS = 600.0
+VAD_SR = 16000
+SILERO_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "silero.onnx"
 
 
 class Checks:
@@ -194,6 +219,178 @@ def layer_slice(stacked, i):
                 else v[i:i + 1]) for k, v in stacked.items()}
 
 
+def lstm_bound(S: int, B: int, H: int) -> tuple[float, str]:
+    """Kernel 6: xproj, Wh, h0 and c0 read once, hs, h_S and c_S written once;
+    2·S·B·H·4H f32 operations of h @ Wh (the gates' few per unit left out)."""
+    n_bytes = 4 * (S * B * 4 * H + H * 4 * H + 2 * B * H + S * B * H + 2 * B * H)
+    return bound(n_bytes, {"f32": 2 * S * B * H * 4 * H})
+
+
+def lstm_inputs(S, B, H, dev, gen):
+    import torch
+
+    x = torch.randn((S, B, 4 * H), generator=gen, device=dev)
+    wh = (torch.rand((H, 4 * H), generator=gen, device=dev) * 2 - 1) / H ** 0.5
+    h0 = torch.randn((B, H), generator=gen, device=dev) * 0.5
+    return x, wh, h0, torch.randn((B, H), generator=gen, device=dev) * 0.5
+
+
+def vad_pcm(seconds: float, sr: int, rng):
+    """Speech-like tone bursts, 0.6 s on and 0.4 s off, plus noise."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    on = (t % 1.0) < 0.6
+    tone = sum(np.sin(2 * np.pi * rng.uniform(120, 300) * k * t) / k for k in (1, 2, 3))
+    return (0.3 * on * tone + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) -> dict:
+    """Phases 7-10: kernel 6, SileroVad and SileroOnnx. Returns the launch
+    counts of the two Silero main paths."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.models import SileroConfig, SileroOnnx, SileroVad, VadSegmentConfig
+    from lele_tpu_torch.ops import nn_ops
+
+    print("== 7. kernel 6 (lstm_seq) vs plain on the card")
+    for S, B, H in ((1875, 1, 128), (18750, 1, 128), (3, 1, 128), (2, 1, 128), (37, 3, 48)):
+        args = lstm_inputs(S, B, H, dev, gen)
+        got, ref = K.lstm_seq(*args), K.lstm_seq_plain(*args)
+        torch.cuda.synchronize()
+        d = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err["lstm_seq"] = max(err["lstm_seq"], d)
+        checks.require(all(bool(torch.isfinite(g).all()) for g in got) and d <= LSTM_TOL,
+                       f"lstm_seq S={S} B={B} H={H}: max|d| of hs, h_S, c_S {d:.3e} "
+                       f"<= {LSTM_TOL:g}")
+
+    print("== 8. main path: SileroVad at full width")
+    rng = np.random.default_rng(SEED + 3)
+    vad = SileroVad(SileroConfig(), device=dev)
+    vad.init(SEED)
+    requests = [(vad_pcm(s, VAD_SR, rng), VAD_SR) for s in VAD_SECONDS]
+    requests.append((vad_pcm(10.0, 8000, rng), 8000))
+    K.reset_launch_counts()
+    probs = [vad.speech_probs(pcm, sr) for pcm, sr in requests]
+    torch.cuda.synchronize()
+    vad_launches = K.launch_counts()
+    print(f"  launch counts over {len(requests)} requests: {vad_launches}")
+    checks.require(vad_launches["lstm_seq"] == len(requests),
+                   "lstm_seq once per offline request")
+    worst = 0.0
+    for (pcm, sr), p in zip(requests, probs):
+        n = len(pcm) // 512
+        ref = vad.speech_probs(pcm, sr, plain=True)
+        d = float(np.abs(p - ref).max())
+        worst = max(worst, d)
+        checks.require(p.shape == (n,) and bool(np.isfinite(p).all())
+                       and bool(((p >= 0) & (p <= 1)).all()),
+                       f"{len(pcm) / sr:.0f} s at {sr} Hz: {n} probabilities in [0, 1]")
+    checks.require(worst <= VAD_PROB_TOL,
+                   f"SileroVad probabilities, kernel vs plain: max|d| {worst:.3e} "
+                   f"<= {VAD_PROB_TOL:g}")
+    seg_cfg = VadSegmentConfig(threshold=float(np.median(probs[2])),
+                               neg_threshold=float(np.median(probs[2])) - 1e-4,
+                               min_speech_ms=64.0, min_silence_ms=64.0)
+    segs = vad.segments(requests[2][0], seg_cfg)
+    checks.require(isinstance(segs, list) and all(0 <= a < b for a, b in segs),
+                   f"60 s segments at the median threshold: {len(segs)} ordered segments")
+
+    print("== 9. compiled main path: SileroOnnx on fixtures/silero.onnx")
+    sv = SileroOnnx(SILERO_FIXTURE, device=dev)
+    sv_plain = SileroOnnx(SILERO_FIXTURE, device=dev, overrides={"LSTM": nn_ops.lstm_plain})
+    pcm10 = vad_pcm(10.0, VAD_SR, rng)
+    n10 = len(pcm10) // 512
+    t0 = time.perf_counter()
+    for rate in (16000, 8000):  # one trace per rate, before the counted run
+        sv.compiled(rate)
+    print(f"  two traces in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{r} Hz {sv.compiled(r).stats['n_steps']} steps" for r in (16000, 8000)))
+    routes = dict(nn_ops.RNN_ROUTES)
+    K.reset_launch_counts()
+    onnx_probs = {rate: sv.speech_probs(pcm10, rate) for rate in (16000, 8000)}
+    torch.cuda.synchronize()
+    onnx_launches = K.launch_counts()
+    print(f"  launch counts over 2 requests of {n10} chunks: {onnx_launches}")
+    checks.require(onnx_launches["lstm_seq"] == 2 * n10, "lstm_seq once per chunk at both rates")
+    checks.require(nn_ops.RNN_ROUTES["loop"] == routes["loop"], "no LSTM took the masked loop")
+    for rate in (16000, 8000):
+        p = onnx_probs[rate]
+        ref = sv_plain.speech_probs(pcm10, rate)
+        d = float(np.abs(p - ref).max())
+        err["lstm_seq"] = max(err["lstm_seq"], d)
+        checks.require(p.shape == (n10,) and bool(np.isfinite(p).all()) and d <= VAD_PROB_TOL,
+                       f"SileroOnnx {rate} Hz: {n10} probabilities, vs the lstm_plain "
+                       f"override max|d| {d:.3e} <= {VAD_PROB_TOL:g}")
+    gap = float(np.abs(onnx_probs[16000] - onnx_probs[8000]).max())
+    checks.require(gap > 1e-4, f"the If took each rate's front-end: the rates' probabilities "
+                               f"differ by up to {gap:.3e}")
+
+    print(f"== 10. Silero timings (CUDA events, median of warm runs; {card})")
+    for S in (1875, 18750):
+        args = lstm_inputs(S, 1, 128, dev, gen)
+        a = time_ms(lambda: K.lstm_seq(*args), runs=10)
+        b = time_ms(lambda: K.lstm_seq_plain(*args), runs=3, warm=1)
+        lstm = torch.nn.LSTM(512, 128).to(dev)
+        with torch.no_grad():  # cuDNN computing the same recurrence on xproj
+            lstm.weight_ih_l0.copy_(torch.eye(512, device=dev))
+            lstm.weight_hh_l0.copy_(args[1].t())
+            lstm.bias_ih_l0.zero_()
+            lstm.bias_hh_l0.zero_()
+        hc = (args[2][None], args[3][None])
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y, _ = lstm(args[0], hc)
+            ref = K.lstm_seq_plain(*args)[0]
+            lib_d = (y - ref).abs().max().item()
+            c = time_ms(lambda: lstm(args[0], hc), runs=10)
+        b_ms, b_by = lstm_bound(S, 1, 128)
+        print(f"  lstm_seq S={S} B=1 H=128: kernel {a:.4f} ms ({a * 1e3 / S:.4f} us a step), "
+              f"plain {b:.3f} ms, cuDNN nn.LSTM on xproj with W_ih = I {c:.4f} ms "
+              f"(+ one [S,512]x[512,512] input product; max|d| vs plain {lib_d:.2e}); "
+              f"bound {b_ms * 1e3:.3f} us by {b_by}, kernel at {100 * b_ms / a:.4f}% of it  "
+              f"({card})")
+        ms["lstm_seq"], plain_ms["lstm_seq"], library_ms["lstm_seq"] = a, b, c
+        bounds["lstm_seq"] = (b_ms, b_by)
+
+    step = vad.step_fn()
+    chunk = torch.from_numpy(vad.frame_chunks(requests[0][0])[:1]).to(dev)
+    state = torch.zeros((2, 1, 128), device=dev)
+    step_ms = time_ms(lambda: step(vad.params, chunk, state))
+    print(f"  SileroVad streaming step, one 32 ms chunk: {step_ms:.4f} ms  ({card})")
+    for s in (60.0, VAD_LONG_SECONDS):
+        pcm = vad_pcm(s, VAD_SR, rng)
+        t = host_ms(lambda: vad.speech_probs(pcm), runs=3)
+        print(f"  SileroVad.speech_probs {s:.0f} s: {t:.3f} ms, RTF {t / (s * 1e3):.3e} "
+              f"(host clock, readback included)  ({card})")
+    for rate in (16000, 8000):
+        t = host_ms(lambda: sv.speech_probs(pcm10, rate), runs=3)
+        print(f"  SileroOnnx.speech_probs 10 s at {rate} Hz: {t:.3f} ms, RTF {t / 1e4:.3e}, "
+              f"{t * 1e3 / n10:.1f} us a chunk  ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sv.speech_probs(pcm10, 16000)
+        span_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
+    dev_us = sum(dev_time(e) for e in rows)
+    kernels = sum(e.count for e in rows if not e.key.startswith(("Memcpy", "Memset")))
+    print(f"  profile, SileroOnnx 10 s at 16 kHz: {kernels} device launches "
+          f"({kernels / n10:.1f} a chunk), device {dev_us:.1f} us over {span_us:.1f} us, "
+          f"busy share {dev_us / span_us:.3f}  ({card})")
+    for e in sorted(rows, key=lambda e: -dev_time(e))[:6]:
+        print(f"    {dev_time(e):10.1f} us  x{e.count:<6d} {e.key[:90]}")
+    return {"native": vad_launches, "compiled": onnx_launches}
+
+
+def dev_time(e):  # the attribute's name moved between torch versions
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else e.self_cuda_time_total
+
+
 def main() -> int:
     import torch
 
@@ -237,6 +434,8 @@ def main() -> int:
     print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print(f"  torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
 
     # the full-width model: its layers also give phase 3 its real shapes
     cfg = SenseVoiceConfig(weight_int8=True)
@@ -569,16 +768,15 @@ def main() -> int:
         torch.cuda.synchronize()
         span_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_time(e):  # the attribute's name moved between torch versions
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else e.self_cuda_time_total
-
     rows = [e for e in prof.key_averages() if dev_time(e) > 0]
     dev_us = sum(dev_time(e) for e in rows)
     print(f"  profile, 3 compiled 10 s forwards: device {dev_us / 3:.1f} us a forward "
           f"over {span_us / 3:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
     for e in sorted(rows, key=lambda e: -dev_time(e))[:12]:
         print(f"    {dev_time(e) / 3:10.1f} us  x{e.count // 3:<5d} {e.key[:90]}")
+
+    vad_launches = silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
+                                 bounds)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -603,6 +801,9 @@ def main() -> int:
                            "lele_tpu/kernels/sanm_block.py:434",
                            "each layer rtol 2e-2, atol 2e-2*max|ref|; whole stack "
                            f"mean|d| <= {STACK_NOISE_MEAN} std", dql_launches),
+        "lstm_seq": ("lele_tpu_torch/csrc/lstm_seq.cu", "lele_tpu/kernels/lstm.py:21",
+                     f"hs, h_S, c_S max|d| <= {LSTM_TOL:g}; probabilities vs plain "
+                     f"<= {VAD_PROB_TOL:g}", vad_launches["native"]),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

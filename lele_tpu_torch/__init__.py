@@ -5,8 +5,9 @@ module layout and names, so each module here has a counterpart there:
 
 - ``lele_tpu_torch.params``    JAX param pytree (numpy leaves) → torch tensors
 - ``lele_tpu_torch.features``  audio front-end: framing, fbank, LFR, CMVN
-- ``lele_tpu_torch.models``    SenseVoice w8a16, and ``SenseVoiceOnnx`` over a
-                               compiled ONNX graph (``models.checkpoints``)
+- ``lele_tpu_torch.models``    SenseVoice w8a16 and Silero VAD, and
+                               ``SenseVoiceOnnx`` / ``SileroOnnx`` over compiled
+                               ONNX graphs (``models.checkpoints``)
 - ``lele_tpu_torch.onnx``      wire codec, loader, graph builder, SAN-M synth
 - ``lele_tpu_torch.ops``       ONNX op emitters (numpy when folding, torch
                                on the device)

@@ -24,15 +24,24 @@ GraphProto once, record the device work, replay it per request.
   repeat such chains per layer (the SAN-M graph rebuilds its attention mask
   in each of its layers).
 - Dispatch precedence: pattern → override → builtin → fallback (a warning
-  and an empty value; strict mode raises).
+  and an empty value; strict mode raises). An emitter marked `records`
+  (LSTM) records its own steps, so it can prepare static weights once.
+- **If**: a static condition picks its branch while tracing, as JAX does.
+  A dynamic one is traced on the placeholder zeros, which would take one
+  branch for every request; so both branches are walked, each onto a
+  sub-tape of its own, and one step holds both and replays the branch that
+  the request's condition selects. Reading the condition costs one
+  device → host read a replay. Both branches must give outputs of the same
+  shapes, since later shape arithmetic folds on one of them.
 
-If/Loop/Scan/SequenceMap raise NotImplementedError: the SAN-M graph has
-none, and they come with the Silero slice.
+Loop, Scan and SequenceMap raise NotImplementedError: no graph the port runs
+has one yet.
 """
 
 from __future__ import annotations
 
 import sys
+from collections import ChainMap
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
@@ -45,7 +54,7 @@ from ..ops import make_ctx
 from ..ops.registry import canon_domain, lookup_op
 from ..ops.tensor_ops import torch_dtype
 
-_SUBGRAPH_OPS = ("If", "Loop", "Scan", "SequenceMap")
+_SUBGRAPH_OPS = ("Loop", "Scan", "SequenceMap")
 
 
 def _is_static(v) -> bool:
@@ -114,14 +123,21 @@ class Tape:
     each tensor argument named by its slot. A tensor argument must be a
     recorded value (an input or a step's output) or a constant of the trace
     (`const`): any other tensor was computed outside the tape, which replay
-    could not repeat, so it raises."""
+    could not repeat, so it raises.
 
-    def __init__(self):
+    A sub-tape (an If branch) has a parent: a value of the parent (or of its
+    parents) that the branch reads becomes one of the sub-tape's inputs,
+    and `captured` lists those values in input order. Constants are shared
+    by all the tapes of a trace."""
+
+    def __init__(self, parent: "Tape | None" = None):
         self.steps: list[_Step] = []
         self.values: list[torch.Tensor] = []  # slot → the walk's value
         self.inputs: list[int] = []
         self._slot: dict[int, int] = {}  # id(tensor) → slot
-        self._const: set[int] = set()
+        self._const: set[int] = parent._const if parent is not None else set()
+        self.parent = parent
+        self.captured: list[torch.Tensor] = []
         self.outputs: list = []
         self.n_slots = 0
 
@@ -135,10 +151,6 @@ class Tape:
         self._slot[id(t)] = k
         return _Slot(k)
 
-    def input(self, t: torch.Tensor) -> torch.Tensor:
-        self.inputs.append(self._new_slot(t).k)
-        return t
-
     def _ref(self, v):
         if not isinstance(v, torch.Tensor):
             return v
@@ -147,12 +159,29 @@ class Tape:
             return _Slot(k)
         if id(v) in self._const:
             return v
+        if self.parent is not None:
+            self.parent._ref(v)  # raises unless an outer value
+            self.captured.append(v)
+            return _Slot(self.input(v))
         raise RuntimeError("a device value reached a traced step without "
                            "being recorded: compute it through Tape.run")
+
+    def input(self, t: torch.Tensor) -> int:
+        k = self._new_slot(t).k
+        self.inputs.append(k)
+        return k
 
     def run(self, fn: Callable, *args, **kwargs):
         rargs, rkwargs = _map(args, self._ref), _map(kwargs, self._ref)
         out = fn(*args, **kwargs)
+        return self._record(fn, rargs, rkwargs, out)
+
+    def record(self, fn: Callable, args: tuple, out):
+        """Record fn(*args) as a step whose trace-time result is `out`,
+        without calling it."""
+        return self._record(fn, _map(args, self._ref), {}, out)
+
+    def _record(self, fn, rargs, rkwargs, out):
         outs = _map(out, lambda v: self._new_slot(v)
                     if isinstance(v, torch.Tensor) else v)
         if _slots(outs, set()):
@@ -195,6 +224,20 @@ class Tape:
             for k in st.free:
                 vals[k] = None
         return [_map(o, get) for o in self.outputs]
+
+
+class _IfStep:
+    """The recorded step of an If with a dynamic condition: both branches'
+    sub-tapes; a replay reads the condition (one device → host read) and
+    replays the branch it selects on that branch's captured values."""
+
+    def __init__(self, then_tape: Tape, else_tape: Tape):
+        self.then_tape, self.else_tape = then_tape, else_tape
+
+    def __call__(self, cond: torch.Tensor, then_in: list, else_in: list):
+        if bool(cond.reshape(-1)[0].item()):
+            return tuple(self.then_tape.replay(then_in))
+        return tuple(self.else_tape.replay(else_in))
 
 
 def _bind(spec, out, vals: list) -> None:
@@ -263,6 +306,8 @@ class GraphTracer:
     def _emit(self, state: TraceState, node: Proto, env, scope: str, tag: str = ""):
         op_type = node.op_type
         dom = canon_domain(node.domain)
+        if not dom and op_type == "If":
+            return self._emit_if(state, node, env, scope, tag)
         if not dom and op_type in _SUBGRAPH_OPS:
             raise NotImplementedError(
                 f"{op_type} ({node.name}): subgraph ops are not ported to the "
@@ -306,7 +351,9 @@ class GraphTracer:
                 dyn_ins.append(v)
             else:
                 dyn_ins.append(state.to_device(scope + node.input[i], v))
-        ctx = make_ctx(torch, node, self.opset, self)
+        records = opdef is not None and opdef.records and label not in self.overrides
+        ctx = make_ctx(torch, node, self.opset, self, state=state if records else None,
+                       scope=scope)
         key = None
         if label not in self.overrides:  # builtin emitters are pure
             try:
@@ -317,10 +364,48 @@ class GraphTracer:
         if key is not None and key in state.cse:
             state.n_reused += 1
             return state.cse[key]
-        out = state.run(emitter, ctx, *dyn_ins)
+        out = emitter(ctx, *dyn_ins) if records else state.run(emitter, ctx, *dyn_ins)
         if key is not None:
             state.cse[key] = out
         return out
+
+    def _emit_if(self, state: TraceState, node: Proto, env, scope: str, tag: str):
+        cond = env[node.input[0]]
+        attrs = {a.name: a for a in node.attribute}
+        branches = {"then": attrs["then_branch"].g, "else": attrs["else_branch"].g}
+        n_out = len(node.output)
+        if_scope = scope + (node.name or f"If_{tag}")
+        if _is_static(cond):  # resolved while tracing (Silero's sr checks)
+            branch = branches["then" if bool(np.asarray(cond).reshape(-1)[0]) else "else"]
+            sub = self._walk_graph(state, branch, ChainMap({}, env), if_scope + "/")
+            return tuple(sub) if n_out > 1 else sub[0]
+
+        tapes, outs = {}, {}
+        parent, parent_cse = state.tape, state.cse
+        for btag, g in branches.items():
+            tape = Tape(parent)
+            state.tape, state.cse = tape, dict(parent_cse)  # no reuse across branches
+            try:
+                sub = self._walk_graph(state, g, ChainMap({}, env), f"{if_scope}/{btag}/")
+                sub = [state.to_device(f"{if_scope}/{btag}/out{j}", o) if _is_static(o) else o
+                       for j, o in enumerate(sub)]
+                tape.finish(sub)
+            finally:
+                state.tape, state.cse = parent, parent_cse
+            tapes[btag], outs[btag] = tape, sub
+        for a, b in zip(outs["then"], outs["else"]):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise NotImplementedError(
+                    f"If ({node.name}): its branches give {tuple(a.shape)} {a.dtype} and "
+                    f"{tuple(b.shape)} {b.dtype}; a dynamic condition needs outputs of one "
+                    "shape and type")
+        taken = outs["then" if bool(cond.reshape(-1)[0].item()) else "else"]
+        # new tensor objects: a branch may hand back an outer value itself
+        out = tuple(t.view_as(t) for t in taken)
+        parent.record(_IfStep(tapes["then"], tapes["else"]),
+                      (cond, list(tapes["then"].captured), list(tapes["else"].captured)),
+                      out)
+        return out if n_out > 1 else out[0]
 
     # -- graph walk ----------------------------------------------------------
 
@@ -381,23 +466,28 @@ class GraphTracer:
     # -- public API ----------------------------------------------------------
 
     def build(self, input_specs: dict[str, tuple[tuple, np.dtype]],
-              device: torch.device | str) -> TraceState:
+              device: torch.device | str,
+              constants: dict[str, np.ndarray] | None = None) -> TraceState:
         """Walk the graph once at the given static input signature on
         `device` and return the trace: its tape (inputs in
         `model.input_names()` order, outputs in graph order), its device
-        params and its stats."""
+        params and its stats. Graph inputs named in `constants` are bound to
+        those host values: they fold like initializers and are not inputs
+        of the tape."""
         graph = self.model.graph
-        in_names = self.model.input_names()
+        constants = constants or {}
+        in_names = [n for n in self.model.input_names() if n not in constants]
         for n in in_names:
             if n not in input_specs:
                 raise ValueError(f"missing input spec for {n!r}")
         state = TraceState(device=torch.device(device), strict=self.strict)
         env: dict[str, Any] = {"": None}
+        env.update((n, np.asarray(v)) for n, v in constants.items())
         with torch.inference_mode():
             for n in in_names:
                 shape, dt = input_specs[n]
-                env[n] = state.tape.input(torch.zeros(
-                    tuple(shape), dtype=torch_dtype(dt), device=state.device))
+                env[n] = torch.zeros(tuple(shape), dtype=torch_dtype(dt), device=state.device)
+                state.tape.input(env[n])
             outs = self._walk_graph(state, graph, env, "")
             state.tape.finish([
                 state.to_device(f"::out{j}", o) if _is_static(o) else o

@@ -6,6 +6,7 @@ at first use. Each wrapper keeps a launch count as an attribute
 `reset_launch_counts()` sets them to 0.
 """
 
+from .lstm import lstm_seq, lstm_seq_plain  # noqa: F401
 from .quant_matmul import (  # noqa: F401
     dynamic_quantize_u8,
     fused_dq_matmul,
@@ -30,6 +31,7 @@ KERNEL_WRAPPERS = {
     "sanm_stack_w8": sanm_stack_w8,
     "dq_gemm": fused_dq_matmul,
     "sanm_stack_dql": sanm_stack_dql,
+    "lstm_seq": lstm_seq,
 }
 
 

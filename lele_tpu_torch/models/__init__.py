@@ -1,5 +1,7 @@
-"""Model families of the port (counterpart of lele_tpu.models): SenseVoice so far."""
+"""Model families of the port (counterpart of lele_tpu.models): SenseVoice
+and Silero VAD, native; both also run from ONNX (`models.checkpoints`)."""
 
+from .checkpoints import SenseVoiceOnnx, SileroOnnx  # noqa: F401
 from .common import cast_big_params  # noqa: F401
 from .sensevoice import (  # noqa: F401
     SenseVoiceConfig,
@@ -9,4 +11,14 @@ from .sensevoice import (  # noqa: F401
     prepare_w8_params,
     sensevoice_encode,
     stack_layer_params,
+)
+from .silero import (  # noqa: F401
+    SileroConfig,
+    SileroVad,
+    VadSegmentConfig,
+    collect_segments,
+    init_silero,
+    silero_features,
+    silero_step,
+    zero_state,
 )

@@ -1,5 +1,5 @@
 """Compiled ONNX checkpoints with a model family's pipeline around them
-(counterpart of lele_tpu/models/checkpoints.py): SenseVoice so far.
+(counterpart of lele_tpu/models/checkpoints.py): SenseVoice and Silero VAD.
 """
 
 from __future__ import annotations
@@ -12,6 +12,15 @@ import torch
 from .. import default_device
 from ..features import FbankConfig, FbankFrontend, fbank_features
 from .sensevoice import _collapse_ids
+from .silero import VadSegmentConfig, collect_segments
+
+
+def _load(model):
+    from ..onnx.loader import OnnxModel
+
+    if isinstance(model, (bytes, bytearray, memoryview)):
+        return OnnxModel.from_bytes(bytes(model))
+    return OnnxModel.load(str(model))
 
 
 class SenseVoiceOnnx:
@@ -29,12 +38,7 @@ class SenseVoiceOnnx:
 
     def __init__(self, model: str | Path | bytes, language: int = 3, textnorm: int = 0,
                  device: torch.device | str | None = None, patterns=None):
-        from ..onnx.loader import OnnxModel
-
-        if isinstance(model, (bytes, bytearray, memoryview)):
-            self.model = OnnxModel.from_bytes(bytes(model))
-        else:
-            self.model = OnnxModel.load(str(model))
+        self.model = _load(model)
         self.device = torch.device(device) if device is not None else default_device()
         self.in_names = self.model.input_names()
         self.language = language
@@ -120,3 +124,96 @@ class SenseVoiceOnnx:
     def compile_count(self) -> int:
         """Distinct compiled traces so far (one per bucket)."""
         return len(self._cms)
+
+
+class SileroOnnx:
+    """Streaming VAD over a compiled Silero-class graph: inputs (PCM chunk
+    [1, chunk] scaled by `scale`, the packed recurrent state [2, 1, H], the
+    sample rate), outputs (probability, new state), the graph choosing its
+    front-end with an If on the sample rate.
+
+    Takes the ONNX file's path or its bytes. One trace per sample rate, with
+    the rate bound as a constant so the If resolves while tracing (the JAX
+    package's static-sr route); every chunk replays that trace's tape, the
+    state stays on the device, and nothing is read back until the last
+    chunk. `device` defaults to `default_device()`, which raises where there
+    is no CUDA card; `overrides` goes to the tracer
+    (`{"LSTM": ops.nn_ops.lstm_plain}` compiles the plain oracle)."""
+
+    def __init__(self, model: str | Path | bytes, chunk: int = 512, scale: float = 32768.0,
+                 device: torch.device | str | None = None, overrides=None):
+        self.model = _load(model)
+        if self.model.model.functions:
+            raise NotImplementedError("models with local functions are not ported yet")
+        self.device = torch.device(device) if device is not None else default_device()
+        self.in_names = self.model.input_names()
+        self.chunk = chunk
+        self.scale = scale
+        self.overrides = overrides
+        self._cms: dict[int, object] = {}
+
+    def compiled(self, sr: int):
+        """The CompiledModel of (chunk, state) for sample rate `sr`, traced at
+        first use."""
+        if sr not in self._cms:
+            from ..compiler import resolve_input_specs
+            from ..compiler.tracer import GraphTracer
+            from ..runtime.engine import CompiledModel
+
+            x_name, _, sr_name = self.in_names
+            specs = resolve_input_specs(self.model, {x_name: (1, self.chunk)})
+            shape, dt = specs.pop(sr_name)
+            tracer = GraphTracer(self.model, overrides=self.overrides)
+            trace = tracer.build(specs, self.device,
+                                 constants={sr_name: np.full(shape, sr, dtype=dt)})
+            self._cms[sr] = CompiledModel(trace, specs, self.in_names[:2],
+                                          self.model.output_names(), tracer.stats)
+        return self._cms[sr]
+
+    def _chunks(self, pcm: np.ndarray, max_chunks: int | None) -> np.ndarray:
+        n = len(pcm) // self.chunk
+        if max_chunks is not None:
+            n = min(n, max_chunks)
+        return (np.asarray(pcm)[: n * self.chunk].reshape(n, self.chunk)
+                * self.scale).astype(np.float32)
+
+    def _state0(self, cm) -> torch.Tensor:
+        return torch.zeros(cm.input_specs[self.in_names[1]][0], dtype=torch.float32,
+                           device=self.device)
+
+    @torch.inference_mode()
+    def speech_probs(self, pcm: np.ndarray, sr: int = 16000,
+                     max_chunks: int | None = None) -> np.ndarray:
+        """Per-chunk speech probabilities over a whole waveform: one replay of
+        the step's tape per chunk, the state carried on the device, one read
+        of all N probabilities at the end."""
+        chunks = self._chunks(pcm, max_chunks)
+        if len(chunks) == 0:
+            return np.zeros(0, np.float32)
+        cm = self.compiled(sr)
+        x = torch.from_numpy(chunks).to(self.device)
+        state = self._state0(cm)
+        probs = []
+        for i in range(len(chunks)):
+            prob, state = cm(x[i:i + 1], state)[:2]
+            probs.append(prob.reshape(()))
+        return torch.stack(probs).cpu().numpy()
+
+    def speech_probs_hostloop(self, pcm: np.ndarray, sr: int = 16000,
+                              max_chunks: int | None = None) -> np.ndarray:
+        """Per-chunk host streaming loop (state through numpy): the oracle of
+        `speech_probs`, and the shape real streaming input arrives in."""
+        chunks = self._chunks(pcm, max_chunks)
+        cm = self.compiled(sr)
+        state = self._state0(cm).cpu().numpy()
+        probs = np.zeros(len(chunks), np.float32)
+        for i, x in enumerate(chunks):
+            out = cm.run_np(x[None], state)
+            probs[i] = float(np.asarray(out[0]).reshape(-1)[0])
+            state = out[1]
+        return probs
+
+    def segments(self, pcm: np.ndarray, sr: int = 16000, threshold: float = 0.3):
+        probs = self.speech_probs(pcm, sr)
+        return collect_segments(probs, VadSegmentConfig(threshold=threshold, sample_rate=sr,
+                                                        chunk=self.chunk))

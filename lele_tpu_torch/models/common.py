@@ -1,7 +1,9 @@
 """Shared building blocks (counterpart of lele_tpu/models/common.py).
 
 Params are nested dicts of tensors, in the JAX package's layouts: linear
-weights [d_in, d_out], activations feature-last [B, T, D].
+weights [d_in, d_out], conv weights [C_out, C_in/g, k], LSTM weights
+[d_in, 4H] and [H, 4H] (gates i, f, g, o), activations feature-last
+[B, T, D].
 
 "bf16 operands, f32 accumulation" (JAX's `preferred_element_type=f32`) is
 written as a float32 product of bf16-rounded operands: the product of two
@@ -17,6 +19,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..params import tree_map
 
@@ -59,6 +62,67 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
+def _uniform(gen: torch.Generator, shape: tuple, scale: float) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=gen.device) * (2 * scale) - scale
+
+
+def init_conv1d(gen: torch.Generator, c_in: int, c_out: int, k: int,
+                groups: int = 1) -> Params:
+    """Uniform(±1/sqrt(C_in/g·k)) weight [C_out, C_in/g, k], zero bias."""
+    scale = 1.0 / np.sqrt(c_in // groups * k)
+    return {"w": _uniform(gen, (c_out, c_in // groups, k), scale),
+            "b": torch.zeros((c_out,), dtype=torch.float32, device=gen.device)}
+
+
+def same_pads(t: int, k: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """XLA's "SAME" split: out = ceil(t/stride), lo = total//2, hi = total - lo.
+    It is asymmetric wherever the total is odd (stride-2 convs of even t)."""
+    out = -(-t // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - t, 0)
+    return total // 2, total - total // 2
+
+
+def conv1d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """x [B, T, C] (feature-last, as the JAX package) → [B, T', C_out], f32.
+
+    `padding` is "SAME", "VALID" or (lo, hi); F.conv1d pads symmetrically
+    only, so the input is padded first. cuDNN's TF32 is off inside, so a
+    card computes it in full f32."""
+    w = p["w"]
+    k = w.shape[-1]
+    if padding == "SAME":
+        lo, hi = same_pads(x.shape[1], k, stride, dilation)
+    elif padding == "VALID":
+        lo, hi = 0, 0
+    else:
+        lo, hi = padding
+    xt = F.pad(x.float().transpose(1, 2), (lo, hi))
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    allow_tf32=False):
+        y = F.conv1d(xt, w.float(), None, stride=stride, dilation=dilation, groups=groups)
+    return y.transpose(1, 2) + p["b"]
+
+
+def init_lstm_cell(gen: torch.Generator, d_in: int, d_hidden: int) -> Params:
+    """wx [d_in, 4H] and wh [H, 4H] uniform(±1/sqrt(fan-in)), zero bias [4H]."""
+    return {"wx": _uniform(gen, (d_in, 4 * d_hidden), 1.0 / np.sqrt(d_in)),
+            "wh": _uniform(gen, (d_hidden, 4 * d_hidden), 1.0 / np.sqrt(d_hidden)),
+            "b": torch.zeros((4 * d_hidden,), dtype=torch.float32, device=gen.device)}
+
+
+def lstm_cell(p: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One step in f32; gate order i, f, g, o. Returns (h', c')."""
+    gates = x @ p["wx"] + h @ p["wh"] + p["b"]
+    hd = h.shape[-1]
+    i = torch.sigmoid(gates[..., :hd])
+    f = torch.sigmoid(gates[..., hd:2 * hd])
+    g = torch.tanh(gates[..., 2 * hd:3 * hd])
+    o = torch.sigmoid(gates[..., 3 * hd:])
+    c_new = f * c + i * g
+    return o * torch.tanh(c_new), c_new
 
 
 def sinusoidal_positions(t: int, d: int, offset: int = 1) -> np.ndarray:

@@ -31,6 +31,10 @@ def attribute(name: str, value: Any) -> dict:
         a["s"], a["type"] = value, schema.ATTR_STRING
     elif isinstance(value, np.ndarray):
         a["t"], a["type"] = tensor_from_array(value, name), schema.ATTR_TENSOR
+    elif isinstance(value, dict) and "data_type" in value:  # a TensorProto dict
+        a["t"], a["type"] = value, schema.ATTR_TENSOR
+    elif isinstance(value, dict):  # a graph dict built by graph() (If branches)
+        a["g"], a["type"] = value, schema.ATTR_GRAPH
     elif isinstance(value, (list, tuple)):
         if len(value) and isinstance(value[0], float):
             a["floats"], a["type"] = list(value), schema.ATTR_FLOATS

@@ -2,8 +2,9 @@
 tracer folds a node, torch when the node runs on the device.
 
 Importing this package registers every emitter in ``registry.OPS``: the ones
-the SAN-M int8 graph uses, and Identity, Div and ReduceSum, which its common
-export variants add. Any other op type follows the JAX dispatch rule: a
+the SAN-M int8 graph uses, Identity, Div and ReduceSum, which its common
+export variants add, and Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
+LSTM, which the Silero-class graphs add. Any other op type follows the JAX dispatch rule: a
 warning and an empty value, or a raise in strict mode.
 """
 

@@ -1,5 +1,5 @@
 """Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
-Relu and Softmax."""
+Relu, Sigmoid and Softmax."""
 
 from __future__ import annotations
 
@@ -14,6 +14,11 @@ def relu(ctx: OpContext, x):
     if ctx.is_fold:
         return np.maximum(x, np.asarray(0, dtype=np.asarray(x).dtype))
     return torch.relu(x)
+
+
+@op("Sigmoid", foldable=False)
+def sigmoid(ctx: OpContext, x):
+    return torch.sigmoid(x)
 
 
 @op("Softmax", foldable=False)

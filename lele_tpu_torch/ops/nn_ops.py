@@ -1,11 +1,16 @@
 """NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
-and Conv for the 1-D case (the FSMN's depthwise memory conv)."""
+Conv for the 1-D case (the FSMN's depthwise memory conv, Silero's STFT and
+conv stack), and LSTM."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.lstm import kernel_takes, lstm_seq, lstm_seq_plain
 from .registry import OpContext, op
 
 
@@ -73,3 +78,211 @@ def layer_norm(ctx: OpContext, x, scale, b=None):
         return out
     return (out, mean, inv_std)[:n_out]
 
+
+
+# -- recurrent ---------------------------------------------------------------
+
+# LSTM directions run, by route: "lstm_seq" (the kernel on a card, its plain
+# version on the CPU) or "loop" (the masked loop in plain PyTorch)
+RNN_ROUTES = {"lstm_seq": 0, "loop": 0}
+
+
+def _static(v) -> bool:
+    return isinstance(v, (np.ndarray, np.generic))
+
+
+def _on(x: torch.Tensor, v):
+    """A host value as a tensor on x's device (None and tensors pass)."""
+    return torch.from_numpy(np.array(v)).to(x.device) if _static(v) else v
+
+
+def _kernel_gate_order(hidden: int) -> np.ndarray:
+    """Gate columns in ONNX's order i, o, f, c, taken in the kernel's order
+    i, f, g (= c), o."""
+    H = hidden
+    return np.concatenate([np.arange(0, H), np.arange(2 * H, 4 * H), np.arange(H, 2 * H)])
+
+
+def _take(a, perm: np.ndarray, axis: int):
+    if isinstance(a, torch.Tensor):
+        return a.index_select(axis, torch.from_numpy(perm).to(a.device))
+    return np.take(np.asarray(a), perm, axis=axis)
+
+
+def _lstm_weights(w, r, b, hidden: int):
+    """ONNX W [D, 4H, I], R [D, 4H, H], B [D, 8H] (gates i, o, f, c) → the
+    kernel's layout and gate order i, f, g, o: Wx [D, I, 4H], Rh [D, H, 4H]
+    and bias Wb + Rb [D, 4H] (None without B). numpy for static weights, so
+    the tracer runs it once and hoists the results; torch for device ones."""
+    perm = _kernel_gate_order(hidden)
+
+    def cols_last(a):
+        a = _take(a, perm, 1)
+        if isinstance(a, torch.Tensor):
+            return a.transpose(1, 2).contiguous()
+        return np.ascontiguousarray(a.transpose(0, 2, 1))
+
+    bias = None
+    if b is not None:
+        bias = _take(b[:, :4 * hidden] + b[:, 4 * hidden:], perm, 1)
+    return cols_last(w), cols_last(r), bias
+
+
+def _directions(direction: str):
+    if direction == "bidirectional":
+        return [False, True]
+    return [direction == "reverse"]
+
+
+def _ragged_lens(seq_lens, S: int):
+    """sequence_lens: None when absent or statically full-length; else the
+    int lengths [B] (host or device)."""
+    if seq_lens is None:
+        return None
+    if _static(seq_lens):
+        arr = np.asarray(seq_lens)
+        if arr.size and np.all(arr == S):
+            return None
+        return arr.astype(np.int64)
+    return seq_lens
+
+
+def _seq_reverse(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Per-batch time reversal of x [S, B, ...] within each valid region
+    [0, lens[b]); rows past the length keep their place."""
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    L = lens.to(device=x.device, dtype=torch.int64)[None, :]
+    src = torch.where(t < L, L - 1 - t, t)
+    idx = src.reshape(src.shape + (1,) * (x.dim() - 2)).expand(x.shape)
+    return torch.gather(x, 0, idx)
+
+
+def _seq_mask(lens: torch.Tensor, S: int, device) -> torch.Tensor:
+    """[S, B, 1] bool validity mask (t < lens[b])."""
+    t = torch.arange(S, device=device)[:, None]
+    return (t < lens.to(device=device, dtype=torch.int64)[None, :])[..., None]
+
+
+def _lstm_loop(xproj, rh, h0, c0, hidden: int, p, msk):
+    """The recurrence as a loop in plain PyTorch, gates in the kernel's order,
+    with peepholes p = [Pi, Po, Pf] (i and f see c_{t-1}, o sees c_t) and a
+    ragged mask: rows past a length are zero and the state holds."""
+    H = hidden
+    pi = po = pf = None
+    if p is not None:
+        pi, po, pf = p[:H], p[H:2 * H], p[2 * H:]
+    h, c = h0, c0
+    ys = []
+    for t in range(xproj.shape[0]):
+        g = xproj[t] + h @ rh
+        gi, gf, go = g[:, :H], g[:, H:2 * H], g[:, 3 * H:]
+        if pi is not None:
+            gi = gi + pi * c
+            gf = gf + pf * c
+        c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(g[:, 2 * H:3 * H])
+        if po is not None:
+            go = go + po * c_new
+        h_new = torch.sigmoid(go) * torch.tanh(c_new)
+        if msk is None:
+            h, c = h_new, c_new
+            ys.append(h_new)
+        else:
+            m = msk[t]
+            h, c = torch.where(m, h_new, h), torch.where(m, c_new, c)
+            ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
+    return torch.stack(ys), h, c
+
+
+def _lstm_run(x, wx, rh, bias, lens, init_h, init_c, p, *, hidden: int, direction: str,
+              layout: int, seq):
+    """ONNX LSTM on prepared weights (`_lstm_weights`); `seq` is `lstm_seq`
+    or its plain version. A direction without peepholes or ragged lengths
+    takes `seq` where the kernel's range has H (on the CPU always); the rest
+    takes the masked loop. Reverse directions are flipped around it."""
+    wx, rh, bias, lens, init_h, init_c, p = (
+        _on(x, v) for v in (wx, rh, bias, lens, init_h, init_c, p))
+    if layout == 1:  # [B, S, I] → [S, B, I]; states [B, D, H] → [D, B, H]
+        x = x.transpose(0, 1)
+        init_h = None if init_h is None else init_h.transpose(0, 1)
+        init_c = None if init_c is None else init_c.transpose(0, 1)
+    S, B = x.shape[0], x.shape[1]
+    msk = _seq_mask(lens, S, x.device) if lens is not None else None
+    outs, h_outs, c_outs = [], [], []
+    for d, rev in enumerate(_directions(direction)):
+        xs = x
+        if rev:
+            xs = _seq_reverse(x, lens) if lens is not None else x.flip(0)
+        xproj = xs @ wx[d]  # the input projection for all steps: [S, B, 4H]
+        if bias is not None:
+            xproj = xproj + bias[d]
+        zeros = torch.zeros((B, hidden), dtype=x.dtype, device=x.device)
+        h0 = zeros if init_h is None else init_h[d]
+        c0 = zeros if init_c is None else init_c[d]
+        if p is None and lens is None and (not x.is_cuda or kernel_takes(hidden)):
+            RNN_ROUTES["lstm_seq"] += 1
+            hs, h_f, c_f = seq(xproj, rh[d], h0, c0)
+        else:
+            RNN_ROUTES["loop"] += 1
+            hs, h_f, c_f = _lstm_loop(xproj, rh[d], h0, c0, hidden,
+                                      None if p is None else p[d], msk)
+        if rev:
+            hs = _seq_reverse(hs, lens) if lens is not None else hs.flip(0)
+        outs.append(hs)
+        h_outs.append(h_f)
+        c_outs.append(c_f)
+    y = torch.stack(outs, dim=1)  # [S, D, B, H]
+    y_h, y_c = torch.stack(h_outs), torch.stack(c_outs)
+    if layout == 1:
+        return y.permute(2, 0, 1, 3), y_h.transpose(0, 1), y_c.transpose(0, 1)
+    return y, y_h, y_c
+
+
+def _lstm_args(ctx: OpContext, x, r, seq_lens):
+    hidden = ctx.attr("hidden_size", np.shape(r)[-1])
+    layout = ctx.attr("layout", 0)
+    S = x.shape[1] if layout == 1 else x.shape[0]
+    run = functools.partial(_lstm_run, hidden=hidden, layout=layout,
+                            direction=ctx.attr("direction", "forward"))
+    return hidden, _ragged_lens(seq_lens, S), run
+
+
+@op("LSTM", foldable=False, static_args=(1, 2, 3, 4, 7), records=True)
+def lstm(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None, init_c=None, p=None):
+    """ONNX LSTM (gates i, o, f, c): forward, reverse and bidirectional,
+    layout 0 and 1, initial states, peepholes, ragged sequence_lens (rows
+    past a length are zero; Y_h and Y_c hold the last valid step).
+
+    The input projection of all steps is one product; the recurrence of a
+    direction without peepholes or ragged lengths is one launch of the
+    `lstm_seq` kernel (on the card, for 1 <= H <= 128, the kernel's stated
+    range; the plain version on the CPU), as the JAX emitter takes its Pallas
+    kernel; the rest run the masked loop (`RNN_ROUTES` counts both). Static
+    W, R and B are put in the kernel's gate order and layout once, at trace
+    time, and hoisted as such; only the recurrence is recorded."""
+    hidden, lens, run = _lstm_args(ctx, x, r, seq_lens)
+    run = functools.partial(run, seq=lstm_seq)
+    st = ctx.state
+    if st is None:
+        return run(x, *_lstm_weights(w, r, b, hidden), lens, init_h, init_c, p)
+    def name(k: int) -> str:
+        return ctx.scope + ctx.node.input[k]
+
+    prepared = st.run(_lstm_weights, w, r, b, hidden)
+    wx, rh, bias = (st.to_device(f"{name(k)}#lstm_{tag}", v) if _static(v) else v
+                    for k, tag, v in zip((1, 2, 3), ("wx", "rh", "bias"), prepared))
+    if _static(lens):
+        lens = st.to_device(name(4), lens)
+    if _static(p):
+        p = st.to_device(name(7), p)
+    return st.run(run, x, wx, rh, bias, lens, init_h, init_c, p)
+
+
+def lstm_plain(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None, init_c=None,
+               p=None):
+    """The LSTM emitter with `lstm_seq_plain` in place of the kernel, its
+    weights prepared at every call: an override
+    (`overrides={"LSTM": lstm_plain}`) that compiles a graph's plain oracle
+    for the card."""
+    hidden, lens, run = _lstm_args(ctx, x, r, seq_lens)
+    return run(x, *_lstm_weights(w, r, b, hidden), lens, init_h, init_c, p,
+               seq=lstm_seq_plain)

@@ -37,11 +37,15 @@ class OpDef:
     # input positions that must stay host-static (shape/axes arguments); the
     # tracer never converts these to device values
     static_args: tuple = ()
+    # the emitter records its own device steps through ctx.state, so it can
+    # prepare static weights once at trace time (LSTM); the tracer does not
+    # record it as one step
+    records: bool = False
 
 
-def op(name: str, foldable: bool = True, static_args: tuple = ()):
+def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False):
     def deco(fn):
-        OPS[name] = OpDef(name, fn, foldable, static_args)
+        OPS[name] = OpDef(name, fn, foldable, static_args, records)
         return fn
 
     return deco
@@ -101,6 +105,9 @@ class OpContext:
     opset   model's ai.onnx opset version (semantics switch per opset)
     node    the NodeProto wrapper
     tracer  the GraphTracer
+    state   the TraceState, for an emitter that records its own steps
+            (`records=True`); None otherwise
+    scope   the subgraph scope of the node's value names
     """
 
     xp: Any
@@ -108,6 +115,8 @@ class OpContext:
     opset: int
     node: Proto | None = None
     tracer: Any = None
+    state: Any = None
+    scope: str = ""
 
     @property
     def is_fold(self) -> bool:
@@ -123,9 +132,11 @@ class OpContext:
         return [int(x) for x in v] if isinstance(v, (list, tuple)) else [int(v)]
 
 
-def make_ctx(xp, node: Proto, opset: int, tracer=None) -> OpContext:
+def make_ctx(xp, node: Proto, opset: int, tracer=None, state=None,
+             scope: str = "") -> OpContext:
     attrs = {a.name: parse_attr(a) for a in node.attribute}
-    return OpContext(xp=xp, attrs=attrs, opset=opset, node=node, tracer=tracer)
+    return OpContext(xp=xp, attrs=attrs, opset=opset, node=node, tracer=tracer,
+                     state=state, scope=scope)
 
 
 def static_ints(v, what: str = "value") -> list[int]:

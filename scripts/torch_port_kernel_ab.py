@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the port's exact-DQL kernels on one card.
+"""A/B of two versions of the port's kernels 4, 5 and 6 on one card.
 
     python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR]
 
-Builds csrc/dq_gemm.cu and csrc/sanm_dql.cu from both directories (the new
-one defaults to lele_tpu_torch/csrc), binds each through the port's own
-wrappers (the C entries must share their signatures), and times in turns,
-old new new old, with CUDA events (median of 30 warm runs each):
+Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu and csrc/lstm_seq.cu, those of
+them that both directories hold, from both (the new one defaults to
+lele_tpu_torch/csrc), binds each through the port's own wrappers (the C
+entries must share their signatures), and times in turns, old new new old,
+with CUDA events (median of 30 warm runs each):
 
 - `dq_gemm` at the compiled graph's four layer linears and its CTC head,
   T = 196 rows (10 s of audio);
-- `sanm_stack_dql`, 50 layers at d512, ffn 2048, T = 196.
+- `sanm_stack_dql`, 50 layers at d512, ffn 2048, T = 196;
+- `lstm_seq` at H = 128, B = 1 over S = 3 (a chunk of the Silero fixture),
+  1,875 (60 s) and 18,750 (600 s) steps.
 
 It checks that the two versions give the same bits (both compute the same
 exact arithmetic) and prints the card's name and power limit beside every
@@ -28,16 +31,17 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-STEMS = ("dq_gemm", "sanm_dql")
+STEMS = ("dq_gemm", "sanm_dql", "lstm_seq")
+LSTM_STEPS = (3, 1875, 18750)
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
 
 
-def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
+def build(csrc: Path, out: Path, stems) -> dict[str, ctypes.CDLL]:
     from lele_tpu_torch.kernels import _build
 
     procs = {}
-    for stem in STEMS:
+    for stem in stems:
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
                str(out / f"lib{stem}.so"), str(csrc / f"{stem}.cu")]
         procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -63,27 +67,30 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     from lele_tpu_torch import kernels as K
-    from lele_tpu_torch.kernels import _build, quant_matmul, sanm_block
+    from lele_tpu_torch.kernels import _build, lstm, quant_matmul, sanm_block
 
     old = Path(argv[0]).resolve()
     new = Path(argv[1]).resolve() if len(argv) > 1 else REPO / "lele_tpu_torch" / "csrc"
+    stems = [s for s in STEMS if (old / f"{s}.cu").exists() and (new / f"{s}.cu").exists()]
     card = cs.card_identity()
     with tempfile.TemporaryDirectory() as d:
         (Path(d) / "old").mkdir()
         (Path(d) / "new").mkdir()
-        libs = {"old": build(old, Path(d) / "old"), "new": build(new, Path(d) / "new")}
+        libs = {"old": build(old, Path(d) / "old", stems),
+                "new": build(new, Path(d) / "new", stems)}
 
         def use(version):
-            for stem in STEMS:
+            for stem in stems:
                 _build._libs[stem] = libs[version][stem]
             quant_matmul._dq_fn = None
             sanm_block._dql_fn = None
+            lstm._fn = None
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         cases = []
-        for k_, n_ in SHAPES:
+        for k_, n_ in SHAPES if "dq_gemm" in stems else ():
             wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
                                dtype=torch.int8)
             colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
@@ -92,11 +99,16 @@ def main(argv: list[str]) -> int:
             cases.append((f"dq_gemm [{T},{k_}]x[{k_},{n_}]",
                           lambda x=x, wq=wq, c=colsum, s=s, zp=zp:
                           K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3)))
-        st = cs.random_dql_stack(L, D, F, FK, dev, gen)
-        bias, vmask = cs.dql_masks(L, T, 171, dev)
-        x = torch.randn((T, D), generator=gen, device=dev)
-        cases.append((f"sanm_stack_dql T={T} L={L}",
-                      lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2)))
+        if "sanm_dql" in stems:
+            st = cs.random_dql_stack(L, D, F, FK, dev, gen)
+            bias, vmask = cs.dql_masks(L, T, 171, dev)
+            x = torch.randn((T, D), generator=gen, device=dev)
+            cases.append((f"sanm_stack_dql T={T} L={L}",
+                          lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2)))
+        for S in LSTM_STEPS if "lstm_seq" in stems else ():
+            args = cs.lstm_inputs(S, 1, 128, dev, gen)
+            cases.append((f"lstm_seq S={S} B=1 H=128",
+                          lambda args=args: torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)])))
         for name, fn in cases:
             times = {"old": [], "new": []}
             outs = {}

@@ -150,7 +150,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         rtol=0, atol=0)
     assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
-                                      "dq_gemm", "sanm_stack_dql"}
+                                      "dq_gemm", "sanm_stack_dql", "lstm_seq"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -168,7 +168,7 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "from lele_tpu_torch.kernels import _build\n"
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
-        "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql')}\n"
+        "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq')}\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

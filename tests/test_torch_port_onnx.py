@@ -216,7 +216,7 @@ def test_unknown_op_warns_and_strict_mode_raises(capsys):
         compile_model(data, device="cpu", strict=True)
 
 
-@pytest.mark.parametrize("op", ["If", "Loop", "Scan"])
+@pytest.mark.parametrize("op", ["SequenceMap", "Loop", "Scan"])
 def test_subgraph_ops_are_not_ported_yet(op):
     from lele_tpu_torch.compiler import compile_model
 

@@ -176,8 +176,9 @@ def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
 
 def test_port_runs_without_jax():
     """The card machine has no JAX: the port must import and run without it,
-    and without the JAX package. Both slices run: the native engine and the
-    compiled graph behind SenseVoiceOnnx."""
+    and without the JAX package. Every slice runs: the native engine, the
+    compiled graph behind SenseVoiceOnnx, and Silero VAD native and compiled
+    at both sample rates."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -202,6 +203,14 @@ def test_port_runs_without_jax():
         "logits = m.forward_fn()(m.params, pcm)\n"
         "assert logits.shape == (1, 4 + 21, 40) and torch.isfinite(logits).all()\n"
         "assert all(0 <= i < 40 for i in ids)\n"
+        "vad = SileroVad(device='cpu'); vad.init(0)\n"
+        "pcm = np.random.default_rng(2).standard_normal(16000).astype(np.float32) * 0.1\n"
+        "for sr in (16000, 8000):\n"
+        "    p = vad.speech_probs(pcm, sr)\n"
+        "    assert p.shape == (31,) and ((p >= 0) & (p <= 1)).all()\n"
+        "    assert isinstance(vad.segments(pcm, sr=sr), list)\n"
+        "    q = SileroOnnx('fixtures/silero.onnx', device='cpu').speech_probs(pcm, sr)\n"
+        "    assert q.shape == (31,) and np.isfinite(q).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
