@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import default_device
 from .cmvn import cmvn
 from .filters import hann_window, mel_filterbank
 from .framing import frame_signal
@@ -56,12 +57,14 @@ class FbankConfig:
 
 
 class FbankFrontend:
-    """Holds the window and mel constants on `device`; __call__(pcm) → features."""
+    """Holds the window and mel constants on `device`; __call__(pcm) → features.
+    `device` defaults to `default_device()`, which raises where there is no
+    CUDA card: the CPU is taken only when the caller passes device="cpu"."""
 
     def __init__(self, config: FbankConfig | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.config = config or FbankConfig()
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
         c = self.config
         self.window = torch.from_numpy(hann_window(c.frame_len)).to(self.device)
         # transposed [n_freqs, n_mels] so the device does power @ mel

@@ -85,7 +85,10 @@ def silero_step(params: Params, chunk: torch.Tensor, state: torch.Tensor,
     return prob, torch.stack([h_new, c_new])
 
 
-def zero_state(cfg: SileroConfig, batch: int = 1, device: torch.device | str = "cpu"):
+def zero_state(cfg: SileroConfig, batch: int = 1, device: torch.device | str | None = None):
+    """The [2, batch, d_hidden] zero (h; c) state, on `device` (by default
+    `default_device()`, which raises where there is no CUDA card)."""
+    device = torch.device(device) if device is not None else default_device()
     return torch.zeros((2, batch, cfg.d_hidden), dtype=torch.float32, device=device)
 
 

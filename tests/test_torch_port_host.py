@@ -154,3 +154,17 @@ def test_entry_points_raise_without_a_card(no_card):
     # the same calls run where the caller asks for the CPU
     SenseVoiceOnnx(graph, device="cpu")
     compile_model(graph, input_shapes={"speech": (1, 8, 560)}, device="cpu")
+
+
+def test_frontend_and_vad_state_raise_without_a_card(no_card):
+    """FbankFrontend and zero_state default to the card as the model
+    constructors do: without one they raise, and run where the caller asks
+    for the CPU."""
+    from lele_tpu_torch.features import FbankFrontend
+    from lele_tpu_torch.models import SileroConfig, zero_state
+
+    for make in (lambda: FbankFrontend(), lambda: zero_state(SileroConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+    assert FbankFrontend(device="cpu").window.device.type == "cpu"
+    assert zero_state(SileroConfig(), 2, device="cpu").shape == (2, 2, 128)

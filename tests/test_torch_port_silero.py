@@ -203,7 +203,7 @@ def test_features_and_step_match_jax(models, sr):
     _close(got, want)
     jstep, tstep = jv.step_fn(sr), tv.step_fn(sr)
     jstate = jsilero.zero_state(jv.cfg)
-    tstate = silero.zero_state(tv.cfg)
+    tstate = silero.zero_state(tv.cfg, device="cpu")
     for i in range(3):  # the state carried across streaming steps
         chunk = chunks[i:i + 1]
         jp, jstate = jstep(jv.params, jnp.asarray(chunk), jstate)
@@ -234,7 +234,7 @@ def test_offline_scan_launches_the_sequence_once_and_matches_the_steps(models, m
     monkeypatch.setattr(silero, "lstm_seq", lambda *a: calls.append(a[0].shape) or seq(*a))
     probs = tv.speech_probs(pcm)
     assert calls == [(len(pcm) // 512, 1, 4 * 128)]
-    step, state = tv.step_fn(), silero.zero_state(tv.cfg)
+    step, state = tv.step_fn(), silero.zero_state(tv.cfg, device="cpu")
     chunks = torch.from_numpy(tv.frame_chunks(pcm))
     for i, want in enumerate(probs):
         p, state = step(tv.params, chunks[i:i + 1], state)
