@@ -38,7 +38,22 @@
 10. times kernel 6, its plain version, its bound, cuDNN's LSTM, the
    streaming step and the RTFs of both Silero paths, and profiles one
    compiled 10 s request;
-11. prints one JSON line of kernels, the card, and last
+11. holds kernel 7 (the w4a16 GEMM) against its plain version at the
+   GEMM shapes, T = 171 and 87, bf16 and f32, and at MatMulNBits groups 32
+   and 128; kernel 8 (the w4 SAN-M stack) layer 0 and whole (50 layers) at
+   T = 171 and at T = 87 with 76 valid rows;
+12. drives SenseVoice w4a16 at full width (`SenseVoiceConfig(weight_int4=
+   True)`, random weights from a seed) behind SenseVoiceEngine, answering
+   the three WAV requests: kernel 8 and kernel 7 (the CTC head) once a
+   request and no w8 kernel; holds the 10 s logits against the plain path;
+13. compiles a MatMulNBits graph at the main path's linear widths (512 →
+   1536, 512 → 2048 → 512, 512 → 25,055; blocks 32 and 128, packed zero
+   points and bias; 196 rows) with the default patterns and with
+   `patterns=[]`: pattern hits, one kernel 7 launch a node, fused vs per-op;
+14. times kernels 7 and 8, their plain versions, bounds and kernel 7's
+   library call, the two compiled MatMulNBits paths, and the w4 and w8
+   10 s forwards in one call;
+15. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -96,6 +111,14 @@ VAD_SECONDS = (1.0, 10.0, 60.0)
 VAD_LONG_SECONDS = 600.0
 VAD_SR = 16000
 SILERO_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "silero.onnx"
+# kernel 7 vs its plain version: exact products on both sides, so only the
+# f32 summation order differs. The first call read <= 1.9e-7 max|ref| in bf16
+# and <= 1.3e-6 in f32, so the bf16 gate was tightened from 1e-4 to 1e-5
+W4_TOL = {"bfloat16": 1e-5, "float32": 1e-5}
+NBITS_ROWS = 196
+# MatMulNBits, fused (bf16 activations) vs per-op (f32): the gate of
+# tests/test_matmul_nbits_fusion.py:161-165
+NBITS_RELNORM = 5e-3
 
 
 class Checks:
@@ -384,6 +407,206 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     for e in sorted(rows, key=lambda e: -dev_time(e))[:6]:
         print(f"    {dev_time(e):10.1f} us  x{e.count:<6d} {e.key[:90]}")
     return {"native": vad_launches, "compiled": onnx_launches}
+
+
+def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_fwd,
+              w8_params) -> dict:
+    """Phases 11-14: kernels 7 and 8, SenseVoice w4a16 behind the engine, a
+    MatMulNBits graph, and their timings. Returns the launch counts of the
+    w4 main path."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import (
+        SenseVoiceConfig,
+        SenseVoiceModel,
+        cast_big_params,
+        prepare_w4_params,
+        stack_layer_params,
+    )
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.serving import SenseVoiceEngine
+
+    W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+
+    def gemm_check(T, k_, n_, packed, scales, group, what):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((T, k_), generator=gen, device=dev).to(dtype)
+            got = K.w4_matmul(x, packed, scales, group)
+            ref = K.w4_matmul_plain(x, packed, scales, group)
+            torch.cuda.synchronize()
+            d, scale, _ = compare(got, ref)
+            tol = W4_TOL[str(dtype)[6:]]
+            err["w4_gemm"] = max(err["w4_gemm"], d)
+            checks.require(got.shape == ref.shape and d <= tol * scale,
+                           f"w4_gemm [{T},{k_}]x[{k_},{n_}] g{group} {str(dtype)[6:]}{what}: "
+                           f"max|d| {d:.3e} <= {tol:g} * {scale:.3e}")
+
+    print("== 11. kernels 7 (w4_gemm) and 8 (sanm_stack_w4) vs plain on the card")
+    for T in (T_MAIN, T_RAGGED):
+        for (k_, n_) in GEMM_SHAPES:
+            w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+            packed, scales = W4.quantize_weight_int4(w, 128)
+            gemm_check(T, k_, n_, packed, scales, 128, "")
+    for group in (32, 128):  # MatMulNBits' recentred planes: the full [-8, 7]
+        packed = torch.randint(-128, 128, (256, 1536), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scales = torch.rand((512 // group, 1536), generator=gen, device=dev) * 0.01 + 1e-3
+        gemm_check(NBITS_ROWS, 512, 1536, packed, scales, group, ", recentred int4")
+
+    cfg = SenseVoiceConfig(weight_int4=True)
+    model = SenseVoiceModel(cfg, device=dev)
+    model.init(SEED)
+    model.params = stack_layer_params(
+        prepare_w4_params(cast_big_params(model.params, torch.bfloat16)))
+    stacked = model.params["layers_stacked"]
+    L, D, H, FK = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.fsmn_kernel
+    stack_bytes = sum(t.numel() * t.element_size() for t in (
+        v for grp in stacked.values() for v in grp.values()))
+    print(f"  model: {L} layers, d{D}, vocab {cfg.vocab_size}, {stack_bytes / 1e6:.1f} MB of "
+          f"w4 layer operands resident")
+    for tree, label in ((layer_slice(stacked, 0), "layer 0"), (stacked, f"{L} layers")):
+        for T, n_valid in ((T_MAIN, T_MAIN), (T_RAGGED, VALID_RAGGED)):
+            x = torch.randn((T, D), generator=gen, device=dev) * 0.5
+            mask = torch.zeros((T,), device=dev)
+            mask[:n_valid] = 1.0
+            got = K.sanm_stack_w4(x, mask, tree, H, FK)[:n_valid]
+            ref = K.sanm_stack_w4_plain(x, mask, tree, H, FK)[:n_valid]
+            torch.cuda.synchronize()
+            d, scale, _ = compare(got, ref)
+            err["sanm_stack_w4"] = max(err["sanm_stack_w4"], d)
+            checks.require(bool(torch.isfinite(got).all()) and torch.allclose(
+                got, ref, rtol=2e-2, atol=2e-2 * scale),
+                f"sanm_stack_w4 {label} T={T} valid={n_valid}: max|d| {d:.3e}, rtol 2e-2, "
+                f"atol 2e-2 * {scale:.3e}")
+
+    print("== 12. main path: SenseVoiceEngine.recognize on the w4a16 model at full width")
+    rng = np.random.default_rng(SEED + 4)
+    engine = SenseVoiceEngine(model=model)
+    requests = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
+    K.reset_launch_counts()
+    answers = [engine.recognize(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    n_req = len(requests)
+    for s, ids in zip(REQUEST_SECONDS, answers):
+        checks.require(all(0 <= i < cfg.vocab_size for i in ids),
+                       f"w4 request {s} s: {len(ids)} tokens, ids in [0, vocab)")
+    print(f"  launch counts over {n_req} requests: {launches}")
+    checks.require(launches["sanm_stack_w4"] == n_req, "sanm_stack_w4 once per request")
+    checks.require(launches["w4_gemm"] == n_req, "w4_gemm (CTC head) once per request")
+    checks.require(all(launches[k] == 0 for k in ("w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
+                                                  "dq_gemm", "sanm_stack_dql")),
+                   "no w8 or int8 kernel on the w4 path")
+    pcm10 = synth_speechlike(10.0, np.random.default_rng(SEED + 1))
+    fwd, fwd_plain = model.forward_fn(), model.forward_fn(plain=True)
+    got, ref = fwd(model.params, pcm10), fwd_plain(model.params, pcm10)
+    torch.cuda.synchronize()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    checks.require(tuple(got.shape) == (1, T_MAIN, cfg.vocab_size)
+                   and bool(torch.isfinite(got).all()),
+                   f"w4 10 s logits {tuple(got.shape)} finite")
+    checks.require(rel <= 5e-2, f"w4 10 s logits kernel vs plain: max|d|/max|ref| {rel:.3e} "
+                                f"<= 5e-2")
+    checks.require(agree >= 0.98, f"w4 10 s frame-argmax agreement {agree:.4f} >= 0.98")
+
+    print("== 13. compiled MatMulNBits graph at the main path's linear widths")
+    grng = np.random.default_rng(GRAPH_SEED + 1)
+    inits, nodes = [], []
+    # (input, output, K, N, block, packed zero points and bias)
+    spec = (("a", "y1", 512, 1536, 32, False), ("a", "h", 512, 2048, 128, False),
+            ("h", "y3", 2048, 512, 128, False), ("a", "y4", 512, 25055, 128, True))
+    for j, (src, dst, k_, n_, blk, zp_bias) in enumerate(spec):
+        kb = k_ // blk
+        ins = [src, f"b{j}", f"s{j}"]
+        inits += [ob.tensor_from_array(grng.integers(0, 256, (n_, kb, blk // 2),
+                                                     dtype=np.uint8), f"b{j}"),
+                  ob.tensor_from_array((grng.random((n_, kb)) * 0.4 / k_ ** 0.5 + 1e-3)
+                                       .astype(np.float32), f"s{j}")]
+        if zp_bias:
+            ins += [f"z{j}", "", f"c{j}"]
+            inits += [ob.tensor_from_array(grng.integers(0, 256, (n_, (kb + 1) // 2),
+                                                         dtype=np.uint8), f"z{j}"),
+                      ob.tensor_from_array(grng.standard_normal(n_).astype(np.float32) * 0.1,
+                                           f"c{j}")]
+        nodes.append(ob.node("MatMulNBits", ins, [dst], domain="com.microsoft", K=k_, N=n_,
+                             bits=4, block_size=blk))
+    graph = ob.build_model_bytes(
+        nodes, inputs=[ob.value_info("a", 1, [NBITS_ROWS, 512])],
+        outputs=[ob.value_info(n, 1, [NBITS_ROWS, w]) for n, w in
+                 (("y1", 1536), ("y3", 512), ("y4", 25055))], initializers=inits)
+    t0 = time.perf_counter()
+    cm = compile_model(graph, device=dev, strict=True)
+    cm_ref = compile_model(graph, device=dev, strict=True, patterns=[])
+    print(f"  graph: {len(graph) / 1e6:.1f} MB of ONNX bytes, {len(nodes)} MatMulNBits, "
+          f"both paths compiled in {time.perf_counter() - t0:.2f} s")
+    a = torch.from_numpy(grng.standard_normal((NBITS_ROWS, 512)).astype(np.float32)).to(dev)
+    hits = cm.stats["pattern_hits"]
+    checks.require(hits.get("matmul_nbits_w4") == 2 * len(nodes) and not
+                   cm_ref.stats["pattern_hits"],
+                   f"pattern hits {hits}: two a node (the pattern and the tracer's walk "
+                   f"each count it, as the JAX package does); none on the per-op path")
+    K.reset_launch_counts()
+    outs = cm(a=a)
+    torch.cuda.synchronize()
+    nb_launches = K.launch_counts()
+    refs = cm_ref(a=a)
+    torch.cuda.synchronize()
+    checks.require(nb_launches["w4_gemm"] == len(nodes)
+                   and sum(nb_launches.values()) == len(nodes),
+                   f"w4_gemm once a node a request: {nb_launches}")
+    for name, o, r in zip(("y1", "y3", "y4"), outs, refs):
+        rn = ((o - r).norm() / r.norm()).item()
+        checks.require(bool(torch.isfinite(o).all()) and rn <= NBITS_RELNORM,
+                       f"MatMulNBits {name} {tuple(o.shape)}, fused vs per-op: relative "
+                       f"Frobenius {rn:.3e} <= {NBITS_RELNORM:g}")
+
+    print(f"== 14. w4 timings (CUDA events, median of {TIMED_RUNS}; {card})")
+    k_, n_ = GEMM_SHAPES[-1]
+    x = torch.randn((T_MAIN, k_), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+    packed, scales = W4.quantize_weight_int4(w, 128)
+    ms["w4_gemm"] = time_ms(lambda: K.w4_matmul(x, packed, scales, 128))
+    plain_ms["w4_gemm"] = time_ms(lambda: K.w4_matmul_plain(x, packed, scales, 128))
+    # the CTC head's one library call: bf16 x by the weight dequantised to bf16
+    w_bf16 = W4.dequantize_int4(packed, scales, 128).to(torch.bfloat16)
+    library_ms["w4_gemm"] = time_ms(lambda: torch.matmul(x, w_bf16))
+    bounds["w4_gemm"] = bound(T_MAIN * k_ * 2 + packed.numel() + scales.numel() * 4
+                              + T_MAIN * n_ * 4, {"bf16": 2 * T_MAIN * k_ * n_})
+    print(f"  w4_gemm [{T_MAIN},{k_}]x[{k_},{n_}] g128 bf16: kernel {ms['w4_gemm']:.4f} ms, "
+          f"plain {plain_ms['w4_gemm']:.4f} ms, torch.matmul bf16 x bf16 dequantised weight "
+          f"{library_ms['w4_gemm']:.4f} ms  ({card})")
+    x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
+    mask = torch.ones((T_MAIN,), device=dev)
+    ms["sanm_stack_w4"] = time_ms(lambda: K.sanm_stack_w4(x, mask, stacked, H, FK))
+    plain_ms["sanm_stack_w4"] = time_ms(lambda: K.sanm_stack_w4_plain(x, mask, stacked, H, FK),
+                                        runs=5)
+    library_ms["sanm_stack_w4"] = None
+    F = cfg.ffn_dim
+    bounds["sanm_stack_w4"] = bound(stack_bytes + 2 * T_MAIN * D * 4, {
+        "bf16": L * (2 * T_MAIN * D * (4 * D + 2 * F) + 4 * T_MAIN * T_MAIN * D)})
+    print(f"  sanm_stack_w4 T={T_MAIN}, {L} layers: kernel {ms['sanm_stack_w4']:.4f} ms, "
+          f"plain {plain_ms['sanm_stack_w4']:.4f} ms  ({card})")
+    for name in ("w4_gemm", "sanm_stack_w4"):
+        b_ms, by = bounds[name]
+        print(f"  bound {name}: {b_ms * 1e3:.2f} us by {by}; kernel at "
+              f"{100 * b_ms / ms[name]:.2f}% of it  ({card})")
+    fused_ms = time_ms(lambda: cm(a=a))
+    per_op_ms = time_ms(lambda: cm_ref(a=a), runs=5)
+    print(f"  MatMulNBits graph, {NBITS_ROWS} rows: fused {fused_ms:.4f} ms, per-op "
+          f"{per_op_ms:.4f} ms  ({card})")
+    w8_ms = time_ms(lambda: w8_fwd(w8_params, pcm10))
+    w4_ms = time_ms(lambda: fwd(model.params, pcm10))
+    w4p_ms = time_ms(lambda: fwd_plain(model.params, pcm10), runs=5)
+    print(f"  forward_fn 10 s: w4a16 kernel path {w4_ms:.4f} ms (RTF {w4_ms / 1e4:.3e}), "
+          f"w4a16 plain path {w4p_ms:.4f} ms, w8a16 kernel path {w8_ms:.4f} ms (RTF "
+          f"{w8_ms / 1e4:.3e})  ({card})")
+    return launches
 
 
 def dev_time(e):  # the attribute's name moved between torch versions
@@ -777,6 +1000,8 @@ def main() -> int:
 
     vad_launches = silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
                                  bounds)
+    w4_launches = w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
+                            fwd, model.params)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -804,6 +1029,12 @@ def main() -> int:
         "lstm_seq": ("lele_tpu_torch/csrc/lstm_seq.cu", "lele_tpu/kernels/lstm.py:21",
                      f"hs, h_S, c_S max|d| <= {LSTM_TOL:g}; probabilities vs plain "
                      f"<= {VAD_PROB_TOL:g}", vad_launches["native"]),
+        "w4_gemm": ("lele_tpu_torch/csrc/w4_gemm.cu",
+                    "lele_tpu/kernels/w4_matmul.py:144",
+                    "bf16 and f32 max|d| <= 1e-5*max|ref|", w4_launches),
+        "sanm_stack_w4": ("lele_tpu_torch/csrc/sanm_layer.cu",
+                          "lele_tpu/kernels/sanm_block.py:621",
+                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows", w4_launches),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

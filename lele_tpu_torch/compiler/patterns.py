@@ -8,6 +8,9 @@
   node adjacency (real int8 exports interleave chain nodes). Weights shift to
   i8 with zero-point column sums once, at trace time, and the dot runs in
   the `fused_dq_matmul` kernel.
+- ``matmul_nbits_w4``: com.microsoft::MatMulNBits at bits=4 → the `w4_matmul`
+  kernel, its ORT blob repacked once at trace time into the kernel's
+  low/high K-plane layout.
 
 A pattern is ``fn(tracer, state, nodes, i, env, scope) -> None | (consumed,
 {output_name: value})``. None means "no match"; the tracer then falls
@@ -274,6 +277,102 @@ def _match_dequant_epilogue(nodes, j, mm_out, env, scale_name, graph_outputs,
     return jc, jm, jp, mul.output[0], smul.output[0], float(np.asarray(cv))
 
 
+def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int):
+    """The recorded step of matmul_nbits_w4: bf16 activations through the w4
+    GEMM on the recentred planes, plus the zero-point residual
+    Σ_g blocksum_g(a)·(8 − zp)·s as an f32 [M, K/block] × [K/block, N]
+    product (zc None where every zero point is 8)."""
+    from ..kernels.w4_matmul import w4_matmul
+
+    x2 = a.reshape(-1, K)
+    out = w4_matmul(x2.to(torch.bfloat16), packed, scales, block)
+    if zc is not None:
+        xs = x2.to(torch.float32).reshape(x2.shape[0], K // block, block).sum(-1)
+        out = out + xs @ zc
+    out = out.reshape(*a.shape[:-1], N).to(a.dtype)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def matmul_nbits_w4(tracer, state, nodes, i, env, scope):
+    """Route com.microsoft::MatMulNBits (bits=4, no g_idx) through the w4a16
+    GEMM kernel (kernels/w4_matmul.py), as lele_tpu/compiler/patterns.py:277
+    routes it through `w4_matmul_pallas`.
+
+    ORT's blob [N, k_blocks, block/2] (K-adjacent nibble pairs, q in
+    [0, 15]) is repacked on the host, once, into the kernel's [K/2, N]
+    low/high K-plane layout, recentred to q − 8 so it fits the signed int4
+    planes: (q − zp)·s = (q − 8)·s + (8 − zp)·s, and the second term is the
+    zero-point residual, an [M, K/block] × [K/block, N] product over block
+    sums of the activation (none for the default zp = 8). Activations go to
+    the kernel as bf16 (its group-accumulator form), JAX's default route;
+    its `LELE_NBITS_F32` f32 route is not ported.
+
+    Eligibility is JAX's: bits 4, no g_idx, static weights, scales and zero
+    points, a float activation, an even block of at most 512, K a multiple
+    of 2·block; anything else keeps the emitter (ops/contrib_ops.py). The
+    kernel itself takes blocks that are multiples of 16 (ONNX's MatMulNBits
+    requires a power of two of at least 16) and raises for others. Each hit
+    is counted twice in `pattern_hits`, by the pattern and by the tracer's
+    walk, as the JAX package counts it."""
+    node = nodes[i]
+    if node.op_type != "MatMulNBits":
+        return None
+    from ..ops.registry import canon_domain
+
+    if canon_domain(node.domain) != "com.microsoft":
+        return None
+    if int(_node_attr(node, "bits", 4)) != 4:
+        return None
+    K = int(_node_attr(node, "K"))
+    N = int(_node_attr(node, "N"))
+    block = int(_node_attr(node, "block_size"))
+    if block < 2 or block % 2 or block > 512 or K % (2 * block):
+        return None
+    ins = list(node.input) + [""] * (6 - len(node.input))
+    a = env.get(ins[0])
+    b = env.get(ins[1])
+    sc = env.get(ins[2])
+    zp = env.get(ins[3]) if ins[3] else None
+    gidx = env.get(ins[4]) if ins[4] else None
+    bias = env.get(ins[5]) if ins[5] else None
+    if gidx is not None:
+        return None
+    if a is None or _is_static(a) or not a.is_floating_point():
+        return None
+    if not (_is_static(b) and _is_static(sc)):
+        return None
+    if zp is not None and not _is_static(zp):
+        return None
+    KB = K // block
+    b_np = np.asarray(b)
+    if b_np.size != N * K // 2 or b_np.dtype != np.uint8:
+        return None
+    # host repack: ORT's K-adjacent nibble pairs → the kernel's K/2 planes
+    bq = b_np.reshape(N, KB, block // 2)
+    q = np.stack([bq & 0x0F, bq >> 4], axis=-1).reshape(N, K)
+    q = (q.astype(np.int8) - 8).T  # recentred signed int4, [K, N]
+    half = K // 2
+    packed = ((q[:half] & 0x0F) | (q[half:] << 4)).astype(np.int8)
+    sc_np = np.asarray(sc).astype(np.float32).reshape(N, KB)
+
+    from ..ops.contrib_ops import _nbits_zp
+
+    c_np = (np.float32(8.0) - _nbits_zp(zp, 4, N, KB)) * sc_np
+    packed_dev = state.to_device(scope + ins[1] + "::w4pk", packed)
+    s_dev = state.to_device(scope + ins[1] + "::w4s", np.ascontiguousarray(sc_np.T))
+    zc_dev = None
+    if np.ndim(c_np) and np.any(c_np):
+        zc_dev = state.to_device(scope + ins[1] + "::w4zc",
+                                 np.ascontiguousarray(c_np.T.astype(np.float32)))
+    if bias is not None and _is_static(bias):
+        bias = state.to_device(scope + ins[5] + "::w4b", np.asarray(bias))
+    out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block)
+    state.pattern_hits["matmul_nbits_w4"] = state.pattern_hits.get("matmul_nbits_w4", 0) + 1
+    return 1, {node.output[0]: out}
+
+
 from .sanm_fuse import sanm_stack_dataflow  # noqa: E402  (uses the helpers above)
 
-DEFAULT_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow]
+DEFAULT_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4]

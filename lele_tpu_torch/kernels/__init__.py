@@ -21,8 +21,16 @@ from .sanm_block import (  # noqa: F401
     sanm_layer_w8_plain,
     sanm_stack_dql,
     sanm_stack_dql_plain,
+    sanm_stack_w4,
+    sanm_stack_w4_plain,
     sanm_stack_w8,
     sanm_stack_w8_plain,
+)
+from .w4_matmul import (  # noqa: F401
+    dequantize_int4,
+    quantize_weight_int4,
+    w4_matmul,
+    w4_matmul_plain,
 )
 
 KERNEL_WRAPPERS = {
@@ -32,6 +40,8 @@ KERNEL_WRAPPERS = {
     "dq_gemm": fused_dq_matmul,
     "sanm_stack_dql": sanm_stack_dql,
     "lstm_seq": lstm_seq,
+    "w4_gemm": w4_matmul,
+    "sanm_stack_w4": sanm_stack_w4,
 }
 
 

@@ -1,6 +1,6 @@
 """SAN-M encoder layers: counterpart of lele_tpu/kernels/sanm_block.py.
 
-Replaces three TPU kernels. w8a16 (int8 weights, f32/bf16 activations):
+Replaces four TPU kernels. w8a16 (int8 weights, f32/bf16 activations):
 
 - `sanm_layer_w8` ← `sanm_layer_w8_pallas` (lele_tpu/kernels/sanm_block.py:110):
   one layer, LN1 → w8 qkv → FSMN over V·mask + per-head attention → w8 out
@@ -14,6 +14,15 @@ in that file). The stack loops over the layers in Python on per-layer
 pointers into the stacked [L, ...] weights (no copies), with the activation
 in one preallocated [T, D] f32 buffer that every layer updates in place.
 The TPU kernel's weight prefetch across layers is not ported yet.
+
+w4a16 (groupwise int4 weights, lele_tpu/kernels/w4_matmul.py's block
+packing):
+
+- `sanm_stack_w4` ← `sanm_stack_w4_pallas` (lele_tpu/kernels/sanm_block.py:621):
+  all L layers at batch 1, through the same seven-launch layer
+  (csrc/sanm_layer.cu, C entry `sanm_layer_w4`) with each linear
+  dequantised as `_w4dot` does: bf16(q·s), bf16 products, f32 sums. The
+  TPU's `hd % 128` rule is dropped, as for w8.
 
 The plain versions follow the JAX jnp block (models/sensevoice.py:321-397)
 with the kernel's numerics: bf16-rounded operands, f32 sums, masked keys
@@ -39,9 +48,9 @@ Exact ONNX DynamicQuantizeLinear semantics (the compiled-ONNX path):
   oracle for each other.
 
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises. `sanm_layer_w8.launches` counts layer
-launches (a stack of L layers adds L); `sanm_stack_w8.launches` and
-`sanm_stack_dql.launches` count stack calls.
+it launches the kernel or raises. `sanm_layer_w8.launches` counts w8 layer
+launches (a stack of L layers adds L); `sanm_stack_w8.launches`,
+`sanm_stack_w4.launches` and `sanm_stack_dql.launches` count stack calls.
 """
 
 from __future__ import annotations
@@ -53,11 +62,11 @@ import torch
 from ..params import tree_map
 from . import _build
 from .quant_matmul import dql_quantize, dql_scale_zp, w8_matmul_plain
+from .w4_matmul import _unpack_nibbles, kernel_supports
 
 _STEM = "sanm_layer"
 _HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu
 _FSMN_KMAX = 16  # csrc/sanm_layer.cu FSMN_KMAX
-_fn = None
 
 # the kernel's per-layer operands, in the C entry's order
 _LEAVES = (
@@ -71,17 +80,20 @@ _LEAVES = (
 )
 
 
+def layer_kernel_takes(cfg) -> bool:
+    """Whether the layer kernel compiles the config's head dim (32, 64 or
+    128: the TPU's "multiple of 128 lanes" rule does not apply) and FSMN (at
+    most 16 taps)."""
+    return (cfg.d_model % cfg.n_heads == 0
+            and cfg.d_model // cfg.n_heads in _HEAD_DIMS
+            and cfg.fsmn_kernel <= _FSMN_KMAX)
+
+
 def fused_layer_available(cfg, params_layer) -> bool:
-    """The layer kernel covers w8-prepared linears, no MoE, head dims 32, 64
-    and 128 (the TPU's "multiple of 128 lanes" rule does not apply), and an
-    FSMN of at most 16 taps."""
-    return (
-        "wq8" in params_layer.get("qkv", {})
-        and "moe" not in params_layer
-        and cfg.d_model % cfg.n_heads == 0
-        and cfg.d_model // cfg.n_heads in _HEAD_DIMS
-        and cfg.fsmn_kernel <= _FSMN_KMAX
-    )
+    """The w8 layer kernel covers w8-prepared linears and no MoE, at the
+    widths `layer_kernel_takes`."""
+    return ("wq8" in params_layer.get("qkv", {}) and "moe" not in params_layer
+            and layer_kernel_takes(cfg))
 
 
 def layer_view(stacked, i: int):
@@ -124,17 +136,30 @@ def fsmn_conv(vm: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sanm_layer_w8_plain(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
-                        fsmn_k: int) -> torch.Tensor:
-    """x f32 [T, D], mask f32 [T] (1 = valid), w8 layer params → f32 [T, D]."""
+def _w4_lin(p, x, group: int):
+    """`_w4dot`: x rounded to bf16; each plane's weight dequantised as
+    bf16(q·s in f32); bf16 products, f32 sums (low plane, then high); + b."""
+    half = x.shape[-1] // 2
+    lo, hi = _unpack_nibbles(p["wq4"])
+    s = p["ws4"].float().repeat_interleave(group, dim=0)
+    xb = _bf(x)
+    y = xb[:, :half] @ _bf(lo.float() * s[:half])
+    y = y + xb[:, half:] @ _bf(hi.float() * s[half:])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _layer_plain(x, mask, lp, n_heads: int, fsmn_k: int, lin, name: str):
+    """One layer, any weight format: `lin(p, x)` is its linear."""
     T, D = x.shape
     if lp["fsmn"]["w"].shape[0] != fsmn_k:
-        raise ValueError("sanm_layer_w8: fsmn weight does not have fsmn_k taps")
+        raise ValueError(f"{name}: fsmn weight does not have fsmn_k taps")
     hd = D // n_heads
     x = x.float()
     m = mask.float()
     h = _ln(x, lp["norm1"])
-    q, k, v = _w8_lin(lp["qkv"], h).split(D, dim=-1)
+    q, k, v = lin(lp["qkv"], h).split(D, dim=-1)
     fsmn = fsmn_conv(v * m[:, None], lp["fsmn"]["w"])
     qh = _bf(q).reshape(T, n_heads, hd).transpose(0, 1)  # [H, T, hd]
     kh = _bf(k).reshape(T, n_heads, hd).transpose(0, 1)
@@ -143,9 +168,15 @@ def sanm_layer_w8_plain(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
     scores = torch.where(m > 0, scores, torch.full_like(scores, -1e9))  # over keys
     attn = torch.softmax(scores, dim=-1)
     ctx = (_bf(attn) @ vh).transpose(0, 1).reshape(T, D)
-    x1 = x + _w8_lin(lp["out"], ctx + fsmn)
+    x1 = x + lin(lp["out"], ctx + fsmn)
     h2 = _ln(x1, lp["norm2"])
-    return x1 + _w8_lin(lp["ffn2"], torch.relu(_w8_lin(lp["ffn1"], h2)))
+    return x1 + lin(lp["ffn2"], torch.relu(lin(lp["ffn1"], h2)))
+
+
+def sanm_layer_w8_plain(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
+                        fsmn_k: int) -> torch.Tensor:
+    """x f32 [T, D], mask f32 [T] (1 = valid), w8 layer params → f32 [T, D]."""
+    return _layer_plain(x, mask, lp, n_heads, fsmn_k, _w8_lin, "sanm_layer_w8")
 
 
 def sanm_stack_w8_plain(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
@@ -160,78 +191,99 @@ def sanm_stack_w8_plain(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: i
 # kernel launches
 
 
-def _layer_fn():
-    global _fn
-    if _fn is None:
+# the two weight formats: (packed weight key, scale key, C entry)
+_FORMATS = {"w8": ("wq8", "ws8", "sanm_layer_w8"), "w4": ("wq4", "ws4", "sanm_layer_w4")}
+_fns: dict[str, object] = {}
+
+
+def _layer_fn(fmt: str):
+    fn = _fns.get(fmt)
+    if fn is None:
         P, I = _build.P, _build.I
-        _fn = _build.bind(_STEM, "sanm_layer_w8",
-                          [P, P, I, I, I, I, I] + [P] * 5 + [P, I] + [P] * 11
-                          + [P] * 5)
-    return _fn
+        ints = [P, P] + [I] * (5 if fmt == "w8" else 6)  # x, mask, T, D, H, F, k (, group)
+        fn = _fns[fmt] = _build.bind(_STEM, _FORMATS[fmt][2],
+                                     ints + [P] * 5 + [P, I] + [P] * 11 + [P] * 5)
+    return fn
 
 
-def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int):
+def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int, fmt: str = "w8",
+              group: int = 0):
     """The layer's tensors in the C entry's order (None for a missing bias),
     checked for device, dtype, contiguity and shape."""
+    wkey, skey, name = _FORMATS[fmt]
+    leaves = [(g, {"wq8": wkey, "ws8": skey}.get(n, n)) for g, n in _LEAVES]
     ts = []
-    for group, name in _LEAVES:
-        t = lp[group].get(name)
+    for group_, leaf in leaves:
+        t = lp[group_].get(leaf)
         if t is None:
-            if name != "b" or group.startswith("norm"):
-                raise KeyError(f"sanm_layer_w8: missing {group}.{name}")
+            if leaf != "b" or group_.startswith("norm"):
+                raise KeyError(f"{name}: missing {group_}.{leaf}")
             ts.append(None)
             continue
         if t.device != device or not t.is_contiguous():
-            raise ValueError(f"sanm_layer_w8: {group}.{name} must be contiguous on {device}")
-        want = (torch.int8,) if name == "wq8" else (
-            (torch.bfloat16, torch.float32) if group == "fsmn" else (torch.float32,))
+            raise ValueError(f"{name}: {group_}.{leaf} must be contiguous on {device}")
+        want = (torch.int8,) if leaf == wkey else (
+            (torch.bfloat16, torch.float32) if group_ == "fsmn" else (torch.float32,))
         if t.dtype not in want:
-            raise TypeError(f"sanm_layer_w8: {group}.{name} is {t.dtype}, wants {want}")
+            raise TypeError(f"{name}: {group_}.{leaf} is {t.dtype}, wants {want}")
         if tuple(t.shape[:len(lead)]) != lead:
-            raise ValueError(f"sanm_layer_w8: {group}.{name} lacks the leading {lead}")
+            raise ValueError(f"{name}: {group_}.{leaf} lacks the leading {lead}")
         ts.append(t)
-    F = lp["ffn1"]["wq8"].shape[-1]
+    F = lp["ffn1"][wkey].shape[-1]
+    if fmt == "w8":
+        def lin(k_, n_):  # weight, scale
+            return (k_, n_), (n_,)
+    else:
+        def lin(k_, n_):
+            return (k_ // 2, n_), (k_ // group, n_)
     shapes = (
-        (D,), (D,), (D, 3 * D), (3 * D,), (3 * D,), (fsmn_k, D),
-        (D, D), (D,), (D,), (D,), (D,),
-        (D, F), (F,), (F,), (F, D), (D,), (D,),
+        (D,), (D,), *lin(D, 3 * D), (3 * D,), (fsmn_k, D),
+        *lin(D, D), (D,), (D,), (D,),
+        *lin(D, F), (F,), *lin(F, D), (D,),
     )
     for idx, shape in enumerate(shapes):
         if ts[idx] is not None and tuple(ts[idx].shape[len(lead):]) != shape:
-            raise ValueError(f"sanm_layer_w8: {_LEAVES[idx]} has shape "
+            raise ValueError(f"{name}: {leaves[idx]} has shape "
                              f"{tuple(ts[idx].shape)}, wants {lead + shape}")
     return ts, F
 
 
-def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None):
+def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None,
+                   fmt: str = "w8", group: int = 0):
     """Run the layer kernel in place on x [T, D] f32 (a fresh buffer the
     caller owns), once, or over the n_layers of a stacked tree."""
+    name = _FORMATS[fmt][2]
     if not x.is_cuda:
-        raise ValueError(f"sanm_layer_w8: x lies on {x.device}, not on a CUDA card")
+        raise ValueError(f"{name}: x lies on {x.device}, not on a CUDA card")
     T, D = x.shape
     if D % n_heads or D // n_heads not in _HEAD_DIMS or not 1 <= fsmn_k <= _FSMN_KMAX:
-        raise ValueError(f"sanm_layer_w8: head dim {D}/{n_heads} or {fsmn_k} FSMN "
+        raise ValueError(f"{name}: head dim {D}/{n_heads} or {fsmn_k} FSMN "
                          "taps unsupported")
     mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
     if mask.shape != (T,):
-        raise ValueError("sanm_layer_w8: mask must be [T]")
+        raise ValueError(f"{name}: mask must be [T]")
     lead = () if n_layers is None else (n_layers,)
-    ts, F = _operands(lp, x.device, lead, D, fsmn_k)
-    fn = _layer_fn()
+    ts, F = _operands(lp, x.device, lead, D, fsmn_k, fmt, group)
+    if fmt == "w4" and not (kernel_supports(D, group) and kernel_supports(F, group)):
+        raise ValueError(f"{name}: D={D}, F={F}, group={group}: the kernel needs K/2 "
+                         "and the group to be multiples of 16")
+    fn = _layer_fn(fmt)
     scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
                for n in (D, 3 * D, D, F)]  # h, qkv, ctx, f1
     bases = [None if t is None else t.data_ptr() for t in ts]
     strides = [0 if (t is None or not lead) else t.stride(0) * t.element_size()
                for t in ts]
     fsmn_bf16 = int(ts[5].dtype == torch.bfloat16)
+    ints = (T, D, n_heads, F, fsmn_k) + ((group,) if fmt == "w4" else ())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     for i in range(n_layers or 1):
         p = [None if b is None else b + i * s for b, s in zip(bases, strides)]
-        code = fn(x.data_ptr(), mask.data_ptr(), T, D, n_heads, F, fsmn_k,
+        code = fn(x.data_ptr(), mask.data_ptr(), *ints,
                   *p[0:5], p[5], fsmn_bf16, *p[6:17],
                   *(s.data_ptr() for s in scratch), stream)
-        _build.check(_STEM, "sanm_layer_w8", code)
-        sanm_layer_w8.launches += 1
+        _build.check(_STEM, name, code)
+        if fmt == "w8":
+            sanm_layer_w8.launches += 1
     return x
 
 
@@ -261,6 +313,62 @@ def sanm_stack_w8(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
 
 sanm_layer_w8.launches = 0
 sanm_stack_w8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# w4a16 stack (kernel 8: csrc/sanm_layer.cu, sanm_layer_w4)
+
+
+def _w4_groups(stacked, D: int, group: int):
+    """Check the stacked w4 linears' scale groups: K/group rows of scales,
+    an even count (a group must not straddle the nibble-plane boundary, as
+    the JAX kernel requires)."""
+    F = stacked["ffn1"]["wq4"].shape[-1]
+    for name, k_ in (("qkv", D), ("out", D), ("ffn1", D), ("ffn2", F)):
+        n_g = stacked[name]["ws4"].shape[1]
+        if n_g * group != k_:
+            raise ValueError(f"sanm_stack_w4: {name} has {n_g} scale groups for K={k_}, "
+                             f"group={group}")
+        if n_g % 2:
+            raise ValueError(f"sanm_stack_w4: {name}: K/group={n_g} must be even (groups "
+                             "must not straddle the nibble-plane boundary)")
+
+
+def sanm_stack_w4_plain(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
+                        fsmn_k: int, group: int = 128) -> torch.Tensor:
+    """All L layers of a stacked w4 tree, one plain layer after another, with
+    `_w4dot`'s numerics (lele_tpu/kernels/sanm_block.py:522)."""
+    _w4_groups(stacked, x.shape[1], group)
+
+    def lin(p, v):
+        return _w4_lin(p, v, group)
+
+    for i in range(stacked["qkv"]["wq4"].shape[0]):
+        x = _layer_plain(x, mask, layer_view(stacked, i), n_heads, fsmn_k, lin,
+                         "sanm_stack_w4")
+    return x
+
+
+def sanm_stack_w4(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
+                  fsmn_k: int, group: int = 128) -> torch.Tensor:
+    """The L-layer w4a16 stack at batch 1 (`sanm_stack_w4_pallas`). stacked:
+    stack_layer_params over prepare_w4_params (wq4 int8 [L, K/2, N], ws4 f32
+    [L, K/group, N]). x f32 [T, D], mask f32 [T] → f32 [T, D]. Each linear
+    dequantises as bf16(q·s), bf16 products, f32 sums; LN eps 1e-12; bf16
+    attention with an f32 softmax, masked keys at (m − 1)·1e9; the FSMN over
+    V·mask as shifted adds."""
+    if x.device.type == "cpu":
+        return sanm_stack_w4_plain(x, mask, stacked, n_heads, fsmn_k, group)
+    _w4_groups(stacked, x.shape[1], group)
+    # one [T, D] f32 activation buffer, updated in place by every layer
+    y = x.to(torch.float32).contiguous().clone()
+    L = stacked["qkv"]["wq4"].shape[0]
+    _launch_layers(y, mask, stacked, n_heads, fsmn_k, L, "w4", group)
+    sanm_stack_w4.launches += 1
+    return y
+
+
+sanm_stack_w4.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,26 @@
-"""SenseVoice-style ASR encoder, w8a16 (counterpart of lele_tpu/models/sensevoice.py).
+"""SenseVoice-style ASR encoder, w8a16 and w4a16 (counterpart of
+lele_tpu/models/sensevoice.py).
 
 560-dim LFR fbank features → 4 prefix query frames → embed linear +
 sinusoidal positions → N SAN-M blocks (self-attention + FSMN memory conv)
 → after_norm → CTC vocab head → greedy CTC decode.
 
-On a CUDA tensor at batch 1 with w8-prepared params the routing is the JAX
-package's TPU routing (models/sensevoice.py:328-340, 425-441, 477-478):
-stacked layers go through the `sanm_stack_w8` kernel, per-layer params
-through `sanm_layer_w8`, and the CTC head through the `w8_matmul` kernel.
-On the CPU the same wrappers take their plain versions. `plain=True` runs
-every kernel's plain version on any device: it is the oracle the kernels
-are held against on the card, never the main path.
+On a CUDA tensor at batch 1 the routing is the JAX package's TPU routing
+(models/sensevoice.py:328-345, 425-476). With w8-prepared params, stacked
+layers go through the `sanm_stack_w8` kernel, per-layer params through
+`sanm_layer_w8`, and the CTC head through the `w8_matmul` kernel. With
+w4-prepared params (`weight_int4`), stacked layers go through the
+`sanm_stack_w4` kernel where every linear's K/128 is even, other layers
+take every linear through the `w4_matmul` kernel, and so does the CTC head.
+The TPU's `hd % 128` condition is dropped: the layer kernel compiles head
+dims 32, 64 and 128. On the CPU the same wrappers take their plain
+versions. `plain=True` runs every kernel's plain version on any device: it
+is the oracle the kernels are held against on the card, never the main
+path.
 
 Not ported yet (each raises NotImplementedError): dynamic-int8 linears
-(`quantized`), w4a16 (`weight_int4`), MoE (`n_experts`), batch > 1 serving
-(`transcribe_batch`), long-form audio (`transcribe_long`).
+(`quantized`), MoE (`n_experts`), batch > 1 serving (`transcribe_batch`),
+long-form audio (`transcribe_long`).
 """
 
 from __future__ import annotations
@@ -31,13 +37,18 @@ from ..kernels import (
     fused_layer_available,
     sanm_layer_w8,
     sanm_layer_w8_plain,
+    sanm_stack_w4,
+    sanm_stack_w4_plain,
     sanm_stack_w8,
     sanm_stack_w8_plain,
+    w4_matmul,
+    w4_matmul_plain,
     w8_matmul,
     w8_matmul_plain,
 )
 from ..kernels.quant_matmul import quantize_weight_int8
-from ..kernels.sanm_block import fsmn_conv, layer_view
+from ..kernels.sanm_block import fsmn_conv, layer_kernel_takes, layer_view
+from ..kernels.w4_matmul import quantize_weight_int4
 from ..runtime.bucketing import max_bucket_samples, pad_pcm
 from .common import (
     Params,
@@ -66,9 +77,9 @@ class SenseVoiceConfig:
     dtype: str = "bfloat16"
     quantized: bool = False  # dynamic-int8 linears: not ported
     quant_pallas: bool = False  # (JAX only)
-    weight_int4: bool = False  # w4a16: not ported
+    weight_int4: bool = False  # w4a16: groupwise int4 weights (group 128)
     weight_int8: bool = False  # w8a16: int8 weights, per-output-channel scales
-    fused_block: bool = True  # batch 1 + weight_int8: the layer/stack kernels
+    fused_block: bool = True  # batch 1 + weight_int8/int4: the layer/stack kernels
     remat: bool = False  # (JAX training only)
     n_experts: int = 0  # MoE FFN: not ported
 
@@ -78,10 +89,10 @@ class SenseVoiceConfig:
 
 
 def _check_ported(cfg: SenseVoiceConfig) -> None:
-    if cfg.quantized or cfg.weight_int4 or cfg.n_experts > 0:
+    if cfg.quantized or cfg.n_experts > 0:
         raise NotImplementedError(
-            "the port runs SenseVoice in f32/bf16 and w8a16 only; dynamic-int8, "
-            "w4a16 and MoE are not ported yet")
+            "the port runs SenseVoice in f32/bf16, w8a16 and w4a16 only; dynamic-int8 "
+            "and MoE are not ported yet")
 
 
 def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
@@ -114,6 +125,20 @@ def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
 _W8_LINEAR_KEYS = ("qkv", "out", "ffn1", "ffn2", "ctc")
 
 
+def _prepare(params: Params, prep) -> Params:
+    """`prep` applied to every big linear (layer linears and CTC head)."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: (prep(v) if k in _W8_LINEAR_KEYS and isinstance(v, dict)
+                        and "w" in v else walk(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
+
+
 def prepare_w8_params(params: Params, drop_fp: bool = True) -> Params:
     """Per-output-channel symmetric int8 quantisation of every big linear
     (layer linears and CTC head) into "wq8"/"ws8"; with drop_fp the float
@@ -127,16 +152,23 @@ def prepare_w8_params(params: Params, drop_fp: bool = True) -> Params:
             del out["w"]
         return out
 
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: (prep(v) if k in _W8_LINEAR_KEYS and isinstance(v, dict)
-                        and "w" in v else walk(v))
-                    for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v) for v in tree]
-        return tree
+    return _prepare(params, prep)
 
-    return walk(params)
+
+def prepare_w4_params(params: Params, drop_fp: bool = True, group: int = 128) -> Params:
+    """Groupwise symmetric int4 quantisation of every big linear into
+    "wq4" (packed int8 [K/2, N]) and "ws4" (f32 [K/group, N]); with drop_fp
+    the float weight is removed."""
+    def prep(p):
+        wq, scale = quantize_weight_int4(p["w"], group=group)
+        out = dict(p)
+        out["wq4"] = wq
+        out["ws4"] = scale
+        if drop_fp:
+            del out["w"]
+        return out
+
+    return _prepare(params, prep)
 
 
 def stack_layer_params(params: Params) -> Params:
@@ -152,11 +184,15 @@ def stack_layer_params(params: Params) -> Params:
     return out
 
 
-def _ops(plain: bool):
-    """(w8 GEMM, layer, stack): the kernel wrappers, or their plain versions."""
-    if plain:
-        return w8_matmul_plain, sanm_layer_w8_plain, sanm_stack_w8_plain
-    return w8_matmul, sanm_layer_w8, sanm_stack_w8
+_KERNELS = {"w8": w8_matmul, "layer": sanm_layer_w8, "stack": sanm_stack_w8,
+            "w4": w4_matmul, "stack4": sanm_stack_w4}
+_PLAIN = {"w8": w8_matmul_plain, "layer": sanm_layer_w8_plain, "stack": sanm_stack_w8_plain,
+          "w4": w4_matmul_plain, "stack4": sanm_stack_w4_plain}
+
+
+def _ops(plain: bool) -> dict:
+    """The kernel wrappers, or their plain versions, by role."""
+    return _PLAIN if plain else _KERNELS
 
 
 def _w8_linear(p: Params, x: torch.Tensor, dtype: torch.dtype, w8=w8_matmul):
@@ -168,6 +204,30 @@ def _w8_linear(p: Params, x: torch.Tensor, dtype: torch.dtype, w8=w8_matmul):
     return y
 
 
+def _w4_linear(p: Params, x: torch.Tensor, dtype: torch.dtype, group: int = 128,
+               w4=w4_matmul):
+    """Weight-only groupwise int4 linear (w4a16) through `w4`."""
+    lead = x.shape[:-1]
+    y = w4(x.reshape(-1, x.shape[-1]).to(dtype), p["wq4"], p["ws4"], group)
+    y = y.reshape(*lead, p["wq4"].shape[-1])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _w4_stack_gate(cfg: SenseVoiceConfig, stacked: Params, B: int) -> bool:
+    """The JAX package's gate for the w4 stack (models/sensevoice.py:442-450):
+    batch 1, w4-prepared linears, no MoE, and every linear's K/128 even (a
+    scale group must not straddle the nibble planes); the layer kernel's
+    head dims stand in for the TPU's hd % 128."""
+    return (cfg.weight_int4 and cfg.fused_block and B == 1
+            and "wq4" in stacked.get("qkv", {}) and "moe" not in stacked
+            and layer_kernel_takes(cfg)
+            and (cfg.d_model // 128) % 2 == 0
+            and cfg.ffn_dim % 128 == 0
+            and (cfg.ffn_dim // 128) % 2 == 0)
+
+
 def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceConfig,
                plain: bool = False) -> torch.Tensor:
     """SAN-M: multi-head self-attention + FSMN memory conv on values.
@@ -175,13 +235,17 @@ def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceCo
     x: [B, T, D]; mask: [B, T] (1 = valid). Pre-norm residual wiring."""
     dt = cfg.compute_dtype
     B, T, D = x.shape
-    w8, layer, _ = _ops(plain)
+    ops = _ops(plain)
     if cfg.weight_int8 and cfg.fused_block and B == 1 and fused_layer_available(cfg, p):
-        y = layer(x[0].float(), mask[0].float(), p, cfg.n_heads, cfg.fsmn_kernel)
+        y = ops["layer"](x[0].float(), mask[0].float(), p, cfg.n_heads, cfg.fsmn_kernel)
         return y[None].to(x.dtype)
-    if cfg.weight_int8:
+    if cfg.weight_int4:
         def lin(pp, v):
-            return _w8_linear(pp, v, dt, w8) if "wq8" in pp else linear(pp, v, dtype=dt)
+            return (_w4_linear(pp, v, dt, w4=ops["w4"]) if "wq4" in pp
+                    else linear(pp, v, dtype=dt))
+    elif cfg.weight_int8:
+        def lin(pp, v):
+            return _w8_linear(pp, v, dt, ops["w8"]) if "wq8" in pp else linear(pp, v, dtype=dt)
     else:
         def lin(pp, v):
             return linear(pp, v, dtype=dt)
@@ -212,7 +276,7 @@ def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
     """feats: [B, T, 560]; mask: [B, T] → logits f32 [B, T+4, vocab]."""
     _check_ported(cfg)
     B, T, _ = feats.shape
-    w8, _, stack = _ops(plain)
+    ops = _ops(plain)
     x = feats.float()
     if cfg.n_prefix > 0:
         prefix = p["prefix"][: cfg.n_prefix].float().expand(B, cfg.n_prefix, cfg.input_dim)
@@ -227,7 +291,11 @@ def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
         stacked = p["layers_stacked"]
         if (cfg.weight_int8 and cfg.fused_block and B == 1
                 and fused_layer_available(cfg, stacked)):
-            x = stack(x[0], mask[0].float(), stacked, cfg.n_heads, cfg.fsmn_kernel)[None]
+            x = ops["stack"](x[0], mask[0].float(), stacked, cfg.n_heads,
+                             cfg.fsmn_kernel)[None]
+        elif _w4_stack_gate(cfg, stacked, B):
+            x = ops["stack4"](x[0], mask[0].float(), stacked, cfg.n_heads,
+                              cfg.fsmn_kernel)[None]
         else:
             for i in range(stacked["norm1"]["g"].shape[0]):
                 x = sanm_block(layer_view(stacked, i), x, mask, cfg, plain)
@@ -235,8 +303,10 @@ def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
         for lp in p["layers"]:
             x = sanm_block(lp, x, mask, cfg, plain)
     x = layer_norm(p["after_norm"], x)
-    if cfg.weight_int8 and "wq8" in p["ctc"]:
-        logits = _w8_linear(p["ctc"], x, cfg.compute_dtype, w8)
+    if cfg.weight_int4 and "wq4" in p["ctc"]:
+        logits = _w4_linear(p["ctc"], x, cfg.compute_dtype, w4=ops["w4"])
+    elif cfg.weight_int8 and "wq8" in p["ctc"]:
+        logits = _w8_linear(p["ctc"], x, cfg.compute_dtype, ops["w8"])
     else:
         logits = linear(p["ctc"], x, dtype=cfg.compute_dtype)
     return logits.float()

@@ -4,9 +4,17 @@ tracer folds a node, torch when the node runs on the device.
 Importing this package registers every emitter in ``registry.OPS``: the ones
 the SAN-M int8 graph uses, Identity, Div and ReduceSum, which its common
 export variants add, and Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
-LSTM, which the Silero-class graphs add. Any other op type follows the JAX dispatch rule: a
-warning and an empty value, or a raise in strict mode.
+LSTM, which the Silero-class graphs add, and com.microsoft::MatMulNBits,
+keyed on its domain (`contrib_ops`). Any other op type follows the JAX
+dispatch rule: a warning and an empty value, or a raise in strict mode.
 """
 
-from . import activation_ops, math_ops, nn_ops, quant_ops, tensor_ops  # noqa: F401
+from . import (  # noqa: F401
+    activation_ops,
+    contrib_ops,
+    math_ops,
+    nn_ops,
+    quant_ops,
+    tensor_ops,
+)
 from .registry import OPS, OpContext, make_ctx, op  # noqa: F401

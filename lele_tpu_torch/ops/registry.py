@@ -21,6 +21,10 @@ from ..onnx.schema import Proto
 
 OPS: dict[str, "OpDef"] = {}  # default-domain (ai.onnx) emitters, by op_type
 
+# non-default-domain emitters, keyed (domain, op_type): a contrib node only
+# ever reaches its own domain's entry, never a same-named ai.onnx emitter
+CONTRIB_OPS: dict[tuple[str, str], "OpDef"] = {}
+
 _DEFAULT_DOMAINS = ("", "ai.onnx")
 
 
@@ -43,20 +47,30 @@ class OpDef:
     records: bool = False
 
 
-def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False):
+def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False,
+       domain: str = ""):
+    d = canon_domain(domain)
+
     def deco(fn):
-        OPS[name] = OpDef(name, fn, foldable, static_args, records)
+        od = OpDef(name, fn, foldable, static_args, records)
+        if d:
+            CONTRIB_OPS[(d, name)] = od
+        else:
+            OPS[name] = od
         return fn
 
     return deco
 
 
 def lookup_op(domain: str | None, op_type: str) -> "OpDef | None":
-    """Default-domain nodes find their emitter; the port has no contrib
-    (non-default domain) emitters yet."""
-    if canon_domain(domain):
-        return None
-    return OPS.get(op_type)
+    """The emitter of (domain, op_type): default-domain nodes hit OPS,
+    contrib nodes their (domain, op_type) entry, never a bare-name
+    fallback. The JAX package's curated aliases (com.microsoft Gelu, Trilu,
+    Range) are not ported: none of those emitters is."""
+    d = canon_domain(domain)
+    if not d:
+        return OPS.get(op_type)
+    return CONTRIB_OPS.get((d, op_type))
 
 
 def parse_attr(a: Proto) -> Any:

@@ -25,6 +25,7 @@ from lele_tpu.models import init_sensevoice as jinit
 from lele_tpu.models import prepare_w8_params as jprepare
 from lele_tpu.models import stack_layer_params as jstack
 from lele_tpu.models.common import cast_big_params as jcast
+from lele_tpu.models.sensevoice import prepare_w4_params as jprepare4
 from lele_tpu.models.sensevoice import sanm_block as jsanm_block
 from lele_tpu_torch import kernels as K
 from lele_tpu_torch.params import from_numpy_tree
@@ -148,9 +149,21 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         K.sanm_stack_dql(x, bias, vmask, dql, cfg.n_heads, cfg.fsmn_kernel, 5),
         K.sanm_stack_dql_plain(x, bias, vmask, dql, cfg.n_heads, cfg.fsmn_kernel, 5),
         rtol=0, atol=0)
+    packed, scales = K.quantize_weight_int4(torch.randn((D, 3 * D)), 128)
+    for xx in (x, x.to(torch.bfloat16)):
+        torch.testing.assert_close(K.w4_matmul(xx, packed, scales, 128),
+                                   K.w4_matmul_plain(xx, packed, scales, 128), rtol=0, atol=0)
+    cfg4 = JConfig(n_layers=2, d_model=256, ffn_dim=512, vocab_size=32, n_heads=2,
+                   weight_int4=True)
+    st4 = from_numpy_tree(_np_tree(jstack(jprepare4(jinit(jax.random.PRNGKey(6), cfg4)))))
+    st4 = st4["layers_stacked"]
+    torch.testing.assert_close(
+        K.sanm_stack_w4(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel),
+        K.sanm_stack_w4_plain(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
     assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
-                                      "dq_gemm", "sanm_stack_dql", "lstm_seq"}
+                                      "dq_gemm", "sanm_stack_dql", "lstm_seq",
+                                      "w4_gemm", "sanm_stack_w4"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -159,6 +172,13 @@ def test_kernel_entry_refuses_a_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         K.quant_matmul.w8_matmul_kernel(x, torch.zeros((8, 3), dtype=torch.int8),
                                         torch.ones(3))
+    w4 = sys.modules[K.w4_matmul.__module__]
+    with pytest.raises(ValueError, match="CUDA"):
+        w4.w4_matmul_kernel(torch.zeros((4, 32)), torch.zeros((16, 3), dtype=torch.int8),
+                            torch.ones((2, 3)), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sanm_block._launch_layers(torch.zeros((4, 256)), torch.ones(4), {}, 2, 11, 2,
+                                    "w4", 128)
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():
@@ -168,7 +188,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "from lele_tpu_torch.kernels import _build\n"
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
-        "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq')}\n"
+        "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq', 'w4_gemm',\n"
+        "    'sanm_stack_w4')}\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -177,8 +177,8 @@ def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
 def test_port_runs_without_jax():
     """The card machine has no JAX: the port must import and run without it,
     and without the JAX package. Every slice runs: the native engine, the
-    compiled graph behind SenseVoiceOnnx, and Silero VAD native and compiled
-    at both sample rates."""
+    compiled graph behind SenseVoiceOnnx, Silero VAD native and compiled
+    at both sample rates, the w4a16 model, and a MatMulNBits graph."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -211,6 +211,26 @@ def test_port_runs_without_jax():
         "    assert isinstance(vad.segments(pcm, sr=sr), list)\n"
         "    q = SileroOnnx('fixtures/silero.onnx', device='cpu').speech_probs(pcm, sr)\n"
         "    assert q.shape == (31,) and np.isfinite(q).all()\n"
+        "cfg4 = SenseVoiceConfig(n_layers=2, d_model=256, n_heads=2, ffn_dim=512,\n"
+        "                        vocab_size=40, weight_int4=True)\n"
+        "m4 = SenseVoiceModel(cfg4, device='cpu'); m4.init(0)\n"
+        "m4.params = stack_layer_params(prepare_w4_params(\n"
+        "    cast_big_params(m4.params, torch.bfloat16)))\n"
+        "ids = SenseVoiceEngine(model=m4).model.transcribe_ids(pcm[:20000])\n"
+        "assert all(0 <= i < 40 for i in ids)\n"
+        "from lele_tpu_torch.compiler import compile_model\n"
+        "from lele_tpu_torch.onnx import builder as ob\n"
+        "rng = np.random.default_rng(3)\n"
+        "n = ob.node('MatMulNBits', ['a', 'b', 'sc'], ['y'], domain='com.microsoft',\n"
+        "            K=256, N=48, bits=4, block_size=32)\n"
+        "bs = ob.build_model_bytes([n], [ob.value_info('a', 1, [3, 256])],\n"
+        "    [ob.value_info('y', 1, [3, 48])], [ob.tensor_from_array(\n"
+        "    rng.integers(0, 256, (48, 8, 16), dtype=np.uint8), 'b'),\n"
+        "    ob.tensor_from_array(rng.random((48, 8)).astype(np.float32), 'sc')])\n"
+        "a = rng.standard_normal((3, 256)).astype(np.float32)\n"
+        "cm = compile_model(bs, device='cpu', strict=True)\n"
+        "assert cm.stats['pattern_hits']['matmul_nbits_w4'] == 2\n"
+        "assert np.isfinite(cm.run_np(a=a)[0]).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
