@@ -137,13 +137,11 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
   const bool s_vec = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(sc) % 16 == 0);
 
   uint4 ra[2][A_CHUNKS], rb[B_CHUNKS];  // the next tile, raw
-  // W4_DEQ_BF16: the scales of the thread's B chunks, and the scale row they
-  // hold: reloaded only when a chunk's row enters another group
+  // W4_DEQ_BF16: the scales of the thread's B chunks in the next tile, and
+  // the group of each chunk's row in it: its scale row and the row's place
+  // in it (running counters, so that the K walk divides by the runtime
+  // group only here)
   float rs[DEQ ? B_CHUNKS : 1][2][DEQ ? 16 : 1];
-  int rs_row[DEQ ? B_CHUNKS : 1][2];
-  // the group of the next tile's row of each chunk: its scale row, and the
-  // row's place in it (running counters, so that the K walk divides by the
-  // runtime group only here)
   int nx_row[DEQ ? B_CHUNKS : 1][2], nx_pos[DEQ ? B_CHUNKS : 1][2];
   if constexpr (DEQ) {
 #pragma unroll
@@ -151,7 +149,6 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const int lk = p * half + (tid + i * 128) / (BN / 16);
-        rs_row[i][p] = -1;
         nx_row[i][p] = lk / group;
         nx_pos[i][p] = lk % group;
       }
@@ -206,12 +203,9 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
       if constexpr (DEQ) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          const int row = kp < half ? nx_row[i][p] : -2;
+          const float* srow = sc + (size_t)nx_row[i][p] * N + gn;
           for (nx_pos[i][p] += BKP; nx_pos[i][p] >= group; nx_pos[i][p] -= group)
             ++nx_row[i][p];
-          if (row == rs_row[i][p]) continue;
-          rs_row[i][p] = row;
-          const float* srow = sc + (size_t)row * N + gn;
           if (kp < half && s_vec && gn + 16 <= N) {
 #pragma unroll
             for (int e = 0; e < 16; e += 4) {

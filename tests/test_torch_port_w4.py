@@ -170,9 +170,7 @@ def test_w4_matmul_plain_matches_pallas_and_jnp(dtype, m, k, n, g, tk, tn):
     want_pallas = np.asarray(jw4.w4_matmul_pallas(x, packed, scales, g, tn=tn, tk=tk,
                                                   interpret=True))
     want_jnp = np.asarray(jw4._w4_matmul_jnp(x, packed, scales, g))
-    got = K.w4_matmul_plain(from_numpy_tree(np.asarray(x)),
-                            torch.from_numpy(np.asarray(packed)),
-                            torch.from_numpy(np.asarray(scales)), g).numpy()
+    got = K.w4_matmul_plain(*from_numpy_tree([x, packed, scales]), g).numpy()
     assert got.shape == (m, n) and got.dtype == np.float32
     np.testing.assert_allclose(got, want_pallas, rtol=GEMM_REL,
                                atol=GEMM_REL * np.abs(want_pallas).max())
@@ -191,8 +189,7 @@ def test_w4_matmul_plain_where_half_k_is_not_a_group_multiple(dtype):
     packed, scales = jw4.quantize_weight_int4(w, group=128)
     assert W4.kernel_supports(384, 128)
     want = np.asarray(jw4.w4_matmul(x, packed, scales, group=128))
-    got = K.w4_matmul(from_numpy_tree(np.asarray(x)), torch.from_numpy(np.asarray(packed)),
-                      torch.from_numpy(np.asarray(scales)), 128).numpy()
+    got = K.w4_matmul(*from_numpy_tree([x, packed, scales]), 128).numpy()
     tol = JNP_TOL[dtype]
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * 10)
     exact = (np.asarray(x.astype(jnp.float32)).astype(np.float64)
