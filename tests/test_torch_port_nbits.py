@@ -12,9 +12,6 @@ ONNX bytes.
 """
 
 import importlib
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,7 +26,6 @@ from lele_tpu_torch.compiler import compile_model
 from lele_tpu_torch.onnx import builder as tob
 from lele_tpu_torch.ops.registry import lookup_op
 
-REPO = Path(__file__).resolve().parent.parent
 M, K, N, BLK = 4, 512, 384, 64
 # the emitters: both dequantise in f32 and multiply in f32 (JAX at HIGHEST),
 # the gate of tests/test_matmul_nbits_fusion.py:185
@@ -205,30 +201,3 @@ def test_pattern_routes_through_the_w4_gemm_wrapper(monkeypatch):
     cm.run_np(a=a)
     cm.run_np(a=a)
     assert n_trace == 1 and seen == [32] * 3 and real.launches == 0
-
-
-def test_nbits_graph_runs_without_jax():
-    code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
-        "import numpy as np\n"
-        "from lele_tpu_torch.compiler import compile_model\n"
-        "from lele_tpu_torch.onnx import builder as ob\n"
-        "rng = np.random.default_rng(0)\n"
-        "b = rng.integers(0, 256, (48, 4, 32), dtype=np.uint8)\n"
-        "sc = rng.random((48, 4)).astype(np.float32) * 0.05\n"
-        "n = ob.node('MatMulNBits', ['a', 'b', 'sc'], ['y'], domain='com.microsoft',\n"
-        "            K=256, N=48, bits=4, block_size=64)\n"
-        "bs = ob.build_model_bytes([n], [ob.value_info('a', 1, [3, 256])],\n"
-        "    [ob.value_info('y', 1, [3, 48])],\n"
-        "    [ob.tensor_from_array(b, 'b'), ob.tensor_from_array(sc, 'sc')])\n"
-        "a = rng.standard_normal((3, 256)).astype(np.float32)\n"
-        "cm = compile_model(bs, device='cpu', strict=True)\n"
-        "ref = compile_model(bs, device='cpu', strict=True, patterns=[])\n"
-        "y, r = cm.run_np(a=a)[0], ref.run_np(a=a)[0]\n"
-        "assert cm.stats['pattern_hits']['matmul_nbits_w4'] == 2\n"
-        "assert np.linalg.norm(y - r) / np.linalg.norm(r) < 5e-3\n"
-        "print('ok')\n"
-    )
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
