@@ -387,7 +387,8 @@ extern "C" int sanm_layer_w4(
     void* h, void* qkv, void* ctx, void* f1, void* stream) {
   using namespace lele;
   if (T == 0) return 0;
-  if (!layer_shape_ok(D, H, fsmn_k) || !w4_shape_ok(D, group) || !w4_shape_ok(F, group))
+  if (!layer_shape_ok(D, H, fsmn_k) || !w4_stack_shape_ok(D, group) ||
+      !w4_stack_shape_ok(F, group))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };

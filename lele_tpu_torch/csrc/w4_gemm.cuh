@@ -35,12 +35,19 @@
 //    The matching A columns of both planes come with them.
 //  - the next tile is fetched into registers while the tensor cores
 //    (`mma.sync.m16n8k16`, bf16 operands, f32 sums) work on the current one.
-//  - groups: any multiple of 16. A k-step of 16 rows lies in one group; a
-//    group that straddles the plane boundary (K/2 not a multiple of the
-//    group) is closed at the low plane's end and reopened in the high plane,
-//    which only splits its f32 sum. Running counters track each plane's
-//    group: a division by the runtime group on the serial K walk cost 18% of
-//    the CTC head and 8% of the stack (PERF.md).
+//  - shapes: any even K and any group from 1 to 512. The tail of K/2 past
+//    the last whole tile is zero-filled in the loads. The group-accumulator
+//    form takes groups that are multiples of 8 and divide K/2: a k-step of
+//    16 rows (`m16n8k16`) where the group is a multiple of 16, of 8 rows
+//    (`m16n8k8`) otherwise, so a k-step lies in one group. The
+//    dequantised-tile form takes any group. Running counters track each
+//    plane's group: a division by the runtime group on the serial K walk
+//    cost 18% of the CTC head and 8% of the stack (PERF.md).
+//  - the expert-indexed entry (QMoE decode): x [R, K], stacks [E, K/2, N]
+//    and [E, K/group, N], idx [R]; grid z runs over the R rows and a block
+//    reads its row's stack idx[r] from the card, so a whole decode step is
+//    one launch a linear and no expert is copied. Each block computes one
+//    row: at M = 1 most of the 32-row M tile is idle (PERF.md).
 //  - unpacking: a byte permute and one bf16x2 subtract give two exact bf16
 //    int4 values; the stack's bf16(q * s) takes a permute and an add a value
 //    for q and one paired f32 → bf16 conversion.
@@ -101,6 +108,36 @@ __device__ __forceinline__ float int4_f32(uint32_t u, int k) {
   return __int_as_float(__byte_perm(u, 0x4Bu, 0x4550 | k)) - 8388616.f;
 }
 
+// B fragment of m16n8k8 from a [k][n] tile: lanes 0-7 address rows k..k+7
+__device__ __forceinline__ void ldsm_x1_trans(uint32_t& r, const uint16_t* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16_1688(float (&d)[4], const uint32_t (&a)[2],
+                                              uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// The expert-indexed entry: block z computes row z of x against stack
+// idx[z]; the kernels move their pointers there and take M = 1.
+#define LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group)  \
+  if (idx) {                                                 \
+    const size_t r_ = blockIdx.z;                            \
+    const size_t e_ = static_cast<size_t>(__ldg(idx + r_));  \
+    x += r_ * (K);                                           \
+    y += r_ * (N);                                           \
+    w += e_ * ((K) / 2) * (N);                               \
+    sc += e_ * ((K) / (group)) * (N);                        \
+    M = 1;                                                   \
+  }
+
 __device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&r);
@@ -108,15 +145,16 @@ __device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
 
 // Tensor-core path. 4 warps in a 2 x 2 layout; each warp owns a
 // (BM/2) x (BN/2) sub-tile: BM/32 m16 tiles by BN/16 n8 tiles. A tile covers
-// BKP = 32 packed rows: 2 k-steps of the low plane and 2 of the high plane.
-// A is stored [plane][m][k] and read as 32-bit pairs; B [plane][k][n], read
-// with ldmatrix.trans. Rows are padded by 8 elements: fragment reads are
-// conflict free.
-template <int BM, int BN, typename AT, int BMODE>
+// BKP = 32 packed rows: 32 / KSTEP k-steps of the low plane and as many of
+// the high plane. A is stored [plane][m][k] and read as 32-bit pairs; B
+// [plane][k][n], read with ldmatrix.trans. Rows are padded by 8 elements:
+// fragment reads are conflict free. idx: null, or the expert-indexed entry.
+template <int BM, int BN, typename AT, int BMODE, int KSTEP = 16>
 __global__ void __launch_bounds__(128)
 w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ sc, float* y, int M, int K, int N, int group,
-            W4Epilogue ep) {
+            W4Epilogue ep, const int* __restrict__ idx = nullptr) {
+  static_assert(KSTEP == 16 || (KSTEP == 8 && BMODE == W4_GROUP_ACC), "k-step");
   constexpr int BKP = 32, LDA = BKP + 8, LDB = BN + 8;
   constexpr int MI = BM / 32, NI = BN / 16;
   constexpr int A_VEC = 16 / sizeof(AT);        // elements per 16-byte chunk
@@ -131,8 +169,10 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, tg = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group);
   const int half = K / 2;
-  const bool a_vec = (K % A_VEC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  // whole 16-byte chunks of A where each plane's rows start aligned
+  const bool a_vec = (half % A_VEC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const bool b_vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
   const bool s_vec = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(sc) % 16 == 0);
 
@@ -162,7 +202,7 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
         const int c = tid + i * 128;
         if (c >= A_TOTAL) break;
         const int r = c / (BKP / A_VEC), cc = (c % (BKP / A_VEC)) * A_VEC;
-        const int gm = m0 + r, kp = k0 + cc;  // half % 16 == 0: a chunk is whole
+        const int gm = m0 + r, kp = k0 + cc;  // a_vec: a chunk below half is whole
         const size_t off = (size_t)gm * K + p * half + kp;
         if (gm < M && kp < half && a_vec) {
           ra[p][i] = *reinterpret_cast<const uint4*>(x + off);
@@ -296,7 +336,7 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
 #pragma unroll
-      for (int kk = 0; kk < BKP; kk += 16) {
+      for (int kk = 0; kk < BKP; kk += KSTEP) {
         const int kp = k0 + kk;
         if (kp >= half) break;  // the same for the whole block
         if constexpr (!DEQ) {
@@ -316,29 +356,46 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
                 for (int e = 0; e < 4; ++e) part[p][mi][ni][e] = 0.f;
           }
         }
-        uint32_t a[MI][4], b[NI][2];
+        if constexpr (KSTEP == 16) {
+          uint32_t a[MI][4], b[NI][2];
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const int r = wm * (BM / 2) + mi * 16 + g;
-          a[mi][0] = ld_pair(&As[p][r][kk + tg * 2]);
-          a[mi][1] = ld_pair(&As[p][r + 8][kk + tg * 2]);
-          a[mi][2] = ld_pair(&As[p][r][kk + tg * 2 + 8]);
-          a[mi][3] = ld_pair(&As[p][r + 8][kk + tg * 2 + 8]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          ldsm_x2_trans(b[ni], &Bs[p][kk + (lane & 15)][wn * (BN / 2) + ni * 8]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) {
-            if constexpr (DEQ) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
-            else mma_bf16_16816(part[p][mi][ni], a[mi], b[ni]);
+          for (int mi = 0; mi < MI; ++mi) {
+            const int r = wm * (BM / 2) + mi * 16 + g;
+            a[mi][0] = ld_pair(&As[p][r][kk + tg * 2]);
+            a[mi][1] = ld_pair(&As[p][r + 8][kk + tg * 2]);
+            a[mi][2] = ld_pair(&As[p][r][kk + tg * 2 + 8]);
+            a[mi][3] = ld_pair(&As[p][r + 8][kk + tg * 2 + 8]);
           }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            ldsm_x2_trans(b[ni], &Bs[p][kk + (lane & 15)][wn * (BN / 2) + ni * 8]);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) {
+              if constexpr (DEQ) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
+              else mma_bf16_16816(part[p][mi][ni], a[mi], b[ni]);
+            }
+        } else {  // k-steps of 8 rows, for groups that are not multiples of 16
+          uint32_t a[MI][2], b[NI];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            const int r = wm * (BM / 2) + mi * 16 + g;
+            a[mi][0] = ld_pair(&As[p][r][kk + tg * 2]);
+            a[mi][1] = ld_pair(&As[p][r + 8][kk + tg * 2]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            ldsm_x1_trans(b[ni], &Bs[p][kk + (lane & 7)][wn * (BN / 2) + ni * 8]);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) mma_bf16_1688(part[p][mi][ni], a[mi], b[ni]);
+        }
         if constexpr (!DEQ) {
-          gpos[p] += 16;
+          gpos[p] += KSTEP;
           if (gpos[p] == group) gpos[p] = 0, ++grow[p];
-          if (kp + 16 == half || gpos[p] == 0) {  // the group closes
+          if (kp + KSTEP == half || gpos[p] == 0) {  // the group closes
 #pragma unroll
             for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -379,12 +436,13 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
 __global__ void __launch_bounds__(256)
 w4_gemm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ sc, float* y, int M, int K, int N, int group,
-            W4Epilogue ep) {
+            W4Epilogue ep, const int* __restrict__ idx = nullptr) {
   constexpr int BM = 64, BN = 64, BKP = 16;
   __shared__ float As[2][BKP][BM + 4];  // [plane][k][m]
   __shared__ float Bs[2][BKP][BN];      // [plane][k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group);
   const int half = K / 2;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < half; k0 += BKP) {
@@ -431,38 +489,61 @@ w4_gemm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-// the shapes the kernels take: K/2 and the group multiples of 16
-inline bool w4_shape_ok(int K, int group) {
+// the shapes kernel 8's stack takes: K/2 and the group multiples of 16
+inline bool w4_stack_shape_ok(int K, int group) {
   return K % 32 == 0 && group >= 16 && group % 16 == 0;
 }
 
+// the shapes kernel 7 takes: any even K, any group from 1 to 512 that
+// divides K; the group-accumulator form also needs the group to be a
+// multiple of 8 that divides K/2
+inline bool w4_shape_ok(int K, int group, int bmode) {
+  if (K < 2 || K % 2 || group < 1 || group > 512 || K % group) return false;
+  return bmode == W4_DEQ_BF16 || (group % 8 == 0 && (K / 2) % group == 0);
+}
+
+template <int BM, int BN, typename AT, int BMODE>
+inline void launch_w4_tile(const AT* x, const int8_t* w, const float* sc, float* y, int M,
+                           int K, int N, int group, const W4Epilogue& ep, const int* idx,
+                           cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, idx ? 1 : (M + BM - 1) / BM, idx ? M : 1);
+  if constexpr (BMODE == W4_GROUP_ACC) {
+    if (group % 16) {
+      w4_gemm_mma<BM, BN, AT, BMODE, 8><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep,
+                                                             idx);
+      return;
+    }
+  }
+  w4_gemm_mma<BM, BN, AT, BMODE><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep, idx);
+}
+
+// idx: null, or the expert-indexed entry (M rows, row r against stack idx[r])
 template <int BMODE, typename AT>
 inline void launch_w4_gemm_mma(const AT* x, const int8_t* w, const float* sc, float* y,
                                int M, int K, int N, int group, const W4Epilogue& ep,
-                               cudaStream_t s) {
+                               cudaStream_t s, const int* idx = nullptr) {
   if (M == 0 || N == 0) return;
   // the largest tile that still gives the 132 SMs enough blocks; the group
   // form holds two partial accumulators, and at 64 x 64 its registers (179)
   // leave two blocks an SM, so it stops at 32 x 64 (110)
-  auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
-  if (BMODE == W4_DEQ_BF16 && blocks(64, 64) >= 2 * 132) {
-    w4_gemm_mma<64, 64, AT, BMODE><<<dim3((N + 63) / 64, (M + 63) / 64), 128, 0, s>>>(
-        x, w, sc, y, M, K, N, group, ep);
-  } else if (blocks(32, 64) >= 132) {
-    w4_gemm_mma<32, 64, AT, BMODE><<<dim3((N + 63) / 64, (M + 31) / 32), 128, 0, s>>>(
-        x, w, sc, y, M, K, N, group, ep);
-  } else {
-    w4_gemm_mma<32, 32, AT, BMODE><<<dim3((N + 31) / 32, (M + 31) / 32), 128, 0, s>>>(
-        x, w, sc, y, M, K, N, group, ep);
-  }
+  const int rows = idx ? 1 : M, slabs = idx ? M : 1;
+  auto blocks = [&](int bm, int bn) {
+    return ((rows + bm - 1) / bm) * ((N + bn - 1) / bn) * slabs;
+  };
+  if (BMODE == W4_DEQ_BF16 && !idx && blocks(64, 64) >= 2 * 132)
+    launch_w4_tile<64, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
+  else if (blocks(32, 64) >= 132)
+    launch_w4_tile<32, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
+  else
+    launch_w4_tile<32, 32, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
 }
 
 inline void launch_w4_gemm_f32(const float* x, const int8_t* w, const float* sc, float* y,
                                int M, int K, int N, int group, const W4Epilogue& ep,
-                               cudaStream_t s) {
+                               cudaStream_t s, const int* idx = nullptr) {
   if (M == 0 || N == 0) return;
-  w4_gemm_f32<<<dim3((N + 63) / 64, (M + 63) / 64), 256, 0, s>>>(x, w, sc, y, M, K, N,
-                                                                  group, ep);
+  const dim3 grid((N + 63) / 64, idx ? 1 : (M + 63) / 64, idx ? M : 1);
+  w4_gemm_f32<<<grid, 256, 0, s>>>(x, w, sc, y, M, K, N, group, ep, idx);
 }
 
 }  // namespace lele

@@ -62,7 +62,7 @@ import torch
 from ..params import tree_map
 from . import _build
 from .quant_matmul import dql_quantize, dql_scale_zp, w8_matmul_plain
-from .w4_matmul import _unpack_nibbles, kernel_supports
+from .w4_matmul import _unpack_nibbles
 
 _STEM = "sanm_layer"
 _HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu
@@ -248,6 +248,11 @@ def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int, fmt: str =
     return ts, F
 
 
+def _stack_w4_shape(K: int, group: int) -> bool:
+    """The shapes kernel 8's GEMMs take: K/2 and the group multiples of 16."""
+    return K % 32 == 0 and group >= 16 and group % 16 == 0
+
+
 def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None,
                    fmt: str = "w8", group: int = 0):
     """Run the layer kernel in place on x [T, D] f32 (a fresh buffer the
@@ -264,7 +269,7 @@ def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None,
         raise ValueError(f"{name}: mask must be [T]")
     lead = () if n_layers is None else (n_layers,)
     ts, F = _operands(lp, x.device, lead, D, fsmn_k, fmt, group)
-    if fmt == "w4" and not (kernel_supports(D, group) and kernel_supports(F, group)):
+    if fmt == "w4" and not (_stack_w4_shape(D, group) and _stack_w4_shape(F, group)):
         raise ValueError(f"{name}: D={D}, F={F}, group={group}: the kernel needs K/2 "
                          "and the group to be multiples of 16")
     fn = _layer_fn(fmt)

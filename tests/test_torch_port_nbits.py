@@ -201,3 +201,103 @@ def test_pattern_routes_through_the_w4_gemm_wrapper(monkeypatch):
     cm.run_np(a=a)
     cm.run_np(a=a)
     assert n_trace == 1 and seen == [32] * 3 and real.launches == 0
+
+
+# -- kernel 7 at every group and K (the TPU kernel's range) --------------------
+
+# tests/test_w4.py:73: f32 forms agree to the summation order; a bf16 x may
+# differ by the bf16 rounding of q·s between the two sides' forms
+W4_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def jax_w4_tpu_routing(monkeypatch):
+    """JAX's TPU routing of `w4_matmul` on the CPU: `_on_tpu` True and its
+    Pallas kernel in interpret mode. Records which shapes reached it."""
+    seen = []
+    real = jw4.w4_matmul_pallas
+    monkeypatch.setattr(jqm, "_on_tpu", lambda: True)
+    monkeypatch.setattr(jw4, "_on_tpu", lambda: True)
+    monkeypatch.setattr(jw4, "w4_matmul_pallas", lambda *x, **k: (
+        seen.append(x[3] if len(x) > 3 else k["group"]),
+        real(*x, **{**k, "interpret": True}))[1])
+    return seen
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,group,pallas", [(512, 8, True), (768, 24, True),
+                                            (1040, 8, False)])
+def test_w4_matmul_plain_at_small_groups_matches_jax_routing(jax_w4_tpu_routing, dtype, k,
+                                                              group, pallas):
+    """Groups 8 and 24 pass JAX's tile test (its Pallas group form; the
+    port's group form in k-steps of 8), K = 1040 has no tile dividing
+    K/2 = 520 (JAX's `_w4_matmul_jnp`; the port's dequantised-tile form)."""
+    import jax.numpy as jnp
+
+    W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+    rng = np.random.default_rng(k + group)
+    x = jnp.asarray(rng.standard_normal((5, k)), dtype)
+    w = rng.standard_normal((k, 96)).astype(np.float32) * 0.1
+    packed, scales = jw4.quantize_weight_int4(w, group=group)
+    want = np.asarray(jw4.w4_matmul(x, packed, scales, group=group))
+    assert bool(jax_w4_tpu_routing) == pallas == W4.group_acc_form(k, group)
+    assert W4.kernel_supports(k, group)
+    args = [torch.from_numpy(np.array(v.astype(jnp.float32) if v.dtype == jnp.bfloat16
+                                        else v)) for v in (x, packed, scales)]
+    if dtype == "bfloat16":
+        args[0] = args[0].to(torch.bfloat16)
+    got = W4.w4_matmul_plain(*args, group).numpy()
+    tol = W4_TOL[dtype]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * 10)
+    # the same form on both sides: only the f32 summation order differs
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_w4_matmul_indexed_entry_equals_row_by_row():
+    """The expert-indexed entry (QMoE decode): row r against stack idx[r],
+    the same numbers as one product a row."""
+    W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+    gen = torch.Generator().manual_seed(0)
+    E, Kd, N, R = 5, 96, 40, 6
+    packed = torch.randint(-128, 128, (E, Kd // 2, N), generator=gen, dtype=torch.int8)
+    scales = torch.rand((E, Kd // 16, N), generator=gen) * 0.1 + 1e-3
+    idx = torch.tensor([4, 0, 4, 2, 1, 3], dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((R, Kd), generator=gen).to(dt)
+        got = W4.w4_matmul(x, packed, scales, 16, idx)
+        for r in range(R):
+            e = int(idx[r])
+            want = W4.w4_matmul_plain(x[r:r + 1], packed[e], scales[e], 16)
+            torch.testing.assert_close(got[r:r + 1], want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="idx"):
+        W4.w4_matmul(x, packed, scales, 16, idx[:3])
+
+
+@pytest.mark.parametrize("k,blk", [(1040, 8), (768, 24)])
+def test_pattern_at_small_blocks_matches_jax_pattern(monkeypatch, k, blk):
+    """Blocks 8 (K = 1040) and 24 (K = 768): JAX's pattern takes both, and so
+    does the port's; kernel 7 takes them on the card (no raise). On the CPU
+    JAX's route is its jnp dequantise-then-dot: the port's dequantised-tile
+    form at K = 1040 is the same form; at block 24 the group form differs by
+    the bf16 rounding of q·s (JAX's rel-norm gate)."""
+    rng = np.random.default_rng(k + blk)
+    bs, a = _graph(rng, "packed", True, k=k, blk=blk)
+    want, jhits = _jax(monkeypatch, bs, a, "1")
+    got, hits, _ = _port(bs, a)
+    assert hits == jhits and hits["matmul_nbits_w4"] == 2, (hits, jhits)
+    assert _relnorm(got, want) < (TPU_ROUTE_REL if blk == 8 else BF16_RELNORM)
+    per_op, _, _ = _port(bs, a, patterns=[])
+    assert _relnorm(got, per_op) < BF16_RELNORM
+
+
+@pytest.mark.parametrize("k,blk", [(1040, 8), (768, 24)])
+def test_pattern_at_small_blocks_matches_jax_tpu_routing(jax_w4_tpu_routing, monkeypatch, k,
+                                                         blk):
+    """Under JAX's TPU routing block 24 reaches its Pallas group form and
+    block 8 at K = 1040 its jnp path; the port takes the same forms."""
+    rng = np.random.default_rng(k * blk)
+    bs, a = _graph(rng, "none", False, k=k, blk=blk)
+    want, _ = _jax(monkeypatch, bs, a, "1")
+    got, _, _ = _port(bs, a)
+    assert bool(jax_w4_tpu_routing) == (blk == 24)
+    assert np.abs(got - want).max() <= TPU_ROUTE_REL * np.abs(want).max()

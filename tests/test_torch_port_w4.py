@@ -181,19 +181,22 @@ def test_w4_matmul_plain_matches_pallas_and_jnp(dtype, m, k, n, g, tk, tn):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_w4_matmul_plain_where_half_k_is_not_a_group_multiple(dtype):
     """K/2 = 192 with group 128 (tests/test_w4.py:77-88): no Pallas tile
-    exists and JAX takes its jnp path; the port's kernel takes the shape
-    (a group straddles the nibble planes), and so does its plain version."""
+    exists and JAX takes its jnp path; the port's kernel takes the shape in
+    the dequantised-tile form (a group straddles the nibble planes), and so
+    does its plain version: B is the dequantised weight rounded to x's type,
+    and the product is exact up to the f32 summation order."""
     rng = np.random.default_rng(4)
     x = jnp.asarray(rng.standard_normal((4, 384)), dtype)
     w = rng.standard_normal((384, 64)).astype(np.float32)
     packed, scales = jw4.quantize_weight_int4(w, group=128)
-    assert W4.kernel_supports(384, 128)
+    assert W4.kernel_supports(384, 128) and not W4.group_acc_form(384, 128)
     want = np.asarray(jw4.w4_matmul(x, packed, scales, group=128))
     got = K.w4_matmul(*from_numpy_tree([x, packed, scales]), 128).numpy()
     tol = JNP_TOL[dtype]
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * 10)
+    b = jw4.dequantize_int4(packed, scales, 128).astype(x.dtype)
     exact = (np.asarray(x.astype(jnp.float32)).astype(np.float64)
-             @ np.asarray(jw4.dequantize_int4(packed, scales, 128)).astype(np.float64))
+             @ np.asarray(b.astype(jnp.float32)).astype(np.float64))
     np.testing.assert_allclose(got, exact, rtol=1e-4, atol=1e-4 * np.abs(exact).max())
 
 
@@ -202,7 +205,10 @@ def test_w4_quantize_refuses_what_jax_refuses():
         W4.quantize_weight_int4(torch.zeros((200, 8)), group=128)
     with pytest.raises(ValueError, match="divisible"):
         jw4.quantize_weight_int4(np.zeros((200, 8), np.float32), group=128)
-    assert not W4.kernel_supports(200, 8) and not W4.kernel_supports(48, 16)
+    # the kernel takes every even K and every group up to 512 that divides K
+    assert W4.kernel_supports(200, 8) and W4.kernel_supports(48, 16)
+    assert not W4.kernel_supports(201, 3) and not W4.kernel_supports(200, 16)
+    assert not W4.kernel_supports(2048, 1024)
 
 
 # ---------------------------------------------------------------------------
