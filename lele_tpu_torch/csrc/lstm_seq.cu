@@ -34,22 +34,35 @@
 // dot product and its gate's activation (all 4H in parallel) into shared
 // memory, a barrier, H threads update (c, h), a barrier. xproj[t+1] is
 // loaded during step t.
-// Chosen over a 4-CTA cluster that splits the columns and exchanges h
-// through distributed shared memory every step: one block needs no cluster
-// barrier per step and no exchange, and its FMAs (512 cycles a step at
-// H = 128 on one SM's 128 lanes) are of the order of such a barrier's
-// latency. The range is 1 <= H <= 128, any S >= 1 and B >= 1; the LSTM
-// emitter checks it before it launches.
+// Chosen, up to H = 128, over a cluster that splits the columns and
+// exchanges h through distributed shared memory every step: one block needs
+// no cluster barrier per step and no exchange, and its FMAs (512 cycles a
+// step at H = 128 on one SM's 128 lanes) are of the order of such a
+// barrier's latency.
+//
+// Two forms, one C entry. The range is 1 <= H <= 1024, any S >= 1 and
+// B >= 1 (the LSTM emitter checks H before it launches):
+//  - H <= 128: the single-block form above;
+//  - 128 < H <= 1024: the general form of rnn_seq.cuh, a cluster of 8 CTAs
+//    a batch row that exchanges h through distributed shared memory, with
+//    the LSTM cell written there once (kernel 9 runs the same template with
+//    GRU cells). At H = 1024 Wh is 16 MiB in f32, a third of the L2: the
+//    rows past each thread's registers stream from L2 every step.
+// The single-block form keeps its own split of the cell (each column's
+// activation before the barrier, the unit update after), so its results
+// stay bit for bit those of the first version.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "rnn_seq.cuh"
+
 namespace {
 
 constexpr int kMaxH = 128;
 
-__device__ __forceinline__ float sigmoid_acc(float x) { return 1.0f / (1.0f + expf(-x)); }
+using lele_rnn::sigmoid_acc;
 
 template <int KR>  // rows of Wh held in registers
 __global__ void __launch_bounds__(4 * kMaxH, 1)
@@ -138,12 +151,19 @@ extern "C" const char* lele_error_string(int code) {
 
 // hs [S, B, H], hf and cf [B, H] f32 from xproj [S, B, 4H], wh [H, 4H],
 // h0 and c0 [B, H] f32, all contiguous on the card. One block per batch
-// row. Launches on `stream`; returns cudaGetLastError(), or
-// cudaErrorInvalidValue outside the kernel's range (1 <= H <= 128,
-// S >= 1, B >= 1).
+// row up to H = 128, one cluster of 8 blocks above. Launches on `stream`;
+// returns cudaGetLastError(), or cudaErrorInvalidValue outside the kernel's
+// range (1 <= H <= 1024, S >= 1, B >= 1).
 extern "C" int lstm_seq(const void* xproj, const void* wh, const void* h0, const void* c0,
                         void* hs, void* hf, void* cf, int S, int B, int H, void* stream) {
-  if (H < 1 || H > kMaxH || S < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || H > lele_rnn::kMaxGeneralH || S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (H > kMaxH)
+    return lele_rnn::launch_rnn_cluster<lele_rnn::kLstm>(
+        static_cast<const float*>(xproj), static_cast<const float*>(wh), nullptr,
+        static_cast<const float*>(h0), static_cast<const float*>(c0), static_cast<float*>(hs),
+        static_cast<float*>(hf), static_cast<float*>(cf), S, B, H,
+        static_cast<cudaStream_t>(stream));
   const int G = 4 * H;
   const int threads = (G + 31) / 32 * 32;
   const int kr = H > 64 ? 64 : 0;

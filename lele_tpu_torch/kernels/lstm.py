@@ -4,10 +4,18 @@
 whole recurrence over S steps in one launch, with the input projection
 xproj = x @ Wx + b computed outside (one large product), gate order
 i, f, g, o, all in f32. The kernel is csrc/lstm_seq.cu (design and bounds in
-its source note): one block per batch row, one thread per gate column,
-Wh split between registers and shared memory, h exchanged through shared
-memory every step. Its range is 1 <= H <= MAX_H (`kernel_takes`); callers
-check it before they launch.
+its source note), in two forms:
+
+- H <= 128: one block per batch row, one thread per gate column, Wh split
+  between registers and shared memory, h exchanged through shared memory
+  every step;
+- 128 < H <= 1024: the general form of csrc/rnn_seq.cuh (kernel 9 shares
+  it), a cluster of 8 blocks per batch row, each owning an eighth of the
+  units, with h exchanged through distributed shared memory and one cluster
+  barrier a step.
+
+Its range is 1 <= H <= MAX_H, any S and B (`kernel_takes`); callers check
+it before they launch.
 
 `lstm_seq_plain` is the same function in plain PyTorch, a Python loop over
 S (as `lstm_seq_reference` is a `lax.scan`). The wrapper takes it only for
@@ -22,12 +30,17 @@ import torch
 from . import _build
 
 _STEM = "lstm_seq"
-MAX_H = 128
+MAX_H = 1024
 _fn = None
 
 
 def kernel_takes(hidden: int) -> bool:
-    """The kernel's stated range: 1 <= H <= 128 (any S and B)."""
+    """The kernel's stated range: 1 <= H <= 1024 (any S and B). It covers
+    JAX's Pallas gate (`_use_pallas_rnn`, lele_tpu/ops/nn_ops.py:475-489:
+    S·B·4H·4 B < 4 MiB and B·H·4 B < 256 KiB) up to H = 1024 and any S
+    beyond it. Above H = 1024 the emitter keeps the loop: Wh (16 MiB at
+    H = 1024, 64 MiB at 2048) would no longer stay resident in the L2 from
+    which the general form streams it every step."""
     return 1 <= hidden <= MAX_H
 
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """A/B of two versions of the port's kernels 1, 4, 5, 6, 7 and 8 on one card.
 
-    python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR]
+    python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR] [--stems a,b]
 
 Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu, csrc/lstm_seq.cu,
 csrc/w4_gemm.cu and csrc/sanm_layer.cu, those of them that both
-directories hold, from both (the new one defaults to lele_tpu_torch/csrc),
-binds each through the port's own wrappers (the C entries must share their
-signatures), and times in turns, old new new old, with CUDA events (median
-of 30 warm runs each):
+directories hold (or those `--stems` names), from both (the new one
+defaults to lele_tpu_torch/csrc), binds each through the port's own
+wrappers (the C entries must share their signatures), and times in turns,
+old new new old, with CUDA events (median of 30 warm runs each):
 
 - `dq_gemm` at the compiled graph's four layer linears and its CTC head,
   T = 196 rows (10 s of audio);
@@ -77,9 +77,15 @@ def main(argv: list[str]) -> int:
 
     w4 = sys.modules[K.w4_matmul.__module__]
 
+    wanted = STEMS
+    if "--stems" in argv:
+        i = argv.index("--stems")
+        wanted = tuple(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
     old = Path(argv[0]).resolve()
     new = Path(argv[1]).resolve() if len(argv) > 1 else REPO / "lele_tpu_torch" / "csrc"
-    stems = [s for s in STEMS if (old / f"{s}.cu").exists() and (new / f"{s}.cu").exists()]
+    stems = [s for s in STEMS if s in wanted and (old / f"{s}.cu").exists()
+             and (new / f"{s}.cu").exists()]
     card = cs.card_identity()
     with tempfile.TemporaryDirectory() as d:
         (Path(d) / "old").mkdir()

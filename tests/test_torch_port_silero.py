@@ -107,8 +107,10 @@ def test_lstm_seq_kernel_refuses_a_cpu_tensor_and_states_its_range():
     x = torch.zeros((3, 1, 16))
     with pytest.raises(ValueError, match="CUDA"):
         lstm.lstm_seq_kernel(x, torch.zeros((4, 16)), torch.zeros((1, 4)), torch.zeros((1, 4)))
-    assert lstm.kernel_takes(1) and lstm.kernel_takes(128)
-    assert not lstm.kernel_takes(0) and not lstm.kernel_takes(129)
+    # one block up to H = 128, a cluster of 8 blocks up to 1024
+    assert lstm.kernel_takes(1) and lstm.kernel_takes(128) and lstm.kernel_takes(129)
+    assert lstm.kernel_takes(1024)
+    assert not lstm.kernel_takes(0) and not lstm.kernel_takes(1025)
 
 
 # -- models/common ------------------------------------------------------------
