@@ -53,7 +53,26 @@
 14. times kernels 7 and 8, their plain versions, bounds and kernel 7's
    library call, the two compiled MatMulNBits paths, and the w4 and w8
    10 s forwards in one call;
-15. prints one JSON line of kernels, the card, and last
+15. holds kernel 9 (the GRU recurrence) against its plain version, both
+   linear_before_reset forms, at H = 128 (S = 1,875 and 18,750, B = 1;
+   B = 4) and in its general form at H = 256; kernel 6's general form at
+   H = 256 and 1,024; kernel 7 at groups 8 and 24, at K = 1,040 (the
+   dequantised-tile form) and through its expert-indexed entry;
+16. compiles an ONNX GRU graph (input 128, H 128, bidirectional, 1,875
+   steps; both forms) with the default emitters and with the gru_plain
+   override: one gru_seq launch a direction a request, the routes, the two
+   paths against each other; a ragged B = 4 request on the loop; an LSTM
+   graph at H = 256, S = 1,023 on kernel 6's general form;
+17. compiles the Phi-3.5-MoE-form MoE layer (router MatMul into QMoE,
+   hidden 1024, inter 1792, 8 experts, top-2 SparseMixer, 4-bit experts) at
+   1, 4 and 16 rows with the default patterns, the f32 variants and
+   `patterns=[]`: pattern hits, three kernel 7 launches a decode request,
+   none at prefill, each route against the per-op path;
+18. times kernel 9 against its plain version, cuDNN's GRU and its bound;
+   kernels 6 and 9 at H = 256; kernel 7 at the decode shapes (the MoE
+   layer's and the published Phi-3.5-MoE expert widths) against
+   torch.matmul; the QMoE node and the GRU graph per request, both ways;
+19. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -119,6 +138,16 @@ NBITS_ROWS = 196
 # MatMulNBits, fused (bf16 activations) vs per-op (f32): the gate of
 # tests/test_matmul_nbits_fusion.py:161-165
 NBITS_RELNORM = 5e-3
+# kernel 9 vs its plain version: both f32 FMA, as kernel 6 (LSTM_TOL)
+GRU_TOL = LSTM_TOL
+GRU_SHAPES = ((1875, 1, 128), (18750, 1, 128), (1875, 4, 128), (1023, 1, 256))
+# the QMoE layer, f32 route (kernel 7's exact form) vs per-op: f32 products
+# on both sides, only summation orders differ. The first call read 1.1e-6,
+# so the gate was tightened from 1e-5 to 5e-6 (the bf16 route read 3.0e-3
+# against JAX's 5e-3, NBITS_RELNORM, which stays)
+QMOE_F32_REL = 5e-6
+MOE_ROWS = (1, 4, 16)  # rows·k <= 8 experts: decode at 1 and 4; prefill at 16
+PHI_MOE = (4096, 6400)  # Phi-3.5-MoE's published expert widths (hidden, inter)
 
 
 class Checks:
@@ -609,6 +638,376 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
     return launches
 
 
+def gru_bound(S: int, B: int, H: int, lbr: bool) -> tuple[float, str]:
+    """Kernel 9: xproj, Rh, rb and h0 read once, hs and h_S written once;
+    2·S·B·H·3H f32 operations of h @ Rh (2·S·B·H·4H without
+    linear_before_reset: the second product on r * h), the gates left out."""
+    n_bytes = 4 * (S * B * 3 * H + H * 3 * H + 3 * H + B * H + S * B * H + B * H)
+    return bound(n_bytes, {"f32": 2 * S * B * H * (3 if lbr else 4) * H})
+
+
+def gru_inputs(S, B, H, dev, gen):
+    import torch
+
+    x = torch.randn((S, B, 3 * H), generator=gen, device=dev)
+    rh = (torch.rand((H, 3 * H), generator=gen, device=dev) * 2 - 1) / H ** 0.5
+    rb = torch.randn((3 * H,), generator=gen, device=dev) * 0.1
+    return x, rh, rb, torch.randn((B, H), generator=gen, device=dev) * 0.5
+
+
+def once_ms(fn):
+    """(fn(), its time in ms by CUDA events): for a plain version too slow to
+    run more than once."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def cudnn_gru(rh, rb, dev):
+    """torch.nn.GRU (cuDNN, linear_before_reset) computing kernel 9's
+    recurrence on xproj: gates z, r, h become PyTorch's r, z, n, W_ih the
+    permutation that takes xproj's columns in that order, b_ih zero."""
+    import torch
+
+    H = rh.shape[0]
+    perm = torch.cat([torch.arange(H, 2 * H), torch.arange(0, H), torch.arange(2 * H, 3 * H)])
+    gru = torch.nn.GRU(3 * H, H).to(dev)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.eye(3 * H, device=dev)[perm])
+        gru.weight_hh_l0.copy_(rh.t()[perm.to(dev)])
+        gru.bias_ih_l0.zero_()
+        gru.bias_hh_l0.copy_(rb[perm.to(dev)])
+    return gru
+
+
+def cudnn_lstm(wh, dev):
+    """torch.nn.LSTM (cuDNN) computing kernel 6's recurrence on xproj (gate
+    order i, f, g, o, PyTorch's own) with W_ih = I."""
+    import torch
+
+    H = wh.shape[0]
+    lstm = torch.nn.LSTM(4 * H, H).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+        lstm.weight_hh_l0.copy_(wh.t())
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def rnn_graph(op: str, S: int, B: int, I: int, H: int, grng, lens=None, **attrs) -> bytes:
+    """An ONNX GRU or LSTM node with random weights and bias (both
+    directions if attrs say so): x [S, B, I] → y, y_h."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+
+    ng = 3 if op == "GRU" else 4
+    D = 2 if attrs.get("direction") == "bidirectional" else 1
+    inits = {"w": (grng.standard_normal((D, ng * H, I)) / I ** 0.5).astype(np.float32),
+             "r": (grng.standard_normal((D, ng * H, H)) / H ** 0.5).astype(np.float32),
+             "b": (grng.standard_normal((D, 2 * ng * H)) * 0.1).astype(np.float32)}
+    names = ["x", "w", "r", "b"]
+    if lens is not None:
+        inits["sl"] = np.asarray(lens, np.int32)
+        names.append("sl")
+    outs = ["y", "yh"] + (["yc"] if op == "LSTM" else [])
+    return ob.build_model_bytes(
+        [ob.node(op, names, outs, hidden_size=H, **attrs)],
+        inputs=[ob.value_info("x", 1, [S, B, I])],
+        outputs=[ob.value_info(n, 1, []) for n in outs],
+        initializers=[ob.tensor_from_array(v, n) for n, v in inits.items()])
+
+
+def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) -> dict:
+    """Phases 15-18: kernel 9 and the new forms of kernels 6 and 7, a GRU
+    graph, an LSTM graph at H = 256, the QMoE decode layer, and their
+    timings. Returns the launch counts of the GRU and QMoE main paths."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.compiler.patterns import F32_NBITS_PATTERNS, _qmoe_group
+    from lele_tpu_torch.onnx.synth import MOE_DECODE, build_moe_layer_model
+    from lele_tpu_torch.ops import nn_ops
+
+    W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+
+    print("== 15. kernel 9 (gru_seq) vs plain; kernels 6 and 7 in their new forms")
+    plain_18750 = None
+    for S, B, H in GRU_SHAPES:
+        for lbr in (True, False):
+            if S > 2000 and not lbr:
+                continue  # the plain version runs once at S = 18,750 (seconds)
+            args = gru_inputs(S, B, H, dev, gen)
+            got = K.gru_seq(*args, lbr)
+            ref, t = once_ms(lambda: K.gru_seq_plain(*args, lbr))
+            if S > 2000:
+                plain_18750 = t
+            torch.cuda.synchronize()
+            d = max((g - r).abs().max().item() for g, r in zip(got, ref))
+            err["gru_seq"] = max(err["gru_seq"], d)
+            checks.require(all(bool(torch.isfinite(g).all()) for g in got) and d <= GRU_TOL,
+                           f"gru_seq S={S} B={B} H={H} linear_before_reset={int(lbr)}: max|d| "
+                           f"of hs, h_S {d:.3e} <= {GRU_TOL:g}")
+    for S, B, H in ((1023, 1, 256), (255, 1, 1024), (37, 3, 200)):
+        args = lstm_inputs(S, B, H, dev, gen)
+        got, ref = K.lstm_seq(*args), K.lstm_seq_plain(*args)
+        torch.cuda.synchronize()
+        d = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        err["lstm_seq"] = max(err["lstm_seq"], d)
+        checks.require(all(bool(torch.isfinite(g).all()) for g in got) and d <= LSTM_TOL,
+                       f"lstm_seq general form S={S} B={B} H={H}: max|d| of hs, h_S, c_S "
+                       f"{d:.3e} <= {LSTM_TOL:g}")
+
+    def w4_check(x, packed, scales, group, idx, what):
+        got = K.w4_matmul(x, packed, scales, group, idx)
+        ref = K.w4_matmul_plain(x, packed, scales, group, idx)
+        torch.cuda.synchronize()
+        d, scale, _ = compare(got, ref)
+        tol = W4_TOL[str(x.dtype)[6:]]
+        err["w4_gemm"] = max(err["w4_gemm"], d)
+        checks.require(got.shape == ref.shape and d <= tol * scale,
+                       f"w4_gemm {what} {str(x.dtype)[6:]}: max|d| {d:.3e} <= {tol:g} * "
+                       f"{scale:.3e}")
+
+    for k_, group in ((512, 8), (768, 24), (1040, 8)):
+        packed = torch.randint(-128, 128, (k_ // 2, 1536), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scales = torch.rand((k_ // group, 1536), generator=gen, device=dev) * 0.01 + 1e-3
+        form = "group-accumulator" if W4.group_acc_form(k_, group) else "dequantised-tile"
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((NBITS_ROWS, k_), generator=gen, device=dev).to(dtype)
+            w4_check(x, packed, scales, group, None,
+                     f"[{NBITS_ROWS},{k_}]x[{k_},{1536}] g{group} ({form} form)")
+    E, hidden, inter = MOE_DECODE["experts"], MOE_DECODE["hidden"], MOE_DECODE["inter"]
+    for R in (2, 8):
+        for k_, n_ in ((hidden, inter), (inter, hidden)):
+            group = _qmoe_group(k_)
+            packed = torch.randint(-128, 128, (E, k_ // 2, n_), generator=gen, device=dev,
+                                   dtype=torch.int8)
+            scales = torch.rand((E, k_ // group, n_), generator=gen, device=dev) * 0.01 + 1e-3
+            idx = torch.randint(0, E, (R,), generator=gen, device=dev, dtype=torch.int32)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((R, k_), generator=gen, device=dev).to(dtype)
+                w4_check(x, packed, scales, group, idx,
+                         f"expert-indexed R={R} [{k_},{n_}] x {E} stacks g{group}")
+
+    print("== 16. compiled GRU graph (input 128, H 128, bidirectional, 1,875 steps)")
+    grng = np.random.default_rng(GRAPH_SEED + 5)
+    S, H = 1875, 128
+    graphs = {lbr: rnn_graph("GRU", S, 1, 128, H, grng, direction="bidirectional",
+                             linear_before_reset=lbr) for lbr in (1, 0)}
+    ragged = rnn_graph("GRU", S, 4, 128, H, grng, lens=[S, 1200, 600, 1],
+                       direction="bidirectional", linear_before_reset=1)
+    t0 = time.perf_counter()
+    cms = {k: compile_model(g, device=dev, strict=True)
+           for k, g in [*graphs.items(), ("ragged", ragged)]}
+    plain = {k: compile_model(g, device=dev, strict=True, overrides={"GRU": nn_ops.gru_plain})
+             for k, g in [*graphs.items(), ("ragged", ragged)]}
+    print(f"  six compiles in {time.perf_counter() - t0:.2f} s")
+    xs = {k: torch.from_numpy(grng.standard_normal((S, 4 if k == "ragged" else 1, 128))
+                              .astype(np.float32)).to(dev) for k in cms}
+    routes = dict(nn_ops.RNN_ROUTES)
+    K.reset_launch_counts()
+    outs = {k: cms[k](x=xs[k]) for k in (1, 0)}
+    torch.cuda.synchronize()
+    gru_launches = K.launch_counts()
+    moved = {k: nn_ops.RNN_ROUTES[k] - routes[k] for k in routes}
+    print(f"  launch counts over 2 requests: {gru_launches}; routes moved {moved}")
+    checks.require(gru_launches["gru_seq"] == 4 and sum(gru_launches.values()) == 4,
+                   "gru_seq once a direction a request, no other kernel")
+    checks.require(moved == {"lstm_seq": 0, "gru_seq": 4, "loop": 0},
+                   "RNN_ROUTES: 4 directions on gru_seq, none on the loop")
+    for k in (1, 0):
+        ref = plain[k](x=xs[k])
+        d = max((o - r).abs().max().item() for o, r in zip(outs[k], ref))
+        err["gru_seq"] = max(err["gru_seq"], d)
+        checks.require(tuple(outs[k][0].shape) == (S, 2, 1, H) and d <= GRU_TOL
+                       and all(bool(torch.isfinite(o).all()) for o in outs[k]),
+                       f"GRU graph linear_before_reset={k}: y {tuple(outs[k][0].shape)}, vs "
+                       f"the gru_plain override max|d| {d:.3e} <= {GRU_TOL:g}")
+    routes = dict(nn_ops.RNN_ROUTES)
+    n0 = K.launch_counts()["gru_seq"]
+    got = cms["ragged"](x=xs["ragged"])
+    torch.cuda.synchronize()
+    on_loop = nn_ops.RNN_ROUTES["loop"] - routes["loop"]
+    ref = plain["ragged"](x=xs["ragged"])
+    d = max((o - r).abs().max().item() for o, r in zip(got, ref))
+    checks.require(on_loop == 2 and K.launch_counts()["gru_seq"] == n0 and d <= GRU_TOL,
+                   f"ragged B=4 GRU request: both directions on the loop, no gru_seq launch, "
+                   f"vs plain max|d| {d:.3e}")
+    lstm_g = rnn_graph("LSTM", 1023, 1, 256, 256, grng)
+    cm_l = compile_model(lstm_g, device=dev, strict=True)
+    cm_lp = compile_model(lstm_g, device=dev, strict=True, overrides={"LSTM": nn_ops.lstm_plain})
+    x_l = torch.from_numpy(grng.standard_normal((1023, 1, 256)).astype(np.float32)).to(dev)
+    routes = dict(nn_ops.RNN_ROUTES)
+    K.reset_launch_counts()
+    got = cm_l(x=x_l)
+    torch.cuda.synchronize()
+    l_launches = K.launch_counts()
+    ref = cm_lp(x=x_l)
+    d = max((o - r).abs().max().item() for o, r in zip(got, ref))
+    err["lstm_seq"] = max(err["lstm_seq"], d)
+    checks.require(l_launches["lstm_seq"] == 1 and nn_ops.RNN_ROUTES["loop"] == routes["loop"]
+                   and d <= LSTM_TOL,
+                   f"LSTM graph H=256 S=1023: {l_launches['lstm_seq']} lstm_seq launch, loop "
+                   f"unchanged, vs lstm_plain max|d| {d:.3e} <= {LSTM_TOL:g}")
+
+    print(f"== 17. compiled QMoE layer (hidden {hidden}, inter {inter}, {E} experts, top-2)")
+    qmoe = {}
+    for rows in MOE_ROWS:
+        bs = build_moe_layer_model(rows, seed=GRAPH_SEED + rows, **MOE_DECODE)
+        qmoe[rows] = (compile_model(bs, device=dev, strict=True),
+                      compile_model(bs, device=dev, strict=True, patterns=F32_NBITS_PATTERNS),
+                      compile_model(bs, device=dev, strict=True, patterns=[]),
+                      torch.from_numpy(grng.standard_normal((rows, hidden))
+                                       .astype(np.float32)).to(dev))
+    print(f"  graph: {len(bs) / 1e6:.1f} MB of ONNX bytes (packed experts)")
+    K.reset_launch_counts()
+    fused = {rows: qmoe[rows][0](x=qmoe[rows][3])[0] for rows in MOE_ROWS[:2]}
+    torch.cuda.synchronize()
+    moe_launches = K.launch_counts()
+    print(f"  launch counts over 2 decode requests: {moe_launches}")
+    checks.require(moe_launches["w4_gemm"] == 6 and sum(moe_launches.values()) == 6,
+                   "w4_gemm 3 times a decode request (fc1, fc3, fc2, expert-indexed)")
+    for rows in MOE_ROWS:
+        cm, cm32, cm_ref, x = qmoe[rows]
+        decode = rows * 2 <= E
+        hits = cm.stats["pattern_hits"]
+        checks.require(hits.get("qmoe_w4", 0) == (2 if decode else 0)
+                       and cm32.stats["pattern_hits"].get("qmoe_w4", 0) == (2 if decode else 0)
+                       and not cm_ref.stats["pattern_hits"],
+                       f"rows={rows}: pattern hits {hits} ({'decode' if decode else 'prefill'})")
+        n0 = K.launch_counts()["w4_gemm"]
+        y = fused[rows] if decode else cm(x=x)[0]
+        y32 = cm32(x=x)[0]
+        ref = cm_ref(x=x)[0]
+        torch.cuda.synchronize()
+        if not decode:
+            checks.require(K.launch_counts()["w4_gemm"] == n0,
+                           "prefill: the pattern declines, no w4_gemm launch from the default "
+                           "route")
+        rn = ((y - ref).norm() / ref.norm()).item()
+        rn32 = ((y32 - ref).norm() / ref.norm()).item()
+        checks.require(tuple(y.shape) == (rows, hidden) and bool(torch.isfinite(y).all())
+                       and rn <= NBITS_RELNORM,
+                       f"QMoE rows={rows} bf16 route vs per-op: relative Frobenius {rn:.3e} "
+                       f"<= {NBITS_RELNORM:g}")
+        checks.require(rn32 <= QMOE_F32_REL,
+                       f"QMoE rows={rows} f32 route vs per-op: relative Frobenius {rn32:.3e} "
+                       f"<= {QMOE_F32_REL:g}")
+
+    print(f"== 18. slice 5 timings (CUDA events, median of warm runs; {card})")
+    for S in (1875, 18750):
+        args = gru_inputs(S, 1, 128, dev, gen)
+        a = time_ms(lambda: K.gru_seq(*args, True), runs=10)
+        a0 = time_ms(lambda: K.gru_seq(*args, False), runs=10)
+        b = plain_18750 if S > 2000 else time_ms(lambda: K.gru_seq_plain(*args, True), runs=3,
+                                                  warm=1)
+        gru = cudnn_gru(args[1], args[2], dev)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y, _ = gru(args[0], args[3][None])
+            lib_d = (y - K.gru_seq(*args, True)[0]).abs().max().item()
+            c = time_ms(lambda: gru(args[0], args[3][None]), runs=10)
+        b_ms, b_by = gru_bound(S, 1, 128, True)
+        b0_ms, _ = gru_bound(S, 1, 128, False)
+        print(f"  gru_seq S={S} B=1 H=128: linear_before_reset kernel {a:.4f} ms "
+              f"({a * 1e3 / S:.4f} us a step), without {a0:.4f} ms; plain {b:.3f} ms; cuDNN "
+              f"nn.GRU on xproj with W_ih a permutation {c:.4f} ms (+ one [S,384]x[384,384] "
+              f"input product; max|d| vs kernel {lib_d:.2e}); bound {b_ms * 1e3:.3f} us "
+              f"(without: {b0_ms * 1e3:.3f} us) by {b_by}, kernel at {100 * b_ms / a:.4f}% of "
+              f"it  ({card})")
+        ms["gru_seq"], plain_ms["gru_seq"], library_ms["gru_seq"] = a, b, c
+        bounds["gru_seq"] = (b_ms, b_by)
+    S, H = 1023, 256
+    largs = lstm_inputs(S, 1, H, dev, gen)
+    gargs = gru_inputs(S, 1, H, dev, gen)
+    lstm, gru = cudnn_lstm(largs[1], dev), cudnn_gru(gargs[1], gargs[2], dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_l = time_ms(lambda: lstm(largs[0], (largs[2][None], largs[3][None])), runs=10)
+        lib_g = time_ms(lambda: gru(gargs[0], gargs[3][None]), runs=10)
+    for name, kern, plain_fn, args, lib, bnd in (
+            ("lstm_seq", K.lstm_seq, K.lstm_seq_plain, largs, lib_l, lstm_bound(S, 1, H)),
+            ("gru_seq", K.gru_seq, K.gru_seq_plain, gargs, lib_g, gru_bound(S, 1, H, True))):
+        a = time_ms(lambda: kern(*args), runs=10)
+        b = time_ms(lambda: plain_fn(*args), runs=3, warm=1)
+        print(f"  {name} general form S={S} B=1 H={H}: kernel {a:.4f} ms ({a * 1e3 / S:.3f} us "
+              f"a step), plain {b:.3f} ms, cuDNN {lib:.4f} ms; bound {bnd[0] * 1e3:.3f} us by "
+              f"{bnd[1]}, kernel at {100 * bnd[0] / a:.4f}% of it  ({card})")
+    args = lstm_inputs(255, 1, 1024, dev, gen)
+    a = time_ms(lambda: K.lstm_seq(*args), runs=5)
+    bnd = lstm_bound(255, 1, 1024)
+    print(f"  lstm_seq general form S=255 B=1 H=1024: kernel {a:.4f} ms ({a * 1e3 / 255:.3f} us "
+          f"a step; Wh 16 MiB from L2 each step); bound {bnd[0] * 1e3:.3f} us by {bnd[1]}  "
+          f"({card})")
+    for k_, n_ in ((hidden, inter), (inter, hidden), PHI_MOE, PHI_MOE[::-1]):
+        x = torch.randn((1, k_), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+        packed, scales = W4.quantize_weight_int4(w, 128)
+        a = time_ms(lambda: K.w4_matmul(x, packed, scales, 128))
+        b = time_ms(lambda: K.w4_matmul_plain(x, packed, scales, 128))
+        w_bf16 = W4.dequantize_int4(packed, scales, 128).to(torch.bfloat16)
+        c = time_ms(lambda: torch.matmul(x, w_bf16))
+        b_ms, b_by = bound(2 * k_ + packed.numel() + 4 * scales.numel() + 4 * n_,
+                           {"bf16": 2 * k_ * n_})
+        print(f"  w4_gemm decode [1,{k_}]x[{k_},{n_}] g128 bf16: kernel {a:.4f} ms, plain "
+              f"{b:.4f} ms, torch.matmul bf16 x bf16 dequantised weight {c:.4f} ms; bound "
+              f"{b_ms * 1e3:.2f} us by {b_by} ({(packed.numel() + 4 * scales.numel()) / 1e6:.2f} "
+              f"MB of weight and scales), kernel at {100 * b_ms / a:.2f}% of it; 1 of the "
+              f"kernel's 32 M-tile rows used  ({card})")
+    for k_, group in ((512, 8), (768, 24), (1040, 8)):
+        x = torch.randn((NBITS_ROWS, k_), generator=gen, device=dev).to(torch.bfloat16)
+        packed = torch.randint(-128, 128, (k_ // 2, 1536), generator=gen, device=dev,
+                               dtype=torch.int8)
+        scales = torch.rand((k_ // group, 1536), generator=gen, device=dev) * 0.01 + 1e-3
+        a = time_ms(lambda: K.w4_matmul(x, packed, scales, group))
+        b = time_ms(lambda: K.w4_matmul_plain(x, packed, scales, group))
+        w_bf16 = W4.dequantize_int4(packed, scales, group).to(torch.bfloat16)
+        c = time_ms(lambda: torch.matmul(x, w_bf16))
+        b_ms, b_by = bound(2 * NBITS_ROWS * k_ + packed.numel() + 4 * scales.numel()
+                           + 4 * NBITS_ROWS * 1536, {"bf16": 2 * NBITS_ROWS * k_ * 1536})
+        form = "group-accumulator" if W4.group_acc_form(k_, group) else "dequantised-tile"
+        print(f"  w4_gemm [{NBITS_ROWS},{k_}]x[{k_},1536] g{group} bf16 ({form} form): kernel "
+              f"{a:.4f} ms, plain {b:.4f} ms, torch.matmul bf16 x bf16 dequantised weight "
+              f"{c:.4f} ms; bound {b_ms * 1e3:.2f} us by {b_by}  ({card})")
+    x = torch.randn((2, hidden), generator=gen, device=dev).to(torch.bfloat16)
+    packed = torch.randint(-128, 128, (E, hidden // 2, inter), generator=gen, device=dev,
+                           dtype=torch.int8)
+    scales = torch.rand((E, hidden // 128, inter), generator=gen, device=dev) * 0.01 + 1e-3
+    idx = torch.tensor([3, 6], dtype=torch.int32, device=dev)
+    a = time_ms(lambda: K.w4_matmul(x, packed, scales, 128, idx))
+    b = time_ms(lambda: K.w4_matmul_plain(x, packed, scales, 128, idx))
+    b_ms, b_by = bound(2 * 2 * hidden + 2 * (packed[0].numel() + 4 * scales[0].numel())
+                       + 4 * 2 * inter + 8, {"bf16": 2 * 2 * hidden * inter})
+    print(f"  w4_gemm expert-indexed, 1 row x top-2 [2,{hidden}] x stacks [{E},{hidden // 2},"
+          f"{inter}] g128 bf16 (fc1 of a decode step): kernel {a:.4f} ms, plain {b:.4f} ms "
+          f"(gathers the two stacks); bound {b_ms * 1e3:.2f} us by {b_by}  ({card})")
+    for rows in MOE_ROWS[:2]:
+        cm, cm32, cm_ref, x = qmoe[rows]
+        t_f = host_ms(lambda: (cm(x=x), torch.cuda.synchronize()), runs=20)
+        t_32 = host_ms(lambda: (cm32(x=x), torch.cuda.synchronize()), runs=20)
+        t_r = host_ms(lambda: (cm_ref(x=x), torch.cuda.synchronize()), runs=10)
+        d_f = time_ms(lambda: cm(x=x))
+        print(f"  QMoE layer rows={rows} request (host clock, median): fused bf16 {t_f:.4f} ms "
+              f"(CUDA events {d_f:.4f} ms), fused f32 {t_32:.4f} ms, per-op {t_r:.4f} ms  "
+              f"({card})")
+    for k in (1, 0):
+        t_k = host_ms(lambda: (cms[k](x=xs[k]), torch.cuda.synchronize()), runs=5)
+        t_p = host_ms(lambda: (plain[k](x=xs[k]), torch.cuda.synchronize()), runs=1)
+        print(f"  GRU graph linear_before_reset={k} request (host clock, median): kernel route "
+              f"{t_k:.3f} ms, gru_plain override {t_p:.3f} ms  ({card})")
+    return {"gru": gru_launches, "qmoe": moe_launches}
+
+
 def dev_time(e):  # the attribute's name moved between torch versions
     v = getattr(e, "self_device_time_total", None)
     return v if v is not None else e.self_cuda_time_total
@@ -638,6 +1037,7 @@ def main() -> int:
     from lele_tpu_torch.onnx.synth import build_sanm_int8_model
     from lele_tpu_torch.serving import SenseVoiceEngine
 
+    t_start = time.perf_counter()
     # the plain versions are the oracle: full f32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1002,6 +1402,7 @@ def main() -> int:
                                  bounds)
     w4_launches = w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                             fwd, model.params)
+    s5_launches = slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -1035,12 +1436,25 @@ def main() -> int:
         "sanm_stack_w4": ("lele_tpu_torch/csrc/sanm_layer.cu",
                           "lele_tpu/kernels/sanm_block.py:621",
                           "rtol 2e-2, atol 2e-2*max|ref| on valid rows", w4_launches),
+        "gru_seq": ("lele_tpu_torch/csrc/gru_seq.cu", "lele_tpu/kernels/gru.py:18",
+                    f"hs, h_S max|d| <= {GRU_TOL:g}", s5_launches["gru"]),
     }
+    forms = {  # kernels with more than one form: which the numbers are of
+        "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
+                    "128 < H <= 1024 (phases 15-18)",
+        "w4_gemm": "group-accumulator (k-steps 16 or 8) and dequantised-tile forms, any "
+                   "even K and group <= 512; expert-indexed entry for QMoE decode (times: "
+                   "the CTC head; decode shapes in phase 18)",
+        "gru_seq": "single block H <= 128 (times: S=18,750 H=128, linear_before_reset); "
+                   "cluster of 8 for 128 < H <= 1024",
+    }
+    print(f"chip_smoke: every check passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": err[name], "tolerance": tol,
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": library_ms[name]}
+         "bound_by": bounds[name][1], "library_ms": library_ms[name],
+         **({"forms": forms[name]} if name in forms else {})}
         for name, (src, rep, tol, counts) in replaces.items()
     ]}))
     print(card)

@@ -11,6 +11,12 @@
 - ``matmul_nbits_w4``: com.microsoft::MatMulNBits at bits=4 → the `w4_matmul`
   kernel, its ORT blob repacked once at trace time into the kernel's
   low/high K-plane layout.
+- ``qmoe_w4``: com.microsoft::QMoE's decode path at bits=4 → the `w4_matmul`
+  kernel's expert-indexed entry, the expert stacks repacked once at trace
+  time.
+- ``matmul_nbits_w4_f32`` and ``qmoe_w4_f32``: the same routes with f32
+  activations (the kernel's exact w4a32 form), JAX's `LELE_NBITS_F32=1`;
+  selected with ``patterns=[...]``.
 
 A pattern is ``fn(tracer, state, nodes, i, env, scope) -> None | (consumed,
 {output_name: value})``. None means "no match"; the tracer then falls
@@ -277,15 +283,16 @@ def _match_dequant_epilogue(nodes, j, mm_out, env, scale_name, graph_outputs,
     return jc, jm, jp, mul.output[0], smul.output[0], float(np.asarray(cv))
 
 
-def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int):
-    """The recorded step of matmul_nbits_w4: bf16 activations through the w4
-    GEMM on the recentred planes, plus the zero-point residual
-    Σ_g blocksum_g(a)·(8 − zp)·s as an f32 [M, K/block] × [K/block, N]
-    product (zc None where every zero point is 8)."""
+def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int,
+                     f32: bool = False):
+    """The recorded step of matmul_nbits_w4: bf16 (or, for the f32 route,
+    f32) activations through the w4 GEMM on the recentred planes, plus the
+    zero-point residual Σ_g blocksum_g(a)·(8 − zp)·s as an f32 [M, K/block]
+    × [K/block, N] product (zc None where every zero point is 8)."""
     from ..kernels.w4_matmul import w4_matmul
 
     x2 = a.reshape(-1, K)
-    out = w4_matmul(x2.to(torch.bfloat16), packed, scales, block)
+    out = w4_matmul(x2.to(torch.float32 if f32 else torch.bfloat16), packed, scales, block)
     if zc is not None:
         xs = x2.to(torch.float32).reshape(x2.shape[0], K // block, block).sum(-1)
         out = out + xs @ zc
@@ -295,7 +302,7 @@ def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int):
     return out
 
 
-def matmul_nbits_w4(tracer, state, nodes, i, env, scope):
+def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
     """Route com.microsoft::MatMulNBits (bits=4, no g_idx) through the w4a16
     GEMM kernel (kernels/w4_matmul.py), as lele_tpu/compiler/patterns.py:277
     routes it through `w4_matmul_pallas`.
@@ -306,16 +313,16 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope):
     planes: (q − zp)·s = (q − 8)·s + (8 − zp)·s, and the second term is the
     zero-point residual, an [M, K/block] × [K/block, N] product over block
     sums of the activation (none for the default zp = 8). Activations go to
-    the kernel as bf16 (its group-accumulator form), JAX's default route;
-    its `LELE_NBITS_F32` f32 route is not ported.
+    the kernel as bf16, JAX's default route; `matmul_nbits_w4_f32` (in
+    `patterns=[...]`) is JAX's `LELE_NBITS_F32=1` route, f32 activations in
+    the kernel's exact form. Counted under "matmul_nbits_w4" either way.
 
     Eligibility is JAX's: bits 4, no g_idx, static weights, scales and zero
     points, a float activation, an even block of at most 512, K a multiple
     of 2·block; anything else keeps the emitter (ops/contrib_ops.py). The
-    kernel itself takes blocks that are multiples of 16 (ONNX's MatMulNBits
-    requires a power of two of at least 16) and raises for others. Each hit
-    is counted twice in `pattern_hits`, by the pattern and by the tracer's
-    walk, as the JAX package counts it."""
+    kernel takes every such block in the form JAX's routing would (see
+    kernels/w4_matmul.py). Each hit is counted twice in `pattern_hits`, by
+    the pattern and by the tracer's walk, as the JAX package counts it."""
     node = nodes[i]
     if node.op_type != "MatMulNBits":
         return None
@@ -368,11 +375,162 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope):
                                  np.ascontiguousarray(c_np.T.astype(np.float32)))
     if bias is not None and _is_static(bias):
         bias = state.to_device(scope + ins[5] + "::w4b", np.asarray(bias))
-    out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block)
+    out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block, f32)
     state.pattern_hits["matmul_nbits_w4"] = state.pattern_hits.get("matmul_nbits_w4", 0) + 1
     return 1, {node.output[0]: out}
 
 
+def matmul_nbits_w4_f32(tracer, state, nodes, i, env, scope):
+    """`matmul_nbits_w4` with f32 activations: the kernel's exact w4a32 form
+    (JAX's `LELE_NBITS_F32=1`), for graphs that carry f32 semantics."""
+    return matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32=True)
+
+
+def _qmoe_repack(wq: np.ndarray) -> np.ndarray:
+    """A QMoE expert stack [E, K, N/2] u8 (nibbles adjacent along the output
+    axis, low first, zero point 8) → the w4 kernel's [E, K/2, N] int8
+    low/high K-plane layout, recentred to signed int4
+    (lele_tpu/compiler/patterns.py:412-424)."""
+    E, K, half_n = wq.shape
+    q = np.empty((E, K, 2 * half_n), np.int8)
+    q[..., 0::2] = (wq & 0x0F).astype(np.int8) - 8
+    q[..., 1::2] = (wq >> 4).astype(np.int8) - 8
+    half = K // 2
+    return ((q[:, :half] & 0x0F) | (q[:, half:].astype(np.uint8) << 4)).astype(np.int8)
+
+
+def _qmoe_group(K: int) -> int:
+    """The largest of 128, 64, ..., 1 that divides K/2 (JAX's choice,
+    lele_tpu/compiler/patterns.py:427-434). QMoE scales are per output
+    column, constant along K, so any group gives the same sums; kernel 7
+    takes each in the form JAX's routing would."""
+    half = K // 2
+    for g in (128, 64, 32, 16, 8, 4, 2, 1):
+        if half % g == 0:
+            return g
+    return 1
+
+
+def _qmoe_w4_step(x, logits, fc1, fc2, fc3, k: int, sparse: bool, normalize: bool, act: str,
+                  f32: bool):
+    """The recorded step of qmoe_w4: route on the device, then one launch of
+    the w4 GEMM's expert-indexed entry per linear for all rows·k slots (the
+    expert indices never leave the card); fcN = (packed [E, K/2, N], scales
+    [E, K/g, N], g). The activation and the fc3 product in f32, cast to the
+    activation type before fc2; the routing weights sum in f32, slot by
+    slot, as lele_tpu/compiler/patterns.py:551-563."""
+    from ..kernels.w4_matmul import w4_matmul
+    from ..ops.moe_ops import apply_activation, route_topk
+
+    hidden = x.shape[-1]
+    rows = x.numel() // hidden
+    weights, experts = route_topk(logits.reshape(rows, -1).float(), k, sparse, normalize)
+    x2 = x.reshape(rows, hidden)
+    xk = x2.float() if f32 else x2.to(torch.bfloat16)
+    xr = torch.repeat_interleave(xk, k, dim=0)  # [rows·k, hidden], slot-major per row
+    idx = experts.reshape(-1).to(torch.int32)
+
+    def mm(h, fc):
+        return w4_matmul(h, fc[0], fc[1], fc[2], idx)
+
+    h = apply_activation(act, mm(xr, fc1))
+    if fc3 is not None:
+        h = h * mm(xr, fc3)
+    y = mm(h.to(xk.dtype), fc2).reshape(rows, k, hidden)
+    acc = torch.zeros((rows, hidden), dtype=torch.float32, device=x.device)
+    for s_ in range(k):
+        acc = acc + weights[:, s_:s_ + 1].float() * y[:, s_]
+    return acc.reshape(x.shape).to(x.dtype)
+
+
+def qmoe_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
+    """Route com.microsoft::QMoE's decode path (rows·k ≤ experts) through the
+    w4a16 GEMM kernel, as lele_tpu/compiler/patterns.py:437-566 routes it
+    through `w4_matmul_pallas`.
+
+    The expert stacks are repacked once, on the host, at trace time, into
+    the kernel's plane layout ([E, K/2, N] int8, 0.5 byte a weight on the
+    card) with the per-column scales broadcast to [E, K/g, N],
+    g = `_qmoe_group(K)`. At run time the routing runs on the card and each
+    linear (fc1, fc3, fc2) is one launch of the kernel's expert-indexed
+    entry over all rows·k slots: no host sync, no expert copied. QMoE is
+    symmetric (zero point 8), so the recentring leaves no residual.
+    Activations go in as bf16; `qmoe_w4_f32` (in `patterns=[...]`) keeps
+    them f32, JAX's `LELE_NBITS_F32=1`.
+
+    Eligibility is JAX's: bits 4, no expert biases, static weight and scale
+    stacks, a dynamic float input, rows·k ≤ E (prefill keeps the emitter's
+    expert loop). Each hit counts twice in `pattern_hits`, by the pattern
+    and by the tracer's walk, as the JAX package counts it."""
+    node = nodes[i]
+    if node.op_type != "QMoE":
+        return None
+    from ..ops.registry import canon_domain
+
+    if canon_domain(node.domain) != "com.microsoft":
+        return None
+    if int(_node_attr(node, "expert_weight_bits", 4)) != 4:
+        return None
+    k = int(_node_attr(node, "k", 1))
+    ins = list(node.input) + [""] * (11 - len(node.input))
+    x = env.get(ins[0])
+    logits = env.get(ins[1])
+    if x is None or logits is None or _is_static(x):
+        return None
+    if ins[4] or ins[7] or ins[10]:
+        return None  # expert biases: the emitter
+    stacks = []
+    for wi, si in ((2, 3), (5, 6), (8, 9)):
+        if not ins[wi]:
+            stacks.append(None)
+            continue
+        w = env.get(ins[wi])
+        sc = env.get(ins[si]) if ins[si] else None
+        if w is None or sc is None or not (_is_static(w) and _is_static(sc)):
+            return None
+        stacks.append((np.asarray(w), np.asarray(sc)))
+    if stacks[0] is None or stacks[1] is None or not x.is_floating_point():
+        return None
+    E = stacks[0][0].shape[0]
+    rows = x.numel() // x.shape[-1]
+    if rows * k > E or any(st is not None and (st[0].dtype != np.uint8 or st[0].ndim != 3)
+                           for st in stacks):
+        return None
+
+    devs = []
+    for (wi, st) in zip((2, 5, 8), stacks):
+        if st is None:
+            devs.append(None)
+            continue
+        w, sc = st
+        K = w.shape[1]
+        g = _qmoe_group(K)
+        sc_full = np.broadcast_to(sc.astype(np.float32)[:, None, :], (E, K // g, sc.shape[-1]))
+        devs.append((state.to_device(scope + ins[wi] + "::qw4", _qmoe_repack(w)),
+                     state.to_device(scope + ins[wi] + "::qw4s", sc_full), g))
+    out = state.run(_qmoe_w4_step, x, logits, devs[0], devs[1], devs[2], k,
+                    bool(int(_node_attr(node, "use_sparse_mixer", 0))),
+                    bool(int(_node_attr(node, "normalize_routing_weights", 0))),
+                    _node_attr(node, "activation_type", "relu"), f32)
+    state.pattern_hits["qmoe_w4"] = state.pattern_hits.get("qmoe_w4", 0) + 1
+    return 1, {node.output[0]: out}
+
+
+def qmoe_w4_f32(tracer, state, nodes, i, env, scope):
+    """`qmoe_w4` with f32 activations: the kernel's exact w4a32 form (JAX's
+    `LELE_NBITS_F32=1`). Counted under "qmoe_w4"."""
+    return qmoe_w4(tracer, state, nodes, i, env, scope, f32=True)
+
+
+# the tracer's walk counts a hit under the pattern's __name__: the f32
+# variants count under their base pattern's name, as JAX counts its
+# LELE_NBITS_F32 route, so `pattern_hits` agree
+matmul_nbits_w4_f32.__name__ = "matmul_nbits_w4"
+qmoe_w4_f32.__name__ = "qmoe_w4"
+
 from .sanm_fuse import sanm_stack_dataflow  # noqa: E402  (uses the helpers above)
 
-DEFAULT_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4]
+DEFAULT_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4, qmoe_w4]
+# JAX's `LELE_NBITS_F32=1`: patterns=F32_NBITS_PATTERNS
+F32_NBITS_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4_f32,
+                            qmoe_w4_f32]

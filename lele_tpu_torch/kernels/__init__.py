@@ -6,6 +6,7 @@ at first use. Each wrapper keeps a launch count as an attribute
 `reset_launch_counts()` sets them to 0.
 """
 
+from .gru import gru_seq, gru_seq_plain  # noqa: F401
 from .lstm import lstm_seq, lstm_seq_plain  # noqa: F401
 from .quant_matmul import (  # noqa: F401
     dynamic_quantize_u8,
@@ -42,6 +43,7 @@ KERNEL_WRAPPERS = {
     "lstm_seq": lstm_seq,
     "w4_gemm": w4_matmul,
     "sanm_stack_w4": sanm_stack_w4,
+    "gru_seq": gru_seq,
 }
 
 

@@ -9,6 +9,10 @@ signature (speech, speech_lengths, language, textnorm), FSMN depthwise convs,
 prefix query frames and a dynamic-length position slice. At
 `L=50, d=512, h=4, ffn=2048, vocab=25055, int8_head=True` it is the
 SenseVoiceSmall-class flagship at full width, with random weights.
+
+`build_moe_layer_model` makes the Phi-3.5-MoE-form MoE layer (router MatMul
+into com.microsoft::QMoE, 4-bit experts packed by `quant4_cols`, a copy of
+the JAX package's) at the widths of the repo's MoE decode row.
 """
 
 from __future__ import annotations
@@ -240,3 +244,49 @@ def build_sanm_int8_graph(
     ]
     outputs = [ob.value_info("logits", 1, [1, "T4", vocab])]
     return nodes, inits, inputs, outputs
+
+
+# -- the Phi-3.5-MoE-form MoE layer (router MatMul + com.microsoft::QMoE) ------
+
+# the MoE layer of the repo's own Phi-3.5-MoE-form decode row (bench.py:391-440:
+# hidden qh·hd = 16·64, inter 1792, 8 experts, SparseMixer top-2, silu-gated
+# fc1/fc3, 4-bit experts); the published Phi-3.5-MoE's experts are 4096 × 6400
+MOE_DECODE = dict(hidden=1024, inter=1792, experts=8)
+
+
+def quant4_cols(w: np.ndarray):
+    """Float [E, in, out] → (packed u8 [E, in, out/2] low-nibble-first,
+    scales [E, out], dequantised twin): the QMoE expert-weight storage,
+    symmetric per output column with zero point 8 (a copy of
+    lele_tpu/onnx/synth.py:quant4_cols)."""
+    zp, qmax = 8, 7
+    sc = (np.abs(w).max(axis=1) / qmax + 1e-8).astype(np.float32)
+    q = np.clip(np.round(w / sc[:, None, :]) + zp, 0, 15).astype(np.uint8)
+    deq = ((q.astype(np.float32) - zp) * sc[:, None, :]).astype(np.float32)
+    packed = (q[..., 0::2] | (q[..., 1::2] << 4)).astype(np.uint8)
+    return packed, sc, deq
+
+
+def build_moe_layer_model(rows: int, hidden: int = 1024, inter: int = 1792,
+                          experts: int = 8, seed: int = 0) -> bytes:
+    """ONNX bytes of one Phi-3.5-MoE-form MoE layer: x [rows, hidden] → router
+    MatMul [hidden → experts] → com.microsoft::QMoE (k = 2, SparseMixer, silu,
+    fc3 gate, 4-bit experts, no biases) → y [rows, hidden]. Random weights
+    from `seed`, drawn as lele_tpu/onnx/synth.py:genai_decoder_params draws
+    the MoE layer's."""
+    rng = np.random.default_rng(seed)
+    E = experts
+    inits = [ob.tensor_from_array(
+        (rng.standard_normal((hidden, E)) / np.sqrt(hidden)).astype(np.float32), "router")]
+    for nm, shp in (("fc1", (E, hidden, inter)), ("fc2", (E, inter, hidden)),
+                    ("fc3", (E, hidden, inter))):
+        w = (rng.standard_normal(shp) / np.sqrt(shp[1])).astype(np.float32)
+        packed, sc, _ = quant4_cols(w)
+        inits += [ob.tensor_from_array(packed, f"{nm}_q"), ob.tensor_from_array(sc, f"{nm}_s")]
+    nodes = [ob.node("MatMul", ["x", "router"], ["logits"]),
+             ob.node("QMoE", ["x", "logits", "fc1_q", "fc1_s", "", "fc2_q", "fc2_s", "",
+                              "fc3_q", "fc3_s"], ["y"], domain="com.microsoft", k=2,
+                     activation_type="silu", use_sparse_mixer=1, expert_weight_bits=4)]
+    return ob.build_model_bytes(nodes, inputs=[ob.value_info("x", 1, [rows, hidden])],
+                                outputs=[ob.value_info("y", 1, [rows, hidden])],
+                                initializers=inits)

@@ -3,9 +3,10 @@ tracer folds a node, torch when the node runs on the device.
 
 Importing this package registers every emitter in ``registry.OPS``: the ones
 the SAN-M int8 graph uses, Identity, Div and ReduceSum, which its common
-export variants add, and Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
-LSTM, which the Silero-class graphs add, and com.microsoft::MatMulNBits,
-keyed on its domain (`contrib_ops`). Any other op type follows the JAX
+export variants add, Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
+LSTM, which the Silero-class graphs add, GRU and RNN, and the
+com.microsoft ops MatMulNBits (`contrib_ops`), MoE and QMoE (`moe_ops`),
+keyed on their domain. Any other op type follows the JAX
 dispatch rule: a warning and an empty value, or a raise in strict mode.
 """
 
@@ -13,6 +14,7 @@ from . import (  # noqa: F401
     activation_ops,
     contrib_ops,
     math_ops,
+    moe_ops,
     nn_ops,
     quant_ops,
     tensor_ops,

@@ -1,6 +1,6 @@
 """NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
 Conv for the 1-D case (the FSMN's depthwise memory conv, Silero's STFT and
-conv stack), and LSTM."""
+conv stack), and the recurrent LSTM, GRU and RNN."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.gru import gru_seq, gru_seq_plain
+from ..kernels.gru import kernel_takes as gru_kernel_takes
 from ..kernels.lstm import kernel_takes, lstm_seq, lstm_seq_plain
 from .registry import OpContext, op
 
@@ -82,9 +84,10 @@ def layer_norm(ctx: OpContext, x, scale, b=None):
 
 # -- recurrent ---------------------------------------------------------------
 
-# LSTM directions run, by route: "lstm_seq" (the kernel on a card, its plain
-# version on the CPU) or "loop" (the masked loop in plain PyTorch)
-RNN_ROUTES = {"lstm_seq": 0, "loop": 0}
+# LSTM and GRU directions run, by route: "lstm_seq" or "gru_seq" (the kernel
+# on a card, its plain version on the CPU) or "loop" (the masked loop in
+# plain PyTorch)
+RNN_ROUTES = {"lstm_seq": 0, "gru_seq": 0, "loop": 0}
 
 
 def _static(v) -> bool:
@@ -254,7 +257,7 @@ def lstm(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None, init_c=Non
 
     The input projection of all steps is one product; the recurrence of a
     direction without peepholes or ragged lengths is one launch of the
-    `lstm_seq` kernel (on the card, for 1 <= H <= 128, the kernel's stated
+    `lstm_seq` kernel (on the card, for 1 <= H <= 1024, the kernel's stated
     range; the plain version on the CPU), as the JAX emitter takes its Pallas
     kernel; the rest run the masked loop (`RNN_ROUTES` counts both). Static
     W, R and B are put in the kernel's gate order and layout once, at trace
@@ -286,3 +289,199 @@ def lstm_plain(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None, init
     hidden, lens, run = _lstm_args(ctx, x, r, seq_lens)
     return run(x, *_lstm_weights(w, r, b, hidden), lens, init_h, init_c, p,
                seq=lstm_seq_plain)
+
+
+# -- GRU and RNN ----------------------------------------------------------------
+
+
+def _gru_weights(w, r, b, hidden: int):
+    """ONNX W [D, 3H, I], R [D, 3H, H], B [D, 6H] (gates z, r, h, the kernel's
+    order too) → Wx [D, I, 3H], Rh [D, H, 3H] (R transposed), Wb [D, 3H]
+    (None without B) and Rb [D, 3H] (zeros without B, as the JAX emitter
+    hands the kernel, lele_tpu/ops/nn_ops.py:738-740). numpy for static
+    weights, so the tracer runs it once and hoists the results; torch for
+    device ones."""
+    def cols_last(a):
+        if isinstance(a, torch.Tensor):
+            return a.transpose(1, 2).contiguous()
+        return np.ascontiguousarray(np.asarray(a).transpose(0, 2, 1))
+
+    if b is None:
+        wb = None
+        shape = (np.shape(r)[0], 3 * hidden)
+        rb = (torch.zeros(shape, dtype=r.dtype, device=r.device) if isinstance(r, torch.Tensor)
+              else np.zeros(shape, np.asarray(r).dtype))
+    else:
+        wb, rb = b[:, :3 * hidden], b[:, 3 * hidden:]
+        if not isinstance(b, torch.Tensor):
+            wb, rb = np.ascontiguousarray(wb), np.ascontiguousarray(rb)
+    return cols_last(w), cols_last(r), wb, rb
+
+
+def _gru_loop(xproj, rh, rb, h0, hidden: int, lbr: bool, msk):
+    """The GRU recurrence as a loop in plain PyTorch, the JAX emitter's scan
+    (lele_tpu/ops/nn_ops.py:753-776), with a ragged mask: rows past a length
+    are zero and the state holds."""
+    H = hidden
+    h = h0
+    ys = []
+    for t in range(xproj.shape[0]):
+        xp = xproj[t]
+        gzr = xp[:, :2 * H] + h @ rh[:, :2 * H] + rb[:2 * H]
+        z = torch.sigmoid(gzr[:, :H])
+        rr = torch.sigmoid(gzr[:, H:])
+        if lbr:
+            g_h = xp[:, 2 * H:] + rr * (h @ rh[:, 2 * H:] + rb[2 * H:])
+        else:
+            g_h = xp[:, 2 * H:] + (rr * h) @ rh[:, 2 * H:] + rb[2 * H:]
+        h_new = (1 - z) * torch.tanh(g_h) + z * h
+        if msk is None:
+            h = h_new
+            ys.append(h_new)
+        else:
+            m = msk[t]
+            h = torch.where(m, h_new, h)
+            ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
+    return torch.stack(ys), h
+
+
+def _gru_run(x, wx, rh, wb, rb, lens, init_h, *, hidden: int, direction: str, layout: int,
+             lbr: bool, seq):
+    """ONNX GRU on prepared weights (`_gru_weights`); `seq` is `gru_seq` or
+    its plain version. A direction without ragged lengths takes `seq` where
+    the kernel's range has H (on the CPU always); a ragged one the masked
+    loop. Reverse directions are flipped around it."""
+    wx, rh, wb, rb, lens, init_h = (_on(x, v) for v in (wx, rh, wb, rb, lens, init_h))
+    if layout == 1:  # [B, S, I] → [S, B, I]; states [B, D, H] → [D, B, H]
+        x = x.transpose(0, 1)
+        init_h = None if init_h is None else init_h.transpose(0, 1)
+    S, B = x.shape[0], x.shape[1]
+    msk = _seq_mask(lens, S, x.device) if lens is not None else None
+    outs, h_outs = [], []
+    for d, rev in enumerate(_directions(direction)):
+        xs = x
+        if rev:
+            xs = _seq_reverse(x, lens) if lens is not None else x.flip(0)
+        xproj = xs @ wx[d].to(x.dtype)  # the input projection for all steps: [S, B, 3H]
+        if wb is not None:
+            xproj = xproj + wb[d].to(x.dtype)
+        h0 = (torch.zeros((B, hidden), dtype=x.dtype, device=x.device) if init_h is None
+              else init_h[d])
+        if lens is None and (not x.is_cuda or gru_kernel_takes(hidden)):
+            RNN_ROUTES["gru_seq"] += 1
+            hs, h_f = seq(xproj, rh[d], rb[d], h0, lbr)
+        else:
+            RNN_ROUTES["loop"] += 1
+            hs, h_f = _gru_loop(xproj, rh[d].to(x.dtype), rb[d].to(x.dtype), h0, hidden, lbr,
+                                msk)
+        if rev:
+            hs = _seq_reverse(hs, lens) if lens is not None else hs.flip(0)
+        outs.append(hs)
+        h_outs.append(h_f)
+    y = torch.stack(outs, dim=1)  # [S, D, B, H]
+    y_h = torch.stack(h_outs)
+    if layout == 1:
+        return y.permute(2, 0, 1, 3), y_h.transpose(0, 1)
+    return y, y_h
+
+
+def _gru_args(ctx: OpContext, x, r, seq_lens):
+    hidden = ctx.attr("hidden_size", np.shape(r)[-1])
+    layout = ctx.attr("layout", 0)
+    S = x.shape[1] if layout == 1 else x.shape[0]
+    run = functools.partial(_gru_run, hidden=hidden, layout=layout,
+                            direction=ctx.attr("direction", "forward"),
+                            lbr=bool(ctx.attr("linear_before_reset", 0)))
+    return hidden, _ragged_lens(seq_lens, S), run
+
+
+@op("GRU", foldable=False, static_args=(1, 2, 3, 4), records=True)
+def gru(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None):
+    """ONNX GRU (gates z, r, h): forward, reverse and bidirectional, layout 0
+    and 1, an initial state, bias present or absent, both
+    `linear_before_reset` forms, ragged sequence_lens (rows past a length are
+    zero; Y_h holds the last valid step). As the JAX emitter, it ignores the
+    `activations` and `clip` attributes (lele_tpu/ops/nn_ops.py:700-789).
+
+    The input projection of all steps is one product; the recurrence of a
+    direction without ragged lengths is one launch of the `gru_seq` kernel
+    (on the card, where its range has H; the plain version on the CPU), as
+    the JAX emitter takes its Pallas kernel; ragged directions run the masked
+    loop (`RNN_ROUTES` counts both). Static W, R and B are laid out once, at
+    trace time (R transposed to [H, 3H]), and hoisted as such; only the
+    recurrence is recorded."""
+    hidden, lens, run = _gru_args(ctx, x, r, seq_lens)
+    run = functools.partial(run, seq=gru_seq)
+    st = ctx.state
+    if st is None:
+        return run(x, *_gru_weights(w, r, b, hidden), lens, init_h)
+
+    def name(k: int) -> str:
+        return ctx.scope + ctx.node.input[k]
+
+    prepared = st.run(_gru_weights, w, r, b, hidden)
+    keys = ((1, "wx"), (2, "rh"), (3, "wb"), (2 if b is None else 3, "rb"))
+    wx, rh, wb, rb = (st.to_device(f"{name(k)}#gru_{tag}", v) if _static(v) else v
+                      for (k, tag), v in zip(keys, prepared))
+    if _static(lens):
+        lens = st.to_device(name(4), lens)
+    return st.run(run, x, wx, rh, wb, rb, lens, init_h)
+
+
+def gru_plain(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None):
+    """The GRU emitter with `gru_seq_plain` in place of the kernel, its
+    weights prepared at every call: an override (`overrides={"GRU":
+    gru_plain}`) that compiles a graph's plain oracle for the card."""
+    hidden, lens, run = _gru_args(ctx, x, r, seq_lens)
+    return run(x, *_gru_weights(w, r, b, hidden), lens, init_h, seq=gru_seq_plain)
+
+
+_RNN_ACTS = {"Tanh": torch.tanh, "Relu": torch.relu, "Sigmoid": torch.sigmoid}
+
+
+@op("RNN", foldable=False, static_args=(4,))
+def rnn_op(ctx: OpContext, x, w, r, b=None, seq_lens=None, init_h=None):
+    """ONNX vanilla (Elman) RNN, the JAX emitter's loop (lele_tpu/ops/
+    nn_ops.py:642-697): forward, reverse and bidirectional, layout 0 and 1,
+    per-direction `activations` (Tanh, Relu, Sigmoid), ragged sequence_lens.
+    It has no kernel."""
+    hidden = ctx.attr("hidden_size", np.shape(r)[-1])
+    layout = ctx.attr("layout", 0)
+    acts = ctx.attr("activations", None) or ["Tanh"] * 2
+    if layout == 1:
+        x = x.transpose(0, 1)
+        init_h = None if init_h is None else init_h.transpose(0, 1)
+    S, B = x.shape[0], x.shape[1]
+    lens = _on(x, _ragged_lens(seq_lens, S))
+    msk = _seq_mask(lens, S, x.device) if lens is not None else None
+    outs, h_outs = [], []
+    for d, rev in enumerate(_directions(ctx.attr("direction", "forward"))):
+        act = _RNN_ACTS[acts[d] if d < len(acts) else acts[0]]
+        wd, rd = w[d].to(x.dtype), r[d].to(x.dtype)  # [H, I], [H, H]
+        h = (torch.zeros((B, hidden), dtype=x.dtype, device=x.device) if init_h is None
+             else init_h[d])
+        xs = x
+        if rev:
+            xs = _seq_reverse(x, lens) if lens is not None else x.flip(0)
+        xproj = xs @ wd.T
+        if b is not None:
+            xproj = xproj + (b[d, :hidden] + b[d, hidden:]).to(x.dtype)
+        ys = []
+        for t in range(S):
+            h_new = act(xproj[t] + h @ rd.T)
+            if msk is None:
+                h = h_new
+                ys.append(h_new)
+            else:
+                h = torch.where(msk[t], h_new, h)
+                ys.append(torch.where(msk[t], h_new, torch.zeros_like(h_new)))
+        hs = torch.stack(ys)
+        if rev:
+            hs = _seq_reverse(hs, lens) if lens is not None else hs.flip(0)
+        outs.append(hs)
+        h_outs.append(h)
+    y = torch.stack(outs, dim=1)
+    y_h = torch.stack(h_outs)
+    if layout == 1:
+        return y.permute(2, 0, 1, 3), y_h.transpose(0, 1)
+    return y, y_h

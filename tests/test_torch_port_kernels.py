@@ -150,9 +150,19 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
         K.sanm_stack_dql_plain(x, bias, vmask, dql, cfg.n_heads, cfg.fsmn_kernel, 5),
         rtol=0, atol=0)
     packed, scales = K.quantize_weight_int4(torch.randn((D, 3 * D)), 128)
+    stacks, stack_scales = packed[None].repeat(3, 1, 1), scales[None].repeat(3, 1, 1)
+    idx = torch.tensor([2, 0, 1, 1, 0, 2, 2, 1, 0], dtype=torch.int32)
     for xx in (x, x.to(torch.bfloat16)):
         torch.testing.assert_close(K.w4_matmul(xx, packed, scales, 128),
                                    K.w4_matmul_plain(xx, packed, scales, 128), rtol=0, atol=0)
+        torch.testing.assert_close(K.w4_matmul(xx, stacks, stack_scales, 128, idx),
+                                   K.w4_matmul_plain(xx, stacks, stack_scales, 128, idx),
+                                   rtol=0, atol=0)
+    g_args = (torch.randn((7, 2, 3 * 16)), torch.randn((16, 3 * 16)) * 0.2,
+              torch.randn((3 * 16,)), torch.zeros((2, 16)))
+    for lbr in (True, False):
+        for g, w in zip(K.gru_seq(*g_args, lbr), K.gru_seq_plain(*g_args, lbr)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     cfg4 = JConfig(n_layers=2, d_model=256, ffn_dim=512, vocab_size=32, n_heads=2,
                    weight_int4=True)
     st4 = from_numpy_tree(_np_tree(jstack(jprepare4(jinit(jax.random.PRNGKey(6), cfg4)))))
@@ -163,7 +173,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
                                       "dq_gemm", "sanm_stack_dql", "lstm_seq",
-                                      "w4_gemm", "sanm_stack_w4"}
+                                      "w4_gemm", "sanm_stack_w4", "gru_seq"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -176,6 +186,12 @@ def test_kernel_entry_refuses_a_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         w4.w4_matmul_kernel(torch.zeros((4, 32)), torch.zeros((16, 3), dtype=torch.int8),
                             torch.ones((2, 3)), 16)
+    with pytest.raises(ValueError, match="CUDA"):  # the expert-indexed entry
+        w4.w4_matmul_kernel(torch.zeros((4, 32)), torch.zeros((2, 16, 3), dtype=torch.int8),
+                            torch.ones((2, 2, 3)), 16, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.gru.gru_seq_kernel(torch.zeros((3, 1, 12)), torch.zeros((4, 12)), torch.zeros(12),
+                             torch.zeros((1, 4)))
     with pytest.raises(ValueError, match="CUDA"):
         K.sanm_block._launch_layers(torch.zeros((4, 256)), torch.ones(4), {}, 2, 11, 2,
                                     "w4", 128)
@@ -189,7 +205,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
         "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq', 'w4_gemm',\n"
-        "    'sanm_stack_w4')}\n"
+        "    'sanm_stack_w4', 'gru_seq')}\n"
+        "assert all(sys.modules['lele_tpu_torch.kernels.' + m]._fn is None\n"
+        "           for m in ('gru', 'lstm', 'w4_matmul'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

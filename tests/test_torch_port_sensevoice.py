@@ -178,7 +178,8 @@ def test_port_runs_without_jax():
     """The card machine has no JAX: the port must import and run without it,
     and without the JAX package. Every slice runs: the native engine, the
     compiled graph behind SenseVoiceOnnx, Silero VAD native and compiled
-    at both sample rates, the w4a16 model, and a MatMulNBits graph."""
+    at both sample rates, the w4a16 model, a MatMulNBits graph, a GRU graph
+    and a QMoE decode layer."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -231,6 +232,25 @@ def test_port_runs_without_jax():
         "cm = compile_model(bs, device='cpu', strict=True)\n"
         "assert cm.stats['pattern_hits']['matmul_nbits_w4'] == 2\n"
         "assert np.isfinite(cm.run_np(a=a)[0]).all()\n"
+        "from lele_tpu_torch.ops import nn_ops\n"
+        "n = ob.node('GRU', ['x', 'w', 'r', 'b'], ['y', 'yh'], hidden_size=8,\n"
+        "            direction='bidirectional', linear_before_reset=1)\n"
+        "bs = ob.build_model_bytes([n], [ob.value_info('x', 1, [5, 2, 4])],\n"
+        "    [ob.value_info('y', 1, []), ob.value_info('yh', 1, [])], [\n"
+        "    ob.tensor_from_array(rng.standard_normal((2, 24, 4)).astype(np.float32), 'w'),\n"
+        "    ob.tensor_from_array(rng.standard_normal((2, 24, 8)).astype(np.float32), 'r'),\n"
+        "    ob.tensor_from_array(rng.standard_normal((2, 48)).astype(np.float32), 'b')])\n"
+        "cm = compile_model(bs, device='cpu', strict=True)\n"
+        "before = nn_ops.RNN_ROUTES['gru_seq']\n"
+        "y, yh = cm.run_np(x=rng.standard_normal((5, 2, 4)).astype(np.float32))\n"
+        "assert y.shape == (5, 2, 2, 8) and np.isfinite(y).all()\n"
+        "assert nn_ops.RNN_ROUTES['gru_seq'] == before + 2\n"
+        "from lele_tpu_torch.onnx.synth import build_moe_layer_model\n"
+        "cm = compile_model(build_moe_layer_model(2, hidden=32, inter=48), device='cpu',\n"
+        "                   strict=True)\n"
+        "assert cm.stats['pattern_hits']['qmoe_w4'] == 2\n"
+        "y = cm.run_np(x=rng.standard_normal((2, 32)).astype(np.float32))[0]\n"
+        "assert y.shape == (2, 32) and np.isfinite(y).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

@@ -192,8 +192,8 @@ def test_lstm_compiled_matches_jax_and_hoists_prepared_weights(case):
         1 if attrs["layout"] else 0])
     kernel_route = kernel_route and len(inputs) < 8
     moved = {k: nn_ops.RNN_ROUTES[k] - routes[k] for k in routes}
-    assert moved == ({"lstm_seq": n_dir, "loop": 0} if kernel_route
-                     else {"lstm_seq": 0, "loop": n_dir})
+    assert moved == ({"lstm_seq": n_dir, "gru_seq": 0, "loop": 0} if kernel_route
+                     else {"lstm_seq": 0, "gru_seq": 0, "loop": n_dir})
 
 
 @pytest.mark.parametrize("case", ["forward", "peepholes", "ragged_reverse", "bidirectional"])
