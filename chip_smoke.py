@@ -385,12 +385,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
         args = lstm_inputs(S, 1, 128, dev, gen)
         a = time_ms(lambda: K.lstm_seq(*args), runs=10)
         b = time_ms(lambda: K.lstm_seq_plain(*args), runs=3, warm=1)
-        lstm = torch.nn.LSTM(512, 128).to(dev)
-        with torch.no_grad():  # cuDNN computing the same recurrence on xproj
-            lstm.weight_ih_l0.copy_(torch.eye(512, device=dev))
-            lstm.weight_hh_l0.copy_(args[1].t())
-            lstm.bias_ih_l0.zero_()
-            lstm.bias_hh_l0.zero_()
+        lstm = cudnn_lstm(args[1], dev)
         hc = (args[2][None], args[3][None])
         with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             y, _ = lstm(args[0], hc)

@@ -318,8 +318,9 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
   float part[DEQ ? 1 : 2][MI][NI][4];
   float ps[DEQ ? 1 : 2][NI][2];
   // each plane's next k-step: its place in its group and the group's scale
-  // row (the high plane starts at logical k = K/2, maybe inside a group)
-  int gpos[2] = {0, half % group}, grow[2] = {0, half / group};
+  // row (the high plane starts at logical k = K/2, a group boundary: this
+  // form takes only groups that divide K/2)
+  int gpos[2] = {0, 0}, grow[2] = {0, half / group};
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -340,7 +341,7 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
         const int kp = k0 + kk;
         if (kp >= half) break;  // the same for the whole block
         if constexpr (!DEQ) {
-          if (kp == 0 || gpos[p] == 0) {  // a group opens
+          if (gpos[p] == 0) {  // a group opens
             const float* srow = sc + (size_t)grow[p] * N;
 #pragma unroll
             for (int ni = 0; ni < NI; ++ni) {
@@ -395,7 +396,7 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
         if constexpr (!DEQ) {
           gpos[p] += KSTEP;
           if (gpos[p] == group) gpos[p] = 0, ++grow[p];
-          if (kp + KSTEP == half || gpos[p] == 0) {  // the group closes
+          if (gpos[p] == 0) {  // the group closes
 #pragma unroll
             for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
