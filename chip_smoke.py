@@ -72,7 +72,21 @@
    kernels 6 and 9 at H = 256; kernel 7 at the decode shapes (the MoE
    layer's and the published Phi-3.5-MoE expert widths) against
    torch.matmul; the QMoE node and the GRU graph per request, both ways;
-19. prints one JSON line of kernels, the card, and last
+19. holds kernel 10 (the flow estimator's 8 attention blocks) against its
+   plain version at examples/supertonic/tts.json's widths (D 256, 4 heads,
+   F 1,024) at (T, Tk) = (1,024, 320), (512, 160) and a ragged (37, 19),
+   with masked tails;
+20. drives Supertonic TTS at full width (tts.json with the fused
+   estimator, random weights from a seed) behind TtsEngine, with the
+   Supertonic 2 and 3 settings and voices, on three texts: kernel 10 five
+   times a chunk and no other kernel; each WAV against the unfused f32
+   route;
+21. times kernel 10, its plain version, its bound and a composite of bf16
+   library calls; the synth core at 512 and 1,024 latent frames, fused and
+   unfused, with RTF, and profiles both at 1,024; TtsEngine per request;
+22. drives SupertonicOnnx on the four fixture graphs: each against
+   supertonic_io.npz, the device loop against the host loop, no kernel;
+23. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -148,6 +162,30 @@ GRU_SHAPES = ((1875, 1, 128), (18750, 1, 128), (1875, 4, 128), (1023, 1, 256))
 QMOE_F32_REL = 5e-6
 MOE_ROWS = (1, 4, 16)  # rows·k <= 8 experts: decode at 1 and 4; prefill at 16
 PHI_MOE = (4096, 6400)  # Phi-3.5-MoE's published expert widths (hidden, inter)
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+# kernel 10 vs its plain version: the same bf16-rounded operands and f32
+# sums in another order, so an activation may round to the neighbouring
+# bf16 value and carry it through the later blocks: one bf16 step (2^-8) of
+# the largest magnitude, the bound tests/test_torch_port_est_block.py holds
+# the plain version to against the TPU kernel
+EST_TOL = 2.0 ** -8
+# (T, Tk, valid T, valid Tk): the largest latent and token buckets, the
+# bucket the timings also use at 5 s, and a ragged shape with masked tails
+EST_SHAPES = ((1024, 320, 1024, 320), (512, 160, 480, 150), (37, 19, 32, 16))
+# fused (bf16 products) vs unfused (f32) TTS waveforms: test_est_block.py's
+# correlation gate, and max|d| <= 1e-2 max|ref| (the first call read
+# <= 1.7e-3 over six requests)
+TTS_CORR = 0.999
+TTS_REL = 1e-2
+TTS_TEXTS = (
+    "Hello, this is the port's speech synthesizer.",
+    "The quick brown fox jumps over the lazy dog, and then it runs away quickly!",
+    "Speech synthesis turns written text into sound. " * 4
+    + "Long passages are cut at sentence boundaries, so that every character is "
+      "spoken. " * 2,
+)
+SYNTH_FRAMES = ((512, 160), (1024, 320))  # latent frames, tokens: 5.5 s and 10.9 s
 
 
 class Checks:
@@ -1008,6 +1046,245 @@ def dev_time(e):  # the attribute's name moved between torch versions
     return v if v is not None else e.self_cuda_time_total
 
 
+def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> None:
+    """Trace n calls of fn() with torch.profiler: the device's busy share of
+    the host span and the device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
+    dev_us = sum(dev_time(e) for e in rows)
+    print(f"  profile, {n} x {label}: device {dev_us / n:.1f} us a call over "
+          f"{span_us / n:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
+    for e in sorted(rows, key=lambda e: -dev_time(e))[:top]:
+        print(f"    {dev_time(e) / n:10.1f} us  x{e.count // n:<5d} {e.key[:90]}")
+
+
+def est_bound(T: int, Tk: int, D: int, F: int, n_blocks: int) -> tuple[float, str]:
+    """Kernel 10: x, text and the masks read once, the bf16 weights and f32
+    norms and biases of every block read once, y written once; the bf16
+    products of the function (only each block's own attention branch, every
+    key, as the function has no data-dependent work)."""
+    n_bytes = 4 * (2 * T * D + Tk * D + T + Tk) + n_blocks * (
+        2 * (4 * D * D + 2 * D * F) + 4 * (8 * D + F))
+    ops = 0
+    for i in range(n_blocks):
+        tk = T if i % 2 == 0 else Tk
+        ops += 2 * T * D * D * 2 + 2 * tk * D * 2 * D + 4 * T * tk * D + 4 * T * D * F
+    return bound(n_bytes, {"bf16": ops})
+
+
+def est_library_blocks(stacked):
+    """Per-block views of `stacked` with every leaf cast to bf16: the operands
+    of `est_blocks_library`."""
+    import torch
+
+    n = stacked["q"]["w"].shape[0]
+    return [{k: {leaf: v[i].to(torch.bfloat16) for leaf, v in sub.items()}
+             for k, sub in stacked.items()} for i in range(n)]
+
+
+def est_blocks_library(x, text, lm, tm, blocks, H):
+    """Kernel 10's function composed of library calls in bf16 (torch.addmm,
+    F.layer_norm, F.scaled_dot_product_attention with the additive mask,
+    F.gelu tanh): the yardstick a later kernel must beat. The port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    T, D = x.shape
+    hd = D // H
+    x, text = x.to(torch.bfloat16), text.to(torch.bfloat16)
+    masks = [((m - 1) * 1e9).to(torch.bfloat16).view(1, 1, 1, -1) for m in (lm, tm)]
+
+    def heads(a):
+        return a.view(-1, H, hd).transpose(0, 1)[None]
+
+    for i, p in enumerate(blocks):
+        h = F.layer_norm(x, (D,), p["norm1"]["g"], p["norm1"]["b"], 1e-12)
+        src = h if i % 2 == 0 else F.layer_norm(text, (D,), p["norm1"]["g"], p["norm1"]["b"],
+                                                1e-12)
+        q = torch.addmm(p["q"]["b"], h, p["q"]["w"])
+        k, v = torch.addmm(p["kv"]["b"], src, p["kv"]["w"]).split(D, dim=-1)
+        ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                             attn_mask=masks[i % 2])
+        x = x + torch.addmm(p["out"]["b"], ctx[0].transpose(0, 1).reshape(T, D), p["out"]["w"])
+        h2 = F.layer_norm(x, (D,), p["norm2"]["g"], p["norm2"]["b"], 1e-12)
+        f = F.gelu(torch.addmm(p["ffn1"]["b"], h2, p["ffn1"]["w"]), approximate="tanh")
+        x = x + torch.addmm(p["ffn2"]["b"], f, p["ffn2"]["w"])
+    return x
+
+
+def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) -> dict:
+    """Phases 19-22: kernel 10 against its plain version at full width,
+    Supertonic TTS behind TtsEngine (the 2 and 3 settings) fused and unfused,
+    the timings, and SupertonicOnnx on the fixtures. Returns the launch
+    counts of the TTS main path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.models import SupertonicConfig, SupertonicOnnx, SupertonicTts
+    from lele_tpu_torch.models.supertonic import init_vector_estimator
+    from lele_tpu_torch.params import tree_map
+    from lele_tpu_torch.serving import TtsEngine
+    from lele_tpu_torch.utils.wav import decode_wav_bytes
+
+    cfg = dataclasses.replace(SupertonicConfig.from_json(EXAMPLES / "supertonic" / "tts.json"),
+                              fused_estimator=True)
+    D, H, F = cfg.d_text, cfg.n_heads, cfg.d_text * cfg.ffn_mult
+    n_blocks = 2 * cfg.n_est_layers
+
+    print(f"== 19. kernel 10 (est_block) vs plain: D {D}, {H} heads, F {F}, {n_blocks} blocks")
+    stacked = init_vector_estimator(gen, cfg)["blocks_stacked"]
+    for name, sub in stacked.items():  # norms and biases away from 1 and 0
+        for leaf, v in sub.items():
+            if v.dtype == torch.float32:
+                v.add_(0.1 * torch.randn(v.shape, generator=gen, device=dev))
+    est_in = {}
+    for T, Tk, tv, tkv in EST_SHAPES:
+        x = torch.randn((T, D), generator=gen, device=dev)
+        text = torch.randn((Tk, D), generator=gen, device=dev)
+        lm, tm = torch.zeros((T,), device=dev), torch.zeros((Tk,), device=dev)
+        lm[:tv], tm[:tkv] = 1.0, 1.0
+        est_in[T] = (x, text, lm, tm)
+        got = K.estimator_blocks(x, text, lm, tm, stacked, H)
+        ref = K.estimator_blocks_plain(x, text, lm, tm, stacked, H)
+        torch.cuda.synchronize()
+        d, scale, mean = compare(got, ref)
+        err["est_block"] = max(err["est_block"], d)
+        corr = torch.corrcoef(torch.stack([got.ravel(), ref.ravel()]))[0, 1].item()
+        checks.require(bool(torch.isfinite(got).all()) and d <= EST_TOL * scale,
+                       f"est_block T={T} Tk={Tk} (valid {tv}, {tkv}): max|d| {d:.3e} <= "
+                       f"2^-8 * {scale:.3e}; mean|d| {mean:.2e} std, corr {corr:.7f}")
+
+    print("== 20. main path: TtsEngine.synthesize (Supertonic 2 and 3 settings), fused")
+    tts2 = SupertonicTts(cfg, device=dev)
+    tts2.init(SEED)
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()),
+             {k: {kk: vv for kk, vv in sub.items() if kk != "blocks_stacked"}
+              for k, sub in tts2.params.items()})
+    n_params = sum(sizes)
+    print(f"  model: {n_params / 1e6:.2f} M f32 parameters, {cfg.n_text_layers} text layers, "
+          f"{cfg.n_est_layers} estimator layers, {cfg.flow_steps} flow steps")
+    cfg3 = dataclasses.replace(cfg, apply_latent_denorm=False, speed=1.05)
+    tts3 = SupertonicTts(cfg3, params=tts2.params, device=dev)
+    engines = {"v2": TtsEngine(tts=tts2), "v3": TtsEngine(tts=tts3)}
+    engines["v2"].load_style(str(EXAMPLES / "supertonic" / "voice_styles" / "F1.json"), "F1")
+    engines["v3"].load_style(str(EXAMPLES / "supertonic3" / "voice_styles" / "M2.json"), "M2")
+    from lele_tpu_torch.models import prepare_chunks
+
+    n_chunks = len(engines) * sum(len(prepare_chunks(t)) for t in TTS_TEXTS)
+    K.reset_launch_counts()
+    wavs = {(v, i): eng.synthesize(t, seed=i)
+            for v, eng in engines.items() for i, t in enumerate(TTS_TEXTS)}
+    torch.cuda.synchronize()
+    tts_launches = K.launch_counts()
+    print(f"  launch counts over {len(wavs)} requests ({n_chunks} chunks): {tts_launches}")
+    checks.require(tts_launches["est_block"] == cfg.flow_steps * n_chunks
+                   and sum(tts_launches.values()) == tts_launches["est_block"],
+                   f"est_block {cfg.flow_steps} times a chunk, no other kernel")
+    for (v, i), data in wavs.items():
+        eng = engines[v]
+        pcm, sr = decode_wav_bytes(data)
+        un = dataclasses.replace(eng.tts, cfg=dataclasses.replace(eng.tts.cfg,
+                                                                  fused_estimator=False))
+        fused = eng.tts.synthesize(TTS_TEXTS[i], next(iter(eng.styles.values())), seed=i)
+        ref = un.synthesize(TTS_TEXTS[i], next(iter(eng.styles.values())), seed=i)
+        corr = float(np.corrcoef(fused, ref)[0, 1]) if len(ref) == len(fused) else 0.0
+        rel = float(np.abs(fused - ref).max() / np.abs(ref).max()) if corr else float("inf")
+        same = len(pcm) == len(fused) and np.abs(pcm - fused).max() <= 1.0 / 32767 + 1e-6
+        checks.require(sr == cfg.sample_rate and same and len(pcm) % cfg.hop == 0
+                       and np.isfinite(pcm).all() and corr > TTS_CORR and rel <= TTS_REL,
+                       f"{v} request {i}: {len(pcm)} samples at {sr} Hz "
+                       f"({len(pcm) / sr:.2f} s); fused vs unfused corr {corr:.6f} > "
+                       f"{TTS_CORR}, max|d|/max|ref| {rel:.3e} <= {TTS_REL:g}")
+
+    print(f"== 21. TTS timings (CUDA events and host clock, median of warm runs; {card})")
+    lib_blocks = est_library_blocks(stacked)
+    for T, Tk, _, _ in EST_SHAPES[:2]:
+        args = est_in[T]
+        a = time_ms(lambda: K.estimator_blocks(*args, stacked, H))
+        b = time_ms(lambda: K.estimator_blocks_plain(*args, stacked, H), runs=5)
+        c = time_ms(lambda: est_blocks_library(*args, lib_blocks, H))
+        lib_d = (est_blocks_library(*args, lib_blocks, H).float()
+                 - K.estimator_blocks(*args, stacked, H)).abs().max().item()
+        b_ms, b_by = est_bound(T, Tk, D, F, n_blocks)
+        print(f"  est_block T={T} Tk={Tk}: kernel {a:.4f} ms, plain {b:.4f} ms, library "
+              f"composite (bf16 addmm/layer_norm/SDPA/gelu) {c:.4f} ms (max|d| vs kernel "
+              f"{lib_d:.2e}); bound {b_ms * 1e3:.2f} us by {b_by}, kernel at "
+              f"{100 * b_ms / a:.2f}% of it  ({card})")
+        if T == SYNTH_FRAMES[-1][0]:
+            ms["est_block"], plain_ms["est_block"], library_ms["est_block"] = a, b, c
+            bounds["est_block"] = (b_ms, b_by)
+    un2 = dataclasses.replace(tts2, cfg=dataclasses.replace(cfg, fused_estimator=False))
+    style = engines["v2"].styles["F1"]
+    st_ttl = torch.as_tensor(style["ttl"], device=dev)[None]
+    for T, Tk in SYNTH_FRAMES:
+        ids = torch.randint(0, cfg.vocab_size, (1, Tk), generator=gen, device=dev)
+        tmask = torch.ones((1, Tk), device=dev)
+        lmask = torch.ones((1, T), device=dev)
+        audio_ms = T * cfg.hop / cfg.sample_rate * 1e3
+        for name, m in (("fused", tts2), ("unfused", un2)):
+            t_h = host_ms(lambda: (m.synth_core(ids, tmask, st_ttl, lmask),
+                                   torch.cuda.synchronize()))
+            t_d = time_ms(lambda: m.synth_core(ids, tmask, st_ttl, lmask), runs=5)
+            print(f"  synth core {name} T={T} ({audio_ms / 1e3:.2f} s of audio) Tk={Tk}: "
+                  f"{t_h:.3f} ms host clock (RTF {t_h / audio_ms:.2e}), {t_d:.3f} ms CUDA "
+                  f"events  ({card})")
+        if T == SYNTH_FRAMES[-1][0]:
+            profile_top(lambda: tts2.synth_core(ids, tmask, st_ttl, lmask),
+                        f"fused synth core T={T}", card, n=2, top=15)
+            profile_top(lambda: un2.synth_core(ids, tmask, st_ttl, lmask),
+                        f"unfused synth core T={T}", card, n=2, top=8)
+    for i, text in enumerate(TTS_TEXTS):
+        n = len(decode_wav_bytes(wavs[("v2", i)])[0])
+        t_h = host_ms(lambda: engines["v2"].synthesize(text, seed=i))
+        print(f"  TtsEngine.synthesize request {i} ({len(text)} chars, {n / cfg.sample_rate:.2f} "
+              f"s of audio): {t_h:.3f} ms host clock (RTF "
+              f"{t_h / (n / cfg.sample_rate * 1e3):.2e})  ({card})")
+
+    print("== 22. SupertonicOnnx on fixtures/supertonic_{dp,te,ve,voc}.onnx")
+    fio = dict(np.load(FIXTURES / "supertonic_io.npz"))
+    t0 = time.perf_counter()
+    st = SupertonicOnnx(FIXTURES, device=dev)
+    print(f"  four compiles in {time.perf_counter() - t0:.2f} s")
+    K.reset_launch_counts()
+    outs = {"durations": st.dp.run_np(fio["ids"], fio["style"], fio["mask"])[0],
+            "te_out": st.te.run_np(fio["ids"], fio["style"], fio["mask"])[0],
+            "v": st.ve.run_np(fio["xt"], fio["text_emb"], fio["style"], fio["t_step"])[0],
+            "wave": st.voc.run_np(fio["xt"])[0]}
+    n = fio["xt"].shape[-1]
+    args = (fio["ids"], fio["style"], fio["mask"])
+    dur, wave_d = st.synthesize_latent(*args, latent_len=n, seed=1)
+    dur_h, wave_h = st.synthesize_latent_hostloop(*args, latent_len=n, seed=1)
+    checks.require(sum(K.launch_counts().values()) == 0, "SupertonicOnnx launches no kernel")
+    for key, got in outs.items():
+        d = float(np.abs(got - fio[key]).max())
+        checks.require(got.shape == fio[key].shape and d <= 2e-4,
+                       f"compiled {key} {got.shape} vs supertonic_io.npz: max|d| {d:.2e} <= 2e-4")
+    d = float(np.abs(wave_d - wave_h).max())
+    checks.require(wave_d.shape == fio["wave"].shape and np.isfinite(wave_d).all() and d <= 1e-5
+                   and np.abs(dur - dur_h).max() <= 1e-6,
+                   f"synthesize_latent {wave_d.shape} vs the host loop: max|d| {d:.2e} <= 1e-5")
+    t_d = host_ms(lambda: st.synthesize_latent(*args, latent_len=n, seed=1))
+    t_hl = host_ms(lambda: st.synthesize_latent_hostloop(*args, latent_len=n, seed=1))
+    print(f"  synthesize_latent (fixture size, {n} latent frames): {t_d:.3f} ms host clock; "
+          f"host loop {t_hl:.3f} ms  ({card})")
+    return tts_launches
+
+
 def main() -> int:
     import torch
 
@@ -1375,29 +1652,15 @@ def main() -> int:
           f"{req_ms / 1e4:.3e}), per-op {req_ref_ms:.3f} ms (RTF {req_ref_ms / 1e4:.3e}); "
           f"the fused graph alone {graph_ms:.3f} ms by CUDA events  ({card})")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    cm10(**inputs10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            cm10(**inputs10)
-        torch.cuda.synchronize()
-        span_us = (time.perf_counter() - t0) * 1e6
-
-    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
-    dev_us = sum(dev_time(e) for e in rows)
-    print(f"  profile, 3 compiled 10 s forwards: device {dev_us / 3:.1f} us a forward "
-          f"over {span_us / 3:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
-    for e in sorted(rows, key=lambda e: -dev_time(e))[:12]:
-        print(f"    {dev_time(e) / 3:10.1f} us  x{e.count // 3:<5d} {e.key[:90]}")
+    profile_top(lambda: cm10(**inputs10), "compiled 10 s forward", card)
 
     vad_launches = silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
                                  bounds)
     w4_launches = w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                             fwd, model.params)
     s5_launches = slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
+    tts_launches = supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
+                                     bounds)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -1433,6 +1696,9 @@ def main() -> int:
                           "rtol 2e-2, atol 2e-2*max|ref| on valid rows", w4_launches),
         "gru_seq": ("lele_tpu_torch/csrc/gru_seq.cu", "lele_tpu/kernels/gru.py:18",
                     f"hs, h_S max|d| <= {GRU_TOL:g}", s5_launches["gru"]),
+        "est_block": ("lele_tpu_torch/csrc/est_block.cu", "lele_tpu/kernels/est_block.py:121",
+                      f"max|d| <= 2^-8*max|ref|; TTS waveforms fused vs unfused corr > "
+                      f"{TTS_CORR}, max|d| <= {TTS_REL:g}*max|ref|", tts_launches),
     }
     forms = {  # kernels with more than one form: which the numbers are of
         "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
@@ -1442,6 +1708,11 @@ def main() -> int:
                    "the CTC head; decode shapes in phase 18)",
         "gru_seq": "single block H <= 128 (times: S=18,750 H=128, linear_before_reset); "
                    "cluster of 8 for 128 < H <= 1024",
+        "est_block": "times at T=1,024 Tk=320, 8 blocks",
+    }
+    library = {  # where no single PyTorch call computes the kernel's function
+        "est_block": "composite: the 8 blocks as bf16 library calls (addmm, layer_norm, "
+                     "scaled_dot_product_attention, gelu)",
     }
     print(f"chip_smoke: every check passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1449,7 +1720,8 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": err[name], "tolerance": tol,
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library_ms[name],
-         **({"forms": forms[name]} if name in forms else {})}
+         **({"forms": forms[name]} if name in forms else {}),
+         **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()
     ]}))
     print(card)

@@ -5,9 +5,10 @@ module layout and names, so each module here has a counterpart there:
 
 - ``lele_tpu_torch.params``    JAX param pytree (numpy leaves) → torch tensors
 - ``lele_tpu_torch.features``  audio front-end: framing, fbank, LFR, CMVN
-- ``lele_tpu_torch.models``    SenseVoice w8a16 and Silero VAD, and
-                               ``SenseVoiceOnnx`` / ``SileroOnnx`` over compiled
-                               ONNX graphs (``models.checkpoints``)
+- ``lele_tpu_torch.models``    SenseVoice w8a16/w4a16, Silero VAD and
+                               Supertonic TTS, and ``SenseVoiceOnnx`` /
+                               ``SileroOnnx`` / ``SupertonicOnnx`` over
+                               compiled ONNX graphs (``models.checkpoints``)
 - ``lele_tpu_torch.onnx``      wire codec, loader, graph builder, SAN-M synth
 - ``lele_tpu_torch.ops``       ONNX op emitters (numpy when folding, torch
                                on the device)
@@ -15,7 +16,7 @@ module layout and names, so each module here has a counterpart there:
 - ``lele_tpu_torch.runtime``   ``CompiledModel``, length bucketing
 - ``lele_tpu_torch.kernels``   hand-written Hopper kernels (CUDA C++ under
                                ``csrc/``), each beside its plain PyTorch version
-- ``lele_tpu_torch.serving``   ``SenseVoiceEngine``
+- ``lele_tpu_torch.serving``   ``SenseVoiceEngine``, ``TtsEngine``
 
 A kernel wrapper takes its plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. Entry points run on

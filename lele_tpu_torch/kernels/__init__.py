@@ -6,6 +6,11 @@ at first use. Each wrapper keeps a launch count as an attribute
 `reset_launch_counts()` sets them to 0.
 """
 
+from .est_block import (  # noqa: F401
+    estimator_blocks,
+    estimator_blocks_plain,
+    stack_est_blocks,
+)
 from .gru import gru_seq, gru_seq_plain  # noqa: F401
 from .lstm import lstm_seq, lstm_seq_plain  # noqa: F401
 from .quant_matmul import (  # noqa: F401
@@ -44,6 +49,7 @@ KERNEL_WRAPPERS = {
     "w4_gemm": w4_matmul,
     "sanm_stack_w4": sanm_stack_w4,
     "gru_seq": gru_seq,
+    "est_block": estimator_blocks,
 }
 
 

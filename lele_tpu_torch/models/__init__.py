@@ -1,8 +1,8 @@
 """Model families of the port (counterpart of lele_tpu.models): SenseVoice
-(w8a16 and w4a16) and Silero VAD, native; both also run from ONNX
-(`models.checkpoints`)."""
+(w8a16 and w4a16), Silero VAD and Supertonic TTS, native; all three also
+run from ONNX (`models.checkpoints`)."""
 
-from .checkpoints import SenseVoiceOnnx, SileroOnnx  # noqa: F401
+from .checkpoints import SenseVoiceOnnx, SileroOnnx, SupertonicOnnx  # noqa: F401
 from .common import cast_big_params  # noqa: F401
 from .sensevoice import (  # noqa: F401
     SenseVoiceConfig,
@@ -23,4 +23,15 @@ from .silero import (  # noqa: F401
     silero_features,
     silero_step,
     zero_state,
+)
+from .supertonic import (  # noqa: F401
+    AVAILABLE_LANGS,
+    SupertonicConfig,
+    SupertonicTts,
+    UnicodeIndexer,
+    is_valid_lang,
+    load_voice_style,
+    normalize_text,
+    prepare_chunks,
+    supertonic_params_from_jax,
 )

@@ -1,5 +1,6 @@
 """Compiled ONNX checkpoints with a model family's pipeline around them
-(counterpart of lele_tpu/models/checkpoints.py): SenseVoice and Silero VAD.
+(counterpart of lele_tpu/models/checkpoints.py): SenseVoice, Silero VAD and
+Supertonic TTS.
 """
 
 from __future__ import annotations
@@ -217,3 +218,84 @@ class SileroOnnx:
         probs = self.speech_probs(pcm, sr)
         return collect_segments(probs, VadSegmentConfig(threshold=threshold, sample_rate=sr,
                                                         chunk=self.chunk))
+
+
+class SupertonicOnnx:
+    """The four Supertonic sub-models, each a compiled ONNX graph, chained with
+    the 5-step flow-matching loop (the reference's execution shape).
+
+    `model_dir` holds the four files under the repo's fixture names or the
+    names the published exports ship under. Each graph compiles at its own
+    input shapes. `device` defaults to `default_device()`, which raises
+    where there is no CUDA card. The noise is numpy's
+    `default_rng(seed).standard_normal`, as in the JAX package, so a seed
+    gives the same bits on both sides."""
+
+    _NAMES = {
+        "dp": ("supertonic_dp.onnx", "duration_predictor.onnx"),
+        "te": ("supertonic_te.onnx", "text_encoder.onnx"),
+        "ve": ("supertonic_ve.onnx", "vector_estimator.onnx"),
+        "voc": ("supertonic_voc.onnx", "vocoder.onnx"),
+    }
+
+    def __init__(self, model_dir: str | Path, steps: int = 5,
+                 device: torch.device | str | None = None):
+        from ..compiler import compile_model
+
+        d = Path(model_dir)
+        self.device = torch.device(device) if device is not None else default_device()
+
+        def find(key):
+            for name in self._NAMES[key]:
+                if (d / name).exists():
+                    return str(d / name)
+            raise FileNotFoundError(f"none of {self._NAMES[key]} in {d}")
+
+        self.dp, self.te, self.ve, self.voc = (
+            compile_model(find(k), device=self.device) for k in ("dp", "te", "ve", "voc"))
+        self.steps = steps
+
+    def _noise(self, channels: int, latent_len: int, seed: int) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        return rng.standard_normal((1, channels, latent_len)).astype(np.float32)
+
+    @staticmethod
+    def _upsample_index(tn: int, latent_len: int) -> np.ndarray:
+        """Nearest upsampling of the text memory's last axis to latent_len."""
+        return np.minimum(np.arange(latent_len) * tn // latent_len, tn - 1)
+
+    @torch.inference_mode()
+    def synthesize_latent(self, ids, style, mask, latent_len: int, seed: int = 0):
+        """ids [1, Tn]; style [1, S]; mask [1, Tn] → (durations, wave), numpy.
+
+        The four compiled models chained on device values: the text memory,
+        the latent and every flow step stay on the device; only the two
+        results come back."""
+        (dur,) = self.dp(ids, style, mask)
+        (emb,) = self.te(ids, style, mask)
+        emb = emb.float()
+        idx = torch.from_numpy(self._upsample_index(emb.shape[-1], latent_len)).to(self.device)
+        emb_l = emb.index_select(emb.dim() - 1, idx)
+        xt = torch.from_numpy(self._noise(emb.shape[1], latent_len, seed)).to(self.device)
+        style_t = torch.as_tensor(np.asarray(style, np.float32), device=self.device)
+        for s in range(self.steps):
+            t_step = torch.full((1,), s, dtype=torch.float32, device=self.device) / self.steps
+            (v,) = self.ve(xt, emb_l, style_t, t_step)
+            xt = xt + v.float() / self.steps
+        (wave,) = self.voc(xt)
+        return dur.cpu().numpy(), wave.cpu().numpy()
+
+    def synthesize_latent_hostloop(self, ids, style, mask, latent_len: int, seed: int = 0):
+        """The host-chained oracle: four separate runs and a host copy of the
+        latent every flow step."""
+        (dur,) = self.dp.run_np(ids, style, mask)
+        (emb,) = self.te.run_np(ids, style, mask)
+        emb = np.asarray(emb, np.float32)
+        emb_l = emb[..., self._upsample_index(emb.shape[-1], latent_len)]
+        xt = self._noise(emb.shape[1], latent_len, seed)
+        for s in range(self.steps):
+            t_step = np.asarray([s / self.steps], np.float32)
+            (v,) = self.ve.run_np(xt, emb_l, style, t_step)
+            xt = xt + np.asarray(v, np.float32) / self.steps
+        (wave,) = self.voc.run_np(xt)
+        return np.asarray(dur), np.asarray(wave)

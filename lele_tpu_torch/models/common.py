@@ -106,6 +106,31 @@ def conv1d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: 
     return y.transpose(1, 2) + p["b"]
 
 
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """x [B, T, C_in], w [k, C_in, C_out] → [B, T·stride, C_out], f32: the
+    counterpart of `lax.conv_transpose(x, w, (stride,), "SAME",
+    dimension_numbers=("NHC", "HIO", "NHC"))`, with no bias.
+
+    lax does not flip the kernel; F.conv_transpose1d, the adjoint of a
+    convolution, does, so the kernel goes in reversed. lax pads the
+    stride-dilated input by (a, b) (its SAME rule below) and correlates;
+    F's `padding` p = k - 1 - a gives the same alignment, and the tail
+    b - a becomes F's output padding where it is positive and a trim where
+    it is negative. cuDNN's TF32 is off inside, as in `conv1d`."""
+    k = w.shape[0]
+    pad_len = k + stride - 2
+    a = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    b = pad_len - a
+    wt = w.float().flip(0).permute(1, 2, 0)  # [C_in, C_out, k]
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    allow_tf32=False):
+        y = F.conv_transpose1d(x.float().transpose(1, 2), wt, stride=stride,
+                               padding=k - 1 - a, output_padding=max(b - a, 0))
+    if b < a:
+        y = y[..., : y.shape[-1] - (a - b)]
+    return y.transpose(1, 2)
+
+
 def init_lstm_cell(gen: torch.Generator, d_in: int, d_hidden: int) -> Params:
     """wx [d_in, 4H] and wh [H, 4H] uniform(±1/sqrt(fan-in)), zero bias [4H]."""
     return {"wx": _uniform(gen, (d_in, 4 * d_hidden), 1.0 / np.sqrt(d_in)),

@@ -4,7 +4,9 @@ tracer folds a node, torch when the node runs on the device.
 Importing this package registers every emitter in ``registry.OPS``: the ones
 the SAN-M int8 graph uses, Identity, Div and ReduceSum, which its common
 export variants add, Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
-LSTM, which the Silero-class graphs add, GRU and RNN, and the
+LSTM, which the Silero-class graphs add, GRU and RNN, Constant,
+ConstantOfShape, Expand, Where, Tanh, Softplus and ConvTranspose, which the
+Supertonic graphs add, and the
 com.microsoft ops MatMulNBits (`contrib_ops`), MoE and QMoE (`moe_ops`),
 keyed on their domain. Any other op type follows the JAX
 dispatch rule: a warning and an empty value, or a raise in strict mode.

@@ -1,5 +1,5 @@
 """Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
-Relu, Sigmoid and Softmax."""
+Relu, Sigmoid, Softmax, Tanh and Softplus."""
 
 from __future__ import annotations
 
@@ -31,3 +31,14 @@ def softmax(ctx: OpContext, x):
     axis = axis if axis >= 0 else axis + len(shape)
     lead = int(np.prod(shape[:axis])) if axis else 1
     return torch.softmax(x.reshape(lead, -1), dim=-1).reshape(shape)
+
+
+@op("Tanh")
+def tanh(ctx: OpContext, x):
+    return np.tanh(x) if ctx.is_fold else torch.tanh(x)
+
+
+@op("Softplus", foldable=False)
+def softplus(ctx: OpContext, x):
+    # jax.nn.softplus's definition: logaddexp(x, 0)
+    return torch.logaddexp(x, torch.zeros_like(x))

@@ -1,6 +1,7 @@
 """NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
-Conv for the 1-D case (the FSMN's depthwise memory conv, Silero's STFT and
-conv stack), and the recurrent LSTM, GRU and RNN."""
+Conv and ConvTranspose for the 1-D case (the FSMN's depthwise memory conv,
+Silero's STFT and conv stack, the Supertonic vocoder's upsampling), and the
+recurrent LSTM, GRU and RNN."""
 
 from __future__ import annotations
 
@@ -57,6 +58,52 @@ def conv(ctx: OpContext, x, w, b=None):
                                     allow_tf32=False):
         out = F.conv1d(xp, w.to(x.dtype), None, stride=strides[0],
                        dilation=dilations[0], groups=group)
+    if b is not None:
+        out = out + b.to(out.dtype).reshape(1, -1, 1)
+    return out
+
+
+def _conv_transpose_pads(ctx: OpContext, in_dim: int, k: int, stride: int, dilation: int,
+                         out_pad: int) -> tuple[int, int]:
+    """(begin, end) pads of a 1-D ConvTranspose, as lele_tpu/ops/nn_ops.py
+    resolves them: `output_shape` overrides `pads`; SAME_* make the output
+    input x stride."""
+    eff_k = (k - 1) * dilation + 1
+    auto = ctx.attr("auto_pad", "NOTSET")
+    out_shape = ctx.attr_ints("output_shape")
+    if out_shape is not None:
+        total = max(0, stride * (in_dim - 1) + out_pad + eff_k - int(out_shape[-1]))
+        half = total // 2
+        return (total - half, half) if auto == "SAME_UPPER" else (half, total - half)
+    pads = ctx.attr_ints("pads")
+    if pads is not None:
+        return pads[0], pads[1]
+    if auto in ("NOTSET", "", None, "VALID"):
+        return 0, 0
+    total = max(0, eff_k - stride + out_pad)
+    half = total // 2
+    return (half, total - half) if auto == "SAME_UPPER" else (total - half, half)
+
+
+@op("ConvTranspose", foldable=False)
+def conv_transpose(ctx: OpContext, x, w, b=None):
+    """1-D transposed convolution [N, C_in, T], ONNX weight [C_in, C_out/g, k]
+    (torch's own layout and semantics): the full-length product, output
+    padding zeros at its end, then the pads cropped. cuDNN's TF32 is off."""
+    if x.dim() != 3:
+        raise NotImplementedError(f"ConvTranspose over {x.dim() - 2} spatial dims is not "
+                                  "ported yet (the port has the 1-D case)")
+    k = int(w.shape[-1])
+    (stride,) = ctx.attr_ints("strides", [1])
+    (dilation,) = ctx.attr_ints("dilations", [1])
+    (out_pad,) = ctx.attr_ints("output_padding", [0])
+    p0, p1 = _conv_transpose_pads(ctx, int(x.shape[-1]), k, stride, dilation, out_pad)
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    allow_tf32=False):
+        full = F.conv_transpose1d(x, w.to(x.dtype), None, stride=stride, dilation=dilation,
+                                  groups=ctx.attr("group", 1))
+    full = F.pad(full, (0, out_pad))
+    out = full[..., p0: full.shape[-1] - p1]
     if b is not None:
         out = out + b.to(out.dtype).reshape(1, -1, 1)
     return out

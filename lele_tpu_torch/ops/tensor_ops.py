@@ -1,6 +1,7 @@
 """Tensor-manipulation emitters (counterpart of lele_tpu/ops/tensor_ops.py):
 the ones the SAN-M int8 graph uses, plus Identity, which exports put
-between any two nodes.
+between any two nodes, and Constant, ConstantOfShape, Expand and Where,
+which the Supertonic graphs add.
 
 Shape-carrying chains (Shape → Slice/Gather → Concat → Reshape) fold to
 numpy at trace time, so every reshape below sees static shape arguments.
@@ -194,3 +195,39 @@ def split(ctx: OpContext, x, split_sizes=None):
         sl[axis] = slice(int(offsets[i]), int(offsets[i + 1]))
         outs.append(x[tuple(sl)])
     return tuple(outs)
+
+
+@op("Constant")
+def constant(ctx: OpContext):
+    for key in ("value", "value_float", "value_int", "value_ints", "value_floats"):
+        v = ctx.attr(key)
+        if v is not None:
+            if key == "value":
+                return v
+            if key in ("value_int", "value_ints"):
+                return np.asarray(v, np.int64)
+            return np.asarray(v, np.float32)
+    raise ValueError("Constant node without a value attribute")
+
+
+@op("ConstantOfShape", static_args=(0,))
+def constant_of_shape(ctx: OpContext, shape):
+    dims = static_ints(shape, "ConstantOfShape")
+    v = ctx.attr("value")
+    if v is None:
+        return np.zeros(dims, dtype=np.float32)
+    v = np.asarray(v)
+    return np.full(dims, v.reshape(-1)[0], dtype=v.dtype)
+
+
+@op("Expand", static_args=(1,))
+def expand(ctx: OpContext, x, shape):
+    target = np.broadcast_shapes(tuple(np.shape(x)), tuple(static_ints(shape, "expand shape")))
+    return np.broadcast_to(x, target) if ctx.is_fold else x.expand(target)
+
+
+@op("Where")
+def where(ctx: OpContext, cond, a, b):
+    if ctx.is_fold:
+        return np.where(np.asarray(cond).astype(bool), a, b)
+    return torch.where(cond.to(torch.bool), a, b)

@@ -1,14 +1,14 @@
-"""Serving engine for ASR (counterpart of lele_tpu/serving.py): WAV bytes in,
-token ids (or text, with a tokenizer) out."""
+"""Serving engines (counterpart of lele_tpu/serving.py): ASR, WAV bytes in,
+token ids (or text, with a tokenizer) out; TTS, text in, WAV bytes out."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 
-from .utils.wav import decode_wav_bytes
+from .utils.wav import decode_wav_bytes, encode_wav
 
 
 def decode_wav(data: bytes) -> tuple[np.ndarray, int]:
@@ -59,3 +59,43 @@ class SenseVoiceEngine:
         if self.tokenizer is not None:
             return self.tokenizer.decode(ids)
         return ids
+
+
+@dataclass
+class TtsEngine:
+    """load_style(path) + synthesize(text) → WAV bytes. With no model it
+    builds a random-weight `SupertonicTts` on `device` (by default
+    `default_device()`, which raises where there is no CUDA card)."""
+
+    tts: Any = None
+    styles: dict = field(default_factory=dict)
+    device: Any = None
+
+    def __post_init__(self):
+        if self.tts is None:
+            from .models import SupertonicTts
+
+            self.tts = SupertonicTts(device=self.device)
+            self.tts.init(0)
+
+    def load_style(self, path: str, name: str | None = None):
+        from .models import load_voice_style
+
+        style = load_voice_style(path)
+        self.styles[name or path] = style
+        return style
+
+    def synthesize(self, text: str, voice: str | None = None, lang: str = "en",
+                   seed: int = 0) -> bytes:
+        if voice and voice in self.styles:
+            style = self.styles[voice]
+        elif self.styles:
+            style = next(iter(self.styles.values()))
+        else:
+            rng = np.random.default_rng(7)
+            style = {
+                "ttl": rng.standard_normal(self.tts.cfg.d_style).astype(np.float32),
+                "dp": rng.standard_normal(self.tts.cfg.d_style).astype(np.float32),
+            }
+        wave = self.tts.synthesize(text, style, lang=lang, seed=seed)
+        return encode_wav(wave, self.tts.cfg.sample_rate)

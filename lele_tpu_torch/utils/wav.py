@@ -1,10 +1,11 @@
-"""Pure-Python WAV parser (the port's copy of the parser in
-lele_tpu/utils/wav.py): RIFF PCM 8/16/24/32-bit and IEEE float, mono-ized
-by averaging the channels."""
+"""Pure-Python WAV parser and writer (the port's copy of lele_tpu/utils/wav.py):
+RIFF PCM 8/16/24/32-bit and IEEE float in, mono-ized by averaging the
+channels; PCM16 mono out."""
 
 from __future__ import annotations
 
 import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -64,3 +65,18 @@ def decode_wav_bytes(data: bytes, label: str = "<bytes>") -> tuple[np.ndarray, i
     if n_ch > 1:
         x = x[: len(x) // n_ch * n_ch].reshape(-1, n_ch).mean(axis=1)
     return x, sr
+
+
+def encode_wav(samples: np.ndarray, sr: int) -> bytes:
+    """Samples → the bytes of a PCM16 mono WAV file (clamped to [-1, 1])."""
+    x = np.clip(np.asarray(samples, np.float32), -1.0, 1.0)
+    pcm = (x * 32767.0).astype("<i2").tobytes()
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE"
+    fmt = b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16)
+    dat = b"data" + struct.pack("<I", len(pcm))
+    return hdr + fmt + dat + pcm
+
+
+def write_wav(path: str | Path, samples: np.ndarray, sr: int) -> None:
+    """PCM16 mono writer (clamped), matching the reference runners' output."""
+    Path(path).write_bytes(encode_wav(samples, sr))

@@ -170,10 +170,19 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     torch.testing.assert_close(
         K.sanm_stack_w4(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel),
         K.sanm_stack_w4_plain(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
+    blk = {name: {"w": torch.randn((i, o)) * 0.1, "b": torch.zeros((o,))}
+           for name, i, o in (("q", 64, 64), ("kv", 64, 128), ("out", 64, 64),
+                              ("ffn1", 64, 128), ("ffn2", 128, 64))}
+    blk.update(norm1={"g": torch.ones(64), "b": torch.zeros(64)},
+               norm2={"g": torch.ones(64), "b": torch.zeros(64)})
+    est = K.stack_est_blocks([{"self": blk, "cross": blk}])
+    e_args = (torch.randn((9, 64)), torch.randn((5, 64)), torch.ones(9), torch.ones(5), est, 2)
+    torch.testing.assert_close(K.estimator_blocks(*e_args), K.estimator_blocks_plain(*e_args),
+                               rtol=0, atol=0)
     assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
                                       "dq_gemm", "sanm_stack_dql", "lstm_seq",
-                                      "w4_gemm", "sanm_stack_w4", "gru_seq"}
+                                      "w4_gemm", "sanm_stack_w4", "gru_seq", "est_block"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -205,9 +214,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
         "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq', 'w4_gemm',\n"
-        "    'sanm_stack_w4', 'gru_seq')}\n"
+        "    'sanm_stack_w4', 'gru_seq', 'est_block')}\n"
         "assert all(sys.modules['lele_tpu_torch.kernels.' + m]._fn is None\n"
-        "           for m in ('gru', 'lstm', 'w4_matmul'))\n"
+        "           for m in ('gru', 'lstm', 'w4_matmul', 'est_block'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -178,8 +178,9 @@ def test_port_runs_without_jax():
     """The card machine has no JAX: the port must import and run without it,
     and without the JAX package. Every slice runs: the native engine, the
     compiled graph behind SenseVoiceOnnx, Silero VAD native and compiled
-    at both sample rates, the w4a16 model, a MatMulNBits graph, a GRU graph
-    and a QMoE decode layer."""
+    at both sample rates, the w4a16 model, a MatMulNBits graph, a GRU graph,
+    a QMoE decode layer, and Supertonic TTS through TtsEngine (on the fused
+    estimator route) and SupertonicOnnx."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -251,6 +252,19 @@ def test_port_runs_without_jax():
         "assert cm.stats['pattern_hits']['qmoe_w4'] == 2\n"
         "y = cm.run_np(x=rng.standard_normal((2, 32)).astype(np.float32))[0]\n"
         "assert y.shape == (2, 32) and np.isfinite(y).all()\n"
+        "from lele_tpu_torch.serving import TtsEngine\n"
+        "from lele_tpu_torch.utils.wav import decode_wav_bytes\n"
+        "tts = SupertonicTts(SupertonicConfig(d_text=64, n_heads=2, n_text_layers=1,\n"
+        "    n_est_layers=1, latent_buckets=(32, 64), fused_estimator=True), device='cpu')\n"
+        "tts.init(0)\n"
+        "eng = TtsEngine(tts=tts)\n"
+        "eng.load_style('examples/supertonic/voice_styles/F1.json')\n"
+        "pcm, sr = decode_wav_bytes(eng.synthesize('Hello there.'))\n"
+        "assert sr == 24000 and len(pcm) >= 8 * 256 and np.isfinite(pcm).all()\n"
+        "io = np.load('fixtures/supertonic_io.npz')\n"
+        "dur, wave = SupertonicOnnx('fixtures', device='cpu').synthesize_latent(\n"
+        "    io['ids'], io['style'], io['mask'], latent_len=32, seed=1)\n"
+        "assert wave.shape == (1, 128) and np.isfinite(wave).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
