@@ -86,7 +86,22 @@
    unfused, with RTF, and profiles both at 1,024; TtsEngine per request;
 22. drives SupertonicOnnx on the four fixture graphs: each against
    supertonic_io.npz, the device loop against the host loop, no kernel;
-23. prints one JSON line of kernels, the card, and last
+23. holds kernel 12 (flash attention, csrc/flash_attn.cu) against its
+   plain version and an f64 oracle at the TPU script's shape (B 2, H 8,
+   L 2,048, D 128, causal), its masked shape (a float mask x 2), the Phi-3
+   prefill (B 1, H 32, Lq 1,920, Lk 4,096, D 96, its real mask), GQA 32/8,
+   bool masks with a fully masked row, D 16, 256 and 264; times kernel,
+   plain and F.scaled_dot_product_attention at the first and third;
+24. drives the opset-23 LLM slice at Phi-3-mini-4k-instruct's published
+   widths (hidden 3,072, 32 heads of 96, FFN 8,192, vocab 32,064; 2 of 32
+   layers, random weights from a seed, a 4,096-slot static KV cache): one
+   graph (onnx/synth.build_attn23_decoder) compiled for S = 512, 1,024,
+   1,920 and 1; three requests (prompts of 512, 1,024, 1,920 tokens, 16
+   greedy steps each): kernel 12 twice a prefill and never in a decode
+   step; every logit row against the same requests on a compile with the
+   plain Attention (teacher forced); prefill and decode times, a profile of
+   the 1,920-token prefill;
+25. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -186,6 +201,34 @@ TTS_TEXTS = (
       "spoken. " * 2,
 )
 SYNTH_FRAMES = ((512, 160), (1024, 320))  # latent frames, tokens: 5.5 s and 10.9 s
+# kernel 12 against an f64 oracle and its plain version: the gates of
+# scripts/flash_attention_tpu.py:114-115, 159-160 (rel-max-err <= 2e-2, and
+# within 3 x max(the plain path's, 1e-6)), and vs plain max|d| <= 1e-5
+# max|ref|: both f32, only the summation order over <= 4,096 keys differs
+FLASH_REL = 1e-5
+# (B, H, KVH, Lq, Lk, D, causal, mask): the TPU script's shape
+# (scripts/flash_attention_tpu.py:125), its masked shape (float mask x 2,
+# :72-115), the Phi-3-mini prefill of 1,920 tokens over the 4,096-slot cache
+# with its real mask, GQA at Phi-3's 32 heads over 8, a bool mask with a fully
+# masked row, and D = 16, 256, 264
+FLASH_SHAPES = ((2, 8, 8, 2048, 2048, 128, True, None),
+                (1, 4, 4, 256, 256, 128, False, "float"),
+                (1, 32, 32, 1920, 4096, 96, False, "prefill"),
+                (1, 32, 8, 512, 1024, 96, False, "bool"),
+                (2, 4, 2, 256, 256, 16, True, "bool"),
+                (1, 4, 4, 128, 256, 256, False, "bool"),
+                (1, 2, 2, 256, 256, 264, True, "float"))
+# the slice's model: Phi-3-mini-4k-instruct at its published widths, 2 of 32
+# layers (the f32 graph must stay below protobuf's 2 GiB); prompts of 512,
+# 1,024 and 1,920 tokens, each followed by 16 greedy steps
+LLM_LAYERS = 2
+LLM_PROMPTS = (512, 1024, 1920)
+LLM_DECODE = 16
+# every logit row, kernel 12 route vs the plain-Attention compile (teacher
+# forced): both f32, only the attention's summation order differs, carried
+# through 2 layers and the head; JAX holds its rollout to rtol 1e-4
+# (tests/test_llm_decode_e2e.py:174)
+LLM_REL = 1e-4
 
 
 class Checks:
@@ -454,13 +497,15 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
         print(f"  SileroOnnx.speech_probs 10 s at {rate} Hz: {t:.3f} ms, RTF {t / 1e4:.3e}, "
               f"{t * 1e3 / n10:.1f} us a chunk  ({card})")
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sv.speech_probs(pcm10, 16000)
         span_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
+    rows = [e for e in prof.key_averages()
+            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
     dev_us = sum(dev_time(e) for e in rows)
     kernels = sum(e.count for e in rows if not e.key.startswith(("Memcpy", "Memset")))
     print(f"  profile, SileroOnnx 10 s at 16 kHz: {kernels} device launches "
@@ -1048,8 +1093,11 @@ def dev_time(e):  # the attribute's name moved between torch versions
 
 def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> None:
     """Trace n calls of fn() with torch.profiler: the device's busy share of
-    the host span and the device time by kernel."""
+    the host span and the device time by kernel. Only device-side rows are
+    summed: a CPU op's row (aten::mm) carries the device time of the kernels
+    it launched, which have rows of their own."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1060,7 +1108,8 @@ def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> None:
             fn()
         torch.cuda.synchronize()
         span_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages() if dev_time(e) > 0]
+    rows = [e for e in prof.key_averages()
+            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
     dev_us = sum(dev_time(e) for e in rows)
     print(f"  profile, {n} x {label}: device {dev_us / n:.1f} us a call over "
           f"{span_us / n:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
@@ -1283,6 +1332,230 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
     print(f"  synthesize_latent (fixture size, {n} latent frames): {t_d:.3f} ms host clock; "
           f"host loop {t_hl:.3f} ms  ({card})")
     return tts_launches
+
+
+def flash_oracle(q, k, v, bias, causal, scale):
+    """f64 attention computed a (batch, head) block at a time on the card."""
+    import torch
+
+    B, H, Lq, D = q.shape
+    rep = H // k.shape[1]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    keep = torch.ones((Lq, k.shape[2]), dtype=torch.bool, device=q.device).tril()
+    for b in range(B):
+        for h in range(H):
+            s = (q[b, h].double() @ k[b, h // rep].double().T) * scale
+            if bias is not None:
+                s = s + bias[b, h].double()
+            if causal:
+                s = s.masked_fill(~keep, float("-inf"))
+            out[b, h] = torch.softmax(s, dim=-1) @ v[b, h // rep].double()
+    return out
+
+
+def flash_bound(B, H, KVH, Lq, Lk, D, causal, mask_bytes) -> tuple[float, str]:
+    """Kernel 12: q, k, v and the mask read once, out written once; 4·D f32
+    operations a (query, key) pair it must weigh: every key, or the lower
+    triangle where causal (a float mask's -1e9 entries are weighed too)."""
+    pairs = B * H * (Lq * (Lq + 1) // 2 if causal else Lq * Lk)
+    n_bytes = 4 * (2 * B * H * Lq * D + 2 * B * KVH * Lk * D) + mask_bytes
+    return bound(n_bytes, {"f32": 4 * D * pairs})
+
+
+def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) -> dict:
+    """Phases 23-24: kernel 12 against its plain version and an f64 oracle,
+    then the opset-23 LLM slice end to end at Phi-3-mini width: prefill on
+    kernel 12, greedy decode through the static cache, against the same
+    requests on a plain-Attention compile. Returns the launch counts of the
+    slice's main path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.kernels.flash_attention import mask_bias
+    from lele_tpu_torch.onnx.loader import OnnxModel
+    from lele_tpu_torch.onnx.synth import (
+        PHI3_MINI,
+        attn23_decoder_params,
+        attn23_step_feeds,
+        build_attn23_decoder,
+    )
+    from lele_tpu_torch.ops import attention_ops
+
+    t_phase = time.perf_counter()
+    cfg = dict(PHI3_MINI, layers=LLM_LAYERS)
+    L = cfg["l_max"]
+    print("== 23. kernel 12 (flash_attn) vs plain and an f64 oracle")
+    for B, H, KVH, Lq, Lk, D, causal, kind in FLASH_SHAPES:
+        q = torch.randn((B, H, Lq, D), generator=gen, device=dev)
+        k = torch.randn((B, KVH, Lk, D), generator=gen, device=dev)
+        v = torch.randn((B, KVH, Lk, D), generator=gen, device=dev)
+        mask = None
+        if kind == "float":
+            mask = 2 * torch.randn((B, 1, Lq, Lk), generator=gen, device=dev)
+        elif kind == "bool":
+            mask = torch.rand((B, 1, Lq, Lk), generator=gen, device=dev) > 0.3
+            mask[0, 0, 3] = False  # a fully masked row: the uniform average of v
+        elif kind == "prefill":
+            ids = np.zeros((B, Lq), np.int64)
+            mask = torch.from_numpy(attn23_step_feeds(ids, 0, Lk)["mask"]).to(dev)
+        scale = 1.0 / D ** 0.5
+        got = K.flash_attention(q, k, v, mask, causal, scale)
+        ref = K.flash_attention_plain(q, k, v, mask, causal, scale)
+        torch.cuda.synchronize()
+        bias = mask_bias(mask, (B, H, Lq, Lk))
+        if kind == "bool":  # a False entry weighs nothing; a row with no True entry
+            # among the keys causal leaves averages them uniformly, as -1e9 does in f32
+            seen = mask & torch.ones((Lq, Lk), dtype=torch.bool, device=dev).tril() \
+                if causal else mask
+            bias = torch.where(mask, 0.0, float("-inf"))
+            bias = torch.where(~seen.any(-1, keepdim=True), -1e300, bias.double())
+            bias = bias.expand(B, H, Lq, Lk)
+        exact = flash_oracle(q, k, v, bias, causal, scale)
+        mag = exact.abs().max().item()
+        e_k = (got.double() - exact).abs().max().item() / mag
+        e_p = (ref.double() - exact).abs().max().item() / mag
+        d, rmax, _ = compare(got, ref)
+        err["flash_attn"] = max(err["flash_attn"], d)
+        checks.require(bool(torch.isfinite(got).all()) and e_k <= 2e-2
+                       and e_k <= 3 * max(e_p, 1e-6) and d <= FLASH_REL * rmax,
+                       f"flash_attn B={B} H={H}/{KVH} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+                       f"mask={kind}: vs f64 {e_k:.2e} (plain {e_p:.2e}; <= 2e-2 and "
+                       f"<= 3 x max(plain, 1e-6)); vs plain max|d| {d:.2e} <= "
+                       f"{FLASH_REL:g} * {rmax:.3e}")
+        if (B, H, Lq, D) in ((2, 8, 2048, 128), (1, 32, 1920, 96)):
+            a = time_ms(lambda: K.flash_attention(q, k, v, mask, causal, scale))
+            b = time_ms(lambda: K.flash_attention_plain(q, k, v, mask, causal, scale), runs=5)
+            sdpa_mask = None if mask is None else mask.expand(B, H, Lq, Lk)
+            c = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, is_causal=causal, scale=scale))
+            lib_d = (F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                                    is_causal=causal, scale=scale)
+                     - got).abs().max().item()
+            mask_bytes = 0 if mask is None else mask.numel() * mask.element_size()
+            b_ms, b_by = flash_bound(B, H, KVH, Lq, Lk, D, causal, mask_bytes)
+            print(f"  flash_attn B={B} H={H} Lq={Lq} Lk={Lk} D={D} causal={causal}: kernel "
+                  f"{a:.4f} ms, plain {b:.4f} ms, F.scaled_dot_product_attention (f32, TF32 "
+                  f"off) {c:.4f} ms (max|d| vs kernel {lib_d:.2e}); bound {b_ms * 1e3:.2f} us "
+                  f"by {b_by} (f32 CUDA cores), kernel at {100 * b_ms / a:.2f}% of it  "
+                  f"({card})")
+            if Lq == 1920:
+                ms["flash_attn"], plain_ms["flash_attn"], library_ms["flash_attn"] = a, b, c
+                bounds["flash_attn"] = (b_ms, b_by)
+        del q, k, v, mask, got, ref, exact, bias
+
+    print(f"== 24. main path: the opset-23 decoder at Phi-3-mini width ({LLM_LAYERS} of "
+          f"{PHI3_MINI['layers']} layers), prefill on kernel 12, greedy decode")
+    t0 = time.perf_counter()
+    params = attn23_decoder_params(np.random.default_rng(SEED), cfg)
+    n_params = sum(a.size for a in params.values())
+    graph = build_attn23_decoder(params, "S", cfg)
+    del params
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = OnnxModel.from_bytes(graph)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = {s: compile_model(model, dim_values={"S": s}, device=dev, strict=True)
+             for s in (*LLM_PROMPTS, 1)}
+    t_trace = time.perf_counter() - t0
+    refs = {s: compile_model(model, dim_values={"S": s}, device=dev, strict=True,
+                             overrides={"Attention": attention_ops.attention_plain})
+            for s in (*LLM_PROMPTS, 1)}
+    print(f"  graph: {n_params / 1e6:.1f} M f32 parameters, {len(graph) / 1e6:.1f} MB; "
+          f"weights and bytes built in {t_build:.2f} s, loaded in {t_load:.2f} s, traced "
+          f"for S = {(*LLM_PROMPTS, 1)} in {t_trace:.2f} s (and again with the plain "
+          f"Attention)")
+    del graph
+    cache_shape = (cfg["batch"], cfg["kv_heads"], L, cfg["head_dim"])
+    prompts = {n: np.random.default_rng(SEED + n).integers(0, cfg["vocab"], (1, n))
+               for n in LLM_PROMPTS}
+
+    def step(cm, ids, start, caches):
+        feeds = {key: torch.from_numpy(a).to(dev)
+                 for key, a in attn23_step_feeds(ids, start, L).items()}
+        outs = cm(**feeds, **caches)
+        return outs[0], {f"c{kv}{i}": outs[1 + 2 * i + (kv == "v")]
+                         for i in range(cfg["layers"]) for kv in "kv"}
+
+    def request(n, models, forced=None):
+        """One prompt of n tokens and LLM_DECODE greedy steps (or the tokens
+        `forced`): (logits of each step, tokens, launches a step)."""
+        caches = {f"c{kv}{i}": torch.zeros(cache_shape, device=dev)
+                  for i in range(cfg["layers"]) for kv in "kv"}
+        ids, start, logits, toks, launches = prompts[n], 0, [], [], []
+        for j in range(LLM_DECODE + 1):
+            before = K.flash_attention.launches
+            out, caches = step(models[ids.shape[1]], ids, start, caches)
+            launches.append(K.flash_attention.launches - before)
+            logits.append(out[0])
+            start += ids.shape[1]
+            tok = int(out[0, -1].argmax()) if forced is None else forced[j]
+            toks.append(tok)
+            ids = np.array([[tok]], np.int64)
+        return logits, toks, launches
+
+    K.reset_launch_counts()
+    routes0 = dict(attention_ops.ATTENTION_ROUTES)
+    runs = {n: request(n, steps) for n in LLM_PROMPTS}
+    torch.cuda.synchronize()
+    llm_launches = K.launch_counts()
+    routes = {r: attention_ops.ATTENTION_ROUTES[r] - routes0[r] for r in routes0}
+    print(f"  launch counts over {len(LLM_PROMPTS)} requests: {llm_launches}; Attention "
+          f"routes {routes}")
+    per_step = {n: r[2] for n, r in runs.items()}
+    checks.require(llm_launches["flash_attn"] == LLM_LAYERS * len(LLM_PROMPTS)
+                   and sum(llm_launches.values()) == llm_launches["flash_attn"]
+                   and all(p[0] == LLM_LAYERS and not any(p[1:]) for p in per_step.values())
+                   and routes["einsum"] == LLM_LAYERS * LLM_DECODE * len(LLM_PROMPTS),
+                   f"kernel 12 {LLM_LAYERS} times a prefill, 0 a decode step (einsum route), "
+                   f"no other kernel: per step {per_step}")
+    for n, (logits, toks, _) in runs.items():
+        ref_logits, _, _ = request(n, refs, forced=toks)
+        worst, rows = 0.0, 0
+        ok = True
+        for got, ref in zip(logits, ref_logits):
+            d = (got - ref).abs().max().item()
+            rel = d / ref.abs().max().item()
+            worst = max(worst, rel)
+            rows += got.shape[0]
+            ok = ok and bool(torch.isfinite(got).all()) and rel <= LLM_REL
+        checks.require(ok and logits[0].shape == (n, cfg["vocab"]),
+                       f"request {n} tokens + {LLM_DECODE} steps ({rows} logit rows of "
+                       f"{cfg['vocab']}): kernel route vs plain-Attention compile, worst "
+                       f"max|d|/max|ref| {worst:.2e} <= {LLM_REL:g}; tokens {toks[:6]}...")
+
+    print(f"== 24b. LLM timings (CUDA events and host clock, median of warm runs; {card})")
+    for n in LLM_PROMPTS:
+        ids = prompts[n]
+        caches = {f"c{kv}{i}": torch.zeros(cache_shape, device=dev)
+                  for i in range(cfg["layers"]) for kv in "kv"}
+        feeds = {key: torch.from_numpy(a).to(dev)
+                 for key, a in attn23_step_feeds(ids, 0, L).items()}
+        t_d = time_ms(lambda: steps[n](**feeds, **caches), runs=5)
+        t_h = host_ms(lambda: (step(steps[n], ids, 0, caches), torch.cuda.synchronize()))
+        t_r = time_ms(lambda: refs[n](**feeds, **caches), runs=5)
+        _, caches = step(steps[n], ids, 0, caches)
+        tok = np.array([[int(runs[n][1][0])]], np.int64)
+
+        def decode_all():
+            c, start = caches, n
+            for _ in range(LLM_DECODE):
+                _, c = step(steps[1], tok, start, c)
+                start += 1
+            torch.cuda.synchronize()
+
+        t_dec = host_ms(decode_all, runs=3) / LLM_DECODE
+        print(f"  prompt {n} tokens: prefill {t_d:.3f} ms CUDA events, {t_h:.3f} ms host clock "
+              f"(plain-Attention compile {t_r:.3f} ms); decode {t_dec:.3f} ms a token (host "
+              f"clock, {LLM_DECODE} steps at positions {n}-{n + LLM_DECODE - 1})  ({card})")
+        if n == LLM_PROMPTS[-1]:
+            profile_top(lambda: steps[n](**feeds, **caches), f"prefill of {n} tokens", card,
+                        n=2, top=12)
+    print(f"  phases 23-24 took {time.perf_counter() - t_phase:.1f} s")
+    return llm_launches
 
 
 def main() -> int:
@@ -1661,6 +1934,7 @@ def main() -> int:
     s5_launches = slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     tts_launches = supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
                                      bounds)
+    llm_launches = llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -1699,6 +1973,10 @@ def main() -> int:
         "est_block": ("lele_tpu_torch/csrc/est_block.cu", "lele_tpu/kernels/est_block.py:121",
                       f"max|d| <= 2^-8*max|ref|; TTS waveforms fused vs unfused corr > "
                       f"{TTS_CORR}, max|d| <= {TTS_REL:g}*max|ref|", tts_launches),
+        "flash_attn": ("lele_tpu_torch/csrc/flash_attn.cu", "lele_tpu/ops/attention_ops.py:34",
+                       f"vs f64 rel-max-err <= 2e-2 and <= 3 x max(plain's, 1e-6); vs plain "
+                       f"max|d| <= {FLASH_REL:g}*max|ref|; Phi-3 logits vs plain-Attention "
+                       f"<= {LLM_REL:g}*max|ref|", llm_launches),
     }
     forms = {  # kernels with more than one form: which the numbers are of
         "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
@@ -1709,10 +1987,14 @@ def main() -> int:
         "gru_seq": "single block H <= 128 (times: S=18,750 H=128, linear_before_reset); "
                    "cluster of 8 for 128 < H <= 1024",
         "est_block": "times at T=1,024 Tk=320, 8 blocks",
+        "flash_attn": "f32 FFMA, 64-row q tiles, 64-key tiles, one-pass online softmax, any "
+                      "D % 8 == 0 (times: the Phi-3 prefill, B=1 H=32 Lq=1,920 Lk=4,096 D=96 "
+                      "with its float mask)",
     }
     library = {  # where no single PyTorch call computes the kernel's function
         "est_block": "composite: the 8 blocks as bf16 library calls (addmm, layer_norm, "
                      "scaled_dot_product_attention, gelu)",
+        "flash_attn": "F.scaled_dot_product_attention, f32 inputs, TF32 off",
     }
     print(f"chip_smoke: every check passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

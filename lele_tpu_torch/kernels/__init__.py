@@ -11,6 +11,7 @@ from .est_block import (  # noqa: F401
     estimator_blocks_plain,
     stack_est_blocks,
 )
+from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .gru import gru_seq, gru_seq_plain  # noqa: F401
 from .lstm import lstm_seq, lstm_seq_plain  # noqa: F401
 from .quant_matmul import (  # noqa: F401
@@ -50,6 +51,7 @@ KERNEL_WRAPPERS = {
     "sanm_stack_w4": sanm_stack_w4,
     "gru_seq": gru_seq,
     "est_block": estimator_blocks,
+    "flash_attn": flash_attention,
 }
 
 

@@ -13,6 +13,12 @@ SenseVoiceSmall-class flagship at full width, with random weights.
 `build_moe_layer_model` makes the Phi-3.5-MoE-form MoE layer (router MatMul
 into com.microsoft::QMoE, 4-bit experts packed by `quant4_cols`, a copy of
 the JAX package's) at the widths of the repo's MoE decode row.
+
+`build_attn23_decoder` makes an opset-23 decoder step graph of the layout
+modern torch exports write (Attention + RotaryEmbedding + TensorScatter over
+a static KV cache), with the Phi-3 layer (RMSNorm, SiLU-gated FFN, untied
+head): tests/test_llm_decode_e2e.py's `_build_step` generalised to S tokens
+a step. `PHI3_MINI` holds Phi-3-mini-4k-instruct's published widths.
 """
 
 from __future__ import annotations
@@ -290,3 +296,125 @@ def build_moe_layer_model(rows: int, hidden: int = 1024, inter: int = 1792,
     return ob.build_model_bytes(nodes, inputs=[ob.value_info("x", 1, [rows, hidden])],
                                 outputs=[ob.value_info("y", 1, [rows, hidden])],
                                 initializers=inits)
+
+
+# microsoft/Phi-3-mini-4k-instruct's published config.json: hidden 3,072, 32
+# heads and 32 kv heads of 96, SiLU-gated FFN 8,192, 32 layers, vocab 32,064
+# (untied head), RMSNorm eps 1e-5, RoPE theta 10,000 over the full head
+# (rotate-half), 4,096 positions; l_max is the static cache's slots
+PHI3_MINI = dict(hidden=3072, heads=32, kv_heads=32, head_dim=96, ffn=8192, layers=32,
+                 vocab=32064, eps=1e-5, theta=10000.0, max_pos=4096, l_max=4096, batch=1)
+
+
+def attn23_decoder_params(rng: np.random.Generator, cfg: dict) -> dict[str, np.ndarray]:
+    """Random f32 weights of `build_attn23_decoder` from a numpy generator:
+    matrices N(0, 1/fan_in), norm gains 1 + N(0, 0.1^2), embeddings N(0, 1),
+    and the RoPE cos/sin tables [max_pos, head_dim/2]."""
+    D, F, V = cfg["hidden"], cfg["ffn"], cfg["vocab"]
+    hd = cfg["head_dim"]
+    qd, kvd = cfg["heads"] * hd, cfg["kv_heads"] * hd
+
+    def mat(n_in, n_out):
+        w = rng.standard_normal((n_in, n_out), dtype=np.float32)
+        w *= np.float32(1.0 / np.sqrt(n_in))
+        return w
+
+    def gain():
+        return (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+
+    p = {"emb": rng.standard_normal((V, D), dtype=np.float32)}
+    for i in range(cfg["layers"]):
+        p[f"g1_{i}"] = gain()
+        p[f"wq{i}"], p[f"wk{i}"], p[f"wv{i}"] = mat(D, qd), mat(D, kvd), mat(D, kvd)
+        p[f"wo{i}"] = mat(qd, D)
+        p[f"g2_{i}"] = gain()
+        p[f"wg{i}"], p[f"wu{i}"], p[f"wd{i}"] = mat(D, F), mat(D, F), mat(F, D)
+    p["gf"] = gain()
+    p["head"] = mat(D, V)
+    inv = 1.0 / cfg["theta"] ** (np.arange(hd // 2) / (hd // 2))
+    t = np.arange(cfg["max_pos"])[:, None] * inv[None, :]
+    p["cos"], p["sin"] = np.cos(t).astype(np.float32), np.sin(t).astype(np.float32)
+    return p
+
+
+def build_attn23_decoder(params: dict[str, np.ndarray], s: int | str, cfg: dict) -> bytes:
+    """ONNX bytes (opset 23) of a decoder step over S = `s` tokens (an int, or
+    a dim name to pin at compile time) and a static KV cache of l_max slots:
+
+    inputs  ids [B, S] i64, position_ids [B, S] i64, write_idx [B] i64,
+            mask [B, 1, S, l_max] f32 (0 where a key slot may be read, -1e9
+            elsewhere; `attn23_step_feeds`), ck{i}, cv{i} [B, kv_heads,
+            l_max, head_dim] f32 for each layer i
+    outputs logits [B, S, vocab], then nk{i}, nv{i}: each layer's new cache
+
+    x = Gather(emb, ids); each layer: h = RMSNorm(x, g1); q, k, v = h·Wq,
+    h·Wk, h·Wv to [B, heads, S, hd]; RotaryEmbedding of q and k at
+    position_ids; TensorScatter of k and v into the caches at write_idx
+    (linear, axis -2); Attention(q, nk, nv, mask); x += att·Wo; h2 =
+    RMSNorm(x, g2); x += (Sigmoid(h2·Wg)·(h2·Wg)·(h2·Wu))·Wd. Then
+    logits = RMSNorm(x, gf)·W_head. Phi-3's fused qkv_proj and
+    gate_up_proj are separate MatMuls here: the same function."""
+    B, L, hd = cfg["batch"], cfg["l_max"], cfg["head_dim"]
+    H, KVH, eps = cfg["heads"], cfg["kv_heads"], float(cfg["eps"])
+    nodes = []
+    inits = [ob.tensor_from_array(v, k) for k, v in params.items()]
+    inits += [ob.tensor_from_array(np.array([0, 0, n, hd], np.int64), f"shp_{n}")
+              for n in sorted({H, KVH})]
+    inits.append(ob.tensor_from_array(np.array([0, 0, H * hd], np.int64), "shp_merge"))
+
+    def n(*a, **kw):
+        nodes.append(ob.node(*a, **kw))
+
+    n("Gather", ["emb", "ids"], ["x"])
+    cur, outs = "x", ["logits"]
+    for i in range(cfg["layers"]):
+        n("RMSNormalization", [cur, f"g1_{i}"], [f"h{i}"], epsilon=eps, axis=-1)
+        for t_, nh in (("q", H), ("k", KVH), ("v", KVH)):
+            n("MatMul", [f"h{i}", f"w{t_}{i}"], [f"{t_}f{i}"])
+            n("Reshape", [f"{t_}f{i}", f"shp_{nh}"], [f"{t_}r{i}"])
+            n("Transpose", [f"{t_}r{i}"], [f"{t_}4_{i}"], perm=[0, 2, 1, 3])
+        n("RotaryEmbedding", [f"q4_{i}", "cos", "sin", "position_ids"], [f"qr{i}"])
+        n("RotaryEmbedding", [f"k4_{i}", "cos", "sin", "position_ids"], [f"kr{i}"])
+        n("TensorScatter", [f"ck{i}", f"kr{i}", "write_idx"], [f"nk{i}"], axis=-2,
+          mode="linear")
+        n("TensorScatter", [f"cv{i}", f"v4_{i}", "write_idx"], [f"nv{i}"], axis=-2,
+          mode="linear")
+        n("Attention", [f"qr{i}", f"nk{i}", f"nv{i}", "mask"], [f"att{i}"])
+        n("Transpose", [f"att{i}"], [f"attT{i}"], perm=[0, 2, 1, 3])
+        n("Reshape", [f"attT{i}", "shp_merge"], [f"attF{i}"])
+        n("MatMul", [f"attF{i}", f"wo{i}"], [f"ao{i}"])
+        n("Add", [cur, f"ao{i}"], [f"r1_{i}"])
+        n("RMSNormalization", [f"r1_{i}", f"g2_{i}"], [f"hf{i}"], epsilon=eps, axis=-1)
+        n("MatMul", [f"hf{i}", f"wg{i}"], [f"gt{i}"])
+        n("Sigmoid", [f"gt{i}"], [f"sg{i}"])
+        n("Mul", [f"sg{i}", f"gt{i}"], [f"act{i}"])
+        n("MatMul", [f"hf{i}", f"wu{i}"], [f"up{i}"])
+        n("Mul", [f"act{i}", f"up{i}"], [f"gu{i}"])
+        n("MatMul", [f"gu{i}", f"wd{i}"], [f"dn{i}"])
+        n("Add", [f"r1_{i}", f"dn{i}"], [f"r2_{i}"])
+        cur = f"r2_{i}"
+        outs += [f"nk{i}", f"nv{i}"]
+    n("RMSNormalization", [cur, "gf"], ["hfin"], epsilon=eps, axis=-1)
+    n("MatMul", ["hfin", "head"], ["logits"])
+
+    inputs = [ob.value_info("ids", 7, [B, s]), ob.value_info("position_ids", 7, [B, s]),
+              ob.value_info("write_idx", 7, [B]), ob.value_info("mask", 1, [B, 1, s, L])]
+    for i in range(cfg["layers"]):
+        inputs += [ob.value_info(f"ck{i}", 1, [B, KVH, L, hd]),
+                   ob.value_info(f"cv{i}", 1, [B, KVH, L, hd])]
+    return ob.build_model_bytes(nodes, inputs=inputs,
+                                outputs=[ob.value_info(o, 1, []) for o in outs],
+                                initializers=inits, opset=23, name="attn23_decoder")
+
+
+def attn23_step_feeds(ids: np.ndarray, start: int, l_max: int) -> dict[str, np.ndarray]:
+    """The non-cache inputs of one step over ids [B, S] written from cache
+    slot `start`: positions start .. start+S-1, and the float mask that lets
+    each query read the key slots up to its own position (0; -1e9 past it),
+    as examples/llm_decode.py builds it."""
+    b, s = ids.shape
+    pos = np.arange(start, start + s, dtype=np.int64)
+    mask = np.where(np.arange(l_max)[None, :] <= pos[:, None], 0.0, -1e9).astype(np.float32)
+    return {"ids": ids.astype(np.int64), "position_ids": np.tile(pos, (b, 1)),
+            "write_idx": np.full((b,), start, np.int64),
+            "mask": np.broadcast_to(mask, (b, 1, s, l_max)).copy()}

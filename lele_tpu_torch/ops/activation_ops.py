@@ -1,10 +1,11 @@
 """Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
-Relu, Sigmoid, Softmax, Tanh and Softplus."""
+Relu, Sigmoid, Softmax, Tanh, Softplus and Gelu."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .registry import OpContext, op
 
@@ -42,3 +43,10 @@ def tanh(ctx: OpContext, x):
 def softplus(ctx: OpContext, x):
     # jax.nn.softplus's definition: logaddexp(x, 0)
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+@op("Gelu", foldable=False)
+def gelu(ctx: OpContext, x):
+    """Both forms of jax.nn.gelu: erf (approximate "none") and tanh."""
+    tanh = ctx.attr("approximate", "none") == "tanh"
+    return F.gelu(x, approximate="tanh" if tanh else "none")

@@ -1,5 +1,5 @@
 """NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
-Conv and ConvTranspose for the 1-D case (the FSMN's depthwise memory conv,
+RMSNormalization, Conv and ConvTranspose for the 1-D case (the FSMN's depthwise memory conv,
 Silero's STFT and conv stack, the Supertonic vocoder's upsampling), and the
 recurrent LSTM, GRU and RNN."""
 
@@ -126,6 +126,16 @@ def layer_norm(ctx: OpContext, x, scale, b=None):
     if n_out <= 1:
         return out
     return (out, mean, inv_std)[:n_out]
+
+
+@op("RMSNormalization", foldable=False)
+def rms_norm(ctx: OpContext, x, scale):
+    """x / sqrt(mean(x^2) + eps) * scale over the one `axis` JAX's emitter
+    reduces (lele_tpu/ops/nn_ops.py:449-456)."""
+    axis = ctx.attr("axis", -1)
+    eps = ctx.attr("epsilon", 1e-5)
+    ms = torch.mean(torch.square(x), dim=axis, keepdim=True)
+    return x / torch.sqrt(ms + eps) * scale
 
 
 

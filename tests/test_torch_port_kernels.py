@@ -179,10 +179,16 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     e_args = (torch.randn((9, 64)), torch.randn((5, 64)), torch.ones(9), torch.ones(5), est, 2)
     torch.testing.assert_close(K.estimator_blocks(*e_args), K.estimator_blocks_plain(*e_args),
                                rtol=0, atol=0)
+    qa, ka = torch.randn((1, 4, 128, 16)), torch.randn((1, 2, 256, 16))
+    amask = torch.rand((128, 256)) > 0.2
+    torch.testing.assert_close(K.flash_attention(qa, ka, ka * 0.5, amask, False, 0.25),
+                               K.flash_attention_plain(qa, ka, ka * 0.5, amask, False, 0.25),
+                               rtol=0, atol=0)
     assert K.launch_counts() == {name: 0 for name in K.KERNEL_WRAPPERS}
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
                                       "dq_gemm", "sanm_stack_dql", "lstm_seq",
-                                      "w4_gemm", "sanm_stack_w4", "gru_seq", "est_block"}
+                                      "w4_gemm", "sanm_stack_w4", "gru_seq", "est_block",
+                                      "flash_attn"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -214,9 +220,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
         "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq', 'w4_gemm',\n"
-        "    'sanm_stack_w4', 'gru_seq', 'est_block')}\n"
+        "    'sanm_stack_w4', 'gru_seq', 'est_block', 'flash_attn')}\n"
         "assert all(sys.modules['lele_tpu_torch.kernels.' + m]._fn is None\n"
-        "           for m in ('gru', 'lstm', 'w4_matmul', 'est_block'))\n"
+        "           for m in ('gru', 'lstm', 'w4_matmul', 'est_block', 'flash_attention'))\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

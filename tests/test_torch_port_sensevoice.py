@@ -180,7 +180,8 @@ def test_port_runs_without_jax():
     compiled graph behind SenseVoiceOnnx, Silero VAD native and compiled
     at both sample rates, the w4a16 model, a MatMulNBits graph, a GRU graph,
     a QMoE decode layer, and Supertonic TTS through TtsEngine (on the fused
-    estimator route) and SupertonicOnnx."""
+    estimator route) and SupertonicOnnx, and an opset-23 decoder step graph
+    (a prefill on the flash route's plain version, two decode steps)."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -265,6 +266,26 @@ def test_port_runs_without_jax():
         "dur, wave = SupertonicOnnx('fixtures', device='cpu').synthesize_latent(\n"
         "    io['ids'], io['style'], io['mask'], latent_len=32, seed=1)\n"
         "assert wave.shape == (1, 128) and np.isfinite(wave).all()\n"
+        "from lele_tpu_torch.onnx.synth import (attn23_decoder_params, attn23_step_feeds,\n"
+        "                                       build_attn23_decoder)\n"
+        "from lele_tpu_torch.ops import attention_ops\n"
+        "cfg = dict(hidden=32, heads=2, kv_heads=2, head_dim=16, ffn=48, layers=1, vocab=50,\n"
+        "           eps=1e-5, theta=1e4, max_pos=256, l_max=256, batch=1)\n"
+        "bs = build_attn23_decoder(attn23_decoder_params(rng, cfg), 'S', cfg)\n"
+        "steps = {s: compile_model(bs, dim_values={'S': s}, device='cpu', strict=True)\n"
+        "         for s in (128, 1)}\n"
+        "caches = {'ck0': np.zeros((1, 2, 256, 16), np.float32)}\n"
+        "caches['cv0'] = caches['ck0']\n"
+        "before = dict(attention_ops.ATTENTION_ROUTES)\n"
+        "ids, start = rng.integers(0, 50, (1, 128)), 0\n"
+        "for _ in range(3):\n"
+        "    logits, caches['ck0'], caches['cv0'] = steps[ids.shape[1]].run_np(\n"
+        "        **attn23_step_feeds(ids, start, 256), **caches)\n"
+        "    assert np.isfinite(logits).all()\n"
+        "    start, ids = start + ids.shape[1], logits[:, -1:].argmax(-1)\n"
+        "routes = attention_ops.ATTENTION_ROUTES\n"
+        "assert routes['flash_attn'] == before['flash_attn'] + 1, routes\n"
+        "assert routes['einsum'] == before['einsum'] + 2, routes\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
