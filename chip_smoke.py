@@ -101,7 +101,36 @@
    step; every logit row against the same requests on a compile with the
    plain Attention (teacher forced); prefill and decode times, a profile of
    the 1,920-token prefill;
-25. prints one JSON line of kernels, the card, and last
+25. holds kernel 11 (the exact int8 GEMM, csrc/int8_gemm.cu) against its
+   plain version, int32 equal, operands with -128, at a layer's four linears
+   at T = 171 and at a batch of 4 (M = 684), M = 1, JAX's ragged (50, 70,
+   30) and (37, 70, 30), 1,024^3 and 2,048^3; times kernel, plain, bound
+   and torch._int_mm;
+26. drives SenseVoice dynamic int8 at full width (`SenseVoiceConfig(
+   quantized=True)`, prepared with drop_fp and stacked, random weights from
+   a seed) behind SenseVoiceEngine with a CtcTokenizer over a synthetic
+   25,055-token vocabulary: three WAV requests answered as text, kernel 11
+   200 times a request and no other kernel; the 10 s logits against the
+   plain path; then `quant_pallas=True`: kernel 5 200 times a request, its
+   logits against the kernel 11 route; times both routes (events, host
+   clock, RTF) and profiles one forward;
+27. on phase 4's w8a16 model: `recognize_batch` of three WAVs (B = 3
+   padded to 4, the 10 s bucket; kernel 2 201 times, no layer or stack
+   kernel), the batch logits against its plain path; a 75 s request through
+   `recognize` (`transcribe_long`: 3 windows in one batch) against its plain
+   path; a quantized batch of 4 (kernel 11 at M = 684); times and RTFs;
+28. MoE (`SenseVoiceConfig(weight_int8=True, n_experts=8)`, unstacked; every
+   layer carries the MoE FFN, as JAX's init gives it): one 10 s request,
+   kernel 2 for qkv and out; the kernel path against the plain path at f32
+   activations (bf16's gap printed beside the plain path's own at a 1e-7
+   input step: top-1 routing flips on near ties);
+29. `StreamingSenseVoice.transcribe_stream` at full width (f32 masters) on
+   the 10 s request: 11 chunks of 16 frames, ids in the vocabulary, no
+   kernel; host time per chunk;
+30. the per-op compile of phase 6's int8 export (`patterns=[]`) with the
+   default MatMulInteger emitter (kernel 11, once a node) and with the f64
+   override: identical 10 s logits; both times;
+31. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -1558,6 +1587,337 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
     return llm_launches
 
 
+I8_PAIRS = ((512, 1536), (512, 512), (512, 2048), (2048, 512))  # a layer's four linears
+# (M, K, N): the path's pairs at T = 171 and at a batch of 4 in the 10 s
+# bucket, decode rows, JAX's ragged shapes, the TPU scripts' squares
+I8_SHAPES = (*((T_MAIN, k, n) for k, n in I8_PAIRS), *((4 * T_MAIN, k, n) for k, n in I8_PAIRS),
+             (1, 512, 2048), (1, 2048, 512), (50, 70, 30), (37, 70, 30), (1024, 1024, 1024),
+             (2048, 2048, 2048))
+LONG_SECONDS = 75.0
+STREAM_CHUNK = 16
+# kernel 11 route vs its plain version, and kernel 5 route vs kernel 11: the
+# same integer sums and the same f32 dequant, so 0 is expected
+QUANT_REL = 1e-6
+# MoE at f32 activations, kernel 2's f32 form vs plain: only f32 summation
+# orders differ (phase 3 holds kernel 2 to 1e-5 a call), over 50 layers
+MOE_F32_REL = 1e-3
+
+
+def device_us(fn, n: int = 20) -> dict[str, float]:
+    """Device time (us) a call of fn() by kernel name, from torch.profiler
+    over n warm calls: the kernels' own time, where CUDA events around a
+    short launch also count the host's time to issue it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: dev_time(e) / n for e in prof.key_averages()
+                if dev_time(e) > 0 and e.device_type != DeviceType.CPU}
+        if rows:
+            return rows
+    return {}
+
+
+def i8_bound(M: int, K: int, N: int) -> tuple[float, str]:
+    """Kernel 11: a and b read once, the int32 output written once; 2·M·N·K
+    int8 operations."""
+    return bound(M * K + K * N + 4 * M * N, {"int8": 2 * M * N * K})
+
+
+def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_model,
+                  sv_ref, inputs10) -> dict:
+    """Phases 25-30: kernel 11 against its plain version; SenseVoice dynamic
+    int8 at full width behind SenseVoiceEngine with a tokenizer, both
+    routes; batch and long-form on phase 4's w8 model; MoE; streaming; the
+    per-op int8 export with MatMulInteger on kernel 11. Returns the launch
+    counts of the quantized main path (phase 26)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import (
+        SenseVoiceConfig,
+        SenseVoiceModel,
+        StreamConfig,
+        StreamingSenseVoice,
+        cast_big_params,
+        prepare_quantized_params,
+        prepare_w8_params,
+        stack_layer_params,
+    )
+    from lele_tpu_torch.models.sensevoice import pad_rows
+    from lele_tpu_torch.ops.quant_ops import matmul_integer_plain
+    from lele_tpu_torch.serving import SenseVoiceEngine, decode_wav
+    from lele_tpu_torch.utils.tokenizer import CtcTokenizer, synthetic_vocab
+
+    t_phase = time.perf_counter()
+    srng = np.random.default_rng(SEED + 8)
+    last = [t_phase]
+
+    def took(n: int) -> None:
+        now = time.perf_counter()
+        print(f"  phase {n} took {now - last[0]:.1f} s")
+        last[0] = now
+
+    print("== 25. kernel 11 (int8_gemm) vs plain")
+    for M, K_, N in I8_SHAPES:
+        a = torch.randint(-128, 128, (M, K_), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (K_, N), generator=gen, device=dev, dtype=torch.int8)
+        a[0, 0] = b[0, 0] = -128
+        got, ref = K.int8_matmul(a, b), K.int8_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        d = (got - ref).abs().max().item()
+        err["int8_gemm"] = max(err["int8_gemm"], float(d))
+        checks.require(got.dtype == torch.int32 and torch.equal(got, ref),
+                       f"int8_gemm [{M},{K_}]x[{K_},{N}]: int32 equal to plain (max|d| {d})")
+    for M, K_, N in (*((T_MAIN, k, n) for k, n in I8_PAIRS), (1024, 1024, 1024),
+                     (2048, 2048, 2048)):
+        a = torch.randint(-128, 128, (M, K_), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (K_, N), generator=gen, device=dev, dtype=torch.int8)
+        t_k = time_ms(lambda: K.int8_matmul(a, b))
+        t_p = time_ms(lambda: K.int8_matmul_plain(a, b), runs=5)
+        try:  # a yardstick only: the port never calls it
+            t_l = time_ms(lambda: torch._int_mm(a, b))
+        except RuntimeError as e:
+            print(f"  torch._int_mm refused [{M},{K_}]x[{K_},{N}]: {e}")
+            t_l = None
+        b_ms, by = i8_bound(M, K_, N)
+        rows = device_us(lambda: (K.int8_matmul(a, b),
+                                  torch._int_mm(a, b) if t_l is not None else None))
+        d_k = sum(v for k, v in rows.items() if "int8_gemm_mma" in k)
+        d_l = sum(v for k, v in rows.items() if "int8_gemm_mma" not in k)
+        share = f"{100e3 * b_ms / d_k:.2f}% of it" if d_k else "not measured"
+        print(f"  int8_gemm [{M},{K_}]x[{K_},{N}]: kernel {t_k:.4f} ms, plain (f64) {t_p:.4f} "
+              f"ms, torch._int_mm {t_l} ms (CUDA events around the call); device time a call "
+              f"by the profiler: kernel {d_k:.2f} us, torch._int_mm {d_l:.2f} us; bound "
+              f"{b_ms * 1e3:.2f} us by {by}, kernel's device time at {share}  ({card})")
+        if (M, K_, N) == (T_MAIN, 512, 2048):  # ffn1 at the 10 s request: the row's numbers
+            ms["int8_gemm"], plain_ms["int8_gemm"], library_ms["int8_gemm"] = t_k, t_p, t_l
+            bounds["int8_gemm"] = (b_ms, by)
+
+    took(25)
+    print("== 26. SenseVoice dynamic int8 at full width: SenseVoiceEngine with a tokenizer")
+    t0 = time.perf_counter()
+    qcfg = SenseVoiceConfig(quantized=True)
+    qmodel = SenseVoiceModel(qcfg, device=dev)
+    f32 = qmodel.init(SEED)
+    qmodel.params = stack_layer_params(prepare_quantized_params(f32, drop_fp=True))
+    L = qcfg.n_layers
+    tok = CtcTokenizer(synthetic_vocab(qcfg.vocab_size, seed=SEED))
+    print(f"  model: {L} layers, d{qcfg.d_model}, vocab {qcfg.vocab_size}, per-tensor int8 "
+          f"layer weights; prepared in {time.perf_counter() - t0:.2f} s")
+    pcms = [synth_speechlike(s, srng) for s in REQUEST_SECONDS]
+    wavs = [wav_bytes(p) for p in pcms]
+    pcms = [decode_wav(w)[0] for w in wavs]  # what the engine decodes
+    engine = SenseVoiceEngine(model=qmodel, tokenizer=tok)
+    K.reset_launch_counts()
+    texts = [engine.recognize(w) for w in wavs]
+    torch.cuda.synchronize()
+    q_launches = K.launch_counts()
+    n_req = len(wavs)
+    for s, text in zip(REQUEST_SECONDS, texts):
+        print(f"  request {s} s: {len(text)} characters: {text[:60]!r}")
+        checks.require(isinstance(text, str), f"quantized request {s} s answered as text")
+    print(f"  launch counts over {n_req} requests: {q_launches}")
+    checks.require(q_launches["int8_gemm"] == 4 * L * n_req,
+                   f"int8_gemm launched {4 * L} times a request")
+    checks.require(all(v == 0 for k, v in q_launches.items() if k != "int8_gemm"),
+                   "no w8, w4, dq_gemm or other kernel on the quantized path")
+    pcm10 = pcms[-1]
+    fwd_q, fwd_qp = qmodel.forward_fn(), qmodel.forward_fn(plain=True)
+    got, ref = fwd_q(qmodel.params, pcm10), fwd_qp(qmodel.params, pcm10)
+    d, scale, _ = compare(got, ref)
+    checks.require(tuple(got.shape) == (1, T_MAIN, qcfg.vocab_size)
+                   and bool(torch.isfinite(got).all()) and d <= QUANT_REL * scale,
+                   f"quantized 10 s logits kernel 11 vs plain: max|d| {d:.3e} <= "
+                   f"{QUANT_REL:g} * {scale:.3e}")
+    q5 = SenseVoiceModel(dataclasses.replace(qcfg, quant_pallas=True), device=dev)
+    q5.params = qmodel.params
+    engine5 = SenseVoiceEngine(model=q5, tokenizer=tok)
+    K.reset_launch_counts()
+    texts5 = [engine5.recognize(w) for w in wavs]
+    torch.cuda.synchronize()
+    q5_launches = K.launch_counts()
+    print(f"  quant_pallas=True: launch counts over {n_req} requests: {q5_launches}")
+    checks.require(q5_launches["dq_gemm"] == 4 * L * n_req
+                   and all(v == 0 for k, v in q5_launches.items() if k != "dq_gemm"),
+                   f"quant_pallas: dq_gemm {4 * L} times a request, no int8_gemm")
+    fwd_5 = q5.forward_fn()
+    got5 = fwd_5(q5.params, pcm10)
+    d, scale, _ = compare(got5, got)
+    checks.require(d <= QUANT_REL * scale and texts5 == texts,
+                   f"quantized 10 s logits kernel 5 vs kernel 11 route: max|d| {d:.3e} <= "
+                   f"{QUANT_REL:g} * {scale:.3e}; the same texts")
+    for name, fn in (("kernel 11", fwd_q), ("kernel 5", fwd_5), ("plain", fwd_qp)):
+        t_ev = time_ms(lambda: fn(qmodel.params, pcm10), runs=10)
+        t_host = host_ms(lambda: (fn(qmodel.params, pcm10), torch.cuda.synchronize()), runs=3)
+        print(f"  quantized forward_fn 10 s, {name} route: {t_ev:.3f} ms CUDA events (RTF "
+              f"{t_ev / 1e4:.3e}), {t_host:.3f} ms host clock (RTF {t_host / 1e4:.3e})  ({card})")
+    profile_top(lambda: fwd_q(qmodel.params, pcm10), "quantized 10 s forward (kernel 11)", card)
+
+    took(26)
+    print("== 27. batch and long-form on the w8a16 model")
+    eng8 = SenseVoiceEngine(model=w8_model)
+    K.reset_launch_counts()
+    ids_b = eng8.recognize_batch(wavs)
+    torch.cuda.synchronize()
+    b_launches = K.launch_counts()
+    print(f"  recognize_batch of {n_req} (padded to 4, the 10 s bucket): {b_launches}")
+    checks.require(b_launches["w8_gemm"] == 4 * L + 1 and b_launches["sanm_layer_w8"] == 0
+                   and b_launches["sanm_stack_w8"] == 0,
+                   f"batch: w8_gemm {4 * L + 1} times (M = {4 * T_MAIN}), no layer or stack "
+                   f"kernel")
+    batch, lens = w8_model.batch_inputs(pcms)
+
+    def batch_check(label, model, batch, lens, rel_gate, agree_gate):
+        got, masks = model.forward_batch_fn()(model.params, batch, lens)
+        ref, _ = model.forward_batch_fn(plain=True)(model.params, batch, lens)
+        d, scale, _ = compare(got, ref)
+        valid = torch.cat([torch.ones_like(masks[:, :4]), masks], dim=1) > 0
+        agree = (got.argmax(-1) == ref.argmax(-1))[valid].float().mean().item()
+        checks.require(bool(torch.isfinite(got).all()) and d <= rel_gate * scale
+                       and agree >= agree_gate,
+                       f"{label} {tuple(got.shape)}: kernel vs plain max|d|/max|ref| "
+                       f"{d / scale:.3e} <= {rel_gate:g}, argmax agreement {agree:.4f} >= "
+                       f"{agree_gate}")
+
+    batch_check("batch logits", w8_model, batch, lens, 5e-2, 0.98)
+    for i, (p, row) in enumerate(zip(pcms, ids_b)):
+        single = w8_model.transcribe_ids(p)
+        same = sum(a == b for a, b in zip(row, single))
+        print(f"  row {i} ({REQUEST_SECONDS[i]} s): batch {len(row)} ids, transcribe_ids "
+              f"{len(single)} ids, {same} equal in place")
+    long_pcm = synth_speechlike(LONG_SECONDS, srng)
+    long_wav = wav_bytes(long_pcm)
+    long_pcm = decode_wav(long_wav)[0]
+    pieces, _ = w8_model.long_windows(long_pcm)
+    K.reset_launch_counts()
+    ids_long = eng8.recognize(long_wav)
+    torch.cuda.synchronize()
+    l_launches = K.launch_counts()
+    print(f"  {LONG_SECONDS} s request: {len(pieces)} windows, {len(ids_long)} ids; "
+          f"{l_launches}")
+    checks.require(len(pieces) == 3 and l_launches["w8_gemm"] == 4 * L + 1
+                   and l_launches["sanm_stack_w8"] == 0 and l_launches["sanm_layer_w8"] == 0,
+                   f"long-form: 3 windows in one batched program (w8_gemm {4 * L + 1} times)")
+    batch_check("long-form windows' logits", w8_model,
+                *pad_rows(pieces, 30 * SR), 5e-2, 0.98)
+    pcms4 = pcms + [decode_wav(wav_bytes(synth_speechlike(7.0, srng)))[0]]
+    K.reset_launch_counts()
+    qmodel.transcribe_batch(pcms4)
+    torch.cuda.synchronize()
+    qb = K.launch_counts()
+    checks.require(qb["int8_gemm"] == 4 * L and qb["dq_gemm"] == 0,
+                   f"quantized batch of 4: int8_gemm {4 * L} times at M = {4 * T_MAIN}")
+    batch_check("quantized batch logits", qmodel, *qmodel.batch_inputs(pcms4), QUANT_REL, 1.0)
+    t_b = host_ms(lambda: eng8.recognize_batch(wavs), runs=3)
+    t_l = host_ms(lambda: eng8.recognize(long_wav), runs=3)
+    t_q = host_ms(lambda: qmodel.transcribe_batch(pcms4), runs=3)
+    audio_s = sum(REQUEST_SECONDS)
+    print(f"  recognize_batch of {n_req} ({audio_s:.1f} s of audio): {t_b:.3f} ms host clock "
+          f"(RTF {t_b / (audio_s * 1e3):.3e}); {LONG_SECONDS} s request {t_l:.3f} ms (RTF "
+          f"{t_l / (LONG_SECONDS * 1e3):.3e}); quantized batch of 4 {t_q:.3f} ms  ({card})")
+
+    took(27)
+    print("== 28. MoE: SenseVoiceConfig(weight_int8=True, n_experts=8), unstacked")
+    mcfg = SenseVoiceConfig(weight_int8=True, n_experts=8)
+    mm = SenseVoiceModel(mcfg, device=dev)
+    mm.init(SEED + 28)
+    mm.params = prepare_w8_params(cast_big_params(mm.params, torch.bfloat16))
+    n_moe = sum("moe" in lp for lp in mm.params["layers"])
+    K.reset_launch_counts()
+    ids_m = mm.transcribe_ids(pcm10)
+    torch.cuda.synchronize()
+    m_launches = K.launch_counts()
+    print(f"  {n_moe} of {L} layers carry an MoE FFN (JAX's init gives every layer one); "
+          f"10 s request: {len(ids_m)} ids; {m_launches}")
+    checks.require(n_moe == L and m_launches["w8_gemm"] == 2 * L + 1
+                   and m_launches["sanm_layer_w8"] == 0 and m_launches["sanm_stack_w8"] == 0,
+                   f"MoE: qkv and out on w8_gemm ({2 * L} + the head), the FFN plain")
+    # top-1 routing is discontinuous: at bf16 activations a last-bit
+    # difference upstream (kernel 2's summation order, then a bf16 rounding
+    # in the attention) moves a near-tie token to another expert, and 50
+    # MoE layers carry it. So the kernel path is held against the plain
+    # path at f32 activations (the same weights; kernel 2's f32 form), where
+    # both sides route alike; at bf16 the gap is printed beside the plain
+    # path's own move under a 1e-7 relative step of the input
+    fwd_m, fwd_mp = mm.forward_fn(), mm.forward_fn(plain=True)
+    got, ref = fwd_m(mm.params, pcm10), fwd_mp(mm.params, pcm10)
+    step = (pcm10 * (1 + 1e-7 * srng.standard_normal(pcm10.size))).astype(np.float32)
+    noise = fwd_mp(mm.params, step)
+    checks.require(bool(torch.isfinite(got).all()), "MoE 10 s logits finite")
+    for label, g in (("kernel vs plain", got), ("plain at a 1e-7 input step vs plain", noise)):
+        d, scale, mae = compare(g, ref)
+        agree = (g.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"  MoE bf16 10 s logits, {label}: max|d|/max|ref| {d / scale:.3e}, mean|d| "
+              f"{mae:.3e} std, argmax agreement {agree:.4f}")
+    m32 = SenseVoiceModel(dataclasses.replace(mcfg, dtype="float32"), device=dev)
+    got, ref = m32.forward_fn()(mm.params, pcm10), m32.forward_fn(plain=True)(mm.params, pcm10)
+    d, scale, _ = compare(got, ref)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    checks.require(bool(torch.isfinite(got).all()) and d <= MOE_F32_REL * scale
+                   and agree >= 0.99,
+                   f"MoE f32 activations 10 s logits kernel vs plain: max|d|/max|ref| "
+                   f"{d / scale:.3e} <= {MOE_F32_REL:g}, argmax agreement {agree:.4f} >= 0.99")
+    t_m = time_ms(lambda: fwd_m(mm.params, pcm10), runs=5)
+    print(f"  MoE forward_fn 10 s: {t_m:.3f} ms CUDA events (RTF {t_m / 1e4:.3e})  ({card})")
+    del mm, got, ref
+
+    took(28)
+    print("== 29. streaming: StreamingSenseVoice.transcribe_stream at full width (f32)")
+    st = StreamingSenseVoice(cfg=SenseVoiceConfig(),
+                             stream=StreamConfig(chunk_frames=STREAM_CHUNK), device=dev)
+    st.params = f32
+    K.reset_launch_counts()
+    ids_s = st.transcribe_stream(pcm10)
+    torch.cuda.synchronize()
+    n_frames = st.fbank(pcm10).shape[0]
+    n_chunks = -(-n_frames // STREAM_CHUNK)
+    checks.require(all(0 <= i < qcfg.vocab_size for i in ids_s)
+                   and all(v == 0 for v in K.launch_counts().values()),
+                   f"stream: {n_chunks} chunks of {STREAM_CHUNK} frames, {len(ids_s)} ids in "
+                   f"[0, vocab), no kernel")
+    t_s = host_ms(lambda: st.transcribe_stream(pcm10), runs=3)
+    print(f"  transcribe_stream 10 s: {t_s:.3f} ms host clock, {t_s / n_chunks:.3f} ms a chunk "
+          f"of {STREAM_CHUNK * 60} ms of audio  ({card})")
+
+    took(29)
+    print("== 30. MatMulInteger on kernel 11: the per-op int8 export, default vs f64 override")
+    n_mmi = sum(n.op_type == "MatMulInteger" for n in sv_ref.model.graph.node)
+    t_pad = max(sv_ref._cms)
+    cm_ops = sv_ref._cms[t_pad]
+    cm_f64 = compile_model(sv_ref.model, input_shapes={"speech": (1, t_pad, 560)}, patterns=[],
+                           overrides={"MatMulInteger": matmul_integer_plain}, device=dev)
+    K.reset_launch_counts()
+    a = cm_ops(**inputs10)[0]
+    torch.cuda.synchronize()
+    o_launches = K.launch_counts()
+    b = cm_f64(**inputs10)[0]
+    torch.cuda.synchronize()
+    checks.require(o_launches["int8_gemm"] == n_mmi
+                   and all(v == 0 for k, v in o_launches.items() if k != "int8_gemm"),
+                   f"per-op graph: int8_gemm once per MatMulInteger node ({n_mmi})")
+    checks.require(torch.equal(a, b), f"per-op 10 s logits {tuple(a.shape)}: kernel 11 and the "
+                                      f"f64 override identical")
+    t_ops = host_ms(lambda: (cm_ops(**inputs10), torch.cuda.synchronize()), runs=3)
+    t_f64 = host_ms(lambda: (cm_f64(**inputs10), torch.cuda.synchronize()), runs=3)
+    print(f"  per-op 10 s forward (host clock): kernel 11 {t_ops:.3f} ms, f64 override "
+          f"{t_f64:.3f} ms  ({card})")
+    took(30)
+    print(f"  phases 25-30 took {time.perf_counter() - t_phase:.1f} s")
+    return q_launches
+
+
 def main() -> int:
     import torch
 
@@ -1935,6 +2295,8 @@ def main() -> int:
     tts_launches = supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms,
                                      bounds)
     llm_launches = llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
+    s8_launches = slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
+                                model, sv_ref, inputs10)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -1977,6 +2339,9 @@ def main() -> int:
                        f"vs f64 rel-max-err <= 2e-2 and <= 3 x max(plain's, 1e-6); vs plain "
                        f"max|d| <= {FLASH_REL:g}*max|ref|; Phi-3 logits vs plain-Attention "
                        f"<= {LLM_REL:g}*max|ref|", llm_launches),
+        "int8_gemm": ("lele_tpu_torch/csrc/int8_gemm.cu", "lele_tpu/kernels/quant_matmul.py:355",
+                      f"exact (int32); quantized logits vs plain <= {QUANT_REL:g}*max|ref|",
+                      s8_launches),
     }
     forms = {  # kernels with more than one form: which the numbers are of
         "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
@@ -1990,11 +2355,14 @@ def main() -> int:
         "flash_attn": "f32 FFMA, 64-row q tiles, 64-key tiles, one-pass online softmax, any "
                       "D % 8 == 0 (times: the Phi-3 prefill, B=1 H=32 Lq=1,920 Lk=4,096 D=96 "
                       "with its float mask)",
+        "int8_gemm": "mma.sync m16n8k32 s8, 64x64 / 32x64 / 32x32 tiles (times: ffn1 of the "
+                     "10 s request, [171,512]x[512,2048])",
     }
     library = {  # where no single PyTorch call computes the kernel's function
         "est_block": "composite: the 8 blocks as bf16 library calls (addmm, layer_norm, "
                      "scaled_dot_product_attention, gelu)",
         "flash_attn": "F.scaled_dot_product_attention, f32 inputs, TF32 off",
+        "int8_gemm": "torch._int_mm (i8 x i8 -> i32)",
     }
     print(f"chip_smoke: every check passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

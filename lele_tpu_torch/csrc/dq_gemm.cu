@@ -20,3 +20,20 @@ extern "C" int dq_gemm(const void* x, const void* w, const void* colsum,
                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The same with the weight scale read on the device: ws f32 [N] (the
+// per-tensor scale of a dynamic-int8 linear, broadcast by the caller), so no
+// linear waits on the host for it. ws[n] takes w_scale's place in the
+// epilogue's one product, so the bits are dq_gemm's for the same value.
+extern "C" int dq_gemm_ws(const void* x, const void* w, const void* colsum,
+                          const void* a_scale, const void* a_zp, const void* ws, void* y,
+                          void* qbuf, int M, int K, int N, void* stream) {
+  const lele::DqlSrc src{static_cast<const float*>(a_scale),
+                         static_cast<const float*>(a_zp), nullptr};
+  const lele::DqEpilogue ep{static_cast<const int*>(colsum), static_cast<const float*>(ws),
+                            0.f, nullptr, nullptr, 0, nullptr};
+  lele::launch_dq_gemm(static_cast<const float*>(x), static_cast<int8_t*>(qbuf),
+                       static_cast<const int8_t*>(w), static_cast<float*>(y), M, K, N, src, ep,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}

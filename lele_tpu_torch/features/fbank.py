@@ -20,7 +20,7 @@ from .filters import hann_window, mel_filterbank
 from .framing import frame_signal
 from .lfr import lfr_stack
 
-__all__ = ["FbankConfig", "FbankFrontend", "fbank_features"]
+__all__ = ["FbankConfig", "FbankFrontend", "fbank_features", "fbank_features_batch"]
 
 
 @dataclass
@@ -82,55 +82,86 @@ def fbank_features(pcm, config: FbankConfig, window: torch.Tensor,
     tensor → [T_lfr, n_mels*lfr_m] f32 on `window`'s device.
 
     With `n_valid` (≤ n_samples, the length-bucketing path) CMVN covers only
-    the valid frames and the function returns (features, frame_mask)."""
+    the valid frames and the function returns (features, frame_mask): the
+    batched front-end's row."""
     c = config
     dev = window.device
     if isinstance(pcm, np.ndarray):
         pcm = torch.from_numpy(np.ascontiguousarray(pcm))
     pcm = pcm.to(dev)
-    n = int(pcm.shape[-1])
-    frame_len, hop = c.frame_len, c.hop_len
-    if n < frame_len:
-        d = c.n_mels * (c.lfr_m if c.apply_lfr else 1)
-        empty = torch.zeros((0, d), dtype=torch.float32, device=dev)
-        if n_valid is not None:
-            return empty, torch.zeros((0,), dtype=torch.float32, device=dev)
-        return empty
-    n_frames = c.num_frames(n)
-    raw = frame_signal(pcm, frame_len, hop)
+    if n_valid is not None:
+        feats, masks = fbank_features_batch(pcm[None], c, window, mel_t, [int(n_valid)])
+        return feats[0], masks[0]
+    if int(pcm.shape[-1]) < c.frame_len:
+        return torch.zeros((0, c.n_mels * (c.lfr_m if c.apply_lfr else 1)),
+                           dtype=torch.float32, device=dev)
+    out = _log_mel(pcm, c, window, mel_t)
+    if c.apply_lfr:
+        out = lfr_stack(out, c.lfr_m, c.lfr_n)
+    if c.apply_cmvn:
+        out = cmvn(out)
+    return out.float()
+
+
+def _log_mel(pcm: torch.Tensor, c: FbankConfig, window: torch.Tensor,
+             mel_t: torch.Tensor) -> torch.Tensor:
+    """[..., n] PCM (n ≥ one frame) → log-mel [..., n_frames, n_mels]."""
+    raw = frame_signal(pcm, c.frame_len, c.hop_len)
     if pcm.dtype == torch.int16:
         frames = raw.float()  # i16 PCM carries the ×32768 scale natively
     else:
         frames = raw.float() * c.scale
-    frames = frames - frames.mean(dim=1, keepdim=True)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
     pre = torch.cat(
-        [frames[:, :1], frames[:, 1:] - c.preemphasis * frames[:, :-1]], dim=1
+        [frames[..., :1], frames[..., 1:] - c.preemphasis * frames[..., :-1]], dim=-1
     )
-    spec = torch.fft.rfft(pre * window, n=c.n_fft, dim=1)
-    power = spec.real.square() + spec.imag.square()  # [T, n_freqs]
+    spec = torch.fft.rfft(pre * window, n=c.n_fft, dim=-1)
+    power = spec.real.square() + spec.imag.square()  # [..., T, n_freqs]
     mel = power @ mel_t
-    out = torch.log(torch.clamp(mel, min=c.log_floor))
-    mask = None
-    valid_frames = None
-    if n_valid is not None:
-        valid_frames = max((int(n_valid) - frame_len) // hop + 1, 0)
-        mask = (torch.arange(n_frames, device=dev) < valid_frames).float()
+    return torch.log(torch.clamp(mel, min=c.log_floor))
+
+
+def fbank_features_batch(pcm, config: FbankConfig, window: torch.Tensor,
+                         mel_t: torch.Tensor, n_valid):
+    """The bucketing path over a batch: pcm [B, n] padded (numpy or tensor)
+    and n_valid [B] valid lengths → (features [B, T_lfr, n_mels*lfr_m],
+    frame masks [B, T_lfr]) on `window`'s device; row b is
+    `fbank_features(pcm[b], ..., n_valid=n_valid[b])` (JAX vmaps that
+    function). The lengths stay on the device: no row waits on the host.
+    A row with n_valid = 0 has an all-zero mask, and its CMVN divides by
+    max(Σmask, 1)."""
+    c = config
+    dev = window.device
+    if isinstance(pcm, np.ndarray):
+        pcm = torch.from_numpy(np.ascontiguousarray(pcm))
+    pcm = pcm.to(dev)
+    n_valid = torch.as_tensor(n_valid).to(device=dev, dtype=torch.int64)
+    B, n = pcm.shape
+    if n < c.frame_len:
+        d = c.n_mels * (c.lfr_m if c.apply_lfr else 1)
+        return (torch.zeros((B, 0, d), dtype=torch.float32, device=dev),
+                torch.zeros((B, 0), dtype=torch.float32, device=dev))
+    out = _log_mel(pcm, c, window, mel_t)  # [B, T, n_mels]
+    n_frames = out.shape[1]
+    valid_frames = torch.clamp(
+        torch.div(n_valid - c.frame_len, c.hop_len, rounding_mode="floor") + 1, min=0)
+    mask = (torch.arange(n_frames, device=dev)[None] < valid_frames[:, None]).float()
     if c.apply_lfr:
-        out = lfr_stack(out, c.lfr_m, c.lfr_n, n_valid=valid_frames)
-        if mask is not None:
-            valid_lfr = -(-valid_frames // c.lfr_n)
-            mask = (torch.arange(out.shape[0], device=dev) < valid_lfr).float()
+        m, step = c.lfr_m, c.lfr_n
+        t_lfr = -(-n_frames // step)
+        idx = (torch.arange(t_lfr, device=dev)[:, None] * step
+               + torch.arange(m, device=dev)[None, :] - (m - 1) // 2).clamp(0, n_frames - 1)
+        idx = torch.minimum(idx[None], torch.clamp(valid_frames - 1, min=0)[:, None, None])
+        rows = torch.arange(B, device=dev)[:, None, None]
+        out = out[rows, idx].reshape(B, t_lfr, m * out.shape[-1])
+        valid_lfr = torch.div(valid_frames + step - 1, step, rounding_mode="floor")
+        mask = (torch.arange(t_lfr, device=dev)[None] < valid_lfr[:, None]).float()
     if c.apply_cmvn:
-        if mask is not None:
-            denom = torch.clamp(mask.sum(), min=1.0)
-            mean = (out * mask[:, None]).sum(dim=0, keepdim=True) / denom
-            var = torch.clamp(
-                (out.square() * mask[:, None]).sum(dim=0, keepdim=True) / denom
-                - mean**2,
-                min=0.0,
-            )
-            out = (out - mean) / torch.sqrt(var + 1e-5)
-        else:
-            out = cmvn(out)
-    out = out.float()
-    return (out, mask) if n_valid is not None else out
+        denom = torch.clamp(mask.sum(dim=1), min=1.0)[:, None, None]
+        mean = (out * mask[..., None]).sum(dim=1, keepdim=True) / denom
+        var = torch.clamp(
+            (out.square() * mask[..., None]).sum(dim=1, keepdim=True) / denom - mean**2,
+            min=0.0,
+        )
+        out = (out - mean) / torch.sqrt(var + 1e-5)
+    return out.float(), mask

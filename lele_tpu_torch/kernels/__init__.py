@@ -18,6 +18,8 @@ from .quant_matmul import (  # noqa: F401
     dynamic_quantize_u8,
     fused_dq_matmul,
     fused_dq_matmul_plain,
+    int8_matmul,
+    int8_matmul_plain,
     quantize_weight_int8,
     w8_matmul,
     w8_matmul_plain,
@@ -52,6 +54,7 @@ KERNEL_WRAPPERS = {
     "gru_seq": gru_seq,
     "est_block": estimator_blocks,
     "flash_attn": flash_attention,
+    "int8_gemm": int8_matmul,
 }
 
 

@@ -23,9 +23,21 @@ do (`_fused_dq_matmul_jnp`); the Pallas kernel multiplies by the reciprocal,
 which lands one step off at rounding boundaries. On the compiled main path
 it is the CTC head, [T, 512] x [512, 25055].
 
+`w_scale` is a host float (the compiled graph's constant) or a device
+tensor of 1 or N values (a dynamic-int8 linear's per-tensor scale, which
+goes to the kernel through a pointer, broadcast to [N], so no linear waits
+on the host for it).
+
+Exact int8 product (i8 × i8 → i32): `int8_matmul` replaces
+`pallas_int8_matmul` (lele_tpu/kernels/quant_matmul.py:355). The kernel is
+csrc/int8_gemm.cu, kernel 5's s8 tile core without its quantize pass and
+epilogue. On the main path it is the product of SenseVoice's dynamic-int8
+linears (`quantized=True`) and of the MatMulInteger emitter, where JAX runs
+a plain XLA int8 dot.
+
 Each wrapper takes its plain version only for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises. `w8_matmul.launches` and
-`fused_dq_matmul.launches` count launches.
+tensor it launches the kernel or raises. `w8_matmul.launches`,
+`fused_dq_matmul.launches` and `int8_matmul.launches` count launches.
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ _AMODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _DQ_STEM = "dq_gemm"
 _dq_fn = None
+_dq_ws_fn = None
+_I8_STEM = "int8_gemm"
+_i8_fn = None
 
 
 def quantize_weight_int8(w: torch.Tensor, axis: int = 0):
@@ -139,7 +154,7 @@ def dynamic_quantize_u8(x: torch.Tensor):
 
 def fused_dq_matmul_plain(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Tensor,
                           a_scale: torch.Tensor, a_zp: torch.Tensor,
-                          w_scale: float) -> torch.Tensor:
+                          w_scale: float | torch.Tensor) -> torch.Tensor:
     """((q(x) − 128) @ wq − (zp − 128)·colsum) · (a_scale·w_scale), f32 [M, N].
 
     The int32 sum is formed as an exact float64 product (|sum| < 2^53), then
@@ -150,7 +165,7 @@ def fused_dq_matmul_plain(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Ten
     return acc.to(torch.float32) * (a_scale * w_scale)
 
 
-def _dq_check(x, wq, w_colsum, a_scale, a_zp):
+def _dq_check(x, wq, w_colsum, a_scale, a_zp, w_scale):
     if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0]:
         raise ValueError(f"fused_dq_matmul: shapes {tuple(x.shape)} @ {tuple(wq.shape)}")
     if (x.dtype != torch.float32 or wq.dtype != torch.int8
@@ -164,17 +179,20 @@ def _dq_check(x, wq, w_colsum, a_scale, a_zp):
     for t in (wq, w_colsum, a_scale, a_zp):
         if t.device != x.device:
             raise ValueError("fused_dq_matmul: tensors on different devices")
+    if isinstance(w_scale, torch.Tensor):
+        if (w_scale.dtype != torch.float32 or w_scale.numel() not in (1, wq.shape[1])
+                or w_scale.device != x.device):
+            raise ValueError("fused_dq_matmul: a tensor w_scale is f32 on x's device, "
+                             "1 or N values")
 
 
-def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float):
+def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float | torch.Tensor):
     """Launch csrc/dq_gemm.cu on x's card and stream."""
-    global _dq_fn
+    global _dq_fn, _dq_ws_fn
     if not x.is_cuda:
         raise ValueError(f"fused_dq_matmul_kernel: x lies on {x.device}, not on a CUDA card")
-    _dq_check(x, wq, w_colsum, a_scale, a_zp)
-    if _dq_fn is None:
-        P, I, F = _build.P, _build.I, _build.F
-        _dq_fn = _build.bind(_DQ_STEM, "dq_gemm", [P, P, P, P, P, F, P, P, I, I, I, P])
+    _dq_check(x, wq, w_colsum, a_scale, a_zp, w_scale)
+    P, I, F = _build.P, _build.I, _build.F
     x, wq, w_colsum = x.contiguous(), wq.contiguous(), w_colsum.contiguous()
     a_scale, a_zp = a_scale.contiguous(), a_zp.contiguous()
     M, K = x.shape
@@ -182,9 +200,19 @@ def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float):
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     codes = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _dq_fn(x.data_ptr(), wq.data_ptr(), w_colsum.data_ptr(), a_scale.data_ptr(),
-                  a_zp.data_ptr(), float(w_scale), y.data_ptr(), codes.data_ptr(), M, K, N,
-                  stream)
+    if isinstance(w_scale, torch.Tensor):
+        if _dq_ws_fn is None:
+            _dq_ws_fn = _build.bind(_DQ_STEM, "dq_gemm_ws", [P, P, P, P, P, P, P, P, I, I, I, P])
+        ws = w_scale.reshape(-1).expand(N).contiguous()
+        code = _dq_ws_fn(x.data_ptr(), wq.data_ptr(), w_colsum.data_ptr(), a_scale.data_ptr(),
+                         a_zp.data_ptr(), ws.data_ptr(), y.data_ptr(), codes.data_ptr(),
+                         M, K, N, stream)
+    else:
+        if _dq_fn is None:
+            _dq_fn = _build.bind(_DQ_STEM, "dq_gemm", [P, P, P, P, P, F, P, P, I, I, I, P])
+        code = _dq_fn(x.data_ptr(), wq.data_ptr(), w_colsum.data_ptr(), a_scale.data_ptr(),
+                      a_zp.data_ptr(), float(w_scale), y.data_ptr(), codes.data_ptr(),
+                      M, K, N, stream)
     _build.check(_DQ_STEM, "dq_gemm", code)
     fused_dq_matmul.launches += 1
     return y
@@ -192,14 +220,69 @@ def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float):
 
 def fused_dq_matmul(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Tensor,
                     a_scale: torch.Tensor, a_zp: torch.Tensor,
-                    w_scale: float) -> torch.Tensor:
+                    w_scale: float | torch.Tensor) -> torch.Tensor:
     """x f32 [M, K], wq i8 [K, N] (u8 weights pre-shifted by −128), w_colsum
     i32 [N], a_scale and a_zp f32 device scalars (from `dql_scale_zp`),
-    w_scale a float → f32 [M, N]."""
+    w_scale a float or an f32 tensor of 1 or N values → f32 [M, N]."""
     if x.device.type == "cpu":
-        _dq_check(x, wq, w_colsum, a_scale, a_zp)
+        _dq_check(x, wq, w_colsum, a_scale, a_zp, w_scale)
         return fused_dq_matmul_plain(x, wq, w_colsum, a_scale, a_zp, w_scale)
     return fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale)
 
 
 fused_dq_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exact int8 GEMM (kernel: csrc/int8_gemm.cu)
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a i8 [M, K] @ b i8 [K, N] → i32 [M, N]: the exact float64 product
+    (every |partial sum| < 2^53, ops/quant_ops.py), rounded to int32. One
+    function for both devices: a card has no integer matmul."""
+    return torch.round(a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def _i8_check(a, b):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul: dtypes {a.dtype}, {b.dtype}")
+    if b.device != a.device:
+        raise ValueError("int8_matmul: tensors on different devices")
+
+
+def int8_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/int8_gemm.cu on a's card and stream."""
+    global _i8_fn
+    if not a.is_cuda:
+        raise ValueError(f"int8_matmul_kernel: a lies on {a.device}, not on a CUDA card")
+    _i8_check(a, b)
+    if _i8_fn is None:
+        P, I = _build.P, _build.I
+        _i8_fn = _build.bind(_I8_STEM, "int8_gemm", [P, P, P, I, I, I, P])
+    a, b = a.contiguous(), b.contiguous()
+    M, K = a.shape
+    N = b.shape[1]
+    c = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    if c.numel() == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = _i8_fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, K, N, stream)
+    _build.check(_I8_STEM, "int8_gemm", code)
+    int8_matmul.launches += 1
+    return c
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a i8 [M, K] @ b i8 [K, N] → i32 [M, N], exact."""
+    if a.device.type == "cpu":
+        _i8_check(a, b)
+        return int8_matmul_plain(a, b)
+    return int8_matmul_kernel(a, b)
+
+
+int8_matmul.launches = 0

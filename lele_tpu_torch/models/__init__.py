@@ -1,6 +1,7 @@
 """Model families of the port (counterpart of lele_tpu.models): SenseVoice
-(w8a16 and w4a16), Silero VAD and Supertonic TTS, native; all three also
-run from ONNX (`models.checkpoints`)."""
+(f32/bf16, w8a16, w4a16, dynamic int8, MoE; batch, long-form and
+streaming), Silero VAD and Supertonic TTS, native; all three also run from
+ONNX (`models.checkpoints`)."""
 
 from .checkpoints import SenseVoiceOnnx, SileroOnnx, SupertonicOnnx  # noqa: F401
 from .common import cast_big_params  # noqa: F401
@@ -9,10 +10,18 @@ from .sensevoice import (  # noqa: F401
     SenseVoiceModel,
     greedy_ctc_decode,
     init_sensevoice,
+    moe_ffn,
+    prepare_quantized_params,
     prepare_w4_params,
     prepare_w8_params,
     sensevoice_encode,
     stack_layer_params,
+)
+from .sensevoice_stream import (  # noqa: F401
+    StreamConfig,
+    StreamingSenseVoice,
+    init_stream_state,
+    stream_step,
 )
 from .silero import (  # noqa: F401
     SileroConfig,

@@ -1,5 +1,5 @@
-"""SenseVoice-style ASR encoder, w8a16 and w4a16 (counterpart of
-lele_tpu/models/sensevoice.py).
+"""SenseVoice-style ASR encoder: f32/bf16, w8a16, w4a16, dynamic int8 and
+MoE (counterpart of lele_tpu/models/sensevoice.py).
 
 560-dim LFR fbank features → 4 prefix query frames → embed linear +
 sinusoidal positions → N SAN-M blocks (self-attention + FSMN memory conv)
@@ -18,9 +18,15 @@ versions. `plain=True` runs every kernel's plain version on any device: it
 is the oracle the kernels are held against on the card, never the main
 path.
 
-Not ported yet (each raises NotImplementedError): dynamic-int8 linears
-(`quantized`), MoE (`n_experts`), batch > 1 serving (`transcribe_batch`),
-long-form audio (`transcribe_long`).
+Dynamic int8 (`quantized`, JAX's reference-parity mode): each layer linear
+quantizes its whole activation tensor with ONNX DynamicQuantizeLinear and
+runs the i8 product on kernel 11 (`int8_matmul`), or the whole linear on
+kernel 5 (`fused_dq_matmul`) with `quant_pallas`; quantized layers never
+take the layer or stack kernels, and the CTC head stays a plain linear.
+`n_experts` gives every layer a top-1 MoE FFN (plain PyTorch, as JAX has no
+kernel there). At batch > 1 (`transcribe_batch`, `transcribe_long`) the w8
+and w4 models run per layer with kernels 2 and 7 at M = B·T rows: the layer
+and stack kernels are batch-1 only, as the TPU's are.
 """
 
 from __future__ import annotations
@@ -30,11 +36,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import default_device
-from ..features import FbankConfig, FbankFrontend, fbank_features
+from ..features import FbankConfig, FbankFrontend, fbank_features, fbank_features_batch
 from ..kernels import (
+    fused_dq_matmul,
+    fused_dq_matmul_plain,
     fused_layer_available,
+    int8_matmul,
+    int8_matmul_plain,
     sanm_layer_w8,
     sanm_layer_w8_plain,
     sanm_stack_w4,
@@ -46,10 +57,10 @@ from ..kernels import (
     w8_matmul,
     w8_matmul_plain,
 )
-from ..kernels.quant_matmul import quantize_weight_int8
+from ..kernels.quant_matmul import dql_quantize, dql_scale_zp, quantize_weight_int8
 from ..kernels.sanm_block import fsmn_conv, layer_kernel_takes, layer_view
 from ..kernels.w4_matmul import quantize_weight_int4
-from ..runtime.bucketing import max_bucket_samples, pad_pcm
+from ..runtime.bucketing import max_bucket_samples, pad_batch_pow2, pad_pcm
 from .common import (
     Params,
     init_layer_norm,
@@ -75,29 +86,22 @@ class SenseVoiceConfig:
     n_prefix: int = 4  # language / event / emotion / textnorm query frames
     dropout: float = 0.0  # inference
     dtype: str = "bfloat16"
-    quantized: bool = False  # dynamic-int8 linears: not ported
-    quant_pallas: bool = False  # (JAX only)
+    quantized: bool = False  # dynamic-int8 linears (kernel 11)
+    quant_pallas: bool = False  # quantized linears on kernel 5 instead
     weight_int4: bool = False  # w4a16: groupwise int4 weights (group 128)
     weight_int8: bool = False  # w8a16: int8 weights, per-output-channel scales
     fused_block: bool = True  # batch 1 + weight_int8/int4: the layer/stack kernels
     remat: bool = False  # (JAX training only)
-    n_experts: int = 0  # MoE FFN: not ported
+    n_experts: int = 0  # > 0: a top-1 mixture-of-experts FFN in every layer
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
 
-def _check_ported(cfg: SenseVoiceConfig) -> None:
-    if cfg.quantized or cfg.n_experts > 0:
-        raise NotImplementedError(
-            "the port runs SenseVoice in f32/bf16, w8a16 and w4a16 only; dynamic-int8 "
-            "and MoE are not ported yet")
-
-
 def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
-    """Random f32 params on `gen`'s device, shapes and scales as the JAX init."""
-    _check_ported(cfg)
+    """Random f32 params on `gen`'s device, shapes and scales as the JAX init
+    (with `n_experts`, every layer gets a `moe` subtree, as JAX's loop does)."""
     dev = gen.device
     p: Params = {
         "embed": init_linear(gen, cfg.input_dim, cfg.d_model),
@@ -119,7 +123,27 @@ def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
             "ffn1": init_linear(gen, d, cfg.ffn_dim),
             "ffn2": init_linear(gen, cfg.ffn_dim, d),
         })
+        if cfg.n_experts > 0:
+            E, f = cfg.n_experts, cfg.ffn_dim
+            p["layers"][-1]["moe"] = {
+                "router": init_linear(gen, d, E, bias=False),
+                "w1": torch.randn((E, d, f), generator=gen, device=dev) * (1.0 / np.sqrt(d)),
+                "w2": torch.randn((E, f, d), generator=gen, device=dev) * (1.0 / np.sqrt(f)),
+            }
     return p
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: SenseVoiceConfig) -> torch.Tensor:
+    """Top-1 routed mixture-of-experts FFN, dense dispatch: every expert
+    computes, a one-hot contraction selects, and the output is gated by the
+    chosen expert's probability (JAX `moe_ffn`)."""
+    probs = torch.softmax(linear(p["router"], x).float(), dim=-1)  # [B, T, E]
+    onehot = F.one_hot(probs.argmax(dim=-1), cfg.n_experts).to(x.dtype)
+    gate = (probs * onehot).sum(dim=-1, keepdim=True)
+    h = torch.relu(torch.einsum("btd,edf->btef", x.float(), p["w1"].float()))
+    y = torch.einsum("btef,efd->bted", h, p["w2"].float())
+    y = torch.einsum("bted,bte->btd", y, onehot.to(y.dtype))
+    return y * gate.to(y.dtype)
 
 
 _W8_LINEAR_KEYS = ("qkv", "out", "ffn1", "ffn2", "ctc")
@@ -171,6 +195,44 @@ def prepare_w4_params(params: Params, drop_fp: bool = True, group: int = 128) ->
     return _prepare(params, prep)
 
 
+_QUANT_LINEAR_KEYS = ("qkv", "out", "ffn1", "ffn2")  # the CTC head stays f32
+
+
+def _quantize_per_tensor(w: torch.Tensor):
+    """Symmetric per-tensor int8: (wq int8, w_scale 0-d, colsum int32 [N]),
+    in the weight's own type as JAX's (a bf16 master gives a bf16 scale).
+    The scale is a device divisor: on a card torch divides by a host scalar
+    as a multiplication by its reciprocal."""
+    absmax = w.abs().max()
+    w_scale = absmax / torch.full_like(absmax, 127.0)
+    wq = torch.clamp(torch.round(w / w_scale), -127, 127).to(torch.int8)
+    return wq, w_scale, wq.to(torch.int32).sum(dim=0, dtype=torch.int32)
+
+
+def prepare_quantized_params(params: Params, drop_fp: bool = False) -> Params:
+    """Per-tensor symmetric int8 of every layer linear, once: "wq" int8,
+    "wscale" (a 0-d device tensor) and "wcolsum" int32 [N] for the
+    zero-point correction; with drop_fp the float weight is removed."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if k in _QUANT_LINEAR_KEYS and isinstance(v, dict) and "w" in v:
+                    v = dict(v)
+                    v["wq"], v["wscale"], v["wcolsum"] = _quantize_per_tensor(v["w"])
+                    if drop_fp:
+                        del v["w"]
+                    out[k] = v
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
+
+
 def stack_layer_params(params: Params) -> Params:
     """[{layer}, ...] → one tree with a leading layer axis on every leaf
     ("layers_stacked"). Run once at load time: it copies every weight."""
@@ -185,9 +247,11 @@ def stack_layer_params(params: Params) -> Params:
 
 
 _KERNELS = {"w8": w8_matmul, "layer": sanm_layer_w8, "stack": sanm_stack_w8,
-            "w4": w4_matmul, "stack4": sanm_stack_w4}
+            "w4": w4_matmul, "stack4": sanm_stack_w4, "i8": int8_matmul,
+            "dq": fused_dq_matmul}
 _PLAIN = {"w8": w8_matmul_plain, "layer": sanm_layer_w8_plain, "stack": sanm_stack_w8_plain,
-          "w4": w4_matmul_plain, "stack4": sanm_stack_w4_plain}
+          "w4": w4_matmul_plain, "stack4": sanm_stack_w4_plain, "i8": int8_matmul_plain,
+          "dq": fused_dq_matmul_plain}
 
 
 def _ops(plain: bool) -> dict:
@@ -210,6 +274,34 @@ def _w4_linear(p: Params, x: torch.Tensor, dtype: torch.dtype, group: int = 128,
     lead = x.shape[:-1]
     y = w4(x.reshape(-1, x.shape[-1]).to(dtype), p["wq4"], p["ws4"], group)
     y = y.reshape(*lead, p["wq4"].shape[-1])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _quant_linear(p: Params, x: torch.Tensor, ops: dict, fused: bool = False):
+    """Dynamic-int8 linear (JAX `_quant_linear`): x's whole tensor quantized
+    by ONNX DynamicQuantizeLinear (one scale and zero point over every row,
+    the padding and the batch's other rows included, as in JAX), the prepared
+    weight ("wq", "wscale", "wcolsum"; else the f32 weight quantized per
+    tensor here, each call). The i8 product runs on kernel 11 over the
+    flattened rows; the zero-point correction and the dequant follow in
+    JAX's order. `fused` runs the whole linear on kernel 5 instead."""
+    if "wq" in p:
+        wi, w_scale, colsum = p["wq"], p["wscale"], p["wcolsum"]
+    else:
+        wi, w_scale, colsum = _quantize_per_tensor(p["w"])
+    xf = x.float()
+    lead, K, N = x.shape[:-1], x.shape[-1], wi.shape[-1]
+    a_scale, a_zp = dql_scale_zp(xf)
+    if fused:
+        y = ops["dq"](xf.reshape(-1, K), wi, colsum, a_scale, a_zp, w_scale.float())
+    else:
+        ai = (dql_quantize(xf, a_scale, a_zp) - 128.0).to(torch.int8)
+        c = ops["i8"](ai.reshape(-1, K), wi)
+        c = c - (a_zp - 128.0).to(torch.int32) * colsum.reshape(1, -1)
+        y = c.float() * (a_scale * w_scale)
+    y = y.reshape(*lead, N)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -239,7 +331,10 @@ def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceCo
     if cfg.weight_int8 and cfg.fused_block and B == 1 and fused_layer_available(cfg, p):
         y = ops["layer"](x[0].float(), mask[0].float(), p, cfg.n_heads, cfg.fsmn_kernel)
         return y[None].to(x.dtype)
-    if cfg.weight_int4:
+    if cfg.quantized:
+        def lin(pp, v):
+            return _quant_linear(pp, v, ops, fused=cfg.quant_pallas)
+    elif cfg.weight_int4:
         def lin(pp, v):
             return (_w4_linear(pp, v, dt, w4=ops["w4"]) if "wq4" in pp
                     else linear(pp, v, dtype=dt))
@@ -267,14 +362,16 @@ def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceCo
     x = x + lin(p["out"], ctx + fsmn).to(x.dtype)
 
     h2 = layer_norm(p["norm2"], x)
-    ff = lin(p["ffn2"], torch.relu(lin(p["ffn1"], h2)))
+    if cfg.n_experts > 0 and "moe" in p:
+        ff = moe_ffn(p["moe"], h2, cfg)
+    else:
+        ff = lin(p["ffn2"], torch.relu(lin(p["ffn1"], h2)))
     return x + ff.to(x.dtype)
 
 
 def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
                       cfg: SenseVoiceConfig, plain: bool = False) -> torch.Tensor:
     """feats: [B, T, 560]; mask: [B, T] → logits f32 [B, T+4, vocab]."""
-    _check_ported(cfg)
     B, T, _ = feats.shape
     ops = _ops(plain)
     x = feats.float()
@@ -364,13 +461,78 @@ class SenseVoiceModel:
 
         return fn
 
+    def forward_batch_fn(self, plain: bool = False):
+        """(params, pcm [B, n] padded, n_valid [B]) → (logits [B, T+4, vocab],
+        frame masks [B, T]): the batched front-end, then one encode of the
+        whole batch (JAX `_batched_ids`' traced body, before its argmax)."""
+        cfg, fb = self.cfg, self.fbank
+
+        @torch.inference_mode()
+        def fn(params, pcm_b, n_valid_b):
+            feats, masks = fbank_features_batch(pcm_b, fb.config, fb.window, fb.mel_t,
+                                                n_valid_b)
+            return sensevoice_encode(params, feats, masks, cfg, plain=plain), masks
+
+        return fn
+
+    def transcribe_long(self, pcm: np.ndarray, blank_id: int = 0, window_s: float = 30.0,
+                        overlap_s: float = 2.0, sr: int = 16000) -> list[int]:
+        """Long-form audio: overlapping windows decoded as one batch; each
+        window drops its margin frames (half the overlap) before its own CTC
+        collapse, so a token repeated across a seam is kept twice, as in JAX.
+        Audio of at most one window goes to `transcribe_ids`."""
+        win = int(window_s * sr)
+        if len(pcm) <= win:
+            return self.transcribe_ids(pcm, blank_id)
+        c = self.fbank.config
+        margin_frames = int(overlap_s * sr / 2 / c.hop_len / c.lfr_n)
+        pieces, starts = self.long_windows(pcm, window_s, overlap_s, sr)
+        ids: list[int] = []
+        for (frame_ids, valid), s0 in zip(self._batched_window_ids(pieces, win), starts):
+            lo = margin_frames if s0 > 0 else 0
+            hi = valid - (margin_frames if s0 + win < len(pcm) else 0)
+            ids.extend(_collapse_ids(frame_ids[lo:hi], blank_id))
+        return ids
+
+    def long_windows(self, pcm: np.ndarray, window_s: float = 30.0, overlap_s: float = 2.0,
+                     sr: int = 16000):
+        """The windows of `transcribe_long`: (pieces, start samples), a hop of
+        window − overlap, up to a last piece of at least one frame."""
+        win = int(window_s * sr)
+        hop = win - int(overlap_s * sr)
+        pieces, starts = [], []
+        start = 0
+        while start < len(pcm):
+            piece = pcm[start:start + win]
+            if len(piece) < self.fbank.config.frame_len:
+                break
+            pieces.append(np.asarray(piece, np.float32))
+            starts.append(start)
+            start += hop
+        return pieces, starts
+
+    def _batched_ids(self, batch: np.ndarray, lens: np.ndarray):
+        """[B, n] padded PCM + [B] valid lengths → (per-frame ids [B, T] int32,
+        masks [B, T]), numpy; the argmax runs on the device, so only the ids
+        and masks come back."""
+        if self.params is None:
+            self.init()
+        logits, masks = self.forward_batch_fn()(self.params, batch, lens)
+        ids = logits[:, self.cfg.n_prefix:].argmax(dim=-1).to(torch.int32)
+        return ids.cpu().numpy(), masks.cpu().numpy()
+
+    def _batched_window_ids(self, pieces, win: int):
+        """Windows zero-padded to `win` samples, one batch (no batch bucket,
+        as in JAX) → [(frame ids, valid frames)] per window."""
+        ids, masks = self._batched_ids(*pad_rows(pieces, win))
+        return [(ids[i], int(masks[i].sum())) for i in range(len(pieces))]
+
     def transcribe_ids(self, pcm: np.ndarray, blank_id: int = 0) -> list[int]:
         """Bucketed waveform → token ids; the per-frame argmax runs on the
-        device, so only [T] int32 comes back."""
+        device, so only [T] int32 comes back. Audio longer than the largest
+        bucket goes to `transcribe_long`."""
         if len(pcm) > max_bucket_samples():
-            raise NotImplementedError(
-                f"audio of {len(pcm)} samples is longer than the largest bucket "
-                f"({max_bucket_samples()} samples); transcribe_long is not ported yet")
+            return self.transcribe_long(pcm, blank_id)
         frame_ids, valid = self._bucketed_argmax(pcm)
         return _collapse_ids(frame_ids[:valid], blank_id)
 
@@ -381,6 +543,36 @@ class SenseVoiceModel:
         logits, fmask = self.forward_bucketed_fn()(self.params, padded, true_len)
         ids = logits[0, self.cfg.n_prefix:].argmax(dim=-1).to(torch.int32)
         return ids.cpu().numpy(), int(fmask.sum().item())
+
+    def batch_inputs(self, pcms: list[np.ndarray]):
+        """Utterances (each within the largest bucket) → (pcm [B', n], n_valid
+        [B']): zero-padded to the bucket of the longest, B' = pad_batch_pow2(B);
+        the padding rows have n_valid = 0 and decode to nothing."""
+        bucket = len(pad_pcm(np.zeros(max(len(p) for p in pcms), np.float32))[0])
+        empty = [np.zeros(0, np.float32)] * (pad_batch_pow2(len(pcms)) - len(pcms))
+        return pad_rows(list(pcms) + empty, bucket)
+
+    def transcribe_batch(self, pcms: list[np.ndarray], blank_id: int = 0) -> list[list[int]]:
+        """Utterances padded to one shared bucket and run as one batch. If
+        any is longer than the largest bucket, each goes to
+        `transcribe_long` on its own, as in JAX."""
+        if not pcms:
+            return []
+        if max(len(p) for p in pcms) > max_bucket_samples():
+            return [self.transcribe_long(p, blank_id) for p in pcms]
+        ids_b, masks = self._batched_ids(*self.batch_inputs(pcms))
+        return [_collapse_ids(ids_b[i, :int(masks[i].sum())], blank_id)
+                for i in range(len(pcms))]
+
+
+def pad_rows(pcms, n: int):
+    """PCM pieces zero-padded to n samples → (pcm [B, n], n_valid [B])."""
+    batch = np.zeros((len(pcms), n), np.float32)
+    lens = np.zeros((len(pcms),), np.int32)
+    for i, p in enumerate(pcms):
+        batch[i, :len(p)] = p
+        lens[i] = len(p)
+    return batch, lens
 
 
 def _collapse_ids(frame_ids, blank_id: int = 0) -> list[int]:

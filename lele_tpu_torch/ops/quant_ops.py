@@ -2,12 +2,17 @@
 DynamicQuantizeLinear and MatMulInteger, with exact ONNX semantics.
 
 Quantization divides by the scale and rounds half to even (numpy's and
-torch's `round`), as the spec and the JAX emitter do. torch's matmul takes
-no integer operands on a card, so MatMulInteger forms its exact int32 sum as
-a float64 product: every operand is an integer below 2^8 in magnitude and
-|sum| <= K * 255 * 255 < 2^53 for any K below 2^37, so no partial sum
-rounds. It is a plain product outside any kernel, as MatMulInteger is a
-plain XLA dot in the JAX package.
+torch's `round`), as the spec and the JAX emitter do.
+
+MatMulInteger on a card runs as the JAX emitter does: u8 operands and their
+zero points shift into the i8 domain, the product runs on kernel 11
+(`int8_matmul`, csrc/int8_gemm.cu; i8 × i8 → i32, exact), and the zero
+points come back as rank-1 corrections in int32. On the CPU, and as the
+card's plain oracle (`overrides={"MatMulInteger": matmul_integer_plain}`),
+the exact int32 sum is a float64 product of the centred operands: every
+operand is an integer below 2^8 in magnitude and |sum| <= K * 255 * 255 <
+2^53 for any K below 2^37, so no partial sum rounds. Both routes give the
+same integers.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.quant_matmul import int8_matmul
 from .registry import OpContext, op
 
 
@@ -45,9 +51,67 @@ def _centered_f64(v, zp, zp_axis_shape):
     return v - (zp if zp.dim() == 0 else zp.reshape(zp_axis_shape))
 
 
+def matmul_integer_plain(ctx: OpContext, a, b, azp=None, bzp=None):
+    """MatMulInteger as one exact float64 product: the CPU route, and an
+    override (`overrides={"MatMulInteger": matmul_integer_plain}`) that
+    compiles a graph's plain oracle for the card."""
+    c = torch.matmul(_centered_f64(a, azp, (-1, 1)), _centered_f64(b, bzp, (1, -1)))
+    return c.to(torch.int32)
+
+
+def _to_i8_domain(v, zp):
+    """A u8 operand and its zero point shifted by −128 into i8 (the zero
+    point as int32; an absent one is 0, so −128 after the shift); i8
+    operands pass through."""
+    if v.dtype == torch.uint8:
+        vi = (v.to(torch.int32) - 128).to(torch.int8)
+        zpi = (zp.to(torch.int32) - 128 if zp is not None
+               else torch.full((), -128, dtype=torch.int32, device=v.device))
+        return vi, zpi
+    zpi = (zp.to(torch.int32) if zp is not None
+           else torch.zeros((), dtype=torch.int32, device=v.device))
+    return v.to(torch.int8), zpi
+
+
+def _int8_product(ai, bi, product):
+    """ai [..., M, K] @ bi [..., K, N] → int32, by `product` on 2-D
+    operands: A's leading dims flatten into rows when B is 2-D; otherwise
+    one product per broadcast batch entry."""
+    K, N = bi.shape[-2:]
+    if bi.dim() == 2:
+        return product(ai.reshape(-1, K), bi).reshape(*ai.shape[:-1], N)
+    lead = torch.broadcast_shapes(ai.shape[:-2], bi.shape[:-2])
+    a3 = ai.expand(*lead, *ai.shape[-2:]).reshape(-1, *ai.shape[-2:])
+    b3 = bi.expand(*lead, K, N).reshape(-1, K, N)
+    return torch.stack([product(x, w) for x, w in zip(a3, b3)]).reshape(
+        *lead, ai.shape[-2], N)
+
+
+def matmul_integer_i8(a, b, azp=None, bzp=None, product=int8_matmul):
+    """(A − azp) @ (B − bzp) → int32 in the i8 domain: the JAX emitter's
+    algebra (lele_tpu/ops/quant_ops.py:146-166) with `product` for the
+    i8 × i8 → i32 dot; per-row azp [M] and per-column bzp [N] supported.
+    A 1-D operand is promoted and its axis dropped again, as in matmul."""
+    ai, azp_i = _to_i8_domain(a.unsqueeze(0) if a.dim() == 1 else a, azp)
+    bi, bzp_i = _to_i8_domain(b.unsqueeze(-1) if b.dim() == 1 else b, bzp)
+    k = ai.shape[-1]
+    c = _int8_product(ai, bi, product)
+    rowsum_a = ai.to(torch.int32).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    colsum_b = bi.to(torch.int32).sum(dim=-2, keepdim=True, dtype=torch.int32)
+    azp_t = azp_i if azp_i.dim() == 0 else azp_i.reshape(-1, 1)
+    bzp_t = bzp_i if bzp_i.dim() == 0 else bzp_i.reshape(1, -1)
+    c = c - azp_t * colsum_b - bzp_t * rowsum_a + k * azp_t * bzp_t
+    if b.dim() == 1:
+        c = c.squeeze(-1)
+    if a.dim() == 1:
+        c = c.squeeze(-2 if b.dim() > 1 else -1)
+    return c
+
+
 @op("MatMulInteger", foldable=False)
 def matmul_integer(ctx: OpContext, a, b, azp=None, bzp=None):
     """(A - azp) @ (B - bzp) → int32; per-row azp [M] and per-column bzp
-    [N] are supported."""
-    c = torch.matmul(_centered_f64(a, azp, (-1, 1)), _centered_f64(b, bzp, (1, -1)))
-    return c.to(torch.int32)
+    [N] are supported. Kernel 11 on a card, the float64 product on the CPU."""
+    if a.device.type == "cpu":
+        return matmul_integer_plain(ctx, a, b, azp, bzp)
+    return matmul_integer_i8(a, b, azp, bzp)

@@ -23,6 +23,18 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
     return int(buckets[-1])
 
 
+def pad_batch_pow2(n: int, cap: int = 8) -> int:
+    """Batch-dimension bucket: the next power of two up to `cap` (a few
+    batch shapes for queues that hand every size 1..max_batch), the exact
+    size above it (padding 33 to 64 would double the work on dead rows)."""
+    if n > cap:
+        return n
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 def max_bucket_samples(
     sr: int = 16000, buckets_s: Sequence[int] = DEFAULT_AUDIO_BUCKETS_S
 ) -> int:
@@ -47,3 +59,19 @@ def pad_pcm(
     out = np.zeros(target, np.float32)
     out[:n] = pcm
     return out, n
+
+
+def frames_for_samples(n_samples: int, frame_len: int = 400, hop: int = 160) -> int:
+    return max(0, (n_samples - frame_len) // hop + 1)
+
+
+def feat_mask_for(
+    true_samples: int, padded_samples: int, frame_len: int = 400, hop: int = 160,
+    lfr_n: int = 6,
+) -> np.ndarray:
+    """[T_lfr_padded] float mask with 1s over the real frames (after LFR)."""
+    t_true = -(-frames_for_samples(true_samples, frame_len, hop) // lfr_n)
+    t_pad = -(-frames_for_samples(padded_samples, frame_len, hop) // lfr_n)
+    m = np.zeros(t_pad, np.float32)
+    m[:t_true] = 1.0
+    return m

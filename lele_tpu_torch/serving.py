@@ -31,7 +31,8 @@ def resample(pcm: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
 @dataclass
 class SenseVoiceEngine:
-    """recognize(wav_bytes) → token ids (or text with a tokenizer). With no
+    """recognize(wav_bytes) and recognize_batch([wav_bytes]) → token ids (or
+    text with a tokenizer, e.g. `utils.tokenizer.CtcTokenizer`). With no
     model it builds a random-weight `SenseVoiceModel` on `default_device()`,
     which raises where there is no CUDA card."""
 
@@ -58,6 +59,20 @@ class SenseVoiceEngine:
         ids = self.model.transcribe_ids(pcm)
         if self.tokenizer is not None:
             return self.tokenizer.decode(ids)
+        return ids
+
+    def recognize_batch(self, wavs: list[bytes]):
+        """Utterances decoded and resampled one by one, then run as one batch
+        (`SenseVoiceModel.transcribe_batch`)."""
+        pcms = []
+        for data in wavs:
+            pcm, sr = decode_wav(data)
+            if sr != 16000:
+                pcm = resample(pcm, sr, 16000)
+            pcms.append(pcm)
+        ids = self.model.transcribe_batch(pcms)
+        if self.tokenizer is not None:
+            return [self.tokenizer.decode(i) for i in ids]
         return ids
 
 

@@ -188,7 +188,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     assert set(K.KERNEL_WRAPPERS) == {"w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
                                       "dq_gemm", "sanm_stack_dql", "lstm_seq",
                                       "w4_gemm", "sanm_stack_w4", "gru_seq", "est_block",
-                                      "flash_attn"}
+                                      "flash_attn", "int8_gemm"}
 
 
 def test_kernel_entry_refuses_a_cpu_tensor():
@@ -220,7 +220,7 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "assert not _build._libs\n"
         "assert K.launch_counts() == {n: 0 for n in ('w8_gemm', 'sanm_layer_w8',\n"
         "    'sanm_stack_w8', 'dq_gemm', 'sanm_stack_dql', 'lstm_seq', 'w4_gemm',\n"
-        "    'sanm_stack_w4', 'gru_seq', 'est_block', 'flash_attn')}\n"
+        "    'sanm_stack_w4', 'gru_seq', 'est_block', 'flash_attn', 'int8_gemm')}\n"
         "assert all(sys.modules['lele_tpu_torch.kernels.' + m]._fn is None\n"
         "           for m in ('gru', 'lstm', 'w4_matmul', 'est_block', 'flash_attention'))\n"
         "print('ok')\n"

@@ -168,10 +168,22 @@ def test_collapse_ids_and_greedy_decode_match_jax():
     assert greedy_ctc_decode(torch.from_numpy(logits)) == j_collapse_ids(logits.argmax(-1))
 
 
-def test_audio_beyond_the_largest_bucket_is_not_ported_yet():
-    tm = SenseVoiceModel(SenseVoiceConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="transcribe_long"):
-        tm.transcribe_ids(np.zeros(61 * 16000, np.float32))
+def test_audio_beyond_the_largest_bucket_routes_to_transcribe_long(monkeypatch):
+    """JAX's tests/test_bucketing.py:45-59 on the port: 61 s goes to
+    transcribe_long (three 30 s windows in one batch) and gives JAX's ids."""
+    cfg = dict(n_layers=1, d_model=32, ffn_dim=64, vocab_size=40, n_heads=2, dtype="float32")
+    jm = JModel(JConfig(**cfg))
+    jm.init(0)
+    tm = SenseVoiceModel(SenseVoiceConfig(**cfg), device="cpu")
+    tm.params = from_numpy_tree(_np_tree(jm.params))
+    pcm = (np.random.default_rng(61).standard_normal(61 * 16000) * 0.1).astype(np.float32)
+    calls = []
+    long_form = tm.transcribe_long
+    monkeypatch.setattr(tm, "transcribe_long",
+                        lambda p, b=0: calls.append(len(p)) or long_form(p, b))
+    ids = tm.transcribe_ids(pcm)
+    assert calls == [61 * 16000] and len(ids) > 0
+    assert ids == jm.transcribe_ids(pcm)
 
 
 def test_port_runs_without_jax():
@@ -181,7 +193,10 @@ def test_port_runs_without_jax():
     at both sample rates, the w4a16 model, a MatMulNBits graph, a GRU graph,
     a QMoE decode layer, and Supertonic TTS through TtsEngine (on the fused
     estimator route) and SupertonicOnnx, and an opset-23 decoder step graph
-    (a prefill on the flash route's plain version, two decode steps)."""
+    (a prefill on the flash route's plain version, two decode steps); and
+    slice 8: a dynamic-int8 model on both routes, transcribe_batch,
+    transcribe_long, recognize_batch with a tokenizer, beam decoding, a
+    streaming step, and a MatMulInteger graph both ways."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -286,6 +301,43 @@ def test_port_runs_without_jax():
         "routes = attention_ops.ATTENTION_ROUTES\n"
         "assert routes['flash_attn'] == before['flash_attn'] + 1, routes\n"
         "assert routes['einsum'] == before['einsum'] + 2, routes\n"
+        "import dataclasses\n"
+        "from lele_tpu_torch.serving import encode_wav\n"
+        "from lele_tpu_torch.utils.tokenizer import CtcTokenizer, synthetic_vocab\n"
+        "from lele_tpu_torch.utils.ctc_decode import ctc_beam_decode\n"
+        "cfgq = SenseVoiceConfig(n_layers=2, d_model=64, n_heads=2, ffn_dim=96, vocab_size=40,\n"
+        "                        quantized=True)\n"
+        "mq = SenseVoiceModel(cfgq, device='cpu'); mq.init(0)\n"
+        "mq.params = stack_layer_params(prepare_quantized_params(mq.params, drop_fp=True))\n"
+        "pcm = np.random.default_rng(4).standard_normal(20000).astype(np.float32) * 0.1\n"
+        "lq = mq.forward_fn()(mq.params, pcm)\n"
+        "mq5 = SenseVoiceModel(dataclasses.replace(cfgq, quant_pallas=True), device='cpu')\n"
+        "assert torch.equal(lq, mq5.forward_fn()(mq.params, pcm))\n"
+        "assert all(0 <= i < 40 for i in ctc_beam_decode(lq[0].numpy(), 4))\n"
+        "eng = SenseVoiceEngine(model=mq, tokenizer=CtcTokenizer(synthetic_vocab(40)))\n"
+        "texts = eng.recognize_batch([encode_wav(pcm, 16000), encode_wav(pcm[:9000], 16000)])\n"
+        "assert len(texts) == 2 and all(isinstance(t, str) for t in texts)\n"
+        "ids_b = mq.transcribe_batch([pcm, pcm[:7000], pcm[:12000]])\n"
+        "assert len(ids_b) == 3 and all(0 <= i < 40 for r in ids_b for i in r)\n"
+        "ids_l = mq.transcribe_long(np.tile(pcm, 5), window_s=3.0, overlap_s=1.0)\n"
+        "assert all(0 <= i < 40 for i in ids_l)\n"
+        "st = StreamingSenseVoice(cfg=dataclasses.replace(cfgq, quantized=False),\n"
+        "                         stream=StreamConfig(chunk_frames=8), device='cpu')\n"
+        "st.params = SenseVoiceModel(st.cfg, device='cpu').init(0)\n"
+        "ids_s, state = st.decode_step_fn()(st.params, torch.zeros((1, 8, 560)),\n"
+        "    torch.ones((1, 8)), init_stream_state(st.cfg, st.stream, device='cpu'))\n"
+        "assert ids_s.shape == (1, 8) and int(state['pos']) == 8\n"
+        "from lele_tpu_torch.ops import quant_ops\n"
+        "n = [ob.node('DynamicQuantizeLinear', ['x'], ['q', 's', 'z']),\n"
+        "     ob.node('MatMulInteger', ['q', 'w', 'z'], ['y'])]\n"
+        "bs = ob.build_model_bytes(n, [ob.value_info('x', 1, [3, 16])],\n"
+        "    [ob.value_info('y', 6, [3, 5])], [ob.tensor_from_array(\n"
+        "    rng.integers(0, 256, (16, 5), dtype=np.uint8), 'w')])\n"
+        "x = rng.standard_normal((3, 16)).astype(np.float32)\n"
+        "y = compile_model(bs, device='cpu', strict=True).run_np(x=x)[0]\n"
+        "y0 = compile_model(bs, device='cpu', strict=True, overrides={\n"
+        "    'MatMulInteger': quant_ops.matmul_integer_plain}).run_np(x=x)[0]\n"
+        "assert y.dtype == np.int32 and np.array_equal(y, y0)\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
