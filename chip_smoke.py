@@ -7,8 +7,10 @@
 2. prints the card's name and power limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and in their working types: the w8a16 GEMM, layer and
-   stack; the dynamic-quantized int8 GEMM; the exact-DQL SAN-M stack, layer
-   by layer on the plain version's own activations, and whole;
+   stack; the dynamic-quantized int8 GEMM (its strip form, and its tile
+   form at [512 -> 512], bit for bit at the compiled head's T = 36, 100,
+   196 and the quant_pallas linears at T = 21, 171); the exact-DQL SAN-M
+   stack, layer by layer on the plain version's own activations, and whole;
 4. drives the native main path at full width: SenseVoice w8a16 (50 layers,
    d512, vocab 25,055, random weights from a seed) behind SenseVoiceEngine,
    answering three WAV requests (1.0 s, 4.3 s, 10 s), and checks from the
@@ -16,7 +18,9 @@
    kernel path against the plain path;
 5. times each kernel, its plain version, its bound on the card and, where one
    PyTorch call computes the same product, that call, with CUDA events
-   (median of warm runs); and the native 10 s forward;
+   (median of warm runs), kernel 5 and torch._int_mm also by device time
+   (torch.profiler, and a CUDA graph of 20 calls) at T = 36, 100, 196; and
+   the native 10 s forward;
 6. drives the compiled main path at full width: the SenseVoiceSmall-layout
    int8 ONNX graph (50 layers, d512, 4 heads, ffn 2048, vocab 25,055, int8
    CTC head, random weights from a seed) behind SenseVoiceOnnx, answering
@@ -40,8 +44,10 @@
    compiled 10 s request;
 11. holds kernel 7 (the w4a16 GEMM) against its plain version at the
    GEMM shapes, T = 171 and 87, bf16 and f32, and at MatMulNBits groups 32
-   and 128; kernel 8 (the w4 SAN-M stack) layer 0 and whole (50 layers) at
-   T = 171 and at T = 87 with 76 valid rows;
+   and 128, and its decode form at M = 1 to 8 (up to 4 rows in f32, 8 in
+   bf16's group form; the tile form beside it above) with a repeat call
+   bit-identical; kernel 8 (the w4 SAN-M stack) layer 0 and
+   whole (50 layers) at T = 171 and at T = 87 with 76 valid rows;
 12. drives SenseVoice w4a16 at full width (`SenseVoiceConfig(weight_int4=
    True)`, random weights from a seed) behind SenseVoiceEngine, answering
    the three WAV requests: kernel 8 and kernel 7 (the CTC head) once a
@@ -51,13 +57,15 @@
    points and bias; 196 rows) with the default patterns and with
    `patterns=[]`: pattern hits, one kernel 7 launch a node, fused vs per-op;
 14. times kernels 7 and 8, their plain versions, bounds and kernel 7's
-   library call, the two compiled MatMulNBits paths, and the w4 and w8
-   10 s forwards in one call;
+   library call (the CTC head also by device time), the two compiled
+   MatMulNBits paths, and the w4 and w8 10 s forwards in one call;
 15. holds kernel 9 (the GRU recurrence) against its plain version, both
    linear_before_reset forms, at H = 128 (S = 1,875 and 18,750, B = 1;
    B = 4) and in its general form at H = 256; kernel 6's general form at
    H = 256 and 1,024; kernel 7 at groups 8 and 24, at K = 1,040 (the
-   dequantised-tile form) and through its expert-indexed entry;
+   dequantised-tile form) and through its expert-indexed entry, and its
+   decode form there and at Phi-3.5-MoE's widths (a cluster splitting K),
+   each repeat call bit-identical;
 16. compiles an ONNX GRU graph (input 128, H 128, bidirectional, 1,875
    steps; both forms) with the default emitters and with the gru_plain
    override: one gru_seq launch a direction a request, the routes, the two
@@ -71,7 +79,8 @@
 18. times kernel 9 against its plain version, cuDNN's GRU and its bound;
    kernels 6 and 9 at H = 256; kernel 7 at the decode shapes (the MoE
    layer's and the published Phi-3.5-MoE expert widths) against
-   torch.matmul; the QMoE node and the GRU graph per request, both ways;
+   torch.matmul, by events and by device time with a warm and a cold L2;
+   the QMoE node and the GRU graph per request, both ways;
 19. holds kernel 10 (the flow estimator's 8 attention blocks) against its
    plain version at examples/supertonic/tts.json's widths (D 256, 4 heads,
    F 1,024) at (T, Tk) = (1,024, 320), (512, 160) and a ragged (37, 19),
@@ -143,6 +152,7 @@ import io
 import json
 import statistics
 import subprocess
+from itertools import cycle
 import sys
 import time
 import wave
@@ -162,10 +172,16 @@ VALID_DQL = 171
 T_DQL_RAGGED = 100
 VALID_DQL_RAGGED = 76
 GEMM_SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
+# kernel 5's strip form (the tile form at [512 -> 512]): the compiled head at
+# the buckets' rows (1 s, 4.3 s, 10 s) and the quant_pallas route's four
+# linears at 1 s and 10 s
+DQ_STRIP_SHAPES = (*((t, *GEMM_SHAPES[-1]) for t in (36, T_DQL_RAGGED, T_DQL)),
+                   *((t, k, n) for t in (21, 171) for k, n in GEMM_SHAPES[:-1]))
 TIMED_RUNS = 20
 # NVIDIA's data sheet, H100 SXM, dense: HBM 3.35 TB/s; bf16 989 TFLOP/s,
 # int8 1,979 TOP/s, f32 outside the tensor cores 67 TFLOP/s
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50e6  # the H100's L2
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # kernel 4 whole against its plain version: one moved int8 code in an early
 # layer carries through the 50 DQL layers at the graph's quantization noise
@@ -258,6 +274,12 @@ LLM_DECODE = 16
 # through 2 layers and the head; JAX holds its rollout to rtol 1e-4
 # (tests/test_llm_decode_e2e.py:174)
 LLM_REL = 1e-4
+
+
+# the device's own time a call (us) of a kernel's row and of its library
+# call, where a phase measured it: {name: {"device_us": torch.profiler's or
+# None, "graph_us": in a CUDA graph, "library_device_us", "library_graph_us"}}
+DEVICE_US: dict[str, dict[str, float | None]] = {}
 
 
 class Checks:
@@ -545,6 +567,27 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     return {"native": vad_launches, "compiled": onnx_launches}
 
 
+def w4_decode_check(checks, err, x, packed, scales, group, idx, what) -> None:
+    """Kernel 7 at few rows or through its expert-indexed entry (the decode
+    form, csrc/w4_gemv.cuh: M <= 8 in the group form, M <= 4 in the
+    others; the tile form above): within W4_TOL of the plain
+    version, and the same bits on a repeat call (a fixed reduction order)."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    got = K.w4_matmul(x, packed, scales, group, idx)
+    again = K.w4_matmul(x, packed, scales, group, idx)
+    ref = K.w4_matmul_plain(x, packed, scales, group, idx)
+    torch.cuda.synchronize()
+    d, scale, _ = compare(got, ref)
+    tol = W4_TOL[str(x.dtype)[6:]]
+    err["w4_gemm"] = max(err["w4_gemm"], d)
+    checks.require(got.shape == ref.shape and d <= tol * scale and torch.equal(got, again),
+                   f"w4_gemm {what} {str(x.dtype)[6:]}: max|d| {d:.3e} <= {tol:g} * "
+                   f"{scale:.3e}, a repeat call bit-identical")
+
+
 def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_fwd,
               w8_params) -> dict:
     """Phases 11-14: kernels 7 and 8, SenseVoice w4a16 behind the engine, a
@@ -593,6 +636,17 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                                dtype=torch.int8)
         scales = torch.rand((512 // group, 1536), generator=gen, device=dev) * 0.01 + 1e-3
         gemm_check(NBITS_ROWS, 512, 1536, packed, scales, group, ", recentred int4")
+    # the decode form at M = 1, 2, 4 (both forms), 5 and 8 (the group form;
+    # f32 on the tile form), and M = 9 on the tile form beside it: the CTC
+    # head's odd N and the [2048 -> 512] linear
+    for M in (1, 2, 4, 5, 8, 9):
+        for (k_, n_) in (GEMM_SHAPES[-1], GEMM_SHAPES[3]):
+            w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+            packed, scales = W4.quantize_weight_int4(w, 128)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((M, k_), generator=gen, device=dev).to(dtype)
+                w4_decode_check(checks, err, x, packed, scales, 128, None,
+                                f"[{M},{k_}]x[{k_},{n_}] g128")
 
     cfg = SenseVoiceConfig(weight_int4=True)
     model = SenseVoiceModel(cfg, device=dev)
@@ -717,6 +771,13 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
     print(f"  w4_gemm [{T_MAIN},{k_}]x[{k_},{n_}] g128 bf16: kernel {ms['w4_gemm']:.4f} ms, "
           f"plain {plain_ms['w4_gemm']:.4f} ms, torch.matmul bf16 x bf16 dequantised weight "
           f"{library_ms['w4_gemm']:.4f} ms  ({card})")
+    d_k, g_k = device_times(lambda: K.w4_matmul(x, packed, scales, 128))
+    d_l, g_l = device_times(lambda: torch.matmul(x, w_bf16))
+    DEVICE_US["w4_gemm"] = {"device_us": d_k, "graph_us": g_k, "library_device_us": d_l,
+                            "library_graph_us": g_l}
+    print(f"  w4_gemm [{T_MAIN},{k_}]x[{k_},{n_}] (tile form), device time a call: kernel "
+          f"{fmt_us(d_k)} by the profiler, {g_k:.2f} us in a CUDA graph; torch.matmul "
+          f"{fmt_us(d_l)}, {g_l:.2f} us  ({card})")
     x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
     mask = torch.ones((T_MAIN,), device=dev)
     ms["sanm_stack_w4"] = time_ms(lambda: K.sanm_stack_w4(x, mask, stacked, H, FK))
@@ -907,6 +968,29 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
                 x = torch.randn((R, k_), generator=gen, device=dev).to(dtype)
                 w4_check(x, packed, scales, group, idx,
                          f"expert-indexed R={R} [{k_},{n_}] x {E} stacks g{group}")
+                w4_decode_check(checks, err, x, packed, scales, group, idx,
+                                f"decode form, expert-indexed R={R} [{k_},{n_}] x {E} "
+                                f"stacks g{group}")
+    # the decode form at M = 1 and 3 in the k-step-8 group form (groups 8,
+    # 24) and the dequantised-tile form (K = 1,040), and at Phi-3.5-MoE's
+    # expert widths, where a thread-block cluster splits K
+    for M in (1, 3):
+        for k_, group in ((512, 8), (768, 24), (1040, 8)):
+            packed = torch.randint(-128, 128, (k_ // 2, 1536), generator=gen, device=dev,
+                                   dtype=torch.int8)
+            scales = torch.rand((k_ // group, 1536), generator=gen, device=dev) * 0.01 + 1e-3
+            form = "group-accumulator" if W4.group_acc_form(k_, group) else "dequantised-tile"
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((M, k_), generator=gen, device=dev).to(dtype)
+                w4_decode_check(checks, err, x, packed, scales, group, None,
+                                f"decode form [{M},{k_}]x[{k_},1536] g{group} ({form})")
+    for k_, n_ in (PHI_MOE, PHI_MOE[::-1]):
+        w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+        packed, scales = W4.quantize_weight_int4(w, 128)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, k_), generator=gen, device=dev).to(dtype)
+            w4_decode_check(checks, err, x, packed, scales, 128, None,
+                            f"decode form [1,{k_}]x[{k_},{n_}] g128 (cluster split of K)")
 
     print("== 16. compiled GRU graph (input 128, H 128, bidirectional, 1,875 steps)")
     grng = np.random.default_rng(GRAPH_SEED + 5)
@@ -1066,11 +1150,24 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
         c = time_ms(lambda: torch.matmul(x, w_bf16))
         b_ms, b_by = bound(2 * k_ + packed.numel() + 4 * scales.numel() + 4 * n_,
                            {"bf16": 2 * k_ * n_})
+        # the device's own time a call, warm (one weight, resident in the L2)
+        # and cold (calls rotate over copies whose set exceeds the 50 MB L2,
+        # as a decode step meets each expert's weight once a token)
+        wk = cycle([(packed.clone(), scales.clone()) for _ in
+                    range(int(L2_BYTES // (packed.numel() + 4 * scales.numel())) + 2)])
+        wl = cycle([w_bf16.clone() for _ in range(int(L2_BYTES // (2 * w_bf16.numel())) + 2)])
+        d_kw, g_kw = device_times(lambda: K.w4_matmul(x, packed, scales, 128))
+        d_kc, g_kc = device_times(lambda: K.w4_matmul(x, *next(wk), 128))
+        d_lw, g_lw = device_times(lambda: torch.matmul(x, w_bf16))
+        d_lc, g_lc = device_times(lambda: torch.matmul(x, next(wl)))
         print(f"  w4_gemm decode [1,{k_}]x[{k_},{n_}] g128 bf16: kernel {a:.4f} ms, plain "
-              f"{b:.4f} ms, torch.matmul bf16 x bf16 dequantised weight {c:.4f} ms; bound "
-              f"{b_ms * 1e3:.2f} us by {b_by} ({(packed.numel() + 4 * scales.numel()) / 1e6:.2f} "
-              f"MB of weight and scales), kernel at {100 * b_ms / a:.2f}% of it; 1 of the "
-              f"kernel's 32 M-tile rows used  ({card})")
+              f"{b:.4f} ms, torch.matmul bf16 x bf16 dequantised weight {c:.4f} ms (events); "
+              f"device a call by the profiler (in a CUDA graph): kernel warm {fmt_us(d_kw)} "
+              f"({g_kw:.2f} us), cold {fmt_us(d_kc)} ({g_kc:.2f} us); torch.matmul warm "
+              f"{fmt_us(d_lw)} ({g_lw:.2f} us), cold {fmt_us(d_lc)} ({g_lc:.2f} us); bound "
+              f"{b_ms * 1e3:.2f} us by {b_by} ({(packed.numel() + 4 * scales.numel()) / 1e6:.2f}"
+              f" MB of weight and scales), kernel's cold graph time at "
+              f"{100e3 * b_ms / g_kc:.2f}% of it  ({card})")
     for k_, group in ((512, 8), (768, 24), (1040, 8)):
         x = torch.randn((NBITS_ROWS, k_), generator=gen, device=dev).to(torch.bfloat16)
         packed = torch.randint(-128, 128, (k_ // 2, 1536), generator=gen, device=dev,
@@ -1093,11 +1190,14 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     idx = torch.tensor([3, 6], dtype=torch.int32, device=dev)
     a = time_ms(lambda: K.w4_matmul(x, packed, scales, 128, idx))
     b = time_ms(lambda: K.w4_matmul_plain(x, packed, scales, 128, idx))
+    d_k, g_k = device_times(lambda: K.w4_matmul(x, packed, scales, 128, idx))
     b_ms, b_by = bound(2 * 2 * hidden + 2 * (packed[0].numel() + 4 * scales[0].numel())
                        + 4 * 2 * inter + 8, {"bf16": 2 * 2 * hidden * inter})
     print(f"  w4_gemm expert-indexed, 1 row x top-2 [2,{hidden}] x stacks [{E},{hidden // 2},"
           f"{inter}] g128 bf16 (fc1 of a decode step): kernel {a:.4f} ms, plain {b:.4f} ms "
-          f"(gathers the two stacks); bound {b_ms * 1e3:.2f} us by {b_by}  ({card})")
+          f"(gathers the two stacks); device a call (warm) {fmt_us(d_k)} by the profiler, "
+          f"{g_k:.2f} us in a CUDA graph; bound "
+          f"{b_ms * 1e3:.2f} us by {b_by}  ({card})")
     for rows in MOE_ROWS[:2]:
         cm, cm32, cm_ref, x = qmoe[rows]
         t_f = host_ms(lambda: (cm(x=x), torch.cuda.synchronize()), runs=20)
@@ -1603,26 +1703,66 @@ QUANT_REL = 1e-6
 MOE_F32_REL = 1e-3
 
 
-def device_us(fn, n: int = 20) -> dict[str, float]:
+def device_us(fn, n: int = 20, tries: int = 4) -> dict[str, float] | None:
     """Device time (us) a call of fn() by kernel name, from torch.profiler
     over n warm calls: the kernels' own time, where CUDA events around a
-    short launch also count the host's time to issue it."""
+    short launch also count the host's time to issue it. The trace now and
+    then loses records of short back-to-back kernels; a trace in which a
+    kernel's launches are not a whole multiple of n is taken again, and
+    after `tries` such traces the time is None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device rows
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        rows = {e.key: dev_time(e) / n for e in prof.key_averages()
-                if dev_time(e) > 0 and e.device_type != DeviceType.CPU}
-        if rows:
-            return rows
-    return {}
+        rows = [e for e in prof.key_averages()
+                if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
+        if rows and all(e.count % n == 0 for e in rows):
+            return {e.key: dev_time(e) / n for e in rows}
+    return None
+
+
+def graph_us(fn, n: int = 20, reps: int = 10) -> float:
+    """Time a call (us) as n calls captured in one CUDA graph, replayed
+    `reps` times between two CUDA events: the device's time with the gaps
+    between launches, without the host's issue or a profiler attached."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (n * reps)
+
+
+def device_times(fn) -> tuple[float | None, float]:
+    """(the profiler's device time a call, or None where no whole trace came
+    back; the time a call in a CUDA graph), in us."""
+    rows = device_us(fn)
+    return (None if rows is None else sum(rows.values())), graph_us(fn)
+
+
+def fmt_us(t: float | None) -> str:
+    return "not measured" if t is None else f"{t:.2f} us"
 
 
 def i8_bound(M: int, K: int, N: int) -> tuple[float, str]:
@@ -1692,15 +1832,14 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
             print(f"  torch._int_mm refused [{M},{K_}]x[{K_},{N}]: {e}")
             t_l = None
         b_ms, by = i8_bound(M, K_, N)
-        rows = device_us(lambda: (K.int8_matmul(a, b),
-                                  torch._int_mm(a, b) if t_l is not None else None))
-        d_k = sum(v for k, v in rows.items() if "int8_gemm_mma" in k)
-        d_l = sum(v for k, v in rows.items() if "int8_gemm_mma" not in k)
-        share = f"{100e3 * b_ms / d_k:.2f}% of it" if d_k else "not measured"
+        d_k, g_k = device_times(lambda: K.int8_matmul(a, b))
+        d_l, g_l = (device_times(lambda: torch._int_mm(a, b)) if t_l is not None
+                    else (None, None))
         print(f"  int8_gemm [{M},{K_}]x[{K_},{N}]: kernel {t_k:.4f} ms, plain (f64) {t_p:.4f} "
               f"ms, torch._int_mm {t_l} ms (CUDA events around the call); device time a call "
-              f"by the profiler: kernel {d_k:.2f} us, torch._int_mm {d_l:.2f} us; bound "
-              f"{b_ms * 1e3:.2f} us by {by}, kernel's device time at {share}  ({card})")
+              f"by the profiler (in a CUDA graph): kernel {fmt_us(d_k)} ({g_k:.2f} us), "
+              f"torch._int_mm {fmt_us(d_l)} ({fmt_us(g_l)}); bound {b_ms * 1e3:.2f} us by "
+              f"{by}, kernel's graph time at {100e3 * b_ms / g_k:.2f}% of it  ({card})")
         if (M, K_, N) == (T_MAIN, 512, 2048):  # ffn1 at the 10 s request: the row's numbers
             ms["int8_gemm"], plain_ms["int8_gemm"], library_ms["int8_gemm"] = t_k, t_p, t_l
             bounds["int8_gemm"] = (b_ms, by)
@@ -2043,6 +2182,27 @@ def main() -> int:
                            f"dq_gemm [{T},{k_}]x[{k_},{n_}]: max|d| {d:.3e} "
                            f"<= 1e-6 * {scale:.3e}")
 
+    # kernel 5's strip form at the main path's rows: the compiled head at
+    # the three buckets (T = 36, 100, 196) and the quant_pallas route's four
+    # linears at 1 s and 10 s (T = 21, 171), through both C entries (a host
+    # w_scale and a device one): the same bits as the plain version
+    for T, k_, n_ in DQ_STRIP_SHAPES:
+        wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+        colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+        x = torch.randn((T, k_), generator=gen, device=dev) * 2.0
+        _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+        for w_scale in (2.5e-3, torch.tensor([2.5e-3], device=dev)):
+            got = K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, w_scale)
+            ref = K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, w_scale)
+            torch.cuda.synchronize()
+            d = (got - ref).abs().max().item()
+            err["dq_gemm"] = max(err["dq_gemm"], d)
+            checks.require(torch.equal(got, ref),
+                           f"dq_gemm {'tile' if max(k_, n_) <= 512 else 'strip'} form "
+                           f"[{T},{k_}]x[{k_},{n_}] "
+                           f"{'device' if isinstance(w_scale, torch.Tensor) else 'host'} "
+                           f"w_scale: equal to plain (max|d| {d:.3e})")
+
     # the ragged edges: K not a multiple of 16 and an odd N (kernel 5); the
     # other head dims kernel 4 compiles (32, 64) on two small layers
     x = torch.randn((5, 130), generator=gen, device=dev)
@@ -2196,6 +2356,28 @@ def main() -> int:
     print(f"  dq_gemm [{T_DQL},{k_}]x[{k_},{n_}]: kernel {ms['dq_gemm']:.4f} ms, "
           f"plain {plain_ms['dq_gemm']:.4f} ms, torch._int_mm (N padded to "
           f"{w_pad.shape[1]}) {library_ms['dq_gemm']} ms  ({card})")
+    # the device's own time a call (torch.profiler) beside the events, at the
+    # three buckets' rows: kernel 5 (its quantize pass and GEMM) and
+    # torch._int_mm on the same codes
+    for T in (36, T_DQL_RAGGED, T_DQL):
+        xt = torch.randn((T, k_), generator=gen, device=dev)
+        _, s_t, z_t = K.dynamic_quantize_u8(xt)
+        a_t = (K.quant_matmul.dql_quantize(xt, s_t, z_t) - 128).to(torch.int8)
+        kern = lambda: K.fused_dq_matmul(xt, wq, colsum, s_t, z_t, 2.5e-3)  # noqa: E731
+        ev = time_ms(kern)
+        d_k, g_k = device_times(kern)
+        d_l, g_l, ev_l = None, None, None
+        if library_ms["dq_gemm"] is not None:
+            ev_l = time_ms(lambda: torch._int_mm(a_t, w_pad))
+            d_l, g_l = device_times(lambda: torch._int_mm(a_t, w_pad))
+        b_ms, by = bound(T * k_ * 4 + k_ * n_ + n_ * 4 + T * n_ * 4, {"int8": 2 * T * k_ * n_})
+        print(f"  dq_gemm [{T},{k_}]x[{k_},{n_}]: device a call {fmt_us(d_k)} by the profiler, "
+              f"{g_k:.2f} us in a CUDA graph (events {ev:.4f} ms); torch._int_mm "
+              f"{fmt_us(d_l)}, {fmt_us(g_l)} (events {ev_l} ms); bound {b_ms * 1e3:.2f} us by "
+              f"{by}, kernel's graph time at {100e3 * b_ms / g_k:.2f}% of it  ({card})")
+        if T == T_DQL:
+            DEVICE_US["dq_gemm"] = {"device_us": d_k, "graph_us": g_k, "library_device_us": d_l,
+                                    "library_graph_us": g_l}
     bias, vmask = dql_masks(L, T_DQL, VALID_DQL, dev)
     x = torch.randn((T_DQL, D), generator=gen, device=dev)
     ms["sanm_stack_dql"] = time_ms(
@@ -2346,9 +2528,21 @@ def main() -> int:
     forms = {  # kernels with more than one form: which the numbers are of
         "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
                     "128 < H <= 1024 (phases 15-18)",
-        "w4_gemm": "group-accumulator (k-steps 16 or 8) and dequantised-tile forms, any "
-                   "even K and group <= 512; expert-indexed entry for QMoE decode (times: "
-                   "the CTC head; decode shapes in phase 18)",
+        "w4_gemm": "tile form (mma.sync; group-accumulator in k-steps of 16 or 8, "
+                   "dequantised-tile, exact f32) above the decode form's rows; decode form "
+                   "(csrc/w4_gemv.cuh: split-K GEMV, the group form on mma.sync through a "
+                   "cp.async ring a warp for M <= 8, the others on the CUDA cores for M <= 4, "
+                   "a cluster splitting K where strips are few) and every expert-indexed "
+                   "launch; any even K and group "
+                   "<= 512 (times: the CTC head, tile form; decode shapes warm and cold, by "
+                   "device time, in phase 18)",
+        "dq_gemm": "quantize pass + strip form (the tile form of kernel 4 where N and K "
+                   "are both <= 512): every row up to 256 in one row of blocks, "
+                   "64-column weight strips streamed once by a 4-stage cp.async ring, "
+                   "byte-transposed B fragments of mma.sync m16n8k32, a cluster splitting K "
+                   "where strips are few, the output staged for coalesced stores (times: "
+                   "the CTC head [196,512]x[512,25055]; T = 36, 100 by device time in "
+                   "phase 5)",
         "gru_seq": "single block H <= 128 (times: S=18,750 H=128, linear_before_reset); "
                    "cluster of 8 for 128 < H <= 1024",
         "est_block": "times at T=1,024 Tk=320, 8 blocks",
@@ -2370,6 +2564,7 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": err[name], "tolerance": tol,
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library_ms[name],
+         **DEVICE_US.get(name, {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

@@ -22,28 +22,52 @@
 // epilogue uses _rn intrinsics, so no multiply-add is contracted and the
 // result is the plain version's, bit for bit, for the same scale and zp.
 //
-// What bounds it on the H100: at the main path's shapes (M = T ~ 36..196
+// What bounds it on the H100: at the main path's shapes (M = T ~ 21..196
 // rows, K = 512/2048, N = 512..25055) the product is skinny. The int8 weights
 // stream once (the CTC head: 12.8 MB) and, for the head, the f32 output
-// (19.6 MB) is the larger stream: ~9.8 us at 3.35 TB/s, against ~2.5 us of
-// int8 tensor-core work at 1,979 TOP/s. The design:
-//  - f32 x is quantized to i8 codes once, by a pass over all of x on every
-//    SM (`dql_quantize`, one IEEE division per element), into a scratch
-//    buffer the caller gives; the GEMM then streams codes, a quarter of the
-//    f32 bytes. (Quantizing inside the GEMM's tile loop, the first version,
-//    repeated each division in every column block, N / BN times, on the few
-//    warps a skinny GEMM has, and cost 3x the time.)
-//  - int8 tensor cores (`mma.sync.m16n8k32`, s8 x s8 -> s32): the sum is
-//    exact; the zero-point correction is one int per output.
-//  - one block computes a BM x BN tile over K in steps of 64, fetching the
-//    next K tile into registers (16-byte loads) while the tensor cores run.
-//  - weights are staged transposed ([n][k]) so each B fragment is one 32-bit
-//    shared load; rows of an odd N (the head's 25,055) are read as aligned
-//    words and shifted into place, as w8_gemm.cuh does.
-// Not yet done (a later change): a cp.async/TMA pipeline, wgmma, split-K
-// for the N = 512 linears.
+// (19.6 MB) is the larger stream: 9.84 us at 3.35 TB/s at T = 196 (4.96 at
+// T = 36), against ~2.5 us of int8 tensor-core work at 1,979 TOP/s.
+// Both forms quantize f32 x to i8 codes once, by a pass over all of x
+// (one IEEE division per element) into a scratch buffer the caller gives;
+// the GEMM streams codes, a quarter of the f32 bytes. (Quantizing inside
+// the tile loop, the first version, repeated each division in every column
+// block and cost 3x the time.) The sums are exact on the int8 tensor cores
+// (`mma.sync.m16n8k32`, s8 x s8 -> s32); the zero-point correction is one
+// int per output.
+//  - the tile form (dq_gemm_mma, kernel 4's linears): BM x BN tiles over K
+//    in steps of 64, the next K tile fetched into registers while the tensor
+//    cores run; weights staged transposed ([n][k]), byte by byte.
+//  - the strip form (dq_gemm_strip, kernel 5's C entries, but where N and K
+//    are both at most 512, which the tile form takes): a block takes
+//    every row up to 256 (64, 128, 192 or 256; dead m16 tiles skipped) by a
+//    64-column strip, so each strip of the weight is read from device
+//    memory once (the tile form read the head's weight four times). A
+//    4-stage cp.async ring of 64-row K tiles; the weight tile stays [k][n]
+//    as the card holds it (a 16-byte-aligned window a row where rows are
+//    unaligned, as the head's 25,055 leaves them) and a 4 x 4 byte
+//    transpose in registers (__byte_perm) turns 4 rows' words into 4 B
+//    fragments. The int32 tile is staged in shared memory and stored by
+//    whole row segments, lanes on consecutive columns. Where the strips
+//    are few (the N = 512..2048 linears) a cluster of up to 8 blocks splits
+//    K and sums its int32 tiles through distributed shared memory (exact in
+//    any order). Same bits as the tile form and the plain version.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_port_kernel_ab.py,
+// 20 calls in a CUDA graph, quantize pass included): the head at T = 196
+// 35.3 us (tile form 83.1; torch._int_mm 57.8 in chip_smoke.py), T = 36
+// 19.7 (27.5), T = 100 26.8 (49.0); the [2048 -> 512] linear 8.3-13.2
+// (19.1-23.7), [512 -> 1536] 7.0-11.1 (7.6-14.0), [512 -> 2048] 7.5-13.9
+// (7.7-13.9: at T = 196 5% slower). On the strip form the [512 -> 512]
+// linear took 10.0-10.9 against the tile form's 7.4-8.9 (a cluster's syncs
+// and a 256-row tile on little work), so N and K both <= 512 stay on the
+// tile form.
+// Not yet done (a later change): wgmma and TMA; folding the quantize pass
+// (~2 us of each call) into the GEMM, which would need its divisions done
+// once, not once a column block; a smaller strip tile for the small
+// linears, after which kernels 4 and 11 could move onto the strip core and
+// dq_gemm_mma and dql_quantize go (ROADMAP item 3).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include <algorithm>
@@ -326,6 +350,286 @@ inline void launch_dq_gemm(const float* x, int8_t* qbuf, const int8_t* w, float*
     dq_gemm_mma<32, 32><<<dim3((N + 31) / 32, (M + 31) / 32), 128, 0, s>>>(a, w, y, M, K, N,
                                                                           src, ep);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The strip form (dq_gemm.cu's C entries; kernel 4 keeps dq_gemm_mma above).
+
+constexpr int kDqStages = 4;       // cp.async ring depth, K tiles of 64
+constexpr int kDqBN = 64;          // columns of a block's strip
+constexpr int kDqLD = 80;          // bytes a smem row: 64 + 16 (the window)
+constexpr int kDqLDC = kDqBN + 4;  // int32 a row of the staged output tile
+
+// Kp: the codes' row stride, K rounded up to 16, so every row of codes
+// starts 16-byte aligned for cp.async
+inline int dq_codes_stride(int K) { return (K + 15) / 16 * 16; }
+
+// q[m][k] = the i8 code of x[m][k] for k < K, rows Kp apart; 4 a thread,
+// grid (ceil(K / 1024), M)
+__global__ void __launch_bounds__(256)
+dql_quantize_rows(const float* __restrict__ x, int8_t* __restrict__ q, int K, int Kp,
+                  DqlSrc src) {
+  float scale, safe, zp;
+  dql_params(src, scale, safe, zp);
+  const int m = blockIdx.y, k = 4 * (blockIdx.x * 256 + threadIdx.x);
+  if (k >= K) return;
+  const float* xr = x + (size_t)m * K;
+  uint32_t packed = 0;
+  if (k + 4 <= K && reinterpret_cast<uintptr_t>(xr + k) % 16 == 0) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + k);
+    packed = dql_code(v.x, safe, zp) | (dql_code(v.y, safe, zp) << 8) |
+             (dql_code(v.z, safe, zp) << 16) | (dql_code(v.w, safe, zp) << 24);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k + e < K) packed |= dql_code(xr[k + e], safe, zp) << (8 * e);
+  }
+  *reinterpret_cast<uint32_t*>(q + (size_t)m * Kp + k) = packed;  // Kp % 4 == 0
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 4 x 4 byte transpose: out[j] byte i = byte j of r[i]
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// One block: rows m0 .. m0 + 64 MI - 1 (every row up to 256 in one row of
+// blocks) by a strip of 64 columns, over K tiles kt0 .. kt1 - 1 of its
+// cluster rank; 8 warps, warp (wm, wn) takes m16 tiles wm, wm + 4, ... and
+// the strip's 32-column half wn. The weight tile sits in shared memory as
+// the card holds it, [k][n]: a 16-byte-aligned window of each row (5 chunks
+// where N leaves rows unaligned, as the head's 25,055 does; `sh` is the
+// row's offset in it). A thread reads one word of 4 columns from each of
+// 4 rows and transposes the bytes in registers: 4 B fragments of
+// mma.m16n8k32, one for each n8 tile, whose column g is the strip's byte
+// column 4 g + j (the output is staged through shared memory, so the
+// permutation costs nothing). Grid: (strips * S, row blocks), clusters of
+// S along x splitting K; the int32 tiles are summed through distributed
+// shared memory (exact in any order), rank r storing rows r, r + S, ...
+template <int MI, bool ALIGNED>
+__global__ void __launch_bounds__(256)
+dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w, float* y,
+              int M, int K, int N, DqlSrc src, DqEpilogue ep, int S) {
+  constexpr int BM = 64 * MI, BK = 64;
+  extern __shared__ __align__(16) int8_t dq_smem[];
+  int8_t* As = dq_smem;                           // [stage][BM][kDqLD]
+  int8_t* Bs = dq_smem + kDqStages * BM * kDqLD;  // [stage][BK][kDqLD]
+  int* Cs = reinterpret_cast<int*>(dq_smem);      // [BM][kDqLDC], after the loop
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tg = lane & 3;
+  const int rank = blockIdx.x % S, n0 = (blockIdx.x / S) * kDqBN, m0 = blockIdx.y * BM;
+  const int ktiles = (K + BK - 1) / BK;
+  const int kt0 = rank * ktiles / S, kt1 = (rank + 1) * ktiles / S;
+  const int8_t* wend = w + (size_t)K * N;
+  const unsigned bofs = static_cast<unsigned>((reinterpret_cast<uintptr_t>(w) + n0) & 15);
+  constexpr int BCH = ALIGNED ? 4 : 5;  // 16-byte chunks of a weight row's window
+
+  auto load_tile = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    int8_t* as = As + stage * BM * kDqLD;
+    for (int c = tid; c < BM * 4; c += 256) {
+      const int r = c >> 2, kc = k0 + (c & 3) * 16, m = m0 + r;
+      const bool ok = m < M && kc < Kp;
+      cp_async16(as + r * kDqLD + (c & 3) * 16, ok ? a + (size_t)m * Kp + kc : a, ok ? 16 : 0);
+    }
+    int8_t* bs = Bs + stage * BK * kDqLD;
+    for (int c = tid; c < BK * BCH; c += 256) {
+      const int r = c / BCH, j = c % BCH, k = k0 + r;
+      const int8_t* row = w + (size_t)k * N + n0;
+      const int8_t* p = reinterpret_cast<const int8_t*>(
+                            reinterpret_cast<uintptr_t>(row) & ~uintptr_t(15)) + 16 * j;
+      const long long left = k < K ? wend - p : 0;
+      const int bytes = left <= 0 ? 0 : left >= 16 ? 16 : static_cast<int>(left);
+      cp_async16(bs + r * kDqLD + 16 * j, bytes ? p : w, bytes);
+    }
+  };
+
+  int acc[MI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kDqStages - 1; ++s) {
+    if (kt0 + s < kt1) load_tile(kt0 + s, s);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    cp_async_wait<kDqStages - 2>();
+    __syncthreads();  // tile kt landed for all; the stage refilled below is free
+    if (kt + kDqStages - 1 < kt1)
+      load_tile(kt + kDqStages - 1, (kt - kt0 + kDqStages - 1) % kDqStages);
+    cp_async_commit();
+    const int stage = (kt - kt0) % kDqStages;
+    const int8_t* as = As + stage * BM * kDqLD;
+    const int8_t* bs = Bs + stage * BK * kDqLD;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t r4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = kk + 16 * h + tg * 4 + i;
+          const uint32_t* rw = reinterpret_cast<const uint32_t*>(bs + r * kDqLD);
+          if constexpr (ALIGNED) {
+            r4[i] = rw[wn * 8 + g];
+          } else {
+            const unsigned sh = (bofs + static_cast<unsigned>(kt * BK + r) *
+                                 static_cast<unsigned>(N)) & 15u;
+            const unsigned p = sh + wn * 32 + 4 * g;
+            r4[i] = __funnelshift_r(rw[p >> 2], rw[(p >> 2) + 1], (p & 3) * 8);
+          }
+        }
+        uint32_t t[4];
+        transpose4x4(r4, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j][h] = t[j];
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = (mi * 4 + wm) * 16;
+        if (m0 + r >= M) continue;  // a dead m16 tile: the same for the warp
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(as + (r + g) * kDqLD + kk + tg * 4);
+        af[1] = *reinterpret_cast<const uint32_t*>(as + (r + g + 8) * kDqLD + kk + tg * 4);
+        af[2] = *reinterpret_cast<const uint32_t*>(as + (r + g) * kDqLD + kk + 16 + tg * 4);
+        af[3] = *reinterpret_cast<const uint32_t*>(as + (r + g + 8) * kDqLD + kk + 16 + tg * 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[mi][j], af, b[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the int32 tile in its place
+
+  // thread (g, tg) of n8 tile j holds columns 2 tg, 2 tg + 1: strip columns
+  // wn * 32 + 4 (2 tg) + j and wn * 32 + 4 (2 tg + 1) + j
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const int r = (mi * 4 + wm) * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn * 32 + 8 * tg + j;
+      Cs[r * kDqLDC + c] = acc[mi][j][0];
+      Cs[r * kDqLDC + c + 4] = acc[mi][j][1];
+      Cs[(r + 8) * kDqLDC + c] = acc[mi][j][2];
+      Cs[(r + 8) * kDqLDC + c + 4] = acc[mi][j][3];
+    }
+  }
+  namespace cg = cooperative_groups;
+  if (S > 1) cg::this_cluster().sync();
+  else __syncthreads();
+
+  // the epilogue, coalesced: a warp stores whole row segments, lane on column
+  float scale, safe, zp;
+  dql_params(src, scale, safe, zp);
+  const int zpi = static_cast<int>(zp) - 128;
+  int cs[2];
+  float sc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + lane + 32 * h;
+    cs[h] = n < N ? ep.colsum[n] : 0;
+    sc[h] = n < N ? __fmul_rn(scale, ep.ws ? ep.ws[n] : ep.w_scale) : 0.f;
+  }
+  for (int r = rank + S * warp; r < BM && m0 + r < M; r += S * 8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane + 32 * h, n = n0 + c;
+      int v = Cs[r * kDqLDC + c];
+      if (S > 1) {  // the other ranks' sums, all loads in flight at once
+        int o[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          o[i] = i < S && i != rank
+              ? *cg::this_cluster().map_shared_rank(Cs + r * kDqLDC + c, i) : 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v += o[i];
+      }
+      if (n < N)
+        y[(size_t)(m0 + r) * N + n] = __fmul_rn(__int2float_rn(v - zpi * cs[h]), sc[h]);
+    }
+  }
+  if (S > 1) cg::this_cluster().sync();  // no block leaves while its tile is read
+}
+
+template <int MI, bool ALIGNED>
+inline cudaError_t launch_dq_strip_mi(const int8_t* a, int Kp, const int8_t* w, float* y, int M,
+                                      int K, int N, const DqlSrc& src, const DqEpilogue& ep,
+                                      cudaStream_t s) {
+  constexpr int BM = 64 * MI;
+  const int smem = kDqStages * (BM + 64) * kDqLD;
+  static_assert(BM * kDqLDC * 4 <= kDqStages * (BM + 64) * kDqLD, "staging fits the ring");
+  auto kernel = dq_gemm_strip<MI, ALIGNED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const int strips = (N + kDqBN - 1) / kDqBN, rows = (M + BM - 1) / BM;
+  const int ktiles = (K + 63) / 64;
+  // a cluster splits K where the strips alone give fewer than ~2 blocks an
+  // SM, keeping 2 K tiles a block
+  int S = 1;
+  while (S < 8 && strips * rows * S < 2 * 132 && 4 * S <= ktiles) S *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(strips * S, rows);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a, Kp, w, y, M, K, N, src, ep, S);
+}
+
+// quantize x [M, K] into the codes qbuf [M, dq_codes_stride(K)], then the
+// strip GEMM on them; the epilogue takes ep's colsum and ws / w_scale only.
+// Where both N and K are at most 512 (the [512 -> 512] linear) the work is
+// too small for a strip's 256-row tile and a cluster: the tile form takes
+// it (the same bits; its codes are [M, K], which the buffer holds).
+inline cudaError_t launch_dq_strip(const float* x, int8_t* qbuf, const int8_t* w, float* y,
+                                   int M, int K, int N, const DqlSrc& src,
+                                   const DqEpilogue& ep, cudaStream_t s) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (N <= 512 && K <= 512) {
+    launch_dq_gemm(x, qbuf, w, y, M, K, N, src, ep, s);
+    return cudaSuccess;
+  }
+  const int Kp = dq_codes_stride(K);
+  dql_quantize_rows<<<dim3(std::max(1, (K + 1023) / 1024), M), 256, 0, s>>>(x, qbuf, K, Kp, src);
+  const bool aligned = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int mi = M > 192 ? 4 : M > 128 ? 3 : M > 64 ? 2 : 1;
+#define LELE_DQ_STRIP(MI_)                                                            \
+  return aligned ? launch_dq_strip_mi<MI_, true>(qbuf, Kp, w, y, M, K, N, src, ep, s) \
+                 : launch_dq_strip_mi<MI_, false>(qbuf, Kp, w, y, M, K, N, src, ep, s)
+  if (mi == 1) LELE_DQ_STRIP(1);
+  if (mi == 2) LELE_DQ_STRIP(2);
+  if (mi == 3) LELE_DQ_STRIP(3);
+  LELE_DQ_STRIP(4);
+#undef LELE_DQ_STRIP
 }
 
 }  // namespace lele

@@ -43,11 +43,8 @@
 //    dequantised-tile form takes any group. Running counters track each
 //    plane's group: a division by the runtime group on the serial K walk
 //    cost 18% of the CTC head and 8% of the stack (PERF.md).
-//  - the expert-indexed entry (QMoE decode): x [R, K], stacks [E, K/2, N]
-//    and [E, K/group, N], idx [R]; grid z runs over the R rows and a block
-//    reads its row's stack idx[r] from the card, so a whole decode step is
-//    one launch a linear and no expert is copied. Each block computes one
-//    row: at M = 1 most of the 32-row M tile is idle (PERF.md).
+//  - the expert-indexed entry (QMoE decode) and every M <= 4 take the
+//    decode form (w4_gemv.cuh).
 //  - unpacking: a byte permute and one bf16x2 subtract give two exact bf16
 //    int4 values; the stack's bf16(q * s) takes a permute and an add a value
 //    for q and one paired f32 → bf16 conversion.
@@ -56,7 +53,8 @@
 //    SM, against 110 and four (the CTC head 13% faster; PERF.md).
 // Not yet done (a later change): a deeper cp.async/TMA pipeline, split-K
 // for the N = 512 linears, wgmma; at K = 2048, N = 512 the kernel is still
-// ~1.7x w8_gemm's time, not understood (no ncu on the card's machine).
+// ~1.7x w8_gemm's time, not understood (no ncu on the card's machine). Few
+// rows take the decode form (w4_gemv.cuh).
 #pragma once
 
 #include "w8_gemm.cuh"
@@ -125,19 +123,6 @@ __device__ __forceinline__ void mma_bf16_1688(float (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// The expert-indexed entry: block z computes row z of x against stack
-// idx[z]; the kernels move their pointers there and take M = 1.
-#define LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group)  \
-  if (idx) {                                                 \
-    const size_t r_ = blockIdx.z;                            \
-    const size_t e_ = static_cast<size_t>(__ldg(idx + r_));  \
-    x += r_ * (K);                                           \
-    y += r_ * (N);                                           \
-    w += e_ * ((K) / 2) * (N);                               \
-    sc += e_ * ((K) / (group)) * (N);                        \
-    M = 1;                                                   \
-  }
-
 __device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&r);
@@ -148,12 +133,12 @@ __device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
 // BKP = 32 packed rows: 32 / KSTEP k-steps of the low plane and as many of
 // the high plane. A is stored [plane][m][k] and read as 32-bit pairs; B
 // [plane][k][n], read with ldmatrix.trans. Rows are padded by 8 elements:
-// fragment reads are conflict free. idx: null, or the expert-indexed entry.
+// fragment reads are conflict free.
 template <int BM, int BN, typename AT, int BMODE, int KSTEP = 16>
 __global__ void __launch_bounds__(128)
 w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ sc, float* y, int M, int K, int N, int group,
-            W4Epilogue ep, const int* __restrict__ idx = nullptr) {
+            W4Epilogue ep) {
   static_assert(KSTEP == 16 || (KSTEP == 8 && BMODE == W4_GROUP_ACC), "k-step");
   constexpr int BKP = 32, LDA = BKP + 8, LDB = BN + 8;
   constexpr int MI = BM / 32, NI = BN / 16;
@@ -169,7 +154,6 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, tg = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group);
   const int half = K / 2;
   // whole 16-byte chunks of A where each plane's rows start aligned
   const bool a_vec = (half % A_VEC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
@@ -437,13 +421,12 @@ w4_gemm_mma(const AT* __restrict__ x, const int8_t* __restrict__ w,
 __global__ void __launch_bounds__(256)
 w4_gemm_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ sc, float* y, int M, int K, int N, int group,
-            W4Epilogue ep, const int* __restrict__ idx = nullptr) {
+            W4Epilogue ep) {
   constexpr int BM = 64, BN = 64, BKP = 16;
   __shared__ float As[2][BKP][BM + 4];  // [plane][k][m]
   __shared__ float Bs[2][BKP][BN];      // [plane][k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  LELE_W4_SELECT_ROW(idx, x, w, sc, y, M, K, N, group);
   const int half = K / 2;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < half; k0 += BKP) {
@@ -505,46 +488,40 @@ inline bool w4_shape_ok(int K, int group, int bmode) {
 
 template <int BM, int BN, typename AT, int BMODE>
 inline void launch_w4_tile(const AT* x, const int8_t* w, const float* sc, float* y, int M,
-                           int K, int N, int group, const W4Epilogue& ep, const int* idx,
-                           cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, idx ? 1 : (M + BM - 1) / BM, idx ? M : 1);
+                           int K, int N, int group, const W4Epilogue& ep, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if constexpr (BMODE == W4_GROUP_ACC) {
     if (group % 16) {
-      w4_gemm_mma<BM, BN, AT, BMODE, 8><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep,
-                                                             idx);
+      w4_gemm_mma<BM, BN, AT, BMODE, 8><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep);
       return;
     }
   }
-  w4_gemm_mma<BM, BN, AT, BMODE><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep, idx);
+  w4_gemm_mma<BM, BN, AT, BMODE><<<grid, 128, 0, s>>>(x, w, sc, y, M, K, N, group, ep);
 }
 
-// idx: null, or the expert-indexed entry (M rows, row r against stack idx[r])
 template <int BMODE, typename AT>
 inline void launch_w4_gemm_mma(const AT* x, const int8_t* w, const float* sc, float* y,
                                int M, int K, int N, int group, const W4Epilogue& ep,
-                               cudaStream_t s, const int* idx = nullptr) {
+                               cudaStream_t s) {
   if (M == 0 || N == 0) return;
   // the largest tile that still gives the 132 SMs enough blocks; the group
   // form holds two partial accumulators, and at 64 x 64 its registers (179)
   // leave two blocks an SM, so it stops at 32 x 64 (110)
-  const int rows = idx ? 1 : M, slabs = idx ? M : 1;
-  auto blocks = [&](int bm, int bn) {
-    return ((rows + bm - 1) / bm) * ((N + bn - 1) / bn) * slabs;
-  };
-  if (BMODE == W4_DEQ_BF16 && !idx && blocks(64, 64) >= 2 * 132)
-    launch_w4_tile<64, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
+  auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
+  if (BMODE == W4_DEQ_BF16 && blocks(64, 64) >= 2 * 132)
+    launch_w4_tile<64, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, s);
   else if (blocks(32, 64) >= 132)
-    launch_w4_tile<32, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
+    launch_w4_tile<32, 64, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, s);
   else
-    launch_w4_tile<32, 32, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, idx, s);
+    launch_w4_tile<32, 32, AT, BMODE>(x, w, sc, y, M, K, N, group, ep, s);
 }
 
 inline void launch_w4_gemm_f32(const float* x, const int8_t* w, const float* sc, float* y,
                                int M, int K, int N, int group, const W4Epilogue& ep,
-                               cudaStream_t s, const int* idx = nullptr) {
+                               cudaStream_t s) {
   if (M == 0 || N == 0) return;
-  const dim3 grid((N + 63) / 64, idx ? 1 : (M + 63) / 64, idx ? M : 1);
-  w4_gemm_f32<<<grid, 256, 0, s>>>(x, w, sc, y, M, K, N, group, ep, idx);
+  const dim3 grid((N + 63) / 64, (M + 63) / 64);
+  w4_gemm_f32<<<grid, 256, 0, s>>>(x, w, sc, y, M, K, N, group, ep);
 }
 
 }  // namespace lele

@@ -15,7 +15,9 @@ Dynamic-quantized int8 (a8w8, exact ONNX DynamicQuantizeLinear semantics):
 (design and bounds in csrc/dq_gemm.cuh): x f32 is quantized once to u8
 codes shifted to i8 (a pass over x into a scratch buffer the wrapper
 allocates), multiplied on the int8 tensor cores (`mma.sync` m16n8k32, s32
-sums, exact), and the epilogue subtracts
+sums, exact) by blocks that each stream one 64-column strip of the weight
+once for every row up to 256 (where N and K are both at most 512, by the
+tile form of kernel 4's linears), and the epilogue subtracts
 (zp−128)·colsum and scales by a_scale·w_scale. a_scale and a_zp are device
 scalars the kernel reads through pointers, so no linear waits on the host.
 Quantization divides by the scale, as ONNX and the JAX package's jnp path
@@ -198,7 +200,8 @@ def fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale: float | torc
     M, K = x.shape
     N = wq.shape[1]
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)  # scratch
+    # scratch for the codes of x, rows 16-byte aligned (csrc: dq_codes_stride)
+    codes = torch.empty((M, -(-K // 16) * 16), dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if isinstance(w_scale, torch.Tensor):
         if _dq_ws_fn is None:

@@ -2,7 +2,10 @@
 lele_tpu/kernels/w4_matmul.py.
 
 `w4_matmul` replaces `w4_matmul_pallas` (lele_tpu/kernels/w4_matmul.py:144).
-The kernel is csrc/w4_gemm.cu (design and bounds in csrc/w4_gemm.cuh).
+The kernel is csrc/w4_gemm.cu: a tile GEMM (csrc/w4_gemm.cuh), and for few
+rows (M <= 8 in the group-accumulator form, M <= 4 in the others) and every
+expert-indexed launch a decode form (csrc/w4_gemv.cuh, a split-K GEMV); the
+shape picks the form, and the two agree to the f32 summation order.
 
 Packing is the JAX package's block layout: byte i of the packed [K/2, N]
 tensor holds q[i] in its low nibble and q[i + K/2] in its high nibble, with

@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the port's kernels 1, 4, 5, 6, 7 and 8 on one card.
+"""A/B of two versions of the port's kernels 1, 4, 5, 6, 7, 8 and 11 on one card.
 
     python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR] [--stems a,b]
 
 Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu, csrc/lstm_seq.cu,
-csrc/w4_gemm.cu and csrc/sanm_layer.cu, those of them that both
-directories hold (or those `--stems` names), from both (the new one
-defaults to lele_tpu_torch/csrc), binds each through the port's own
+csrc/w4_gemm.cu, csrc/sanm_layer.cu and csrc/int8_gemm.cu, those of them
+that both directories hold (or those `--stems` names), from both (the new
+one defaults to lele_tpu_torch/csrc), binds each through the port's own
 wrappers (the C entries must share their signatures), and times in turns,
-old new new old, with CUDA events (median of 30 warm runs each):
+old new new old: CUDA events around the call (median of 30 warm runs each),
+the device time a call by torch.profiler (the kernels' own time, which
+events around a short launch overstate by the host's issue; "not measured"
+where no trace came back whole: chip_smoke.device_us), and the time a call
+of 20 calls captured in one CUDA graph (the device's time with the gaps
+between launches; chip_smoke.graph_us):
 
-- `dq_gemm` at the compiled graph's four layer linears and its CTC head,
-  T = 196 rows (10 s of audio);
+- `dq_gemm` at the compiled graph's CTC head at the three buckets' rows
+  (T = 36, 100, 196), and its four layer linears at T = 196, 171 and 21;
 - `sanm_stack_dql`, 50 layers at d512, ffn 2048, T = 196;
 - `lstm_seq` at H = 128, B = 1 over S = 3 (a chunk of the Silero fixture),
   1,875 (60 s) and 18,750 (600 s) steps;
 - `w4_gemm` (bf16 x, group 128) at the layer linears and the CTC head,
-  T = 171 rows;
+  T = 171 rows; at the decode shapes (M = 1: the QMoE layer's expert widths
+  and Phi-3.5-MoE's, both directions; M = 2 and 4 to 9 and 16 at
+  Phi-3.5-MoE's [4096 -> 6400], where the decode form (M <= 8 in the group
+  form) meets the tile form; the expert-indexed fc1 of a 1-row top-2 step,
+  bf16 and f32), each warm (one
+  weight, resident in the 50 MB L2) and cold (calls rotate over enough
+  copies of the weight to exceed the L2);
+- `int8_gemm` at a layer's four linears at T = 171;
 - `sanm_stack_w8` and, where both versions have its C entry,
   `sanm_stack_w4`: 50 layers at d512, ffn 2048, T = 171, random weights.
 
-It checks that the two versions give the same bits (both compute the same
-exact arithmetic) and prints the card's name and power limit beside every
-time. Random operands come from a seed on the card.
+It checks that the two versions give the same bits where both compute the
+same exact arithmetic (`dq_gemm`, `sanm_dql`, `int8_gemm`, the layers and
+stacks, `lstm_seq`). `w4_gemm`'s decode form sums in another f32 order than
+the tile form, on purpose, so there both versions are held to the gate of
+`w4_matmul_plain` instead (1e-5·max|ref|). It prints the card's name and
+power limit beside every time. Random operands come from a seed on the card.
 """
 
 from __future__ import annotations
@@ -36,11 +51,19 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer")
+STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "int8_gemm")
 LSTM_STEPS = (3, 1875, 18750)
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
 T_W = 171  # the native path's rows at 10 s
+DQ_HEAD_ROWS = (36, 100)  # the compiled head's other buckets (196 is in SHAPES)
+T_SHORT = 21  # the native path's rows at 1 s
+# (M, K, N): the decode shapes of kernel 7 (the QMoE layer's expert widths,
+# Phi-3.5-MoE's, and the rows where the decode form meets the tile form)
+W4_DECODE = ((1, 1024, 1792), (1, 1792, 1024), (1, 4096, 6400), (1, 6400, 4096),
+             *((m, 4096, 6400) for m in (2, 4, 5, 6, 7, 8, 9, 16)))
+L2_BYTES = 50e6  # the H100's L2
+W4_REL = 1e-5
 
 
 def build(csrc: Path, out: Path, stems) -> dict[str, ctypes.CDLL]:
@@ -101,41 +124,58 @@ def main(argv: list[str]) -> int:
             sanm_block._fns.clear()
             lstm._fn = None
             w4._fn = None
+            quant_matmul._i8_fn = None
+            quant_matmul._dq_ws_fn = None
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         cases = []
-        for k_, n_ in SHAPES if "dq_gemm" in stems else ():
+        dq_shapes = (*((T, k_, n_) for k_, n_ in SHAPES),
+                     *((m, *SHAPES[-1]) for m in DQ_HEAD_ROWS),
+                     *((t, k_, n_) for t in (T_W, T_SHORT) for k_, n_ in SHAPES[:-1]))
+        for m, k_, n_ in dq_shapes if "dq_gemm" in stems else ():
             wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
                                dtype=torch.int8)
             colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
-            x = torch.randn((T, k_), generator=gen, device=dev)
+            x = torch.randn((m, k_), generator=gen, device=dev)
             _, s, zp = K.dynamic_quantize_u8(x)
-            cases.append((f"dq_gemm [{T},{k_}]x[{k_},{n_}]",
+            cases.append((f"dq_gemm [{m},{k_}]x[{k_},{n_}]",
                           lambda x=x, wq=wq, c=colsum, s=s, zp=zp:
-                          K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3)))
+                          K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3), None))
         if "sanm_dql" in stems:
             st = cs.random_dql_stack(L, D, F, FK, dev, gen)
             bias, vmask = cs.dql_masks(L, T, 171, dev)
             x = torch.randn((T, D), generator=gen, device=dev)
             cases.append((f"sanm_stack_dql T={T} L={L}",
-                          lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2)))
+                          lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2),
+                          None))
         for S in LSTM_STEPS if "lstm_seq" in stems else ():
             args = cs.lstm_inputs(S, 1, 128, dev, gen)
             cases.append((f"lstm_seq S={S} B=1 H=128",
-                          lambda args=args: torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)])))
+                          lambda args=args: torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)]),
+                          None))
         for k_, n_ in SHAPES if "w4_gemm" in stems else ():
             packed, scales = w4.quantize_weight_int4(
                 torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5, 128)
             xw = torch.randn((T_W, k_), generator=gen, device=dev).to(torch.bfloat16)
             cases.append((f"w4_gemm [{T_W},{k_}]x[{k_},{n_}] g128 bf16",
-                          lambda x=xw, p=packed, s=scales: K.w4_matmul(x, p, s, 128)))
+                          lambda x=xw, p=packed, s=scales: K.w4_matmul(x, p, s, 128), None))
+        if "w4_gemm" in stems:
+            cases += _w4_decode_cases(dev, gen, w4)
+        for k_, n_ in SHAPES[:-1] if "int8_gemm" in stems else ():
+            a = torch.randint(-128, 128, (T_W, k_), generator=gen, device=dev, dtype=torch.int8)
+            b = torch.randint(-128, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+            cases.append((f"int8_gemm [{T_W},{k_}]x[{k_},{n_}]",
+                          lambda a=a, b=b: K.int8_matmul(a, b), None))
         if "sanm_layer" in stems:
-            cases += _layer_cases(stems, libs, dev, gen)
-        for name, fn in cases:
+            cases += [(*c, None) for c in _layer_cases(stems, libs, dev, gen)]
+        failed = False
+        for name, fn, plain in cases:
             times = {"old": [], "new": []}
-            outs = {}
+            dev_us = {"old": [], "new": []}
+            outs, split = {}, {}
+            graph = {"old": [], "new": []}
             for version in ("old", "new", "new", "old"):
                 use(version)
                 try:
@@ -145,12 +185,86 @@ def main(argv: list[str]) -> int:
                     print(f"{name}: the {version} version fails: {e}")
                     return 1
                 times[version].append(cs.time_ms(fn, runs=30))
-            same = torch.equal(outs["old"], outs["new"])
+                rows = cs.device_us(fn)
+                dev_us[version].append(None if rows is None else sum(rows.values()))
+                graph[version].append(cs.graph_us(fn))
+                split[version] = ("no whole trace" if rows is None else
+                                  ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(rows.items())))
+            if plain is None:
+                ok = torch.equal(outs["old"], outs["new"])
+                verdict = f"same bits {ok}"
+            else:  # both versions within the gate of the plain version
+                ref = plain()
+                scale = ref.abs().max().item()
+                d = {v: (outs[v] - ref).abs().max().item() for v in ("old", "new")}
+                ok = all(x <= W4_REL * scale for x in d.values())
+                verdict = (f"vs plain max|d| old {d['old']:.3e}, new {d['new']:.3e} "
+                           f"<= {W4_REL:g} * {scale:.3e}: {ok}")
+            failed |= not ok
             print(f"{name}: old {statistics.mean(times['old']):.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in times['old'])}), new "
                   f"{statistics.mean(times['new']):.4f} ms "
-                  f"({', '.join(f'{t:.4f}' for t in times['new'])}), same bits {same}  ({card})")
-    return 0
+                  f"({', '.join(f'{t:.4f}' for t in times['new'])}) by events; device "
+                  f"by the profiler old {_mean_us(dev_us['old'])}, new "
+                  f"{_mean_us(dev_us['new'])}; in a CUDA graph old "
+                  f"{statistics.mean(graph['old']):.2f} us "
+                  f"({', '.join(f'{t:.2f}' for t in graph['old'])}), new "
+                  f"{statistics.mean(graph['new']):.2f} us "
+                  f"({', '.join(f'{t:.2f}' for t in graph['new'])}) [kernels, us: old "
+                  f"{split['old']}; new {split['new']}]; {verdict}  ({card})")
+    return 1 if failed else 0
+
+
+def _mean_us(ts) -> str:
+    """The mean of the profiler's readings and each one; a trace that never
+    came back whole reads "not measured" and is left out of the mean."""
+    got = [t for t in ts if t is not None]
+    each = ", ".join("not measured" if t is None else f"{t:.2f}" for t in ts)
+    return f"{statistics.mean(got):.2f} us ({each})" if got else f"not measured ({each})"
+
+
+def _w4_decode_cases(dev, gen, w4):
+    """Kernel 7 at the decode shapes, warm and cold, and the expert-indexed
+    fc1 of a 1-row top-2 decode step; each case carries its plain version."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    cases = []
+    for m, k_, n_ in W4_DECODE:
+        w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
+        packed, scales = w4.quantize_weight_int4(w, 128)
+        x = torch.randn((m, k_), generator=gen, device=dev).to(torch.bfloat16)
+        nbytes = packed.numel() + 4 * scales.numel()
+        copies = int(L2_BYTES // nbytes) + 2  # a set larger than the L2
+        ws = [(packed.clone(), scales.clone()) for _ in range(copies)]
+        turn = [0]
+
+        def cold(x=x, ws=ws, turn=turn):
+            turn[0] = (turn[0] + 1) % len(ws)
+            return K.w4_matmul(x, *ws[turn[0]], 128)
+
+        def plain_cold(x=x, ws=ws, turn=turn):
+            return w4.w4_matmul_plain(x, *ws[turn[0]], 128)
+
+        shape = f"[{m},{k_}]x[{k_},{n_}] g128 bf16"
+        cases.append((f"w4_gemm decode {shape} warm",
+                      lambda x=x, p=packed, s=scales: K.w4_matmul(x, p, s, 128),
+                      lambda x=x, p=packed, s=scales: w4.w4_matmul_plain(x, p, s, 128)))
+        cases.append((f"w4_gemm decode {shape} cold ({copies} weights, "
+                      f"{copies * nbytes / 1e6:.0f} MB)", cold, plain_cold))
+    e, hidden, inter = 8, 1024, 1792
+    packed = torch.randint(-128, 128, (e, hidden // 2, inter), generator=gen, device=dev,
+                           dtype=torch.int8)
+    scales = torch.rand((e, hidden // 128, inter), generator=gen, device=dev) * 0.01 + 1e-3
+    idx = torch.tensor([3, 6], dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((2, hidden), generator=gen, device=dev).to(dtype)
+        cases.append((f"w4_gemm expert-indexed [2,{hidden}] x stacks [{e},{hidden // 2},"
+                      f"{inter}] g128 {str(dtype)[6:]}",
+                      lambda x=x: K.w4_matmul(x, packed, scales, 128, idx),
+                      lambda x=x: w4.w4_matmul_plain(x, packed, scales, 128, idx)))
+    return cases
 
 
 def _layer_cases(stems, libs, dev, gen):

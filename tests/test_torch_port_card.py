@@ -1,0 +1,128 @@
+"""Kernels 5 and 7 in their redesigned forms, held against their plain
+versions on an NVIDIA card.
+
+Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
+entry) sums in another f32 order than `w4_matmul_plain`, so it is held to
+1e-5·max|ref| (the gate chip_smoke.py holds every form of kernel 7 to) and
+to the same bits on a repeat call. Kernel 5's strip form, and its tile form
+where N and K are both at most 512 (csrc/dq_gemm.cuh), form exact int32
+sums and the plain version's f32 epilogue, so they must give
+`fused_dq_matmul_plain`'s bits.
+
+Every case needs the card and skips without one. The repository's conftest
+imports jax, which the card's machine does not have, so run this file there
+without it:
+
+    python -m pytest tests/test_torch_port_card.py --noconftest -q
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+import torch
+
+from lele_tpu_torch import kernels as K
+
+W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+W4_REL = 1e-5
+# MOE_DECODE's expert widths (lele_tpu_torch/onnx/synth.py) and Phi-3.5-MoE's
+MOE = (8, 1024, 1792)
+PHI = (4096, 6400)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: kernels 5 and 7 are CUDA C++ (csrc/) with no CPU "
+                    "form; chip_smoke.py runs these checks on the card too")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _w4_operands(gen, dev, k, n, group, stacks=None):
+    lead = () if stacks is None else (stacks,)
+    packed = torch.randint(-128, 128, (*lead, k // 2, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+    scales = torch.rand((*lead, k // group, n), generator=gen, device=dev) * 0.01 + 1e-3
+    return packed, scales
+
+
+def _w4_check(x, packed, scales, group, idx=None):
+    got = K.w4_matmul(x, packed, scales, group, idx)
+    again = K.w4_matmul(x, packed, scales, group, idx)
+    ref = W4.w4_matmul_plain(x, packed, scales, group, idx)
+    torch.cuda.synchronize()
+    d = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert d <= W4_REL * scale, f"max|d| {d:.3e} > {W4_REL:g} * {scale:.3e}"
+    assert torch.equal(got, again), "a repeat call changed the bits"
+
+
+# (M, K, N, group): the group-accumulator form at M = 1, 2, 4, 5, 7, 8 (the
+# decode form takes it up to 8 rows; the f32 and dequantised-tile forms up
+# to 4, then the tile form); its k-step-8 groups (8, 24, and 24 at M = 6);
+# the dequantised-tile form (K = 1,040 group 8, a
+# group of 12, group 1, and group 128 straddling the nibble planes at
+# K = 384); odd N; Phi-3.5-MoE's widths, where a cluster splits K
+W4_SHAPES = [
+    (1, 1024, 1792, 128), (2, 1024, 1792, 128), (4, 1024, 1792, 128), (8, 1024, 1792, 128),
+    (5, 1024, 1792, 128), (7, 1024, 1001, 128), (6, 768, 1536, 24),
+    (1, 512, 1536, 8), (3, 768, 1536, 24), (1, 1040, 1536, 8), (2, 1032, 1000, 12),
+    (1, 1024, 520, 1), (4, 384, 256, 128), (1, 1024, 1001, 128), (3, 1792, 1003, 64),
+    (1, *PHI, 128), (1, *PHI[::-1], 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k,n,group", W4_SHAPES)
+def test_w4_decode_form_matches_plain(dev, dtype, m, k, n, group):
+    gen = torch.Generator(device=dev).manual_seed(m + k + n + group)
+    packed, scales = _w4_operands(gen, dev, k, n, group)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    _w4_check(x, packed, scales, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", [2, 8])
+@pytest.mark.parametrize("fc", ["fc1", "fc2", "odd_n"])
+def test_w4_decode_form_expert_indexed(dev, dtype, rows, fc):
+    e, hidden, inter = MOE
+    k, n = {"fc1": (hidden, inter), "fc2": (inter, hidden), "odd_n": (hidden, 999)}[fc]
+    group = 128 if (k // 2) % 128 == 0 else 64
+    gen = torch.Generator(device=dev).manual_seed(rows + k + n)
+    packed, scales = _w4_operands(gen, dev, k, n, group, stacks=e)
+    idx = torch.randint(0, e, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn((rows, k), generator=gen, device=dev).to(dtype)
+    _w4_check(x, packed, scales, group, idx)
+
+
+# kernel 5: the compiled head at the three buckets' rows, the four layer
+# linears at 10 s (171) and 1 s (21) rows, and ragged K and odd N in both
+# forms (the tile form takes N and K both at most 512)
+DQ_SHAPES = [
+    *((m, 512, 25055) for m in (36, 100, 196)),
+    *((m, k, n) for m in (21, 171) for k, n in ((512, 1536), (512, 512), (512, 2048),
+                                               (2048, 512))),
+    (5, 130, 33), (300, 96, 77), (5, 130, 1033), (300, 96, 777),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_column", [False, True], ids=["w_scale", "ws"])
+@pytest.mark.parametrize("m,k,n", DQ_SHAPES)
+def test_dq_strip_form_equals_plain(dev, per_column, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+    x = torch.randn((m, k), generator=gen, device=dev) * 2.0
+    _, a_scale, a_zp = K.dynamic_quantize_u8(x)
+    w_scale = torch.tensor([2.5e-3], device=dev) if per_column else 2.5e-3
+    got = K.fused_dq_matmul(x, wq, colsum, a_scale, a_zp, w_scale)
+    ref = K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, w_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), f"max|d| {(got - ref).abs().max().item():.3e}"

@@ -273,6 +273,39 @@ def test_w4_matmul_indexed_entry_equals_row_by_row():
         W4.w4_matmul(x, packed, scales, 16, idx[:3])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [2, 8])
+@pytest.mark.parametrize("k,n", [(128, 224), (224, 128)], ids=["fc1", "fc2"])
+def test_w4_matmul_indexed_entry_matches_pallas_row_by_row(dtype, rows, k, n):
+    """The expert-indexed entry at a decode step's rows·k slots (R = 2: one
+    row, top-2; R = 8: four rows), at MOE_DECODE's form cut to small widths
+    (8 experts, hidden 128, inter 224; the group `_qmoe_group` picks): row r
+    against `w4_matmul_pallas(interpret=True)` on stack idx[r], to the f32
+    summation order (TPU_ROUTE_REL)."""
+    import jax.numpy as jnp
+
+    from lele_tpu_torch.compiler.patterns import _qmoe_group
+
+    W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
+    rng = np.random.default_rng(rows + k)
+    e, group = 8, _qmoe_group(k)
+    packed = rng.integers(-128, 128, (e, k // 2, n), dtype=np.int8)
+    scales = (rng.random((e, k // group, n)) * 0.01 + 1e-3).astype(np.float32)
+    idx = rng.integers(0, e, rows).astype(np.int32)
+    x = jnp.asarray(rng.standard_normal((rows, k)), dtype)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    if dtype == "bfloat16":
+        xt = xt.to(torch.bfloat16)
+    got = W4.w4_matmul(xt, torch.from_numpy(packed), torch.from_numpy(scales), group,
+                       torch.from_numpy(idx)).numpy()
+    assert got.shape == (rows, n) and W4.group_acc_form(k, group)
+    for r in range(rows):
+        want = np.asarray(jw4.w4_matmul_pallas(x[r:r + 1], packed[idx[r]], scales[idx[r]], group,
+                                               tn=128, tk=k // 2, interpret=True))
+        np.testing.assert_allclose(got[r:r + 1], want, rtol=TPU_ROUTE_REL,
+                                   atol=TPU_ROUTE_REL * np.abs(want).max())
+
+
 @pytest.mark.parametrize("k,blk", [(1040, 8), (768, 24)])
 def test_pattern_at_small_blocks_matches_jax_pattern(monkeypatch, k, blk):
     """Blocks 8 (K = 1040) and 24 (K = 768): JAX's pattern takes both, and so

@@ -160,9 +160,14 @@ def test_unpack_and_dequantize_match_jax():
     (8, 256, 128, 128, 128, 128),
     (3, 512, 200, 128, 128, 128),   # ragged M/N
     (16, 1024, 256, 128, 256, 256),
+    # decode rows (kernel 7's decode form on a card): M = 1 and 2, odd N
+    (1, 1024, 193, 128, 256, 128),
+    (2, 1024, 193, 128, 256, 128),
+    (1, 1792, 129, 128, 128, 128),
+    (2, 1792, 129, 128, 128, 128),
 ])
 def test_w4_matmul_plain_matches_pallas_and_jnp(dtype, m, k, n, g, tk, tn):
-    """The shapes of tests/test_w4.py:60-64."""
+    """The shapes of tests/test_w4.py:60-64, and decode rows."""
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.standard_normal((m, k)), dtype)
     w = rng.standard_normal((k, n)).astype(np.float32) * 0.1
