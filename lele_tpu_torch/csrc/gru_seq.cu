@@ -17,18 +17,42 @@
 // H = 128 a step is 49,152 FMAs (65,536 without linear_before_reset) and
 // 1.5 KB of xproj; the roofline bound is ~1.5 ns a step.
 //
-// Two forms, one C entry; the range is 1 <= H <= 1024, any S >= 1, B >= 1:
-//  - H <= 128, the single-block form: kernel 6's skeleton, one block per
-//    batch row and one thread per gate column (3H threads). Thread j keeps
-//    rows [0, KR) of column j of Rh in registers (KR = 64 above H = 64) and
-//    the rest in shared memory as float4 groups of four rows; at H = 128 Rh
-//    is 192 KB, so 96 KB stay in shared memory. h lives in shared memory.
-//    A step: the 2H z and r columns (and, with linear_before_reset, the H
-//    h columns: d_h) in parallel, a barrier, H threads update h, a barrier.
-//    Without linear_before_reset r * h must be whole before the h columns'
-//    second product: z and r, a barrier, r * h, a barrier, the h columns on
-//    r * h, a barrier, the update, a barrier. xproj[t+1] is loaded during
-//    step t.
+// Two forms, one C entry, chosen by H alone; the range is 1 <= H <= 1024,
+// any S >= 1, B >= 1:
+//  - H <= 128, the register form (gru_seq_reg): one block of 256 threads
+//    (2H rounded up to a warp below H = 128) per batch row, and no
+//    recurrent weight read from shared memory in the step. Thread 4q + p
+//    holds rows [32p, 32p + 32) of units 2q and 2q + 1's three columns of
+//    Rh (z, r and h: 192 weights, all in registers; rows and units past H
+//    are zeros), so the 4 K-parts of a unit sit in adjacent lanes and two
+//    __shfl_xor_sync rounds sum them. Every lane of the unit pair then has
+//    its d_z, d_r, d_h and runs the cell itself, no barrier between the
+//    product and the cell: lanes 2k and 2k + 1 work for unit 2q + k, the
+//    one taking z's sigmoid and the other r's in one stream, each reading
+//    both back by a shuffle (the accurate expf and tanhf are the step's
+//    longest chain, so a warp runs one sigmoid and one tanh, not three).
+//    h is double-buffered in shared memory, part p at word 36p (a pad of 4
+//    words a part), so the 4 parts' 16-byte loads fall in distinct banks;
+//    one block barrier a step with linear_before_reset; without it r * h
+//    must be whole before the h column's product: z and r, r * h to shared
+//    memory, a barrier, the h column on r * h, a barrier. A lane's two
+//    xproj words of step t+1 are loaded during step t.
+//    Why two units a thread: every thread reads its part of h (32 words)
+//    from shared memory each step, so 512 threads of one unit each need
+//    512 wavefronts of shared-memory reads a step against 256 here, and
+//    each loaded h word feeds 6 FMAs, not 3. Step times at H = 128 (NVIDIA
+//    H100 80GB HBM3, 700 W; chip_smoke.graph_us; S = 1,875 and 18,750, with
+//    / without linear_before_reset): this form 0.52 and 0.71 us
+//    (scripts/torch_port_kernel_ab.py); cuDNN's GRU 0.69 (linear_before_
+//    reset); a thread a gate column with rows 64-127 re-read from shared
+//    memory every step (~1,150 wavefronts) 1.18 and 1.31. Builds not kept:
+//    512 threads of 96 weights (no spill) 0.78 and 1.07, 0.73 and 1.00
+//    with the single sigmoid stream; this form with two accumulators a
+//    column 0.58 and 0.71. Registers: 255 a thread; ptxas spills 88
+//    bytes (104 without linear_before_reset), which the SASS (cuobjdump)
+//    shows as stores in the weight-loading prologue and one reload each
+//    (LDL.LU) before the step loop: the step itself touches no local
+//    memory.
 //  - 128 < H <= 1024, the general form of rnn_seq.cuh with GRU cells: a
 //    cluster of 8 CTAs a batch row, h (and r * h) exchanged through
 //    distributed shared memory.
@@ -42,129 +66,163 @@
 namespace {
 
 constexpr int kMaxH = 128;
+constexpr int kUnits = 2;                // units a thread
+constexpr int kParts = 4;                // K-parts of a unit, adjacent lanes
+constexpr int kPartRows = kMaxH / kParts;  // 32 rows of Rh a thread
+constexpr int kPartPitch = kPartRows + 4;  // words between parts in shared memory
+constexpr int kHWords = kParts * kPartPitch;
 
 using lele_rnn::gru_out;
 using lele_rnn::sigmoid_acc;
 
-template <int KR, bool LBR>  // KR: rows of Rh held in registers
-__global__ void __launch_bounds__(3 * kMaxH, 1)
-gru_seq_block(const float* __restrict__ xproj, const float* __restrict__ rh,
-              const float* __restrict__ rb, const float* __restrict__ h0,
-              float* __restrict__ hs, float* __restrict__ hf, int S, int B, int H) {
-  extern __shared__ float4 smem[];
-  const int G = 3 * H;
-  const int nq = (H - KR + 3) / 4;  // float4 groups of shared rows
-  const int hp = 4 * ((H + 3) / 4);
-  float4* ws = smem;                                                         // [nq][G]
-  float* hbuf = reinterpret_cast<float*>(ws + static_cast<size_t>(nq) * G);  // [hp]
-  float* rbuf = hbuf + hp;                                                   // [hp]: r * h
-  float* gbuf = rbuf + hp;                                                   // [G]
-  const int j = threadIdx.x;
-  const int b = blockIdx.x;
-  const bool col = j < G;
-  const int gate = col ? j / H : 3;
+__device__ __forceinline__ int hslot(int i) { return i + 4 * (i / kPartRows); }
 
-  float wr[KR > 0 ? KR : 1];
+// The column sums of a thread's units over its part's 32 rows: column c of
+// each of its two units against hv (this part's 32 words of h, 16-byte
+// aligned), summed over the unit's 4 lanes; columns c0 .. c0 + NC - 1.
+template <int NC>
+__device__ __forceinline__ void part_dot(const float (&w)[kUnits][3][kPartRows], const float* hv,
+                                         float (&d)[kUnits][3], int c0) {
+  float a[kUnits][NC];
 #pragma unroll
-  for (int k = 0; k < KR; ++k) wr[k] = col ? rh[static_cast<size_t>(k) * G + j] : 0.0f;
-  for (int idx = j; idx < nq * G; idx += blockDim.x) {
-    const int q = idx / G;
-    const int jj = idx - q * G;
-    float v[4];
+  for (int k = 0; k < kUnits; ++k)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = KR + 4 * q + r;
-      v[r] = k < H ? rh[static_cast<size_t>(k) * G + jj] : 0.0f;
-    }
-    ws[idx] = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  for (int k = j; k < hp; k += blockDim.x) {
-    hbuf[k] = k < H ? h0[static_cast<size_t>(b) * H + k] : 0.0f;
-    rbuf[k] = 0.0f;
-  }
-  const float rbj = col ? rb[j] : 0.0f;
-  const float rbh = j < H ? rb[2 * H + j] : 0.0f;  // the unit's h-gate bias
-  float xnext = col ? xproj[static_cast<size_t>(b) * G + j] : 0.0f;
-  float xhnext = j < H ? xproj[static_cast<size_t>(b) * G + 2 * H + j] : 0.0f;
-  __syncthreads();
-
-  const float4* wq = ws + j;
-  // column j's product with v [hp]
-  auto dot = [&](const float* v) -> float {
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    const float4* vq = v4 + KR / 4;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    for (int c = 0; c < NC; ++c) a[k][c] = 0.0f;
 #pragma unroll
-    for (int q = 0; q < KR / 4; ++q) {
-      const float4 hv = v4[q];
-      a0 = fmaf(hv.x, wr[4 * q], a0);
-      a1 = fmaf(hv.y, wr[4 * q + 1], a1);
-      a2 = fmaf(hv.z, wr[4 * q + 2], a2);
-      a3 = fmaf(hv.w, wr[4 * q + 3], a3);
-    }
-#pragma unroll 4
-    for (int q = 0; q < nq; ++q) {
-      const float4 hv = vq[q];
-      const float4 w = wq[static_cast<size_t>(q) * G];
-      a0 = fmaf(hv.x, w.x, a0);
-      a1 = fmaf(hv.y, w.y, a1);
-      a2 = fmaf(hv.z, w.z, a2);
-      a3 = fmaf(hv.w, w.w, a3);
-    }
-    return (a0 + a1) + (a2 + a3);
-  };
-
-  for (int t = 0; t < S; ++t) {
-    const float x = xnext, xh = xhnext;
-    if (t + 1 < S) {
-      const size_t row = (static_cast<size_t>(t + 1) * B + b) * G;
-      if (col) xnext = __ldg(xproj + row + j);
-      if (j < H) xhnext = __ldg(xproj + row + 2 * H + j);
-    }
-    if constexpr (LBR) {
-      if (col) {
-        const float d = dot(hbuf) + rbj;
-        gbuf[j] = gate < 2 ? sigmoid_acc(x + d) : d;  // z, r activated; d_h raw
+  for (int i = 0; i < kPartRows; i += 4) {
+    const float4 h4 = *reinterpret_cast<const float4*>(hv + i);
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        a[k][c] = fmaf(h4.x, w[k][c0 + c][i], a[k][c]);
+        a[k][c] = fmaf(h4.y, w[k][c0 + c][i + 1], a[k][c]);
+        a[k][c] = fmaf(h4.z, w[k][c0 + c][i + 2], a[k][c]);
+        a[k][c] = fmaf(h4.w, w[k][c0 + c][i + 3], a[k][c]);
       }
-      __syncthreads();
-      if (j < H) {
-        const float h = gru_out(gbuf[j], tanhf(xh + gbuf[H + j] * gbuf[2 * H + j]), hbuf[j]);
-        hbuf[j] = h;
-        hs[(static_cast<size_t>(t) * B + b) * H + j] = h;
-      }
-      __syncthreads();
-    } else {
-      if (gate < 2) gbuf[j] = sigmoid_acc(x + (dot(hbuf) + rbj));
-      __syncthreads();
-      if (j < H) rbuf[j] = gbuf[H + j] * hbuf[j];
-      __syncthreads();
-      if (gate == 2) gbuf[j] = dot(rbuf);
-      __syncthreads();
-      if (j < H) {
-        const float h = gru_out(gbuf[j], tanhf((xh + gbuf[2 * H + j]) + rbh), hbuf[j]);
-        hbuf[j] = h;
-        hs[(static_cast<size_t>(t) * B + b) * H + j] = h;
-      }
-      __syncthreads();
-    }
   }
-  if (j < H) hf[static_cast<size_t>(b) * H + j] = hbuf[j];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float x = a[k][c];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      d[k][c0 + c] = x;
+    }
 }
 
-template <int KR, bool LBR>
-int launch_block(const float* xproj, const float* rh, const float* rb, const float* h0,
-                 float* hs, float* hf, int S, int B, int H, cudaStream_t stream) {
+// one of this thread's two units' values, by the lane's own unit
+__device__ __forceinline__ float pick(const float (&v)[kUnits], int k) {
+  return k ? v[1] : v[0];
+}
+
+template <bool LBR>
+__global__ void __launch_bounds__(kParts * kMaxH / kUnits, 1)
+gru_seq_reg(const float* __restrict__ xproj, const float* __restrict__ rh,
+            const float* __restrict__ rb, const float* __restrict__ h0,
+            float* __restrict__ hs, float* __restrict__ hf, int S, int B, int H) {
+  __shared__ __align__(16) float hbuf[2][kHWords];
+  __shared__ __align__(16) float rbuf[kHWords];  // r * h, without linear_before_reset
   const int G = 3 * H;
-  const int threads = (G + 31) / 32 * 32;
-  const int nq = (H - KR + 3) / 4;
-  const int hp = 4 * ((H + 3) / 4);
-  const size_t smem = static_cast<size_t>(nq) * G * sizeof(float4) +
-                      static_cast<size_t>(2 * hp + G) * sizeof(float);
-  auto kernel = gru_seq_block<KR, LBR>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, stream>>>(xproj, rh, rb, h0, hs, hf, S, B, H);
+  const int p = threadIdx.x & (kParts - 1);
+  const int q = threadIdx.x / kParts;  // units 2q and 2q + 1
+  const int b = blockIdx.x;
+  // the cell: lanes 2k and 2k + 1 work for unit 2q + k; lane 2k takes its z
+  // sigmoid, lane 2k + 1 its r, in one stream
+  const int k_me = p >> 1;
+  const int u_me = kUnits * q + k_me;
+  const bool live = u_me < H;
+  const bool writer = live && (p & 1) == 0;
+
+  float w[kUnits][3][kPartRows];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < kPartRows; ++i) {
+        const int row = kPartRows * p + i, u = kUnits * q + k;
+        w[k][c][i] = u < H && row < H ? rh[static_cast<size_t>(row) * G + c * H + u] : 0.0f;
+      }
+  for (int i = threadIdx.x; i < kHWords; i += blockDim.x) {
+    hbuf[0][i] = 0.0f;
+    hbuf[1][i] = 0.0f;
+    rbuf[i] = 0.0f;
+  }
+  __syncthreads();
+  if (writer) hbuf[0][hslot(u_me)] = h0[static_cast<size_t>(b) * H + u_me];
+  // a lane needs one gate's sigmoid inputs (z on even lanes, r on odd) and
+  // the h gate's: two xproj words a step, prefetched a step ahead
+  const int gs = p & 1;
+  const float rbs = live ? rb[gs * H + u_me] : 0.0f;
+  const float rbh = live ? rb[2 * H + u_me] : 0.0f;
+  const float* xp = xproj + static_cast<size_t>(b) * G + u_me;  // step t's row
+  const size_t x_step = static_cast<size_t>(B) * G;
+  float xs_next = live ? xp[gs * H] : 0.0f;
+  float xh_next = live ? xp[2 * H] : 0.0f;
+  float* hp = hs + static_cast<size_t>(b) * H + u_me;
+  const size_t h_step = static_cast<size_t>(B) * H;
+  __syncthreads();
+
+  const int my = hslot(live ? u_me : 0);
+  const int lead = threadIdx.x & 31 & ~(kParts - 1);
+  for (int t = 0; t < S; ++t) {
+    const float xs = xs_next, xh = xh_next;
+    if (t + 1 < S && live) {
+      xp += x_step;
+      xs_next = __ldg(xp + gs * H);
+      xh_next = __ldg(xp + 2 * H);
+    }
+    const float* hc = hbuf[t & 1];
+    float* hn = hbuf[(t + 1) & 1];
+    const float hold = hc[my];
+    float d[kUnits][3];
+    if constexpr (LBR)
+      part_dot<3>(w, hc + kPartPitch * p, d, 0);
+    else
+      part_dot<2>(w, hc + kPartPitch * p, d, 0);
+    float dz[kUnits], dr[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      dz[k] = d[k][0];
+      dr[k] = d[k][1];
+    }
+    // every lane of a unit holds d; the z and r sigmoids of the thread's
+    // units run in one stream, and each lane reads its unit's back
+    const float sg = sigmoid_acc(xs + ((gs ? pick(dr, k_me) : pick(dz, k_me)) + rbs));
+    const float z = __shfl_sync(0xffffffffu, sg, lead + 2 * k_me);
+    const float r = __shfl_sync(0xffffffffu, sg, lead + 2 * k_me + 1);
+    float h;
+    if constexpr (LBR) {
+      float dh[kUnits];
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) dh[k] = d[k][2];
+      h = gru_out(z, tanhf(xh + r * (pick(dh, k_me) + rbh)), hold);
+    } else {
+      if (writer) rbuf[my] = r * hold;
+      __syncthreads();
+      part_dot<1>(w, rbuf + kPartPitch * p, d, 2);
+      float dh[kUnits];
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) dh[k] = d[k][2];
+      h = gru_out(z, tanhf((xh + pick(dh, k_me)) + rbh), hold);
+    }
+    if (writer) {
+      hn[my] = h;
+      *hp = h;
+    }
+    hp += h_step;
+    __syncthreads();
+  }
+  if (writer) hf[static_cast<size_t>(b) * H + u_me] = hbuf[S & 1][my];
+}
+
+template <bool LBR>
+int launch_reg(const float* xproj, const float* rh, const float* rb, const float* h0,
+               float* hs, float* hf, int S, int B, int H, cudaStream_t stream) {
+  const int threads = (kParts * ((H + kUnits - 1) / kUnits) + 31) / 32 * 32;
+  gru_seq_reg<LBR><<<B, threads, 0, stream>>>(xproj, rh, rb, h0, hs, hf, S, B, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -176,7 +234,8 @@ extern "C" const char* lele_error_string(int code) {
 
 // hs [S, B, H] and hf [B, H] f32 from xproj [S, B, 3H], rh [H, 3H], rb [3H]
 // and h0 [B, H] f32, all contiguous on the card; lbr: linear_before_reset.
-// One block per batch row up to H = 128, one cluster of 8 blocks above.
+// One block (the register form) per batch row up to H = 128, one cluster
+// of 8 blocks above.
 // Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue outside the kernel's range (1 <= H <= 1024,
 // S >= 1, B >= 1).
@@ -198,9 +257,6 @@ extern "C" int gru_seq(const void* xproj, const void* rh, const void* rb, const 
     return lele_rnn::launch_rnn_cluster<lele_rnn::kGru>(x, w, bias, h, nullptr, ys, yf, nullptr,
                                                          S, B, H, s);
   }
-  if (H > 64)
-    return lbr ? launch_block<64, true>(x, w, bias, h, ys, yf, S, B, H, s)
-               : launch_block<64, false>(x, w, bias, h, ys, yf, S, B, H, s);
-  return lbr ? launch_block<0, true>(x, w, bias, h, ys, yf, S, B, H, s)
-             : launch_block<0, false>(x, w, bias, h, ys, yf, S, B, H, s);
+  return lbr ? launch_reg<true>(x, w, bias, h, ys, yf, S, B, H, s)
+             : launch_reg<false>(x, w, bias, h, ys, yf, S, B, H, s);
 }

@@ -5,7 +5,8 @@ recurrence over S steps in one launch, with the input projection
 xproj = x @ Wx + Wb computed outside (one large product), gates z, r, h in
 ONNX's order, both `linear_before_reset` forms, all in f32. The kernel is
 csrc/gru_seq.cu (design and bounds in its source note), in two forms: one
-block per batch row up to H = 128, a cluster of 8 blocks above (the general
+block per batch row up to H = 128, with all of the recurrent weight in
+registers, and a cluster of 8 blocks above (the general
 form of csrc/rnn_seq.cuh, which kernel 6 shares). Its range is
 1 <= H <= MAX_H, any S and B (`kernel_takes`); callers check it before they
 launch.

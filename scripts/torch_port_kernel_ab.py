@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the port's kernels 1, 4, 5, 6, 7, 8 and 11 on one card.
+"""A/B of two versions of the port's kernels 1, 2, 4-9, 11 and 12 on one card.
 
     python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR] [--stems a,b]
 
 Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu, csrc/lstm_seq.cu,
-csrc/w4_gemm.cu, csrc/sanm_layer.cu and csrc/int8_gemm.cu, those of them
+csrc/w4_gemm.cu, csrc/sanm_layer.cu, csrc/int8_gemm.cu, csrc/gru_seq.cu,
+csrc/flash_attn.cu and csrc/w8_gemm.cu, those of them
 that both directories hold (or those `--stems` names), from both (the new
 one defaults to lele_tpu_torch/csrc), binds each through the port's own
-wrappers (the C entries must share their signatures), and times in turns,
+wrappers (the C entries must share their signatures, but for
+`flash_attn`'s workspace argument, which a build without it is called
+without), and times in turns,
 old new new old: CUDA events around the call (median of 30 warm runs each),
 the device time a call by torch.profiler (the kernels' own time, which
 events around a short launch overstate by the host's issue; "not measured"
@@ -30,20 +33,32 @@ between launches; chip_smoke.graph_us):
   copies of the weight to exceed the L2);
 - `int8_gemm` at a layer's four linears at T = 171;
 - `sanm_stack_w8` and, where both versions have its C entry,
-  `sanm_stack_w4`: 50 layers at d512, ffn 2048, T = 171, random weights.
+  `sanm_stack_w4`: 50 layers at d512, ffn 2048, T = 171, random weights;
+- `gru_seq` at H = 128 over S = 1,875 and 18,750 steps, B = 1 and 4, both
+  `linear_before_reset` forms, with cuDNN's `nn.GRU` on xproj beside it;
+- `flash_attn` at chip_smoke's two timed shapes (the TPU script's causal
+  B 2 H 8 L 2,048 D 128, and the Phi-3 prefill B 1 H 32 Lq 1,920 Lk 4,096
+  D 96 with the graph's own mask), with `F.scaled_dot_product_attention`
+  (f32, TF32 off) beside it;
+- `w8_gemm` at the CTC head [171,512]x[512,25055] bf16, with `torch.matmul`
+  on the weight dequantised to bf16 beside it.
 
 It checks that the two versions give the same bits where both compute the
 same exact arithmetic (`dq_gemm`, `sanm_dql`, `int8_gemm`, the layers and
-stacks, `lstm_seq`). `w4_gemm`'s decode form sums in another f32 order than
-the tile form, on purpose, so there both versions are held to the gate of
-`w4_matmul_plain` instead (1e-5·max|ref|). It prints the card's name and
-power limit beside every time. Random operands come from a seed on the card.
+stacks, `lstm_seq`, `w8_gemm`). Where a redesign sums in another order on
+purpose, both versions are held to the plain version's gate instead:
+`w4_gemm`'s decode form to 1e-5·max|ref|, `gru_seq` to max|d| <= 1e-5
+(chip_smoke.GRU_TOL), `flash_attn` to 1e-5·max|ref| (chip_smoke.FLASH_REL).
+A case with a library call times it in the same turns, by events and in a
+CUDA graph. It prints the card's name and power limit beside every time.
+Random operands come from a seed on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import statistics
+from collections import namedtuple
 import subprocess
 import sys
 import tempfile
@@ -51,7 +66,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "int8_gemm")
+STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "int8_gemm", "gru_seq",
+         "flash_attn", "w8_gemm")
 LSTM_STEPS = (3, 1875, 18750)
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
@@ -64,6 +80,12 @@ W4_DECODE = ((1, 1024, 1792), (1, 1792, 1024), (1, 4096, 6400), (1, 6400, 4096),
              *((m, 4096, 6400) for m in (2, 4, 5, 6, 7, 8, 9, 16)))
 L2_BYTES = 50e6  # the H100's L2
 W4_REL = 1e-5
+GRU_STEPS = (1875, 18750)
+# a case: fn() and, where its bits may differ between versions, the plain
+# version with its gate (relative to max|ref|, or absolute); a library call
+# timed beside it; the calls a CUDA graph holds (fewer for long calls)
+Case = namedtuple("Case", "name fn plain tol rel library graph_n",
+                  defaults=(None, W4_REL, True, None, 20))
 
 
 def build(csrc: Path, out: Path, stems) -> dict[str, ctypes.CDLL]:
@@ -96,9 +118,10 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     from lele_tpu_torch import kernels as K
-    from lele_tpu_torch.kernels import _build, lstm, quant_matmul, sanm_block
+    from lele_tpu_torch.kernels import _build, gru, lstm, quant_matmul, sanm_block
 
     w4 = sys.modules[K.w4_matmul.__module__]
+    flash = sys.modules[K.flash_attention.__module__]
 
     wanted = STEMS
     if "--stems" in argv:
@@ -126,6 +149,11 @@ def main(argv: list[str]) -> int:
             w4._fn = None
             quant_matmul._i8_fn = None
             quant_matmul._dq_ws_fn = None
+            quant_matmul._fn = None
+            gru._fn = None
+            flash._fn = None
+            if "flash_attn" in stems:  # bound here: the parent's entry had no workspace
+                _bind_flash(flash, libs[version]["flash_attn"], libs["new"]["flash_attn"])
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev)
@@ -170,12 +198,19 @@ def main(argv: list[str]) -> int:
                           lambda a=a, b=b: K.int8_matmul(a, b), None))
         if "sanm_layer" in stems:
             cases += [(*c, None) for c in _layer_cases(stems, libs, dev, gen)]
+        if "gru_seq" in stems:
+            cases += _gru_cases(cs, dev, gen)
+        if "flash_attn" in stems:
+            cases += _flash_cases(cs, dev, gen)
+        if "w8_gemm" in stems:
+            cases += _w8_cases(dev, gen)
         failed = False
-        for name, fn, plain in cases:
+        for name, fn, plain, tol, rel, library, graph_n in (Case(*c) for c in cases):
             times = {"old": [], "new": []}
             dev_us = {"old": [], "new": []}
             outs, split = {}, {}
             graph = {"old": [], "new": []}
+            reps = 10 if graph_n >= 20 else 3
             for version in ("old", "new", "new", "old"):
                 use(version)
                 try:
@@ -187,7 +222,7 @@ def main(argv: list[str]) -> int:
                 times[version].append(cs.time_ms(fn, runs=30))
                 rows = cs.device_us(fn)
                 dev_us[version].append(None if rows is None else sum(rows.values()))
-                graph[version].append(cs.graph_us(fn))
+                graph[version].append(cs.graph_us(fn, n=graph_n, reps=reps))
                 split[version] = ("no whole trace" if rows is None else
                                   ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(rows.items())))
             if plain is None:
@@ -195,12 +230,21 @@ def main(argv: list[str]) -> int:
                 verdict = f"same bits {ok}"
             else:  # both versions within the gate of the plain version
                 ref = plain()
-                scale = ref.abs().max().item()
+                scale = ref.abs().max().item() if rel else 1.0
                 d = {v: (outs[v] - ref).abs().max().item() for v in ("old", "new")}
-                ok = all(x <= W4_REL * scale for x in d.values())
+                ok = all(x <= tol * scale for x in d.values())
                 verdict = (f"vs plain max|d| old {d['old']:.3e}, new {d['new']:.3e} "
-                           f"<= {W4_REL:g} * {scale:.3e}: {ok}")
+                           f"<= {tol:g}{f' * {scale:.3e}' if rel else ''}: {ok}")
             failed |= not ok
+            if library is not None:  # the PyTorch call, by events and in a CUDA graph
+                lib_ms = cs.time_ms(library, runs=30)
+                try:
+                    lib_g = f"{cs.graph_us(library, n=graph_n, reps=reps):.2f} us"
+                except RuntimeError as e:
+                    lib_g = f"not measured (no capture: {str(e)[:80]})"
+                verdict += (f"; library {lib_ms:.4f} ms by events, {lib_g} in a CUDA graph; "
+                            f"new / library by events "
+                            f"{statistics.mean(times['new']) / lib_ms:.3f}")
             print(f"{name}: old {statistics.mean(times['old']):.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in times['old'])}), new "
                   f"{statistics.mean(times['new']):.4f} ms "
@@ -215,12 +259,101 @@ def main(argv: list[str]) -> int:
     return 1 if failed else 0
 
 
+def _bind_flash(flash, lib, new_lib) -> None:
+    """Kernel 12's entries for the wrapper: `flash_attn` of the version
+    timed, and the workspace's size from the new build. The redesign added a
+    workspace pointer before the stream; a build without it is called
+    without that argument."""
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    args = [P, P, P, P, LL, LL, LL, LL, P, I, I, I, I, I, I, F, I]
+    fn = lib.flash_attn
+    fn.restype = ctypes.c_int
+    if hasattr(lib, "flash_attn_work_bytes"):
+        fn.argtypes = args + [P, P]
+    else:
+        fn.argtypes = args + [P]
+        fn = (lambda f: lambda *a: f(*a[:-2], a[-1]))(fn)
+    work = new_lib.flash_attn_work_bytes
+    work.argtypes = [I, I, I, I, I, I, I, I, LL, LL]
+    work.restype = LL
+    flash._fn, flash._work_fn = fn, work
+
+
 def _mean_us(ts) -> str:
     """The mean of the profiler's readings and each one; a trace that never
     came back whole reads "not measured" and is left out of the mean."""
     got = [t for t in ts if t is not None]
     each = ", ".join("not measured" if t is None else f"{t:.2f}" for t in ts)
     return f"{statistics.mean(got):.2f} us ({each})" if got else f"not measured ({each})"
+
+
+def _gru_cases(cs, dev, gen):
+    """Kernel 9 at H = 128, B = 1 and 4, both forms, with cuDNN's nn.GRU
+    (linear_before_reset only: its one form) on the same xproj."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    cases = []
+    for S in GRU_STEPS:
+        for B in (1, 4):
+            args = cs.gru_inputs(S, B, 128, dev, gen)
+            net = cs.cudnn_gru(args[1], args[2], dev)
+
+            def library(net=net, args=args):
+                with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                                 allow_tf32=False):
+                    return net(args[0], args[3][None])[0]
+
+            for lbr in (True, False):
+                cases.append(Case(
+                    f"gru_seq S={S} B={B} H=128 linear_before_reset={int(lbr)}",
+                    lambda args=args, lbr=lbr: torch.cat(
+                        [t.reshape(-1) for t in K.gru_seq(*args, lbr)]),
+                    lambda args=args, lbr=lbr: torch.cat(
+                        [t.reshape(-1) for t in K.gru_seq_plain(*args, lbr)]),
+                    cs.GRU_TOL, False, library if lbr else None, 2 if S > 2000 else 20))
+    return cases
+
+
+def _flash_cases(cs, dev, gen):
+    """Kernel 12 at chip_smoke's two timed shapes, with SDPA beside it."""
+    import torch.nn.functional as F
+
+    from lele_tpu_torch import kernels as K
+
+    cases = []
+    for shape in cs.FLASH_SHAPES:
+        B, H, KVH, Lq, Lk, D, causal, kind = shape
+        if (B, H, Lq, D) not in cs.FLASH_TIMED:
+            continue
+        q, k, v, mask, scale = cs.flash_inputs(shape, dev, gen)
+        sdpa_mask = None if mask is None else mask.expand(B, H, Lq, Lk)
+        cases.append(Case(
+            f"flash_attn B={B} H={H}/{KVH} Lq={Lq} Lk={Lk} D={D} causal={causal} mask={kind}",
+            lambda q=q, k=k, v=v, m=mask, c=causal, s=scale: K.flash_attention(q, k, v, m, c, s),
+            lambda q=q, k=k, v=v, m=mask, c=causal, s=scale:
+                K.flash_attention_plain(q, k, v, m, c, s),
+            cs.FLASH_REL, True,
+            lambda q=q, k=k, v=v, m=sdpa_mask, c=causal, s=scale:
+                F.scaled_dot_product_attention(q, k, v, attn_mask=m, is_causal=c, scale=s)))
+    return cases
+
+
+def _w8_cases(dev, gen):
+    """Kernel 2 at the w8a16 CTC head, with torch.matmul on the weight
+    dequantised to bf16 (chip_smoke's library call)."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    k_, n_ = SHAPES[-1]
+    x = torch.randn((T_W, k_), generator=gen, device=dev).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3
+    w_bf16 = (wq.float() * ws).to(torch.bfloat16)
+    return [Case(f"w8_gemm [{T_W},{k_}]x[{k_},{n_}] bf16", lambda: K.w8_matmul(x, wq, ws),
+                 library=lambda: torch.matmul(x, w_bf16))]
 
 
 def _w4_decode_cases(dev, gen, w4):

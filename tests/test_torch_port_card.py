@@ -1,5 +1,5 @@
-"""Kernels 5 and 7 in their redesigned forms, held against their plain
-versions on an NVIDIA card.
+"""Kernels 5, 7, 9 and 12 in their redesigned forms, held against their
+plain versions on an NVIDIA card.
 
 Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
 entry) sums in another f32 order than `w4_matmul_plain`, so it is held to
@@ -8,6 +8,17 @@ to the same bits on a repeat call. Kernel 5's strip form, and its tile form
 where N and K are both at most 512 (csrc/dq_gemm.cuh), form exact int32
 sums and the plain version's f32 epilogue, so they must give
 `fused_dq_matmul_plain`'s bits.
+
+Kernel 9's register form (csrc/gru_seq.cu, H <= 128) is held to
+chip_smoke.GRU_TOL (max|d| <= 1e-5 of hs and h_S) in both
+linear_before_reset forms at H = 1, 33, 64, 100 and 128. Kernel 12
+(csrc/flash_attn.cu: 3xTF32 on mma.sync, exact skipping of dead key tiles)
+takes every case of chip_smoke.FLASH_SHAPES at phase 23's gates
+(FLASH_REL against the plain version; against an f64 oracle within 2e-2
+and 3 x max(the plain version's error, 1e-6)), and must visit exactly the
+key tiles that `skippable_tiles` leaves; and a small Phi-3-form decoder's
+prefill (from slot 0 and a chunk from slot 128) on the kernel against the
+plain-Attention compile at chip_smoke.LLM_REL.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -20,8 +31,11 @@ from __future__ import annotations
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 from lele_tpu_torch import kernels as K
 
@@ -126,3 +140,63 @@ def test_dq_strip_form_equals_plain(dev, per_column, m, k, n):
     ref = K.fused_dq_matmul_plain(x, wq, colsum, a_scale, a_zp, w_scale)
     torch.cuda.synchronize()
     assert torch.equal(got, ref), f"max|d| {(got - ref).abs().max().item():.3e}"
+
+
+# kernel 9: the register form at B = 2 (H 128 is the GRU graph's width)
+@pytest.mark.cuda
+@pytest.mark.parametrize("lbr", [True, False], ids=["lbr", "no_lbr"])
+@pytest.mark.parametrize("hidden", [1, 33, 64, 100, 128])
+def test_gru_register_form_matches_plain(dev, hidden, lbr):
+    gen = torch.Generator(device=dev).manual_seed(hidden)
+    args = cs.gru_inputs(300, 2, hidden, dev, gen)
+    got = K.gru_seq(*args, lbr)
+    ref = K.gru_seq_plain(*args, lbr)
+    torch.cuda.synchronize()
+    d = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert d <= cs.GRU_TOL, f"max|d| {d:.3e} > {cs.GRU_TOL:g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cs.FLASH_SHAPES,
+                         ids=[f"{s[3]}x{s[4]}-D{s[5]}-{s[7]}{'-causal' if s[6] else ''}"
+                              for s in cs.FLASH_SHAPES])
+def test_flash_matches_plain_oracle_and_skip_test(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape[:6]))
+    before = K.flash_attention.launches
+    res = cs.flash_check(shape, dev, gen)
+    assert K.flash_attention.launches == before + 1
+    assert res["ok"], res["what"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 128], ids=["prefill", "chunk"])
+def test_small_decoder_prefill_on_kernel_12(dev, start):
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx.synth import (
+        attn23_decoder_params,
+        attn23_step_feeds,
+        build_attn23_decoder,
+    )
+    from lele_tpu_torch.ops import attention_ops
+
+    cfg = dict(hidden=256, heads=4, kv_heads=2, head_dim=64, ffn=512, layers=2, vocab=1000,
+               eps=1e-5, theta=10000.0, max_pos=512, l_max=512, batch=1)
+    bs = build_attn23_decoder(attn23_decoder_params(np.random.default_rng(7), cfg), "S", cfg)
+    cm = compile_model(bs, dim_values={"S": 128}, device=dev, strict=True)
+    ref = compile_model(bs, dim_values={"S": 128}, device=dev, strict=True,
+                        overrides={"Attention": attention_ops.attention_plain})
+    rng = np.random.default_rng(start)
+    caches = {f"c{kv}{i}": torch.from_numpy(
+        (rng.standard_normal((1, 2, 512, 64)) * (np.arange(512) < start)[:, None])
+        .astype(np.float32)).to(dev) for i in range(cfg["layers"]) for kv in "kv"}
+    ids = rng.integers(0, cfg["vocab"], (1, 128))
+    feeds = {key: torch.from_numpy(a).to(dev)
+             for key, a in attn23_step_feeds(ids, start, 512).items()}
+    before = K.flash_attention.launches
+    got = cm(**feeds, **caches)[0]
+    want = ref(**feeds, **caches)[0]
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + cfg["layers"]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert bool(torch.isfinite(got).all()) and rel <= cs.LLM_REL, rel

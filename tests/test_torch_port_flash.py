@@ -18,6 +18,15 @@
   and attributes.
 - The wrapper takes the plain version for any CPU tensor and counts no
   launch; the kernel entry refuses a CPU tensor.
+- The kernel's exact skipping of masked key tiles, through its plain
+  counterpart `skippable_tiles`: setting the bias of every tile it marks to
+  -inf leaves `flash_attention_plain` bit-equal (the prefill, chunked
+  prefill, bool with a fully masked row, and 2 x randn masks), and it never
+  marks a tile of a q tile that holds a fully masked row; at the pair
+  granularity it counts the 0 entries of a 0 / -1e9 mask.
+- The kernel's 3xTF32 products, emulated (TF32 rounding by bit masks on the
+  f32 view): within chip_smoke.FLASH_REL of the plain version at two of
+  chip_smoke.FLASH_SHAPES scaled to Lq <= 256, where one TF32 product is not.
 - On a card (marked `cuda`, skipped here): the kernel against its plain
   version.
 """
@@ -37,6 +46,7 @@ from lele_tpu.ops import attention_ops as j_att
 from lele_tpu_torch import kernels as K
 from lele_tpu_torch.compiler import compile_model
 from lele_tpu_torch.onnx import builder as ob
+from lele_tpu_torch.onnx.synth import attn23_step_feeds
 from lele_tpu_torch.ops import attention_ops
 
 fa = sys.modules[K.flash_attention.__module__]  # the module, which its wrapper shadows
@@ -199,6 +209,122 @@ def test_wrapper_takes_plain_on_cpu_and_counts_no_launch():
         fa.flash_attention_kernel(q, k, v)
     with pytest.raises(ValueError, match="k "):
         K.flash_attention(q, k[:, :, :, :4], v)
+
+
+FLASH_REL = 1e-5  # chip_smoke.FLASH_REL: kernel 12 against its plain version
+
+
+def _skip_case(kind, seed=0):
+    """(q, k, v, mask, causal) at a small size, the masks of the card's
+    skip checks: a prefill from slot 0, a chunk from slot 128, a bool mask
+    with a fully masked row beside dead key tiles, 2 x randn (causal)."""
+    rng = np.random.default_rng(seed)
+    B, H, KVH, Lq, Lk, D = {"prefill": (1, 2, 2, 256, 512, 32),
+                            "chunked": (1, 4, 2, 128, 512, 32),
+                            "bool_empty_row": (2, 2, 2, 256, 256, 16),
+                            "randn": (1, 2, 2, 256, 256, 24)}[kind]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, Lq, D), (B, KVH, Lk, D), (B, KVH, Lk, D)))
+    causal = kind == "randn"
+    if kind in ("prefill", "chunked"):
+        start = 0 if kind == "prefill" else 128
+        mask = torch.from_numpy(attn23_step_feeds(np.zeros((B, Lq), np.int64), start,
+                                                  Lk)["mask"])
+    elif kind == "bool_empty_row":
+        m = rng.random((B, 1, Lq, Lk)) > 0.3
+        m[..., 128:] &= np.arange(Lq)[:, None] < 64  # key tiles 2-3 dead past q tile 0
+        m[0, 0, 3] = False  # a fully masked row in q tile 0
+        m[1, 0, 70] = False  # and one in q tile 1, whose key tiles 2-3 are dead
+        mask = torch.from_numpy(m)
+    else:
+        mask = torch.from_numpy(2 * rng.standard_normal((B, 1, Lq, Lk)).astype(np.float32))
+    return q, k, v, mask, causal
+
+
+@pytest.mark.parametrize("kind", ["prefill", "chunked", "bool_empty_row", "randn"])
+def test_skipped_tiles_change_no_bit(kind):
+    q, k, v, mask, causal = _skip_case(kind)
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    dead = fa.skippable_tiles(q, k, mask, causal)
+    assert dead.shape == (B, H, Lq // 64, Lk // 64)
+    bias = fa.mask_bias(mask, (B, H, Lq, Lk))
+    gone = bias.masked_fill(dead.repeat_interleave(64, 2).repeat_interleave(64, 3),
+                            float("-inf"))
+    want = fa.flash_attention_plain(q, k, v, bias, causal)
+    got = fa.flash_attention_plain(q, k, v, gone, causal)
+    assert torch.equal(got, want)
+    if kind in ("prefill", "chunked", "bool_empty_row"):
+        assert dead.any()  # the test has something to skip
+    else:
+        assert not dead.any()  # 2 x randn never reaches 104 below a row's max
+    if kind == "bool_empty_row":  # q tiles with a fully masked row skip nothing
+        assert not dead[0, :, 0].any() and not dead[1, :, 1].any()
+        assert dead[0, :, 1:, 2:].all() and dead[1, :, 2:, 2:].all()
+    if kind == "prefill":  # from slot 0, key tiles past a q tile's last row
+        nq, nk = dead.shape[2:]
+        later = torch.arange(nk)[None, :] > torch.arange(nq)[:, None]
+        assert torch.equal(dead[0, 0], later)
+
+
+def test_pair_test_counts_the_live_entries_of_a_prefill_mask():
+    q, k, v, mask, _ = _skip_case("chunked", seed=2)
+    dead = fa.skippable_tiles(q, k, mask, False, tile=1)
+    live = (mask == 0).expand(dead.shape)
+    assert torch.equal(~dead, live)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round the f32 mantissa to 10 bits, ties away from 0."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b with TF32 operands: one product, or 3xTF32 (lo.hi + hi.lo, then
+    hi.hi, sums in f32) as the kernel's mma.sync calls."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated(q, k, v, mask, causal, scale, terms):
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    rep = H // k.shape[1]
+    kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    s = _product(q, kf.transpose(-1, -2), terms) * scale
+    if mask is not None:
+        s = s + fa.mask_bias(mask, (B, H, Lq, Lk))
+    if causal:
+        s = s.masked_fill(~torch.ones((Lq, Lk), dtype=torch.bool).tril(), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    return _product(p, vf, terms) / p.sum(-1, keepdim=True)
+
+
+# chip_smoke.FLASH_SHAPES' TPU-script causal shape (B 2, H 8, L 2,048, D 128)
+# and the Phi-3 prefill (H 32, Lq 1,920 over 4,096 slots, D 96, its mask),
+# scaled to Lq <= 256
+@pytest.mark.parametrize("B,H,KVH,Lq,Lk,D,causal,kind",
+                         [(1, 2, 2, 256, 256, 128, True, None),
+                          (1, 2, 2, 256, 512, 96, False, "prefill")])
+def test_3xtf32_emulation_keeps_the_f32_gate(B, H, KVH, Lq, Lk, D, causal, kind):
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, Lq, D), (B, KVH, Lk, D), (B, KVH, Lk, D)))
+    mask = None
+    if kind == "prefill":
+        mask = torch.from_numpy(attn23_step_feeds(np.zeros((B, Lq), np.int64), 0, Lk)["mask"])
+    scale = 1.0 / np.sqrt(D)
+    ref = fa.flash_attention_plain(q, k, v, mask, causal, scale)
+    gate = FLASH_REL * ref.abs().max().item()
+    three = (_emulated(q, k, v, mask, causal, scale, 3) - ref).abs().max().item()
+    one = (_emulated(q, k, v, mask, causal, scale, 1) - ref).abs().max().item()
+    assert three <= gate, (three, gate)
+    assert one > gate, (one, gate)  # why the kernel takes three products
 
 
 @pytest.mark.cuda
