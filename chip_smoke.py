@@ -6,21 +6,27 @@
 1. builds every kernel under lele_tpu_torch/csrc/ with nvcc;
 2. prints the card's name and power limit;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and in their working types: the w8a16 GEMM, layer and
-   stack; the dynamic-quantized int8 GEMM (its strip form, and its tile
+   main paths' shapes and in their working types: the w8a16 GEMM and layer;
+   the w8a16 stack (kernel 1, csrc/sanm_stack.cu: one cooperative launch for
+   all 50 layers) at T = 21, 87 (76 valid), 171, 196 and 1,004 and at head
+   dims 32 and 64, each repeat call bit-identical and a CUDA-graph replay
+   bit-identical to the eager call; the dynamic-quantized int8 GEMM (its strip form, and its tile
    form at [512 -> 512], bit for bit at the compiled head's T = 36, 100,
    196 and the quant_pallas linears at T = 21, 171); the exact-DQL SAN-M
    stack, layer by layer on the plain version's own activations, and whole;
 4. drives the native main path at full width: SenseVoice w8a16 (50 layers,
    d512, vocab 25,055, random weights from a seed) behind SenseVoiceEngine,
    answering three WAV requests (1.0 s, 4.3 s, 10 s), and checks from the
-   launch counts that every kernel ran; then holds the 10 s logits of the
-   kernel path against the plain path;
+   launch counts that every kernel ran (the stack once a request); one 10 s
+   request on the same weights as per-layer params (kernel 3, 50 launches);
+   then holds the 10 s logits of the kernel path against the plain path;
 5. times each kernel, its plain version, its bound on the card and, where one
    PyTorch call computes the same product, that call, with CUDA events
    (median of warm runs), kernel 5 and torch._int_mm also by device time
-   (torch.profiler, and a CUDA graph of 20 calls) at T = 36, 100, 196; and
-   the native 10 s forward;
+   (torch.profiler, and a CUDA graph of 20 calls) at T = 36, 100, 196; the
+   w8 stack at T = 21, 87, 171, 196 and 1,004 by events, the profiler and a
+   CUDA graph, with its per-phase split; and the native 10 s forward by
+   events and in a CUDA graph;
 6. drives the compiled main path at full width: the SenseVoiceSmall-layout
    int8 ONNX graph (50 layers, d512, 4 heads, ffn 2048, vocab 25,055, int8
    CTC head, random weights from a seed) behind SenseVoiceOnnx, answering
@@ -47,7 +53,8 @@
    and 128, and its decode form at M = 1 to 8 (up to 4 rows in f32, 8 in
    bf16's group form; the tile form beside it above) with a repeat call
    bit-identical; kernel 8 (the w4 SAN-M stack) layer 0 and
-   whole (50 layers) at T = 171 and at T = 87 with 76 valid rows;
+   whole (50 layers) at T = 171 and at T = 87 with 76 valid rows, and as
+   kernel 1 in phase 3 (the same T, head dims, repeat and graph bits);
 12. drives SenseVoice w4a16 at full width (`SenseVoiceConfig(weight_int4=
    True)`, random weights from a seed) behind SenseVoiceEngine, answering
    the three WAV requests: kernel 8 and kernel 7 (the CTC head) once a
@@ -57,8 +64,10 @@
    points and bias; 196 rows) with the default patterns and with
    `patterns=[]`: pattern hits, one kernel 7 launch a node, fused vs per-op;
 14. times kernels 7 and 8, their plain versions, bounds and kernel 7's
-   library call (the CTC head also by device time), the two compiled
-   MatMulNBits paths, and the w4 and w8 10 s forwards in one call;
+   library call (the CTC head also by device time), kernel 8 at phase 5's T
+   by events, the profiler and a CUDA graph with its per-phase split, the
+   two compiled MatMulNBits paths, and the w4 and w8 10 s forwards in one
+   call, by events and in a CUDA graph;
 15. holds kernel 9 (the GRU recurrence) against its plain version, both
    linear_before_reset forms, in its register form at H = 128 (S = 1,875
    and 18,750, B = 1; B = 4) and at H = 1, 33, 64, 100 (B = 2), and in its
@@ -184,6 +193,10 @@ GEMM_SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
 DQ_STRIP_SHAPES = (*((t, *GEMM_SHAPES[-1]) for t in (36, T_DQL_RAGGED, T_DQL)),
                    *((t, k, n) for t in (21, 171) for k, n in GEMM_SHAPES[:-1]))
 TIMED_RUNS = 20
+# the stacks (kernels 1 and 8) at the main path's rows: 1 s, 4.3 s in the 5 s
+# bucket (76 valid), 10 s, the compiled path's 10 s bucket, and the 60 s
+# bucket (5,998 fbank frames → 1,000 LFR frames + 4 prefix)
+STACK_T = ((21, 21), (T_RAGGED, VALID_RAGGED), (T_MAIN, T_MAIN), (T_DQL, T_DQL), (1004, 1004))
 # NVIDIA's data sheet, H100 SXM, dense: HBM 3.35 TB/s; bf16 989 TFLOP/s,
 # int8 1,979 TOP/s, f32 outside the tensor cores 67 TFLOP/s, TF32 495 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -417,6 +430,164 @@ def dql_masks(L, T, n_valid, dev):
 def layer_slice(stacked, i):
     return {k: ({kk: vv[i:i + 1] for kk, vv in v.items()} if isinstance(v, dict)
                 else v[i:i + 1]) for k, v in stacked.items()}
+
+
+def stack_tree(flag: str, dev, n_layers: int = 50, d_model: int = 512, n_heads: int = 4,
+               ffn: int = 2048, seed: int = SEED, fsmn_dtype=None):
+    """A stacked SenseVoice layer tree (flag "weight_int8" or "weight_int4",
+    bf16 masters prepared as the main path prepares them) with random
+    weights from a seed, its norms and biases moved away from 1 and 0;
+    fsmn_dtype recasts the FSMN taps (bf16 by default)."""
+    import torch
+
+    from lele_tpu_torch.models import (
+        SenseVoiceConfig,
+        SenseVoiceModel,
+        cast_big_params,
+        prepare_w4_params,
+        prepare_w8_params,
+        stack_layer_params,
+    )
+
+    cfg = SenseVoiceConfig(n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+                           ffn_dim=ffn, vocab_size=64, **{flag: True})
+    m = SenseVoiceModel(cfg, device=dev)
+    m.init(seed)
+    prep = prepare_w8_params if flag == "weight_int8" else prepare_w4_params
+    st = stack_layer_params(prep(cast_big_params(m.params, torch.bfloat16)))["layers_stacked"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for sub in st.values():
+        for leaf, v in sub.items():
+            if leaf in ("g", "b"):
+                v.add_(0.1 * torch.randn(v.shape, generator=gen, device=dev))
+    if fsmn_dtype is not None:
+        st["fsmn"]["w"] = st["fsmn"]["w"].to(fsmn_dtype).contiguous()
+    return st
+
+
+def stack_check(fn, plain, x, mask, valid, stacked, H, FK) -> dict:
+    """A stack kernel against its plain version on the valid rows, at the
+    layer gate (rtol 2e-2, atol 2e-2 max|ref|), and a repeat call's bits."""
+    import torch
+
+    got = fn(x, mask, stacked, H, FK)
+    again = fn(x, mask, stacked, H, FK)
+    ref = plain(x, mask, stacked, H, FK)
+    torch.cuda.synchronize()
+    g, r = got[:valid], ref[:valid]
+    d = (g - r).abs().max().item()
+    scale = r.abs().max().item()
+    ok = bool(torch.isfinite(g).all()) and torch.allclose(g, r, rtol=2e-2, atol=2e-2 * scale)
+    return {"ok": ok, "d": d, "scale": scale, "same": torch.equal(got, again)}
+
+
+def stack_checks(checks, err, name: str, flag: str, stacked, dev, gen, H, FK) -> None:
+    """A stack kernel (`name`: sanm_stack_w8 or sanm_stack_w4) against its
+    plain version at the layer gate on the valid rows, with a repeat call's
+    bits: on the full-width tree at STACK_T, and at d256 with head dims 32
+    and 64 (2 layers, f32 FSMN taps) at T = 65 with 60 valid; a CUDA-graph
+    replay's bits against the eager call, and one call's profiler trace (one
+    stack kernel, no other kernel of the port), at T = 171."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    fn, plain = K.KERNEL_WRAPPERS[name], getattr(K, f"{name}_plain")
+    D = stacked["norm1"]["g"].shape[-1]
+    cases = [(T, v, stacked, H, D, "") for T, v in STACK_T]
+    for hd in (32, 64):
+        small = stack_tree(flag, dev, n_layers=2, d_model=256, n_heads=256 // hd, ffn=512,
+                           seed=hd, fsmn_dtype=torch.float32)
+        cases.append((65, 60, small, 256 // hd, 256, f" d256 head dim {hd}, 2 layers,"))
+    for T, n_valid, tree, heads, width, label in cases:
+        x = torch.randn((T, width), generator=gen, device=dev) * 0.5
+        mask = torch.zeros((T,), device=dev)
+        mask[:n_valid] = 1.0
+        res = stack_check(fn, plain, x, mask, n_valid, tree, heads, FK)
+        err[name] = max(err[name], res["d"])
+        checks.require(res["ok"] and res["same"],
+                       f"{name}{label} T={T} valid={n_valid}: max|d| {res['d']:.3e}, rtol "
+                       f"2e-2, atol 2e-2 * {res['scale']:.3e}; a repeat call the same bits "
+                       f"{res['same']}")
+    x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
+    mask = torch.ones((T_MAIN,), device=dev)
+    checks.require(graph_same_bits(lambda: fn(x, mask, stacked, H, FK)),
+                   f"{name} T={T_MAIN}: a CUDA-graph replay gives the eager call's bits")
+    # one call's trace: one launch of the stack kernel, and no layer kernel.
+    # The card's traces now and then come back with no device record at all
+    # (device_us); such a trace is taken again, and a check is made on the
+    # first that holds records
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, tries = [], 0
+    while not kernels and tries < 6:
+        tries += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x, mask, stacked, H, FK)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    n_stack = sum("sanm_stack_kernel" in k for k in kernels)
+    if not kernels:
+        print(f"  {name} T={T_MAIN}, one call traced: no trace with a device record came "
+              f"back in {tries} tries (not measured)")
+        return
+    checks.require(n_stack == 1 and not any("lele::" in k and "sanm_stack_kernel" not in k
+                                             for k in kernels),
+                   f"{name} T={T_MAIN}, one call traced (try {tries}): {n_stack} stack kernel "
+                   f"among the device's {len(kernels)} records "
+                   f"{sorted(set(k[:60] for k in kernels))}")
+
+
+def stack_times(name: str, stacked, dev, gen, H, FK, card) -> None:
+    """A stack kernel at STACK_T by CUDA events, the profiler and a CUDA
+    graph, with its per-phase split (the kernel's own timer) at T = 171 and
+    1,004; DEVICE_US gets the T = 171 times."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.kernels import sanm_block
+
+    fn = K.KERNEL_WRAPPERS[name]
+    fmt = name[-2:]
+    D = stacked["norm1"]["g"].shape[-1]
+    for T, n_valid in STACK_T:
+        x = torch.randn((T, D), generator=gen, device=dev) * 0.5
+        mask = torch.zeros((T,), device=dev)
+        mask[:n_valid] = 1.0
+        call = lambda: fn(x, mask, stacked, H, FK)  # noqa: E731
+        ev = time_ms(call)
+        d_k = device_us(call, n=5 if T > 500 else 20)
+        g_k = graph_us(call, n=5 if T > 500 else 20, reps=5 if T > 500 else 10)
+        d_k = None if d_k is None else sum(d_k.values())
+        print(f"  {name} T={T} valid={n_valid}: events {ev:.4f} ms; device {fmt_us(d_k)} by "
+              f"the profiler, {g_k:.2f} us in a CUDA graph  ({card})")
+        if T == T_MAIN:
+            DEVICE_US[name] = {"device_us": d_k, "graph_us": g_k}
+        if T in (T_MAIN, 1004):
+            ph = sanm_block.stack_phase_us(x, mask, stacked, H, FK, fmt)
+            mean = ", ".join(f"{n} {v:.2f}" for n, v in zip(sanm_block.STACK_PHASES,
+                                                            ph.mean(0).tolist()))
+            print(f"    phases a layer (us, mean of {ph.shape[0]}): {mean}; timer span "
+                  f"{ph.sum().item():.1f} us  ({card})")
+
+
+def graph_same_bits(fn) -> bool:
+    """fn() replayed from a CUDA graph gives the bits of an eager call."""
+    import torch
+
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
 
 
 def lstm_bound(S: int, B: int, H: int) -> tuple[float, str]:
@@ -689,6 +860,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                 got, ref, rtol=2e-2, atol=2e-2 * scale),
                 f"sanm_stack_w4 {label} T={T} valid={n_valid}: max|d| {d:.3e}, rtol 2e-2, "
                 f"atol 2e-2 * {scale:.3e}")
+    stack_checks(checks, err, "sanm_stack_w4", "weight_int4", stacked, dev, gen, H, FK)
 
     print("== 12. main path: SenseVoiceEngine.recognize on the w4a16 model at full width")
     rng = np.random.default_rng(SEED + 4)
@@ -805,6 +977,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
         "bf16": L * (2 * T_MAIN * D * (4 * D + 2 * F) + 4 * T_MAIN * T_MAIN * D)})
     print(f"  sanm_stack_w4 T={T_MAIN}, {L} layers: kernel {ms['sanm_stack_w4']:.4f} ms, "
           f"plain {plain_ms['sanm_stack_w4']:.4f} ms  ({card})")
+    stack_times("sanm_stack_w4", stacked, dev, gen, H, FK, card)
     for name in ("w4_gemm", "sanm_stack_w4"):
         b_ms, by = bounds[name]
         print(f"  bound {name}: {b_ms * 1e3:.2f} us by {by}; kernel at "
@@ -816,9 +989,13 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
     w8_ms = time_ms(lambda: w8_fwd(w8_params, pcm10))
     w4_ms = time_ms(lambda: fwd(model.params, pcm10))
     w4p_ms = time_ms(lambda: fwd_plain(model.params, pcm10), runs=5)
+    pcm10_dev = torch.from_numpy(pcm10).to(dev)
+    w8_g = graph_us(lambda: w8_fwd(w8_params, pcm10_dev))
+    w4_g = graph_us(lambda: fwd(model.params, pcm10_dev))
     print(f"  forward_fn 10 s: w4a16 kernel path {w4_ms:.4f} ms (RTF {w4_ms / 1e4:.3e}), "
-          f"w4a16 plain path {w4p_ms:.4f} ms, w8a16 kernel path {w8_ms:.4f} ms (RTF "
-          f"{w8_ms / 1e4:.3e})  ({card})")
+          f"{w4_g:.2f} us in a CUDA graph; w4a16 plain path {w4p_ms:.4f} ms; w8a16 kernel "
+          f"path {w8_ms:.4f} ms (RTF {w8_ms / 1e4:.3e}), {w8_g:.2f} us in a CUDA graph  "
+          f"({card})")
     return launches
 
 
@@ -2264,8 +2441,7 @@ def main() -> int:
                 K.sanm_layer_w8_plain)
     layer_check(T_RAGGED, VALID_RAGGED, lp0, "sanm_layer_w8", K.sanm_layer_w8,
                 K.sanm_layer_w8_plain)
-    layer_check(T_MAIN, T_MAIN, stacked, "sanm_stack_w8", K.sanm_stack_w8,
-                K.sanm_stack_w8_plain)
+    stack_checks(checks, err, "sanm_stack_w8", "weight_int8", stacked, dev, gen, H, FK)
 
     # kernel 5: the same device scale and zero point on both sides, an exact
     # int32 sum and one f32 epilogue, so the two should agree bit for bit
@@ -2378,10 +2554,25 @@ def main() -> int:
                        f"request {s} s: {len(ids)} tokens, ids in [0, vocab)")
     n_req = len(requests)
     print(f"  launch counts over {n_req} requests: {launches}")
-    checks.require(launches["sanm_layer_w8"] == L * n_req,
-                   f"sanm_layer_w8 launched {L} times per request")
+    checks.require(launches["sanm_layer_w8"] == 0, "sanm_layer_w8 never (the stack is one "
+                                                   "launch of sanm_stack_w8)")
     checks.require(launches["sanm_stack_w8"] == n_req, "sanm_stack_w8 once per request")
     checks.require(launches["w8_gemm"] == n_req, "w8_gemm (CTC head) once per request")
+    # the same weights as per-layer params (not stacked): each layer on kernel 3
+    per_layer = {k: v for k, v in model.params.items() if k != "layers_stacked"}
+    per_layer["layers"] = [layer_view(stacked, i) for i in range(L)]
+    layer_engine = SenseVoiceEngine(model=SenseVoiceModel(cfg, params=per_layer,
+                                                          fbank=model.fbank, device=dev))
+    K.reset_launch_counts()
+    ids_layers = layer_engine.recognize(requests[-1])
+    torch.cuda.synchronize()
+    layer_launches = K.launch_counts()
+    print(f"  launch counts of one 10 s request on per-layer params: {layer_launches}")
+    checks.require(layer_launches["sanm_layer_w8"] == L and layer_launches["sanm_stack_w8"] == 0
+                   and layer_launches["w8_gemm"] == 1,
+                   f"per-layer params: sanm_layer_w8 {L} times, no stack, the CTC head once")
+    checks.require(all(0 <= i < cfg.vocab_size for i in ids_layers),
+                   f"per-layer request: {len(ids_layers)} tokens, ids in [0, vocab)")
 
     pcm10 = synth_speechlike(10.0, np.random.default_rng(SEED + 1))
     fwd, fwd_plain = model.forward_fn(), model.forward_fn(plain=True)
@@ -2427,15 +2618,18 @@ def main() -> int:
                              {"bf16": n_layers * w8_layer_ops})
         print(f"  {name} T={T_MAIN}: kernel {ms[name]:.4f} ms, "
               f"plain {plain_ms[name]:.4f} ms  ({card})")
+    d_k, g_k = device_times(lambda: K.sanm_layer_w8(x, mask, lp0, H, FK))
+    DEVICE_US["sanm_layer_w8"] = {"device_us": d_k, "graph_us": g_k}
+    print(f"  sanm_layer_w8 T={T_MAIN}: device {fmt_us(d_k)} by the profiler, {g_k:.2f} us in "
+          f"a CUDA graph  ({card})")
+    stack_times("sanm_stack_w8", stacked, dev, gen, H, FK, card)
+    pcm10_dev = torch.from_numpy(pcm10).to(dev)
     f_ms = time_ms(lambda: fwd(model.params, pcm10))
     fp_ms = time_ms(lambda: fwd_plain(model.params, pcm10))
-    print(f"  forward_fn 10 s: kernel path {f_ms:.4f} ms (RTF {f_ms / 1e4:.3e}), "
-          f"plain path {fp_ms:.4f} ms (RTF {fp_ms / 1e4:.3e})  ({card})")
-    # the w8a16 stack at the compiled path's T, beside kernel 4 below
-    x196 = torch.randn((T_DQL, D), generator=gen, device=dev) * 0.5
-    mask196 = torch.ones((T_DQL,), device=dev)
-    w8_196 = time_ms(lambda: K.sanm_stack_w8(x196, mask196, stacked, H, FK))
-    print(f"  sanm_stack_w8 T={T_DQL}: kernel {w8_196:.4f} ms  ({card})")
+    f_g = graph_us(lambda: fwd(model.params, pcm10_dev))
+    print(f"  forward_fn 10 s: kernel path {f_ms:.4f} ms (RTF {f_ms / 1e4:.3e}), {f_g:.2f} us "
+          f"in a CUDA graph (the PCM on the card); plain path {fp_ms:.4f} ms (RTF "
+          f"{fp_ms / 1e4:.3e})  ({card})")
 
     # kernel 5 at the CTC head of the compiled graph, and its library yardstick
     k_, n_ = GEMM_SHAPES[-1]
@@ -2597,8 +2791,8 @@ def main() -> int:
                     "bf16 max|d| <= 1e-3*max|ref|, f32 <= 1e-5*max|ref|", launches),
         "sanm_layer_w8": ("lele_tpu_torch/csrc/sanm_layer.cu",
                           "lele_tpu/kernels/sanm_block.py:110",
-                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows", launches),
-        "sanm_stack_w8": ("lele_tpu_torch/csrc/sanm_layer.cu",
+                          "rtol 2e-2, atol 2e-2*max|ref| on valid rows", layer_launches),
+        "sanm_stack_w8": ("lele_tpu_torch/csrc/sanm_stack.cu",
                           "lele_tpu/kernels/sanm_block.py:229",
                           "rtol 2e-2, atol 2e-2*max|ref| on valid rows", launches),
         "dq_gemm": ("lele_tpu_torch/csrc/dq_gemm.cu",
@@ -2614,7 +2808,7 @@ def main() -> int:
         "w4_gemm": ("lele_tpu_torch/csrc/w4_gemm.cu",
                     "lele_tpu/kernels/w4_matmul.py:144",
                     "bf16 and f32 max|d| <= 1e-5*max|ref|", w4_launches),
-        "sanm_stack_w4": ("lele_tpu_torch/csrc/sanm_layer.cu",
+        "sanm_stack_w4": ("lele_tpu_torch/csrc/sanm_stack.cu",
                           "lele_tpu/kernels/sanm_block.py:621",
                           "rtol 2e-2, atol 2e-2*max|ref| on valid rows", w4_launches),
         "gru_seq": ("lele_tpu_torch/csrc/gru_seq.cu", "lele_tpu/kernels/gru.py:18",
@@ -2630,7 +2824,15 @@ def main() -> int:
                       f"exact (int32); quantized logits vs plain <= {QUANT_REL:g}*max|ref|",
                       s8_launches),
     }
+    stack_form = ("one cooperative launch for all L layers, seven phases a layer between "
+                  "grid barriers (LN1, qkv, attention + FSMN, out + residual, LN2, ffn1, ffn2 "
+                  "+ residual); tolerance also: a repeat call and a CUDA-graph replay the same "
+                  "bits (times: T=171, 50 layers; T=21, 87, 196, 1,004 in phases 5 and 14)")
     forms = {  # kernels with more than one form: which the numbers are of
+        "sanm_stack_w8": stack_form,
+        "sanm_stack_w4": stack_form,
+        "sanm_layer_w8": "seven launches (times: T=171; launches: a request on per-layer "
+                         "params, phase 4)",
         "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
                     "128 < H <= 1024 (phases 15-18)",
         "w4_gemm": "tile form (mma.sync; group-accumulator in k-steps of 16 or 8, "

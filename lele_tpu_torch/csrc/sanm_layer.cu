@@ -1,10 +1,8 @@
 // One SAN-M encoder layer as a fixed sequence of launches on one stream,
-// with int8 (w8a16) or groupwise int4 (w4a16) weights. Replaces
-// lele_tpu/kernels/sanm_block.py:sanm_layer_w8_pallas (`_kernel`) and,
-// looped over the layers by the Python wrapper, the whole-stack
-// sanm_stack_w8_pallas (`_stack_kernel`) and sanm_stack_w4_pallas
-// (`_stack_kernel_w4`, kernel 8). The two formats share every launch but the
-// GEMMs (w8_gemm.cuh, w4_gemm.cuh).
+// with int8 (w8a16) weights. Replaces
+// lele_tpu/kernels/sanm_block.py:sanm_layer_w8_pallas (`_kernel`, kernel 3),
+// which the port runs for layer params that are not stacked; the stacks
+// (kernels 1 and 8) are csrc/sanm_stack.cu.
 //
 //   1. LN1                       layer_norm_rows
 //   2. qkv = w8(h)               w8_gemm (h rounded to bf16, tensor cores)
@@ -15,21 +13,15 @@
 //   6. f1 = relu(w8(h2))         w8_gemm, ReLU in the epilogue
 //   7. x += w8(f1)               w8_gemm, residual in the epilogue, in place
 //
-// (w4: the GEMMs are w4_gemm_mma in its W4_DEQ_BF16 form.)
-//
-// What bounds it on the H100: per layer the int8 weights (3.1 MB at d512,
-// ffn 2048; as int4 1.6 MB and 98 KB of group scales) stream once, and at
-// T ~ 171 rows each launch does little work,
+// What bounds it on the H100: the layer's int8 weights (3.1 MB at d512,
+// ffn 2048) stream once, and at T ~ 171 rows each launch does little work,
 // so the layer is bound by launch latency and the weight stream, not by the
 // tensor cores. Attention grows as T^2: at the 60 s bucket (T ~ 1004) K and
 // V of one head no longer fit shared memory, so attn_fsmn walks 64-key tiles
 // (a running max and sum first, then P.V) and never holds the T x T scores.
-// Head dims 32, 64 and 128 are compiled. The TPU kernel also keeps the
-// activation on chip across layers and prefetches layer i+1's weights during
-// layer i; here that is left to a later persistent kernel or CUDA graph.
+// Head dims 32, 64 and 128 are compiled.
 #include <math.h>
 
-#include "w4_gemm.cuh"
 #include "w8_gemm.cuh"
 
 namespace lele {
@@ -297,9 +289,8 @@ inline void launch_attn_fsmn(const float* qkv, const float* mask, const void* fs
 namespace lele {
 
 // The seven launches of one layer, in place on X [T, D] f32. gemm(i, a, out,
-// K, N, res, relu) launches linear i (0 qkv, 1 out, 2 ffn1, 3 ffn2) of the
-// weight format on rows of a, bias in its epilogue. Returns the first
-// launch error.
+// K, N, res, relu) launches linear i (0 qkv, 1 out, 2 ffn1, 3 ffn2) on rows
+// of a, bias in its epilogue. Returns the first launch error.
 template <typename Gemm>
 int layer_launches(float* X, const float* mask, int T, int D, int H, int F, int fsmn_k,
                    const float* g1, const float* b1, const void* fsmn_w, int fsmn_bf16,
@@ -365,41 +356,6 @@ extern "C" int sanm_layer_w8(
                   int relu) {
     launch_w8_gemm(a, A_F32_AS_BF16, wq[i], out, T, K, N,
                    Epilogue{sc[i], bias[i], res, relu}, s);
-  };
-  return layer_launches(static_cast<float*>(x), f32(mask), T, D, H, F, fsmn_k, f32(g1),
-                        f32(b1), fsmn_w, fsmn_bf16, f32(g2), f32(b2), static_cast<float*>(h),
-                        static_cast<float*>(qkv), static_cast<float*>(ctx),
-                        static_cast<float*>(f1), gemm, s);
-}
-
-// One w4a16 layer (kernel 8 looped over the layers by the Python wrapper):
-// the same launches, with each linear's groupwise int4 weight (packed int8
-// [K/2, N], f32 scales [K/group, N]) dequantised to bf16 tiles as `_w4dot`
-// does (bf16(q * s)), bf16 products and f32 sums, bias in the epilogue.
-// Arguments as sanm_layer_w8, with `group` after fsmn_k; K/2 and the group
-// must be multiples of 16.
-extern "C" int sanm_layer_w4(
-    void* x, const void* mask, int T, int D, int H, int F, int fsmn_k, int group,
-    const void* g1, const void* b1, const void* wqkv, const void* sqkv,
-    const void* bqkv, const void* fsmn_w, int fsmn_bf16, const void* wo,
-    const void* so, const void* bo, const void* g2, const void* b2, const void* w1,
-    const void* s1, const void* bf1, const void* w2, const void* s2, const void* bf2,
-    void* h, void* qkv, void* ctx, void* f1, void* stream) {
-  using namespace lele;
-  if (T == 0) return 0;
-  if (!layer_shape_ok(D, H, fsmn_k) || !w4_stack_shape_ok(D, group) ||
-      !w4_stack_shape_ok(F, group))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  const int8_t* wq[4] = {static_cast<const int8_t*>(wqkv), static_cast<const int8_t*>(wo),
-                         static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2)};
-  const float* sc[4] = {f32(sqkv), f32(so), f32(s1), f32(s2)};
-  const float* bias[4] = {f32(bqkv), f32(bo), f32(bf1), f32(bf2)};
-  auto gemm = [&](int i, const float* a, float* out, int K, int N, const float* res,
-                  int relu) {
-    launch_w4_gemm_mma<W4_DEQ_BF16>(a, wq[i], sc[i], out, T, K, N, group,
-                                    W4Epilogue{bias[i], res, relu}, s);
   };
   return layer_launches(static_cast<float*>(x), f32(mask), T, D, H, F, fsmn_k, f32(g1),
                         f32(b1), fsmn_w, fsmn_bf16, f32(g2), f32(b2), static_cast<float*>(h),

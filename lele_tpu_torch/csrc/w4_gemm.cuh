@@ -1,7 +1,8 @@
 // w4a16 GEMM for Hopper: y[M,N] = x[M,K] @ W[K,N] with W stored as groupwise
-// int4, optionally with a fused epilogue (bias, ReLU, residual add). Shared by
+// int4, optionally with a fused epilogue (bias, ReLU, residual add). Used by
 // w4_gemm.cu (kernel 7: the CTC head and every MatMulNBits the compiler
-// routes here) and sanm_layer.cu (the four linears of a w4 SAN-M layer).
+// routes here); sanm_stack.cu (kernel 8) takes its unpacking helpers and
+// the W4_DEQ_BF16 arithmetic for the w4 stack's tiles.
 //
 // Replaces lele_tpu/kernels/w4_matmul.py:w4_matmul_pallas and the `_w4dot`
 // of lele_tpu/kernels/sanm_block.py.
@@ -16,8 +17,9 @@
 //    by the group's scale row at the group's last k-step and added to the
 //    accumulator, as the TPU kernel's group-accumulator form does. Scales
 //    never touch the [K, N] operand.
-//  - W4_DEQ_BF16 (the w4 SAN-M stack): B is bf16(q * s), rounded once from the
-//    f32 product, exactly as `_w4dot` dequantises; then one f32 sum.
+//  - W4_DEQ_BF16 (groups the other form does not take, and the w4 SAN-M
+//    stack's arithmetic): B is bf16(q * s), rounded once from the f32
+//    product, exactly as `_w4dot` dequantises; then one f32 sum.
 // f32 x (kernel 7's exact form) runs as true f32 FMA on the tile dequantised
 // in f32 (q * s), as w8_gemm's f32 path does.
 //

@@ -1,6 +1,7 @@
 // w8a16 GEMM for Hopper: y[M,N] = (x[M,K] @ int8 W[K,N]) * scale[N], with an
 // optional fused epilogue (bias, ReLU, residual add). Shared by w8_gemm.cu
-// (the CTC head) and sanm_layer.cu (the four linears of a SAN-M layer).
+// (the CTC head) and sanm_layer.cu (the four linears of a SAN-M layer);
+// sanm_stack.cu takes its mma helpers and epilogue.
 //
 // Replaces lele_tpu/kernels/quant_matmul.py:w8_matmul_pallas and the `_w8dot`
 // of lele_tpu/kernels/sanm_block.py.

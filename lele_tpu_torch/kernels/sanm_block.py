@@ -4,25 +4,25 @@ Replaces four TPU kernels. w8a16 (int8 weights, f32/bf16 activations):
 
 - `sanm_layer_w8` ← `sanm_layer_w8_pallas` (lele_tpu/kernels/sanm_block.py:110):
   one layer, LN1 → w8 qkv → FSMN over V·mask + per-head attention → w8 out
-  + residual → LN2 → w8 FFN (ReLU) + residual.
+  + residual → LN2 → w8 FFN (ReLU) + residual. The kernel is
+  csrc/sanm_layer.cu: one C entry runs the layer as seven launches on the
+  current stream. It serves params that are not stacked.
 - `sanm_stack_w8` ← `sanm_stack_w8_pallas` (lele_tpu/kernels/sanm_block.py:229):
   all L layers at batch 1.
-
-The kernel is csrc/sanm_layer.cu: one C entry runs a layer as seven
-launches on the current stream (design and what bounds it on the H100 are
-in that file). The stack loops over the layers in Python on per-layer
-pointers into the stacked [L, ...] weights (no copies), with the activation
-in one preallocated [T, D] f32 buffer that every layer updates in place.
-The TPU kernel's weight prefetch across layers is not ported yet.
 
 w4a16 (groupwise int4 weights, lele_tpu/kernels/w4_matmul.py's block
 packing):
 
 - `sanm_stack_w4` ← `sanm_stack_w4_pallas` (lele_tpu/kernels/sanm_block.py:621):
-  all L layers at batch 1, through the same seven-launch layer
-  (csrc/sanm_layer.cu, C entry `sanm_layer_w4`) with each linear
-  dequantised as `_w4dot` does: bf16(q·s), bf16 products, f32 sums. The
-  TPU's `hd % 128` rule is dropped, as for w8.
+  all L layers at batch 1, each linear dequantised as `_w4dot` does:
+  bf16(q·s), bf16 products, f32 sums. The TPU's `hd % 128` rule is dropped,
+  as for w8.
+
+Both stacks are one cooperative launch of csrc/sanm_stack.cu (design and
+what bounds it on the H100 are in that file): the layer loop runs on the
+card, five grid-wide phases a layer, on the stacked [L, ...] weights (base
+pointers and per-layer strides, no copies) and one [T, D] f32 activation
+buffer that every layer updates in place.
 
 The plain versions follow the JAX jnp block (models/sensevoice.py:321-397)
 with the kernel's numerics: bf16-rounded operands, f32 sums, masked keys
@@ -48,13 +48,14 @@ Exact ONNX DynamicQuantizeLinear semantics (the compiled-ONNX path):
   oracle for each other.
 
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises. `sanm_layer_w8.launches` counts w8 layer
-launches (a stack of L layers adds L); `sanm_stack_w8.launches`,
-`sanm_stack_w4.launches` and `sanm_stack_dql.launches` count stack calls.
+it launches the kernel or raises. `sanm_layer_w8.launches` counts single
+layers; `sanm_stack_w8.launches`, `sanm_stack_w4.launches` and
+`sanm_stack_dql.launches` count stack calls (one launch each).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -65,8 +66,10 @@ from .quant_matmul import dql_quantize, dql_scale_zp, w8_matmul_plain
 from .w4_matmul import _unpack_nibbles
 
 _STEM = "sanm_layer"
-_HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu
-_FSMN_KMAX = 16  # csrc/sanm_layer.cu FSMN_KMAX
+_STACK_STEM = "sanm_stack"
+_HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu and csrc/sanm_stack.cu
+_FSMN_KMAX = 16  # their FSMN_KMAX
+_DETAIL = 16  # csrc/sanm_stack.cu DETAIL: timer stamps a phase
 
 # the kernel's per-layer operands, in the C entry's order
 _LEAVES = (
@@ -191,26 +194,18 @@ def sanm_stack_w8_plain(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: i
 # kernel launches
 
 
-# the two weight formats: (packed weight key, scale key, C entry)
-_FORMATS = {"w8": ("wq8", "ws8", "sanm_layer_w8"), "w4": ("wq4", "ws4", "sanm_layer_w4")}
-_fns: dict[str, object] = {}
+# the two weight formats: (packed weight key, scale key)
+_FORMATS = {"w8": ("wq8", "ws8"), "w4": ("wq4", "ws4")}
+_layer_fn = None
+_stack_fns: dict[str, object] = {}
+_work_fn = None
 
 
-def _layer_fn(fmt: str):
-    fn = _fns.get(fmt)
-    if fn is None:
-        P, I = _build.P, _build.I
-        ints = [P, P] + [I] * (5 if fmt == "w8" else 6)  # x, mask, T, D, H, F, k (, group)
-        fn = _fns[fmt] = _build.bind(_STEM, _FORMATS[fmt][2],
-                                     ints + [P] * 5 + [P, I] + [P] * 11 + [P] * 5)
-    return fn
-
-
-def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int, fmt: str = "w8",
-              group: int = 0):
-    """The layer's tensors in the C entry's order (None for a missing bias),
-    checked for device, dtype, contiguity and shape."""
-    wkey, skey, name = _FORMATS[fmt]
+def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int, fmt: str, group: int,
+              name: str):
+    """The layer's (or stack's) tensors in the C entry's order (None for a
+    missing bias), checked for device, dtype, contiguity and shape."""
+    wkey, skey = _FORMATS[fmt]
     leaves = [(g, {"wq8": wkey, "ws8": skey}.get(n, n)) for g, n in _LEAVES]
     ts = []
     for group_, leaf in leaves:
@@ -253,11 +248,8 @@ def _stack_w4_shape(K: int, group: int) -> bool:
     return K % 32 == 0 and group >= 16 and group % 16 == 0
 
 
-def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None,
-                   fmt: str = "w8", group: int = 0):
-    """Run the layer kernel in place on x [T, D] f32 (a fresh buffer the
-    caller owns), once, or over the n_layers of a stacked tree."""
-    name = _FORMATS[fmt][2]
+def _checked(x, mask, n_heads: int, fsmn_k: int, name: str):
+    """x's shape and the mask as contiguous f32 [T] on x's card."""
     if not x.is_cuda:
         raise ValueError(f"{name}: x lies on {x.device}, not on a CUDA card")
     T, D = x.shape
@@ -267,29 +259,85 @@ def _launch_layers(x, mask, lp, n_heads: int, fsmn_k: int, n_layers: int | None,
     mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
     if mask.shape != (T,):
         raise ValueError(f"{name}: mask must be [T]")
-    lead = () if n_layers is None else (n_layers,)
-    ts, F = _operands(lp, x.device, lead, D, fsmn_k, fmt, group)
+    return T, D, mask
+
+
+def _launch_layer(x, mask, lp, n_heads: int, fsmn_k: int):
+    """Run csrc/sanm_layer.cu's seven launches in place on x [T, D] f32 (a
+    fresh buffer the caller owns)."""
+    global _layer_fn
+    name = "sanm_layer_w8"
+    T, D, mask = _checked(x, mask, n_heads, fsmn_k, name)
+    ts, F = _operands(lp, x.device, (), D, fsmn_k, "w8", 0, name)
+    if _layer_fn is None:
+        P, I = _build.P, _build.I
+        _layer_fn = _build.bind(_STEM, name, [P, P] + [I] * 5 + [P] * 5 + [P, I] + [P] * 11
+                                + [P] * 5)
+    scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
+               for n in (D, 3 * D, D, F)]  # h, qkv, ctx, f1
+    p = [None if t is None else t.data_ptr() for t in ts]
+    code = _layer_fn(x.data_ptr(), mask.data_ptr(), T, D, n_heads, F, fsmn_k,
+                     *p[0:5], p[5], int(ts[5].dtype == torch.bfloat16), *p[6:17],
+                     *(s.data_ptr() for s in scratch),
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(_STEM, name, code)
+    sanm_layer_w8.launches += 1
+    return x
+
+
+def _launch_stack(x, mask, stacked, n_heads: int, fsmn_k: int, fmt: str, group: int = 0,
+                  trace: torch.Tensor | None = None):
+    """Run all L layers of a stacked tree in place on x [T, D] f32 (a fresh
+    buffer the caller owns) as one launch of csrc/sanm_stack.cu; `trace`
+    (int64 [5 L + 1] on the card) gets the kernel's phase timestamps."""
+    global _work_fn
+    name = f"sanm_stack_{fmt}"
+    T, D, mask = _checked(x, mask, n_heads, fsmn_k, name)
+    L = stacked["qkv"][_FORMATS[fmt][0]].shape[0]
+    ts, F = _operands(stacked, x.device, (L,), D, fsmn_k, fmt, group, name)
     if fmt == "w4" and not (_stack_w4_shape(D, group) and _stack_w4_shape(F, group)):
         raise ValueError(f"{name}: D={D}, F={F}, group={group}: the kernel needs K/2 "
                          "and the group to be multiples of 16")
-    fn = _layer_fn(fmt)
-    scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
-               for n in (D, 3 * D, D, F)]  # h, qkv, ctx, f1
-    bases = [None if t is None else t.data_ptr() for t in ts]
-    strides = [0 if (t is None or not lead) else t.stride(0) * t.element_size()
-               for t in ts]
-    fsmn_bf16 = int(ts[5].dtype == torch.bfloat16)
-    ints = (T, D, n_heads, F, fsmn_k) + ((group,) if fmt == "w4" else ())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i in range(n_layers or 1):
-        p = [None if b is None else b + i * s for b, s in zip(bases, strides)]
-        code = fn(x.data_ptr(), mask.data_ptr(), *ints,
-                  *p[0:5], p[5], fsmn_bf16, *p[6:17],
-                  *(s.data_ptr() for s in scratch), stream)
-        _build.check(_STEM, name, code)
-        if fmt == "w8":
-            sanm_layer_w8.launches += 1
+    fn = _stack_fns.get(fmt)
+    if fn is None:
+        P, I = _build.P, _build.I
+        ints = [I] * (6 if fmt == "w8" else 7)  # T, D, H, F, k, (group,) L
+        fn = _stack_fns[fmt] = _build.bind(_STACK_STEM, name,
+                                           [P, P, *ints, P, P, I, P, P, P])
+    if _work_fn is None:
+        _work_fn = _build.library(_STACK_STEM).sanm_stack_work_bytes
+        _work_fn.argtypes = [_build.I] * 3
+        _work_fn.restype = ctypes.c_longlong
+    work = torch.empty((_work_fn(T, D, F),), dtype=torch.uint8, device=x.device)
+    leaves = (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
+    strides = (ctypes.c_longlong * len(ts))(
+        *(0 if t is None else t.stride(0) * t.element_size() for t in ts))
+    ints = (T, D, n_heads, F, fsmn_k) + ((group,) if fmt == "w4" else ()) + (L,)
+    code = fn(x.data_ptr(), mask.data_ptr(), *ints, leaves, strides,
+              int(ts[5].dtype == torch.bfloat16), work.data_ptr(),
+              None if trace is None else trace.data_ptr(),
+              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(_STACK_STEM, name, code)
     return x
+
+
+STACK_PHASES = ("LN1", "qkv", "attention+FSMN", "out", "LN2", "ffn1", "ffn2")
+
+
+def stack_phase_us(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int, fsmn_k: int,
+                   fmt: str = "w8", group: int = 128) -> torch.Tensor:
+    """One launch of the stack kernel on a CUDA x with its timer trace on:
+    f64 [L, 7] microseconds of each layer's phases (STACK_PHASES), each up to
+    the end of the grid barrier after it. `stack_phase_us.raw` keeps the
+    stamps (ns), then those inside layer 1's phases (csrc/sanm_stack.cu
+    `stamp`). A measurement: it counts no launch."""
+    L, P = stacked["qkv"][_FORMATS[fmt][0]].shape[0], len(STACK_PHASES)
+    trace = torch.zeros((P * L + 1 + P * _DETAIL,), dtype=torch.int64, device=x.device)
+    y = x.to(torch.float32).contiguous().clone()
+    _launch_stack(y, mask, stacked, n_heads, fsmn_k, fmt, group if fmt == "w4" else 0, trace)
+    t = trace.cpu()
+    stack_phase_us.raw = t
+    return t[:P * L + 1].diff().double().reshape(L, P) / 1e3
 
 
 def sanm_layer_w8(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
@@ -299,7 +347,7 @@ def sanm_layer_w8(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
     if x.device.type == "cpu":
         return sanm_layer_w8_plain(x, mask, lp, n_heads, fsmn_k)
     y = x.to(torch.float32).contiguous().clone()
-    return _launch_layers(y, mask, lp, n_heads, fsmn_k, None)
+    return _launch_layer(y, mask, lp, n_heads, fsmn_k)
 
 
 def sanm_stack_w8(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
@@ -310,8 +358,7 @@ def sanm_stack_w8(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
         return sanm_stack_w8_plain(x, mask, stacked, n_heads, fsmn_k)
     # one [T, D] f32 activation buffer, updated in place by every layer
     y = x.to(torch.float32).contiguous().clone()
-    L = stacked["qkv"]["wq8"].shape[0]
-    _launch_layers(y, mask, stacked, n_heads, fsmn_k, L)
+    _launch_stack(y, mask, stacked, n_heads, fsmn_k, "w8")
     sanm_stack_w8.launches += 1
     return y
 
@@ -321,7 +368,7 @@ sanm_stack_w8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# w4a16 stack (kernel 8: csrc/sanm_layer.cu, sanm_layer_w4)
+# w4a16 stack (kernel 8: csrc/sanm_stack.cu, sanm_stack_w4)
 
 
 def _w4_groups(stacked, D: int, group: int):
@@ -367,8 +414,7 @@ def sanm_stack_w4(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
     _w4_groups(stacked, x.shape[1], group)
     # one [T, D] f32 activation buffer, updated in place by every layer
     y = x.to(torch.float32).contiguous().clone()
-    L = stacked["qkv"]["wq4"].shape[0]
-    _launch_layers(y, mask, stacked, n_heads, fsmn_k, L, "w4", group)
+    _launch_stack(y, mask, stacked, n_heads, fsmn_k, "w4", group)
     sanm_stack_w4.launches += 1
     return y
 

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the port's kernels 1, 2, 4-9, 11 and 12 on one card.
+"""A/B of two versions of the port's kernels 1-9, 11 and 12 on one card.
 
     python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR] [--stems a,b]
 
 Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu, csrc/lstm_seq.cu,
-csrc/w4_gemm.cu, csrc/sanm_layer.cu, csrc/int8_gemm.cu, csrc/gru_seq.cu,
-csrc/flash_attn.cu and csrc/w8_gemm.cu, those of them
+csrc/w4_gemm.cu, csrc/sanm_layer.cu, csrc/sanm_stack.cu, csrc/int8_gemm.cu,
+csrc/gru_seq.cu, csrc/flash_attn.cu and csrc/w8_gemm.cu, those of them
 that both directories hold (or those `--stems` names), from both (the new
 one defaults to lele_tpu_torch/csrc), binds each through the port's own
 wrappers (the C entries must share their signatures, but for
 `flash_attn`'s workspace argument, which a build without it is called
-without), and times in turns,
+without, and the stacks: a version without csrc/sanm_stack.cu runs them as
+its csrc/sanm_layer.cu's seven-launch `sanm_layer_w8` / `sanm_layer_w4`
+entries looped over the layers), and times in turns,
 old new new old: CUDA events around the call (median of 30 warm runs each),
 the device time a call by torch.profiler (the kernels' own time, which
 events around a short launch overstate by the host's issue; "not measured"
@@ -32,8 +34,11 @@ between launches; chip_smoke.graph_us):
   weight, resident in the 50 MB L2) and cold (calls rotate over enough
   copies of the weight to exceed the L2);
 - `int8_gemm` at a layer's four linears at T = 171;
-- `sanm_stack_w8` and, where both versions have its C entry,
-  `sanm_stack_w4`: 50 layers at d512, ffn 2048, T = 171, random weights;
+- `sanm_layer_w8` (one layer, T = 171), and `sanm_stack_w8` and
+  `sanm_stack_w4`: 50 layers at d512, ffn 2048, random weights, at
+  chip_smoke.STACK_T (T = 21, 87 with 76 valid, 171, 196, 1,004), each
+  version held to the plain version's layer gate (rtol 2e-2, atol
+  2e-2·max|ref| on the valid rows) and reported as the same bits or max|d|;
 - `gru_seq` at H = 128 over S = 1,875 and 18,750 steps, B = 1 and 4, both
   `linear_before_reset` forms, with cuDNN's `nn.GRU` on xproj beside it;
 - `flash_attn` at chip_smoke's two timed shapes (the TPU script's causal
@@ -44,8 +49,8 @@ between launches; chip_smoke.graph_us):
   on the weight dequantised to bf16 beside it.
 
 It checks that the two versions give the same bits where both compute the
-same exact arithmetic (`dq_gemm`, `sanm_dql`, `int8_gemm`, the layers and
-stacks, `lstm_seq`, `w8_gemm`). Where a redesign sums in another order on
+same exact arithmetic (`dq_gemm`, `sanm_dql`, `int8_gemm`, the layer,
+`lstm_seq`, `w8_gemm`, `w4_gemm`'s tile form). Where a redesign sums in another order on
 purpose, both versions are held to the plain version's gate instead:
 `w4_gemm`'s decode form to 1e-5·max|ref|, `gru_seq` to max|d| <= 1e-5
 (chip_smoke.GRU_TOL), `flash_attn` to 1e-5·max|ref| (chip_smoke.FLASH_REL).
@@ -66,8 +71,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "int8_gemm", "gru_seq",
-         "flash_attn", "w8_gemm")
+STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "sanm_stack", "int8_gemm",
+         "gru_seq", "flash_attn", "w8_gemm")
 LSTM_STEPS = (3, 1875, 18750)
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
@@ -82,10 +87,11 @@ L2_BYTES = 50e6  # the H100's L2
 W4_REL = 1e-5
 GRU_STEPS = (1875, 18750)
 # a case: fn() and, where its bits may differ between versions, the plain
-# version with its gate (relative to max|ref|, or absolute); a library call
-# timed beside it; the calls a CUDA graph holds (fewer for long calls)
-Case = namedtuple("Case", "name fn plain tol rel library graph_n",
-                  defaults=(None, W4_REL, True, None, 20))
+# version with its gate (relative to max|ref|, or absolute; with `close`,
+# torch.allclose at rtol tol and atol tol·max|ref|); a library call timed
+# beside it; the calls a CUDA graph holds (fewer for long calls)
+Case = namedtuple("Case", "name fn plain tol rel library graph_n close",
+                  defaults=(None, W4_REL, True, None, 20, False))
 
 
 def build(csrc: Path, out: Path, stems) -> dict[str, ctypes.CDLL]:
@@ -132,19 +138,30 @@ def main(argv: list[str]) -> int:
     new = Path(argv[1]).resolve() if len(argv) > 1 else REPO / "lele_tpu_torch" / "csrc"
     stems = [s for s in STEMS if s in wanted and (old / f"{s}.cu").exists()
              and (new / f"{s}.cu").exists()]
+    # the stacks: the new version's sanm_stack.cu against the old version's
+    # own (or, without one, its sanm_layer.cu looped)
+    stack = "sanm_stack" in wanted and (new / "sanm_stack.cu").exists() and (
+        (old / "sanm_stack.cu").exists() or (old / "sanm_layer.cu").exists())
+    own = {v: [s for s in STEMS if s in stems or (stack and s in ("sanm_stack", "sanm_layer")
+                                                  and (root / f"{s}.cu").exists())]
+           for v, root in (("old", old), ("new", new))}
     card = cs.card_identity()
+    state = {}
     with tempfile.TemporaryDirectory() as d:
         (Path(d) / "old").mkdir()
         (Path(d) / "new").mkdir()
-        libs = {"old": build(old, Path(d) / "old", stems),
-                "new": build(new, Path(d) / "new", stems)}
+        libs = {"old": build(old, Path(d) / "old", own["old"]),
+                "new": build(new, Path(d) / "new", own["new"])}
 
         def use(version):
-            for stem in stems:
+            state["version"] = version
+            for stem in own[version]:
                 _build._libs[stem] = libs[version][stem]
             quant_matmul._dq_fn = None
             sanm_block._dql_fn = None
-            sanm_block._fns.clear()
+            sanm_block._layer_fn = None
+            sanm_block._stack_fns.clear()
+            sanm_block._work_fn = None
             lstm._fn = None
             w4._fn = None
             quant_matmul._i8_fn = None
@@ -196,8 +213,8 @@ def main(argv: list[str]) -> int:
             b = torch.randint(-128, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
             cases.append((f"int8_gemm [{T_W},{k_}]x[{k_},{n_}]",
                           lambda a=a, b=b: K.int8_matmul(a, b), None))
-        if "sanm_layer" in stems:
-            cases += [(*c, None) for c in _layer_cases(stems, libs, dev, gen)]
+        if "sanm_layer" in stems or stack:
+            cases += _layer_cases(cs, stems, stack, libs, state, dev, gen)
         if "gru_seq" in stems:
             cases += _gru_cases(cs, dev, gen)
         if "flash_attn" in stems:
@@ -205,7 +222,7 @@ def main(argv: list[str]) -> int:
         if "w8_gemm" in stems:
             cases += _w8_cases(dev, gen)
         failed = False
-        for name, fn, plain, tol, rel, library, graph_n in (Case(*c) for c in cases):
+        for name, fn, plain, tol, rel, library, graph_n, close in (Case(*c) for c in cases):
             times = {"old": [], "new": []}
             dev_us = {"old": [], "new": []}
             outs, split = {}, {}
@@ -232,9 +249,17 @@ def main(argv: list[str]) -> int:
                 ref = plain()
                 scale = ref.abs().max().item() if rel else 1.0
                 d = {v: (outs[v] - ref).abs().max().item() for v in ("old", "new")}
-                ok = all(x <= tol * scale for x in d.values())
-                verdict = (f"vs plain max|d| old {d['old']:.3e}, new {d['new']:.3e} "
-                           f"<= {tol:g}{f' * {scale:.3e}' if rel else ''}: {ok}")
+                if close:
+                    ok = all(torch.allclose(outs[v], ref, rtol=tol, atol=tol * scale)
+                             for v in ("old", "new"))
+                    gate = f"allclose rtol {tol:g}, atol {tol:g} * {scale:.3e}"
+                else:
+                    ok = all(x <= tol * scale for x in d.values())
+                    gate = f"<= {tol:g}{f' * {scale:.3e}' if rel else ''}"
+                same = torch.equal(outs["old"], outs["new"])
+                d_on = (outs["old"] - outs["new"]).abs().max().item()
+                verdict = (f"vs plain max|d| old {d['old']:.3e}, new {d['new']:.3e}, {gate}: "
+                           f"{ok}; old vs new same bits {same}, max|d| {d_on:.3e}")
             failed |= not ok
             if library is not None:  # the PyTorch call, by events and in a CUDA graph
                 lib_ms = cs.time_ms(library, runs=30)
@@ -400,35 +425,75 @@ def _w4_decode_cases(dev, gen, w4):
     return cases
 
 
-def _layer_cases(stems, libs, dev, gen):
-    """The w8 stack and, where both builds have it, the w4 stack, at the
-    native path's full width and T = 171."""
+def _looped_layers(lib, fmt, x, mask, st, H, FK, group=128):
+    """A stack as a version without csrc/sanm_stack.cu runs it: its
+    sanm_layer.cu's seven-launch entry for each layer, on per-layer pointers
+    into the stacked weights, in place on one [T, D] f32 buffer."""
+    import torch
+
+    from lele_tpu_torch.kernels import sanm_block
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, f"sanm_layer_{fmt}")
+    fn.argtypes = ([P, P] + [I] * (5 if fmt == "w8" else 6) + [P] * 5 + [P, I] + [P] * 11
+                   + [P] * 5)
+    fn.restype = ctypes.c_int
+    y = x.to(torch.float32).contiguous().clone()
+    T, D = y.shape
+    n_layers = st["norm1"]["g"].shape[0]
+    ts, F = sanm_block._operands(st, y.device, (n_layers,), D, FK, fmt, group, "looped")
+    scratch = [torch.empty((T, n), dtype=torch.float32, device=y.device)
+               for n in (D, 3 * D, D, F)]
+    ints = (T, D, H, F, FK) + ((group,) if fmt == "w4" else ())
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    for i in range(n_layers):
+        p = [None if t is None else t.data_ptr() + i * t.stride(0) * t.element_size()
+             for t in ts]
+        code = fn(y.data_ptr(), mask.data_ptr(), *ints, *p[0:5], p[5],
+                  int(ts[5].dtype == torch.bfloat16), *p[6:17],
+                  *(s_.data_ptr() for s_ in scratch), stream)
+        if code:
+            raise RuntimeError(f"sanm_layer_{fmt}: CUDA error {code}: "
+                               f"{lib.lele_error_string(code).decode()}")
+    return y
+
+
+def _layer_cases(cs, stems, stack, libs, state, dev, gen):
+    """Kernel 3 (one layer, T = 171), and the w8 and w4 stacks at the native
+    path's full width at chip_smoke.STACK_T, each version against the plain
+    version's layer gate."""
     import torch
 
     from lele_tpu_torch import kernels as K
-    from lele_tpu_torch.models import (
-        SenseVoiceConfig,
-        SenseVoiceModel,
-        cast_big_params,
-        prepare_w4_params,
-        prepare_w8_params,
-        stack_layer_params,
-    )
+    from lele_tpu_torch.kernels.sanm_block import layer_view
 
-    x = torch.randn((T_W, D), generator=gen, device=dev) * 0.5
-    mask = torch.ones((T_W,), device=dev)
     cases = []
-    for flag, prep, fn in (("weight_int8", prepare_w8_params, K.sanm_stack_w8),
-                           ("weight_int4", prepare_w4_params, K.sanm_stack_w4)):
-        if flag == "weight_int4" and not all(hasattr(lib["sanm_layer"], "sanm_layer_w4")
-                                             for lib in libs.values()):
-            continue
-        m = SenseVoiceModel(SenseVoiceConfig(**{flag: True}), device=dev)
-        m.init(0)
-        st = stack_layer_params(prep(cast_big_params(m.params, torch.bfloat16)))
-        st = st["layers_stacked"]
-        cases.append((f"{fn.__name__} T={T_W} L={L}",
-                      lambda fn=fn, st=st: fn(x, mask, st, H, FK)))
+    trees = {fmt: cs.stack_tree(flag, dev) for fmt, flag in (("w8", "weight_int8"),
+                                                              ("w4", "weight_int4"))}
+    if "sanm_layer" in stems:
+        x = torch.randn((T_W, D), generator=gen, device=dev) * 0.5
+        mask = torch.ones((T_W,), device=dev)
+        lp0 = layer_view(trees["w8"], 0)
+        cases.append(Case(f"sanm_layer_w8 T={T_W}", lambda: K.sanm_layer_w8(x, mask, lp0, H, FK)))
+    if not stack:
+        return cases
+    for fmt, st in trees.items():
+        fn, plain = K.KERNEL_WRAPPERS[f"sanm_stack_{fmt}"], getattr(K, f"sanm_stack_{fmt}_plain")
+        for T, valid in cs.STACK_T:
+            x = torch.randn((T, D), generator=gen, device=dev) * 0.5
+            mask = torch.zeros((T,), device=dev)
+            mask[:valid] = 1.0
+
+            def run(fn=fn, fmt=fmt, st=st, x=x, mask=mask, valid=valid):
+                lib = libs[state["version"]]
+                if "sanm_stack" in lib:
+                    return fn(x, mask, st, H, FK)[:valid]
+                return _looped_layers(lib["sanm_layer"], fmt, x, mask, st, H, FK)[:valid]
+
+            cases.append(Case(f"sanm_stack_{fmt} T={T} valid={valid} L={L}", run,
+                              lambda plain=plain, st=st, x=x, mask=mask, valid=valid:
+                              plain(x, mask, st, H, FK)[:valid],
+                              2e-2, True, None, 5 if T > 500 else 20, True))
     return cases
 
 

@@ -1,4 +1,4 @@
-"""Kernels 5, 7, 9 and 12 in their redesigned forms, held against their
+"""Kernels 1, 5, 7, 8, 9 and 12 in their redesigned forms, held against their
 plain versions on an NVIDIA card.
 
 Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
@@ -19,6 +19,15 @@ and 3 x max(the plain version's error, 1e-6)), and must visit exactly the
 key tiles that `skippable_tiles` leaves; and a small Phi-3-form decoder's
 prefill (from slot 0 and a chunk from slot 128) on the kernel against the
 plain-Attention compile at chip_smoke.LLM_REL.
+
+Kernels 1 and 8 (csrc/sanm_stack.cu: the w8a16 and w4a16 SAN-M stacks as one
+cooperative launch) are held to their plain versions at the layer gate
+(rtol 2e-2, atol 2e-2·max|ref| on the valid rows) at the full width (50
+layers, d512, 4 heads of 128, ffn 2048) for T = 1, 21, 64, 65, 87 (76 valid),
+171, 196 and 1,004, and at d256 with head dims 32, 64 and 128, 1 and 2
+layers, f32 and bf16 FSMN taps; a repeat call and a CUDA-graph replay must
+give the eager call's bits, each call is one launch, and one call's
+profiler trace holds one stack kernel and no other kernel of the port.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -200,3 +209,94 @@ def test_small_decoder_prefill_on_kernel_12(dev, start):
     assert K.flash_attention.launches == before + cfg["layers"]
     rel = ((got - want).abs().max() / want.abs().max()).item()
     assert bool(torch.isfinite(got).all()) and rel <= cs.LLM_REL, rel
+
+
+# kernels 1 and 8: (T, valid rows) at the full width, and the small widths'
+# head dims, depths and FSMN tap types
+STACK_T = [(1, 1), (21, 21), (64, 64), (65, 65), (87, 76), (171, 171), (196, 196),
+           (1004, 1004)]
+STACKS = {"w8": ("weight_int8", "sanm_stack_w8"), "w4": ("weight_int4", "sanm_stack_w4")}
+_full: dict = {}
+
+
+def _stack_fns(fmt):
+    name = STACKS[fmt][1]
+    return getattr(K, name), getattr(K, f"{name}_plain")
+
+
+def _full_stack(fmt, dev):
+    if fmt not in _full:
+        _full[fmt] = cs.stack_tree(STACKS[fmt][0], dev)
+    return _full[fmt]
+
+
+def _stack_inputs(dev, T, valid, D, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, D), generator=gen, device=dev) * 0.5
+    mask = torch.zeros((T,), device=dev)
+    mask[:valid] = 1.0
+    return x, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid", STACK_T, ids=[f"T{t}-{v}" for t, v in STACK_T])
+@pytest.mark.parametrize("fmt", list(STACKS))
+def test_stack_matches_plain_full_width(dev, fmt, t, valid):
+    fn, plain = _stack_fns(fmt)
+    st = _full_stack(fmt, dev)
+    x, mask = _stack_inputs(dev, t, valid, 512, t)
+    before = fn.launches
+    res = cs.stack_check(fn, plain, x, mask, valid, st, 4, 11)
+    assert fn.launches == before + 2, "one launch a call"
+    assert res["ok"], f"max|d| {res['d']:.3e}, max|ref| {res['scale']:.3e}"
+    assert res["same"], "a repeat call changed the bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [torch.float32, torch.bfloat16], ids=["f32_taps", "bf16_taps"])
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("fmt", list(STACKS))
+def test_stack_matches_plain_small(dev, fmt, hd, layers, taps):
+    fn, plain = _stack_fns(fmt)
+    H = 256 // hd
+    st = cs.stack_tree(STACKS[fmt][0], dev, n_layers=layers, d_model=256, n_heads=H, ffn=512,
+                       seed=hd + layers, fsmn_dtype=taps)
+    for t, valid in ((21, 21), (65, 60), (87, 76)):
+        x, mask = _stack_inputs(dev, t, valid, 256, t + hd)
+        res = cs.stack_check(fn, plain, x, mask, valid, st, H, 11)
+        assert res["ok"], f"T={t}: max|d| {res['d']:.3e}, max|ref| {res['scale']:.3e}"
+        assert res["same"], f"T={t}: a repeat call changed the bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [171, 1004])
+@pytest.mark.parametrize("fmt", list(STACKS))
+def test_stack_graph_replay_gives_eager_bits(dev, fmt, t):
+    fn, _ = _stack_fns(fmt)
+    st = _full_stack(fmt, dev)
+    x, mask = _stack_inputs(dev, t, t, 512, t + 1)
+    assert cs.graph_same_bits(lambda: fn(x, mask, st, 4, 11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", list(STACKS))
+def test_stack_one_call_traces_one_kernel(dev, fmt):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, _ = _stack_fns(fmt)
+    st = _full_stack(fmt, dev)
+    x, mask = _stack_inputs(dev, 171, 171, 512, 3)
+    fn(x, mask, st, 4, 11)
+    kernels = []
+    for _ in range(6):  # a trace now and then comes back with no device record
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x, mask, st, 4, 11)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert kernels, "no trace with a device record came back"
+    assert sum("sanm_stack_kernel" in k for k in kernels) == 1, kernels
+    assert not any("lele::" in k and "sanm_stack_kernel" not in k for k in kernels), kernels

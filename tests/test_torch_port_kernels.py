@@ -61,9 +61,9 @@ def test_w8_matmul_plain_matches_pallas_and_jnp(m, k, n, dtype):
                                    atol=GEMM_RTOL * np.abs(want).max())
 
 
-def _layer_params(key, n_layers, bf16):
+def _layer_params(key, n_layers, bf16, n_heads=2):
     cfg = JConfig(n_layers=n_layers, d_model=256, ffn_dim=384, vocab_size=32,
-                  n_heads=2, dtype="float32", weight_int8=True, fused_block=False)
+                  n_heads=n_heads, dtype="float32", weight_int8=True, fused_block=False)
     params = jinit(jax.random.PRNGKey(key), cfg)
     if bf16:
         params = jcast(params, jnp.bfloat16)
@@ -94,14 +94,23 @@ def test_sanm_layer_plain_matches_pallas_and_jnp_block(bf16):
             atol=np.abs(want[:valid]).max() * LAYER_RTOL)
 
 
-def test_sanm_stack_plain_matches_pallas():
-    cfg, params = _layer_params(4, 3, True)
+# T = 19, head dim 128 (d256 over 2 heads), 3 layers; then the stack kernel's
+# tiling edges: one row, a ragged 32-row tile, a key tile and one more row;
+# head dims 32 and 64 (8 and 4 heads); 1 and 3 layers. The last T // 6 rows
+# are masked.
+STACK_CASES = [(19, 128, 3)] + [(t, hd, n) for t in (1, 19, 65) for hd in (32, 64)
+                                for n in (1, 3)]
+STACK_IDS = [f"T{t}-hd{hd}-L{n}" for t, hd, n in STACK_CASES]
+
+
+@pytest.mark.parametrize("T,hd,n_layers", STACK_CASES, ids=STACK_IDS)
+def test_sanm_stack_plain_matches_pallas(T, hd, n_layers):
+    cfg, params = _layer_params(4, n_layers, True, n_heads=256 // hd)
     stacked = jstack(params)["layers_stacked"]
-    T = 19
     rng = np.random.default_rng(12)
     x = rng.standard_normal((T, cfg.d_model)).astype(np.float32) * 0.3
     mask = np.ones((T,), np.float32)
-    mask[-3:] = 0.0
+    mask[T - T // 6:] = 0.0
     valid = int(mask.sum())
     want = np.asarray(sanm_stack_w8_pallas(jnp.asarray(x), jnp.asarray(mask), stacked,
                                            cfg.n_heads, cfg.fsmn_kernel, interpret=True))
@@ -127,9 +136,10 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     torch.testing.assert_close(
         K.sanm_layer_w8(x, mask, lp0, cfg.n_heads, cfg.fsmn_kernel),
         K.sanm_layer_w8_plain(x, mask, lp0, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
-    torch.testing.assert_close(
-        K.sanm_stack_w8(x, mask, st, cfg.n_heads, cfg.fsmn_kernel),
-        K.sanm_stack_w8_plain(x, mask, st, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
+    for tree in (st, K.sanm_block.tree_map(lambda a: a[:1], st)):  # L = 2 and L = 1
+        torch.testing.assert_close(
+            K.sanm_stack_w8(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel),
+            K.sanm_stack_w8_plain(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
     wq = lp0["qkv"]["wq8"]
     colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
     _, a_scale, a_zp = K.dynamic_quantize_u8(x)
@@ -167,9 +177,10 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
                    weight_int4=True)
     st4 = from_numpy_tree(_np_tree(jstack(jprepare4(jinit(jax.random.PRNGKey(6), cfg4)))))
     st4 = st4["layers_stacked"]
-    torch.testing.assert_close(
-        K.sanm_stack_w4(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel),
-        K.sanm_stack_w4_plain(x, mask, st4, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
+    for tree in (st4, K.sanm_block.tree_map(lambda a: a[:1], st4)):  # L = 2 and L = 1
+        torch.testing.assert_close(
+            K.sanm_stack_w4(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel),
+            K.sanm_stack_w4_plain(x, mask, tree, cfg.n_heads, cfg.fsmn_kernel), rtol=0, atol=0)
     blk = {name: {"w": torch.randn((i, o)) * 0.1, "b": torch.zeros((o,))}
            for name, i, o in (("q", 64, 64), ("kv", 64, 128), ("out", 64, 64),
                               ("ffn1", 64, 128), ("ffn2", 128, 64))}
@@ -207,9 +218,12 @@ def test_kernel_entry_refuses_a_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         K.gru.gru_seq_kernel(torch.zeros((3, 1, 12)), torch.zeros((4, 12)), torch.zeros(12),
                              torch.zeros((1, 4)))
+    for fmt in ("w8", "w4"):
+        with pytest.raises(ValueError, match="CUDA"):
+            K.sanm_block._launch_stack(torch.zeros((4, 256)), torch.ones(4), {}, 2, 11, fmt,
+                                       128)
     with pytest.raises(ValueError, match="CUDA"):
-        K.sanm_block._launch_layers(torch.zeros((4, 256)), torch.ones(4), {}, 2, 11, 2,
-                                    "w4", 128)
+        K.sanm_block._launch_layer(torch.zeros((4, 256)), torch.ones(4), {}, 2, 11)
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():

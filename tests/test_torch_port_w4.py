@@ -56,6 +56,10 @@ JNP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # kernel 8's plain version vs the Pallas stack kernel: the same bf16
 # roundings, f32 sums in another order
 STACK_REL = 1e-3
+# at the kernel's tiling edges, where three layers of head dim 32 or 64 carry
+# a flipped bf16 rounding further (measured <= 1.7e-3): the layer bound of
+# tests/test_pallas_parity.py::test_fused_sanm_layer_matches_block
+LAYER_RTOL = 2e-2
 # the logit gates of tests/test_torch_port_sensevoice.py (measured against
 # JAX's CPU routing: <= 3.5e-3, agreement 1.0)
 LOGIT_REL = 1e-2
@@ -220,8 +224,8 @@ def test_w4_quantize_refuses_what_jax_refuses():
 # kernel 8's plain version
 
 
-def _stack_params(ffn=512, key=4, n_layers=3, bf16=False):
-    cfg = JConfig(n_layers=n_layers, d_model=256, ffn_dim=ffn, vocab_size=32, n_heads=2,
+def _stack_params(ffn=512, key=4, n_layers=3, bf16=False, n_heads=2):
+    cfg = JConfig(n_layers=n_layers, d_model=256, ffn_dim=ffn, vocab_size=32, n_heads=n_heads,
                   dtype="float32", weight_int4=True)
     params = jinit(jax.random.PRNGKey(key), cfg)
     if bf16:
@@ -229,18 +233,29 @@ def _stack_params(ffn=512, key=4, n_layers=3, bf16=False):
     return cfg, jprepare(params)
 
 
+# T = 19, head dim 128 (d256 over 2 heads), 3 layers; then the stack kernel's
+# tiling edges: one row, a ragged 32-row tile, a key tile and one more row;
+# head dims 32 and 64 (8 and 4 heads); 1 and 3 layers. The last T // 6 rows
+# are masked.
+STACK_CASES = [(19, 128, 3)] + [(t, hd, n) for t in (1, 19, 65) for hd in (32, 64)
+                                for n in (1, 3)]
+STACK_IDS = [f"T{t}-hd{hd}-L{n}" for t, hd, n in STACK_CASES]
+
+
+@pytest.mark.parametrize("T,hd,n_layers", STACK_CASES, ids=STACK_IDS)
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32_params", "bf16_params"])
-def test_sanm_stack_w4_plain_matches_pallas_and_jnp_layers(bf16):
-    """tests/test_w4.py:137-172: T = 19 with 3 masked rows. Against the
-    Pallas stack kernel (the same numerics) at STACK_REL, and against JAX's
-    per-layer jnp block at that test's 3e-2 and correlation > 0.999."""
-    cfg, params = _stack_params(bf16=bf16)
+def test_sanm_stack_w4_plain_matches_pallas_and_jnp_layers(bf16, T, hd, n_layers):
+    """tests/test_w4.py:137-172 (there T = 19 with 3 masked rows). Against
+    the Pallas stack kernel (the same numerics) at STACK_REL in that
+    configuration (head dim 128, 3 layers) and at LAYER_RTOL at the tiling
+    edges, and against JAX's per-layer jnp block at that test's 3e-2 and
+    correlation > 0.999."""
+    cfg, params = _stack_params(bf16=bf16, n_layers=n_layers, n_heads=256 // hd)
     stacked = jstack(params)["layers_stacked"]
-    T = 19
     rng = np.random.default_rng(7)
     x = rng.standard_normal((T, cfg.d_model)).astype(np.float32) * 0.3
     mask = np.ones((T,), np.float32)
-    mask[-3:] = 0.0
+    mask[T - T // 6:] = 0.0
     valid = int(mask.sum())
     want = np.asarray(jsb.sanm_stack_w4_pallas(jnp.asarray(x), jnp.asarray(mask), stacked,
                                                cfg.n_heads, cfg.fsmn_kernel, interpret=True))
@@ -252,7 +267,8 @@ def test_sanm_stack_w4_plain_matches_pallas_and_jnp_layers(bf16):
                                 from_numpy_tree(_np_tree(stacked)), cfg.n_heads,
                                 cfg.fsmn_kernel).numpy()
     g, w = got[:valid], want[:valid]
-    assert np.abs(g - w).max() <= STACK_REL * np.abs(w).max()
+    rel = STACK_REL if (T, hd, n_layers) == STACK_CASES[0] else LAYER_RTOL
+    assert np.abs(g - w).max() <= rel * np.abs(w).max()
     w = jnp_layers[:valid]
     np.testing.assert_allclose(g, w, rtol=3e-2, atol=3e-2 * np.abs(w).max())
     assert np.corrcoef(g.reshape(-1), w.reshape(-1))[0, 1] > 0.999
