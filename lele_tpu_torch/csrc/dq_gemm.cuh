@@ -6,8 +6,10 @@
 //   q(x)   = clamp(round_half_even(x / scale) + zp, 0, 255)
 //
 // x f32 [M,K]; w int8 [K,N] (u8 weights shifted by -128 at trace time);
-// colsum int32 [N] = sum over k of w. Shared by dq_gemm.cu (the CTC head,
-// kernel 5) and sanm_dql.cu (the four linears of a SAN-M layer, kernel 4).
+// colsum int32 [N] = sum over k of w. The GEMM forms serve dq_gemm.cu (the
+// CTC head, kernel 5); sanm_dql.cu (kernel 4) and int8_gemm.cu (kernel 11)
+// take pieces of this header (the quantization, the range fold, the int8
+// mma.sync, the byte transpose).
 //
 // Replaces lele_tpu/kernels/quant_matmul.py:fused_dq_matmul_pallas and the
 // `_dql_dot` of lele_tpu/kernels/sanm_block.py.
@@ -15,7 +17,8 @@
 // The activation's scale and zero point come either from two device scalars
 // (kernel 5: dql_scale_zp ran before it; no host round trip), or from the
 // running max(x, 0) / max(-x, 0) pair its producer wrote with atomics
-// (kernel 4), from which every block derives the same scale and zero point.
+// (kernel 4's form), from which every block derives the same scale and zero
+// point.
 // Quantization divides by the scale (ONNX, and the JAX jnp path); the Pallas
 // kernel multiplies by 1/scale, which lands one code off at rounding
 // boundaries. rintf rounds half to even, as ONNX and torch.round do. The
@@ -34,7 +37,7 @@
 // block and cost 3x the time.) The sums are exact on the int8 tensor cores
 // (`mma.sync.m16n8k32`, s8 x s8 -> s32); the zero-point correction is one
 // int per output.
-//  - the tile form (dq_gemm_mma, kernel 4's linears): BM x BN tiles over K
+//  - the tile form (dq_gemm_mma): BM x BN tiles over K
 //    in steps of 64, the next K tile fetched into registers while the tensor
 //    cores run; weights staged transposed ([n][k]), byte by byte.
 //  - the strip form (dq_gemm_strip, kernel 5's C entries, but where N and K
@@ -353,7 +356,7 @@ inline void launch_dq_gemm(const float* x, int8_t* qbuf, const int8_t* w, float*
 }
 
 // ---------------------------------------------------------------------------
-// The strip form (dq_gemm.cu's C entries; kernel 4 keeps dq_gemm_mma above).
+// The strip form (dq_gemm.cu's C entries; N and K both <= 512 keep dq_gemm_mma above).
 
 constexpr int kDqStages = 4;       // cp.async ring depth, K tiles of 64
 constexpr int kDqBN = 64;          // columns of a block's strip

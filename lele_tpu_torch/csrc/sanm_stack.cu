@@ -53,9 +53,7 @@
 // Only the owner of an output tile reads and writes its rows of x in phases 4
 // and 7. No float atomics (ffn2's arrival count is an int): the output is
 // the same bits on a repeat call and in a CUDA-graph replay.
-#include <cooperative_groups.h>
-#include <math.h>
-
+#include "grid_stack.cuh"
 #include "w4_gemm.cuh"
 
 namespace cg = cooperative_groups;
@@ -63,14 +61,12 @@ namespace cg = cooperative_groups;
 namespace lele {
 namespace stk {
 
-constexpr int THREADS = 128;
 constexpr int BM = 32;          // GEMM rows a tile (2 warps of 16)
 constexpr int STAGES = 6;       // weight ring depth
 constexpr int MAX_PER_SM = 2;   // CTAs an SM (one an SM was slower at T >= 171)
 constexpr int KEYS = 64;        // keys a tile
 constexpr int QROWS = 16;       // queries an attention item
 constexpr int FSMN_KMAX = 16;   // most FSMN taps
-constexpr float LN_EPS = 1e-12f;
 constexpr int SPLIT_MAX = 4;    // ffn2's K splits, at most
 
 enum Fmt : int { W8 = 0, W4 = 1 };
@@ -99,20 +95,12 @@ struct Args {
 };
 
 constexpr int PHASES = 7;   // a layer's: LN1, qkv, attention + FSMN, out, LN2, ffn1, ffn2
-constexpr int DETAIL = 16;  // stamps a phase
-
-__device__ __forceinline__ long long globaltimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 // stamp k of phase p (layer 1, CTA 0, its first item): gemm tiles 0 start, 1
 // ring primed, 2 + s step s's data in (s < 11), 13 steps done, 14 stored;
 // attention 0 start, 1 pass 1 done, 2 pass 2 done, 3 FSMN staged, 4 stored
 __device__ __forceinline__ void stamp(const Args& a, int l, int p, int k, bool first) {
-  if (a.trace && l == 1 && first && blockIdx.x == 0 && threadIdx.x == 0 && k < DETAIL)
-    a.trace[PHASES * a.L + 1 + p * DETAIL + k] = globaltimer();
+  stamp_at(a.trace, PHASES, a.L, l, p, k, first);
 }
 
 template <typename P>
@@ -129,40 +117,6 @@ __device__ __forceinline__ int lin_leaf(int i, int k) {
 __device__ __forceinline__ void lin_dims(const Args& a, int i, int& K, int& N) {
   K = i == 3 ? a.F : a.D;
   N = i == 0 ? 3 * a.D : i == 2 ? a.F : a.D;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 16 bytes into shared dst: of src, the first nbytes (the rest zero)
-__device__ __forceinline__ void copy16(void* dst, const void* src, int nbytes) {
-  if (nbytes >= 16 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    cp_async16(dst, src);
-  } else if (nbytes <= 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    __align__(16) unsigned char v[16];
-    const unsigned char* s = static_cast<const unsigned char*>(src);
-#pragma unroll
-    for (int e = 0; e < 16; ++e) v[e] = e < nbytes ? __ldcg(s + e) : 0;
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes, int part,
-                                            int nparts) {
-  if (!p) return;
-  const char* c = static_cast<const char*>(p);
-  for (long long i = ((long long)part * THREADS + threadIdx.x) * 128; i < bytes;
-       i += (long long)nparts * THREADS * 128)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + i));
 }
 
 // linear i of layer l into L2, a share of it for each of nparts CTAs
@@ -211,60 +165,6 @@ struct Layout {  // shared memory of the GEMM phases (offsets in bytes)
   static constexpr int BS = RING;                          // two bf16 B tiles
   static constexpr int BYTES = BS + 2 * Tile<FMT, 64>::BS;
 };
-
-// One row of LN(x) as bf16, by one warp, with the parent's arithmetic
-// (layer_norm_rows: 128 threads sum strided elements, a butterfly in each
-// warp, the four warps' sums in order, two-pass variance); lane l plays
-// threads l, 32 + l, 64 + l and 96 + l. Every load is issued before any store.
-__device__ __forceinline__ void ln_row(uint16_t* dst, const float* xr, int D, const float* g,
-                                       const float* b) {
-  const int lane = threadIdx.x & 31;
-  constexpr int R = 32;  // values a lane holds (D <= 1024); the rest are read again
-  float xv[R], gv[R], bv[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int i = lane + 32 * j;
-    xv[j] = i < D ? __ldcg(xr + i) : 0.f;
-    gv[j] = i < D ? __ldg(g + i) : 0.f;
-    bv[j] = i < D ? __ldg(b + i) : 0.f;
-  }
-  float s[4], s2[4];
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    s[v] = 0.f;
-#pragma unroll
-    for (int j = v; j < R; j += 4)
-      if (lane + 32 * j < D) s[v] += xv[j];
-    for (int j = v + R; lane + 32 * j < D; j += 4) s[v] += __ldcg(xr + lane + 32 * j);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s[v] += __shfl_xor_sync(0xffffffffu, s[v], o);
-  }
-  const float mu = (s[0] + s[1] + s[2] + s[3]) / D;
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    s2[v] = 0.f;
-#pragma unroll
-    for (int j = v; j < R; j += 4)
-      if (lane + 32 * j < D) {
-        const float d = xv[j] - mu;
-        s2[v] += d * d;
-      }
-    for (int j = v + R; lane + 32 * j < D; j += 4) {
-      const float d = __ldcg(xr + lane + 32 * j) - mu;
-      s2[v] += d * d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s2[v] += __shfl_xor_sync(0xffffffffu, s2[v], o);
-  }
-  const float r = rsqrtf((s2[0] + s2[1] + s2[2] + s2[3]) / D + LN_EPS);
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int i = lane + 32 * j;
-    if (i < D) dst[i] = bf16_bits((xv[j] - mu) * r * gv[j] + bv[j]);
-  }
-  for (int i = lane + 32 * R; i < D; i += 32)
-    dst[i] = bf16_bits((__ldcg(xr + i) - mu) * r * g[i] + b[i]);
-}
 
 // LN1 or LN2 of every row of x into hb, a row a warp over the whole grid
 template <int FMT>
@@ -414,12 +314,10 @@ __device__ __noinline__ void gemm_tile(const Args& a, int l, int lin, int m0, in
   const int all = FMT == W8 ? (K + 63) / 64 : (half + 31) / 32;
   const int s0 = all * split / n_split, nsteps = all * (split + 1) / n_split - s0;
   auto slot = [&](int s) { return smem + (s % STAGES) * TL::STAGE; };
-#pragma unroll 1
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps)
-      issue_stage<FMT, BN>(slot(s), w, sc, a_ring, T, K, N, m0, n0, s0 + s, group);
-    commit();
-  }
+  auto issue = [=](int s) {  // by value: the ring's operands stay in registers
+    issue_stage<FMT, BN>(slot(s), w, sc, a_ring, T, K, N, m0, n0, s0 + s, group);
+  };
+  ring_prime<STAGES>(nsteps, issue);
   stamp(a, l, ph, 1, first);
   const int r = wm * 16 + g;
   // the epilogue's operands (scales, biases, the residual), loaded while the
@@ -451,15 +349,10 @@ __device__ __noinline__ void gemm_tile(const Args& a, int l, int lin, int m0, in
   convert_b<FMT, BN>(slot(0), bs(0), K, s0, group);
 #pragma unroll 1
   for (int step = 0; step < nsteps; ++step) {
-    // one barrier a step: step + 1's data landed and step's B tile is
-    // converted; every warp is done with step - 1's slot and B tile
-    wait_groups<STAGES - 3>();
-    __syncthreads();
+    // step + 1's data landed and step's B tile is converted; every warp is
+    // done with step - 1's slot and B tile
+    ring_next<STAGES, 3>(step, nsteps, issue);
     if (step < 11) stamp(a, l, ph, 2 + step, first);
-    const int nx = step + STAGES - 1;
-    if (nx < nsteps)
-      issue_stage<FMT, BN>(slot(nx), w, sc, a_ring, T, K, N, m0, n0, s0 + nx, group);
-    commit();
     if (step + 1 < nsteps)
       convert_b<FMT, BN>(slot(step + 1), bs(step + 1), K, s0 + step + 1, group);
     const unsigned char* st = slot(step);
@@ -517,17 +410,7 @@ __device__ __noinline__ void gemm_tile(const Args& a, int l, int lin, int m0, in
         const int m = m0 + r + (e >> 1) * 8, n = n0 + wn * (BN / 2) + ni * 8 + tg * 2 + (e & 1);
         if (m < T && n < N) part[(size_t)m * N + n] = acc[ni][e];
       }
-    __threadfence();
-    __syncthreads();
-    __shared__ int last;
-    int* cnt = a.cnt + (m0 / BM) * ((N + BN - 1) / BN) + n0 / BN;
-    if (threadIdx.x == 0) {
-      last = atomicAdd(cnt, 1) == n_split - 1;
-      if (last) *cnt = 0;  // ready for the next layer
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
+    if (!last_to_arrive(a.cnt + (m0 / BM) * ((N + BN - 1) / BN) + n0 / BN, n_split)) return;
     float pv[NI][4][SPLIT_MAX];  // every partial loaded before the sums
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
@@ -713,16 +596,6 @@ __device__ __noinline__ void attn_item(const Args& a, int l, int h, int q0, unsi
         s[j][e] = s[j][e] * inv_sqrt_hd + bias;
       }
   };
-  // a row's values sit in the 4 neighbouring lanes of one quad
-  auto quad_max = [](float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  };
-  auto quad_sum = [](float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
-  };
-
   // the FSMN's operands, staged while the passes run: rows q0 - pad ..
   // q0 + 15 + (k - 1 - pad) of V (f32, zero outside [0, T)), their mask
   // values, and the k taps
@@ -910,19 +783,12 @@ __device__ void attn_phase(const Args& a, int l, unsigned char* smem) {
 template <int FMT>
 __global__ void __launch_bounds__(THREADS) sanm_stack_kernel(Args args) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // the arguments in shared memory: the phases take them by reference, and a
-  // reference to the kernel parameter itself would copy it to each thread's
-  // local memory
   __shared__ Args a;
-  if (threadIdx.x == 0) a = args;
-  __syncthreads();
+  load_args(a, args);
   cg::grid_group grid = cg::this_grid();
-  const bool stamp = a.trace && blockIdx.x == 0 && threadIdx.x == 0;
-  auto sync = [&](int i) {  // a grid barrier; with a trace, the time after it
-    grid.sync();
-    if (stamp) a.trace[i] = globaltimer();
-  };
-  if (stamp) a.trace[0] = globaltimer();
+  PhaseTimer timer(a.trace, PHASES, a.L);
+  auto sync = [&](int k) { timer.sync(grid, k); };
+  timer.start();
   if (blockIdx.x == 0)  // ffn2's split counters; the first barrier orders this
     for (int i = threadIdx.x; i < ((a.T + BM - 1) / BM) * ((a.D + 63) / 64); i += THREADS)
       a.cnt[i] = 0;
@@ -946,26 +812,17 @@ __global__ void __launch_bounds__(THREADS) sanm_stack_kernel(Args args) {
 }
 
 inline int smem_bytes(int fmt, int hd) {
-  const int gemm = fmt == W8 ? Layout<W8>::BYTES : Layout<W4>::BYTES;
-  const int attn = hd == 32 ? Attn<32>::BYTES : hd == 64 ? Attn<64>::BYTES : Attn<128>::BYTES;
-  return gemm > attn ? gemm : attn;
+  return smem_for<Attn>(fmt == W8 ? Layout<W8>::BYTES : Layout<W4>::BYTES, hd);
 }
-
-inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
 // the scratch's layout: LN(x) bf16, q/k/v bf16, v f32, ctx + FSMN bf16, f1
 // bf16, ffn2's partial sums f32 and split counters
 inline size_t work_bytes(int T, int D, int F, size_t off[7]) {
-  size_t o = 0;
   const size_t sizes[7] = {(size_t)T * D * 2, (size_t)T * 3 * D * 2, (size_t)T * D * 4,
                            (size_t)T * D * 2, (size_t)T * F * 2,
                            (size_t)SPLIT_MAX * T * D * 4,
                            (size_t)((T + BM - 1) / BM) * ((D + 63) / 64) * 4};
-  for (int i = 0; i < 7; ++i) {
-    if (off) off[i] = o;
-    o += align256(sizes[i]);
-  }
-  return o;
+  return carve(sizes, off);
 }
 
 inline bool shape_ok(int D, int H, int fsmn_k) {
@@ -999,22 +856,7 @@ int launch(float* x, const float* mask, int T, int D, int H, int F, int fsmn_k, 
   a.f1 = reinterpret_cast<uint16_t*>(wk + off[4]);
   a.part = reinterpret_cast<float*>(wk + off[5]);
   a.cnt = reinterpret_cast<int*>(wk + off[6]);
-  const int smem = smem_bytes(FMT, D / H);
-  auto kern = sanm_stack_kernel<FMT>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern),
-                                  dim3(sms * (per_sm < MAX_PER_SM ? per_sm : MAX_PER_SM)),
-                                  dim3(THREADS), params, smem, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cooperative(sanm_stack_kernel<FMT>, &a, smem_bytes(FMT, D / H), MAX_PER_SM, s);
 }
 
 }  // namespace stk

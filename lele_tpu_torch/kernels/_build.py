@@ -118,3 +118,25 @@ def check(stem: str, name: str, code: int) -> None:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+
+DETAIL = 16  # csrc/grid_stack.cuh DETAIL: stamps a phase in a persistent kernel's trace
+
+
+def phase_us(name: str, x, n: int, phases, launch):
+    """A persistent stack kernel's own timer (csrc/grid_stack.cuh): one
+    launch(trace) of the kernel on x's card with an int64 trace of P n + 1 +
+    P DETAIL entries (P = len(phases)), which gets the global timer (ns) at
+    the start and after each of the n layers' (blocks') P grid barriers,
+    then stamps inside layer 1's phases. Returns (f64 [n, P] microseconds of
+    each phase up to the end of the barrier after it, the raw int64 trace).
+    A measurement: it refuses a CPU tensor (the plain versions have no
+    phases)."""
+    import torch
+
+    if not x.is_cuda:
+        raise ValueError(f"{name}: x lies on {x.device}; the phase timer is the kernel's own")
+    P = len(phases)
+    trace = torch.zeros((P * n + 1 + P * DETAIL,), dtype=torch.int64, device=x.device)
+    launch(trace)
+    t = trace.cpu()
+    return t[:P * n + 1].diff().double().reshape(n, P) / 1e3, t

@@ -139,8 +139,6 @@ def estimator_blocks_kernel(x: torch.Tensor, text_emb: torch.Tensor, latent_mask
                             text_mask: torch.Tensor, stacked, n_heads: int) -> torch.Tensor:
     """Launch csrc/est_block.cu on x's card and stream."""
     global _fn
-    if not x.is_cuda:
-        raise ValueError(f"estimator_blocks_kernel: x lies on {x.device}, not on a CUDA card")
     _check(x, text_emb, latent_mask, text_mask, stacked)
     T, D = x.shape
     Tk = text_emb.shape[0]
@@ -150,6 +148,8 @@ def estimator_blocks_kernel(x: torch.Tensor, text_emb: torch.Tensor, latent_mask
         raise ValueError(f"estimator_blocks_kernel: T={T}, Tk={Tk}, D={D}, heads={n_heads}, "
                          f"F={F} is outside the kernel's range (head dim 32/64/128, D and F "
                          "multiples of 64)")
+    if not x.is_cuda:
+        raise ValueError(f"estimator_blocks_kernel: x lies on {x.device}, not on a CUDA card")
     if _fn is None:
         P, I = _build.P, _build.I
         _fn = _build.bind(_STEM, "estimator_blocks", [P, P, P, P, I, I, I, I, I, I]

@@ -17,7 +17,7 @@ codes shifted to i8 (a pass over x into a scratch buffer the wrapper
 allocates), multiplied on the int8 tensor cores (`mma.sync` m16n8k32, s32
 sums, exact) by blocks that each stream one 64-column strip of the weight
 once for every row up to 256 (where N and K are both at most 512, by the
-tile form of kernel 4's linears), and the epilogue subtracts
+tile form `dq_gemm_mma`), and the epilogue subtracts
 (zp−128)·colsum and scales by a_scale·w_scale. a_scale and a_zp are device
 scalars the kernel reads through pointers, so no linear waits on the host.
 Quantization divides by the scale, as ONNX and the JAX package's jnp path

@@ -20,7 +20,7 @@ packing):
 
 Both stacks are one cooperative launch of csrc/sanm_stack.cu (design and
 what bounds it on the H100 are in that file): the layer loop runs on the
-card, five grid-wide phases a layer, on the stacked [L, ...] weights (base
+card, seven grid-wide phases a layer, on the stacked [L, ...] weights (base
 pointers and per-layer strides, no copies) and one [T, D] f32 activation
 buffer that every layer updates in place.
 
@@ -36,7 +36,9 @@ Exact ONNX DynamicQuantizeLinear semantics (the compiled-ONNX path):
   DQL → MatMulInteger → dequant, with f32 attention under the graph's
   additive key bias, and the FSMN over values times the graph's value mask
   with the graph's left pad. The kernel is csrc/sanm_dql.cu (design and
-  bounds there). It pads no rows, so every min/max covers exactly the T
+  bounds there): one cooperative launch for all L layers, eleven grid-wide
+  phases a layer; `dql_phase_us` times them with the kernel's own timer.
+  It pads no rows, so every min/max covers exactly the T
   rows of the graph; the bucket's padded frames are real rows of the graph
   and enter them. The plain version follows `_stack_kernel_dql` with the
   same arithmetic: division in quantization, exact int32 sums (as float64
@@ -69,7 +71,6 @@ _STEM = "sanm_layer"
 _STACK_STEM = "sanm_stack"
 _HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_layer.cu and csrc/sanm_stack.cu
 _FSMN_KMAX = 16  # their FSMN_KMAX
-_DETAIL = 16  # csrc/sanm_stack.cu DETAIL: timer stamps a phase
 
 # the kernel's per-layer operands, in the C entry's order
 _LEAVES = (
@@ -330,14 +331,14 @@ def stack_phase_us(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int, f
     f64 [L, 7] microseconds of each layer's phases (STACK_PHASES), each up to
     the end of the grid barrier after it. `stack_phase_us.raw` keeps the
     stamps (ns), then those inside layer 1's phases (csrc/sanm_stack.cu
-    `stamp`). A measurement: it counts no launch."""
-    L, P = stacked["qkv"][_FORMATS[fmt][0]].shape[0], len(STACK_PHASES)
-    trace = torch.zeros((P * L + 1 + P * _DETAIL,), dtype=torch.int64, device=x.device)
+    `stamp`). A measurement: it counts no launch (`_build.phase_us`)."""
+    L = stacked["qkv"][_FORMATS[fmt][0]].shape[0]
     y = x.to(torch.float32).contiguous().clone()
-    _launch_stack(y, mask, stacked, n_heads, fsmn_k, fmt, group if fmt == "w4" else 0, trace)
-    t = trace.cpu()
-    stack_phase_us.raw = t
-    return t[:P * L + 1].diff().double().reshape(L, P) / 1e3
+    ph, stack_phase_us.raw = _build.phase_us(
+        "stack_phase_us", x, L, STACK_PHASES,
+        lambda trace: _launch_stack(y, mask, stacked, n_heads, fsmn_k, fmt,
+                                    group if fmt == "w4" else 0, trace))
+    return ph
 
 
 def sanm_layer_w8(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
@@ -427,8 +428,9 @@ sanm_stack_w4.launches = 0
 
 _DQL_STEM = "sanm_dql"
 DQL_HEAD_DIMS = (32, 64, 128)  # compiled in csrc/sanm_dql.cu
-DQL_T_MAX = 2048  # csrc/sanm_dql.cu DQ_ATT_TMAX: a block's score rows in shared memory
+DQL_T_MAX = 2048  # the compiler's routing range (the kernel streams its keys: any T)
 _dql_fn = None
+_dql_work_fn = None
 
 # a stacked linear's operands, in the C entry's order
 _DQL_LIN = ("wq", "colsum", "ws", "b")
@@ -551,16 +553,19 @@ def _dql_check(x, attn_bias, vmask, stacked, fsmn_k: int, pad_left: int):
 
 def sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads: int, fsmn_k: int,
                           pad_left: int, eps1: float, eps2: float,
-                          att_scale: float | None):
-    """Launch csrc/sanm_dql.cu on x's card and stream; returns a fresh
-    f32 [T, D] that every layer updated in place."""
-    global _dql_fn
+                          att_scale: float | None, trace: torch.Tensor | None = None):
+    """Launch csrc/sanm_dql.cu on x's card and stream: one cooperative launch
+    for all L layers; returns a fresh f32 [T, D] that every layer updated in
+    place. `trace` (int64 [11 L + 1 + 11 * 16] on the card) gets the kernel's
+    phase timestamps."""
+    global _dql_fn, _dql_work_fn
+    T, D = x.shape
+    if not sanm_stack_dql_supported(D, n_heads, T) or fsmn_k > _FSMN_KMAX:
+        raise ValueError(f"sanm_stack_dql: D={D}, {n_heads} heads, T={T}, {fsmn_k} FSMN taps "
+                         f"are outside the kernel (head dims {DQL_HEAD_DIMS}, T <= "
+                         f"{DQL_T_MAX}, at most {_FSMN_KMAX} taps)")
     if not x.is_cuda:
         raise ValueError(f"sanm_stack_dql: x lies on {x.device}, not on a CUDA card")
-    T, D = x.shape
-    if not sanm_stack_dql_supported(D, n_heads, T):
-        raise ValueError(f"sanm_stack_dql: D={D}, {n_heads} heads, T={T} are outside "
-                         f"the kernel (head dims {DQL_HEAD_DIMS}, T <= {DQL_T_MAX})")
     ops, bias, vm = _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
     L, F = bias.shape[0], ops["ffn1.wq"].shape[-1]
     if att_scale is None:
@@ -569,12 +574,13 @@ def sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads: int, fsmn_k: in
         P, I, Fl = _build.P, _build.I, _build.F
         _dql_fn = _build.bind(_DQL_STEM, "sanm_stack_dql",
                               [P, I, I, I, I, I, I, I, Fl, Fl, Fl, P, P]
-                              + [P] * 16 + [P] * 4 + [P] + [P] * 5 + [P, P])
+                              + [P] * 16 + [P] * 4 + [P] + [P, P, P])
+        _dql_work_fn = _build.library(_DQL_STEM).sanm_dql_work_bytes
+        _dql_work_fn.argtypes = [_build.I] * 5
+        _dql_work_fn.restype = ctypes.c_longlong
     y = x.to(torch.float32).contiguous().clone()
-    scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
-               for n in (D, 3 * D, D, F)]  # h, qkv, ctx + fsmn, f1
-    scratch.append(torch.empty((T, max(D, F)), dtype=torch.int8, device=x.device))
-    minmax = torch.empty((L, 4, 2), dtype=torch.int32, device=x.device)
+    work = torch.empty((_dql_work_fn(T, D, n_heads, F, L),), dtype=torch.uint8,
+                       device=x.device)
     lin = [ops[f"{key}.{name}"].data_ptr() for key in ("qkv", "out", "ffn1", "ffn2")
            for name in _DQL_LIN]
     norms = [ops[f"{key}.{name}"].data_ptr() for key in ("norm1", "norm2")
@@ -583,11 +589,29 @@ def sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads: int, fsmn_k: in
     code = _dql_fn(y.data_ptr(), T, D, n_heads, F, L, fsmn_k, pad_left,
                    float(eps1), float(eps2), float(att_scale),
                    bias.data_ptr(), vm.data_ptr(), *lin, *norms,
-                   ops["fsmn"].data_ptr(), *(s.data_ptr() for s in scratch),
-                   minmax.data_ptr(), stream)
+                   ops["fsmn"].data_ptr(), work.data_ptr(),
+                   None if trace is None else trace.data_ptr(), stream)
     _build.check(_DQL_STEM, "sanm_stack_dql", code)
-    sanm_stack_dql.launches += 1
     return y
+
+
+DQL_PHASES = ("LN1", "quantize h", "qkv", "attention+FSMN", "quantize a", "out", "LN2",
+              "quantize h", "ffn1", "quantize f", "ffn2")
+
+
+def dql_phase_us(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor, stacked,
+                 n_heads: int, fsmn_k: int, pad_left: int, eps1: float = 1e-5,
+                 eps2: float = 1e-5, att_scale: float | None = None) -> torch.Tensor:
+    """One launch of kernel 4 on a CUDA x with its timer trace on: f64 [L, 11]
+    microseconds of each layer's phases (DQL_PHASES), each up to the end of
+    the grid barrier after it; `dql_phase_us.raw` keeps the stamps (ns), then
+    those inside layer 1's phases (csrc/sanm_dql.cu `stamp`). A measurement:
+    it counts no launch, and it refuses a CPU tensor (`_build.phase_us`)."""
+    ph, dql_phase_us.raw = _build.phase_us(
+        "dql_phase_us", x, stacked["qkv"]["wq"].shape[0], DQL_PHASES,
+        lambda trace: sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
+                                            pad_left, eps1, eps2, att_scale, trace))
+    return ph
 
 
 def sanm_stack_dql(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor,
@@ -606,8 +630,10 @@ def sanm_stack_dql(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor
         _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
         return sanm_stack_dql_plain(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
                                     pad_left, eps1, eps2, att_scale)
-    return sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
-                                 pad_left, eps1, eps2, att_scale)
+    y = sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
+                              pad_left, eps1, eps2, att_scale)
+    sanm_stack_dql.launches += 1
+    return y
 
 
 sanm_stack_dql.launches = 0

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the port's kernels 1-9, 11 and 12 on one card.
+"""A/B of two versions of the port's kernels 1-12 on one card.
 
     python3 scripts/torch_port_kernel_ab.py OLD_CSRC_DIR [NEW_CSRC_DIR] [--stems a,b]
 
 Builds csrc/dq_gemm.cu, csrc/sanm_dql.cu, csrc/lstm_seq.cu,
 csrc/w4_gemm.cu, csrc/sanm_layer.cu, csrc/sanm_stack.cu, csrc/int8_gemm.cu,
-csrc/gru_seq.cu, csrc/flash_attn.cu and csrc/w8_gemm.cu, those of them
+csrc/gru_seq.cu, csrc/flash_attn.cu, csrc/w8_gemm.cu and csrc/est_block.cu,
+those of them
 that both directories hold (or those `--stems` names), from both (the new
 one defaults to lele_tpu_torch/csrc), binds each through the port's own
 wrappers (the C entries must share their signatures, but for
 `flash_attn`'s workspace argument, which a build without it is called
-without, and the stacks: a version without csrc/sanm_stack.cu runs them as
-its csrc/sanm_layer.cu's seven-launch `sanm_layer_w8` / `sanm_layer_w4`
-entries looped over the layers), and times in turns,
+without; `sanm_stack_dql`, whose parent form took its scratch buffers
+apart and is given them here; and the stacks: a version without
+csrc/sanm_stack.cu runs them as its csrc/sanm_layer.cu's seven-launch
+`sanm_layer_w8` / `sanm_layer_w4` entries looped over the layers), and
+times in turns,
 old new new old: CUDA events around the call (median of 30 warm runs each),
 the device time a call by torch.profiler (the kernels' own time, which
 events around a short launch overstate by the host's issue; "not measured"
@@ -22,7 +25,9 @@ between launches; chip_smoke.graph_us):
 
 - `dq_gemm` at the compiled graph's CTC head at the three buckets' rows
   (T = 36, 100, 196), and its four layer linears at T = 196, 171 and 21;
-- `sanm_stack_dql`, 50 layers at d512, ffn 2048, T = 196;
+- `sanm_stack_dql`, 50 layers at d512, ffn 2048, at T = 36, 100, 196 (171
+  valid) and 100 (76 valid), both versions within chip_smoke's whole-stack
+  noise gate of the plain version (max|d| <= 0.1 max|ref|);
 - `lstm_seq` at H = 128, B = 1 over S = 3 (a chunk of the Silero fixture),
   1,875 (60 s) and 18,750 (600 s) steps;
 - `w4_gemm` (bf16 x, group 128) at the layer linears and the CTC head,
@@ -46,10 +51,19 @@ between launches; chip_smoke.graph_us):
   D 96 with the graph's own mask), with `F.scaled_dot_product_attention`
   (f32, TF32 off) beside it;
 - `w8_gemm` at the CTC head [171,512]x[512,25055] bf16, with `torch.matmul`
-  on the weight dequantised to bf16 beside it.
+  on the weight dequantised to bf16 beside it;
+- `estimator_blocks` (tts.json's widths, 8 blocks) at (T, Tk) = (1,024,
+  320) and (512, 160), both versions within chip_smoke.EST_TOL of the plain
+  version; and on the TTS main path's own traffic: chip_smoke's
+  `TtsEngine.synthesize` requests (TTS_TEXTS, the Supertonic 2 and 3
+  settings) run once to record each chunk's kernel-10 inputs, a case at
+  each (T, Tk) they gave on that call's own tensors, and every request end
+  to end (the decoded WAV, by events only: a request reads its durations on
+  the host, so it has no CUDA graph), both versions within
+  chip_smoke.TTS_REL of the unfused route.
 
 It checks that the two versions give the same bits where both compute the
-same exact arithmetic (`dq_gemm`, `sanm_dql`, `int8_gemm`, the layer,
+same exact arithmetic (`dq_gemm`, `int8_gemm`, the layer,
 `lstm_seq`, `w8_gemm`, `w4_gemm`'s tile form). Where a redesign sums in another order on
 purpose, both versions are held to the plain version's gate instead:
 `w4_gemm`'s decode form to 1e-5·max|ref|, `gru_seq` to max|d| <= 1e-5
@@ -72,7 +86,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "sanm_stack", "int8_gemm",
-         "gru_seq", "flash_attn", "w8_gemm")
+         "gru_seq", "flash_attn", "w8_gemm", "est_block")
+DQL_T = ((36, 36), (100, 100), (196, 171), (100, 76))  # kernel 4: (T, valid rows)
+EST_T = ((1024, 320), (512, 160))  # kernel 10: (T, Tk)
 LSTM_STEPS = (3, 1875, 18750)
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
@@ -128,6 +144,7 @@ def main(argv: list[str]) -> int:
 
     w4 = sys.modules[K.w4_matmul.__module__]
     flash = sys.modules[K.flash_attention.__module__]
+    est = K.est_block
 
     wanted = STEMS
     if "--stems" in argv:
@@ -171,6 +188,10 @@ def main(argv: list[str]) -> int:
             flash._fn = None
             if "flash_attn" in stems:  # bound here: the parent's entry had no workspace
                 _bind_flash(flash, libs[version]["flash_attn"], libs["new"]["flash_attn"])
+            if "sanm_dql" in stems:  # bound here: the parent's entry took its scratch apart
+                _bind_dql(sanm_block, libs[version]["sanm_dql"])
+            if "est_block" in stems:
+                _bind_est(est, libs[version]["est_block"])
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev)
@@ -189,12 +210,7 @@ def main(argv: list[str]) -> int:
                           lambda x=x, wq=wq, c=colsum, s=s, zp=zp:
                           K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3), None))
         if "sanm_dql" in stems:
-            st = cs.random_dql_stack(L, D, F, FK, dev, gen)
-            bias, vmask = cs.dql_masks(L, T, 171, dev)
-            x = torch.randn((T, D), generator=gen, device=dev)
-            cases.append((f"sanm_stack_dql T={T} L={L}",
-                          lambda: K.sanm_stack_dql(x, bias, vmask, st, H, FK, (FK - 1) // 2),
-                          None))
+            cases += _dql_cases(cs, dev, gen)
         for S in LSTM_STEPS if "lstm_seq" in stems else ():
             args = cs.lstm_inputs(S, 1, 128, dev, gen)
             cases.append((f"lstm_seq S={S} B=1 H=128",
@@ -221,6 +237,10 @@ def main(argv: list[str]) -> int:
             cases += _flash_cases(cs, dev, gen)
         if "w8_gemm" in stems:
             cases += _w8_cases(dev, gen)
+        if "est_block" in stems:
+            cases += _est_cases(cs, dev, gen)
+            use("new")
+            cases += _tts_cases(cs, dev, est)
         failed = False
         for name, fn, plain, tol, rel, library, graph_n, close in (Case(*c) for c in cases):
             times = {"old": [], "new": []}
@@ -237,9 +257,10 @@ def main(argv: list[str]) -> int:
                     print(f"{name}: the {version} version fails: {e}")
                     return 1
                 times[version].append(cs.time_ms(fn, runs=30))
-                rows = cs.device_us(fn)
+                rows = cs.device_us(fn) if graph_n else None
                 dev_us[version].append(None if rows is None else sum(rows.values()))
-                graph[version].append(cs.graph_us(fn, n=graph_n, reps=reps))
+                if graph_n:
+                    graph[version].append(cs.graph_us(fn, n=graph_n, reps=reps))
                 split[version] = ("no whole trace" if rows is None else
                                   ", ".join(f"{k[:40]} {v:.2f}" for k, v in sorted(rows.items())))
             if plain is None:
@@ -270,16 +291,17 @@ def main(argv: list[str]) -> int:
                 verdict += (f"; library {lib_ms:.4f} ms by events, {lib_g} in a CUDA graph; "
                             f"new / library by events "
                             f"{statistics.mean(times['new']) / lib_ms:.3f}")
+            in_graph = (f"in a CUDA graph old {statistics.mean(graph['old']):.2f} us "
+                        f"({', '.join(f'{t:.2f}' for t in graph['old'])}), new "
+                        f"{statistics.mean(graph['new']):.2f} us "
+                        f"({', '.join(f'{t:.2f}' for t in graph['new'])})" if graph_n
+                        else "no CUDA graph")
             print(f"{name}: old {statistics.mean(times['old']):.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in times['old'])}), new "
                   f"{statistics.mean(times['new']):.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in times['new'])}) by events; device "
                   f"by the profiler old {_mean_us(dev_us['old'])}, new "
-                  f"{_mean_us(dev_us['new'])}; in a CUDA graph old "
-                  f"{statistics.mean(graph['old']):.2f} us "
-                  f"({', '.join(f'{t:.2f}' for t in graph['old'])}), new "
-                  f"{statistics.mean(graph['new']):.2f} us "
-                  f"({', '.join(f'{t:.2f}' for t in graph['new'])}) [kernels, us: old "
+                  f"{_mean_us(dev_us['new'])}; {in_graph} [kernels, us: old "
                   f"{split['old']}; new {split['new']}]; {verdict}  ({card})")
     return 1 if failed else 0
 
@@ -302,6 +324,164 @@ def _bind_flash(flash, lib, new_lib) -> None:
     work.argtypes = [I, I, I, I, I, I, I, I, LL, LL]
     work.restype = LL
     flash._fn, flash._work_fn = fn, work
+
+
+def _bind_dql(sanm_block, lib) -> None:
+    """Kernel 4's entry for the wrapper. The one-launch form takes one work
+    buffer and a trace pointer; the parent's eleven-launch form took h, qkv,
+    a, f1 (f32), the codes (int8) and the range pairs, which are made here."""
+    import torch
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [P, I, I, I, I, I, I, I, F, F, F, P, P] + [P] * 21
+    fn = lib.sanm_stack_dql
+    fn.restype = ctypes.c_int
+    if hasattr(lib, "sanm_dql_work_bytes"):
+        fn.argtypes = head + [P, P, P]
+        work = lib.sanm_dql_work_bytes
+        work.argtypes = [I] * 5
+        work.restype = ctypes.c_longlong
+        sanm_block._dql_fn, sanm_block._dql_work_fn = fn, work
+        return
+    fn.argtypes = head + [P] * 6 + [P]
+
+    def old(*a):
+        T, D, F_, L = a[1], a[2], a[4], a[5]
+        dev = torch.device("cuda", torch.cuda.current_device())
+        bufs = [torch.empty((T, n), dtype=torch.float32, device=dev) for n in (D, 3 * D, D, F_)]
+        bufs.append(torch.empty((T, max(D, F_)), dtype=torch.int8, device=dev))
+        bufs.append(torch.empty((L, 4, 2), dtype=torch.int32, device=dev))
+        return fn(*a[:-3], *(b.data_ptr() for b in bufs), a[-1])
+
+    sanm_block._dql_fn, sanm_block._dql_work_fn = old, lambda *a: 0
+
+
+def _bind_est(est, lib) -> None:
+    """Kernel 10's entry for the wrapper: `estimator_blocks` of the version
+    timed, bound here (the wrapper binds its own build once)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.estimator_blocks
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [P] * 14 + [P] * 6 + [P]
+    fn.restype = ctypes.c_int
+    est._fn = fn
+
+
+def _dql_cases(cs, dev, gen):
+    """Kernel 4, 50 layers at d512, ffn 2048, at the compiled buckets' rows
+    and the ragged bucket: both versions within chip_smoke's whole-stack
+    noise gate of the plain version (max|d| <= 0.1 max|ref|)."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    st = cs.random_dql_stack(L, D, F, FK, dev, gen)
+    cases = []
+    for t, valid in DQL_T:
+        bias, vmask = cs.dql_masks(L, t, valid, dev)
+        x = torch.randn((t, D), generator=gen, device=dev)
+        args = (x, bias, vmask, st, H, FK, (FK - 1) // 2)
+        cases.append(Case(f"sanm_stack_dql T={t} valid={valid} L={L}",
+                          lambda args=args: K.sanm_stack_dql(*args),
+                          lambda args=args: K.sanm_stack_dql_plain(*args), cs.STACK_NOISE_MAX))
+    return cases
+
+
+def _est_cases(cs, dev, gen):
+    """Kernel 10, tts.json's widths (D 256, 4 heads, F 1,024, 8 blocks), at
+    chip_smoke's two timed shapes: both versions within chip_smoke.EST_TOL of
+    the plain version."""
+    import dataclasses
+
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.models import SupertonicConfig
+    from lele_tpu_torch.models.supertonic import init_vector_estimator
+
+    cfg = dataclasses.replace(
+        SupertonicConfig.from_json(REPO / "examples" / "supertonic" / "tts.json"),
+        fused_estimator=True)
+    blocks = init_vector_estimator(gen, cfg)["blocks_stacked"]
+    cases = []
+    for t, tk in EST_T:
+        args = (torch.randn((t, cfg.d_text), generator=gen, device=dev),
+                torch.randn((tk, cfg.d_text), generator=gen, device=dev),
+                torch.ones((t,), device=dev), torch.ones((tk,), device=dev), blocks, cfg.n_heads)
+        cases.append(Case(f"est_block T={t} Tk={tk}, 8 blocks",
+                          lambda args=args: K.estimator_blocks(*args),
+                          lambda args=args: K.estimator_blocks_plain(*args), cs.EST_TOL))
+    return cases
+
+
+def _tts_cases(cs, dev, est):
+    """Kernel 10 on the TTS main path's traffic (chip_smoke phase 20's
+    engines and requests): each distinct (T, Tk) a request's chunks give,
+    on the first such call's own inputs, within chip_smoke.EST_TOL of the
+    plain version; then each request end to end, the decoded WAV within
+    chip_smoke.TTS_REL of the unfused route."""
+    import dataclasses
+
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.models import SupertonicConfig, SupertonicTts
+    from lele_tpu_torch.serving import TtsEngine
+    from lele_tpu_torch.utils.wav import decode_wav_bytes
+
+    cfg = dataclasses.replace(
+        SupertonicConfig.from_json(REPO / "examples" / "supertonic" / "tts.json"),
+        fused_estimator=True)
+    tts2 = SupertonicTts(cfg, device=dev)
+    tts2.init(cs.SEED)
+    cfg3 = dataclasses.replace(cfg, apply_latent_denorm=False, speed=1.05)
+    engines = {"v2": TtsEngine(tts=tts2),
+               "v3": TtsEngine(tts=SupertonicTts(cfg3, params=tts2.params, device=dev))}
+    engines["v2"].load_style(str(REPO / "examples" / "supertonic" / "voice_styles" / "F1.json"),
+                             "F1")
+    engines["v3"].load_style(str(REPO / "examples" / "supertonic3" / "voice_styles" / "M2.json"),
+                             "M2")
+    seen = {}
+    launch = est.estimator_blocks_kernel
+
+    def record(x, text, lm, tm, stacked, H):
+        key = (x.shape[0], text.shape[0])
+        seen.setdefault(key, [tuple(t.clone() for t in (x, text, lm, tm)) + (stacked, H), 0])
+        seen[key][1] += 1
+        return launch(x, text, lm, tm, stacked, H)
+
+    est.estimator_blocks_kernel = record
+    try:
+        for eng in engines.values():
+            for i, t in enumerate(cs.TTS_TEXTS):
+                eng.synthesize(t, seed=i)
+    finally:
+        est.estimator_blocks_kernel = launch
+    print("kernel 10 on the TTS requests: (T, Tk): calls "
+          + ", ".join(f"{k}: {n}" for k, (_, n) in sorted(seen.items())))
+    cases = []
+    for (t, tk), (args, n) in sorted(seen.items()):
+        valid = (int(args[2].sum().item()), int(args[3].sum().item()))
+        cases.append(Case(f"est_block T={t} Tk={tk} (a TTS chunk, valid {valid}, {n} calls "
+                          "over the requests)",
+                          lambda args=args: K.estimator_blocks(*args),
+                          lambda args=args: K.estimator_blocks_plain(*args), cs.EST_TOL))
+
+    def pcm(eng, text, seed):
+        return torch.from_numpy(decode_wav_bytes(eng.synthesize(text, seed=seed))[0])
+
+    def unfused(eng, text, seed):
+        un = dataclasses.replace(eng.tts, cfg=dataclasses.replace(eng.tts.cfg,
+                                                                  fused_estimator=False))
+        style = next(iter(eng.styles.values()))
+        return torch.from_numpy(un.synthesize(text, style, seed=seed))
+
+    for v, eng in engines.items():
+        for i, text in enumerate(cs.TTS_TEXTS):
+            cases.append(Case(f"TtsEngine.synthesize {v} request {i} ({len(text)} chars)",
+                              lambda e=eng, t=text, s=i: pcm(e, t, s),
+                              lambda e=eng, t=text, s=i: unfused(e, t, s), cs.TTS_REL,
+                              graph_n=0))
+    return cases
 
 
 def _mean_us(ts) -> str:

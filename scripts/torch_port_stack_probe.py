@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the SAN-M stacks and the kernels beside them on one card, and probe
-the cost of a grid barrier (the persistent stack's floor).
+"""Time the persistent stacks (kernels 1, 8, 4 and 10) and the kernels beside
+them on one card, and probe the cost of a grid barrier (their floor).
 
-    python3 scripts/torch_port_stack_probe.py [--parts barrier,stacks,rows,forward]
+    python3 scripts/torch_port_stack_probe.py [--parts barrier,stacks,rows,forward,dql_est,est]
 
 - barrier: one launch of csrc/sanm_stack.cu's probe kernel doing n grid
   barriers (cooperative groups' `grid.sync()`), launched through
@@ -17,10 +17,17 @@ the cost of a grid barrier (the persistent stack's floor).
   kernel's own per-phase split (`sanm_block.stack_phase_us`: the global
   timer after each grid barrier) and, at T = 171, the stamps inside CTA 0's
   first item of each of layer 1's phases;
-- rows: `sanm_layer_w8` (kernel 3) at T = 171, `sanm_stack_dql` (kernel 4)
-  at T = 196, `lstm_seq` (kernel 6) at S = 1,875 and 18,750, H = 128, and
-  `estimator_blocks` (kernel 10) at T = 1,024, Tk = 320, 8 blocks;
-- forward: `SenseVoiceModel.forward_fn()` on 10 s of audio, w8a16 and w4a16.
+- rows: `sanm_layer_w8` (kernel 3) at T = 171 and `lstm_seq` (kernel 6) at
+  S = 1,875 and 18,750, H = 128 (kernels 4 and 10 are dql_est's);
+- forward: `SenseVoiceModel.forward_fn()` on 10 s of audio, w8a16 and w4a16;
+- dql_est: `sanm_stack_dql` (kernel 4, 50 layers) at the compiled path's
+  buckets, T = 36, 100 and 196 (171 valid), and the ragged 100 with 76
+  valid; `estimator_blocks` (kernel 10, 8 blocks) at (T, Tk) = (1,024, 320)
+  and (512, 160), and at the TTS requests' buckets (256, 320), (128, 96),
+  (64, 96) (`--parts est` runs kernel 10's half alone); each with one
+  call's device time split by kernel name (one profiler trace of one call)
+  and, for kernel 4, its own phase timer's split
+  (`sanm_block.dql_phase_us`).
 
 Each is timed by CUDA events around the call (median of 20 warm runs), by
 torch.profiler (the device's own time a call; "not measured" where no trace
@@ -155,39 +162,96 @@ def stacks_part(card, dev, gen, models):
 
 
 def rows_part(card, dev, gen, models):
+    import torch
+
+    import chip_smoke as cs
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.kernels.sanm_block import layer_view
+
+    print("== rows 3 and 6")
+    lp0 = layer_view(models["weight_int8"].params["layers_stacked"], 0)
+    x = torch.randn((171, 512), generator=gen, device=dev) * 0.5
+    mask = torch.ones((171,), device=dev)
+    timed(cs, "sanm_layer_w8 T=171", lambda: K.sanm_layer_w8(x, mask, lp0, 4, 11), card)
+    for S in (1875, 18750):
+        args = cs.lstm_inputs(S, 1, 128, dev, gen)
+        timed(cs, f"lstm_seq S={S} B=1 H=128", lambda args=args: K.lstm_seq(*args), card,
+              graph_n=20 if S < 5000 else 2)
+
+
+DQL_T = ((36, 36), (100, 100), (196, 171), (100, 76))  # (T, valid rows)
+EST_T = ((1024, 320), (512, 160), (256, 320), (128, 96), (64, 96))  # and the TTS requests' buckets
+
+
+def _split(cs, label, fn, card):
+    """One call's device time by kernel name (the profiler, one call)."""
+    rows = cs.device_us(fn, n=1)
+    if rows is None:
+        print(f"    {label}, one call by kernel: not measured (no whole trace)")
+        return
+    parts = sorted(rows.items(), key=lambda kv: -kv[1])
+    print(f"    {label}, one call by kernel ({len(parts)} kernels, {sum(rows.values()):.1f} us): "
+          + "; ".join(f"{k[:70]} {v:.1f}" for k, v in parts) + f"  ({card})")
+
+
+def _stamps(raw, n, names, what):
+    """The stamps inside the phases of layer (block) 1, CTA 0's first item,
+    in us after the phase began (the kernels' `stamp`)."""
+    P = len(names)
+    det = raw[P * n + 1:].reshape(P, -1)
+    for p, name in enumerate(names):
+        begin = int(raw[P + p])  # phase p of layer 1 begins after the barrier before it
+        rel = [f"{(int(v) - begin) / 1e3:.2f}" for v in det[p].tolist() if v]
+        if rel:
+            print(f"    {what} 1 {name}, CTA 0's first item, us after the phase began: "
+                  f"{', '.join(rel)}")
+
+
+def _phases(ph, names, what, card):
+    """Mean us of each phase over the rows of ph (the kernel's own timer:
+    the global timer after each grid barrier)."""
+    mean = ", ".join(f"{n} {v:.2f}" for n, v in zip(names, ph.mean(0).tolist()))
+    print(f"    phases a {what} (us, mean of {ph.shape[0]}, each to the end of its barrier): "
+          f"{mean}; sum {ph.sum().item():.1f} us  ({card})")
+
+
+def dql_est_part(card, dev, gen, dql_too=True):
     import dataclasses
 
     import torch
 
     import chip_smoke as cs
     from lele_tpu_torch import kernels as K
-    from lele_tpu_torch.kernels.sanm_block import layer_view
+    from lele_tpu_torch.kernels import sanm_block
     from lele_tpu_torch.models import SupertonicConfig
     from lele_tpu_torch.models.supertonic import init_vector_estimator
 
-    print("== rows 3, 4, 6, 10")
-    lp0 = layer_view(models["weight_int8"].params["layers_stacked"], 0)
-    x = torch.randn((171, 512), generator=gen, device=dev) * 0.5
-    mask = torch.ones((171,), device=dev)
-    timed(cs, "sanm_layer_w8 T=171", lambda: K.sanm_layer_w8(x, mask, lp0, 4, 11), card)
-    dql = cs.random_dql_stack(50, 512, 2048, 11, dev, gen)
-    bias, vmask = cs.dql_masks(50, 196, 171, dev)
-    xd = torch.randn((196, 512), generator=gen, device=dev)
-    timed(cs, "sanm_stack_dql T=196 L=50",
-          lambda: K.sanm_stack_dql(xd, bias, vmask, dql, 4, 11, 5), card)
-    for S in (1875, 18750):
-        args = cs.lstm_inputs(S, 1, 128, dev, gen)
-        timed(cs, f"lstm_seq S={S} B=1 H=128", lambda args=args: K.lstm_seq(*args), card,
-              graph_n=20 if S < 5000 else 2)
+    print("== kernel 4 (sanm_stack_dql, 50 layers) and kernel 10 (estimator_blocks, 8 blocks)")
+    dql = cs.random_dql_stack(50, 512, 2048, 11, dev, gen) if dql_too else None
+    for T, valid in DQL_T if dql_too else ():
+        bias, vmask = cs.dql_masks(50, T, valid, dev)
+        x = torch.randn((T, 512), generator=gen, device=dev)
+        call = lambda x=x, b=bias, v=vmask: K.sanm_stack_dql(x, b, v, dql, 4, 11, 5)  # noqa: E731
+        label = f"sanm_stack_dql T={T} valid={valid} L=50"
+        timed(cs, label, call, card)
+        _split(cs, label, call, card)
+        sanm_block.dql_phase_us(x, bias, vmask, dql, 4, 11, 5)  # warm
+        _phases(sanm_block.dql_phase_us(x, bias, vmask, dql, 4, 11, 5), sanm_block.DQL_PHASES,
+                "layer", card)
+        if T == 196:
+            _stamps(sanm_block.dql_phase_us.raw, 50, sanm_block.DQL_PHASES, "layer")
     cfg = dataclasses.replace(
         SupertonicConfig.from_json(REPO / "examples" / "supertonic" / "tts.json"),
         fused_estimator=True)
     blocks = init_vector_estimator(gen, cfg)["blocks_stacked"]
-    xe = torch.randn((1024, cfg.d_text), generator=gen, device=dev)
-    text = torch.randn((320, cfg.d_text), generator=gen, device=dev)
-    lm, tm = torch.ones((1024,), device=dev), torch.ones((320,), device=dev)
-    timed(cs, "est_block T=1024 Tk=320, 8 blocks",
-          lambda: K.estimator_blocks(xe, text, lm, tm, blocks, cfg.n_heads), card)
+    for T, Tk in EST_T:
+        xe = torch.randn((T, cfg.d_text), generator=gen, device=dev)
+        text = torch.randn((Tk, cfg.d_text), generator=gen, device=dev)
+        lm, tm = torch.ones((T,), device=dev), torch.ones((Tk,), device=dev)
+        call = lambda a=(xe, text, lm, tm): K.estimator_blocks(*a, blocks, cfg.n_heads)  # noqa: E731
+        label = f"est_block T={T} Tk={Tk}, 8 blocks"
+        timed(cs, label, call, card)
+        _split(cs, label, call, card)
 
 
 def forward_part(card, dev, models):
@@ -232,6 +296,8 @@ def main(argv) -> int:
         rows_part(card, dev, gen, models)
     if "forward" in parts:
         forward_part(card, dev, models)
+    if "dql_est" in parts or "est" in parts:
+        dql_est_part(card, dev, gen, dql_too="dql_est" in parts)
     return 0
 
 

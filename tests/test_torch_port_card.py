@@ -1,5 +1,5 @@
-"""Kernels 1, 5, 7, 8, 9 and 12 in their redesigned forms, held against their
-plain versions on an NVIDIA card.
+"""Kernels 1, 4, 5, 7, 8, 9 and 12 in their redesigned forms, and kernel 10,
+held against their plain versions on an NVIDIA card.
 
 Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
 entry) sums in another f32 order than `w4_matmul_plain`, so it is held to
@@ -28,6 +28,19 @@ layers, d512, 4 heads of 128, ffn 2048) for T = 1, 21, 64, 65, 87 (76 valid),
 layers, f32 and bf16 FSMN taps; a repeat call and a CUDA-graph replay must
 give the eager call's bits, each call is one launch, and one call's
 profiler trace holds one stack kernel and no other kernel of the port.
+
+Kernel 4 (csrc/sanm_dql.cu: the compiled int8 SAN-M stack as one
+cooperative launch) is held to its plain version at the layer gate on two
+small layers (d256, ffn 512) at head dims 32, 64 and 128 for T = 36, 100,
+196 (171 valid), 100 (76 valid) and 2,048, at the DQL edges (an all-zero
+LN1 output, a constant input, the FSMN's pad at 0 and k - 1), and at the
+full width (50 layers) to chip_smoke's whole-stack noise gate; a repeat call
+and a CUDA-graph replay must give the eager call's bits, and one call is one
+kernel node in a CUDA graph. Kernel 10 (csrc/est_block.cu, its
+launches a block) is held to chip_smoke.EST_TOL at every
+chip_smoke.EST_SHAPES case, at the TTS requests' buckets, at head dims 32
+and 128, Tk = 1, many key tiles and T past 4,096, with the repeat and
+graph-replay bits.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -300,3 +313,167 @@ def test_stack_one_call_traces_one_kernel(dev, fmt):
     assert kernels, "no trace with a device record came back"
     assert sum("sanm_stack_kernel" in k for k in kernels) == 1, kernels
     assert not any("lele::" in k and "sanm_stack_kernel" not in k for k in kernels), kernels
+
+
+# kernel 4 (csrc/sanm_dql.cu: the compiled int8 SAN-M stack as one
+# cooperative launch): against its plain version at the layer gate on small
+# layers (d256, ffn 512, head dims 32, 64, 128), at the compiled buckets'
+# rows, the ragged bucket and T = 2,048 (DQL_T_MAX)
+DQL_T = [(36, 36), (100, 100), (196, 171), (100, 76), (2048, 2000)]
+DQL_HD = [32, 64, 128]
+
+
+def _dql_small(dev, hd, layers, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cs.random_dql_stack(layers, 256, 512, 11, dev, gen), gen
+
+
+def _dql_call(x, bias, vmask, st, heads, pad_left=5):
+    return lambda: K.sanm_stack_dql(x, bias, vmask, st, heads, 11, pad_left)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid", DQL_T, ids=[f"T{t}-{v}" for t, v in DQL_T])
+@pytest.mark.parametrize("hd", DQL_HD)
+def test_dql_stack_matches_plain(dev, hd, t, valid):
+    """chip_smoke's gates: each layer on the plain version's own input at the
+    layer gate and within LAYER_NOISE_MEAN, and the two layers whole at the
+    quantization-noise gate (a last-bit difference moves DQL codes, which the
+    next layer carries)."""
+    st, gen = _dql_small(dev, hd, 2, hd + t)
+    bias, vmask = cs.dql_masks(2, t, valid, dev)
+    x = torch.randn((t, 256), generator=gen, device=dev)
+    heads = 256 // hd
+    call = _dql_call(x, bias, vmask, st, heads)
+    before = K.sanm_stack_dql.launches
+    got, again = call(), call()
+    ref = K.sanm_stack_dql_plain(x, bias, vmask, st, heads, 11, 5)
+    torch.cuda.synchronize()
+    assert K.sanm_stack_dql.launches == before + 2, "one launch a call"
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again), "a repeat call changed the bits"
+    d, scale, mean = cs.compare(got, ref)
+    assert mean <= cs.STACK_NOISE_MEAN and d <= cs.STACK_NOISE_MAX * scale, (mean, d / scale)
+    xi = x
+    for i in range(2):
+        li = cs.layer_slice(st, i)
+        got_i = K.sanm_stack_dql(xi, bias[i:i + 1], vmask[i:i + 1], li, heads, 11, 5)
+        ref_i = K.sanm_stack_dql_plain(xi, bias[i:i + 1], vmask[i:i + 1], li, heads, 11, 5)
+        d_i, s_i, mean_i = cs.compare(got_i, ref_i)
+        assert torch.allclose(got_i, ref_i, rtol=2e-2, atol=2e-2 * s_i), \
+            f"layer {i}: max|d| {d_i:.3e}, max|ref| {s_i:.3e}"
+        assert mean_i <= cs.LAYER_NOISE_MEAN, f"layer {i}: mean|d| {mean_i:.3e} std"
+        xi = ref_i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad_left", [0, 10])
+@pytest.mark.parametrize("case", ["zero_norm", "const_x"])
+def test_dql_stack_edges_match_plain(dev, case, pad_left):
+    """A layer whose LN1 output is all zero (DQL's scale 0: the safe scale
+    1), a constant input, and the FSMN's pad at both ends."""
+    st, gen = _dql_small(dev, 64, 1, 7)
+    bias, vmask = cs.dql_masks(1, 45, 40, dev)
+    x = torch.randn((45, 256), generator=gen, device=dev)
+    if case == "zero_norm":
+        st["norm1"]["g"].zero_()
+        st["norm1"]["b"].zero_()
+    else:
+        x = torch.full_like(x, 0.75)
+    got = K.sanm_stack_dql(x, bias, vmask, st, 4, 11, pad_left)
+    ref = K.sanm_stack_dql_plain(x, bias, vmask, st, 4, 11, pad_left)
+    scale = ref.abs().max().item()
+    assert torch.allclose(got, ref, rtol=2e-2, atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", DQL_HD)
+def test_dql_stack_graph_replay_gives_eager_bits(dev, hd):
+    st, gen = _dql_small(dev, hd, 2, hd)
+    bias, vmask = cs.dql_masks(2, 196, 171, dev)
+    x = torch.randn((196, 256), generator=gen, device=dev)
+    assert cs.graph_same_bits(_dql_call(x, bias, vmask, st, 256 // hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid", [(196, 171), (100, 76)], ids=["T196", "T100-76"])
+def test_dql_stack_full_width_within_the_noise_gate(dev, t, valid):
+    """50 layers at d512, ffn 2048: the whole stack within chip_smoke's
+    noise gate of the plain version, and one call one kernel in the trace."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    st = cs.random_dql_stack(50, 512, 2048, 11, dev, gen)
+    bias, vmask = cs.dql_masks(50, t, valid, dev)
+    x = torch.randn((t, 512), generator=gen, device=dev)
+    call = _dql_call(x, bias, vmask, st, 4)
+    got = call()
+    ref = K.sanm_stack_dql_plain(x, bias, vmask, st, 4, 11, 5)
+    d, scale, mean = cs.compare(got, ref)
+    assert mean <= cs.STACK_NOISE_MEAN and d <= cs.STACK_NOISE_MAX * scale, (mean, d / scale)
+    for i in range(0, 50, 7):  # every seventh layer alone, on the same input
+        li = cs.layer_slice(st, i)
+        args = (x, bias[i:i + 1], vmask[i:i + 1], li, 4, 11, 5)
+        _, _, mean_i = cs.compare(K.sanm_stack_dql(*args), K.sanm_stack_dql_plain(*args))
+        assert mean_i <= cs.LAYER_NOISE_MEAN, (i, mean_i)
+    checks = cs.Checks()
+    cs.one_launch_check(checks, "sanm_stack_dql", call, "sanm_dql_kernel")
+    assert not checks.failures, checks.failures
+
+
+# kernel 10 (csrc/est_block.cu: the estimator's blocks, 8 or 9 launches a
+# block): against its plain version at chip_smoke.EST_TOL at every
+# EST_SHAPES case and the TTS requests' buckets (tts.json's widths, 8
+# blocks), and at head dims 32 and 128 on 2 blocks
+def _est_stack(dev, n_blocks, d, heads, ffn, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = {}
+    for name, shape in (("norm1", None), ("q", (d, d)), ("kv", (d, 2 * d)), ("out", (d, d)),
+                        ("norm2", None), ("ffn1", (d, ffn)), ("ffn2", (ffn, d))):
+        if shape is None:
+            st[name] = {"g": 1 + 0.1 * torch.randn((n_blocks, d), generator=gen, device=dev),
+                        "b": 0.1 * torch.randn((n_blocks, d), generator=gen, device=dev)}
+        else:
+            w = torch.randn((n_blocks, *shape), generator=gen, device=dev) / shape[0] ** 0.5
+            st[name] = {"w": w.to(torch.bfloat16).contiguous(),
+                        "b": 0.1 * torch.randn((n_blocks, shape[1]), generator=gen, device=dev)}
+    return st, gen
+
+
+def _est_inputs(gen, dev, t, tk, tv, tkv, d):
+    x = torch.randn((t, d), generator=gen, device=dev)
+    text = torch.randn((tk, d), generator=gen, device=dev)
+    lm, tm = torch.zeros((t,), device=dev), torch.zeros((tk,), device=dev)
+    lm[:tv], tm[:tkv] = 1.0, 1.0
+    return x, text, lm, tm
+
+
+# chip_smoke's shapes; the TTS requests' buckets; head dims 32 and 128;
+# Tk = 1; many key tiles; T past 4,096
+EST_CASES = [(*shape, 256, 4, 8) for shape in cs.EST_SHAPES] + [
+    (64, 96, 42, 54, 256, 4, 8), (128, 96, 66, 84, 256, 4, 8), (256, 320, 217, 277, 256, 4, 8),
+    (100, 37, 90, 30, 256, 8, 2), (100, 37, 90, 30, 256, 2, 2), (64, 1, 64, 1, 256, 4, 2),
+    (64, 600, 60, 590, 256, 4, 2), (4500, 37, 4400, 30, 256, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,tk,tv,tkv,d,heads,n", EST_CASES,
+                         ids=[f"T{c[0]}-Tk{c[1]}-hd{c[4] // c[5]}-n{c[6]}" for c in EST_CASES])
+def test_est_blocks_match_plain(dev, t, tk, tv, tkv, d, heads, n):
+    st, gen = _est_stack(dev, n, d, heads, 4 * d, t + tk)
+    args = _est_inputs(gen, dev, t, tk, tv, tkv, d)
+    before = K.estimator_blocks.launches
+    got, again = (K.estimator_blocks(*args, st, heads) for _ in range(2))
+    ref = K.estimator_blocks_plain(*args, st, heads)
+    torch.cuda.synchronize()
+    assert K.estimator_blocks.launches == before + 2, "the wrapper counts one a call"
+    d_, scale, _ = cs.compare(got, ref)
+    assert bool(torch.isfinite(got).all()) and d_ <= cs.EST_TOL * scale, (d_, scale)
+    assert torch.equal(got, again), "a repeat call changed the bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cs.EST_SHAPES, ids=[f"T{s[0]}" for s in cs.EST_SHAPES])
+def test_est_blocks_graph_replay_gives_eager_bits(dev, shape):
+    st, gen = _est_stack(dev, 8, 256, 4, 1024, 1)
+    args = _est_inputs(gen, dev, *shape, 256)
+    assert cs.graph_same_bits(lambda: K.estimator_blocks(*args, st, 4))
+

@@ -182,6 +182,59 @@ def test_sanm_stack_dql_plain_refuses_a_wrong_fsmn_width():
         K.sanm_stack_dql(_t(x), _t(bias), _t(vmask), tst, 2, 7, 3)
 
 
+def _edge_pair(case, seed=0, T=45, n_valid=40, D=128, H=4, F=256, k=11):
+    """One layer at a DQL or FSMN edge, through the JAX kernel (interpret)
+    and the port's plain version."""
+    x, bias, vmask, st = _stack_inputs(1, D, F, k, T, n_valid, seed)
+    pad_left = {"pad_first": 0, "pad_last": k - 1}.get(case, (k - 1) // 2)
+    if case == "zero_norm":  # LN1's output all zero: DQL's scale 0, the safe scale 1
+        st["norm1"]["g"][:] = 0.0
+        st["norm1"]["b"][:] = 0.0
+    elif case == "const_x":  # every row constant: LN1 gives its bias alone
+        x[:] = 0.75
+    elif case == "zero_x":
+        x[:] = 0.0
+    want = np.asarray(sanm_stack_dql_pallas(
+        jnp.asarray(x), jnp.asarray(bias), jnp.asarray(vmask),
+        {kk: ({a: jnp.asarray(b) for a, b in v.items()} if isinstance(v, dict)
+              else jnp.asarray(v)) for kk, v in st.items()},
+        H, k, pad_left, interpret=True))
+    tst = {kk: ({a: _t(b) for a, b in v.items()} if isinstance(v, dict) else _t(v))
+           for kk, v in st.items()}
+    got = K.sanm_stack_dql(_t(x), _t(bias), _t(vmask), tst, H, k, pad_left).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("case", ["zero_norm", "const_x", "zero_x", "pad_first", "pad_last"])
+def test_sanm_stack_dql_plain_matches_pallas_at_edges(case):
+    """The edges the one-launch kernel handles on its own: a linear whose
+    input is all zero (scale 0), constant rows, and the FSMN's left pad at 0
+    and k - 1 (its halo then all on one side)."""
+    got, want = _edge_pair(case)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=STACK_ATOL, rtol=0)
+
+
+def test_dql_kernel_entry_checks_the_range_first():
+    """A head dim the kernel does not compile, or more FSMN taps than it
+    stages, is refused before the device is looked at; the phase timer is
+    the kernel's own and refuses a CPU tensor."""
+    xs, bias, vmask, st = _stack_inputs(1, 96, 96, 11, 20, 20, 0)
+    tst = {kk: ({a: _t(b) for a, b in v.items()} if isinstance(v, dict) else _t(v))
+           for kk, v in st.items()}
+    with pytest.raises(ValueError, match="outside the kernel"):
+        K.sanm_block.sanm_stack_dql_kernel(_t(xs), _t(bias), _t(vmask), tst, 1, 11, 5,
+                                           1e-5, 1e-5, None)
+    xs, bias, vmask, st = _stack_inputs(1, 64, 96, 17, 20, 20, 0)
+    tst = {kk: ({a: _t(b) for a, b in v.items()} if isinstance(v, dict) else _t(v))
+           for kk, v in st.items()}
+    with pytest.raises(ValueError, match="outside the kernel"):
+        K.sanm_block.sanm_stack_dql_kernel(_t(xs), _t(bias), _t(vmask), tst, 2, 17, 8,
+                                           1e-5, 1e-5, None)
+    with pytest.raises(ValueError, match="timer"):
+        K.sanm_block.dql_phase_us(_t(xs), _t(bias), _t(vmask), tst, 2, 17, 8)
+
+
 def test_dql_kernel_entries_refuse_a_cpu_tensor():
     x, wq, colsum, w_scale = _dq_inputs(4, 32, 8, 0)
     _, s, zp = K.dynamic_quantize_u8(_t(x))

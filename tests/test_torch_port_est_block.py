@@ -62,8 +62,10 @@ def _within_a_bf16_step(got, want):
 
 
 @pytest.mark.parametrize("T,Tk,tails", [(48, 19, (5, 3)), (32, 32, (5, 3)), (32, 32, (0, 0)),
-                                        (17, 40, (16, 39))],
-                         ids=["48x19", "32x32", "32x32_unmasked", "17x40_one_valid_row"])
+                                        (17, 40, (16, 39)), (24, 1, (0, 0)), (24, 1, (3, 0)),
+                                        (29, 19, (0, 18))],
+                         ids=["48x19", "32x32", "32x32_unmasked", "17x40_one_valid_row",
+                              "24x1", "24x1_latent_tail", "29x19_one_text_row"])
 def test_plain_matches_tpu_kernel(T, Tk, tails):
     blocks = _blocks(1)
     x, text, lm, tm = _inputs(T, Tk, 0, *tails)
@@ -168,3 +170,15 @@ def test_kernel_matches_plain_on_the_card(T, Tk):
     torch.cuda.synchronize()
     assert est_block.estimator_blocks.launches == before + 1
     _within_a_bf16_step(got, want.cpu().numpy())
+
+
+def test_kernel_entry_checks_the_range_first():
+    """A head dim the kernel does not compile is refused before the device
+    is looked at; within the range, a CPU tensor is refused (the wrapper,
+    not the kernel entry, takes the plain version)."""
+    stacked = _stacked(_blocks(6, n_layers=1))
+    args = _torch(*_inputs(16, 8, 4))
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        est_block.estimator_blocks_kernel(*args, stacked, 16)  # head dim 16
+    with pytest.raises(ValueError, match="not on a CUDA card"):
+        est_block.estimator_blocks_kernel(*args, stacked, HEADS)
