@@ -40,8 +40,10 @@
    traces three compiled 10 s forwards with torch.profiler and prints the
    device's busy share and time by kernel;
 7. holds kernel 6 (the LSTM recurrence) against its plain version at the
-   Silero shapes: the native offline scan (S = 1,875 and 18,750 chunks,
-   B = 1, H = 128), the fixture's graph (S = 3 and 2), a ragged one;
+   Silero shapes: the native offline scan (S = 312, 1,875 and 18,750
+   chunks, B = 1, H = 128), the fixture's graph (S = 3 and 2, B = 1 and 2),
+   a ragged one; a repeat call and a CUDA-graph replay the same bits, one
+   call one kernel node;
 8. drives Silero VAD native at full width (d_hidden 128, convs
    128/64/64/128, random weights from a seed): `SileroVad.speech_probs`
    and `segments` on 1, 10 and 60 s of audio at 16 kHz and 10 s at 8 kHz,
@@ -49,9 +51,10 @@
 9. drives `SileroOnnx` on fixtures/silero.onnx at 16 and 8 kHz on 10 s:
    one `lstm_seq` launch per chunk, the If on each rate's front-end, held
    against the same graph compiled with `overrides={"LSTM": lstm_plain}`;
-10. times kernel 6, its plain version, its bound, cuDNN's LSTM, the
-   streaming step and the RTFs of both Silero paths, and profiles one
-   compiled 10 s request;
+10. times kernel 6, its plain version, its bound, cuDNN's LSTM (events; and
+   at S = 3, 312, 1,875, 18,750 in a CUDA graph), the streaming step and the
+   RTFs of both Silero paths, and profiles one compiled 10 s request
+   (kernel 6's share of its device time);
 11. holds kernel 7 (the w4a16 GEMM) against its plain version at the
    GEMM shapes, T = 171 and 87, bf16 and f32, and at MatMulNBits groups 32
    and 128, and its decode form at M = 1 to 8 (up to 4 rows in f32, 8 in
@@ -131,9 +134,11 @@
    the 1,920-token prefill;
 25. holds kernel 11 (the exact int8 GEMM, csrc/int8_gemm.cu) against its
    plain version, int32 equal, operands with -128, at a layer's four linears
-   at T = 171 and at a batch of 4 (M = 684), M = 1, JAX's ragged (50, 70,
-   30) and (37, 70, 30), 1,024^3 and 2,048^3; times kernel, plain, bound
-   and torch._int_mm;
+   at M = 21, 171, 684 (a batch of 4) and 196 (the per-op graph), that
+   graph's int8 head, M = 1, JAX's ragged (50, 70, 30) and (37, 70, 30),
+   1,024^3 and 2,048^3; one call one kernel node, a graph replay the same
+   bits; times kernel, plain, bound and torch._int_mm (N padded to 8) at
+   the 10 s request's linears, the head and the squares;
 26. drives SenseVoice dynamic int8 at full width (`SenseVoiceConfig(
    quantized=True)`, prepared with drop_fp and stacked, random weights from
    a seed) behind SenseVoiceEngine with a CtcTokenizer over a synthetic
@@ -685,15 +690,27 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     from lele_tpu_torch.ops import nn_ops
 
     print("== 7. kernel 6 (lstm_seq) vs plain on the card")
-    for S, B, H in ((1875, 1, 128), (18750, 1, 128), (3, 1, 128), (2, 1, 128), (37, 3, 48)):
+    for S, B, H in ((1875, 1, 128), (18750, 1, 128), (312, 1, 128), (3, 1, 128), (2, 1, 128),
+                    (3, 2, 128), (37, 3, 48)):
         args = lstm_inputs(S, B, H, dev, gen)
-        got, ref = K.lstm_seq(*args), K.lstm_seq_plain(*args)
+        got, again, ref = K.lstm_seq(*args), K.lstm_seq(*args), K.lstm_seq_plain(*args)
         torch.cuda.synchronize()
         d = max((g - r).abs().max().item() for g, r in zip(got, ref))
         err["lstm_seq"] = max(err["lstm_seq"], d)
         checks.require(all(bool(torch.isfinite(g).all()) for g in got) and d <= LSTM_TOL,
                        f"lstm_seq S={S} B={B} H={H}: max|d| of hs, h_S, c_S {d:.3e} "
                        f"<= {LSTM_TOL:g}")
+        if S <= 1875:
+            def call(args=args):
+                return torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)])
+
+            checks.require(all(torch.equal(g, a) for g, a in zip(got, again))
+                           and graph_same_bits(call),
+                           f"lstm_seq S={S} B={B} H={H}: a repeat call and a CUDA-graph "
+                           f"replay give the same bits")
+    args = lstm_inputs(312, 1, 128, dev, gen)
+    one_launch_check(checks, "lstm_seq S=312 B=1 H=128", lambda: K.lstm_seq(*args),
+                     "lstm_seq_reg")
 
     print("== 8. main path: SileroVad at full width")
     rng = np.random.default_rng(SEED + 3)
@@ -777,6 +794,22 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
               f"({card})")
         ms["lstm_seq"], plain_ms["lstm_seq"], library_ms["lstm_seq"] = a, b, c
         bounds["lstm_seq"] = (b_ms, b_by)
+    # in a CUDA graph: the device's time with the gaps between calls
+    lstm_graph = {}
+    for S in (3, 312, 1875, 18750):
+        args = lstm_inputs(S, 1, 128, dev, gen)
+        lstm = cudnn_lstm(args[1], dev)
+        hc = (args[2][None], args[3][None])
+        n, reps = (2, 3) if S > 2000 else (20, 10)
+        g_k = graph_us(lambda: K.lstm_seq(*args), n=n, reps=reps)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            g_l = graph_us(lambda: lstm(args[0], hc), n=n, reps=reps)
+        lstm_graph[S] = (g_k, g_l)
+        print(f"  lstm_seq S={S} B=1 H=128 in a CUDA graph: kernel {g_k:.2f} us "
+              f"({g_k / S:.4f} us a step), cuDNN nn.LSTM {g_l:.2f} us  ({card})")
+    DEVICE_US["lstm_seq"] = {"graph_us": lstm_graph[18750][0],
+                             "library_graph_us": lstm_graph[18750][1],
+                             "graph_us_by_steps": {S: v[0] for S, v in lstm_graph.items()}}
 
     step = vad.step_fn()
     chunk = torch.from_numpy(vad.frame_chunks(requests[0][0])[:1]).to(dev)
@@ -809,6 +842,8 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
           f"busy share {dev_us / span_us:.3f}  ({card})")
     for e in sorted(rows, key=lambda e: -dev_time(e))[:6]:
         print(f"    {dev_time(e):10.1f} us  x{e.count:<6d} {e.key[:90]}")
+    lstm_us = sum(dev_time(e) for e in rows if "lstm_seq" in e.key)
+    print(f"  of which lstm_seq {lstm_us:.1f} us ({lstm_us / n10:.2f} us a chunk)  ({card})")
     return {"native": vad_launches, "compiled": onnx_launches}
 
 
@@ -2036,11 +2071,16 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
 
 
 I8_PAIRS = ((512, 1536), (512, 512), (512, 2048), (2048, 512))  # a layer's four linears
-# (M, K, N): the path's pairs at T = 171 and at a batch of 4 in the 10 s
-# bucket, decode rows, JAX's ragged shapes, the TPU scripts' squares
-I8_SHAPES = (*((T_MAIN, k, n) for k, n in I8_PAIRS), *((4 * T_MAIN, k, n) for k, n in I8_PAIRS),
-             (1, 512, 2048), (1, 2048, 512), (50, 70, 30), (37, 70, 30), (1024, 1024, 1024),
-             (2048, 2048, 2048))
+# (M, K, N): the path's pairs at 1 s (M = 21), 10 s (171), a batch of 4 in
+# the 10 s bucket (684) and the per-op graph's 10 s bucket (196), that
+# graph's int8 head, decode rows, JAX's ragged shapes, the TPU scripts' squares
+I8_SHAPES = (*((m, k, n) for m in (21, T_MAIN, 4 * T_MAIN, T_DQL) for k, n in I8_PAIRS),
+             (T_DQL, 512, 25055), (1, 512, 2048), (1, 2048, 512), (50, 70, 30), (37, 70, 30),
+             (1024, 1024, 1024), (2048, 2048, 2048))
+# timed: the dynamic-int8 request's four linears at 10 s, the per-op
+# graph's int8 head, the TPU scripts' squares
+I8_TIMED = (*((T_MAIN, k, n) for k, n in I8_PAIRS), (T_DQL, 512, 25055), (1024, 1024, 1024),
+            (2048, 2048, 2048))
 LONG_SECONDS = 75.0
 STREAM_CHUNK = 16
 # kernel 11 route vs its plain version, and kernel 5 route vs kernel 11: the
@@ -2158,6 +2198,12 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
         last[0] = now
 
     print("== 25. kernel 11 (int8_gemm) vs plain")
+    a = torch.randint(-128, 128, (T_MAIN, 2048), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (2048, 512), generator=gen, device=dev, dtype=torch.int8)
+    one_launch_check(checks, f"int8_gemm [{T_MAIN},2048]x[2048,512]",
+                     lambda: K.int8_matmul(a, b), "dq_gemm_strip")
+    checks.require(graph_same_bits(lambda: K.int8_matmul(a, b)),
+                   "int8_gemm: a CUDA-graph replay gives the eager call's bits")
     for M, K_, N in I8_SHAPES:
         a = torch.randint(-128, 128, (M, K_), generator=gen, device=dev, dtype=torch.int8)
         b = torch.randint(-128, 128, (K_, N), generator=gen, device=dev, dtype=torch.int8)
@@ -2168,29 +2214,36 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
         err["int8_gemm"] = max(err["int8_gemm"], float(d))
         checks.require(got.dtype == torch.int32 and torch.equal(got, ref),
                        f"int8_gemm [{M},{K_}]x[{K_},{N}]: int32 equal to plain (max|d| {d})")
-    for M, K_, N in (*((T_MAIN, k, n) for k, n in I8_PAIRS), (1024, 1024, 1024),
-                     (2048, 2048, 2048)):
+    layer_us = 0.0
+    for M, K_, N in I8_TIMED:
         a = torch.randint(-128, 128, (M, K_), generator=gen, device=dev, dtype=torch.int8)
         b = torch.randint(-128, 128, (K_, N), generator=gen, device=dev, dtype=torch.int8)
+        b8 = torch.nn.functional.pad(b, (0, -N % 8))  # _int_mm takes N % 8 == 0 only
         t_k = time_ms(lambda: K.int8_matmul(a, b))
         t_p = time_ms(lambda: K.int8_matmul_plain(a, b), runs=5)
         try:  # a yardstick only: the port never calls it
-            t_l = time_ms(lambda: torch._int_mm(a, b))
+            t_l = time_ms(lambda: torch._int_mm(a, b8))
         except RuntimeError as e:
             print(f"  torch._int_mm refused [{M},{K_}]x[{K_},{N}]: {e}")
             t_l = None
         b_ms, by = i8_bound(M, K_, N)
         d_k, g_k = device_times(lambda: K.int8_matmul(a, b))
-        d_l, g_l = (device_times(lambda: torch._int_mm(a, b)) if t_l is not None
+        d_l, g_l = (device_times(lambda: torch._int_mm(a, b8)) if t_l is not None
                     else (None, None))
         print(f"  int8_gemm [{M},{K_}]x[{K_},{N}]: kernel {t_k:.4f} ms, plain (f64) {t_p:.4f} "
               f"ms, torch._int_mm {t_l} ms (CUDA events around the call); device time a call "
               f"by the profiler (in a CUDA graph): kernel {fmt_us(d_k)} ({g_k:.2f} us), "
               f"torch._int_mm {fmt_us(d_l)} ({fmt_us(g_l)}); bound {b_ms * 1e3:.2f} us by "
               f"{by}, kernel's graph time at {100e3 * b_ms / g_k:.2f}% of it  ({card})")
+        if M == T_MAIN:
+            layer_us += g_k
         if (M, K_, N) == (T_MAIN, 512, 2048):  # ffn1 at the 10 s request: the row's numbers
             ms["int8_gemm"], plain_ms["int8_gemm"], library_ms["int8_gemm"] = t_k, t_p, t_l
             bounds["int8_gemm"] = (b_ms, by)
+            DEVICE_US["int8_gemm"] = {"device_us": d_k, "graph_us": g_k,
+                                      "library_device_us": d_l, "library_graph_us": g_l}
+    print(f"  int8_gemm: a layer's four linears at M = {T_MAIN} {layer_us:.2f} us in CUDA graphs, "
+          f"x 50 layers = {layer_us * 50 / 1e3:.3f} ms a dynamic-int8 10 s request  ({card})")
 
     took(25)
     print("== 26. SenseVoice dynamic int8 at full width: SenseVoiceEngine with a tokenizer")
@@ -2926,8 +2979,11 @@ def main() -> int:
         "sanm_stack_w4": stack_form,
         "sanm_layer_w8": "seven launches (times: T=171; launches: a request on per-layer "
                          "params, phase 4)",
-        "lstm_seq": "single block H <= 128 (times: S=18,750 H=128); cluster of 8 for "
-                    "128 < H <= 1024 (phases 15-18)",
+        "lstm_seq": "register form for H <= 128 (one block of 256 threads a batch row, two "
+                    "units' four gate columns a thread over a quarter of the rows, 24 of its 32 "
+                    "rows of Wh in registers and 8 in shared memory, one barrier a step, Wh "
+                    "staged by bulk copies; times: S=18,750 H=128, and S=3, 312, 1,875 in a "
+                    "CUDA graph); cluster of 8 for 128 < H <= 1024 (phases 15-18)",
         "w4_gemm": "tile form (mma.sync; group-accumulator in k-steps of 16 or 8, "
                    "dequantised-tile, exact f32) above the decode form's rows; decode form "
                    "(csrc/w4_gemv.cuh: split-K GEMV, the group form on mma.sync through a "
@@ -2960,8 +3016,13 @@ def main() -> int:
                       "of dead key tiles from a prepass of the mask, online softmax in "
                       "registers (times: the Phi-3 prefill, B=1 H=32 Lq=1,920 Lk=4,096 D=96 "
                       "with its float mask)",
-        "int8_gemm": "mma.sync m16n8k32 s8, 64x64 / 32x64 / 32x32 tiles (times: ffn1 of the "
-                     "10 s request, [171,512]x[512,2048])",
+        "int8_gemm": "kernel 5's strip core (csrc/dq_gemm.cuh) with the raw int32 store: "
+                     "64 MI rows by a 64-column strip a block, K tiles by TMA (64-byte swizzle) "
+                     "through an mbarrier ring with a block's K in flight, the weight tile "
+                     "transposed once and ldmatrix fragments of mma.sync m16n8k32 s8 at MI <= 2, "
+                     "a cluster splitting K where blocks are few, programmatic dependent launch; "
+                     "cp.async where rows are not 16-byte aligned (times: ffn1 of the 10 s "
+                     "request, [171,512]x[512,2048]; every linear in phase 25)",
     }
     library = {  # where no single PyTorch call computes the kernel's function
         "est_block": "composite: the 8 blocks as bf16 library calls (addmm, layer_norm, "

@@ -7,9 +7,10 @@
 //
 // x f32 [M,K]; w int8 [K,N] (u8 weights shifted by -128 at trace time);
 // colsum int32 [N] = sum over k of w. The GEMM forms serve dq_gemm.cu (the
-// CTC head, kernel 5); sanm_dql.cu (kernel 4) and int8_gemm.cu (kernel 11)
-// take pieces of this header (the quantization, the range fold, the int8
-// mma.sync, the byte transpose).
+// CTC head, kernel 5); int8_gemm.cu (kernel 11) runs the strip form with
+// its raw int32 epilogue; sanm_dql.cu (kernel 4) takes pieces of this
+// header (the quantization, the range fold, the int8 mma.sync, the byte
+// transpose).
 //
 // Replaces lele_tpu/kernels/quant_matmul.py:fused_dq_matmul_pallas and the
 // `_dql_dot` of lele_tpu/kernels/sanm_block.py.
@@ -63,14 +64,20 @@
 // linear took 10.0-10.9 against the tile form's 7.4-8.9 (a cluster's syncs
 // and a 256-row tile on little work), so N and K both <= 512 stay on the
 // tile form.
-// Not yet done (a later change): wgmma and TMA; folding the quantize pass
-// (~2 us of each call) into the GEMM, which would need its divisions done
-// once, not once a column block; a smaller strip tile for the small
-// linears, after which kernels 4 and 11 could move onto the strip core and
-// dq_gemm_mma and dql_quantize go (ROADMAP item 3).
+// Kernel 11 runs the strip form with 64-row blocks, the TMA loader and a
+// programmatic dependent launch (int8_gemm.cu); kernel 5 keeps 64 MI rows
+// for every row up to 256 and the cp.async loader, and the bits of both are
+// the plain versions'.
+// Not yet done (a later change): wgmma; folding the quantize pass (~2 us
+// of each call) into the GEMM, which would need its divisions done once,
+// not once a column block; kernel 5 on the TMA loader and 64-row blocks for
+// its linears, after which dq_gemm_mma and dql_quantize could go, and
+// kernel 4 onto the strip core (ROADMAP).
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <math.h>
 
 #include <algorithm>
@@ -356,9 +363,10 @@ inline void launch_dq_gemm(const float* x, int8_t* qbuf, const int8_t* w, float*
 }
 
 // ---------------------------------------------------------------------------
-// The strip form (dq_gemm.cu's C entries; N and K both <= 512 keep dq_gemm_mma above).
+// The strip form (dq_gemm.cu's C entries, but where N and K are both <= 512,
+// which dq_gemm_mma above takes; and every product of int8_gemm.cu).
 
-constexpr int kDqStages = 4;       // cp.async ring depth, K tiles of 64
+constexpr int kDqStages = 4;       // kernel 5's cp.async ring depth, K tiles of 64
 constexpr int kDqBN = 64;          // columns of a block's strip
 constexpr int kDqLD = 80;          // bytes a smem row: 64 + 16 (the window)
 constexpr int kDqLDC = kDqBN + 4;  // int32 a row of the staged output tile
@@ -401,6 +409,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// four 8 x 16-byte matrices from shared memory, each lane giving one row's
+// address (lanes 8 q .. 8 q + 7 the rows of matrix q): lane (g, tg) gets
+// word tg of row g of each, the int8 mma.sync fragment layout
+__device__ __forceinline__ void ldmatrix_x4(const void* row, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(row))));
+}
+
 // 4 x 4 byte transpose: out[j] byte i = byte j of r[i]
 __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&out)[4]) {
   const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
@@ -411,28 +429,87 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&
   out[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// One block: rows m0 .. m0 + 64 MI - 1 (every row up to 256 in one row of
-// blocks) by a strip of 64 columns, over K tiles kt0 .. kt1 - 1 of its
-// cluster rank; 8 warps, warp (wm, wn) takes m16 tiles wm, wm + 4, ... and
-// the strip's 32-column half wn. The weight tile sits in shared memory as
-// the card holds it, [k][n]: a 16-byte-aligned window of each row (5 chunks
+// The loader of a strip block's K tiles: 16-byte cp.async by every thread
+// (rows padded to kDqLD bytes in shared memory), or one thread's TMA copies
+// of the whole A and B boxes (2-D tensor maps, zeros past the tensor's
+// edges) completing on a stage's mbarrier, rows of 64 bytes with the
+// 64-byte swizzle: 16-byte chunk c of row r lands at chunk c ^ ((r >> 1) &
+// 3), so the fragment loads are free of bank conflicts.
+enum StripLoad : int { kCpAsync = 0, kTma = 1 };
+
+template <int LOAD>
+__device__ __forceinline__ int strip_off(int r, int k) {  // byte k of row r of a tile
+  if constexpr (LOAD == kCpAsync) return r * kDqLD + k;
+  return r * 64 + ((((k >> 4) ^ (r >> 1)) & 3) << 4) + (k & 15);
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One block: rows m0 .. m0 + 64 MI - 1 by a strip of 64 columns, over K
+// tiles kt0 .. kt1 - 1 of its cluster rank; 8 warps, warp (wm, wn) takes
+// m16 tiles wm, wm + 4, ... and the strip's 32-column half wn. A ring of ST
+// stages: the first ST - 1 K tiles are in flight before the first MMA (all
+// of a block's K where it has at most ST - 1 tiles). With the cp.async
+// loader A's rows are `lda` bytes apart; with a_vec (rows 16-byte aligned,
+// lda % 16 == 0) its 16-byte chunks come by cp.async, otherwise byte by
+// byte through registers (an odd K of the MatMulInteger emitter), zeros
+// past M and lda. The weight tile sits in shared memory as the card holds
+// it, [k][n]: with cp.async a 16-byte-aligned window of each row (5 chunks
 // where N leaves rows unaligned, as the head's 25,055 does; `sh` is the
-// row's offset in it). A thread reads one word of 4 columns from each of
-// 4 rows and transposes the bytes in registers: 4 B fragments of
-// mma.m16n8k32, one for each n8 tile, whose column g is the strip's byte
-// column 4 g + j (the output is staged through shared memory, so the
-// permutation costs nothing). Grid: (strips * S, row blocks), clusters of
-// S along x splitting K; the int32 tiles are summed through distributed
-// shared memory (exact in any order), rank r storing rows r, r + S, ...
-template <int MI, bool ALIGNED>
+// row's offset in it), with TMA (N % 16 == 0 only) the strip's 64 bytes.
+// B fragments of mma.m16n8k32 need 4 k a word: with BT (the TMA loader at
+// MI <= 2, where few m16 tiles share each fragment) the block transposes
+// the tile once into Bt, [n][k], a 4 x 4 byte block a thread, and every
+// fragment is an ldmatrix (A's too); otherwise a thread reads one word of
+// 4 columns from each of 4 rows and transposes the bytes in registers, so
+// n8 tile j's column g is the strip's column 4 g + j (the output is staged
+// through shared memory, so the permutation costs nothing). Grid: (strips
+// * S, row blocks), clusters of S along x splitting K; the int32 tiles are
+// summed through distributed shared memory (exact in any order), rank r
+// storing rows r, r + S, ... The epilogue: kernel 5's dequantization into
+// f32 `out`, or with RAW the int32 sums themselves (kernel 11). With PDL
+// the block may start while the kernel ahead of it in the stream still
+// runs (programmatic dependent launch): it waits for that kernel
+// (griddepcontrol.wait) before its first load, and lets the kernel after it
+// start once its first K tiles are asked for.
+template <int MI, int ST, bool ALIGNED, bool RAW, int LOAD, bool PDL>
 __global__ void __launch_bounds__(256)
-dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w, float* y,
-              int M, int K, int N, DqlSrc src, DqEpilogue ep, int S) {
+dq_gemm_strip(const int8_t* __restrict__ a, int lda, int a_vec, const int8_t* __restrict__ w,
+              void* out, int M, int K, int N, DqlSrc src, DqEpilogue ep, int S,
+              const __grid_constant__ CUtensorMap tma_a,
+              const __grid_constant__ CUtensorMap tma_b) {
   constexpr int BM = 64 * MI, BK = 64;
+  constexpr int LD = LOAD == kCpAsync ? kDqLD : 64;  // bytes a tile row
+  constexpr bool BT = LOAD == kTma && MI <= 2;
+  static_assert(LOAD == kCpAsync || ALIGNED, "TMA takes 16-byte-aligned weight rows");
   extern __shared__ __align__(16) int8_t dq_smem[];
-  int8_t* As = dq_smem;                           // [stage][BM][kDqLD]
-  int8_t* Bs = dq_smem + kDqStages * BM * kDqLD;  // [stage][BK][kDqLD]
-  int* Cs = reinterpret_cast<int*>(dq_smem);      // [BM][kDqLDC], after the loop
+  // TMA boxes land 1024-byte aligned (the swizzle's period)
+  int8_t* ring = dq_smem + (LOAD == kCpAsync ? 0 :
+      (1024 - (static_cast<unsigned>(__cvta_generic_to_shared(dq_smem)) & 1023)) & 1023);
+  int8_t* As = ring;                  // [stage][BM][LD]
+  int8_t* Bs = ring + ST * BM * LD;   // [stage][BK][LD]
+  int8_t* Bt = ring + ST * (BM + BK) * LD;  // BT: [BK][kDqLD], the tile's weights [n][k]
+  // TMA: a stage's tiles landed, one mbarrier a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bt + (BT ? BK * kDqLD : 0));
+  int* Cs = reinterpret_cast<int*>(ring);   // [BM][kDqLDC], after the loop
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tg = lane & 3;
   const int rank = blockIdx.x % S, n0 = (blockIdx.x / S) * kDqBN, m0 = blockIdx.y * BM;
@@ -442,15 +519,33 @@ dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w
   const unsigned bofs = static_cast<unsigned>((reinterpret_cast<uintptr_t>(w) + n0) & 15);
   constexpr int BCH = ALIGNED ? 4 : 5;  // 16-byte chunks of a weight row's window
 
+  auto bar = [&](int stage) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(&full[stage]));
+  };
   auto load_tile = [&](int kt, int stage) {
     const int k0 = kt * BK;
-    int8_t* as = As + stage * BM * kDqLD;
+    if constexpr (LOAD == kTma) {  // thread 0: the stage's byte count, both boxes
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar(stage)),
+                     "r"((BM + BK) * 64)
+                     : "memory");
+        tma_load_2d(Bs + stage * BK * LD, &tma_b, n0, k0, bar(stage));
+        tma_load_2d(As + stage * BM * LD, &tma_a, k0, m0, bar(stage));
+      }
+      return;
+    }
+    int8_t* as = As + stage * BM * LD;
     for (int c = tid; c < BM * 4; c += 256) {
       const int r = c >> 2, kc = k0 + (c & 3) * 16, m = m0 + r;
-      const bool ok = m < M && kc < Kp;
-      cp_async16(as + r * kDqLD + (c & 3) * 16, ok ? a + (size_t)m * Kp + kc : a, ok ? 16 : 0);
+      if (RAW && !a_vec) {  // kernel 11's odd K; kernel 5's codes are Kp-aligned
+        *reinterpret_cast<uint4*>(as + r * LD + (c & 3) * 16) = load_a16(a, m, kc, M, lda, false);
+      } else {
+        const bool ok = m < M && kc < lda;
+        cp_async16(as + r * LD + (c & 3) * 16, ok ? a + (size_t)m * lda + kc : a, ok ? 16 : 0);
+      }
     }
-    int8_t* bs = Bs + stage * BK * kDqLD;
+    int8_t* bs = Bs + stage * BK * LD;
     for (int c = tid; c < BK * BCH; c += 256) {
       const int r = c / BCH, j = c % BCH, k = k0 + r;
       const int8_t* row = w + (size_t)k * N + n0;
@@ -458,9 +553,18 @@ dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w
                             reinterpret_cast<uintptr_t>(row) & ~uintptr_t(15)) + 16 * j;
       const long long left = k < K ? wend - p : 0;
       const int bytes = left <= 0 ? 0 : left >= 16 ? 16 : static_cast<int>(left);
-      cp_async16(bs + r * kDqLD + 16 * j, bytes ? p : w, bytes);
+      cp_async16(bs + r * LD + 16 * j, bytes ? p : w, bytes);
     }
   };
+
+  if constexpr (LOAD == kTma) {
+    if (tid == 0) {
+      for (int s = 0; s < ST; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar(s)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
 
   int acc[MI][4][4];
 #pragma unroll
@@ -470,73 +574,121 @@ dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
 
+  if constexpr (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #pragma unroll
-  for (int s = 0; s < kDqStages - 1; ++s) {
+  for (int s = 0; s < ST - 1; ++s) {
     if (kt0 + s < kt1) load_tile(kt0 + s, s);
-    cp_async_commit();
+    if constexpr (LOAD == kCpAsync) cp_async_commit();
   }
+  if constexpr (PDL) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   for (int kt = kt0; kt < kt1; ++kt) {
-    cp_async_wait<kDqStages - 2>();
+    const int stage = (kt - kt0) % ST;
+    if constexpr (LOAD == kCpAsync)
+      cp_async_wait<ST - 2>();
+    else
+      mbar_wait(bar(stage), ((kt - kt0) / ST) & 1);
     __syncthreads();  // tile kt landed for all; the stage refilled below is free
-    if (kt + kDqStages - 1 < kt1)
-      load_tile(kt + kDqStages - 1, (kt - kt0 + kDqStages - 1) % kDqStages);
-    cp_async_commit();
-    const int stage = (kt - kt0) % kDqStages;
-    const int8_t* as = As + stage * BM * kDqLD;
-    const int8_t* bs = Bs + stage * BK * kDqLD;
+    if (kt + ST - 1 < kt1) load_tile(kt + ST - 1, (kt - kt0 + ST - 1) % ST);
+    if constexpr (LOAD == kCpAsync) cp_async_commit();
+    const int8_t* as = As + stage * BM * LD;
+    const int8_t* bs = Bs + stage * BK * LD;
+    if constexpr (BT) {
+      {  // the weight tile transposed once, [n][k], 4 x 4 bytes a thread
+        const int kb = tid & 15, nb = tid >> 4;
+        uint32_t r4[4], t[4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t r4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = kk + 16 * h + tg * 4 + i;
-          const uint32_t* rw = reinterpret_cast<const uint32_t*>(bs + r * kDqLD);
-          if constexpr (ALIGNED) {
-            r4[i] = rw[wn * 8 + g];
-          } else {
-            const unsigned sh = (bofs + static_cast<unsigned>(kt * BK + r) *
-                                 static_cast<unsigned>(N)) & 15u;
-            const unsigned p = sh + wn * 32 + 4 * g;
-            r4[i] = __funnelshift_r(rw[p >> 2], rw[(p >> 2) + 1], (p & 3) * 8);
-          }
-        }
-        uint32_t t[4];
+        for (int i = 0; i < 4; ++i)
+          r4[i] = *reinterpret_cast<const uint32_t*>(bs + strip_off<LOAD>(4 * kb + i, 4 * nb));
         transpose4x4(r4, t);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j][h] = t[j];
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(Bt + (4 * nb + j) * kDqLD + 4 * kb) = t[j];
       }
+      __syncthreads();
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = (mi * 4 + wm) * 16;
-        if (m0 + r >= M) continue;  // a dead m16 tile: the same for the warp
-        uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(as + (r + g) * kDqLD + kk + tg * 4);
-        af[1] = *reinterpret_cast<const uint32_t*>(as + (r + g + 8) * kDqLD + kk + tg * 4);
-        af[2] = *reinterpret_cast<const uint32_t*>(as + (r + g) * kDqLD + kk + 16 + tg * 4);
-        af[3] = *reinterpret_cast<const uint32_t*>(as + (r + g + 8) * kDqLD + kk + 16 + tg * 4);
+      for (int kk = 0; kk < BK; kk += 32) {
+        const int q = lane >> 3;
+        uint32_t b[4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[mi][j], af, b[j]);
+        for (int jp = 0; jp < 2; ++jp) {  // n8 tiles 2 jp and 2 jp + 1
+          const int n = wn * 32 + 8 * (2 * jp + (q >> 1)) + (lane & 7);
+          ldmatrix_x4(Bt + n * kDqLD + kk + 16 * (q & 1), b[2 * jp][0], b[2 * jp][1],
+                      b[2 * jp + 1][0], b[2 * jp + 1][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const int r = (mi * 4 + wm) * 16;
+          if (m0 + r >= M) continue;  // a dead m16 tile: the same for the warp
+          uint32_t af[4];
+          ldmatrix_x4(as + strip_off<LOAD>(r + (lane & 7) + 8 * (q & 1), kk + 16 * (q >> 1)),
+                      af[0], af[1], af[2], af[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8_16832(acc[mi][j], af, b[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t b[4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t r4[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = kk + 16 * h + tg * 4 + i;
+            if constexpr (ALIGNED) {
+              r4[i] = *reinterpret_cast<const uint32_t*>(bs + strip_off<LOAD>(r, 4 * (wn * 8 + g)));
+            } else {
+              const uint32_t* rw = reinterpret_cast<const uint32_t*>(bs + r * LD);
+              const unsigned sh = (bofs + static_cast<unsigned>(kt * BK + r) *
+                                   static_cast<unsigned>(N)) & 15u;
+              const unsigned p = sh + wn * 32 + 4 * g;
+              r4[i] = __funnelshift_r(rw[p >> 2], rw[(p >> 2) + 1], (p & 3) * 8);
+            }
+          }
+          uint32_t t[4];
+          transpose4x4(r4, t);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j][h] = t[j];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const int r = (mi * 4 + wm) * 16;
+          if (m0 + r >= M) continue;  // a dead m16 tile: the same for the warp
+          uint32_t af[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            af[e] = *reinterpret_cast<const uint32_t*>(
+                as + strip_off<LOAD>(r + g + 8 * (e & 1), kk + 16 * (e >> 1) + tg * 4));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8_16832(acc[mi][j], af, b[j]);
+        }
       }
     }
   }
-  cp_async_wait<0>();
+  if constexpr (LOAD == kCpAsync) cp_async_wait<0>();
   __syncthreads();  // the ring is free: stage the int32 tile in its place
 
-  // thread (g, tg) of n8 tile j holds columns 2 tg, 2 tg + 1: strip columns
+  // thread (g, tg) of n8 tile j holds columns 2 tg, 2 tg + 1 of rows g and
+  // g + 8: strip columns wn * 32 + 8 j + 2 tg (+ 1) with BT, else
   // wn * 32 + 4 (2 tg) + j and wn * 32 + 4 (2 tg + 1) + j
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
     const int r = (mi * 4 + wm) * 16 + g;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int c = wn * 32 + 8 * tg + j;
-      Cs[r * kDqLDC + c] = acc[mi][j][0];
-      Cs[r * kDqLDC + c + 4] = acc[mi][j][1];
-      Cs[(r + 8) * kDqLDC + c] = acc[mi][j][2];
-      Cs[(r + 8) * kDqLDC + c + 4] = acc[mi][j][3];
+      if constexpr (BT) {
+        const int c = wn * 32 + 8 * j + 2 * tg;
+        *reinterpret_cast<int2*>(Cs + r * kDqLDC + c) = make_int2(acc[mi][j][0], acc[mi][j][1]);
+        *reinterpret_cast<int2*>(Cs + (r + 8) * kDqLDC + c) =
+            make_int2(acc[mi][j][2], acc[mi][j][3]);
+      } else {
+        const int c = wn * 32 + 8 * tg + j;
+        Cs[r * kDqLDC + c] = acc[mi][j][0];
+        Cs[r * kDqLDC + c + 4] = acc[mi][j][1];
+        Cs[(r + 8) * kDqLDC + c] = acc[mi][j][2];
+        Cs[(r + 8) * kDqLDC + c + 4] = acc[mi][j][3];
+      }
     }
   }
   namespace cg = cooperative_groups;
@@ -544,16 +696,18 @@ dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w
   else __syncthreads();
 
   // the epilogue, coalesced: a warp stores whole row segments, lane on column
-  float scale, safe, zp;
-  dql_params(src, scale, safe, zp);
-  const int zpi = static_cast<int>(zp) - 128;
-  int cs[2];
-  float sc[2];
+  int cs[2] = {0, 0}, zpi = 0;
+  float sc[2] = {0.f, 0.f};
+  if constexpr (!RAW) {
+    float scale, safe, zp;
+    dql_params(src, scale, safe, zp);
+    zpi = static_cast<int>(zp) - 128;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = n0 + lane + 32 * h;
-    cs[h] = n < N ? ep.colsum[n] : 0;
-    sc[h] = n < N ? __fmul_rn(scale, ep.ws ? ep.ws[n] : ep.w_scale) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + lane + 32 * h;
+      cs[h] = n < N ? ep.colsum[n] : 0;
+      sc[h] = n < N ? __fmul_rn(scale, ep.ws ? ep.ws[n] : ep.w_scale) : 0.f;
+    }
   }
   for (int r = rank + S * warp; r < BM && m0 + r < M; r += S * 8) {
 #pragma unroll
@@ -569,43 +723,102 @@ dq_gemm_strip(const int8_t* __restrict__ a, int Kp, const int8_t* __restrict__ w
 #pragma unroll
         for (int i = 0; i < 8; ++i) v += o[i];
       }
-      if (n < N)
-        y[(size_t)(m0 + r) * N + n] = __fmul_rn(__int2float_rn(v - zpi * cs[h]), sc[h]);
+      if (n >= N) continue;
+      const size_t at = (size_t)(m0 + r) * N + n;
+      if constexpr (RAW)
+        static_cast<int32_t*>(out)[at] = v;
+      else
+        static_cast<float*>(out)[at] = __fmul_rn(__int2float_rn(v - zpi * cs[h]), sc[h]);
     }
   }
   if (S > 1) cg::this_cluster().sync();  // no block leaves while its tile is read
+}
+
+// the 2-D tensor map of a row-major int8 [rows, cols] matrix (rows `stride`
+// bytes apart) in boxes of box_rows x 64 bytes, 64-byte swizzled, zeros
+// past its edges
+inline cudaError_t strip_tensor_map(CUtensorMap* map, const int8_t* base, int rows, int cols,
+                                    int stride, int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || encode == nullptr) {
+      encode = nullptr;
+      return err != cudaSuccess ? err : cudaErrorNotSupported;
+    }
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base),
+                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One launch of the strip form: (strips * S) x ceil(M / 64 MI) blocks,
+// clusters of S along x splitting K. The TMA loader needs a's rows and the
+// weight's 16-byte aligned (a_vec and ALIGNED).
+template <int MI, int ST, bool ALIGNED, bool RAW, int LOAD = kCpAsync, bool PDL = false>
+inline cudaError_t launch_strip(const int8_t* a, int lda, bool a_vec, const int8_t* w,
+                                void* out, int M, int K, int N, const DqlSrc& src,
+                                const DqEpilogue& ep, int S, cudaStream_t s) {
+  constexpr int BM = 64 * MI;
+  constexpr bool BT = LOAD == kTma && MI <= 2;
+  constexpr int smem = LOAD == kCpAsync
+      ? ST * (BM + 64) * kDqLD
+      : 1024 + ST * (BM + 64) * 64 + (BT ? 64 * kDqLD : 0) + ST * 8;
+  static_assert(BM * kDqLDC * 4 <= ST * (BM + 64) * 64, "staging fits the ring");
+  CUtensorMap ta{}, tb{};
+  if constexpr (LOAD == kTma) {
+    cudaError_t err = strip_tensor_map(&ta, a, M, K, lda, BM);
+    if (err == cudaSuccess) err = strip_tensor_map(&tb, w, K, N, N, 64);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = dq_gemm_strip<MI, ST, ALIGNED, RAW, LOAD, PDL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + kDqBN - 1) / kDqBN) * S, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  unsigned n_attr = 0;
+  if (S > 1) {
+    attr[n_attr].id = cudaLaunchAttributeClusterDimension;
+    attr[n_attr].val.clusterDim.x = S;
+    attr[n_attr].val.clusterDim.y = 1;
+    attr[n_attr].val.clusterDim.z = 1;
+    ++n_attr;
+  }
+  if (PDL) {
+    attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attr;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n_attr;
+  return cudaLaunchKernelEx(&cfg, kernel, a, lda, static_cast<int>(a_vec), w, out, M, K, N,
+                            src, ep, S, ta, tb);
 }
 
 template <int MI, bool ALIGNED>
 inline cudaError_t launch_dq_strip_mi(const int8_t* a, int Kp, const int8_t* w, float* y, int M,
                                       int K, int N, const DqlSrc& src, const DqEpilogue& ep,
                                       cudaStream_t s) {
-  constexpr int BM = 64 * MI;
-  const int smem = kDqStages * (BM + 64) * kDqLD;
-  static_assert(BM * kDqLDC * 4 <= kDqStages * (BM + 64) * kDqLD, "staging fits the ring");
-  auto kernel = dq_gemm_strip<MI, ALIGNED>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return err;
-  const int strips = (N + kDqBN - 1) / kDqBN, rows = (M + BM - 1) / BM;
+  const int strips = (N + kDqBN - 1) / kDqBN, rows = (M + 64 * MI - 1) / (64 * MI);
   const int ktiles = (K + 63) / 64;
   // a cluster splits K where the strips alone give fewer than ~2 blocks an
   // SM, keeping 2 K tiles a block
   int S = 1;
   while (S < 8 && strips * rows * S < 2 * 132 && 4 * S <= ktiles) S *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(strips * S, rows);
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = S > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, a, Kp, w, y, M, K, N, src, ep, S);
+  return launch_strip<MI, kDqStages, ALIGNED, false>(a, Kp, true, w, y, M, K, N, src, ep, S, s);
 }
 
 // quantize x [M, K] into the codes qbuf [M, dq_codes_stride(K)], then the

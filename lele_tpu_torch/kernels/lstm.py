@@ -6,9 +6,11 @@ xproj = x @ Wx + b computed outside (one large product), gate order
 i, f, g, o, all in f32. The kernel is csrc/lstm_seq.cu (design and bounds in
 its source note), in two forms:
 
-- H <= 128: one block per batch row, one thread per gate column, Wh split
-  between registers and shared memory, h exchanged through shared memory
-  every step;
+- H <= 128: the register form, one block of 256 threads per batch row,
+  each thread two units' four gate columns over a quarter of the rows, 24
+  of its 32 rows of Wh in registers and 8 in shared memory, the quarters
+  summed by warp shuffles, h exchanged through shared memory with one
+  barrier a step;
 - 128 < H <= 1024: the general form of csrc/rnn_seq.cuh (kernel 9 shares
   it), a cluster of 8 blocks per batch row, each owning an eighth of the
   units, with h exchanged through distributed shared memory and one cluster
@@ -94,6 +96,8 @@ def lstm_seq_kernel(xproj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
         P, I = _build.P, _build.I
         _fn = _build.bind(_STEM, "lstm_seq", [P, P, P, P, P, P, P, I, I, I, P])
     xproj, wh, h0, c0 = (t.float().contiguous() for t in (xproj, wh, h0, c0))
+    if wh.data_ptr() % 16:  # the register form copies Wh's rows in 16-byte units
+        wh = wh.clone()
     hs = torch.empty((S, B, H), dtype=torch.float32, device=xproj.device)
     hf = torch.empty((B, H), dtype=torch.float32, device=xproj.device)
     cf = torch.empty((B, H), dtype=torch.float32, device=xproj.device)

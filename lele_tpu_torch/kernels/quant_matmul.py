@@ -32,10 +32,13 @@ on the host for it).
 
 Exact int8 product (i8 × i8 → i32): `int8_matmul` replaces
 `pallas_int8_matmul` (lele_tpu/kernels/quant_matmul.py:355). The kernel is
-csrc/int8_gemm.cu, kernel 5's s8 tile core without its quantize pass and
-epilogue. On the main path it is the product of SenseVoice's dynamic-int8
-linears (`quantized=True`) and of the MatMulInteger emitter, where JAX runs
-a plain XLA int8 dot.
+csrc/int8_gemm.cu, kernel 5's strip core (csrc/dq_gemm.cuh) with the raw
+int32 store for its epilogue and no quantize pass: 64-row blocks by
+64-column weight strips, the K tiles by TMA where rows are 16-byte aligned
+(cp.async otherwise), a cluster splitting K where the blocks are few, one
+launch a call. On the main path it is the product of SenseVoice's
+dynamic-int8 linears (`quantized=True`) and of the MatMulInteger emitter,
+where JAX runs a plain XLA int8 dot.
 
 Each wrapper takes its plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises. `w8_matmul.launches`,

@@ -29,7 +29,11 @@ between launches; chip_smoke.graph_us):
   valid) and 100 (76 valid), both versions within chip_smoke's whole-stack
   noise gate of the plain version (max|d| <= 0.1 max|ref|);
 - `lstm_seq` at H = 128, B = 1 over S = 3 (a chunk of the Silero fixture),
-  1,875 (60 s) and 18,750 (600 s) steps;
+  312 (a 10 s native request), 1,875 (60 s) and 18,750 (600 s) steps, with
+  cuDNN's `nn.LSTM` on xproj beside it, both versions within
+  chip_smoke.LSTM_TOL of the plain version; and a SileroOnnx 10 s request
+  (312 calls of S = 3), within chip_smoke.VAD_PROB_TOL of the plain
+  override, by events and the profiler only;
 - `w4_gemm` (bf16 x, group 128) at the layer linears and the CTC head,
   T = 171 rows; at the decode shapes (M = 1: the QMoE layer's expert widths
   and Phi-3.5-MoE's, both directions; M = 2 and 4 to 9 and 16 at
@@ -38,7 +42,10 @@ between launches; chip_smoke.graph_us):
   bf16 and f32), each warm (one
   weight, resident in the 50 MB L2) and cold (calls rotate over enough
   copies of the weight to exceed the L2);
-- `int8_gemm` at a layer's four linears at T = 171;
+- `int8_gemm` at a layer's four linears at M = 21, 171, 684 (the
+  quantized batch of 4) and 196 (the per-op compiled graph), at that
+  graph's int8 head [196,512]x[512,25055] and at 2,048^3, with
+  `torch._int_mm` beside it (N padded to a multiple of 8);
 - `sanm_layer_w8` (one layer, T = 171), and `sanm_stack_w8` and
   `sanm_stack_w4`: 50 layers at d512, ffn 2048, random weights, at
   chip_smoke.STACK_T (T = 21, 87 with 76 valid, 171, 196, 1,004), each
@@ -50,8 +57,10 @@ between launches; chip_smoke.graph_us):
   B 2 H 8 L 2,048 D 128, and the Phi-3 prefill B 1 H 32 Lq 1,920 Lk 4,096
   D 96 with the graph's own mask), with `F.scaled_dot_product_attention`
   (f32, TF32 off) beside it;
-- `w8_gemm` at the CTC head [171,512]x[512,25055] bf16, with `torch.matmul`
-  on the weight dequantised to bf16 beside it;
+- `w8_gemm` at the CTC head [171,512]x[512,25055] bf16 and at a layer's
+  four linears on the batch path (M = 684, a batch of 4 in the 10 s bucket;
+  1,512, the 75 s long-form request), with `torch.matmul` on the weight
+  dequantised to bf16 beside it;
 - `estimator_blocks` (tts.json's widths, 8 blocks) at (T, Tk) = (1,024,
   320) and (512, 160), both versions within chip_smoke.EST_TOL of the plain
   version; and on the TTS main path's own traffic: chip_smoke's
@@ -63,9 +72,10 @@ between launches; chip_smoke.graph_us):
   chip_smoke.TTS_REL of the unfused route.
 
 It checks that the two versions give the same bits where both compute the
-same exact arithmetic (`dq_gemm`, `int8_gemm`, the layer,
-`lstm_seq`, `w8_gemm`, `w4_gemm`'s tile form). Where a redesign sums in another order on
+same exact arithmetic (`dq_gemm`, `int8_gemm`, the layer, `w8_gemm`,
+`w4_gemm`'s tile form). Where a redesign sums in another order on
 purpose, both versions are held to the plain version's gate instead:
+`lstm_seq` to max|d| <= 1e-5 (chip_smoke.LSTM_TOL),
 `w4_gemm`'s decode form to 1e-5·max|ref|, `gru_seq` to max|d| <= 1e-5
 (chip_smoke.GRU_TOL), `flash_attn` to 1e-5·max|ref| (chip_smoke.FLASH_REL).
 A case with a library call times it in the same turns, by events and in a
@@ -89,7 +99,7 @@ STEMS = ("dq_gemm", "sanm_dql", "lstm_seq", "w4_gemm", "sanm_layer", "sanm_stack
          "gru_seq", "flash_attn", "w8_gemm", "est_block")
 DQL_T = ((36, 36), (100, 100), (196, 171), (100, 76))  # kernel 4: (T, valid rows)
 EST_T = ((1024, 320), (512, 160))  # kernel 10: (T, Tk)
-LSTM_STEPS = (3, 1875, 18750)
+LSTM_STEPS = (3, 312, 1875, 18750)  # a SileroOnnx chunk, a 10 s native request, 60 s, 600 s
 T, L, D, F, H, FK = 196, 50, 512, 2048, 4, 11
 SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
 T_W = 171  # the native path's rows at 10 s
@@ -102,6 +112,12 @@ W4_DECODE = ((1, 1024, 1792), (1, 1792, 1024), (1, 4096, 6400), (1, 6400, 4096),
 L2_BYTES = 50e6  # the H100's L2
 W4_REL = 1e-5
 GRU_STEPS = (1875, 18750)
+# kernel 11's rows: the dynamic-int8 request at 1 s and 10 s, the quantized
+# batch of 4 in the 10 s bucket, the per-op compiled graph's 10 s bucket
+I8_ROWS = (T_SHORT, T_W, 4 * T_W, 196)
+# kernel 2's rows on the batch path: a batch of 4 in the 10 s bucket, and
+# the 75 s long-form request's three 30 s windows
+W8_BATCH_ROWS = (4 * T_W, 1512)
 # a case: fn() and, where its bits may differ between versions, the plain
 # version with its gate (relative to max|ref|, or absolute; with `close`,
 # torch.allclose at rtol tol and atol tol·max|ref|); a library call timed
@@ -211,11 +227,8 @@ def main(argv: list[str]) -> int:
                           K.fused_dq_matmul(x, wq, c, s, zp, 2.5e-3), None))
         if "sanm_dql" in stems:
             cases += _dql_cases(cs, dev, gen)
-        for S in LSTM_STEPS if "lstm_seq" in stems else ():
-            args = cs.lstm_inputs(S, 1, 128, dev, gen)
-            cases.append((f"lstm_seq S={S} B=1 H=128",
-                          lambda args=args: torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)]),
-                          None))
+        if "lstm_seq" in stems:
+            cases += _lstm_cases(cs, dev, gen)
         for k_, n_ in SHAPES if "w4_gemm" in stems else ():
             packed, scales = w4.quantize_weight_int4(
                 torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5, 128)
@@ -224,11 +237,8 @@ def main(argv: list[str]) -> int:
                           lambda x=xw, p=packed, s=scales: K.w4_matmul(x, p, s, 128), None))
         if "w4_gemm" in stems:
             cases += _w4_decode_cases(dev, gen, w4)
-        for k_, n_ in SHAPES[:-1] if "int8_gemm" in stems else ():
-            a = torch.randint(-128, 128, (T_W, k_), generator=gen, device=dev, dtype=torch.int8)
-            b = torch.randint(-128, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
-            cases.append((f"int8_gemm [{T_W},{k_}]x[{k_},{n_}]",
-                          lambda a=a, b=b: K.int8_matmul(a, b), None))
+        if "int8_gemm" in stems:
+            cases += _i8_cases(dev, gen)
         if "sanm_layer" in stems or stack:
             cases += _layer_cases(cs, stems, stack, libs, state, dev, gen)
         if "gru_seq" in stems:
@@ -256,8 +266,9 @@ def main(argv: list[str]) -> int:
                 except RuntimeError as e:
                     print(f"{name}: the {version} version fails: {e}")
                     return 1
-                times[version].append(cs.time_ms(fn, runs=30))
-                rows = cs.device_us(fn) if graph_n else None
+                # a whole request (no CUDA graph): 5 runs, one call a trace
+                times[version].append(cs.time_ms(fn, runs=30 if graph_n else 5))
+                rows = cs.device_us(fn, n=graph_n or 1)
                 dev_us[version].append(None if rows is None else sum(rows.values()))
                 if graph_n:
                     graph[version].append(cs.graph_us(fn, n=graph_n, reps=reps))
@@ -552,13 +563,78 @@ def _w8_cases(dev, gen):
 
     from lele_tpu_torch import kernels as K
 
-    k_, n_ = SHAPES[-1]
-    x = torch.randn((T_W, k_), generator=gen, device=dev).to(torch.bfloat16)
-    wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
-    ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3
-    w_bf16 = (wq.float() * ws).to(torch.bfloat16)
-    return [Case(f"w8_gemm [{T_W},{k_}]x[{k_},{n_}] bf16", lambda: K.w8_matmul(x, wq, ws),
-                 library=lambda: torch.matmul(x, w_bf16))]
+    cases = []
+    for m, (k_, n_) in ((T_W, SHAPES[-1]),
+                        *((m, kn) for m in W8_BATCH_ROWS for kn in SHAPES[:-1])):
+        x = torch.randn((m, k_), generator=gen, device=dev).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3
+        w_bf16 = (wq.float() * ws).to(torch.bfloat16)
+        cases.append(Case(f"w8_gemm [{m},{k_}]x[{k_},{n_}] bf16",
+                          lambda x=x, wq=wq, ws=ws: K.w8_matmul(x, wq, ws),
+                          library=lambda x=x, w=w_bf16: torch.matmul(x, w)))
+    return cases
+
+
+def _i8_cases(dev, gen):
+    """Kernel 11 at every shape its paths run (a layer's four linears at
+    I8_ROWS, the per-op graph's int8 head at T = 196) and 2,048^3, with
+    torch._int_mm beside it (N padded to a multiple of 8 where it needs it;
+    the padding's column is not timed apart)."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+
+    shapes = (*((m, k_, n_) for m in I8_ROWS for k_, n_ in SHAPES[:-1]),
+              (196, *SHAPES[-1]), (2048, 2048, 2048))
+    cases = []
+    for m, k_, n_ in shapes:
+        a = torch.randint(-128, 128, (m, k_), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-128, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+        b8 = torch.nn.functional.pad(b, (0, -n_ % 8))
+        cases.append(Case(f"int8_gemm [{m},{k_}]x[{k_},{n_}]",
+                          lambda a=a, b=b: K.int8_matmul(a, b),
+                          library=lambda a=a, b=b8: torch._int_mm(a, b)))
+    return cases
+
+
+def _lstm_cases(cs, dev, gen):
+    """Kernel 6 at H = 128, B = 1 over LSTM_STEPS, with cuDNN's nn.LSTM on
+    the same xproj (W_ih = I, chip_smoke phase 10's form); then a SileroOnnx
+    10 s request at 16 kHz (312 kernel-6 calls of S = 3), both versions
+    within chip_smoke.VAD_PROB_TOL of the lstm_plain override, timed by
+    events and by the profiler's device time (no CUDA graph: a request reads
+    its probabilities back)."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.models import SileroOnnx
+    from lele_tpu_torch.ops import nn_ops
+
+    cases = []
+    for S in LSTM_STEPS:
+        args = cs.lstm_inputs(S, 1, 128, dev, gen)
+        net = cs.cudnn_lstm(args[1], dev)
+
+        def library(net=net, args=args):
+            with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return net(args[0], (args[2][None], args[3][None]))[0]
+
+        cases.append(Case(f"lstm_seq S={S} B=1 H=128",
+                          lambda args=args: torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)]),
+                          lambda args=args: torch.cat(
+                              [t.reshape(-1) for t in K.lstm_seq_plain(*args)]),
+                          cs.LSTM_TOL, False, library, 2 if S > 2000 else 20))
+    sv = SileroOnnx(cs.SILERO_FIXTURE, device=dev)
+    sv_plain = SileroOnnx(cs.SILERO_FIXTURE, device=dev, overrides={"LSTM": nn_ops.lstm_plain})
+    pcm = cs.vad_pcm(10.0, cs.VAD_SR, np.random.default_rng(cs.SEED + 3))
+    cases.append(Case(f"SileroOnnx.speech_probs 10 s at {cs.VAD_SR} Hz ({len(pcm) // 512} "
+                      "chunks, lstm_seq S=3 each)",
+                      lambda: torch.from_numpy(sv.speech_probs(pcm, cs.VAD_SR)),
+                      lambda: torch.from_numpy(sv_plain.speech_probs(pcm, cs.VAD_SR)),
+                      cs.VAD_PROB_TOL, False, graph_n=0))
+    return cases
 
 
 def _w4_decode_cases(dev, gen, w4):

@@ -1,5 +1,5 @@
-"""Kernels 1, 4, 5, 7, 8, 9 and 12 in their redesigned forms, and kernel 10,
-held against their plain versions on an NVIDIA card.
+"""Kernels 1, 4, 5, 6, 7, 8, 9, 11 and 12 in their redesigned forms, and
+kernel 10, held against their plain versions on an NVIDIA card.
 
 Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
 entry) sums in another f32 order than `w4_matmul_plain`, so it is held to
@@ -40,6 +40,15 @@ kernel node in a CUDA graph. Kernel 10 (csrc/est_block.cu, its
 launches a block) is held to chip_smoke.EST_TOL at every
 chip_smoke.EST_SHAPES case, at the TTS requests' buckets, at head dims 32
 and 128, Tk = 1, many key tiles and T past 4,096, with the repeat and
+graph-replay bits.
+
+Kernel 11 (csrc/int8_gemm.cu, on kernel 5's strip core) forms exact int32
+sums: it must equal `int8_matmul_plain` at the dynamic-int8 and per-op
+paths' shapes (M = 1, 21, 171, 684, 196; the int8 head; 2,048^3), at odd
+M, K and N and at the +-127 / -128 extremes at K = 2,048, in one launch a
+call. Kernel 6 (csrc/lstm_seq.cu: the register form up to H = 128, the
+cluster form above) is held to chip_smoke.LSTM_TOL at S = 1, 3, 312 and
+1,875, B = 1 and 3, H = 1, 16, 64, 96, 128 and 129, with the repeat and
 graph-replay bits.
 
 Every case needs the card and skips without one. The repository's conftest
@@ -477,3 +486,85 @@ def test_est_blocks_graph_replay_gives_eager_bits(dev, shape):
     args = _est_inputs(gen, dev, *shape, 256)
     assert cs.graph_same_bits(lambda: K.estimator_blocks(*args, st, 4))
 
+
+
+# kernel 11 (csrc/int8_gemm.cu: kernel 5's strip core with the raw int32
+# store): exact, so int32-equal to the plain version everywhere. The path's
+# shapes (a layer's four linears at M = 1, 21, 171, 684 and 196, the per-op
+# graph's int8 head, 2,048^3), odd M, K and N, and the extremes at K = 2,048.
+I8_PAIRS = cs.I8_PAIRS
+I8_CASES = ([(m, k, n) for m in (1, 21, 171, 684, 196) for k, n in I8_PAIRS]
+            + [(196, 512, 25055), (2048, 2048, 2048), (50, 70, 30), (37, 70, 30), (1, 1, 1),
+               (17, 33, 65), (300, 1040, 136), (5, 16, 24), (129, 2047, 513)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", I8_CASES, ids=[f"{m}x{k}x{n}" for m, k, n in I8_CASES])
+def test_int8_gemm_equals_plain(dev, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k * 3 + n)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    before = K.int8_matmul.launches
+    got = K.int8_matmul(a, b)
+    ref = K.int8_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert K.int8_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref), \
+        f"max|d| {(got - ref).abs().max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fa,fb", [(-128, -128), (127, -128), (-128, 127), (127, 127)])
+def test_int8_gemm_extremes_at_k2048(dev, fa, fb):
+    a = torch.full((171, 2048), fa, device=dev, dtype=torch.int8)
+    b = torch.full((2048, 512), fb, device=dev, dtype=torch.int8)
+    a[5, :7] = 3
+    got = K.int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.int8_matmul_plain(a, b))
+    assert got[0, 0].item() == 2048 * fa * fb
+
+
+@pytest.mark.cuda
+def test_int8_gemm_one_launch_a_call_and_graph_bits(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randint(-128, 128, (171, 2048), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-128, 128, (2048, 512), generator=gen, device=dev, dtype=torch.int8)
+    kernels = [n for kind, n in cs.graph_nodes(lambda: K.int8_matmul(a, b)) if kind == "KERNEL"]
+    assert len(kernels) == 1 and "dq_gemm_strip" in kernels[0], kernels
+    assert cs.graph_same_bits(lambda: K.int8_matmul(a, b))
+
+
+# kernel 6 (csrc/lstm_seq.cu): the register form up to H = 128, the cluster
+# form of rnn_seq.cuh at 129; within chip_smoke.LSTM_TOL of the plain
+# version, the same bits on a repeat call and a CUDA-graph replay
+LSTM_CASES = [(s, b, h) for s in (1, 3, 312, 1875) for b in (1, 3)
+              for h in (1, 16, 64, 96, 128, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b,h", LSTM_CASES, ids=[f"S{s}-B{b}-H{h}" for s, b, h in LSTM_CASES])
+def test_lstm_seq_matches_plain(dev, s, b, h):
+    gen = torch.Generator(device=dev).manual_seed(s + 10 * b + 100 * h)
+    args = cs.lstm_inputs(s, b, h, dev, gen)
+    got, again = K.lstm_seq(*args), K.lstm_seq(*args)
+    ref = K.lstm_seq_plain(*args)
+    torch.cuda.synchronize()
+    d = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert d <= cs.LSTM_TOL, f"max|d| {d:.3e} > {cs.LSTM_TOL:g}"
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), "a repeat call changed the bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 129])
+def test_lstm_seq_graph_replay_and_one_launch(dev, h):
+    gen = torch.Generator(device=dev).manual_seed(h)
+    args = cs.lstm_inputs(312, 1, h, dev, gen)
+
+    def call():
+        return torch.cat([t.reshape(-1) for t in K.lstm_seq(*args)])
+
+    assert cs.graph_same_bits(call)
+    kernels = [n for kind, n in cs.graph_nodes(lambda: K.lstm_seq(*args)) if kind == "KERNEL"]
+    assert len(kernels) == 1 and ("lstm_seq_reg" in kernels[0] or "rnn_seq_cluster" in kernels[0])

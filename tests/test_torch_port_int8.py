@@ -41,6 +41,11 @@ CASES = [
     (37, 100, 48, (32, 16, 32)),
     (9, 512, 1536, (128, 512, 512)),
     (9, 2048, 512, (128, 512, 512)),
+    # the M = 21 request's [2048 -> 512] linear, which the card splits over
+    # a cluster of 8; N not a multiple of the card's 64-column strip
+    (21, 2048, 512, (128, 512, 512)),
+    (21, 512, 200, (32, 128, 512)),
+    (5, 2048, 100, (32, 128, 512)),
 ]
 
 

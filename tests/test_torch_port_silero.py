@@ -74,7 +74,10 @@ def _speechlike(seconds, sr, seed):
 # -- kernel 6 -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("S,B,H", [(23, 1, 32), (9, 3, 16), (40, 1, 128)])
+# the last three: SileroOnnx's chunk (S = 3) at B = 2, and the widths on
+# either side of the card's register form's unit pairs (96, 128)
+@pytest.mark.parametrize("S,B,H", [(23, 1, 32), (9, 3, 16), (40, 1, 128), (3, 2, 128),
+                                   (3, 2, 96), (17, 1, 96)])
 def test_lstm_seq_plain_matches_pallas_and_reference(S, B, H):
     rng = np.random.default_rng(S * 100 + B * 10 + H)
     xproj = rng.standard_normal((S, B, 4 * H)).astype(np.float32)
