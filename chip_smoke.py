@@ -196,6 +196,15 @@ VALID_DQL = 171
 T_DQL_RAGGED = 100
 VALID_DQL_RAGGED = 76
 GEMM_SHAPES = ((512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 25055))
+# kernel 2's rows: the B = 1 10 s request, 4.3 s, the batch of 4 in the 10 s
+# bucket, the 75 s long-form request's three 30 s windows, and a ragged count
+W8_ROWS = (T_MAIN, T_RAGGED, 4 * T_MAIN, 1512, 513)
+# (M, K, N) kernel 2 runs on its paths: the CTC head of a B = 1, a batch and
+# a long-form request, the batch and long-form layer linears, MoE's qkv and
+# out at 10 s
+W8_TIMED = ((T_MAIN, *GEMM_SHAPES[-1]), (4 * T_MAIN, *GEMM_SHAPES[-1]), (1512, *GEMM_SHAPES[-1]),
+            *((m, k, n) for m in (4 * T_MAIN, 1512) for k, n in GEMM_SHAPES[:-1]),
+            (T_MAIN, *GEMM_SHAPES[0]), (T_MAIN, *GEMM_SHAPES[1]))
 # kernel 5's strip form (the tile form at [512 -> 512]): the compiled head at
 # the buckets' rows (1 s, 4.3 s, 10 s) and the quant_pallas route's four
 # linears at 1 s and 10 s
@@ -2153,6 +2162,12 @@ def fmt_us(t: float | None) -> str:
     return "not measured" if t is None else f"{t:.2f} us"
 
 
+def w8_bound(M: int, K: int, N: int) -> tuple[float, str]:
+    """Kernel 2: bf16 x, the int8 weight and the f32 scales read once, the
+    f32 output written once; 2·M·N·K bf16 operations."""
+    return bound(M * K * 2 + K * N + N * 4 + M * N * 4, {"bf16": 2 * M * N * K})
+
+
 def i8_bound(M: int, K: int, N: int) -> tuple[float, str]:
     """Kernel 11: a and b read once, the int32 output written once; 2·M·N·K
     int8 operations."""
@@ -2360,6 +2375,12 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     checks.require(qb["int8_gemm"] == 4 * L and qb["dq_gemm"] == 0,
                    f"quantized batch of 4: int8_gemm {4 * L} times at M = {4 * T_MAIN}")
     batch_check("quantized batch logits", qmodel, *qmodel.batch_inputs(pcms4), QUANT_REL, 1.0)
+    # where the batch and long-form requests' device time goes (kernel 2's
+    # 201 launches a request among it), beside their host time below
+    profile_top(lambda: (eng8.recognize_batch(wavs), torch.cuda.synchronize()),
+                f"recognize_batch of {n_req}", card, n=2, top=6)
+    profile_top(lambda: (eng8.recognize(long_wav), torch.cuda.synchronize()),
+                f"{LONG_SECONDS} s request", card, n=2, top=6)
     t_b = host_ms(lambda: eng8.recognize_batch(wavs), runs=3)
     t_l = host_ms(lambda: eng8.recognize(long_wav), runs=3)
     t_q = host_ms(lambda: qmodel.transcribe_batch(pcms4), runs=3)
@@ -2470,6 +2491,7 @@ def main() -> int:
 
     from lele_tpu_torch import kernels as K
     from lele_tpu_torch.kernels import _build
+    from lele_tpu_torch.kernels.quant_matmul import align_rows
     from lele_tpu_torch.kernels.sanm_block import layer_view
     from lele_tpu_torch.models import (
         SenseVoiceConfig,
@@ -2521,7 +2543,7 @@ def main() -> int:
 
     err = {name: 0.0 for name in K.KERNEL_WRAPPERS}
     print("== 3. kernels vs plain on the card")
-    for T in (T_MAIN, T_RAGGED):
+    for T in W8_ROWS:
         for (k_, n_) in GEMM_SHAPES:
             wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
                                dtype=torch.int8)
@@ -2538,6 +2560,26 @@ def main() -> int:
                     got.shape == ref.shape and d <= tol * scale,
                     f"w8_gemm [{T},{k_}]x[{k_},{n_}] {str(dtype)[6:]}: "
                     f"max|d| {d:.3e} <= {tol:g} * {scale:.3e}")
+    for T, k_, n_ in ((T_MAIN, *GEMM_SHAPES[-1]), (4 * T_MAIN, 2048, 512)):
+        x = torch.randn((T, k_), generator=gen, device=dev).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3 + 1e-4
+        # the head's weight as prepare_w8_params keeps it: rows padded to a
+        # multiple of 16 bytes, which the wrapper passes as they lie (in the
+        # loop above it copied the contiguous, unaligned rows into such)
+        wq = align_rows(wq)
+        ref = K.w8_matmul_plain(x, wq, ws)
+        d = (K.w8_matmul(x, wq, ws) - ref).abs().max().item()
+        err["w8_gemm"] = max(err["w8_gemm"], d)
+        checks.require(d <= 1e-3 * ref.abs().max().item(),
+                       f"w8_gemm [{T},{k_}]x[{k_},{n_}] bf16, rows {wq.stride(0)} bytes apart: "
+                       f"max|d| {d:.3e} <= 1e-3 * {ref.abs().max().item():.3e}")
+        checks.require(torch.equal(K.w8_matmul(x, wq, ws), K.w8_matmul(x, wq, ws))
+                       and graph_same_bits(lambda: K.w8_matmul(x, wq, ws)),
+                       f"w8_gemm [{T},{k_}]x[{k_},{n_}]: a repeat call and a CUDA-graph replay "
+                       f"give the eager call's bits")
+        one_launch_check(checks, f"w8_gemm [{T},{k_}]x[{k_},{n_}]",
+                         lambda: K.w8_matmul(x, wq, ws), "w8_wgmma")
 
     def layer_check(T, n_valid, lp, name, fn, plain):
         x = torch.randn((T, D), generator=gen, device=dev) * 0.5
@@ -2560,6 +2602,14 @@ def main() -> int:
                 K.sanm_layer_w8_plain)
     layer_check(T_RAGGED, VALID_RAGGED, lp0, "sanm_layer_w8", K.sanm_layer_w8,
                 K.sanm_layer_w8_plain)
+    # kernel 3 stays seven launches a layer (the stack kernel at L = 1 lost at
+    # T = 21 and head dims 32 and 64: PERF.md §6)
+    x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
+    mask = torch.ones((T_MAIN,), device=dev)
+    nodes = graph_nodes(lambda: K.sanm_layer_w8(x, mask, lp0, H, FK))
+    n_kernels = sum(kind == "KERNEL" for kind, _ in nodes)
+    checks.require(n_kernels == 7, f"sanm_layer_w8 T={T_MAIN}, one call captured in a CUDA "
+                                   f"graph: {n_kernels} kernel nodes, seven")
     stack_checks(checks, err, "sanm_stack_w8", "weight_int8", stacked, dev, gen, H, FK)
 
     # kernel 5: the same device scale and zero point on both sides, an exact
@@ -2726,6 +2776,7 @@ def main() -> int:
         wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
                            dtype=torch.int8)
         ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3
+        wq = align_rows(wq)  # as prepare_w8_params keeps it
         a = time_ms(lambda: K.w8_matmul(x, wq, ws))
         b = time_ms(lambda: K.w8_matmul_plain(x, wq, ws))
         print(f"  w8_gemm [{T_MAIN},{k_}]x[{k_},{n_}] bf16: kernel {a:.4f} ms, "
@@ -2734,8 +2785,22 @@ def main() -> int:
     # the CTC head's one library call: bf16 x by a weight dequantized to bf16
     w_bf16 = (wq.float() * ws).to(torch.bfloat16)
     library_ms["w8_gemm"] = time_ms(lambda: torch.matmul(x, w_bf16))
-    bounds["w8_gemm"] = bound(T_MAIN * k_ * 2 + k_ * n_ + n_ * 4 + T_MAIN * n_ * 4,
-                              {"bf16": 2 * T_MAIN * k_ * n_})
+    bounds["w8_gemm"] = w8_bound(T_MAIN, k_, n_)
+    # kernel 2 at every shape its paths run, 20 calls in a CUDA graph, beside
+    # the library call and the bound
+    for m, k_, n_ in W8_TIMED:
+        x = torch.randn((m, k_), generator=gen, device=dev).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3 + 1e-4
+        wq = align_rows(wq)  # as prepare_w8_params keeps it (the heads' rows padded)
+        w_bf16 = (wq.float() * ws).to(torch.bfloat16)
+        g_k = graph_us(lambda: K.w8_matmul(x, wq, ws))
+        g_l = graph_us(lambda: torch.matmul(x, w_bf16))
+        b_ms, by = w8_bound(m, k_, n_)
+        print(f"  w8_gemm [{m},{k_}]x[{k_},{n_}] bf16: {g_k:.2f} us in a CUDA graph; torch.matmul "
+              f"{g_l:.2f} us; bound {b_ms * 1e3:.2f} us ({by})  ({card})")
+        if m == T_MAIN and n_ == GEMM_SHAPES[-1][1]:
+            DEVICE_US["w8_gemm"] = {"graph_us": g_k, "library_graph_us": g_l}
     x = torch.randn((T_MAIN, D), generator=gen, device=dev) * 0.5
     mask = torch.ones((T_MAIN,), device=dev)
     w8_layer_bytes = D * 3 * D + D * D + D * F + F * D + 4 * (3 * D + D + F + D) * 2 \
@@ -2975,6 +3040,14 @@ def main() -> int:
                   "+ residual); tolerance also: a repeat call and a CUDA-graph replay the same "
                   "bits (times: T=171, 50 layers; T=21, 87, 196, 1,004 in phases 5 and 14)")
     forms = {  # kernels with more than one form: which the numbers are of
+        "w8_gemm": "bf16 x on wgmma (csrc/w8_wgmma.cuh): y^T = W^T x^T, the int8 tile widened "
+                   "in registers into the A operand from an ldmatrix.trans, x's TMA tile the "
+                   "B operand, a producer warp's TMA ring on mbarriers (operands in 16-byte rows, "
+                   "others copied so by the wrapper), 128 channels by 64-256 rows a block and K "
+                   "split by a cluster from the shape, programmatic dependent launch; f32 x as "
+                   "f32 FMA (times: the CTC head [171,512]x[512,25055] with "
+                   "its rows padded as prepare_w8_params keeps them; every path shape in a "
+                   "CUDA graph in phase 5)",
         "sanm_stack_w8": stack_form,
         "sanm_stack_w4": stack_form,
         "sanm_layer_w8": "seven launches (times: T=171; launches: a request on per-layer "

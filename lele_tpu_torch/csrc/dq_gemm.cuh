@@ -734,11 +734,12 @@ dq_gemm_strip(const int8_t* __restrict__ a, int lda, int a_vec, const int8_t* __
   if (S > 1) cg::this_cluster().sync();  // no block leaves while its tile is read
 }
 
-// the 2-D tensor map of a row-major int8 [rows, cols] matrix (rows `stride`
-// bytes apart) in boxes of box_rows x 64 bytes, 64-byte swizzled, zeros
-// past its edges
-inline cudaError_t strip_tensor_map(CUtensorMap* map, const int8_t* base, int rows, int cols,
-                                    int stride, int box_rows) {
+// the 2-D tensor map of a row-major [rows, cols] matrix of `type` (rows
+// `stride` bytes apart) in boxes of box_rows x box_cols elements, zeros past
+// its edges
+inline cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                                 int rows, int cols, size_t stride, int box_rows, int box_cols,
+                                 CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -751,13 +752,21 @@ inline cudaError_t strip_tensor_map(CUtensorMap* map, const int8_t* base, int ro
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base),
-                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// an int8 [rows, cols] matrix in boxes of box_rows x 64 bytes, 64-byte
+// swizzled
+inline cudaError_t strip_tensor_map(CUtensorMap* map, const int8_t* base, int rows, int cols,
+                                    int stride, int box_rows) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, cols, stride, box_rows,
+                       64, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // One launch of the strip form: (strips * S) x ceil(M / 64 MI) blocks,

@@ -5,13 +5,13 @@
 // (kernels 1 and 8) are csrc/sanm_stack.cu.
 //
 //   1. LN1                       layer_norm_rows
-//   2. qkv = w8(h)               w8_gemm (h rounded to bf16, tensor cores)
+//   2. qkv = w8(h)               w8_gemm_mma (h rounded to bf16, mma.sync)
 //   3. ctx + fsmn                attn_fsmn: tensor-core attention per (head,
 //                                64-query tile), + FSMN over V*mask
-//   4. x += w8(ctx + fsmn)       w8_gemm, residual in the epilogue, in place
+//   4. x += w8(ctx + fsmn)       w8_gemm_mma, residual in the epilogue, in place
 //   5. LN2                       layer_norm_rows
-//   6. f1 = relu(w8(h2))         w8_gemm, ReLU in the epilogue
-//   7. x += w8(f1)               w8_gemm, residual in the epilogue, in place
+//   6. f1 = relu(w8(h2))         w8_gemm_mma, ReLU in the epilogue
+//   7. x += w8(f1)               w8_gemm_mma, residual in the epilogue, in place
 //
 // What bounds it on the H100: the layer's int8 weights (3.1 MB at d512,
 // ffn 2048) stream once, and at T ~ 171 rows each launch does little work,
@@ -60,6 +60,176 @@ layer_norm_rows(const float* __restrict__ x, const float* __restrict__ g,
   }
   const float r = rsqrtf(block_sum128(s2, sh) / D + eps);
   for (int i = threadIdx.x; i < D; i += 128) yr[i] = (xr[i] - mu) * r * g[i] + b[i];
+}
+
+// The layer's four linears: y = (x f32 rounded to bf16 @ int8 W) * scale
+// (+ bias) (ReLU) (+ res), the parent of kernel 2's tile form, kept here
+// for this layer alone.
+// Tensor-core path. 4 warps in a 2 x 2 layout; each warp owns a
+// (BM/2) x (BN/2) sub-tile: BM/32 m16 tiles by BN/16 n8 tiles. K advances in
+// steps of 64. The next K tile is fetched into registers (16-byte loads where
+// the row is aligned, element loads at a ragged edge) while the tensor cores
+// work on the current one in shared memory. A is stored [m][k] (x rounded
+// to bf16 on the way in) and read as 32-bit pairs; B is stored [k][n] and
+// read with ldmatrix.trans. Rows are padded by 8 elements (144-byte stride):
+// fragment reads are conflict free.
+template <int BM, int BN>
+__global__ void __launch_bounds__(128)
+w8_gemm_mma(const float* __restrict__ x, const int8_t* __restrict__ w, float* y,
+            int M, int K, int N, Epilogue ep) {
+  constexpr int BK = 64, LDA = BK + 8, LDB = BN + 8;
+  constexpr int MI = BM / 32, NI = BN / 16;
+  constexpr int A_VEC = 4;                          // elements per 16-byte chunk
+  constexpr int A_CHUNKS = BM * BK / A_VEC / 128;   // chunks per thread
+  constexpr int B_CHUNKS = BK * BN / 16 / 128;
+  static_assert(A_CHUNKS >= 1 && B_CHUNKS >= 1, "tile too small for 128 threads");
+  __shared__ __align__(16) uint16_t As[BM][LDA];  // [m][k], bf16 bits
+  __shared__ __align__(16) uint16_t Bs[BK][LDB];  // [k][n], bf16 bits
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, tg = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bool a_vec = (K % A_VEC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const bool b_vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+
+  uint4 ra[A_CHUNKS], rb[B_CHUNKS];  // the next tile, raw
+
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < A_CHUNKS; ++i) {
+      const int c = tid + i * 128, r = c / (BK / A_VEC), cc = (c % (BK / A_VEC)) * A_VEC;
+      const int gm = m0 + r, gk = k0 + cc;
+      if (gm < M && a_vec && gk + A_VEC <= K) {
+        ra[i] = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk);
+      } else {
+        __align__(16) float v[A_VEC];
+#pragma unroll
+        for (int e = 0; e < A_VEC; ++e)
+          v[e] = (gm < M && gk + e < K) ? x[(size_t)gm * K + gk + e] : 0.f;
+        ra[i] = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i) {
+      const int c = tid + i * 128, r = c / (BN / 16), cc = (c % (BN / 16)) * 16;
+      const int gk = k0 + r, gn = n0 + cc;
+      const size_t off = (size_t)gk * N + gn;
+      if (gk < K && b_vec && gn + 16 <= N) {
+        rb[i] = *reinterpret_cast<const uint4*>(w + off);
+      } else if (gk < K && gn + 16 <= N && off + 20 <= (size_t)K * N) {
+        // an unaligned row (odd N, as the CTC head's 25,055): five aligned
+        // words, shifted into place
+        const uintptr_t a = reinterpret_cast<uintptr_t>(w + off);
+        const uint32_t* wd = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+        const unsigned sh = (a & 3) * 8;
+        uint32_t u[5];
+#pragma unroll
+        for (int e = 0; e < 5; ++e) u[e] = wd[e];
+        rb[i] = make_uint4(__funnelshift_r(u[0], u[1], sh), __funnelshift_r(u[1], u[2], sh),
+                           __funnelshift_r(u[2], u[3], sh), __funnelshift_r(u[3], u[4], sh));
+      } else {
+        __align__(16) int8_t v[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          v[e] = (gk < K && gn + e < N) ? w[(size_t)gk * N + gn + e] : int8_t(0);
+        rb[i] = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  };
+
+  auto store_tile = [&]() {
+#pragma unroll
+    for (int i = 0; i < A_CHUNKS; ++i) {
+      const int c = tid + i * 128, r = c / (BK / A_VEC), cc = (c % (BK / A_VEC)) * A_VEC;
+      const float* f = reinterpret_cast<const float*>(&ra[i]);
+      uint2 packed;
+      packed.x = bf16_bits(f[0]) | (uint32_t(bf16_bits(f[1])) << 16);
+      packed.y = bf16_bits(f[2]) | (uint32_t(bf16_bits(f[3])) << 16);
+      *reinterpret_cast<uint2*>(&As[r][cc]) = packed;
+    }
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i) {
+      const int c = tid + i * 128, r = c / (BN / 16), cc = (c % (BN / 16)) * 16;
+      const int8_t* q = reinterpret_cast<const int8_t*>(&rb[i]);
+      uint32_t h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = bf16_bits(static_cast<float>(q[2 * e])) |
+               (uint32_t(bf16_bits(static_cast<float>(q[2 * e + 1]))) << 16);
+      *reinterpret_cast<uint4*>(&Bs[r][cc]) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(&Bs[r][cc + 8]) = make_uint4(h[4], h[5], h[6], h[7]);
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  load_tile(0);
+  store_tile();
+  __syncthreads();
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const bool has_next = k0 + BK < K;
+    if (has_next) load_tile(k0 + BK);  // in flight during the MMAs below
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = wm * (BM / 2) + mi * 16 + g;
+        a[mi][0] = ld_pair(&As[r][kk + tg * 2]);
+        a[mi][1] = ld_pair(&As[r + 8][kk + tg * 2]);
+        a[mi][2] = ld_pair(&As[r][kk + tg * 2 + 8]);
+        a[mi][3] = ld_pair(&As[r + 8][kk + tg * 2 + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+        ldsm_x2_trans(b[ni], &Bs[kk + (lane & 15)][wn * (BN / 2) + ni * 8]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
+    }
+    __syncthreads();
+    if (has_next) {
+      store_tile();
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int r = m0 + wm * (BM / 2) + mi * 16 + g;
+      const int c = n0 + wn * (BN / 2) + ni * 8 + tg * 2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = r + (e >> 1) * 8, n = c + (e & 1);
+        if (m < M && n < N) y[(size_t)m * N + n] = epilogue(acc[mi][ni][e], m, n, N, ep);
+      }
+    }
+  }
+}
+
+inline void launch_w8_gemm_mma(const float* x, const int8_t* w, float* y, int M, int K,
+                               int N, const Epilogue& ep, cudaStream_t s) {
+  // the largest tile that still gives the 132 SMs enough blocks
+  auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
+  if (blocks(64, 64) >= 2 * 132) {
+    w8_gemm_mma<64, 64><<<dim3((N + 63) / 64, (M + 63) / 64), 128, 0, s>>>(
+        x, w, y, M, K, N, ep);
+  } else if (blocks(32, 64) >= 132) {
+    w8_gemm_mma<32, 64><<<dim3((N + 63) / 64, (M + 31) / 32), 128, 0, s>>>(
+        x, w, y, M, K, N, ep);
+  } else {
+    w8_gemm_mma<32, 32><<<dim3((N + 31) / 32, (M + 31) / 32), 128, 0, s>>>(
+        x, w, y, M, K, N, ep);
+  }
 }
 
 constexpr int ATT_BQ = 64;    // query rows per block: 16 per warp
@@ -354,8 +524,7 @@ extern "C" int sanm_layer_w8(
   const float* bias[4] = {f32(bqkv), f32(bo), f32(bf1), f32(bf2)};
   auto gemm = [&](int i, const float* a, float* out, int K, int N, const float* res,
                   int relu) {
-    launch_w8_gemm(a, A_F32_AS_BF16, wq[i], out, T, K, N,
-                   Epilogue{sc[i], bias[i], res, relu}, s);
+    launch_w8_gemm_mma(a, wq[i], out, T, K, N, Epilogue{sc[i], bias[i], res, relu}, s);
   };
   return layer_launches(static_cast<float*>(x), f32(mask), T, D, H, F, fsmn_k, f32(g1),
                         f32(b1), fsmn_w, fsmn_bf16, f32(g2), f32(b2), static_cast<float*>(h),

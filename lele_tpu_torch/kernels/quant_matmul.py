@@ -2,12 +2,21 @@
 
 Weight-only int8 (w8a16): `w8_matmul` replaces `w8_matmul_pallas`
 (lele_tpu/kernels/quant_matmul.py:267).
-The kernel is csrc/w8_gemm.cu (design and bounds in csrc/w8_gemm.cuh):
-bf16 x runs on the tensor cores (`mma.sync`, f32 accumulate), f32 x as true
-f32 FMA; int8 weights are converted in registers and the per-output-channel
-scale is applied in the epilogue. On the main path it is the CTC head,
-[T, 512] x [512, 25055]. JAX's default there is its jnp dequant-dot; the
-port launches the kernel.
+The kernel is csrc/w8_gemm.cu: bf16 x on the warpgroup MMA (`wgmma`, f32
+sums; design and bounds in csrc/w8_wgmma.cuh: a producer warp's TMA ring of
+K tiles, the int8 tile widened in registers into wgmma's A operand, y^T =
+W^T x^T, K split by a cluster where tiles are few), f32 x as true f32 FMA
+(csrc/w8_gemm.cuh); the per-output-channel scale is applied in the
+epilogue. The bf16 form loads x and the weight by TMA, which needs rows
+16-byte aligned: the wrapper passes such operands as they lie, of any row
+stride, and copies others into padded rows (`align_rows`: how
+prepare_w8_params keeps the CTC head's 25,055 columns, so the main path
+copies nothing); it returns an N % 4 != 0 output as the [M, N] view of rows
+padded to 16 bytes. The f32 form reads weight rows of any stride too. On
+the main path it is the CTC head, [T,
+512] x [512, 25055]; on the batch, long-form and MoE paths also every layer
+linear (201 launches a batch or long-form request). JAX's default there is
+its jnp dequant-dot; the port launches the kernel.
 
 Dynamic-quantized int8 (a8w8, exact ONNX DynamicQuantizeLinear semantics):
 `fused_dq_matmul` replaces `fused_dq_matmul_pallas`
@@ -71,6 +80,21 @@ def quantize_weight_int8(w: torch.Tensor, axis: int = 0):
     return wq, scale.reshape(-1)
 
 
+def align_rows(t: torch.Tensor) -> torch.Tensor:
+    """t [R, C] itself where its rows are contiguous, start 16-byte aligned
+    and lie a multiple of 16 bytes apart (what kernel 2's TMA loads need);
+    else a copy into zero-padded rows of the next multiple of 16 bytes, as
+    an [R, C] view with the same values."""
+    R, C = t.shape
+    e = t.element_size()
+    if (t.stride(1) == 1 and t.stride(0) >= C and t.stride(0) * e % 16 == 0
+            and t.data_ptr() % 16 == 0):
+        return t
+    padded = torch.zeros((R, -(-C * e // 16) * 16 // e), dtype=t.dtype, device=t.device)
+    padded[:, :C] = t
+    return padded[:, :C]
+
+
 def w8_matmul_plain(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] bf16/f32 @ int8 wq [K, N], × w_scale [N] → f32 [M, N].
 
@@ -100,14 +124,28 @@ def w8_matmul_kernel(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -
     _check(x, wq, w_scale)
     if _fn is None:
         P, I = _build.P, _build.I
-        _fn = _build.bind(_STEM, "w8_gemm", [P, I, P, P, P, P, P, I, I, I, I, P])
-    x, wq, w_scale = x.contiguous(), wq.contiguous(), w_scale.contiguous()
+        _fn = _build.bind(_STEM, "w8_gemm", [P, I, I, P, I, P, P, I, I, I, I, P])
+    w_scale = w_scale.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # TMA's rows, of any 16-byte stride
+        x, wq = align_rows(x), align_rows(wq)
+    else:  # weight rows of any stride
+        x = x.contiguous()
+        if wq.stride(1) != 1 or wq.stride(0) < wq.shape[1]:
+            wq = wq.contiguous()
     M, K = x.shape
     N = wq.shape[1]
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    # and writes rows padded to 16 bytes (the [M, N] view is returned), so
+    # an N % 4 != 0 output (the CTC head) is stored 16 bytes a lane
+    ldy = -(-N // 4) * 4 if bf16 else N
+    y = torch.empty((M, ldy), dtype=torch.float32, device=x.device)[:, :N]
+    if y.numel() == 0:
+        return y
+    if K == 0:
+        return y.zero_()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _fn(x.data_ptr(), _AMODE[x.dtype], wq.data_ptr(), w_scale.data_ptr(),
-               None, None, y.data_ptr(), M, K, N, 0, stream)
+    code = _fn(x.data_ptr(), x.stride(0), _AMODE[x.dtype], wq.data_ptr(), wq.stride(0),
+               w_scale.data_ptr(), y.data_ptr(), ldy, M, K, N, stream)
     _build.check(_STEM, "w8_gemm", code)
     w8_matmul.launches += 1
     return y

@@ -244,6 +244,20 @@ def _operands(lp, device, lead: tuple[int, ...], D: int, fsmn_k: int, fmt: str, 
     return ts, F
 
 
+def layer_pointers(tree, device, D: int, fsmn_k: int, fmt: str, group: int, name: str,
+                   stacked: bool):
+    """The C entries' per-layer operands of a layer tree: (L, the tensors as
+    `_operands` checks them, F, each leaf's device pointer or None, its byte
+    stride from one layer to the next). A stacked tree (a leading L axis on
+    every leaf) gives layer i's leaf at pointer + i·stride; a per-layer tree
+    is L = 1 with every stride 0."""
+    L = tree["qkv"][_FORMATS[fmt][0]].shape[0] if stacked else 1
+    ts, F = _operands(tree, device, (L,) if stacked else (), D, fsmn_k, fmt, group, name)
+    ptrs = [None if t is None else t.data_ptr() for t in ts]
+    strides = [0 if t is None or not stacked else t.stride(0) * t.element_size() for t in ts]
+    return L, ts, F, ptrs, strides
+
+
 def _stack_w4_shape(K: int, group: int) -> bool:
     """The shapes kernel 8's GEMMs take: K/2 and the group multiples of 16."""
     return K % 32 == 0 and group >= 16 and group % 16 == 0
@@ -269,14 +283,13 @@ def _launch_layer(x, mask, lp, n_heads: int, fsmn_k: int):
     global _layer_fn
     name = "sanm_layer_w8"
     T, D, mask = _checked(x, mask, n_heads, fsmn_k, name)
-    ts, F = _operands(lp, x.device, (), D, fsmn_k, "w8", 0, name)
+    _, ts, F, p, _ = layer_pointers(lp, x.device, D, fsmn_k, "w8", 0, name, stacked=False)
     if _layer_fn is None:
         P, I = _build.P, _build.I
         _layer_fn = _build.bind(_STEM, name, [P, P] + [I] * 5 + [P] * 5 + [P, I] + [P] * 11
                                 + [P] * 5)
     scratch = [torch.empty((T, n), dtype=torch.float32, device=x.device)
                for n in (D, 3 * D, D, F)]  # h, qkv, ctx, f1
-    p = [None if t is None else t.data_ptr() for t in ts]
     code = _layer_fn(x.data_ptr(), mask.data_ptr(), T, D, n_heads, F, fsmn_k,
                      *p[0:5], p[5], int(ts[5].dtype == torch.bfloat16), *p[6:17],
                      *(s.data_ptr() for s in scratch),
@@ -294,8 +307,8 @@ def _launch_stack(x, mask, stacked, n_heads: int, fsmn_k: int, fmt: str, group: 
     global _work_fn
     name = f"sanm_stack_{fmt}"
     T, D, mask = _checked(x, mask, n_heads, fsmn_k, name)
-    L = stacked["qkv"][_FORMATS[fmt][0]].shape[0]
-    ts, F = _operands(stacked, x.device, (L,), D, fsmn_k, fmt, group, name)
+    L, ts, F, ptrs, strides = layer_pointers(stacked, x.device, D, fsmn_k, fmt, group, name,
+                                             stacked=True)
     if fmt == "w4" and not (_stack_w4_shape(D, group) and _stack_w4_shape(F, group)):
         raise ValueError(f"{name}: D={D}, F={F}, group={group}: the kernel needs K/2 "
                          "and the group to be multiples of 16")
@@ -310,9 +323,8 @@ def _launch_stack(x, mask, stacked, n_heads: int, fsmn_k: int, fmt: str, group: 
         _work_fn.argtypes = [_build.I] * 3
         _work_fn.restype = ctypes.c_longlong
     work = torch.empty((_work_fn(T, D, F),), dtype=torch.uint8, device=x.device)
-    leaves = (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
-    strides = (ctypes.c_longlong * len(ts))(
-        *(0 if t is None else t.stride(0) * t.element_size() for t in ts))
+    leaves = (ctypes.c_void_p * len(ts))(*ptrs)
+    strides = (ctypes.c_longlong * len(ts))(*strides)
     ints = (T, D, n_heads, F, fsmn_k) + ((group,) if fmt == "w4" else ()) + (L,)
     code = fn(x.data_ptr(), mask.data_ptr(), *ints, leaves, strides,
               int(ts[5].dtype == torch.bfloat16), work.data_ptr(),

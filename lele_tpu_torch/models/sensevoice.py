@@ -57,7 +57,12 @@ from ..kernels import (
     w8_matmul,
     w8_matmul_plain,
 )
-from ..kernels.quant_matmul import dql_quantize, dql_scale_zp, quantize_weight_int8
+from ..kernels.quant_matmul import (
+    dql_quantize,
+    dql_scale_zp,
+    align_rows,
+    quantize_weight_int8,
+)
 from ..kernels.sanm_block import fsmn_conv, layer_kernel_takes, layer_view
 from ..kernels.w4_matmul import quantize_weight_int4
 from ..runtime.bucketing import max_bucket_samples, pad_batch_pow2, pad_pcm
@@ -166,7 +171,10 @@ def _prepare(params: Params, prep) -> Params:
 def prepare_w8_params(params: Params, drop_fp: bool = True) -> Params:
     """Per-output-channel symmetric int8 quantisation of every big linear
     (layer linears and CTC head) into "wq8"/"ws8"; with drop_fp the float
-    weight is removed."""
+    weight is removed. The CTC head's weight (25,055 columns: rows not a
+    multiple of 16 bytes) is kept as a [K, N] view of zero-padded rows,
+    which kernel 2 loads by TMA as it lies; the layer weights stay
+    contiguous, as the layer and stack kernels read them."""
     def prep(p):
         wq, scale = quantize_weight_int8(p["w"], axis=0)
         out = dict(p)
@@ -176,7 +184,10 @@ def prepare_w8_params(params: Params, drop_fp: bool = True) -> Params:
             del out["w"]
         return out
 
-    return _prepare(params, prep)
+    out = _prepare(params, prep)
+    if "wq8" in out.get("ctc", {}):
+        out["ctc"]["wq8"] = align_rows(out["ctc"]["wq8"])
+    return out
 
 
 def prepare_w4_params(params: Params, drop_fp: bool = True, group: int = 128) -> Params:

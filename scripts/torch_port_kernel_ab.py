@@ -57,10 +57,13 @@ between launches; chip_smoke.graph_us):
   B 2 H 8 L 2,048 D 128, and the Phi-3 prefill B 1 H 32 Lq 1,920 Lk 4,096
   D 96 with the graph's own mask), with `F.scaled_dot_product_attention`
   (f32, TF32 off) beside it;
-- `w8_gemm` at the CTC head [171,512]x[512,25055] bf16 and at a layer's
-  four linears on the batch path (M = 684, a batch of 4 in the 10 s bucket;
-  1,512, the 75 s long-form request), with `torch.matmul` on the weight
-  dequantised to bf16 beside it;
+- `w8_gemm` at chip_smoke.W8_TIMED (the B = 1, batch and long-form CTC
+  heads, a layer's four linears on the batch path at M = 684 and 1,512,
+  MoE's qkv and out at 171), both versions within the plain version's
+  bf16 gate (the wgmma form changed its summation order), with `torch.matmul`
+  on the weight dequantised to bf16 beside it; each version's C entry is
+  called directly on contiguous operands (a parent entry that took bias,
+  res and relu gets none of them);
 - `estimator_blocks` (tts.json's widths, 8 blocks) at (T, Tk) = (1,024,
   320) and (512, 160), both versions within chip_smoke.EST_TOL of the plain
   version; and on the TTS main path's own traffic: chip_smoke's
@@ -72,8 +75,8 @@ between launches; chip_smoke.graph_us):
   chip_smoke.TTS_REL of the unfused route.
 
 It checks that the two versions give the same bits where both compute the
-same exact arithmetic (`dq_gemm`, `int8_gemm`, the layer, `w8_gemm`,
-`w4_gemm`'s tile form). Where a redesign sums in another order on
+same exact arithmetic (`dq_gemm`, `int8_gemm`, the layer, `w4_gemm`'s
+tile form). Where a redesign sums in another order on
 purpose, both versions are held to the plain version's gate instead:
 `lstm_seq` to max|d| <= 1e-5 (chip_smoke.LSTM_TOL),
 `w4_gemm`'s decode form to 1e-5·max|ref|, `gru_seq` to max|d| <= 1e-5
@@ -115,9 +118,6 @@ GRU_STEPS = (1875, 18750)
 # kernel 11's rows: the dynamic-int8 request at 1 s and 10 s, the quantized
 # batch of 4 in the 10 s bucket, the per-op compiled graph's 10 s bucket
 I8_ROWS = (T_SHORT, T_W, 4 * T_W, 196)
-# kernel 2's rows on the batch path: a batch of 4 in the 10 s bucket, and
-# the 75 s long-form request's three 30 s windows
-W8_BATCH_ROWS = (4 * T_W, 1512)
 # a case: fn() and, where its bits may differ between versions, the plain
 # version with its gate (relative to max|ref|, or absolute; with `close`,
 # torch.allclose at rtol tol and atol tol·max|ref|); a library call timed
@@ -179,6 +179,7 @@ def main(argv: list[str]) -> int:
                                                   and (root / f"{s}.cu").exists())]
            for v, root in (("old", old), ("new", new))}
     card = cs.card_identity()
+    root_of = {"old": old, "new": new}
     state = {}
     with tempfile.TemporaryDirectory() as d:
         (Path(d) / "old").mkdir()
@@ -208,6 +209,9 @@ def main(argv: list[str]) -> int:
                 _bind_dql(sanm_block, libs[version]["sanm_dql"])
             if "est_block" in stems:
                 _bind_est(est, libs[version]["est_block"])
+            if "w8_gemm" in stems:  # the parent's entry, called directly (its signature differs)
+                state["w8"] = _w8_direct(libs[version]["w8_gemm"],
+                                         "int relu" in (root_of[version] / "w8_gemm.cu").read_text())
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev)
@@ -246,7 +250,7 @@ def main(argv: list[str]) -> int:
         if "flash_attn" in stems:
             cases += _flash_cases(cs, dev, gen)
         if "w8_gemm" in stems:
-            cases += _w8_cases(dev, gen)
+            cases += _w8_cases(cs, dev, gen, state)
         if "est_block" in stems:
             cases += _est_cases(cs, dev, gen)
             use("new")
@@ -315,6 +319,34 @@ def main(argv: list[str]) -> int:
                   f"{_mean_us(dev_us['new'])}; {in_graph} [kernels, us: old "
                   f"{split['old']}; new {split['new']}]; {verdict}  ({card})")
     return 1 if failed else 0
+
+
+def _w8_direct(lib, with_epilogue: bool):
+    """A version's kernel-2 entry as a w8_matmul-like call on contiguous
+    operands (a parent entry that also took bias, res and relu gets none of
+    them; the new form writes rows padded to 16 bytes)."""
+    import torch
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.w8_gemm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([P, I, P, P, P, P, P, I, I, I, I, P] if with_epilogue
+                   else [P, I, P, I, P, P, I, I, I, I, P])
+
+    def call(x, wq, ws):
+        M, K = x.shape
+        N = wq.shape[1]
+        ldy = N if with_epilogue else -(-N // 4) * 4  # the new form's rows 16-byte aligned
+        y = torch.empty((M, ldy), dtype=torch.float32, device=x.device)[:, :N]
+        st = torch.cuda.current_stream().cuda_stream
+        args = ((x.data_ptr(), 1, wq.data_ptr(), ws.data_ptr(), None, None, y.data_ptr(), M, K,
+                 N, 0, st) if with_epilogue else
+                (x.data_ptr(), 1, wq.data_ptr(), N, ws.data_ptr(), y.data_ptr(), ldy, M, K, N, st))
+        code = fn(*args)
+        if code:
+            raise RuntimeError(f"w8_gemm: CUDA error {code}: {lib.lele_error_string(code)}")
+        return y
+    return call
 
 
 def _bind_flash(flash, lib, new_lib) -> None:
@@ -556,22 +588,26 @@ def _flash_cases(cs, dev, gen):
     return cases
 
 
-def _w8_cases(dev, gen):
-    """Kernel 2 at the w8a16 CTC head, with torch.matmul on the weight
-    dequantised to bf16 (chip_smoke's library call)."""
+def _w8_cases(cs, dev, gen, state):
+    """Kernel 2 at every shape its paths run (chip_smoke.W8_TIMED), both
+    versions within chip_smoke's bf16 gate of the plain version (max|d| <=
+    1e-3 max|ref|: the wgmma form sums in another order), with
+    torch.matmul on the weight dequantised to bf16 (chip_smoke's library
+    call). Each version's entry is called directly on contiguous operands
+    (a new form takes the same call as the parent's)."""
     import torch
 
     from lele_tpu_torch import kernels as K
 
     cases = []
-    for m, (k_, n_) in ((T_W, SHAPES[-1]),
-                        *((m, kn) for m in W8_BATCH_ROWS for kn in SHAPES[:-1])):
+    for m, k_, n_ in cs.W8_TIMED:
         x = torch.randn((m, k_), generator=gen, device=dev).to(torch.bfloat16)
         wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev, dtype=torch.int8)
         ws = torch.rand((n_,), generator=gen, device=dev) * 2e-3
         w_bf16 = (wq.float() * ws).to(torch.bfloat16)
         cases.append(Case(f"w8_gemm [{m},{k_}]x[{k_},{n_}] bf16",
-                          lambda x=x, wq=wq, ws=ws: K.w8_matmul(x, wq, ws),
+                          lambda x=x, wq=wq, ws=ws: state["w8"](x, wq, ws),
+                          lambda x=x, wq=wq, ws=ws: K.w8_matmul_plain(x, wq, ws), 1e-3,
                           library=lambda x=x, w=w_bf16: torch.matmul(x, w)))
     return cases
 
@@ -696,15 +732,14 @@ def _looped_layers(lib, fmt, x, mask, st, H, FK, group=128):
     fn.restype = ctypes.c_int
     y = x.to(torch.float32).contiguous().clone()
     T, D = y.shape
-    n_layers = st["norm1"]["g"].shape[0]
-    ts, F = sanm_block._operands(st, y.device, (n_layers,), D, FK, fmt, group, "looped")
+    n_layers, ts, F, ptrs, strides = sanm_block.layer_pointers(st, y.device, D, FK, fmt, group,
+                                                               "looped", stacked=True)
     scratch = [torch.empty((T, n), dtype=torch.float32, device=y.device)
                for n in (D, 3 * D, D, F)]
     ints = (T, D, H, F, FK) + ((group,) if fmt == "w4" else ())
     stream = torch.cuda.current_stream(y.device).cuda_stream
     for i in range(n_layers):
-        p = [None if t is None else t.data_ptr() + i * t.stride(0) * t.element_size()
-             for t in ts]
+        p = [None if q is None else q + i * b for q, b in zip(ptrs, strides)]
         code = fn(y.data_ptr(), mask.data_ptr(), *ints, *p[0:5], p[5],
                   int(ts[5].dtype == torch.bfloat16), *p[6:17],
                   *(s_.data_ptr() for s_ in scratch), stream)

@@ -1,5 +1,5 @@
-"""Kernels 1, 4, 5, 6, 7, 8, 9, 11 and 12 in their redesigned forms, and
-kernel 10, held against their plain versions on an NVIDIA card.
+"""Kernels 1, 2, 4, 5, 6, 7, 8, 9, 11 and 12 in their redesigned forms, and
+kernels 3 and 10, held against their plain versions on an NVIDIA card.
 
 Kernel 7's decode form (csrc/w4_gemv.cuh: few rows and the expert-indexed
 entry) sums in another f32 order than `w4_matmul_plain`, so it is held to
@@ -50,6 +50,17 @@ call. Kernel 6 (csrc/lstm_seq.cu: the register form up to H = 128, the
 cluster form above) is held to chip_smoke.LSTM_TOL at S = 1, 3, 312 and
 1,875, B = 1 and 3, H = 1, 16, 64, 96, 128 and 129, with the repeat and
 graph-replay bits.
+
+Kernel 2 (csrc/w8_gemm.cu: bf16 x on the warpgroup MMA, csrc/w8_wgmma.cuh;
+f32 x as f32 FMA) is held to chip_smoke's gates (max|d| <= 1e-3·max|ref|
+for bf16 x, 1e-5·max|ref| for f32 x) at M = 1, 171, 513, 684 and 1,512 for
+every chip_smoke.GEMM_SHAPES entry, at K = 520 with N = 25,055, on
+operands offset by slicing and on the heads' weights with their rows padded
+as the model keeps them; a repeat call and a CUDA-graph replay must
+give the eager call's bits, and each call is one launch. Kernel 3
+(csrc/sanm_layer.cu, seven launches a layer) is held to its plain version
+at the layer gate at T = 21, 87 (76 valid), 171 and 1,004, head dims 32,
+64 and 128, f32 and bf16 FSMN taps.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -568,3 +579,95 @@ def test_lstm_seq_graph_replay_and_one_launch(dev, h):
     assert cs.graph_same_bits(call)
     kernels = [n for kind, n in cs.graph_nodes(lambda: K.lstm_seq(*args)) if kind == "KERNEL"]
     assert len(kernels) == 1 and ("lstm_seq_reg" in kernels[0] or "rnn_seq_cluster" in kernels[0])
+
+
+# kernel 2 (csrc/w8_gemm.cu): chip_smoke's gates, every row count of its
+# paths and a ragged one, every GEMM_SHAPES entry, and a ragged K
+W8_CASES = [(m, k, n) for m in (1, 171, 513, 684, 1512) for k, n in cs.GEMM_SHAPES] + [
+    (171, 520, 25055), (37, 70, 30)]
+W8_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
+def _w8_operands(dev, m, k, n, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+    return x, wq, ws
+
+
+def _w8_check(x, wq, ws):
+    got = K.w8_matmul(x, wq, ws)
+    ref = K.w8_matmul_plain(x, wq, ws)
+    torch.cuda.synchronize()
+    d, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert d <= W8_TOL[x.dtype] * scale, f"max|d| {d:.3e} > {W8_TOL[x.dtype]:g} * {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k,n", W8_CASES, ids=[f"{m}x{k}x{n}" for m, k, n in W8_CASES])
+def test_w8_gemm_matches_plain(dev, dtype, m, k, n):
+    _w8_check(*_w8_operands(dev, m, k, n, dtype, m + k + n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_w8_gemm_offset_operands(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((176, 520), generator=gen, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (525, 1003), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((1004,), generator=gen, device=dev) * 2e-3 + 1e-4
+    _w8_check(x[3:], wq[5:], ws[1:])  # bases off 16-byte alignment, rows unaligned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(171, 512, 25055), (684, 512, 25055), (1512, 512, 25055),
+                                   (513, 520, 1003)])
+def test_w8_gemm_padded_rows(dev, m, k, n):
+    """The weight as prepare_w8_params keeps the CTC head: rows padded to a
+    multiple of 16 bytes, loaded by TMA."""
+    from lele_tpu_torch.kernels.quant_matmul import align_rows
+
+    x, wq, ws = _w8_operands(dev, m, k, n, torch.bfloat16, m + n)
+    _w8_check(x, align_rows(wq), ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(171, 512, 25055), (684, 2048, 512), (1512, 512, 1536),
+                                   (171, 512, 512)])
+def test_w8_gemm_one_launch_and_same_bits(dev, m, k, n):
+    from lele_tpu_torch.kernels.quant_matmul import align_rows
+
+    x, wq, ws = _w8_operands(dev, m, k, n, torch.bfloat16, 3)
+    wq = align_rows(wq)
+    assert torch.equal(K.w8_matmul(x, wq, ws), K.w8_matmul(x, wq, ws))
+    assert cs.graph_same_bits(lambda: K.w8_matmul(x, wq, ws))
+    kernels = [n_ for kind, n_ in cs.graph_nodes(lambda: K.w8_matmul(x, wq, ws))
+               if kind == "KERNEL"]
+    assert len(kernels) == 1 and "w8_wgmma" in kernels[0], kernels
+
+
+# kernel 3 (csrc/sanm_layer.cu): one layer at the layer gate
+LAYER_T = ((21, 21), (87, 76), (171, 171), (1004, 1004))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [torch.float32, torch.bfloat16], ids=["f32_taps", "bf16_taps"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("t,valid", LAYER_T, ids=[f"T{t}-{v}" for t, v in LAYER_T])
+def test_sanm_layer_matches_plain(dev, t, valid, hd, taps):
+    from lele_tpu_torch.kernels.sanm_block import layer_view
+
+    tree = cs.stack_tree("weight_int8", dev, n_layers=1, n_heads=512 // hd, seed=hd,
+                         fsmn_dtype=taps)
+    lp, heads, fk = layer_view(tree, 0), 512 // hd, 11
+    x, mask = _stack_inputs(dev, t, valid, 512, t + hd)
+    got = K.sanm_layer_w8(x, mask, lp, heads, fk)
+    ref = K.sanm_layer_w8_plain(x, mask, lp, heads, fk)
+    torch.cuda.synchronize()
+    g, r = got[:valid], ref[:valid]
+    scale = r.abs().max().item()
+    assert bool(torch.isfinite(g).all())
+    assert torch.allclose(g, r, rtol=2e-2, atol=2e-2 * scale), (g - r).abs().max().item()

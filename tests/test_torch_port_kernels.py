@@ -42,7 +42,8 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("m,k,n", [(23, 70, 45), (16, 64, 128), (5, 130, 33)])
+@pytest.mark.parametrize("m,k,n", [(23, 70, 45), (16, 64, 128), (5, 130, 33), (69, 128, 96),
+                                   (130, 256, 72)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_w8_matmul_plain_matches_pallas_and_jnp(m, k, n, dtype):
     rng = np.random.default_rng(m * k + n)
@@ -59,6 +60,88 @@ def test_w8_matmul_plain_matches_pallas_and_jnp(m, k, n, dtype):
     for want in (want_pallas, want_jnp):
         np.testing.assert_allclose(got, want, rtol=GEMM_RTOL,
                                    atol=GEMM_RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", [16, 25055, 1003])
+def test_pad_weight_rows_keeps_values_with_aligned_rows(n):
+    """Kernel 2 loads a weight by TMA, which needs its rows 16-byte aligned:
+    prepare_w8_params keeps an unaligned one (the CTC head's 25,055
+    columns) as a view of padded rows, with the same values and products."""
+    from lele_tpu_torch.kernels.quant_matmul import align_rows
+
+    rng = np.random.default_rng(n)
+    wq = torch.from_numpy(rng.integers(-127, 128, (9, n)).astype(np.int8))
+    got = align_rows(wq)
+    assert got.shape == wq.shape and torch.equal(got, wq)
+    assert got.stride(1) == 1 and got.stride(0) % 16 == 0
+    assert (got is wq) == (n % 16 == 0)
+    x = torch.from_numpy(rng.standard_normal((5, 9)).astype(np.float32)).to(torch.bfloat16)
+    ws = torch.from_numpy(rng.random(n).astype(np.float32))
+    assert torch.equal(K.w8_matmul(x, got, ws), K.w8_matmul_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("case", ["aligned", "k70", "base_off", "row_slice"])
+def test_align_rows_copies_only_unaligned_rows(case):
+    """Kernel 2's wrapper hands its bf16 operands through align_rows: rows
+    that TMA can load are passed as they lie, others (K % 8 != 0, a base
+    off 16 bytes) are copied into padded rows with the same values."""
+    from lele_tpu_torch.kernels.quant_matmul import align_rows
+
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.standard_normal((7, 70 if case == "k70" else 64))
+                           .astype(np.float32)).to(torch.bfloat16)
+    t = {"aligned": src, "k70": src, "base_off": src[:, 1:], "row_slice": src[1:]}[case]
+    got = align_rows(t)
+    assert got.shape == t.shape and torch.equal(got, t)
+    assert got.stride(1) == 1 and got.stride(0) % 8 == 0 and got.data_ptr() % 16 == 0
+    assert (got is t) == (case in ("aligned", "row_slice"))
+
+
+def test_prepare_w8_params_pads_only_the_ctc_head():
+    """The CTC head's weight (N % 16 != 0) is kept in 16-byte rows for
+    kernel 2; every layer weight stays contiguous for the layer and stack
+    kernels, whatever its width."""
+    from lele_tpu_torch.models import SenseVoiceConfig, SenseVoiceModel, prepare_w8_params
+
+    cfg = SenseVoiceConfig(n_layers=2, d_model=64, n_heads=2, ffn_dim=72, vocab_size=1003,
+                           weight_int8=True)
+    model = SenseVoiceModel(cfg, device="cpu")
+    model.init(0)
+    p = prepare_w8_params(model.params)
+    head = p["ctc"]["wq8"]
+    assert head.shape == (64, 1003) and head.stride() == (1008, 1)
+    for lp in p["layers"]:
+        for key in ("qkv", "out", "ffn1", "ffn2"):
+            assert lp[key]["wq8"].is_contiguous()
+
+
+def test_layer_pointers_give_each_layer_view():
+    """The C entries' operands: a per-layer tree is L = 1 with every stride
+    0; a stacked tree's leaves at pointer + i·stride are layer_view(i)'s."""
+    from lele_tpu_torch.kernels.sanm_block import layer_pointers, layer_view
+    from lele_tpu_torch.models import (
+        SenseVoiceConfig,
+        SenseVoiceModel,
+        cast_big_params,
+        prepare_w8_params,
+        stack_layer_params,
+    )
+
+    cfg = SenseVoiceConfig(n_layers=3, d_model=64, n_heads=2, ffn_dim=96, vocab_size=16,
+                           weight_int8=True)
+    model = SenseVoiceModel(cfg, device="cpu")
+    model.init(0)
+    stacked = stack_layer_params(prepare_w8_params(cast_big_params(
+        model.params, torch.bfloat16)))["layers_stacked"]
+    cpu = torch.device("cpu")
+    args = (cpu, cfg.d_model, cfg.fsmn_kernel, "w8", 0, "test")
+    L, ts, F, ptrs, strides = layer_pointers(stacked, *args, stacked=True)
+    assert (L, F, len(ts)) == (3, 96, 17)
+    assert all(b > 0 for q, b in zip(ptrs, strides) if q is not None)
+    for i in range(L):
+        one, _, f1, p1, s1 = layer_pointers(layer_view(stacked, i), *args, stacked=False)
+        assert (one, f1) == (1, 96) and s1 == [0] * 17
+        assert p1 == [None if q is None else q + i * b for q, b in zip(ptrs, strides)]
 
 
 def _layer_params(key, n_layers, bf16, n_heads=2):
