@@ -163,7 +163,19 @@
 30. the per-op compile of phase 6's int8 export (`patterns=[]`) with the
    default MatMulInteger emitter (kernel 11, once a node) and with the f64
    override: identical 10 s logits; both times;
-31. prints one JSON line of kernels, the card, and last
+31. YOLO26 detect and segment at full width, no kernel of its own (cuDNN
+   convs): `YoloOnnx` on fixtures/yolo26.onnx (640 x 640) in f32 and with
+   compute="bfloat16", each against the fixture's torch outputs at JAX's
+   gates, `detect` on a u8 image; the native `Yolo26Config()` (640, widths
+   32-256, 80 classes, 300 queries) detect and seg, bf16 and f32, behind
+   `Yolo26Engine` (`detect`, and a `detect_batch` of 5 padded to 8): each
+   request's head maps against the port's CPU run of the same params and
+   input, its selected cells against the CPU's wherever the order is
+   decided, its detections against the decode of those maps; times of the
+   compiled and native forwards (events, CUDA graph), beside the same
+   network as plain bf16 F.conv2d calls, `detect` by host clock, and a
+   profiled request;
+32. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -327,6 +339,18 @@ LLM_DECODE = 16
 # (tests/test_llm_decode_e2e.py:174)
 LLM_REL = 1e-4
 
+# YOLO26 (phase 31): the fixture's gates are JAX's own
+# (tests/test_fixture_e2e.py:144-186): f32 logits atol 2e-4, boxes 2e-3;
+# bf16 compute logits atol 2e-3, boxes rtol 2e-2 / atol 5e-2, argmax >= 0.99
+YOLO_F32_GATE = (2e-4, 2e-3)
+YOLO_BF16_GATE = (2e-3, 2e-2, 5e-2, 0.99)
+# the native head maps on the card against the port's CPU run of the same
+# params and input, relative to max|ref|: f32 sums in another order (f32
+# convs, TF32 off); bf16 rounds every conv's operands, so a summation-order
+# difference may move an activation to the neighbouring bf16 step (2^-8
+# relative) and carry it through the 11 convs after it
+YOLO_MAP_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+YOLO_BATCH = 5  # detect_batch of 5 images, padded to 8
 
 # the device's own time a call (us) of a kernel's row and of its library
 # call, where a phase measured it: {name: {"device_us": torch.profiler's or
@@ -2479,6 +2503,210 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     return q_launches
 
 
+def yolo_library_maps(params, x, cfg):
+    """The native network as plain bf16 F.conv2d calls, bf16 outputs,
+    channels_last (XLA's SAME pads by F.pad where they are asymmetric): the
+    library figure beside the port's f32-accumulating convs. x: [B, H, W, 3]
+    f32 → the class and box maps, bf16 NCHW."""
+    import torch
+    import torch.nn.functional as F
+
+    from lele_tpu_torch.models.common import same_pads
+
+    def conv(p, x, stride=1):
+        (hl, hh), (wl, wh) = (same_pads(x.shape[2 + i], p["w"].shape[2 + i], stride)
+                              for i in range(2))
+        if (hl, wl) == (hh, wh):
+            return F.conv2d(x, p["w"], p["b"], stride=stride, padding=(hl, wl))
+        return F.conv2d(F.pad(x, (wl, wh, hl, hh)), p["w"], p["b"], stride=stride)
+
+    x = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    x = F.silu(conv(params["stem"], x, 2))
+    for st in params["stages"]:
+        x = F.silu(conv(st["down"], x, 2))
+        x = x + conv(st["csp"]["c2"], F.silu(conv(st["csp"]["c1"], x)))
+    return conv(params["head_cls"], x), conv(params["head_box"], x)
+
+
+def library_params(params):
+    """bf16 channels_last weights and bf16 biases for `yolo_library_maps`."""
+    import torch
+
+    from lele_tpu_torch.params import tree_map
+
+    def cast(t):
+        t = t.to(torch.bfloat16)
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    return tree_map(cast, params)
+
+
+def decided_ranks(conf_ref, gap: float, n_q: int) -> list[int]:
+    """The ranks < n_q of the reference's descending confidences whose value
+    lies more than 2·gap from both neighbours': their cell is the same
+    whatever order values within `gap` of the reference's take."""
+    import torch
+
+    c = torch.sort(conf_ref, descending=True).values
+    d = c[:-1] - c[1:]
+    inf = torch.full((1,), float("inf"))
+    ok = (torch.cat([inf, d]) > 2 * gap) & (torch.cat([d, inf]) > 2 * gap)
+    return [k for k in ok.nonzero().flatten().tolist() if k < n_q]
+
+
+def yolo_phases(checks, dev, card) -> None:
+    """Phase 31: YOLO26 detect and segment at full width, the compiled
+    fixture graph in f32 and bf16 and the native detector behind
+    Yolo26Engine, each held to its reference; times. No kernel of the
+    port's own runs on this path (its convs are cuDNN's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch.models import Yolo26Config, Yolo26Model, YoloOnnx, decode_detections
+    from lele_tpu_torch.models.yolo26 import (query_indices, yolo26_forward, yolo26_head_maps,
+                                              yolo26_select)
+    from lele_tpu_torch.params import tree_map
+    from lele_tpu_torch.serving import Yolo26Engine
+
+    t_phase = time.perf_counter()
+    yrng = np.random.default_rng(SEED + 31)
+    print("== 31. YOLO26 detect and segment")
+    print("  (a) compiled: fixtures/yolo26.onnx at 640 x 640")
+    x = np.load(FIXTURES / "yolo26_input.npy")
+    want_l = np.load(FIXTURES / "yolo26_logits.npy")
+    want_b = np.load(FIXTURES / "yolo26_boxes.npy")
+    img = yrng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    for compute in (None, "bfloat16"):
+        name = compute or "float32"
+        t0 = time.perf_counter()
+        yo = YoloOnnx(FIXTURES / "yolo26.onnx", img_size=640, compute=compute, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        logits, boxes = yo.forward(x)
+        dl, db = np.abs(logits - want_l).max(), np.abs(boxes - want_b).max()
+        agree = float((logits.argmax(-1) == want_l.argmax(-1)).mean())
+        shapes = (logits.shape == want_l.shape and boxes.shape == want_b.shape
+                  and logits.dtype == boxes.dtype == np.float32
+                  and np.isfinite(logits).all() and np.isfinite(boxes).all())
+        if compute is None:
+            ok = shapes and dl <= YOLO_F32_GATE[0] and db <= YOLO_F32_GATE[1]
+            gate = f"logits atol {YOLO_F32_GATE[0]:g}, boxes atol {YOLO_F32_GATE[1]:g}"
+        else:
+            la, br, ba, ag = YOLO_BF16_GATE
+            ok = (shapes and dl <= la and agree >= ag
+                  and np.all(np.abs(boxes - want_b) <= ba + br * np.abs(want_b)))
+            gate = f"logits atol {la:g}, boxes rtol {br:g} atol {ba:g}, argmax >= {ag}"
+        checks.require(ok, f"YoloOnnx {name} vs the fixture's torch outputs: logits max|d| "
+                           f"{dl:.3e}, boxes {db:.3e}, argmax agreement {agree:.4f} ({gate})")
+        dets = yo.detect(img, 0.0)
+        checks.require(len(dets) == 300 and all(np.isfinite(d["xyxy"]).all() for d in dets),
+                       f"YoloOnnx {name} detect on a u8 480x640 image: {len(dets)} queries, "
+                       f"{len(yo.detect(img))} at 0.25")
+        xd = torch.from_numpy(x).to(dev)
+        ev, gr = time_ms(lambda: yo.forward_device(xd)), graph_us(lambda: yo.forward_device(xd))
+        det = host_ms(lambda: yo.detect(img))
+        print(f"  YoloOnnx {name}: compile {compile_s:.3f} s; forward {ev:.4f} ms by events, "
+              f"{gr:.2f} us in a CUDA graph; detect with preprocessing {det:.3f} ms by host "
+              f"clock  ({card})")
+
+    print("  (b) native detector and seg head, Yolo26Config() (640, widths 32-256, 80 "
+          "classes, 300 queries)")
+    imgs = [yrng.integers(0, 256, (480 + 16 * i, 640, 3), dtype=np.uint8)
+            for i in range(1 + YOLO_BATCH)]
+    for seg in (False, True):
+        base = Yolo26Model(Yolo26Config(segmentation=seg), device=dev)
+        base.init(SEED)
+        cpu_params = tree_map(lambda t: t.cpu(), base.params)
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(base.cfg, dtype=dtype)
+            label = f"{'seg' if seg else 'detect'} {dtype}"
+            model = Yolo26Model(cfg, params=base.params, device=dev)
+            eng = Yolo26Engine(model=model, conf_threshold=0.25)
+            for req, batch in (("detect", imgs[:1]), (f"detect_batch of {YOLO_BATCH}", imgs[1:])):
+                outs = eng.detect_batch(batch) if len(batch) > 1 else [eng.detect(batch[0])]
+                n, size = len(batch), cfg.img_size
+                xin = np.zeros((8 if n > 1 else 1, size, size, 3), np.float32)
+                xin[:n] = [eng._to_input(im) for im in batch]
+                with torch.inference_mode():
+                    xd = torch.from_numpy(xin).to(dev)
+                    maps = yolo26_head_maps(model.params, xd, cfg)
+                    sel = yolo26_select(maps, cfg)
+                    ref = yolo26_head_maps(cpu_params, torch.from_numpy(xin[:n]), cfg)
+                torch.cuda.synchronize()
+                rel = YOLO_MAP_REL[dtype]
+                gaps, d_cls = {}, 0.0
+                for k, r in ref.items():
+                    d, m, _ = compare(maps[k][:n].cpu(), r)
+                    gaps[k] = d / m
+                    d_cls = d if k == "cls" else d_cls
+                checks.require(max(gaps.values()) <= rel and all(
+                    bool(torch.isfinite(v).all()) for v in maps.values()),
+                    f"{label} {req}: head maps vs the CPU, max|d|/max|ref| " + ", ".join(
+                        f"{k} {g:.2e}" for k, g in gaps.items()) + f" (gate {rel:g})")
+                n_q = min(cfg.n_queries, (size // 2 ** len(cfg.widths)) ** 2)
+                want = [(n, n_q, cfg.n_classes), (n, n_q, 4)]
+                if seg:
+                    want += [(n, n_q, cfg.n_mask_coeffs), (n, size // 8, size // 8, cfg.n_protos)]
+                checks.require([tuple(o[:n].shape) for o in sel] == want,
+                               f"{label} {req}: outputs {[tuple(o[:n].shape) for o in sel]}")
+                # (c) selection: the CPU's cells wherever the order is decided.
+                # A confidence (the max of a cell's class logits) moves by at
+                # most the class map's max|d|, so a rank more than twice that
+                # from both neighbours holds the same cell on both sides
+                idx = query_indices(maps["cls"], cfg.n_queries)[:n].cpu()
+                idx_ref = query_indices(ref["cls"], cfg.n_queries)
+                n_dec = n_bad = 0
+                for i in range(n):
+                    ranks = decided_ranks(ref["cls"][i].flatten(0, 1).amax(-1), d_cls,
+                                          cfg.n_queries)
+                    n_dec += len(ranks)
+                    n_bad += int((idx[i, ranks] != idx_ref[i, ranks]).sum())
+                checks.require(n_bad == 0 and (n_dec > 0 or dtype == "bfloat16"),
+                               f"{label} {req}: selection, {n_dec} of {n * cfg.n_queries} "
+                               f"ranks decided (> 2 x {d_cls:.2e} from both neighbours), "
+                               f"{n_bad} of them on another cell than the CPU's")
+                scores, boxes = (o[:n].cpu().numpy() for o in sel[:2])
+                same = all(o == decode_detections(scores[i:i + 1], boxes[i:i + 1], 0.25)
+                           for i, o in enumerate(outs))
+                checks.require(same, f"{label} {req}: the engine's detections are the "
+                                     f"decode of these maps ({sum(map(len, outs))} kept)")
+            # (d) times
+            for b in (1, 8):
+                xd = torch.from_numpy(np.stack([eng._to_input(im) for im in
+                                                (imgs * 2)[:b]])).to(dev)
+
+                def fwd():
+                    with torch.inference_mode():
+                        return yolo26_forward(model.params, xd, cfg)
+
+                print(f"  native {label} B={b}: forward {time_ms(fwd):.4f} ms by events, "
+                      f"{graph_us(fwd):.2f} us in a CUDA graph  ({card})")
+                if dtype == "bfloat16" and not seg:
+                    lp = library_params(model.params)
+                    xl = xd.contiguous()
+
+                    def lib():
+                        with torch.inference_mode():
+                            return yolo_library_maps(lp, xl, cfg)
+
+                    with torch.inference_mode():
+                        lc = lib()[0].permute(0, 2, 3, 1).float()
+                        pc = yolo26_head_maps(model.params, xd, cfg)["cls"]
+                    d, m, _ = compare(lc, pc)
+                    print(f"  library bf16 F.conv2d network B={b}: {time_ms(lib):.4f} ms by "
+                          f"events, {graph_us(lib):.2f} us in a CUDA graph; its class map vs "
+                          f"the port's max|d|/max|ref| {d / m:.2e}  ({card})")
+            det = host_ms(lambda: eng.detect(imgs[0]))
+            bat = host_ms(lambda: eng.detect_batch(imgs[1:]), runs=3)
+            print(f"  {label}: detect {det:.3f} ms, detect_batch of {YOLO_BATCH} {bat:.3f} ms "
+                  f"by host clock, with preprocessing  ({card})")
+            if dtype == "bfloat16":
+                profile_top(lambda: eng.detect(imgs[0]), f"{label} detect request", card)
+    print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2989,6 +3217,7 @@ def main() -> int:
     llm_launches = llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     s8_launches = slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                                 model, sv_ref, inputs10)
+    yolo_phases(checks, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

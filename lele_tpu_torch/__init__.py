@@ -5,9 +5,10 @@ module layout and names, so each module here has a counterpart there:
 
 - ``lele_tpu_torch.params``    JAX param pytree (numpy leaves) → torch tensors
 - ``lele_tpu_torch.features``  audio front-end: framing, fbank, LFR, CMVN
-- ``lele_tpu_torch.models``    SenseVoice w8a16/w4a16, Silero VAD and
-                               Supertonic TTS, and ``SenseVoiceOnnx`` /
-                               ``SileroOnnx`` / ``SupertonicOnnx`` over
+- ``lele_tpu_torch.models``    SenseVoice w8a16/w4a16, Silero VAD,
+                               Supertonic TTS and YOLO26 detect/segment, and
+                               ``SenseVoiceOnnx`` / ``SileroOnnx`` /
+                               ``SupertonicOnnx`` / ``YoloOnnx`` over
                                compiled ONNX graphs (``models.checkpoints``)
 - ``lele_tpu_torch.onnx``      wire codec, loader, graph builder, SAN-M synth
 - ``lele_tpu_torch.ops``       ONNX op emitters (numpy when folding, torch
@@ -16,7 +17,10 @@ module layout and names, so each module here has a counterpart there:
 - ``lele_tpu_torch.runtime``   ``CompiledModel``, length bucketing
 - ``lele_tpu_torch.kernels``   hand-written Hopper kernels (CUDA C++ under
                                ``csrc/``), each beside its plain PyTorch version
-- ``lele_tpu_torch.serving``   ``SenseVoiceEngine``, ``TtsEngine``
+- ``lele_tpu_torch.serving``   ``SenseVoiceEngine``, ``Yolo26Engine``,
+                               ``TtsEngine``
+- ``lele_tpu_torch.utils``     CTC decoding, tokenizer, WAV IO, image
+                               preprocessing
 
 A kernel wrapper takes its plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. Entry points run on

@@ -6,8 +6,12 @@ lele_tpu/compiler/__init__.py).
 graph once on the device (compiler/tracer.py). `patterns=None` takes the
 default patterns (the fused SAN-M stack and the fused DQL GEMM);
 `patterns=[]` gives the per-op path. `device` defaults to the card and
-raises where there is none. The JAX package's mesh, AOT, image-stem and
-precision/compute options have no counterpart here.
+raises where there is none. `compute="bfloat16"` is the JAX package's
+compute policy: large f32 params stored in bf16, f32 inputs cast to it, bf16
+outputs returned as f32 (compiler/tracer.py). JAX's
+`precision="default"` needs no knob here: bf16 operands on cuDNN and cuBLAS
+are its counterpart. The JAX package's mesh, AOT and image-stem options have
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ class Compiler:
     def compile(self, model: OnnxModel | str | Path | bytes,
                 input_shapes: dict[str, Sequence[int]] | None = None,
                 dim_values: dict[str, int] | None = None,
-                device: torch.device | str | None = None) -> CompiledModel:
+                device: torch.device | str | None = None,
+                compute: str | None = None) -> CompiledModel:
+        if compute not in (None, "bfloat16"):
+            raise ValueError(f"compute={compute!r}: expected None or 'bfloat16'")
         if isinstance(model, (bytes, bytearray, memoryview)):
             model = OnnxModel.from_bytes(bytes(model))
         elif not isinstance(model, OnnxModel):
@@ -67,7 +74,7 @@ class Compiler:
         specs = resolve_input_specs(model, input_shapes, dim_values)
         tracer = GraphTracer(model, overrides=self._overrides,
                              patterns=self._patterns, strict=self._strict)
-        trace = tracer.build(specs, device)
+        trace = tracer.build(specs, device, compute=torch.bfloat16 if compute else None)
         return CompiledModel(trace, specs, input_order=model.input_names(),
                              output_names=model.output_names(), stats=tracer.stats)
 
@@ -114,10 +121,11 @@ def compile_model(
     strict: bool = False,
     patterns: Sequence | None = None,
     device: torch.device | str | None = None,
+    compute: str | None = None,
 ) -> CompiledModel:
     c = Compiler()
     for k, v in (overrides or {}).items():
         c.with_override(k, v)
     if patterns is not None:
         c.with_patterns(patterns)
-    return c.with_strict(strict).compile(model, input_shapes, dim_values, device)
+    return c.with_strict(strict).compile(model, input_shapes, dim_values, device, compute)

@@ -34,6 +34,13 @@ GraphProto once, record the device work, replay it per request.
   device → host read a replay. Both branches must give outputs of the same
   shapes, since later shape arithmetic folds on one of them.
 
+- **A compute dtype** (`build(..., compute=torch.bfloat16)`, JAX's
+  `compute="bfloat16"`): the walk runs on f32 inputs cast to it, and every
+  hoisted f32 value of at least `PARAM_THRESHOLD` elements (the JAX tracer's
+  bar for a runtime param; a smaller one stays a literal there) is stored in
+  it. Smaller constants keep f32, so an f32 scalar promotes the value it
+  meets, as under jnp (the binary emitters promote as jnp does).
+
 Loop, Scan and SequenceMap raise NotImplementedError: no graph the port runs
 has one yet.
 """
@@ -55,6 +62,9 @@ from ..ops.registry import canon_domain, lookup_op
 from ..ops.tensor_ops import torch_dtype
 
 _SUBGRAPH_OPS = ("Loop", "Scan", "SequenceMap")
+# the JAX tracer's size bar for hoisting a static value to a runtime param;
+# under a compute dtype only such params are stored in it
+PARAM_THRESHOLD = 256
 
 
 def _is_static(v) -> bool:
@@ -268,6 +278,7 @@ class TraceState:
     # dynamic steps by what they compute (common-subexpression reuse)
     cse: dict = field(default_factory=dict)
     n_reused: int = 0
+    compute: torch.dtype | None = None  # see the module docstring
 
     def to_device(self, name: str, v) -> torch.Tensor:
         """A static value on the device, once per name (param hoisting)."""
@@ -276,6 +287,9 @@ class TraceState:
             a = np.array(v)  # a writable copy: torch takes no read-only view
             t = torch.from_numpy(a).to(self.device) if a.dtype.name != "bfloat16" \
                 else torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(self.device)
+            if (self.compute is not None and t.dtype == torch.float32
+                    and t.numel() >= PARAM_THRESHOLD):
+                t = t.to(self.compute)
             self.params[name] = self.tape.const(t)
         return t
 
@@ -467,26 +481,31 @@ class GraphTracer:
 
     def build(self, input_specs: dict[str, tuple[tuple, np.dtype]],
               device: torch.device | str,
-              constants: dict[str, np.ndarray] | None = None) -> TraceState:
+              constants: dict[str, np.ndarray] | None = None,
+              compute: torch.dtype | None = None) -> TraceState:
         """Walk the graph once at the given static input signature on
         `device` and return the trace: its tape (inputs in
         `model.input_names()` order, outputs in graph order), its device
         params and its stats. Graph inputs named in `constants` are bound to
         those host values: they fold like initializers and are not inputs
-        of the tape."""
+        of the tape. `compute` is the module docstring's compute dtype: the
+        tape then takes f32 inputs in that type."""
         graph = self.model.graph
         constants = constants or {}
         in_names = [n for n in self.model.input_names() if n not in constants]
         for n in in_names:
             if n not in input_specs:
                 raise ValueError(f"missing input spec for {n!r}")
-        state = TraceState(device=torch.device(device), strict=self.strict)
+        state = TraceState(device=torch.device(device), strict=self.strict, compute=compute)
         env: dict[str, Any] = {"": None}
         env.update((n, np.asarray(v)) for n, v in constants.items())
         with torch.inference_mode():
             for n in in_names:
                 shape, dt = input_specs[n]
-                env[n] = torch.zeros(tuple(shape), dtype=torch_dtype(dt), device=state.device)
+                tdt = torch_dtype(dt)
+                if compute is not None and tdt == torch.float32:
+                    tdt = compute
+                env[n] = torch.zeros(tuple(shape), dtype=tdt, device=state.device)
                 state.tape.input(env[n])
             outs = self._walk_graph(state, graph, env, "")
             state.tape.finish([

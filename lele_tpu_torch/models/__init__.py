@@ -1,9 +1,9 @@
 """Model families of the port (counterpart of lele_tpu.models): SenseVoice
 (f32/bf16, w8a16, w4a16, dynamic int8, MoE; batch, long-form and
-streaming), Silero VAD and Supertonic TTS, native; all three also run from
-ONNX (`models.checkpoints`)."""
+streaming), Silero VAD, Supertonic TTS and the YOLO26 detector and
+segmenter, native; all four also run from ONNX (`models.checkpoints`)."""
 
-from .checkpoints import SenseVoiceOnnx, SileroOnnx, SupertonicOnnx  # noqa: F401
+from .checkpoints import SenseVoiceOnnx, SileroOnnx, SupertonicOnnx, YoloOnnx  # noqa: F401
 from .common import cast_big_params  # noqa: F401
 from .sensevoice import (  # noqa: F401
     SenseVoiceConfig,
@@ -43,4 +43,13 @@ from .supertonic import (  # noqa: F401
     normalize_text,
     prepare_chunks,
     supertonic_params_from_jax,
+)
+from .yolo26 import (  # noqa: F401
+    Yolo26Config,
+    Yolo26Model,
+    compose_masks,
+    decode_detections,
+    init_yolo26,
+    yolo26_forward,
+    yolo26_params_from_jax,
 )

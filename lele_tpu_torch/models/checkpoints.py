@@ -1,6 +1,6 @@
 """Compiled ONNX checkpoints with a model family's pipeline around them
-(counterpart of lele_tpu/models/checkpoints.py): SenseVoice, Silero VAD and
-Supertonic TTS.
+(counterpart of lele_tpu/models/checkpoints.py): SenseVoice, Silero VAD,
+YOLO-class detectors and Supertonic TTS.
 """
 
 from __future__ import annotations
@@ -218,6 +218,61 @@ class SileroOnnx:
         probs = self.speech_probs(pcm, sr)
         return collect_segments(probs, VadSegmentConfig(threshold=threshold, sample_rate=sr,
                                                         chunk=self.chunk))
+
+
+class YoloOnnx:
+    """A compiled YOLO-class detector: image → NMS-free decode; the graph gives
+    logits and boxes as two outputs or one [1, N, 4+C].
+
+    Takes the ONNX file's path or its bytes, compiled for one [1, 3, img_size,
+    img_size] input. `compute="bfloat16"` runs it under the JAX package's
+    compute policy (bf16 weights and activations; f32 at the API); None
+    keeps f32, with cuDNN's TF32 off. `device` defaults to
+    `default_device()`, which raises where there is no CUDA card. JAX's
+    image-stem rewrite (`pack_image_stem`, the TPU's space-to-depth lanes)
+    has no counterpart: the port owes its outputs only."""
+
+    def __init__(self, path: str | Path | bytes, img_size: int = 640,
+                 compute: str | None = None, device: torch.device | str | None = None):
+        from ..compiler import compile_model
+
+        model = _load(path)
+        self.device = torch.device(device) if device is not None else default_device()
+        name = model.input_names()[0]
+        self.cm = compile_model(model, input_shapes={name: (1, 3, img_size, img_size)},
+                                compute=compute, device=self.device)
+        self.img_size = img_size
+
+    def forward(self, x_chw: np.ndarray) -> list[np.ndarray]:
+        """[1, 3, H, W] f32 → the graph's outputs, numpy, f32."""
+        return self.cm.run_np(np.asarray(x_chw, np.float32))
+
+    def prepare(self, image: np.ndarray) -> torch.Tensor:
+        """u8 HWC image → nearest resize, /255 in f32, NCHW, uploaded once; the
+        tensor can go to `forward_device` again and again (JAX's slow path and
+        its packed fast path give these bits)."""
+        from ..utils.image import preprocess
+
+        x = np.ascontiguousarray(np.transpose(preprocess(image, self.img_size), (0, 3, 1, 2)))
+        return torch.from_numpy(x).to(self.device)
+
+    def forward_device(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The compiled graph on an input already on the device."""
+        return self.cm(x)
+
+    def detect(self, image: np.ndarray, threshold: float = 0.25) -> list[dict]:
+        return self.decode(self.forward_device(self.prepare(image)), threshold)
+
+    def decode(self, outs, threshold: float = 0.25) -> list[dict]:
+        from .yolo26 import decode_detections
+
+        outs = [o.cpu().numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
+                for o in outs]
+        if len(outs) >= 2 and outs[1].ndim == 3 and outs[1].shape[-1] == 4:
+            logits, boxes = outs[0], outs[1]
+        else:  # one [1, N, 4 + C]
+            boxes, logits = outs[0][..., :4], outs[0][..., 4:]
+        return decode_detections(logits, boxes, threshold)
 
 
 class SupertonicOnnx:

@@ -1,9 +1,9 @@
 """Shared building blocks (counterpart of lele_tpu/models/common.py).
 
 Params are nested dicts of tensors, in the JAX package's layouts: linear
-weights [d_in, d_out], conv weights [C_out, C_in/g, k], LSTM weights
-[d_in, 4H] and [H, 4H] (gates i, f, g, o), activations feature-last
-[B, T, D].
+weights [d_in, d_out], conv weights [C_out, C_in/g, k] and
+[C_out, C_in/g, k, k], LSTM weights [d_in, 4H] and [H, 4H] (gates i, f, g,
+o), activations feature-last ([B, T, D]; images NHWC).
 
 "bf16 operands, f32 accumulation" (JAX's `preferred_element_type=f32`) is
 written as a float32 product of bf16-rounded operands: the product of two
@@ -104,6 +104,44 @@ def conv1d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: 
                                     allow_tf32=False):
         y = F.conv1d(xt, w.float(), None, stride=stride, dilation=dilation, groups=groups)
     return y.transpose(1, 2) + p["b"]
+
+
+def init_conv2d(gen: torch.Generator, c_in: int, c_out: int, k: int,
+                groups: int = 1) -> Params:
+    """Uniform(±1/sqrt(C_in/g·k·k)) weight [C_out, C_in/g, k, k], zero bias."""
+    scale = 1.0 / np.sqrt(c_in // groups * k * k)
+    return {"w": _uniform(gen, (c_out, c_in // groups, k, k), scale),
+            "b": torch.zeros((c_out,), dtype=torch.float32, device=gen.device)}
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x [B, H, W, C] (NHWC, as the JAX package) → [B, H', W', C_out], f32.
+
+    JAX rounds x and w to `dtype` and keeps the f32 accumulator
+    (`preferred_element_type=f32`) and the f32 bias: here an f32 conv of the
+    rounded operands. `padding` is "SAME", "VALID" or ((lo, hi), (lo, hi));
+    XLA's SAME is asymmetric where the total is odd (a stride-2 3x3 conv of
+    an even size pads (0, 1)), so the NHWC input is padded first. The conv
+    runs channels_last: the padded NHWC tensor, permuted, already is that
+    layout, and so is cuDNN's output, so neither side copies. cuDNN's TF32
+    is on for a 16-bit `dtype` (its values are exact in TF32 and their
+    products exact in f32: the same arithmetic on tensor cores) and off
+    otherwise."""
+    w = p["w"]
+    if padding == "SAME":
+        pads = [same_pads(x.shape[1 + i], w.shape[2 + i], stride) for i in range(2)]
+    elif padding == "VALID":
+        pads = [(0, 0), (0, 0)]
+    else:
+        pads = padding
+    (hl, hh), (wl, wh) = pads
+    xp = F.pad(round_to(x, dtype), (0, 0, wl, wh, hl, hh))
+    tf32 = dtype in (torch.bfloat16, torch.float16)
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=tf32):
+        y = F.conv2d(xp.permute(0, 3, 1, 2), round_to(w, dtype), None, stride=stride,
+                     groups=groups)
+    return y.permute(0, 2, 3, 1) + p["b"]
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:

@@ -7,16 +7,17 @@ export variants add, Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
 LSTM, which the Silero-class graphs add, GRU and RNN, Constant,
 ConstantOfShape, Expand, Where, Tanh, Softplus and ConvTranspose, which the
 Supertonic graphs add, Attention, RotaryEmbedding, Swish, TensorScatter,
-RMSNormalization and Gelu, which opset-23 LLM step graphs add, and the
-com.microsoft ops MatMulNBits (`contrib_ops`), MoE and QMoE (`moe_ops`),
-keyed on their domain. Any other op type follows the JAX
-dispatch rule: a warning and an empty value, or a raise in strict mode.
+RMSNormalization and Gelu, which opset-23 LLM step graphs add, ImageDecoder
+(`io_ops`, host-side at trace time), and the com.microsoft ops MatMulNBits
+(`contrib_ops`), MoE and QMoE (`moe_ops`), keyed on their domain. Conv takes
+1-3 spatial dims. Any other op type follows the JAX dispatch rule: a warning and an empty value, or a raise in strict mode.
 """
 
 from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     contrib_ops,
+    io_ops,
     math_ops,
     moe_ops,
     nn_ops,

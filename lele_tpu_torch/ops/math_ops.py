@@ -12,23 +12,36 @@ from ..features.framing import frame_signal
 from .registry import OpContext, op, static_ints
 
 
+def _promote(a, b):
+    """Two float operands of different types in the wider one, as jnp
+    promotes them: torch keeps a bf16 tensor bf16 against an f32 0-dim
+    tensor, where jnp gives f32 (a compiled graph's f32 scalar constant
+    meeting its bf16 activations under a compute dtype)."""
+    if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.dtype != b.dtype
+            and a.is_floating_point() and b.is_floating_point()):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return a.to(dt), b.to(dt)
+    return a, b
+
+
 @op("Add")
 def add(ctx: OpContext, a, b):
-    return ctx.xp.add(a, b)
+    return ctx.xp.add(*_promote(a, b))
 
 
 @op("Sub")
 def sub(ctx: OpContext, a, b):
-    return ctx.xp.subtract(a, b)
+    return ctx.xp.subtract(*_promote(a, b))
 
 
 @op("Mul")
 def mul(ctx: OpContext, a, b):
-    return ctx.xp.multiply(a, b)
+    return ctx.xp.multiply(*_promote(a, b))
 
 
 @op("Div")
 def div(ctx: OpContext, a, b):
+    a, b = _promote(a, b)
     if ctx.is_fold:
         a_ = np.asarray(a)
         if np.issubdtype(a_.dtype, np.integer):

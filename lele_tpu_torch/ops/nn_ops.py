@@ -1,6 +1,7 @@
 """NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
-RMSNormalization, Conv and ConvTranspose for the 1-D case (the FSMN's depthwise memory conv,
-Silero's STFT and conv stack, the Supertonic vocoder's upsampling), and the
+RMSNormalization, Conv over 1-3 spatial dims (the FSMN's depthwise memory
+conv, Silero's STFT and conv stack, YOLO-class image backbones),
+ConvTranspose for the 1-D case (the Supertonic vocoder's upsampling), and the
 recurrent LSTM, GRU and RNN."""
 
 from __future__ import annotations
@@ -40,26 +41,30 @@ def _resolve_pads(ctx: OpContext, x_shape, k_shape, strides, dilations):
     return out
 
 
+_CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
 @op("Conv", foldable=False)
 def conv(ctx: OpContext, x, w, b=None):
-    """1-D convolution [N, C, T] (grouped, strided, dilated, padded). cuDNN's
-    TF32 is turned off for it, so a card computes it in full f32."""
+    """Convolution over 1-3 spatial dims, [N, C, *spatial] (grouped, strided,
+    dilated, padded): the pads, asymmetric or SAME_*, are applied by F.pad
+    first. cuDNN's TF32 is turned off for it (its default is on), so a card
+    computes an f32 conv in full f32."""
     rank = x.dim() - 2
-    if rank != 1:
-        raise NotImplementedError(f"Conv over {rank} spatial dims is not ported "
-                                  "yet (the port has the 1-D case)")
+    if rank not in _CONV_FNS:
+        raise NotImplementedError(f"Conv over {rank} spatial dims: the port has 1-3")
     kshape = ctx.attr_ints("kernel_shape", list(w.shape[2:]))
-    strides = ctx.attr_ints("strides", [1])
-    dilations = ctx.attr_ints("dilations", [1])
+    strides = ctx.attr_ints("strides", [1] * rank)
+    dilations = ctx.attr_ints("dilations", [1] * rank)
     group = ctx.attr("group", 1)
-    (p0, p1), = _resolve_pads(ctx, tuple(x.shape), kshape, strides, dilations)
-    xp = F.pad(x, (p0, p1))
+    pads = _resolve_pads(ctx, tuple(x.shape), kshape, strides, dilations)
+    xp = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
-        out = F.conv1d(xp, w.to(x.dtype), None, stride=strides[0],
-                       dilation=dilations[0], groups=group)
+        out = _CONV_FNS[rank](xp, w.to(x.dtype), None, stride=strides,
+                              dilation=dilations, groups=group)
     if b is not None:
-        out = out + b.to(out.dtype).reshape(1, -1, 1)
+        out = out + b.to(out.dtype).reshape((1, -1) + (1,) * rank)
     return out
 
 

@@ -1,12 +1,15 @@
 """Serving engines (counterpart of lele_tpu/serving.py): ASR, WAV bytes in,
-token ids (or text, with a tokenizer) out; TTS, text in, WAV bytes out."""
+token ids (or text, with a tokenizer) out; detection, an image (array or
+encoded bytes) in, detections out; TTS, text in, WAV bytes out."""
 
 from __future__ import annotations
 
+import io
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from .utils.wav import decode_wav_bytes, encode_wav
 
@@ -74,6 +77,55 @@ class SenseVoiceEngine:
         if self.tokenizer is not None:
             return [self.tokenizer.decode(i) for i in ids]
         return ids
+
+
+@dataclass
+class Yolo26Engine:
+    """detect(image array | JPEG/PNG bytes) and detect_batch(images) → lists
+    of detections. With no model it builds a random-weight `Yolo26Model` on
+    `device` (by default `default_device()`, which raises where there is no
+    CUDA card). JAX's `mesh` (data-parallel serving) is not ported."""
+
+    model: Any = None
+    conf_threshold: float = 0.25
+    device: Any = None
+
+    def __post_init__(self):
+        if self.model is None:
+            from .models import Yolo26Model
+
+            self.model = Yolo26Model(device=self.device)
+            self.model.init(0)
+
+    def _to_input(self, image) -> np.ndarray:
+        from .utils.image import preprocess
+
+        if isinstance(image, (bytes, bytearray)):
+            from PIL import Image
+
+            image = np.asarray(Image.open(io.BytesIO(image)).convert("RGB"))
+        return preprocess(image, self.model.cfg.img_size)[0]
+
+    def detect(self, image) -> list[dict]:
+        return self.detect_batch([image])[0]
+
+    def detect_batch(self, images: list) -> list[list[dict]]:
+        """One forward for N images, the batch padded to a power of two up to
+        8 (`runtime.bucketing.pad_batch_pow2`) with zero images."""
+        from .models import decode_detections
+        from .runtime.bucketing import pad_batch_pow2
+
+        if not images:
+            return []
+        arrs = [self._to_input(im) for im in images]
+        n = len(arrs)
+        x = np.zeros((pad_batch_pow2(n),) + arrs[0].shape, np.float32)
+        for i, a in enumerate(arrs):
+            x[i] = a
+        outs = self.model.forward_fn()(self.model.params, torch.from_numpy(x).to(self.model.device))
+        scores, boxes = (o[:n].cpu().numpy() for o in outs[:2])
+        return [decode_detections(scores[i : i + 1], boxes[i : i + 1], self.conf_threshold)
+                for i in range(n)]
 
 
 @dataclass

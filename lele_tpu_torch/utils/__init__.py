@@ -1,1 +1,2 @@
-"""Host utilities of the port (counterpart of lele_tpu.utils)."""
+"""Host utilities of the port (counterpart of lele_tpu.utils): CTC decoding,
+the tokenizer, WAV IO and image preprocessing."""

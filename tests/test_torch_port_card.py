@@ -62,6 +62,10 @@ give the eager call's bits, and each call is one launch. Kernel 3
 at the layer gate at T = 21, 87 (76 valid), 171 and 1,004, head dims 32,
 64 and 128, f32 and bf16 FSMN taps.
 
+YOLO26 runs no kernel of the port's own: the Conv emitter's 2-D forms and
+the native head maps (detect and seg, f32 and bf16, full width) are held to
+the CPU on the card, at 1e-5·max|ref| and chip_smoke.YOLO_MAP_REL.
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -671,3 +675,78 @@ def test_sanm_layer_matches_plain(dev, t, valid, hd, taps):
     scale = r.abs().max().item()
     assert bool(torch.isfinite(g).all())
     assert torch.allclose(g, r, rtol=2e-2, atol=2e-2 * scale), (g - r).abs().max().item()
+
+
+# YOLO26: no kernel of the port's own (its convs are cuDNN's); the Conv
+# emitter's 2-D forms and the native head maps on the card against the CPU.
+# cuDNN's global TF32 flag is set on here: the emitter and an f32 conv2d
+# must turn it off themselves
+CONV2D_CARD = {
+    "stride2_pads1": ((2, 3, 64, 64), (16, 3, 3, 3), dict(strides=[2, 2], pads=[1, 1, 1, 1])),
+    "asym_pads": ((1, 8, 33, 20), (12, 8, 3, 2), dict(pads=[0, 2, 1, 0])),
+    "same_upper_even": ((1, 16, 40, 40), (32, 16, 3, 3),
+                        dict(strides=[2, 2], auto_pad="SAME_UPPER")),
+    "same_lower_odd": ((1, 16, 41, 39), (32, 16, 3, 3),
+                       dict(strides=[2, 2], auto_pad="SAME_LOWER")),
+    "dilation2": ((1, 8, 30, 30), (8, 8, 3, 3), dict(dilations=[2, 2], pads=[2, 2, 2, 2])),
+    "groups4": ((1, 32, 20, 20), (32, 8, 3, 3), dict(group=4, pads=[1, 1, 1, 1])),
+    "depthwise": ((1, 64, 20, 20), (64, 1, 3, 3), dict(group=64, pads=[1, 1, 1, 1])),
+    "1x1_head": ((1, 64, 20, 20), (20, 64, 1, 1), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONV2D_CARD))
+def test_conv_emitter_on_card_matches_cpu(dev, case):
+    from lele_tpu_torch.onnx import OnnxModel
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.ops import make_ctx, nn_ops
+
+    xs, ws, attrs = CONV2D_CARD[case]
+    data = ob.build_model_bytes([ob.node("Conv", ["x", "w", "b"], ["y"], **attrs)],
+                                [ob.value_info(n, 1, []) for n in ("x", "w", "b")],
+                                [ob.value_info("y", 1, [])])
+    ctx = make_ctx(torch, OnnxModel.from_bytes(data).graph.node[0], 17)
+    rng = np.random.default_rng(len(case))
+    x, w, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in (xs, ws, (ws[0],)))
+    ref = nn_ops.conv(ctx, x, w, b)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = nn_ops.conv(ctx, x.to(dev), w.to(dev), b.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seg", [False, True], ids=["detect", "seg"])
+def test_yolo_head_maps_on_card_match_cpu(dev, seg, dtype):
+    """Yolo26Config() at full width (640, widths 32-256), one u8 image, at
+    chip_smoke's phase-31 gates (cs.YOLO_MAP_REL)."""
+    from lele_tpu_torch.models import Yolo26Config, Yolo26Model
+    from lele_tpu_torch.models.yolo26 import yolo26_head_maps
+    from lele_tpu_torch.params import tree_map
+
+    cfg = Yolo26Config(segmentation=seg, dtype=dtype)
+    m = Yolo26Model(cfg, device=dev)
+    m.init(31)
+    img = torch.from_numpy(np.random.default_rng(31).integers(0, 256, (1, 640, 640, 3),
+                                                              dtype=np.uint8))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = yolo26_head_maps(m.params, img.to(dev), cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    with torch.inference_mode():
+        ref = yolo26_head_maps(tree_map(lambda t: t.cpu(), m.params), img, cfg)
+    assert sorted(got) == sorted(ref)
+    for k, r in ref.items():
+        g = got[k].cpu()
+        assert g.dtype == torch.float32 and g.shape == r.shape and bool(torch.isfinite(g).all())
+        assert (g - r).abs().max().item() <= cs.YOLO_MAP_REL[dtype] * r.abs().max().item(), k

@@ -196,7 +196,9 @@ def test_port_runs_without_jax():
     (a prefill on the flash route's plain version, two decode steps); and
     slice 8: a dynamic-int8 model on both routes, transcribe_batch,
     transcribe_long, recognize_batch with a tokenizer, beam decoding, a
-    streaming step, and a MatMulInteger graph both ways."""
+    streaming step, and a MatMulInteger graph both ways; and slice 15:
+    YoloOnnx on the fixture (bf16 compute) and a small seg model behind
+    Yolo26Engine, with no PIL imported (the card machine has none)."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -338,7 +340,21 @@ def test_port_runs_without_jax():
         "y0 = compile_model(bs, device='cpu', strict=True, overrides={\n"
         "    'MatMulInteger': quant_ops.matmul_integer_plain}).run_np(x=x)[0]\n"
         "assert y.dtype == np.int32 and np.array_equal(y, y0)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'lele_tpu')\n"
+        "from lele_tpu_torch.serving import Yolo26Engine\n"
+        "yo = YoloOnnx('fixtures/yolo26.onnx', device='cpu', compute='bfloat16')\n"
+        "logits, boxes = yo.forward(np.load('fixtures/yolo26_input.npy'))\n"
+        "assert logits.shape == (1, 300, 16) and boxes.dtype == np.float32\n"
+        "img = np.random.default_rng(5).integers(0, 256, (128, 160, 3), dtype=np.uint8)\n"
+        "assert len(yo.detect(img, 0.0)) == 300\n"
+        "ycfg = Yolo26Config(img_size=128, widths=(8, 16, 32, 64), segmentation=True)\n"
+        "ym = Yolo26Model(ycfg, device='cpu'); ym.init(0)\n"
+        "eng = Yolo26Engine(model=ym, conf_threshold=0.0)\n"
+        "dets = eng.detect_batch([img, img[:100]])\n"
+        "assert len(dets) == 2 and len(dets[0]) == 64\n"
+        "s, b, c, p = ym.forward_fn()(ym.params, img[None, :128, :128])\n"
+        "assert p.shape == (1, 16, 16, 32) and compose_masks(c.numpy(), p.numpy(),\n"
+        "    b.numpy(), [0, 1], 128).shape == (2, 128, 128)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
