@@ -175,7 +175,23 @@
    compiled and native forwards (events, CUDA graph), beside the same
    network as plain bf16 F.conv2d calls, `detect` by host clock, and a
    profiled request;
-32. prints one JSON line of kernels, the card, and last
+32. holds every captured path against its uncaptured oracle at full width.
+   Since the runtime captures one CUDA graph a bucket (runtime/graphs.py),
+   phases 4-31 already drive the captured paths; each phase registers its
+   path (CAPTURED): the native bucketed programs (w8a16, w4a16, dynamic int8
+   on kernel 11 and on kernel 5, MoE), the batch of 3 and the 75 s
+   long-form, SileroVad's scan and streaming step, the streaming ASR decode
+   step, and the CompiledModel graphs (the compiled SenseVoice, SileroOnnx in
+   blocks, MatMulNBits, GRU, QMoE decode, the per-op int8 graph, the
+   opset-23 prefill and decode step, YoloOnnx), and the native YOLO26
+   behind Yolo26Engine. For each: the same bits, or the path's card gate
+   where cuBLAS or cuDNN may take another algorithm under capture; the
+   uncaptured path's launch counts; a second call on other inputs that
+   leaves the first call's outputs as they were; one program for both
+   inputs of a bucket; both paths' times by host clock and events with the
+   device's busy share; the memory reserved after the captures; then 32b,
+   SileroOnnx's block size (1, 8, 32, 128 and 312 chunks a graph);
+33. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -356,6 +372,20 @@ YOLO_BATCH = 5  # detect_batch of 5 images, padded to 8
 # call, where a phase measured it: {name: {"device_us": torch.profiler's or
 # None, "graph_us": in a CUDA graph, "library_device_us", "library_graph_us"}}
 DEVICE_US: dict[str, dict[str, float | None]] = {}
+
+# phase 32: the captured paths, each against its uncaptured oracle. label →
+# {"after": i → the captured path's outputs on inputs i (0 or 1), "before":
+# i → the uncaptured path's, "rel": None where the two must give the same
+# bits (our kernels, elementwise work, and library calls that take the same
+# algorithm under capture), else the path's card gate, max|d| <=
+# rel·max|ref| (cuBLAS and cuDNN may pick another algorithm under capture),
+# "programs": the `Programs` that must not grow on the second call (one
+# program serves every length of a bucket), or None}; the phases that build
+# each path register it
+CAPTURED: dict[str, dict] = {}
+# SileroOnnx's BLOCK, the chunks a captured graph, measured at 10 s (312
+# chunks; 312 is the whole request in one graph)
+SILERO_BLOCKS = (1, 8, 32, 128, 312)
 
 
 class Checks:
@@ -575,8 +605,6 @@ def graph_nodes(fn) -> list[tuple[str, str]]:
     the captured graph through the driver (cuGraphGetNodes,
     cuGraphNodeGetType, cuGraphKernelNodeGetParams, cuFuncGetName). Every
     launch the call makes is a node, whatever a profiler would record."""
-    import ctypes
-
     import torch
 
     side = torch.cuda.Stream()
@@ -588,6 +616,16 @@ def graph_nodes(fn) -> list[tuple[str, str]]:
     with torch.cuda.graph(graph):
         fn()
     torch.cuda.synchronize()
+    out = read_graph_nodes(graph)
+    graph.reset()
+    return out
+
+
+def read_graph_nodes(graph) -> list[tuple[str, str]]:
+    """A captured CUDA graph's nodes as `graph_nodes` gives them; the graph
+    was made with keep_graph=True."""
+    import ctypes
+
     cu = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -613,7 +651,6 @@ def graph_nodes(fn) -> list[tuple[str, str]]:
                 elif kern.value and cu.cuKernelGetName(ctypes.byref(cname), kern) == 0:
                     name = cname.value.decode()
         out.append((GRAPH_NODE_TYPES.get(kind.value, f"type {kind.value}"), name))
-    graph.reset()
     return out
 
 
@@ -720,6 +757,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
 
     from lele_tpu_torch import kernels as K
     from lele_tpu_torch.models import SileroConfig, SileroOnnx, SileroVad, VadSegmentConfig
+    from lele_tpu_torch.models.silero import silero_scan, silero_step, zero_state
     from lele_tpu_torch.ops import nn_ops
 
     print("== 7. kernel 6 (lstm_seq) vs plain on the card")
@@ -776,6 +814,23 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     segs = vad.segments(requests[2][0], seg_cfg)
     checks.require(isinstance(segs, list) and all(0 <= a < b for a, b in segs),
                    f"60 s segments at the median threshold: {len(segs)} ordered segments")
+    vad_chunks = [torch.from_numpy(vad.frame_chunks(requests[k][0])).to(dev) for k in (1, 2)]
+    register("SileroVad offline scan, 10 s and 60 s (kernel 6)",
+             lambda i: vad.scan_fn(VAD_SR)(vad.params, vad_chunks[i]),
+             lambda i: silero_scan(vad.params, vad_chunks[i], vad.cfg, VAD_SR))
+    step_chunks = [c[:1].clone() for c in vad_chunks]
+
+    register("SileroVad streaming step, state donated (no kernel)",
+             lambda i: vad.step_fn(VAD_SR)(vad.params, step_chunks[i],
+                                           zero_state(vad.cfg, device=dev)),
+             lambda i: silero_step(vad.params, step_chunks[i], zero_state(vad.cfg, device=dev),
+                                   vad.cfg, VAD_SR))
+    sessions = [[c[t:t + 1] for t in range(4)] for c in vad_chunks]
+    register("SileroVad streaming step, two sessions interleaved through one program",
+             lambda i: interleaved(lambda c, s: vad.step_fn(VAD_SR)(vad.params, c, s),
+                                   sessions, [zero_state(vad.cfg, device=dev)] * 2, i),
+             lambda i: interleaved(lambda c, s: silero_step(vad.params, c, s, vad.cfg, VAD_SR),
+                                   sessions, [zero_state(vad.cfg, device=dev)] * 2, i))
 
     print("== 9. compiled main path: SileroOnnx on fixtures/silero.onnx")
     sv = SileroOnnx(SILERO_FIXTURE, device=dev)
@@ -803,6 +858,10 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
         checks.require(p.shape == (n10,) and bool(np.isfinite(p).all()) and d <= VAD_PROB_TOL,
                        f"SileroOnnx {rate} Hz: {n10} probabilities, vs the lstm_plain "
                        f"override max|d| {d:.3e} <= {VAD_PROB_TOL:g}")
+    onnx_pcms = [pcm10, vad_pcm(10.0, VAD_SR, np.random.default_rng(SEED + 9))]
+    register(f"SileroOnnx 10 s at 16 kHz (kernel 6 once a chunk, blocks of {sv.BLOCK})",
+             lambda i: sv.speech_probs(onnx_pcms[i], 16000),
+             lambda i: silero_onnx_stepwise(sv, onnx_pcms[i], 16000))
     gap = float(np.abs(onnx_probs[16000] - onnx_probs[8000]).max())
     checks.require(gap > 1e-4, f"the If took each rate's front-end: the rates' probabilities "
                                f"differ by up to {gap:.3e}")
@@ -921,6 +980,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
         stack_layer_params,
     )
     from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.runtime.bucketing import pad_pcm
     from lele_tpu_torch.serving import SenseVoiceEngine
 
     W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
@@ -1006,6 +1066,10 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
     checks.require(all(launches[k] == 0 for k in ("w8_gemm", "sanm_layer_w8", "sanm_stack_w8",
                                                   "dq_gemm", "sanm_stack_dql")),
                    "no w8 or int8 kernel on the w4 path")
+    register_ids("SenseVoice w4a16 bucketed B = 1 (kernels 8, 7), 10 s and 8.5 s of one bucket",
+                 model, [(p[None], [n]) for p, n in (
+                     pad_pcm(synth_speechlike(s, np.random.default_rng(SEED + 41)))
+                     for s in (10.0, 8.5))])
     pcm10 = synth_speechlike(10.0, np.random.default_rng(SEED + 1))
     fwd, fwd_plain = model.forward_fn(), model.forward_fn(plain=True)
     got, ref = fwd(model.params, pcm10), fwd_plain(model.params, pcm10)
@@ -1050,6 +1114,8 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
     print(f"  graph: {len(graph) / 1e6:.1f} MB of ONNX bytes, {len(nodes)} MatMulNBits, "
           f"both paths compiled in {time.perf_counter() - t0:.2f} s")
     a = torch.from_numpy(grng.standard_normal((NBITS_ROWS, 512)).astype(np.float32)).to(dev)
+    register_cm(f"MatMulNBits graph, {NBITS_ROWS} rows (kernel 7 once a node)", cm,
+                [{"a": a}, {"a": torch.randn(a.shape, generator=gen, device=dev)}])
     hits = cm.stats["pattern_hits"]
     checks.require(hits.get("matmul_nbits_w4") == 2 * len(nodes) and not
                    cm_ref.stats["pattern_hits"],
@@ -1326,6 +1392,9 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     print(f"  six compiles in {time.perf_counter() - t0:.2f} s")
     xs = {k: torch.from_numpy(grng.standard_normal((S, 4 if k == "ragged" else 1, 128))
                               .astype(np.float32)).to(dev) for k in cms}
+    register_cm(f"ONNX GRU graph, bidirectional, {S} steps (kernel 9 a direction)", cms[1],
+                [{"x": xs[1]}, {"x": torch.randn(xs[1].shape, generator=gen, device=dev)}],
+                rel=1e-5)
     routes = dict(nn_ops.RNN_ROUTES)
     K.reset_launch_counts()
     outs = {k: cms[k](x=xs[k]) for k in (1, 0)}
@@ -1382,6 +1451,10 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
                       torch.from_numpy(grng.standard_normal((rows, hidden))
                                        .astype(np.float32)).to(dev))
     print(f"  graph: {len(bs) / 1e6:.1f} MB of ONNX bytes (packed experts)")
+    x1 = qmoe[MOE_ROWS[0]][3]
+    register_cm(f"QMoE decode layer, {MOE_ROWS[0]} row (kernel 7 three times)",
+                qmoe[MOE_ROWS[0]][0], [{"x": x1}, {"x": torch.randn(x1.shape, generator=gen,
+                                                                     device=dev)}], rel=1e-5)
     K.reset_launch_counts()
     fused = {rows: qmoe[rows][0](x=qmoe[rows][3])[0] for rows in MOE_ROWS[:2]}
     torch.cuda.synchronize()
@@ -1569,6 +1642,270 @@ def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> None:
           f"{span_us / n:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
     for e in sorted(rows, key=lambda e: -dev_time(e))[:top]:
         print(f"    {dev_time(e) / n:10.1f} us  x{e.count // n:<5d} {e.key[:90]}")
+
+
+def interleaved(step, chunks, states, i: int) -> list:
+    """Streams 0 and 1 through step(chunk, state) → (out, state), their
+    calls alternating (on input i = 1 stream 1 goes first), each carrying
+    its own state: the outputs in call order, then each stream's last
+    state. Through one captured program, a stream must not see the
+    other's state."""
+    states, outs = list(states), []
+    for t in range(len(chunks[0])):
+        for k in ((0, 1) if i == 0 else (1, 0)):
+            out, states[k] = step(chunks[k][t], states[k])
+            outs.append(out)
+    return outs + states
+
+
+def register(label: str, after, before, rel: float | None = None, programs=None) -> None:
+    CAPTURED[label] = {"after": after, "before": before, "rel": rel, "programs": programs}
+
+
+def register_ids(label: str, model, inputs, rel: float | None = None) -> None:
+    """A SenseVoiceModel's bucketed or batched program (`_run_ids`) on two
+    (pcm [B, n], n_valid [B]) inputs of one bucket, against its body
+    (`_ids_fn()`) run eagerly on the same inputs."""
+    import numpy as np
+    import torch
+
+    def before(i):
+        batch, lens = inputs[i]
+        return model._ids_fn()(torch.from_numpy(batch).to(model.device),
+                               torch.from_numpy(np.asarray(lens, np.int64)).to(model.device))
+
+    register(label, lambda i: model._run_ids(*inputs[i]), before, rel, model.programs)
+
+
+def register_cm(label: str, cm, inputs, rel: float | None = None) -> None:
+    """A CompiledModel's captured call against `replay()` (step by step)."""
+    def after(i):
+        out = cm(**inputs[i])
+        if not cm.stats["captured"]:
+            raise RuntimeError(f"{label}: the model was not captured ({cm.stats})")
+        return out
+
+    register(label, after, lambda i: cm.replay(**inputs[i]), rel)
+
+
+def _card_tensors(out) -> list:
+    """A path's outputs (tensors, numpy arrays, trees of them) as one list of
+    tensors on the card."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch.runtime.graphs import flatten
+
+    leaves, _ = flatten(out)
+    return [(torch.from_numpy(v) if isinstance(v, np.ndarray) else v).cuda()
+            for v in leaves if isinstance(v, (np.ndarray, torch.Tensor))]
+
+
+def busy(fn) -> tuple[float, float]:
+    """(device us, host span us) of one fn() (ending in a sync) under
+    torch.profiler; the device time only from device-side rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        span_us = (time.perf_counter() - t0) * 1e6
+    return sum(dev_time(e) for e in prof.key_averages()
+               if dev_time(e) > 0 and e.device_type != DeviceType.CPU), span_us
+
+
+# each wrapper's kernels (csrc `__global__` names), exactly one of which runs
+# a launch (the helpers beside them, such as kernel 5's quantize pass or
+# kernel 12's statistics, are not listed); wrappers that share a kernel are
+# counted together (`launch_groups`)
+LAUNCH_KERNELS = {
+    "w8_gemm": ("w8_wgmma", "w8_gemm_f32"),
+    "sanm_layer_w8": ("attn_fsmn",),
+    "sanm_stack_w8": ("sanm_stack_kernel",),
+    "sanm_stack_w4": ("sanm_stack_kernel",),
+    "dq_gemm": ("dq_gemm_mma", "dq_gemm_strip"),
+    "int8_gemm": ("dq_gemm_strip",),
+    "sanm_stack_dql": ("sanm_dql_kernel",),
+    "lstm_seq": ("lstm_seq_reg", "rnn_seq_cluster"),
+    "gru_seq": ("gru_seq_reg", "rnn_seq_cluster"),
+    "w4_gemm": ("w4_gemm_mma", "w4_gemm_f32", "w4_gemv_mma", "w4_gemv"),
+    "flash_attn": ("flash_attn_tf32", "flash_attn_ffma"),
+}
+
+
+def launch_groups() -> list[tuple[set, set]]:
+    """(wrappers, kernel names) of LAUNCH_KERNELS, merged where wrappers
+    share a kernel."""
+    groups: list[tuple[set, set]] = []
+    for w, names in LAUNCH_KERNELS.items():
+        ws, ns = {w}, set(names)
+        for g in [g for g in groups if g[1] & ns]:
+            groups.remove(g)
+            ws, ns = ws | g[0], ns | g[1]
+        groups.append((ws, ns))
+    return groups
+
+
+def is_kernel(node_name: str, name: str) -> bool:
+    """A kernel node's (mangled) function name is csrc kernel `name`."""
+    return node_name == name or f"{len(name)}{name}" in node_name
+
+
+def program_launch_check(checks, label: str, calls: list) -> None:
+    """The programs one captured call went through: each one's graph holds,
+    group by group, as many kernel nodes of our kernels as the launches it
+    recorded at capture (its `_delta`), which each replay adds to
+    `launch_counts()`."""
+    import torch
+
+    for prog in {id(p): p for p in calls}.values():
+        try:
+            nodes = [n for k, n in read_graph_nodes(prog.graph) if k == "KERNEL"]
+        except (RuntimeError, OSError, TypeError, AttributeError) as e:
+            checks.require(False, f"{label}: {prog.name}'s graph not read ({e})")
+            continue
+        delta = {k: v for k, v in prog._delta[0].items() if v}
+        unmapped = sorted(set(delta) - set(LAUNCH_KERNELS))
+        per = []
+        for ws, ns in launch_groups():
+            got = sum(any(is_kernel(n, k) for k in ns) for n in nodes)
+            want = sum(delta.get(w, 0) for w in ws)
+            if got or want:
+                per.append(("+".join(sorted(ws)), got, want))
+        checks.require(not unmapped and all(g == w for _, g, w in per),
+                       f"{label}: {prog.name}'s graph, {len(nodes)} kernel nodes: "
+                       + (", ".join(f"{w} {g} nodes for {n} counted launches"
+                                    for w, g, n in per) or "none of ours, no launch counted")
+                       + (f"; no kernel names for {unmapped}" if unmapped else ""))
+
+
+def capture_phase(checks, card) -> None:
+    """Phase 32: every registered path, captured against uncaptured: the
+    gate, the launch counts, a second call on other inputs, the program
+    count, and both paths' times.
+
+    A replay runs no wrapper, so the captured path's launch counts are the
+    ones its programs recorded at capture: the kernel nodes of each program
+    the captured call went through are held against them, and the counts
+    the call added against the sum of those programs' records."""
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.runtime.graphs import Program
+
+    print(f"== 32. one CUDA graph a bucket: each captured path against its uncaptured "
+          f"oracle ({card})")
+    t_phase = time.perf_counter()
+    for label, e in CAPTURED.items():
+        after, before, rel, progs = e["after"], e["before"], e["rel"], e["programs"]
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            calls, call = [], Program.__call__
+            Program.__call__ = lambda prog, *a: (calls.append(prog), call(prog, *a))[1]
+            try:
+                a0 = _card_tensors(after(0))
+            finally:
+                Program.__call__ = call
+            torch.cuda.synchronize()
+            ca = K.launch_counts()
+            n_prog = len(progs) if progs is not None else None
+            K.reset_launch_counts()
+            b0 = _card_tensors(before(0))
+            torch.cuda.synchronize()
+            cb = K.launch_counts()
+            keep = [t.clone() for t in a0]
+            a1, b1 = _card_tensors(after(1)), _card_tensors(before(1))
+            torch.cuda.synchronize()
+        pairs = list(zip(a0, b0)) + list(zip(a1, b1))
+        shapes = (len(a0) == len(b0) and len(a1) == len(b1)
+                  and all(a.shape == b.shape and a.dtype == b.dtype for a, b in pairs))
+        same = shapes and all(torch.equal(a, b) for a, b in pairs)
+        worst = max(((a.double() - b.double()).abs().max().item()
+                     / max(b.double().abs().max().item(), 1e-30))
+                    for a, b in pairs if a.numel()) if shapes else float("inf")
+        gate = "the same bits" if rel is None else f"max|d|/max|ref| <= {rel:g}"
+        checks.require(same if rel is None else (shapes and worst <= rel),
+                       f"{label}: captured vs uncaptured on two inputs: "
+                       f"{'the same bits' if same else f'max|d|/max|ref| {worst:.3e}'} "
+                       f"(gate: {gate})")
+        moved = {k: v for k, v in ca.items() if v}
+        checks.require(ca == cb, f"{label}: launch counts of one call, captured {moved} = "
+                                 f"uncaptured {dict((k, v) for k, v in cb.items() if v)}")
+        checks.require(all(torch.equal(k, a) for k, a in zip(keep, a0)),
+                       f"{label}: a second call on other inputs left the first call's "
+                       "outputs as they were")
+        if progs is not None:
+            checks.require(len(progs) == n_prog,
+                           f"{label}: one program served both inputs ({n_prog} programs)")
+        hb = host_ms(lambda: (before(0), torch.cuda.synchronize()))
+        ha = host_ms(lambda: (after(0), torch.cuda.synchronize()))
+        eb, ea = time_ms(lambda: before(0), runs=10), time_ms(lambda: after(0), runs=10)
+        recorded = {k: sum(p._delta[0][k] for p in calls) for k in ca}
+        checks.require(bool(calls) and recorded == ca,
+                       f"{label}: the captured call went through {len(calls)} program calls, "
+                       f"whose recorded launches {dict((k, v) for k, v in recorded.items() if v)}"
+                       f" are its counts")
+        program_launch_check(checks, label, calls)
+        (db, sb), (da, sa) = (busy(lambda: (before(0), torch.cuda.synchronize())),
+                              busy(lambda: (after(0), torch.cuda.synchronize())))
+        print(f"  {label}: uncaptured {hb:.3f} ms by host clock, {eb:.3f} ms by events, "
+              f"device {db:.1f} us, busy {db / sb:.3f}; captured {ha:.3f} ms, {ea:.3f} ms, "
+              f"device {da:.1f} us, busy {da / sa:.3f}  ({card})")
+    print(f"  torch.cuda.max_memory_reserved() after the captures: "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB (reserved now "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)  ({card})")
+    print(f"  phase 32 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def silero_blocks(checks, dev, card) -> None:
+    """Phase 32b: SileroOnnx's BLOCK (chunks a captured graph) at 10 s and 16
+    kHz: each size's first request (its graphs captured), its times and its
+    probabilities against the uncaptured path's bits."""
+    import numpy as np
+
+    from lele_tpu_torch.models import SileroOnnx
+
+    print(f"== 32b. SileroOnnx blocks of {', '.join(map(str, SILERO_BLOCKS))} chunks a graph, "
+          f"10 s at 16 kHz ({card})")
+    pcm = vad_pcm(10.0, VAD_SR, np.random.default_rng(SEED + 33))
+    ref = None
+    for b in SILERO_BLOCKS:
+        sv = SileroOnnx(SILERO_FIXTURE, device=dev)
+        sv.BLOCK = b
+        sv.compiled(VAD_SR)  # the trace, outside the first request's time
+        t0 = time.perf_counter()
+        probs = sv.speech_probs(pcm, VAD_SR)
+        first = time.perf_counter() - t0
+        if ref is None:
+            ref = silero_onnx_stepwise(sv, pcm, VAD_SR)
+        sizes = sv.blocks(len(ref))
+        checks.require(np.array_equal(probs, ref),
+                       f"SileroOnnx BLOCK {b}: {len(ref)} probabilities, the uncaptured "
+                       f"path's bits")
+        host = host_ms(lambda: sv.speech_probs(pcm, VAD_SR))
+        ev = time_ms(lambda: sv.speech_probs(pcm, VAD_SR), runs=10)
+        d_us, span = busy(lambda: sv.speech_probs(pcm, VAD_SR))
+        print(f"  BLOCK {b}: {len(sizes)} replays a request ({len(set(sizes))} graphs); first "
+              f"request {first:.3f} s (warm-up and capture); {host:.3f} ms by host clock, "
+              f"{ev:.3f} ms by events, device {d_us:.1f} us, busy {d_us / span:.3f}  ({card})")
+
+
+def silero_onnx_stepwise(sv, pcm, sr: int):
+    """SileroOnnx's speech_probs before capture: one step-by-step replay of
+    the tape a chunk, the state carried on the card, one read at the end."""
+    import torch
+
+    cm = sv.compiled(sr)
+    x = torch.from_numpy(sv._chunks(pcm, None)).to(sv.device)
+    state, probs = sv._state0(cm), []
+    for i in range(x.shape[0]):
+        prob, state = cm.replay(x[i:i + 1], state)[:2]
+        probs.append(prob.reshape(()))
+    return torch.stack(probs).cpu().numpy()
 
 
 def est_bound(T: int, Tk: int, D: int, F: int, n_blocks: int) -> tuple[float, str]:
@@ -2072,6 +2409,18 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
                        f"{cfg['vocab']}): kernel route vs plain-Attention compile, worst "
                        f"max|d|/max|ref| {worst:.2e} <= {LLM_REL:g}; tokens {toks[:6]}...")
 
+    def llm_inputs(n, start, seed):
+        zeros = {f"c{kv}{i}": torch.zeros(cache_shape, device=dev)
+                 for i in range(cfg["layers"]) for kv in "kv"}
+        ids = np.random.default_rng(seed).integers(0, cfg["vocab"], (1, n))
+        return {**{key: torch.from_numpy(a).to(dev)
+                   for key, a in attn23_step_feeds(ids, start, L).items()}, **zeros}
+
+    register_cm(f"opset-23 prefill of {LLM_PROMPTS[0]} tokens (kernel 12 once a layer)",
+                steps[LLM_PROMPTS[0]], [llm_inputs(LLM_PROMPTS[0], 0, s) for s in (1, 2)],
+                rel=LLM_REL)
+    register_cm("opset-23 decode step (the einsum path, no kernel)", steps[1],
+                [llm_inputs(1, start, s) for start, s in ((7, 3), (900, 4))], rel=LLM_REL)
     print(f"== 24b. LLM timings (CUDA events and host clock, median of warm runs; {card})")
     for n in LLM_PROMPTS:
         ids = prompts[n]
@@ -2199,7 +2548,7 @@ def i8_bound(M: int, K: int, N: int) -> tuple[float, str]:
 
 
 def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_model,
-                  sv_ref, inputs10) -> dict:
+                  sv_ref, inputs10, inputs10b) -> dict:
     """Phases 25-30: kernel 11 against its plain version; SenseVoice dynamic
     int8 at full width behind SenseVoiceEngine with a tokenizer, both
     routes; batch and long-form on phase 4's w8 model; MoE; streaming; the
@@ -2223,7 +2572,10 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
         stack_layer_params,
     )
     from lele_tpu_torch.models.sensevoice import pad_rows
+    from lele_tpu_torch.models.sensevoice_stream import init_stream_state, stream_step
     from lele_tpu_torch.ops.quant_ops import matmul_integer_plain
+    from lele_tpu_torch.runtime.bucketing import pad_pcm
+    from lele_tpu_torch.runtime.graphs import flatten
     from lele_tpu_torch.serving import SenseVoiceEngine, decode_wav
     from lele_tpu_torch.utils.tokenizer import CtcTokenizer, synthetic_vocab
 
@@ -2313,6 +2665,10 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     checks.require(all(v == 0 for k, v in q_launches.items() if k != "int8_gemm"),
                    "no w8, w4, dq_gemm or other kernel on the quantized path")
     pcm10 = pcms[-1]
+    q_inputs = [(p[None], [n]) for p, n in (
+        pad_pcm(synth_speechlike(s, np.random.default_rng(SEED + 42))) for s in (10.0, 8.5))]
+    register_ids("SenseVoice dynamic int8 bucketed B = 1 (kernel 11, 200 a call), 10 s and "
+                 "8.5 s", qmodel, q_inputs)
     fwd_q, fwd_qp = qmodel.forward_fn(), qmodel.forward_fn(plain=True)
     got, ref = fwd_q(qmodel.params, pcm10), fwd_qp(qmodel.params, pcm10)
     d, scale, _ = compare(got, ref)
@@ -2322,6 +2678,8 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                    f"{QUANT_REL:g} * {scale:.3e}")
     q5 = SenseVoiceModel(dataclasses.replace(qcfg, quant_pallas=True), device=dev)
     q5.params = qmodel.params
+    register_ids("SenseVoice dynamic int8, quant_pallas, bucketed B = 1 (kernel 5, 200 a call)",
+                 q5, q_inputs)
     engine5 = SenseVoiceEngine(model=q5, tokenizer=tok)
     K.reset_launch_counts()
     texts5 = [engine5.recognize(w) for w in wavs]
@@ -2371,6 +2729,10 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                        f"{agree_gate}")
 
     batch_check("batch logits", w8_model, batch, lens, 5e-2, 0.98)
+    register_ids("SenseVoice w8a16 batch of 3 padded to 4, 10 s bucket (kernel 2, 201 a call)",
+                 w8_model, [(batch, lens), w8_model.batch_inputs(
+                     [synth_speechlike(s, np.random.default_rng(SEED + 43))
+                      for s in (2.0, 6.0, 9.0)])])
     for i, (p, row) in enumerate(zip(pcms, ids_b)):
         single = w8_model.transcribe_ids(p)
         same = sum(a == b for a, b in zip(row, single))
@@ -2391,6 +2753,10 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                    f"long-form: 3 windows in one batched program (w8_gemm {4 * L + 1} times)")
     batch_check("long-form windows' logits", w8_model,
                 *pad_rows(pieces, 30 * SR), 5e-2, 0.98)
+    register_ids(f"SenseVoice w8a16 {LONG_SECONDS} s long-form, 3 windows of 30 s (kernel 2, "
+                 f"201 a call)", w8_model, [pad_rows(pieces, 30 * SR), pad_rows(
+                     w8_model.long_windows(synth_speechlike(
+                         LONG_SECONDS, np.random.default_rng(SEED + 44)))[0], 30 * SR)])
     pcms4 = pcms + [decode_wav(wav_bytes(synth_speechlike(7.0, srng)))[0]]
     K.reset_launch_counts()
     qmodel.transcribe_batch(pcms4)
@@ -2429,6 +2795,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     checks.require(n_moe == L and m_launches["w8_gemm"] == 2 * L + 1
                    and m_launches["sanm_layer_w8"] == 0 and m_launches["sanm_stack_w8"] == 0,
                    f"MoE: qkv and out on w8_gemm ({2 * L} + the head), the FFN plain")
+    register_ids("SenseVoice w8a16 MoE bucketed B = 1 (kernel 2, 101 a call)", mm, q_inputs)
     # top-1 routing is discontinuous: at bf16 activations a last-bit
     # difference upstream (kernel 2's summation order, then a bf16 rounding
     # in the attention) moves a near-tie token to another expert, and 50
@@ -2473,6 +2840,37 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                    f"stream: {n_chunks} chunks of {STREAM_CHUNK} frames, {len(ids_s)} ids in "
                    f"[0, vocab), no kernel")
     t_s = host_ms(lambda: st.transcribe_stream(pcm10), runs=3)
+    sfeats = [st.fbank(p)[None, :STREAM_CHUNK].contiguous() for p in (pcm10, pcms[1])]
+    smask = torch.ones((1, STREAM_CHUNK), device=dev)
+
+    def stream_after(i):
+        ids, state = st.decode_step_fn()(st.params, sfeats[i], smask,
+                                         init_stream_state(st.cfg, st.stream, device=dev))
+        return ids, flatten(state)[0]
+
+    def stream_before(i):
+        with torch.inference_mode():
+            logits, state = stream_step(st.params, sfeats[i], smask,
+                                        init_stream_state(st.cfg, st.stream, device=dev), st.cfg)
+        return logits.argmax(-1).to(torch.int32), flatten(state)[0]
+
+    register("StreamingSenseVoice decode step, state donated (no kernel)", stream_after,
+             stream_before)
+    ssess = [[st.fbank(p)[None, t * STREAM_CHUNK:(t + 1) * STREAM_CHUNK].contiguous()
+              for t in range(2)] for p in (pcm10, pcms[1])]
+
+    def stream_ref(f, state):
+        with torch.inference_mode():
+            logits, state = stream_step(st.params, f, smask, state, st.cfg)
+        return logits.argmax(-1).to(torch.int32), state
+
+    register("StreamingSenseVoice decode step, two sessions interleaved through one program",
+             lambda i: interleaved(lambda f, s: st.decode_step_fn()(st.params, f, smask, s),
+                                   ssess, [init_stream_state(st.cfg, st.stream, device=dev)
+                                           for _ in range(2)], i),
+             lambda i: interleaved(stream_ref, ssess,
+                                   [init_stream_state(st.cfg, st.stream, device=dev)
+                                    for _ in range(2)], i))
     print(f"  transcribe_stream 10 s: {t_s:.3f} ms host clock, {t_s / n_chunks:.3f} ms a chunk "
           f"of {STREAM_CHUNK * 60} ms of audio  ({card})")
 
@@ -2494,6 +2892,8 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                    f"per-op graph: int8_gemm once per MatMulInteger node ({n_mmi})")
     checks.require(torch.equal(a, b), f"per-op 10 s logits {tuple(a.shape)}: kernel 11 and the "
                                       f"f64 override identical")
+    register_cm(f"per-op int8 SenseVoice graph 10 s (kernel 11 at its {n_mmi} MatMulInteger "
+                f"nodes)", cm_ops, [inputs10, inputs10b])
     t_ops = host_ms(lambda: (cm_ops(**inputs10), torch.cuda.synchronize()), runs=3)
     t_f64 = host_ms(lambda: (cm_f64(**inputs10), torch.cuda.synchronize()), runs=3)
     print(f"  per-op 10 s forward (host clock): kernel 11 {t_ops:.3f} ms, f64 override "
@@ -2584,6 +2984,9 @@ def yolo_phases(checks, dev, card) -> None:
         yo = YoloOnnx(FIXTURES / "yolo26.onnx", img_size=640, compute=compute, device=dev)
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
+        checks.require(yo.cm._program is not None and yo.cm._program.graph is not None,
+                       f"YoloOnnx {name}: the graph captured ahead of the first image "
+                       f"(CompiledModel.compile)")
         logits, boxes = yo.forward(x)
         dl, db = np.abs(logits - want_l).max(), np.abs(boxes - want_b).max()
         agree = float((logits.argmax(-1) == want_l.argmax(-1)).mean())
@@ -2605,9 +3008,13 @@ def yolo_phases(checks, dev, card) -> None:
                        f"YoloOnnx {name} detect on a u8 480x640 image: {len(dets)} queries, "
                        f"{len(yo.detect(img))} at 0.25")
         xd = torch.from_numpy(x).to(dev)
+        x2 = torch.rand(xd.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        register_cm(f"YoloOnnx fixture {name} (cuDNN convs, no kernel)", yo.cm,
+                    [{yo.cm.input_order[0]: v} for v in (xd, x2)], rel=YOLO_MAP_REL[name])
         ev, gr = time_ms(lambda: yo.forward_device(xd)), graph_us(lambda: yo.forward_device(xd))
         det = host_ms(lambda: yo.detect(img))
-        print(f"  YoloOnnx {name}: compile {compile_s:.3f} s; forward {ev:.4f} ms by events, "
+        print(f"  YoloOnnx {name}: compile and capture {compile_s:.3f} s; forward {ev:.4f} ms by events, "
               f"{gr:.2f} us in a CUDA graph; detect with preprocessing {det:.3f} ms by host "
               f"clock  ({card})")
 
@@ -2624,6 +3031,13 @@ def yolo_phases(checks, dev, card) -> None:
             label = f"{'seg' if seg else 'detect'} {dtype}"
             model = Yolo26Model(cfg, params=base.params, device=dev)
             eng = Yolo26Engine(model=model, conf_threshold=0.25)
+            if not (seg and dtype == "float32"):
+                xs = [eng.batch([im]) for im in imgs[:2]]  # what detect() sends
+                register(f"Yolo26Engine native {label} B = 1 (cuDNN convs, no kernel)",
+                         lambda i, eng=eng, xs=xs: eng.forward(xs[i]),
+                         lambda i, model=model, xs=xs: model.forward_fn()(
+                             model.params, torch.from_numpy(xs[i]).to(dev)),
+                         rel=YOLO_MAP_REL[dtype])
             for req, batch in (("detect", imgs[:1]), (f"detect_batch of {YOLO_BATCH}", imgs[1:])):
                 outs = eng.detect_batch(batch) if len(batch) > 1 else [eng.detect(batch[0])]
                 n, size = len(batch), cfg.img_size
@@ -2730,6 +3144,7 @@ def main() -> int:
     )
     from lele_tpu_torch.models.checkpoints import SenseVoiceOnnx
     from lele_tpu_torch.onnx.synth import build_sanm_int8_model
+    from lele_tpu_torch.runtime.bucketing import pad_pcm
     from lele_tpu_torch.serving import SenseVoiceEngine
 
     t_start = time.perf_counter()
@@ -2983,6 +3398,10 @@ def main() -> int:
                    f"per-layer params: sanm_layer_w8 {L} times, no stack, the CTC head once")
     checks.require(all(0 <= i < cfg.vocab_size for i in ids_layers),
                    f"per-layer request: {len(ids_layers)} tokens, ids in [0, vocab)")
+    register_ids("SenseVoice w8a16 bucketed B = 1 (kernels 1, 2), 10 s and 8.5 s of one bucket",
+                 model, [(p[None], [n]) for p, n in (
+                     pad_pcm(synth_speechlike(s, np.random.default_rng(SEED + 40)))
+                     for s in (10.0, 8.5))])
 
     pcm10 = synth_speechlike(10.0, np.random.default_rng(SEED + 1))
     fwd, fwd_plain = model.forward_fn(), model.forward_fn(plain=True)
@@ -3201,6 +3620,10 @@ def main() -> int:
     cm10 = sv._cms[max(sv._cms)]
     inputs10 = sv._inputs(sv._pad_frames(sv.frontend(pcm10), max(sv._cms)), VALID_DQL - 4)
     graph_ms = time_ms(lambda: cm10(**inputs10))
+    pcm10b = synth_speechlike(9.5, np.random.default_rng(SEED + 6))
+    inputs10b = sv._inputs(sv._pad_frames(sv.frontend(pcm10b), max(sv._cms)),
+                           sv._true_frames(len(pcm10b)))
+    register_cm("compiled SenseVoice 10 s bucket (kernels 4, 5)", cm10, [inputs10, inputs10b])
     print(f"  10 s request (host clock, median): fused {req_ms:.3f} ms (RTF "
           f"{req_ms / 1e4:.3e}), per-op {req_ref_ms:.3f} ms (RTF {req_ref_ms / 1e4:.3e}); "
           f"the fused graph alone {graph_ms:.3f} ms by CUDA events  ({card})")
@@ -3216,8 +3639,10 @@ def main() -> int:
                                      bounds)
     llm_launches = llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     s8_launches = slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
-                                model, sv_ref, inputs10)
+                                model, sv_ref, inputs10, inputs10b)
     yolo_phases(checks, dev, card)
+    capture_phase(checks, card)
+    silero_blocks(checks, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -8,7 +8,9 @@ default patterns (the fused SAN-M stack and the fused DQL GEMM);
 `patterns=[]` gives the per-op path. `device` defaults to the card and
 raises where there is none. `compute="bfloat16"` is the JAX package's
 compute policy: large f32 params stored in bf16, f32 inputs cast to it, bf16
-outputs returned as f32 (compiler/tracer.py). JAX's
+outputs returned as f32 (compiler/tracer.py). `donate=[input names]` is
+JAX's donation (runtime/engine.py): on a card the model's captured CUDA
+graph writes each such input's new value back into its static buffer. JAX's
 `precision="default"` needs no knob here: bf16 operands on cuDNN and cuBLAS
 are its counterpart. The JAX package's mesh, AOT and image-stem options have
 no counterpart here.
@@ -60,7 +62,7 @@ class Compiler:
                 input_shapes: dict[str, Sequence[int]] | None = None,
                 dim_values: dict[str, int] | None = None,
                 device: torch.device | str | None = None,
-                compute: str | None = None) -> CompiledModel:
+                compute: str | None = None, donate: Sequence[str] = ()) -> CompiledModel:
         if compute not in (None, "bfloat16"):
             raise ValueError(f"compute={compute!r}: expected None or 'bfloat16'")
         if isinstance(model, (bytes, bytearray, memoryview)):
@@ -76,7 +78,8 @@ class Compiler:
                              patterns=self._patterns, strict=self._strict)
         trace = tracer.build(specs, device, compute=torch.bfloat16 if compute else None)
         return CompiledModel(trace, specs, input_order=model.input_names(),
-                             output_names=model.output_names(), stats=tracer.stats)
+                             output_names=model.output_names(), stats=tracer.stats,
+                             donate=donate)
 
 
 def resolve_input_specs(
@@ -122,10 +125,12 @@ def compile_model(
     patterns: Sequence | None = None,
     device: torch.device | str | None = None,
     compute: str | None = None,
+    donate: Sequence[str] = (),
 ) -> CompiledModel:
     c = Compiler()
     for k, v in (overrides or {}).items():
         c.with_override(k, v)
     if patterns is not None:
         c.with_patterns(patterns)
-    return c.with_strict(strict).compile(model, input_shapes, dim_values, device, compute)
+    return c.with_strict(strict).compile(model, input_shapes, dim_values, device, compute,
+                                         donate)

@@ -31,8 +31,10 @@ GraphProto once, record the device work, replay it per request.
   branch for every request; so both branches are walked, each onto a
   sub-tape of its own, and one step holds both and replays the branch that
   the request's condition selects. Reading the condition costs one
-  device → host read a replay. Both branches must give outputs of the same
-  shapes, since later shape arithmetic folds on one of them.
+  device → host read a replay, so such a tape cannot be captured in a CUDA
+  graph (`Tape.capturable`): `CompiledModel` replays it step by step on a
+  card. Both branches must give outputs of the same shapes, since later
+  shape arithmetic folds on one of them.
 
 - **A compute dtype** (`build(..., compute=torch.bfloat16)`, JAX's
   `compute="bfloat16"`): the walk runs on f32 inputs cast to it, and every
@@ -47,6 +49,7 @@ has one yet.
 
 from __future__ import annotations
 
+import functools
 import sys
 from collections import ChainMap
 from dataclasses import dataclass, field
@@ -149,6 +152,7 @@ class Tape:
         self.parent = parent
         self.captured: list[torch.Tensor] = []
         self.outputs: list = []
+        self.out_meta: list = []
         self.n_slots = 0
 
     def const(self, t: torch.Tensor) -> torch.Tensor:
@@ -202,6 +206,9 @@ class Tape:
         """Fix the graph outputs, drop the steps no output needs, mark where
         each slot is last read, and let go of the walk's values."""
         self.outputs = [_map(o, self._ref) for o in outputs]
+        # each output's (shape, dtype) at the walk, for donation's matching
+        self.out_meta = [(tuple(o.shape), o.dtype) if isinstance(o, torch.Tensor)
+                         else (None, None) for o in outputs]
         live = _slots(self.outputs, set())
         kept = []
         for st in reversed(self.steps):
@@ -228,12 +235,40 @@ class Tape:
         def get(v):
             return vals[v.k] if isinstance(v, _Slot) else v
 
-        for st in self.steps:
-            out = st.fn(*_map(st.args, get), **_map(st.kwargs, get))
+        for i, st in enumerate(self.steps):
+            try:
+                out = st.fn(*_map(st.args, get), **_map(st.kwargs, get))
+            except Exception as e:
+                if not getattr(e, "_lele_step", False):
+                    e._lele_step = True
+                    e.add_note(f"  in tape step {i} of {len(self.steps)}: {_step_name(st)}")
+                raise
             _bind(st.outs, out, vals)
             for k in st.free:
                 vals[k] = None
         return [_map(o, get) for o in self.outputs]
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a replay can be captured in a CUDA graph: no step reads
+        the host. The only such step is a dynamic If's (`_IfStep`), which
+        reads its condition on every replay."""
+        return not any(isinstance(st.fn, _IfStep) for st in self.steps)
+
+
+def _step_name(st: _Step) -> str:
+    """A recorded step by its function's name, and its node where an
+    emitter recorded it (a pattern's launch has no node)."""
+    fn = st.fn
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    if isinstance(fn, _IfStep):
+        return "If (a dynamic condition)"
+    name = getattr(fn, "__qualname__", type(fn).__name__)
+    node = getattr(st.args[0], "node", None) if st.args else None
+    if node is not None:
+        name += f" (node {node.op_type} {node.name!r})"
+    return name
 
 
 class _IfStep:
@@ -357,15 +392,20 @@ class GraphTracer:
             return _to_numpy(emitter(make_ctx(torch, node, self.opset, self),
                                      *cpu_ins))
         # dynamic: static inputs go to the device (hoisted by name), except
-        # shape-position arguments, which stay host-static for the emitter
-        static_pos = set(opdef.static_args) if opdef is not None else set()
+        # shape-position arguments, which stay host-static for the emitter.
+        # A recording emitter's static arguments are weights it prepares
+        # itself; an override of it records as one step, so they are
+        # hoisted for it (a host value in a step would be an upload a call)
+        overridden = label in self.overrides
+        static_pos = (set(opdef.static_args)
+                      if opdef is not None and not (opdef.records and overridden) else set())
         dyn_ins = []
         for i, v in enumerate(ins):
             if v is None or not _is_static(v) or i in static_pos:
                 dyn_ins.append(v)
             else:
                 dyn_ins.append(state.to_device(scope + node.input[i], v))
-        records = opdef is not None and opdef.records and label not in self.overrides
+        records = opdef is not None and opdef.records and not overridden
         ctx = make_ctx(torch, node, self.opset, self, state=state if records else None,
                        scope=scope)
         key = None

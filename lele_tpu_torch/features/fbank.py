@@ -77,20 +77,24 @@ class FbankFrontend:
 
 
 def fbank_features(pcm, config: FbankConfig, window: torch.Tensor,
-                   mel_t: torch.Tensor, n_valid: int | None = None):
+                   mel_t: torch.Tensor, n_valid: int | torch.Tensor | None = None):
     """pcm: [n_samples] f32 in [-1, 1] (or int16, already ×32768), numpy or
     tensor → [T_lfr, n_mels*lfr_m] f32 on `window`'s device.
 
     With `n_valid` (≤ n_samples, the length-bucketing path) CMVN covers only
     the valid frames and the function returns (features, frame_mask): the
-    batched front-end's row."""
+    batched front-end's row. `n_valid` may be an int or a one-element
+    tensor on the device; a tensor stays there (it is never read back), so
+    one captured CUDA graph serves every length of a bucket, as JAX's traced
+    `n_valid` does."""
     c = config
     dev = window.device
     if isinstance(pcm, np.ndarray):
         pcm = torch.from_numpy(np.ascontiguousarray(pcm))
     pcm = pcm.to(dev)
     if n_valid is not None:
-        feats, masks = fbank_features_batch(pcm[None], c, window, mel_t, [int(n_valid)])
+        n_valid = n_valid.reshape(1) if isinstance(n_valid, torch.Tensor) else [int(n_valid)]
+        feats, masks = fbank_features_batch(pcm[None], c, window, mel_t, n_valid)
         return feats[0], masks[0]
     if int(pcm.shape[-1]) < c.frame_len:
         return torch.zeros((0, c.n_mels * (c.lfr_m if c.apply_lfr else 1)),

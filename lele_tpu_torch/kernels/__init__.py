@@ -4,6 +4,12 @@ Sources are under `lele_tpu_torch/csrc/`; `_build` compiles them with nvcc
 at first use. Each wrapper keeps a launch count as an attribute
 (`w8_matmul.launches`, ...); `launch_counts()` reads them all and
 `reset_launch_counts()` sets them to 0.
+
+A replay of a captured CUDA graph (runtime/graphs.py) runs no wrapper: the
+capture records what its launches added (and sets the counts back with
+`set_launch_counts`), and each replay adds that record once
+(`add_launch_counts`), so `launch_counts()` reads what the uncaptured path
+would, call by call.
 """
 
 from .est_block import (  # noqa: F401
@@ -65,3 +71,13 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        KERNEL_WRAPPERS[name].launches = n
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        KERNEL_WRAPPERS[name].launches += n

@@ -135,14 +135,26 @@ class SileroOnnx:
 
     Takes the ONNX file's path or its bytes. One trace per sample rate, with
     the rate bound as a constant so the If resolves while tracing (the JAX
-    package's static-sr route); every chunk replays that trace's tape, the
-    state stays on the device, and nothing is read back until the last
-    chunk. `device` defaults to `default_device()`, which raises where there
-    is no CUDA card; `overrides` goes to the tracer
-    (`{"LSTM": ops.nn_ops.lstm_plain}` compiles the plain oracle)."""
+    package's static-sr route), compiled with the state donated (JAX
+    `donate=["state"]`). `speech_probs` is the counterpart of JAX's
+    whole-utterance `lax.scan`: the chunk step several times over in one
+    program on a slab of chunks, the state carried on the device from
+    block to block and nothing read back until the last block. Blocks hold
+    `BLOCK` chunks; the rest of an utterance runs as blocks of the powers
+    of two below it (one program each, at most log2(BLOCK) more), so no
+    padded chunk runs and kernel 6 launches exactly once a chunk. On a card
+    each block size is one CUDA graph, captured at its first use
+    (runtime/graphs.py); `BLOCK` was chosen on an H100 (PERF.md §6).
+    `device` defaults to `default_device()`, which raises where there is no
+    CUDA card; `overrides` goes to the tracer (`{"LSTM":
+    ops.nn_ops.lstm_plain}` compiles the plain oracle)."""
+
+    BLOCK = 8
 
     def __init__(self, model: str | Path | bytes, chunk: int = 512, scale: float = 32768.0,
                  device: torch.device | str | None = None, overrides=None):
+        from ..runtime.graphs import Programs
+
         self.model = _load(model)
         if self.model.model.functions:
             raise NotImplementedError("models with local functions are not ported yet")
@@ -152,23 +164,25 @@ class SileroOnnx:
         self.scale = scale
         self.overrides = overrides
         self._cms: dict[int, object] = {}
+        self.programs = Programs(self.device)
 
     def compiled(self, sr: int):
-        """The CompiledModel of (chunk, state) for sample rate `sr`, traced at
-        first use."""
+        """The CompiledModel of (chunk, state) for sample rate `sr`, with the
+        state donated, traced at first use."""
         if sr not in self._cms:
             from ..compiler import resolve_input_specs
             from ..compiler.tracer import GraphTracer
             from ..runtime.engine import CompiledModel
 
-            x_name, _, sr_name = self.in_names
+            x_name, state_name, sr_name = self.in_names
             specs = resolve_input_specs(self.model, {x_name: (1, self.chunk)})
             shape, dt = specs.pop(sr_name)
             tracer = GraphTracer(self.model, overrides=self.overrides)
             trace = tracer.build(specs, self.device,
                                  constants={sr_name: np.full(shape, sr, dtype=dt)})
             self._cms[sr] = CompiledModel(trace, specs, self.in_names[:2],
-                                          self.model.output_names(), tracer.stats)
+                                          self.model.output_names(), tracer.stats,
+                                          donate=[state_name])
         return self._cms[sr]
 
     def _chunks(self, pcm: np.ndarray, max_chunks: int | None) -> np.ndarray:
@@ -182,34 +196,63 @@ class SileroOnnx:
         return torch.zeros(cm.input_specs[self.in_names[1]][0], dtype=torch.float32,
                            device=self.device)
 
+    def blocks(self, n: int) -> list[int]:
+        """n chunks as block sizes: BLOCK, ..., then the powers of two of the
+        rest, largest first."""
+        sizes = [self.BLOCK] * (n // self.BLOCK)
+        rest = n % self.BLOCK
+        while rest:
+            b = 1 << (rest.bit_length() - 1)
+            sizes.append(b)
+            rest -= b
+        return sizes
+
+    def _block_fn(self, sr: int, n: int):
+        """(chunks [n, chunk], state) → (probs [n], state after the block):
+        the compiled step n times over, the state carried (JAX's scan body)."""
+        cm = self.compiled(sr)
+
+        def fn(x, state):
+            probs = []
+            for i in range(n):
+                prob, state = cm._walk([x[i:i + 1], state])[:2]
+                probs.append(prob.reshape(()))
+            return torch.stack(probs), state
+
+        return fn
+
     @torch.inference_mode()
     def speech_probs(self, pcm: np.ndarray, sr: int = 16000,
                      max_chunks: int | None = None) -> np.ndarray:
-        """Per-chunk speech probabilities over a whole waveform: one replay of
-        the step's tape per chunk, the state carried on the device, one read
-        of all N probabilities at the end."""
+        """Per-chunk speech probabilities over a whole waveform: the chunks go
+        up in one copy, each block is one program call (one graph replay on
+        a card) with the state donated from block to block, and all N
+        probabilities come back in one read."""
         chunks = self._chunks(pcm, max_chunks)
         if len(chunks) == 0:
             return np.zeros(0, np.float32)
-        cm = self.compiled(sr)
+        state = self._state0(self.compiled(sr))
         x = torch.from_numpy(chunks).to(self.device)
-        state = self._state0(cm)
-        probs = []
-        for i in range(len(chunks)):
-            prob, state = cm(x[i:i + 1], state)[:2]
-            probs.append(prob.reshape(()))
-        return torch.stack(probs).cpu().numpy()
+        probs, start = [], 0
+        for n in self.blocks(len(chunks)):
+            p, state = self.programs.run(("block", sr, n), lambda: self._block_fn(sr, n),
+                                         x[start:start + n], state, donate={1: 1})
+            probs.append(p)
+            start += n
+        return torch.cat(probs).cpu().numpy()
 
     def speech_probs_hostloop(self, pcm: np.ndarray, sr: int = 16000,
                               max_chunks: int | None = None) -> np.ndarray:
-        """Per-chunk host streaming loop (state through numpy): the oracle of
-        `speech_probs`, and the shape real streaming input arrives in."""
+        """Per-chunk host streaming loop (state through numpy), each chunk one
+        step-by-step replay of the tape (`CompiledModel.replay`): the
+        uncaptured oracle of `speech_probs`, and the shape real streaming
+        input arrives in."""
         chunks = self._chunks(pcm, max_chunks)
         cm = self.compiled(sr)
         state = self._state0(cm).cpu().numpy()
         probs = np.zeros(len(chunks), np.float32)
         for i, x in enumerate(chunks):
-            out = cm.run_np(x[None], state)
+            out = [o.cpu().numpy() for o in cm.replay(x[None], state)]
             probs[i] = float(np.asarray(out[0]).reshape(-1)[0])
             state = out[1]
         return probs
@@ -239,8 +282,10 @@ class YoloOnnx:
         model = _load(path)
         self.device = torch.device(device) if device is not None else default_device()
         name = model.input_names()[0]
+        # one input shape: on a card its graph is captured here, ahead of the
+        # first image (`CompiledModel.compile`)
         self.cm = compile_model(model, input_shapes={name: (1, 3, img_size, img_size)},
-                                compute=compute, device=self.device)
+                                compute=compute, device=self.device).compile()
         self.img_size = img_size
 
     def forward(self, x_chw: np.ndarray) -> list[np.ndarray]:

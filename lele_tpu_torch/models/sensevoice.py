@@ -36,7 +36,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import default_device
 from ..features import FbankConfig, FbankFrontend, fbank_features, fbank_features_batch
@@ -66,6 +65,7 @@ from ..kernels.quant_matmul import (
 from ..kernels.sanm_block import fsmn_conv, layer_kernel_takes, layer_view
 from ..kernels.w4_matmul import quantize_weight_int4
 from ..runtime.bucketing import max_bucket_samples, pad_batch_pow2, pad_pcm
+from ..runtime.graphs import Programs
 from .common import (
     Params,
     init_layer_norm,
@@ -143,7 +143,10 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: SenseVoiceConfig) -> torch.Tensor:
     computes, a one-hot contraction selects, and the output is gated by the
     chosen expert's probability (JAX `moe_ffn`)."""
     probs = torch.softmax(linear(p["router"], x).float(), dim=-1)  # [B, T, E]
-    onehot = F.one_hot(probs.argmax(dim=-1), cfg.n_experts).to(x.dtype)
+    # one-hot by comparison: torch.nn.functional.one_hot may check its input
+    # on the host, which a CUDA graph capture refuses
+    experts = torch.arange(cfg.n_experts, device=x.device)
+    onehot = (probs.argmax(dim=-1)[..., None] == experts).to(x.dtype)
     gate = (probs * onehot).sum(dim=-1, keepdim=True)
     h = torch.relu(torch.einsum("btd,edf->btef", x.float(), p["w1"].float()))
     y = torch.einsum("btef,efd->bted", h, p["w2"].float())
@@ -425,17 +428,28 @@ class SenseVoiceModel:
     """Front-end + encoder on one device; `forward_fn()(params, pcm)` runs
     waveform → logits with no host round trip. `device` defaults to
     `default_device()`, which raises where there is no CUDA card: the CPU
-    is taken only when the caller passes device="cpu"."""
+    is taken only when the caller passes device="cpu".
+
+    `transcribe_ids`, `transcribe_batch` and `transcribe_long` run one
+    program a bucket (JAX's `_fn_cache` of jitted functions): the front-end,
+    the encoder and the per-frame argmax, keyed by the batch and the padded
+    length, with the valid lengths a device input, so one program serves
+    every length of a bucket. On a card each is one CUDA graph, captured at
+    its first use (runtime/graphs.py); on the CPU it runs eagerly. The
+    `forward_*_fn()` functions are the uncaptured oracles."""
 
     cfg: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
     params: Params | None = None
     fbank: FbankFrontend | None = None
     device: torch.device | str | None = None
+    programs: Programs | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device) if self.device is not None else default_device()
         if self.fbank is None:
             self.fbank = FbankFrontend(FbankConfig(), self.device)
+        if self.programs is None:
+            self.programs = Programs(self.device)
 
     def init(self, seed: int = 0) -> Params:
         gen = torch.Generator(device=self.device)
@@ -522,14 +536,32 @@ class SenseVoiceModel:
             start += hop
         return pieces, starts
 
+    def _ids_fn(self):
+        """The body of the bucketed and batched programs: (pcm [B, n] padded,
+        n_valid [B] int64) → (per-frame ids [B, T] int32, frame masks [B,
+        T]), the argmax on the device (JAX `_batched_ids`' traced body)."""
+        params, cfg, fb = self.params, self.cfg, self.fbank
+
+        def fn(pcm_b, n_valid_b):
+            feats, masks = fbank_features_batch(pcm_b, fb.config, fb.window, fb.mel_t,
+                                                n_valid_b)
+            logits = sensevoice_encode(params, feats, masks, cfg)
+            return logits[:, cfg.n_prefix:].argmax(dim=-1).to(torch.int32), masks
+
+        return fn
+
+    def _run_ids(self, batch: np.ndarray, lens) -> tuple[torch.Tensor, torch.Tensor]:
+        """`_ids_fn` through the program of (B, n)."""
+        if self.params is None:
+            self.init()
+        return self.programs.run(("ids",) + batch.shape, self._ids_fn, batch,
+                                 np.asarray(lens, np.int64).reshape(-1), params=self.params)
+
     def _batched_ids(self, batch: np.ndarray, lens: np.ndarray):
         """[B, n] padded PCM + [B] valid lengths → (per-frame ids [B, T] int32,
         masks [B, T]), numpy; the argmax runs on the device, so only the ids
         and masks come back."""
-        if self.params is None:
-            self.init()
-        logits, masks = self.forward_batch_fn()(self.params, batch, lens)
-        ids = logits[:, self.cfg.n_prefix:].argmax(dim=-1).to(torch.int32)
+        ids, masks = self._run_ids(batch, lens)
         return ids.cpu().numpy(), masks.cpu().numpy()
 
     def _batched_window_ids(self, pieces, win: int):
@@ -548,12 +580,11 @@ class SenseVoiceModel:
         return _collapse_ids(frame_ids[:valid], blank_id)
 
     def _bucketed_argmax(self, pcm: np.ndarray):
-        if self.params is None:
-            self.init()
+        """The bucket's program at B = 1 (JAX `_bucketed_argmax`) → (per-frame
+        ids [T], valid frames)."""
         padded, true_len = pad_pcm(np.asarray(pcm, np.float32))
-        logits, fmask = self.forward_bucketed_fn()(self.params, padded, true_len)
-        ids = logits[0, self.cfg.n_prefix:].argmax(dim=-1).to(torch.int32)
-        return ids.cpu().numpy(), int(fmask.sum().item())
+        ids, fmask = self._run_ids(padded[None], [true_len])
+        return ids[0].cpu().numpy(), int(fmask.sum().item())
 
     def batch_inputs(self, pcms: list[np.ndarray]):
         """Utterances (each within the largest bucket) → (pcm [B', n], n_valid

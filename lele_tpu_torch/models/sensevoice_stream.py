@@ -9,9 +9,14 @@ with offline decoding. As in JAX, the step runs the f32 `linear` (no
 kernel) on the model's f32 weights, and prefix query frames are omitted.
 
 State is a dict of per-layer caches plus the running position, all on the
-device. JAX donates the state buffers to its jitted step; here the step
-leaves its input state untouched and returns new tensors (the caller drops
-the old state), so no step waits on the host.
+device. As JAX jits its step with the state donated, `step_fn` and
+`decode_step_fn` return programs: on a card each is one CUDA graph a chunk
+shape, captured at its first use (runtime/graphs.py), with the state
+donated (written back into the program's state buffers inside the graph;
+the step returns a copy the caller owns, so sessions may interleave
+through one program); on the CPU they run eagerly and return new
+tensors. `stream_step` is the uncaptured
+function. No step waits on the host.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from .. import default_device
 from ..features import FbankConfig, FbankFrontend
+from ..runtime.graphs import Programs
 from .common import Params, layer_norm, linear
 from .sensevoice import SenseVoiceConfig
 
@@ -138,33 +144,40 @@ class StreamingSenseVoice:
     params: Params | None = None
     fbank: FbankFrontend | None = None
     device: torch.device | str | None = None
+    programs: Programs | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device) if self.device is not None else default_device()
         if self.fbank is None:
             self.fbank = FbankFrontend(FbankConfig(), self.device)
+        self.programs = Programs(self.device)
 
-    def step_fn(self):
-        """(params, feats, mask, state) → (logits, new state)."""
+    def _step(self, kind: str, params, feats, mask, state):
         cfg = self.cfg
 
-        @torch.inference_mode()
-        def fn(params, feats, mask, state):
-            return stream_step(params, feats, mask, state, cfg)
+        def make():
+            def step(f, m, s):
+                logits, new_state = stream_step(params, f, m, s, cfg)
+                if kind == "decode":
+                    return logits.argmax(dim=-1).to(torch.int32), new_state
+                return logits, new_state
 
-        return fn
+            return step
+
+        return self.programs.run((kind, tuple(feats.shape)), make, feats, mask, state,
+                                 params=params, donate={2: 1})
+
+    def step_fn(self):
+        """(params, feats, mask, state) → (logits, new state), the state
+        donated."""
+        return lambda params, feats, mask, state: self._step("step", params, feats, mask,
+                                                             state)
 
     def decode_step_fn(self):
         """Like `step_fn`, but returns the per-frame argmax ids (int32 [B,
         chunk], computed on the device) in place of the logits."""
-        cfg = self.cfg
-
-        @torch.inference_mode()
-        def fn(params, feats, mask, state):
-            logits, new_state = stream_step(params, feats, mask, state, cfg)
-            return logits.argmax(dim=-1).to(torch.int32), new_state
-
-        return fn
+        return lambda params, feats, mask, state: self._step("decode", params, feats, mask,
+                                                             state)
 
     def transcribe_stream(self, pcm: np.ndarray, blank_id: int = 0) -> list[int]:
         """Feed the audio's features chunk by chunk → the greedy ids, collapsed

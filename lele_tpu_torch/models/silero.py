@@ -9,8 +9,10 @@ front-end, resolved on the host as JAX resolves it at trace time.
 Offline (`speech_probs`, `segments`): every chunk goes through the
 front-end in one batch, the input projection for all chunks is one
 product, and the whole recurrence is one launch of the `lstm_seq` kernel
-(the TPU routing of `scan_fn`, silero.py:134-168). Streaming (`step_fn`):
-one chunk and the state per call, through `lstm_cell`. `segments` reads
+(the TPU routing of `scan_fn`, silero.py:134-168), the whole of it one
+captured CUDA graph a chunk count on a card. Streaming (`step_fn`): one
+chunk and the state per call, through `lstm_cell`, with the state
+donated. `segments` reads
 back the N probabilities and runs the JAX package's on-device automaton
 (silero.py:204-300) on the host, in float32 as it does, so its lists are
 JAX's exactly.
@@ -24,6 +26,7 @@ default `allow_tf32 = False`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -32,6 +35,7 @@ import torch
 from .. import default_device
 from ..features.framing import frame_signal
 from ..kernels import lstm_seq, lstm_seq_plain
+from ..runtime.graphs import Programs
 from .common import Params, conv1d, init_conv1d, init_linear, init_lstm_cell, linear, lstm_cell
 
 
@@ -58,6 +62,14 @@ def init_silero(gen: torch.Generator, cfg: SileroConfig) -> Params:
     return p
 
 
+@functools.lru_cache(maxsize=8)
+def _periodic_hann(n: int, device: torch.device) -> torch.Tensor:
+    """The periodic Hann window on `device`, made once per (n, device): a
+    host-made tensor inside a captured CUDA graph would be an upload each
+    call, which a capture refuses. Callers must not write to it."""
+    return torch.from_numpy(np.hanning(n + 1)[:-1].astype(np.float32)).to(device)
+
+
 def silero_features(params: Params, chunks: torch.Tensor, cfg: SileroConfig,
                     sr: int = 16000) -> torch.Tensor:
     """Batched front-end: chunks [B, chunk+context] → features [B, C]."""
@@ -67,7 +79,7 @@ def silero_features(params: Params, chunks: torch.Tensor, cfg: SileroConfig,
     if sr == 8000:
         x = torch.repeat_interleave(x, 2, dim=-1)  # jnp.repeat: each sample twice
     frames = frame_signal(x, cfg.n_fft, cfg.hop)
-    win = torch.from_numpy(np.hanning(cfg.n_fft + 1)[:-1].astype(np.float32)).to(x.device)
+    win = _periodic_hann(cfg.n_fft, x.device)
     spec = torch.fft.rfft(frames * win, dim=-1)
     h = torch.sqrt(spec.real.square() + spec.imag.square() + 1e-12)  # [B, T, bins]
     for i, cp in enumerate(params["convs"]):
@@ -85,6 +97,22 @@ def silero_step(params: Params, chunk: torch.Tensor, state: torch.Tensor,
     return prob, torch.stack([h_new, c_new])
 
 
+def silero_scan(params: Params, chunks: torch.Tensor, cfg: SileroConfig, sr: int = 16000,
+                plain: bool = False):
+    """chunks [N, chunk+context] → (probs [N], state [2, 1, H]): the
+    front-end for all chunks at once, one product for the input projection,
+    one `lstm_seq` launch for the recurrence (its plain version with
+    plain=True). Eager: `SileroVad.scan_fn` runs it as a captured program."""
+    seq = lstm_seq_plain if plain else lstm_seq
+    feats = silero_features(params, chunks, cfg, sr)  # [N, C]
+    lp = params["lstm"]
+    xproj = (feats @ lp["wx"] + lp["b"])[:, None, :]  # [N, 1, 4H]
+    h0 = torch.zeros((1, cfg.d_hidden), dtype=torch.float32, device=feats.device)
+    hs, hf, cf = seq(xproj, lp["wh"], h0, torch.zeros_like(h0))
+    probs = torch.sigmoid(linear(params["head"], hs[:, 0]))[:, 0]
+    return probs, torch.stack([hf, cf])
+
+
 def zero_state(cfg: SileroConfig, batch: int = 1, device: torch.device | str | None = None):
     """The [2, batch, d_hidden] zero (h; c) state, on `device` (by default
     `default_device()`, which raises where there is no CUDA card)."""
@@ -96,14 +124,22 @@ def zero_state(cfg: SileroConfig, batch: int = 1, device: torch.device | str | N
 class SileroVad:
     """Streaming and offline VAD on one device. `device` defaults to
     `default_device()`, which raises where there is no CUDA card: the CPU is
-    taken only when the caller passes device="cpu"."""
+    taken only when the caller passes device="cpu".
+
+    `step_fn` and `scan_fn` return programs (JAX's jitted `step_fn`, state
+    donated, and `scan_fn`): on a card each is one CUDA graph a shape,
+    captured at its first use (runtime/graphs.py), that holds the params it
+    was called with first; on the CPU they run eagerly. `silero_step` and
+    `silero_scan` are the uncaptured functions."""
 
     cfg: SileroConfig = field(default_factory=SileroConfig)
     params: Params | None = None
     device: torch.device | str | None = None
+    programs: Programs | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device) if self.device is not None else default_device()
+        self.programs = Programs(self.device)
 
     def init(self, seed: int = 0) -> Params:
         gen = torch.Generator(device=self.device)
@@ -113,33 +149,37 @@ class SileroVad:
 
     def step_fn(self, sr: int = 16000):
         """(params, chunk [B, chunk+context], state [2, B, H]) → (prob [B, 1],
-        new state): one streaming step."""
+        new state): one streaming step, its state donated (the new state
+        is a copy the caller owns: pass it back in)."""
         cfg = self.cfg
 
-        @torch.inference_mode()
         def fn(params, chunk, state):
-            return silero_step(params, torch.as_tensor(chunk, device=self.device),
-                               state, cfg, sr)
+            return self.programs.run(
+                ("step", sr, tuple(chunk.shape)),
+                lambda: lambda c, s: silero_step(params, c, s, cfg, sr),
+                chunk, state, params=params, donate={1: 1})
 
         return fn
 
     def scan_fn(self, sr: int = 16000, plain: bool = False):
         """(params, chunks [N, chunk+context]) → (probs [N], state [2, 1, H]):
-        the front-end for all chunks at once, one product for the input
-        projection, one `lstm_seq` launch for the recurrence (its plain
-        version with plain=True)."""
+        `silero_scan`, a program per chunk count N; with plain=True the
+        plain version, eagerly (the oracle)."""
         cfg = self.cfg
-        seq = lstm_seq_plain if plain else lstm_seq
 
-        @torch.inference_mode()
+        if plain:
+            @torch.inference_mode()
+            def oracle(params, chunks):
+                return silero_scan(params, torch.as_tensor(chunks, device=self.device), cfg,
+                                   sr, plain=True)
+
+            return oracle
+
         def fn(params, chunks):
-            feats = silero_features(params, chunks, cfg, sr)  # [N, C]
-            lp = params["lstm"]
-            xproj = (feats @ lp["wx"] + lp["b"])[:, None, :]  # [N, 1, 4H]
-            h0 = torch.zeros((1, cfg.d_hidden), dtype=torch.float32, device=feats.device)
-            hs, hf, cf = seq(xproj, lp["wh"], h0, torch.zeros_like(h0))
-            probs = torch.sigmoid(linear(params["head"], hs[:, 0]))[:, 0]
-            return probs, torch.stack([hf, cf])
+            return self.programs.run(
+                ("scan", sr, chunks.shape[0]),
+                lambda: lambda c: silero_scan(params, c, cfg, sr),
+                chunks, params=params)
 
         return fn
 
@@ -162,8 +202,7 @@ class SileroVad:
         chunks = self.frame_chunks(pcm)
         if chunks.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
-        chunks_t = torch.from_numpy(chunks).to(self.device)
-        return self.scan_fn(sr, plain)(self.params, chunks_t)[0]
+        return self.scan_fn(sr, plain)(self.params, torch.from_numpy(chunks))[0]
 
     def speech_probs(self, pcm: np.ndarray, sr: int = 16000, plain: bool = False) -> np.ndarray:
         """Per-chunk speech probabilities over a whole waveform (one

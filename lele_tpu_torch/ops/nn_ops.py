@@ -168,9 +168,18 @@ def _kernel_gate_order(hidden: int) -> np.ndarray:
     return np.concatenate([np.arange(0, H), np.arange(2 * H, 4 * H), np.arange(H, 2 * H)])
 
 
-def _take(a, perm: np.ndarray, axis: int):
+@functools.lru_cache(maxsize=16)
+def _gate_order_on(hidden: int, device: torch.device) -> torch.Tensor:
+    """`_kernel_gate_order` on `device`, made once: a host-made index at every
+    call would be an upload, which a captured CUDA graph refuses."""
+    return torch.from_numpy(_kernel_gate_order(hidden)).to(device)
+
+
+def _take(a, perm: np.ndarray, axis: int, hidden: int):
+    """a's gate columns in the kernel's order (perm = `_kernel_gate_order(
+    hidden)`)."""
     if isinstance(a, torch.Tensor):
-        return a.index_select(axis, torch.from_numpy(perm).to(a.device))
+        return a.index_select(axis, _gate_order_on(hidden, a.device))
     return np.take(np.asarray(a), perm, axis=axis)
 
 
@@ -182,14 +191,14 @@ def _lstm_weights(w, r, b, hidden: int):
     perm = _kernel_gate_order(hidden)
 
     def cols_last(a):
-        a = _take(a, perm, 1)
+        a = _take(a, perm, 1, hidden)
         if isinstance(a, torch.Tensor):
             return a.transpose(1, 2).contiguous()
         return np.ascontiguousarray(a.transpose(0, 2, 1))
 
     bias = None
     if b is not None:
-        bias = _take(b[:, :4 * hidden] + b[:, 4 * hidden:], perm, 1)
+        bias = _take(b[:, :4 * hidden] + b[:, 4 * hidden:], perm, 1, hidden)
     return cols_last(w), cols_last(r), bias
 
 

@@ -9,7 +9,6 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
-import torch
 
 from .utils.wav import decode_wav_bytes, encode_wav
 
@@ -50,8 +49,9 @@ class SenseVoiceEngine:
             self.model.init(0)
 
     def warm(self, seconds: float = 2.0, sr: int = 16000):
-        """Run one request of silence before taking traffic (builds the
-        kernels on a card)."""
+        """Run one request of silence before taking traffic: on a card it
+        builds the kernels and captures the CUDA graph of that request's
+        bucket, as JAX's warm-up compiles its program."""
         self.model.transcribe_ids(np.zeros(int(seconds * sr), np.float32))
         return self
 
@@ -84,18 +84,35 @@ class Yolo26Engine:
     """detect(image array | JPEG/PNG bytes) and detect_batch(images) → lists
     of detections. With no model it builds a random-weight `Yolo26Model` on
     `device` (by default `default_device()`, which raises where there is no
-    CUDA card). JAX's `mesh` (data-parallel serving) is not ported."""
+    CUDA card). The forward is one program a batch bucket (JAX jits it): on
+    a card one CUDA graph, captured at the bucket's first request with the
+    model's params of that time, the images copied into its input buffer;
+    `model.forward_fn()` is the uncaptured oracle. JAX's `mesh`
+    (data-parallel serving) is not ported."""
 
     model: Any = None
     conf_threshold: float = 0.25
     device: Any = None
+    programs: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
+        from .runtime.graphs import Programs
+
         if self.model is None:
             from .models import Yolo26Model
 
             self.model = Yolo26Model(device=self.device)
             self.model.init(0)
+        self.programs = Programs(self.model.device)
+
+    def forward(self, x: np.ndarray):
+        """[B, H, W, 3] f32 images (B a batch bucket) → the forward's outputs
+        on the device, through the bucket's program."""
+        from .models.yolo26 import yolo26_forward
+
+        params, cfg = self.model.params, self.model.cfg
+        return self.programs.run(("forward", x.shape), lambda: lambda img: yolo26_forward(
+            params, img, cfg), x, params=params)
 
     def _to_input(self, image) -> np.ndarray:
         from .utils.image import preprocess
@@ -109,20 +126,26 @@ class Yolo26Engine:
     def detect(self, image) -> list[dict]:
         return self.detect_batch([image])[0]
 
-    def detect_batch(self, images: list) -> list[list[dict]]:
-        """One forward for N images, the batch padded to a power of two up to
-        8 (`runtime.bucketing.pad_batch_pow2`) with zero images."""
-        from .models import decode_detections
+    def batch(self, images: list) -> np.ndarray:
+        """N images as `forward`'s input: one C-contiguous [B, size, size, 3]
+        f32 batch, B padded to a power of two up to 8
+        (`runtime.bucketing.pad_batch_pow2`) with zero images."""
         from .runtime.bucketing import pad_batch_pow2
+
+        arrs = [self._to_input(im) for im in images]
+        x = np.zeros((pad_batch_pow2(len(arrs)),) + arrs[0].shape, np.float32)
+        for i, a in enumerate(arrs):
+            x[i] = a
+        return x
+
+    def detect_batch(self, images: list) -> list[list[dict]]:
+        """One forward for N images (`batch`)."""
+        from .models import decode_detections
 
         if not images:
             return []
-        arrs = [self._to_input(im) for im in images]
-        n = len(arrs)
-        x = np.zeros((pad_batch_pow2(n),) + arrs[0].shape, np.float32)
-        for i, a in enumerate(arrs):
-            x[i] = a
-        outs = self.model.forward_fn()(self.model.params, torch.from_numpy(x).to(self.model.device))
+        n = len(images)
+        outs = self.forward(self.batch(images))
         scores, boxes = (o[:n].cpu().numpy() for o in outs[:2])
         return [decode_detections(scores[i : i + 1], boxes[i : i + 1], self.conf_threshold)
                 for i in range(n)]

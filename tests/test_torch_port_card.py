@@ -750,3 +750,287 @@ def test_yolo_head_maps_on_card_match_cpu(dev, seg, dtype):
         g = got[k].cpu()
         assert g.dtype == torch.float32 and g.shape == r.shape and bool(torch.isfinite(g).all())
         assert (g - r).abs().max().item() <= cs.YOLO_MAP_REL[dtype] * r.abs().max().item(), k
+
+
+# -- captured CUDA graphs (runtime/graphs.py) against the uncaptured paths -----------
+
+
+def _flat(out) -> list:
+    from lele_tpu_torch.runtime.graphs import flatten
+
+    return [torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for v in flatten(out)[0] if isinstance(v, (np.ndarray, torch.Tensor))]
+
+
+def _capture_case(after, before, rel=None):
+    """after(i) / before(i): the captured and the uncaptured path on inputs
+    i = 0, 1, 2. Asserts the same bits (rel None) or max|d| <= rel·max|ref|
+    (printed), equal launch counts, and that later calls leave the first
+    call's outputs as they were."""
+    K.reset_launch_counts()
+    first = _flat(after(0))
+    torch.cuda.synchronize()
+    got_counts = K.launch_counts()
+    kept = [t.clone() for t in first]
+    K.reset_launch_counts()
+    ref0 = _flat(before(0))
+    torch.cuda.synchronize()
+    assert got_counts == K.launch_counts()
+    worst = 0.0
+    for i, (a, b) in enumerate([(first, ref0)] + [(_flat(after(i)), _flat(before(i)))
+                                                  for i in (1, 2)]):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and x.dtype == y.dtype
+            if rel is None:
+                assert torch.equal(x.cpu(), y.cpu()), f"input {i}: not the same bits"
+            elif y.numel():
+                d = (x.double() - y.double()).abs().max().item()
+                worst = max(worst, d / max(y.double().abs().max().item(), 1e-30))
+    print(f"captured vs uncaptured: max|d|/max|ref| {worst:.3e}")
+    assert worst <= (rel or 0.0)
+    assert all(torch.equal(k, f) for k, f in zip(kept, first))
+
+
+@pytest.mark.cuda
+def test_compiled_model_captures_with_donated_state(dev):
+    """SileroOnnx's rate-bound step: one graph, the state donated (each
+    call's state is a copy of the caller's own, passed back in), the same
+    bits and launches as the step-by-step replay."""
+    from lele_tpu_torch.models import SileroOnnx
+
+    cm = SileroOnnx(cs.SILERO_FIXTURE, device=dev).compiled(16000)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy((rng.standard_normal((1, 512)) * 3000).astype(np.float32)).to(dev)
+          for _ in range(3)]
+    zero = torch.zeros((2, 1, 128), device=dev)
+    _capture_case(lambda i: cm(xs[i], zero), lambda i: cm.replay(xs[i], zero))
+    assert cm.stats["captured"] is True and cm.donated == {"state": 1}
+    state, rstate, states = zero, zero, []
+    for x in xs:  # the state recirculates; every returned state stays as it was
+        rprob, rstate = cm.replay(x, rstate)
+        prob, state = cm(x, state)
+        states.append((state, rstate))
+        assert torch.equal(prob, rprob)
+    assert all(torch.equal(a, b) for a, b in states)
+
+
+@pytest.mark.cuda
+def test_compiled_model_compile_captures_ahead(dev):
+    """`compile()` captures on zero inputs; the first call is then a replay
+    with the step-by-step replay's bits and launch counts."""
+    from lele_tpu_torch.models import SileroOnnx
+
+    cm = SileroOnnx(cs.SILERO_FIXTURE, device=dev).compiled(16000)
+    assert cm.compile() is cm and cm._program.graph is not None and cm.stats["captured"]
+    x = torch.from_numpy((np.random.default_rng(8).standard_normal((1, 512)) * 3000)
+                         .astype(np.float32)).to(dev)
+    state = torch.full((2, 1, 128), 0.25, device=dev)
+    graph = cm._program.graph
+    _capture_case(lambda i: cm(x * (i + 1), state), lambda i: cm.replay(x * (i + 1), state))
+    assert cm._program.graph is graph
+
+
+def _interleave(step, chunks, states):
+    """Streams 0 and 1 through step(chunk, state) → (out, state), their calls
+    alternating, each carrying its own state → outputs and last states."""
+    states, outs = list(states), []
+    for t in range(len(chunks[0])):
+        for k in (0, 1):
+            out, states[k] = step(chunks[k][t], states[k])
+            outs.append(out)
+    return _flat(outs) + _flat(states)
+
+
+@pytest.mark.cuda
+def test_sessions_interleaved_through_one_silero_step_program(dev):
+    """Two streams alternating through `SileroVad.step_fn`'s one program give
+    what each gives through `silero_step` on its own."""
+    from lele_tpu_torch.models import SileroVad
+    from lele_tpu_torch.models.silero import silero_step, zero_state
+
+    vad = SileroVad(device=dev)
+    vad.init(2)
+    rng = np.random.default_rng(6)
+    chunks = [[torch.from_numpy(c[None]).to(dev)
+               for c in vad.frame_chunks(cs.vad_pcm(0.2, 16000, rng))[:5]] for _ in range(2)]
+    step = vad.step_fn(16000)
+    with torch.inference_mode():
+        got = _interleave(lambda c, s: step(vad.params, c, s), chunks,
+                          [zero_state(vad.cfg, device=dev)] * 2)
+        ref = _interleave(lambda c, s: silero_step(vad.params, c, s, vad.cfg, 16000), chunks,
+                          [zero_state(vad.cfg, device=dev)] * 2)
+    assert len(vad.programs) == 1
+    assert len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_sessions_interleaved_through_one_stream_step_program(dev):
+    """Two streams alternating through `StreamingSenseVoice.step_fn`'s one
+    program give what each gives through `stream_step` on its own."""
+    from lele_tpu_torch.models import SenseVoiceConfig, SenseVoiceModel, StreamingSenseVoice
+    from lele_tpu_torch.models.sensevoice_stream import (StreamConfig, init_stream_state,
+                                                         stream_step)
+
+    cfg = SenseVoiceConfig(n_layers=2, d_model=256, n_heads=4, ffn_dim=512, vocab_size=300)
+    st = StreamingSenseVoice(cfg=cfg, stream=StreamConfig(chunk_frames=8, context_frames=16),
+                             device=dev)
+    st.params = SenseVoiceModel(cfg, device=dev).init(4)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    chunks = [list(torch.randn((4, 1, 8, 560), generator=gen, device=dev)) for _ in range(2)]
+    mask = torch.ones((1, 8), device=dev)
+    step = st.step_fn()
+    with torch.inference_mode():
+        got = _interleave(lambda f, s: step(st.params, f, mask, s), chunks,
+                          [init_stream_state(cfg, st.stream, device=dev) for _ in range(2)])
+        ref = _interleave(lambda f, s: stream_step(st.params, f, mask, s, cfg), chunks,
+                          [init_stream_state(cfg, st.stream, device=dev) for _ in range(2)])
+    assert len(st.programs) == 1
+    assert len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_dynamic_if_tape_replays_step_by_step(dev):
+    from lele_tpu_torch.compiler import compile_model
+
+    cm = compile_model(str(cs.SILERO_FIXTURE), device=dev)
+    x = torch.randn((1, 512), device=dev) * 3000
+    out = cm(x, torch.zeros((2, 1, 128), device=dev), np.asarray([8000], np.int64))
+    assert cm.stats["capturable"] is False and cm.stats["captured"] is False
+    ref = cm.replay(x, torch.zeros((2, 1, 128), device=dev), np.asarray([8000], np.int64))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 4, 32])
+def test_silero_onnx_blocks_give_the_stepwise_bits(dev, block):
+    from lele_tpu_torch.models import SileroOnnx
+
+    sv = SileroOnnx(cs.SILERO_FIXTURE, device=dev)
+    sv.BLOCK = block
+    sv.compiled(16000)  # traced before the counted calls (the walk launches kernel 6)
+    pcms = [cs.vad_pcm(s, 16000, np.random.default_rng(k)) for k, s in
+            enumerate((2.3, 1.1, 3.0))]
+    _capture_case(lambda i: sv.speech_probs(pcms[i], 16000),
+                  lambda i: cs.silero_onnx_stepwise(sv, pcms[i], 16000))
+
+
+def _small_sensevoice(dev, **kw):
+    from lele_tpu_torch.models import (SenseVoiceConfig, SenseVoiceModel, cast_big_params,
+                                       prepare_quantized_params, prepare_w4_params,
+                                       prepare_w8_params, stack_layer_params)
+
+    cfg = SenseVoiceConfig(n_layers=2, d_model=256, n_heads=4, ffn_dim=512, vocab_size=300,
+                           **kw)
+    m = SenseVoiceModel(cfg, device=dev)
+    p = m.init(3)
+    if cfg.quantized:
+        p = stack_layer_params(prepare_quantized_params(p, drop_fp=True))
+    elif cfg.weight_int4:
+        p = stack_layer_params(prepare_w4_params(cast_big_params(p, torch.bfloat16)))
+    elif cfg.weight_int8:
+        p = prepare_w8_params(cast_big_params(p, torch.bfloat16))
+        p = p if cfg.n_experts else stack_layer_params(p)
+    m.params = p
+    return m
+
+
+SV_CASES = {"w8": dict(weight_int8=True), "w4": dict(weight_int4=True),
+            "int8": dict(quantized=True), "int8_k5": dict(quantized=True, quant_pallas=True),
+            "moe": dict(weight_int8=True, n_experts=4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SV_CASES))
+def test_sensevoice_bucket_program_serves_every_length(dev, case):
+    """Three lengths of one bucket through one captured program: each the
+    eager body's bits (`_ids_fn`), and one program in all."""
+    from lele_tpu_torch.runtime.bucketing import pad_pcm
+
+    m = _small_sensevoice(dev, **SV_CASES[case])
+    ins = [pad_pcm(cs.synth_speechlike(s, np.random.default_rng(k)))
+           for k, s in enumerate((2.9, 2.1, 2.5))]
+    ins = [(p[None], [n]) for p, n in ins]
+
+    def before(i):
+        return m._ids_fn()(torch.from_numpy(ins[i][0]).to(dev),
+                           torch.tensor(ins[i][1], device=dev))
+
+    with torch.inference_mode():
+        _capture_case(lambda i: m._run_ids(*ins[i]), before)
+    assert len(m.programs) == 1
+
+
+@pytest.mark.cuda
+def test_sensevoice_batch_and_long_programs(dev):
+    from lele_tpu_torch.models.sensevoice import pad_rows
+
+    m = _small_sensevoice(dev, weight_int8=True)
+    rng = np.random.default_rng(9)
+    batches = [m.batch_inputs([cs.synth_speechlike(s, rng) for s in lens])
+               for lens in ((1.0, 2.5, 2.9), (2.0, 0.5, 1.2), (2.2, 2.2, 2.2))]
+    wins = [pad_rows(m.long_windows(cs.synth_speechlike(s, rng))[0], 30 * 16000)
+            for s in (64.0, 70.0, 75.0)]
+    for inputs in (batches, wins):
+        def before(i, inputs=inputs):
+            return m._ids_fn()(torch.from_numpy(inputs[i][0]).to(dev),
+                               torch.from_numpy(inputs[i][1].astype(np.int64)).to(dev))
+
+        with torch.inference_mode():
+            _capture_case(lambda i, inputs=inputs: m._run_ids(*inputs[i]), before)
+
+
+@pytest.mark.cuda
+def test_stream_steps_capture_with_donated_state(dev):
+    from lele_tpu_torch.models import SenseVoiceConfig, SenseVoiceModel, StreamingSenseVoice
+    from lele_tpu_torch.models.sensevoice_stream import (StreamConfig, init_stream_state,
+                                                         stream_step)
+
+    cfg = SenseVoiceConfig(n_layers=2, d_model=256, n_heads=4, ffn_dim=512, vocab_size=300)
+    st = StreamingSenseVoice(cfg=cfg, stream=StreamConfig(chunk_frames=8, context_frames=16),
+                             device=dev)
+    st.params = SenseVoiceModel(cfg, device=dev).init(4)
+    feats = torch.randn((5, 1, 8, 560), device=dev)
+    mask = torch.ones((1, 8), device=dev)
+    state = init_stream_state(cfg, st.stream, device=dev)
+    ref = init_stream_state(cfg, st.stream, device=dev)
+    step = st.decode_step_fn()
+    for f in feats:
+        ids, state = step(st.params, f, mask, state)
+        with torch.inference_mode():
+            logits, ref = stream_step(st.params, f, mask, ref, cfg)
+        assert torch.equal(ids, logits.argmax(-1).to(torch.int32))
+        assert all(torch.equal(a, b) for a, b in zip(_flat(state), _flat(ref)))
+    assert len(st.programs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_yolo_engine_program_within_the_card_gate(dev, dtype):
+    """cuDNN may take another algorithm under capture: held to
+    cs.YOLO_MAP_REL, the largest difference printed."""
+    from lele_tpu_torch.models import Yolo26Config, Yolo26Model
+    from lele_tpu_torch.serving import Yolo26Engine
+
+    m = Yolo26Model(Yolo26Config(dtype=dtype), device=dev)
+    m.init(7)
+    eng = Yolo26Engine(model=m)
+    xs = [np.random.default_rng(k).random((1, 640, 640, 3)).astype(np.float32)
+          for k in range(3)]
+    _capture_case(lambda i: eng.forward(xs[i]),
+                  lambda i: m.forward_fn()(m.params, torch.from_numpy(xs[i]).to(dev)),
+                  rel=cs.YOLO_MAP_REL[dtype])
+
+
+@pytest.mark.cuda
+def test_a_capture_that_reads_the_host_raises_naming_the_step(dev):
+    from lele_tpu_torch.runtime.graphs import CaptureError, Programs
+
+    def make():
+        def host_read(x):
+            return x * float(x.sum().item())
+
+        return host_read
+
+    with pytest.raises(CaptureError, match="in host_read"):
+        Programs(dev).run("k", make, torch.ones(3, device=dev))

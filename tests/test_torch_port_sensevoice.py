@@ -198,7 +198,9 @@ def test_port_runs_without_jax():
     transcribe_long, recognize_batch with a tokenizer, beam decoding, a
     streaming step, and a MatMulInteger graph both ways; and slice 15:
     YoloOnnx on the fixture (bf16 compute) and a small seg model behind
-    Yolo26Engine, with no PIL imported (the card machine has none)."""
+    Yolo26Engine, with no PIL imported (the card machine has none); and
+    slice 16: runtime/graphs.py's programs (run eagerly on the CPU) and
+    SileroOnnx in blocks with its donated state."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -354,6 +356,15 @@ def test_port_runs_without_jax():
         "s, b, c, p = ym.forward_fn()(ym.params, img[None, :128, :128])\n"
         "assert p.shape == (1, 16, 16, 32) and compose_masks(c.numpy(), p.numpy(),\n"
         "    b.numpy(), [0, 1], 128).shape == (2, 128, 128)\n"
+        "from lele_tpu_torch.runtime import graphs\n"
+        "progs = graphs.Programs('cpu')\n"
+        "out = progs.run('k', lambda: lambda x, s: (x + s, s * 2), np.ones(3, np.float32),\n"
+        "                torch.ones(3), donate={1: 1})\n"
+        "assert torch.equal(out[0], torch.full((3,), 2.0)) and len(progs) == 0\n"
+        "sv8 = SileroOnnx('fixtures/silero.onnx', device='cpu')\n"
+        "q = sv8.speech_probs(pcm[:9 * 512], 16000)\n"
+        "assert q.shape == (9,) and np.array_equal(q, sv8.speech_probs_hostloop(pcm[:9 * 512]))\n"
+        "assert sv8.compiled(16000).donated == {'state': 1}\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
