@@ -104,14 +104,20 @@
    with masked tails, each repeat call and CUDA-graph replay bit-identical;
 20. drives Supertonic TTS at full width (tts.json with the fused
    estimator, random weights from a seed) behind TtsEngine, with the
-   Supertonic 2 and 3 settings and voices, on three texts: kernel 10 five
-   times a chunk and no other kernel; each WAV against the unfused f32
-   route;
+   Supertonic 2 and 3 settings and voices, on three texts, each chunk one
+   captured duration → mask → synth program (a bucket guess, one
+   re-dispatch where it misses): kernel 10 five times a program run and no
+   other kernel; each WAV against the unfused f32 route;
 21. times kernel 10, its plain version, its bound and a composite of bf16
-   library calls, by events, the profiler and a CUDA graph; the synth core at 512 and 1,024 latent frames, fused and
-   unfused, with RTF, and profiles both at 1,024; TtsEngine per request;
+   library calls, by events, the profiler and a CUDA graph; the synth core
+   (eager) at 512 and 1,024 latent frames, fused and unfused, with RTF,
+   and profiles both at 1,024; TtsEngine per request, captured and
+   uncaptured; registers the synth programs at 512 and 1,024 frames and
+   TtsEngine for phase 32;
 22. drives SupertonicOnnx on the four fixture graphs: each against
-   supertonic_io.npz, the device loop against the host loop, no kernel;
+   supertonic_io.npz, `synthesize_latent` (the four graphs and the flow
+   loop composed into one captured program, runtime/compose.py) against
+   the host loop, no kernel; registers it for phase 32;
 23. holds kernel 12 (flash attention, csrc/flash_attn.cu) against its
    plain version and an f64 oracle at the TPU script's shape (B 2, H 8,
    L 2,048, D 128, causal), its masked shape (a float mask x 2), the Phi-3
@@ -184,14 +190,27 @@
    step, and the CompiledModel graphs (the compiled SenseVoice, SileroOnnx in
    blocks, MatMulNBits, GRU, QMoE decode, the per-op int8 graph, the
    opset-23 prefill and decode step, YoloOnnx), and the native YOLO26
-   behind Yolo26Engine. For each: the same bits, or the path's card gate
+   behind Yolo26Engine, the TTS synth programs at 512 and 1,024 frames
+   and TtsEngine (kernel 10 five times a program: its 68 kernel nodes a
+   call are counted by name), SupertonicOnnx's composed program, and phase
+   33's GPT-2 greedy decode and Whisper-width seq2seq against their host
+   loops. For each: the same bits, or the path's card gate
    where cuBLAS or cuDNN may take another algorithm under capture; the
    uncaptured path's launch counts; a second call on other inputs that
    leaves the first call's outputs as they were; one program for both
    inputs of a bucket; both paths' times by host clock and events with the
    device's busy share; the memory reserved after the captures; then 32b,
    SileroOnnx's block size (1, 8, 32, 128 and 312 chunks a graph);
-33. prints one JSON line of kernels, the card, and last
+33. (run before 32, which holds its paths) generative decode through the
+   port's runtime/decode.py and runtime/seq2seq.py on step graphs exported
+   by torch.onnx.export through the port's onnx/torch_shim.py: GPT-2 small
+   (12 layers, d 768, 12 heads, vocab 50,257, 1,024 positions; random
+   weights from a seed) greedy, sampled and beam 4, and Whisper-tiny's
+   decoder widths (4 layers, d 384, 6 heads, vocab 51,865) over a 1,500-
+   frame encoder graph through Seq2SeqGenerator: each fused program (one
+   step program a (B, P), replayed a token) against its host loop, ids
+   equal, ms a token both ways;
+34. prints one JSON line of kernels, the card, and last
    {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -1720,9 +1739,11 @@ def busy(fn) -> tuple[float, float]:
 
 # each wrapper's kernels (csrc `__global__` names), exactly one of which runs
 # a launch (the helpers beside them, such as kernel 5's quantize pass or
-# kernel 12's statistics, are not listed); wrappers that share a kernel are
+# kernel 12's statistics, are not listed), except where LAUNCH_NODES says
+# how many kernel nodes one launch is; wrappers that share a kernel are
 # counted together (`launch_groups`)
 LAUNCH_KERNELS = {
+    "est_block": ("ln_rows", "gemm_bf16", "attention"),
     "w8_gemm": ("w8_wgmma", "w8_gemm_f32"),
     "sanm_layer_w8": ("attn_fsmn",),
     "sanm_stack_w8": ("sanm_stack_kernel",),
@@ -1735,6 +1756,11 @@ LAUNCH_KERNELS = {
     "w4_gemm": ("w4_gemm_mma", "w4_gemm_f32", "w4_gemv_mma", "w4_gemv"),
     "flash_attn": ("flash_attn_tf32", "flash_attn_ffma"),
 }
+
+
+# kernel 10 is a fixed sequence of launches a call (csrc/est_block.cu): 8 a
+# self block and 9 a cross block, 68 for the TTS estimator's 8 blocks
+LAUNCH_NODES = {"est_block": 8 * 8 + 8 // 2}
 
 
 def launch_groups() -> list[tuple[set, set]]:
@@ -1773,12 +1799,12 @@ def program_launch_check(checks, label: str, calls: list) -> None:
         per = []
         for ws, ns in launch_groups():
             got = sum(any(is_kernel(n, k) for k in ns) for n in nodes)
-            want = sum(delta.get(w, 0) for w in ws)
+            want = sum(delta.get(w, 0) * LAUNCH_NODES.get(w, 1) for w in ws)
             if got or want:
                 per.append(("+".join(sorted(ws)), got, want))
         checks.require(not unmapped and all(g == w for _, g, w in per),
                        f"{label}: {prog.name}'s graph, {len(nodes)} kernel nodes: "
-                       + (", ".join(f"{w} {g} nodes for {n} counted launches"
+                       + (", ".join(f"{w} {g} nodes for {n} nodes of its counted launches"
                                     for w, g, n in per) or "none of ours, no launch counted")
                        + (f"; no kernel names for {unmapped}" if unmapped else ""))
 
@@ -1805,7 +1831,8 @@ def capture_phase(checks, card) -> None:
         with torch.inference_mode():
             K.reset_launch_counts()
             calls, call = [], Program.__call__
-            Program.__call__ = lambda prog, *a: (calls.append(prog), call(prog, *a))[1]
+            Program.__call__ = lambda prog, *a, **k: (
+                calls.extend([prog] * k.get("repeat", 1)), call(prog, *a, **k))[1]
             try:
                 a0 = _card_tensors(after(0))
             finally:
@@ -1977,7 +2004,7 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
     from lele_tpu_torch.models import SupertonicConfig, SupertonicOnnx, SupertonicTts
     from lele_tpu_torch.models.supertonic import init_vector_estimator
     from lele_tpu_torch.params import tree_map
-    from lele_tpu_torch.serving import TtsEngine
+    from lele_tpu_torch.serving import TtsEngine, encode_wav
     from lele_tpu_torch.utils.wav import decode_wav_bytes
 
     cfg = dataclasses.replace(SupertonicConfig.from_json(EXAMPLES / "supertonic" / "tts.json"),
@@ -2031,14 +2058,22 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
 
     n_chunks = len(engines) * sum(len(prepare_chunks(t)) for t in TTS_TEXTS)
     K.reset_launch_counts()
+    before = sum(eng.tts.dispatches for eng in engines.values())
     wavs = {(v, i): eng.synthesize(t, seed=i)
             for v, eng in engines.items() for i, t in enumerate(TTS_TEXTS)}
     torch.cuda.synchronize()
     tts_launches = K.launch_counts()
-    print(f"  launch counts over {len(wavs)} requests ({n_chunks} chunks): {tts_launches}")
-    checks.require(tts_launches["est_block"] == cfg.flow_steps * n_chunks
+    dispatches = sum(eng.tts.dispatches for eng in engines.values()) - before
+    progs = [p for eng in engines.values() for p in eng.tts.programs._progs.values()]
+    print(f"  launch counts over {len(wavs)} requests ({n_chunks} chunks, {dispatches} synth "
+          f"programs run, {len(progs)} programs captured): {tts_launches}")
+    checks.require(tts_launches["est_block"] == cfg.flow_steps * dispatches
+                   and n_chunks <= dispatches <= 2 * n_chunks
                    and sum(tts_launches.values()) == tts_launches["est_block"],
-                   f"est_block {cfg.flow_steps} times a chunk, no other kernel")
+                   f"est_block {cfg.flow_steps} times a synth program, no other kernel")
+    checks.require(bool(progs) and all(p.graph is not None for p in progs),
+                   f"TtsEngine.synthesize ran through {len(progs)} captured programs "
+                   "(one a (kind, token bucket, latent bucket))")
     for (v, i), data in wavs.items():
         eng = engines[v]
         pcm, sr = decode_wav_bytes(data)
@@ -2096,12 +2131,30 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
                         f"fused synth core T={T}", card, n=2, top=15)
             profile_top(lambda: un2.synth_core(ids, tmask, st_ttl, lmask),
                         f"unfused synth core T={T}", card, n=2, top=8)
+        register_synth(f"Supertonic synth program T={T} Tk={Tk} (kernel 10 five times)", tts2,
+                       T, Tk, gen)
     for i, text in enumerate(TTS_TEXTS):
         n = len(decode_wav_bytes(wavs[("v2", i)])[0])
         t_h = host_ms(lambda: engines["v2"].synthesize(text, seed=i))
+        t_u = host_ms(lambda: (tts2.synthesize_uncaptured(text, style, seed=i),
+                               torch.cuda.synchronize()))
         print(f"  TtsEngine.synthesize request {i} ({len(text)} chars, {n / cfg.sample_rate:.2f} "
               f"s of audio): {t_h:.3f} ms host clock (RTF "
-              f"{t_h / (n / cfg.sample_rate * 1e3):.2e})  ({card})")
+              f"{t_h / (n / cfg.sample_rate * 1e3):.2e}); uncaptured {t_u:.3f} ms  ({card})")
+
+    ema = tts2._fpt_ema  # the rate the requests above taught the bucket guess
+
+    def engine_wave(i):
+        tts2._fpt_ema = ema  # the same bucket guesses on both paths
+        return decode_wav_bytes(engines["v2"].synthesize(TTS_TEXTS[i], seed=i))[0]
+
+    def uncaptured_wave(i):
+        tts2._fpt_ema = ema
+        wave = tts2.synthesize_uncaptured(TTS_TEXTS[i], style, seed=i)
+        return decode_wav_bytes(encode_wav(wave, cfg.sample_rate))[0]
+
+    register("TtsEngine.synthesize, Supertonic 2 settings (a synth program a chunk, kernel 10 "
+             "five times a program)", engine_wave, uncaptured_wave)
 
     print("== 22. SupertonicOnnx on fixtures/supertonic_{dp,te,ve,voc}.onnx")
     fio = dict(np.load(FIXTURES / "supertonic_io.npz"))
@@ -2128,9 +2181,40 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
                    f"synthesize_latent {wave_d.shape} vs the host loop: max|d| {d:.2e} <= 1e-5")
     t_d = host_ms(lambda: st.synthesize_latent(*args, latent_len=n, seed=1))
     t_hl = host_ms(lambda: st.synthesize_latent_hostloop(*args, latent_len=n, seed=1))
+    fused = st.fused(n)
+    emb = st._emb_shape()
+    noises = [torch.from_numpy(st._noise(emb[1], n, seed)).to(dev) for seed in (1, 2)]
+    t_u = host_ms(lambda: (fused.uncaptured(*args, noises[0]), torch.cuda.synchronize()))
+    checks.require(len(fused.programs) == 1,
+                   "SupertonicOnnx.synthesize_latent is one captured program (dp, te, five "
+                   "estimator walks and the vocoder)")
     print(f"  synthesize_latent (fixture size, {n} latent frames): {t_d:.3f} ms host clock; "
-          f"host loop {t_hl:.3f} ms  ({card})")
+          f"uncaptured composed pipeline {t_u:.3f} ms; host loop {t_hl:.3f} ms  ({card})")
+    register("SupertonicOnnx.synthesize_latent, the four graphs composed into one program "
+             "(no kernel)", lambda i: st.synthesize_latent(*args, latent_len=n, seed=i + 1),
+             lambda i: fused.uncaptured(*args, noises[i]), programs=fused.programs)
     return tts_launches
+
+
+def register_synth(label: str, tts, T: int, Tk: int, gen) -> None:
+    """The two-dispatch route's synth program at latent bucket T and token
+    bucket Tk (`synth_fn`, as `synthesize` runs it) on two inputs of the
+    bucket (the second with a shorter latent mask), against its function
+    run eagerly."""
+    import torch
+
+    cfg, dev = tts.cfg, tts.device
+    inputs = []
+    for i in range(2):
+        ids = torch.randint(0, cfg.vocab_size, (1, Tk), generator=gen, device=dev)
+        lmask = torch.zeros((1, T), device=dev)
+        lmask[:, :T - 37 * i] = 1.0
+        style = torch.randn((2, cfg.d_style), generator=gen, device=dev)
+        inputs.append((ids, torch.ones((1, Tk), device=dev), style[0], style[1], lmask,
+                       tts.noise(i)[:, :T]))
+    register(label, lambda i: tts.programs.run(("synth", Tk, T), lambda: tts.synth_fn(T),
+                                               *inputs[i], params=tts.params),
+             lambda i: tts.synth_fn(T)(*inputs[i]), programs=tts.programs)
 
 
 def flash_oracle(q, k, v, bias, causal, scale):
@@ -3121,6 +3205,343 @@ def yolo_phases(checks, dev, card) -> None:
     print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 33's models, at their published widths with random weights from a
+# seed: GPT-2 small (the HF `gpt2` config: 12 layers, d 768, 12 heads of 64,
+# MLP 3,072, vocab 50,257, 1,024 positions) as a decoder step, and
+# Whisper-tiny's decoder (HF `openai/whisper-tiny`: 4 layers, d 384, 6 heads
+# of 64, MLP 1,536, vocab 51,865, 448 positions) over 1,500 encoder frames
+# of 80 mel bins. Neither reaches a kernel of the port: a step is
+# single-token MatMuls and Softmax
+GPT2 = dict(vocab=50257, d=768, heads=12, layers=12, max_len=1024, ffn=3072)
+WHISPER_TINY = dict(vocab=51865, d=384, heads=6, layers=4, max_len=448, ffn=1536,
+                    frames=1500, mels=80)
+DECODE_PROMPTS = (16, 9)  # phase 32's two inputs: one program for both lengths
+DECODE_STEPS = 48
+DECODE_TEMPERATURE = 0.8
+BEAM = 4
+BEAM_STEPS = 24
+S2S_STEPS = 48
+
+
+def step_modules():
+    """(DecoderStep, S2SEncoder, S2SDecoderStep): copies of
+    tests/test_torch_onnx.py's TinyDecoderStep, TinyS2SEncoder and
+    TinyS2SDecoderStep (the JAX package's step-graph contract,
+    lele_tpu_torch/runtime/decode.py), with the MLP width a parameter."""
+    import torch
+    import torch.nn as nn
+
+    class DecoderStep(nn.Module):
+        def __init__(self, vocab, d, heads, layers, max_len, ffn):
+            super().__init__()
+            self.d, self.H, self.L, self.hd = d, heads, layers, d // heads
+            self.tok = nn.Embedding(vocab, d)
+            self.posemb = nn.Embedding(max_len, d)
+            self.ln1 = nn.ModuleList([nn.LayerNorm(d) for _ in range(layers)])
+            self.ln2 = nn.ModuleList([nn.LayerNorm(d) for _ in range(layers)])
+            self.qkv = nn.ModuleList([nn.Linear(d, 3 * d) for _ in range(layers)])
+            self.proj = nn.ModuleList([nn.Linear(d, d) for _ in range(layers)])
+            self.up = nn.ModuleList([nn.Linear(d, ffn) for _ in range(layers)])
+            self.down = nn.ModuleList([nn.Linear(ffn, d) for _ in range(layers)])
+            self.lnf = nn.LayerNorm(d)
+            self.head = nn.Linear(d, vocab, bias=False)
+
+        def forward(self, ids, pos, cache_k, cache_v, mask):
+            B = ids.shape[0]
+            x = self.tok(ids) + self.posemb(pos)
+            nks, nvs = [], []
+            for i in range(self.L):
+                q, k, v = self.qkv[i](self.ln1[i](x)).split(self.d, dim=-1)
+                q, k, v = (t.view(B, 1, self.H, self.hd).transpose(1, 2) for t in (q, k, v))
+                nks.append(k)
+                nvs.append(v)
+                K = torch.cat([cache_k[i], k], dim=2)
+                V = torch.cat([cache_v[i], v], dim=2)
+                att = torch.softmax((q @ K.transpose(-1, -2)) / (self.hd ** 0.5) + mask, dim=-1)
+                x = x + self.proj[i]((att @ V).transpose(1, 2).reshape(B, 1, self.d))
+                x = x + self.down[i](torch.nn.functional.gelu(self.up[i](self.ln2[i](x))))
+            return self.head(self.lnf(x))[:, 0], torch.stack(nks), torch.stack(nvs)
+
+    class S2SEncoder(nn.Module):
+        def __init__(self, feat, d, heads, dec_layers):
+            super().__init__()
+            self.d, self.H, self.Ld, self.hd = d, heads, dec_layers, d // heads
+            self.inp = nn.Linear(feat, d)
+            self.ln = nn.LayerNorm(d)
+            self.ff = nn.Linear(d, d)
+            self.k_proj = nn.ModuleList([nn.Linear(d, d) for _ in range(dec_layers)])
+            self.v_proj = nn.ModuleList([nn.Linear(d, d) for _ in range(dec_layers)])
+
+        def forward(self, x):
+            B, Te, _ = x.shape
+            h = torch.tanh(self.inp(x))
+            h = h + self.ff(self.ln(h))
+            ks = [p(h).view(B, Te, self.H, self.hd).transpose(1, 2) for p in self.k_proj]
+            vs = [p(h).view(B, Te, self.H, self.hd).transpose(1, 2) for p in self.v_proj]
+            return torch.stack(ks), torch.stack(vs)
+
+    class S2SDecoderStep(DecoderStep):
+        def __init__(self, vocab, d, heads, layers, max_len, ffn):
+            super().__init__(vocab, d, heads, layers, max_len, ffn)
+            self.lnx = nn.ModuleList([nn.LayerNorm(d) for _ in range(layers)])
+            self.q_x = nn.ModuleList([nn.Linear(d, d) for _ in range(layers)])
+            self.proj_x = nn.ModuleList([nn.Linear(d, d) for _ in range(layers)])
+
+        def forward(self, ids, pos, cache_k, cache_v, mask, cross_k, cross_v):
+            B = ids.shape[0]
+            x = self.tok(ids) + self.posemb(pos)
+            nks, nvs = [], []
+            for i in range(self.L):
+                q, k, v = self.qkv[i](self.ln1[i](x)).split(self.d, dim=-1)
+                q, k, v = (t.view(B, 1, self.H, self.hd).transpose(1, 2) for t in (q, k, v))
+                nks.append(k)
+                nvs.append(v)
+                K = torch.cat([cache_k[i], k], dim=2)
+                V = torch.cat([cache_v[i], v], dim=2)
+                att = torch.softmax((q @ K.transpose(-1, -2)) / (self.hd ** 0.5) + mask, dim=-1)
+                x = x + self.proj[i]((att @ V).transpose(1, 2).reshape(B, 1, self.d))
+                qx = self.q_x[i](self.lnx[i](x)).view(B, 1, self.H, self.hd).transpose(1, 2)
+                attx = torch.softmax((qx @ cross_k[i].transpose(-1, -2)) / (self.hd ** 0.5),
+                                     dim=-1)
+                x = x + self.proj_x[i]((attx @ cross_v[i]).transpose(1, 2).reshape(B, 1, self.d))
+                x = x + self.down[i](torch.nn.functional.gelu(self.up[i](self.ln2[i](x))))
+            return self.head(self.lnf(x))[:, 0], torch.stack(nks), torch.stack(nvs)
+
+    return DecoderStep, S2SEncoder, S2SDecoderStep
+
+
+STEP_INPUTS = ["ids", "pos", "ck", "cv", "mask"]
+STEP_OUTPUTS = ["logits", "nk", "nv"]
+
+
+def export_onnx(m, args, inputs, outputs, batch_axes=None) -> bytes:
+    """m's graph by torch.onnx.export (TorchScript, opset 17) through the
+    port's `onnx` stand-in (onnx/torch_shim.py), on the CPU. `batch_axes`
+    names each input's and output's batch axis, left symbolic as "B"."""
+    import torch
+
+    from lele_tpu_torch.onnx import torch_shim
+
+    torch_shim.install()
+    f = io.BytesIO()
+    dyn = None if batch_axes is None else {n: {a: "B"} for n, a in batch_axes.items()}
+    with torch.no_grad():
+        torch.onnx.export(m.eval(), args, f, opset_version=17, dynamo=False,
+                          input_names=inputs, output_names=outputs, dynamic_axes=dyn)
+    return f.getvalue()
+
+
+def step_zeros(B, L, H, P, hd, Te=None) -> tuple:
+    """Zero inputs of the step contract at batch B (and cross K/V of Te frames)."""
+    import torch
+
+    args = [torch.zeros(B, 1, dtype=torch.long), torch.zeros(B, 1, dtype=torch.long),
+            torch.zeros(L, B, H, P, hd), torch.zeros(L, B, H, P, hd),
+            torch.zeros(B, 1, 1, P + 1)]
+    if Te is not None:
+        args += [torch.zeros(L, B, H, Te, hd), torch.zeros(L, B, H, Te, hd)]
+    return tuple(args)
+
+
+def gpt2_decoders(dev, cfg=GPT2, seed=SEED, beam=BEAM):
+    """The GPT-2-width step exported once with a symbolic batch, compiled for
+    B = 1 and B = beam → ({1: decoder, beam: decoder}, ONNX bytes)."""
+    import torch
+
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.runtime import StaticKVDecoder
+
+    DecoderStep, _, _ = step_modules()
+    torch.manual_seed(seed)
+    L, H, hd, P = cfg["layers"], cfg["heads"], cfg["d"] // cfg["heads"], cfg["max_len"] - 1
+    m = DecoderStep(cfg["vocab"], cfg["d"], H, L, cfg["max_len"], cfg["ffn"])
+    axes = {"ids": 0, "pos": 0, "ck": 1, "cv": 1, "mask": 0, "logits": 0, "nk": 1, "nv": 1}
+    bs = export_onnx(m, step_zeros(1, L, H, P, hd), STEP_INPUTS, STEP_OUTPUTS, axes)
+    decs = {b: StaticKVDecoder(compile_model(bs, dim_values={"B": b}, device=dev), L, H, hd,
+                               cfg["max_len"], batch=b) for b in (1, beam)}
+    return decs, bs
+
+
+def whisper_generator(dev, cfg=WHISPER_TINY, seed=SEED + 1):
+    """Whisper-tiny's decoder widths as a Seq2SeqGenerator over an encoder
+    graph of cfg["frames"] frames → (generator, source features [1, frames,
+    mels])."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.runtime import Seq2SeqGenerator
+
+    _, S2SEncoder, S2SDecoderStep = step_modules()
+    torch.manual_seed(seed)
+    L, H, hd, P = cfg["layers"], cfg["heads"], cfg["d"] // cfg["heads"], cfg["max_len"] - 1
+    enc = S2SEncoder(cfg["mels"], cfg["d"], H, L)
+    dec = S2SDecoderStep(cfg["vocab"], cfg["d"], H, L, cfg["max_len"], cfg["ffn"])
+    src = np.random.default_rng(seed).standard_normal((1, cfg["frames"], cfg["mels"]))
+    src = src.astype(np.float32)
+    enc_b = export_onnx(enc, (torch.from_numpy(src),), ["src"], ["cross_k", "cross_v"])
+    dec_b = export_onnx(dec, step_zeros(1, L, H, P, hd, Te=cfg["frames"]),
+                        STEP_INPUTS + ["cross_k", "cross_v"], STEP_OUTPUTS)
+    gen = Seq2SeqGenerator(compile_model(enc_b, device=dev), compile_model(dec_b, device=dev),
+                           num_layers=L, num_heads=H, head_dim=hd, max_len=cfg["max_len"],
+                           bos_id=1, eos_id=0)
+    return gen, src
+
+
+def beam_hostloop(dec, prompt, steps: int, eos_id: int | None = None):
+    """`beam_search`'s host-loop oracle: the step graph called once a token
+    (its CompiledModel), the K·V continuations scored and ranked on the card
+    as the fused program does, the parents and tokens read back every step,
+    the caches reordered and written by the host's loop → (ids cut at EOS,
+    score). No length penalty."""
+    import numpy as np
+    import torch
+
+    K, P, neg = dec.B, dec.P, float(dec.neg)
+    dev = dec.cm.device
+    ck, cv = dec._caches()
+    scores = torch.full((K,), neg, device=dev)
+    scores[0] = 0.0
+    seqs = np.zeros((K, steps), np.int64)
+    finished = torch.zeros((K,), dtype=torch.bool, device=dev)
+    logits, pos = None, 0
+
+    def step(toks):
+        nonlocal logits, pos
+        outs = dec.cm(np.asarray(toks, np.int64).reshape(K, 1), np.full((K, 1), pos, np.int64),
+                      ck, cv, dec._mask(pos))
+        logits = outs[0].reshape(K, -1)
+        if pos < P:
+            ck[:, :, :, pos] = outs[1][:, :, :, 0]
+            cv[:, :, :, pos] = outs[2][:, :, :, 0]
+        pos += 1
+
+    with torch.inference_mode():
+        for t in prompt:
+            step([int(t)] * K)
+        V = logits.shape[-1]
+        for i in range(steps):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            if eos_id is not None:
+                frozen = torch.where(torch.arange(V, device=dev) == eos_id, 0.0, neg)
+                logp = torch.where(finished[:, None], frozen, logp)
+            top_v, top_i = torch.topk((scores[:, None] + logp).reshape(-1), K)
+            parent, tok = (top_i // V), (top_i % V)
+            p_host, t_host = parent.cpu().numpy(), tok.cpu().numpy()
+            ck.copy_(ck.index_select(1, parent))
+            cv.copy_(cv.index_select(1, parent))
+            seqs = seqs[p_host]
+            seqs[:, i] = t_host
+            finished = finished.index_select(0, parent)
+            if eos_id is not None:
+                finished = finished | (tok == eos_id)
+            scores = top_v
+            step(t_host)
+    best = int(torch.argmax(scores))
+    ids = [int(t) for t in seqs[best]]
+    if eos_id is not None and eos_id in ids:
+        ids = ids[: ids.index(eos_id)]
+    return ids, float(scores[best])
+
+
+def ids_and(ids, *rest) -> tuple:
+    """A decode's ids as an int64 array, beside what else it returned: what
+    phase 32 compares."""
+    import numpy as np
+
+    return (np.asarray(ids, np.int64), *rest)
+
+
+def decode_prompts(vocab: int, seed: int = SEED) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 33)
+    return [[int(t) for t in rng.integers(2, vocab, n)] for n in DECODE_PROMPTS]
+
+
+def decode_phase(checks, dev, card) -> None:
+    """Phase 33: GPT-2-small decode (greedy, sampled, beam 4) and
+    Whisper-tiny-width seq2seq through the port's generative runtime, each
+    fused program against its host loop, with ms a token both ways; the
+    paths are registered for phase 32."""
+    import numpy as np
+    import torch
+
+    print(f"== 33. generative decode: GPT-2 small and Whisper-tiny widths ({card})")
+    t0 = time.perf_counter()
+    decs, bs = gpt2_decoders(dev)
+    dec, beam = decs[1], decs[BEAM]
+    print(f"  GPT-2 small step graph: {len(bs) / 1e6:.1f} MB of ONNX through the port's "
+          f"torch_shim, exported and compiled at B = 1 and {BEAM} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts = decode_prompts(GPT2["vocab"])
+    n_tok = DECODE_PROMPTS[0] + DECODE_STEPS
+    for label, kw, hkw in (("greedy", {}, {}),
+                           (f"sampled, temperature {DECODE_TEMPERATURE}",
+                            dict(temperature=DECODE_TEMPERATURE, seed=5),
+                            dict(temperature=DECODE_TEMPERATURE, rng=5))):
+        t1 = time.perf_counter()
+        ids, logits = dec.generate(prompts[0], DECODE_STEPS, **kw)
+        first = time.perf_counter() - t1
+        ids_h, logits_h = dec.generate_hostloop(prompts[0], DECODE_STEPS, **hkw)
+        same = ids == ids_h and np.array_equal(logits, logits_h)
+        checks.require(same and len(ids) == DECODE_STEPS and all(0 <= t < GPT2["vocab"]
+                                                                for t in ids),
+                       f"GPT-2 small {label}: {DECODE_STEPS} ids after a {DECODE_PROMPTS[0]}-"
+                       f"token prompt, fused = host loop (ids and last logits, the same bits)")
+        fused = host_ms(lambda: dec.generate(prompts[0], DECODE_STEPS, **kw), runs=3)
+        hostl = host_ms(lambda: dec.generate_hostloop(prompts[0], DECODE_STEPS, **hkw), runs=3)
+        print(f"  GPT-2 small {label}: fused {fused / n_tok:.3f} ms a token ({fused:.2f} ms for "
+              f"{n_tok} tokens; first call with its capture {first:.2f} s), host loop "
+              f"{hostl / n_tok:.3f} ms a token  ({card})")
+    profile_top(lambda: dec.generate(prompts[0], DECODE_STEPS),
+                f"GPT-2 small greedy generation ({n_tok} steps)", card, n=1, top=12)
+    t1 = time.perf_counter()
+    ids_b, score = beam.beam_search(prompts[1][:4], BEAM_STEPS, beam=BEAM, eos_id=0)
+    first = time.perf_counter() - t1
+    ids_bh, score_h = beam_hostloop(beam, prompts[1][:4], BEAM_STEPS, eos_id=0)
+    checks.require(ids_b == ids_bh and abs(score - score_h) <= 1e-5 * max(abs(score_h), 1.0)
+                   and np.isfinite(score),
+                   f"GPT-2 small beam {BEAM}: {len(ids_b)} ids, score {score:.6f}; the host "
+                   f"loop's ids and score {score_h:.6f}")
+    n_b = 4 + BEAM_STEPS
+    fused = host_ms(lambda: beam.beam_search(prompts[1][:4], BEAM_STEPS, beam=BEAM, eos_id=0),
+                    runs=3)
+    hostl = host_ms(lambda: beam_hostloop(beam, prompts[1][:4], BEAM_STEPS, eos_id=0), runs=3)
+    print(f"  GPT-2 small beam {BEAM}: fused {fused / n_b:.3f} ms a step ({n_b} steps; first "
+          f"call {first:.2f} s), host loop {hostl / n_b:.3f} ms a step  ({card})")
+    register(f"GPT-2 small beam {BEAM}, one step program replayed a step (no kernel)",
+             lambda i: ids_and(*beam.beam_search(prompts[i][:4], BEAM_STEPS, beam=BEAM,
+                                                 eos_id=0)),
+             lambda i: ids_and(*beam_hostloop(beam, prompts[i][:4], BEAM_STEPS, eos_id=0)),
+             programs=beam.programs)
+    register("GPT-2 small greedy decode, one step program replayed a token (no kernel)",
+             lambda i: ids_and(*dec.generate(prompts[i], DECODE_STEPS)),
+             lambda i: ids_and(*dec.generate_hostloop(prompts[i], DECODE_STEPS)),
+             programs=dec.programs)
+
+    t0 = time.perf_counter()
+    gen, src = whisper_generator(dev)
+    print(f"  Whisper-tiny widths: encoder over {WHISPER_TINY['frames']} frames and decoder "
+          f"step exported and compiled in {time.perf_counter() - t0:.1f} s")
+    ids = gen.generate(src, max_steps=S2S_STEPS)
+    ids_h = gen.generate_hostloop(src, max_steps=S2S_STEPS)
+    checks.require(ids == ids_h and all(0 <= t < WHISPER_TINY["vocab"] for t in ids),
+                   f"Whisper-tiny seq2seq: {len(ids)} ids (cut at EOS) of {S2S_STEPS} steps, "
+                   "fused = host loop")
+    fused = host_ms(lambda: gen.generate(src, max_steps=S2S_STEPS), runs=3)
+    hostl = host_ms(lambda: gen.generate_hostloop(src, max_steps=S2S_STEPS), runs=3)
+    n_s = 1 + S2S_STEPS
+    print(f"  Whisper-tiny seq2seq: fused {fused / n_s:.3f} ms a token ({fused:.2f} ms for the "
+          f"encoder and {n_s} steps), host loop {hostl / n_s:.3f} ms a token  ({card})")
+    src2 = src[:, ::-1].copy()
+    register("Whisper-tiny-width seq2seq, encoder program + one step program (no kernel)",
+             lambda i: ids_and(gen.generate((src, src2)[i], max_steps=S2S_STEPS)),
+             lambda i: ids_and(gen.generate_hostloop((src, src2)[i], max_steps=S2S_STEPS)),
+             programs=gen.decoder.programs)
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -3641,6 +4062,7 @@ def main() -> int:
     s8_launches = slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
                                 model, sv_ref, inputs10, inputs10b)
     yolo_phases(checks, dev, card)
+    decode_phase(checks, dev, card)
     capture_phase(checks, card)
     silero_blocks(checks, dev, card)
 

@@ -16,7 +16,11 @@ operands, f32 products and sums, the softmax of f32 scores normalised before
 its probabilities are rounded to bf16. The wrapper takes it only for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises.
 `estimator_blocks.launches` counts launches (one a call, whatever the
-number of blocks).
+number of blocks; the C entry makes 8 kernel launches a self block and 9 a
+cross block). The wrapper reads only shapes, dtypes and addresses, and
+binds the C entry at its first call, so inside a captured program (the TTS
+synth, one graph a bucket) the warm-up binds it and the capture records
+the launches.
 
 `stack_est_blocks` stacks the blocks' weights once, in the order self0,
 cross0, self1, ... (`_stack_est_blocks`, est_block.py:111), with the

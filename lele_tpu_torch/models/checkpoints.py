@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..runtime.compose import compose_models
 from ..features import FbankConfig, FbankFrontend, fbank_features
 from .sensevoice import _collapse_ids
 from .silero import VadSegmentConfig, collect_segments
@@ -321,15 +322,17 @@ class YoloOnnx:
 
 
 class SupertonicOnnx:
-    """The four Supertonic sub-models, each a compiled ONNX graph, chained with
-    the 5-step flow-matching loop (the reference's execution shape).
+    """The four Supertonic sub-models, each a compiled ONNX graph, with the
+    5-step flow-matching loop.
 
     `model_dir` holds the four files under the repo's fixture names or the
     names the published exports ship under. Each graph compiles at its own
-    input shapes. `device` defaults to `default_device()`, which raises
-    where there is no CUDA card. The noise is numpy's
-    `default_rng(seed).standard_normal`, as in the JAX package, so a seed
-    gives the same bits on both sides."""
+    input shapes. `synthesize_latent` composes the four into one program a
+    latent length (runtime/compose.py; JAX's `_fused_fn`); the host-chained
+    `synthesize_latent_hostloop` is its oracle. `device` defaults to
+    `default_device()`, which raises where there is no CUDA card. The noise
+    is numpy's `default_rng(seed).standard_normal`, as in the JAX package,
+    so a seed gives the same bits on both sides."""
 
     _NAMES = {
         "dp": ("supertonic_dp.onnx", "duration_predictor.onnx"),
@@ -354,6 +357,7 @@ class SupertonicOnnx:
         self.dp, self.te, self.ve, self.voc = (
             compile_model(find(k), device=self.device) for k in ("dp", "te", "ve", "voc"))
         self.steps = steps
+        self._fused_cache: dict = {}
 
     def _noise(self, channels: int, latent_len: int, seed: int) -> np.ndarray:
         rng = np.random.default_rng(seed)
@@ -364,25 +368,47 @@ class SupertonicOnnx:
         """Nearest upsampling of the text memory's last axis to latent_len."""
         return np.minimum(np.arange(latent_len) * tn // latent_len, tn - 1)
 
+    def _emb_shape(self) -> tuple:
+        """The text encoder's output shape [1, channels, Tn], from its trace."""
+        return tuple(self.te._tape.out_meta[0][0])
+
+    def fused(self, latent_len: int):
+        """The four models and the flow loop as one composed program (JAX
+        `_fused_fn`): (ids, style, mask, noise [1, channels, latent_len]) →
+        (durations, wave). The upsampling index and the flow steps' times
+        are device constants made here, with the program."""
+        fn = self._fused_cache.get(latent_len)
+        if fn is not None:
+            return fn
+        dp, te, ve, voc, steps = self.dp, self.te, self.ve, self.voc, self.steps
+        idx = torch.from_numpy(self._upsample_index(self._emb_shape()[-1], latent_len))
+        idx = idx.to(self.device)
+        t_steps = (torch.arange(steps, dtype=torch.float32) / steps).to(self.device)
+
+        def pipeline(call, ids, style, mask, noise):
+            (dur,) = call("dp", **dict(zip(dp.input_order, (ids, style, mask))))
+            (emb,) = call("te", **dict(zip(te.input_order, (ids, style, mask))))
+            emb_l = emb.float().index_select(emb.dim() - 1, idx)
+            xt = noise
+            for s in range(steps):
+                (v,) = call("ve", **dict(zip(ve.input_order,
+                                             (xt, emb_l, style, t_steps[s:s + 1]))))
+                xt = xt + v.float() / steps
+            (wave,) = call("voc", **{voc.input_order[0]: xt})
+            return dur, wave
+
+        fn = self._fused_cache[latent_len] = compose_models(
+            {"dp": dp, "te": te, "ve": ve, "voc": voc}, pipeline)
+        return fn
+
     @torch.inference_mode()
     def synthesize_latent(self, ids, style, mask, latent_len: int, seed: int = 0):
-        """ids [1, Tn]; style [1, S]; mask [1, Tn] → (durations, wave), numpy.
-
-        The four compiled models chained on device values: the text memory,
-        the latent and every flow step stay on the device; only the two
-        results come back."""
-        (dur,) = self.dp(ids, style, mask)
-        (emb,) = self.te(ids, style, mask)
-        emb = emb.float()
-        idx = torch.from_numpy(self._upsample_index(emb.shape[-1], latent_len)).to(self.device)
-        emb_l = emb.index_select(emb.dim() - 1, idx)
-        xt = torch.from_numpy(self._noise(emb.shape[1], latent_len, seed)).to(self.device)
-        style_t = torch.as_tensor(np.asarray(style, np.float32), device=self.device)
-        for s in range(self.steps):
-            t_step = torch.full((1,), s, dtype=torch.float32, device=self.device) / self.steps
-            (v,) = self.ve(xt, emb_l, style_t, t_step)
-            xt = xt + v.float() / self.steps
-        (wave,) = self.voc(xt)
+        """ids [1, Tn]; style [1, S]; mask [1, Tn] → (durations, wave), numpy:
+        one composed program (`fused`), the noise uploaded into its static
+        buffer, the two results read back once."""
+        noise = self._noise(self._emb_shape()[1], latent_len, seed)
+        dur, wave = self.fused(latent_len)(np.asarray(ids), np.asarray(style, np.float32),
+                                           np.asarray(mask, np.float32), noise)
         return dur.cpu().numpy(), wave.cpu().numpy()
 
     def synthesize_latent_hostloop(self, ids, style, mask, latent_len: int, seed: int = 0):

@@ -198,11 +198,12 @@ def sinusoidal_positions(t: int, d: int, offset: int = 1) -> np.ndarray:
     return pe.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def positions_on(t: int, d: int, device: torch.device) -> torch.Tensor:
     """`sinusoidal_positions(t, d)` as a float32 tensor on `device`, made once
     per (t, d, device): one per bucket, as the JAX program bakes it in as a
-    constant. Callers must not write to it."""
+    constant. Callers must not write to it. Never evicted: a captured graph
+    reads it by address (the keys are bounded by the buckets)."""
     return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
 
 

@@ -20,14 +20,24 @@ are one call of kernel 10 (`estimator_blocks`), and on the CPU its plain
 version. The JAX package's lane-packed vocoder (models/packed1d.py) is a
 TPU layout: the port runs the plain conv path and owes only its output.
 
-`synthesize` computes each chunk's durations, then synthesises once at the
-bucket those durations map to, which is the bucket JAX always takes its
-result from, so the waveform is JAX's for both of its `fused_duration`
-routes. Noise comes from a `torch.Generator` seeded from `seed`, sampled at
-the largest latent bucket and prefix-sliced, so a seed gives the same audio
-whatever the bucket. `jax.random` bits cannot be drawn in torch, so the
-synth core also takes the noise as a tensor (`noise=`): a seam the parity
-tests use to pass JAX's noise.
+`synthesize` runs one program a chunk (JAX's `synth_fn` / `synth_e2e_fn`,
+one jitted program a latent bucket): on a card each is captured once a
+(kind, token bucket, latent bucket) and replayed after (runtime/graphs.py);
+on the CPU its function runs eagerly. Its default route
+(`fused_duration=True`) computes the durations, the frame count and the
+latent mask inside the synth program at a guessed bucket and takes the
+result from the bucket the durations map to, re-dispatching once where
+the guess missed, as JAX does; `fused_duration=False` runs the duration
+program, JAX's host formula and the synth program. Both give JAX's audio
+for its two routes. `synthesize_uncaptured` runs the same functions
+eagerly: the captured route's oracle.
+
+The noise is drawn outside any program, from a `torch.Generator` seeded
+from `seed`, at the largest latent bucket; a program takes its prefix as
+an input, so a seed gives the same audio whatever the bucket. `jax.random`
+bits cannot be drawn in torch, so `synthesize` and the synth core also take
+the noise as a tensor (`noise=`): a seam the parity tests use to pass JAX's
+noise. The flow steps' times are device constants made once.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import torch.nn.functional as F
 from .. import default_device
 from ..kernels.est_block import estimator_blocks, stack_est_blocks
 from ..params import from_numpy_tree
+from ..runtime.graphs import Programs
 from .common import (
     Params,
     conv1d,
@@ -82,6 +93,8 @@ class SupertonicConfig:
     speed: float = 1.0
     latent_buckets: tuple = (64, 128, 256, 512, 1024)
     token_buckets: tuple = (48, 96, 160, 256, 320)
+    est_frames_per_token: float = 8.0  # the cold prior of the fused-duration
+    #   route's bucket guess (`SupertonicTts._fpt_ema` takes over)
     apply_latent_denorm: bool = True  # Supertonic 2; v3 skips it
     fused_estimator: bool = False  # the 2L estimator blocks on kernel 10
     dtype: str = "float32"  # product dtype of the unfused attention blocks
@@ -441,21 +454,36 @@ def sample_noisy_latent(gen: torch.Generator, shape: tuple, latent_mask: torch.T
     return z * latent_mask[..., None]
 
 
+def _call(key, make, *args, params=None):
+    """A program's function called directly: the uncaptured route."""
+    return make()(*args)
+
+
 @dataclass
 class SupertonicTts:
     """Text + voice style → waveform on one device. `device` defaults to
     `default_device()`, which raises where there is no CUDA card: the CPU is
-    taken only when the caller passes device="cpu"."""
+    taken only when the caller passes device="cpu".
+
+    `programs` holds the captured programs, one a (kind, token bucket,
+    latent bucket); `_fpt_ema` is the fused-duration route's observed frames
+    a token; `dispatches` counts the synth programs run (a missed bucket
+    guess costs one more)."""
 
     cfg: SupertonicConfig = field(default_factory=SupertonicConfig)
     params: Params | None = None
     indexer: UnicodeIndexer | None = None
     device: torch.device | str | None = None
+    _fpt_ema: float | None = None
+    programs: Programs = field(init=False, repr=False)
+    dispatches: int = field(init=False, default=0)
 
     def __post_init__(self):
         self.device = torch.device(self.device) if self.device is not None else default_device()
         if self.indexer is None:
             self.indexer = UnicodeIndexer(vocab_size=self.cfg.vocab_size)
+        self.programs = Programs(self.device)
+        self._times = None
 
     def init(self, seed: int = 0) -> Params:
         gen = torch.Generator(device=self.device)
@@ -471,32 +499,103 @@ class SupertonicTts:
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _flow_times(self) -> torch.Tensor:
+        """The flow steps' times i·dt, f32 on the device, made once (outside
+        any capture): a program reads them and uploads nothing."""
+        if self._times is None:
+            dt = 1.0 / self.cfg.flow_steps
+            self._times = torch.arange(self.cfg.flow_steps, dtype=torch.float32) * dt
+            self._times = self._times.to(self.device)
+        return self._times
+
+    def noise(self, seed: int) -> torch.Tensor:
+        """The seed's standard-normal latent [1, latent_buckets[-1], d_latent]
+        from `torch.Generator(device).manual_seed(seed)`: a program takes its
+        prefix, so a seed gives the same latent whatever the bucket."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return torch.randn((1, self.cfg.latent_buckets[-1], self.cfg.d_latent), generator=gen,
+                           device=self.device)
+
+    def _flow(self, params: Params, ids, text_mask, style_ttl, latent_mask, noise):
+        """Text encoder, the flow loop and the vocoder: style_ttl [B, d_style],
+        noise [B, >= T, d_latent] → waveform [B, T·hop]."""
+        cfg = self.cfg
+        text_emb = text_encoder_forward(params["text"], ids, style_ttl, text_mask, cfg)
+        T = latent_mask.shape[1]
+        xt = noise[:, :T] * latent_mask[..., None]
+        dt = 1.0 / cfg.flow_steps
+        times = self._flow_times()
+        for i in range(cfg.flow_steps):
+            v = vector_estimator_forward(params["estimator"], xt, text_emb, style_ttl,
+                                         latent_mask, text_mask, times[i], cfg)
+            xt = xt + dt * v
+        if cfg.apply_latent_denorm:
+            xt = xt * latent_mask[..., None] / cfg.normalizer_scale
+        return vocoder_forward(params["vocoder"], xt, cfg)
+
     @torch.inference_mode()
     def synth_core(self, ids: torch.Tensor, text_mask: torch.Tensor, style_ttl: torch.Tensor,
                    latent_mask: torch.Tensor, seed: int = 0,
                    noise: torch.Tensor | None = None) -> torch.Tensor:
         """ids [B, n], text_mask [B, n], style_ttl [B, d_style], latent_mask
         [B, T] → waveform [B, T·hop]: text encoder, the flow loop and the
-        vocoder. `noise` [B, >= T, d_latent] replaces the generator's draw."""
-        cfg, params = self.cfg, self.params
-        text_emb = text_encoder_forward(params["text"], ids, style_ttl, text_mask, cfg)
+        vocoder, run eagerly (the synth program's oracle). `noise` [B, >= T,
+        d_latent] replaces the generator's draw."""
         B, T = latent_mask.shape
         if noise is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            xt = sample_noisy_latent(gen, (B, T, cfg.d_latent), latent_mask,
-                                     max_t=cfg.latent_buckets[-1])
-        else:
-            xt = noise[:, :T].to(self.device, torch.float32) * latent_mask[..., None]
-        dt = 1.0 / cfg.flow_steps
-        for i in range(cfg.flow_steps):
-            t = torch.tensor(i, dtype=torch.float32, device=self.device) * dt
-            v = vector_estimator_forward(params["estimator"], xt, text_emb, style_ttl,
-                                         latent_mask, text_mask, t, cfg)
-            xt = xt + dt * v
-        if cfg.apply_latent_denorm:
-            xt = xt * latent_mask[..., None] / cfg.normalizer_scale
-        return vocoder_forward(params["vocoder"], xt, cfg)
+            noise = sample_noisy_latent(gen, (B, T, self.cfg.d_latent), latent_mask,
+                                        max_t=self.cfg.latent_buckets[-1])
+        return self._flow(self.params, ids, text_mask, style_ttl, latent_mask,
+                          noise.to(self.device, torch.float32))
+
+    def _durations(self, params: Params, ids, text_mask, style_dp):
+        return duration_predictor_forward(params["duration"], ids, style_dp[None], text_mask,
+                                          self.cfg)
+
+    def duration_fn(self):
+        """(ids [1, n], text_mask [1, n], style_dp [d_style]) → durations [1, n]."""
+        params = self.params
+        return lambda ids, text_mask, style_dp: self._durations(params, ids, text_mask, style_dp)
+
+    def synth_fn(self, t_latent: int):
+        """One program a latent bucket (JAX `synth_fn`): (ids [1, n], text_mask
+        [1, n], style_ttl [d_style], style_dp [d_style], latent_mask [1,
+        t_latent], noise [1, t_latent, d_latent]) → (wave [1, t_latent·hop],
+        durations [1, n]). The params are the program's own and the noise an
+        input (JAX takes params and a seed)."""
+        params = self.params
+        self._flow_times()
+
+        def fn(ids, text_mask, style_ttl, style_dp, latent_mask, noise):
+            durations = self._durations(params, ids, text_mask, style_dp)
+            wave = self._flow(params, ids, text_mask, style_ttl[None], latent_mask, noise)
+            return wave, durations
+
+        return fn
+
+    def synth_e2e_fn(self, t_latent: int, min_frames: int = 8):
+        """Duration → latent mask → synth as one program (JAX
+        `synth_e2e_fn`): (ids, text_mask, style_ttl, style_dp, noise) → (wave
+        [1, t_latent·hop], t_real, durations). The frame count t_real =
+        min(t_latent, max(min_frames, floor(Σdur / speed))) and the latent
+        mask are computed on the device; the caller trims the wave to
+        t_real·hop."""
+        params, cfg = self.params, self.cfg
+        self._flow_times()
+
+        def fn(ids, text_mask, style_ttl, style_dp, noise):
+            durations = self._durations(params, ids, text_mask, style_dp)
+            t_real = torch.floor(durations.sum() / cfg.speed).to(torch.int32)
+            t_real = t_real.clamp(min=min_frames).clamp(max=t_latent)
+            frames = torch.arange(t_latent, device=ids.device)[None, :]
+            latent_mask = (frames < t_real).to(torch.float32)
+            wave = self._flow(params, ids, text_mask, style_ttl[None], latent_mask, noise)
+            return wave, t_real, durations
+
+        return fn
 
     def _bucket(self, t: int) -> int:
         for b in self.cfg.latent_buckets:
@@ -522,28 +621,83 @@ class SupertonicTts:
         mask[:, :n] = 1.0
         return padded, mask
 
+    def _t_true(self, durations: np.ndarray, min_frames: int) -> int:
+        """JAX's host frame count of a chunk's durations [1, n] (f32)."""
+        return max(min_frames, int(durations.sum() / self.cfg.speed))
+
     @torch.inference_mode()
     def synthesize(self, text: str, style: dict[str, np.ndarray], lang: str = "en",
-                   seed: int = 0, min_frames: int = 8,
+                   seed: int = 0, min_frames: int = 8, fused_duration: bool = True,
                    noise: torch.Tensor | None = None) -> np.ndarray:
-        """normalize → chunk → per chunk: durations, the frame count
-        t = max(min_frames, floor(Σdur / speed)) on the host (JAX's host
-        formula), its latent bucket, one synth at that bucket, trimmed to
-        t·hop samples (t capped at the bucket). → f32 waveform in [-1, 1]."""
-        style_ttl = self._tensor(style["ttl"])[None]
-        style_dp = self._tensor(style["dp"])[None]
+        """normalize → chunk → per chunk one synth program → f32 waveform in
+        [-1, 1] (JAX `synthesize`).
+
+        fused_duration=True (the default): the duration → mask → synth
+        program (`synth_e2e_fn`) at a bucket guessed from the token count
+        (`_fpt_ema`, cold prior `cfg.est_frames_per_token`); the result is
+        taken from the canonical bucket, the one the chunk's own durations
+        map to (JAX's host formula max(min_frames, floor(Σdur / speed))), so
+        a missed guess costs one more dispatch and never other audio. False:
+        the duration program, that formula on the host, then the synth
+        program (`synth_fn`) at its bucket. Both give JAX's two routes'
+        audio. Each chunk waits for the device once: its durations and
+        frame count come back in one copy, then the trimmed wave.
+        `noise` [1, latent_buckets[-1], d_latent] replaces the seed's draw."""
+        return self._synthesize(text, style, lang, seed, min_frames, fused_duration, noise,
+                                self.programs.run)
+
+    @torch.inference_mode()
+    def synthesize_uncaptured(self, text: str, style: dict[str, np.ndarray], lang: str = "en",
+                              seed: int = 0, min_frames: int = 8, fused_duration: bool = True,
+                              noise: torch.Tensor | None = None) -> np.ndarray:
+        """`synthesize` with each program's function run eagerly: the
+        uncaptured oracle of the captured route."""
+        return self._synthesize(text, style, lang, seed, min_frames, fused_duration, noise,
+                                _call)
+
+    def _synthesize(self, text, style, lang, seed, min_frames, fused_duration, noise, run):
+        cfg = self.cfg
+        style_ttl, style_dp = self._tensor(style["ttl"]), self._tensor(style["dp"])
+        noise = self.noise(seed) if noise is None else noise.to(self.device, torch.float32)
         waves = []
         for chunk in prepare_chunks(text, lang):
+            n_real = len(self.indexer(chunk))
             ids_np, mask_np = self.pad_tokens(self.indexer(chunk)[None])
-            ids = self._tensor(ids_np, torch.int64)
-            text_mask = self._tensor(mask_np)
-            dur = duration_predictor_forward(self.params["duration"], ids, style_dp, text_mask,
-                                             self.cfg).cpu().numpy()
-            t_real = max(min_frames, int(dur.sum() / self.cfg.speed))
+            tb = ids_np.shape[1]
+            ids, text_mask = self._tensor(ids_np, torch.int64), self._tensor(mask_np)
+            if fused_duration:
+                fpt = self._fpt_ema or cfg.est_frames_per_token
+                t_buck = self._bucket(max(min_frames, int(n_real * fpt / cfg.speed)))
+                for _attempt in range(2):
+                    wave, t_dev, dur = run(
+                        ("synth_e2e", tb, t_buck, min_frames),
+                        lambda t=t_buck: self.synth_e2e_fn(t, min_frames),
+                        ids, text_mask, style_ttl, style_dp, noise[:, :t_buck],
+                        params=self.params)
+                    self.dispatches += 1
+                    meta = torch.cat([t_dev.reshape(1).to(torch.float32),
+                                      dur.reshape(-1)]).cpu().numpy()
+                    t_real, durations = int(meta[0]), meta[1:].reshape(1, -1)
+                    t_true = self._t_true(durations, min_frames)
+                    ratio = t_true * cfg.speed / max(1, n_real)
+                    self._fpt_ema = (ratio if self._fpt_ema is None
+                                     else 0.7 * self._fpt_ema + 0.3 * ratio)
+                    canonical = self._bucket(t_true)
+                    if t_buck == canonical:
+                        break
+                    t_buck = canonical  # the guess missed: one re-dispatch
+                waves.append(wave[0, : t_real * cfg.hop].cpu().numpy())
+                continue
+            dur = run(("dur", tb, 0), self.duration_fn, ids, text_mask, style_dp,
+                      params=self.params)
+            t_real = self._t_true(dur.cpu().numpy(), min_frames)
             t_buck = self._bucket(t_real)
             t_real = min(t_real, t_buck)
-            latent_mask = torch.zeros((1, t_buck), dtype=torch.float32, device=self.device)
+            latent_mask = np.zeros((1, t_buck), np.float32)
             latent_mask[:, :t_real] = 1.0
-            wave = self.synth_core(ids, text_mask, style_ttl, latent_mask, seed, noise)
-            waves.append(wave[0, : t_real * self.cfg.hop].cpu().numpy())
+            wave, _ = run(("synth", tb, t_buck), lambda t=t_buck: self.synth_fn(t),
+                          ids, text_mask, style_ttl, style_dp, self._tensor(latent_mask),
+                          noise[:, :t_buck], params=self.params)
+            self.dispatches += 1
+            waves.append(wave[0, : t_real * cfg.hop].cpu().numpy())
         return np.clip(np.concatenate(waves), -1.0, 1.0)

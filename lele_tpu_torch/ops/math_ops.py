@@ -71,6 +71,12 @@ def log(ctx: OpContext, x):
     return ctx.xp.log(x)
 
 
+@op("Erf", foldable=False)
+def erf(ctx: OpContext, x):
+    """The exact GELU's erf, as torch.onnx.export writes it."""
+    return torch.special.erf(x)
+
+
 @op("MatMul", foldable=False)
 def matmul(ctx: OpContext, a, b):
     """f32 products in full f32: a card needs allow_tf32 off (torch's

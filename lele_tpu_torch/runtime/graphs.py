@@ -24,6 +24,10 @@ buffers of fixed shapes, as JAX compiles at a function's first call:
   copy a call; a copy from an earlier call, another session's state or a
   copy changed in place is copied in, so sessions interleaved through one
   program do not see each other's state.
+- **Repeats.** `repeat=n` runs the function n times in one call, each run
+  from the donated state the run before left in the static buffers: after
+  the first call, n replays back to back with no host work between them
+  (a decode step replayed once a token, runtime/decode.py).
 - **Launch counts.** A replay runs no kernel wrapper, so the capture
   records what the function's launches and routes added to the counters
   (`kernels.launch_counts()`, `nn_ops.RNN_ROUTES`,
@@ -143,6 +147,18 @@ def _as_tensor(v):
     return v
 
 
+def run_directly(fn: Callable, args, donate: dict[int, int], repeat: int = 1):
+    """fn(*args) with nothing captured, `repeat` times, each run's donated
+    outputs the next run's inputs: what a program's call computes."""
+    args = list(args)
+    for k in range(repeat):
+        out = fn(*args)
+        if k + 1 < repeat:
+            for i, j in donate.items():
+                args[i] = out[j]
+    return out
+
+
 class Program:
     """`fn(*args)` captured once on static input buffers (module docstring).
 
@@ -235,16 +251,25 @@ class Program:
                                 else self._hand(v) if id(v) in donated else v.clone()
                                 for v in leaves])
 
-    def __call__(self, *args):
+    def __call__(self, *args, repeat: int = 1):
+        """One call; `repeat` n runs the function n times back to back, each
+        run from the donated state the run before left in the static buffers
+        (after the first call, n replays with no host work between them),
+        and returns the last run's outputs."""
         with torch.inference_mode():
             if torch.cuda.is_current_stream_capturing():
                 # inside another capture: that capture records the function
-                return self.fn(*args)
+                return run_directly(self.fn, args, self.donate, repeat)
             self._load(args)
+            replays = repeat
             if self.graph is None:
-                return self._capture()
-            self.graph.replay()
-            _restore(self._delta, add=True)
+                result = self._capture()
+                if repeat == 1:
+                    return result
+                replays = repeat - 1
+            for _ in range(replays):
+                self.graph.replay()
+                _restore(self._delta, add=True)
             return self._fresh(self._out)
 
     def _capture(self):
@@ -313,11 +338,12 @@ class Programs:
         return len(self._progs)
 
     def run(self, key: Hashable, make: Callable[[], Callable], *args, params=None,
-            donate: dict[int, int] | None = None):
+            donate: dict[int, int] | None = None, repeat: int = 1):
         if self.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
             # the CPU, or inside another capture, which records the function
             with torch.inference_mode():
-                return make()(*(_as_tensor(a) for a in args))
+                return run_directly(make(), [_as_tensor(a) for a in args], donate or {},
+                                    repeat)
         if params is not self._params:
             self._progs.clear()
             self._params = params
@@ -327,4 +353,4 @@ class Programs:
                 self._pool = torch.cuda.graph_pool_handle()
             prog = self._progs[key] = Program(make(), args, self.device, donate,
                                               self._pool, name=f"program {key!r}")
-        return prog(*args)
+        return prog(*args, repeat=repeat)

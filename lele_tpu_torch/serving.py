@@ -153,9 +153,11 @@ class Yolo26Engine:
 
 @dataclass
 class TtsEngine:
-    """load_style(path) + synthesize(text) → WAV bytes. With no model it
-    builds a random-weight `SupertonicTts` on `device` (by default
-    `default_device()`, which raises where there is no CUDA card)."""
+    """load_style(path) + synthesize(text) → WAV bytes, through the TTS's
+    default route: one captured program a chunk (duration → mask → synth at
+    a guessed bucket). With no model it builds a random-weight
+    `SupertonicTts` on `device` (by default `default_device()`, which raises
+    where there is no CUDA card)."""
 
     tts: Any = None
     styles: dict = field(default_factory=dict)

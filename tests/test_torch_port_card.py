@@ -62,6 +62,12 @@ give the eager call's bits, and each call is one launch. Kernel 3
 at the layer gate at T = 21, 87 (76 valid), 171 and 1,004, head dims 32,
 64 and 128, f32 and bf16 FSMN taps.
 
+The TTS synth programs (kernel 10 inside the graph), two TtsEngine requests
+at two buckets alternating through one `Programs`, `compose_models`,
+SupertonicOnnx's composed program, and the decode step program (greedy,
+sampled, beam, two decoders alternating) are held to their uncaptured
+oracles: the same bits and launch counts.
+
 YOLO26 runs no kernel of the port's own: the Conv emitter's 2-D forms and
 the native head maps (detect and seg, f32 and bf16, full width) are held to
 the CPU on the card, at 1e-5·max|ref| and chip_smoke.YOLO_MAP_REL.
@@ -1034,3 +1040,181 @@ def test_a_capture_that_reads_the_host_raises_naming_the_step(dev):
 
     with pytest.raises(CaptureError, match="in host_read"):
         Programs(dev).run("k", make, torch.ones(3, device=dev))
+
+
+# -- the TTS synth, composed models and generative decode as captured programs ---------
+
+TTS_SMALL = dict(d_text=256, n_heads=4, n_text_layers=2, n_est_layers=2,
+                 latent_buckets=(64, 128, 256), token_buckets=(48, 96), fused_estimator=True)
+
+
+def _small_tts(dev, **kw):
+    from lele_tpu_torch.models import SupertonicConfig, SupertonicTts
+
+    tts = SupertonicTts(SupertonicConfig(**dict(TTS_SMALL, **kw)), device=dev)
+    tts.init(5)
+    return tts
+
+
+def _tts_style(seed=4):
+    rng = np.random.default_rng(seed)
+    return {"ttl": rng.standard_normal(128).astype(np.float32),
+            "dp": rng.standard_normal(128).astype(np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["synth", "synth_e2e"])
+def test_tts_programs_replay_their_eager_bits(dev, kind):
+    """The synth program (two-dispatch route) and the duration → mask →
+    synth program at one bucket, captured, against their functions run
+    eagerly: the same bits and launch counts (kernel 10 once a flow step),
+    one program for three inputs of the bucket."""
+    tts = _small_tts(dev)
+    T, Tk = 128, 48
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ins = []
+    for i in range(3):
+        ids = torch.randint(0, 512, (1, Tk), generator=gen, device=dev)
+        tmask = torch.zeros((1, Tk), device=dev)
+        tmask[:, :Tk - 5 * i] = 1.0
+        style = torch.randn((2, 128), generator=gen, device=dev)
+        lmask = torch.zeros((1, T), device=dev)
+        lmask[:, :T - 20 * i] = 1.0
+        extra = (lmask,) if kind == "synth" else ()
+        ins.append((ids, tmask, style[0], style[1], *extra, tts.noise(i)[:, :T]))
+    make = (lambda: tts.synth_fn(T)) if kind == "synth" else (lambda: tts.synth_e2e_fn(T, 8))
+    _capture_case(lambda i: tts.programs.run((kind, Tk, T), make, *ins[i], params=tts.params),
+                  lambda i: make()(*ins[i]))
+    assert len(tts.programs) == 1
+    K.reset_launch_counts()
+    tts.programs.run((kind, Tk, T), make, *ins[0], params=tts.params)
+    assert K.launch_counts()["est_block"] == tts.cfg.flow_steps
+
+
+@pytest.mark.cuda
+def test_tts_engine_requests_at_two_buckets_interleaved(dev):
+    """Two TtsEngine requests at different latent buckets, alternating
+    through one `Programs`: each gives the uncaptured route's WAV bits."""
+    from lele_tpu_torch.serving import TtsEngine, encode_wav
+
+    tts = _small_tts(dev)
+    eng = TtsEngine(tts=tts)
+    style = _tts_style()
+    eng.styles["s"] = style
+    texts = ("Hi there.", "A longer request takes a larger latent bucket than a short one, "
+                          "so its program is another one.")
+    want = [encode_wav(tts.synthesize_uncaptured(t, style, seed=k), 24000)
+            for k, t in enumerate(texts)]
+    got = [eng.synthesize(texts[k % 2], seed=k % 2) for k in range(4)]
+    assert got == want + want
+    buckets = {key[2] for key in tts.programs._progs}
+    assert len(buckets) >= 2 and all(p.graph is not None for p in tts.programs._progs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_duration", [True, False], ids=["e2e", "two_dispatch"])
+def test_tts_synthesize_captured_equals_uncaptured(dev, fused_duration):
+    tts = _small_tts(dev, apply_latent_denorm=False, speed=1.05)
+    style = _tts_style(8)
+    for seed, text in enumerate(("Capture once.", "Then replay the graph for every chunk!")):
+        tts._fpt_ema = None
+        got = tts.synthesize(text, style, seed=seed, fused_duration=fused_duration)
+        tts._fpt_ema = None
+        want = tts.synthesize_uncaptured(text, style, seed=seed, fused_duration=fused_duration)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_supertonic_onnx_composed_program(dev):
+    """SupertonicOnnx.synthesize_latent (one composed program) against the
+    pipeline run eagerly (bits) and the host loop (1e-6)."""
+    from lele_tpu_torch.models import SupertonicOnnx
+
+    st = SupertonicOnnx(cs.FIXTURES, device=dev)
+    io = dict(np.load(cs.FIXTURES / "supertonic_io.npz"))
+    n = io["xt"].shape[-1]
+    args = (io["ids"], io["style"], io["mask"])
+    fused = st.fused(n)
+    noises = [st._noise(st._emb_shape()[1], n, seed) for seed in (1, 2, 3)]
+    _capture_case(lambda i: st.synthesize_latent(*args, latent_len=n, seed=i + 1),
+                  lambda i: fused.uncaptured(*args, noises[i]))
+    assert len(fused.programs) == 1
+    dur, wave = st.synthesize_latent(*args, latent_len=n, seed=1)
+    dur_h, wave_h = st.synthesize_latent_hostloop(*args, latent_len=n, seed=1)
+    assert np.abs(wave - wave_h).max() <= 1e-6 and np.array_equal(dur, dur_h)
+
+
+@pytest.mark.cuda
+def test_compose_models_program_per_signature(dev):
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.runtime import compose_models
+
+    rng = np.random.default_rng(12)
+
+    def linear(d_in, d_out):
+        w = rng.standard_normal((d_in, d_out)).astype(np.float32)
+        bs = ob.build_model_bytes(
+            [ob.node("MatMul", ["x", "w"], ["mm"]), ob.node("Tanh", ["mm"], ["y"])],
+            inputs=[ob.value_info("x", 1, [2, d_in])],
+            outputs=[ob.value_info("y", 1, [2, d_out])],
+            initializers=[ob.tensor_from_array(w, "w")])
+        return compile_model(bs, device=dev)
+
+    def pipeline(call, x):
+        for _ in range(3):
+            x = x + 0.5 * call("dec", x=call("enc", x=x)[0])[0]
+        return x
+
+    pipe = compose_models({"enc": linear(8, 16), "dec": linear(16, 8)}, pipeline)
+    xs = [rng.standard_normal((2, 8)).astype(np.float32) for _ in range(3)]
+    _capture_case(lambda i: pipe(xs[i]), lambda i: pipe.uncaptured(xs[i]))
+    assert len(pipe.programs) == 1
+
+
+def _gpt2_like(dev, B=1, layers=2, vocab=5000, max_len=96):
+    cfg = dict(cs.GPT2, layers=layers, vocab=vocab, max_len=max_len)
+    decs, _ = cs.gpt2_decoders(dev, cfg=cfg, beam=B)
+    return decs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_decode_program_equals_hostloop(dev, temperature):
+    """The whole generation as one step program replayed a token, at GPT-2
+    small's width (2 layers): the host loop's ids and last logits, one
+    program for prompts of two lengths."""
+    dec = _gpt2_like(dev)[1]
+    prompts = cs.decode_prompts(5000)
+    for k, prompt in enumerate(prompts):
+        got, lg = dec.generate(prompt, 24, temperature=temperature, seed=k)
+        want, lh = dec.generate_hostloop(prompt, 24, rng=k, temperature=temperature)
+        assert got == want and np.array_equal(lg, lh)
+    assert len(dec.programs) == 1
+
+
+@pytest.mark.cuda
+def test_decode_donated_caches_across_two_interleaved_decoders(dev):
+    """Two decoders on one step graph, their generations alternating, and
+    one decoder alternating two prompts: each run gives its solo ids."""
+    from lele_tpu_torch.runtime import StaticKVDecoder
+
+    d1 = _gpt2_like(dev)[1]
+    d2 = StaticKVDecoder(d1.cm, d1.L, d1.H, d1.D, d1.P + 1)
+    pa, pb = cs.decode_prompts(5000)
+    solo = [d1.generate_hostloop(p, 20)[0] for p in (pa, pb)]
+    for _ in range(2):
+        assert d1.generate(pa, 20)[0] == solo[0]
+        assert d2.generate(pb, 20)[0] == solo[1]
+        assert d1.generate(pb, 20)[0] == solo[1]
+    assert len(d1.programs) == len(d2.programs) == 1
+
+
+@pytest.mark.cuda
+def test_beam_search_program_equals_hostloop(dev):
+    beam = _gpt2_like(dev, B=4)[4]
+    prompt = cs.decode_prompts(5000)[1][:3]
+    for eos in (None, 7):
+        ids, score = beam.beam_search(prompt, 16, beam=4, eos_id=eos)
+        ids_h, score_h = cs.beam_hostloop(beam, prompt, 16, eos_id=eos)
+        assert ids == ids_h and abs(score - score_h) <= 1e-5 * max(abs(score_h), 1.0)

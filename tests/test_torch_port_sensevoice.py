@@ -200,7 +200,10 @@ def test_port_runs_without_jax():
     YoloOnnx on the fixture (bf16 compute) and a small seg model behind
     Yolo26Engine, with no PIL imported (the card machine has none); and
     slice 16: runtime/graphs.py's programs (run eagerly on the CPU) and
-    SileroOnnx in blocks with its donated state."""
+    SileroOnnx in blocks with its donated state; and slice 17: both TTS
+    routes, SupertonicOnnx's composed program, compose_models, the onnx
+    stand-in with torch.onnx.export, and a Seq2SeqGenerator on exported
+    graphs (greedy, sampled, beam)."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -365,6 +368,53 @@ def test_port_runs_without_jax():
         "q = sv8.speech_probs(pcm[:9 * 512], 16000)\n"
         "assert q.shape == (9,) and np.array_equal(q, sv8.speech_probs_hostloop(pcm[:9 * 512]))\n"
         "assert sv8.compiled(16000).donated == {'state': 1}\n"
+        "n0 = tts.dispatches\n"
+        "sty = load_voice_style('examples/supertonic/voice_styles/F1.json')\n"
+        "w1 = tts.synthesize('Hello there.', sty)\n"
+        "w2 = tts.synthesize('Hello there.', sty,\n"
+        "                    fused_duration=False)\n"
+        "assert np.array_equal(w1, w2) and tts.dispatches == n0 + 2\n"
+        "from lele_tpu_torch.runtime import compose_models, StaticKVDecoder, Seq2SeqGenerator\n"
+        "from lele_tpu_torch.onnx import torch_shim\n"
+        "st5 = SupertonicOnnx('fixtures', device='cpu')\n"
+        "d5, w5 = st5.synthesize_latent(io['ids'], io['style'], io['mask'], latent_len=32)\n"
+        "assert np.abs(w5 - st5.synthesize_latent_hostloop(io['ids'], io['style'],\n"
+        "    io['mask'], latent_len=32)[1]).max() <= 1e-6\n"
+        "assert torch_shim.install() and sys.modules['onnx'].__version__.endswith('torch_shim')\n"
+        "class Step(torch.nn.Module):\n"
+        "    def __init__(self):\n"
+        "        super().__init__(); self.emb = torch.nn.Embedding(13, 8)\n"
+        "        self.pemb = torch.nn.Embedding(10, 8)\n"
+        "        self.head = torch.nn.Linear(8, 13)\n"
+        "    def forward(self, ids, pos, ck, cv, mask, xk, xv):\n"
+        "        x = self.emb(ids) + self.pemb(pos)\n"
+        "        a = torch.softmax(x @ ck[0, :, 0].transpose(-1, -2) + mask[:, 0, :, :-1], -1)\n"
+        "        x = x + a @ cv[0, :, 0] + xk.mean() + xv.mean()\n"
+        "        return self.head(x)[:, 0], x[None, :, None], x[None, :, None] * 2\n"
+        "class Enc(torch.nn.Module):\n"
+        "    def forward(self, src):\n"
+        "        return src[None, None, None] * 1.0, src[None, None, None] * 2.0\n"
+        "import io as bio\n"
+        "def export(m, args):\n"
+        "    f = bio.BytesIO()\n"
+        "    torch.onnx.export(m.eval(), args, f, opset_version=17, dynamo=False)\n"
+        "    return compile_model(f.getvalue(), device='cpu', strict=True)\n"
+        "z = torch.zeros\n"
+        "step = export(Step(), (z(1, 1, dtype=torch.long), z(1, 1, dtype=torch.long),\n"
+        "    z(1, 1, 1, 9, 8), z(1, 1, 1, 9, 8), z(1, 1, 1, 10), z(1, 1, 1, 3, 8), z(1, 1, 1, 3, 8)))\n"
+        "gen = Seq2SeqGenerator(export(Enc(), (z(3, 8),)), step, num_layers=1, num_heads=1,\n"
+        "    head_dim=8, max_len=10, bos_id=1, eos_id=0)\n"
+        "src = np.random.default_rng(6).standard_normal((3, 8)).astype(np.float32)\n"
+        "assert gen.generate(src, max_steps=6) == gen.generate_hostloop(src, max_steps=6)\n"
+        "ids_g, _ = gen.decoder.generate_fused([2, 3], 5, temperature=1.0, seed=4,\n"
+        "                                      extras=gen.encode(src))\n"
+        "assert ids_g == gen.decoder.generate_hostloop([2, 3], 5, rng=4, temperature=1.0,\n"
+        "                                              extras=gen.encode(src))[0]\n"
+        "assert len(gen.decoder.beam_search([2], 4, beam=1, eos_id=0,\n"
+        "    extras=gen.encode(src))[0]) <= 4\n"
+        "pipe = compose_models({'voc': st5.voc}, lambda call, x: call('voc', **{\n"
+        "    st5.voc.input_order[0]: x})[0])\n"
+        "assert pipe(io['xt']).shape == io['wave'].shape\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

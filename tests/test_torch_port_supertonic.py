@@ -139,9 +139,9 @@ def test_config_and_voice_styles_match_jax():
     path = EXAMPLES / "supertonic" / "tts.json"
     got = dataclasses.asdict(tst.SupertonicConfig.from_json(path))
     want = dataclasses.asdict(jst.SupertonicConfig.from_json(path))
-    # the port computes durations before it picks a bucket: no bucket guess
-    assert set(want) - set(got) == {"est_frames_per_token"}
-    assert got == {k: want[k] for k in got}
+    # every field, the fused-duration route's bucket guess included
+    assert set(want) == set(got)
+    assert got == want
     assert tst.SupertonicConfig(dtype="bfloat16").compute_dtype == torch.bfloat16
     assert tst.SupertonicConfig().compute_dtype == torch.float32
     styles = sorted((EXAMPLES / "supertonic").glob("voice_styles/*.json"))
