@@ -210,8 +210,21 @@
    frame encoder graph through Seq2SeqGenerator: each fused program (one
    step program a (B, P), replayed a token) against its host loop, ids
    equal, ms a token both ways;
-34. prints one JSON line of kernels, the card, and last
-   {"ok": true, "device": ...}.
+34. the tracer's Scan and Loop and ONNX local functions at full width:
+   Silero's 10 s utterance (312 chunks) at 16 and 8 kHz as one ONNX Scan and
+   one Loop over fixtures/silero.onnx's step, each one captured CUDA graph a
+   call with kernel 6 launched once a chunk (its graph's kernel nodes read
+   back), bit-equal to `SileroOnnx.speech_probs` and within VAD_PROB_TOL of
+   the lstm_plain compile, with both paths' times; a 50-layer SAN-M encoder
+   at SenseVoice's widths (D 512, 4 heads, FFN 2,048, FSMN k 11, T 196,
+   random weights from a seed) exported here by torch.onnx.export through
+   the port's onnx stand-in with each layer a local function, quantized by
+   the port's `quantize_dynamic`, compiled: 50 fused layers, kernel 4 once a
+   call in a captured graph, the bits of the same model exported flat and
+   quantized the same way, the per-op trace within LOGIT_NOISE_MAE; the
+   export's, quantizer's and program's times;
+35. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+   too), the card, and last {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
 check fails. Imports no jax and nothing of the JAX package.
@@ -1933,6 +1946,263 @@ def silero_onnx_stepwise(sv, pcm, sr: int):
         prob, state = cm.replay(x[i:i + 1], state)[:2]
         probs.append(prob.reshape(()))
     return torch.stack(probs).cpu().numpy()
+
+
+def silero_utterance_model(form: str, n_chunks: int, sr: int, fixture=SILERO_FIXTURE) -> bytes:
+    """Silero's whole utterance as one ONNX graph around the fixture's step:
+    inputs chunks [N, 1, 512] (PCM scaled as SileroOnnx scales it) and state
+    [2, 1, 128]; outputs probs [N] and the final state. `sr` is an outer
+    constant, so the step's If resolves while tracing. form "scan": a Scan
+    whose state variable is the state, whose scan input is the chunks and
+    whose scan output is the probability; "loop": a pure for-loop of M = N
+    whose body takes its chunk as Gather(chunks, iter). Test data for the
+    tracer's Scan and Loop, not a model the package ships."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import schema
+
+    g = schema.decode_model(Path(fixture).read_bytes()).raw()["graph"]
+    x_in, st_in = (vi for vi in g["input"] if vi["name"] != "sr")
+    prob, st_out = g["output"]
+    chunk_shape = [d["dim_value"] for d in x_in["type"]["tensor_type"]["shape"]["dim"]]
+    st_shape = [d["dim_value"] for d in st_in["type"]["tensor_type"]["shape"]["dim"]]
+    nodes, inputs = list(g["node"]), [st_in, x_in]
+    outputs = [st_out, prob]
+    inits = [ob.tensor_from_array(np.full((1,), sr, np.int64), "sr")]
+    if form == "loop":
+        nodes = [ob.node("Gather", ["chunks", "iter"], [x_in["name"]], axis=0),
+                 ob.node("Identity", ["cond_in"], ["cond_out"])] + nodes
+        inputs = [ob.value_info("iter", 7, []), ob.value_info("cond_in", 9, []), st_in]
+        outputs = [ob.value_info("cond_out", 9, []), st_out, prob]
+        inits.append(ob.tensor_from_array(np.array(n_chunks, np.int64), "M"))
+    body = ob.graph(nodes, "step", inputs, outputs, g["initializer"])
+    if form == "scan":
+        loop = ob.node("Scan", ["state", "chunks"], ["state_final", "prob_rows"],
+                       num_scan_inputs=1, body=body)
+    elif form == "loop":
+        loop = ob.node("Loop", ["M", "", "state"], ["state_final", "prob_rows"], body=body)
+    else:
+        raise ValueError(f"form {form!r}: expected 'scan' or 'loop'")
+    return ob.build_model_bytes(
+        [loop, ob.node("Reshape", ["prob_rows", "flat"], ["probs"])],
+        [ob.value_info("chunks", 1, [n_chunks] + chunk_shape), ob.value_info("state", 1, st_shape)],
+        [ob.value_info("probs", 1, [n_chunks]), ob.value_info("state_final", 1, st_shape)],
+        inits + [ob.tensor_from_array(np.array([-1], np.int64), "flat")])
+
+
+def sanm_modules(T: int, D: int, H: int, FFN: int, K: int):
+    """(SanmLayer, SanmEncoder): the SAN-M layer in its torch export form
+    (fused-qkv attention with Div scaling and an additive bias, the
+    depthwise FSMN conv on v, post-LN residual blocks), a copy of the JAX
+    package's test module (tests/test_sanm_fuse_torch.py) with its widths as
+    arguments. `SanmEncoder(L)` stacks L layers."""
+    import math
+
+    import torch
+    import torch.nn as nn
+
+    class SanmLayer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(D)
+            self.qkv = nn.Linear(D, 3 * D)
+            self.fsmn = nn.Conv1d(D, D, K, groups=D, bias=False, padding=(K - 1) // 2)
+            self.out = nn.Linear(D, D)
+            self.ln2 = nn.LayerNorm(D)
+            self.ff1 = nn.Linear(D, FFN)
+            self.ff2 = nn.Linear(FFN, D)
+
+        def forward(self, x, attn_bias, vmask):
+            hd = D // H
+            y = self.ln1(x)
+            q, k, v = self.qkv(y).chunk(3, dim=-1)
+            qh = q.reshape(1, T, H, hd).permute(0, 2, 1, 3)
+            kh = k.reshape(1, T, H, hd).permute(0, 2, 3, 1)
+            vh = v.reshape(1, T, H, hd).permute(0, 2, 1, 3)
+            att = torch.matmul(qh, kh) / math.sqrt(hd)
+            att = torch.softmax(att + attn_bias, dim=-1)
+            ctx = torch.matmul(att, vh).permute(0, 2, 1, 3).reshape(1, T, D)
+            fs = self.fsmn(v.transpose(1, 2) * vmask).transpose(1, 2)
+            h1 = x + self.out(ctx + fs)
+            return h1 + self.ff2(torch.relu(self.ff1(self.ln2(h1))))
+
+    class SanmEncoder(nn.Module):
+        def __init__(self, n_layers: int):
+            super().__init__()
+            self.layers = nn.ModuleList(SanmLayer() for _ in range(n_layers))
+
+        def forward(self, x, attn_bias, vmask):
+            for layer in self.layers:
+                x = layer(x, attn_bias, vmask)
+            return x
+
+    return SanmLayer, SanmEncoder
+
+
+def sanm_export(encoder, layer_cls, args, functions: bool) -> bytes:
+    """The encoder exported by torch.onnx.export (TorchScript, opset 17)
+    through the port's onnx stand-in; `functions` packages each layer as a
+    local function (`export_modules_as_functions`: torch's function
+    extraction asserts on a second such export of the same instance, so
+    export each module once)."""
+    import torch
+
+    from lele_tpu_torch.onnx.torch_shim import install
+
+    install()
+    buf = io.BytesIO()
+    kw = {"export_modules_as_functions": {layer_cls}} if functions else {}
+    with torch.no_grad():
+        torch.onnx.export(encoder, args, buf, opset_version=17, dynamo=False,
+                          input_names=["x", "attn_bias", "vmask"], **kw)
+    return buf.getvalue()
+
+
+def control_flow_phase(checks, dev, card) -> dict:
+    """Phase 34: the tracer's Scan and Loop and ONNX local functions at full
+    width. Silero's 10 s utterance (312 chunks, 16 and 8 kHz) as one Scan and
+    one Loop over fixtures/silero.onnx's step (kernel 6 once a chunk, one
+    captured graph a call), against SileroOnnx.speech_probs' bits and the
+    plain-LSTM compile; a function-packaged int8 SAN-M encoder at SenseVoice's
+    widths (exported here through the port's onnx stand-in, quantized by the
+    port's quantize_dynamic): 50 fused layers, one kernel-4 launch a call in
+    a captured graph, the flat export's bits, the per-op trace's noise gate.
+    Returns each kernel's launches in one call of each path:
+    {kernel: {path: count}}."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import SileroOnnx
+    from lele_tpu_torch.onnx import schema
+    from lele_tpu_torch.onnx.quantize import quantize_dynamic
+    from lele_tpu_torch.ops import nn_ops
+
+    print(f"== 34. Silero's utterance as one Scan / Loop, and a function-packaged int8 "
+          f"SAN-M export ({card})")
+    t_phase = time.perf_counter()
+    launches: dict[str, dict[str, int]] = {}
+
+    def counted(cm, inputs, path):
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            out = cm(**inputs)
+            torch.cuda.synchronize()
+        moved = {k: v for k, v in K.launch_counts().items() if v}
+        for k, v in moved.items():
+            launches.setdefault(k, {})[path] = v
+        return out, moved
+
+    pcm = vad_pcm(10.0, VAD_SR, np.random.default_rng(SEED + 34))
+    for rate in (16000, 8000):
+        sv = SileroOnnx(SILERO_FIXTURE, device=dev)
+        ref = sv.speech_probs(pcm, rate)
+        chunks = torch.from_numpy(sv._chunks(pcm, None)[:, None]).to(dev)
+        n = chunks.shape[0]
+        inputs = {"chunks": chunks, "state": torch.zeros((2, 1, 128), device=dev)}
+        for form in ("scan", "loop"):
+            label = f"Silero 10 s at {rate} Hz as one {form.capitalize()}"
+            bs = silero_utterance_model(form, n, rate)
+            t0 = time.perf_counter()
+            cm = compile_model(bs, device=dev)
+            t_trace = time.perf_counter() - t0
+            plain = compile_model(bs, device=dev, overrides={"LSTM": nn_ops.lstm_plain})
+            cm.compile()  # the warm-up and the capture, before the counted call
+            (probs, _), moved = counted(cm, inputs, f"{form} {rate} Hz")
+            checks.require(cm.stats["capturable"] and cm.stats["captured"],
+                           f"{label}: one captured CUDA graph a call ({cm.stats['n_steps']} "
+                           f"tape steps, traced in {t_trace:.2f} s)")
+            checks.require(moved == {"lstm_seq": n},
+                           f"{label}: launches of one call {moved}: kernel 6 once a chunk "
+                           f"({n}), nothing else")
+            program_launch_check(checks, label, [cm._program])
+            got = probs.cpu().numpy()
+            with torch.inference_mode():
+                p_plain = plain(**inputs)[0].cpu().numpy()
+            d_ref = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+            checks.require(got.shape == (n,) and np.array_equal(got, ref),
+                           f"{label}: {n} probabilities, SileroOnnx.speech_probs' bits "
+                           f"(max|d| {d_ref:.3e})")
+            d = float(np.abs(got - p_plain).max())
+            checks.require(bool(np.isfinite(got).all()) and d <= VAD_PROB_TOL,
+                           f"{label}: vs the lstm_plain override max|d| {d:.3e} "
+                           f"<= {VAD_PROB_TOL:g}")
+            call = lambda: cm(**inputs)[0].cpu()  # noqa: E731
+            ref_call = lambda: sv.speech_probs(pcm, rate)  # noqa: E731
+            h, h_ref = host_ms(call, runs=10), host_ms(ref_call, runs=10)
+            (du, span), (du_ref, span_ref) = busy(call), busy(ref_call)
+            print(f"  {label}: {h:.3f} ms by host clock, device {du / 1e3:.3f} ms, busy "
+                  f"{du / span:.3f}; SileroOnnx.speech_probs (blocks of {sv.BLOCK}) "
+                  f"{h_ref:.3f} ms, device {du_ref / 1e3:.3f} ms, busy {du_ref / span_ref:.3f}"
+                  f"  ({card})")
+
+    L, T, D, H, FFN, KK = 50, T_DQL, 512, 4, 2048, 11
+    label = f"function-packaged int8 SAN-M, {L} layers, D {D}, T {T}"
+    layer, encoder = sanm_modules(T, D, H, FFN, KK)
+    torch.manual_seed(SEED)
+    enc = encoder(L).eval()
+    x = torch.randn(1, T, D)
+    bias, vmask = torch.zeros(1, 1, 1, T), torch.ones(1, 1, T)
+    bias[..., VALID_DQL:] = -1e4  # the bucket's padded tail masked, as the export's
+    vmask[..., VALID_DQL:] = 0.0
+    t0 = time.perf_counter()
+    fn_bytes = sanm_export(enc, layer, (x, bias, vmask), functions=True)
+    t_fn = time.perf_counter() - t0
+    flat_bytes = sanm_export(enc, layer, (x, bias, vmask), functions=False)
+    t_flat = time.perf_counter() - t0 - t_fn
+    t0 = time.perf_counter()
+    q_fn = quantize_dynamic(fn_bytes)
+    t_q = time.perf_counter() - t0
+    q_flat = quantize_dynamic(flat_bytes)
+    dec = schema.decode_model(fn_bytes)
+    calls = sum(n.domain not in ("", "ai.onnx") for n in dec.graph.node)
+    checks.require(len(dec.functions) >= 1 and calls == L,
+                   f"{label}: the export holds {len(dec.functions)} local function(s), "
+                   f"called {calls} times")
+    print(f"  {label}: export {len(fn_bytes) / 1e6:.1f} MB in {t_fn:.2f} s (flat "
+          f"{t_flat:.2f} s); quantize_dynamic {t_q:.2f} s -> {len(q_fn) / 1e6:.1f} MB "
+          f"(host clock)")
+    del fn_bytes, flat_bytes, dec
+    t0 = time.perf_counter()
+    cm = compile_model(q_fn, device=dev)
+    t_trace = time.perf_counter() - t0
+    cm_flat = compile_model(q_flat, device=dev)
+    cm_op = compile_model(q_fn, device=dev, patterns=[])
+    hits = cm.stats["pattern_hits"]
+    checks.require(hits.get("sanm_fused_layers") == L,
+                   f"{label}: pattern hits {hits} (traced in {t_trace:.2f} s)")
+    inputs = {"x": x.to(dev), "attn_bias": bias.to(dev), "vmask": vmask.to(dev)}
+    cm.compile()
+    (out,), moved = counted(cm, inputs, "function-packaged SAN-M")
+    checks.require(cm.stats["captured"] and moved == {"sanm_stack_dql": 1},
+                   f"{label}: one captured graph a call, launches {moved}: kernel 4 once")
+    program_launch_check(checks, label, [cm._program])
+    with torch.inference_mode():
+        flat = cm_flat(**inputs)[0]
+        per_op = cm_op(**inputs)[0]
+        noisy = cm_op(**dict(inputs, x=inputs["x"] * (1 + 1e-7 * torch.randn(
+            inputs["x"].shape, generator=torch.Generator().manual_seed(SEED + 7)).to(dev))))[0]
+    checks.require(torch.equal(out, flat),
+                   f"{label}: the flat export's bits (max|d| "
+                   f"{(out - flat).abs().max().item():.3e})")
+    v = slice(0, VALID_DQL)
+    _, _, mae = compare(out[:, v], per_op[:, v])
+    _, _, n_mae = compare(noisy[:, v], per_op[:, v])
+    agree = (out[:, v].argmax(-1) == per_op[:, v].argmax(-1)).float().mean().item()
+    # the compiled-SenseVoice gate's MAE half: its argmax half reads logits'
+    # classes, which an encoder's hidden state has none of (printed only)
+    checks.require(bool(torch.isfinite(out).all()) and mae <= LOGIT_NOISE_MAE,
+                   f"{label}: fused vs per-op on the {VALID_DQL} valid rows: MAE {mae:.3e} "
+                   f"std (per-op vs per-op at a 1e-7 input step {n_mae:.3e}); gate "
+                   f"{LOGIT_NOISE_MAE} std; argmax over D agrees on {agree:.4f}")
+    g_us = graph_us(lambda: cm(**inputs))
+    ev = time_ms(lambda: cm(**inputs))
+    print(f"  {label}: the captured program {g_us:.1f} us in a CUDA graph of 20 calls, "
+          f"{ev:.3f} ms by events (kernel 4 alone, PERF.md row 4: 4,259 us)  ({card})")
+    print(f"  phase 34 took {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
 
 
 def est_bound(T: int, Tk: int, D: int, F: int, n_blocks: int) -> tuple[float, str]:
@@ -4065,6 +4335,7 @@ def main() -> int:
     decode_phase(checks, dev, card)
     capture_phase(checks, card)
     silero_blocks(checks, dev, card)
+    cf_launches = control_flow_phase(checks, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -4088,10 +4359,13 @@ def main() -> int:
         "sanm_stack_dql": ("lele_tpu_torch/csrc/sanm_dql.cu",
                            "lele_tpu/kernels/sanm_block.py:434",
                            "each layer rtol 2e-2, atol 2e-2*max|ref|; whole stack "
-                           f"mean|d| <= {STACK_NOISE_MEAN} std", dql_launches),
+                           f"mean|d| <= {STACK_NOISE_MEAN} std; phase 34 the flat export's "
+                           f"bits and MAE <= {LOGIT_NOISE_MAE} std of per-op",
+                           dql_launches),
         "lstm_seq": ("lele_tpu_torch/csrc/lstm_seq.cu", "lele_tpu/kernels/lstm.py:21",
                      f"hs, h_S, c_S max|d| <= {LSTM_TOL:g}; probabilities vs plain "
-                     f"<= {VAD_PROB_TOL:g}", vad_launches["native"]),
+                     f"<= {VAD_PROB_TOL:g}; phase 34 SileroOnnx.speech_probs' bits",
+                     vad_launches["native"]),
         "w4_gemm": ("lele_tpu_torch/csrc/w4_gemm.cu",
                     "lele_tpu/kernels/w4_matmul.py:144",
                     "bf16 and f32 max|d| <= 1e-5*max|ref|", w4_launches),
@@ -4186,6 +4460,7 @@ def main() -> int:
          "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library_ms[name],
          **DEVICE_US.get(name, {}),
+         **({"phase34_launches": cf_launches[name]} if name in cf_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

@@ -2,8 +2,9 @@
 lele_tpu/compiler/__init__.py).
 
 `compile_model(model, input_shapes=..., patterns=None, device=None)` loads
-(a path, bytes or an `OnnxModel`), pins the input signature, and traces the
-graph once on the device (compiler/tracer.py). `patterns=None` takes the
+(a path, bytes or an `OnnxModel`), inlines its local functions
+(onnx/functions.py), pins the input signature, and traces the graph once on
+the device (compiler/tracer.py). `patterns=None` takes the
 default patterns (the fused SAN-M stack and the fused DQL GEMM);
 `patterns=[]` gives the per-op path. `device` defaults to the card and
 raises where there is none. `compute="bfloat16"` is the JAX package's
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..onnx.functions import inline_model
 from ..onnx.loader import DTYPE_MAP, OnnxModel
 from ..runtime.engine import CompiledModel
 from .tracer import GraphTracer
@@ -69,9 +71,7 @@ class Compiler:
             model = OnnxModel.from_bytes(bytes(model))
         elif not isinstance(model, OnnxModel):
             model = OnnxModel.load(model)
-        if model.model.functions:
-            raise NotImplementedError("models with local functions are not "
-                                      "ported yet (the JAX package inlines them)")
+        model = inline_model(model)  # local functions, flattened before tracing
         device = torch.device(device) if device is not None else default_device()
         specs = resolve_input_specs(model, input_shapes, dim_values)
         tracer = GraphTracer(model, overrides=self._overrides,

@@ -35,6 +35,26 @@ GraphProto once, record the device work, replay it per request.
   graph (`Tape.capturable`): `CompiledModel` replays it step by step on a
   card. Both branches must give outputs of the same shapes, since later
   shape arithmetic folds on one of them.
+- **Scan and Loop**: the body is walked once, onto a sub-tape, on device
+  placeholders for its inputs (the state, the slice, the iteration counter),
+  so no iteration's values fold into the others. One step holds the
+  sub-tape and replays it once an iteration. Scan, a Loop whose body is a
+  pure for-loop over a static trip count M, and a Loop with scan outputs,
+  a static M and a data-dependent exit (JAX's padded design: an `active`
+  flag on the device freezes the carries and writes zero rows up to M) read
+  nothing from the host, so they stay capturable; the counter is a device
+  `arange(M)` made once while tracing, indexed a replay. A carried-only
+  Loop with a dynamic condition or M (M = INT64_MAX, the exporters' "no
+  bound", clamped as JAX clamps it) reads its condition on the host each
+  iteration, as a dynamic If does: such a tape is not capturable. It is not
+  run while tracing (on placeholder inputs its exit may never come); its
+  inits, whose shapes its carries keep, stand in for the walk. Scan outputs
+  with no static bound give a warning and empty outputs (strict mode
+  raises), as in JAX.
+- **SequenceMap** unrolls its body once per element of its sequences
+  (trace-time lists, `ops/extra_ops.TensorSeq`, whose elements may differ in
+  shape), as JAX does. Sequences and optionals are host-level values: the
+  ops that only restructure them record no step.
 
 - **A compute dtype** (`build(..., compute=torch.bfloat16)`, JAX's
   `compute="bfloat16"`): the walk runs on f32 inputs cast to it, and every
@@ -43,8 +63,6 @@ GraphProto once, record the device work, replay it per request.
   it. Smaller constants keep f32, so an f32 scalar promotes the value it
   meets, as under jnp (the binary emitters promote as jnp does).
 
-Loop, Scan and SequenceMap raise NotImplementedError: no graph the port runs
-has one yet.
 """
 
 from __future__ import annotations
@@ -61,10 +79,13 @@ import torch
 from ..onnx.loader import OnnxModel, tensor_to_array
 from ..onnx.schema import Proto
 from ..ops import make_ctx
-from ..ops.registry import canon_domain, lookup_op
+from ..ops.extra_ops import OptionalVal, TensorSeq
+from ..ops.registry import canon_domain, lookup_op, parse_attr
 from ..ops.tensor_ops import torch_dtype
 
-_SUBGRAPH_OPS = ("Loop", "Scan", "SequenceMap")
+# the largest trip count a Loop takes (JAX clamps M to int32; INT64_MAX is
+# the exporters' "no bound")
+_NO_BOUND = 2**31 - 1
 # the JAX tracer's size bar for hoisting a static value to a runtime param;
 # under a compute dtype only such params are stored in it
 PARAM_THRESHOLD = 256
@@ -74,12 +95,28 @@ def _is_static(v) -> bool:
     return v is None or isinstance(v, (np.ndarray, np.generic))
 
 
+def _reject_optionals(where: str, values) -> None:
+    """Optionals are trace-time wrappers (ops/extra_ops.OptionalVal); they
+    cannot flow through a dynamic branch or a loop's carries. Raise the
+    JAX tracer's actionable error."""
+    if any(isinstance(v, OptionalVal) for v in values):
+        raise NotImplementedError(
+            f"{where} carry an ONNX optional: optional values must be "
+            "resolved statically (OptionalHasElement folds at trace time); "
+            "dynamic branches/loops cannot carry optionals. Hint: hoist the "
+            "Optional construction out of the subgraph or make its "
+            "condition static.")
+
+
 def _hashable(v):
     """A value's identity for the CSE key: a device tensor by object (the
-    trace keeps every one alive), a host value by content. Raises TypeError
-    for what has no such identity (a subgraph attribute)."""
+    trace keeps every one alive), a host value by content, a sequence by its
+    elements and its kind. Raises TypeError for what has no such identity (a
+    subgraph attribute, an optional)."""
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
+    if isinstance(v, TensorSeq):
+        return ("seq",) + tuple(_hashable(x) for x in v)
     if isinstance(v, torch.Tensor):
         return ("tensor", id(v))
     if isinstance(v, (np.ndarray, np.generic)):
@@ -93,6 +130,8 @@ def _hashable(v):
 def _to_numpy(out):
     if isinstance(out, tuple):
         return tuple(_to_numpy(v) for v in out)
+    if isinstance(out, TensorSeq):
+        return TensorSeq(_to_numpy(v) for v in out)
     if isinstance(out, torch.Tensor):
         return out.numpy()
     return np.asarray(out)
@@ -117,8 +156,8 @@ class _Step:
 def _map(tree, leaf):
     if isinstance(tree, tuple):
         return tuple(_map(v, leaf) for v in tree)
-    if isinstance(tree, list):
-        return [_map(v, leaf) for v in tree]
+    if isinstance(tree, list):  # a TensorSeq stays one
+        return type(tree)(_map(v, leaf) for v in tree)
     if isinstance(tree, dict):
         return {k: _map(v, leaf) for k, v in tree.items()}
     return leaf(tree)
@@ -251,9 +290,12 @@ class Tape:
     @property
     def capturable(self) -> bool:
         """Whether a replay can be captured in a CUDA graph: no step reads
-        the host. The only such step is a dynamic If's (`_IfStep`), which
-        reads its condition on every replay."""
-        return not any(isinstance(st.fn, _IfStep) for st in self.steps)
+        the host. Such steps are a dynamic If's (`_IfStep`), which reads its
+        condition on every replay, and a while loop's (`_WhileStep`), which
+        reads it every iteration; a loop or scan step is capturable where
+        its body is."""
+        return all(st.fn.capturable for st in self.steps
+                   if isinstance(st.fn, _SubgraphStep))
 
 
 def _step_name(st: _Step) -> str:
@@ -262,8 +304,8 @@ def _step_name(st: _Step) -> str:
     fn = st.fn
     while isinstance(fn, functools.partial):
         fn = fn.func
-    if isinstance(fn, _IfStep):
-        return "If (a dynamic condition)"
+    if isinstance(fn, _SubgraphStep):
+        return fn.label
     name = getattr(fn, "__qualname__", type(fn).__name__)
     node = getattr(st.args[0], "node", None) if st.args else None
     if node is not None:
@@ -271,10 +313,19 @@ def _step_name(st: _Step) -> str:
     return name
 
 
-class _IfStep:
+class _SubgraphStep:
+    """A recorded step that replays sub-tapes (If branches, a loop body)."""
+
+    label = "subgraph"
+    capturable = False
+
+
+class _IfStep(_SubgraphStep):
     """The recorded step of an If with a dynamic condition: both branches'
     sub-tapes; a replay reads the condition (one device → host read) and
     replays the branch it selects on that branch's captured values."""
+
+    label = "If (a dynamic condition)"
 
     def __init__(self, then_tape: Tape, else_tape: Tape):
         self.then_tape, self.else_tape = then_tape, else_tape
@@ -283,6 +334,136 @@ class _IfStep:
         if bool(cond.reshape(-1)[0].item()):
             return tuple(self.then_tape.replay(then_in))
         return tuple(self.else_tape.replay(else_in))
+
+
+def _fresh(vals) -> tuple:
+    """New tensor objects for a step's outputs: a body may hand back one of
+    its inputs or an outer value itself, which the tape must not re-slot."""
+    return tuple(v.view_as(v) for v in vals)
+
+
+def _stacked(rows: list, meta, device) -> torch.Tensor:
+    """One scan output: its rows stacked on a new leading axis, or [0, ...]
+    of the body output's traced shape where the loop ran no iteration."""
+    if rows:
+        return torch.stack(rows)
+    shape, dtype = meta
+    return torch.empty((0,) + tuple(shape), dtype=dtype, device=device)
+
+
+class _ScanStep(_SubgraphStep):
+    """The recorded step of an ONNX Scan: the body's sub-tape replayed once a
+    slice (inputs: the states, the slices, the captured outer values; outputs:
+    the new states, then the scan rows), with JAX's axes and directions."""
+
+    label = "Scan"
+
+    def __init__(self, body: Tape, n_state: int, in_axes, in_dirs, out_axes, out_dirs,
+                 device: torch.device):
+        self.body, self.n_state, self.device = body, n_state, device
+        self.in_axes, self.in_dirs = in_axes, in_dirs
+        self.out_axes, self.out_dirs = out_axes, out_dirs
+
+    @property
+    def capturable(self) -> bool:
+        return self.body.capturable
+
+    def __call__(self, states: list, xs: list, captured: list):
+        xs = [_scan_axis(x, self.in_axes, self.in_dirs, i, to_front=True)
+              for i, x in enumerate(xs)]
+        n_out = len(self.body.out_meta) - self.n_state
+        rows: list[list] = [[] for _ in range(n_out)]
+        for t in range(xs[0].shape[0] if xs else 0):
+            outs = self.body.replay([*states, *(x[t] for x in xs), *captured])
+            states = outs[:self.n_state]
+            for acc, y in zip(rows, outs[self.n_state:]):
+                acc.append(y)
+        ys = [_scan_axis(_stacked(r, self.body.out_meta[self.n_state + j], self.device),
+                         self.out_axes, self.out_dirs, j, to_front=False)
+              for j, r in enumerate(rows)]
+        return _fresh([*states, *ys])
+
+
+def _scan_axis(x, axes, dirs, i: int, to_front: bool):
+    """Scan input i moved to the front and flipped for a reverse direction,
+    or scan output i flipped back and moved to its axis."""
+    ax = int(axes[i]) if i < len(axes) else 0
+    rev = i < len(dirs) and bool(dirs[i])
+    if to_front:
+        x = torch.movedim(x, ax, 0)
+        return x.flip(0) if rev else x
+    if rev:
+        x = x.flip(0)
+    return torch.movedim(x, 0, ax)
+
+
+class _LoopStep(_SubgraphStep):
+    """The recorded step of an ONNX Loop over a static trip count M: the
+    body's sub-tape (inputs: the iteration counter, the condition, the
+    carries, the captured outer values; outputs: the condition, the new
+    carries, the scan rows) replayed M times. The counter is `iters[i]`, a
+    view of a device arange made once while tracing. `padded` is JAX's
+    design for a data-dependent exit: an `active` flag on the device, the
+    carries frozen and zero rows written once the body's condition is
+    false, all without a host read."""
+
+    def __init__(self, body: Tape, n_carried: int, padded: bool):
+        self.body, self.n_carried, self.padded = body, n_carried, padded
+        self.label = "Loop (padded to its bound)" if padded else "Loop (a for-loop)"
+
+    @property
+    def capturable(self) -> bool:
+        return self.body.capturable
+
+    def __call__(self, iters: torch.Tensor, true: torch.Tensor, vs: list, captured: list,
+                 active: torch.Tensor | None = None):
+        nc = self.n_carried
+        if active is not None:
+            active = active.reshape(()).bool()
+        rows: list[list] = [[] for _ in range(len(self.body.out_meta) - 1 - nc)]
+        for i in range(iters.shape[0]):
+            outs = self.body.replay([iters[i], true, *vs, *captured])
+            new_vs, scans = outs[1:1 + nc], outs[1 + nc:]
+            if self.padded:
+                new_vs = [torch.where(active, nv.to(v.dtype), v) for nv, v in zip(new_vs, vs)]
+                scans = [torch.where(active, y, torch.zeros_like(y)) for y in scans]
+                active = torch.logical_and(active, outs[0].reshape(()).bool())
+            vs = new_vs
+            for acc, y in zip(rows, scans):
+                acc.append(y)
+        ys = [_stacked(r, self.body.out_meta[1 + nc + j], iters.device)
+              for j, r in enumerate(rows)]
+        return _fresh([*vs, *ys])
+
+
+class _WhileStep(_SubgraphStep):
+    """The recorded step of a carried-only Loop with a dynamic condition or
+    trip count (JAX's `lax.while_loop`): each iteration reads the body's
+    condition on the host, so a tape holding it is not capturable. M (an int,
+    or a device scalar read once a replay) is clamped to int32 as JAX
+    clamps it. The counter is a view of a device arange, regrown (on the
+    device) when a loop outruns it."""
+
+    label = "Loop (a while loop: its condition read on the host)"
+
+    def __init__(self, body: Tape, n_carried: int, iters: torch.Tensor):
+        self.body, self.n_carried, self.iters = body, n_carried, iters
+
+    def __call__(self, m, cond, true: torch.Tensor, vs: list, captured: list):
+        if isinstance(m, torch.Tensor):
+            m = int(m.reshape(-1)[0].item())
+        m = min(m, _NO_BOUND)
+        go = cond if isinstance(cond, bool) else bool(cond.reshape(-1)[0].item())
+        i = 0
+        while i < m and go:
+            if i == self.iters.shape[0]:
+                self.iters = torch.arange(2 * i, dtype=self.iters.dtype,
+                                          device=self.iters.device)
+            outs = self.body.replay([self.iters[i], true, *vs, *captured])
+            go = bool(outs[0].reshape(-1)[0].item())
+            vs = outs[1:1 + self.n_carried]
+            i += 1
+        return _fresh(vs)
 
 
 def _bind(spec, out, vals: list) -> None:
@@ -355,12 +536,12 @@ class GraphTracer:
     def _emit(self, state: TraceState, node: Proto, env, scope: str, tag: str = ""):
         op_type = node.op_type
         dom = canon_domain(node.domain)
-        if not dom and op_type == "If":
-            return self._emit_if(state, node, env, scope, tag)
-        if not dom and op_type in _SUBGRAPH_OPS:
-            raise NotImplementedError(
-                f"{op_type} ({node.name}): subgraph ops are not ported to the "
-                "torch tracer yet")
+        if not dom:  # control flow belongs to the default operator set
+            special = {"If": self._emit_if, "Loop": self._emit_loop,
+                       "Scan": self._emit_scan,
+                       "SequenceMap": self._emit_sequence_map}.get(op_type)
+            if special is not None:
+                return special(state, node, env, scope, tag)
         ins = [env[n] if n else None for n in node.input]
         label = f"{dom}::{op_type}" if dom else op_type
         emitter = self.overrides.get(label)
@@ -382,6 +563,10 @@ class GraphTracer:
         state.n_nodes += 1
         if all_static and (foldable or ins):
             state.n_folded += 1
+        overridden = label in self.overrides
+        if opdef is not None and opdef.host and not overridden:
+            # sequences and optionals: trace-time structure, no device step
+            return emitter(make_ctx(torch, node, self.opset, self), *ins)
         if all_static and foldable:
             return _to_numpy(emitter(make_ctx(np, node, self.opset, self), *ins))
         if all_static and ins:
@@ -396,11 +581,14 @@ class GraphTracer:
         # A recording emitter's static arguments are weights it prepares
         # itself; an override of it records as one step, so they are
         # hoisted for it (a host value in a step would be an upload a call)
-        overridden = label in self.overrides
         static_pos = (set(opdef.static_args)
                       if opdef is not None and not (opdef.records and overridden) else set())
         dyn_ins = []
         for i, v in enumerate(ins):
+            if isinstance(v, TensorSeq):  # a sequence's static elements too
+                v = TensorSeq(state.to_device(f"{scope}{node.input[i]}[{j}]", e)
+                              if _is_static(e) and e is not None else e
+                              for j, e in enumerate(v))
             if v is None or not _is_static(v) or i in static_pos:
                 dyn_ins.append(v)
             else:
@@ -460,6 +648,180 @@ class GraphTracer:
                       (cond, list(tapes["then"].captured), list(tapes["else"].captured)),
                       out)
         return out if n_out > 1 else out[0]
+
+    def _emit_sequence_map(self, state: TraceState, node: Proto, env, scope: str, tag: str):
+        """ONNX SequenceMap: the body once per sequence element, unrolled
+        (JAX's form: the op maps over ragged sequences, which cannot be
+        stacked). A sequence input gives each walk its element, any other
+        input is passed whole."""
+        body = next(a for a in node.attribute if a.name == "body").g
+        ins = [env[n] for n in node.input if n]
+        seq_lens = {len(v) for v in ins if isinstance(v, TensorSeq)}
+        if not seq_lens:
+            raise ValueError("SequenceMap requires at least one sequence input")
+        if len(seq_lens) > 1:
+            raise ValueError(f"SequenceMap sequence inputs disagree on length: "
+                             f"{sorted(seq_lens)}")
+        n_out = len(node.output)
+        accs = [TensorSeq() for _ in range(n_out)]
+        map_scope = scope + (node.name or f"SeqMap_{tag}")
+        for i in range(seq_lens.pop()):
+            benv = ChainMap({}, env)
+            for vi, val in zip(body.input, ins):
+                benv[vi.name] = val[i] if isinstance(val, TensorSeq) else val
+            sub = self._walk_graph(state, body, benv, f"{map_scope}/{i}/")
+            if len(sub) != n_out:
+                raise ValueError(f"SequenceMap body yields {len(sub)} outputs, node "
+                                 f"declares {n_out}")
+            for acc, o in zip(accs, sub):
+                acc.append(o)
+        return tuple(accs) if n_out > 1 else accs[0]
+
+    def _walk_body(self, state: TraceState, body: Proto, env, scope: str, inputs: list,
+                   where: str) -> tuple[Tape, list]:
+        """Walk a loop body once onto a sub-tape whose first inputs are
+        `inputs` (device placeholders for the body's inputs, in order; the
+        outer values the body reads follow them, `Tape.captured`). CSE
+        starts from the outer walk's and is not shared back."""
+        parent, parent_cse = state.tape, state.cse
+        tape = Tape(parent)
+        benv = ChainMap({}, env)
+        for vi, v in zip(body.input, inputs):
+            tape.input(v)
+            benv[vi.name] = v
+        state.tape, state.cse = tape, dict(parent_cse)
+        try:
+            outs = self._walk_graph(state, body, benv, scope)
+            _reject_optionals(where, outs)
+            outs = [state.to_device(f"{scope}out{j}", o) if _is_static(o) else o
+                    for j, o in enumerate(outs)]
+            tape.finish(outs)
+        finally:
+            state.tape, state.cse = parent, parent_cse
+        return tape, outs
+
+    def _dev(self, state: TraceState, scope: str, name: str, v) -> torch.Tensor:
+        return state.to_device(scope + name, v) if _is_static(v) else v
+
+    def _emit_scan(self, state: TraceState, node: Proto, env, scope: str, tag: str):
+        """ONNX Scan (state variables, scan inputs and outputs with their axes
+        and directions): the body walked once on device placeholders (the
+        initial states and the first slices, copied), then one `_ScanStep`
+        that replays it a slice; its trace-time result is that replay on the
+        outer walk's values."""
+        attrs = {a.name: a for a in node.attribute}
+        body = attrs["body"].g
+        get = lambda k, d: parse_attr(attrs[k]) if k in attrs else d  # noqa: E731
+        m = int(get("num_scan_inputs", 1))
+        n_state = len(node.input) - m
+        n_scan_out = len(node.output) - n_state
+        axes = (get("scan_input_axes", [0] * m), get("scan_input_directions", [0] * m),
+                get("scan_output_axes", [0] * n_scan_out),
+                get("scan_output_directions", [0] * n_scan_out))
+        states0 = [self._dev(state, scope, n, env[n]) for n in node.input[:n_state]]
+        xs = [self._dev(state, scope, n, env[n]) for n in node.input[n_state:]]
+        firsts = []
+        for i, x in enumerate(xs):
+            x = _scan_axis(x, axes[0], axes[1], i, to_front=True)
+            firsts.append(x[0].clone() if x.shape[0] else x.new_zeros(x.shape[1:]))
+        body_tape, _ = self._walk_body(
+            state, body, env, scope + (node.name or f"Scan_{tag}") + "/",
+            [t.clone() for t in states0] + firsts, "Scan body outputs")
+        step = _ScanStep(body_tape, n_state, *axes, device=state.device)
+        outs = state.run(step, states0, xs, list(body_tape.captured))
+        return outs if len(outs) > 1 else outs[0]
+
+    @staticmethod
+    def _body_is_pure_for(body: Proto) -> bool:
+        """True when cond_out is Constant(true) or Identity of cond_in (a
+        short chain): the loop can never exit early (JAX's test)."""
+        cond_out_name = body.output[0].name
+        cond_in_name = body.input[1].name if len(body.input) > 1 else ""
+        name = cond_out_name
+        for _ in range(4):
+            if name == cond_in_name:
+                return True
+            producer = next((n for n in body.node if name in n.output), None)
+            if producer is None:
+                return False
+            if producer.op_type == "Identity":
+                name = producer.input[0]
+                continue
+            if producer.op_type == "Constant":
+                for a in producer.attribute:
+                    if a.name.startswith("value"):
+                        return bool(np.asarray(parse_attr(a)).reshape(-1)[0])
+            return False
+        return False
+
+    def _emit_loop(self, state: TraceState, node: Proto, env, scope: str, tag: str):
+        """ONNX Loop, JAX's three lowerings (module docstring): a for-loop or
+        the padded design over a static trip count M (`_LoopStep`,
+        capturable), a host-read while loop for carried-only loops with a
+        dynamic condition or M (`_WhileStep`), and scan outputs with no
+        static bound: a warning and empty outputs, or a raise in strict
+        mode."""
+        body = next(a for a in node.attribute if a.name == "body").g
+        n_carried = len(node.input) - 2
+        n_scan = len(node.output) - n_carried
+        m_in = env[node.input[0]] if node.input[0] else None
+        cond_in = env[node.input[1]] if len(node.input) > 1 and node.input[1] else None
+        v_init = [env[n] for n in node.input[2:]]
+        _reject_optionals("Loop carried inputs", v_init)
+        M = int(np.asarray(m_in)) if m_in is not None and _is_static(m_in) else None
+        cond0 = (True if cond_in is None else
+                 bool(np.asarray(cond_in).reshape(-1)[0]) if _is_static(cond_in) else None)
+        if M is not None and M >= _NO_BOUND:
+            M = None  # INT64_MAX: the exporters' while-loop, no static bound
+        if cond0 is False:
+            M = 0  # statically never runs: the inits, and [0, ...] scan outputs
+        pure_for = cond0 is not None and (M == 0 or self._body_is_pure_for(body))
+        if n_scan > 0 and M is None:
+            if self.strict:
+                raise NotImplementedError(
+                    "Loop scan-outputs need a static trip-count bound M "
+                    "(dynamic exits are fine: outputs are zero-padded to M)")
+            if "Loop-scan" not in state.warned:
+                state.warned.add("Loop-scan")
+                print("Warning: Loop scan outputs without a static trip-count "
+                      "bound unsupported; emitting empty", file=sys.stderr)
+            outs = tuple(np.zeros((0,), np.float32) for _ in node.output)
+            return outs if len(node.output) > 1 else outs[0]
+
+        loop_scope = scope + (node.name or f"Loop_{tag}") + "/"
+        dev = state.device
+        vs0 = [self._dev(state, scope, n, v) for n, v in zip(node.input[2:], v_init)]
+        true = state.tape.const(torch.ones((), dtype=torch.bool, device=dev))
+        stepped = M is not None and (pure_for or n_scan > 0)
+        # the counter: one device arange for the whole loop, made here (a
+        # while loop's starts at one and grows as the loop runs)
+        iters = state.tape.const(torch.arange(M if stepped else 1, dtype=torch.int64,
+                                              device=dev))
+        i0 = iters[0].clone() if len(iters) else iters.new_zeros(())
+        body_tape, _ = self._walk_body(state, body, env, loop_scope,
+                                       [i0, true.clone()] + [v.clone() for v in vs0],
+                                       "Loop body outputs")
+        captured = list(body_tape.captured)
+        if stepped:
+            if pure_for:
+                step = _LoopStep(body_tape, n_carried, padded=False)
+                outs = state.run(step, iters, true, vs0, captured)
+            else:
+                active = true if cond0 else self._dev(state, scope, node.input[1], cond_in)
+                step = _LoopStep(body_tape, n_carried, padded=True)
+                outs = state.run(step, iters, true, vs0, captured, active)
+        else:
+            m = M if M is not None else (
+                min(int(np.asarray(m_in)), _NO_BOUND) if m_in is not None and _is_static(m_in)
+                else m_in if m_in is not None else _NO_BOUND)
+            # not run while tracing: on the placeholder inputs its exit may
+            # never come, and its carries keep their shapes, so the inits
+            # stand in for the walk's later shape arithmetic
+            cond = cond0 if cond0 is not None else cond_in
+            outs = tuple(v.clone() for v in vs0)
+            state.tape.record(_WhileStep(body_tape, n_carried, iters),
+                              (m, cond, true, vs0, captured), outs)
+        return outs if len(outs) > 1 else outs[0]
 
     # -- graph walk ----------------------------------------------------------
 

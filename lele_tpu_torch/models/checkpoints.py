@@ -18,11 +18,13 @@ from .silero import VadSegmentConfig, collect_segments
 
 
 def _load(model):
+    """The model's `OnnxModel` (a path or bytes), local functions inlined."""
+    from ..onnx.functions import inline_model
     from ..onnx.loader import OnnxModel
 
     if isinstance(model, (bytes, bytearray, memoryview)):
-        return OnnxModel.from_bytes(bytes(model))
-    return OnnxModel.load(str(model))
+        return inline_model(OnnxModel.from_bytes(bytes(model)))
+    return inline_model(OnnxModel.load(str(model)))
 
 
 class SenseVoiceOnnx:
@@ -157,8 +159,6 @@ class SileroOnnx:
         from ..runtime.graphs import Programs
 
         self.model = _load(model)
-        if self.model.model.functions:
-            raise NotImplementedError("models with local functions are not ported yet")
         self.device = torch.device(device) if device is not None else default_device()
         self.in_names = self.model.input_names()
         self.chunk = chunk

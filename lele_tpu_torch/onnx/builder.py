@@ -1,6 +1,6 @@
 """Construct ONNX models programmatically (an `onnx.helper` analog): the
-port's copy of the parts of lele_tpu/onnx/builder.py that `synth` and the
-tests use. Model bytes come out of the port's own wire codec, and the same
+port's copy of the parts of lele_tpu/onnx/builder.py that `synth`,
+`quantize` and the tests use (local functions included). Model bytes come out of the port's own wire codec, and the same
 graph gives the same bytes as the JAX package's builder.
 """
 
@@ -95,13 +95,44 @@ def graph(nodes: Sequence[dict], name: str = "g", inputs: Sequence[dict] = (),
     }
 
 
-def model(g: dict, opset: int = 17, ir_version: int = 8) -> dict:
-    return {
+def model(g: dict, opset: int = 17, ir_version: int = 8,
+          functions: Sequence[dict] = ()) -> dict:
+    m = {
         "ir_version": ir_version,
         "producer_name": PRODUCER,
         "graph": g,
         "opset_import": [{"domain": "", "version": opset}],
     }
+    if functions:
+        m["functions"] = list(functions)
+        extra = {f.get("domain", "") for f in functions} - {""}
+        m["opset_import"] += [{"domain": d, "version": 1} for d in sorted(extra)]
+    return m
+
+
+def function(name: str, inputs: Sequence[str], outputs: Sequence[str],
+             nodes: Sequence[dict], domain: str = "local", attributes: Sequence[str] = (),
+             attribute_defaults: dict | None = None, opset: int = 17) -> dict:
+    """A FunctionProto dict (a model-local function, ONNX IR >= 8)."""
+    f = {
+        "name": name,
+        "domain": domain,
+        "input": list(inputs),
+        "output": list(outputs),
+        "node": list(nodes),
+        "opset_import": [{"domain": "", "version": opset}],
+    }
+    if attributes:
+        f["attribute"] = list(attributes)
+    if attribute_defaults:
+        f["attribute_proto"] = [attribute(k, v) for k, v in attribute_defaults.items()]
+    return f
+
+
+def ref_attr(name: str, ref: str, attr_type: int) -> dict:
+    """An attribute that forwards the caller's attribute `ref` (on a node
+    inside a function body)."""
+    return {"name": name, "ref_attr_name": ref, "type": attr_type}
 
 
 def serialize(m: dict) -> bytes:

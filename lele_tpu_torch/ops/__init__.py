@@ -6,7 +6,9 @@ the SAN-M int8 graph uses, Identity, Div and ReduceSum, which its common
 export variants add, Equal, Log, Sigmoid, Gemm, ReduceMean, STFT and
 LSTM, which the Silero-class graphs add, GRU and RNN, Constant,
 ConstantOfShape, Expand, Where, Tanh, Softplus and ConvTranspose, which the
-Supertonic graphs add, Attention, RotaryEmbedding, Swish, TensorScatter,
+Supertonic graphs add, Neg and LeakyRelu, which control-flow bodies add,
+the sequence and optional ops (`extra_ops`: host-level values, as the JAX
+package's), Attention, RotaryEmbedding, Swish, TensorScatter,
 RMSNormalization and Gelu, which opset-23 LLM step graphs add, ImageDecoder
 (`io_ops`, host-side at trace time), and the com.microsoft ops MatMulNBits
 (`contrib_ops`), MoE and QMoE (`moe_ops`), keyed on their domain. Conv takes
@@ -17,6 +19,7 @@ from . import (  # noqa: F401
     activation_ops,
     attention_ops,
     contrib_ops,
+    extra_ops,
     io_ops,
     math_ops,
     moe_ops,

@@ -1,5 +1,5 @@
 """Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
-Relu, Sigmoid, Softmax, Tanh, Softplus and Gelu."""
+Relu, LeakyRelu, Sigmoid, Softmax, Tanh, Softplus and Gelu."""
 
 from __future__ import annotations
 
@@ -15,6 +15,13 @@ def relu(ctx: OpContext, x):
     if ctx.is_fold:
         return np.maximum(x, np.asarray(0, dtype=np.asarray(x).dtype))
     return torch.relu(x)
+
+
+@op("LeakyRelu", foldable=False)
+def leaky_relu(ctx: OpContext, x):
+    # alpha is an operand of the kernel, not an upload; f32 products as jnp's
+    alpha = ctx.attr("alpha", 0.01)
+    return torch.where(x >= 0, x, x * alpha)
 
 
 @op("Sigmoid", foldable=False)

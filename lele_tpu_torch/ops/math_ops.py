@@ -1,7 +1,8 @@
 """Math emitters (counterpart of lele_tpu/ops/math_ops.py): the ones the
 SAN-M int8 graph uses, plus Div and ReduceSum, which its common export
 variants use (a Div-form attention scale, a side-tap reduction), and
-Equal, Log, Gemm, ReduceMean and STFT, which the Silero-class graphs use."""
+Equal, Log, Gemm, ReduceMean and STFT, which the Silero-class graphs use, and
+Neg, which control-flow bodies use."""
 
 from __future__ import annotations
 
@@ -54,6 +55,11 @@ def div(ctx: OpContext, a, b):
     if not a.is_floating_point():
         return torch.div(a, b, rounding_mode="trunc")
     return torch.div(a, b)
+
+
+@op("Neg")
+def neg(ctx: OpContext, x):
+    return ctx.xp.negative(x)
 
 
 @op("Less")

@@ -45,14 +45,18 @@ class OpDef:
     # prepare static weights once at trace time (LSTM); the tracer does not
     # record it as one step
     records: bool = False
+    # the emitter only restructures trace-time values (sequences, optionals:
+    # ops/extra_ops.py): the tracer calls it once on its inputs as they are
+    # and records no step
+    host: bool = False
 
 
 def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False,
-       domain: str = ""):
+       domain: str = "", host: bool = False):
     d = canon_domain(domain)
 
     def deco(fn):
-        od = OpDef(name, fn, foldable, static_args, records)
+        od = OpDef(name, fn, foldable, static_args, records, host)
         if d:
             CONTRIB_OPS[(d, name)] = od
         else:

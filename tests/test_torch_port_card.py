@@ -72,6 +72,13 @@ YOLO26 runs no kernel of the port's own: the Conv emitter's 2-D forms and
 the native head maps (detect and seg, f32 and bf16, full width) are held to
 the CPU on the card, at 1e-5·max|ref| and chip_smoke.YOLO_MAP_REL.
 
+The tracer's Scan and Loop (chip_smoke phase 34): Silero's utterance as one
+Scan and one Loop over the fixture's step at both rates (one captured graph
+a call, kernel 6 a chunk, SileroOnnx.speech_probs' bits), a padded Loop
+and a reversed Scan against their step-by-step replays, and a
+function-packaged int8 SAN-M export (4 layers at full width: kernel 4 once
+a call, the flat export's bits).
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -1218,3 +1225,109 @@ def test_beam_search_program_equals_hostloop(dev):
         ids, score = beam.beam_search(prompt, 16, beam=4, eos_id=eos)
         ids_h, score_h = cs.beam_hostloop(beam, prompt, 16, eos_id=eos)
         assert ids == ids_h and abs(score - score_h) <= 1e-5 * max(abs(score_h), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [16000, 8000])
+@pytest.mark.parametrize("form", ["scan", "loop"])
+def test_silero_utterance_scan_and_loop_capture(dev, form, sr):
+    """Silero's utterance as one ONNX Scan or Loop (chip_smoke phase 34, at
+    2.3 s): one captured graph a call, kernel 6 once a chunk as kernel nodes
+    of that graph, SileroOnnx.speech_probs' bits, the step-by-step replay's
+    bits, and the plain-LSTM compile within VAD_PROB_TOL."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import SileroOnnx
+    from lele_tpu_torch.ops import nn_ops
+
+    pcms = [cs.vad_pcm(2.3, sr, np.random.default_rng(k)) for k in range(3)]
+    sv = SileroOnnx(cs.SILERO_FIXTURE, device=dev)
+    chunks = [torch.from_numpy(sv._chunks(p, None)[:, None]).to(dev) for p in pcms]
+    n = chunks[0].shape[0]
+    bs = cs.silero_utterance_model(form, n, sr)
+    cm = compile_model(bs, device=dev)
+    plain = compile_model(bs, device=dev, overrides={"LSTM": nn_ops.lstm_plain})
+    state = torch.zeros((2, 1, 128), device=dev)
+    _capture_case(lambda i: cm(chunks=chunks[i], state=state),
+                  lambda i: cm.replay(chunks=chunks[i], state=state))
+    assert cm.stats["captured"] and cm._program._delta[0]["lstm_seq"] == n
+    checks = cs.Checks()
+    cs.program_launch_check(checks, form, [cm._program])
+    assert not checks.failures
+    for p, c in zip(pcms, chunks):
+        probs = cm(chunks=c, state=state)[0].cpu().numpy()
+        assert np.array_equal(probs, sv.speech_probs(p, sr))
+        ref = plain(chunks=c, state=state)[0].cpu().numpy()
+        assert np.abs(probs - ref).max() <= cs.VAD_PROB_TOL
+
+
+@pytest.mark.cuda
+def test_padded_loop_and_scan_capture_with_their_bits(dev):
+    """The padded exit (an active flag on the card) and a Scan with reverse
+    axes capture and give the step-by-step replay's bits on three inputs."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+
+    body = ob.graph(
+        [ob.node("Add", ["v_in", "v_in"], ["v_out"]),
+         ob.node("ReduceSum", ["v_out"], ["s"], keepdims=0),
+         ob.node("Less", ["s", "lim"], ["cond_out"]),
+         ob.node("Identity", ["v_out"], ["scan0"])],
+        name="body",
+        inputs=[ob.value_info("iter", 7, []), ob.value_info("cond_in", 9, []),
+                ob.value_info("v_in", 1, [2])],
+        outputs=[ob.value_info("cond_out", 9, []), ob.value_info("v_out", 1, [2]),
+                 ob.value_info("scan0", 1, [2])])
+    sbody = ob.graph(
+        [ob.node("Add", ["s_in", "x_t"], ["s_out"]), ob.node("Neg", ["s_out"], ["y_t"])],
+        name="sbody",
+        inputs=[ob.value_info("s_in", 1, [2]), ob.value_info("x_t", 1, [2])],
+        outputs=[ob.value_info("s_out", 1, [2]), ob.value_info("y_t", 1, [2])])
+    nodes = [ob.node("Loop", ["M", "", "x"], ["y", "ys"], body=body),
+             ob.node("Scan", ["y", "xs"], ["s", "zs"], body=sbody, num_scan_inputs=1,
+                     scan_input_axes=[1], scan_input_directions=[1])]
+    bs = ob.build_model_bytes(
+        nodes, [ob.value_info("x", 1, [2]), ob.value_info("xs", 1, [2, 5])],
+        [ob.value_info(o, 1, []) for o in ("ys", "s", "zs")],
+        [ob.tensor_from_array(np.array(6, np.int64), "M"),
+         ob.tensor_from_array(np.float32(30.0), "lim")])
+    cm = compile_model(bs, device=dev)
+    assert cm.stats["capturable"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ins = [dict(x=torch.rand(2, generator=gen, device=dev) * k,
+                xs=torch.randn(2, 5, generator=gen, device=dev)) for k in (1, 3, 0.1)]
+    _capture_case(lambda i: cm(**ins[i]), lambda i: cm.replay(**ins[i]))
+    assert cm.stats["captured"]
+
+
+@pytest.mark.cuda
+def test_function_packaged_sanm_export_fuses_on_the_card(dev):
+    """A function-packaged int8 SAN-M export (chip_smoke phase 34's, at 4 of
+    its 50 layers): 4 fused layers, kernel 4 once a call in a captured
+    graph, the flat export's bits, the per-op trace within
+    chip_smoke.LOGIT_NOISE_MAE on the valid rows."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx.quantize import quantize_dynamic
+
+    L, T, valid = 4, cs.T_DQL, cs.VALID_DQL
+    layer, encoder = cs.sanm_modules(T, 512, 4, 2048, 11)
+    torch.manual_seed(1)
+    enc = encoder(L).eval()
+    x = torch.randn(1, T, 512)
+    bias, vmask = torch.zeros(1, 1, 1, T), torch.ones(1, 1, T)
+    bias[..., valid:] = -1e4
+    vmask[..., valid:] = 0.0
+    args = (x, bias, vmask)
+    # one export with functions a module: torch's function extraction
+    # asserts on a second one of the same instance
+    q_fn = quantize_dynamic(cs.sanm_export(enc, layer, args, True))
+    cm = compile_model(q_fn, device=dev)
+    flat = compile_model(quantize_dynamic(cs.sanm_export(enc, layer, args, False)), device=dev)
+    per_op = compile_model(q_fn, device=dev, patterns=[])
+    assert cm.stats["pattern_hits"]["sanm_fused_layers"] == L
+    inputs = {"x": x.to(dev), "attn_bias": bias.to(dev), "vmask": vmask.to(dev)}
+    _capture_case(lambda i: cm(**inputs), lambda i: cm.replay(**inputs))
+    assert cm._program._delta[0]["sanm_stack_dql"] == 1
+    out = cm(**inputs)[0]
+    assert torch.equal(out, flat(**inputs)[0])
+    _, _, mae = cs.compare(out[:, :valid], per_op(**inputs)[0][:, :valid])
+    assert mae <= cs.LOGIT_NOISE_MAE

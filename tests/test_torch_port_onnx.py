@@ -214,14 +214,3 @@ def test_unknown_op_warns_and_strict_mode_raises(capsys):
     assert out.size == 0 and "unsupported op Hardmax" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="Hardmax"):
         compile_model(data, device="cpu", strict=True)
-
-
-@pytest.mark.parametrize("op", ["SequenceMap", "Loop", "Scan"])
-def test_subgraph_ops_are_not_ported_yet(op):
-    from lele_tpu_torch.compiler import compile_model
-
-    data = ob.build_model_bytes(
-        [ob.node(op, ["x"], ["y"])],
-        inputs=[ob.value_info("x", 1, [2])], outputs=[ob.value_info("y", 1, [2])])
-    with pytest.raises(NotImplementedError, match=op):
-        compile_model(data, device="cpu")

@@ -203,7 +203,9 @@ def test_port_runs_without_jax():
     SileroOnnx in blocks with its donated state; and slice 17: both TTS
     routes, SupertonicOnnx's composed program, compose_models, the onnx
     stand-in with torch.onnx.export, and a Seq2SeqGenerator on exported
-    graphs (greedy, sampled, beam)."""
+    graphs (greedy, sampled, beam); and slice 18: Silero's utterance as one
+    Scan and one Loop, a function-packaged export through quantize_dynamic
+    onto the fused SAN-M stack, and the sequence ops."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -415,6 +417,27 @@ def test_port_runs_without_jax():
         "pipe = compose_models({'voc': st5.voc}, lambda call, x: call('voc', **{\n"
         "    st5.voc.input_order[0]: x})[0])\n"
         "assert pipe(io['xt']).shape == io['wave'].shape\n"
+        "import chip_smoke\n"
+        "from lele_tpu_torch.onnx.quantize import quantize_dynamic\n"
+        "ch = sv8._chunks(pcm[:3 * 512], None)[:, None]\n"
+        "for form in ('scan', 'loop'):\n"
+        "    cm = compile_model(chip_smoke.silero_utterance_model(form, 3, 16000), device='cpu')\n"
+        "    p3 = cm.run_np(chunks=ch, state=np.zeros((2, 1, 128), np.float32))[0]\n"
+        "    assert np.array_equal(p3, sv8.speech_probs(pcm[:3 * 512])) and cm.stats['capturable']\n"
+        "lay, enc = chip_smoke.sanm_modules(8, 64, 2, 32, 3)\n"
+        "torch.manual_seed(0)\n"
+        "sargs = (torch.randn(1, 8, 64), torch.zeros(1, 1, 1, 8), torch.ones(1, 1, 8))\n"
+        "qm = quantize_dynamic(chip_smoke.sanm_export(enc(1).eval(), lay, sargs, True))\n"
+        "cm = compile_model(qm, device='cpu')\n"
+        "assert cm.stats['pattern_hits']['sanm_fused_layers'] == 1\n"
+        "assert np.isfinite(cm.run_np(*[a.numpy() for a in sargs])[0]).all()\n"
+        "n = [ob.node('SplitToSequence', ['x'], ['s'], axis=0, keepdims=0),\n"
+        "     ob.node('SequenceErase', ['s'], ['e']),\n"
+        "     ob.node('ConcatFromSequence', ['e'], ['y'], axis=0, new_axis=1)]\n"
+        "bs = ob.build_model_bytes(n, [ob.value_info('x', 1, [3, 2])],\n"
+        "                          [ob.value_info('y', 1, [2, 2])])\n"
+        "xs = np.arange(6, dtype=np.float32).reshape(3, 2)\n"
+        "assert np.array_equal(compile_model(bs, device='cpu').run_np(x=xs)[0], xs[:2])\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
