@@ -223,8 +223,20 @@
    call in a captured graph, the bits of the same model exported flat and
    quantized the same way, the per-op trace within LOGIT_NOISE_MAE; the
    export's, quantizer's and program's times;
-35. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
-   too), the card, and last {"ok": true, "device": ...}.
+35. the ORT-GenAI int4 decoder form (onnx/synth.py `build_genai_decoder`:
+   com.microsoft SimplifiedLayerNormalization, SkipSimplifiedLayerNormalization,
+   RotaryEmbedding, GroupQueryAttention and MatMulNBits; QMoE in the MoE
+   form) at Phi-3-mini's width (4 of 32 layers) and Phi-3.5-MoE's attention
+   and expert widths (2 of 32 layers), random weights drawn on the card from
+   a seed, written as model.onnx + model.onnx.data by save_with_external_data
+   and compiled from the path, the caches donated: a 128-token prefill and 32
+   greedy steps through captured graphs, every MatMulNBits on kernel 7 (its
+   launches a step counted), each step's logits against the graph on kernel
+   7's plain version, the captured donated bits against the uncaptured
+   replay, prefill and decode times, kernel 7's device time a step against
+   its bound, the busy share;
+36. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+   too, row 7 phase 35's), the card, and last {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
 check fails. Imports no jax and nothing of the JAX package.
@@ -639,13 +651,15 @@ def graph_nodes(fn) -> list[tuple[str, str]]:
     launch the call makes is a node, whatever a profiler would record."""
     import torch
 
+    from lele_tpu_torch.runtime.graphs import collector_paused
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         fn()
     torch.cuda.synchronize()
     out = read_graph_nodes(graph)
@@ -741,6 +755,8 @@ def graph_same_bits(fn) -> bool:
     """fn() replayed from a CUDA graph gives the bits of an eager call."""
     import torch
 
+    from lele_tpu_torch.runtime.graphs import collector_paused
+
     eager = fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -748,7 +764,7 @@ def graph_same_bits(fn) -> bool:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         out = fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -2858,13 +2874,15 @@ def graph_us(fn, n: int = 20, reps: int = 10) -> float:
     between launches, without the host's issue or a profiler attached."""
     import torch
 
+    from lele_tpu_torch.runtime.graphs import collector_paused
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(n):
             fn()
     graph.replay()
@@ -3812,6 +3830,328 @@ def decode_phase(checks, dev, card) -> None:
     torch.cuda.synchronize()
 
 
+# phase 35: the ORT-GenAI int4 decoder form (onnx/synth.py build_genai_decoder)
+# at published widths with random weights drawn on the card from a seed:
+# Phi-3-mini's (microsoft/Phi-3-mini-4k-instruct config.json, the port's
+# PHI3_MINI) at 4 of its 32 layers, bench_genai_decode's depth, and
+# Phi-3.5-MoE's attention and expert widths (32 heads over 8 kv heads of 128,
+# 16 experts of 4,096 x 6,400, top-2) at 2 of its 32 layers
+GENAI_PROMPT = 128
+GENAI_STEPS = 32
+GENAI_DENSE_LAYERS = 4
+GENAI_MOE_LAYERS = 2
+
+
+def genai_forms() -> dict:
+    from lele_tpu_torch.onnx.synth import GENAI_CFG, GENAI_MOE_CFG, PHI3_MINI
+
+    p = PHI3_MINI
+    dense = dict(GENAI_CFG, B=1, V=p["vocab"], qh=p["heads"], kvh=p["kv_heads"],
+                 hd=p["head_dim"], ffn=p["ffn"], blk=32, L=p["l_max"], eps=p["eps"],
+                 nl=GENAI_DENSE_LAYERS)
+    moe = dict(GENAI_MOE_CFG, B=1, V=32064, qh=32, kvh=8, hd=128, experts=16, ffn=6400,
+               blk=32, L=4096, nl=GENAI_MOE_LAYERS)
+    return {f"dense, Phi-3-mini width, {GENAI_DENSE_LAYERS} of 32 layers": dense,
+            f"MoE, Phi-3.5-MoE widths, {GENAI_MOE_LAYERS} of 32 layers": moe}
+
+
+def genai_params_on_card(cfg: dict, seed: int, dev) -> dict:
+    """build_genai_decoder's initializers at cfg's widths, drawn on the card
+    from `seed` with genai_decoder_params' distributions and quantised by its
+    rules (quant4_ort for MatMulNBits, quant4_cols for the experts) on the
+    card, as host arrays; no dequantised twins (at the MoE widths they would
+    be ~10 GB of host memory)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    V, qh, kvh, hd, nl, L, ffn, blk = (cfg[k] for k in
+                                       ("V", "qh", "kvh", "hd", "nl", "L", "ffn", "blk"))
+    D, KVD, E = qh * hd, kvh * hd, cfg.get("experts")
+    inits: dict = {}
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def pack(q):  # low nibble first along the last axis
+        return (q[..., 0::2] | (q[..., 1::2] << 4)).cpu().numpy()
+
+    def linear(name, n, k):
+        wg = (normal(n, k) / k ** 0.5).reshape(n, k // blk, blk)
+        sc = wg.abs().amax(-1) / 7.0 + 1e-8
+        inits[f"{name}_q"] = pack((torch.round(wg / sc[..., None]) + 8).clamp(0, 15)
+                                  .to(torch.uint8))
+        inits[f"{name}_s"] = sc.cpu().numpy()
+
+    def experts(name, k, n):
+        w = normal(E, k, n) / k ** 0.5
+        sc = w.abs().amax(1) / 7.0 + 1e-8
+        inits[f"{name}_q"] = pack((torch.round(w / sc[:, None]) + 8).clamp(0, 15)
+                                  .to(torch.uint8))
+        inits[f"{name}_s"] = sc.cpu().numpy()
+        del w
+
+    inits["emb"] = (normal(V, D) * 0.5).cpu().numpy()
+    for i in range(nl):
+        for name, n in (("wq", D), ("wk", KVD), ("wv", KVD), ("wo", D)):
+            linear(f"{name}{i}", n, D)
+        if not E:
+            linear(f"wg{i}", ffn, D)
+            linear(f"wu{i}", ffn, D)
+            linear(f"wd{i}", D, ffn)
+        for g in (f"g_attn{i}", f"g_mlp{i}"):
+            inits[g] = (normal(D) * 0.1 + 1).cpu().numpy()
+    inits["g_final"] = (normal(D) * 0.1 + 1).cpu().numpy()
+    for i in range(nl if E else 0):
+        inits[f"router{i}"] = (normal(D, E) / D ** 0.5).cpu().numpy()
+        experts(f"fc1_{i}", D, ffn)
+        experts(f"fc2_{i}", ffn, D)
+        experts(f"fc3_{i}", D, ffn)
+    linear("head", V, D)
+    inv = 1.0 / 10000 ** (np.arange(hd // 2) / (hd // 2))
+    t = np.arange(L)[:, None] * inv[None, :]
+    inits["cos"], inits["sin"] = np.cos(t).astype(np.float32), np.sin(t).astype(np.float32)
+    return inits
+
+
+def genai_save(inits: dict, cfg: dict, folder) -> tuple:
+    """The prefill graph (S = GENAI_PROMPT) and the decode graph (S = 1)
+    written as a published export is: model.onnx beside model.onnx.data, by
+    the port's save_with_external_data; the decode graph's initializers
+    refer to the prefill graph's side file (one copy of the weights on
+    disk). Returns the two paths and the side file's size in bytes."""
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import schema
+    from lele_tpu_torch.onnx.synth import build_genai_decoder
+
+    pre, dec = Path(folder) / "genai.onnx", Path(folder) / "genai_decode.onnx"
+    ob.save_with_external_data(build_genai_decoder(inits, GENAI_PROMPT, cfg, raw=True), pre)
+    spilled = schema.decode_model(pre.read_bytes()).raw()["graph"]["initializer"]
+    raw = build_genai_decoder({}, 1, cfg, raw=True)
+    raw["graph"]["initializer"] = spilled
+    dec.write_bytes(ob.serialize(raw))
+    return pre, dec, (Path(folder) / "genai.onnx.data").stat().st_size
+
+
+def genai_w4_bound(cfg: dict, M: int) -> tuple[float, str]:
+    """Kernel 7's least time for one step of M rows: every MatMulNBits
+    weight's int4 bytes and f32 scales, bf16 activations in, f32 out; the
+    MoE decode step's three indexed launches read the k = 2 experts a row
+    chose (rows·k slots; scales [K/g, N] an expert)."""
+    qh, kvh, hd, nl, ffn, V, blk = (cfg[k] for k in ("qh", "kvh", "hd", "nl", "ffn", "V", "blk"))
+    D, KVD, E = qh * hd, kvh * hd, cfg.get("experts")
+    shapes = [(D, D), (D, KVD), (D, KVD), (D, D)] * nl + [(D, V)]  # (K, N)
+    if not E:
+        shapes += [(D, ffn), (D, ffn), (ffn, D)] * nl
+    n_bytes = sum(K * N / 2 + K / blk * N * 4 + M * K * 2 + M * N * 4 for K, N in shapes)
+    flops = sum(2 * M * K * N for K, N in shapes)
+    if E and M * 2 <= E:
+        slots = 2 * M
+        for K, N in ((D, ffn), (D, ffn), (ffn, D)):
+            g = next(g for g in (128, 64, 32, 16, 8, 4, 2, 1) if (K // 2) % g == 0)
+            n_bytes += nl * slots * (K * N / 2 + K / g * N * 4 + K * 2 + N * 4)
+            flops += nl * slots * 2 * K * N
+    return bound(n_bytes, {"bf16": flops})
+
+
+def op_breakdown(fn, label: str, card: str, top: int = 12) -> None:
+    """One uncaptured call of fn() under torch.profiler: the device time by
+    the aten op that launched it (its CPU row's self device time), for where
+    a graph's time goes, which a captured replay cannot attribute."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and dev_time(e) > 0]
+    total = sum(dev_time(e) for e in rows)
+    print(f"  {label}: device {total:.1f} us by the aten op that launched it  ({card})")
+    for e in sorted(rows, key=lambda e: -dev_time(e))[:top]:
+        print(f"    {dev_time(e):10.1f} us  x{e.count:<5d} {e.key[:80]}")
+
+
+def genai_phase(checks, dev, card) -> dict:
+    """Phase 35: the ORT-GenAI int4 decoder family (com.microsoft
+    SimplifiedLayerNormalization / SkipSimplifiedLayerNormalization,
+    RotaryEmbedding, GroupQueryAttention, MatMulNBits; QMoE in the MoE form)
+    at Phi-3-mini's width (4 of 32 layers) and Phi-3.5-MoE's attention and
+    expert widths (2 of 32 layers), random weights drawn on the card from a
+    seed, written with save_with_external_data and compiled from the path
+    (S = 128 and S = 1), with the caches donated in graph order. A 128-token
+    prefill and 32 greedy steps through captured graphs: every MatMulNBits on
+    kernel 7 (2 pattern hits a node), kernel 7's launches a step, each step's
+    logits within NBITS_RELNORM of the same graph on kernel 7's plain version
+    (PLAIN_NBITS_PATTERNS, the same bf16 activations) on the same feeds,
+    tokens equal where the plain logits' top-2 gap decides, the captured
+    donated call the bits of the uncaptured undonated `replay()`, each
+    present cache on its own past; prefill and decode times by CUDA events,
+    kernel 7's device sum a decode step against its bound, the busy share.
+    Returns kernel 7's launches a call by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.compiler.patterns import PLAIN_NBITS_PATTERNS
+
+    print(f"== 35. the ORT-GenAI int4 decoder form: dense Phi-3-mini width and MoE "
+          f"Phi-3.5-MoE widths, a {GENAI_PROMPT}-token prefill and {GENAI_STEPS} greedy "
+          f"steps ({card})")
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    w4_names = LAUNCH_KERNELS["w4_gemm"]
+    for fi, (label, cfg) in enumerate(genai_forms().items()):
+        nl, E, B, V = cfg["nl"], cfg.get("experts"), cfg["B"], cfg["V"]
+        n_nodes = (4 if E else 7) * nl + 1
+        t0 = time.perf_counter()
+        inits = genai_params_on_card(cfg, SEED + 35 + fi, dev)
+        t_draw = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as folder:
+            t0 = time.perf_counter()
+            pre_path, dec_path, side = genai_save(inits, cfg, folder)
+            t_save = time.perf_counter() - t0
+            del inits
+            donate = [f"p{kv}{i}" for i in range(nl) for kv in "kv"]
+            t0 = time.perf_counter()
+            pre = compile_model(str(pre_path), device=dev, strict=True, donate=donate)
+            dec = compile_model(str(dec_path), device=dev, strict=True, donate=donate)
+            t_compile = time.perf_counter() - t0
+            plain = [compile_model(str(p), device=dev, strict=True,
+                                   patterns=PLAIN_NBITS_PATTERNS) for p in (pre_path, dec_path)]
+        print(f"  {label}: weights drawn on the card in {t_draw:.1f} s; model.onnx + a "
+              f"{side / 1e9:.2f} GB side file written in {t_save:.1f} s; both graphs compiled "
+              f"from their paths in {t_compile:.1f} s (host clock)")
+        for name, cm in (("prefill", pre), ("decode", dec)):
+            hits = cm.stats["pattern_hits"]
+            want_moe = 2 * nl if (E and name == "decode") else 0
+            checks.require(hits.get("matmul_nbits_w4") == 2 * n_nodes
+                           and hits.get("qmoe_w4", 0) == want_moe,
+                           f"{label}, {name}: pattern hits {hits}: every one of the "
+                           f"{n_nodes} MatMulNBits on kernel 7 (two hits a node)"
+                           + (", QMoE's decode on its indexed entry" if want_moe else ""))
+            paired = {k: cm.output_names[j] for k, j in cm.donated.items()}
+            checks.require(paired == {k: "n" + k for k in donate},
+                           f"{label}, {name}: each donated cache gets its own present "
+                           f"({len(paired)} pairs, pk_i -> npk_i, pv_i -> npv_i)")
+
+        rng = np.random.default_rng(SEED + 350 + fi)
+        ids0 = torch.from_numpy(rng.integers(0, V, (B, GENAI_PROMPT))).to(dev)
+        shape = (B, cfg["kvh"], cfg["L"], cfg["hd"])
+        zeros = [torch.zeros(shape, device=dev) for _ in range(2 * nl)]
+
+        def feeds(ids, start, caches):
+            s = ids.shape[1]
+            f = {"ids": ids,
+                 "pos": (start + torch.arange(s, device=dev))[None].expand(B, s).contiguous(),
+                 "slk": torch.full((B,), start + s - 1, dtype=torch.int32, device=dev),
+                 "tot": torch.full((1,), start + s, dtype=torch.int32, device=dev)}
+            f.update(zip(donate, caches))
+            return f
+
+        f = feeds(ids0, 0, zeros)
+        worst, bits, decided, agree = 0.0, True, 0, 0
+        per_path: dict[str, dict] = {}
+        with torch.inference_mode():
+            for t in range(GENAI_STEPS + 1):
+                cm, ref_cm, path = (pre, plain[0], "prefill") if t == 0 else \
+                    (dec, plain[1], "decode step")
+                K.reset_launch_counts()
+                out = cm(**f)
+                torch.cuda.synchronize()
+                moved = {k: v for k, v in K.launch_counts().items() if v}
+                per_path.setdefault(path, moved)
+                eager = cm.replay(**f)
+                ref = ref_cm(**f)
+                bits &= all(torch.equal(a, b) for a, b in zip(out, eager))
+                lg, rl = out[0][:, -1].float(), ref[0][:, -1].float()
+                rn = ((out[0] - ref[0]).norm() / ref[0].norm()).item()
+                worst = max(worst, rn) if np.isfinite(rn) else float("inf")
+                top2 = rl.topk(2, dim=-1).values
+                gap_ok = (top2[:, 0] - top2[:, 1]) > NBITS_RELNORM * rl.abs().amax(-1)
+                same = lg.argmax(-1) == rl.argmax(-1)
+                decided += int(gap_ok.sum())
+                agree += int((same | ~gap_ok).sum())
+                tok = lg.argmax(-1)[:, None]
+                f = feeds(tok, GENAI_PROMPT + t if t else GENAI_PROMPT, list(out[1:]))
+        n_rows = B * (GENAI_STEPS + 1)
+        checks.require(bool(torch.isfinite(out[0]).all()) and worst <= NBITS_RELNORM,
+                       f"{label}: {GENAI_STEPS + 1} steps' logits vs kernel 7's plain version "
+                       f"on the same feeds: worst relative Frobenius {worst:.3e} <= "
+                       f"{NBITS_RELNORM:g} (phase 13's fused MatMulNBits gate)")
+        checks.require(agree == n_rows,
+                       f"{label}: greedy tokens equal the plain route's wherever its top-2 gap "
+                       f"exceeds {NBITS_RELNORM:g} x max|logit| ({decided} of {n_rows} "
+                       f"decided, {agree - (n_rows - decided)} equal)")
+        checks.require(bits and pre.stats["captured"] and dec.stats["captured"],
+                       f"{label}: every step captured with donated caches gives the bits of "
+                       f"the uncaptured, undonated replay() (logits and {2 * nl} caches)")
+        want = {"prefill": n_nodes, "decode step": (4 * nl + 3 * nl + 1) if E else n_nodes}
+        for path, moved in per_path.items():
+            launches[f"{'MoE' if E else 'dense'} {path}"] = moved.get("w4_gemm", 0)
+            checks.require(moved == {"w4_gemm": want[path]},
+                           f"{label}, {path}: launches of one call {moved}: kernel 7 "
+                           f"{want[path]} times, nothing else")
+        program_launch_check(checks, f"{label}, prefill", [pre._program])
+        program_launch_check(checks, f"{label}, decode step", [dec._program])
+
+        # times: the prefill call, and decode steps fed back on the card
+        f0 = feeds(ids0, 0, zeros)
+        pre_ms = time_ms(lambda: pre(**f0), runs=10)
+        with torch.inference_mode():
+            o = pre(**f0)
+            tok = o[0][:, -1].argmax(-1)[:, None]
+            fd = feeds(tok, GENAI_PROMPT, list(o[1:]))
+
+        def decode_run(n, fd=fd):
+            out, f = None, fd
+            for t in range(n):
+                out = dec(**f)
+                f = feeds(out[0][:, -1].argmax(-1)[:, None], GENAI_PROMPT + 1 + t,
+                          list(out[1:]))
+            return out
+
+        with torch.inference_mode():
+            decode_run(2)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            decode_run(GENAI_STEPS)
+            end.record()
+            end.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / GENAI_STEPS
+            ev = start.elapsed_time(end) / GENAI_STEPS
+            rows = device_us(lambda: dec(**fd), n=10)
+            du, span = busy(lambda: (dec(**fd), torch.cuda.synchronize()))
+        # the profiler names a kernel by its demangled signature
+        w4_us = None if rows is None else sum(
+            v for k, v in rows.items()
+            if any(is_kernel(k, n) or f"::{n}<" in k or f"::{n}(" in k for n in w4_names))
+        b_ms, b_by = genai_w4_bound(cfg, B)
+        print(f"  {label}: prefill of {GENAI_PROMPT} tokens {pre_ms:.3f} ms by CUDA events (one "
+              f"captured graph a call); decode {ev:.3f} ms a token by events over "
+              f"{GENAI_STEPS} steps fed back on the card ({host:.3f} ms by host clock); "
+              f"kernel 7 a decode step {fmt_us(w4_us)} of device time against its bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}); one decode call: device "
+              f"{du / 1e3:.3f} ms over {span / 1e3:.3f} ms, busy share {du / span:.3f}  "
+              f"({card})")
+        profile_top(lambda: dec(**fd), f"{label} decode step", card, n=3, top=12)
+        op_breakdown(lambda: dec.replay(**fd), f"{label}, one uncaptured decode step", card)
+        del pre, dec, plain, out, eager, ref, o, zeros, f, f0, fd
+        torch.cuda.empty_cache()
+    print(f"  phase 35 took {time.perf_counter() - t_phase:.1f} s; kernel 7 launches a call "
+          f"{launches}")
+    return {"w4_gemm": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4336,6 +4676,7 @@ def main() -> int:
     capture_phase(checks, card)
     silero_blocks(checks, dev, card)
     cf_launches = control_flow_phase(checks, dev, card)
+    genai_launches = genai_phase(checks, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
@@ -4461,6 +4802,7 @@ def main() -> int:
          "bound_by": bounds[name][1], "library_ms": library_ms[name],
          **DEVICE_US.get(name, {}),
          **({"phase34_launches": cf_launches[name]} if name in cf_launches else {}),
+         **({"phase35_launches": genai_launches[name]} if name in genai_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

@@ -283,16 +283,22 @@ def _match_dequant_epilogue(nodes, j, mm_out, env, scale_name, graph_outputs,
     return jc, jm, jp, mul.output[0], smul.output[0], float(np.asarray(cv))
 
 
+def _w4_product(plain: bool):
+    from ..kernels.w4_matmul import w4_matmul, w4_matmul_plain
+
+    return w4_matmul_plain if plain else w4_matmul
+
+
 def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int,
-                     f32: bool = False):
+                     f32: bool = False, plain: bool = False):
     """The recorded step of matmul_nbits_w4: bf16 (or, for the f32 route,
     f32) activations through the w4 GEMM on the recentred planes, plus the
     zero-point residual Σ_g blocksum_g(a)·(8 − zp)·s as an f32 [M, K/block]
-    × [K/block, N] product (zc None where every zero point is 8)."""
-    from ..kernels.w4_matmul import w4_matmul
-
+    × [K/block, N] product (zc None where every zero point is 8). plain:
+    the GEMM's plain version on any device (`PLAIN_NBITS_PATTERNS`)."""
     x2 = a.reshape(-1, K)
-    out = w4_matmul(x2.to(torch.float32 if f32 else torch.bfloat16), packed, scales, block)
+    out = _w4_product(plain)(x2.to(torch.float32 if f32 else torch.bfloat16), packed, scales,
+                             block)
     if zc is not None:
         xs = x2.to(torch.float32).reshape(x2.shape[0], K // block, block).sum(-1)
         out = out + xs @ zc
@@ -302,7 +308,8 @@ def _nbits_w4_linear(a, packed, scales, zc, bias, K: int, N: int, block: int,
     return out
 
 
-def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
+def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False,
+                    plain: bool = False):
     """Route com.microsoft::MatMulNBits (bits=4, no g_idx) through the w4a16
     GEMM kernel (kernels/w4_matmul.py), as lele_tpu/compiler/patterns.py:277
     routes it through `w4_matmul_pallas`.
@@ -375,7 +382,8 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
                                  np.ascontiguousarray(c_np.T.astype(np.float32)))
     if bias is not None and _is_static(bias):
         bias = state.to_device(scope + ins[5] + "::w4b", np.asarray(bias))
-    out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block, f32)
+    out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block, f32,
+                    plain)
     state.pattern_hits["matmul_nbits_w4"] = state.pattern_hits.get("matmul_nbits_w4", 0) + 1
     return 1, {node.output[0]: out}
 
@@ -412,15 +420,16 @@ def _qmoe_group(K: int) -> int:
 
 
 def _qmoe_w4_step(x, logits, fc1, fc2, fc3, k: int, sparse: bool, normalize: bool, act: str,
-                  f32: bool):
+                  f32: bool, plain: bool = False):
     """The recorded step of qmoe_w4: route on the device, then one launch of
     the w4 GEMM's expert-indexed entry per linear for all rows·k slots (the
     expert indices never leave the card); fcN = (packed [E, K/2, N], scales
     [E, K/g, N], g). The activation and the fc3 product in f32, cast to the
     activation type before fc2; the routing weights sum in f32, slot by
     slot, as lele_tpu/compiler/patterns.py:551-563."""
-    from ..kernels.w4_matmul import w4_matmul
     from ..ops.moe_ops import apply_activation, route_topk
+
+    w4_matmul = _w4_product(plain)
 
     hidden = x.shape[-1]
     rows = x.numel() // hidden
@@ -443,7 +452,7 @@ def _qmoe_w4_step(x, logits, fc1, fc2, fc3, k: int, sparse: bool, normalize: boo
     return acc.reshape(x.shape).to(x.dtype)
 
 
-def qmoe_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
+def qmoe_w4(tracer, state, nodes, i, env, scope, f32: bool = False, plain: bool = False):
     """Route com.microsoft::QMoE's decode path (rows·k ≤ experts) through the
     w4a16 GEMM kernel, as lele_tpu/compiler/patterns.py:437-566 routes it
     through `w4_matmul_pallas`.
@@ -511,7 +520,7 @@ def qmoe_w4(tracer, state, nodes, i, env, scope, f32: bool = False):
     out = state.run(_qmoe_w4_step, x, logits, devs[0], devs[1], devs[2], k,
                     bool(int(_node_attr(node, "use_sparse_mixer", 0))),
                     bool(int(_node_attr(node, "normalize_routing_weights", 0))),
-                    _node_attr(node, "activation_type", "relu"), f32)
+                    _node_attr(node, "activation_type", "relu"), f32, plain)
     state.pattern_hits["qmoe_w4"] = state.pattern_hits.get("qmoe_w4", 0) + 1
     return 1, {node.output[0]: out}
 
@@ -522,11 +531,22 @@ def qmoe_w4_f32(tracer, state, nodes, i, env, scope):
     return qmoe_w4(tracer, state, nodes, i, env, scope, f32=True)
 
 
-# the tracer's walk counts a hit under the pattern's __name__: the f32
-# variants count under their base pattern's name, as JAX counts its
+def matmul_nbits_w4_plain(tracer, state, nodes, i, env, scope):
+    """`matmul_nbits_w4` with the GEMM's plain version in place of kernel 7,
+    the same bf16 activations: the card's oracle of the fused route."""
+    return matmul_nbits_w4(tracer, state, nodes, i, env, scope, plain=True)
+
+
+def qmoe_w4_plain(tracer, state, nodes, i, env, scope):
+    """`qmoe_w4` with the GEMM's plain version (see matmul_nbits_w4_plain)."""
+    return qmoe_w4(tracer, state, nodes, i, env, scope, plain=True)
+
+
+# the tracer's walk counts a hit under the pattern's __name__: the f32 and
+# plain variants count under their base pattern's name, as JAX counts its
 # LELE_NBITS_F32 route, so `pattern_hits` agree
-matmul_nbits_w4_f32.__name__ = "matmul_nbits_w4"
-qmoe_w4_f32.__name__ = "qmoe_w4"
+matmul_nbits_w4_f32.__name__ = matmul_nbits_w4_plain.__name__ = "matmul_nbits_w4"
+qmoe_w4_f32.__name__ = qmoe_w4_plain.__name__ = "qmoe_w4"
 
 from .sanm_fuse import sanm_stack_dataflow  # noqa: E402  (uses the helpers above)
 
@@ -534,3 +554,6 @@ DEFAULT_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits
 # JAX's `LELE_NBITS_F32=1`: patterns=F32_NBITS_PATTERNS
 F32_NBITS_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4_f32,
                             qmoe_w4_f32]
+# the default route with kernel 7's calls on its plain version (a card's oracle)
+PLAIN_NBITS_PATTERNS: list = [sanm_stack_dataflow, dql_matmul_dataflow, matmul_nbits_w4_plain,
+                              qmoe_w4_plain]

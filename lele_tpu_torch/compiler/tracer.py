@@ -76,7 +76,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from ..onnx.loader import OnnxModel, tensor_to_array
+from ..onnx.loader import (Fp8Bits, OnnxModel, base_dir_scope, from_torch, tensor_to_array,
+                           to_torch)
 from ..onnx.schema import Proto
 from ..ops import make_ctx
 from ..ops.extra_ops import OptionalVal, TensorSeq
@@ -133,7 +134,7 @@ def _to_numpy(out):
     if isinstance(out, TensorSeq):
         return TensorSeq(_to_numpy(v) for v in out)
     if isinstance(out, torch.Tensor):
-        return out.numpy()
+        return from_torch(out)
     return np.asarray(out)
 
 
@@ -500,9 +501,7 @@ class TraceState:
         """A static value on the device, once per name (param hoisting)."""
         t = self.params.get(name)
         if t is None:
-            a = np.array(v)  # a writable copy: torch takes no read-only view
-            t = torch.from_numpy(a).to(self.device) if a.dtype.name != "bfloat16" \
-                else torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(self.device)
+            t = to_torch(v).to(self.device)  # a copy: torch takes no read-only view
             if (self.compute is not None and t.dtype == torch.float32
                     and t.numel() >= PARAM_THRESHOLD):
                 t = t.to(self.compute)
@@ -550,7 +549,15 @@ class GraphTracer:
             emitter = opdef.fn
         if emitter is None:
             if self.strict:
-                raise NotImplementedError(f"unsupported op {label} ({node.name})")
+                hint = ""
+                if dom and lookup_op("", op_type) is not None:
+                    hint = (f" (a default-domain ai.onnx emitter named {op_type!r} exists "
+                            "but the contrib schema differs: add a CONTRIB_OPS entry or a "
+                            "CONTRIB_ALIASES row if the schemas coincide)")
+                elif dom:
+                    hint = (" (custom-domain op with no matching model-local function: "
+                            "functions are inlined before tracing)")
+                raise NotImplementedError(f"unsupported op {label} ({node.name}){hint}")
             if label not in state.warned:
                 state.warned.add(label)
                 print(f"Warning: unsupported op {label}; emitting empty tensor",
@@ -559,7 +566,10 @@ class GraphTracer:
             return outs if len(node.output) > 1 else outs[0]
 
         all_static = all(_is_static(v) for v in ins)
-        foldable = opdef.foldable if opdef is not None else False
+        # numpy cannot compute on fp8 bits (no ml_dtypes): such a node takes
+        # the torch route on the host
+        foldable = (opdef.foldable if opdef is not None else False) and not any(
+            isinstance(v, Fp8Bits) for v in ins)
         state.n_nodes += 1
         if all_static and (foldable or ins):
             state.n_folded += 1
@@ -572,8 +582,7 @@ class GraphTracer:
         if all_static and ins:
             # a non-foldable op on constants: evaluate it once with torch on
             # the host, and carry the result as a static value
-            cpu_ins = [None if v is None else torch.from_numpy(np.array(v))
-                       for v in ins]
+            cpu_ins = [None if v is None else to_torch(v) for v in ins]
             return _to_numpy(emitter(make_ctx(torch, node, self.opset, self),
                                      *cpu_ins))
         # dynamic: static inputs go to the device (hoisted by name), except
@@ -827,7 +836,7 @@ class GraphTracer:
 
     def _walk_graph(self, state: TraceState, graph: Proto, env, scope: str):
         for t in graph.initializer:
-            env[t.name] = tensor_to_array(t)
+            env[t.name] = tensor_to_array(t, self.model.base_dir)
         nodes = list(graph.node)
         prev_outputs = state.graph_outputs
         state.graph_outputs = frozenset(vi.name for vi in graph.output)
@@ -909,7 +918,9 @@ class GraphTracer:
                     tdt = compute
                 env[n] = torch.zeros(tuple(shape), dtype=tdt, device=state.device)
                 state.tape.input(env[n])
-            outs = self._walk_graph(state, graph, env, "")
+            # the model's directory resolves Constant attributes' side files
+            with base_dir_scope(self.model.base_dir):
+                outs = self._walk_graph(state, graph, env, "")
             state.tape.finish([
                 state.to_device(f"::out{j}", o) if _is_static(o) else o
                 for j, o in enumerate(outs)])

@@ -1,7 +1,9 @@
 """Construct ONNX models programmatically (an `onnx.helper` analog): the
 port's copy of the parts of lele_tpu/onnx/builder.py that `synth`,
-`quantize` and the tests use (local functions included). Model bytes come out of the port's own wire codec, and the same
-graph gives the same bytes as the JAX package's builder.
+`quantize` and the tests use (local functions, 4-bit and string tensors,
+external data and `save_with_external_data` included). Model bytes come
+out of the port's own wire codec, and the same graph gives the same bytes
+(and the same side file) as the JAX package's builder.
 """
 
 from __future__ import annotations
@@ -64,6 +66,11 @@ def node(op_type: str, inputs: Sequence[str], outputs: Sequence[str],
 
 def tensor_from_array(arr: np.ndarray, name: str = "") -> dict:
     arr = np.asarray(arr)
+    if arr.dtype.kind in ("U", "S", "O"):  # STRING tensor (data_type 8)
+        vals = [v.encode("utf-8") if isinstance(v, str) else bytes(v)
+                for v in arr.reshape(-1)]
+        return {"name": name, "dims": list(arr.shape), "data_type": 8,
+                "string_data": vals}
     if arr.dtype not in NP_TO_ONNX:
         raise TypeError(f"no ONNX dtype for numpy {arr.dtype}")
     return {
@@ -74,6 +81,81 @@ def tensor_from_array(arr: np.ndarray, name: str = "") -> dict:
     }
 
 
+def tensor_int4(values, name: str = "", signed: bool = True) -> dict:
+    """A 4-bit TensorProto (data_type 22 int4 / 21 uint4): two elements a
+    byte, low nibble first, zero-padded to a whole byte."""
+    v = np.asarray(values).reshape(-1)
+    lo, hi = (-8, 7) if signed else (0, 15)
+    if v.size and (v.min() < lo or v.max() > hi):
+        raise ValueError(f"values outside {'int4' if signed else 'uint4'}")
+    u = (v.astype(np.int64) & 0x0F).astype(np.uint8)
+    if u.size % 2:
+        u = np.concatenate([u, np.zeros(1, np.uint8)])
+    packed = (u[0::2] | (u[1::2] << 4)).astype(np.uint8)
+    return {"name": name, "dims": list(np.asarray(values).shape),
+            "data_type": 22 if signed else 21, "raw_data": packed.tobytes()}
+
+
+def tensor_external(arr: np.ndarray, name: str, location: str, offset: int) -> dict:
+    """A TensorProto referencing `arr`'s bytes at `offset` in side file
+    `location` (data_location EXTERNAL); the caller writes the bytes there."""
+    arr = np.asarray(arr)
+    if arr.dtype not in NP_TO_ONNX:
+        raise TypeError(f"no ONNX dtype for numpy {arr.dtype}")
+    return {
+        "name": name,
+        "dims": list(arr.shape),
+        "data_type": NP_TO_ONNX[arr.dtype],
+        "data_location": 1,
+        "external_data": [
+            {"key": "location", "value": location},
+            {"key": "offset", "value": str(int(offset))},
+            {"key": "length", "value": str(arr.nbytes)},
+        ],
+    }
+
+
+def save_with_external_data(model_raw: dict, path, size_threshold: int = 1024) -> None:
+    """Write `model_raw` (a ModelProto dict) to `path`, with every initializer
+    whose raw_data is larger than `size_threshold` bytes moved into one
+    `<model>.data` side file, in graph order: the layout of
+    `onnx.save(..., save_as_external_data=True)`, which published exports
+    larger than 2 GB take."""
+    from pathlib import Path
+
+    path = Path(path)
+    side_name = path.name + ".data"
+    chunks: list = []
+    off = 0
+    g = model_raw["graph"]
+    new_inits = []
+    for t in g.get("initializer", []):
+        raw = t.get("raw_data", b"")
+        if len(raw) <= size_threshold:
+            new_inits.append(t)
+            continue
+        t = dict(t)
+        t.pop("raw_data", None)
+        t["data_location"] = 1
+        t["external_data"] = [
+            {"key": "location", "value": side_name},
+            {"key": "offset", "value": str(off)},
+            {"key": "length", "value": str(len(raw))},
+        ]
+        chunks.append(raw)
+        off += len(raw)
+        new_inits.append(t)
+    g = dict(g)
+    g["initializer"] = new_inits
+    model_raw = dict(model_raw)
+    model_raw["graph"] = g
+    if chunks:
+        with open(path.parent / side_name, "wb") as f:
+            for c in chunks:  # one chunk at a time: no second copy of the weights
+                f.write(c)
+    path.write_bytes(serialize(model_raw))
+
+
 def value_info(name: str, onnx_dtype: int, shape: Sequence[int | str]) -> dict:
     dims = []
     for d in shape:
@@ -82,6 +164,11 @@ def value_info(name: str, onnx_dtype: int, shape: Sequence[int | str]) -> dict:
         "name": name,
         "type": {"tensor_type": {"elem_type": onnx_dtype, "shape": {"dim": dims}}},
     }
+
+
+def vi_from_array(name: str, arr: np.ndarray) -> dict:
+    arr = np.asarray(arr)
+    return value_info(name, NP_TO_ONNX[arr.dtype], arr.shape)
 
 
 def graph(nodes: Sequence[dict], name: str = "g", inputs: Sequence[dict] = (),

@@ -299,4 +299,4 @@ def inline_model(model):
     from .schema import Proto
 
     return OnnxModel(Proto(inline_functions(model.model.raw()), "ModelProto"),
-                     path=model.path)
+                     path=model.path, base_dir=model.base_dir)

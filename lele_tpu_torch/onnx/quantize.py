@@ -20,9 +20,10 @@ bytes give the same output bytes as the JAX package's transform.
 Only MatMul and Gemm whose weight is a 2-D float32 initializer or Constant
 node are rewritten (activation × activation products stay float), with one
 DynamicQuantizeLinear per distinct activation. Local functions are inlined
-first: their MatMuls live in the function bodies. External-data
-initializers raise, as the port's loader does. The static (QDQ) quantizer
-and its calibration are not ported yet.
+first: their MatMuls live in the function bodies. External-data tensors
+(initializers and Constant nodes) are read against `base_dir` and written
+inline, so the quantized model stands alone wherever it is saved. The
+static (QDQ) quantizer and its calibration are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,25 +35,43 @@ from . import schema
 from .loader import tensor_to_array
 
 
-def _reject_external(inits: list[dict], nodes: list[dict]) -> None:
-    tensors = list(inits) + [a["t"] for n in nodes if n.get("op_type") == "Constant"
-                             for a in n.get("attribute", []) if "t" in a]
-    for t in tensors:
-        if int(t.get("data_location", 0) or 0) == 1:
-            raise ValueError(f"tensor {t.get('name', '')!r} uses external data, which "
-                             "the port's loader does not read yet")
+def _inline_tensor(t: dict, base_dir) -> dict:
+    if int(t.get("data_location", 0) or 0) != 1:
+        return t
+    arr = tensor_to_array(schema.Proto(t, "TensorProto"), base_dir)
+    t = dict(t)
+    t.pop("data_location", None)
+    t.pop("external_data", None)
+    t["raw_data"] = np.ascontiguousarray(arr).tobytes()
+    return t
 
 
-def _weight_array(name: str, inits: dict, const_nodes: dict):
+def _consolidate_external_nodes(nodes: list[dict], base_dir) -> list[dict]:
+    """Constant nodes whose value tensor is external, with it inlined: the
+    quantized model is written where the caller wants, away from the
+    source's side file, so no reference to it may survive."""
+    out = []
+    for n in nodes:
+        if n.get("op_type") == "Constant" and any(
+                int(a.get("t", {}).get("data_location", 0) or 0) == 1
+                for a in n.get("attribute", [])):
+            n = dict(n)
+            n["attribute"] = [{**a, "t": _inline_tensor(a["t"], base_dir)} if "t" in a else a
+                              for a in n["attribute"]]
+        out.append(n)
+    return out
+
+
+def _weight_array(name: str, inits: dict, const_nodes: dict, base_dir=None):
     """`name` as a static tensor: an initializer or a Constant node's value."""
     t = inits.get(name)
     if t is not None:
-        return tensor_to_array(schema.Proto(t, "TensorProto"))
+        return tensor_to_array(schema.Proto(t, "TensorProto"), base_dir)
     n = const_nodes.get(name)
     if n is not None:
         for a in n.get("attribute", []):
             if a.get("name") == "value" and "t" in a:
-                return tensor_to_array(schema.Proto(a["t"], "TensorProto"))
+                return tensor_to_array(schema.Proto(a["t"], "TensorProto"), base_dir)
     return None
 
 
@@ -64,10 +83,11 @@ def quantize_weight_int8(w: np.ndarray) -> tuple[np.ndarray, float]:
     return wq, scale
 
 
-def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
+def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm"), base_dir=None) -> bytes:
     """Float MatMul/Gemm (static weights) → the dynamic-u8 × static-i8 DQL
     form; returns new ModelProto bytes. `op_types` may add "Conv" (→
-    ConvInteger, opt-in as in ORT)."""
+    ConvInteger, opt-in as in ORT). External-data tensors resolve against
+    `base_dir` (the source model's directory) and come out inline."""
     raw = schema.decode_model(data).raw()
     if raw.get("functions"):
         from .functions import inline_functions
@@ -83,7 +103,6 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
                 "with a newer opset_version")
     g = raw["graph"]
     nodes: list[dict] = list(g.get("node", []))
-    _reject_external(g.get("initializer", []), nodes)
     inits = {t.get("name", ""): t for t in g.get("initializer", [])}
     const_nodes = {n["output"][0]: n for n in nodes
                    if n.get("op_type") == "Constant" and n.get("output")}
@@ -170,7 +189,7 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
         if bias_name is None:
             out_nodes.append(ob.node("Mul", [cf, sc], [out]))
             return
-        b = _weight_array(bias_name, inits, const_nodes)
+        b = _weight_array(bias_name, inits, const_nodes, base_dir)
         if b is None:
             raise ValueError(f"Conv bias {bias_name!r} must be a static tensor")
         brs = fresh(f"{bias_name}_nchw")
@@ -185,7 +204,7 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
     for n in nodes:
         op = n.get("op_type")
         if op == "Conv" and "Conv" in op_types and len(n["input"]) >= 2:
-            w = _weight_array(n["input"][1], inits, const_nodes)
+            w = _weight_array(n["input"][1], inits, const_nodes, base_dir)
             if w is not None and w.ndim >= 3 and w.dtype == np.float32:
                 emit_quant_conv(n, w)
                 consume(n["input"][1])
@@ -193,13 +212,13 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
                     consume(n["input"][2])
                 continue
         if op == "MatMul" and "MatMul" in op_types and len(n["input"]) == 2:
-            w = _weight_array(n["input"][1], inits, const_nodes)
+            w = _weight_array(n["input"][1], inits, const_nodes, base_dir)
             if w is not None and w.ndim == 2 and w.dtype == np.float32:
                 emit_quant_linear(n["input"][0], n["input"][1], w, n["output"][0], bias=None)
                 consume(n["input"][1])
                 continue
         if op == "Gemm" and "Gemm" in op_types and len(n["input"]) >= 2:
-            w = _weight_array(n["input"][1], inits, const_nodes)
+            w = _weight_array(n["input"][1], inits, const_nodes, base_dir)
             ok = (w is not None and w.ndim == 2 and w.dtype == np.float32
                   and attr_i(n, "transA", 0) == 0 and attr_f(n, "alpha", 1.0) == 1.0
                   and attr_f(n, "beta", 1.0) == 1.0)
@@ -223,10 +242,11 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
     def gone(name: str) -> bool:
         return name in consumed_weights and name not in still_used
 
-    g["node"] = [n for n in out_nodes
-                 if not (n.get("op_type") == "Constant" and n.get("output")
-                         and gone(n["output"][0]))]
-    g["initializer"] = [t for t in g.get("initializer", [])
+    g["node"] = _consolidate_external_nodes(
+        [n for n in out_nodes
+         if not (n.get("op_type") == "Constant" and n.get("output") and gone(n["output"][0]))],
+        base_dir)
+    g["initializer"] = [_inline_tensor(t, base_dir) for t in g.get("initializer", [])
                         if not gone(t.get("name", ""))] + new_inits
     # exports with keep_initializers_as_inputs also list weights as inputs:
     # a dropped weight must leave that list too
@@ -236,7 +256,9 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm")) -> bytes:
 
 
 def quantize_dynamic_file(src_path: str, dst_path: str) -> None:
+    import os
+
     with open(src_path, "rb") as f:
         data = f.read()
     with open(dst_path, "wb") as f:
-        f.write(quantize_dynamic(data))
+        f.write(quantize_dynamic(data, base_dir=os.path.dirname(os.path.abspath(src_path))))

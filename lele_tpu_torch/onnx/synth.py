@@ -19,6 +19,15 @@ modern torch exports write (Attention + RotaryEmbedding + TensorScatter over
 a static KV cache), with the Phi-3 layer (RMSNorm, SiLU-gated FFN, untied
 head): tests/test_llm_decode_e2e.py's `_build_step` generalised to S tokens
 a step. `PHI3_MINI` holds Phi-3-mini-4k-instruct's published widths.
+
+The ORT-GenAI decoder form (`GENAI_CFG`, `GENAI_MOE_CFG`, `quant4_ort`,
+`genai_decoder_params`, `build_genai_decoder`, `genai_feeds`): the op
+vocabulary onnxruntime-genai's model builder writes into published int4
+LLM exports (Phi-3, Llama, Qwen): MatMulNBits projections,
+com.microsoft::RotaryEmbedding, GroupQueryAttention over static cache
+buffers, SimplifiedLayerNormalization and SkipSimplifiedLayerNormalization,
+a SwiGLU MLP or (Phi-3.5-MoE) a router MatMul into QMoE. The generator is
+drawn in JAX's order, so a seed gives JAX's initializers and bytes.
 """
 
 from __future__ import annotations
@@ -296,6 +305,178 @@ def build_moe_layer_model(rows: int, hidden: int = 1024, inter: int = 1792,
     return ob.build_model_bytes(nodes, inputs=[ob.value_info("x", 1, [rows, hidden])],
                                 outputs=[ob.value_info("y", 1, [rows, hidden])],
                                 initializers=inits)
+
+
+# -- the ORT-GenAI decoder form ------------------------------------------------
+
+GENAI_CFG = dict(B=2, V=48, qh=4, kvh=2, hd=8, nl=2, L=16, ffn=48, blk=16, eps=1e-5)
+
+# Phi-3.5-MoE form: the MLP is a router MatMul + com.microsoft::QMoE with
+# SparseMixer top-2 routing and 4-bit experts (fc1/fc3 gate pair + fc2)
+GENAI_MOE_CFG = dict(GENAI_CFG, experts=4, ffn=16)
+
+
+def quant4_ort(w: np.ndarray, blk: int):
+    """Float [N, K] → (packed u8 [N, kb, blk/2], scales [N, kb], dequantised
+    twin [N, K]) in ORT's MatMulNBits layout (default zero point 8)."""
+    n, k = w.shape
+    kb = k // blk
+    wg = w.reshape(n, kb, blk)
+    sc = (np.abs(wg).max(-1) / 7.0 + 1e-8).astype(np.float32)
+    q = np.clip(np.round(wg / sc[:, :, None]) + 8, 0, 15).astype(np.uint8)
+    wdq = ((q.astype(np.float32) - 8.0) * sc[:, :, None]).reshape(n, k)
+    packed = (q[..., 0::2] | (q[..., 1::2] << 4)).astype(np.uint8)
+    return packed, sc, wdq
+
+
+def genai_decoder_params(rng, cfg=None):
+    """The quantized graph's initializers and the dequantised float twins an
+    independent oracle reads (the same numbers on both sides)."""
+    c = dict(GENAI_CFG, **(cfg or {}))
+    V, qh, kvh, hd, nl, L, ffn, blk = (c["V"], c["qh"], c["kvh"], c["hd"], c["nl"], c["L"],
+                                       c["ffn"], c["blk"])
+    D, KVD = qh * hd, kvh * hd
+    inits, deq = {}, {}
+
+    def linear(name, n, k):
+        w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+        packed, sc, wdq = quant4_ort(w, blk)
+        inits[f"{name}_q"] = packed
+        inits[f"{name}_s"] = sc
+        deq[name] = wdq  # [N, K]; the layer computes x @ wdq.T
+
+    inits["emb"] = (rng.standard_normal((V, D)) * 0.5).astype(np.float32)
+    deq["emb"] = inits["emb"]
+    for i in range(nl):
+        linear(f"wq{i}", D, D)
+        linear(f"wk{i}", KVD, D)
+        linear(f"wv{i}", KVD, D)
+        linear(f"wo{i}", D, D)
+        linear(f"wg{i}", ffn, D)
+        linear(f"wu{i}", ffn, D)
+        linear(f"wd{i}", D, ffn)
+        for g in (f"g_attn{i}", f"g_mlp{i}"):
+            inits[g] = (rng.standard_normal(D) * 0.1 + 1).astype(np.float32)
+            deq[g] = inits[g]
+    inits["g_final"] = (rng.standard_normal(D) * 0.1 + 1).astype(np.float32)
+    deq["g_final"] = inits["g_final"]
+    if c.get("experts"):
+        E, ffn = c["experts"], c["ffn"]
+        for i in range(nl):
+            for nm in (f"wg{i}", f"wu{i}", f"wd{i}"):
+                inits.pop(f"{nm}_q", None)
+                inits.pop(f"{nm}_s", None)
+                deq.pop(nm, None)
+            inits[f"router{i}"] = (rng.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32)
+            deq[f"router{i}"] = inits[f"router{i}"]
+            for nm, shp in ((f"fc1_{i}", (E, D, ffn)), (f"fc2_{i}", (E, ffn, D)),
+                            (f"fc3_{i}", (E, D, ffn))):
+                w = (rng.standard_normal(shp) / np.sqrt(shp[1])).astype(np.float32)
+                packed, sc, wdq = quant4_cols(w)
+                inits[f"{nm}_q"] = packed
+                inits[f"{nm}_s"] = sc
+                deq[nm] = wdq  # [E, in, out]
+    linear("head", V, D)
+    inv = 1.0 / 10000 ** (np.arange(hd // 2) / (hd // 2))
+    t = np.arange(L)[:, None] * inv[None, :]
+    inits["cos"] = np.cos(t).astype(np.float32)
+    inits["sin"] = np.sin(t).astype(np.float32)
+    deq["cos"], deq["sin"] = inits["cos"], inits["sin"]
+    return inits, deq
+
+
+def build_genai_decoder(inits, s: int, cfg=None, raw: bool = False):
+    """The GenAI step graph over `s` tokens (a prefill or a decode step; one
+    program a shape). inputs: ids [B, s] i64, pos [B, s] i64, slk [B] i32
+    (total length − 1 a row), tot [1] i32, then pk{i}, pv{i} [B, kvh, L, hd]
+    f32 a layer; outputs: logits, then npk{i}, npv{i} a layer (the updated
+    buffers). raw=True returns the ModelProto dict (for
+    `builder.save_with_external_data`) instead of its bytes."""
+    c = dict(GENAI_CFG, **(cfg or {}))
+    B, V, qh, kvh, hd, nl, L, ffn, blk, eps = (
+        c["B"], c["V"], c["qh"], c["kvh"], c["hd"], c["nl"], c["L"], c["ffn"], c["blk"],
+        c["eps"])
+    D, KVD = qh * hd, kvh * hd
+    nodes = []
+
+    def n(*a, **kw):
+        nodes.append(ob.node(*a, **kw))
+
+    def mmnb(x, w, out, n_, k_):
+        n("MatMulNBits", [x, f"{w}_q", f"{w}_s"], [out], domain="com.microsoft", K=k_, N=n_,
+          bits=4, block_size=blk)
+
+    n("Gather", ["emb", "ids"], ["x0"])  # [B,S,D]
+    outs = ["logits"]
+    res, cur = None, "x0"
+    for i in range(nl):
+        if res is None:
+            n("SimplifiedLayerNormalization", [cur, f"g_attn{i}"], [f"h{i}"], epsilon=eps,
+              domain="com.microsoft")
+            res = cur
+        else:
+            n("SkipSimplifiedLayerNormalization", [cur, res, f"g_attn{i}"],
+              [f"h{i}", f"m{i}", f"iv{i}", f"sum_in{i}"], epsilon=eps,
+              domain="com.microsoft")
+            res = f"sum_in{i}"
+        mmnb(f"h{i}", f"wq{i}", f"q{i}", D, D)
+        mmnb(f"h{i}", f"wk{i}", f"k{i}", KVD, D)
+        mmnb(f"h{i}", f"wv{i}", f"v{i}", KVD, D)
+        n("RotaryEmbedding", [f"q{i}", "pos", "cos", "sin"], [f"qr{i}"],
+          domain="com.microsoft", num_heads=qh)
+        n("RotaryEmbedding", [f"k{i}", "pos", "cos", "sin"], [f"kr{i}"],
+          domain="com.microsoft", num_heads=kvh)
+        n("GroupQueryAttention",
+          [f"qr{i}", f"kr{i}", f"v{i}", f"pk{i}", f"pv{i}", "slk", "tot"],
+          [f"att{i}", f"npk{i}", f"npv{i}"], domain="com.microsoft", num_heads=qh,
+          kv_num_heads=kvh)
+        mmnb(f"att{i}", f"wo{i}", f"ao{i}", D, D)
+        n("SkipSimplifiedLayerNormalization", [f"ao{i}", res, f"g_mlp{i}"],
+          [f"hm{i}", f"mm_{i}", f"ivm{i}", f"sum_attn{i}"], epsilon=eps,
+          domain="com.microsoft")
+        res = f"sum_attn{i}"
+        if c.get("experts"):
+            # Phi-3.5-MoE MLP: router logits → QMoE (SparseMixer top-2,
+            # silu-gated fc1/fc3 pair, 4-bit experts)
+            n("MatMul", [f"hm{i}", f"router{i}"], [f"rl{i}"])
+            n("QMoE",
+              [f"hm{i}", f"rl{i}", f"fc1_{i}_q", f"fc1_{i}_s", "", f"fc2_{i}_q", f"fc2_{i}_s",
+               "", f"fc3_{i}_q", f"fc3_{i}_s"],
+              [f"dn{i}"], domain="com.microsoft", k=2, activation_type="silu",
+              use_sparse_mixer=1, expert_weight_bits=4)
+        else:
+            mmnb(f"hm{i}", f"wg{i}", f"gate{i}", ffn, D)
+            mmnb(f"hm{i}", f"wu{i}", f"up{i}", ffn, D)
+            n("Sigmoid", [f"gate{i}"], [f"sig{i}"])
+            n("Mul", [f"gate{i}", f"sig{i}"], [f"silu{i}"])
+            n("Mul", [f"silu{i}", f"up{i}"], [f"ff{i}"])
+            mmnb(f"ff{i}", f"wd{i}", f"dn{i}", D, ffn)
+        cur = f"dn{i}"
+        outs += [f"npk{i}", f"npv{i}"]
+    n("SkipSimplifiedLayerNormalization", [cur, res, "g_final"], ["hfin", "mf", "ivf", "sumf"],
+      epsilon=eps, domain="com.microsoft")
+    mmnb("hfin", "head", "logits", V, D)
+
+    inputs = [ob.value_info("ids", 7, [B, s]), ob.value_info("pos", 7, [B, s]),
+              ob.value_info("slk", 6, [B]), ob.value_info("tot", 6, [1])]
+    for i in range(nl):
+        inputs += [ob.value_info(f"pk{i}", 1, [B, kvh, L, hd]),
+                   ob.value_info(f"pv{i}", 1, [B, kvh, L, hd])]
+    m = ob.model(ob.graph(nodes, "genai_decoder", inputs,
+                          [ob.value_info(o, 1, []) for o in outs],
+                          [ob.tensor_from_array(v, k) for k, v in inits.items()]), opset=17)
+    return m if raw else ob.serialize(m)
+
+
+def genai_feeds(ids, pos, past_len, s, pks, pvs, cfg=None):
+    """The input dict of one step at a uniform past length `past_len`."""
+    c = dict(GENAI_CFG, **(cfg or {}))
+    b = c["B"]
+    f = {"ids": ids, "pos": pos, "slk": np.full((b,), past_len + s - 1, np.int32),
+         "tot": np.asarray([past_len + s], np.int32)}
+    for i in range(c["nl"]):
+        f[f"pk{i}"], f[f"pv{i}"] = pks[i], pvs[i]
+    return f
 
 
 # microsoft/Phi-3-mini-4k-instruct's published config.json: hidden 3,072, 32

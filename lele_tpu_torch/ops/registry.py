@@ -22,8 +22,17 @@ from ..onnx.schema import Proto
 OPS: dict[str, "OpDef"] = {}  # default-domain (ai.onnx) emitters, by op_type
 
 # non-default-domain emitters, keyed (domain, op_type): a contrib node only
-# ever reaches its own domain's entry, never a same-named ai.onnx emitter
+# ever reaches its own domain's entry or a declared alias, never a
+# same-named ai.onnx emitter with another schema
 CONTRIB_OPS: dict[tuple[str, str], "OpDef"] = {}
+
+# (domain, op_type) → the default-domain op_type whose schema coincides
+# (inputs, attributes, semantics): curated, not inferred. JAX's table also
+# maps com.microsoft::Trilu; its row comes with the Trilu emitter
+CONTRIB_ALIASES: dict[tuple[str, str], str] = {
+    ("com.microsoft", "Gelu"): "Gelu",
+    ("com.microsoft", "Range"): "Range",
+}
 
 _DEFAULT_DOMAINS = ("", "ai.onnx")
 
@@ -68,13 +77,16 @@ def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool 
 
 def lookup_op(domain: str | None, op_type: str) -> "OpDef | None":
     """The emitter of (domain, op_type): default-domain nodes hit OPS,
-    contrib nodes their (domain, op_type) entry, never a bare-name
-    fallback. The JAX package's curated aliases (com.microsoft Gelu, Trilu,
-    Range) are not ported: none of those emitters is."""
+    contrib nodes their (domain, op_type) entry or a declared alias
+    (`CONTRIB_ALIASES`), never a bare-name fallback."""
     d = canon_domain(domain)
     if not d:
         return OPS.get(op_type)
-    return CONTRIB_OPS.get((d, op_type))
+    od = CONTRIB_OPS.get((d, op_type))
+    if od is not None:
+        return od
+    alias = CONTRIB_ALIASES.get((d, op_type))
+    return OPS.get(alias) if alias is not None else None
 
 
 def parse_attr(a: Proto) -> Any:

@@ -29,10 +29,13 @@ _TORCH_DTYPES = {
 
 
 def torch_dtype(dt) -> torch.dtype:
-    """The torch dtype of a numpy dtype (bf16 included where ml_dtypes is)."""
+    """The torch dtype of a numpy dtype (bf16 and fp8 included where
+    ml_dtypes is)."""
     dt = np.dtype(dt)
     if dt.name == "bfloat16":
         return torch.bfloat16
+    if dt.name.startswith("float8_"):
+        return getattr(torch, dt.name)
     if dt not in _TORCH_DTYPES:
         raise TypeError(f"no torch dtype for numpy {dt} on the device")
     return _TORCH_DTYPES[dt]

@@ -34,6 +34,11 @@ buffers of fixed shapes, as JAX compiles at a function's first call:
   `attention_ops.ATTENTION_ROUTES`), sets the counters back, and each
   replay adds that record once. The warm-up's launches are real and count:
   every call of a program counts what the uncaptured function would.
+- **No collection inside a capture.** Python's cyclic collector is held
+  off while a graph is captured (`collector_paused`): a collection there
+  may free a dropped program's graph, and destroying a graph while a
+  stream captures is not permitted and invalidates the capture (its next
+  launch fails; a cuBLAS product's as CUBLAS_STATUS_EXECUTION_FAILED).
 - **Failure raises.** A capture that fails (something inside reads the
   host: `.item()`, a host-made tensor, a synchronisation) raises
   `CaptureError` naming the program and the step (the innermost frame of
@@ -48,6 +53,8 @@ CPU nothing is captured: `Programs.run` calls the function.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import traceback
 import weakref
 from pathlib import Path
@@ -136,6 +143,21 @@ def _where(err: BaseException) -> str:
 
 
 # -- the program -------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic collector off for the block, as it was after it. Every
+    capture runs inside one (module docstring): garbage made before or during
+    the capture is collected after it."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
 
 
 def _as_tensor(v):
@@ -300,7 +322,7 @@ class Program:
         inner: list[BaseException] = []
         try:
             # captured on the warm-up's stream, whose cuBLAS workspace is set
-            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+            with collector_paused(), torch.cuda.graph(graph, pool=self.pool, stream=side):
                 try:
                     out = self._donate_back(self.fn(*args))
                 except Exception as e:

@@ -66,7 +66,10 @@ The TTS synth programs (kernel 10 inside the graph), two TtsEngine requests
 at two buckets alternating through one `Programs`, `compose_models`,
 SupertonicOnnx's composed program, and the decode step program (greedy,
 sampled, beam, two decoders alternating) are held to their uncaptured
-oracles: the same bits and launch counts.
+oracles: the same bits and launch counts. A program dropped in a reference
+cycle is not collected while another is captured (destroying its graph
+there would invalidate the capture): the collector is off inside every
+capture and the dropped program goes at the next collection after it.
 
 YOLO26 runs no kernel of the port's own: the Conv emitter's 2-D forms and
 the native head maps (detect and seg, f32 and bf16, full width) are held to
@@ -78,6 +81,12 @@ a call, kernel 6 a chunk, SileroOnnx.speech_probs' bits), a padded Loop
 and a reversed Scan against their step-by-step replays, and a
 function-packaged int8 SAN-M export (4 layers at full width: kernel 4 once
 a call, the flat export's bits).
+
+The ORT-GenAI decoder form (chip_smoke phase 35): a GroupQueryAttention
+decode step at B = 2 with unequal lengths captured with its caches donated
+against its replay's bits; the small GenAI decoder from a side file with
+its caches donated in graph order (each present on its own past) against
+its replay and the CPU; fp8 initializers on the card as torch float8.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -1049,6 +1058,47 @@ def test_a_capture_that_reads_the_host_raises_naming_the_step(dev):
         Programs(dev).run("k", make, torch.ones(3, device=dev))
 
 
+@pytest.mark.cuda
+def test_a_dropped_program_is_not_collected_inside_a_capture(dev):
+    import gc
+    import weakref
+
+    from lele_tpu_torch.runtime.graphs import Programs
+
+    def make():
+        return lambda x: x @ x.transpose(-1, -2)
+
+    class Owner:
+        def __init__(self):
+            self.me = self  # a cycle: only the collector frees it
+            self.programs = Programs(dev)
+            self.programs.run("old", make, torch.ones(4, 64, 32, device=dev))
+
+    owner = Owner()
+    assert owner.programs._progs["old"].graph is not None
+    dropped = weakref.ref(owner)
+    del owner
+    seen = []
+
+    def make_new():
+        def fn(x):
+            seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+            return make()(x) @ x
+        return fn
+
+    x = torch.randn(8, 96, 64, device=dev)
+    assert gc.isenabled()
+    programs = Programs(dev)
+    out = programs.run("new", make_new, x)
+    assert programs._progs["new"].graph is not None
+    # the warm-up runs with the collector on; the capture with it off
+    assert seen == [(False, True), (True, False)]
+    assert gc.isenabled()
+    gc.collect()
+    assert dropped() is None
+    torch.testing.assert_close(programs.run("new", make_new, x), out, rtol=0, atol=0)
+
+
 # -- the TTS synth, composed models and generative decode as captured programs ---------
 
 TTS_SMALL = dict(d_text=256, n_heads=4, n_text_layers=2, n_est_layers=2,
@@ -1331,3 +1381,124 @@ def test_function_packaged_sanm_export_fuses_on_the_card(dev):
     assert torch.equal(out, flat(**inputs)[0])
     _, _, mae = cs.compare(out[:, :valid], per_op(**inputs)[0][:, :valid])
     assert mae <= cs.LOGIT_NOISE_MAE
+
+
+# -- the ORT-GenAI decoder form (chip_smoke phase 35) --------------------------
+
+
+def _gqa_step_graph(B, qh, kvh, head, L):
+    from lele_tpu_torch.onnx import builder as ob
+
+    ms = dict(domain="com.microsoft")
+    node = ob.node("GroupQueryAttention", ["q", "k", "v", "pk", "pv", "slk", "tot"],
+                   ["y", "npk", "npv"], num_heads=qh, kv_num_heads=kvh, **ms)
+    ins = [ob.value_info("q", 1, [B, 1, qh * head]), ob.value_info("k", 1, [B, 1, kvh * head]),
+           ob.value_info("v", 1, [B, 1, kvh * head]),
+           ob.value_info("pk", 1, [B, kvh, L, head]), ob.value_info("pv", 1, [B, kvh, L, head]),
+           ob.value_info("slk", 6, [B]), ob.value_info("tot", 6, [1])]
+    return ob.build_model_bytes([node], inputs=ins,
+                                outputs=[ob.value_info(n, 1, []) for n in ("y", "npk", "npv")])
+
+
+@pytest.mark.cuda
+def test_genai_gqa_decode_step_captured_at_b2_unequal_lengths(dev):
+    """A GroupQueryAttention decode step at B = 2 with unequal seqlens_k (the
+    append's offsets on the card), captured in one CUDA graph with its caches
+    donated, gives the bits of the uncaptured, undonated replay(), call after
+    call with the caches fed back."""
+    from lele_tpu_torch.compiler import compile_model
+
+    B, qh, kvh, head, L = 2, 8, 2, 64, 256
+    cm = compile_model(_gqa_step_graph(B, qh, kvh, head, L), device=dev, strict=True,
+                       donate=["pk", "pv"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pk, pv = (torch.randn((B, kvh, L, head), generator=gen, device=dev) for _ in range(2))
+    lens = torch.tensor([9, 200], dtype=torch.int32, device=dev)
+    for step in range(4):
+        f = {n: torch.randn((B, 1, w * head), generator=gen, device=dev)
+             for n, w in (("q", qh), ("k", kvh), ("v", kvh))}
+        f.update(pk=pk, pv=pv, slk=lens + step,
+                 tot=torch.full((1,), 201 + step, dtype=torch.int32, device=dev))
+        got, want = cm(**f), cm.replay(**f)
+        assert cm.stats["captured"]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rows = (lens + step).long()
+        for r in range(B):  # each row's new key landed at its own offset
+            assert torch.equal(got[1][r, :, rows[r]], f["k"][r, 0].reshape(kvh, head))
+        pk, pv = got[1], got[2]
+
+
+@pytest.mark.cuda
+def test_genai_donated_caches_pair_k_with_k_and_v_with_v(dev, tmp_path):
+    """The small GenAI decoder (2 layers) from a side file, its 2·nl caches
+    donated in graph order: a prefill and 4 greedy steps through captured
+    graphs give the replay()'s bits, each present lands on its own past (k
+    and v differ, so a swap would show), and every output is within
+    chip_smoke.NBITS_RELNORM (relative Frobenius) of the CPU's run of the
+    same files on the same feeds (kernel 7's plain version there, the same
+    bf16 activations)."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx.synth import (GENAI_CFG, build_genai_decoder, genai_decoder_params,
+                                           genai_feeds)
+
+    cfg = dict(GENAI_CFG, B=1, ffn=64)
+    inits, _ = genai_decoder_params(np.random.default_rng(0), cfg)
+    paths = []
+    for s in (4, 1):
+        paths.append(tmp_path / f"s{s}.onnx")
+        ob.save_with_external_data(build_genai_decoder(inits, s, cfg, raw=True), paths[-1],
+                                   size_threshold=64)
+    donate = [f"p{kv}{i}" for i in range(cfg["nl"]) for kv in "kv"]
+    cms = [compile_model(str(p), device=dev, strict=True, donate=donate) for p in paths]
+    cpu = [compile_model(str(p), device="cpu", strict=True) for p in paths]
+    for cm in cms:
+        assert {k: cm.output_names[j] for k, j in cm.donated.items()} == {
+            k: "n" + k for k in donate}
+    shape = (1, cfg["kvh"], cfg["L"], cfg["hd"])
+    caches = [np.zeros(shape, np.float32)] * (2 * cfg["nl"])
+    ids = np.array([[3, 1, 4, 1]], np.int64)
+    f = genai_feeds(ids, np.arange(4)[None], 0, 4, caches[0::2], caches[1::2], cfg)
+    for step in range(5):
+        cm = cms[min(step, 1)]
+        fd = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in f.items()}
+        got, want = cm(**fd), cm.replay(**fd)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        ref = cpu[min(step, 1)].run_np(**f)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            a = a.cpu().numpy()
+            rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+            assert rel <= cs.NBITS_RELNORM, (step, i, rel)
+        for i in range(cfg["nl"]):
+            assert not torch.equal(got[1 + 2 * i], got[2 + 2 * i])
+        tok = got[0][:, -1].argmax(-1).cpu().numpy()[:, None].astype(np.int64)
+        plen = 4 + step
+        ks = [g.cpu().numpy() for g in got[1:]]
+        f = genai_feeds(tok, np.full((1, 1), plen, np.int64), plen, 1, ks[0::2], ks[1::2], cfg)
+
+
+@pytest.mark.cuda
+def test_fp8_initializers_reach_the_card_as_float8(dev, monkeypatch):
+    """An fp8 initializer goes to the card as a torch float8 tensor, from
+    ml_dtypes' storage and from its bits where ml_dtypes is absent (the card
+    machine's case), and a Cast of it runs."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import loader
+
+    bits = np.array([0x38, 0xC0, 0x30, 0x48], np.uint8)  # e4m3fn 1, -2, 0.5, 4
+    td = {"name": "w", "dims": [4], "data_type": 17, "raw_data": bits.tobytes()}
+    bs = ob.build_model_bytes(
+        [ob.node("Cast", ["w"], ["wf"], to=1), ob.node("Add", ["x", "wf"], ["y"]),
+         ob.node("Identity", ["w"], ["w8"])],
+        inputs=[ob.value_info("x", 1, [4])],
+        outputs=[ob.value_info("y", 1, [4]), ob.value_info("w8", 17, [4])],
+        initializers=[td], opset=21)
+    for no_ml_dtypes in (False, True):
+        if no_ml_dtypes:
+            for k in (17, 18, 19, 20):
+                monkeypatch.delitem(loader.DTYPE_MAP, k, raising=False)
+        y, w8 = compile_model(bs, device=dev, strict=True)(x=torch.ones(4, device=dev))
+        assert w8.dtype == torch.float8_e4m3fn and w8.is_cuda
+        assert torch.equal(w8.float().cpu(), torch.tensor([1.0, -2.0, 0.5, 4.0]))
+        assert torch.equal(y.cpu(), torch.tensor([2.0, -1.0, 1.5, 5.0]))

@@ -16,7 +16,10 @@ every program runs its function eagerly:
     1, BLOCK, BLOCK + 1 and 2 BLOCK - 1 chunks of a synthetic waveform;
 (d) CompiledModel(donate=...) gives the outputs it gives without;
 (e) a tape with a dynamic If reports that it cannot be captured, and the
-    Silero (rate bound) and SenseVoice fixture tapes report that they can.
+    Silero (rate bound) and SenseVoice fixture tapes report that they can;
+(f) `collector_paused`, which every capture runs inside, turns Python's
+    cyclic collector off for its block and back to what it was after it,
+    also when the block raises.
 """
 
 import zlib
@@ -232,3 +235,20 @@ def test_programs_run_eagerly_on_the_cpu_and_trees_round_trip():
                     torch.zeros(2), donate={1: 1})
     assert torch.equal(out[0], torch.full((3,), 2.0)) and torch.equal(out[1], torch.ones(2))
     assert len(progs) == 0  # the CPU captures nothing
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_paused_holds_the_collector_off_and_restores_it(enabled):
+    import gc
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graphs.collector_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+        with pytest.raises(ValueError), graphs.collector_paused():
+            raise ValueError("inside")
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -205,7 +205,9 @@ def test_port_runs_without_jax():
     stand-in with torch.onnx.export, and a Seq2SeqGenerator on exported
     graphs (greedy, sampled, beam); and slice 18: Silero's utterance as one
     Scan and one Loop, a function-packaged export through quantize_dynamic
-    onto the fused SAN-M stack, and the sequence ops."""
+    onto the fused SAN-M stack, and the sequence ops; and slice 19: a small
+    ORT-GenAI MoE decoder from a side file, prefilled and decoded with its
+    caches donated."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -438,6 +440,24 @@ def test_port_runs_without_jax():
         "                          [ob.value_info('y', 1, [2, 2])])\n"
         "xs = np.arange(6, dtype=np.float32).reshape(3, 2)\n"
         "assert np.array_equal(compile_model(bs, device='cpu').run_np(x=xs)[0], xs[:2])\n"
+        "import tempfile, pathlib\n"
+        "from lele_tpu_torch.onnx.synth import (GENAI_MOE_CFG, build_genai_decoder,\n"
+        "    genai_decoder_params, genai_feeds)\n"
+        "cfg = dict(GENAI_MOE_CFG, B=1)\n"
+        "gi, _ = genai_decoder_params(np.random.default_rng(0), cfg)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    ps = [pathlib.Path(d) / f's{s}.onnx' for s in (3, 1)]\n"
+        "    for p, s in zip(ps, (3, 1)):\n"
+        "        ob.save_with_external_data(build_genai_decoder(gi, s, cfg, raw=True), p, 64)\n"
+        "    gcm = [compile_model(str(p), device='cpu', strict=True, donate=['pk0', 'pv0'])\n"
+        "           for p in ps]\n"
+        "z = [np.zeros((1, 2, 16, 8), np.float32)] * 2\n"
+        "f = genai_feeds(np.array([[1, 2, 3]]), np.arange(3)[None], 0, 3, z, z, cfg)\n"
+        "for t in range(3):\n"
+        "    o = gcm[min(t, 1)].run_np(**f)\n"
+        "    tok = o[0][:, -1].argmax(-1)[:, None]\n"
+        "    f = genai_feeds(tok, np.full((1, 1), 3 + t), 3 + t, 1, o[1::2], o[2::2], cfg)\n"
+        "assert np.isfinite(o[0]).all() and gcm[1].stats['pattern_hits']['qmoe_w4'] == 4\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
