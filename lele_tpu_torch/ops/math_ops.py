@@ -40,6 +40,25 @@ def mul(ctx: OpContext, a, b):
     return ctx.xp.multiply(*_promote(a, b))
 
 
+def _int_safe(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An integer divisor with its zeros replaced by one, and where they
+    were: torch raises on an integer division by zero on the CPU, which the
+    tracer's walk on zero placeholders would meet at every dynamic divisor."""
+    zero = b == 0
+    return torch.where(zero, torch.ones_like(b), b), zero
+
+
+def _int_div_by_zero(a: torch.Tensor) -> torch.Tensor:
+    """JAX's integer Div where the divisor is zero (lele_tpu/ops/math_ops.py:
+    45-55 on XLA's x / 0 = -1, x % 0 = x): the floor quotient -1, moved down
+    to -2 where x != 0, then up by one where x < 0 — so x > 0 gives -2 and
+    x <= 0 gives -1 for a signed type, and every x gives all ones for an
+    unsigned one."""
+    if not a.dtype.is_signed:
+        return torch.full_like(a, torch.iinfo(a.dtype).max)
+    return torch.where(a > 0, torch.full_like(a, -2), torch.full_like(a, -1))
+
+
 @op("Div")
 def div(ctx: OpContext, a, b):
     a, b = _promote(a, b)
@@ -53,7 +72,9 @@ def div(ctx: OpContext, a, b):
             return np.where((r != 0) & neg, q + 1, q)
         return np.divide(a, b)
     if not a.is_floating_point():
-        return torch.div(a, b, rounding_mode="trunc")
+        safe, zero = _int_safe(b)
+        q = torch.div(a, safe, rounding_mode="trunc")
+        return torch.where(zero, _int_div_by_zero(torch.broadcast_to(a, q.shape)), q)
     return torch.div(a, b)
 
 
