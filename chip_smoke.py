@@ -235,7 +235,19 @@
    7's plain version, the captured donated bits against the uncaptured
    replay, prefill and decode times, kernel 7's device time a step against
    its bound, the busy share;
-36. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+36. the ONNX op layer's math, tensor, nn and activation emitters (no kernel
+   of the port's own: cuDNN's convs and the emitters): a ResNet-50 graph in
+   the ONNX Model Zoo's resnet50-v1-7 layout (53 convs, 25.6 M parameters,
+   random weights from a seed; `resnet50_model`) compiled and run at N = 1
+   and 8, captured: the captured call the bits of `replay()`, the logits
+   within RESNET_F32_REL of the port's CPU run of the same bytes, TopK and
+   ArgMax indices equal where the CPU's margins decide them, the bf16 compute
+   policy at N = 8 within RESNET_BF16_REL; times by events and host clock,
+   captured and step by step, and the busy share of a profiled call; then
+   one small graph for each of the 87 emitters and ConvTranspose at 2-D and
+   3-D (`emitter_graphs`), each captured, against the CPU, with the graphs
+   that do not capture named;
+37. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
    too, row 7 phase 35's), the card, and last {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result, when there is no CUDA card or any
@@ -411,6 +423,20 @@ YOLO_BF16_GATE = (2e-3, 2e-2, 5e-2, 0.99)
 # relative) and carry it through the 11 convs after it
 YOLO_MAP_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 YOLO_BATCH = 5  # detect_batch of 5 images, padded to 8
+
+# phase 36: the ResNet-50 graph (resnet50_model) and the emitter graphs
+RESNET_SEED = SEED + 36
+RESNET_BLOCKS = (3, 4, 6, 3)
+# ResNet-50 logits, card against the port's CPU run of the same bytes, both
+# f32 (TF32 off): only the summation order of cuDNN's convs differs from the
+# CPU's, over 53 convs. YOLO's 1e-5 (YOLO_MAP_REL) holds over 11 convs after
+# the gate; the error of a sum of K f32 products grows with sqrt(K) and K
+# reaches 4,608 here (3 x 3 x 512), so the gate is 1e-4 max|ref|
+RESNET_F32_REL = 1e-4
+# bf16 compute (YOLO's policy, phase 31) against the CPU's f32 logits: bf16
+# rounds every conv's operands (2^-8 relative) through 53 convs; YOLO's
+# 1e-2 max|ref| to start
+RESNET_BF16_REL = 1e-2
 
 # the device's own time a call (us) of a kernel's row and of its library
 # call, where a phase measured it: {name: {"device_us": torch.profiler's or
@@ -4152,6 +4178,381 @@ def genai_phase(checks, dev, card) -> dict:
     return {"w4_gemm": launches}
 
 
+def resnet50_model(batch="N", seed: int = RESNET_SEED, width: int = 64,
+                   blocks=RESNET_BLOCKS, classes: int = 1000,
+                   img: int = 224) -> tuple[bytes, int]:
+    """An ONNX graph in the layout of the ONNX Model Zoo's resnet50-v1-7:
+    input `data` [batch, 3, img, img]; a 7 x 7 / 2 stem conv (no bias),
+    BatchNormalization, Relu, MaxPool 3 x 3 / 2 pad 1; four bottleneck
+    stages of `blocks` blocks (output widths 4, 8, 16, 32 x `width`), the
+    stride on the first 1 x 1 conv of a downsampling block and a 1 x 1
+    projection on each stage's first block; GlobalAveragePool, Flatten,
+    Gemm to `classes`; then Softmax, TopK k = 5 and ArgMax. Outputs:
+    logits, probs, top5 values and indices, argmax. The defaults are the
+    published widths: 53 convs, 25.6 M parameters. Returns the bytes and
+    the multiply-adds of one image.
+
+    Random weights from `seed`, drawn to keep the activations O(1)
+    through every conv: each conv He-normal (std sqrt(2 / fan_in)), which
+    keeps a ReLU stack's second moment; BN statistics near identity (mean
+    N(0, 0.1^2), var U(0.8, 1.2), beta N(0, 0.1^2)), gamma 1, except the
+    last BN of each residual branch, whose gamma 0.25 adds 1/16 of the
+    branch's variance to the shortcut a block; the Gemm N(0, 1 / 2048)."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(seed)
+    nodes, inits = [], []
+    hw, macs = [img], [0]  # the spatial size a conv sees; multiply-adds so far
+
+    def param(name, arr, dtype=np.float32):
+        inits.append(ob.tensor_from_array(np.asarray(arr, dtype), name))
+        return name
+
+    def conv_bn(x, name, cin, cout, k, stride=1, gamma=1.0, relu=True):
+        w = rng.standard_normal((cout, cin, k, k), dtype=np.float32) * np.sqrt(2.0 / (cin * k * k))
+        out_hw = (hw[0] + 2 * (k // 2) - k) // stride + 1
+        macs[0] += cout * cin * k * k * out_hw * out_hw
+        nodes.append(ob.node("Conv", [x, param(f"{name}_w", w)], [f"{name}_c"],
+                             kernel_shape=[k, k], strides=[stride, stride],
+                             pads=[k // 2] * 4))
+        bn = [param(f"{name}_{p}", v) for p, v in (
+            ("gamma", np.full(cout, gamma)), ("beta", 0.1 * rng.standard_normal(cout)),
+            ("mean", 0.1 * rng.standard_normal(cout)), ("var", rng.uniform(0.8, 1.2, cout)))]
+        nodes.append(ob.node("BatchNormalization", [f"{name}_c"] + bn, [f"{name}_bn"],
+                             epsilon=1e-5))
+        if not relu:
+            return f"{name}_bn"
+        nodes.append(ob.node("Relu", [f"{name}_bn"], [f"{name}_r"]))
+        return f"{name}_r"
+
+    x = conv_bn("data", "stem", 3, width, 7, stride=2)
+    nodes.append(ob.node("MaxPool", [x], ["pool"], kernel_shape=[3, 3], strides=[2, 2],
+                         pads=[1, 1, 1, 1]))
+    hw[0] = ((hw[0] - 1) // 2 + 1 - 1) // 2 + 1
+    x, cin = "pool", width
+    for si, n_blocks in enumerate(blocks):
+        mid, cout = width * 2 ** si, 4 * width * 2 ** si
+        for bi in range(n_blocks):
+            stride = 2 if bi == 0 and si > 0 else 1
+            name = f"s{si}b{bi}"
+            short = conv_bn(x, f"{name}_p", cin, cout, 1, stride, relu=False) if bi == 0 else x
+            h = conv_bn(x, f"{name}_1", cin, mid, 1, stride)
+            hw[0] = (hw[0] - 1) // stride + 1
+            h = conv_bn(h, f"{name}_2", mid, mid, 3)
+            h = conv_bn(h, f"{name}_3", mid, cout, 1, gamma=0.25, relu=False)
+            nodes.append(ob.node("Add", [h, short], [f"{name}_sum"]))
+            nodes.append(ob.node("Relu", [f"{name}_sum"], [f"{name}_out"]))
+            x, cin = f"{name}_out", cout
+    nodes += [
+        ob.node("GlobalAveragePool", [x], ["gap"]),
+        ob.node("Flatten", ["gap"], ["flat"], axis=1),
+        ob.node("Gemm", ["flat", param("fc_w", rng.standard_normal(
+            (classes, cin), dtype=np.float32) / np.sqrt(cin)),
+            param("fc_b", 0.01 * rng.standard_normal(classes))], ["logits"], transB=1),
+        ob.node("Softmax", ["logits"], ["probs"], axis=1),
+        ob.node("TopK", ["probs", param("k5", [5], np.int64)], ["top5", "top5_idx"],
+                axis=-1),
+        ob.node("ArgMax", ["logits"], ["argmax"], axis=1, keepdims=0),
+    ]
+    macs[0] += classes * cin
+    return ob.build_model_bytes(
+        nodes, [ob.value_info("data", 1, [batch, 3, img, img])],
+        [ob.value_info("logits", 1, [batch, classes]), ob.value_info("probs", 1, [batch, classes]),
+         ob.value_info("top5", 1, [batch, 5]), ob.value_info("top5_idx", 7, [batch, 5]),
+         ob.value_info("argmax", 7, [batch])], inits, opset=17), macs[0]
+
+
+def emitter_graphs(seed: int = RESNET_SEED) -> list[dict]:
+    """One small graph for each of ROADMAP §1.1.1's 87 emitters and for
+    ConvTranspose at 2-D and 3-D: {"name", "nodes", "inputs" (dynamic graph
+    inputs), "inits", "outputs", "opset", "tol" (max|d| <= tol·max(1,
+    max|ref|) against the CPU), "concrete" (the op runs on trace-time values
+    only: NonZero, Unique, Compress's condition, NonMaxSuppression)}. Ties
+    are built in where the order matters: TopK and ArgMax/ArgMin equal
+    values, ScatterND and ScatterElements duplicate indices, MaxPool equal
+    window entries. Integer Div and Mod meet a zero divisor."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x4, x3, x2 = f32(2, 3, 8, 8), f32(2, 4, 6), f32(4, 6)
+    unit = rng.uniform(-0.9, 0.9, (4, 6)).astype(np.float32)
+    pos = (np.abs(x2) + 0.1).astype(np.float32)
+    ties = np.repeat(np.round(f32(4, 3), 1), 3, axis=1)[:, rng.permutation(9)]
+    cases = []
+
+    def case(name, op_type, inputs, inits=None, n_out=1, opset=17, tol=1e-5,
+             concrete=False, names=None, **attrs):
+        outs = [f"y{i}" for i in range(n_out)]
+        names = names or list(inputs) + list(inits or {})
+        cases.append({"name": name, "nodes": [ob.node(op_type, names, outs, **attrs)],
+                      "inputs": inputs, "inits": inits or {}, "outputs": outs,
+                      "opset": opset, "tol": tol, "concrete": concrete})
+
+    for op_type in ("Abs", "Atan", "Ceil", "Cos", "Cosh", "Exp", "Floor", "Round", "Sign",
+                    "Sin", "Sinh", "Tan", "Softsign", "HardSwish", "Mish"):
+        case(op_type, op_type, {"x": x2})
+    for op_type in ("Acos", "Asin"):
+        case(op_type, op_type, {"x": unit})
+    for op_type in ("Sqrt", "Reciprocal"):
+        case(op_type, op_type, {"x": pos})
+    case("Celu", "Celu", {"x": x2}, alpha=0.7)
+    case("Elu", "Elu", {"x": x2}, alpha=0.5)
+    case("Selu", "Selu", {"x": x2})
+    case("HardSigmoid", "HardSigmoid", {"x": x2}, alpha=0.3, beta=0.4)
+    case("ThresholdedRelu", "ThresholdedRelu", {"x": x2}, alpha=0.5)
+    case("LogSoftmax", "LogSoftmax", {"x": x3}, axis=1)
+    special = np.array([[1.0, np.inf, -np.inf, np.nan, 0.0, -2.0]], np.float32)
+    case("IsInf", "IsInf", {"x": special}, detect_negative=0)
+    case("IsNaN", "IsNaN", {"x": special})
+    for op_type in ("Greater", "GreaterOrEqual", "LessOrEqual"):
+        case(op_type, op_type, {"a": x2, "b": np.where(rng.random((4, 6)) < 0.3, x2, f32(4, 6))})
+    bools = rng.random((2, 4, 6)) < 0.5
+    case("Not", "Not", {"a": bools[0]})
+    for op_type in ("And", "Or", "Xor"):
+        case(op_type, op_type, {"a": bools[0], "b": bools[1]})
+    for op_type in ("Max", "Min", "Sum", "Mean"):
+        case(op_type, op_type, {"a": x2, "b": f32(4, 6), "c": f32(1, 6)})
+    ints = rng.integers(-20, 20, (4, 6)).astype(np.int32)
+    divisor = rng.integers(-4, 5, (4, 6)).astype(np.int32)  # zeros among them
+    case("Mod", "Mod", {"a": ints, "b": divisor})
+    case("Mod fmod", "Mod", {"a": x2, "b": pos}, fmod=1)
+    case("Div int by zero", "Div", {"a": ints, "b": divisor})
+    case("Pow", "Pow", {"a": pos, "b": f32(4, 6)})
+    case("PRelu", "PRelu", {"x": x4}, {"slope": f32(3, 1, 1, scale=0.2)})
+    case("Clip", "Clip", {"x": x2}, {"lo": np.float32(-0.5), "hi": np.float32(0.7)})
+    for op_type in ("ReduceMax", "ReduceMin", "ReduceProd", "ReduceL1", "ReduceL2",
+                    "ReduceLogSumExp", "ReduceSumSquare"):
+        case(op_type, op_type, {"x": x3}, {"axes": np.array([0, 2], np.int64)}, opset=18,
+             keepdims=1)
+    case("CumSum", "CumSum", {"x": x3}, {"axis": np.array(2, np.int64)}, exclusive=1,
+         reverse=1)
+    case("Einsum", "Einsum", {"a": x3, "b": f32(2, 6, 5)}, equation="bij,bjk->bik")
+    case("Trilu", "Trilu", {"x": x3}, {"k": np.array(-1, np.int64)}, upper=0)
+    # tensor
+    case("Flatten", "Flatten", {"x": x4}, axis=2)
+    case("Size", "Size", {"x": x4})
+    case("CastLike", "CastLike", {"x": x2 * 4, "like": ints[:1]})
+    case("Tile", "Tile", {"x": x3}, {"r": np.array([1, 2, 3], np.int64)})
+    case("Pad", "Pad", {"x": x4}, {"p": np.array([0, 0, 2, -1, 0, 0, 1, 3], np.int64)},
+         mode="reflect")
+    case("GatherElements", "GatherElements", {"x": x3},
+         {"i": rng.integers(-6, 6, (2, 4, 3)).astype(np.int64)}, axis=2)
+    case("GatherND", "GatherND", {"x": x3},
+         {"i": np.stack([rng.integers(0, 4, (2, 5)), rng.integers(-6, 6, (2, 5))], -1)},
+         batch_dims=1)
+    case("OneHot", "OneHot", {"i": rng.integers(-5, 5, (3, 4)).astype(np.int64)},
+         {"d": np.array(5, np.int64), "v": np.array([-1.0, 2.0], np.float32)}, axis=1)
+    case("DepthToSpace", "DepthToSpace", {"x": f32(2, 8, 3, 4)}, blocksize=2, mode="CRD")
+    case("SpaceToDepth", "SpaceToDepth", {"x": x4}, blocksize=2)
+    case("TopK", "TopK", {"x": ties}, {"k": np.array([4], np.int64)}, n_out=2, axis=1)
+    case("ArgMax", "ArgMax", {"x": ties}, axis=1, keepdims=0, select_last_index=1)
+    case("ArgMin", "ArgMin", {"x": ties}, axis=1)
+    dup = np.array([[1], [3], [1], [0], [3]], np.int64)
+    case("ScatterND", "ScatterND", {"d": x2, "u": f32(5, 6)}, {"i": dup},
+         names=["d", "i", "u"])
+    case("ScatterElements", "ScatterElements", {"d": x2, "u": f32(4, 3)},
+         {"i": np.array([[0, 2, 0], [5, 5, 1], [3, 3, 3], [-1, 0, -1]], np.int64)},
+         names=["d", "i", "u"], axis=1)
+    case("Dropout", "Dropout", {"x": x2}, n_out=2)
+    for op_type, attrs in (("RandomNormal", {"shape": [4, 6], "mean": 0.5, "scale": 2.0}),
+                           ("RandomUniform", {"shape": [4, 6], "low": -1.0, "high": 3.0,
+                                              "seed": 5.0})):
+        cases.append({"name": op_type, "nodes": [
+            ob.node(op_type, [], ["r"], **attrs), ob.node("Add", ["r", "x"], ["y0"])],
+            "inputs": {"x": x2}, "inits": {}, "outputs": ["y0"], "opset": 17, "tol": 1e-5,
+            "concrete": False})
+    case("RandomNormalLike", "RandomNormalLike", {"x": x2}, seed=2.0)
+    case("RandomUniformLike", "RandomUniformLike", {"x": x2})
+    case("Compress", "Compress", {"x": x3}, {"c": np.array([True, False, True, True])},
+         axis=1, concrete=True)
+    case("NonZero", "NonZero", {}, {"x": (ints > 5).astype(np.float32)}, concrete=True)
+    case("Unique", "Unique", {}, {"x": np.round(x2, 0)}, n_out=4, sorted=0, concrete=True)
+    boxes = np.concatenate([rng.uniform(0, 10, (1, 6, 2)), rng.uniform(10, 20, (1, 6, 2))],
+                           -1).astype(np.float32)
+    case("NonMaxSuppression", "NonMaxSuppression", {},
+         {"b": boxes, "s": rng.random((1, 2, 6)).astype(np.float32),
+          "m": np.array([3], np.int64), "t": np.array([0.3], np.float32)}, concrete=True)
+    # nn
+    pool_x = np.round(x4, 1)  # equal entries within windows
+    case("MaxPool", "MaxPool", {"x": pool_x}, n_out=2, kernel_shape=[3, 3], strides=[2, 2],
+         pads=[1, 0, 1, 1], ceil_mode=1)
+    case("AveragePool", "AveragePool", {"x": x4}, kernel_shape=[3, 2], strides=[2, 1],
+         pads=[1, 1, 0, 0], ceil_mode=1)
+    case("GlobalAveragePool", "GlobalAveragePool", {"x": x4})
+    case("GlobalMaxPool", "GlobalMaxPool", {"x": x4})
+    case("Resize", "Resize", {"x": x4},
+         {"roi": np.zeros(0, np.float32), "s": np.array([1, 1, 1.5, 0.75], np.float32)},
+         mode="linear", coordinate_transformation_mode="half_pixel")
+    case("Upsample", "Upsample", {"x": x4}, {"s": np.array([1, 1, 2, 3], np.float32)},
+         opset=9, mode="nearest")
+    chan = {k: f32(3) for k in ("g", "b", "m")}
+    case("BatchNormalization", "BatchNormalization", {"x": x4},
+         {**chan, "v": rng.uniform(0.5, 1.5, 3).astype(np.float32)}, epsilon=1e-3)
+    case("InstanceNormalization", "InstanceNormalization", {"x": x4},
+         {"g": chan["g"], "b": chan["b"]})
+    case("GroupNormalization", "GroupNormalization", {"x": f32(2, 6, 5)},
+         {"g": f32(6), "b": f32(6)}, opset=21, num_groups=3)
+    case("MeanVarianceNormalization", "MeanVarianceNormalization", {"x": x4})
+    case("LpNormalization", "LpNormalization", {"x": x2}, axis=0, p=1)
+    case("ConvTranspose 2-D", "ConvTranspose", {"x": f32(1, 4, 5, 6)},
+         {"w": f32(4, 3, 3, 2, scale=0.3), "b": f32(6)}, strides=[2, 3], group=2,
+         dilations=[2, 1], output_padding=[1, 0], pads=[1, 0, 0, 1])
+    case("ConvTranspose 3-D", "ConvTranspose", {"x": f32(1, 3, 3, 4, 5)},
+         {"w": f32(3, 2, 2, 3, 3, scale=0.3)}, strides=[2, 1, 2], output_shape=[6, 6, 9],
+         auto_pad="SAME_UPPER")
+    return cases
+
+
+def emitter_graph_bytes(c: dict) -> bytes:
+    from lele_tpu_torch.onnx import builder as ob
+
+    return ob.build_model_bytes(
+        c["nodes"], [ob.vi_from_array(k, v) for k, v in c["inputs"].items()],
+        [ob.value_info(o, 1, []) for o in c["outputs"]],
+        [ob.tensor_from_array(v, k) for k, v in c["inits"].items()], opset=c["opset"])
+
+
+def ops_phase(checks, dev, card) -> None:
+    """Phase 36: the ONNX op layer's math, tensor, nn and activation sets
+    (ROADMAP §1.1.1), with a ResNet-50 graph at full width as the slice's
+    path. No kernel of the port's own runs here: the convs are cuDNN's, the
+    rest the port's emitters.
+
+    (a) `resnet50_model()` (the Model Zoo's resnet50-v1-7 layout, 25.6 M
+    parameters, random weights from a seed) compiled by compile_model on the
+    card and run at N = 1 and 8, captured (one CUDA graph a bucket): the
+    captured call the bits of `replay()`; the logits within RESNET_F32_REL
+    of the port's CPU run of the same bytes (f32, TF32 off); TopK and ArgMax
+    indices equal wherever the CPU's margin exceeds the gate; the bf16
+    compute policy at N = 8 within RESNET_BF16_REL; times by CUDA events and
+    host clock, captured and step by step, and the busy share of one
+    profiled call. (b) `emitter_graphs()`: each on the card, captured where
+    its tape allows, against the CPU run of the same bytes."""
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch.compiler import compile_model
+
+    t_phase = time.perf_counter()
+    print("== 36. the ONNX op layer: ResNet-50 at full width, and one graph an emitter")
+    t0 = time.perf_counter()
+    model, macs = resnet50_model()
+    print(f"  resnet50_model(): {len(model) / 1e6:.1f} MB of ONNX, {macs / 1e9:.3f} G "
+          f"multiply-adds an image, built in {time.perf_counter() - t0:.2f} s")
+    xrng = np.random.default_rng(RESNET_SEED + 1)
+    inputs = {n: xrng.standard_normal((n, 3, 224, 224)).astype(np.float32) for n in (1, 8)}
+    ref = {}
+    for n in (1, 8):
+        cpu = compile_model(model, dim_values={"N": n}, device="cpu", strict=True)
+        ref[n] = cpu.run_np(data=inputs[n])
+        del cpu
+    print(f"  CPU reference runs (f32, N = 1 and 8) done at {time.perf_counter() - t0:.1f} s")
+    names = ("logits", "probs", "top5", "top5_idx", "argmax")
+    for n in (1, 8):
+        t1 = time.perf_counter()
+        cm = compile_model(model, dim_values={"N": n}, device=dev, strict=True).compile()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t1
+        x = torch.from_numpy(inputs[n]).to(dev)
+        got = [o.clone() for o in cm(data=x)]
+        again = cm.replay(data=x)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        checks.require(cm.stats["captured"] and bits,
+                       f"ResNet-50 N = {n}: captured {cm.stats['captured']}, the captured "
+                       f"call the bits of replay(): {bits} ({cm.stats['n_steps']} tape steps)")
+        out = {k: v.cpu().numpy() for k, v in zip(names, got)}
+        want = dict(zip(names, ref[n]))
+        d = float(np.abs(out["logits"] - want["logits"]).max())
+        scale = float(np.abs(want["logits"]).max())
+        checks.require(out["logits"].shape == (n, 1000) and np.isfinite(out["logits"]).all()
+                       and d <= RESNET_F32_REL * scale,
+                       f"ResNet-50 N = {n} f32 logits vs the CPU: max|d| {d:.3e}, max|ref| "
+                       f"{scale:.3f} (gate {RESNET_F32_REL:g} max|ref|)")
+        # indices where the CPU's order is decided by more than the gate
+        gate = 2 * RESNET_F32_REL * scale
+        srt = np.sort(want["logits"], axis=1)[:, ::-1]
+        top_ok = all(np.array_equal(out["top5_idx"][i], want["top5_idx"][i])
+                     for i in range(n) if np.diff(srt[i, :6]).min() < -gate)
+        arg_ok = all(out["argmax"][i] == want["argmax"][i]
+                     for i in range(n) if srt[i, 0] - srt[i, 1] > gate)
+        checks.require(top_ok and arg_ok,
+                       f"ResNet-50 N = {n}: TopK and ArgMax indices equal the CPU's where "
+                       f"its margins exceed {gate:.2e}")
+        ev = time_ms(lambda: cm(data=x))
+        ev_replay = time_ms(lambda: cm.replay(data=x))
+        hc = host_ms(lambda: (cm(data=x), torch.cuda.synchronize()))
+        hc_replay = host_ms(lambda: (cm.replay(data=x), torch.cuda.synchronize()))
+        dev_us, span_us = busy(lambda: (cm(data=x), torch.cuda.synchronize()))
+        # the weights and the image read once, the logits written once; two
+        # operations a multiply-add
+        b_ms, b_by = bound(4 * (sum(p.numel() for p in cm.params.values()) + x.numel()
+                                + 1000 * n), {"f32": 2 * macs * n})
+        print(f"  ResNet-50 f32 N = {n}: compile and capture {compile_s:.2f} s; captured "
+              f"{ev:.4f} ms by events, {hc:.4f} ms by host clock; step by step "
+              f"{ev_replay:.4f} / {hc_replay:.4f} ms; busy {dev_us / 1e3:.4f} ms of a "
+              f"{span_us / 1e3:.4f} ms profiled call ({dev_us / span_us:.1%}); bound "
+              f"{b_ms:.4f} ms by {b_by} ({2 * macs * n / 1e9:.2f} GFLOP f32)  ({card})")
+        op_breakdown(lambda: (cm.replay(data=x), torch.cuda.synchronize()),
+                     f"ResNet-50 f32 N = {n}, one step-by-step call", card, top=8)
+        del cm
+    cm16 = compile_model(model, dim_values={"N": 8}, device=dev, strict=True,
+                         compute="bfloat16").compile()
+    x = torch.from_numpy(inputs[8]).to(dev)
+    got = cm16(data=x)[0].cpu().numpy()
+    want = ref[8][0]
+    d, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    checks.require(cm16.stats["captured"] and d <= RESNET_BF16_REL * scale,
+                   f"ResNet-50 N = 8 bf16 compute vs the CPU's f32 logits: max|d| {d:.3e}, "
+                   f"max|ref| {scale:.3f} (gate {RESNET_BF16_REL:g} max|ref|), argmax "
+                   f"agreement {agree:.3f}")
+    ev16 = time_ms(lambda: cm16(data=x))
+    print(f"  ResNet-50 bf16 N = 8: captured {ev16:.4f} ms by events  ({card})")
+    del cm16
+
+    print("  (b) one graph an emitter, card against the CPU")
+    t1 = time.perf_counter()
+    uncaptured, concrete, worst = [], [], {}
+    for c in emitter_graphs():
+        bs = emitter_graph_bytes(c)
+        cpu = compile_model(bs, device="cpu", strict=True).run_np(**c["inputs"])
+        cm = compile_model(bs, device=dev, strict=True)
+        got = [o.cpu().numpy() for o in cm(**c["inputs"])]
+        if c["concrete"]:
+            concrete.append(c["name"])
+        if not cm.stats["capturable"]:
+            uncaptured.append(c["name"])
+        ok = len(got) == len(cpu)
+        err = 0.0
+        for g, w in zip(got, cpu):
+            ok = ok and g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w))
+            if ok and g.size:
+                g, w = g.astype(np.float64), w.astype(np.float64)
+                fin = np.isfinite(w)
+                ok = ok and np.array_equal(g[~fin & ~np.isnan(w)], w[~fin & ~np.isnan(w)])
+                e = float(np.abs(g[fin] - w[fin]).max()) if fin.any() else 0.0
+                err = max(err, e / max(1.0, float(np.abs(w[fin]).max()) if fin.any() else 1.0))
+        worst[c["name"]] = err
+        checks.require(ok and err <= c["tol"] and (cm.stats["captured"] or c["concrete"]),
+                       f"{c['name']}: card vs CPU max|d| {err:.2e} of max(1, max|ref|) (gate "
+                       f"{c['tol']:g}); captured {cm.stats['captured']}")
+    checks.require(set(uncaptured) <= set(concrete),
+                   f"uncapturable graphs: {uncaptured or 'none'}; on concrete values only: "
+                   f"{concrete}")
+    print(f"  {len(worst)} emitter graphs in {time.perf_counter() - t1:.1f} s; the largest "
+          f"gap {max(worst.values()):.2e} ({max(worst, key=worst.get)})")
+    print(f"  phase 36 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4677,6 +5078,7 @@ def main() -> int:
     silero_blocks(checks, dev, card)
     cf_launches = control_flow_phase(checks, dev, card)
     genai_launches = genai_phase(checks, dev, card)
+    ops_phase(checks, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -581,8 +581,11 @@ class GraphTracer:
             return _to_numpy(emitter(make_ctx(np, node, self.opset, self), *ins))
         if all_static and ins:
             # a non-foldable op on constants: evaluate it once with torch on
-            # the host, and carry the result as a static value
-            cpu_ins = [None if v is None else to_torch(v) for v in ins]
+            # the host, and carry the result as a static value; its shape
+            # arguments stay host values, as on the dynamic path
+            static_pos = set(opdef.static_args) if opdef is not None else set()
+            cpu_ins = [v if v is None or i in static_pos else to_torch(v)
+                       for i, v in enumerate(ins)]
             return _to_numpy(emitter(make_ctx(torch, node, self.opset, self),
                                      *cpu_ins))
         # dynamic: static inputs go to the device (hoisted by name), except

@@ -1,5 +1,7 @@
 """Activation emitters (counterpart of lele_tpu/ops/activation_ops.py):
-Relu, LeakyRelu, Sigmoid, Softmax, Tanh, Softplus and Gelu."""
+Relu, LeakyRelu, Sigmoid, Softmax, LogSoftmax, Tanh, Softplus, Gelu, Elu,
+Selu, Celu, HardSigmoid, HardSwish, Softsign, Mish and ThresholdedRelu, in
+JAX's formulas (exp(x) - 1 where JAX writes it, not expm1)."""
 
 from __future__ import annotations
 
@@ -29,16 +31,26 @@ def sigmoid(ctx: OpContext, x):
     return torch.sigmoid(x)
 
 
-@op("Softmax", foldable=False)
-def softmax(ctx: OpContext, x):
+def _flat_softmax(ctx: OpContext, x, fn):
+    """Softmax and LogSoftmax: over `axis` from opset 13; before, over the
+    whole trailing block from `axis` (default 1), flattened to 2-D."""
     if ctx.opset >= 13:
-        return torch.softmax(x, dim=ctx.attr("axis", -1))
-    # opset < 13: flatten to 2-D at axis, softmax over the trailing block
+        return fn(x, dim=ctx.attr("axis", -1))
     axis = ctx.attr("axis", 1)
     shape = tuple(x.shape)
     axis = axis if axis >= 0 else axis + len(shape)
     lead = int(np.prod(shape[:axis])) if axis else 1
-    return torch.softmax(x.reshape(lead, -1), dim=-1).reshape(shape)
+    return fn(x.reshape(lead, -1), dim=-1).reshape(shape)
+
+
+@op("Softmax", foldable=False)
+def softmax(ctx: OpContext, x):
+    return _flat_softmax(ctx, x, torch.softmax)
+
+
+@op("LogSoftmax", foldable=False)
+def log_softmax(ctx: OpContext, x):
+    return _flat_softmax(ctx, x, torch.log_softmax)
 
 
 @op("Tanh")
@@ -57,3 +69,49 @@ def gelu(ctx: OpContext, x):
     """Both forms of jax.nn.gelu: erf (approximate "none") and tanh."""
     tanh = ctx.attr("approximate", "none") == "tanh"
     return F.gelu(x, approximate="tanh" if tanh else "none")
+
+
+@op("Elu", foldable=False)
+def elu(ctx: OpContext, x):
+    return torch.where(x > 0, x, ctx.attr("alpha", 1.0) * (torch.exp(x) - 1))
+
+
+@op("Selu", foldable=False)
+def selu(ctx: OpContext, x):
+    alpha = ctx.attr("alpha", 1.6732632423543772)
+    gamma = ctx.attr("gamma", 1.0507009873554805)
+    return gamma * torch.where(x > 0, x, alpha * (torch.exp(x) - 1))
+
+
+@op("Celu", foldable=False)
+def celu(ctx: OpContext, x):
+    alpha = ctx.attr("alpha", 1.0)
+    return torch.clamp(x, min=0) + torch.clamp(alpha * (torch.exp(x / alpha) - 1), max=0)
+
+
+@op("HardSigmoid")
+def hard_sigmoid(ctx: OpContext, x):
+    alpha, beta = ctx.attr("alpha", 0.2), ctx.attr("beta", 0.5)
+    if ctx.is_fold:
+        return np.clip(alpha * x + beta, 0.0, 1.0).astype(np.asarray(x).dtype)
+    return torch.clamp(alpha * x + beta, 0.0, 1.0).to(x.dtype)
+
+
+@op("HardSwish", foldable=False)
+def hard_swish(ctx: OpContext, x):
+    return x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+@op("Softsign")
+def softsign(ctx: OpContext, x):
+    return x / (1 + ctx.xp.abs(x))
+
+
+@op("Mish", foldable=False)
+def mish(ctx: OpContext, x):
+    return x * torch.tanh(softplus(ctx, x))
+
+
+@op("ThresholdedRelu", foldable=False)
+def thresholded_relu(ctx: OpContext, x):
+    return torch.where(x > ctx.attr("alpha", 1.0), x, torch.zeros_like(x))

@@ -1,12 +1,14 @@
-"""NN emitters (counterpart of lele_tpu/ops/nn_ops.py): LayerNormalization,
-RMSNormalization, Conv over 1-3 spatial dims (the FSMN's depthwise memory
-conv, Silero's STFT and conv stack, YOLO-class image backbones),
-ConvTranspose for the 1-D case (the Supertonic vocoder's upsampling), and the
-recurrent LSTM, GRU and RNN."""
+"""NN emitters (counterpart of lele_tpu/ops/nn_ops.py): Conv and
+ConvTranspose over 1-3 spatial dims (cuDNN, TF32 off), the pools (MaxPool
+with its Indices output, AveragePool, the global pools) on JAX's window
+geometry, Resize and Upsample as JAX's per-axis gathers, the norms (Batch,
+Instance, Group, MeanVariance, Lp, Layer, RMS), and the recurrent LSTM, GRU
+and RNN."""
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 from ..kernels.gru import gru_seq, gru_seq_plain
 from ..kernels.gru import kernel_takes as gru_kernel_takes
 from ..kernels.lstm import kernel_takes, lstm_seq, lstm_seq_plain
-from .registry import OpContext, op
+from .registry import OpContext, op, static_ints
 
 
 def _resolve_pads(ctx: OpContext, x_shape, k_shape, strides, dilations):
@@ -68,50 +70,289 @@ def conv(ctx: OpContext, x, w, b=None):
     return out
 
 
-def _conv_transpose_pads(ctx: OpContext, in_dim: int, k: int, stride: int, dilation: int,
-                         out_pad: int) -> tuple[int, int]:
-    """(begin, end) pads of a 1-D ConvTranspose, as lele_tpu/ops/nn_ops.py
-    resolves them: `output_shape` overrides `pads`; SAME_* make the output
-    input x stride."""
-    eff_k = (k - 1) * dilation + 1
+def _conv_transpose_pads(ctx: OpContext, in_dims, kshape, strides, dilations,
+                         out_pad) -> list[tuple[int, int]]:
+    """(begin, end) pads of each spatial axis of a ConvTranspose, as
+    lele_tpu/ops/nn_ops.py resolves them: `output_shape` overrides `pads`;
+    SAME_* make the output input x stride."""
+    rank = len(kshape)
     auto = ctx.attr("auto_pad", "NOTSET")
     out_shape = ctx.attr_ints("output_shape")
-    if out_shape is not None:
-        total = max(0, stride * (in_dim - 1) + out_pad + eff_k - int(out_shape[-1]))
-        half = total // 2
-        return (total - half, half) if auto == "SAME_UPPER" else (half, total - half)
     pads = ctx.attr_ints("pads")
-    if pads is not None:
-        return pads[0], pads[1]
-    if auto in ("NOTSET", "", None, "VALID"):
-        return 0, 0
-    total = max(0, eff_k - stride + out_pad)
-    half = total // 2
-    return (half, total - half) if auto == "SAME_UPPER" else (total - half, half)
+    res = []
+    for i in range(rank):
+        eff_k = (kshape[i] - 1) * dilations[i] + 1
+        if out_shape is not None:
+            total = max(0, strides[i] * (in_dims[i] - 1) + out_pad[i] + eff_k
+                        - int(out_shape[-rank:][i]))
+            half = total // 2
+            res.append((total - half, half) if auto == "SAME_UPPER" else (half, total - half))
+        elif pads is not None:
+            res.append((pads[i], pads[rank + i]))
+        elif auto in ("NOTSET", "", None, "VALID"):
+            res.append((0, 0))
+        else:
+            total = max(0, eff_k - strides[i] + out_pad[i])
+            half = total // 2
+            res.append((half, total - half) if auto == "SAME_UPPER" else (total - half, half))
+    return res
+
+
+_CONV_T_FNS = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 @op("ConvTranspose", foldable=False)
 def conv_transpose(ctx: OpContext, x, w, b=None):
-    """1-D transposed convolution [N, C_in, T], ONNX weight [C_in, C_out/g, k]
-    (torch's own layout and semantics): the full-length product, output
-    padding zeros at its end, then the pads cropped. cuDNN's TF32 is off."""
-    if x.dim() != 3:
-        raise NotImplementedError(f"ConvTranspose over {x.dim() - 2} spatial dims is not "
-                                  "ported yet (the port has the 1-D case)")
-    k = int(w.shape[-1])
-    (stride,) = ctx.attr_ints("strides", [1])
-    (dilation,) = ctx.attr_ints("dilations", [1])
-    (out_pad,) = ctx.attr_ints("output_padding", [0])
-    p0, p1 = _conv_transpose_pads(ctx, int(x.shape[-1]), k, stride, dilation, out_pad)
+    """Transposed convolution over 1-3 spatial dims, [N, C_in, *spatial],
+    ONNX weight [C_in, C_out/g, *k] (torch's own layout and semantics;
+    groups, dilations): the full-size product, then each axis padded at its
+    end by `output_padding` and cropped by the pads. cuDNN's TF32 is off."""
+    rank = x.dim() - 2
+    if rank not in _CONV_T_FNS:
+        raise NotImplementedError(f"ConvTranspose over {rank} spatial dims: the port "
+                                  "has 1-3")
+    kshape = list(w.shape[2:])
+    strides = ctx.attr_ints("strides", [1] * rank)
+    dilations = ctx.attr_ints("dilations", [1] * rank)
+    out_pad = ctx.attr_ints("output_padding", [0] * rank)
+    pads = _conv_transpose_pads(ctx, list(x.shape[2:]), kshape, strides, dilations, out_pad)
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
-        full = F.conv_transpose1d(x, w.to(x.dtype), None, stride=stride, dilation=dilation,
-                                  groups=ctx.attr("group", 1))
-    full = F.pad(full, (0, out_pad))
-    out = full[..., p0: full.shape[-1] - p1]
+        full = _CONV_T_FNS[rank](x, w.to(x.dtype), None, stride=strides, dilation=dilations,
+                                 groups=ctx.attr("group", 1))
+    # F.pad's negative widths crop; last dim first
+    out = F.pad(full, [v for (p0, p1), op_ in zip(reversed(pads), reversed(out_pad))
+                       for v in (-p0, op_ - p1)])
     if b is not None:
-        out = out + b.to(out.dtype).reshape(1, -1, 1)
+        out = out + b.to(out.dtype).reshape((1, -1) + (1,) * rank)
     return out
+
+
+# -- pooling -----------------------------------------------------------------
+
+
+def _pool_geometry(ctx: OpContext, xshape):
+    """kernel, strides, dilations and pads of the pooling family, as
+    lele_tpu/ops/nn_ops.py:_pool_geometry: ceil_mode extends the tail pad
+    so that the last partial window is included (a window may start in
+    the pad, unlike torch's ceil_mode)."""
+    rank = len(xshape) - 2
+    kshape = ctx.attr_ints("kernel_shape")
+    strides = ctx.attr_ints("strides", [1] * len(kshape))
+    dilations = ctx.attr_ints("dilations", [1] * len(kshape))
+    pads = _resolve_pads(ctx, xshape, kshape, strides, dilations)
+    if ctx.attr("ceil_mode", 0):
+        new_pads = []
+        for i in range(rank):
+            eff_k = (kshape[i] - 1) * dilations[i] + 1
+            padded = xshape[2 + i] + pads[i][0] + pads[i][1]
+            out_f = (padded - eff_k) / strides[i] + 1
+            out_c = -(-(padded - eff_k) // strides[i]) + 1
+            extra = (out_c - 1) * strides[i] + eff_k - padded if out_c > out_f else 0
+            new_pads.append((pads[i][0], pads[i][1] + max(0, extra)))
+        pads = new_pads
+    return kshape, strides, dilations, pads
+
+
+def _flat_pads(pads) -> list[int]:
+    return [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
+
+
+def _taps(xp: torch.Tensor, kshape, strides, dilations):
+    """Each window offset's strided view of a padded input: the pooled
+    output is a reduction over them."""
+    rank = len(kshape)
+    out = [(xp.shape[2 + i] - (kshape[i] - 1) * dilations[i] - 1) // strides[i] + 1
+           for i in range(rank)]
+    for offs in itertools.product(*(range(k) for k in kshape)):
+        yield xp[(slice(None), slice(None)) + tuple(
+            slice(o * d, o * d + (n - 1) * s + 1, s)
+            for o, d, s, n in zip(offs, dilations, strides, out))]
+
+
+_MAX_POOL_FNS = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@op("MaxPool", foldable=False)
+def max_pool(ctx: OpContext, x):
+    """The window maximum over an input padded with -inf (integer types
+    through a float type that holds them exactly); the Indices output, when
+    asked, is the first maximum of each window as a flat position in the
+    whole [N, C, *spatial] tensor, row-major (storage_order 0) or with the
+    spatial axes column-major (storage_order 1)."""
+    rank = x.dim() - 2
+    kshape, strides, dilations, pads = _pool_geometry(ctx, tuple(x.shape))
+    wide = x if x.is_floating_point() else x.to(
+        torch.float32 if x.element_size() <= 2 else torch.float64)
+    xp = F.pad(wide, _flat_pads(pads), value=-float("inf"))
+    want_idx = ctx.node is not None and len(ctx.node.output) > 1 and bool(ctx.node.output[1])
+    res = _MAX_POOL_FNS[rank](xp, kshape, strides, 0, dilations, return_indices=want_idx)
+    if not want_idx:
+        return res.to(x.dtype)
+    out, idx = res
+    # the padded plane's flat index → each input coordinate → the flat
+    # position ONNX counts over the whole tensor
+    dims, pdims = list(x.shape[2:]), list(xp.shape[2:])
+    order = range(rank) if not ctx.attr("storage_order", 0) else reversed(range(rank))
+    coords = []
+    for i in reversed(range(rank)):
+        coords.append(idx % pdims[i] - pads[i][0])
+        idx = idx // pdims[i]
+    coords.reverse()
+    flat = torch.zeros_like(coords[0])
+    for i in order:
+        flat = flat * dims[i] + coords[i]
+    n, c = x.shape[:2]
+    plane = (torch.arange(n, device=x.device).reshape((-1, 1) + (1,) * rank) * c
+             + torch.arange(c, device=x.device).reshape((1, -1) + (1,) * rank))
+    return out.to(x.dtype), plane * int(np.prod(dims)) + flat
+
+
+@op("AveragePool", foldable=False)
+def average_pool(ctx: OpContext, x):
+    """The window sum over a zero-padded input, over the window's size
+    (count_include_pad) or over its count of input elements."""
+    kshape, strides, dilations, pads = _pool_geometry(ctx, tuple(x.shape))
+    flat = _flat_pads(pads)
+    total = sum(_taps(F.pad(x, flat), kshape, strides, dilations))
+    if ctx.attr("count_include_pad", 0):
+        return total / float(np.prod(kshape))
+    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device),
+                 flat)
+    return total / sum(_taps(ones, kshape, strides, dilations))
+
+
+@op("GlobalAveragePool", foldable=False)
+def global_average_pool(ctx: OpContext, x):
+    return torch.mean(x, dim=tuple(range(2, x.dim())), keepdim=True)
+
+
+@op("GlobalMaxPool", foldable=False)
+def global_max_pool(ctx: OpContext, x):
+    return torch.amax(x, dim=tuple(range(2, x.dim())), keepdim=True)
+
+
+# -- Resize ------------------------------------------------------------------
+
+
+def _coords(out_size: int, in_size: int, scale: float, mode: str, device) -> torch.Tensor:
+    """Each output position's source coordinate on one axis (f32, as JAX's
+    lele_tpu/ops/nn_ops.py:_coords)."""
+    x = torch.arange(out_size, dtype=torch.float32, device=device)
+    if mode == "half_pixel":
+        return (x + 0.5) / scale - 0.5
+    if mode == "pytorch_half_pixel":
+        return (x + 0.5) / scale - 0.5 if out_size > 1 else torch.zeros_like(x)
+    if mode == "align_corners":
+        if out_size == 1:
+            return torch.zeros_like(x)
+        return x * (in_size - 1) / (out_size - 1)
+    if mode == "asymmetric":
+        return x / scale
+    raise NotImplementedError(f"coordinate_transformation_mode {mode}")
+
+
+@op("Resize", foldable=False, static_args=(2, 3))
+def resize(ctx: OpContext, x, roi=None, scales=None, sizes=None):
+    """ONNX Resize, nearest (every nearest_mode) and linear, as JAX writes
+    it: one gather (nearest) or two and a blend (linear) per resized axis,
+    from `sizes` or `scales`."""
+    mode = ctx.attr("mode", "nearest")
+    ct_mode = ctx.attr("coordinate_transformation_mode", "half_pixel")
+    nearest_mode = ctx.attr("nearest_mode", "round_prefer_floor")
+    in_shape = list(x.shape)
+    rank = len(in_shape)
+    if sizes is not None:
+        out_shape = static_ints(sizes, "resize sizes")
+        scale_l = [out_shape[i] / in_shape[i] for i in range(rank)]
+    else:
+        scale_l = [float(v) for v in np.asarray(scales).reshape(-1)]
+        out_shape = [int(np.floor(in_shape[i] * scale_l[i])) for i in range(rank)]
+    out = x
+    for ax in range(rank):
+        if out_shape[ax] == in_shape[ax]:
+            continue
+        n = in_shape[ax]
+        c = _coords(out_shape[ax], n, scale_l[ax], ct_mode, x.device)
+        if mode == "nearest":
+            idx = {"round_prefer_floor": lambda: torch.ceil(c - 0.5),
+                   "round_prefer_ceil": lambda: torch.floor(c + 0.5),
+                   "floor": lambda: torch.floor(c)}.get(nearest_mode, lambda: torch.ceil(c))()
+            out = torch.index_select(out, ax, idx.clamp(0, n - 1).to(torch.int64))
+        elif mode == "linear":
+            c = c.clamp(0.0, n - 1)
+            lo = torch.floor(c).to(torch.int64)
+            hi = torch.clamp(lo + 1, max=n - 1)
+            shape = [1] * out.dim()
+            shape[ax] = -1
+            w_hi = (c - lo).to(x.dtype).reshape(shape)
+            out = (torch.index_select(out, ax, lo) * (1 - w_hi)
+                   + torch.index_select(out, ax, hi) * w_hi)
+        else:
+            raise NotImplementedError(f"Resize mode {mode}")
+    return out
+
+
+@op("Upsample", foldable=False, static_args=(1,))
+def upsample(ctx: OpContext, x, scales=None):
+    """Resize with `asymmetric` coordinates and `floor` rounding (opset 7-9)."""
+    sc = scales if scales is not None else np.asarray(ctx.attr("scales"), np.float32)
+    ctx.attrs.setdefault("coordinate_transformation_mode", "asymmetric")
+    ctx.attrs.setdefault("nearest_mode", "floor")
+    return resize(ctx, x, None, sc, None)
+
+
+# -- normalization -----------------------------------------------------------
+
+
+def _channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector shaped to broadcast over [N, C, *spatial]."""
+    return v.to(x.dtype).reshape((1, -1) + (1,) * (x.dim() - 2))
+
+
+@op("BatchNormalization", foldable=False)
+def batch_norm(ctx: OpContext, x, scale, b, mean, var):
+    """Inference form, JAX's arithmetic: (x - mean) * (scale / sqrt(var +
+    eps)) + b."""
+    inv = torch.pow(var.to(x.dtype) + ctx.attr("epsilon", 1e-5), -0.5)
+    return (x - _channel(mean, x)) * _channel(scale.to(x.dtype) * inv, x) + _channel(b, x)
+
+
+def _normalize(x: torch.Tensor, dims, eps: float) -> torch.Tensor:
+    mean = torch.mean(x, dim=dims, keepdim=True)
+    var = torch.var(x, dim=dims, keepdim=True, correction=0)
+    return (x - mean) / torch.sqrt(var + eps)
+
+
+@op("InstanceNormalization", foldable=False)
+def instance_norm(ctx: OpContext, x, scale, b):
+    y = _normalize(x, tuple(range(2, x.dim())), ctx.attr("epsilon", 1e-5))
+    return y * _channel(scale, x) + _channel(b, x)
+
+
+@op("GroupNormalization", foldable=False)
+def group_norm(ctx: OpContext, x, scale, b):
+    """num_groups groups of channels, each normalised over its channels and
+    the spatial axes; scale and bias per channel (opset 21's form, which
+    JAX's emitter applies at every opset)."""
+    g = ctx.attr("num_groups")
+    n, c = x.shape[:2]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    y = _normalize(xg, tuple(range(2, xg.dim())), ctx.attr("epsilon", 1e-5))
+    return y.reshape(x.shape) * _channel(scale, x) + _channel(b, x)
+
+
+@op("MeanVarianceNormalization", foldable=False)
+def mvn(ctx: OpContext, x):
+    return _normalize(x, tuple(ctx.attr_ints("axes", [0, 2, 3])), 1e-9)
+
+
+@op("LpNormalization", foldable=False)
+def lp_norm(ctx: OpContext, x):
+    axis = ctx.attr("axis", -1)
+    if ctx.attr("p", 2) == 1:
+        return x / torch.sum(torch.abs(x), dim=axis, keepdim=True)
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))
 
 
 @op("LayerNormalization", foldable=False)

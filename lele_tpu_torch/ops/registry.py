@@ -27,10 +27,10 @@ OPS: dict[str, "OpDef"] = {}  # default-domain (ai.onnx) emitters, by op_type
 CONTRIB_OPS: dict[tuple[str, str], "OpDef"] = {}
 
 # (domain, op_type) → the default-domain op_type whose schema coincides
-# (inputs, attributes, semantics): curated, not inferred. JAX's table also
-# maps com.microsoft::Trilu; its row comes with the Trilu emitter
+# (inputs, attributes, semantics): curated, not inferred, as JAX's table
 CONTRIB_ALIASES: dict[tuple[str, str], str] = {
     ("com.microsoft", "Gelu"): "Gelu",
+    ("com.microsoft", "Trilu"): "Trilu",
     ("com.microsoft", "Range"): "Range",
 }
 
@@ -55,8 +55,8 @@ class OpDef:
     # record it as one step
     records: bool = False
     # the emitter only restructures trace-time values (sequences, optionals:
-    # ops/extra_ops.py): the tracer calls it once on its inputs as they are
-    # and records no step
+    # ops/extra_ops.py) or makes a trace-time constant (the Random ops): the
+    # tracer calls it once on its inputs as they are and records no step
     host: bool = False
 
 

@@ -1,7 +1,14 @@
 """Tensor-manipulation emitters (counterpart of lele_tpu/ops/tensor_ops.py):
-the ones the SAN-M int8 graph uses, plus Identity, which exports put
-between any two nodes, and Constant, ConstantOfShape, Expand and Where,
-which the Supertonic graphs add.
+shapes and layouts, gathers and scatters, Pad, Tile, TopK, ArgMax and
+ArgMin, OneHot, Dropout, the Random ops, and the data-dependent-shape ops
+(NonZero, Unique, Compress, NonMaxSuppression), which run on concrete
+values only, as the JAX package's `_require_concrete` makes them.
+
+Ties and duplicates take JAX's CPU order on both devices: TopK and
+ArgMax/ArgMin the lower index first, ScatterND and ScatterElements without
+a reduction the last update. The Random ops draw at trace time from a key
+made as JAX's `_rng_key` makes it, so every call of a compiled model, a
+captured one too, gives the same numbers.
 
 Shape-carrying chains (Shape → Slice/Gather → Concat → Reshape) fold to
 numpy at trace time, so every reshape below sees static shape arguments.
@@ -9,11 +16,18 @@ numpy at trace time, so every reshape below sees static shape arguments.
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..onnx.loader import DTYPE_MAP
 from .registry import OpContext, op, static_ints
+
+# JAX's default `config.rng_seed` (lele_tpu/config.py:31): the root of every
+# Random op's key
+RNG_SEED = 0
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -234,3 +248,467 @@ def where(ctx: OpContext, cond, a, b):
     if ctx.is_fold:
         return np.where(np.asarray(cond).astype(bool), a, b)
     return torch.where(cond.to(torch.bool), a, b)
+
+
+@op("Flatten")
+def flatten(ctx: OpContext, x):
+    shape = tuple(np.shape(x))
+    axis = ctx.attr("axis", 1)
+    axis = axis if axis >= 0 else axis + len(shape)
+    dims = (int(np.prod(shape[:axis])), int(np.prod(shape[axis:])))
+    return np.reshape(x, dims) if ctx.is_fold else x.reshape(dims)
+
+
+@op("Size")
+def size_(ctx: OpContext, x):
+    # static, as Shape: the element count is a trace-time constant
+    return np.asarray(int(np.prod(np.shape(x))), dtype=np.int64)
+
+
+@op("CastLike")
+def cast_like(ctx: OpContext, x, like):
+    if ctx.is_fold:
+        return np.asarray(x).astype(np.asarray(like).dtype)
+    return x.to(like.dtype)
+
+
+@op("Tile", static_args=(1,))
+def tile(ctx: OpContext, x, repeats):
+    reps = tuple(static_ints(repeats, "tile repeats"))
+    return np.tile(x, reps) if ctx.is_fold else torch.tile(x, reps)
+
+
+def _wrapped(idx: torch.Tensor, dim) -> torch.Tensor:
+    """ONNX's negative indices counted from the end, as int64."""
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + dim, idx)
+
+
+_INDEX_CONSTS: dict = {}
+
+
+def index_on(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index array as a device tensor made once: an upload at every
+    call would stop the call from being captured."""
+    key = (idx.tobytes(), idx.shape, str(device))
+    t = _INDEX_CONSTS.get(key)
+    if t is None:
+        t = _INDEX_CONSTS[key] = torch.from_numpy(idx.astype(np.int64)).to(device)
+    return t
+
+
+@op("GatherElements")
+def gather_elements(ctx: OpContext, x, indices):
+    axis = ctx.attr("axis", 0)
+    if ctx.is_fold:
+        return np.take_along_axis(x, np.asarray(indices, np.int64), axis=axis)
+    axis = axis % x.dim()
+    return torch.gather(x, axis, _wrapped(indices, x.shape[axis]))
+
+
+@op("GatherND", foldable=False)
+def gather_nd(ctx: OpContext, x, indices):
+    """The last index axis addresses the data's axes after `batch_dims`
+    shared leading ones."""
+    b = int(ctx.attr("batch_dims", 0))
+    idx = indices.to(torch.int64)
+    k = idx.shape[-1]
+    if k:  # the extents as a device constant: an upload would stop a capture
+        idx = torch.where(idx < 0, idx + index_on(np.array(x.shape[b: b + k]), idx.device), idx)
+    if b == 0:
+        return x[tuple(idx[..., i] for i in range(k))]
+    # the shared batch dims collapsed to one axis, indexed explicitly
+    xb = x.reshape((-1,) + tuple(x.shape[b:]))
+    ib = idx.reshape((-1,) + tuple(idx.shape[b:]))
+    bidx = torch.arange(xb.shape[0], device=x.device).reshape((-1,) + (1,) * (ib.dim() - 2))
+    bidx = torch.broadcast_to(bidx, ib.shape[:-1])
+    out = xb[(bidx,) + tuple(ib[..., i] for i in range(k))]
+    return out.reshape(tuple(idx.shape[:b]) + tuple(out.shape[1:]))
+
+
+def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """The source positions of a padded axis of extent n (lo before, hi
+    after) in reflect, edge or wrap mode, made on the device."""
+    j = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return j.clamp(0, n - 1)
+    if mode == "wrap":
+        return torch.remainder(j, n)
+    period = 2 * (n - 1)  # reflect: ... 2 1 | 0 1 2 ... n-1 | n-2 ...
+    m = torch.remainder(j, period)
+    return torch.where(m >= n, period - m, m)
+
+
+@op("Pad", static_args=(1, 3))
+def pad(ctx: OpContext, x, pads=None, constant_value=None, axes=None):
+    """constant, reflect, edge and wrap; pads as an input (opset >= 11) or
+    attribute (with the fill in `value`), restricted to `axes`; negative
+    pads crop first."""
+    mode = ctx.attr("mode", "constant")
+    if pads is None:
+        plist = ctx.attr_ints("pads")
+        if constant_value is None:  # opset < 11 carries the fill in an attribute
+            constant_value = ctx.attr("value", None)
+    else:
+        plist = static_ints(pads, "pads")
+    rank = np.ndim(x)
+    if axes is not None:
+        ax_l = static_ints(axes, "pad axes")
+        full = [0] * (2 * rank)
+        for i, a in enumerate(ax_l):
+            a = a if a >= 0 else a + rank
+            full[a] = plist[i]
+            full[rank + a] = plist[len(ax_l) + i]
+        plist = full
+    pairs = [(plist[i], plist[i + rank]) for i in range(rank)]
+    if any(p < 0 for pair in pairs for p in pair):
+        shape = np.shape(x)
+        x = x[tuple(slice(-b if b < 0 else 0, shape[i] + e if e < 0 else None)
+                    for i, (b, e) in enumerate(pairs))]
+        pairs = [(max(b, 0), max(e, 0)) for b, e in pairs]
+    if ctx.is_fold:
+        if mode == "constant":
+            cv = 0 if constant_value is None else np.asarray(constant_value).item()
+            return np.pad(x, pairs, mode="constant", constant_values=cv)
+        return np.pad(x, pairs, mode=mode)
+    if mode == "constant":
+        flat = [p for lo_hi in reversed(pairs) for p in lo_hi]  # last dim first
+        if constant_value is None:
+            return F.pad(x, flat)
+        if isinstance(constant_value, torch.Tensor):
+            # a device fill: pad with zeros, then put the fill where they went
+            inner = F.pad(torch.ones_like(x, dtype=torch.bool), flat)
+            return torch.where(inner, F.pad(x, flat), constant_value.to(x.dtype))
+        return F.pad(x, flat, value=np.asarray(constant_value).item())
+    if mode not in ("reflect", "edge", "wrap"):
+        raise NotImplementedError(f"Pad mode {mode!r}")
+    for a, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = torch.index_select(x, a, _pad_index(x.shape[a], lo, hi, mode, x.device))
+    return x
+
+
+@op("TopK", foldable=False, static_args=(1,))
+def topk(ctx: OpContext, x, k):
+    """The k largest (or smallest) along `axis`, ties to the lower index as
+    lax.top_k gives them: a stable sort, on both devices."""
+    kk = static_ints(k, "topk k")[0]
+    axis = ctx.attr("axis", -1) % x.dim()
+    largest = bool(ctx.attr("largest", 1))
+    vals, idx = torch.sort(x, dim=axis, descending=largest, stable=True)
+    return vals.narrow(axis, 0, kk), idx.narrow(axis, 0, kk)
+
+
+def _arg(ctx: OpContext, x, np_fn, torch_fn):
+    """ArgMax / ArgMin: the first extreme index, or the last with
+    select_last_index; int64."""
+    axis = ctx.attr("axis", 0)
+    keep = bool(ctx.attr("keepdims", 1))
+    last = bool(ctx.attr("select_last_index", 0))
+    if ctx.is_fold:
+        axis = axis % max(np.ndim(x), 1)
+        idx = np_fn(np.flip(x, axis=axis) if last else x, axis=axis)
+        if last:
+            idx = np.shape(x)[axis] - 1 - idx
+        return (np.expand_dims(idx, axis) if keep else idx).astype(np.int64)
+    axis = axis % max(x.dim(), 1)
+    idx = torch_fn(torch.flip(x, dims=(axis,)) if last else x, dim=axis, keepdim=keep)
+    return x.shape[axis] - 1 - idx if last else idx
+
+
+@op("ArgMax")
+def argmax(ctx: OpContext, x):
+    return _arg(ctx, x, np.argmax, torch.argmax)
+
+
+@op("ArgMin")
+def argmin(ctx: OpContext, x):
+    return _arg(ctx, x, np.argmin, torch.argmin)
+
+
+@op("OneHot", static_args=(1,))
+def onehot(ctx: OpContext, indices, depth, values):
+    d = static_ints(depth, "onehot depth")[0]
+    axis = ctx.attr("axis", -1)
+    if ctx.is_fold:
+        vals, idx = np.asarray(values), np.asarray(indices)
+        idx = np.where(idx < 0, idx + d, idx)
+        out = np.where(np.expand_dims(idx, -1) == np.arange(d), vals[1], vals[0])
+    else:
+        idx = torch.where(indices < 0, indices + d, indices)
+        hot = idx.unsqueeze(-1) == torch.arange(d, device=idx.device)
+        out = torch.where(hot, values[1], values[0])
+    if axis != -1:
+        axis = axis if axis >= 0 else axis + np.ndim(out)
+        out = np.moveaxis(out, -1, axis) if ctx.is_fold else torch.movedim(out, -1, axis)
+    return out
+
+
+@op("DepthToSpace")
+def depth_to_space(ctx: OpContext, x):
+    b = ctx.attr("blocksize")
+    n, c, h, w = np.shape(x)
+    if ctx.attr("mode", "DCR") == "DCR":
+        dims, perm = (n, b, b, c // (b * b), h, w), (0, 3, 4, 1, 5, 2)
+    else:  # CRD
+        dims, perm = (n, c // (b * b), b, b, h, w), (0, 1, 4, 2, 5, 3)
+    out = (n, c // (b * b), h * b, w * b)
+    if ctx.is_fold:
+        return np.reshape(np.transpose(np.reshape(x, dims), perm), out)
+    return x.reshape(dims).permute(perm).reshape(out)
+
+
+@op("SpaceToDepth")
+def space_to_depth(ctx: OpContext, x):
+    b = ctx.attr("blocksize")
+    n, c, h, w = np.shape(x)
+    dims, perm, out = (n, c, h // b, b, w // b, b), (0, 3, 5, 1, 2, 4), (n, c * b * b, h // b,
+                                                                       w // b)
+    if ctx.is_fold:
+        return np.reshape(np.transpose(np.reshape(x, dims), perm), out)
+    return x.reshape(dims).permute(perm).reshape(out)
+
+
+def _scatter(data: torch.Tensor, pos: torch.Tensor, upd: torch.Tensor,
+             reduction: str) -> torch.Tensor:
+    """data with upd put at the flat element positions pos (pos and upd of
+    one shape). Without a reduction a position written twice takes the last
+    update (JAX's CPU order): each position keeps the update of the highest
+    rank, found by a scatter-max of the ranks, and the others go to a
+    discarded slot, so the write is deterministic on a card too."""
+    flat, pos, upd = data.reshape(-1), pos.reshape(-1), upd.reshape(-1).to(data.dtype)
+    if reduction in ("add", "mul", "max", "min"):
+        how = {"add": "sum", "mul": "prod", "max": "amax", "min": "amin"}[reduction]
+        return flat.scatter_reduce(0, pos, upd, how, include_self=True).reshape(data.shape)
+    if reduction != "none":
+        raise NotImplementedError(f"scatter reduction {reduction!r}")
+    n = flat.numel()
+    rank = torch.arange(pos.numel(), device=pos.device)
+    winner = torch.full((n,), -1, dtype=torch.int64, device=pos.device)
+    winner = winner.scatter_reduce(0, pos, rank, "amax", include_self=True)
+    pos = torch.where(winner.gather(0, pos) == rank, pos, n)
+    out = torch.cat([flat, flat[:1]]).scatter(0, pos, upd)
+    return out[:n].reshape(data.shape)
+
+
+@op("ScatterND", foldable=False)
+def scatter_nd(ctx: OpContext, data, indices, updates):
+    """Each index row addresses a slice of data (its first k axes); every
+    `reduction` of ONNX (none, add, mul, max, min)."""
+    idx = indices.to(torch.int64)
+    k = idx.shape[-1]
+    idx = torch.where(idx < 0, idx + index_on(np.array(data.shape[:k]), idx.device), idx)
+    strides = index_on(np.array([int(np.prod(data.shape[i + 1: k])) for i in range(k)]),
+                       idx.device)
+    block = int(np.prod(data.shape[k:]))
+    row = (idx * strides).sum(-1)  # [*idx.shape[:-1]]
+    pos = row.reshape(tuple(row.shape) + (1,)) * block + torch.arange(block, device=idx.device)
+    return _scatter(data, pos.reshape(updates.shape), updates, ctx.attr("reduction", "none"))
+
+
+@op("ScatterElements", foldable=False)
+def scatter_elements(ctx: OpContext, data, indices, updates):
+    axis = ctx.attr("axis", 0) % data.dim()
+    idx = _wrapped(indices, data.shape[axis])
+    pos = torch.zeros_like(idx)
+    for a in range(data.dim()):
+        coord = idx if a == axis else torch.arange(
+            idx.shape[a], device=idx.device).reshape((-1,) + (1,) * (idx.dim() - a - 1))
+        pos = pos * data.shape[a] + coord
+    return _scatter(data, pos, updates, ctx.attr("reduction", "none"))
+
+
+@op("ReduceSumSquare", static_args=(1,))
+def reduce_sum_square(ctx: OpContext, x, axes=None):
+    from .math_ops import _reduce
+
+    return _reduce(ctx, ctx.xp.square(x), axes, np.sum, torch.sum)
+
+
+@op("Dropout")
+def dropout(ctx: OpContext, x, ratio=None, training_mode=None):
+    """Inference dropout: the identity, and an all-true mask when asked."""
+    if ctx.node is None or len(ctx.node.output) <= 1 or not ctx.node.output[1]:
+        return x
+    if ctx.is_fold:
+        return x, np.ones(np.shape(x), dtype=bool)
+    return x, torch.ones_like(x, dtype=torch.bool)
+
+
+# -- Random ops ---------------------------------------------------------------
+
+
+def rng_key(ctx: OpContext) -> int:
+    """JAX's `_rng_key` (lele_tpu/ops/tensor_ops.py:430-448): an explicit
+    `seed` attribute alone sets the stream (its float32 bits, so that +x and
+    -x differ), else the crc32 of the node's tag (name, or first output),
+    each folded into RNG_SEED."""
+    node_seed = ctx.attr("seed") if ctx.node is not None else None
+    if node_seed is not None:
+        fold = int(np.float32(node_seed).view(np.uint32))
+    else:
+        tag = (ctx.node.name or ctx.node.output[0]) if ctx.node is not None else ""
+        fold = zlib.crc32(tag.encode())
+    return (RNG_SEED << 32) | fold
+
+
+def _random(ctx: OpContext, shape, dtype, normal: bool) -> np.ndarray:
+    """A trace-time draw (the Random ops are `host` emitters: called once
+    while tracing, never merged with another node's draw): a host constant,
+    hoisted once, so every call (and every replay of a captured graph) gives
+    the same numbers, as JAX's trace-time key does. Philox from numpy, not JAX's threefry: the streams
+    hold the same properties (range, moments, one stream a seed), not the
+    same bits."""
+    gen = np.random.Generator(np.random.Philox(key=rng_key(ctx)))
+    shape = tuple(int(d) for d in shape)
+    if normal:
+        v = ctx.attr("mean", 0.0) + ctx.attr("scale", 1.0) * gen.standard_normal(shape)
+        return v.astype(dtype)
+    lo, hi = ctx.attr("low", 0.0), ctx.attr("high", 1.0)
+    v = (lo + (hi - lo) * gen.random(shape)).astype(dtype)
+    return np.minimum(v, np.nextafter(np.asarray(hi, dtype), np.asarray(lo, dtype)))
+
+
+def _random_dtype(ctx: OpContext, like=None) -> np.dtype:
+    dt = ctx.attr("dtype")
+    if dt is not None:
+        return np.dtype(DTYPE_MAP[int(dt)])
+    if like is None:
+        return np.dtype(np.float32)
+    return np.dtype(like.dtype) if isinstance(like, np.ndarray) else np.dtype(
+        str(like.dtype).replace("torch.", ""))
+
+
+@op("RandomNormal", foldable=False, host=True)
+def random_normal(ctx: OpContext):
+    return _random(ctx, ctx.attr_ints("shape"), _random_dtype(ctx), normal=True)
+
+
+@op("RandomNormalLike", foldable=False, host=True)
+def random_normal_like(ctx: OpContext, x):
+    return _random(ctx, np.shape(x), _random_dtype(ctx, x), normal=True)
+
+
+@op("RandomUniform", foldable=False, host=True)
+def random_uniform(ctx: OpContext):
+    return _random(ctx, ctx.attr_ints("shape"), _random_dtype(ctx), normal=False)
+
+
+@op("RandomUniformLike", foldable=False, host=True)
+def random_uniform_like(ctx: OpContext, x):
+    return _random(ctx, np.shape(x), _random_dtype(ctx, x), normal=False)
+
+
+# -- data-dependent output shapes ---------------------------------------------
+
+
+def _require_concrete(op_name: str, v, what: str, hint: str) -> np.ndarray:
+    """The output's shape follows the values: a trace-time value (a
+    constant, or a constant subgraph the tracer folded) runs, a device
+    value raises with the JAX package's hint (lele_tpu/ops/tensor_ops.py:
+    536-548)."""
+    if isinstance(v, torch.Tensor):
+        raise NotImplementedError(
+            f"{op_name} produces data-dependent output shapes, which a captured "
+            f"program's static shapes cannot express for runtime inputs. {what} must "
+            f"be trace-time static. {hint}")
+    return np.asarray(v)
+
+
+_NONZERO_HINT = ("Use a fixed-size mask (Where/Greater) or postprocess on "
+                 "host; the model families here are NMS-free by design.")
+
+
+@op("NonZero")
+def nonzero(ctx: OpContext, x):
+    x = _require_concrete("NonZero", x, "the input", _NONZERO_HINT)
+    return np.stack(np.nonzero(x)).astype(np.int64).reshape(np.ndim(x), -1)
+
+
+@op("Unique")
+def unique(ctx: OpContext, x):
+    x = _require_concrete("Unique", x, "the input", "Deduplicate on host after inference.")
+    axis = ctx.attr("axis")
+    if axis is not None:
+        axis = int(axis) % max(x.ndim, 1)
+    y, idx, inv, cnt = np.unique(x, return_index=True, return_inverse=True,
+                                 return_counts=True, axis=axis)
+    inv = inv.reshape(-1)
+    if not int(ctx.attr("sorted", 1)):  # first-occurrence order
+        order = np.argsort(idx, kind="stable")
+        rank = np.empty_like(order)
+        rank[order] = np.arange(order.size)
+        y = y[order] if axis is None else np.take(y, order, axis=axis)
+        idx, cnt, inv = idx[order], cnt[order], rank[inv]
+    return y, idx.astype(np.int64), inv.astype(np.int64), cnt.astype(np.int64)
+
+
+@op("Compress", foldable=False, static_args=(1,))
+def compress(ctx: OpContext, data, condition):
+    """The output's length is the condition's count of trues: static once
+    the condition is, so a constant condition makes a plain gather over
+    runtime data."""
+    cond = _require_concrete("Compress", condition, "the condition",
+                             "Select with a constant mask, or Where + fixed-size "
+                             "postprocess.")
+    idx = np.nonzero(cond.reshape(-1).astype(bool))[0]
+    axis = ctx.attr("axis")
+    extent = int(np.prod(np.shape(data))) if axis is None else int(np.shape(data)[int(axis)])
+    if idx.size and int(idx.max()) >= extent:
+        raise ValueError(f"Compress: condition marks index {int(idx.max())} but the "
+                         f"compressed axis has extent {extent}")
+    if axis is None:
+        data, axis = data.reshape(-1), 0
+    axis = int(axis) % np.ndim(data)
+    if isinstance(data, torch.Tensor):
+        return torch.index_select(data, axis, index_on(idx, data.device))
+    return np.take(data, idx, axis=axis)
+
+
+_NMS_HINT = ("Use an NMS-free head (top-k + threshold, as YOLO26 does) or run "
+             "NMS on host over the fixed-size candidate set.")
+
+
+def _iou(box: np.ndarray, others: np.ndarray) -> np.ndarray:
+    """IoU of one corner box [y1, x1, y2, x2] (any corner order) against many."""
+    lo = np.minimum(box[:2], box[2:]), np.minimum(others[:, :2], others[:, 2:])
+    hi = np.maximum(box[:2], box[2:]), np.maximum(others[:, :2], others[:, 2:])
+    inter = np.clip(np.minimum(hi[0], hi[1]) - np.maximum(lo[0], lo[1]), 0, None).prod(-1)
+    area = (hi[0] - lo[0]).prod(), (hi[1] - lo[1]).prod(-1)
+    union = area[0] + area[1] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+
+
+@op("NonMaxSuppression", foldable=False, static_args=(0, 1, 2, 3, 4))
+def non_max_suppression(ctx: OpContext, boxes, scores, max_out=None, iou_thr=None,
+                        score_thr=None):
+    """ONNX NonMaxSuppression on concrete boxes and scores (the JAX package
+    refuses it for every input: its count of kept boxes follows the
+    values). Greedy per batch and class, by score (ties to the lower box
+    index), dropping boxes whose IoU with a kept one exceeds the threshold;
+    [n, 3] int64 rows (batch, class, box)."""
+    boxes = _require_concrete("NonMaxSuppression", boxes, "the boxes", _NMS_HINT)
+    scores = _require_concrete("NonMaxSuppression", scores, "the scores", _NMS_HINT)
+    limit = int(np.asarray(max_out).reshape(-1)[0]) if max_out is not None else 0
+    iou_t = float(np.asarray(iou_thr).reshape(-1)[0]) if iou_thr is not None else 0.0
+    score_t = (float(np.asarray(score_thr).reshape(-1)[0])
+               if score_thr is not None else None)
+    b = boxes.astype(np.float64)
+    if ctx.attr("center_point_box", 0):  # [x_c, y_c, w, h] -> corners [y1, x1, y2, x2]
+        b = np.stack([b[..., 1] - b[..., 3] / 2, b[..., 0] - b[..., 2] / 2,
+                      b[..., 1] + b[..., 3] / 2, b[..., 0] + b[..., 2] / 2], -1)
+    out = []
+    for n in range(scores.shape[0]):
+        for c in range(scores.shape[1]):
+            s = scores[n, c].astype(np.float64)
+            cand = np.argsort(-s, kind="stable")
+            if score_t is not None:
+                cand = cand[s[cand] > score_t]
+            kept: list[int] = []
+            for i in cand:
+                if len(kept) >= limit:
+                    break
+                if not kept or (_iou(b[n, i], b[n, kept]) <= iou_t).all():
+                    kept.append(int(i))
+            out += [(n, c, i) for i in kept]
+    return np.asarray(out, np.int64).reshape(-1, 3)

@@ -1502,3 +1502,182 @@ def test_fp8_initializers_reach_the_card_as_float8(dev, monkeypatch):
         assert w8.dtype == torch.float8_e4m3fn and w8.is_cuda
         assert torch.equal(w8.float().cpu(), torch.tensor([1.0, -2.0, 0.5, 4.0]))
         assert torch.equal(y.cpu(), torch.tensor([2.0, -1.0, 1.5, 5.0]))
+
+
+# -- the ONNX op layer's math, tensor, nn and activation emitters (phase 36) ------
+
+
+def _one_op(op_type, inputs, inits=None, n_out=1, opset=17, names=None, **attrs):
+    from lele_tpu_torch.onnx import builder as ob
+
+    outs = [f"y{i}" for i in range(n_out)]
+    return ob.build_model_bytes(
+        [ob.node(op_type, names or list(inputs) + list(inits or {}), outs, **attrs)],
+        [ob.vi_from_array(k, v) for k, v in inputs.items()],
+        [ob.value_info(o, 1, []) for o in outs],
+        [ob.tensor_from_array(v, k) for k, v in (inits or {}).items()], opset=opset)
+
+
+def _card_and_cpu(bs, inputs, bits=True):
+    """(the captured card call's outputs, the CPU's) of the same bytes; the
+    card's call must capture and give its replay()'s bits (`bits`; else
+    within 1e-5 relative: atomic sums land in any order)."""
+    from lele_tpu_torch.compiler import compile_model
+
+    cm = compile_model(bs, device="cuda", strict=True)
+    got = [o.clone() for o in cm(**inputs)]
+    again = cm.replay(**inputs)
+    assert cm.stats["captured"]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b) if bits else torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+    cpu = compile_model(bs, device="cpu", strict=True).run_np(**inputs)
+    return [g.cpu().numpy() for g in got], cpu
+
+
+@pytest.mark.cuda
+def test_topk_and_argmax_ties_take_the_lower_index_on_cuda(dev):
+    """lax.top_k's order among equal values (the lower index first) and
+    ArgMax's first / last extreme, on the card, where torch.topk's order of
+    ties is not defined: wide rows of few distinct values."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 4, (64, 4096)).astype(np.float32)
+    for largest in (1, 0):
+        (vals, idx), (cv, ci) = _card_and_cpu(
+            _one_op("TopK", {"x": x}, {"k": np.array([300], np.int64)}, n_out=2,
+                    largest=largest), {"x": x})
+        order = np.argsort(-x if largest else x, axis=1, kind="stable")[:, :300]
+        np.testing.assert_array_equal(idx, order)
+        np.testing.assert_array_equal(idx, ci)
+        np.testing.assert_array_equal(vals, cv)
+    for op_type, last in (("ArgMax", 0), ("ArgMax", 1), ("ArgMin", 0), ("ArgMin", 1)):
+        (got,), (cpu,) = _card_and_cpu(
+            _one_op(op_type, {"x": x}, axis=1, keepdims=0, select_last_index=last), {"x": x})
+        ext = (x.max if op_type == "ArgMax" else x.min)(1, keepdims=True)
+        hits = x == ext
+        want = 4095 - np.argmax(hits[:, ::-1], 1) if last else np.argmax(hits, 1)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, cpu)
+
+
+@pytest.mark.cuda
+def test_maxpool_indices_on_cuda(dev):
+    """MaxPool's Indices output on the card: the first maximum of each
+    window as a flat position over the whole [N, C, H, W] tensor (and with
+    the spatial axes column-major at storage_order 1), padded windows and
+    ceil_mode's extra window included, equal to the CPU's; windows full of
+    equal values pick their first entry."""
+    rng = np.random.default_rng(1)
+    x = np.round(rng.standard_normal((2, 3, 9, 10)), 0).astype(np.float32)
+    for order in (0, 1):
+        (vals, idx), (cv, ci) = _card_and_cpu(
+            _one_op("MaxPool", {"x": x}, n_out=2, kernel_shape=[3, 3], strides=[2, 2],
+                    pads=[1, 1, 0, 1], ceil_mode=1, storage_order=order), {"x": x})
+        np.testing.assert_array_equal(idx, ci)
+        np.testing.assert_array_equal(vals, cv)
+        n, c, h, w = np.unravel_index(idx, x.shape) if not order else (
+            idx // (3 * 90), idx // 90 % 3, idx % 90 % 9, idx % 90 // 9)
+        np.testing.assert_array_equal(x[n, c, h, w], vals)
+
+
+@pytest.mark.cuda
+def test_scatter_duplicates_take_the_last_update_on_cuda(dev):
+    """ScatterND and ScatterElements without a reduction write a position
+    named twice with its last update (JAX's CPU order), deterministically on
+    the card; with add and mul every update counts (in the order the card's
+    atomics take them, so those calls agree to rounding, not bits)."""
+    rng = np.random.default_rng(2)
+    d = rng.standard_normal((8, 16)).astype(np.float32)
+    idx = rng.integers(0, 8, (64, 1)).astype(np.int64)  # many duplicates
+    u = rng.standard_normal((64, 16)).astype(np.float32)
+    want = d.copy()
+    for i, row in enumerate(idx[:, 0]):
+        want[row] = u[i]
+    for red in ("none", "add", "mul"):
+        (got,), (cpu,) = _card_and_cpu(
+            _one_op("ScatterND", {"d": d, "u": u}, {"i": idx}, names=["d", "i", "u"],
+                    opset=18, reduction=red), {"d": d, "u": u}, bits=red == "none")
+        if red == "none":
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(cpu, want)
+        else:
+            np.testing.assert_allclose(got, cpu, rtol=1e-5, atol=1e-5)
+    ie = rng.integers(0, 16, (8, 40)).astype(np.int64)
+    ue = rng.standard_normal((8, 40)).astype(np.float32)
+    want = d.copy()
+    for r in range(8):
+        for j in range(40):
+            want[r, ie[r, j]] = ue[r, j]
+    (got,), (cpu,) = _card_and_cpu(
+        _one_op("ScatterElements", {"d": d, "u": ue}, {"i": ie}, names=["d", "i", "u"],
+                axis=1), {"d": d, "u": ue})
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cpu, want)
+
+
+@pytest.mark.cuda
+def test_random_ops_give_the_same_numbers_every_captured_call(dev):
+    """The Random ops draw once at trace time (JAX's key is a trace-time
+    constant): two replays of the captured graph, and the CPU's compile of
+    the same bytes, give the same numbers; nodes with different seeds give
+    different ones."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+
+    bs = ob.build_model_bytes(
+        [ob.node("RandomNormalLike", ["x"], ["n"], seed=1.0),
+         ob.node("RandomUniform", [], ["u"], shape=[64, 64], seed=2.0),
+         ob.node("Add", ["x", "n"], ["a"]), ob.node("Add", ["a", "u"], ["y"]),
+         ob.node("RandomUniformLike", ["x"], ["v"], seed=3.0), ob.node("Mul", ["v", "x"], ["z"])],
+        [ob.value_info("x", 1, [64, 64])], [ob.value_info("y", 1, []), ob.value_info("z", 1, [])])
+    cm = compile_model(bs, device=dev, strict=True)
+    x = torch.ones((64, 64), device=dev)
+    first = [o.clone() for o in cm(x=x)]
+    second = cm(x=x)
+    assert cm.stats["captured"]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    cpu = compile_model(bs, device="cpu", strict=True).run_np(x=np.ones((64, 64), np.float32))
+    for a, b in zip(first, cpu):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+    z = first[1].cpu().numpy()
+    assert 0.0 <= z.min() and z.max() < 1.0 and not np.array_equal(z, first[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_int_div_and_mod_by_zero_give_jax_values_on_cuda(dev):
+    """Integer Div and Mod on the card where the divisor is zero give the
+    JAX package's CPU values ([7, -7, 0] / 0 -> [-2, -1, -1]; Mod and fmod
+    by zero -> 0; all ones for uint8 Div), and the CPU's elsewhere."""
+    for dt in (np.int32, np.int64, np.uint8):
+        a = np.array([7, 250, 0, 9, 5] if dt == np.uint8 else [7, -7, 0, -9, 5], dt)
+        b = np.array([0, 0, 0, 2, 3], dt)
+        for op_type, attrs in (("Div", {}), ("Mod", {}), ("Mod", {"fmod": 1})):
+            (got,), (cpu,) = _card_and_cpu(_one_op(op_type, {"a": a, "b": b}, **attrs),
+                                           {"a": a, "b": b})
+            np.testing.assert_array_equal(got, cpu)
+            if op_type == "Div":
+                zero = [255] * 3 if dt == np.uint8 else [-2, -1, -1]
+                np.testing.assert_array_equal(got[:3], zero)
+            else:
+                np.testing.assert_array_equal(got[:3], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c["name"] for c in cs.emitter_graphs()])
+def test_emitter_graph_on_the_card(dev, name):
+    """Each of phase 36's graphs on the card, captured (or folded on
+    concrete values), against the CPU at its gate."""
+    c = next(c for c in cs.emitter_graphs() if c["name"] == name)
+    from lele_tpu_torch.compiler import compile_model
+
+    bs = cs.emitter_graph_bytes(c)
+    cm = compile_model(bs, device=dev, strict=True)
+    got = [o.cpu().numpy() for o in cm(**c["inputs"])]
+    assert cm.stats["captured"] or c["concrete"]
+    cpu = compile_model(bs, device="cpu", strict=True).run_np(**c["inputs"])
+    for g, w in zip(got, cpu):
+        assert g.shape == w.shape
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(g[~fin], w[~fin])
+        if fin.any():
+            scale = max(1.0, float(np.abs(w[fin]).max()))
+            assert np.abs(g[fin].astype(np.float64) - w[fin]).max() <= c["tol"] * scale

@@ -10,15 +10,23 @@ spec instead and ROADMAP.md §3 "Known" lists the departure.
 """
 
 import io
+import sys
 from contextlib import redirect_stderr
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from lele_tpu.compiler import compile_model as j_compile
 from lele_tpu.onnx import builder as jb
 from lele_tpu.onnx.loader import OnnxModel as JOnnxModel
 from lele_tpu_torch.compiler import compile_model
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tests"))
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
 
 TOL = 1e-5  # tests/optest.py assert_close
 
@@ -82,3 +90,397 @@ def test_int_div_by_zero_gives_jax_values(dt):
         b2 = np.array([2, 0, -2, 0, 3], dt)
         (g,), (w,) = _op("Div", {"a": a2, "b": b2})
         np.testing.assert_array_equal(g, w)
+
+
+def test_int_mod_by_zero_gives_jax_values():
+    """Mod and fmod by an integer zero give 0, as jnp.mod and jnp.fmod give
+    it (they divide by one there); the other entries keep their sign rules."""
+    for dt in (np.int32, np.int64, np.uint8):
+        a = np.array([7, 250, 0] if dt == np.uint8 else [7, -7, 0], dt)
+        for fmod in (0, 1):
+            (m,), (jm,) = _op("Mod", {"a": a, "b": np.zeros(3, dt)}, fmod=fmod)
+            np.testing.assert_array_equal(m, jm)
+            np.testing.assert_array_equal(m, np.zeros(3))
+    a = np.array([9, -9, 5, -5, 3, 0], np.int32)
+    b = np.array([2, 0, -2, 3, -3, 0], np.int32)
+    for fmod in (0, 1):
+        (g,), (w,) = _op("Mod", {"a": a, "b": b}, fmod=fmod)
+        np.testing.assert_array_equal(g, w)
+
+
+# -- the registry -----------------------------------------------------------------
+
+
+def test_registry_holds_every_set_one_emitter():
+    """The port registers 150 of JAX's 195 ai.onnx emitters: all but the 45
+    of ROADMAP §1.1.2-1.1.3, which LATER names; the Trilu alias resolves."""
+    import lele_tpu.ops.registry as jreg
+    import lele_tpu_torch.ops.registry as preg
+    from test_torch_port_ops_battery import LATER
+
+    assert set(jreg.OPS) - set(preg.OPS) == LATER and len(LATER) == 45
+    assert len(preg.OPS) == 150 and set(preg.OPS) <= set(jreg.OPS)
+    assert preg.CONTRIB_ALIASES == jreg.CONTRIB_ALIASES
+    assert preg.lookup_op("com.microsoft", "Trilu") is preg.OPS["Trilu"]
+    set_one = [n for n, od in jreg.OPS.items() if od.fn.__module__.rsplit(".", 1)[1] in (
+        "math_ops", "tensor_ops", "nn_ops", "activation_ops")]
+    assert len(set(set_one) - {"LSTM", "GRU", "RNN"}) > 87
+    for name in set_one:  # JAX's fold and static-argument flags
+        if name in ("NonMaxSuppression", "LSTM", "GRU", "RNN"):
+            continue  # NMS runs on concrete values in the port; RNNs: slices 3, 5
+        j, p = jreg.OPS[name], preg.OPS[name]
+        assert (j.foldable, tuple(j.static_args)) == (p.foldable, tuple(p.static_args)), name
+
+
+def test_trilu_contrib_alias_matches_jax():
+    x = np.random.default_rng(0).standard_normal((2, 4, 5)).astype(np.float32)
+    node = jb.node("Trilu", ["x", "k"], ["y0"], domain="com.microsoft", upper=0)
+    bs = jb.build_model_bytes([node], [jb.vi_from_array("x", x)], [jb.value_info("y0", 1, [])],
+                              [jb.tensor_from_array(np.array(1, np.int64), "k")])
+    (got,), (want,) = _both(bs, {"x": x})
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.tril(x, 1))
+
+
+# -- chip_smoke phase 36's emitter graphs on the CPU ------------------------------
+
+GRAPHS = {c["name"]: c for c in chip_smoke.emitter_graphs()}
+
+
+def _nms_oracle(boxes, scores, limit, iou_t):
+    """ONNX NonMaxSuppression, corner boxes, greedy, written out directly."""
+    out = []
+    for n in range(scores.shape[0]):
+        for c in range(scores.shape[1]):
+            order = sorted(range(scores.shape[2]), key=lambda i: (-scores[n, c, i], i))
+            kept = []
+            for i in order:
+                if len(kept) == limit:
+                    break
+                ok = True
+                for j in kept:
+                    a, b = boxes[n, i], boxes[n, j]
+                    ih = min(max(a[0], a[2]), max(b[0], b[2])) - max(min(a[0], a[2]),
+                                                                     min(b[0], b[2]))
+                    iw = min(max(a[1], a[3]), max(b[1], b[3])) - max(min(a[1], a[3]),
+                                                                     min(b[1], b[3]))
+                    inter = max(ih, 0) * max(iw, 0)
+                    union = (abs(a[2] - a[0]) * abs(a[3] - a[1])
+                             + abs(b[2] - b[0]) * abs(b[3] - b[1]) - inter)
+                    ok = ok and not (union > 0 and inter / union > iou_t)
+                if ok:
+                    kept.append(i)
+            out += [(n, c, i) for i in kept]
+    return np.array(out, np.int64).reshape(-1, 3)
+
+
+def test_emitter_graphs_cover_the_set():
+    """Phase 36's graphs name every emitter of ROADMAP §1.1.1 and
+    ConvTranspose at 2-D and 3-D."""
+    import lele_tpu.ops.registry as jreg
+
+    set_one = {n for n, od in jreg.OPS.items() if od.fn.__module__.rsplit(".", 1)[1] in (
+        "math_ops", "tensor_ops", "nn_ops", "activation_ops")}
+    from lele_tpu_torch.ops import registry as preg
+
+    new = set_one - {n for n in preg.OPS if n in _SLICE_BEFORE}
+    ops = {node["op_type"] for c in GRAPHS.values() for node in c["nodes"]}
+    assert len(new) == 87 and new <= ops, sorted(new - ops)
+    assert {"ConvTranspose 2-D", "ConvTranspose 3-D"} <= set(GRAPHS)
+
+
+# the default-domain names of those four JAX modules the port had before this slice
+_SLICE_BEFORE = frozenset(
+    "Add Sub Mul Div Neg Less Equal Log Erf MatMul Gemm Range ReduceSum ReduceMean STFT "
+    "Relu LeakyRelu Sigmoid Softmax Tanh Softplus Gelu Identity Transpose Reshape "
+    "Unsqueeze Squeeze Concat Gather Shape Cast Slice Split Constant ConstantOfShape "
+    "Expand Where Conv ConvTranspose LayerNormalization RMSNormalization LSTM GRU "
+    "RNN".split())
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_emitter_graph_matches_jax(name):
+    """Each of phase 36's graphs through both packages on the CPU: JAX's
+    outputs at the graph's tolerance (max|d| <= tol·max(1, max|ref|)), or,
+    where the port departs from JAX, the ONNX spec's: IsInf's detect_*
+    attributes (JAX ignores them), NonMaxSuppression on concrete boxes (JAX
+    refuses it), the Random ops' streams (threefry's bits are not held, only
+    their shape and range)."""
+    c = GRAPHS[name]
+    bs = chip_smoke.emitter_graph_bytes(c)
+    cm = compile_model(bs, device="cpu", strict=True)
+    got = cm.run_np(**c["inputs"])
+    assert cm.stats["capturable"]
+    if name == "NonMaxSuppression":
+        i = c["inits"]
+        np.testing.assert_array_equal(got[0], _nms_oracle(i["b"], i["s"], 3, 0.3))
+        return
+    with redirect_stderr(io.StringIO()):
+        want = j_compile(JOnnxModel.from_bytes(bs), strict=True).run_np(**c["inputs"])
+    if name == "IsInf":  # detect_negative=0
+        want = [np.isposinf(c["inputs"]["x"])]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape
+        if name.startswith("Random"):
+            continue
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        fin = np.isfinite(w)
+        assert np.array_equal(g[~fin & ~np.isnan(w)], w[~fin & ~np.isnan(w)])
+        if fin.any():
+            scale = max(1.0, float(np.abs(w[fin]).max()))
+            assert np.abs(g[fin] - w[fin]).max() <= c["tol"] * scale, name
+
+
+# -- attribute grids against JAX ----------------------------------------------------
+
+RNG = np.random.default_rng(21)
+
+
+@pytest.mark.parametrize("ct", ["half_pixel", "pytorch_half_pixel", "align_corners",
+                                "asymmetric"])
+@pytest.mark.parametrize("mode", ["nearest", "linear"])
+def test_resize_modes_match_jax(mode, ct):
+    """Every coordinate_transformation_mode JAX's Resize has, nearest (each
+    nearest_mode) and linear, up and down, by scales and by sizes (a size
+    of 1 takes pytorch_half_pixel's special case)."""
+    x = RNG.standard_normal((1, 2, 5, 7)).astype(np.float32)
+    roi = np.zeros(0, np.float32)
+    nearest = (["round_prefer_floor", "round_prefer_ceil", "floor", "ceil"]
+               if mode == "nearest" else ["round_prefer_floor"])
+    for nm in nearest:
+        for inits in ({"roi": roi, "s": np.array([1, 1, 1.6, 0.5], np.float32)},
+                      {"roi": roi, "s": np.zeros(0, np.float32),
+                       "z": np.array([1, 2, 1, 11], np.int64)}):
+            (g,), (w,) = _op("Resize", {"x": x}, inits=inits, mode=mode,
+                             coordinate_transformation_mode=ct, nearest_mode=nm)
+            _close(g, w)
+
+
+@pytest.mark.parametrize("mode", ["constant", "reflect", "edge", "wrap"])
+def test_pad_modes_match_jax(mode):
+    """Each mode with negative pads (crop first), pads past the extent and
+    `axes` (opset 18); constant mode with its fill as an input, which JAX's
+    emitter reads on the host (lele_tpu/ops/tensor_ops.py:307) and so
+    refuses when it is hoisted: held to numpy (ROADMAP §3 "Known")."""
+    x = RNG.standard_normal((3, 4, 5)).astype(np.float32)
+    pads = np.array([1, -1, 3, 2, 0, 4], np.int64)
+    want = np.pad(x[:, 1:], [(1, 2), (0, 0), (3, 4)], mode=mode)
+    (g,), (w,) = _op("Pad", {"x": x}, inits={"p": pads}, mode=mode)
+    _close(g, w)
+    np.testing.assert_array_equal(g, want)
+    if mode == "constant":  # the fill as an input: JAX's emitter cannot take it
+        bs = _bytes([jb.node("Pad", ["x", "p", "v"], ["y0"])], {"x": x}, ["y0"],
+                    {"p": pads, "v": np.float32(-2.5)})
+        (g,) = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+        np.testing.assert_array_equal(
+            g, np.pad(x[:, 1:], [(1, 2), (0, 0), (3, 4)], constant_values=-2.5))
+    (g,), (w,) = _op("Pad", {"x": x}, inits={
+        "p": np.array([2, 3], np.int64), "a": np.array([-1], np.int64)}, mode=mode,
+        opset=18, names=["x", "p", "", "a"])
+    _close(g, w)
+
+
+@pytest.mark.parametrize("excl,rev", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_cumsum_forms_match_jax(excl, rev):
+    x = RNG.standard_normal((3, 6)).astype(np.float32)
+    for axis in (1, -2):
+        (g,), (w,) = _op("CumSum", {"x": x}, inits={"a": np.array(axis, np.int64)},
+                         exclusive=excl, reverse=rev)
+        _close(g, w)
+    xi = RNG.integers(-9, 9, (4,)).astype(np.int32)
+    (g,), (w,) = _op("CumSum", {"x": xi}, inits={"a": np.array(0, np.int64)},
+                     exclusive=excl, reverse=rev)
+    assert g.dtype == np.int32
+    np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("count_pad", [0, 1])
+@pytest.mark.parametrize("ceil", [0, 1])
+def test_pools_geometry_matches_jax(count_pad, ceil):
+    """AveragePool and MaxPool at 1-3 spatial dims with asymmetric pads,
+    strides, dilations and ceil_mode (a last window that starts in the pad)."""
+    for shape, k, s, d, p in (((2, 3, 11), [3], [2], [2], [1, 2]),
+                              ((1, 2, 7, 9), [3, 2], [2, 3], [1, 2], [1, 0, 2, 1]),
+                              ((1, 2, 5, 6, 7), [2, 3, 2], [2, 2, 3], [1, 1, 1],
+                               [0, 1, 1, 1, 0, 1])):
+        x = RNG.standard_normal(shape).astype(np.float32)
+        (g,), (w,) = _op("AveragePool", {"x": x}, kernel_shape=k, strides=s, pads=p,
+                         ceil_mode=ceil, count_include_pad=count_pad, opset=19, dilations=d)
+        _close(g, w)
+        (g, gi), (w, wi) = _op("MaxPool", {"x": x}, n_out=2, kernel_shape=k, strides=s,
+                               pads=p, ceil_mode=ceil, dilations=d)
+        _close(g, w)
+        np.testing.assert_array_equal(gi, wi)
+
+
+def test_maxpool_storage_order_one_and_int_types():
+    """storage_order 1 (the JAX package refuses it): the spatial axes of the
+    flat index column-major, checked against the values they point at; and
+    int8 and int32 inputs keep their values and type."""
+    x = np.round(RNG.standard_normal((2, 3, 6, 5)) * 3).astype(np.float32)
+    bs = _bytes([jb.node("MaxPool", ["x"], ["y0", "y1"], kernel_shape=[2, 3], strides=[2, 1],
+                         storage_order=1)], {"x": x}, ["y0", "y1"])
+    vals, idx = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+    h, w = idx % 30 % 6, idx % 30 // 6
+    np.testing.assert_array_equal(x[idx // 90, idx // 30 % 3, h, w], vals)
+    for dt in (np.int8, np.int32):
+        xi = RNG.integers(-100, 100, (1, 2, 5, 5)).astype(dt)
+        (g,), (w_,) = _op("MaxPool", {"x": xi}, kernel_shape=[2, 2], pads=[1, 1, 0, 0])
+        assert g.dtype == dt
+        np.testing.assert_array_equal(g, w_)
+
+
+@pytest.mark.parametrize("red", ["none", "add", "mul"])
+def test_scatter_reductions_and_duplicates_match_jax(red):
+    """ScatterND and ScatterElements with duplicate indices (the last
+    update wins without a reduction, JAX's CPU order) and JAX's reductions."""
+    d = RNG.standard_normal((5, 4)).astype(np.float32)
+    idx = np.array([[1], [3], [1], [-1], [3]], np.int64)
+    u = RNG.standard_normal((5, 4)).astype(np.float32)
+    (g,), (w,) = _op("ScatterND", {"d": d, "u": u}, inits={"i": idx}, names=["d", "i", "u"],
+                     opset=16, reduction=red)
+    _close(g, w)
+    ie = np.array([[0, 3, 0, 0], [2, 2, -1, 1]], np.int64)
+    ue = RNG.standard_normal((2, 4)).astype(np.float32)
+    (g,), (w,) = _op("ScatterElements", {"d": d, "u": ue}, inits={"i": ie},
+                     names=["d", "i", "u"], opset=16, axis=1, reduction=red)
+    _close(g, w)
+
+
+@pytest.mark.parametrize("red", ["max", "min"])
+def test_scatter_max_min_follow_onnx(red):
+    """max and min (opset 18): the port keeps the extreme of the data and
+    every update at a position, as ONNX defines them (the JAX package's
+    emitters write the updates as `none` would: ROADMAP §3 "Known")."""
+    d = RNG.standard_normal((4, 3)).astype(np.float32)
+    idx = np.array([[2], [0], [2]], np.int64)
+    u = RNG.standard_normal((3, 3)).astype(np.float32)
+    bs = _bytes([jb.node("ScatterND", ["d", "i", "u"], ["y0"], reduction=red)],
+                {"d": d, "u": u}, ["y0"], {"i": idx}, opset=18)
+    (g,) = compile_model(bs, device="cpu", strict=True).run_np(d=d, u=u)
+    want = d.copy()
+    f = np.maximum if red == "max" else np.minimum
+    for j, row in enumerate(idx[:, 0]):
+        want[row] = f(want[row], u[j])
+    np.testing.assert_array_equal(g, want)
+
+
+def test_topk_argmax_ties_match_jax():
+    """Equal values: TopK takes the lower index first (lax.top_k), largest
+    and smallest; ArgMax and ArgMin the first, or the last with
+    select_last_index."""
+    x = np.array([[1.0, 3.0, 3.0, 2.0, 3.0, 1.0], [0.0, 0.0, -1.0, -1.0, 5.0, 5.0]],
+                 np.float32)
+    for largest in (1, 0):
+        (gv, gi), (wv, wi) = _op("TopK", {"x": x}, n_out=2,
+                                 inits={"k": np.array([4], np.int64)}, largest=largest)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+    for op_type in ("ArgMax", "ArgMin"):
+        for last in (0, 1):
+            for keep in (0, 1):
+                (g,), (w,) = _op(op_type, {"x": x}, axis=-1, keepdims=keep,
+                                 select_last_index=last)
+                np.testing.assert_array_equal(g, w)
+
+
+def test_isinf_detect_attributes_follow_onnx():
+    """detect_positive / detect_negative (the JAX package ignores them and
+    flags both infinities)."""
+    x = np.array([np.inf, -np.inf, 1.0, np.nan], np.float32)
+    for pos, neg, want in ((1, 1, [1, 1, 0, 0]), (1, 0, [1, 0, 0, 0]), (0, 1, [0, 1, 0, 0]),
+                           (0, 0, [0, 0, 0, 0])):
+        bs = _bytes([jb.node("IsInf", ["x"], ["y0"], detect_positive=pos,
+                             detect_negative=neg)], {"x": x}, ["y0"])
+        (g,) = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+        np.testing.assert_array_equal(g, np.array(want, bool))
+
+
+def test_int_pow_negative_exponent_truncates():
+    """An integer base under a negative exponent: the real power truncated
+    toward zero (torch refuses, jnp wraps around: ROADMAP §3 "Known"); a
+    non-negative exponent gives JAX's values."""
+    a = np.array([2, 3, -2, 1, -1, 4], np.int32)
+    b = np.array([-1, -2, -1, -3, -3, 2], np.int32)
+    bs = _bytes([jb.node("Pow", ["a", "b"], ["y0"])], {"a": a, "b": b}, ["y0"])
+    (g,) = compile_model(bs, device="cpu", strict=True).run_np(a=a, b=b)
+    np.testing.assert_array_equal(g, [0, 0, 0, 1, -1, 16])
+    (g,), (w,) = _op("Pow", {"a": a, "b": np.abs(b)})
+    np.testing.assert_array_equal(g, w)
+
+
+def test_random_ops_hold_jax_tests_properties():
+    """The streams' properties (tests/test_op_battery2.py:149-185,
+    test_tensor_ops.py:396-403): ranges and moments; the same seed the same
+    numbers in two compiles; distinct nodes without a seed distinct streams,
+    from the crc32 of their names; a seed of -x apart from x."""
+    def run(nodes, x):
+        bs = _bytes(nodes, {"x": x}, ["y0"])
+        return compile_model(bs, device="cpu", strict=True).run_np(x=x)[0]
+
+    x = np.zeros((128, 128), np.float32)
+    n = run([jb.node("RandomNormalLike", ["x"], ["r"], mean=1.0, scale=2.0),
+             jb.node("Add", ["r", "x"], ["y0"])], x)
+    assert abs(n.mean() - 1.0) < 0.05 and abs(n.std() - 2.0) < 0.05
+    u = run([jb.node("RandomUniformLike", ["x"], ["r"], low=2.0, high=5.0, seed=3.0),
+             jb.node("Add", ["r", "x"], ["y0"])], x)
+    assert 2.0 <= u.min() and u.max() < 5.0 and abs(u.mean() - 3.5) < 0.05
+    u2 = run([jb.node("RandomUniformLike", ["x"], ["r"], low=2.0, high=5.0, seed=3.0),
+              jb.node("Add", ["r", "x"], ["y0"])], x)
+    np.testing.assert_array_equal(u, u2)
+    neg = run([jb.node("RandomUniformLike", ["x"], ["r"], low=2.0, high=5.0, seed=-3.0),
+               jb.node("Add", ["r", "x"], ["y0"])], x)
+    assert not np.array_equal(u, neg)
+    two = run([jb.node("RandomNormalLike", ["x"], ["a"], name="na"),
+               jb.node("RandomNormalLike", ["x"], ["b"], name="nb"),
+               jb.node("Sub", ["a", "b"], ["y0"])], x)
+    assert two.std() > 1.0  # two independent streams, not one
+    h = run([jb.node("RandomUniform", [], ["r"], shape=[128, 128], dtype=10),
+             jb.node("Cast", ["r"], ["c"], to=1), jb.node("Add", ["c", "x"], ["y0"])], x)
+    assert 0.0 <= h.min() and h.max() < 1.0
+
+
+def test_data_dependent_ops_run_on_concrete_values_only():
+    """NonZero, Unique, Compress's condition and NonMaxSuppression fold or
+    gather on trace-time values; a runtime value raises JAX's refusal."""
+    x = np.array([[1.0, 0.0, 2.0], [0.0, 3.0, 3.0]], np.float32)
+    for op_type, n_out in (("NonZero", 1), ("Unique", 4)):
+        bs = _bytes([jb.node(op_type, ["c"], [f"y{i}" for i in range(n_out)])], {},
+                    [f"y{i}" for i in range(n_out)], {"c": x})
+        got = compile_model(bs, device="cpu", strict=True).run_np()
+        with redirect_stderr(io.StringIO()):
+            want = j_compile(JOnnxModel.from_bytes(bs), strict=True).run_np()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        bs = _bytes([jb.node(op_type, ["x"], [f"y{i}" for i in range(n_out)])], {"x": x},
+                    [f"y{i}" for i in range(n_out)])
+        with pytest.raises(NotImplementedError, match="data-dependent"):
+            compile_model(bs, device="cpu", strict=True)
+    boxes = np.zeros((1, 2, 4), np.float32)
+    bs = _bytes([jb.node("NonMaxSuppression", ["b", "s"], ["y0"])],
+                {"b": boxes, "s": np.zeros((1, 1, 2), np.float32)}, ["y0"])
+    with pytest.raises(NotImplementedError, match="NMS-free"):
+        compile_model(bs, device="cpu", strict=True)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_conv_transpose_forms_match_jax(rank):
+    """ConvTranspose at 1-3 spatial dims: groups, dilations, strides,
+    output_padding, explicit and negative pads, output_shape with each
+    auto_pad, SAME_* without pads, and a bias."""
+    cin, cout_g, g = 4, 3, 2
+    x = RNG.standard_normal((2, cin) + (5, 4, 3)[:rank]).astype(np.float32)
+    w = (RNG.standard_normal((cin, cout_g) + (3, 2, 2)[:rank]) * 0.3).astype(np.float32)
+    b = RNG.standard_normal(cout_g * g).astype(np.float32)
+    forms = [dict(strides=[2, 1, 3][:rank], group=g, dilations=[1, 2, 1][:rank],
+                  output_padding=[1, 0, 2][:rank], pads=([1, 0, 0][:rank] + [0, 1, -1][:rank])),
+             dict(strides=[2] * rank, group=g, output_shape=[11, 8, 6][:rank]),
+             dict(strides=[2] * rank, group=g, output_shape=[10, 9, 7][:rank],
+                  auto_pad="SAME_UPPER"),
+             dict(strides=[3] * rank, group=g, auto_pad="SAME_LOWER"),
+             dict(group=g, auto_pad="VALID")]
+    for attrs in forms:
+        (gt,), (wt,) = _op("ConvTranspose", {"x": x}, inits={"w": w, "b": b}, **attrs)
+        _close(gt, wt, tol=1e-4)  # tests/test_nn_ops.py's conv gate

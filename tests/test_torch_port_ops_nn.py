@@ -1,0 +1,19 @@
+"""The JAX nn-op tests replayed through the port: tests/test_nn_ops.py
+(convs and transposed convs at 1-2 spatial dims, pools, Resize, the norms,
+STFT, LSTM, GRU, RNN), each graph through both packages' compile_model on
+the same bytes, the port's outputs handed to the JAX test's own
+assertions and held to JAX's at the test's tolerance
+(test_torch_port_ops_battery.py says how)."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_port_ops_battery import cases, replay_case  # noqa: E402
+
+
+@pytest.mark.parametrize("mod_name,fn_name,kwargs", cases(["test_nn_ops"]))
+def test_replays_jax_op_test(monkeypatch, mod_name, fn_name, kwargs):
+    replay_case(monkeypatch, mod_name, fn_name, kwargs)

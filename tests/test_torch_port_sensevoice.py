@@ -207,7 +207,10 @@ def test_port_runs_without_jax():
     Scan and one Loop, a function-packaged export through quantize_dynamic
     onto the fused SAN-M stack, and the sequence ops; and slice 19: a small
     ORT-GenAI MoE decoder from a side file, prefilled and decoded with its
-    caches donated."""
+    caches donated; and slice 20: chip_smoke phase 36's ResNet-50 builder at
+    a small width, and one emitter graph of each of the math, tensor, nn and
+    activation sets (Mod, ScatterND, TopK, the Random ops; LogSoftmax;
+    MaxPool, Resize, 3-D ConvTranspose)."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -458,6 +461,17 @@ def test_port_runs_without_jax():
         "    tok = o[0][:, -1].argmax(-1)[:, None]\n"
         "    f = genai_feeds(tok, np.full((1, 1), 3 + t), 3 + t, 1, o[1::2], o[2::2], cfg)\n"
         "assert np.isfinite(o[0]).all() and gcm[1].stats['pattern_hits']['qmoe_w4'] == 4\n"
+        "rb, _ = chip_smoke.resnet50_model(batch=1, width=8, blocks=(1, 1, 1, 1), classes=10,\n"
+        "                                  img=32)\n"
+        "xi = np.random.default_rng(7).standard_normal((1, 3, 32, 32)).astype(np.float32)\n"
+        "lo, pr, t5, ti, am = compile_model(rb, device='cpu', strict=True).run_np(data=xi)\n"
+        "assert np.isfinite(lo).all() and ti[0, 0] == am[0] == lo.argmax()\n"
+        "for c in chip_smoke.emitter_graphs():\n"
+        "    if c['name'] in ('Mod', 'LogSoftmax', 'ScatterND', 'ConvTranspose 3-D', 'TopK',\n"
+        "                     'MaxPool', 'RandomNormal', 'Resize'):\n"
+        "        cm = compile_model(chip_smoke.emitter_graph_bytes(c), device='cpu', strict=True)\n"
+        "        assert all(np.isfinite(v.astype(np.float64)).all()\n"
+        "                   for v in cm.run_np(**c['inputs'])) and cm.stats['capturable']\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
