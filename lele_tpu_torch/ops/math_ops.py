@@ -113,7 +113,8 @@ def pow_(ctx: OpContext, a, b):
     return torch.where(neg, real, torch.pow(a, torch.where(neg, torch.zeros_like(b), b)))
 
 
-def _fold(ctx: OpContext, np_fn, torch_fn, xs):
+def _variadic(ctx: OpContext, np_fn, torch_fn, xs):
+    """Max, Min, Sum: a binary op folded over the inputs, left to right."""
     out = xs[0]
     for x in xs[1:]:
         out = np_fn(out, x) if ctx.is_fold else torch_fn(*_promote(out, x))
@@ -122,17 +123,17 @@ def _fold(ctx: OpContext, np_fn, torch_fn, xs):
 
 @op("Max")
 def max_(ctx: OpContext, *xs):
-    return _fold(ctx, np.maximum, torch.maximum, xs)
+    return _variadic(ctx, np.maximum, torch.maximum, xs)
 
 
 @op("Min")
 def min_(ctx: OpContext, *xs):
-    return _fold(ctx, np.minimum, torch.minimum, xs)
+    return _variadic(ctx, np.minimum, torch.minimum, xs)
 
 
 @op("Sum")
 def sum_variadic(ctx: OpContext, *xs):
-    return _fold(ctx, np.add, torch.add, xs)
+    return _variadic(ctx, np.add, torch.add, xs)
 
 
 @op("Mean")

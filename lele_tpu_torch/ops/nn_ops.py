@@ -43,6 +43,10 @@ def _resolve_pads(ctx: OpContext, x_shape, k_shape, strides, dilations):
     return out
 
 
+def _flat_pads(pads) -> list[int]:
+    return [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
+
+
 _CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
@@ -60,7 +64,7 @@ def conv(ctx: OpContext, x, w, b=None):
     dilations = ctx.attr_ints("dilations", [1] * rank)
     group = ctx.attr("group", 1)
     pads = _resolve_pads(ctx, tuple(x.shape), kshape, strides, dilations)
-    xp = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
+    xp = F.pad(x, _flat_pads(pads))
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                     allow_tf32=False):
         out = _CONV_FNS[rank](xp, w.to(x.dtype), None, stride=strides,
@@ -154,10 +158,6 @@ def _pool_geometry(ctx: OpContext, xshape):
     return kshape, strides, dilations, pads
 
 
-def _flat_pads(pads) -> list[int]:
-    return [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
-
-
 def _taps(xp: torch.Tensor, kshape, strides, dilations):
     """Each window offset's strided view of a padded input: the pooled
     output is a reduction over them."""
@@ -235,9 +235,12 @@ def global_max_pool(ctx: OpContext, x):
 # -- Resize ------------------------------------------------------------------
 
 
-def _coords(out_size: int, in_size: int, scale: float, mode: str, device) -> torch.Tensor:
-    """Each output position's source coordinate on one axis (f32, as JAX's
-    lele_tpu/ops/nn_ops.py:_coords)."""
+def _coords(out_size: int, in_size: int, scale: float, mode: str, device,
+            roi: tuple[float, float] = (0.0, 1.0)) -> torch.Tensor:
+    """Each output position's source coordinate on one axis, f32, as JAX's
+    lele_tpu/ops/nn_ops.py:_coords computes its four modes; ONNX's
+    half_pixel_symmetric and tf_crop_and_resize (over `roi`'s start and end
+    on this axis) besides."""
     x = torch.arange(out_size, dtype=torch.float32, device=device)
     if mode == "half_pixel":
         return (x + 0.5) / scale - 0.5
@@ -249,47 +252,107 @@ def _coords(out_size: int, in_size: int, scale: float, mode: str, device) -> tor
         return x * (in_size - 1) / (out_size - 1)
     if mode == "asymmetric":
         return x / scale
+    if mode == "half_pixel_symmetric":
+        adjust = out_size / (scale * in_size)
+        return in_size / 2 * (1 - adjust) + (x + 0.5) / scale - 0.5
+    if mode == "tf_crop_and_resize":
+        lo, hi = roi
+        if out_size == 1:
+            return torch.full_like(x, 0.5 * (lo + hi) * (in_size - 1))
+        return lo * (in_size - 1) + x * ((hi - lo) * (in_size - 1) / (out_size - 1))
     raise NotImplementedError(f"coordinate_transformation_mode {mode}")
 
 
-@op("Resize", foldable=False, static_args=(2, 3))
+def _cubic_weights(t: torch.Tensor, a: float) -> list[torch.Tensor]:
+    """The cubic convolution weights of the four taps floor(c) - 1 .. + 2 at
+    fraction t (ONNX's, with its `cubic_coeff_a`)."""
+    def near(d):  # |d| <= 1
+        return ((a + 2) * d - (a + 3)) * d * d + 1
+
+    def far(d):  # 1 < |d| < 2
+        return ((a * d - 5 * a) * d + 8 * a) * d - 4 * a
+
+    return [far(t + 1), near(t), near(1 - t), far(2 - t)]
+
+
+def _resize_axis(out: torch.Tensor, ax: int, c: torch.Tensor, n: int, ctx: OpContext,
+                 mode: str) -> torch.Tensor:
+    """Resample axis `ax` of `out` at source coordinates c."""
+    shape = [1] * out.dim()
+    shape[ax] = -1
+    if mode == "nearest":
+        nearest_mode = ctx.attr("nearest_mode", "round_prefer_floor")
+        idx = {"round_prefer_floor": lambda: torch.ceil(c - 0.5),
+               "round_prefer_ceil": lambda: torch.floor(c + 0.5),
+               "floor": lambda: torch.floor(c)}.get(nearest_mode, lambda: torch.ceil(c))()
+        return torch.index_select(out, ax, idx.clamp(0, n - 1).to(torch.int64))
+    if mode == "linear":
+        c = c.clamp(0.0, n - 1)
+        lo = torch.floor(c).to(torch.int64)
+        hi = torch.clamp(lo + 1, max=n - 1)
+        w_hi = (c - lo).to(out.dtype).reshape(shape)
+        return (torch.index_select(out, ax, lo) * (1 - w_hi)
+                + torch.index_select(out, ax, hi) * w_hi)
+    if mode == "cubic":
+        base = torch.floor(c)
+        taps = [base + k for k in (-1, 0, 1, 2)]
+        ws = _cubic_weights(c - base, ctx.attr("cubic_coeff_a", -0.75))
+        if ctx.attr("exclude_outside", 0):  # taps off the axis weigh 0, the rest renormalised
+            ws = [torch.where((t >= 0) & (t <= n - 1), w, torch.zeros_like(w))
+                  for t, w in zip(taps, ws)]
+            total = sum(ws)
+            ws = [w / total for w in ws]
+        res = 0
+        for t, w in zip(taps, ws):  # taps off the axis read its edge
+            res = res + torch.index_select(out, ax, t.clamp(0, n - 1).to(torch.int64)) * (
+                w.to(out.dtype).reshape(shape))
+        return res
+    raise NotImplementedError(f"Resize mode {mode}")
+
+
+@op("Resize", foldable=False, static_args=(1, 2, 3))
 def resize(ctx: OpContext, x, roi=None, scales=None, sizes=None):
-    """ONNX Resize, nearest (every nearest_mode) and linear, as JAX writes
-    it: one gather (nearest) or two and a blend (linear) per resized axis,
-    from `sizes` or `scales`."""
+    """ONNX Resize as JAX writes it, per resized axis: one gather (nearest,
+    every nearest_mode) or two and a blend (linear) at the source
+    coordinates of the coordinate_transformation_mode, from `sizes` or
+    `scales`. Past JAX: cubic (four gathers; `cubic_coeff_a`,
+    `exclude_outside`), half_pixel_symmetric, tf_crop_and_resize (`roi`, a
+    trace-time value here, and `extrapolation_value` off the crop) and
+    opset 18's `axes`."""
     mode = ctx.attr("mode", "nearest")
     ct_mode = ctx.attr("coordinate_transformation_mode", "half_pixel")
-    nearest_mode = ctx.attr("nearest_mode", "round_prefer_floor")
+    if ctx.attr("antialias", 0) or ctx.attr("keep_aspect_ratio_policy", "stretch") != "stretch":
+        raise NotImplementedError("Resize: antialias and keep_aspect_ratio_policy")
     in_shape = list(x.shape)
     rank = len(in_shape)
-    if sizes is not None:
-        out_shape = static_ints(sizes, "resize sizes")
-        scale_l = [out_shape[i] / in_shape[i] for i in range(rank)]
+    axes = [a % rank for a in (ctx.attr_ints("axes") or range(rank))]
+    scale_l = [1.0] * rank
+    out_shape = list(in_shape)
+    if sizes is not None and np.size(sizes):
+        for a, v in zip(axes, static_ints(sizes, "resize sizes")):
+            out_shape[a], scale_l[a] = v, v / in_shape[a]
     else:
-        scale_l = [float(v) for v in np.asarray(scales).reshape(-1)]
-        out_shape = [int(np.floor(in_shape[i] * scale_l[i])) for i in range(rank)]
+        for a, v in zip(axes, np.asarray(scales).reshape(-1)):
+            scale_l[a] = float(v)
+            out_shape[a] = int(np.floor(in_shape[a] * scale_l[a]))
+    rois = [(0.0, 1.0)] * rank
+    if ct_mode == "tf_crop_and_resize":
+        r = [float(v) for v in np.asarray(roi).reshape(-1)]
+        for i, a in enumerate(axes):
+            rois[a] = (r[i], r[len(axes) + i])
     out = x
     for ax in range(rank):
-        if out_shape[ax] == in_shape[ax]:
+        if out_shape[ax] == in_shape[ax] and ct_mode != "tf_crop_and_resize":
             continue
         n = in_shape[ax]
-        c = _coords(out_shape[ax], n, scale_l[ax], ct_mode, x.device)
-        if mode == "nearest":
-            idx = {"round_prefer_floor": lambda: torch.ceil(c - 0.5),
-                   "round_prefer_ceil": lambda: torch.floor(c + 0.5),
-                   "floor": lambda: torch.floor(c)}.get(nearest_mode, lambda: torch.ceil(c))()
-            out = torch.index_select(out, ax, idx.clamp(0, n - 1).to(torch.int64))
-        elif mode == "linear":
-            c = c.clamp(0.0, n - 1)
-            lo = torch.floor(c).to(torch.int64)
-            hi = torch.clamp(lo + 1, max=n - 1)
+        c = _coords(out_shape[ax], n, scale_l[ax], ct_mode, x.device, rois[ax])
+        out = _resize_axis(out, ax, c, n, ctx, mode)
+        if ct_mode == "tf_crop_and_resize":  # off the crop: the extrapolation value
             shape = [1] * out.dim()
             shape[ax] = -1
-            w_hi = (c - lo).to(x.dtype).reshape(shape)
-            out = (torch.index_select(out, ax, lo) * (1 - w_hi)
-                   + torch.index_select(out, ax, hi) * w_hi)
-        else:
-            raise NotImplementedError(f"Resize mode {mode}")
+            off = ((c < 0) | (c > n - 1)).reshape(shape)
+            out = torch.where(off, torch.full_like(out, ctx.attr("extrapolation_value", 0.0)),
+                              out)
     return out
 
 

@@ -16,6 +16,7 @@ numpy at trace time, so every reshape below sees static shape arguments.
 
 from __future__ import annotations
 
+import functools
 import zlib
 
 import numpy as np
@@ -284,17 +285,15 @@ def _wrapped(idx: torch.Tensor, dim) -> torch.Tensor:
     return torch.where(idx < 0, idx + dim, idx)
 
 
-_INDEX_CONSTS: dict = {}
-
-
 def index_on(idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host index array as a device tensor made once: an upload at every
-    call would stop the call from being captured."""
-    key = (idx.tobytes(), idx.shape, str(device))
-    t = _INDEX_CONSTS.get(key)
-    if t is None:
-        t = _INDEX_CONSTS[key] = torch.from_numpy(idx.astype(np.int64)).to(device)
-    return t
+    """A host index array as an int64 device tensor made once: an upload at
+    every call would stop the call from being captured."""
+    return _index_on(tuple(int(v) for v in np.ravel(idx)), np.shape(idx), device)
+
+
+@functools.lru_cache(maxsize=256)
+def _index_on(values: tuple, shape: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64).reshape(shape).to(device)
 
 
 @op("GatherElements")
@@ -462,8 +461,8 @@ def depth_to_space(ctx: OpContext, x):
 def space_to_depth(ctx: OpContext, x):
     b = ctx.attr("blocksize")
     n, c, h, w = np.shape(x)
-    dims, perm, out = (n, c, h // b, b, w // b, b), (0, 3, 5, 1, 2, 4), (n, c * b * b, h // b,
-                                                                       w // b)
+    dims, perm = (n, c, h // b, b, w // b, b), (0, 3, 5, 1, 2, 4)
+    out = (n, c * b * b, h // b, w // b)
     if ctx.is_fold:
         return np.reshape(np.transpose(np.reshape(x, dims), perm), out)
     return x.reshape(dims).permute(perm).reshape(out)
@@ -502,7 +501,7 @@ def scatter_nd(ctx: OpContext, data, indices, updates):
                        idx.device)
     block = int(np.prod(data.shape[k:]))
     row = (idx * strides).sum(-1)  # [*idx.shape[:-1]]
-    pos = row.reshape(tuple(row.shape) + (1,)) * block + torch.arange(block, device=idx.device)
+    pos = row.unsqueeze(-1) * block + torch.arange(block, device=idx.device)
     return _scatter(data, pos.reshape(updates.shape), updates, ctx.attr("reduction", "none"))
 
 
@@ -556,9 +555,9 @@ def _random(ctx: OpContext, shape, dtype, normal: bool) -> np.ndarray:
     """A trace-time draw (the Random ops are `host` emitters: called once
     while tracing, never merged with another node's draw): a host constant,
     hoisted once, so every call (and every replay of a captured graph) gives
-    the same numbers, as JAX's trace-time key does. Philox from numpy, not JAX's threefry: the streams
-    hold the same properties (range, moments, one stream a seed), not the
-    same bits."""
+    the same numbers, as JAX's trace-time key does. Philox from numpy, not
+    JAX's threefry: the streams hold the same properties (range, moments,
+    one stream a seed), not the same bits."""
     gen = np.random.Generator(np.random.Philox(key=rng_key(ctx)))
     shape = tuple(int(d) for d in shape)
     if normal:

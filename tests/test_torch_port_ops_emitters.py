@@ -126,8 +126,10 @@ def test_registry_holds_every_set_one_emitter():
         "math_ops", "tensor_ops", "nn_ops", "activation_ops")]
     assert len(set(set_one) - {"LSTM", "GRU", "RNN"}) > 87
     for name in set_one:  # JAX's fold and static-argument flags
-        if name in ("NonMaxSuppression", "LSTM", "GRU", "RNN"):
-            continue  # NMS runs on concrete values in the port; RNNs: slices 3, 5
+        if name in ("NonMaxSuppression", "Resize", "LSTM", "GRU", "RNN"):
+            # the port runs NMS on concrete values and reads Resize's roi
+            # (tf_crop_and_resize) at trace time; the RNNs: slices 3 and 5
+            continue
         j, p = jreg.OPS[name], preg.OPS[name]
         assert (j.foldable, tuple(j.static_args)) == (p.foldable, tuple(p.static_args)), name
 
@@ -203,9 +205,9 @@ def test_emitter_graph_matches_jax(name):
     """Each of phase 36's graphs through both packages on the CPU: JAX's
     outputs at the graph's tolerance (max|d| <= tol·max(1, max|ref|)), or,
     where the port departs from JAX, the ONNX spec's: IsInf's detect_*
-    attributes (JAX ignores them), NonMaxSuppression on concrete boxes (JAX
-    refuses it), the Random ops' streams (threefry's bits are not held, only
-    their shape and range)."""
+    attributes (JAX ignores them), NonMaxSuppression on concrete boxes and
+    Resize's cubic and crop forms (JAX refuses them), the Random ops'
+    streams (threefry's bits are not held, only their shape and range)."""
     c = GRAPHS[name]
     bs = chip_smoke.emitter_graph_bytes(c)
     cm = compile_model(bs, device="cpu", strict=True)
@@ -214,6 +216,16 @@ def test_emitter_graph_matches_jax(name):
     if name == "NonMaxSuppression":
         i = c["inits"]
         np.testing.assert_array_equal(got[0], _nms_oracle(i["b"], i["s"], 3, 0.3))
+        return
+    if name == "Resize cubic":
+        want = _onnx_resize(c["inputs"]["x"], [1.75, 0.5], None, [2, 3], "half_pixel",
+                            "cubic", a=-0.5, exclude=1)
+        _close(got[0], want, c["tol"])
+        return
+    if name == "Resize tf_crop_and_resize":
+        want = _onnx_resize(c["inputs"]["x"], None, [5, 11], [2, 3], "tf_crop_and_resize",
+                            "linear", roi=list(c["inits"]["roi"]), extrap=-3.0)
+        _close(got[0], want, c["tol"])
         return
     with redirect_stderr(io.StringIO()):
         want = j_compile(JOnnxModel.from_bytes(bs), strict=True).run_np(**c["inputs"])
@@ -484,3 +496,115 @@ def test_conv_transpose_forms_match_jax(rank):
     for attrs in forms:
         (gt,), (wt,) = _op("ConvTranspose", {"x": x}, inits={"w": w, "b": b}, **attrs)
         _close(gt, wt, tol=1e-4)  # tests/test_nn_ops.py's conv gate
+
+
+# -- Resize past JAX: cubic, half_pixel_symmetric, tf_crop_and_resize, axes ---------
+
+
+def _onnx_resize_1d(data, scale, out_n, ctm, mode, roi, extrap, a, exclude, nearest_mode):
+    """One axis of ONNX's Resize, written from its reference implementation
+    (onnx/reference/ops/op_resize.py): the source coordinate, then the
+    nearest, the two linear or the four cubic neighbours of an edge-padded
+    axis."""
+    n = len(data)
+    out = np.empty(out_n)
+    for i in range(out_n):
+        if ctm == "align_corners":
+            xo = 0.0 if out_n == 1 else i * (n - 1) / (out_n - 1)
+        elif ctm == "asymmetric":
+            xo = i / scale
+        elif ctm == "pytorch_half_pixel":
+            xo = (i + 0.5) / scale - 0.5 if out_n > 1 else 0.0
+        elif ctm == "half_pixel_symmetric":
+            xo = n / 2 * (1 - out_n / (scale * n)) + (i + 0.5) / scale - 0.5
+        elif ctm == "tf_crop_and_resize":
+            xo = ((roi[1] - roi[0]) * (n - 1) / 2 if out_n == 1
+                  else i * (roi[1] - roi[0]) * (n - 1) / (out_n - 1)) + roi[0] * (n - 1)
+            if xo < 0 or xo > n - 1:
+                out[i] = extrap
+                continue
+        else:
+            xo = (i + 0.5) / scale - 0.5
+        if mode == "nearest":
+            r = {"round_prefer_floor": np.ceil(xo - 0.5), "round_prefer_ceil": np.floor(xo + 0.5),
+                 "floor": np.floor(xo), "ceil": np.ceil(xo)}[nearest_mode]
+            out[i] = data[int(min(max(r, 0), n - 1))]
+            continue
+        k = int(np.floor(xo))
+        t = xo - k
+        if mode == "linear":
+            taps, w = [k, k + 1], np.array([1 - t, t])
+        else:
+            def cc(d):
+                d = abs(d)
+                if d <= 1:
+                    return ((a + 2) * d - (a + 3)) * d * d + 1
+                return ((a * d - 5 * a) * d + 8 * a) * d - 4 * a if d < 2 else 0.0
+            taps = [k - 1, k, k + 1, k + 2]
+            w = np.array([cc(t + 1), cc(t), cc(1 - t), cc(2 - t)])
+            if exclude:
+                w = np.where([0 <= j <= n - 1 for j in taps], w, 0.0)
+                w = w / w.sum()
+        out[i] = sum(wi * data[min(max(j, 0), n - 1)] for wi, j in zip(w, taps))
+    return out
+
+
+def _onnx_resize(x, scales, sizes, axes, ctm, mode, roi=None, extrap=0.0, a=-0.75,
+                 exclude=0, nearest_mode="round_prefer_floor"):
+    out = x.astype(np.float64)
+    for i, ax in enumerate(axes):
+        n = x.shape[ax]
+        on = sizes[i] if sizes is not None else int(np.floor(n * scales[i]))
+        sc = on / n if sizes is not None else float(scales[i])
+        r = None if roi is None else (roi[i], roi[len(axes) + i])
+        out = np.apply_along_axis(_onnx_resize_1d, ax, out, sc, on, ctm, mode, r, extrap, a,
+                                  exclude, nearest_mode)
+    return out
+
+
+@pytest.mark.parametrize("ctm", ["half_pixel", "align_corners", "asymmetric",
+                                 "half_pixel_symmetric", "pytorch_half_pixel"])
+@pytest.mark.parametrize("exclude,a", [(0, -0.75), (1, -0.75), (0, -0.5), (1, -0.5)])
+def test_resize_cubic_follows_onnx(ctm, exclude, a):
+    """Cubic (the JAX package raises): its four taps, cubic_coeff_a,
+    exclude_outside, up and down, against the ONNX reference's formulas."""
+    x = RNG.standard_normal((1, 2, 6, 5)).astype(np.float32)
+    sc = np.array([1, 1, 1.7, 0.6], np.float32)
+    bs = _bytes([jb.node("Resize", ["x", "", "s"], ["y0"], mode="cubic",
+                         coordinate_transformation_mode=ctm, cubic_coeff_a=a,
+                         exclude_outside=exclude)], {"x": x}, ["y0"], {"s": sc}, opset=19)
+    (g,) = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+    _close(g, _onnx_resize(x, sc[2:], None, [2, 3], ctm, "cubic", a=a, exclude=exclude), 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "linear", "cubic"])
+def test_resize_tf_crop_and_resize_follows_onnx(mode):
+    """tf_crop_and_resize (the JAX package raises): a crop box partly off
+    the image, filled with extrapolation_value there, by sizes, over `axes`
+    (opset 18)."""
+    x = RNG.standard_normal((1, 2, 7, 6)).astype(np.float32)
+    roi = np.array([0.2, -0.1, 0.9, 1.3], np.float32)  # starts, ends of axes 2 and 3
+    sizes = np.array([5, 9], np.int64)
+    bs = _bytes([jb.node("Resize", ["x", "roi", "", "z"], ["y0"], mode=mode,
+                         coordinate_transformation_mode="tf_crop_and_resize",
+                         extrapolation_value=-7.0, axes=[2, 3])],
+                {"x": x}, ["y0"], {"roi": roi, "z": sizes}, opset=18)
+    (g,) = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+    want = _onnx_resize(x, None, list(sizes), [2, 3], "tf_crop_and_resize", mode,
+                        roi=list(roi), extrap=-7.0)
+    _close(g, want, 1e-5)
+    assert (g == -7.0).any()
+
+
+def test_resize_linear_and_nearest_follow_onnx_with_axes():
+    """The modes JAX has, held to the ONNX reference's formulas too, with
+    scales over a subset of the axes (opset 18's `axes`)."""
+    x = RNG.standard_normal((2, 3, 5, 4)).astype(np.float32)
+    for mode in ("nearest", "linear"):
+        for ctm in ("half_pixel", "asymmetric", "align_corners", "half_pixel_symmetric"):
+            bs = _bytes([jb.node("Resize", ["x", "", "s"], ["y0"], mode=mode,
+                                 coordinate_transformation_mode=ctm, axes=[-1, 2])],
+                        {"x": x}, ["y0"], {"s": np.array([2.5, 0.8], np.float32)}, opset=18)
+            (g,) = compile_model(bs, device="cpu", strict=True).run_np(x=x)
+            want = _onnx_resize(x, [2.5, 0.8], None, [3, 2], ctm, mode)
+            _close(g, want, 1e-5)

@@ -8,7 +8,7 @@ the fuzzer's tolerance, atol 2e-4 and rtol 2e-4
 (test_torch_port_ops_battery.py says how).
 
 The fuzzer's oracle for a reversed Slice with a nonzero start
-(tests/test_graph_fuzz_families.py:325-333) expects x[en-1:st-1:-1], while
+(tests/test_graph_fuzz_families.py:322-333) expects x[en-1:st-1:-1], while
 its graph slices to the axis's start (ends = -2**31); both packages give
 the graph's answer. A case that meets it checks that the failing output is
 that Slice's and that the port still gives JAX's outputs (ROADMAP §3
