@@ -16,7 +16,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from lele_tpu.compiler import compile_model as j_compile
 from lele_tpu.onnx import builder as jb
