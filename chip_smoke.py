@@ -251,8 +251,9 @@
 37. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
    too, row 7 phase 35's), the card, and last {"ok": true, "device": ...}.
 
-Exits non-zero, and prints no result, when there is no CUDA card or any
-check fails. Imports no jax and nothing of the JAX package.
+Each phase's seconds follow its output ("[phase 7: 12.3 s]"). Exits
+non-zero, and prints no result, when there is no CUDA card or any check
+fails. Imports no jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -477,6 +478,22 @@ def card_identity() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def banner(title: str | None) -> None:
+    """Print a phase's title ("== 7. ..."), after the seconds the phase
+    before it took; None closes the last phase."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"  [{_PHASE['name']}: {now - _PHASE['t0']:.1f} s]")
+    if title is not None:
+        _PHASE["name"] = "phase " + title[3:].split(".")[0]
+        _PHASE["t0"] = now
+        print(title)
+
+
+# the phase whose title `banner` printed last, and when
+_PHASE: dict = {"name": None, "t0": 0.0}
 
 
 def wav_bytes(pcm, sr: int = SR) -> bytes:
@@ -836,7 +853,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     from lele_tpu_torch.models.silero import silero_scan, silero_step, zero_state
     from lele_tpu_torch.ops import nn_ops
 
-    print("== 7. kernel 6 (lstm_seq) vs plain on the card")
+    banner("== 7. kernel 6 (lstm_seq) vs plain on the card")
     for S, B, H in ((1875, 1, 128), (18750, 1, 128), (312, 1, 128), (3, 1, 128), (2, 1, 128),
                     (3, 2, 128), (37, 3, 48)):
         args = lstm_inputs(S, B, H, dev, gen)
@@ -859,7 +876,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     one_launch_check(checks, "lstm_seq S=312 B=1 H=128", lambda: K.lstm_seq(*args),
                      "lstm_seq_reg")
 
-    print("== 8. main path: SileroVad at full width")
+    banner("== 8. main path: SileroVad at full width")
     rng = np.random.default_rng(SEED + 3)
     vad = SileroVad(SileroConfig(), device=dev)
     vad.init(SEED)
@@ -908,7 +925,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
              lambda i: interleaved(lambda c, s: silero_step(vad.params, c, s, vad.cfg, VAD_SR),
                                    sessions, [zero_state(vad.cfg, device=dev)] * 2, i))
 
-    print("== 9. compiled main path: SileroOnnx on fixtures/silero.onnx")
+    banner("== 9. compiled main path: SileroOnnx on fixtures/silero.onnx")
     sv = SileroOnnx(SILERO_FIXTURE, device=dev)
     sv_plain = SileroOnnx(SILERO_FIXTURE, device=dev, overrides={"LSTM": nn_ops.lstm_plain})
     pcm10 = vad_pcm(10.0, VAD_SR, rng)
@@ -942,7 +959,7 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
     checks.require(gap > 1e-4, f"the If took each rate's front-end: the rates' probabilities "
                                f"differ by up to {gap:.3e}")
 
-    print(f"== 10. Silero timings (CUDA events, median of warm runs; {card})")
+    banner(f"== 10. Silero timings (CUDA events, median of warm runs; {card})")
     for S in (1875, 18750):
         args = lstm_inputs(S, 1, 128, dev, gen)
         a = time_ms(lambda: K.lstm_seq(*args), runs=10)
@@ -1074,7 +1091,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                            f"w4_gemm [{T},{k_}]x[{k_},{n_}] g{group} {str(dtype)[6:]}{what}: "
                            f"max|d| {d:.3e} <= {tol:g} * {scale:.3e}")
 
-    print("== 11. kernels 7 (w4_gemm) and 8 (sanm_stack_w4) vs plain on the card")
+    banner("== 11. kernels 7 (w4_gemm) and 8 (sanm_stack_w4) vs plain on the card")
     for T in (T_MAIN, T_RAGGED):
         for (k_, n_) in GEMM_SHAPES:
             w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
@@ -1124,7 +1141,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                 f"atol 2e-2 * {scale:.3e}")
     stack_checks(checks, err, "sanm_stack_w4", "weight_int4", stacked, dev, gen, H, FK)
 
-    print("== 12. main path: SenseVoiceEngine.recognize on the w4a16 model at full width")
+    banner("== 12. main path: SenseVoiceEngine.recognize on the w4a16 model at full width")
     rng = np.random.default_rng(SEED + 4)
     engine = SenseVoiceEngine(model=model)
     requests = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
@@ -1159,7 +1176,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                                 f"<= 5e-2")
     checks.require(agree >= 0.98, f"w4 10 s frame-argmax agreement {agree:.4f} >= 0.98")
 
-    print("== 13. compiled MatMulNBits graph at the main path's linear widths")
+    banner("== 13. compiled MatMulNBits graph at the main path's linear widths")
     grng = np.random.default_rng(GRAPH_SEED + 1)
     inits, nodes = [], []
     # (input, output, K, N, block, packed zero points and bias)
@@ -1212,7 +1229,7 @@ def w4_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds, w8_
                        f"MatMulNBits {name} {tuple(o.shape)}, fused vs per-op: relative "
                        f"Frobenius {rn:.3e} <= {NBITS_RELNORM:g}")
 
-    print(f"== 14. w4 timings (CUDA events, median of {TIMED_RUNS}; {card})")
+    banner(f"== 14. w4 timings (CUDA events, median of {TIMED_RUNS}; {card})")
     k_, n_ = GEMM_SHAPES[-1]
     x = torch.randn((T_MAIN, k_), generator=gen, device=dev).to(torch.bfloat16)
     w = torch.randn((k_, n_), generator=gen, device=dev) / k_ ** 0.5
@@ -1370,7 +1387,7 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
 
     W4 = importlib.import_module("lele_tpu_torch.kernels.w4_matmul")
 
-    print("== 15. kernel 9 (gru_seq) vs plain; kernels 6 and 7 in their new forms")
+    banner("== 15. kernel 9 (gru_seq) vs plain; kernels 6 and 7 in their new forms")
     plain_18750 = None
     for S, B, H in GRU_SHAPES:
         for lbr in (True, False):
@@ -1453,7 +1470,7 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
             w4_decode_check(checks, err, x, packed, scales, 128, None,
                             f"decode form [1,{k_}]x[{k_},{n_}] g128 (cluster split of K)")
 
-    print("== 16. compiled GRU graph (input 128, H 128, bidirectional, 1,875 steps)")
+    banner("== 16. compiled GRU graph (input 128, H 128, bidirectional, 1,875 steps)")
     grng = np.random.default_rng(GRAPH_SEED + 5)
     S, H = 1875, 128
     graphs = {lbr: rnn_graph("GRU", S, 1, 128, H, grng, direction="bidirectional",
@@ -1517,7 +1534,7 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
                    f"LSTM graph H=256 S=1023: {l_launches['lstm_seq']} lstm_seq launch, loop "
                    f"unchanged, vs lstm_plain max|d| {d:.3e} <= {LSTM_TOL:g}")
 
-    print(f"== 17. compiled QMoE layer (hidden {hidden}, inter {inter}, {E} experts, top-2)")
+    banner(f"== 17. compiled QMoE layer (hidden {hidden}, inter {inter}, {E} experts, top-2)")
     qmoe = {}
     for rows in MOE_ROWS:
         bs = build_moe_layer_model(rows, seed=GRAPH_SEED + rows, **MOE_DECODE)
@@ -1565,7 +1582,7 @@ def slice5_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
                        f"QMoE rows={rows} f32 route vs per-op: relative Frobenius {rn32:.3e} "
                        f"<= {QMOE_F32_REL:g}")
 
-    print(f"== 18. slice 5 timings (CUDA events, median of warm runs; {card})")
+    banner(f"== 18. slice 5 timings (CUDA events, median of warm runs; {card})")
     for S in (1875, 18750):
         args = gru_inputs(S, 1, 128, dev, gen)
         a = time_ms(lambda: K.gru_seq(*args, True), runs=10)
@@ -1880,7 +1897,7 @@ def capture_phase(checks, card) -> None:
     from lele_tpu_torch import kernels as K
     from lele_tpu_torch.runtime.graphs import Program
 
-    print(f"== 32. one CUDA graph a bucket: each captured path against its uncaptured "
+    banner(f"== 32. one CUDA graph a bucket: each captured path against its uncaptured "
           f"oracle ({card})")
     t_phase = time.perf_counter()
     for label, e in CAPTURED.items():
@@ -1953,7 +1970,7 @@ def silero_blocks(checks, dev, card) -> None:
 
     from lele_tpu_torch.models import SileroOnnx
 
-    print(f"== 32b. SileroOnnx blocks of {', '.join(map(str, SILERO_BLOCKS))} chunks a graph, "
+    banner(f"== 32b. SileroOnnx blocks of {', '.join(map(str, SILERO_BLOCKS))} chunks a graph, "
           f"10 s at 16 kHz ({card})")
     pcm = vad_pcm(10.0, VAD_SR, np.random.default_rng(SEED + 33))
     ref = None
@@ -2124,7 +2141,7 @@ def control_flow_phase(checks, dev, card) -> dict:
     from lele_tpu_torch.onnx.quantize import quantize_dynamic
     from lele_tpu_torch.ops import nn_ops
 
-    print(f"== 34. Silero's utterance as one Scan / Loop, and a function-packaged int8 "
+    banner(f"== 34. Silero's utterance as one Scan / Loop, and a function-packaged int8 "
           f"SAN-M export ({card})")
     t_phase = time.perf_counter()
     launches: dict[str, dict[str, int]] = {}
@@ -2326,7 +2343,7 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
     D, H, F = cfg.d_text, cfg.n_heads, cfg.d_text * cfg.ffn_mult
     n_blocks = 2 * cfg.n_est_layers
 
-    print(f"== 19. kernel 10 (est_block) vs plain: D {D}, {H} heads, F {F}, {n_blocks} blocks")
+    banner(f"== 19. kernel 10 (est_block) vs plain: D {D}, {H} heads, F {F}, {n_blocks} blocks")
     stacked = init_vector_estimator(gen, cfg)["blocks_stacked"]
     for name, sub in stacked.items():  # norms and biases away from 1 and 0
         for leaf, v in sub.items():
@@ -2353,7 +2370,7 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
                        f"est_block T={T} Tk={Tk}: a repeat call and a CUDA-graph replay give "
                        "the eager call's bits")
 
-    print("== 20. main path: TtsEngine.synthesize (Supertonic 2 and 3 settings), fused")
+    banner("== 20. main path: TtsEngine.synthesize (Supertonic 2 and 3 settings), fused")
     tts2 = SupertonicTts(cfg, device=dev)
     tts2.init(SEED)
     sizes = []
@@ -2404,7 +2421,7 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
                        f"({len(pcm) / sr:.2f} s); fused vs unfused corr {corr:.6f} > "
                        f"{TTS_CORR}, max|d|/max|ref| {rel:.3e} <= {TTS_REL:g}")
 
-    print(f"== 21. TTS timings (CUDA events and host clock, median of warm runs; {card})")
+    banner(f"== 21. TTS timings (CUDA events and host clock, median of warm runs; {card})")
     lib_blocks = est_library_blocks(stacked)
     for T, Tk, _, _ in EST_SHAPES[:2]:
         args = est_in[T]
@@ -2470,7 +2487,7 @@ def supertonic_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bou
     register("TtsEngine.synthesize, Supertonic 2 settings (a synth program a chunk, kernel 10 "
              "five times a program)", engine_wave, uncaptured_wave)
 
-    print("== 22. SupertonicOnnx on fixtures/supertonic_{dp,te,ve,voc}.onnx")
+    banner("== 22. SupertonicOnnx on fixtures/supertonic_{dp,te,ve,voc}.onnx")
     fio = dict(np.load(FIXTURES / "supertonic_io.npz"))
     t0 = time.perf_counter()
     st = SupertonicOnnx(FIXTURES, device=dev)
@@ -2692,7 +2709,7 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
     t_phase = time.perf_counter()
     cfg = dict(PHI3_MINI, layers=LLM_LAYERS)
     L = cfg["l_max"]
-    print("== 23. kernel 12 (flash_attn) vs plain and an f64 oracle")
+    banner("== 23. kernel 12 (flash_attn) vs plain and an f64 oracle")
     for shape in FLASH_SHAPES:
         B, H, KVH, Lq, Lk, D, causal, kind = shape
         res = flash_check(shape, dev, gen)
@@ -2726,7 +2743,7 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
             del q, k, v, mask
         del res
 
-    print(f"== 24. main path: the opset-23 decoder at Phi-3-mini width ({LLM_LAYERS} of "
+    banner(f"== 24. main path: the opset-23 decoder at Phi-3-mini width ({LLM_LAYERS} of "
           f"{PHI3_MINI['layers']} layers), prefill on kernel 12, greedy decode")
     t0 = time.perf_counter()
     params = attn23_decoder_params(np.random.default_rng(SEED), cfg)
@@ -2819,7 +2836,7 @@ def llm_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds) ->
                 rel=LLM_REL)
     register_cm("opset-23 decode step (the einsum path, no kernel)", steps[1],
                 [llm_inputs(1, start, s) for start, s in ((7, 3), (900, 4))], rel=LLM_REL)
-    print(f"== 24b. LLM timings (CUDA events and host clock, median of warm runs; {card})")
+    banner(f"== 24b. LLM timings (CUDA events and host clock, median of warm runs; {card})")
     for n in LLM_PROMPTS:
         ids = prompts[n]
         caches = {f"c{kv}{i}": torch.zeros(cache_shape, device=dev)
@@ -2988,7 +3005,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
         print(f"  phase {n} took {now - last[0]:.1f} s")
         last[0] = now
 
-    print("== 25. kernel 11 (int8_gemm) vs plain")
+    banner("== 25. kernel 11 (int8_gemm) vs plain")
     a = torch.randint(-128, 128, (T_MAIN, 2048), generator=gen, device=dev, dtype=torch.int8)
     b = torch.randint(-128, 128, (2048, 512), generator=gen, device=dev, dtype=torch.int8)
     one_launch_check(checks, f"int8_gemm [{T_MAIN},2048]x[2048,512]",
@@ -3037,7 +3054,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
           f"x 50 layers = {layer_us * 50 / 1e3:.3f} ms a dynamic-int8 10 s request  ({card})")
 
     took(25)
-    print("== 26. SenseVoice dynamic int8 at full width: SenseVoiceEngine with a tokenizer")
+    banner("== 26. SenseVoice dynamic int8 at full width: SenseVoiceEngine with a tokenizer")
     t0 = time.perf_counter()
     qcfg = SenseVoiceConfig(quantized=True)
     qmodel = SenseVoiceModel(qcfg, device=dev)
@@ -3103,7 +3120,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     profile_top(lambda: fwd_q(qmodel.params, pcm10), "quantized 10 s forward (kernel 11)", card)
 
     took(26)
-    print("== 27. batch and long-form on the w8a16 model")
+    banner("== 27. batch and long-form on the w8a16 model")
     eng8 = SenseVoiceEngine(model=w8_model)
     K.reset_launch_counts()
     ids_b = eng8.recognize_batch(wavs)
@@ -3180,7 +3197,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
           f"{t_l / (LONG_SECONDS * 1e3):.3e}); quantized batch of 4 {t_q:.3f} ms  ({card})")
 
     took(27)
-    print("== 28. MoE: SenseVoiceConfig(weight_int8=True, n_experts=8), unstacked")
+    banner("== 28. MoE: SenseVoiceConfig(weight_int8=True, n_experts=8), unstacked")
     mcfg = SenseVoiceConfig(weight_int8=True, n_experts=8)
     mm = SenseVoiceModel(mcfg, device=dev)
     mm.init(SEED + 28)
@@ -3226,7 +3243,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
     del mm, got, ref
 
     took(28)
-    print("== 29. streaming: StreamingSenseVoice.transcribe_stream at full width (f32)")
+    banner("== 29. streaming: StreamingSenseVoice.transcribe_stream at full width (f32)")
     st = StreamingSenseVoice(cfg=SenseVoiceConfig(),
                              stream=StreamConfig(chunk_frames=STREAM_CHUNK), device=dev)
     st.params = f32
@@ -3275,7 +3292,7 @@ def slice8_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds,
           f"of {STREAM_CHUNK * 60} ms of audio  ({card})")
 
     took(29)
-    print("== 30. MatMulInteger on kernel 11: the per-op int8 export, default vs f64 override")
+    banner("== 30. MatMulInteger on kernel 11: the per-op int8 export, default vs f64 override")
     n_mmi = sum(n.op_type == "MatMulInteger" for n in sv_ref.model.graph.node)
     t_pad = max(sv_ref._cms)
     cm_ops = sv_ref._cms[t_pad]
@@ -3372,7 +3389,7 @@ def yolo_phases(checks, dev, card) -> None:
 
     t_phase = time.perf_counter()
     yrng = np.random.default_rng(SEED + 31)
-    print("== 31. YOLO26 detect and segment")
+    banner("== 31. YOLO26 detect and segment")
     print("  (a) compiled: fixtures/yolo26.onnx at 640 x 640")
     x = np.load(FIXTURES / "yolo26_input.npy")
     want_l = np.load(FIXTURES / "yolo26_logits.npy")
@@ -3783,7 +3800,7 @@ def decode_phase(checks, dev, card) -> None:
     import numpy as np
     import torch
 
-    print(f"== 33. generative decode: GPT-2 small and Whisper-tiny widths ({card})")
+    banner(f"== 33. generative decode: GPT-2 small and Whisper-tiny widths ({card})")
     t0 = time.perf_counter()
     decs, bs = gpt2_decoders(dev)
     dec, beam = decs[1], decs[BEAM]
@@ -4030,7 +4047,7 @@ def genai_phase(checks, dev, card) -> dict:
     from lele_tpu_torch.compiler import compile_model
     from lele_tpu_torch.compiler.patterns import PLAIN_NBITS_PATTERNS
 
-    print(f"== 35. the ORT-GenAI int4 decoder form: dense Phi-3-mini width and MoE "
+    banner(f"== 35. the ORT-GenAI int4 decoder form: dense Phi-3-mini width and MoE "
           f"Phi-3.5-MoE widths, a {GENAI_PROMPT}-token prefill and {GENAI_STEPS} greedy "
           f"steps ({card})")
     t_phase = time.perf_counter()
@@ -4452,7 +4469,7 @@ def ops_phase(checks, dev, card) -> None:
     from lele_tpu_torch.compiler import compile_model
 
     t_phase = time.perf_counter()
-    print("== 36. the ONNX op layer: ResNet-50 at full width, and one graph an emitter")
+    banner("== 36. the ONNX op layer: ResNet-50 at full width, and one graph an emitter")
     t0 = time.perf_counter()
     model, macs = resnet50_model()
     print(f"  resnet50_model(): {len(model) / 1e6:.1f} MB of ONNX, {macs / 1e9:.3f} G "
@@ -4599,12 +4616,12 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
-    print("== 1. build")
+    banner("== 1. build")
     t0 = time.perf_counter()
     _build.build()
     print(f"  built {_build.sources()} in {time.perf_counter() - t0:.2f} s")
 
-    print("== 2. card")
+    banner("== 2. card")
     card = card_identity()
     print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4627,7 +4644,7 @@ def main() -> int:
     L, D, F, H, FK = cfg.n_layers, cfg.d_model, cfg.ffn_dim, cfg.n_heads, cfg.fsmn_kernel
 
     err = {name: 0.0 for name in K.KERNEL_WRAPPERS}
-    print("== 3. kernels vs plain on the card")
+    banner("== 3. kernels vs plain on the card")
     for T in W8_ROWS:
         for (k_, n_) in GEMM_SHAPES:
             wq = torch.randint(-127, 128, (k_, n_), generator=gen, device=dev,
@@ -4809,7 +4826,7 @@ def main() -> int:
             one_launch_check(checks, f"sanm_stack_dql T={T}, {L} layers", call,
                              "sanm_dql_kernel")
 
-    print("== 4. main path: SenseVoiceEngine.recognize at full width")
+    banner("== 4. main path: SenseVoiceEngine.recognize at full width")
     engine = SenseVoiceEngine(model=model)
     requests = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
     K.reset_launch_counts()
@@ -4858,7 +4875,7 @@ def main() -> int:
     checks.require(rel <= 5e-2, f"10 s logits kernel vs plain: max|d|/max|ref| {rel:.3e} <= 5e-2")
     checks.require(agree >= 0.98, f"10 s frame-argmax agreement {agree:.4f} >= 0.98")
 
-    print(f"== 5. timings (CUDA events, median of {TIMED_RUNS}; {card})")
+    banner(f"== 5. timings (CUDA events, median of {TIMED_RUNS}; {card})")
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
     for (k_, n_) in GEMM_SHAPES:
         x = torch.randn((T_MAIN, k_), generator=gen, device=dev).to(torch.bfloat16)
@@ -4997,7 +5014,7 @@ def main() -> int:
         print(f"  bound {name}: {b_ms * 1e3:.2f} us by {by}; kernel at "
               f"{100 * b_ms / ms[name]:.2f}% of it  ({card})")
 
-    print("== 6. compiled main path: SenseVoiceOnnx.transcribe at full width")
+    banner("== 6. compiled main path: SenseVoiceOnnx.transcribe at full width")
     t0 = time.perf_counter()
     graph = build_sanm_int8_model(L=50, d=512, h=4, ffn=2048, vocab=25055,
                                   int8_head=True, seed=GRAPH_SEED)
@@ -5090,6 +5107,7 @@ def main() -> int:
     genai_launches = genai_phase(checks, dev, card)
     ops_phase(checks, dev, card)
 
+    banner(None)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
         for f in checks.failures:
