@@ -99,18 +99,23 @@ def mod(ctx: OpContext, a, b):
 
 @op("Pow")
 def pow_(ctx: OpContext, a, b):
-    """In the base's dtype (the exponent cast to it first). An integer base
-    under a negative integer exponent takes the truncated real power, where
-    torch refuses and jnp wraps around."""
+    """In the base's dtype (the exponent cast to it first). An integer power
+    is jnp.power's on a traced exponent: binary exponentiation over the
+    exponent's low 6 bits, wrapping in the base's dtype, so a negative
+    exponent gives jnp's wrapped value (3^-2 -> 3^62 mod 2^32 in int32)
+    where torch refuses."""
     if ctx.is_fold:
         a_ = np.asarray(a)
         return np.power(a_, np.asarray(b).astype(a_.dtype)).astype(a_.dtype)
     b = b.to(a.dtype)
     if a.is_floating_point():
         return torch.pow(a, b)
-    neg = b < 0
-    real = torch.pow(a.double(), b.double()).trunc().nan_to_num(0.0, 0.0, 0.0).to(a.dtype)
-    return torch.where(neg, real, torch.pow(a, torch.where(neg, torch.zeros_like(b), b)))
+    # 0^b is 0 for b != 0, as jnp's accumulator starts
+    acc = torch.where((a == 0) & (b != 0), torch.zeros_like(a), torch.ones_like(a))
+    for i in range(6):  # bit i of b: an arithmetic shift agrees with jnp's logical one
+        acc = torch.where((b >> i) & 1 == 1, acc * a, acc)
+        a = a * a
+    return acc
 
 
 def _variadic(ctx: OpContext, np_fn, torch_fn, xs):

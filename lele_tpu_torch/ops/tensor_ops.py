@@ -1,8 +1,9 @@
 """Tensor-manipulation emitters (counterpart of lele_tpu/ops/tensor_ops.py):
 shapes and layouts, gathers and scatters, Pad, Tile, TopK, ArgMax and
 ArgMin, OneHot, Dropout, the Random ops, and the data-dependent-shape ops
-(NonZero, Unique, Compress, NonMaxSuppression), which run on concrete
-values only, as the JAX package's `_require_concrete` makes them.
+(NonZero, Unique, Compress), which run on concrete values only, as the
+JAX package's `_require_concrete` makes them; NonMaxSuppression is refused
+on every input, as there.
 
 Ties and duplicates take JAX's CPU order on both devices: TopK and
 ArgMax/ArgMin the lower index first, ScatterND and ScatterElements without
@@ -16,7 +17,6 @@ numpy at trace time, so every reshape below sees static shape arguments.
 
 from __future__ import annotations
 
-import functools
 import zlib
 
 import numpy as np
@@ -285,17 +285,6 @@ def _wrapped(idx: torch.Tensor, dim) -> torch.Tensor:
     return torch.where(idx < 0, idx + dim, idx)
 
 
-def index_on(idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host index array as an int64 device tensor made once: an upload at
-    every call would stop the call from being captured."""
-    return _index_on(tuple(int(v) for v in np.ravel(idx)), np.shape(idx), device)
-
-
-@functools.lru_cache(maxsize=256)
-def _index_on(values: tuple, shape: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.int64).reshape(shape).to(device)
-
-
 @op("GatherElements")
 def gather_elements(ctx: OpContext, x, indices):
     axis = ctx.attr("axis", 0)
@@ -310,19 +299,20 @@ def gather_nd(ctx: OpContext, x, indices):
     """The last index axis addresses the data's axes after `batch_dims`
     shared leading ones."""
     b = int(ctx.attr("batch_dims", 0))
-    idx = indices.to(torch.int64)
-    k = idx.shape[-1]
-    if k:  # the extents as a device constant: an upload would stop a capture
-        idx = torch.where(idx < 0, idx + index_on(np.array(x.shape[b: b + k]), idx.device), idx)
+    k = indices.shape[-1]
+    # one index column an addressed axis, each wrapped by its extent
+    cols = [_wrapped(indices[..., i], x.shape[b + i]) for i in range(k)]
     if b == 0:
-        return x[tuple(idx[..., i] for i in range(k))]
+        return x[tuple(cols)]
     # the shared batch dims collapsed to one axis, indexed explicitly
     xb = x.reshape((-1,) + tuple(x.shape[b:]))
-    ib = idx.reshape((-1,) + tuple(idx.shape[b:]))
-    bidx = torch.arange(xb.shape[0], device=x.device).reshape((-1,) + (1,) * (ib.dim() - 2))
-    bidx = torch.broadcast_to(bidx, ib.shape[:-1])
-    out = xb[(bidx,) + tuple(ib[..., i] for i in range(k))]
-    return out.reshape(tuple(idx.shape[:b]) + tuple(out.shape[1:]))
+    cols = [c.reshape((-1,) + tuple(c.shape[b:])) for c in cols]
+    lead = tuple(indices.shape[:-1])
+    bidx = torch.arange(xb.shape[0], device=x.device).reshape(
+        (-1,) + (1,) * (len(lead) - b))
+    bidx = torch.broadcast_to(bidx, (xb.shape[0],) + lead[b:])
+    out = xb[(bidx,) + tuple(cols)]
+    return out.reshape(lead[:b] + tuple(out.shape[1:]))
 
 
 def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
@@ -494,14 +484,12 @@ def _scatter(data: torch.Tensor, pos: torch.Tensor, upd: torch.Tensor,
 def scatter_nd(ctx: OpContext, data, indices, updates):
     """Each index row addresses a slice of data (its first k axes); every
     `reduction` of ONNX (none, add, mul, max, min)."""
-    idx = indices.to(torch.int64)
-    k = idx.shape[-1]
-    idx = torch.where(idx < 0, idx + index_on(np.array(data.shape[:k]), idx.device), idx)
-    strides = index_on(np.array([int(np.prod(data.shape[i + 1: k])) for i in range(k)]),
-                       idx.device)
+    k = indices.shape[-1]
+    row = torch.zeros(indices.shape[:-1], dtype=torch.int64, device=indices.device)
+    for i in range(k):  # the row-major position of each addressed slice
+        row = row * data.shape[i] + _wrapped(indices[..., i], data.shape[i])
     block = int(np.prod(data.shape[k:]))
-    row = (idx * strides).sum(-1)  # [*idx.shape[:-1]]
-    pos = row.unsqueeze(-1) * block + torch.arange(block, device=idx.device)
+    pos = row.unsqueeze(-1) * block + torch.arange(block, device=indices.device)
     return _scatter(data, pos.reshape(updates.shape), updates, ctx.attr("reduction", "none"))
 
 
@@ -642,11 +630,12 @@ def unique(ctx: OpContext, x):
     return y, idx.astype(np.int64), inv.astype(np.int64), cnt.astype(np.int64)
 
 
-@op("Compress", foldable=False, static_args=(1,))
+@op("Compress", foldable=False, static_args=(1,), records=True)
 def compress(ctx: OpContext, data, condition):
     """The output's length is the condition's count of trues: static once
     the condition is, so a constant condition makes a plain gather over
-    runtime data."""
+    runtime data. Its index vector is a constant of the trace, held by the
+    compiled model (an upload at every call would stop a capture)."""
     cond = _require_concrete("Compress", condition, "the condition",
                              "Select with a constant mask, or Where + fixed-size "
                              "postprocess.")
@@ -656,58 +645,26 @@ def compress(ctx: OpContext, data, condition):
     if idx.size and int(idx.max()) >= extent:
         raise ValueError(f"Compress: condition marks index {int(idx.max())} but the "
                          f"compressed axis has extent {extent}")
+    if ctx.state is None:  # on constants, once on the host
+        return _compress(data, axis, torch.from_numpy(idx))
+    index = ctx.state.to_device(f"{ctx.scope}{ctx.node.output[0]}/index", idx)
+    return ctx.state.run(_compress, data, axis, index)
+
+
+def _compress(data: torch.Tensor, axis, index: torch.Tensor) -> torch.Tensor:
     if axis is None:
-        data, axis = data.reshape(-1), 0
-    axis = int(axis) % np.ndim(data)
-    if isinstance(data, torch.Tensor):
-        return torch.index_select(data, axis, index_on(idx, data.device))
-    return np.take(data, idx, axis=axis)
+        return torch.index_select(data.reshape(-1), 0, index)
+    return torch.index_select(data, int(axis) % data.dim(), index)
 
 
 _NMS_HINT = ("Use an NMS-free head (top-k + threshold, as YOLO26 does) or run "
              "NMS on host over the fixed-size candidate set.")
 
 
-def _iou(box: np.ndarray, others: np.ndarray) -> np.ndarray:
-    """IoU of one corner box [y1, x1, y2, x2] (any corner order) against many."""
-    lo = np.minimum(box[:2], box[2:]), np.minimum(others[:, :2], others[:, 2:])
-    hi = np.maximum(box[:2], box[2:]), np.maximum(others[:, :2], others[:, 2:])
-    inter = np.clip(np.minimum(hi[0], hi[1]) - np.maximum(lo[0], lo[1]), 0, None).prod(-1)
-    area = (hi[0] - lo[0]).prod(), (hi[1] - lo[1]).prod(-1)
-    union = area[0] + area[1] - inter
-    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
-
-
-@op("NonMaxSuppression", foldable=False, static_args=(0, 1, 2, 3, 4))
-def non_max_suppression(ctx: OpContext, boxes, scores, max_out=None, iou_thr=None,
-                        score_thr=None):
-    """ONNX NonMaxSuppression on concrete boxes and scores (the JAX package
-    refuses it for every input: its count of kept boxes follows the
-    values). Greedy per batch and class, by score (ties to the lower box
-    index), dropping boxes whose IoU with a kept one exceeds the threshold;
-    [n, 3] int64 rows (batch, class, box)."""
-    boxes = _require_concrete("NonMaxSuppression", boxes, "the boxes", _NMS_HINT)
-    scores = _require_concrete("NonMaxSuppression", scores, "the scores", _NMS_HINT)
-    limit = int(np.asarray(max_out).reshape(-1)[0]) if max_out is not None else 0
-    iou_t = float(np.asarray(iou_thr).reshape(-1)[0]) if iou_thr is not None else 0.0
-    score_t = (float(np.asarray(score_thr).reshape(-1)[0])
-               if score_thr is not None else None)
-    b = boxes.astype(np.float64)
-    if ctx.attr("center_point_box", 0):  # [x_c, y_c, w, h] -> corners [y1, x1, y2, x2]
-        b = np.stack([b[..., 1] - b[..., 3] / 2, b[..., 0] - b[..., 2] / 2,
-                      b[..., 1] + b[..., 3] / 2, b[..., 0] + b[..., 2] / 2], -1)
-    out = []
-    for n in range(scores.shape[0]):
-        for c in range(scores.shape[1]):
-            s = scores[n, c].astype(np.float64)
-            cand = np.argsort(-s, kind="stable")
-            if score_t is not None:
-                cand = cand[s[cand] > score_t]
-            kept: list[int] = []
-            for i in cand:
-                if len(kept) >= limit:
-                    break
-                if not kept or (_iou(b[n, i], b[n, kept]) <= iou_t).all():
-                    kept.append(int(i))
-            out += [(n, c, i) for i in kept]
-    return np.asarray(out, np.int64).reshape(-1, 3)
+@op("NonMaxSuppression", foldable=False)
+def non_max_suppression(ctx: OpContext, *args):
+    """Refused on every input, as the JAX package refuses it: its count of
+    kept boxes follows the values."""
+    raise NotImplementedError(
+        "NonMaxSuppression produces data-dependent output shapes, which a captured "
+        f"program's static shapes cannot express for runtime inputs. {_NMS_HINT}")

@@ -1662,6 +1662,66 @@ def test_int_div_and_mod_by_zero_give_jax_values_on_cuda(dev):
 
 
 @pytest.mark.cuda
+def test_int_pow_wraps_like_jax_on_cuda(dev):
+    """Integer Pow on the card gives the CPU's bits, jnp.power's wrapped
+    values under negative exponents included (3^-2 -> 703,701,817 in int32)."""
+    rng = np.random.default_rng(4)
+    for dt in (np.int8, np.int32, np.int64):
+        a = rng.integers(-6, 7, 256).astype(dt)
+        b = rng.integers(-70, 70, 256).astype(dt)
+        a[:3], b[:3] = [3, 0, 0], [-2, 0, 64]
+        (got,), (cpu,) = _card_and_cpu(_one_op("Pow", {"a": a, "b": b}), {"a": a, "b": b})
+        np.testing.assert_array_equal(got, cpu)
+        if dt == np.int32:
+            assert got[0] == 703_701_817 and got[1] == 1 and got[2] == 0
+
+
+@pytest.mark.cuda
+def test_index_graphs_keep_their_device_constants(dev):
+    """GatherND, ScatterND and Compress compiled and captured, then 300 other
+    Compress models compiled and run on the card and freed memory
+    refilled with -1: a replay of the first models still gives their first
+    call's bits and the CPU's. Their device constants (Compress's index
+    vector, the hoisted indices) belong to each compiled model."""
+    from lele_tpu_torch.compiler import compile_model
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, 16, 3)).astype(np.float32)
+    d = rng.standard_normal((8, 16)).astype(np.float32)
+    u = rng.standard_normal((6, 16)).astype(np.float32)
+    graphs = [
+        (_one_op("ScatterND", {"d": d, "u": u},
+                 {"i": np.array([[-1], [2], [0], [-8], [5], [2]], np.int64)},
+                 names=["d", "i", "u"]), {"d": d, "u": u}),
+        (_one_op("GatherND", {"x": x},
+                 {"i": np.stack([rng.integers(-16, 16, (4, 7)), rng.integers(-3, 3, (4, 7))],
+                                -1).astype(np.int64)}, batch_dims=1), {"x": x}),
+        (_one_op("Compress", {"x": x}, {"c": rng.random(16) < 0.5}, axis=1), {"x": x}),
+    ]
+    held = []
+    for bs, feeds in graphs:
+        cm = compile_model(bs, device=dev, strict=True)
+        first = [o.cpu().numpy() for o in cm(**feeds)]
+        assert cm.stats["captured"]
+        cpu = compile_model(bs, device="cpu", strict=True).run_np(**feeds)
+        for a, b in zip(first, cpu):
+            np.testing.assert_array_equal(a, b)
+        held.append((cm, feeds, first))
+    for _ in range(300):  # a distinct index vector a model
+        other = _one_op("Compress", {"x": x}, {"c": rng.random(16) < 0.5}, axis=1)
+        compile_model(other, device=dev, strict=True)(x=x)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.full((int(n),), -1, dtype=torch.int64, device=dev)
+            for n in rng.integers(1, 4096, 512)]
+    del junk
+    for cm, feeds, first in held:
+        again = [o.cpu().numpy() for o in cm(**feeds)]
+        for a, b in zip(first, again):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", [c["name"] for c in cs.emitter_graphs()])
 def test_emitter_graph_on_the_card(dev, name):
     """Each of phase 36's graphs on the card, captured (or folded on

@@ -125,9 +125,9 @@ def test_registry_holds_every_set_one_emitter():
         "math_ops", "tensor_ops", "nn_ops", "activation_ops")]
     assert len(set(set_one) - {"LSTM", "GRU", "RNN"}) > 87
     for name in set_one:  # JAX's fold and static-argument flags
-        if name in ("NonMaxSuppression", "Resize", "LSTM", "GRU", "RNN"):
-            # the port runs NMS on concrete values and reads Resize's roi
-            # (tf_crop_and_resize) at trace time; the RNNs: slices 3 and 5
+        if name in ("Resize", "LSTM", "GRU", "RNN"):
+            # the port reads Resize's roi (tf_crop_and_resize) at trace
+            # time; the RNNs: slices 3 and 5
             continue
         j, p = jreg.OPS[name], preg.OPS[name]
         assert (j.foldable, tuple(j.static_args)) == (p.foldable, tuple(p.static_args)), name
@@ -148,35 +148,9 @@ def test_trilu_contrib_alias_matches_jax():
 GRAPHS = {c["name"]: c for c in chip_smoke.emitter_graphs()}
 
 
-def _nms_oracle(boxes, scores, limit, iou_t):
-    """ONNX NonMaxSuppression, corner boxes, greedy, written out directly."""
-    out = []
-    for n in range(scores.shape[0]):
-        for c in range(scores.shape[1]):
-            order = sorted(range(scores.shape[2]), key=lambda i: (-scores[n, c, i], i))
-            kept = []
-            for i in order:
-                if len(kept) == limit:
-                    break
-                ok = True
-                for j in kept:
-                    a, b = boxes[n, i], boxes[n, j]
-                    ih = min(max(a[0], a[2]), max(b[0], b[2])) - max(min(a[0], a[2]),
-                                                                     min(b[0], b[2]))
-                    iw = min(max(a[1], a[3]), max(b[1], b[3])) - max(min(a[1], a[3]),
-                                                                     min(b[1], b[3]))
-                    inter = max(ih, 0) * max(iw, 0)
-                    union = (abs(a[2] - a[0]) * abs(a[3] - a[1])
-                             + abs(b[2] - b[0]) * abs(b[3] - b[1]) - inter)
-                    ok = ok and not (union > 0 and inter / union > iou_t)
-                if ok:
-                    kept.append(i)
-            out += [(n, c, i) for i in kept]
-    return np.array(out, np.int64).reshape(-1, 3)
-
-
 def test_emitter_graphs_cover_the_set():
-    """Phase 36's graphs name every emitter of ROADMAP §1.1.1 and
+    """Phase 36's graphs name every emitter of ROADMAP §1.1.1 but
+    NonMaxSuppression, which both packages refuse on every input, and
     ConvTranspose at 2-D and 3-D."""
     import lele_tpu.ops.registry as jreg
 
@@ -186,7 +160,7 @@ def test_emitter_graphs_cover_the_set():
 
     new = set_one - {n for n in preg.OPS if n in _SLICE_BEFORE}
     ops = {node["op_type"] for c in GRAPHS.values() for node in c["nodes"]}
-    assert len(new) == 87 and new <= ops, sorted(new - ops)
+    assert len(new) == 87 and new - ops == {"NonMaxSuppression"}, sorted(new - ops)
     assert {"ConvTranspose 2-D", "ConvTranspose 3-D"} <= set(GRAPHS)
 
 
@@ -204,18 +178,14 @@ def test_emitter_graph_matches_jax(name):
     """Each of phase 36's graphs through both packages on the CPU: JAX's
     outputs at the graph's tolerance (max|d| <= tol·max(1, max|ref|)), or,
     where the port departs from JAX, the ONNX spec's: IsInf's detect_*
-    attributes (JAX ignores them), NonMaxSuppression on concrete boxes and
-    Resize's cubic and crop forms (JAX refuses them), the Random ops'
-    streams (threefry's bits are not held, only their shape and range)."""
+    attributes (JAX ignores them), Resize's cubic and crop forms (JAX
+    refuses them), the Random ops' streams (threefry's bits are not held,
+    only their shape and range)."""
     c = GRAPHS[name]
     bs = chip_smoke.emitter_graph_bytes(c)
     cm = compile_model(bs, device="cpu", strict=True)
     got = cm.run_np(**c["inputs"])
     assert cm.stats["capturable"]
-    if name == "NonMaxSuppression":
-        i = c["inits"]
-        np.testing.assert_array_equal(got[0], _nms_oracle(i["b"], i["s"], 3, 0.3))
-        return
     if name == "Resize cubic":
         want = _onnx_resize(c["inputs"]["x"], [1.75, 0.5], None, [2, 3], "half_pixel",
                             "cubic", a=-0.5, exclude=1)
@@ -410,15 +380,35 @@ def test_isinf_detect_attributes_follow_onnx():
 
 
 def test_int_pow_negative_exponent_truncates():
-    """An integer base under a negative exponent: the real power truncated
-    toward zero (torch refuses, jnp wraps around: ROADMAP §3 "Known"); a
-    non-negative exponent gives JAX's values."""
+    """An integer base under a negative exponent gives jnp.power's wrapped
+    value, where torch refuses (3^-2 -> 3^62 mod 2^32); a non-negative
+    exponent gives JAX's values too."""
     a = np.array([2, 3, -2, 1, -1, 4], np.int32)
     b = np.array([-1, -2, -1, -3, -3, 2], np.int32)
-    bs = _bytes([jb.node("Pow", ["a", "b"], ["y0"])], {"a": a, "b": b}, ["y0"])
-    (g,) = compile_model(bs, device="cpu", strict=True).run_np(a=a, b=b)
-    np.testing.assert_array_equal(g, [0, 0, 0, 1, -1, 16])
+    (g,), (w,) = _op("Pow", {"a": a, "b": b})
+    np.testing.assert_array_equal(g, w)
+    assert g[1] == 703_701_817 and g[2] == 0 and g[4] == -1
     (g,), (w,) = _op("Pow", {"a": a, "b": np.abs(b)})
+    np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dt", [np.int8, np.int16, np.int32, np.uint8])
+@pytest.mark.parametrize("exp_as", ["input", "initializer"])
+def test_int_pow_wraps_like_jax(dt, exp_as):
+    """Integer Pow over every exponent bit pattern jnp's binary
+    exponentiation reads (its low 6 bits), negative exponents, 0^0, 0^64 and
+    results that overflow the dtype, from a graph input and from an
+    initializer."""
+    rng = np.random.default_rng(7)
+    lo = 0 if dt == np.uint8 else -6
+    a = rng.integers(lo, 7, 64).astype(dt)
+    b = (rng.integers(-70, 70, 64) if lo else rng.integers(0, 70, 64)).astype(dt)
+    a[:3], b[:3] = 0, [0, 64, 3]
+    if exp_as == "input":
+        (g,), (w,) = _op("Pow", {"a": a, "b": b})
+    else:
+        (g,), (w,) = _op("Pow", {"a": a}, inits={"b": b})
+    assert g.dtype == w.dtype == dt
     np.testing.assert_array_equal(g, w)
 
 
@@ -454,8 +444,8 @@ def test_random_ops_hold_jax_tests_properties():
 
 
 def test_data_dependent_ops_run_on_concrete_values_only():
-    """NonZero, Unique, Compress's condition and NonMaxSuppression fold or
-    gather on trace-time values; a runtime value raises JAX's refusal."""
+    """NonZero, Unique and Compress's condition fold or gather on
+    trace-time values; a runtime value raises JAX's refusal."""
     x = np.array([[1.0, 0.0, 2.0], [0.0, 3.0, 3.0]], np.float32)
     for op_type, n_out in (("NonZero", 1), ("Unique", 4)):
         bs = _bytes([jb.node(op_type, ["c"], [f"y{i}" for i in range(n_out)])], {},
@@ -469,11 +459,35 @@ def test_data_dependent_ops_run_on_concrete_values_only():
                     [f"y{i}" for i in range(n_out)])
         with pytest.raises(NotImplementedError, match="data-dependent"):
             compile_model(bs, device="cpu", strict=True)
-    boxes = np.zeros((1, 2, 4), np.float32)
-    bs = _bytes([jb.node("NonMaxSuppression", ["b", "s"], ["y0"])],
-                {"b": boxes, "s": np.zeros((1, 1, 2), np.float32)}, ["y0"])
+
+
+@pytest.mark.parametrize("given_as", ["input", "initializer"])
+def test_nms_refused_on_every_input(given_as):
+    """NonMaxSuppression raises JAX's refusal whether its boxes and scores
+    are runtime inputs or constants, in both packages."""
+    vals = {"b": np.zeros((1, 2, 4), np.float32), "s": np.zeros((1, 1, 2), np.float32)}
+    inputs, inits = (vals, {}) if given_as == "input" else ({}, vals)
+    bs = _bytes([jb.node("NonMaxSuppression", ["b", "s"], ["y0"])], inputs, ["y0"], inits)
     with pytest.raises(NotImplementedError, match="NMS-free"):
         compile_model(bs, device="cpu", strict=True)
+    with pytest.raises(NotImplementedError, match="NMS-free"), redirect_stderr(io.StringIO()):
+        j_compile(JOnnxModel.from_bytes(bs), strict=True)
+
+
+def test_compress_index_is_a_constant_of_the_compiled_model():
+    """Compress over runtime data gathers with an index vector that the
+    compiled model holds among its params (its lifetime is the model's),
+    and gives JAX's output."""
+    x = RNG.standard_normal((2, 5, 3)).astype(np.float32)
+    cond = np.array([True, False, True, True, False])
+    bs = _bytes([jb.node("Compress", ["x", "c"], ["y0"], axis=1)], {"x": x}, ["y0"],
+                {"c": cond})
+    cm = compile_model(bs, device="cpu", strict=True)
+    index = [v for k, v in cm.params.items() if k.endswith("/index")]
+    assert len(index) == 1 and index[0].tolist() == [0, 2, 3]
+    with redirect_stderr(io.StringIO()):
+        want = j_compile(JOnnxModel.from_bytes(bs), strict=True).run_np(x=x)
+    np.testing.assert_array_equal(cm.run_np(x=x)[0], want[0])
 
 
 @pytest.mark.parametrize("rank", [1, 2, 3])
