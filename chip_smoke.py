@@ -199,7 +199,8 @@
    uncaptured path's launch counts; a second call on other inputs that
    leaves the first call's outputs as they were; one program for both
    inputs of a bucket; both paths' times by host clock and events with the
-   device's busy share; the memory reserved after the captures; then 32b,
+   device's busy share (medians of 5 and 10 calls, or one call each for a
+   side slower than SLOW_CALL_MS a call); the memory reserved after the captures; then 32b,
    SileroOnnx's block size (1, 8, 32, 128 and 312 chunks a graph);
 33. (run before 32, which holds its paths) generative decode through the
    port's runtime/decode.py and runtime/seq2seq.py on step graphs exported
@@ -1796,14 +1797,16 @@ def _card_tensors(out) -> list:
             for v in leaves if isinstance(v, (np.ndarray, torch.Tensor))]
 
 
-def busy(fn) -> tuple[float, float]:
+def busy(fn, warm: bool = True) -> tuple[float, float]:
     """(device us, host span us) of one fn() (ending in a sync) under
-    torch.profiler; the device time only from device-side rows."""
+    torch.profiler, after one warm call unless `warm` is False; the device
+    time only from device-side rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1885,6 +1888,32 @@ def program_launch_check(checks, label: str, calls: list) -> None:
                        + (f"; no kernel names for {unmapped}" if unmapped else ""))
 
 
+# phase 32 times a side (captured or uncaptured) of a path whose one warm
+# call takes longer than this once by host clock and once by events, and
+# profiles it without a warm-up call (the checks before have warmed it):
+# the slow sides are host-paced, and twenty calls of them were most of the
+# phase's time
+SLOW_CALL_MS = 40.0
+
+
+def side_times(fn) -> tuple[float, float, float, float]:
+    """(host ms, events ms, device us, profiled span us) of fn(), a path's
+    side already warm: medians of 5 and 10 calls, or one call each where
+    one takes longer than SLOW_CALL_MS."""
+    import torch
+
+    def synced():
+        fn()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    synced()
+    one = (time.perf_counter() - t0) * 1e3
+    if one > SLOW_CALL_MS:
+        return (one, time_ms(fn, runs=1, warm=0), *busy(synced, warm=False))
+    return (host_ms(synced), time_ms(fn, runs=10), *busy(synced))
+
+
 def capture_phase(checks, card) -> None:
     """Phase 32: every registered path, captured against uncaptured: the
     gate, the launch counts, a second call on other inputs, the program
@@ -1943,17 +1972,14 @@ def capture_phase(checks, card) -> None:
         if progs is not None:
             checks.require(len(progs) == n_prog,
                            f"{label}: one program served both inputs ({n_prog} programs)")
-        hb = host_ms(lambda: (before(0), torch.cuda.synchronize()))
-        ha = host_ms(lambda: (after(0), torch.cuda.synchronize()))
-        eb, ea = time_ms(lambda: before(0), runs=10), time_ms(lambda: after(0), runs=10)
+        hb, eb, db, sb = side_times(lambda: before(0))
+        ha, ea, da, sa = side_times(lambda: after(0))
         recorded = {k: sum(p._delta[0][k] for p in calls) for k in ca}
         checks.require(bool(calls) and recorded == ca,
                        f"{label}: the captured call went through {len(calls)} program calls, "
                        f"whose recorded launches {dict((k, v) for k, v in recorded.items() if v)}"
                        f" are its counts")
         program_launch_check(checks, label, calls)
-        (db, sb), (da, sa) = (busy(lambda: (before(0), torch.cuda.synchronize())),
-                              busy(lambda: (after(0), torch.cuda.synchronize())))
         print(f"  {label}: uncaptured {hb:.3f} ms by host clock, {eb:.3f} ms by events, "
               f"device {db:.1f} us, busy {db / sb:.3f}; captured {ha:.3f} ms, {ea:.3f} ms, "
               f"device {da:.1f} us, busy {da / sa:.3f}  ({card})")
