@@ -251,8 +251,22 @@
    do not capture named; the GatherND, ScatterND and Compress graphs
    replayed again after all the others, bit for bit, and NonMaxSuppression
    refused as the JAX package refuses it;
-37. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
-   too, row 7 phase 35's), the card, and last {"ok": true, "device": ...}.
+37. static int8 quantization in ORT's two formats on the same ResNet-50
+   network at full width: the QDQ graph from the port's quantize_static
+   (per-channel weights, calibrated on the card) and the QOperator graph
+   (`resnet50_qoperator_model`: BN folded, QLinearConv, QLinearAdd,
+   QLinearGlobalAveragePool, QGemm, its grids from calibrate_minmax of the
+   folded float graph), each compiled and run at N = 1 and 8, captured: the
+   captured call the bits of `replay()`, every u8 tensor against the port's
+   CPU run of the same bytes (flipped codes counted; QOP_GATE_CODES,
+   QDQ_GATE_STEPS), TopK and ArgMax where the gate decides them, kernel 11
+   launched once an integer product (54 a forward) and held to its plain
+   version at each conv shape class, times captured and step by step with
+   kernel 11's share and the int8 bound; then one graph for each of the 17
+   quant emitters (`quant_emitter_graphs`), captured, against the CPU;
+38. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+   too, row 7 phase 35's, row 11 phase 37's), the card, and last {"ok":
+   true, "device": ...}.
 
 Each phase's seconds follow its output ("[phase 7: 12.3 s]"). Exits
 non-zero, and prints no result, when there is no CUDA card or any check
@@ -443,6 +457,24 @@ RESNET_F32_REL = 1e-5
 # rounds every conv's operands (2^-8 relative) through 53 convs; YOLO's
 # 1e-2 max|ref| (the first calls read 6.5e-3 at N = 8)
 RESNET_BF16_REL = 1e-2
+
+# phase 37: ResNet-50 in ORT's two static int8 formats (resnet50_model's
+# network, QDQ from quantize_static and QOperator from
+# resnet50_qoperator_model), calibrated on QUANT_CALIB batches of 8 images
+# drawn from QUANT_SEED, and one graph for each of the 17 quant emitters
+QUANT_SEED = SEED + 37
+QUANT_CALIB = 2
+# the QDQ logits, card against the CPU, in steps of their own output grid
+# (the Gemm's output is fake-quantized): an f32 rounding difference at a
+# half-step of any of the 19 fake-quantized activations flips a code, which
+# the later convs carry on; the gate starts at 2 steps of max|ref|
+QDQ_GATE_STEPS = 2
+# the QOperator graph's u8 tensors, card against the CPU: integer products
+# are exact on both and the requantizations the same f32 steps, so bits are
+# expected; QLinearGlobalAveragePool's mean sums in another order on the
+# card, so one code is allowed there and after it, and the logits one
+# QGemm input step
+QOP_GATE_CODES = 1
 
 # the device's own time a call (us) of a kernel's row and of its library
 # call, where a phase measured it: {name: {"device_us": torch.profiler's or
@@ -4444,7 +4476,299 @@ def emitter_graph_bytes(c: dict) -> bytes:
     return ob.build_model_bytes(
         c["nodes"], [ob.vi_from_array(k, v) for k, v in c["inputs"].items()],
         [ob.value_info(o, 1, []) for o in c["outputs"]],
-        [ob.tensor_from_array(v, k) for k, v in c["inits"].items()], opset=c["opset"])
+        [v if isinstance(v, dict) else ob.tensor_from_array(v, k)
+         for k, v in c["inits"].items()], opset=c["opset"])
+
+
+def quant_emitter_graphs(seed: int = QUANT_SEED) -> list[dict]:
+    """One small graph for each of the 17 emitters of ROADMAP §1.1.2 and
+    the qlinear part of §1.1.4, in `emitter_graphs`' form plus "codes": the
+    largest difference of an integer output's codes allowed between the card
+    and the CPU (0, or 1 where the float core is a transcendental or a
+    reduction whose f32 order or division differs between the devices:
+    sigmoid, softmax, the global mean, the window mean over 9), "tol" the
+    float outputs' relative gate.
+    Every integer product (ConvInteger, QLinearConv, QLinearMatMul, QGemm,
+    MatMulIntegerToFloat, DynamicQuantizeMatMul, QAttention) runs on kernel
+    11 on the card; the ConvInteger and QLinearConv graphs are grouped and
+    padded with a nonzero input zero point, and their K (3·3·3 = 27) and
+    output widths are not multiples of 16 (kernel 11's cp.async form)."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(seed)
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape).astype(np.uint8)
+
+    def i8(*shape, lo=-127, hi=128):
+        return rng.integers(lo, hi, shape).astype(np.int8)
+
+    f32 = np.float32
+    cases = []
+
+    def case(name, op_type, inputs, inits, names, codes=0, tol=1e-6, opset=17, n_out=1,
+             domain="", **attrs):
+        outs = [f"y{i}" for i in range(n_out)]
+        cases.append({"name": name, "nodes": [ob.node(op_type, names, outs, domain=domain,
+                                                       **attrs)],
+                      "inputs": inputs, "inits": inits, "outputs": outs, "opset": opset,
+                      "codes": codes, "tol": tol, "concrete": False})
+
+    ms = "com.microsoft"
+    x4 = u8(2, 6, 9, 9)
+    case("QuantizeLinear, per axis, int4 zero point", "QuantizeLinear",
+         {"x": rng.standard_normal((4, 6, 5)).astype(f32) * 20},
+         {"s": (rng.random(6) + 0.5).astype(f32),
+          "z": ob.tensor_int4(rng.integers(-3, 4, 6), "z")}, ["x", "s", "z"], opset=21)
+    case("DequantizeLinear, blocked", "DequantizeLinear", {"q": i8(4, 10)},
+         {"s": (rng.random((4, 3)) * 0.1).astype(f32), "z": i8(4, 3, lo=-5, hi=5)},
+         ["q", "s", "z"], opset=21, axis=1, block_size=4)
+    case("ConvInteger, grouped, padded", "ConvInteger", {"x": x4},
+         {"w": i8(10, 3, 3, 3), "xz": np.uint8(121), "wz": i8(10, lo=-3, hi=3)},
+         ["x", "w", "xz", "wz"], group=2, pads=[1, 0, 2, 1], strides=[2, 1])
+    case("QLinearConv, per channel, bias", "QLinearConv", {"x": x4},
+         {"xs": f32(0.03), "xz": np.uint8(121), "w": i8(10, 3, 3, 3),
+          "ws": (rng.random(10) * 0.01 + 0.002).astype(f32), "wz": np.zeros(10, np.int8),
+          "ys": f32(0.4), "yz": np.uint8(60), "b": rng.integers(-4000, 4000, 10).astype(
+              np.int32)}, ["x", "xs", "xz", "w", "ws", "wz", "ys", "yz", "b"], group=2,
+         pads=[1, 1, 1, 1])
+    case("QLinearMatMul", "QLinearMatMul", {"a": u8(3, 7, 40)},
+         {"as": f32(0.02), "az": np.uint8(120), "b": i8(40, 24), "bs": f32(0.05),
+          "bz": np.int8(0), "ys": f32(0.9), "yz": np.uint8(128)},
+         ["a", "as", "az", "b", "bs", "bz", "ys", "yz"])
+    a2, b2 = u8(2, 3, 5), u8(3, 5)
+    q = {"sa": f32(0.03), "za": np.uint8(100), "sb": f32(0.05), "zb": np.uint8(30),
+         "sc": f32(0.07), "zc": np.uint8(90)}
+    for op_type in ("QLinearAdd", "QLinearMul"):
+        case(op_type, op_type, {"a": a2, "b": b2}, q,
+             ["a", "sa", "za", "b", "sb", "zb", "sc", "zc"], domain=ms)
+    one = {"sx": f32(0.05), "zx": np.uint8(128), "sy": f32(1 / 256), "zy": np.uint8(0)}
+    case("QLinearSigmoid", "QLinearSigmoid", {"x": u8(4, 33)}, one,
+         ["x", "sx", "zx", "sy", "zy"], codes=1, domain=ms)
+    case("QLinearLeakyRelu", "QLinearLeakyRelu", {"x": i8(4, 33)},
+         {"sx": f32(0.04), "zx": np.int8(3), "sy": f32(0.03), "zy": np.int8(-2)},
+         ["x", "sx", "zx", "sy", "zy"], domain=ms, alpha=0.1)
+    case("QLinearSoftmax", "QLinearSoftmax", {"x": u8(3, 4, 50)}, one,
+         ["x", "sx", "zx", "sy", "zy"], codes=1, domain=ms, axis=-1, opset=13)
+    pool = {"sx": f32(0.1), "zx": np.uint8(128), "sy": f32(0.1), "zy": np.uint8(128)}
+    case("QLinearAveragePool, padded", "QLinearAveragePool", {"x": u8(2, 5, 9, 9)},
+         pool, ["x", "sx", "zx", "sy", "zy"], codes=1, domain=ms, kernel_shape=[3, 3],
+         strides=[2, 2], pads=[1, 1, 1, 1])
+    case("QLinearGlobalAveragePool", "QLinearGlobalAveragePool", {"x": u8(2, 16, 7, 7)},
+         {"sx": f32(0.07), "zx": np.uint8(0), "sy": f32(0.03), "zy": np.uint8(0)},
+         ["x", "sx", "zx", "sy", "zy"], codes=1, domain=ms)
+    case("QLinearConcat", "QLinearConcat", {"x0": u8(2, 3), "x1": u8(2, 5)},
+         {"ys": f32(0.04), "yz": np.uint8(64), "s0": f32(0.02), "z0": np.uint8(10),
+          "s1": f32(0.05), "z1": np.uint8(200)}, ["ys", "yz", "x0", "s0", "z0", "x1", "s1",
+                                                  "z1"], domain=ms, axis=1)
+    gemm = {"sa": f32(0.02), "za": np.uint8(120), "b": i8(24, 40),
+            "sb": (rng.random(24) * 0.05 + 0.01).astype(f32), "zb": np.zeros(24, np.int8),
+            "c": rng.integers(-500, 500, 24).astype(np.int32)}
+    case("QGemm, float output", "QGemm", {"a": u8(5, 40)}, gemm,
+         ["a", "sa", "za", "b", "sb", "zb", "c"], domain=ms, alpha=0.5, transB=1)
+    case("QGemm, requantized", "QGemm", {"a": u8(5, 40)},
+         {**gemm, "sy": f32(0.8), "zy": np.uint8(30)},
+         ["a", "sa", "za", "b", "sb", "zb", "c", "sy", "zy"], domain=ms, transB=1)
+    case("MatMulIntegerToFloat", "MatMulIntegerToFloat", {"a": u8(2, 6, 40)},
+         {"b": i8(40, 24), "sa": f32(0.03), "sb": (rng.random(24) * 0.1).astype(f32),
+          "za": np.uint8(131), "zb": i8(24, lo=-5, hi=5),
+          "bias": rng.standard_normal(24).astype(f32)},
+         ["a", "b", "sa", "sb", "za", "zb", "bias"], domain=ms)
+    case("DynamicQuantizeMatMul", "DynamicQuantizeMatMul",
+         {"a": rng.standard_normal((6, 40)).astype(f32) * 2},
+         {"b": i8(40, 24), "sb": f32(0.02), "zb": np.int8(3),
+          "bias": rng.standard_normal(24).astype(f32)}, ["a", "b", "sb", "zb", "bias"],
+         domain=ms)
+    case("QAttention", "QAttention", {"x": u8(2, 7, 32)},
+         {"w": i8(32, 96), "bias": (rng.standard_normal(96) * 0.1).astype(f32),
+          "xs": f32(0.02), "ws": (rng.random(96) * 0.01 + 0.001).astype(f32),
+          "m": np.array([7, 4], np.int32), "xz": np.uint8(128), "wz": np.zeros(96, np.int8)},
+         ["x", "w", "bias", "xs", "ws", "m", "xz", "wz"], tol=1e-5, domain=ms, num_heads=4)
+    return cases
+
+
+def _resnet50_graph(model: bytes) -> tuple[dict, list, dict]:
+    """(the decoded ModelProto as dicts, its nodes, {initializer: array}) of
+    a `resnet50_model` graph."""
+    from lele_tpu_torch.onnx import schema
+    from lele_tpu_torch.onnx.loader import tensor_to_array
+
+    raw = schema.decode_model(model).raw()
+    arrays = {t["name"]: tensor_to_array(schema.Proto(t, "TensorProto"))
+              for t in raw["graph"]["initializer"]}
+    return raw, list(raw["graph"]["node"]), arrays
+
+
+def _attr(node: dict, name: str, default=None):
+    for a in node.get("attribute", []):
+        if a["name"] == name:
+            return a.get("f", a.get("i", a.get("ints", default)))
+    return default
+
+
+def _folded_convs(nodes: list, arrays: dict) -> dict:
+    """Every Conv → BatchNormalization pair of a `resnet50_model` graph as
+    one conv: {BN output name: (conv node, W', b')}, W' = W·γ/√(var + ε)
+    and b' = β − mean·γ/√(var + ε) per output channel (in float64, stored
+    f32): what ORT's quantizers fold before quantizing."""
+    import numpy as np
+
+    convs = {n["output"][0]: n for n in nodes if n["op_type"] == "Conv"}
+    out = {}
+    for n in nodes:
+        if n["op_type"] != "BatchNormalization":
+            continue
+        conv = convs[n["input"][0]]
+        g, b, m, v = (arrays[k].astype(np.float64) for k in n["input"][1:])
+        s = g / np.sqrt(v + float(_attr(n, "epsilon", 1e-5)))
+        w = arrays[conv["input"][1]].astype(np.float64) * s.reshape(-1, 1, 1, 1)
+        out[n["output"][0]] = (conv, w.astype(np.float32), (b - m * s).astype(np.float32))
+    return out
+
+
+def resnet50_folded_model(batch="N", **kw) -> bytes:
+    """`resnet50_model(batch, **kw)`'s network with each BatchNormalization
+    folded into its conv (`_folded_convs`): the same function in float, the
+    graph `resnet50_qoperator_model`'s activation ranges are calibrated on
+    (`calibrate_minmax` records each conv's input and output, the Gemm's
+    input and output)."""
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import schema
+
+    raw, nodes, arrays = _resnet50_graph(resnet50_model(batch, **kw)[0])
+    folded = _folded_convs(nodes, arrays)
+    keep, inits = [], []
+    for n in nodes:
+        if n["op_type"] == "Conv":
+            continue
+        if n["op_type"] == "BatchNormalization":
+            conv, w, b = folded[n["output"][0]]
+            name = conv["input"][1]
+            inits += [ob.tensor_from_array(w, name), ob.tensor_from_array(b, name + "_b")]
+            n = {**conv, "input": [conv["input"][0], name, name + "_b"],
+                 "output": n["output"]}
+        keep.append(n)
+    used = {i for n in keep for i in n["input"]}
+    raw["graph"]["node"] = keep
+    raw["graph"]["initializer"] = inits + [
+        t for t in raw["graph"]["initializer"]
+        if t["name"] in used and t["name"] not in {i["name"] for i in inits}]
+    return schema.encode_message(raw, "ModelProto")
+
+
+def resnet50_qoperator_model(ranges: dict, batch="N", **kw) -> tuple[bytes, dict]:
+    """`resnet50_model(batch, **kw)`'s network in the form ORT's QOperator
+    quantizer writes for a ResNet: BatchNormalization folded into the conv
+    weights (`_folded_convs`); QuantizeLinear on `data`; QLinearConv with
+    per-channel symmetric int8 weights (scale max|W'[c]| / 127, zero point
+    0: no weight code saturates), u8 activations and an int32 bias
+    (round(b' / (x_scale·w_scale[c]))); a Relu folded into its conv's output
+    grid (zero point 0 on [0, max]); MaxPool on u8 (the stem's grid);
+    QLinearAdd on each residual, its Relu folded likewise;
+    QLinearGlobalAveragePool, Flatten, and QGemm 2048 → 1000 with per-column
+    int8 weights, an int32 bias and float output; then Softmax, TopK k = 5
+    and ArgMax, as in `resnet50_model`.
+
+    `ranges` are the activations' [min, max] from `calibrate_minmax` of
+    `resnet50_folded_model` (same batch and kw): each u8 tensor's grid is
+    ORT's asymmetric one (`_u8_qparams`) of its range, [0, max] after a
+    folded Relu. The last block's output, which no conv reads, is not
+    calibrated: it takes the sum of its two inputs' grid maxima, an upper
+    bound. Returns the bytes and {"grids": {u8 tensor: (scale, zp)}, "u8":
+    their names in graph order, "int8_products": the graph's integer
+    products}."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import schema
+    from lele_tpu_torch.onnx.quantize import _u8_qparams
+
+    raw, nodes, arrays = _resnet50_graph(resnet50_model(batch, **kw)[0])
+    folded = _folded_convs(nodes, arrays)
+    relu_of = {n["input"][0]: n["output"][0] for n in nodes if n["op_type"] == "Relu"}
+    out_nodes, inits, grids, u8 = [], [], {}, []
+
+    def const(name, arr):
+        inits.append(ob.tensor_from_array(np.asarray(arr), name))
+        return name
+
+    def grid(t, scale, zp):
+        grids[t] = (float(np.float32(scale)), int(zp))
+        u8.append(t)
+        const(f"{t}_scale", np.float32(scale))
+        const(f"{t}_zp", np.uint8(zp))
+        return [t, f"{t}_scale", f"{t}_zp"]
+
+    def top(t):  # the largest value a grid represents
+        scale, zp = grids[t]
+        return scale * (255 - zp)
+
+    out_nodes.append(ob.node("QuantizeLinear", ["data", *grid("data_q", *_u8_qparams(
+        *ranges["data"]))[1:]], ["data_q"]))
+    name_q = {"data": "data_q"}
+    for n in nodes:
+        op = n["op_type"]
+        if op == "BatchNormalization":
+            conv, w, b = folded[n["output"][0]]
+            x = name_q[conv["input"][0]]
+            lo, hi = ranges[n["output"][0]]
+            t = relu_of.get(n["output"][0], n["output"][0])
+            y = grid(t, *_u8_qparams(0.0 if t != n["output"][0] else lo, hi))
+            ws = np.where(np.abs(w).reshape(len(w), -1).max(1) > 0,
+                          np.abs(w).reshape(len(w), -1).max(1) / 127.0, 1.0).astype(np.float32)
+            wq = np.clip(np.round(w / ws.reshape(-1, 1, 1, 1)), -127, 127).astype(np.int8)
+            wname = conv["input"][1]
+            bq = np.round(b.astype(np.float64) / (np.float64(grids[x][0]) * ws)).astype(np.int32)
+            out_nodes.append({**conv, "input": [
+                x, f"{x}_scale", f"{x}_zp", const(f"{wname}_q", wq), const(f"{wname}_s", ws),
+                const(f"{wname}_z", np.zeros(len(ws), np.int8)), *y[1:],
+                const(f"{wname}_bq", bq)], "output": [t], "op_type": "QLinearConv"})
+            name_q[t] = t
+        elif op == "MaxPool":
+            grid(n["output"][0], *grids[name_q[n["input"][0]]])  # the max of codes
+            out_nodes.append(n)
+            name_q[n["output"][0]] = n["output"][0]
+        elif op == "Add":
+            a, c = (name_q[i] for i in n["input"])
+            t = relu_of[n["output"][0]]
+            hi = ranges[t][1] if t in ranges else top(a) + top(c)
+            y = grid(t, *_u8_qparams(0.0, hi))
+            out_nodes.append(ob.node("QLinearAdd", [a, f"{a}_scale", f"{a}_zp", c, f"{c}_scale",
+                                                    f"{c}_zp", *y[1:]], [t],
+                                     domain="com.microsoft"))
+            name_q[t] = t
+        elif op == "GlobalAveragePool":
+            x = name_q[n["input"][0]]
+            y = grid("gap", *_u8_qparams(*ranges["flat"]))
+            out_nodes.append(ob.node("QLinearGlobalAveragePool", [
+                x, f"{x}_scale", f"{x}_zp", *y[1:]], ["gap"], domain="com.microsoft"))
+            name_q["gap"] = "gap"
+        elif op == "Flatten":
+            grid("flat", *grids["gap"])
+            out_nodes.append(n)
+            name_q["flat"] = "flat"
+        elif op == "Gemm":
+            wf = arrays[n["input"][1]]  # [classes, 2048], transB = 1
+            ws = (np.abs(wf).max(1) / 127.0).astype(np.float32)
+            wq = np.clip(np.round(wf / ws[:, None]), -127, 127).astype(np.int8)
+            bq = np.round(arrays[n["input"][2]].astype(np.float64)
+                          / (np.float64(grids["flat"][0]) * ws)).astype(np.int32)
+            out_nodes.append(ob.node("QGemm", [
+                "flat", "flat_scale", "flat_zp", const("fc_wq", wq), const("fc_ws", ws),
+                const("fc_wz", np.zeros(len(ws), np.int8)), const("fc_bq", bq)],
+                n["output"], domain="com.microsoft", transB=1))
+        elif op in ("Softmax", "TopK", "ArgMax"):
+            out_nodes.append(n)
+    k5 = next(t for t in raw["graph"]["initializer"] if t["name"] == "k5")
+    raw["graph"]["node"] = out_nodes
+    raw["graph"]["initializer"] = inits + [k5]
+    raw["opset_import"] = list(raw["opset_import"]) + [
+        {"domain": "com.microsoft", "version": 1}]
+    n_products = sum(n["op_type"] in ("QLinearConv", "QGemm") for n in out_nodes)
+    return schema.encode_message(raw, "ModelProto"), {"grids": grids, "u8": u8,
+                                                       "int8_products": n_products}
 
 
 def ops_phase(checks, dev, card) -> None:
@@ -4609,6 +4933,260 @@ def ops_phase(checks, dev, card) -> None:
         checks.require(refused, f"NonMaxSuppression refused on {where} with JAX's hint")
     print(f"  {len(worst)} emitter graphs in {time.perf_counter() - t1:.1f} s; the largest "
           f"gap {max(worst.values()):.2e} ({max(worst, key=worst.get)})")
+
+
+def with_outputs(model: bytes, names, onnx_dtype: int) -> bytes:
+    """The graph with `names` added to its outputs (of one ONNX type)."""
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx import schema
+
+    raw = schema.decode_model(model).raw()
+    raw["graph"]["output"] = list(raw["graph"]["output"]) + [
+        ob.value_info(t, onnx_dtype, []) for t in names]
+    return schema.encode_message(raw, "ModelProto")
+
+
+def kernel_share(fn, kernel: str) -> tuple[float, float]:
+    """(the device time of `kernel`'s launches, all device time) in us of
+    one call of fn() (ending in a sync) under torch.profiler, after a warm
+    call: the share of a path's device time that one kernel takes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = [e for e in prof.key_averages()
+            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
+    return (sum(dev_time(e) for e in rows if kernel in e.key),
+            sum(dev_time(e) for e in rows))
+
+
+def quant_phase(checks, dev, card) -> dict:
+    """Phase 37: static int8 quantization in ORT's two formats (ROADMAP
+    §1.1.2 and the qlinear part of §1.1.4), on `resnet50_model()`'s network
+    at full width (53 convs, 25.6 M parameters, 3.858 G multiply-adds an
+    image): (a) QDQ, the port's quantize_static on the card with per-channel
+    weights, calibrated on QUANT_CALIB batches of 8 images from QUANT_SEED
+    (float convs between Q/DQ pairs); (b) QOperator, resnet50_qoperator_model
+    on calibrate_minmax's ranges of the BN-folded float graph (QLinearConv,
+    QLinearAdd, QLinearGlobalAveragePool, QGemm: every integer product on
+    kernel 11, 54 a forward). Each compiled by compile_model on the card and
+    run at N = 1 and 8, captured: the captured call equals `replay()` bit
+    for bit; against the port's CPU run of the same bytes, QOperator's every
+    u8 tensor within QOP_GATE_CODES (bits expected; flipped codes counted)
+    and its logits within one QGemm input step, QDQ's logits within
+    QDQ_GATE_STEPS of their output grid (the share of flipped codes of every
+    QuantizeLinear printed); TopK and ArgMax equal at the ranks the gate
+    decides; kernel 11 launched 54 times by a QOperator forward (counts set
+    to 0 just before, read just after) and held to int8_matmul_plain at each
+    conv shape class; the 17 emitter graphs (`quant_emitter_graphs`)
+    captured on the card against the CPU; times by events and host clock,
+    captured and step by step, kernel 11's share of a profiled call, the
+    int8 bound. Returns kernel 11's launches of one QOperator forward."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain
+    from lele_tpu_torch.onnx import schema
+    from lele_tpu_torch.onnx.loader import tensor_to_array
+    from lele_tpu_torch.onnx.quantize import calibrate_minmax, quantize_static
+
+    banner("== 37. static int8 ResNet-50 in ORT's two formats, QDQ and QOperator (kernel 11), "
+           "and one graph a quant emitter")
+    t0 = time.perf_counter()
+    model, macs = resnet50_model()
+    crng = np.random.default_rng(QUANT_SEED)
+    batches = [{"data": crng.standard_normal((8, 3, 224, 224)).astype(np.float32)}
+               for _ in range(QUANT_CALIB)]
+    xrng = np.random.default_rng(QUANT_SEED + 1)
+    inputs = {n: xrng.standard_normal((n, 3, 224, 224)).astype(np.float32) for n in (1, 8)}
+    qdq = quantize_static(model, batches, per_channel=True, device=dev)
+    t_qdq = time.perf_counter() - t0
+    ranges = calibrate_minmax(resnet50_folded_model(), batches, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qop, info = resnet50_qoperator_model(ranges)
+    qop_x = with_outputs(qop, info["u8"], 2)
+    qdq_nodes = schema.decode_model(qdq).raw()["graph"]["node"]
+    q_outs = [n["output"][0] for n in qdq_nodes if n["op_type"] == "QuantizeLinear"]
+    qdq_x = with_outputs(qdq, q_outs, 2)
+    inits = {t["name"]: t for t in schema.decode_model(qdq).raw()["graph"]["initializer"]}
+    step = float(tensor_to_array(schema.Proto(next(
+        t for k, t in inits.items() if k.startswith("logits_scale__qs")), "TensorProto")))
+    qraw = schema.decode_model(qop).raw()["graph"]["initializer"]
+    qarr = {t["name"]: tensor_to_array(schema.Proto(t, "TensorProto")) for t in qraw
+            if t["name"] in ("fc_wq", "fc_ws", "flat_scale")}
+    # the logits' change when every QGemm input moves one code
+    gemm_step = float(qarr["flat_scale"]) * float(
+        (qarr["fc_ws"] * np.abs(qarr["fc_wq"].astype(np.float64)).sum(1)).max())
+    print(f"  quantize_static (QDQ, per channel) on the card in {t_qdq:.1f} s: "
+          f"{len(q_outs)} QuantizeLinear, "
+          f"{sum(n['op_type'] == 'DequantizeLinear' for n in qdq_nodes)} DequantizeLinear; "
+          f"QOperator from calibrate_minmax's {len(ranges)} ranges: {info['int8_products']} "
+          f"integer products, {len(info['u8'])} u8 tensors; logits step {step:.4e} (QDQ), "
+          f"one QGemm input step {gemm_step:.4e} (QOperator); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    names = ("logits", "probs", "top5", "top5_idx", "argmax")
+    launches = None
+    for form, plain_bytes, checked in (("QOperator", qop, qop_x), ("QDQ", qdq, qdq_x)):
+        for n in (1, 8):
+            t1 = time.perf_counter()
+            cpu = compile_model(checked, dim_values={"N": n}, device="cpu", strict=True)
+            ref = cpu.run_np(data=inputs[n])
+            del cpu
+            t_cpu = time.perf_counter() - t1
+            cmx = compile_model(checked, dim_values={"N": n}, device=dev, strict=True).compile()
+            x = torch.from_numpy(inputs[n]).to(dev)
+            got = [o.clone() for o in cmx(data=x)]
+            again = cmx.replay(data=x)
+            torch.cuda.synchronize()
+            bits = all(torch.equal(a, b) for a, b in zip(got, again))
+            checks.require(cmx.stats["captured"] and bits,
+                           f"{form} N = {n}: captured {cmx.stats['captured']}, the captured "
+                           f"call the bits of replay(): {bits} ({cmx.stats['n_steps']} tape "
+                           f"steps)")
+            out = [o.cpu().numpy() for o in got]
+            del cmx, got, again
+            codes = [(a.astype(np.int64), b.astype(np.int64)) for a, b in zip(out[5:], ref[5:])]
+            flipped = sum(int((a != b).sum()) for a, b in codes)
+            total = sum(a.size for a, _ in codes)
+            worst = max(int(np.abs(a - b).max()) for a, b in codes)
+            d = float(np.abs(out[0] - ref[0]).max())
+            scale = float(np.abs(ref[0]).max())
+            if form == "QOperator":
+                sat = sum(int(((b == 255) | ((b == 0) & (info["grids"][t][1] > 0))).sum())
+                          for (_, b), t in zip(codes, info["u8"]))
+                gate = 0.0 if flipped == 0 else gemm_step
+                checks.require(worst <= QOP_GATE_CODES and d <= gate
+                               and np.isfinite(out[0]).all() and out[0].shape == (n, 1000),
+                               f"QOperator N = {n} vs the CPU: {flipped} of {total} u8 codes "
+                               f"flipped (largest {worst}, gate {QOP_GATE_CODES}); logits max|d| "
+                               f"{d:.3e} at max|ref| {scale:.3f} (gate {gate:.3e}: bits where "
+                               f"no code flipped, else one QGemm input step); saturated codes "
+                               f"{sat} of {total} ({sat / total:.2e})")
+            else:
+                gate = QDQ_GATE_STEPS * step
+                steps = np.abs(np.round(out[0] / step) - np.round(ref[0] / step))
+                checks.require(d <= gate and np.isfinite(out[0]).all()
+                               and out[0].shape == (n, 1000),
+                               f"QDQ N = {n} vs the CPU: logits max|d| {d:.3e} at max|ref| "
+                               f"{scale:.3f} (gate {QDQ_GATE_STEPS} steps of the logits' grid, "
+                               f"{gate:.3e}); {flipped} of {total} QuantizeLinear codes flipped "
+                               f"({flipped / total:.2e}), logits codes moved {int(steps.sum())} "
+                               f"(largest {int(steps.max())} steps)")
+            gap = 2 * gate
+            srt = np.sort(ref[0], axis=1)[:, ::-1]
+            gaps = srt[:, :5] - srt[:, 1:6]
+            decided = gaps > gap
+            decided[:, 1:] &= gaps[:, :-1] > gap
+            top_ok = bool((out[3] == ref[3])[decided].all())
+            arg_ok = bool((out[4].reshape(n) == ref[4].reshape(n))[decided[:, 0]].all())
+            checks.require(top_ok and arg_ok,
+                           f"{form} N = {n}: TopK and ArgMax equal the CPU's at the "
+                           f"{int(decided.sum())} of {5 * n} ranks whose margins to both "
+                           f"neighbours exceed {gap:.2e}")
+            # the timed model: the graph's own outputs
+            t1 = time.perf_counter()
+            cm = compile_model(plain_bytes, dim_values={"N": n}, device=dev,
+                               strict=True).compile()
+            torch.cuda.synchronize()
+            t_compile = time.perf_counter() - t1
+            if form == "QOperator":
+                K.reset_launch_counts()
+                cm(data=x)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                moved = {k: v for k, v in counts.items() if v}
+                checks.require(moved == {"int8_gemm": info["int8_products"]},
+                               f"QOperator N = {n}: launches of one captured forward {moved}: "
+                               f"kernel 11 once an integer product "
+                               f"({info['int8_products']}), nothing else")
+                launches = (launches or 0) + counts["int8_gemm"]
+            ev = time_ms(lambda: cm(data=x), runs=10)
+            ev_r = time_ms(lambda: cm.replay(data=x), runs=10)
+            hc = host_ms(lambda: (cm(data=x), torch.cuda.synchronize()))
+            hc_r = host_ms(lambda: (cm.replay(data=x), torch.cuda.synchronize()))
+            share = ""
+            if form == "QOperator":  # the QDQ graph has no integer product
+                k11_us, dev_us = kernel_share(
+                    lambda: (cm.replay(data=x), torch.cuda.synchronize()), "dq_gemm_strip")
+                share = (f"; one step-by-step call's device time {dev_us / 1e3:.4f} ms, "
+                         f"kernel 11 {k11_us / 1e3:.4f} ms ({k11_us / max(dev_us, 1e-9):.1%})")
+            n_w = sum(p.numel() * p.element_size() for p in cm.params.values())
+            b_ms, b_by = bound(n_w + x.numel() * 4 + 4 * 1000 * n, {"int8": 2 * macs * n})
+            print(f"  {form} N = {n}: CPU reference {t_cpu:.1f} s; compile and capture "
+                  f"{t_compile:.2f} s; captured {ev:.4f} ms by events, {hc:.4f} ms by host "
+                  f"clock; step by step {ev_r:.4f} / {hc_r:.4f} ms{share}; int8 bound "
+                  f"{b_ms:.4f} ms by {b_by} ({2 * macs * n / 1e9:.2f} G int8 operations, "
+                  f"{n_w / 1e6:.1f} MB of params at {PEAK_OPS['int8'] / 1e12:.0f} TOP/s)  "
+                  f"({card})")
+            if n == 8:
+                op_breakdown(lambda: (cm.replay(data=x), torch.cuda.synchronize()),
+                             f"{form} N = 8, one step-by-step call", card, top=8)
+            del cm
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    print("  kernel 11 at each conv shape class of the N = 8 forward, against "
+          "int8_matmul_plain on the card")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(QUANT_SEED)
+    for label, (M, Kd, N) in (("stem 7 x 7 / 2, K = 147", (8 * 112 * 112, 147, 64)),
+                              ("1 x 1, stage 0", (8 * 56 * 56, 64, 64)),
+                              ("3 x 3, stage 1", (8 * 28 * 28, 1152, 128)),
+                              ("projection 1 x 1 / 2, stage 1", (8 * 28 * 28, 256, 512)),
+                              ("3 x 3, stage 3", (8 * 7 * 7, 4608, 512)),
+                              ("QGemm 2048 -> 1000", (8, 2048, 1000))):
+        a = torch.randint(-128, 128, (M, Kd), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (Kd, N), generator=gen, device=dev, dtype=torch.int8)
+        same = torch.equal(int8_matmul(a, b), int8_matmul_plain(a, b))
+        checks.require(same, f"kernel 11 at {label} [{M},{Kd}]x[{Kd},{N}]: "
+                             f"int8_matmul_plain's int32 (exact)")
+        t_k, t_p = time_ms(lambda: int8_matmul(a, b)), time_ms(lambda: int8_matmul_plain(a, b),
+                                                                runs=3, warm=1)
+        b_ms, b_by = i8_bound(M, Kd, N)
+        print(f"    {label}: kernel 11 {t_k:.4f} ms by events, {graph_us(lambda: int8_matmul(a, b)):.2f}"
+              f" us in a CUDA graph, plain {t_p:.4f} ms, bound {b_ms * 1e3:.2f} us by "
+              f"{b_by}  ({card})")
+        del a, b
+
+    print("  (c) one graph a quant emitter, card against the CPU")
+    t1 = time.perf_counter()
+    for c in quant_emitter_graphs():
+        bs = emitter_graph_bytes(c)
+        cpu = compile_model(bs, device="cpu", strict=True).run_np(**c["inputs"])
+        K.reset_launch_counts()
+        cm = compile_model(bs, device=dev, strict=True)
+        got = [o.cpu().numpy() for o in cm(**c["inputs"])]
+        k11 = K.launch_counts()["int8_gemm"]
+        ok, err = len(got) == len(cpu), 0.0
+        for g, w in zip(got, cpu):
+            ok = ok and g.shape == w.shape and g.dtype == w.dtype
+            if ok and np.issubdtype(w.dtype, np.integer):
+                ok = int(np.abs(g.astype(np.int64) - w).max()) <= c["codes"]
+                err = max(err, float(np.abs(g.astype(np.int64) - w).max()))
+            elif ok:
+                e = float(np.abs(g.astype(np.float64) - w).max())
+                err = max(err, e / max(1.0, float(np.abs(w).max())))
+                ok = ok and err <= c["tol"]
+        products = c["nodes"][0]["op_type"] in (
+            "ConvInteger", "QLinearConv", "QLinearMatMul", "QGemm", "MatMulIntegerToFloat",
+            "DynamicQuantizeMatMul", "QAttention")
+        checks.require(ok and cm.stats["captured"] and (k11 > 0) == products,
+                       f"{c['name']}: card vs CPU largest difference {err:.3g} (gate "
+                       f"{c['codes']} codes, {c['tol']:g} relative); captured "
+                       f"{cm.stats['captured']}; kernel 11 launches {k11}")
+        del cm
+    print(f"  {len(quant_emitter_graphs())} quant emitter graphs in "
+          f"{time.perf_counter() - t1:.1f} s")
+    return {"int8_gemm": launches}
 
 
 def main() -> int:
@@ -5137,6 +5715,7 @@ def main() -> int:
     cf_launches = control_flow_phase(checks, dev, card)
     genai_launches = genai_phase(checks, dev, card)
     ops_phase(checks, dev, card)
+    quant_launches = quant_phase(checks, dev, card)
 
     banner(None)
     if checks.failures:
@@ -5264,6 +5843,7 @@ def main() -> int:
          **DEVICE_US.get(name, {}),
          **({"phase34_launches": cf_launches[name]} if name in cf_launches else {}),
          **({"phase35_launches": genai_launches[name]} if name in genai_launches else {}),
+         **({"phase37_launches": quant_launches[name]} if name in quant_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

@@ -1,7 +1,7 @@
-"""Dynamic quantization of a float ONNX graph (the port's copy of
-`quantize_dynamic` in lele_tpu/onnx/quantize.py: an `onnxruntime.
+"""Dynamic and static quantization of a float ONNX graph (the port's copy
+of lele_tpu/onnx/quantize.py: `quantize_dynamic`, an `onnxruntime.
 quantization.quantize_dynamic` analog over MatMul and Gemm with static
-weights, Conv on request).
+weights, Conv on request; and `quantize_static`, below).
 
 It rewrites, at the ModelProto level:
 
@@ -22,8 +22,16 @@ node are rewritten (activation × activation products stay float), with one
 DynamicQuantizeLinear per distinct activation. Local functions are inlined
 first: their MatMuls live in the function bodies. External-data tensors
 (initializers and Constant nodes) are read against `base_dir` and written
-inline, so the quantized model stands alone wherever it is saved. The
-static (QDQ) quantizer and its calibration are not ported yet.
+inline, so the quantized model stands alone wherever it is saved.
+
+Static quantization (`quantize_static`, ORT's QDQ format): `calibrate_minmax`
+runs the float model through the port's compiler over calibration batches
+(on the card unless `device` says otherwise) and records each activation's
+range; then QuantizeLinear/DequantizeLinear pairs go around every target
+op's activations (u8 asymmetric) and weights (symmetric int8 initializers,
+per output channel on request, behind a DequantizeLinear). The ops stay
+float. The graph is the JAX package's, node for node and name for name, for
+the same ranges.
 """
 
 from __future__ import annotations
@@ -44,6 +52,14 @@ def _inline_tensor(t: dict, base_dir) -> dict:
     t.pop("external_data", None)
     t["raw_data"] = np.ascontiguousarray(arr).tobytes()
     return t
+
+
+def _consolidate_external(inits: list[dict], base_dir) -> list[dict]:
+    """Initializers with any external data inlined: the quantized model is
+    written where the caller wants, so a side-file reference relative to
+    the source's directory would dangle. Quantized weights are inline
+    already; this catches the untouched rest (embeddings, norms, biases)."""
+    return [_inline_tensor(t, base_dir) for t in inits]
 
 
 def _consolidate_external_nodes(nodes: list[dict], base_dir) -> list[dict]:
@@ -246,8 +262,8 @@ def quantize_dynamic(data: bytes, op_types=("MatMul", "Gemm"), base_dir=None) ->
         [n for n in out_nodes
          if not (n.get("op_type") == "Constant" and n.get("output") and gone(n["output"][0]))],
         base_dir)
-    g["initializer"] = [_inline_tensor(t, base_dir) for t in g.get("initializer", [])
-                        if not gone(t.get("name", ""))] + new_inits
+    g["initializer"] = _consolidate_external(
+        [t for t in g.get("initializer", []) if not gone(t.get("name", ""))], base_dir) + new_inits
     # exports with keep_initializers_as_inputs also list weights as inputs:
     # a dropped weight must leave that list too
     if g.get("input"):
@@ -262,3 +278,231 @@ def quantize_dynamic_file(src_path: str, dst_path: str) -> None:
         data = f.read()
     with open(dst_path, "wb") as f:
         f.write(quantize_dynamic(data, base_dir=os.path.dirname(os.path.abspath(src_path))))
+
+
+# ---------------------------------------------------------------------------
+# Static quantization (QDQ format), the onnxruntime `quantize_static`
+# analog: the ops stay float; QuantizeLinear/DequantizeLinear pairs
+# fake-quant the activations at calibrated ranges and the weights at the
+# symmetric int8 grid. The compiler folds the weight-side pairs while
+# tracing.
+
+
+def calibrate_minmax(data: bytes, batches, base_dir=None,
+                     device=None) -> dict[str, tuple[float, float]]:
+    """Run the float model over calibration batches ({input: array}) and
+    record each activation a static quantizer fake-quants (the inputs and
+    outputs of Conv, MatMul and Gemm nodes) as [min, max], widened to take
+    0 (ORT's MinMax calibrator: zero must be exact in asymmetric u8). The
+    model is compiled by the port on `device` (the card unless it says
+    otherwise), once for each input-shape signature of the batches, and
+    freed before returning."""
+    from ..compiler import compile_model
+    from .loader import OnnxModel
+
+    raw = schema.decode_model(data).raw()
+    if raw.get("functions"):
+        from .functions import inline_functions
+
+        raw = inline_functions(raw)
+    g = raw["graph"]
+    inits = {t.get("name", "") for t in g.get("initializer", [])}
+    # Constant-node outputs take the weight path in quantize_static
+    static_out = inits | {n["output"][0] for n in g.get("node", [])
+                          if n.get("op_type") == "Constant" and n.get("output")}
+    names: list[str] = []
+    for n in g.get("node", []):
+        if n.get("op_type") not in ("Conv", "MatMul", "Gemm"):
+            continue
+        # every dynamic input is a calibrated edge (ORT's MinMax calibrator
+        # records all of a target's inputs): an activation × activation
+        # MatMul gets both
+        for t in list(n.get("input", [])) + [n["output"][0]]:
+            if t and t not in static_out and t not in names:
+                names.append(t)
+    if not names:
+        return {}
+    # expose the calibration tensors as extra graph outputs
+    existing = [vi.get("name", "") for vi in g.get("output", [])]
+    extra = [t for t in names if t not in existing]
+    g["output"] = list(g.get("output", [])) + [{"name": t} for t in extra]
+    model = OnnxModel.from_bytes(schema.encode_message(raw, "ModelProto"), base_dir=base_dir)
+    compiled = {}
+    ranges = {t: (0.0, 0.0) for t in names}
+    order = existing + extra
+    for batch in batches:
+        sig = tuple(sorted((k, np.shape(v)) for k, v in batch.items()))
+        if sig not in compiled:
+            compiled[sig] = compile_model(model, input_shapes=dict(sig), device=device)
+        vals = dict(zip(order, compiled[sig].run_np(**batch)))
+        for t in names:
+            v = np.asarray(vals[t], np.float32)
+            lo, hi = ranges[t]
+            ranges[t] = (min(lo, float(v.min(initial=0.0))), max(hi, float(v.max(initial=0.0))))
+    compiled.clear()
+    return ranges
+
+
+def _u8_qparams(rmin: float, rmax: float) -> tuple[float, int]:
+    scale = (rmax - rmin) / 255.0
+    if scale <= 0:
+        return 1.0, 0
+    zp = int(np.clip(round(-rmin / scale), 0, 255))
+    return float(scale), zp
+
+
+def quantize_weight_int8_per_channel(w: np.ndarray, axis: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Per-channel symmetric int8 grid along `axis` (ORT's per_channel=True):
+    scale[c] = max|W[c]| / 127, zero point 0."""
+    mv = np.moveaxis(w, axis, 0)
+    amax = np.abs(mv.reshape(mv.shape[0], -1)).max(axis=1)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    wq = np.clip(np.round(mv / scale.reshape((-1,) + (1,) * (w.ndim - 1))),
+                 -127, 127).astype(np.int8)
+    return np.moveaxis(wq, 0, axis), scale
+
+
+def quantize_static(data: bytes, calibration_batches, op_types=("Conv", "MatMul", "Gemm"),
+                    per_channel: bool = False, base_dir=None, device=None) -> bytes:
+    """QDQ-format static quantization: calibrate the activations' ranges on
+    the float model (`calibrate_minmax` on `device`, the card by default),
+    then put QuantizeLinear/DequantizeLinear pairs around every target op's
+    activations (u8 asymmetric) and weights (symmetric int8 initializers +
+    DequantizeLinear). The ops stay float.
+
+    calibration_batches: an iterable of {input_name: np.ndarray} fed to the
+    float model. per_channel=True gives Conv weights one scale per output
+    channel (DequantizeLinear axis=0, ORT's per_channel); 2-D MatMul/Gemm
+    weights stay per tensor either way."""
+    for op_imp in schema.decode_model(data).raw().get("opset_import", []):
+        if not op_imp.get("domain") and int(op_imp.get("version", 0)) < 10:
+            raise ValueError("quantize_static needs opset >= 10 (QuantizeLinear); "
+                             f"model declares opset {op_imp.get('version')}")
+    batches = list(calibration_batches)
+    raw0 = schema.decode_model(data).raw()
+    if raw0.get("functions"):
+        # the Conv/MatMul nodes live inside the function bodies otherwise
+        from .functions import inline_functions
+
+        data = schema.encode_message(inline_functions(raw0), "ModelProto")
+    ranges = calibrate_minmax(data, batches, base_dir=base_dir, device=device)
+    raw = schema.decode_model(data).raw()
+    g = raw["graph"]
+    nodes: list[dict] = list(g.get("node", []))
+    inits = {t.get("name", ""): t for t in g.get("initializer", [])}
+    const_nodes = {n["output"][0]: n for n in nodes
+                   if n.get("op_type") == "Constant" and n.get("output")}
+    targets = [n for n in nodes if n.get("op_type") in op_types and len(n.get("input", [])) >= 2]
+    target_ids = {id(n) for n in targets}
+
+    new_inits: list[dict] = []
+    uid = [0]
+
+    def fresh(base):
+        uid[0] += 1
+        return f"{base}__qs{uid[0]}"
+
+    graph_outputs = {vi.get("name", "") for vi in g.get("output", [])}
+
+    # activation fake-quant: tensor name → its dequantized alias. A tensor
+    # that is a graph output has its producer renamed t__pre and the DQ
+    # takes the public name (the output signature must not change)
+    dq_alias: dict[str, str] = {}
+    pre_rename: dict[str, str] = {}
+    qdq_nodes: dict[str, list[dict]] = {}  # producer tensor → its Q/DQ pair
+    for t, (rmin, rmax) in ranges.items():
+        scale, zp = _u8_qparams(rmin, rmax)
+        sn, zn = fresh(f"{t}_scale"), fresh(f"{t}_zp")
+        new_inits.append(ob.tensor_from_array(np.float32(scale).reshape(()), sn))
+        new_inits.append(ob.tensor_from_array(np.asarray(zp, np.uint8).reshape(()), zn))
+        qn = fresh(f"{t}_q")
+        if t in graph_outputs:
+            src = fresh(f"{t}_pre")
+            pre_rename[t] = src
+            dqn = t
+        else:
+            src, dqn = t, fresh(f"{t}_dq")
+        qdq_nodes[t] = [ob.node("QuantizeLinear", [src, sn, zn], [qn]),
+                        ob.node("DequantizeLinear", [qn, sn, zn], [dqn])]
+        dq_alias[t] = dqn
+
+    wq_cache: dict[str, str] = {}
+
+    def weight_dq(wname: str, w: np.ndarray) -> str:
+        if wname not in wq_cache:
+            qn = fresh(f"{wname}_quant")
+            sn, zn = fresh(f"{wname}_wscale"), fresh(f"{wname}_wzp")
+            dqn = fresh(f"{wname}_dq")
+            if per_channel and w.ndim >= 3:  # Conv OIHW: a scale an output channel
+                wq, ws = quantize_weight_int8_per_channel(w, axis=0)
+                new_inits.append(ob.tensor_from_array(wq, qn))
+                new_inits.append(ob.tensor_from_array(ws, sn))
+                new_inits.append(ob.tensor_from_array(np.zeros(ws.shape, np.int8), zn))
+                dq = ob.node("DequantizeLinear", [qn, sn, zn], [dqn], axis=0)
+            else:
+                wq, ws = quantize_weight_int8(w)
+                new_inits.append(ob.tensor_from_array(wq, qn))
+                new_inits.append(ob.tensor_from_array(np.float32(ws).reshape(()), sn))
+                new_inits.append(ob.tensor_from_array(np.zeros((), np.int8), zn))
+                dq = ob.node("DequantizeLinear", [qn, sn, zn], [dqn])
+            qdq_nodes[f"__w_{wname}"] = [dq]
+            wq_cache[wname] = dqn
+        return wq_cache[wname]
+
+    consumed_weights: dict[str, int] = {}
+    out_nodes: list[dict] = []
+    # graph-input activations have no producer node: their pairs come first
+    graph_inputs = {vi.get("name", "") for vi in g.get("input", [])}
+    emitted: set[str] = set()
+    for t in ranges:
+        if t in graph_inputs:
+            out_nodes.extend(qdq_nodes[t])
+            emitted.add(t)
+
+    for n in nodes:
+        outs_orig = list(n.get("output", []))
+        if id(n) in target_ids:
+            w = _weight_array(n["input"][1], inits, const_nodes, base_dir)
+            # every calibrated edge reads the fake-quant view, a target
+            # whose second input is an activation too (ADVICE r4); a static
+            # weight replaces ins[1] below
+            ins = [dq_alias.get(x, x) for x in n["input"]]
+            if w is not None and w.ndim >= 2 and w.dtype == np.float32:
+                ins[1] = weight_dq(n["input"][1], w)
+                pair = qdq_nodes.get(f"__w_{n['input'][1]}")
+                if pair:
+                    out_nodes.extend(pair)
+                    qdq_nodes[f"__w_{n['input'][1]}"] = []
+                consumed_weights[n["input"][1]] = 1
+            n = dict(n)
+            n["input"] = ins
+        elif any(x in dq_alias for x in n.get("input", [])):
+            # other consumers read the fake-quant value too (ORT rewires the
+            # whole edge: one numeric view)
+            n = dict(n)
+            n["input"] = [dq_alias.get(x, x) for x in n["input"]]
+        if any(t in pre_rename for t in outs_orig):
+            n = dict(n)
+            n["output"] = [pre_rename.get(t, t) for t in outs_orig]
+        out_nodes.append(n)
+        for t in outs_orig:
+            if t in qdq_nodes and t not in emitted:
+                out_nodes.extend(qdq_nodes[t])
+                emitted.add(t)
+
+    still_used: set[str] = set()
+    for n in out_nodes:
+        still_used.update(n.get("input", []))
+
+    def gone(name: str) -> bool:
+        return name in consumed_weights and name not in still_used
+
+    g["node"] = _consolidate_external_nodes(
+        [n for n in out_nodes
+         if not (n.get("op_type") == "Constant" and n.get("output") and gone(n["output"][0]))],
+        base_dir)
+    g["initializer"] = _consolidate_external(
+        [t for t in g.get("initializer", []) if not gone(t.get("name", ""))], base_dir) + new_inits
+    if g.get("input"):
+        g["input"] = [vi for vi in g["input"] if not gone(vi.get("name", ""))]
+    return schema.encode_message(raw, "ModelProto")

@@ -1741,3 +1741,131 @@ def test_emitter_graph_on_the_card(dev, name):
         if fin.any():
             scale = max(1.0, float(np.abs(w[fin]).max()))
             assert np.abs(g[fin].astype(np.float64) - w[fin]).max() <= c["tol"] * scale
+
+
+# -- static int8 quantization (chip_smoke phase 37) ------------------------------
+
+
+def _ints(rng, shape, dt):
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max + 1, shape).astype(dt)
+
+
+# name → (x shape, w shape, x type, w type, attributes, x zero point)
+CONV_INTEGER_CARD = {
+    "stem 7 x 7 / 2, K = 147": ((2, 3, 64, 64), (64, 3, 7, 7), np.uint8, np.int8,
+                                dict(strides=[2, 2], pads=[3, 3, 3, 3]), 121),
+    "grouped 3 x 3, C_out 20": ((2, 8, 15, 15), (20, 2, 3, 3), np.uint8, np.uint8,
+                                dict(group=4, pads=[1, 1, 1, 1]), 7),
+    "3-D, dilated": ((1, 4, 6, 9, 9), (6, 4, 2, 3, 3), np.int8, np.int8,
+                     dict(dilations=[1, 2, 2], pads=[0, 1, 2, 1, 1, 0]), -5),
+    "16-aligned 1 x 1": ((4, 64, 14, 14), (128, 64, 1, 1), np.uint8, np.int8, {}, 128),
+    "padded 3 x 3 / 2, SAME_UPPER": ((3, 32, 17, 16), (48, 32, 3, 3), np.uint8, np.int8,
+                                     dict(strides=[2, 2], auto_pad="SAME_UPPER"), 200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONV_INTEGER_CARD))
+def test_conv_integer_on_kernel_11(dev, name):
+    """ConvInteger on the card: im2col and kernel 11 (one launch a group,
+    the stem's K = 147 and C_out = 20 on its cp.async form, the 1 x 1 at
+    K = 64 and C_out = 128 on its TMA form), a per-channel weight zero point
+    and a nonzero input zero point padding the input: the CPU's int32
+    outputs (the float64 convolution) and the plain override's on the card,
+    captured with replay()'s bits."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.ops import quant_ops
+
+    xs, ws, xdt, wdt, attrs, xzp = CONV_INTEGER_CARD[name]
+    rng = np.random.default_rng(len(name))
+    x, w = _ints(rng, xs, xdt), _ints(rng, ws, wdt)
+    inits = {"w": w, "xz": np.asarray(xzp, xdt), "wz": _ints(rng, (ws[0],), wdt) // 8}
+    bs = ob.build_model_bytes(
+        [ob.node("ConvInteger", ["x", "w", "xz", "wz"], ["y"], **attrs)],
+        [ob.vi_from_array("x", x)], [ob.value_info("y", 6, [])],
+        [ob.tensor_from_array(v, k) for k, v in inits.items()])
+    K.reset_launch_counts()
+    (got,), (cpu,) = _card_and_cpu(bs, {"x": x})
+    assert K.launch_counts()["int8_gemm"] >= attrs.get("group", 1)
+    np.testing.assert_array_equal(got, cpu)
+    plain = compile_model(bs, device=dev, strict=True,
+                          overrides={"ConvInteger": quant_ops.conv_integer_plain})
+    np.testing.assert_array_equal(plain(x=x)[0].cpu().numpy(), cpu)
+
+
+@pytest.mark.cuda
+def test_qlinear_conv_and_qgemm_requantize_on_the_card(dev):
+    """QLinearConv (per-channel w_scale, int32 bias, stride 2) and QGemm
+    (per-column b_scale, alpha, transB, both output modes) on the card give
+    the CPU's codes and floats bit for bit: the integer sums are exact and
+    the requantization the same f32 steps in the same order."""
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(11)
+    x, w = _ints(rng, (2, 16, 20, 20), np.uint8), _ints(rng, (24, 16, 3, 3), np.int8)
+    inits = {"xs": np.float32(0.02), "xz": np.uint8(121), "w": w,
+             "ws": (rng.random(24) * 0.01 + 0.002).astype(np.float32),
+             "wz": np.zeros(24, np.int8), "ys": np.float32(0.6), "yz": np.uint8(20),
+             "b": rng.integers(-9000, 9000, 24).astype(np.int32)}
+    bs = ob.build_model_bytes(
+        [ob.node("QLinearConv", ["x", *inits], ["y"], strides=[2, 2], pads=[1, 1, 1, 1])],
+        [ob.vi_from_array("x", x)], [ob.value_info("y", 2, [])],
+        [ob.tensor_from_array(v, k) for k, v in inits.items()])
+    (got,), (cpu,) = _card_and_cpu(bs, {"x": x})
+    assert got.dtype == np.uint8 and 0 < (got > 20).mean() < 1
+    np.testing.assert_array_equal(got, cpu)
+    a = _ints(rng, (37, 300), np.uint8)
+    g = {"sa": np.float32(0.02), "za": np.uint8(120), "b": _ints(rng, (100, 300), np.int8),
+         "sb": (rng.random(100) * 0.01 + 0.001).astype(np.float32), "zb": np.zeros(100, np.int8),
+         "c": rng.integers(-5000, 5000, 100).astype(np.int32)}
+    for extra in ({}, {"sy": np.float32(0.5), "zy": np.uint8(100)}):
+        bs = ob.build_model_bytes(
+            [ob.node("QGemm", ["a", *g, *extra], ["y"], domain="com.microsoft", alpha=0.5,
+                     transB=1)],
+            [ob.vi_from_array("a", a)], [ob.value_info("y", 1, [])],
+            [ob.tensor_from_array(v, k) for k, v in {**g, **extra}.items()])
+        (got,), (cpu,) = _card_and_cpu(bs, {"a": a})
+        np.testing.assert_array_equal(got, cpu)
+
+
+@pytest.mark.cuda
+def test_u8_maxpool_and_int4_zero_point_on_cuda(dev):
+    """MaxPool on u8 codes comes back as u8 with the CPU's values (through an
+    exact f32 copy); QuantizeLinear with an int4 zero point clips at [-8, 7]
+    on the card as on the CPU."""
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(12)
+    x = _ints(rng, (2, 8, 13, 13), np.uint8)
+    (got,), (cpu,) = _card_and_cpu(_one_op("MaxPool", {"x": x}, kernel_shape=[3, 3],
+                                           strides=[2, 2], pads=[1, 1, 1, 1]), {"x": x})
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, cpu)
+    xf = np.linspace(-40, 40, 96, dtype=np.float32).reshape(4, 24)
+    bs = ob.build_model_bytes(
+        [ob.node("QuantizeLinear", ["x", "s", "z"], ["y"])], [ob.vi_from_array("x", xf)],
+        [ob.value_info("y", 3, [])],
+        [ob.tensor_from_array(np.float32(2.0), "s"), ob.tensor_int4(np.asarray(-2), "z")],
+        opset=21)
+    (got,), (cpu,) = _card_and_cpu(bs, {"x": xf})
+    np.testing.assert_array_equal(got, cpu)
+    assert got.dtype == np.int8 and got.min() == -8 and got.max() == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c["name"] for c in cs.quant_emitter_graphs()])
+def test_quant_emitter_graph_on_the_card(dev, name):
+    """Each of phase 37's 17 emitter graphs on the card, captured, against
+    the CPU at its gate (integer codes within `codes`, floats within
+    `tol`)."""
+    c = next(c for c in cs.quant_emitter_graphs() if c["name"] == name)
+    got, cpu = _card_and_cpu(cs.emitter_graph_bytes(c), c["inputs"])
+    for g, w in zip(got, cpu):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if np.issubdtype(w.dtype, np.integer):
+            assert np.abs(g.astype(np.int64) - w).max() <= c["codes"]
+        else:
+            assert np.abs(g.astype(np.float64) - w).max() <= c["tol"] * max(
+                1.0, float(np.abs(w).max()))

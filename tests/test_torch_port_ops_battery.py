@@ -12,7 +12,7 @@ other JAX op-test files replay through this file's `replay_case`
 (test_torch_port_ops_tensor.py, _nn.py, _fuzz.py).
 
 A graph that stops on a strict-mode refusal of an op of a later set
-(ROADMAP §1.1.2-1.1.3: `LATER`) runs on JAX's outputs instead and is
+(ROADMAP §1.1.3: `LATER`) runs on JAX's outputs instead and is
 recorded: the case then asserts that every refusal it met is of such an
 op. A graph with a Random op is held to JAX's shapes only: the streams hold
 the properties JAX's tests assert, not threefry's bits (ROADMAP §3
@@ -41,9 +41,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
 import optest  # noqa: E402
 
-# ROADMAP §1.1.2-1.1.3: the 45 ai.onnx names the port has not ported yet
+# ROADMAP §1.1.3: the 40 ai.onnx names the port has not ported yet
 LATER = frozenset(
-    "ConvInteger DequantizeLinear QLinearConv QLinearMatMul QuantizeLinear "  # quant_ops
     "Acosh Asinh Atanh Bernoulli BitShift BitwiseAnd BitwiseNot BitwiseOr BitwiseXor "
     "BlackmanWindow CenterCropPad Col2Im DFT Det EyeLike GlobalLpPool GridSample "
     "HammingWindow HannWindow Hardmax LRN LpPool MaxRoiPool MaxUnpool MelWeightMatrix "
@@ -162,12 +161,15 @@ def cases(module_names, patch_names=("run_op", "run_graph", "assert_close")):
             if not grids:
                 out.append(pytest.param(mod_name, name, {}, id=f"{mod_name}::{name}"))
                 continue
-            (grid,) = grids
-            argnames = [a.strip() for a in grid.args[0].split(",")]
-            for vals in grid.args[1]:
-                vals = vals if len(argnames) > 1 else (vals,)
-                kw = dict(zip(argnames, vals))
-                out.append(pytest.param(mod_name, name, kw,
+            # stacked grids: every combination, the innermost (last applied) first
+            combos = [()]
+            for grid in reversed(grids):
+                argnames = [a.strip() for a in grid.args[0].split(",")]
+                combos = [c + tuple(zip(argnames, v if len(argnames) > 1 else (v,)))
+                          for c in combos for v in grid.args[1]]
+            for combo in combos:
+                vals = [v for _, v in combo]
+                out.append(pytest.param(mod_name, name, dict(combo),
                                         id=f"{mod_name}::{name}[{'-'.join(map(str, vals))}]"))
     return out
 

@@ -111,14 +111,14 @@ def test_int_mod_by_zero_gives_jax_values():
 
 
 def test_registry_holds_every_set_one_emitter():
-    """The port registers 150 of JAX's 195 ai.onnx emitters: all but the 45
-    of ROADMAP §1.1.2-1.1.3, which LATER names; the Trilu alias resolves."""
+    """The port registers 155 of JAX's 195 ai.onnx emitters: all but the 40
+    of ROADMAP §1.1.3, which LATER names; the Trilu alias resolves."""
     import lele_tpu.ops.registry as jreg
     import lele_tpu_torch.ops.registry as preg
     from test_torch_port_ops_battery import LATER
 
-    assert set(jreg.OPS) - set(preg.OPS) == LATER and len(LATER) == 45
-    assert len(preg.OPS) == 150 and set(preg.OPS) <= set(jreg.OPS)
+    assert set(jreg.OPS) - set(preg.OPS) == LATER and len(LATER) == 40
+    assert len(preg.OPS) == 155 and set(preg.OPS) <= set(jreg.OPS)
     assert preg.CONTRIB_ALIASES == jreg.CONTRIB_ALIASES
     assert preg.lookup_op("com.microsoft", "Trilu") is preg.OPS["Trilu"]
     set_one = [n for n, od in jreg.OPS.items() if od.fn.__module__.rsplit(".", 1)[1] in (

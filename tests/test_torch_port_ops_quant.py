@@ -1,0 +1,204 @@
+"""The JAX quant-op tests replayed through the port (ROADMAP §1.1.2 and the
+qlinear part of §1.1.4): tests/test_qlinear_ops.py (the com.microsoft
+QOperator family) and tests/test_qdq_model.py (a QDQ conv backbone), each
+graph through both packages' compile_model on the same bytes, the port's
+outputs handed to the JAX test's own assertions and held to JAX's at the
+test's tolerance (test_torch_port_ops_battery.py says how; a test that
+names no tolerance, as the ±1-code checks of test_qlinear_ops.py, holds the
+port to JAX's outputs within optest's 1e-5, so integer codes are equal).
+
+Also: the weight side of a QDQ conv folds while tracing (JAX's
+test_qdq_model.py:83, which compiles without optest), the registry's
+com.microsoft count and flags, and the int4 clip of QuantizeLinear through
+its static zero point's marker on both packages.
+"""
+
+import io
+import sys
+from contextlib import redirect_stderr
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from lele_tpu.compiler import compile_model as j_compile
+from lele_tpu.onnx import builder as jb
+from lele_tpu.onnx.loader import OnnxModel as JOnnxModel
+from lele_tpu_torch.compiler import compile_model
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_port_ops_battery import cases, replay_case  # noqa: E402
+
+
+# case id → (the largest port-vs-JAX gap measured, why): ROADMAP §3 "Known"
+KNOWN = {
+    "test_qlinear_ops::test_qlinear_average_pool[1]": (
+        1.0, "one code of 27: a 2 x 2 window whose exact mean lies on a half-step of the "
+             "output grid, decided by the f32 sum's order. The port sums a window's taps "
+             "in row-major order (JAX's order for the NCHW case, which agrees); XLA sums "
+             "the channels-last input's window in another order (measured: (t0 + t2) + "
+             "(t1 + t3)). Both are within the JAX test's one-code contract."),
+}
+
+
+@pytest.mark.parametrize("mod_name,fn_name,kwargs",
+                         cases(["test_qlinear_ops", "test_qdq_model"]))
+def test_replays_jax_op_test(monkeypatch, mod_name, fn_name, kwargs):
+    rep = replay_case(monkeypatch, mod_name, fn_name, kwargs, known=KNOWN)
+    assert not rep.deferred, rep.deferred  # no quant-set graph waits any more
+
+
+def _both(bs, inputs, **kw):
+    with redirect_stderr(io.StringIO()):
+        jm = j_compile(JOnnxModel.from_bytes(bs), strict=True)
+        want = jm.run_np(**inputs)
+    cm = compile_model(bs, device="cpu", strict=True, **kw)
+    return cm.run_np(**inputs), want, cm, jm
+
+
+def test_qdq_weight_side_folds_while_tracing():
+    """tests/test_qdq_model.py:83 on the port: the weight's DequantizeLinear
+    is all-static and folds, so the program holds only the Conv; the
+    output is JAX's."""
+    rng = np.random.default_rng(55)
+    w = (rng.standard_normal((2, 2, 2, 2)) * 0.2).astype(np.float32)
+    wq = np.clip(np.round(w / 0.01) + 128, 0, 255).astype(np.uint8)
+    x = rng.standard_normal((1, 2, 4, 4)).astype(np.float32)
+    bs = jb.build_model_bytes(
+        [jb.node("DequantizeLinear", ["wq", "sw", "zw"], ["wdq"]),
+         jb.node("Conv", ["x", "wdq"], ["y"])],
+        [jb.vi_from_array("x", x)], [jb.value_info("y", 1, [])],
+        [jb.tensor_from_array(wq, "wq"), jb.tensor_from_array(np.float32(0.01), "sw"),
+         jb.tensor_from_array(np.uint8(128), "zw")])
+    (got,), (want,), cm, _ = _both(bs, {"x": x})
+    assert cm.stats["n_folded"] >= 1 and cm.stats["n_steps"] == 1, cm.stats
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,zp", [(22, np.int8(0)), (21, np.uint8(0)),
+                                     (22, np.int8(-3)), (21, np.uint8(5))])
+def test_int4_zero_point_clips_at_the_4bit_range(kind, zp):
+    """QuantizeLinear with an int4 (22) / uint4 (21) zero point from a 4-bit
+    initializer: the codes clip at [-8, 7] / [0, 15] on 8-bit storage, as in
+    JAX (the static zero point keeps the loader's marker), folded on
+    constants and as a device step."""
+    x = np.linspace(-30, 30, 25, dtype=np.float32).reshape(5, 5)
+    zp_t = jb.tensor_int4(np.asarray(int(zp), np.int64), "z", signed=kind == 22)
+    lo, hi = (-8, 7) if kind == 22 else (0, 15)
+    want_np = np.clip(np.round(x / 2.0) + int(zp), lo, hi)
+    for dynamic in (True, False):
+        inits = [jb.tensor_from_array(np.float32(2.0), "s"), zp_t]
+        if not dynamic:
+            inits.append(jb.tensor_from_array(x, "x"))
+        bs = jb.build_model_bytes(
+            [jb.node("QuantizeLinear", ["x", "s", "z"], ["y"])],
+            [jb.vi_from_array("x", x)] if dynamic else [], [jb.value_info("y", 1, [])],
+            inits, opset=21)
+        (got,), (want,), _, _ = _both(bs, {"x": x} if dynamic else {})
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got.astype(np.int64), want_np)
+        assert got.dtype == (np.int8 if kind == 22 else np.uint8)
+
+
+@pytest.mark.parametrize("out_dt", [3, 2, 21, 22, 5])
+def test_quantize_output_dtype_attribute(out_dt):
+    """Opset 21's output_dtype wins over the zero point's type; per-axis
+    scales along axis 0."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((3, 8)) * 40).astype(np.float32)
+    s = np.array([0.5, 1.0, 3.0], np.float32)
+    bs = jb.build_model_bytes(
+        [jb.node("QuantizeLinear", ["x", "s"], ["y"], axis=0, output_dtype=out_dt)],
+        [jb.vi_from_array("x", x)], [jb.value_info("y", 1, [])],
+        [jb.tensor_from_array(s, "s")], opset=21)
+    (got,), (want,), _, _ = _both(bs, {"x": x})
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("block", [0, 3, 4])
+def test_blocked_quantize_dequantize(block):
+    """Blocked scales and zero points (opset 21's block_size, the 4-bit LLM
+    layout; a ragged last block at 3) through QuantizeLinear and
+    DequantizeLinear, against JAX; per-axis where block is 0."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 10)).astype(np.float32) * 3
+    nb = -(-10 // block) if block else 10
+    s = (rng.random((4, nb)) * 0.05 + 0.01).astype(np.float32) if block else \
+        (rng.random(10) * 0.05 + 0.01).astype(np.float32)
+    z = rng.integers(-5, 5, s.shape).astype(np.int8)
+    attrs = {"axis": 1, **({"block_size": block} if block else {})}
+    bs = jb.build_model_bytes(
+        [jb.node("QuantizeLinear", ["x", "s", "z"], ["q"], **attrs),
+         jb.node("DequantizeLinear", ["q", "s", "z"], ["y"], **attrs)],
+        [jb.vi_from_array("x", x)], [jb.value_info("q", 3, []), jb.value_info("y", 1, [])],
+        [jb.tensor_from_array(s, "s"), jb.tensor_from_array(z, "z")], opset=21)
+    got, want, _, _ = _both(bs, {"x": x})
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-6)
+
+
+def test_registry_holds_the_quant_and_qlinear_sets():
+    """The port registers 155 of JAX's 195 ai.onnx emitters and 32 of its 52
+    com.microsoft ones; the five quant names and the twelve QOperator
+    emitters keep JAX's fold and static-argument flags, the twelve under
+    com.microsoft."""
+    import lele_tpu.ops.registry as jreg
+    import lele_tpu_torch.ops.registry as preg
+
+    quant = ("QuantizeLinear", "DequantizeLinear", "ConvInteger", "QLinearMatMul",
+             "QLinearConv")
+    qlinear = [n for (d, n), od in jreg.CONTRIB_OPS.items()
+               if od.fn.__module__.endswith("qlinear_ops")]
+    assert len(qlinear) == 12 and len(preg.OPS) == 155
+    assert len(preg.CONTRIB_OPS) == 32 and set(preg.CONTRIB_OPS) <= set(jreg.CONTRIB_OPS)
+    for j, p in [(jreg.OPS[n], preg.OPS[n]) for n in quant] + [
+            (jreg.CONTRIB_OPS[("com.microsoft", n)],
+             preg.lookup_op("com.microsoft", n)) for n in qlinear]:
+        assert p is not None and p.fn.__module__.rsplit(".", 1)[1] == \
+            j.fn.__module__.rsplit(".", 1)[1], j.name
+        assert (j.foldable, tuple(j.static_args)) == (p.foldable, tuple(p.static_args)), j.name
+
+
+# -- chip_smoke phase 37's emitter graphs on the CPU --------------------------
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+QGRAPHS = {c["name"]: c for c in chip_smoke.quant_emitter_graphs()}
+
+
+def test_quant_emitter_graphs_cover_the_set():
+    """Phase 37's graphs name all 17 emitters of the quant and qlinear sets."""
+    import lele_tpu.ops.registry as jreg
+
+    want = {"QuantizeLinear", "DequantizeLinear", "ConvInteger", "QLinearMatMul",
+            "QLinearConv"} | {n for (d, n), od in jreg.CONTRIB_OPS.items()
+                              if od.fn.__module__.endswith("qlinear_ops")}
+    ops = {node["op_type"] for c in QGRAPHS.values() for node in c["nodes"]}
+    assert len(want) == 17 and want <= ops, sorted(want - ops)
+
+
+# graph → the codes its integer outputs may differ from JAX's by: the
+# average pool's window sum is the port's taps in row-major order, XLA's
+# reduce_window another order, which moves a code where the exact mean lies
+# on a half-step (measured: 3 of 250 codes by one; KNOWN above)
+JAX_CODES = {"QLinearAveragePool, padded": 1}
+
+
+@pytest.mark.parametrize("name", sorted(QGRAPHS))
+def test_quant_emitter_graph_matches_jax(name):
+    """Each of phase 37's graphs through both packages on the CPU: integer
+    outputs equal (but JAX_CODES), float outputs within 1e-5 of max(1,
+    max|ref|) (optest's tolerance); each tape capturable."""
+    c = QGRAPHS[name]
+    bs = chip_smoke.emitter_graph_bytes(c)
+    got, want, cm, _ = _both(bs, c["inputs"])
+    assert cm.stats["capturable"]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.dtype, w.dtype)
+        if np.issubdtype(w.dtype, np.integer):
+            assert np.abs(g.astype(np.int64) - w).max() <= JAX_CODES.get(name, 0)
+        else:
+            assert np.abs(g - w).max() <= 1e-5 * max(1.0, float(np.abs(w).max()))

@@ -210,7 +210,10 @@ def test_port_runs_without_jax():
     caches donated; and slice 20: chip_smoke phase 36's ResNet-50 builder at
     a small width, and one emitter graph of each of the math, tensor, nn and
     activation sets (Mod, ScatterND, TopK, the Random ops; LogSoftmax;
-    MaxPool, Resize, 3-D ConvTranspose)."""
+    MaxPool, Resize, 3-D ConvTranspose); and slice 21: chip_smoke phase
+    37's two int8 ResNet-50 forms at a small width, the QDQ graph from the
+    port's quantize_static and the QOperator graph on calibrate_minmax's
+    ranges."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -472,6 +475,16 @@ def test_port_runs_without_jax():
         "        cm = compile_model(chip_smoke.emitter_graph_bytes(c), device='cpu', strict=True)\n"
         "        assert all(np.isfinite(v.astype(np.float64)).all()\n"
         "                   for v in cm.run_np(**c['inputs'])) and cm.stats['capturable']\n"
+        "from lele_tpu_torch.onnx.quantize import calibrate_minmax, quantize_static\n"
+        "small = dict(batch=1, width=8, blocks=(1, 1, 1, 1), classes=10, img=32)\n"
+        "bq = [{'data': np.random.default_rng(8).standard_normal((1, 3, 32, 32),\n"
+        "                                                       dtype=np.float32)}]\n"
+        "qd = quantize_static(rb, bq, per_channel=True, device='cpu')\n"
+        "assert np.isfinite(compile_model(qd, device='cpu', strict=True).run_np(data=xi)[0]).all()\n"
+        "rg = calibrate_minmax(chip_smoke.resnet50_folded_model(**small), bq, device='cpu')\n"
+        "qo, qi = chip_smoke.resnet50_qoperator_model(rg, **small)\n"
+        "lq = compile_model(qo, device='cpu', strict=True).run_np(data=xi)[0]\n"
+        "assert np.isfinite(lq).all() and lq.shape == (1, 10) and qi['int8_products'] == 18\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
