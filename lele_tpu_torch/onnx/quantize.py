@@ -464,7 +464,7 @@ def quantize_static(data: bytes, calibration_batches, op_types=("Conv", "MatMul"
         if id(n) in target_ids:
             w = _weight_array(n["input"][1], inits, const_nodes, base_dir)
             # every calibrated edge reads the fake-quant view, a target
-            # whose second input is an activation too (ADVICE r4); a static
+            # whose second input is an activation too; a static
             # weight replaces ins[1] below
             ins = [dq_alias.get(x, x) for x in n["input"]]
             if w is not None and w.ndim >= 2 and w.dtype == np.float32:

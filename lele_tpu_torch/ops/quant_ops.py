@@ -324,7 +324,7 @@ def quantize_t(x, scale, zp, axis: int, block: int, lo: int, hi: int, qdt: torch
 def quantize_linear(ctx: OpContext, x, scale, zp=None):
     """The zero point stays host-side when static (static_args), so the
     loader's Int4Array marker survives: int4/uint4 zero points unpack to
-    int8/uint8 storage but clip at the 4-bit value range (ADVICE r4).
+    int8/uint8 storage but clip at the 4-bit value range.
     Opset 21's `output_dtype` is honored too (it wins over the zero
     point's type); per-tensor, per-axis and blocked scales. While tracing,
     the static zero point goes to the device once, by name, and the node
