@@ -216,22 +216,23 @@
    one Loop over fixtures/silero.onnx's step, each one captured CUDA graph a
    call with kernel 6 launched once a chunk (its graph's kernel nodes read
    back), bit-equal to `SileroOnnx.speech_probs` and within VAD_PROB_TOL of
-   the lstm_plain compile, with both paths' times; a 50-layer SAN-M encoder
-   at SenseVoice's widths (D 512, 4 heads, FFN 2,048, FSMN k 11, T 196,
+   the lstm_plain compile, with both paths' times; a CF_SANM_LAYERS-layer
+   SAN-M encoder at SenseVoice's widths (D 512, 4 heads, FFN 2,048, FSMN k 11, T 196,
    random weights from a seed) exported here by torch.onnx.export through
    the port's onnx stand-in with each layer a local function, quantized by
-   the port's `quantize_dynamic`, compiled: 50 fused layers, kernel 4 once a
+   the port's `quantize_dynamic`, compiled: every layer fused, kernel 4 once a
    call in a captured graph, the bits of the same model exported flat and
    quantized the same way, the per-op trace within LOGIT_NOISE_MAE; the
    export's, quantizer's and program's times;
 35. the ORT-GenAI int4 decoder form (onnx/synth.py `build_genai_decoder`:
    com.microsoft SimplifiedLayerNormalization, SkipSimplifiedLayerNormalization,
    RotaryEmbedding, GroupQueryAttention and MatMulNBits; QMoE in the MoE
-   form) at Phi-3-mini's width (4 of 32 layers) and Phi-3.5-MoE's attention
-   and expert widths (2 of 32 layers), random weights drawn on the card from
-   a seed, written as model.onnx + model.onnx.data by save_with_external_data
-   and compiled from the path, the caches donated: a 128-token prefill and 32
-   greedy steps through captured graphs, every MatMulNBits on kernel 7 (its
+   form) at Phi-3-mini's width (GENAI_DENSE_LAYERS of 32 layers) and
+   Phi-3.5-MoE's attention and expert widths (GENAI_MOE_LAYERS of 32 layers),
+   random weights drawn on the card from a seed, written as model.onnx +
+   model.onnx.data by save_with_external_data and compiled from the path, the
+   caches donated: a 128-token prefill and GENAI_STEPS greedy steps through
+   captured graphs, every MatMulNBits on kernel 7 (its
    launches a step counted), each step's logits against the graph on kernel
    7's plain version, the captured donated bits against the uncaptured
    replay, prefill and decode times, kernel 7's device time a step against
@@ -264,9 +265,25 @@
    version at each conv shape class, times captured and step by step with
    kernel 11's share and the int8 bound; then one graph for each of the 17
    quant emitters (`quant_emitter_graphs`), captured, against the CPU;
-38. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
-   too, row 7 phase 35's, row 11 phase 37's), the card, and last {"ok":
-   true, "device": ...}.
+38. the entry points at full width: the port's server (ThreadingHTTPServer
+   on 127.0.0.1:0) over build_engines()'s full-width JAX defaults and over
+   the main path's engines (w8a16 SenseVoice, the fused Supertonic of
+   tts.json, YOLO26): /healthz, the demo page, /recognize of 1.0, 4.3 and
+   10 s, a burst of 8 concurrent /recognize requests through the
+   MicroBatcher (each answer recognize_batch's for the batch it joined, a
+   flush of more than one), /recognize_batch, /detect of a JPEG,
+   /synthesize, each answer the engine's direct call and its launches the
+   direct call's (kernels 1 and 2 once a lone w8a16 request, kernel 10 on
+   /synthesize); /recognize latency p50 / p90 at 1, 4 and 8 clients by host
+   clock with the batch sizes; `python -m lele_tpu_torch.cli` on phase 6's
+   int8 graph in a subprocess and its generated wrapper in a fresh one
+   (kernels 4 and 5 once a call, the bits of compile_model in this
+   process); --quantize-weights within its dequantization bound,
+   --quantize-dynamic the bits of quantize_dynamic + compile_model, and
+   build_model from a local model.toml (a real wrapper);
+39. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+   too, row 7 phase 35's, row 11 phase 37's, rows 1, 2, 4, 5 and 10 phase
+   38's), the card, and last {"ok": true, "device": ...}.
 
 Each phase's seconds follow its output ("[phase 7: 12.3 s]"). Exits
 non-zero, and prints no result, when there is no CUDA card or any check
@@ -1963,6 +1980,7 @@ def capture_phase(checks, card) -> None:
     banner(f"== 32. one CUDA graph a bucket: each captured path against its uncaptured "
           f"oracle ({card})")
     for label, e in CAPTURED.items():
+        t_label = time.perf_counter()
         after, before, rel, progs = e["after"], e["before"], e["rel"], e["programs"]
         with torch.inference_mode():
             K.reset_launch_counts()
@@ -2014,7 +2032,8 @@ def capture_phase(checks, card) -> None:
         program_launch_check(checks, label, calls)
         print(f"  {label}: uncaptured {hb:.3f} ms by host clock, {eb:.3f} ms by events, "
               f"device {db:.1f} us, busy {db / sb:.3f}; captured {ha:.3f} ms, {ea:.3f} ms, "
-              f"device {da:.1f} us, busy {da / sa:.3f}  ({card})")
+              f"device {da:.1f} us, busy {da / sa:.3f}; {time.perf_counter() - t_label:.1f} s "
+              f"of this phase  ({card})")
     print(f"  torch.cuda.max_memory_reserved() after the captures: "
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB (reserved now "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)  ({card})")
@@ -2178,14 +2197,20 @@ def sanm_export(encoder, layer_cls, args, functions: bool) -> bytes:
     return buf.getvalue()
 
 
+# phase 34's SAN-M export: depth cut from 50 to keep the whole script in its
+# time once phase 38 was added (the widths stay SenseVoice's)
+CF_SANM_LAYERS = 12
+
+
 def control_flow_phase(checks, dev, card) -> dict:
     """Phase 34: the tracer's Scan and Loop and ONNX local functions at full
     width. Silero's 10 s utterance (312 chunks, 16 and 8 kHz) as one Scan and
     one Loop over fixtures/silero.onnx's step (kernel 6 once a chunk, one
     captured graph a call), against SileroOnnx.speech_probs' bits and the
-    plain-LSTM compile; a function-packaged int8 SAN-M encoder at SenseVoice's
+    plain-LSTM compile; a function-packaged int8 SAN-M encoder (CF_SANM_LAYERS
+    layers) at SenseVoice's
     widths (exported here through the port's onnx stand-in, quantized by the
-    port's quantize_dynamic): 50 fused layers, one kernel-4 launch a call in
+    port's quantize_dynamic): every layer fused, one kernel-4 launch a call in
     a captured graph, the flat export's bits, the per-op trace's noise gate.
     Returns each kernel's launches in one call of each path:
     {kernel: {path: count}}."""
@@ -2256,7 +2281,7 @@ def control_flow_phase(checks, dev, card) -> dict:
                   f"{h_ref:.3f} ms, device {du_ref / 1e3:.3f} ms, busy {du_ref / span_ref:.3f}"
                   f"  ({card})")
 
-    L, T, D, H, FFN, KK = 50, T_DQL, 512, 4, 2048, 11
+    L, T, D, H, FFN, KK = CF_SANM_LAYERS, T_DQL, 512, 4, 2048, 11
     label = f"function-packaged int8 SAN-M, {L} layers, D {D}, T {T}"
     layer, encoder = sanm_modules(T, D, H, FFN, KK)
     torch.manual_seed(SEED)
@@ -3920,9 +3945,11 @@ def decode_phase(checks, dev, card) -> None:
 # Phi-3.5-MoE's attention and expert widths (32 heads over 8 kv heads of 128,
 # 16 experts of 4,096 x 6,400, top-2) at 2 of its 32 layers
 GENAI_PROMPT = 128
-GENAI_STEPS = 32
-GENAI_DENSE_LAYERS = 4
-GENAI_MOE_LAYERS = 2
+# depth cut to keep the whole script in its time: 32 steps, 4 and 2 layers
+# before phase 38 was added
+GENAI_STEPS = 16
+GENAI_DENSE_LAYERS = 2
+GENAI_MOE_LAYERS = 1
 
 
 def genai_forms() -> dict:
@@ -4063,11 +4090,12 @@ def genai_phase(checks, dev, card) -> dict:
     """Phase 35: the ORT-GenAI int4 decoder family (com.microsoft
     SimplifiedLayerNormalization / SkipSimplifiedLayerNormalization,
     RotaryEmbedding, GroupQueryAttention, MatMulNBits; QMoE in the MoE form)
-    at Phi-3-mini's width (4 of 32 layers) and Phi-3.5-MoE's attention and
-    expert widths (2 of 32 layers), random weights drawn on the card from a
+    at Phi-3-mini's width (GENAI_DENSE_LAYERS of 32 layers) and Phi-3.5-MoE's
+    attention and expert widths (GENAI_MOE_LAYERS of 32), random weights drawn
+    on the card from a
     seed, written with save_with_external_data and compiled from the path
     (S = 128 and S = 1), with the caches donated in graph order. A 128-token
-    prefill and 32 greedy steps through captured graphs: every MatMulNBits on
+    prefill and GENAI_STEPS greedy steps through captured graphs: every MatMulNBits on
     kernel 7 (2 pattern hits a node), kernel 7's launches a step, each step's
     logits within NBITS_RELNORM of the same graph on kernel 7's plain version
     (PLAIN_NBITS_PATTERNS, the same bf16 activations) on the same feeds,
@@ -5189,6 +5217,446 @@ def quant_phase(checks, dev, card) -> dict:
     return {"int8_gemm": launches}
 
 
+ENTRY_BURST = 8  # concurrent /recognize requests of one burst (the batchers' max_batch)
+ENTRY_CLIENTS = (1, 4, 8)  # concurrent clients of the latency runs
+ENTRY_ROUNDS = 4  # requests each client sends back to back, timed
+ENTRY_FFN = (196, 512, 2048)  # the CLI's float graph: rows, SenseVoice's d and ffn
+
+
+def http(url: str, body: bytes | None = None, timeout: float = 300.0):
+    """(status, body, content type) of a GET (no body) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                    timeout=timeout) as r:
+            return r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:  # a 4xx/5xx carries the handler's error
+        return e.code, e.read(), e.headers.get("Content-Type", "")
+
+
+def moved(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+class Served:
+    """The port's server on 127.0.0.1:0, serving on a thread, its ASR
+    batcher's `process_batch` wrapped to record each batch's requests."""
+
+    def __init__(self, engines: dict):
+        import threading
+
+        from lele_tpu_torch.server import serve
+
+        self.engines, self.batches = engines, []
+        batcher = engines["asr_batcher"]
+        inner = batcher.process_batch
+
+        def recorded(items):
+            self.batches.append(list(items))
+            return inner(items)
+
+        batcher.process_batch = recorded
+        self.httpd = serve(port=0, engines=engines)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(60)
+        for k in ("asr_batcher", "det_batcher"):
+            self.engines[k].close()
+
+
+def served_requests(checks, label: str, srv: Served, jpeg: bytes, voice) -> dict:
+    """Every route of the server at `srv` once, each answer 200 and held to
+    the engine called directly on the same input (bits: ids, detections and
+    WAV bytes equal), the launches of a request to those of the direct call:
+    /healthz, the demo page, /recognize on REQUEST_SECONDS, a burst of
+    ENTRY_BURST concurrent /recognize requests (each answer what
+    recognize_batch gives the batch it joined; a flush of more than one),
+    /recognize_batch, /detect and /synthesize. → {path: launches}."""
+    import base64
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.server import DEMO_PAGE
+
+    engines, url, asr = srv.engines, srv.url, srv.engines["asr"]
+    out: dict[str, dict] = {}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, K.launch_counts()
+
+    st, body, _ = http(url + "/healthz")
+    checks.require(st == 200 and json.loads(body) == {"ok": True, "mesh": None},
+                   f"{label}: /healthz {st} {body!r}")
+    st, body, ctype = http(url + "/")
+    checks.require(st == 200 and ctype.startswith("text/html") and body == DEMO_PAGE.read_bytes(),
+                   f"{label}: / {st} {ctype}, {len(body)} bytes, lele_tpu_torch/web/index.html's")
+    rng = np.random.default_rng(SEED + 38)
+    singles = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
+    for s, w in zip(REQUEST_SECONDS, singles):
+        asr.recognize(w)  # the bucket's program captured before the counted calls
+        (st, body, _), served = counted(lambda w=w: http(url + "/recognize", w))
+        direct, own = counted(lambda w=w: asr.recognize(w))
+        got = json.loads(body) if st == 200 else body
+        checks.require(st == 200 and got == {"ids": direct} and served == own,
+                       f"{label}: /recognize {s} s: {st}, {len(direct)} ids, "
+                       f"SenseVoiceEngine.recognize's; launches {moved(served)} = the "
+                       f"engine's own {moved(own)}")
+        out[f"/recognize {s} s"] = moved(served)
+
+    burst = [wav_bytes(synth_speechlike(s, rng)) for s in np.linspace(1.0, 10.0, ENTRY_BURST)]
+    seen, flushes = len(srv.batches), len(engines["asr_batcher"].batch_sizes)
+    with concurrent.futures.ThreadPoolExecutor(ENTRY_BURST) as ex:
+        rs, served = counted(lambda: list(ex.map(lambda w: http(url + "/recognize", w), burst)))
+    formed, sizes = srv.batches[seen:], engines["asr_batcher"].batch_sizes[flushes:]
+    answers = {w: json.loads(b)["ids"] for w, (st, b, _) in zip(burst, rs) if st == 200}
+    direct, own = counted(lambda: [asr.recognize_batch(b) for b in formed])
+    checks.require(len(answers) == ENTRY_BURST and sorted(map(len, formed)) == sorted(sizes)
+                   and all([answers[w] for w in b] == d for b, d in zip(formed, direct)),
+                   f"{label}: a burst of {ENTRY_BURST} concurrent /recognize requests (1-10 s) "
+                   f"answered {[st for st, _, _ in rs]}, in batches of {sizes}: each answer "
+                   f"is what recognize_batch gives its batch")
+    checks.require(max(sizes) > 1, f"{label}: the ASR batcher flushed a batch of {max(sizes)}")
+    checks.require(served == own, f"{label}: the burst's launches {moved(served)} = "
+                                  f"recognize_batch's on the same batches {moved(own)}")
+    out[f"/recognize burst of {ENTRY_BURST} ({len(sizes)} batches)"] = moved(served)
+
+    body = json.dumps([base64.b64encode(w).decode() for w in singles]).encode()
+    (st, resp, _), served = counted(lambda: http(url + "/recognize_batch", body))
+    direct, own = counted(lambda: asr.recognize_batch(singles))
+    checks.require(st == 200 and json.loads(resp) == {"results": direct} and served == own,
+                   f"{label}: /recognize_batch of {len(singles)}: {st}, recognize_batch's "
+                   f"answers; launches {moved(served)} = {moved(own)}")
+    out["/recognize_batch of 3"] = moved(served)
+
+    det = engines["det"]
+    det.detect(jpeg)
+    (st, resp, _), served = counted(lambda: http(url + "/detect", jpeg))
+    direct, own = counted(lambda: json.loads(json.dumps(det.detect(jpeg))))
+    checks.require(st == 200 and json.loads(resp) == {"detections": direct} and served == own,
+                   f"{label}: /detect of a {len(jpeg)}-byte JPEG: {st}, {len(direct)} detections, "
+                   "Yolo26Engine.detect's")
+
+    tts, text = engines["tts"], TTS_TEXTS[0]
+    req = json.dumps({"text": text, "voice": voice}).encode()
+    tts.synthesize(text, voice=voice)
+    (st, wav, ctype), served = counted(lambda: http(url + "/synthesize", req))
+    direct, own = counted(lambda: tts.synthesize(text, voice=voice))
+    checks.require(st == 200 and ctype == "audio/wav" and wav == direct and served == own,
+                   f"{label}: /synthesize of {len(text)} characters: {st} {ctype}, "
+                   f"{len(wav)} bytes, TtsEngine.synthesize's; launches {moved(served)} = "
+                   f"{moved(own)}")
+    out["/synthesize"] = moved(served)
+    return out
+
+
+def latency_runs(srv: Served, card: str) -> dict:
+    """p50 and p90 by host clock of /recognize (REQUEST_SECONDS in turn) for
+    each of ENTRY_CLIENTS concurrent clients, each sending ENTRY_ROUNDS
+    requests back to back after one untimed round, every batch program
+    captured before; the batch sizes."""
+    import collections
+    import concurrent.futures
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 380)
+    wavs = [wav_bytes(synth_speechlike(s, rng)) for s in REQUEST_SECONDS]
+    batcher, stats, asr = srv.engines["asr_batcher"], {}, srv.engines["asr"]
+    # every program a timed batch can take (a batch of b runs at the padded
+    # B = 1, 2, 4 or 8 and its longest request's bucket) captured first
+    for b in (1, 2, 4, 8):
+        for w in wavs:
+            asr.recognize_batch([w] * b)
+    progs = len(asr.model.programs)
+    for c in ENTRY_CLIENTS:
+        def client(i, rounds):
+            times = []
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                st, _, _ = http(srv.url + "/recognize", wavs[(i + r) % len(wavs)])
+                times.append(((time.perf_counter() - t0) * 1e3, st))
+            return times
+
+        with concurrent.futures.ThreadPoolExecutor(c) as ex:
+            list(ex.map(lambda i: client(i, 1), range(c)))
+            before = len(batcher.batch_sizes)
+            t0 = time.perf_counter()
+            runs = [t for ts in ex.map(lambda i: client(i, ENTRY_ROUNDS), range(c)) for t in ts]
+            wall = time.perf_counter() - t0
+        ms = np.array([t for t, _ in runs])
+        sizes = collections.Counter(batcher.batch_sizes[before:])
+        stats[c] = {"p50": float(np.percentile(ms, 50)), "p90": float(np.percentile(ms, 90)),
+                    "ok": all(st == 200 for _, st in runs), "n": len(runs)}
+        print(f"  {c} client(s) x {ENTRY_ROUNDS} /recognize (1.0 / 4.3 / 10 s in turn): p50 "
+              f"{stats[c]['p50']:.2f} ms, p90 {stats[c]['p90']:.2f} ms, max {ms.max():.2f} ms "
+              f"by host clock, "
+              f"{len(runs) / wall:.1f} requests/s; batch sizes {dict(sorted(sizes.items()))}; "
+              f"programs captured before {progs}, after {len(asr.model.programs)}  ({card})")
+    return stats
+
+
+def ffn_graph(seed: int) -> bytes:
+    """A float FFN at SenseVoice's widths (x [196, 512] → MatMul 512 → 2048,
+    Add, Relu → MatMul 2048 → 512), weights from a seed: the CLI's
+    quantize forms' input."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+
+    M, D, F = ENTRY_FFN
+    rng = np.random.default_rng(seed)
+    w1 = (rng.standard_normal((D, F)) / D ** 0.5).astype(np.float32)
+    w2 = (rng.standard_normal((F, D)) / F ** 0.5).astype(np.float32)
+    b1 = (rng.standard_normal(F) * 0.1).astype(np.float32)
+    return ob.build_model_bytes(
+        [ob.node("MatMul", ["x", "w1"], ["h"]), ob.node("Add", ["h", "b1"], ["hb"]),
+         ob.node("Relu", ["hb"], ["r"]), ob.node("MatMul", ["r", "w2"], ["y"])],
+        [ob.value_info("x", 1, [M, D])], [ob.value_info("y", 1, [M, D])],
+        [ob.tensor_from_array(w1, "w1"), ob.tensor_from_array(b1, "b1"),
+         ob.tensor_from_array(w2, "w2")])
+
+
+def load_wrapper(path: Path):
+    """A generated wrapper's class, loaded by file spec."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, path.stem)
+
+
+WRAPPER_RUN = """
+import json, sys, time
+import numpy as np
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+from PhaseSanm import PhaseSanm
+from lele_tpu_torch import kernels as K
+feeds = dict(np.load(sys.argv[2]))
+m = PhaseSanm()
+t_load = time.perf_counter() - t0
+counts = []
+for _ in range(2):
+    K.reset_launch_counts()
+    outs = m.forward(**feeds)
+    counts.append({k: v for k, v in K.launch_counts().items() if v})
+np.savez(sys.argv[3], *outs)
+print(json.dumps({"counts": counts, "captured": m._cm.stats["captured"],
+                  "device": str(m._cm.device), "load_s": t_load}))
+"""
+
+
+def entry_points_phase(checks, dev, card, graph: bytes, cm, feeds: dict) -> dict:
+    """Phase 38: the port's entry points at full width. The server twice
+    (ThreadingHTTPServer on 127.0.0.1:0): build_engines()'s full-width JAX
+    defaults, and engines on the main path (w8a16 SenseVoice, the fused
+    Supertonic of tts.json, the default YOLO26); every route held to the
+    engines' direct calls (`served_requests`), /recognize latencies at 1, 4
+    and 8 clients on the main path (`latency_runs`). The CLI: phase 6's
+    int8 SAN-M graph through `python -m lele_tpu_torch.cli` in a
+    subprocess, its wrapper in a second fresh one (kernels 4 and 5 once a
+    call, the outputs `cm`'s bits on `feeds`); --quantize-weights within
+    its dequantization bound, --quantize-dynamic the bits of
+    quantize_dynamic + compile_model, build_model from a local model.toml.
+    → {kernel: {path: launches}}."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.build_tool import build_model
+    from lele_tpu_torch.cli import main as cli_main
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import (SenseVoiceConfig, SenseVoiceModel, SupertonicConfig,
+                                       SupertonicTts, cast_big_params, prepare_w8_params,
+                                       stack_layer_params)
+    from lele_tpu_torch.onnx.quantize import quantize_dynamic
+    from lele_tpu_torch.runtime.batcher import MicroBatcher
+    from lele_tpu_torch.server import build_engines
+    from lele_tpu_torch.serving import SenseVoiceEngine, TtsEngine
+
+    banner(f"== 38. the entry points: lele_tpu_torch.server at full width, the CLI and its "
+          f"wrapper, build_model ({card})")
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(SEED + 381).integers(0, 256, (480, 640, 3),
+                                                               dtype=np.uint8)).save(buf, "JPEG")
+    jpeg = buf.getvalue()
+    launches: dict[str, dict[str, int]] = {}
+
+    def record(path, counts):
+        for k, v in counts.items():
+            launches.setdefault(k, {})[path] = v
+
+    tmp = tempfile.TemporaryDirectory()
+    folder = Path(tmp.name)
+    procs = []
+    try:
+        onnx_path = folder / "sensevoice_int8.onnx"
+        onnx_path.write_bytes(graph)
+        t_pad = feeds["speech"].shape[1]
+        np.savez(folder / "feeds.npz", **{k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                                          for k, v in feeds.items()})
+        t_cli = time.perf_counter()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "lele_tpu_torch.cli", str(onnx_path), str(folder / "gen"),
+             "PhaseSanm", "--dim", f"T={t_pad}"], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+        t0 = time.perf_counter()
+        engines = build_engines(device=dev)
+        t_build = time.perf_counter() - t0
+        srv = Served(engines)
+        try:
+            served_requests(checks, "build_engines() (JAX's full-width defaults)", srv, jpeg,
+                            None)
+        finally:
+            srv.close()
+        print(f"  build_engines() in {t_build:.2f} s, its routes in "
+              f"{time.perf_counter() - t0 - t_build:.2f} s (host clock)")
+
+        cli_out, _ = procs[0].communicate(timeout=300)
+        t_cli = time.perf_counter() - t_cli
+        checks.require(procs[0].returncode == 0 and (folder / "gen" / "PhaseSanm.py").exists(),
+                       f"python -m lele_tpu_torch.cli on the {len(graph) / 1e6:.1f} MB int8 "
+                       f"SAN-M graph (--dim T={t_pad}): exit {procs[0].returncode} in "
+                       f"{t_cli:.1f} s: {cli_out.strip().splitlines()[-2:]}")
+        t_wrap = time.perf_counter()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", WRAPPER_RUN, str(folder / "gen"), str(folder / "feeds.npz"),
+             str(folder / "outs.npz")], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+        # the other CLI forms, in this process, on a float FFN at SenseVoice's widths
+        ffn_path = folder / "ffn.onnx"
+        ffn_path.write_bytes(ffn_graph(SEED + 382))
+        M, D, F = ENTRY_FFN
+        x = np.random.default_rng(SEED + 383).standard_normal((M, D)).astype(np.float32)
+        t0 = time.perf_counter()
+        rc = cli_main([str(ffn_path), str(folder / "qw"), "PhaseQw", "--quantize-weights"])
+        qw = load_wrapper(folder / "qw" / "PhaseQw.py")().forward(x)[0]
+        ref_cm = compile_model(str(ffn_path), device=dev)
+        ref = ref_cm(x)[0].double().cpu().numpy()
+        # per-tensor int8: each weight within half its step (absmax / 127) of
+        # the f32 one, the bias exact; so |dy| <= the layer-1 error carried
+        # through |W2| (Relu is 1-Lipschitz) plus layer 2's own error
+        w1, b1, w2 = (ref_cm.params[n].double().cpu().numpy() for n in ("w1", "b1", "w2"))
+        s1, s2 = np.abs(w1).max() / 127 / 2, np.abs(w2).max() / 127 / 2
+        h = np.maximum(x @ w1 + b1, 0)
+        gate = (np.abs(x).sum(1, keepdims=True) * s1 * (np.abs(w2) + s2).sum(0)
+                + h.sum(1, keepdims=True) * s2 + 1e-5 * np.abs(ref).max())
+        excess = float((np.abs(qw - ref) / gate).max())
+        checks.require(rc == 0 and excess <= 1.0,
+                       f"CLI --quantize-weights (float FFN {M}x{D}->{F}->{D}): the wrapper within "
+                       f"its dequantization bound (per-tensor int8 steps through both "
+                       f"layers, + 1e-5 max|ref|): worst |d| / bound {excess:.3f}, "
+                       f"max|d| {np.abs(qw - ref).max():.3e}")
+        rc = cli_main([str(ffn_path), str(folder / "qd"), "PhaseQd", "--quantize-dynamic"])
+        qd_wrapper = load_wrapper(folder / "qd" / "PhaseQd.py")()
+        K.reset_launch_counts()
+        qd = qd_wrapper.forward(x)
+        torch.cuda.synchronize()
+        qd_counts = moved(K.launch_counts())
+        qbytes = quantize_dynamic(ffn_path.read_bytes())
+        q_ref = compile_model(qbytes, device=dev).run_np(x)
+        checks.require(rc == 0 and (folder / "qd" / "ffn.int8.onnx").read_bytes() == qbytes
+                       and all(np.array_equal(a, b) for a, b in zip(qd, q_ref)),
+                       f"CLI --quantize-dynamic: ffn.int8.onnx is quantize_dynamic's bytes, the "
+                       f"wrapper the bits of its compile_model; launches a call {qd_counts}")
+        record("--quantize-dynamic wrapper, a call", qd_counts)
+        (folder / "model.toml").write_text(
+            '[model]\nsource = "local"\npath = "ffn.onnx"\n[codegen]\nclass_name = "PhaseBuilt"\n')
+        built = build_model(folder / "model.toml", folder / "built")
+        y_built = (load_wrapper(built)().forward(x)[0] if "STUB" not in built.read_text()
+                   else None)
+        checks.require(y_built is not None and np.array_equal(y_built, ref_cm.run_np(x)[0]),
+                       f"build_model of a local model.toml: {built.name}, a real wrapper "
+                       f"(not a stub) giving compile_model's bits")
+        print(f"  CLI quantize forms and build_model in {time.perf_counter() - t0:.2f} s "
+              f"(host clock)")
+
+        wrap_out, wrap_err = procs[1].communicate(timeout=300)
+        t_wrap = time.perf_counter() - t_wrap
+        res = json.loads(wrap_out.strip().splitlines()[-1]) if procs[1].returncode == 0 else {}
+        got = list(np.load(folder / "outs.npz").values()) if res else []
+        want = cm.run_np(**feeds)
+        counts = res.get("counts", [{}])
+        checks.require(bool(res) and res["device"].startswith("cuda") and res["captured"]
+                       and all(c == {"sanm_stack_dql": 1, "dq_gemm": 1} for c in counts),
+                       f"the generated wrapper in a fresh process on {res.get('device')}: "
+                       f"captured {res.get('captured')}, launches of its two calls {counts} "
+                       f"(kernels 4 and 5 once each a call); {wrap_err.strip()[-300:]}")
+        checks.require(len(got) == len(want) and all(np.array_equal(a, b)
+                                                     for a, b in zip(got, want)),
+                       f"the wrapper's logits {[a.shape for a in got]}: the bits of "
+                       f"compile_model of the same graph in this process")
+        record("CLI wrapper, a call", counts[-1])
+        print(f"  the CLI subprocess {t_cli:.1f} s (trace, blob, wrapper); the wrapper's "
+              f"subprocess {t_wrap:.1f} s, of which start-up to a captured model "
+              f"{res.get('load_s', float('nan')):.1f} s (host clock)  ({card})")
+
+        # the main path's server: w8a16 ASR, the fused TTS of tts.json
+        model = SenseVoiceModel(SenseVoiceConfig(weight_int8=True), device=dev)
+        model.init(SEED)
+        model.params = stack_layer_params(prepare_w8_params(cast_big_params(model.params,
+                                                                            torch.bfloat16)))
+        asr = SenseVoiceEngine(model=model)
+        tts_cfg = dataclasses.replace(
+            SupertonicConfig.from_json(EXAMPLES / "supertonic" / "tts.json"),
+            fused_estimator=True)
+        tts_m = SupertonicTts(tts_cfg, device=dev)
+        tts_m.init(SEED)
+        tts = TtsEngine(tts=tts_m)
+        tts.load_style(str(EXAMPLES / "supertonic" / "voice_styles" / "F1.json"), "F1")
+        det = engines["det"]
+        main_engines = {"asr": asr, "asr_batcher": MicroBatcher(asr.recognize_batch, 8, 5.0),
+                        "det": det, "det_batcher": MicroBatcher(det.detect_batch, 8, 5.0),
+                        "tts": tts}
+        srv = Served(main_engines)
+        try:
+            paths = served_requests(checks, "the main path's engines (w8a16 ASR, fused TTS)",
+                                    srv, jpeg, "F1")
+            lone = paths[f"/recognize {REQUEST_SECONDS[-1]} s"]
+            checks.require(lone == {"sanm_stack_w8": 1, "w8_gemm": 1},
+                           f"a lone /recognize on w8a16: kernel 1 and kernel 2 once ({lone})")
+            checks.require(set(paths["/synthesize"]) == {"est_block"},
+                           f"/synthesize on the fused TTS: kernel 10 only "
+                           f"({paths['/synthesize']})")
+            for path, counts in paths.items():
+                record(path, counts)
+            stats = latency_runs(srv, card)
+            checks.require(all(s["ok"] for s in stats.values()),
+                           f"every timed /recognize answered 200 ({sum(s['n'] for s in stats.values())}"
+                           " requests)")
+        finally:
+            srv.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+    print(f"  launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5716,6 +6184,7 @@ def main() -> int:
     genai_launches = genai_phase(checks, dev, card)
     ops_phase(checks, dev, card)
     quant_launches = quant_phase(checks, dev, card)
+    entry_launches = entry_points_phase(checks, dev, card, graph, cm10, inputs10)
 
     banner(None)
     if checks.failures:
@@ -5844,6 +6313,7 @@ def main() -> int:
          **({"phase34_launches": cf_launches[name]} if name in cf_launches else {}),
          **({"phase35_launches": genai_launches[name]} if name in genai_launches else {}),
          **({"phase37_launches": quant_launches[name]} if name in quant_launches else {}),
+         **({"phase38_launches": entry_launches[name]} if name in entry_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

@@ -207,6 +207,18 @@ def positions_on(t: int, d: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
 
 
+def count_params(p) -> int:
+    """Elements over every leaf (tensor or array) of a param tree; None
+    leaves count nothing, as in JAX's tree walk."""
+    if p is None:
+        return 0
+    if isinstance(p, dict):
+        return sum(count_params(v) for v in p.values())
+    if isinstance(p, (list, tuple)):
+        return sum(count_params(v) for v in p)
+    return int(np.prod(p.shape))
+
+
 def cast_big_params(params: Params, dtype: torch.dtype) -> Params:
     """Every floating leaf of rank ≥ 2 (linear weights, `prefix`, `fsmn.w`)
     becomes `dtype`; norms, biases and int8 weights stay as they are."""

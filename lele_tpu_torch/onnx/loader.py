@@ -362,6 +362,15 @@ class OnnxModel:
         t = self.initializers.get(name)
         return tensor_to_array(t, self.base_dir) if t is not None else None
 
+    def find_constant_node_tensor(self, name: str) -> Proto | None:
+        """The TensorProto behind a Constant node's output, if one makes it."""
+        for node in self.graph.node:
+            if node.op_type == "Constant" and name in node.output:
+                for attr in node.attribute:
+                    if attr.name == "value":
+                        return attr.t
+        return None
+
     def input_names(self) -> list[str]:
         """Graph inputs that are not initializers (the runtime inputs)."""
         return [

@@ -1,4 +1,4 @@
-"""Pure-Python WAV parser and writer (the port's copy of lele_tpu/utils/wav.py):
+"""Pure-Python WAV reader and writer (the port's copy of lele_tpu/utils/wav.py):
 RIFF PCM 8/16/24/32-bit and IEEE float in, mono-ized by averaging the
 channels; PCM16 mono out."""
 
@@ -8,6 +8,11 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+
+def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
+    """A WAV file → (mono float32 samples in [-1, 1], sample_rate)."""
+    return decode_wav_bytes(Path(path).read_bytes(), label=str(path))
 
 
 def decode_wav_bytes(data: bytes, label: str = "<bytes>") -> tuple[np.ndarray, int]:

@@ -88,6 +88,12 @@ against its replay's bits; the small GenAI decoder from a side file with
 its caches donated in graph order (each present on its own past) against
 its replay and the CPU; fp8 initializers on the card as torch float8.
 
+The entry points (chip_smoke phase 38): the CLI's generated wrapper of a
+small int8 SAN-M graph captured against its `replay()` bits with kernels 4
+and 5 once a call, and a changed blob changing its output; a burst of 8
+concurrent /recognize requests to the port's server over a small w8a16
+engine, each answer what `recognize_batch` gives the batch it joined.
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -98,6 +104,7 @@ without it:
 from __future__ import annotations
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -1869,3 +1876,99 @@ def test_quant_emitter_graph_on_the_card(dev, name):
         else:
             assert np.abs(g.astype(np.float64) - w).max() <= c["tol"] * max(
                 1.0, float(np.abs(w).max()))
+
+
+def _sanm_feeds(T, seed):
+    rng = np.random.default_rng(seed)
+    return {"speech": rng.standard_normal((1, T, 560)).astype(np.float32),
+            "speech_lengths": np.array([T - 3], np.int64), "language": np.array([3], np.int32),
+            "textnorm": np.array([0], np.int32)}
+
+
+@pytest.mark.cuda
+def test_cli_wrapper_captured_against_replay(dev, tmp_path):
+    """The CLI's wrapper of a small int8 SAN-M graph on the card (phase 38's
+    form at 2 layers, d256): its captured call gives `replay()`'s bits with
+    kernels 4 and 5 launched once a call, and a blob with the head's int8
+    weight negated changes the output (the blob loads in place)."""
+    import importlib.util
+
+    from lele_tpu_torch.cli import compile_to_dir
+    from lele_tpu_torch.compiler.weights import load_weights, save_weights
+    from lele_tpu_torch.onnx.synth import build_sanm_int8_model
+
+    p = tmp_path / "sanm.onnx"
+    p.write_bytes(build_sanm_int8_model(L=2, d=256, h=4, ffn=512, vocab=300, int8_head=True))
+    wrapper = compile_to_dir(str(p), str(tmp_path / "g"), "CardSanm", dim_values={"T": 32})
+    spec = importlib.util.spec_from_file_location("card_wrapper_sanm", wrapper)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    m = mod.CardSanm()
+    assert m._cm.device.type == "cuda" and m._cm.stats["capturable"]
+    feeds = _sanm_feeds(32, 5)
+    K.reset_launch_counts()
+    got = m.forward(**feeds)
+    counts = K.launch_counts()
+    assert counts["sanm_stack_dql"] == 1 and counts["dq_gemm"] == 1, counts
+    assert m._cm.stats["captured"]
+    want = [o.cpu().numpy() for o in m._cm.replay(**feeds)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    blob = load_weights(tmp_path / "g" / "CardSanm_weights")
+    head = next(k for k in blob if k.endswith("::i8"))
+    save_weights(tmp_path / "neg", {**blob, head: -blob[head]})
+    other = mod.CardSanm(weights_prefix=str(tmp_path / "neg")).forward(**feeds)
+    assert not np.array_equal(other[0], got[0])
+
+
+@pytest.mark.cuda
+def test_server_burst_against_recognize_batch(dev):
+    """A burst of 8 concurrent /recognize requests of different lengths to the
+    port's server over a small w8a16 engine on the card: each answer is what
+    `recognize_batch` gives the batch it was coalesced into, and some batch
+    holds more than one request."""
+    import concurrent.futures
+    import threading
+    import urllib.request
+
+    from lele_tpu_torch.models import (SenseVoiceConfig, SenseVoiceModel, cast_big_params,
+                                       prepare_w8_params, stack_layer_params)
+    from lele_tpu_torch.runtime.batcher import MicroBatcher
+    from lele_tpu_torch.server import serve
+    from lele_tpu_torch.serving import SenseVoiceEngine
+
+    model = SenseVoiceModel(SenseVoiceConfig(n_layers=2, d_model=256, n_heads=4, ffn_dim=512,
+                                             vocab_size=300, weight_int8=True), device=dev)
+    model.init(0)
+    model.params = stack_layer_params(prepare_w8_params(cast_big_params(model.params,
+                                                                        torch.bfloat16)))
+    asr = SenseVoiceEngine(model=model)
+    batches = []
+
+    def recorded(items):
+        batches.append(list(items))
+        return asr.recognize_batch(items)
+
+    batcher = MicroBatcher(recorded, max_batch=8, window_ms=50.0)
+    httpd = serve(port=0, engines={"asr": asr, "asr_batcher": batcher})
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize"
+    rng = np.random.default_rng(8)
+    wavs = [cs.wav_bytes(cs.synth_speechlike(s, rng)) for s in np.linspace(0.6, 4.0, 8)]
+
+    def post(w):
+        with urllib.request.urlopen(urllib.request.Request(url, data=w), timeout=300) as r:
+            return r.status, json.loads(r.read())["ids"]
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+            answers = dict(zip(wavs, ex.map(post, wavs)))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(30)
+    assert all(status == 200 for status, _ in answers.values())
+    assert sum(len(b) for b in batches) == 8 and max(len(b) for b in batches) > 1
+    for b in batches:
+        assert [answers[w][1] for w in b] == asr.recognize_batch(b)

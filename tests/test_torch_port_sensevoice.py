@@ -213,7 +213,8 @@ def test_port_runs_without_jax():
     MaxPool, Resize, 3-D ConvTranspose); and slice 21: chip_smoke phase
     37's two int8 ResNet-50 forms at a small width, the QDQ graph from the
     port's quantize_static and the QOperator graph on calibrate_minmax's
-    ranges."""
+    ranges; and slice 22: a graph compiled through the CLI, its generated
+    wrapper loaded and run, and one /recognize request to the tiny server."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -485,6 +486,32 @@ def test_port_runs_without_jax():
         "qo, qi = chip_smoke.resnet50_qoperator_model(rg, **small)\n"
         "lq = compile_model(qo, device='cpu', strict=True).run_np(data=xi)[0]\n"
         "assert np.isfinite(lq).all() and lq.shape == (1, 10) and qi['int8_products'] == 18\n"
+        "import contextlib, importlib.util, json, pathlib, tempfile, threading, urllib.request\n"
+        "from io import StringIO\n"
+        "from lele_tpu_torch import server as srv\n"
+        "from lele_tpu_torch.cli import main as cli_main\n"
+        "wt = np.random.default_rng(9).standard_normal((8, 12)).astype(np.float32)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    d = pathlib.Path(d)\n"
+        "    (d / 'toy.onnx').write_bytes(ob.build_model_bytes([ob.node('MatMul', ['x', 'w'],\n"
+        "        ['y'])], [ob.value_info('x', 1, [2, 8])], [ob.value_info('y', 1, [2, 12])],\n"
+        "        [ob.tensor_from_array(wt, 'w')]))\n"
+        "    with contextlib.redirect_stdout(StringIO()):\n"
+        "        assert cli_main([str(d / 'toy.onnx'), str(d / 'gen'), 'NoJaxToy', '--device',\n"
+        "                         'cpu']) == 0\n"
+        "    spec = importlib.util.spec_from_file_location('NoJaxToy', d / 'gen' / 'NoJaxToy.py')\n"
+        "    wmod = importlib.util.module_from_spec(spec); spec.loader.exec_module(wmod)\n"
+        "    xt = np.ones((2, 8), np.float32)\n"
+        "    assert np.array_equal(wmod.NoJaxToy(device='cpu').forward(xt)[0],\n"
+        "        compile_model(str(d / 'toy.onnx'), device='cpu').run_np(xt)[0])\n"
+        "with contextlib.redirect_stdout(StringIO()):\n"
+        "    httpd = srv.serve(port=0, tiny=True, device='cpu')\n"
+        "threading.Thread(target=httpd.serve_forever, daemon=True).start()\n"
+        "wv = encode_wav(pcm[:12000], 16000)\n"
+        "with urllib.request.urlopen(urllib.request.Request(\n"
+        "        f'http://127.0.0.1:{httpd.server_address[1]}/recognize', data=wv), timeout=120) as r:\n"
+        "    assert json.loads(r.read()) == {'ids': srv._LAST_ENGINES['asr'].recognize(wv)}\n"
+        "httpd.shutdown()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
