@@ -124,13 +124,29 @@ def entry_tensor(buf: torch.Tensor, e: dict) -> torch.Tensor:
     return t
 
 
+def entry_tensors(buf: torch.Tensor, manifest: dict) -> dict[str, torch.Tensor]:
+    """Every manifest entry cut from `buf` (`entry_tensor`). An entry that
+    the dedup stored at an offset already handed out is a copy, so that an
+    in-place write to one tensor (the generated wrapper's `copy_` into its
+    params, say) never reaches a twin; only duplicates pay for it."""
+    out, seen = {}, set()
+    for name, e in manifest["tensors"].items():
+        t = entry_tensor(buf, e)
+        if e["offset"] in seen and "dequant_scale" not in e:
+            t = t.clone()
+        seen.add(e["offset"])
+        out[name] = t
+    return out
+
+
 def load_weights(path_prefix: str | Path) -> dict[str, torch.Tensor]:
     """Map the blob; tensors are CPU views of the mapping (copy-on-write: a
-    write to one changes neither the file nor another process's map)."""
+    write to one changes neither the file nor another process's map, nor
+    another tensor: `entry_tensors`)."""
     manifest = read_manifest(path_prefix)
     with open(bin_path(path_prefix), "rb") as f:
         # frombuffer keeps the mapping alive as long as a view of it lives
         flat = (torch.frombuffer(mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY),
                                  dtype=torch.uint8)
                 if f.seek(0, 2) else torch.zeros(0, dtype=torch.uint8))
-    return {name: entry_tensor(flat, e) for name, e in manifest["tensors"].items()}
+    return entry_tensors(flat, manifest)

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 from .. import default_device
-from ..compiler.weights import bin_path, entry_tensor, load_weights, read_manifest, save_weights
+from ..compiler.weights import bin_path, entry_tensors, load_weights, read_manifest, save_weights
 
 _TREE_SUFFIX = ".tree.json"
 
@@ -79,9 +79,9 @@ def _insert(root, keys, value):
 def load_pytree(path_prefix: str | Path, device: torch.device | str | None = None):
     """Rebuild the saved tree on `device` (the card by default; "cpu" gives
     zero-copy views of the mapped blob). On a card the whole blob goes over
-    in one host-to-device copy and each tensor is a view cut from it, so
-    leaves the blob deduplicated share memory; a dequantized leaf is its own
-    tensor."""
+    in one host-to-device copy and each tensor is a view cut from it; a leaf
+    the blob deduplicated, or dequantized, is a tensor of its own, so an
+    in-place write to one leaf changes no other."""
     device = torch.device(device) if device is not None else default_device()
     if device.type == "cpu":
         flat = load_weights(path_prefix)
@@ -90,7 +90,7 @@ def load_pytree(path_prefix: str | Path, device: torch.device | str | None = Non
         path = bin_path(path_prefix)
         blob = torch.from_file(str(path), size=path.stat().st_size,
                                dtype=torch.uint8).to(device)
-        flat = {name: entry_tensor(blob, e) for name, e in manifest["tensors"].items()}
+        flat = entry_tensors(blob, manifest)
     leaves = json.loads(Path(str(path_prefix) + _TREE_SUFFIX).read_text())["leaves"]
     if len(leaves) == 1 and leaves[0]["keys"] == []:
         return flat[leaves[0]["name"]]

@@ -49,12 +49,23 @@ A call made while another capture is running (a program called from inside
 an outer program, or inside a CUDA graph a measurement captures) runs the
 function directly into that capture, on inputs already on the card. On the
 CPU nothing is captured: `Programs.run` calls the function.
+
+**Threads.** A program's static buffers, its capture and the counters' record
+of that capture belong to the process, not to a thread: two threads calling
+one program could copy in, copy in, replay, replay and each read the other's
+answer, and a capture (in CUDA's global mode) fails if another thread does
+card work meanwhile. So one thread at a time drives the card: a program's
+call on a card (and `Programs.run`'s choice of program) holds `CARD_LOCK`,
+a reentrant lock of the process, and the serving engines (serving.py) hold
+it around all of a request's card work, its eager steps and read-backs
+included.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import traceback
 import weakref
 from pathlib import Path
@@ -64,6 +75,10 @@ import numpy as np
 import torch
 
 _TORCH = str(Path(torch.__file__).resolve().parent)
+
+
+# one thread at a time drives the card's programs (module docstring, "Threads")
+CARD_LOCK = threading.RLock()
 
 
 class CaptureError(RuntimeError):
@@ -278,7 +293,7 @@ class Program:
         run from the donated state the run before left in the static buffers
         (after the first call, n replays with no host work between them),
         and returns the last run's outputs."""
-        with torch.inference_mode():
+        with CARD_LOCK, torch.inference_mode():
             if torch.cuda.is_current_stream_capturing():
                 # inside another capture: that capture records the function
                 return run_directly(self.fn, args, self.donate, repeat)
@@ -366,13 +381,14 @@ class Programs:
             with torch.inference_mode():
                 return run_directly(make(), [_as_tensor(a) for a in args], donate or {},
                                     repeat)
-        if params is not self._params:
-            self._progs.clear()
-            self._params = params
-        prog = self._progs.get(key)
-        if prog is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            prog = self._progs[key] = Program(make(), args, self.device, donate,
-                                              self._pool, name=f"program {key!r}")
-        return prog(*args, repeat=repeat)
+        with CARD_LOCK:
+            if params is not self._params:
+                self._progs.clear()
+                self._params = params
+            prog = self._progs.get(key)
+            if prog is None:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                prog = self._progs[key] = Program(make(), args, self.device, donate,
+                                                  self._pool, name=f"program {key!r}")
+            return prog(*args, repeat=repeat)

@@ -1,6 +1,12 @@
 """Serving engines (counterpart of lele_tpu/serving.py): ASR, WAV bytes in,
 token ids (or text, with a tokenizer) out; detection, an image (array or
-encoded bytes) in, detections out; TTS, text in, WAV bytes out."""
+encoded bytes) in, detections out; TTS, text in, WAV bytes out.
+
+The engines may be called from several threads at once (the HTTP daemon's
+handlers and its batchers' threads): each holds `runtime.graphs.CARD_LOCK`
+around a request's card work, so that one request's programs, captures and
+read-backs never interleave with another's. Decoding WAV and image bytes
+runs outside it."""
 
 from __future__ import annotations
 
@@ -10,6 +16,7 @@ from typing import Any
 
 import numpy as np
 
+from .runtime.graphs import CARD_LOCK
 from .utils.wav import decode_wav_bytes, encode_wav
 
 
@@ -52,14 +59,16 @@ class SenseVoiceEngine:
         """Run one request of silence before taking traffic: on a card it
         builds the kernels and captures the CUDA graph of that request's
         bucket, as JAX's warm-up compiles its program."""
-        self.model.transcribe_ids(np.zeros(int(seconds * sr), np.float32))
+        with CARD_LOCK:
+            self.model.transcribe_ids(np.zeros(int(seconds * sr), np.float32))
         return self
 
     def recognize(self, wav_bytes: bytes):
         pcm, sr = decode_wav(wav_bytes)
         if sr != 16000:
             pcm = resample(pcm, sr, 16000)
-        ids = self.model.transcribe_ids(pcm)
+        with CARD_LOCK:
+            ids = self.model.transcribe_ids(pcm)
         if self.tokenizer is not None:
             return self.tokenizer.decode(ids)
         return ids
@@ -73,7 +82,8 @@ class SenseVoiceEngine:
             if sr != 16000:
                 pcm = resample(pcm, sr, 16000)
             pcms.append(pcm)
-        ids = self.model.transcribe_batch(pcms)
+        with CARD_LOCK:
+            ids = self.model.transcribe_batch(pcms)
         if self.tokenizer is not None:
             return [self.tokenizer.decode(i) for i in ids]
         return ids
@@ -145,8 +155,10 @@ class Yolo26Engine:
         if not images:
             return []
         n = len(images)
-        outs = self.forward(self.batch(images))
-        scores, boxes = (o[:n].cpu().numpy() for o in outs[:2])
+        x = self.batch(images)
+        with CARD_LOCK:
+            outs = self.forward(x)
+            scores, boxes = (o[:n].cpu().numpy() for o in outs[:2])
         return [decode_detections(scores[i : i + 1], boxes[i : i + 1], self.conf_threshold)
                 for i in range(n)]
 
@@ -189,5 +201,6 @@ class TtsEngine:
                 "ttl": rng.standard_normal(self.tts.cfg.d_style).astype(np.float32),
                 "dp": rng.standard_normal(self.tts.cfg.d_style).astype(np.float32),
             }
-        wave = self.tts.synthesize(text, style, lang=lang, seed=seed)
+        with CARD_LOCK:
+            wave = self.tts.synthesize(text, style, lang=lang, seed=seed)
         return encode_wav(wave, self.tts.cfg.sample_rate)

@@ -92,7 +92,11 @@ The entry points (chip_smoke phase 38): the CLI's generated wrapper of a
 small int8 SAN-M graph captured against its `replay()` bits with kernels 4
 and 5 once a call, and a changed blob changing its output; a burst of 8
 concurrent /recognize requests to the port's server over a small w8a16
-engine, each answer what `recognize_batch` gives the batch it joined.
+engine, each answer what `recognize_batch` gives the batch it joined;
+every route at once over the tiny engines on the card, twice (the first
+round captures its programs while other requests are in flight), each
+answer the engine's direct call; a deduplicated leaf of `load_pytree` on
+the card written in place without changing its twin.
 
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
@@ -1972,3 +1976,42 @@ def test_server_burst_against_recognize_batch(dev):
     assert sum(len(b) for b in batches) == 8 and max(len(b) for b in batches) > 1
     for b in batches:
         assert [answers[w][1] for w in b] == asr.recognize_batch(b)
+
+
+@pytest.mark.cuda
+def test_server_every_route_at_once(dev):
+    """Phase 38's mixed round over the tiny engines on the card: 8
+    /recognize, 2 /recognize_batch of 3 (padded to the batch of 4 a
+    batcher's batch of 4 runs at), 2 /detect and 4 /synthesize in flight
+    together, twice. The first round captures programs while other requests
+    are in flight; in both, each answer is the engine's direct call (bits):
+    the engines' `CARD_LOCK` keeps one request's copies into a program's
+    static buffers, its replay and its read-back from interleaving with
+    another's."""
+    from lele_tpu_torch.server import build_engines
+
+    srv = cs.Served(build_engines(tiny=True, device=dev))
+    try:
+        for seed in (38, 39):
+            bad, asr_sizes, det_sizes = cs.mixed_traffic(srv.url, srv.engines, srv.batches,
+                                                         srv.det_batches, seed)
+            assert not bad, (seed, bad)
+            assert sum(asr_sizes) == cs.ENTRY_BURST and sum(det_sizes) == 2
+    finally:
+        srv.close()
+
+
+@pytest.mark.cuda
+def test_load_pytree_deduplicated_leaves_on_the_card(dev, tmp_path):
+    """On the card `load_pytree` cuts the leaves from one device copy of the
+    blob; two equal leaves share a record, yet writing one in place leaves
+    the other as it was."""
+    from lele_tpu_torch.runtime.artifact import load_pytree, save_pytree
+
+    save_pytree(tmp_path / "t", {"a": np.ones(6, np.float32), "b": np.ones(6, np.float32),
+                                 "c": np.arange(4, dtype=np.int32)})
+    tree = load_pytree(tmp_path / "t", device=dev)
+    assert all(t.is_cuda for t in tree.values())
+    tree["a"].mul_(5.0)
+    assert torch.equal(tree["b"].cpu(), torch.ones(6))
+    assert torch.equal(tree["c"].cpu(), torch.arange(4, dtype=torch.int32))

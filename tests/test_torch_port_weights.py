@@ -152,6 +152,26 @@ def test_load_weights_views_the_mapping(tmp_path):
     np.testing.assert_array_equal(pw.load_weights(tmp_path / "w")["a"].numpy(), params["a"])
 
 
+def test_deduplicated_entries_load_as_their_own_tensors(tmp_path):
+    """Equal arrays share one record of the blob (the sha256 dedup) but load
+    as tensors of their own: an in-place write to one (the generated
+    wrapper's `copy_`) leaves its twin as it was, through load_weights and
+    load_pytree alike; the other entries stay views of the mapping."""
+    z = np.zeros((4, 3), np.float32)
+    pw.save_weights(tmp_path / "w", {"a": z, "b": z.copy(), "c": ARRAYS["f32"]})
+    man = json.loads(pw.json_path(tmp_path / "w").read_text())["tensors"]
+    assert man["a"]["offset"] == man["b"]["offset"] != man["c"]["offset"]
+    got = pw.load_weights(tmp_path / "w")
+    got["a"].add_(1.0)
+    np.testing.assert_array_equal(got["b"].numpy(), z)
+    assert got["a"].untyped_storage().data_ptr() == got["c"].untyped_storage().data_ptr()
+    assert got["b"].untyped_storage().data_ptr() != got["a"].untyped_storage().data_ptr()
+    pa.save_pytree(tmp_path / "t", {"g": [np.ones(5, np.float32), np.ones(5, np.float32)]})
+    tree = pa.load_pytree(tmp_path / "t", device="cpu")
+    tree["g"][0].mul_(3.0)
+    np.testing.assert_array_equal(tree["g"][1].numpy(), np.ones(5, np.float32))
+
+
 # -- param-tree artifacts ---------------------------------------------------------
 
 
