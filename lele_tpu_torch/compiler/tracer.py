@@ -609,7 +609,7 @@ class GraphTracer:
         ctx = make_ctx(torch, node, self.opset, self, state=state if records else None,
                        scope=scope)
         key = None
-        if label not in self.overrides:  # builtin emitters are pure
+        if label not in self.overrides and not opdef.draws:  # builtins are pure
             try:
                 key = (label, self.opset, len(node.output), _hashable(dyn_ins),
                        tuple(sorted((k, _hashable(v)) for k, v in ctx.attrs.items())))
@@ -924,6 +924,12 @@ class GraphTracer:
             # the model's directory resolves Constant attributes' side files
             with base_dir_scope(self.model.base_dir):
                 outs = self._walk_graph(state, graph, env, "")
+            if any(_is_static(o) and o is not None and np.asarray(o).dtype == object
+                   for o in outs):
+                raise NotImplementedError(
+                    "a STRING tensor is a graph output: strings have no device "
+                    "representation. Consume them inside the graph (RegexFullMatch, "
+                    "StringSplit lengths, TfIdfVectorizer) so outputs are numeric.")
             state.tape.finish([
                 state.to_device(f"::out{j}", o) if _is_static(o) else o
                 for j, o in enumerate(outs)])

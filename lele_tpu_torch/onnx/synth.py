@@ -60,12 +60,13 @@ def build_sanm_int8_model(
     return serialize_sanm_graph(nodes, inits, inputs, outputs)
 
 
-def serialize_sanm_graph(nodes, inits, inputs, outputs) -> bytes:
+def serialize_sanm_graph(nodes, inits, inputs, outputs, opset: int = 17) -> bytes:
     return ob.build_model_bytes(
         nodes,
         inputs=inputs,
         outputs=outputs,
         initializers=[ob.tensor_from_array(v, k) for k, v in inits.items()],
+        opset=opset,
         name="sensevoice_sanm_int8",
     )
 

@@ -1,6 +1,7 @@
 """Opset-23/24 attention-family emitters (counterpart of
 lele_tpu/ops/attention_ops.py): Attention, RotaryEmbedding, Swish and
-TensorScatter, the ops modern LLM exports write for a decoder step.
+TensorScatter, the ops modern LLM exports write for a decoder step, and
+AffineGrid (opset 20), GridSample's sampling grid.
 
 Attention routes an eligible node (`flash_attention.kernel_takes`: JAX's gate
 without its TPU test) to `flash_attention`, kernel 12 on a card and its plain
@@ -11,7 +12,7 @@ knob and its fall-back on a kernel error are not ported: on a CUDA tensor an
 eligible node launches the kernel or raises. `attention_plain` is the
 emitter with the plain version on the flash route, an override
 (`overrides={"Attention": attention_plain}`) that compiles a graph's oracle
-for the card. AffineGrid is not ported yet.
+for the card.
 """
 
 from __future__ import annotations
@@ -220,3 +221,25 @@ def tensor_scatter(ctx: OpContext, past_cache, update, write_indices=None):
     out = past_cache.movedim(axis, 1).clone()  # [B, max_seq, ...]
     out[torch.arange(b, device=dev)[:, None], pos] = update.movedim(axis, 1).to(out.dtype)
     return out.movedim(1, axis)
+
+
+@op("AffineGrid", foldable=False, static_args=(1,))
+def affine_grid(ctx: OpContext, theta, size):
+    """The sampling grid of batched affine matrices (theta [N, 2, 3] or
+    [N, 3, 4]) for GridSample: `size` is the static (N, C, H, W) or (N, C,
+    D, H, W); align_corners follows torch's rule. The grid's coordinates are
+    (x, y[, z]): x runs along the last spatial axis."""
+    size = [int(v) for v in np.asarray(size).reshape(-1)]
+    align = bool(ctx.attr("align_corners", 0))
+    dev = theta.device
+
+    def axis_coords(n):
+        if align:
+            return (torch.linspace(-1.0, 1.0, n, device=dev) if n > 1
+                    else torch.zeros(1, device=dev))
+        step = 2.0 / n  # the pixel centres of an n-cell grid over [-1, 1]
+        return -1.0 + step / 2 + step * torch.arange(n, device=dev)
+
+    mesh = torch.meshgrid(*[axis_coords(n) for n in size[2:]], indexing="ij")
+    coords = torch.stack(list(reversed(mesh)) + [torch.ones_like(mesh[0])], dim=-1)
+    return torch.einsum("...i,ndi->n...d", coords.to(theta.dtype), theta)

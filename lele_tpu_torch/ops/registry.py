@@ -58,14 +58,17 @@ class OpDef:
     # ops/extra_ops.py) or makes a trace-time constant (the Random ops): the
     # tracer calls it once on its inputs as they are and records no step
     host: bool = False
+    # the emitter draws from the node's own stream (Bernoulli, Multinomial):
+    # two such nodes on the same inputs differ, so CSE never merges them
+    draws: bool = False
 
 
 def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False,
-       domain: str = "", host: bool = False):
+       domain: str = "", host: bool = False, draws: bool = False):
     d = canon_domain(domain)
 
     def deco(fn):
-        od = OpDef(name, fn, foldable, static_args, records, host)
+        od = OpDef(name, fn, foldable, static_args, records, host, draws)
         if d:
             CONTRIB_OPS[(d, name)] = od
         else:
@@ -167,6 +170,23 @@ def make_ctx(xp, node: Proto, opset: int, tracer=None, state=None,
     attrs = {a.name: parse_attr(a) for a in node.attribute}
     return OpContext(xp=xp, attrs=attrs, opset=opset, node=node, tracer=tracer,
                      state=state, scope=scope)
+
+
+def host_const(ctx: OpContext, tag: str, arr: np.ndarray):
+    """A host-built array for a recording emitter's step: a constant of the
+    trace on the device (hoisted once, owned by the compiled model, so a
+    call uploads nothing), or a host tensor where the node runs on
+    constants (`ctx.state` is None)."""
+    import torch
+
+    if ctx.state is None:
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    return ctx.state.to_device(f"{ctx.scope}{ctx.node.output[0]}/{tag}", arr)
+
+
+def run_step(ctx: OpContext, fn: Callable, *args):
+    """fn(*args) as a recording emitter's one step (at once on constants)."""
+    return fn(*args) if ctx.state is None else ctx.state.run(fn, *args)
 
 
 def static_ints(v, what: str = "value") -> list[int]:

@@ -1,8 +1,9 @@
 """The port's opset-23 attention-family emitters against the JAX package's.
 
-Every case of tests/test_attention_ops.py (AffineGrid's apart: not ported
-yet) is built once as ONNX bytes and compiled by both packages; the two
-outputs are compared at that test's tolerance (Attention rtol 2e-5, atol
+Every case of tests/test_attention_ops.py (AffineGrid's apart: they replay
+through tests/test_torch_port_ops_extra.py) is built once as ONNX bytes and
+compiled by both packages; the two outputs are compared at that test's
+tolerance (Attention rtol 2e-5, atol
 2e-6; RotaryEmbedding 1e-5 / 1e-6; Swish 1e-6 / 1e-7; TensorScatter exact to
 1e-6), and the error paths must raise on both sides. Added: the
 softmax_precision attribute, every qk_matmul_output_mode tap, and the

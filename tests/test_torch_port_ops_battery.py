@@ -12,11 +12,11 @@ other JAX op-test files replay through this file's `replay_case`
 (test_torch_port_ops_tensor.py, _nn.py, _fuzz.py).
 
 A graph that stops on a strict-mode refusal of an op of a later set
-(ROADMAP §1.1.3: `LATER`) runs on JAX's outputs instead and is
+(ROADMAP §1.1.5: `LATER`) runs on JAX's outputs instead and is
 recorded: the case then asserts that every refusal it met is of such an
-op. A graph with a Random op is held to JAX's shapes only: the streams hold
-the properties JAX's tests assert, not threefry's bits (ROADMAP §3
-"Known"). `KNOWN` lists each case whose port outputs differ from JAX's
+op. A graph with a Random op (`RANDOM_OPS`) is held to JAX's shapes only:
+the streams hold the properties JAX's tests assert, not threefry's bits
+(ROADMAP §3 "Known"). `KNOWN` lists each case whose port outputs differ from JAX's
 past the tolerance, with its measured gap and why; ROADMAP §3 lists them
 too.
 """
@@ -41,15 +41,15 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
 import optest  # noqa: E402
 
-# ROADMAP §1.1.3: the 40 ai.onnx names the port has not ported yet
+# ROADMAP §1.1.5: the 9 com.microsoft names the port has not ported yet (every
+# ai.onnx emitter of the JAX package is ported)
 LATER = frozenset(
-    "Acosh Asinh Atanh Bernoulli BitShift BitwiseAnd BitwiseNot BitwiseOr BitwiseXor "
-    "BlackmanWindow CenterCropPad Col2Im DFT Det EyeLike GlobalLpPool GridSample "
-    "HammingWindow HannWindow Hardmax LRN LpPool MaxRoiPool MaxUnpool MelWeightMatrix "
-    "Multinomial NegativeLogLikelihoodLoss ReduceLogSum ReverseSequence RoiAlign Scatter "
-    "Shrink SoftmaxCrossEntropyLoss "  # extra_ops
-    "RegexFullMatch StringConcat StringNormalizer StringSplit "  # string_ops
-    "TfIdfVectorizer DeformConv AffineGrid".split())
+    "BeamSearch GreedySearch Sampling WhisperBeamSearch NGramRepeatBlock "  # search_ops
+    "RemovePadding RestorePadding PackedAttention PackedMultiHeadAttention".split())
+
+# ops whose draws the port takes from its own stream (ROADMAP §3 "Known")
+RANDOM_OPS = ("RandomNormal", "RandomNormalLike", "RandomUniform", "RandomUniformLike",
+              "Bernoulli", "Multinomial")
 
 TOL = 1e-5  # tests/optest.py assert_close
 
@@ -91,7 +91,7 @@ class Replay:
         if j_err is not None:
             self.problems.append(f"the port ran where JAX raised {j_err!r}")
             raise j_err
-        self.pairs.append((got, want, any(t.startswith("Random") for t in op_types)))
+        self.pairs.append((got, want, any(t in RANDOM_OPS for t in op_types)))
         return got
 
     def run_op(self, op_type, inputs, n_outputs=1, initializers=None, opset=17,

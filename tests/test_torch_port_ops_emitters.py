@@ -111,14 +111,17 @@ def test_int_mod_by_zero_gives_jax_values():
 
 
 def test_registry_holds_every_set_one_emitter():
-    """The port registers 155 of JAX's 195 ai.onnx emitters: all but the 40
-    of ROADMAP §1.1.3, which LATER names; the Trilu alias resolves."""
+    """The port registers every one of JAX's 195 ai.onnx emitters, and 43 of
+    its 52 com.microsoft ones: all but the 9 of ROADMAP §1.1.5, which LATER
+    names; the Trilu alias resolves."""
     import lele_tpu.ops.registry as jreg
     import lele_tpu_torch.ops.registry as preg
     from test_torch_port_ops_battery import LATER
 
-    assert set(jreg.OPS) - set(preg.OPS) == LATER and len(LATER) == 40
-    assert len(preg.OPS) == 155 and set(preg.OPS) <= set(jreg.OPS)
+    assert set(jreg.OPS) - set(preg.OPS) == set() and len(LATER) == 9
+    assert {name for _, name in set(jreg.CONTRIB_OPS) - set(preg.CONTRIB_OPS)} == LATER
+    assert set(preg.CONTRIB_OPS) <= set(jreg.CONTRIB_OPS) and len(preg.CONTRIB_OPS) == 43
+    assert len(preg.OPS) == 195 and set(preg.OPS) <= set(jreg.OPS)
     assert preg.CONTRIB_ALIASES == jreg.CONTRIB_ALIASES
     assert preg.lookup_op("com.microsoft", "Trilu") is preg.OPS["Trilu"]
     set_one = [n for n, od in jreg.OPS.items() if od.fn.__module__.rsplit(".", 1)[1] in (

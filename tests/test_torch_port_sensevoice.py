@@ -213,7 +213,9 @@ def test_port_runs_without_jax():
     MaxPool, Resize, 3-D ConvTranspose); and slice 21: chip_smoke phase
     37's two int8 ResNet-50 forms at a small width, the QDQ graph from the
     port's quantize_static and the QOperator graph on calibrate_minmax's
-    ranges; and slice 22: a graph compiled through the CLI, its generated
+    ranges; and slice 23: chip_smoke phase 39's front-end graph (DFT,
+    HannWindow, MelWeightMatrix before a small int8 SAN-M) and SD block at
+    small widths; and slice 22: a graph compiled through the CLI, its generated
     wrapper loaded and run, and one /recognize request to the tiny server."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
@@ -512,6 +514,16 @@ def test_port_runs_without_jax():
         "        f'http://127.0.0.1:{httpd.server_address[1]}/recognize', data=wv), timeout=120) as r:\n"
         "    assert json.loads(r.read()) == {'ids': srv._LAST_ENGINES['asr'].recognize(wv)}\n"
         "httpd.shutdown()\n"
+        "fe = chip_smoke.frontend_model(16000, L=2, d=64, h=2, ffn=96, vocab=40)\n"
+        "fcm = compile_model(fe, device='cpu', strict=True)\n"
+        "fpcm = np.random.default_rng(5).standard_normal(16000).astype(np.float32) * 0.1\n"
+        "flg, fmel = fcm.run_np(**chip_smoke.frontend_feeds(fpcm))\n"
+        "assert flg.shape == (1, 17 + 4, 40) and fmel.shape == (1, 98, 80)\n"
+        "assert np.isfinite(flg).all() and fcm.stats['pattern_hits']['sanm_fused_layers'] == 2\n"
+        "sd, _ = chip_smoke.sd_block_model(channels=16, groups=4, side=8)\n"
+        "sy = compile_model(sd, device='cpu', strict=True).run_np(\n"
+        "    h=np.ones((2, 8, 8, 16), np.float32), temb=np.ones((2, 16), np.float32))[0]\n"
+        "assert sy.shape == (2, 8, 8, 16) and np.isfinite(sy).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
