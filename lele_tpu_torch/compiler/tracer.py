@@ -51,6 +51,13 @@ GraphProto once, record the device work, replay it per request.
   inits, whose shapes its carries keep, stand in for the walk. Scan outputs
   with no static bound give a warning and empty outputs (strict mode
   raises), as in JAX.
+- **Search ops** (BeamSearch, GreedySearch, Sampling: `OpDef.subgraph`,
+  ops/search_ops.py) get the tracer, the walk state and the scope, are
+  never folded or merged by CSE, and walk their decoder graphs themselves:
+  the prefill inline on the tape, the step once onto a sub-tape
+  (`walk_body`, from an empty CSE table) replayed by one `_SearchStep` a
+  generated token, all on the device, so it stays capturable. An override
+  marked `records` records its own steps, as a recording emitter does.
 - **SequenceMap** unrolls its body once per element of its sequences
   (trace-time lists, `ops/extra_ops.TensorSeq`, whose elements may differ in
   shape), as JAX does. Sequences and optionals are host-level values: the
@@ -467,6 +474,27 @@ class _WhileStep(_SubgraphStep):
         return _fresh(vs)
 
 
+class _SearchStep(_SubgraphStep):
+    """The recorded step of a generative search node (ops/search_ops.py): the
+    decoder's step sub-tape, walked once on device placeholders at the static
+    buffer shapes (`GraphTracer.walk_body`), and the search loop, which
+    replays it once a generated token (`loop(step, args)`, plain torch: the
+    logits processors, the beam bookkeeping, the KV buffers' writes and
+    reorders, a finished row frozen by `where`). The loop reads nothing on
+    the host, so the step is capturable where its sub-tape is. It is not
+    run while tracing (ops/search_ops._record)."""
+
+    def __init__(self, body: Tape, loop: Callable, label: str):
+        self.body, self.loop, self.label = body, loop, label
+
+    @property
+    def capturable(self) -> bool:
+        return self.body.capturable
+
+    def __call__(self, args: dict, captured: list):
+        return self.loop(lambda feeds: self.body.replay([*feeds, *captured]), args)
+
+
 def _bind(spec, out, vals: list) -> None:
     if isinstance(spec, _Slot):
         vals[spec.k] = out
@@ -566,6 +594,10 @@ class GraphTracer:
             return outs if len(node.output) > 1 else outs[0]
 
         all_static = all(_is_static(v) for v in ins)
+        subgraph = opdef is not None and opdef.subgraph
+        if subgraph:
+            # a search op walks its attribute graphs itself: never folded
+            all_static = False
         # numpy cannot compute on fp8 bits (no ml_dtypes): such a node takes
         # the torch route on the host
         foldable = (opdef.foldable if opdef is not None else False) and not any(
@@ -605,11 +637,14 @@ class GraphTracer:
                 dyn_ins.append(v)
             else:
                 dyn_ins.append(state.to_device(scope + node.input[i], v))
-        records = opdef is not None and opdef.records and not overridden
+        # an override marked `records` records its own steps, as a recording
+        # emitter does (the search ops' injected self-attention masks)
+        records = ((opdef is not None and (opdef.records or subgraph) and not overridden)
+                   or (overridden and getattr(emitter, "records", False)))
         ctx = make_ctx(torch, node, self.opset, self, state=state if records else None,
                        scope=scope)
         key = None
-        if label not in self.overrides and not opdef.draws:  # builtins are pure
+        if not overridden and not opdef.draws and not subgraph:  # builtins are pure
             try:
                 key = (label, self.opset, len(node.output), _hashable(dyn_ins),
                        tuple(sorted((k, _hashable(v)) for k, v in ctx.attrs.items())))
@@ -689,19 +724,23 @@ class GraphTracer:
                 acc.append(o)
         return tuple(accs) if n_out > 1 else accs[0]
 
-    def _walk_body(self, state: TraceState, body: Proto, env, scope: str, inputs: list,
-                   where: str) -> tuple[Tape, list]:
-        """Walk a loop body once onto a sub-tape whose first inputs are
-        `inputs` (device placeholders for the body's inputs, in order; the
-        outer values the body reads follow them, `Tape.captured`). CSE
-        starts from the outer walk's and is not shared back."""
+    def walk_body(self, state: TraceState, body: Proto, env, scope: str, inputs,
+                   where: str, cse: dict | None = None) -> tuple[Tape, list]:
+        """Walk a loop body or a search step graph once onto a sub-tape.
+        `inputs` are (body input name, value) pairs: each device tensor is a
+        placeholder and becomes one of the sub-tape's inputs, in order (the
+        outer values the body reads follow them, `Tape.captured`); a host
+        value folds. CSE starts from the outer walk's table, or from `cse`
+        (a search step passes {} so that it reads nothing of the prefill
+        walk but the params), and is not shared back."""
         parent, parent_cse = state.tape, state.cse
         tape = Tape(parent)
         benv = ChainMap({}, env)
-        for vi, v in zip(body.input, inputs):
-            tape.input(v)
-            benv[vi.name] = v
-        state.tape, state.cse = tape, dict(parent_cse)
+        for name, v in inputs:
+            if isinstance(v, torch.Tensor):
+                tape.input(v)
+            benv[name] = v
+        state.tape, state.cse = tape, dict(parent_cse) if cse is None else cse
         try:
             outs = self._walk_graph(state, body, benv, scope)
             _reject_optionals(where, outs)
@@ -736,9 +775,10 @@ class GraphTracer:
         for i, x in enumerate(xs):
             x = _scan_axis(x, axes[0], axes[1], i, to_front=True)
             firsts.append(x[0].clone() if x.shape[0] else x.new_zeros(x.shape[1:]))
-        body_tape, _ = self._walk_body(
+        body_tape, _ = self.walk_body(
             state, body, env, scope + (node.name or f"Scan_{tag}") + "/",
-            [t.clone() for t in states0] + firsts, "Scan body outputs")
+            zip([vi.name for vi in body.input], [t.clone() for t in states0] + firsts),
+            "Scan body outputs")
         step = _ScanStep(body_tape, n_state, *axes, device=state.device)
         outs = state.run(step, states0, xs, list(body_tape.captured))
         return outs if len(outs) > 1 else outs[0]
@@ -810,9 +850,10 @@ class GraphTracer:
         iters = state.tape.const(torch.arange(M if stepped else 1, dtype=torch.int64,
                                               device=dev))
         i0 = iters[0].clone() if len(iters) else iters.new_zeros(())
-        body_tape, _ = self._walk_body(state, body, env, loop_scope,
-                                       [i0, true.clone()] + [v.clone() for v in vs0],
-                                       "Loop body outputs")
+        body_tape, _ = self.walk_body(
+            state, body, env, loop_scope,
+            zip([vi.name for vi in body.input], [i0, true.clone()] + [v.clone() for v in vs0]),
+            "Loop body outputs")
         captured = list(body_tape.captured)
         if stepped:
             if pure_for:

@@ -396,3 +396,32 @@ class OnnxModel:
                     dims.append(d.dim_param if d.has("dim_param") else int(d.dim_value))
             out.append((vi.name, int(tt.elem_type) or 1, dims))
         return out
+
+
+def bind_inputs(model: OnnxModel, values: dict) -> OnnxModel:
+    """Named graph inputs turned into initializers (compile-time constants):
+    the static-shape remedy for exports that feed shape-determining scalars
+    at run time (JAX's `bind_inputs`).
+
+    ORT's generative exports declare max_length, num_beams and
+    num_return_sequences as runtime inputs of the BeamSearch node; they fix
+    the search's shapes, so they must be static while tracing. Bind them
+    here before `compile_model`: one compiled program a setting, as for any
+    other shape bucket. The result shares the source's tensor storage (only
+    the graph's input and initializer lists are rebuilt), so mapped raw_data
+    and external-data references stay zero-copy."""
+    from . import builder as ob
+
+    g = model.graph._d
+    in_names = {vi.get("name") for vi in g.get("input", [])}
+    missing = set(values) - in_names
+    if missing:
+        raise ValueError(f"bind_inputs: {sorted(missing)} are not graph inputs "
+                         f"(inputs: {sorted(in_names)})")
+    new_g = dict(g)
+    new_g["input"] = [vi for vi in g.get("input", []) if vi.get("name") not in values]
+    new_g["initializer"] = list(g.get("initializer", [])) + [
+        ob.tensor_from_array(np.asarray(v), k) for k, v in values.items()]
+    new_d = dict(model.model._d)
+    new_d["graph"] = new_g
+    return OnnxModel(Proto(new_d, "ModelProto"), path=model.path, base_dir=model._base_dir)

@@ -20,6 +20,16 @@ a static KV cache), with the Phi-3 layer (RMSNorm, SiLU-gated FFN, untied
 head): tests/test_llm_decode_e2e.py's `_build_step` generalised to S tokens
 a step. `PHI3_MINI` holds Phi-3-mini-4k-instruct's published widths.
 
+The generative search exports (`build_gpt2_decoder_graph`,
+`SEARCH_INPUT_ORDER`, `build_search_model`, `build_whisper_search_graphs`):
+a GPT-2 step graph in onnxruntime convert_generation.py's contract, the
+one-node BeamSearch / GreedySearch / Sampling / WhisperBeamSearch model
+around a decoder (the search scalars as initializers, or as runtime inputs
+to bind), and the Whisper/T5 two-graph form (encoder_decoder_init and a
+decoder step positioned by past_sequence_length, with MultiHeadAttention or
+`masked_ops=True`'s DecoderMaskedMultiHeadAttention): JAX's builders, the
+same bytes.
+
 The ORT-GenAI decoder form (`GENAI_CFG`, `GENAI_MOE_CFG`, `quant4_ort`,
 `genai_decoder_params`, `build_genai_decoder`, `genai_feeds`): the op
 vocabulary onnxruntime-genai's model builder writes into published int4
@@ -600,3 +610,305 @@ def attn23_step_feeds(ids: np.ndarray, start: int, l_max: int) -> dict[str, np.n
     return {"ids": ids.astype(np.int64), "position_ids": np.tile(pos, (b, 1)),
             "write_idx": np.full((b,), start, np.int64),
             "mask": np.broadcast_to(mask, (b, 1, s, l_max)).copy()}
+
+# -- the generative search exports (com.microsoft BeamSearch, GreedySearch,
+# Sampling, WhisperBeamSearch: ops/search_ops.py). The GPT decoder follows
+# onnxruntime convert_generation.py's contract: inputs (input_ids,
+# position_ids, attention_mask, past_0..), outputs (logits, present_0..),
+# attention as com.microsoft::Attention with the stacked [2,B,H,P,dh] past
+# and a [B,total] binary mask_index. JAX's builders, node for node.
+
+
+def build_gpt2_decoder_graph(params, n_layer: int, n_head: int,
+                             eps: float = 1e-5, name: str = "decoder"):
+    """GraphProto dict of a GPT-2 LM step from a params dict (numpy):
+    wte [V,D], wpe [P,D], lm_w [D,V]; per layer i: ln1_g{i}/ln1_b{i},
+    attn_w{i} [D,3D], attn_b{i}, proj_w{i} [D,D], proj_b{i}, ln2_*,
+    fc_w{i} [D,4D], fc_b{i}, fcp_w{i} [4D,D], fcp_b{i}; lnf_g/lnf_b.
+    The HF Conv1D [in,out] layout is exactly contrib Attention's weight
+    layout and MatMul's right-operand layout — no transposes needed."""
+    nodes = []
+
+    def n(*a, **kw):
+        nodes.append(ob.node(*a, **kw))
+
+    n("Gather", ["wte", "input_ids"], ["te"])
+    n("Gather", ["wpe", "position_ids"], ["pe"])
+    n("Add", ["te", "pe"], ["x0"])
+    cur = "x0"
+    outs = ["logits"]
+    for i in range(n_layer):
+        n("LayerNormalization", [cur, f"ln1_g{i}", f"ln1_b{i}"], [f"h{i}"],
+          epsilon=eps)
+        n("Attention", [f"h{i}", f"attn_w{i}", f"attn_b{i}",
+                        "attention_mask", f"past_{i}"],
+          [f"a{i}", f"present_{i}"], domain="com.microsoft",
+          num_heads=n_head, unidirectional=1)
+        n("MatMul", [f"a{i}", f"proj_w{i}"], [f"ap{i}"])
+        n("Add", [f"ap{i}", f"proj_b{i}"], [f"ab{i}"])
+        n("Add", [f"ab{i}", cur], [f"x1_{i}"])
+        n("LayerNormalization", [f"x1_{i}", f"ln2_g{i}", f"ln2_b{i}"],
+          [f"h2_{i}"], epsilon=eps)
+        n("MatMul", [f"h2_{i}", f"fc_w{i}"], [f"fc{i}"])
+        n("FastGelu", [f"fc{i}", f"fc_b{i}"], [f"gelu{i}"],
+          domain="com.microsoft")
+        n("MatMul", [f"gelu{i}", f"fcp_w{i}"], [f"fcp{i}"])
+        n("Add", [f"fcp{i}", f"fcp_b{i}"], [f"fcpb{i}"])
+        n("Add", [f"fcpb{i}", f"x1_{i}"], [f"x2_{i}"])
+        cur = f"x2_{i}"
+        outs.append(f"present_{i}")
+    n("LayerNormalization", [cur, "lnf_g", "lnf_b"], ["hf"], epsilon=eps)
+    n("MatMul", ["hf", "lm_w"], ["logits"])
+
+    d = params["wte"].shape[1]
+    dh = d // n_head
+    inputs = [
+        ob.value_info("input_ids", 6, ["b", "s"]),
+        ob.value_info("position_ids", 6, ["b", "s"]),
+        ob.value_info("attention_mask", 6, ["b", "total"]),
+    ]
+    for i in range(n_layer):
+        inputs.append(
+            ob.value_info(f"past_{i}", 1, [2, "b", n_head, "p", dh])
+        )
+    return ob.graph(
+        nodes, name, inputs,
+        [ob.value_info(o, 1, []) for o in outs],
+        [ob.tensor_from_array(np.asarray(v, np.float32), k)
+         for k, v in params.items()],
+    )
+
+
+# canonical ORT input orders for the three search ops
+SEARCH_INPUT_ORDER = {
+    "BeamSearch": [
+        "input_ids", "max_length", "min_length", "num_beams",
+        "num_return_sequences", "length_penalty", "repetition_penalty",
+        "vocab_mask", "prefix_vocab_mask", "attention_mask",
+        "decoder_input_ids", "logits_processor",
+    ],
+    "GreedySearch": [
+        "input_ids", "max_length", "min_length", "repetition_penalty",
+        "vocab_mask", "prefix_vocab_mask", "attention_mask",
+    ],
+    "Sampling": [
+        "input_ids", "max_length", "min_length", "repetition_penalty",
+        "vocab_mask", "prefix_vocab_mask", "attention_mask",
+        "presence_mask", "seed",
+    ],
+}
+SEARCH_INPUT_ORDER["WhisperBeamSearch"] = (
+    SEARCH_INPUT_ORDER["BeamSearch"]
+    + ["cross_qk_layer_head", "extra_decoding_ids", "temperature"]
+)
+
+
+def build_search_model(kind: str, decoder_graph, input_shape,
+                       search_inits: dict, attrs: dict,
+                       n_outputs: int = 1, input_dtype: int = 6,
+                       mask_shape=None, runtime_scalars=()) -> bytes:
+    """A top-level one-node search model: dynamic inputs input_ids (i32
+    tokens for GPT/T5, float features for Whisper — input_dtype) and (when
+    search_inits marks 'attention_mask' with None) a mask input; every
+    scalar search parameter rides as an initializer (trace-time static, as
+    shape-determining values must be), or, named in `runtime_scalars`, as a
+    runtime input in the published form (onnx/loader.bind_inputs binds it).
+    Extra subgraphs (encoder=...) ride in `attrs`."""
+    order = SEARCH_INPUT_ORDER[kind]
+    names = []
+    for nm in order:
+        if nm == "input_ids" or (
+            nm == "attention_mask" and search_inits.get(nm) is None
+            and nm in search_inits
+        ):
+            names.append(nm)
+        elif nm in search_inits and search_inits[nm] is not None:
+            names.append(nm)
+        else:
+            names.append("")
+    while names and not names[-1]:
+        names.pop()
+    out_names = ["sequences", "sequences_scores", "scores"][:n_outputs]
+    node = ob.node(kind, names, out_names, domain="com.microsoft",
+                   decoder=decoder_graph, **attrs)
+    inputs = [ob.value_info("input_ids", input_dtype, list(input_shape))]
+    if "attention_mask" in search_inits and \
+            search_inits["attention_mask"] is None:
+        inputs.append(ob.value_info(
+            "attention_mask", 6, list(mask_shape or input_shape)))
+    inits = [
+        ob.tensor_from_array(np.asarray(v), k)
+        for k, v in search_inits.items()
+        if v is not None and k != "input_ids" and k not in runtime_scalars
+    ]
+    for k in runtime_scalars:
+        # the published export form: search scalars as RUNTIME inputs
+        # (bind_inputs converts them to constants before compile)
+        v = np.asarray(search_inits[k])
+        dt = 6 if v.dtype.kind in "iu" else 1
+        inputs.append(ob.value_info(k, dt, list(v.shape)))
+    out_vis = [ob.value_info("sequences", 6, [])]
+    if n_outputs > 1:
+        out_vis.append(ob.value_info("sequences_scores", 1, []))
+    if n_outputs > 2:
+        out_vis.append(ob.value_info("scores", 1, []))
+    return ob.serialize(ob.model(ob.graph(
+        [node], f"{kind.lower()}_model", inputs, out_vis, inits,
+    ), opset=17))
+
+
+def build_whisper_search_graphs(p, n_layer: int, n_head: int, s0: int,
+                                eps: float = 1e-5,
+                                masked_ops: bool = False):
+    """(encoder_decoder_init, decoder-step) GraphProto dicts in the ORT
+    Whisper/T5 two-graph BeamSearch form: the init graph runs the encoder
+    AND the first decoder pass on decoder_input_ids, emitting logits +
+    present_*_self + present_*_cross; the step graph consumes
+    past_sequence_length (ORT's DecoderMasked static-buffer contract — the
+    position source that does NOT read buffer capacity via Shape) plus the
+    name-paired past tensors. Params (numpy): We [F,D], be; emb [V,D],
+    emb_T [D,V], pos [P,D]; per layer i: ln{1,2,3}_{g,b}{i}, s{q,k,v,o}_w/b
+    (self), c{q,k,v,o}_w/b (cross, k bias-less like Whisper), f1_w/b,
+    f2_w/b; lnf_{g,b}. Pre-LN blocks, FastGelu MLP, tied lm head."""
+    d = p["emb"].shape[1]
+    dh = d // n_head
+    shp = np.asarray([0, 0, n_head, dh], np.int64)
+
+    def blocks(n, x, tag, self_kv, cross_kv, causal):
+        """Shared decoder stack; self_kv/cross_kv map layer→(k,v) input
+        names (None → compute in-graph / no past)."""
+        for i in range(n_layer):
+            n("LayerNormalization", [x, f"ln1_g{i}", f"ln1_b{i}"],
+              [f"{tag}h{i}"], epsilon=eps)
+            for w in ("q", "k", "v"):
+                n("MatMul", [f"{tag}h{i}", f"s{w}_w{i}"], [f"{tag}s{w}m{i}"])
+                n("Add", [f"{tag}s{w}m{i}", f"s{w}_b{i}"], [f"{tag}s{w}{i}"])
+            past = self_kv(i)
+            if past and masked_ops:
+                # the ORT GPU generative-export form: explicit
+                # DecoderMaskedMultiHeadAttention over the share buffer,
+                # positioned by the past_sequence_length input — no
+                # injected mask needed
+                n("DecoderMaskedMultiHeadAttention",
+                  [f"{tag}sq{i}", f"{tag}sk{i}", f"{tag}sv{i}", "", "",
+                   past[0], past[1], "past_sequence_length"],
+                  [f"{tag}sa{i}", f"present_key_self_{i}",
+                   f"present_value_self_{i}"],
+                  domain="com.microsoft", num_heads=n_head,
+                  past_present_share_buffer=1)
+            else:
+                ins = [f"{tag}sq{i}", f"{tag}sk{i}", f"{tag}sv{i}",
+                       "", "", ""]
+                if past:
+                    ins += list(past)
+                n("MultiHeadAttention", ins,
+                  [f"{tag}sa{i}", f"present_key_self_{i}",
+                   f"present_value_self_{i}"],
+                  domain="com.microsoft", num_heads=n_head,
+                  unidirectional=1 if causal else 0)
+            n("MatMul", [f"{tag}sa{i}", f"so_w{i}"], [f"{tag}som{i}"])
+            n("Add", [f"{tag}som{i}", f"so_b{i}"], [f"{tag}so{i}"])
+            n("Add", [x, f"{tag}so{i}"], [f"{tag}x1_{i}"])
+            n("LayerNormalization", [f"{tag}x1_{i}", f"ln2_g{i}",
+                                     f"ln2_b{i}"], [f"{tag}h2_{i}"],
+              epsilon=eps)
+            n("MatMul", [f"{tag}h2_{i}", f"cq_w{i}"], [f"{tag}cqm{i}"])
+            n("Add", [f"{tag}cqm{i}", f"cq_b{i}"], [f"{tag}cq{i}"])
+            ck, cv = cross_kv(i)
+            n("MultiHeadAttention", [f"{tag}cq{i}", ck, cv],
+              [f"{tag}ca{i}"], domain="com.microsoft", num_heads=n_head)
+            n("MatMul", [f"{tag}ca{i}", f"co_w{i}"], [f"{tag}com{i}"])
+            n("Add", [f"{tag}com{i}", f"co_b{i}"], [f"{tag}co{i}"])
+            n("Add", [f"{tag}x1_{i}", f"{tag}co{i}"], [f"{tag}x2_{i}"])
+            n("LayerNormalization", [f"{tag}x2_{i}", f"ln3_g{i}",
+                                     f"ln3_b{i}"], [f"{tag}h3_{i}"],
+              epsilon=eps)
+            n("MatMul", [f"{tag}h3_{i}", f"f1_w{i}"], [f"{tag}f1_{i}"])
+            n("FastGelu", [f"{tag}f1_{i}", f"f1_b{i}"], [f"{tag}g{i}"],
+              domain="com.microsoft")
+            n("MatMul", [f"{tag}g{i}", f"f2_w{i}"], [f"{tag}f2m{i}"])
+            n("Add", [f"{tag}f2m{i}", f"f2_b{i}"], [f"{tag}f2b{i}"])
+            n("Add", [f"{tag}x2_{i}", f"{tag}f2b{i}"], [f"{tag}x3_{i}"])
+            x = f"{tag}x3_{i}"
+        n("LayerNormalization", [x, "lnf_g", "lnf_b"], [f"{tag}hf"],
+          epsilon=eps)
+        n("MatMul", [f"{tag}hf", "emb_T"], ["logits"])
+
+    inits = [ob.tensor_from_array(np.asarray(v, np.float32), k)
+             for k, v in p.items()]
+    inits.append(ob.tensor_from_array(shp, "shp"))
+    inits_enc = inits + [
+        ob.tensor_from_array(p["pos"][:s0].astype(np.float32), "pos0")
+    ]
+
+    # ---------- encoder_decoder_init
+    nodes = []
+
+    def n(*a, **kw):
+        nodes.append(ob.node(*a, **kw))
+
+    n("Transpose", ["input_features"], ["ft"], perm=[0, 2, 1])
+    n("MatMul", ["ft", "We"], ["em"])
+    n("Add", ["em", "be"], ["ea"])
+    n("Tanh", ["ea"], ["encoder_hidden_states"])
+    for i in range(n_layer):
+        for w, bias in (("k", False), ("v", True)):
+            src = "encoder_hidden_states"
+            n("MatMul", [src, f"c{w}_w{i}"], [f"x{w}m{i}"])
+            if bias:
+                n("Add", [f"x{w}m{i}", f"c{w}_b{i}"], [f"x{w}a{i}"])
+            flat = f"x{w}a{i}" if bias else f"x{w}m{i}"
+            n("Reshape", [flat, "shp"], [f"x{w}r{i}"])
+            n("Transpose", [f"x{w}r{i}"], [f"present_{'key' if w == 'k' else 'value'}_cross_{i}"],
+              perm=[0, 2, 1, 3])
+    n("Gather", ["emb", "decoder_input_ids"], ["de"])
+    n("Add", ["de", "pos0"], ["dx"])
+    blocks(n, "dx", "d",
+           self_kv=lambda i: None,
+           cross_kv=lambda i: (f"present_key_cross_{i}",
+                               f"present_value_cross_{i}"),
+           causal=True)
+    outs = ["logits", "encoder_hidden_states"]
+    for i in range(n_layer):
+        outs += [f"present_key_self_{i}", f"present_value_self_{i}"]
+    for i in range(n_layer):
+        outs += [f"present_key_cross_{i}", f"present_value_cross_{i}"]
+    enc_graph = ob.graph(
+        nodes, "encoder_decoder_init",
+        [ob.value_info("input_features", 1, ["b", "F", "T"]),
+         ob.value_info("decoder_input_ids", 6, ["b", s0])],
+        [ob.value_info(o, 1, []) for o in outs],
+        inits_enc,
+    )
+
+    # ---------- decoder step
+    nodes = []
+    n("Gather", ["emb", "input_ids"], ["de"])
+    n("Gather", ["pos", "past_sequence_length"], ["pe"])
+    n("Add", ["de", "pe"], ["dx"])
+    blocks(n, "dx", "d",
+           self_kv=lambda i: (f"past_key_self_{i}", f"past_value_self_{i}"),
+           cross_kv=lambda i: (f"past_key_cross_{i}",
+                               f"past_value_cross_{i}"),
+           causal=False)
+    outs = ["logits"]
+    for i in range(n_layer):
+        outs += [f"present_key_self_{i}", f"present_value_self_{i}"]
+    dec_inputs = [
+        ob.value_info("input_ids", 6, ["b", 1]),
+        ob.value_info("past_sequence_length", 6, [1]),
+    ]
+    for i in range(n_layer):
+        dec_inputs += [
+            ob.value_info(f"past_key_self_{i}", 1, ["b", n_head, "p", dh]),
+            ob.value_info(f"past_value_self_{i}", 1, ["b", n_head, "p", dh]),
+            ob.value_info(f"past_key_cross_{i}", 1, ["b", n_head, "T", dh]),
+            ob.value_info(f"past_value_cross_{i}", 1,
+                          ["b", n_head, "T", dh]),
+        ]
+    dec_graph = ob.graph(
+        nodes, "decoder_step", dec_inputs,
+        [ob.value_info(o, 1, []) for o in outs],
+        inits,
+    )
+    return enc_graph, dec_graph

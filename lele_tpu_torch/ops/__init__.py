@@ -11,13 +11,14 @@ recurrent LSTM, GRU and RNN, the long tail and the sequence and optional ops
 optionals are host-level values, as the JAX package's), `string_ops` and
 `tfidf_ops` (strings fold on the host), `deform_ops`, the opset-23
 attention family and AffineGrid (`attention_ops`), ImageDecoder (`io_ops`,
-host-side at trace time), and 43 of its 52 com.microsoft ops, keyed on their
-domain: all of JAX's `contrib_ops`, `genai_ops`, `qlinear_ops` (the QOperator
-family), `fused_ops` and `diffusion_ops`, MoE and QMoE (`moe_ops`);
+host-side at trace time), and all 52 of its com.microsoft ops, keyed on
+their domain: all of JAX's `contrib_ops`, `genai_ops`, `qlinear_ops` (the
+QOperator family), `fused_ops` and `diffusion_ops`, MoE and QMoE (`moe_ops`),
+the generative search ops (`search_ops`: BeamSearch, GreedySearch, Sampling,
+WhisperBeamSearch, NGramRepeatBlock) and the varlen ops (`packed_ops`);
 com.microsoft Gelu, Trilu and Range reach the default emitters through
-`registry.CONTRIB_ALIASES`. The 9 still missing are ROADMAP §1.1.5's search
-and packed ops. Any other op type follows the JAX dispatch rule: a warning
-and an empty value, or a raise in strict mode.
+`registry.CONTRIB_ALIASES`. Any other op type follows the JAX dispatch rule: a
+warning and an empty value, or a raise in strict mode.
 """
 
 from . import (  # noqa: F401
@@ -33,8 +34,10 @@ from . import (  # noqa: F401
     math_ops,
     moe_ops,
     nn_ops,
+    packed_ops,
     qlinear_ops,
     quant_ops,
+    search_ops,
     string_ops,
     tensor_ops,
     tfidf_ops,

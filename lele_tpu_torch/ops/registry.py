@@ -61,14 +61,18 @@ class OpDef:
     # the emitter draws from the node's own stream (Bernoulli, Multinomial):
     # two such nodes on the same inputs differ, so CSE never merges them
     draws: bool = False
+    # the emitter walks its attribute graphs itself (BeamSearch, GreedySearch,
+    # Sampling: ops/search_ops.py): it gets ctx.tracer, ctx.state and
+    # ctx.scope, records its own steps, and is never folded or merged by CSE
+    subgraph: bool = False
 
 
 def op(name: str, foldable: bool = True, static_args: tuple = (), records: bool = False,
-       domain: str = "", host: bool = False, draws: bool = False):
+       domain: str = "", host: bool = False, draws: bool = False, subgraph: bool = False):
     d = canon_domain(domain)
 
     def deco(fn):
-        od = OpDef(name, fn, foldable, static_args, records, host, draws)
+        od = OpDef(name, fn, foldable, static_args, records, host, draws, subgraph)
         if d:
             CONTRIB_OPS[(d, name)] = od
         else:
@@ -139,7 +143,7 @@ class OpContext:
     node    the NodeProto wrapper
     tracer  the GraphTracer
     state   the TraceState, for an emitter that records its own steps
-            (`records=True`); None otherwise
+            (`records=True`, `subgraph=True`); None otherwise
     scope   the subgraph scope of the node's value names
     """
 

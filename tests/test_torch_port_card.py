@@ -98,6 +98,13 @@ round captures its programs while other requests are in flight), each
 answer the engine's direct call; a deduplicated leaf of `load_pytree` on
 the card written in place without changing its twin.
 
+The com.microsoft search and packed sets (chip_smoke phase 40) at small
+widths: an int8 GPT-2 BeamSearch export bound by bind_inputs with kernel 5
+in every decoder walk of the captured loop, GreedySearch and Sampling (the
+same seed the same rollout on every captured call), WhisperBeamSearch over
+the DecoderMasked step graph and the packed BERT stack, each captured
+against its replay (also under sync debug mode "error") and the CPU.
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -2015,3 +2022,98 @@ def test_load_pytree_deduplicated_leaves_on_the_card(dev, tmp_path):
     tree["a"].mul_(5.0)
     assert torch.equal(tree["b"].cpu(), torch.ones(6))
     assert torch.equal(tree["c"].cpu(), torch.arange(4, dtype=torch.int32))
+
+
+SEARCH_SMALL = dict(vocab=301, d=64, heads=4, layers=2, max_len=64, ffn=256)
+WHISPER_SMALL = dict(vocab=51865, d=64, heads=4, layers=2, max_len=40, ffn=128, frames=60,
+                     mels=16)
+
+
+def _search_on_card(dev, bs: bytes, feeds: dict, bind=None):
+    """A search export compiled on the card and on the CPU: the captured
+    call against the replay (chip_smoke.capture_checks), the CPU's outputs
+    and the card's launches."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import OnnxModel, bind_inputs
+
+    model = OnnxModel.from_bytes(bs)
+    if bind:
+        model = bind_inputs(model, bind)
+    ref = compile_model(model, device="cpu", strict=True).run_np(**feeds)
+    cm = compile_model(model, device=dev, strict=True).compile()
+    checks = cs.Checks()
+    got, launches = cs.capture_checks(checks, "search", cm,
+                                      {k: torch.from_numpy(v).to(dev) for k, v in feeds.items()})
+    assert not checks.failures, checks.failures
+    return cm, [g.cpu().numpy() for g in got], ref, launches
+
+
+@pytest.mark.cuda
+def test_search_beam_int8_runs_kernel_5_in_the_captured_loop(dev):
+    """Phase 40 (a) at a small width: the int8 GPT-2 BeamSearch export bound
+    by bind_inputs, one captured program: kernel 5 3 times a layer and once
+    for the head in every decoder walk (the prefill and each step), the
+    replay's bits and launches, the CPU's ids and scores within
+    SEARCH_SCORE_REL."""
+    params = cs.gpt2_search_params(cfg=SEARCH_SMALL)
+    beam, _, _, binds = cs.gpt2_search_models(params, SEARCH_SMALL)
+    ids, mask = cs.search_prompts(SEARCH_SMALL["vocab"])
+    cm, (seq, sc), (rseq, rsc), launches = _search_on_card(
+        dev, beam, {"input_ids": ids, "attention_mask": mask}, binds["beam"])
+    walk = 3 * SEARCH_SMALL["layers"] + 1
+    assert launches["dq_gemm"] == walk * (cs.SEARCH_MAX_LENGTH - ids.shape[1])
+    assert cm.stats["pattern_hits"]["dql_matmul_dataflow"] == 2 * walk
+    np.testing.assert_array_equal(seq, rseq)
+    assert (np.abs(sc - rsc) <= cs.SEARCH_SCORE_REL * np.abs(rsc)).all()
+
+
+@pytest.mark.cuda
+def test_search_greedy_and_sampling_captured(dev):
+    """GreedySearch and Sampling (top-p 0.9, a runtime seed input) captured
+    on the card: the replay's bits; greedy the CPU's ids; the same seed the
+    same rollout on every captured call, another seed another."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx.synth import build_gpt2_decoder_graph, build_search_model
+
+    params = cs.gpt2_search_params(cfg=SEARCH_SMALL)
+    _, _, greedy, binds = cs.gpt2_search_models(params, SEARCH_SMALL)
+    ids, mask = cs.search_prompts(SEARCH_SMALL["vocab"])
+    feeds = {"input_ids": ids, "attention_mask": mask}
+    _, (seq,), (rseq,), _ = _search_on_card(dev, greedy, feeds, binds["greedy"])
+    np.testing.assert_array_equal(seq, rseq)
+    dec = build_gpt2_decoder_graph(params, SEARCH_SMALL["layers"], SEARCH_SMALL["heads"])
+    eos = SEARCH_SMALL["vocab"] - 1
+    bs = build_search_model("Sampling", dec, ids.shape,
+                            {"max_length": np.asarray([24], np.int32), "attention_mask": None,
+                             "seed": np.asarray([0], np.int32)},
+                            dict(eos_token_id=eos, pad_token_id=eos, model_type=0, top_p=0.9,
+                                 temperature=1.2, seed=4), runtime_scalars=("seed",))
+    cm = compile_model(bs, device=dev, strict=True)
+    tfeeds = {k: torch.from_numpy(v).to(dev) for k, v in feeds.items()}
+    run = lambda s: cm(**tfeeds, seed=torch.tensor([s], dtype=torch.int32, device=dev))[0] \
+        .cpu().numpy()  # noqa: E731
+    a, b, a2 = run(7), run(8), run(7)
+    assert cm.stats["captured"]
+    np.testing.assert_array_equal(a, a2)
+    np.testing.assert_array_equal(
+        a, cm.replay(**tfeeds, seed=torch.tensor([7], dtype=torch.int32, device=dev))[0]
+        .cpu().numpy())
+    assert (a != b).any()
+
+
+@pytest.mark.cuda
+def test_search_whisper_masked_and_packed_stack_on_the_card(dev):
+    """Phase 40 (c) and (d) at small widths: WhisperBeamSearch over the
+    DecoderMasked step graph (the CPU's ids) and the packed BERT stack
+    (within PACKED_REL of the CPU, padding rows zero), each captured
+    against its replay."""
+    bs, feeds = cs.whisper_search_model(cs.whisper_search_params(cfg=WHISPER_SMALL),
+                                        WHISPER_SMALL)
+    _, (seq, sc), (rseq, rsc), _ = _search_on_card(dev, bs, feeds)
+    np.testing.assert_array_equal(seq, rseq)
+    assert (np.abs(sc - rsc) <= cs.SEARCH_SCORE_REL * np.abs(rsc)).all()
+    packed, _, pfeeds = cs.packed_bert_models(4, 32, layers=2, d=64, heads=4, ffn=128)
+    _, (y,), (ry,), _ = _search_on_card(dev, packed, pfeeds)
+    assert np.abs(y - ry).max() <= cs.PACKED_REL * np.abs(ry).max()
+    valid = np.arange(32)[None, :] < pfeeds["lens"][:, None]
+    assert (y[~valid] == 0).all()

@@ -12,9 +12,9 @@ other JAX op-test files replay through this file's `replay_case`
 (test_torch_port_ops_tensor.py, _nn.py, _fuzz.py).
 
 A graph that stops on a strict-mode refusal of an op of a later set
-(ROADMAP §1.1.5: `LATER`) runs on JAX's outputs instead and is
-recorded: the case then asserts that every refusal it met is of such an
-op. A graph with a Random op (`RANDOM_OPS`) is held to JAX's shapes only:
+(`LATER`, empty since every set is ported) runs on JAX's outputs instead
+and is recorded: the case then asserts that every refusal it met is of
+such an op. A graph with a Random op (`RANDOM_OPS`) is held to JAX's shapes only:
 the streams hold the properties JAX's tests assert, not threefry's bits
 (ROADMAP §3 "Known"). `KNOWN` lists each case whose port outputs differ from JAX's
 past the tolerance, with its measured gap and why; ROADMAP §3 lists them
@@ -41,11 +41,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
 import optest  # noqa: E402
 
-# ROADMAP §1.1.5: the 9 com.microsoft names the port has not ported yet (every
-# ai.onnx emitter of the JAX package is ported)
-LATER = frozenset(
-    "BeamSearch GreedySearch Sampling WhisperBeamSearch NGramRepeatBlock "  # search_ops
-    "RemovePadding RestorePadding PackedAttention PackedMultiHeadAttention".split())
+# the op names the port has not ported yet: none (every ai.onnx and
+# com.microsoft emitter of the JAX package is ported)
+LATER: frozenset = frozenset()
 
 # ops whose draws the port takes from its own stream (ROADMAP §3 "Known")
 RANDOM_OPS = ("RandomNormal", "RandomNormalLike", "RandomUniform", "RandomUniformLike",

@@ -111,16 +111,19 @@ def test_int_mod_by_zero_gives_jax_values():
 
 
 def test_registry_holds_every_set_one_emitter():
-    """The port registers every one of JAX's 195 ai.onnx emitters, and 43 of
-    its 52 com.microsoft ones: all but the 9 of ROADMAP §1.1.5, which LATER
-    names; the Trilu alias resolves."""
+    """The port registers every one of JAX's 195 ai.onnx emitters and all 52
+    of its com.microsoft ones, the search and packed sets too (LATER is
+    empty); the search ops walk their subgraphs, as JAX's do; the Trilu
+    alias resolves."""
     import lele_tpu.ops.registry as jreg
     import lele_tpu_torch.ops.registry as preg
     from test_torch_port_ops_battery import LATER
 
-    assert set(jreg.OPS) - set(preg.OPS) == set() and len(LATER) == 9
-    assert {name for _, name in set(jreg.CONTRIB_OPS) - set(preg.CONTRIB_OPS)} == LATER
-    assert set(preg.CONTRIB_OPS) <= set(jreg.CONTRIB_OPS) and len(preg.CONTRIB_OPS) == 43
+    assert set(jreg.OPS) - set(preg.OPS) == set() and LATER == frozenset()
+    assert set(preg.CONTRIB_OPS) == set(jreg.CONTRIB_OPS) and len(preg.CONTRIB_OPS) == 52
+    assert {k[1] for k, od in preg.CONTRIB_OPS.items() if od.subgraph} == {
+        k[1] for k, od in jreg.CONTRIB_OPS.items() if od.subgraph} == {
+        "BeamSearch", "GreedySearch", "Sampling", "WhisperBeamSearch"}
     assert len(preg.OPS) == 195 and set(preg.OPS) <= set(jreg.OPS)
     assert preg.CONTRIB_ALIASES == jreg.CONTRIB_ALIASES
     assert preg.lookup_op("com.microsoft", "Trilu") is preg.OPS["Trilu"]

@@ -139,7 +139,7 @@ def test_blocked_quantize_dequantize(block):
 
 
 def test_registry_holds_the_quant_and_qlinear_sets():
-    """The port registers all of JAX's 195 ai.onnx emitters and 43 of its 52
+    """The port registers all of JAX's 195 ai.onnx emitters and all 52 of its
     com.microsoft ones; the five quant names and the twelve QOperator
     emitters keep JAX's fold and static-argument flags, the twelve under
     com.microsoft."""
@@ -151,7 +151,7 @@ def test_registry_holds_the_quant_and_qlinear_sets():
     qlinear = [n for (d, n), od in jreg.CONTRIB_OPS.items()
                if od.fn.__module__.endswith("qlinear_ops")]
     assert len(qlinear) == 12 and len(preg.OPS) == 195
-    assert len(preg.CONTRIB_OPS) == 43 and set(preg.CONTRIB_OPS) <= set(jreg.CONTRIB_OPS)
+    assert len(preg.CONTRIB_OPS) == 52 and set(preg.CONTRIB_OPS) <= set(jreg.CONTRIB_OPS)
     for j, p in [(jreg.OPS[n], preg.OPS[n]) for n in quant] + [
             (jreg.CONTRIB_OPS[("com.microsoft", n)],
              preg.lookup_op("com.microsoft", n)) for n in qlinear]:

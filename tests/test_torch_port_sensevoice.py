@@ -216,7 +216,9 @@ def test_port_runs_without_jax():
     ranges; and slice 23: chip_smoke phase 39's front-end graph (DFT,
     HannWindow, MelWeightMatrix before a small int8 SAN-M) and SD block at
     small widths; and slice 22: a graph compiled through the CLI, its generated
-    wrapper loaded and run, and one /recognize request to the tiny server."""
+    wrapper loaded and run, and one /recognize request to the tiny server;
+    and slice 24: chip_smoke phase 40's int8 GPT-2 BeamSearch export at a
+    small width, bound by bind_inputs, and its packed BERT stack."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "import numpy as np, torch\n"
@@ -524,6 +526,16 @@ def test_port_runs_without_jax():
         "sy = compile_model(sd, device='cpu', strict=True).run_np(\n"
         "    h=np.ones((2, 8, 8, 16), np.float32), temb=np.ones((2, 16), np.float32))[0]\n"
         "assert sy.shape == (2, 8, 8, 16) and np.isfinite(sy).all()\n"
+        "from lele_tpu_torch.onnx import OnnxModel, bind_inputs\n"
+        "g2 = dict(vocab=97, d=32, heads=2, layers=2, max_len=64, ffn=64)\n"
+        "beam, _, _, binds = chip_smoke.gpt2_search_models(chip_smoke.gpt2_search_params(cfg=g2), g2)\n"
+        "bcm = compile_model(bind_inputs(OnnxModel.from_bytes(beam), binds['beam']), device='cpu')\n"
+        "bids, bmask = chip_smoke.search_prompts(97)\n"
+        "bseq, bsc = bcm.run_np(input_ids=bids, attention_mask=bmask)\n"
+        "assert bseq.shape == (2, 2, 48) and np.isfinite(bsc).all() and bcm.stats['capturable']\n"
+        "assert bcm.stats['pattern_hits']['dql_matmul_dataflow'] == 14\n"
+        "pk, _, pf = chip_smoke.packed_bert_models(2, 8, layers=1, d=16, heads=2, ffn=32)\n"
+        "assert compile_model(pk, device='cpu', strict=True).run_np(**pf)[0].shape == (2, 8, 16)\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
