@@ -296,7 +296,13 @@
    BeamSearch and under GreedySearch, WhisperBeamSearch at Whisper-tiny
    widths and a packed BERT-base stack, each captured against its replay
    and the CPU;
-41. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+41. training (`train_phase`): the CTC train step against the CPU at
+   dryrun_multichip's config; at the flagship's widths (50 layers, d 512,
+   bf16 compute) the loss over 10 steps, the step's time, peak memory with
+   remat and without, and its share of the bf16 bound; a checkpoint
+   restored on the card giving the next step's bits; the sharded step on
+   NCCL over a 1 x 1 x 1 mesh;
+42. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
    too, row 7 phase 35's, row 11 phase 37's, rows 1, 2, 4, 5 and 10 phase
    38's, rows 4 and 5 phase 39's, row 5 phase 40's), the card, and last
    {"ok": true, "device": ...}.
@@ -310,6 +316,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import statistics
 import subprocess
 from itertools import cycle
@@ -1085,23 +1092,21 @@ def silero_phases(checks, dev, gen, card, err, ms, plain_ms, library_ms, bounds)
         print(f"  SileroOnnx.speech_probs 10 s at {rate} Hz: {t:.3f} ms, RTF {t / 1e4:.3e}, "
               f"{t * 1e3 / n10:.1f} us a chunk  ({card})")
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sv.speech_probs(pcm10, 16000)
         span_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages()
-            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
-    dev_us = sum(dev_time(e) for e in rows)
-    kernels = sum(e.count for e in rows if not e.key.startswith(("Memcpy", "Memset")))
+    rows = device_rows(prof)
+    dev_us = sum(us for us, _ in rows.values())
+    kernels = sum(c for k, (_, c) in rows.items() if not k.startswith(("Memcpy", "Memset")))
     print(f"  profile, SileroOnnx 10 s at 16 kHz: {kernels} device launches "
           f"({kernels / n10:.1f} a chunk), device {dev_us:.1f} us over {span_us:.1f} us, "
           f"busy share {dev_us / span_us:.3f}  ({card})")
-    for e in sorted(rows, key=lambda e: -dev_time(e))[:6]:
-        print(f"    {dev_time(e):10.1f} us  x{e.count:<6d} {e.key[:90]}")
-    lstm_us = sum(dev_time(e) for e in rows if "lstm_seq" in e.key)
+    for k, (us, c) in sorted(rows.items(), key=lambda r: -r[1][0])[:6]:
+        print(f"    {us:10.1f} us  x{c:<6d} {k[:90]}")
+    lstm_us = sum(us for k, (us, _) in rows.items() if "lstm_seq" in k)
     print(f"  of which lstm_seq {lstm_us:.1f} us ({lstm_us / n10:.2f} us a chunk)  ({card})")
     return {"native": vad_launches, "compiled": onnx_launches}
 
@@ -1785,17 +1790,37 @@ def dev_time(e):  # the attribute's name moved between torch versions
     return v if v is not None else e.self_cuda_time_total
 
 
-def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> list:
-    """Trace n calls of fn() with torch.profiler: the device's busy share of
-    the host span and the device time by kernel. Only device-side rows are
-    summed: a CPU op's row (aten::mm) carries the device time of the kernels
-    it launched, which have rows of their own. Returns (kernel name, device
-    us a call, launches a call), the longest first."""
-    import torch
+def device_rows(prof) -> dict[str, list]:
+    """{name: [device us, records]} of a finished trace's device-side
+    records (kernels, copies, sets), summed from the raw trace: the sums of
+    key_averages()'s device rows, without the Python event it first builds
+    for each record (on the CPU 3.07 s against 0.09 for 30,000 records;
+    scripts/torch_port_profiler_probe.py holds the two to the same rows on
+    the card)."""
     from torch.autograd import DeviceType
+
+    rows: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            row = rows.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    return {k: v for k, v in rows.items() if v[0] > 0}
+
+
+def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12,
+                warm: bool = True) -> list:
+    """Trace n calls of fn() with torch.profiler (after one untraced call,
+    unless the caller ran fn already: warm=False): the device's busy share
+    of the host span and the device time by kernel. Only device-side rows
+    are summed: a CPU op's row (aten::mm) carries the device time of the
+    kernels it launched, which have rows of their own. Returns (kernel
+    name, device us a call, launches a call), the longest first."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1803,14 +1828,12 @@ def profile_top(fn, label: str, card: str, n: int = 3, top: int = 12) -> list:
             fn()
         torch.cuda.synchronize()
         span_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages()
-            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
-    dev_us = sum(dev_time(e) for e in rows)
-    launches = sum(e.count for e in rows) // n
+    rows = device_rows(prof)
+    dev_us = sum(us for us, _ in rows.values())
+    launches = sum(c for _, c in rows.values()) // n
     print(f"  profile, {n} x {label}: device {dev_us / n:.1f} us a call in {launches} "
           f"launches over {span_us / n:.1f} us, busy share {dev_us / span_us:.3f}  ({card})")
-    rows = [(e.key, dev_time(e) / n, e.count // n)
-            for e in sorted(rows, key=lambda e: -dev_time(e))]
+    rows = [(k, us / n, c // n) for k, (us, c) in sorted(rows.items(), key=lambda r: -r[1][0])]
     for name, us, count in rows[:top]:
         print(f"    {us:10.1f} us  x{count:<5d} {name[:90]}")
     return rows
@@ -1882,7 +1905,6 @@ def busy(fn, warm: bool = True) -> tuple[float, float]:
     same device rows, and widened the span (scripts/torch_port_profiler_probe.py,
     NVIDIA H100 80GB HBM3, 700.00 W)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -1892,8 +1914,7 @@ def busy(fn, warm: bool = True) -> tuple[float, float]:
         t0 = time.perf_counter()
         fn()
         span_us = (time.perf_counter() - t0) * 1e6
-    return sum(dev_time(e) for e in prof.key_averages()
-               if dev_time(e) > 0 and e.device_type != DeviceType.CPU), span_us
+    return sum(us for us, _ in device_rows(prof).values()), span_us
 
 
 # each wrapper's kernels (csrc `__global__` names), exactly one of which runs
@@ -3007,7 +3028,6 @@ def device_us(fn, n: int = 20, tries: int = 4) -> dict[str, float] | None:
     kernel's launches are not a whole multiple of n is taken again, and
     after `tries` such traces the time is None (not measured)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3017,10 +3037,9 @@ def device_us(fn, n: int = 20, tries: int = 4) -> dict[str, float] | None:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
-        if rows and all(e.count % n == 0 for e in rows):
-            return {e.key: dev_time(e) / n for e in rows}
+        rows = device_rows(prof)
+        if rows and all(c % n == 0 for _, c in rows.values()):
+            return {k: us / n for k, (us, _) in rows.items()}
     return None
 
 
@@ -4988,17 +5007,14 @@ def kernel_share(fn, kernel: str) -> tuple[float, float]:
     """(the device time of `kernel`'s launches, all device time) in us of
     one call of fn() (ending in a sync) under torch.profiler, after a warm
     call: the share of a path's device time that one kernel takes."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
-    rows = [e for e in prof.key_averages()
-            if dev_time(e) > 0 and e.device_type != DeviceType.CPU]
-    return (sum(dev_time(e) for e in rows if kernel in e.key),
-            sum(dev_time(e) for e in rows))
+    rows = device_rows(prof)
+    return (sum(us for k, (us, _) in rows.items() if kernel in k),
+            sum(us for us, _ in rows.values()))
 
 
 def quant_phase(checks, dev, card) -> dict:
@@ -6339,6 +6355,7 @@ def op_tail_phase(checks, dev, card, phase6_hits: dict) -> dict:
 SEARCH_SEED = SEED + 40
 SEARCH_PROMPTS = (16, 9)  # two prompts, the shorter left-padded to 16
 SEARCH_MAX_LENGTH = 48
+SEARCH_PER_OP_LENGTH = 24  # (a)'s per-op check: 8 generated tokens
 SEARCH_BEAMS = 4
 SEARCH_RETURN = 2
 SEARCH_NGRAM = 3
@@ -6698,7 +6715,8 @@ def search_phase(checks, dev, card) -> dict:
     by bind_inputs: kernel 5 37 times a decoder walk; kernels 5 and 11 bit
     for bit to their plain versions at its shapes (`gpt2_kernel_checks`);
     against the CPU at the int8 level (`hold_beam_to_cpu`, SEARCH_INT8_REL);
-    the bits of its per-op compile on the card (kernel 11); (a') the same
+    at a shorter generation (SEARCH_PER_OP_LENGTH), the per-op compile's
+    bits on the card (kernel 11) against kernel 5's; (a') the same
     search over the f32 decoder, against the CPU at SEARCH_SCORE_REL;
     (b) the same decoder in f32 under GreedySearch, ids equal, its time a
     token beside phase 33's step program; (c) WhisperBeamSearch over the
@@ -6737,6 +6755,9 @@ def search_phase(checks, dev, card) -> dict:
     # (a) the int8 beam search
     t0 = time.perf_counter()
     model = bind_inputs(OnnxModel.from_bytes(beam_bs), binds["beam"])
+    short = bind_inputs(OnnxModel.from_bytes(beam_bs),
+                        dict(binds["beam"], max_length=np.asarray([SEARCH_PER_OP_LENGTH],
+                                                                  np.int32)))
     del beam_bs
     cpu = compile_model(model, device="cpu", strict=True)
     ref_seq, ref_sc = cpu.run_np(**feeds)
@@ -6759,24 +6780,37 @@ def search_phase(checks, dev, card) -> dict:
                    f"all: { {k: v for k, v in launches.items() if v} }")
     hold_beam_to_cpu(checks, "(a) int8", seq, sc, ref_seq, ref_sc, ids, SEARCH_INT8_REL)
     print(f"  (a) CPU run {t1 - t0:.1f} s, card compile and capture {compile_s:.1f} s")
-    per_op = compile_model(model, device=dev, strict=True, patterns=[])
+    # the per-op compile (kernel 11) against kernel 5's bits, at a shorter
+    # generation: both compiled from the same bytes bound to SEARCH_PER_OP_LENGTH
+    t1 = time.perf_counter()
+    n_short = SEARCH_PER_OP_LENGTH - s
+    fused = compile_model(short, device=dev, strict=True)
+    K.reset_launch_counts()
+    seq_f, sc_f = (o.cpu().numpy() for o in fused.replay(**tfeeds))
+    torch.cuda.synchronize()
+    f_launches = K.launch_counts()
+    del fused
+    per_op = compile_model(short, device=dev, strict=True, patterns=[])
     K.reset_launch_counts()
     seq_p, sc_p = (o.cpu().numpy() for o in per_op.replay(**tfeeds))
     torch.cuda.synchronize()
     op_launches = K.launch_counts()
-    checks.require(np.array_equal(seq_p, seq) and np.array_equal(sc_p, sc)
-                   and op_launches["int8_gemm"] == walk * n_steps
+    same = np.array_equal(seq_p, seq_f) and np.array_equal(sc_p, sc_f)
+    checks.require(same and seq_p.shape[-1] == SEARCH_PER_OP_LENGTH
+                   and f_launches["dq_gemm"] == walk * n_short
+                   and op_launches["int8_gemm"] == walk * n_short
                    and op_launches["dq_gemm"] == 0,
-                   f"(a) the per-op compile on the card (patterns=[]: DynamicQuantizeLinear, "
-                   f"MatMulInteger on kernel 11 {op_launches['int8_gemm']} times, Cast, Mul): "
-                   f"kernel 5's ids and scores bit for bit "
-                   f"({np.array_equal(seq_p, seq) and np.array_equal(sc_p, sc)})")
-    del per_op
+                   f"(a) max_length {SEARCH_PER_OP_LENGTH}: the per-op compile on the card "
+                   f"(patterns=[]: DynamicQuantizeLinear, MatMulInteger on kernel 11 "
+                   f"{op_launches['int8_gemm']} times, Cast, Mul) gives kernel 5's ids and "
+                   f"scores ({f_launches['dq_gemm']} launches) bit for bit ({same}), in "
+                   f"{time.perf_counter() - t1:.1f} s")
+    del per_op, short
     t_a = time.perf_counter() - t0
     ev = time_ms(lambda: cm(**tfeeds), runs=5, warm=1)
     hc = host_ms(lambda: (cm(**tfeeds), torch.cuda.synchronize()), runs=3)
     rows = profile_top(lambda: (cm.replay(**tfeeds), torch.cuda.synchronize()),
-                       "(a), step by step", card, n=1, top=8)
+                       "(a), step by step", card, n=1, top=8, warm=False)
     total = sum(us for _, us, _ in rows)
     k5 = sum(us for name, us, _ in rows if "dq_gemm" in name)
     w_bytes, kv_bytes = gpt2_search_bytes_a_step()
@@ -6828,7 +6862,7 @@ def search_phase(checks, dev, card) -> dict:
           f"generation (phase 33: one step program a token); (a)'s int8 beam "
           f"{a_ms / n_steps:.4f} ms a token  ({card})")
     profile_top(lambda: (cm.replay(**tfeeds), torch.cuda.synchronize()), "(b), step by step",
-                card, n=1, top=8)
+                card, n=1, top=8, warm=False)
     del cm, model
 
     # (c) Whisper-tiny widths under WhisperBeamSearch
@@ -6850,7 +6884,7 @@ def search_phase(checks, dev, card) -> dict:
           f"beams, the encoder over {WHISPER_TINY['frames']} frames and {n_w} tokens: captured "
           f"{ev:.3f} ms a call, {ev / n_w:.4f} ms a token  ({card})")
     profile_top(lambda: (cm.replay(**twfeeds), torch.cuda.synchronize()),
-                "(c), step by step", card, n=1, top=8)
+                "(c), step by step", card, n=1, top=8, warm=False)
     del cm
 
     # (d) the packed BERT-base stack
@@ -6885,6 +6919,212 @@ def search_phase(checks, dev, card) -> dict:
     torch.cuda.synchronize()
     print(f"  phase 40 in {time.perf_counter() - t_phase:.1f} s")
     return totals
+
+
+# phase 41: training at the flagship widths (ROADMAP §1.1): the CTC train
+# step of lele_tpu_torch/train on the unquantized model, which calls no kernel
+# of the port (no JAX kernel has a backward); a 10 s request's 171 frames
+TRAIN_SEED = SEED + 41
+TRAIN_SMALL = dict(n_layers=2, d_model=64, ffn_dim=128, vocab_size=64, n_heads=2,
+                   dtype="float32", n_experts=4)  # dryrun_multichip's config
+TRAIN_BATCH = (8, 171, 48)  # B, T, labels
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-4  # make_train_step's default, as JAX's
+# (a) the card's step against the CPU's: the loss relative, each gradient
+# leaf's max|d| over its max|grad| (f32, TF32 off: only the order of sums
+# differs)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+# (a) then the AdamW update at lr 1e-3: an element whose reference gradient
+# is rounding noise (below TRAIN_NOISE_REL of its leaf's max |grad|; the key
+# third of qkv/b: 0 in exact arithmetic) moves by lr either way, as Adam
+# divides each gradient by its own size; every other element within
+# TRAIN_STEP_ATOL
+TRAIN_NOISE_REL = 1e-6
+TRAIN_STEP_ATOL = 1e-5
+
+
+def train_batch(B: int, T: int, L: int, vocab: int, seed: int) -> dict:
+    """A training batch from a seed: features, full masks, labels 1..vocab-1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"feats": rng.standard_normal((B, T, 560)).astype(np.float32),
+            "feat_mask": np.ones((B, T), np.float32),
+            "labels": rng.integers(1, vocab, (B, L)).astype(np.int32),
+            "label_mask": np.ones((B, L), np.float32)}
+
+
+def train_bound_ms(cfg, B: int, T: int) -> tuple[float, float]:
+    """(the least time of a train step at the bf16 peak in ms, its
+    operations): 6 x the matmul params x the tokens (2 forward, 4 backward)
+    plus the attention products (QK^T and AV, 4·T²·D a sequence and layer
+    forward, x 3 with the backward)."""
+    D, F, L = cfg.d_model, cfg.ffn_dim, cfg.n_layers
+    Tt = T + cfg.n_prefix
+    params = cfg.input_dim * D + L * (3 * D * D + D * D + 2 * D * F) + D * cfg.vocab_size
+    ops = 6 * params * B * Tt + 3 * L * 4 * B * Tt * Tt * D
+    return ops / PEAK_OPS["bf16"] * 1e3, ops
+
+
+def train_phase(checks, dev, card) -> None:
+    """Phase 41: the CTC train step (lele_tpu_torch/train) on the card.
+
+    (a) dryrun_multichip's config (2 layers, d 64, 4 experts, f32; B 2, T 24,
+    L 6), TF32 off: one step's loss and every gradient leaf against the
+    port's CPU run of the same step; (b) the flagship's widths
+    (SenseVoiceConfig(weight_int8=False): 50 layers, d 512, bf16 compute,
+    f32 params and moments), B 8 x T 171 x 48 labels from a seed: the loss
+    over 10 steps on one batch must fall; the step's median time over warm
+    steps, its peak memory, with remat and without, and its share of the
+    bf16 bound; (c) a checkpoint saved after those steps and restored into
+    fresh state gives the next step the same bits as continuing; (d) the
+    sharded step (shard_params, shard_batch, the Layout of parallel/spmd.py)
+    in an NCCL process group at world size 1: on a 1 x 1 x 1 mesh every
+    axis has size 1, so no collective runs; its loss and updated params the
+    bits of (b)'s first step. Collectives across ranks are checked on the
+    CPU only (tests/test_torch_port_parallel.py): the machine has one card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lele_tpu_torch.models import SenseVoiceConfig
+    from lele_tpu_torch.models.sensevoice import init_sensevoice
+    from lele_tpu_torch.parallel import make_mesh, shard_params
+    from lele_tpu_torch.parallel.mesh import init_distributed
+    from lele_tpu_torch.params import tree_leaves, tree_map
+    from lele_tpu_torch.train import make_train_step, shard_batch
+    from lele_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+    from lele_tpu_torch.train.trainer import value_and_grad
+
+    banner(f"== 41. training: the CTC train step, AdamW, remat and checkpoints at full "
+           f"width; the sharded step in an NCCL group of one ({card})")
+    t_phase = time.perf_counter()
+
+    # (a) the card against the CPU at dryrun_multichip's config
+    cfg = SenseVoiceConfig(**TRAIN_SMALL)
+    params = init_sensevoice(torch.Generator().manual_seed(TRAIN_SEED), cfg)
+    batch = train_batch(2, 24, 6, cfg.vocab_size, TRAIN_SEED)
+    card_params = tree_map(lambda t: t.to(dev), params)
+    ref_loss, ref_grads = value_and_grad(params, batch, cfg)
+    loss, grads = value_and_grad(card_params, batch, cfg)
+    d_loss = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    d_grad = max(float((g.cpu() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                 for g, r in zip(grads, ref_grads))
+    checks.require(d_loss <= TRAIN_LOSS_REL and d_grad <= TRAIN_GRAD_REL,
+                   f"(a) one step at the dryrun config (2 layers, d 64, 4 experts, f32, TF32 "
+                   f"off): loss {float(loss):.6f} against the CPU's {float(ref_loss):.6f} "
+                   f"(rel {d_loss:.2e}, gate {TRAIN_LOSS_REL:g}); {len(grads)} gradient "
+                   f"leaves, the worst max|d|/max|grad| {d_grad:.2e} (gate {TRAIN_GRAD_REL:g})")
+    tx, step = make_train_step(cfg, lr=1e-3)
+    step(params, tx.init(params), batch)
+    step(card_params, tx.init(card_params), batch)
+    d_step = d_noise = 0.0
+    for a, b, r in zip(tree_leaves(card_params), tree_leaves(params), ref_grads):
+        d = (a.cpu() - b).abs()
+        noise = r.abs() < TRAIN_NOISE_REL * r.abs().max()
+        d_step = max(d_step, float(d[~noise].max()))
+        d_noise = max(d_noise, float(d[noise].max()) if noise.any() else 0.0)
+    checks.require(d_step <= TRAIN_STEP_ATOL and d_noise <= 2e-3,
+                   f"(a) the AdamW update at lr 0.001: params max|d| {d_step:.2e} (gate "
+                   f"{TRAIN_STEP_ATOL:g}) where the CPU's gradient is above rounding level, "
+                   f"{d_noise:.2e} (gate 2·lr) where it is below {TRAIN_NOISE_REL:g} of its "
+                   f"leaf's max")
+
+    # (b) the flagship's widths
+    B, T, L = TRAIN_BATCH
+    cfg = SenseVoiceConfig(weight_int8=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # the earlier phases' tensors still alive
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    params = init_sensevoice(gen, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = train_batch(B, T, L, cfg.vocab_size, TRAIN_SEED)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    tx, step = make_train_step(cfg, lr=TRAIN_LR)
+    opt = tx.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, _, loss = step(params, opt, tb)
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        times.append(start.elapsed_time(end))
+        if i == 0:  # for (d), off the card: not in the peak memory
+            first = [t.cpu() for t in tree_leaves(params)]
+    peak = torch.cuda.max_memory_allocated() - base
+    step_ms = statistics.median(times[2:])
+    bound_ms, ops = train_bound_ms(cfg, B, T)
+    checks.require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                   f"(b) {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, bf16 "
+                   f"compute, {n_params / 1e6:.1f} M f32 params; B {B} x T {T} x {L} labels, "
+                   f"lr {TRAIN_LR:g}: the loss over {TRAIN_STEPS} steps on one batch "
+                   f"{[round(v, 4) for v in losses]} falls")
+    print(f"  (b) a step: {step_ms:.2f} ms (median of steps 3-{TRAIN_STEPS} by CUDA events; "
+          f"the first {times[0]:.1f} ms), peak memory {peak / 2**30:.2f} GiB without remat "
+          f"(above the {base / 2**30:.2f} GiB the earlier phases hold: params, moments, "
+          f"gradients and activations); "
+          f"bound {bound_ms:.3f} ms ({ops / 1e12:.3f} T operations at "
+          f"{PEAK_OPS['bf16'] / 1e12:.0f} T/s bf16), {bound_ms / step_ms:.1%} of it  ({card})")
+
+    # (c) a checkpoint on the card: restore, then the next step's bits
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        save_train_state(folder, params, opt, TRAIN_STEPS)
+        t_save = time.perf_counter() - t0
+        fresh = init_sensevoice(gen, cfg)
+        rp, ro, rstep = restore_train_state(folder, fresh, tx.init(fresh))
+    t_io = time.perf_counter() - t0
+    _, _, loss_c = step(params, opt, tb)
+    _, _, loss_r = step(rp, ro, tb)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves({"p": params, "o": opt}),
+                                                 tree_leaves({"p": rp, "o": ro})))
+    checks.require(rstep == TRAIN_STEPS and same and float(loss_c) == float(loss_r),
+                   f"(c) saved after step {TRAIN_STEPS} ({t_save:.1f} s) and restored into "
+                   f"fresh state ({t_io - t_save:.1f} s): the next step's loss "
+                   f"{float(loss_r):.6f} and every param and moment the same bits as "
+                   f"continuing ({same})")
+    del rp, ro, fresh
+
+    profile_top(lambda: step(params, opt, tb), "(b) train step", card, n=1, top=10, warm=False)
+    _, remat_step = make_train_step(SenseVoiceConfig(weight_int8=False, remat=True),
+                                    lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms = time_ms(lambda: remat_step(params, opt, tb), runs=1, warm=1)
+    remat_peak = torch.cuda.max_memory_allocated() - base
+    print(f"  (b) with remat: {remat_ms:.2f} ms a step (one warm step), peak memory "
+          f"{remat_peak / 2**30:.2f} GiB (without: {step_ms:.2f} ms, {peak / 2**30:.2f} GiB)  "
+          f"({card})")
+
+    # (d) the sharded step in an NCCL process group, world size 1
+    with tempfile.TemporaryDirectory() as folder:
+        init_distributed(0, 1, f"file://{Path(folder) / 'rendezvous'}", device="cuda")
+        try:
+            mesh = make_mesh(1, seq=1)
+            gen.manual_seed(TRAIN_SEED)
+            sp = shard_params(init_sensevoice(gen, cfg), mesh)
+            stx, sstep = make_train_step(cfg, lr=TRAIN_LR)
+            _, _, loss_d = sstep(sp, stx.init(sp), shard_batch(batch, mesh))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    local = [t.to_local().cpu() for t in tree_leaves(sp)]
+    same = all(torch.equal(a, b) for a, b in zip(local, first))
+    d = max(float((a - b).abs().max()) for a, b in zip(local, first))
+    checks.require(float(loss_d) == losses[0] and same,
+                   f"(d) the sharded step (shard_params, shard_batch, the spmd Layout) in an "
+                   f"NCCL group over a 1 x 1 x 1 mesh (every axis of size 1: no collective "
+                   f"runs): loss {float(loss_d):.6f} against (b)'s first step {losses[0]:.6f}, "
+                   f"the updated params the same bits ({same}, max|d| {d:.2e})")
+    del sp, first, local
+    print(f"  phase 41 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -7417,6 +7657,7 @@ def main() -> int:
     entry_launches = entry_points_phase(checks, dev, card, graph, cm10, inputs10)
     tail_launches = op_tail_phase(checks, dev, card, cm10.stats["pattern_hits"])
     search_launches = search_phase(checks, dev, card)
+    train_phase(checks, dev, card)
 
     banner(None)
     if checks.failures:

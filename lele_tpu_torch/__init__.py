@@ -21,6 +21,9 @@ module layout and names, so each module here has a counterpart there:
                                ``TtsEngine``
 - ``lele_tpu_torch.utils``     CTC decoding, tokenizer, WAV IO, image
                                preprocessing
+- ``lele_tpu_torch.train``     the CTC train step, AdamW, checkpoints
+- ``lele_tpu_torch.parallel``  mesh over processes, sharding rules, the
+                               sharded step's collectives, the planner
 
 A kernel wrapper takes its plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. Entry points run on

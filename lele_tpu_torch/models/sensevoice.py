@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import default_device
 from ..features import FbankConfig, FbankFrontend, fbank_features, fbank_features_batch
@@ -64,6 +65,7 @@ from ..kernels.quant_matmul import (
 )
 from ..kernels.sanm_block import fsmn_conv, layer_kernel_takes, layer_view
 from ..kernels.w4_matmul import quantize_weight_int4
+from ..parallel.spmd import LOCAL, Axis, Layout, all_sum, col_linear, gather, row_linear, sum_grad
 from ..runtime.bucketing import max_bucket_samples, pad_batch_pow2, pad_pcm
 from ..runtime.graphs import Programs
 from .common import (
@@ -96,7 +98,7 @@ class SenseVoiceConfig:
     weight_int4: bool = False  # w4a16: groupwise int4 weights (group 128)
     weight_int8: bool = False  # w8a16: int8 weights, per-output-channel scales
     fused_block: bool = True  # batch 1 + weight_int8/int4: the layer/stack kernels
-    remat: bool = False  # (JAX training only)
+    remat: bool = False  # recompute each block's activations in backward (training)
     n_experts: int = 0  # > 0: a top-1 mixture-of-experts FFN in every layer
 
     @property
@@ -138,20 +140,25 @@ def init_sensevoice(gen: torch.Generator, cfg: SenseVoiceConfig) -> Params:
     return p
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: SenseVoiceConfig) -> torch.Tensor:
+def moe_ffn(p: Params, x: torch.Tensor, cfg: SenseVoiceConfig,
+            ax: Axis = LOCAL.model) -> torch.Tensor:
     """Top-1 routed mixture-of-experts FFN, dense dispatch: every expert
     computes, a one-hot contraction selects, and the output is gated by the
-    chosen expert's probability (JAX `moe_ffn`)."""
+    chosen expert's probability (JAX `moe_ffn`). With the experts split
+    over `ax` (parallel/spmd.py) the rank runs its own, the router whole,
+    and the one-hot combine is summed over the axis."""
     probs = torch.softmax(linear(p["router"], x).float(), dim=-1)  # [B, T, E]
     # one-hot by comparison: torch.nn.functional.one_hot may check its input
     # on the host, which a CUDA graph capture refuses
     experts = torch.arange(cfg.n_experts, device=x.device)
     onehot = (probs.argmax(dim=-1)[..., None] == experts).to(x.dtype)
     gate = (probs * onehot).sum(dim=-1, keepdim=True)
-    h = torch.relu(torch.einsum("btd,edf->btef", x.float(), p["w1"].float()))
+    e = p["w1"].shape[0]
+    e0 = ax.rank * e
+    h = torch.relu(torch.einsum("btd,edf->btef", sum_grad(x, ax).float(), p["w1"].float()))
     y = torch.einsum("btef,efd->bted", h, p["w2"].float())
-    y = torch.einsum("bted,bte->btd", y, onehot.to(y.dtype))
-    return y * gate.to(y.dtype)
+    y = torch.einsum("bted,bte->btd", y, onehot[..., e0:e0 + e].to(y.dtype))
+    return all_sum(y, ax) * gate.to(y.dtype)
 
 
 _W8_LINEAR_KEYS = ("qkv", "out", "ffn1", "ffn2", "ctc")
@@ -334,11 +341,25 @@ def _w4_stack_gate(cfg: SenseVoiceConfig, stacked: Params, B: int) -> bool:
             and (cfg.ffn_dim // 128) % 2 == 0)
 
 
+def _fsmn_frames(vm: torch.Tensor, w: torch.Tensor, off: int, t: int) -> torch.Tensor:
+    """`fsmn_conv` at frames [off, off + t) of the whole masked values `vm`:
+    the conv on that window with its (k-1)/2 frames of halo each side."""
+    if off == 0 and t == vm.shape[1]:
+        return fsmn_conv(vm, w)
+    k = w.shape[0]
+    pad = (k - 1) // 2
+    win = torch.nn.functional.pad(vm, (0, 0, pad, k - 1 - pad))[:, off:off + t + k - 1]
+    return fsmn_conv(win, w)[:, pad:pad + t]
+
+
 def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceConfig,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False, lay: Layout = LOCAL) -> torch.Tensor:
     """SAN-M: multi-head self-attention + FSMN memory conv on values.
 
-    x: [B, T, D]; mask: [B, T] (1 = valid). Pre-norm residual wiring."""
+    x: [B, T, D]; mask: [B, T] (1 = valid). Pre-norm residual wiring.
+    Under a sharded `lay` (the unquantized model, parallel/spmd.py) x holds
+    this rank's frames, mask every frame's, and p this rank's shards of the
+    layer; under LOCAL every collective is the identity."""
     dt = cfg.compute_dtype
     B, T, D = x.shape
     ops = _ops(plain)
@@ -360,44 +381,85 @@ def sanm_block(p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceCo
             return linear(pp, v, dtype=dt)
     H = cfg.n_heads
     hd = D // H
+    m, s = lay.model, lay.seq
+    sizes = lay.frames(mask.shape[1], cfg.n_prefix)
 
     h = layer_norm(p["norm1"], x)
-    q, k, v = lin(p["qkv"], h).float().split(D, dim=-1)
-    fsmn = fsmn_conv(v * mask[..., None], p["fsmn"]["w"])
+    if lay.splits("out/w"):  # D divides "model": qkv, out and fsmn all split
+        c0 = m.rank * (D // m.size)
+        c1 = c0 + D // m.size
+        qkv = gather(lin(p["qkv"], sum_grad(h, m)), m, dim=-1, reduce=True)
+    else:
+        c0, c1 = 0, D
+        qkv = col_linear(lin, p["qkv"], lay.splits("qkv/w"), h, m)
+    h0, h1 = c0 // hd, -(-c1 // hd)  # the heads that hold channels [c0, c1)
+    q, k, v = (a[..., h0 * hd:h1 * hd] for a in qkv.float().split(D, dim=-1))
+    k, v = (gather(a, s, dim=1, reduce=True, sizes=sizes) for a in (k, v))
+    fsmn = _fsmn_frames(v[..., c0 - h0 * hd:c1 - h0 * hd] * mask[..., None], p["fsmn"]["w"],
+                        sum(sizes[:s.rank]), T)
+    nh = h1 - h0
 
-    def heads(a):  # [B, T, D] → [B, H, T, hd]
-        return round_to(a, dt).reshape(B, T, H, hd).transpose(1, 2)
+    def heads(a):  # [B, T, nh·hd] → [B, nh, T, hd]
+        return round_to(a, dt).reshape(B, a.shape[1], nh, hd).transpose(1, 2)
 
     scores = (heads(q) @ heads(k).transpose(-1, -2)) / math.sqrt(hd)
     scores = torch.where(mask[:, None, None, :] > 0, scores,
                          torch.full_like(scores, -1e9))
     attn = torch.softmax(scores, dim=-1)
-    ctx = (round_to(attn, dt) @ heads(v)).transpose(1, 2).reshape(B, T, D)
-    x = x + lin(p["out"], ctx + fsmn).to(x.dtype)
+    ctx = (round_to(attn, dt) @ heads(v)).transpose(1, 2).reshape(B, T, nh * hd)
+    a = ctx[..., c0 - h0 * hd:c1 - h0 * hd] + fsmn
+    if lay.splits("out/w"):
+        x = x + row_linear(lin, p["out"], a, m).to(x.dtype)
+    else:
+        x = x + lin(p["out"], a).to(x.dtype)
 
     h2 = layer_norm(p["norm2"], x)
     if cfg.n_experts > 0 and "moe" in p:
-        ff = moe_ffn(p["moe"], h2, cfg)
+        ff = moe_ffn(p["moe"], h2, cfg, m if lay.splits("moe/w1") else LOCAL.model)
+    elif lay.splits("ffn1/w"):
+        ff = row_linear(lin, p["ffn2"], torch.relu(lin(p["ffn1"], sum_grad(h2, m))), m)
     else:
         ff = lin(p["ffn2"], torch.relu(lin(p["ffn1"], h2)))
     return x + ff.to(x.dtype)
 
 
+def _block(lp: Params, x: torch.Tensor, mask: torch.Tensor, cfg: SenseVoiceConfig,
+           plain: bool, lay: Layout) -> torch.Tensor:
+    """sanm_block; under cfg.remat (where a gradient is recorded) its
+    activations recomputed in backward, as JAX's jax.checkpoint of each
+    block (lele_tpu/models/sensevoice.py:416-421)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(sanm_block, lp, x, mask, cfg, plain, lay,
+                                                 use_reentrant=False)
+    return sanm_block(lp, x, mask, cfg, plain, lay)
+
+
 def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
-                      cfg: SenseVoiceConfig, plain: bool = False) -> torch.Tensor:
-    """feats: [B, T, 560]; mask: [B, T] → logits f32 [B, T+4, vocab]."""
+                      cfg: SenseVoiceConfig, plain: bool = False,
+                      lay: Layout = LOCAL) -> torch.Tensor:
+    """feats: [B, T, 560]; mask: [B, T] → logits f32 [B, T+4, vocab].
+
+    Under a sharded `lay` (the unquantized model, parallel/spmd.py): this
+    rank's rows, frames and shards → the logits of its frames (seq rank 0's
+    begin with the prefix), whole over "model"."""
+    if lay is not LOCAL and (cfg.quantized or cfg.weight_int8 or cfg.weight_int4):
+        raise ValueError("the sharded forward runs the unquantized model")
     B, T, _ = feats.shape
     ops = _ops(plain)
+    s = lay.seq
     x = feats.float()
-    if cfg.n_prefix > 0:
+    if cfg.n_prefix > 0 and s.rank == 0:
         prefix = p["prefix"][: cfg.n_prefix].float().expand(B, cfg.n_prefix, cfg.input_dim)
         x = torch.cat([prefix, x], dim=1)
         mask = torch.cat([torch.ones((B, cfg.n_prefix), dtype=mask.dtype,
                                      device=mask.device), mask], dim=1)
-    Tt = T + cfg.n_prefix
+    sizes = lay.frames(T * s.size + cfg.n_prefix, cfg.n_prefix)
+    off = sum(sizes[:s.rank])
+    mask = gather(mask, s, dim=1, reduce=False, sizes=sizes)  # every frame's
+    Tt = mask.shape[1]
     x = x * (cfg.d_model**0.5) / (cfg.input_dim**0.5)
     x = linear(p["embed"], x, dtype=cfg.compute_dtype).float()
-    x = x + positions_on(Tt, cfg.d_model, x.device)
+    x = x + positions_on(Tt, cfg.d_model, x.device)[off:off + x.shape[1]]
     if "layers_stacked" in p:
         stacked = p["layers_stacked"]
         if (cfg.weight_int8 and cfg.fused_block and B == 1
@@ -409,17 +471,18 @@ def sensevoice_encode(p: Params, feats: torch.Tensor, mask: torch.Tensor,
                               cfg.fsmn_kernel)[None]
         else:
             for i in range(stacked["norm1"]["g"].shape[0]):
-                x = sanm_block(layer_view(stacked, i), x, mask, cfg, plain)
+                x = _block(layer_view(stacked, i), x, mask, cfg, plain, lay)
     else:
-        for lp in p["layers"]:
-            x = sanm_block(lp, x, mask, cfg, plain)
+        for i, lp in enumerate(p["layers"]):
+            x = _block(lp, x, mask, cfg, plain, lay.at(f"layers/{i}/"))
     x = layer_norm(p["after_norm"], x)
     if cfg.weight_int4 and "wq4" in p["ctc"]:
         logits = _w4_linear(p["ctc"], x, cfg.compute_dtype, w4=ops["w4"])
     elif cfg.weight_int8 and "wq8" in p["ctc"]:
         logits = _w8_linear(p["ctc"], x, cfg.compute_dtype, ops["w8"])
     else:
-        logits = linear(p["ctc"], x, dtype=cfg.compute_dtype)
+        logits = col_linear(lambda pp, v: linear(pp, v, dtype=cfg.compute_dtype), p["ctc"],
+                            lay.splits("ctc/w"), x, lay.model)
     return logits.float()
 
 

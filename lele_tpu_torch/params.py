@@ -38,6 +38,25 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list pytree, in tree_map's order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
 def from_numpy_tree(tree: Any, device: torch.device | str = "cpu") -> Any:
     """JAX param pytree with numpy (or JAX) leaves → the same tree of tensors."""
     return tree_map(lambda a: array_to_tensor(a, device), tree)
+
+
+def from_optax_adamw_state(opt_state: Any, device: torch.device | str = "cpu") -> dict:
+    """optax.adamw's state, as numpy trees, → the port's AdamW state
+    (train/trainer.py), so a run the JAX package started resumes here.
+
+    optax's state is a tuple whose first element is ScaleByAdamState(count,
+    mu, nu); the weight decay and the learning rate keep no state. The port
+    keeps the same three: {"count": int32 0-d, "mu": tree, "nu": tree}."""
+    count, mu, nu = opt_state[0]
+    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
+            "mu": from_numpy_tree(mu, device), "nu": from_numpy_tree(nu, device)}

@@ -8,16 +8,23 @@ profiles that call twice: with CPU and CUDA activity, then with CUDA
 activity alone. For each it prints the device rows' kernel count and device
 time, the host span of the call, the seconds the profile took to close and
 `key_averages()` took, so the two traces can be held to the same device
-rows. Prints the card's name and power limit first.
+rows; and the seconds `chip_smoke.device_rows` took to sum the same rows
+from the raw trace, and whether its rows are key_averages()'s (the same
+names and counts, device times within 1e-9 relative). Prints the card's
+name and power limit first.
 """
 
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import device_rows  # noqa: E402
 
 
 def main() -> int:
@@ -46,10 +53,19 @@ def main() -> int:
         t2 = time.perf_counter()
         rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
                 and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        t3 = time.perf_counter()
+        raw = device_rows(prof)
+        t4 = time.perf_counter()
+        same = (set(raw) == {e.key for e in rows}
+                and all(raw[e.key][1] == e.count
+                        and abs(raw[e.key][0] - e.self_device_time_total)
+                        <= 1e-9 * e.self_device_time_total for e in rows))
         print(f"{'+'.join(a.name for a in acts)}: {sum(e.count for e in rows)} kernels, device "
               f"{sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms, span "
               f"{span * 1e3:.2f} ms; the profile closed in {t2 - t0:.2f} s, key_averages "
-              f"{time.perf_counter() - t2:.2f} s", flush=True)
+              f"{t3 - t2:.2f} s; device_rows {t4 - t3:.3f} s, the same rows: {same}", flush=True)
+        if not same and acts == [ProfilerActivity.CUDA]:  # chip_smoke's traces
+            return 1
     return 0
 
 

@@ -105,6 +105,10 @@ same seed the same rollout on every captured call), WhisperBeamSearch over
 the DecoderMasked step graph and the packed BERT stack, each captured
 against its replay (also under sync debug mode "error") and the CPU.
 
+Training (chip_smoke phase 41) at dryrun_multichip's config: one train
+step's loss, gradients and update on the card against the port's CPU run,
+and remat's gradients the same bits as without it.
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -2117,3 +2121,57 @@ def test_search_whisper_masked_and_packed_stack_on_the_card(dev):
     assert np.abs(y - ry).max() <= cs.PACKED_REL * np.abs(ry).max()
     valid = np.arange(32)[None, :] < pfeeds["lens"][:, None]
     assert (y[~valid] == 0).all()
+
+
+def _train_inputs(cfg_kw, seed=cs.TRAIN_SEED):
+    from lele_tpu_torch.models import SenseVoiceConfig
+    from lele_tpu_torch.models.sensevoice import init_sensevoice
+
+    cfg = SenseVoiceConfig(**cfg_kw)
+    params = init_sensevoice(torch.Generator().manual_seed(seed), cfg)
+    return cfg, params, cs.train_batch(2, 24, 6, cfg.vocab_size, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts", [0, 4])
+def test_train_step_on_the_card_against_the_cpu(dev, n_experts):
+    """Phase 41 (a): one train step (loss, every gradient leaf, then the
+    AdamW update) at dryrun_multichip's config on the card against the
+    port's CPU run, TF32 off."""
+    from lele_tpu_torch.params import tree_leaves, tree_map
+    from lele_tpu_torch.train import make_train_step
+    from lele_tpu_torch.train.trainer import value_and_grad
+
+    cfg, params, batch = _train_inputs(dict(cs.TRAIN_SMALL, n_experts=n_experts))
+    card = tree_map(lambda t: t.to(dev), params)
+    ref_loss, ref_grads = value_and_grad(params, batch, cfg)
+    loss, grads = value_and_grad(card, batch, cfg)
+    assert abs(float(loss) - float(ref_loss)) <= cs.TRAIN_LOSS_REL * abs(float(ref_loss))
+    for g, r in zip(grads, ref_grads):
+        assert (g.cpu() - r).abs().max() <= cs.TRAIN_GRAD_REL * r.abs().max().clamp(min=1e-30)
+    tx, step = make_train_step(cfg, lr=1e-3)
+    step(params, tx.init(params), batch)
+    step(card, tx.init(card), batch)
+    # an element whose gradient is rounding noise (the key bias's: 0 in exact
+    # arithmetic) moves by lr either way; every other element within
+    # TRAIN_STEP_ATOL, those within 2·lr
+    for a, b, r in zip(tree_leaves(card), tree_leaves(params), ref_grads):
+        d = (a.cpu() - b).abs()
+        noise = r.abs() < cs.TRAIN_NOISE_REL * r.abs().max()
+        assert d[~noise].max() <= cs.TRAIN_STEP_ATOL and d.max() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_remat_gradients_on_the_card(dev):
+    """remat recomputes each block in backward: on the card the loss and
+    every gradient the same bits as without it."""
+    from lele_tpu_torch.models import SenseVoiceConfig
+    from lele_tpu_torch.params import tree_map
+    from lele_tpu_torch.train.trainer import value_and_grad
+
+    cfg, params, batch = _train_inputs(cs.TRAIN_SMALL)
+    card = tree_map(lambda t: t.to(dev), params)
+    loss, grads = value_and_grad(card, batch, cfg)
+    loss_r, grads_r = value_and_grad(card, batch, SenseVoiceConfig(**cs.TRAIN_SMALL, remat=True))
+    assert float(loss) == float(loss_r)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_r))

@@ -218,9 +218,12 @@ def test_port_runs_without_jax():
     small widths; and slice 22: a graph compiled through the CLI, its generated
     wrapper loaded and run, and one /recognize request to the tiny server;
     and slice 24: chip_smoke phase 40's int8 GPT-2 BeamSearch export at a
-    small width, bound by bind_inputs, and its packed BERT stack."""
+    small width, bound by bind_inputs, and its packed BERT stack; and slice
+    25 (with optax and orbax blocked too): a remat train step, a checkpoint
+    saved and restored, and the planner's H100 plans."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
+        "sys.modules['optax'] = None; sys.modules['orbax'] = None\n"
         "import numpy as np, torch\n"
         "from lele_tpu_torch.models.checkpoints import SenseVoiceOnnx\n"
         "from lele_tpu_torch.onnx.synth import build_sanm_int8_model\n"
@@ -536,7 +539,30 @@ def test_port_runs_without_jax():
         "assert bcm.stats['pattern_hits']['dql_matmul_dataflow'] == 14\n"
         "pk, _, pf = chip_smoke.packed_bert_models(2, 8, layers=1, d=16, heads=2, ffn=32)\n"
         "assert compile_model(pk, device='cpu', strict=True).run_np(**pf)[0].shape == (2, 8, 16)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL')\n"
+        "import tempfile\n"
+        "from lele_tpu_torch.models.sensevoice import init_sensevoice\n"
+        "from lele_tpu_torch.train import make_train_step\n"
+        "from lele_tpu_torch.train.checkpoint import latest_step, restore_train_state, save_train_state\n"
+        "tcfg = SenseVoiceConfig(n_layers=1, d_model=32, ffn_dim=64, vocab_size=32, n_heads=2,\n"
+        "                        dtype='float32', remat=True)\n"
+        "tp = init_sensevoice(torch.Generator().manual_seed(0), tcfg)\n"
+        "ttx, tstep = make_train_step(tcfg, lr=1e-3)\n"
+        "topt = ttx.init(tp)\n"
+        "tb = {'feats': np.random.default_rng(6).standard_normal((2, 10, 560)).astype(np.float32),\n"
+        "      'feat_mask': np.ones((2, 10), np.float32), 'labels': np.array([[1, 2, 3], [4, 5, 6]]),\n"
+        "      'label_mask': np.ones((2, 3), np.float32)}\n"
+        "tp, topt, tl = tstep(tp, topt, tb)\n"
+        "assert torch.isfinite(tl) and int(topt['count']) == 1\n"
+        "with tempfile.TemporaryDirectory() as td:\n"
+        "    save_train_state(td, tp, topt, 1)\n"
+        "    rp, ro, rs = restore_train_state(\n"
+        "        td, init_sensevoice(torch.Generator().manual_seed(1), tcfg), ttx.init(tp))\n"
+        "    assert rs == 1 == latest_step(td) and torch.equal(rp['ctc']['w'], tp['ctc']['w'])\n"
+        "    assert torch.equal(ro['nu']['embed']['w'], topt['nu']['embed']['w'])\n"
+        "from lele_tpu_torch.parallel.planner import H100, EncoderSpec, format_plans, plan_encoder\n"
+        "assert 'dp' in format_plans(plan_encoder(EncoderSpec(batch=8, seq=96), 8, chip=H100))\n"
+        "import lele_tpu_torch.parallel.spmd  # noqa: F401\n"
+        "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL', 'optax', 'orbax')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
