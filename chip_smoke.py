@@ -302,10 +302,17 @@
    remat and without, and its share of the bf16 bound; a checkpoint
    restored on the card giving the next step's bits; the sharded step on
    NCCL over a 1 x 1 x 1 mesh;
-42. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+42. the multi-device layer (`mesh_phase`) in an NCCL group of one rank: the
+   50 w8 layers as a one-stage GPipe pipeline (kernel 1 a row, the bits of
+   one launch a row), the Phi-3-mini-width int4 step compiled over a mesh
+   with `_q`/`_s` rules (kernel 7, the mesh-free compile's bits), the
+   daemon's full-width engines over a mesh (8 concurrent /recognize and a
+   /detect, each request's ids alone and mesh-free), dryrun_multichip's six
+   remaining legs, and two gloo ranks sharing the card for the tp legs;
+43. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
    too, row 7 phase 35's, row 11 phase 37's, rows 1, 2, 4, 5 and 10 phase
-   38's, rows 4 and 5 phase 39's, row 5 phase 40's), the card, and last
-   {"ok": true, "device": ...}.
+   38's, rows 4 and 5 phase 39's, row 5 phase 40's, rows 1, 2 and 7 phase
+   42's), the card, and last {"ok": true, "device": ...}.
 
 Each phase's seconds follow its output ("[phase 7: 12.3 s]"). Exits
 non-zero, and prints no result, when there is no CUDA card or any check
@@ -7127,6 +7134,621 @@ def train_phase(checks, dev, card) -> None:
     print(f"  phase 41 in {time.perf_counter() - t_phase:.1f} s")
 
 
+MESH_SEED = SEED + 42
+PIPE_BATCH = 8  # (a): 8 requests of T_MAIN frames in PIPE_MICRO microbatches
+PIPE_MICRO = 4
+MESH_BURST = 8  # (c): concurrent /recognize requests of MESH_SECONDS each
+MESH_SECONDS = 10.0
+
+
+def dryrun_onnx(B: int, T: int):
+    """_dryrun_compiled_onnx's draws (rng 7): the MHA encoder's bytes, its
+    input [B, T, 32], the Attention-23 graph and its q, k, v [B, 2, 16, 8]."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.onnx.synth import build_mha_encoder
+
+    rng = np.random.default_rng(7)
+    bs = build_mha_encoder(rng, 32, 2, 64, 2)
+    x = rng.standard_normal((B, T, 32)).astype(np.float32)
+    qkv = {n: rng.standard_normal((B, 2, 16, 8)).astype(np.float32) for n in "qkv"}
+    attn = ob.build_model_bytes([ob.node("Attention", ["q", "k", "v"], ["y"], is_causal=1)],
+                                inputs=[ob.vi_from_array(n, a) for n, a in qkv.items()],
+                                outputs=[ob.value_info("y", 1, [])], opset=23)
+    return bs, x, attn, qkv
+
+
+def dryrun_serving(seed: int, n_req: int):
+    """_dryrun_serving's (rng 11, 5 requests) or
+    test_serving_multidevice's (rng 0, 6) MHA encoder (d 32, 2 heads, ffn
+    64, 2 layers) and its [12, 32] requests."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx.synth import build_mha_encoder
+
+    rng = np.random.default_rng(seed)
+    bs = build_mha_encoder(rng, 32, 2, 64, 2)
+    return bs, [rng.standard_normal((12, 32)).astype(np.float32) for _ in range(n_req)]
+
+
+def dryrun_genai(B: int, S: int = 1, moe: bool = False):
+    """_dryrun_genai's int4 decode step (rng 11; past 3, random caches) or,
+    with `moe`, _dryrun_moe's QMoE decoder (rng 17; past 0, zero caches) at
+    batch B and S new tokens: (bytes, feeds)."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import synth
+
+    rng = np.random.default_rng(17 if moe else 11)
+    cfg = dict(synth.GENAI_MOE_CFG if moe else synth.GENAI_CFG, B=B)
+    inits, _ = synth.genai_decoder_params(rng, cfg)
+    bs = synth.build_genai_decoder(inits, S, cfg)
+    kvh, L, hd, nl, V = (cfg[k] for k in ("kvh", "L", "hd", "nl", "V"))
+    ids = rng.integers(0, V, (B, S)).astype(np.int64)
+    if moe:
+        pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int64)
+        pks = pvs = [np.zeros((B, kvh, L, hd), np.float32) for _ in range(nl)]
+        return bs, synth.genai_feeds(ids, pos, 0, S, pks, pvs, cfg)
+    pks = [rng.standard_normal((B, kvh, L, hd)).astype(np.float32) for _ in range(nl)]
+    pvs = [rng.standard_normal((B, kvh, L, hd)).astype(np.float32) for _ in range(nl)]
+    return bs, synth.genai_feeds(ids, np.full((B, 1), 3, np.int64), 3, 1, pks, pvs, cfg)
+
+
+def dryrun_search(B: int):
+    """_dryrun_search's GPT-2-form BeamSearch model (rng 13: V 37, d 16, 2
+    heads, 2 layers, max_length 9, 3 beams, 2 returned) and its [B, 4]
+    prompts."""
+    import numpy as np
+
+    from lele_tpu_torch.onnx import synth
+
+    rng = np.random.default_rng(13)
+    V, D, NH, NL, ML, S, nb = 37, 16, 2, 2, 9, 4, 3
+
+    def w(*sh):
+        return (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(np.float32)
+
+    p = {"wte": w(V, D) * 3, "wpe": w(ML, D), "lnf_g": w(D) * 0.1 + 1, "lnf_b": w(D) * 0.1}
+    for i in range(NL):
+        for nm in ("ln1", "ln2"):
+            p[f"{nm}_g{i}"] = w(D) * 0.1 + 1
+            p[f"{nm}_b{i}"] = w(D) * 0.1
+        p[f"attn_w{i}"], p[f"attn_b{i}"] = w(D, 3 * D), w(3 * D) * 0.1
+        p[f"proj_w{i}"], p[f"proj_b{i}"] = w(D, D), w(D) * 0.1
+        p[f"fc_w{i}"], p[f"fc_b{i}"] = w(D, 4 * D), w(4 * D) * 0.1
+        p[f"fcp_w{i}"], p[f"fcp_b{i}"] = w(4 * D, D), w(D) * 0.1
+    p["lm_w"] = np.ascontiguousarray(p["wte"].T)
+    bs = synth.build_search_model(
+        "BeamSearch", synth.build_gpt2_decoder_graph(p, NL, NH), (B, S),
+        {"max_length": np.asarray([ML], np.int32), "num_beams": np.asarray([nb], np.int32),
+         "num_return_sequences": np.asarray([2], np.int32)},
+        dict(eos_token_id=V - 1, pad_token_id=V - 2, model_type=0), 2)
+    return bs, rng.integers(0, V - 2, (B, S)).astype(np.int32)
+
+
+def mha_rules(name, shape):
+    """_dryrun_compiled_onnx's Megatron placement of the MHA encoder."""
+    if "wqkv" in name or "w1_" in name:
+        return (None, "model")
+    return ("model", None) if "wo_" in name or "w2_" in name else None
+
+
+def nbits_rules(name, shape):
+    """_dryrun_genai's: MatMulNBits' `_q` / `_s` column parallel."""
+    return ("model",) if name.endswith(("_q", "_s")) else None
+
+
+def expert_rules(name, shape):
+    """_dryrun_moe's: QMoE's expert stacks over "model"."""
+    return ("model",) if name.startswith(("fc1_", "fc2_", "fc3_")) else None
+
+
+def dryrun_mesh_legs(checks, dev, mesh) -> None:
+    """dryrun_multichip's six remaining legs at their own sizes for one
+    device (B = 2), each compiled over the one-rank `mesh` (every axis of
+    size 1: no collective) and held to the mesh-free compile on the card at
+    the leg's tolerance: the MHA encoder with Megatron rules and
+    Attention-23; the pp leg's 4 SAN-M blocks (d 32) as one stage; the
+    serving leg's MicroBatcher (each request bit-equal coalesced and
+    alone); the int4 GenAI step with `_q` / `_s` rules; BeamSearch; the
+    QMoE prefill with expert rules."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.compiler.patterns import F32_NBITS_PATTERNS
+    from lele_tpu_torch.models import SenseVoiceConfig
+    from lele_tpu_torch.models.sensevoice import init_sensevoice, sanm_block
+    from lele_tpu_torch.parallel import pipeline_apply, stack_stage_params
+    from lele_tpu_torch.parallel.pipeline import pipe_mesh
+    from lele_tpu_torch.parallel.planner import EncoderSpec, plan_mesh, recommend_serving_plan
+    from lele_tpu_torch.runtime.batcher import MicroBatcher
+
+    def both(bs, feeds, dims=None, **kw):
+        a = compile_model(bs, dim_values=dims, device=dev, mesh=mesh, batch_axis=0, **kw)
+        b = compile_model(bs, dim_values=dims, device=dev, patterns=kw.get("patterns"))
+        return a.run_np(**feeds), b.run_np(**feeds)
+
+    def close(got, want, atol):
+        return max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want)) \
+            if all(np.allclose(g, w, atol=atol) for g, w in zip(got, want)) else float("inf")
+
+    # compiled ONNX: the MHA encoder (rules), then Attention-23 under dp
+    bs, x, attn, qkv = dryrun_onnx(2, 8)
+    got, want = both(bs, {"x": x}, {"B": 2, "T": 8}, seq_axis=1, param_rules=mha_rules)
+    a_got, a_want = both(attn, qkv)
+    checks.require(close(got, want, 1e-4) < 1e-4 and close(a_got, a_want, 1e-5) < 1e-5,
+                   f"(d) compiled ONNX leg: the MHA encoder [2, 8, 32] with Megatron rules "
+                   f"within 1e-4 of the mesh-free compile ({close(got, want, 1e-4):.2e}), "
+                   f"Attention-23 within 1e-5 ({close(a_got, a_want, 1e-5):.2e})")
+
+    # pp: the 4 SAN-M blocks as the one stage of a one-rank "pipe" mesh
+    pcfg = SenseVoiceConfig(n_layers=4, d_model=32, ffn_dim=64, vocab_size=16, n_heads=2,
+                            dtype="float32")
+    layers = init_sensevoice(torch.Generator(device=dev).manual_seed(1), pcfg)["layers"]
+    xp = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 12, 32))
+                          .astype(np.float32)).to(dev)
+    m12 = torch.ones((8, 12), device=dev)
+
+    def blocks(p, mb):
+        for lp in p:
+            mb = sanm_block(lp, mb, m12[:mb.shape[0]], pcfg)
+        return mb
+
+    with torch.inference_mode():
+        got = pipeline_apply(blocks, stack_stage_params([layers]), xp, pipe_mesh(1),
+                             n_microbatch=4)
+        want = blocks(layers, xp)
+    checks.require(torch.allclose(got, want, atol=1e-4),
+                   f"(d) pp leg: 4 SAN-M blocks (d 32) in 4 microbatches through a one-stage "
+                   f"pipeline, max|d| {float((got - want).abs().max()):.2e} (gate 1e-4)")
+
+    # serving: the planner's plan for one device, a MicroBatcher, bit-equality
+    B, T, D = 2, 12, 32
+    plan = recommend_serving_plan(EncoderSpec(n_layers=2, d_model=D, ffn=64, vocab=D, seq=T,
+                                              batch=B, weight_bytes=4), 1, quantized=False)
+    _, kw = plan_mesh(plan)
+    sbs, reqs = dryrun_serving(11, 5)
+    cm = compile_model(sbs, dim_values={"B": B, "T": T}, device=dev, **kw)
+    ref = compile_model(sbs, dim_values={"B": B, "T": T}, device=dev)
+
+    def process(items):
+        xb = np.zeros((B, T, D), np.float32)
+        xb[:len(items)] = items
+        (y,) = cm.run_np(xb)
+        return [y[i] for i in range(len(items))]
+
+    mb = MicroBatcher(process, max_batch=B, window_ms=50.0)
+    results: list = [None] * len(reqs)
+    ts = [threading.Thread(target=lambda i=i: results.__setitem__(i, mb.submit(reqs[i])))
+          for i in range(len(reqs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    mb.close()
+    alone_ok = free_ok = True
+    for i, r in enumerate(reqs):
+        xb = np.zeros((B, T, D), np.float32)
+        xb[0] = r
+        alone_ok &= np.array_equal(results[i], cm.run_np(xb)[0][0])
+        free_ok &= np.allclose(results[i], ref.run_np(xb)[0][0], atol=1e-5)
+    checks.require(alone_ok and free_ok and sum(mb.batch_sizes) == len(reqs),
+                   f"(d) serving leg: plan dp{plan.dp}xtp{plan.tp}xsp{plan.sp}, "
+                   f"{len(reqs)} requests in batches {mb.batch_sizes}: each bit-equal "
+                   f"coalesced and alone ({alone_ok}), within 1e-5 of the mesh-free "
+                   f"program ({free_ok})")
+
+    # genai: the int4 step with `_q` / `_s` column rules (f32 route and bf16)
+    gbs, feeds = dryrun_genai(2)
+    g32, w32 = both(gbs, feeds, patterns=F32_NBITS_PATTERNS, param_rules=nbits_rules)
+    g16, w16 = both(gbs, feeds, param_rules=nbits_rules)
+    checks.require(close(g32[:1], w32[:1], 1e-4) < 1e-4 and close(g32[1:], w32[1:], 1e-5) < 1e-5
+                   and all(np.array_equal(a, b) for a, b in zip(g16, w16)),
+                   f"(d) genai leg: the int4 decode step with `_q`/`_s` rules: the f32 route's "
+                   f"logits within 1e-4 and caches within 1e-5 of the mesh-free compile; the "
+                   f"bf16 route its bits")
+
+    # search: BeamSearch under dp
+    sm, ids = dryrun_search(2)
+    sg, sw = both(sm, {"input_ids": ids})
+    checks.require(np.array_equal(sg[0], sw[0]) and np.allclose(sg[1], sw[1], atol=1e-5),
+                   f"(d) search leg: BeamSearch sequences {sg[0].shape} equal to the mesh-free "
+                   f"compile's, scores within 1e-5")
+
+    # moe: the QMoE decoder's 4-token prefill with expert rules
+    mbs, feeds = dryrun_genai(2, S=4, moe=True)
+    mg, mw = both(mbs, feeds, patterns=F32_NBITS_PATTERNS, param_rules=expert_rules)
+    checks.require(close(mg[:1], mw[:1], 1e-4) < 1e-4,
+                   f"(d) moe leg: the QMoE prefill with expert rules within 1e-4 of the "
+                   f"mesh-free compile ({close(mg[:1], mw[:1], 1e-4):.2e})")
+
+
+def _gloo_card_rank(rank: int, init: str, q) -> None:
+    """One of two gloo ranks sharing the card (phase 42 (e)): the MHA encoder
+    over model 2 (column and row parallel: all_gather and all_reduce on CUDA
+    tensors), then (b)'s Phi-3-mini-width int4 step over model 2 with the
+    `_q` / `_s` column rules (kernel 7 on the rank's half of each
+    MatMulNBits' columns); rank 0 also runs both mesh-free."""
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx.synth import build_genai_decoder
+    from lele_tpu_torch.parallel import make_mesh
+
+    try:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+        mesh = make_mesh(2, data=1, model=2, devices="cuda")
+        out: dict = {}
+        bs, x, _, _ = dryrun_onnx(2, 8)
+        cm = compile_model(bs, dim_values={"B": 2, "T": 8}, mesh=mesh, param_rules=mha_rules)
+        y = cm.run_np(x)[0]
+        out["mha_wqkv"] = tuple(cm.params["wqkv_l0"].shape)
+        if rank == 0:
+            ref = compile_model(bs, dim_values={"B": 2, "T": 8}, device=dev).run_np(x)[0]
+            out["mha_err"] = float(np.abs(y - ref).max())
+        gcfg = genai_forms()[next(iter(genai_forms()))]
+        g = build_genai_decoder(genai_params_on_card(gcfg, MESH_SEED, dev), 1, gcfg)
+        gm = compile_model(g, device=dev, strict=True, mesh=mesh, param_rules=nbits_rules)
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        shape = (1, gcfg["kvh"], gcfg["L"], gcfg["hd"])
+        feeds = {"ids": torch.tensor([[7]], device=dev),
+                 "pos": torch.tensor([[GENAI_PROMPT]], device=dev),
+                 "slk": torch.tensor([GENAI_PROMPT], dtype=torch.int32, device=dev),
+                 "tot": torch.tensor([GENAI_PROMPT + 1], dtype=torch.int32, device=dev)}
+        for i in range(gcfg["nl"]):
+            for kv in "kv":
+                feeds[f"p{kv}{i}"] = torch.randn(shape, generator=gen, device=dev)
+        with torch.inference_mode():
+            gm(**feeds)
+            K.reset_launch_counts()
+            got = gm(**feeds)
+            torch.cuda.synchronize()
+            out["launches"] = moved(K.launch_counts())
+            out["wq_local"] = tuple(gm.params["wq0_q::w4pk"].shape)
+            out["captured"] = gm.stats["captured"]
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                gm(**feeds)
+            torch.cuda.synchronize()
+            out["step_ms"] = (time.perf_counter() - t0) * 100
+            if rank == 0:
+                gf = compile_model(g, device=dev, strict=True)
+                want = gf(**feeds)
+                lg, rl = got[0].float(), want[0].float()
+                out["logit_relnorm"] = float((lg - rl).norm() / rl.norm())
+                out["logit_max_d"] = float((lg - rl).abs().max())
+                out["same_bits"] = all(torch.equal(a, b) for a, b in zip(got, want))
+                out["caches_equal"] = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+        dist.barrier()
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def two_rank_phase(checks, card) -> None:
+    """Phase 42 (e): two gloo ranks sharing the card, where NCCL refuses two
+    ranks on one device. The card machine's gloo takes CUDA tensors for
+    all_reduce, all_gather_into_tensor and broadcast but not for send/recv
+    (`scripts/torch_port_gloo_cuda_probe.py`), so the pipeline's hop is
+    held to JAX on the CPU only; the compiled paths' collectives run here
+    (`_gloo_card_rank`). Gloo's collectives are not captured: these tapes
+    replay step by step."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    results: dict = {}
+    with tempfile.TemporaryDirectory() as folder:
+        init = f"file://{Path(folder) / 'rendezvous'}"
+        procs = [ctx.Process(target=_gloo_card_rank, args=(r, init, q)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            while len(results) < 2:
+                rank, ok, out = q.get(timeout=240)
+                results[rank] = (ok, out)
+                if not ok:
+                    break
+        except queue.Empty:
+            pass
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    ok = len(results) == 2 and all(r[0] for r in results.values())
+    if not ok:
+        checks.require(False, f"(e) two gloo ranks on the card: {results}")
+        return
+    r0, r1 = results[0][1], results[1][1]
+    n_nodes = 7 * GENAI_DENSE_LAYERS + 1
+    checks.require(r0["mha_err"] <= 1e-4 and r0["mha_wqkv"] == r1["mha_wqkv"] == (32, 48),
+                   f"(e) two gloo ranks sharing the card, model 2: the MHA encoder (column "
+                   f"and row parallel, all_gather and all_reduce on CUDA tensors) within "
+                   f"1e-4 of the mesh-free compile (max|d| {r0['mha_err']:.2e})")
+    checks.require(r0["logit_relnorm"] <= NBITS_RELNORM and r0["caches_equal"]
+                   and r0["launches"] == r1["launches"] == {"w4_gemm": n_nodes}
+                   and r0["wq_local"] == (3072 // 2, 3072 // 2),
+                   f"(e) the Phi-3-mini-width int4 step over model 2 (kernel 7 on a rank's "
+                   f"{r0['wq_local']} half of wq, {r0['launches']} a rank): logits against "
+                   f"the mesh-free compile relative Frobenius {r0['logit_relnorm']:.2e}, "
+                   f"max|d| {r0['logit_max_d']:.2e} (gate {NBITS_RELNORM:g}), the same bits "
+                   f"{r0['same_bits']}, the caches' bits {r0['caches_equal']}; captured "
+                   f"{r0['captured']} (gloo: step by step)")
+    print(f"  (e) a step over the two ranks {r0['step_ms']:.2f} / {r1['step_ms']:.2f} ms "
+          f"(host clock, mean of 10, both ranks on one card); the two ranks' run "
+          f"{time.perf_counter() - t0:.1f} s  ({card})")
+
+
+def mesh_phase(checks, dev, card) -> dict:
+    """Phase 42: the multi-device layer's last pieces on the card, in an NCCL
+    process group of one rank (the machine has one card; every axis has
+    size 1, so no collective runs; the collectives across ranks are held to
+    JAX on the CPU, tests/test_torch_port_{pipeline,mesh}.py).
+
+    (a) The flagship's 50 w8 layers (SenseVoiceConfig(weight_int8=True)) as
+    a GPipe pipeline (parallel/pipeline.py) of one stage: B 8 x T 171 in 4
+    microbatches, each row of a microbatch one kernel-1 launch over the
+    stage's layers; the bits of one kernel-1 launch a row over all 50.
+    (b) Phase 35's Phi-3-mini-width int4 decode step (2 of 32 layers)
+    through compile_model(mesh=..., param_rules=...) with _dryrun_genai's
+    `_q` / `_s` rules: kernel 7 on the rank's shard (here every column),
+    the bits of the mesh-free compile. (c) The daemon's engines at full
+    width (the w8a16 ASR of the main path, the default YOLO26) over an
+    explicit one-rank mesh (`--mesh auto` gives none on one card, as JAX
+    on one device): a burst of 8 concurrent /recognize and a /detect; each
+    request's ids those of the same engine with the request alone in a
+    batch of its size and of the mesh-free engine. (d) dryrun_multichip's
+    six remaining legs at their own sizes (`dryrun_mesh_legs`). (e) Two
+    gloo ranks sharing the card (`two_rank_phase`).
+    → {kernel: {path: launches}}."""
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.models import (SenseVoiceConfig, SenseVoiceModel, Yolo26Config,
+                                       Yolo26Model, cast_big_params, prepare_w8_params,
+                                       stack_layer_params)
+    from lele_tpu_torch.onnx.synth import build_genai_decoder
+    from lele_tpu_torch.parallel import make_mesh, pipeline_apply, stack_stage_params
+    from lele_tpu_torch.parallel.mesh import init_distributed
+    from lele_tpu_torch.parallel.pipeline import pipe_mesh
+    from lele_tpu_torch.runtime.batcher import MicroBatcher
+    from lele_tpu_torch.server import mesh_tag, plan_serving_mesh, serve
+    from lele_tpu_torch.serving import SenseVoiceEngine, Yolo26Engine
+
+    banner(f"== 42. the multi-device layer over an NCCL group of one: a 50-layer w8 "
+           f"pipeline, the int4 step over a mesh, the daemon's engines over a mesh, the "
+           f"dryrun legs ({card})")
+    t_phase = time.perf_counter()
+    launches: dict[str, dict[str, int]] = {}
+    tmp = tempfile.TemporaryDirectory()
+    init_distributed(0, 1, f"file://{Path(tmp.name) / 'rendezvous'}", device="cuda")
+    try:
+        checks.require(plan_serving_mesh() == (None, None),
+                       "plan_serving_mesh() on one rank: (None, None), as JAX's on one device")
+        mesh = make_mesh(1, seq=1)
+
+        # (a) the 50 w8 layers as a one-stage pipeline, 4 microbatches
+        model = SenseVoiceModel(SenseVoiceConfig(weight_int8=True), device=dev)
+        model.init(MESH_SEED)
+        model.params = stack_layer_params(prepare_w8_params(cast_big_params(model.params,
+                                                                            torch.bfloat16)))
+        cfg = model.cfg
+        layers = model.params["layers_stacked"]
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        x = torch.randn((PIPE_BATCH, T_MAIN, cfg.d_model), generator=gen, device=dev)
+        mask = torch.ones(T_MAIN, device=dev)
+
+        def stage(p, mb):
+            return torch.stack([K.sanm_stack_w8(row, mask, p, cfg.n_heads, cfg.fsmn_kernel)
+                                for row in mb])
+
+        stages = stack_stage_params([layers])
+        pmesh = pipe_mesh(1)
+
+        def piped():
+            return pipeline_apply(stage, stages, x, pmesh, n_microbatch=PIPE_MICRO)
+
+        def single():
+            return stage(layers, x)
+
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            got = piped()
+            torch.cuda.synchronize()
+            counted = moved(K.launch_counts())
+            want = single()
+            pipe_ms = time_ms(piped, runs=5, warm=1)
+            one_ms = time_ms(single, runs=5, warm=1)
+        launches.setdefault("sanm_stack_w8", {})["(a) the pipeline, a batch"] = \
+            counted.get("sanm_stack_w8", 0)
+        checks.require(torch.equal(got, want) and counted == {"sanm_stack_w8": PIPE_BATCH},
+                       f"(a) {cfg.n_layers} w8 layers, B {PIPE_BATCH} x T {T_MAIN} in "
+                       f"{PIPE_MICRO} microbatches through pipeline_apply (one stage): the bits "
+                       f"of kernel 1 once a row over all {cfg.n_layers} layers; launches "
+                       f"{counted}")
+        print(f"  (a) the pipeline {pipe_ms:.3f} ms a batch of {PIPE_BATCH} against "
+              f"{one_ms:.3f} ms for the {PIPE_BATCH} single launches (CUDA events, median "
+              f"of 5)  ({card})")
+        del stages, got, want
+
+        # (b) phase 35's Phi-3-mini-width decode step over the mesh
+        gcfg = genai_forms()[next(iter(genai_forms()))]
+        inits = genai_params_on_card(gcfg, MESH_SEED, dev)
+        gbytes = build_genai_decoder(inits, 1, gcfg)
+        del inits
+        t0 = time.perf_counter()
+        gm = compile_model(gbytes, device=dev, strict=True, mesh=mesh, batch_axis=0,
+                           param_rules=nbits_rules)
+        gf = compile_model(gbytes, device=dev, strict=True)
+        t_compile = time.perf_counter() - t0
+        del gbytes
+        rng = np.random.default_rng(MESH_SEED)
+        shape = (1, gcfg["kvh"], gcfg["L"], gcfg["hd"])
+        feeds = {"ids": torch.tensor([[int(rng.integers(0, gcfg["V"]))]], device=dev),
+                 "pos": torch.tensor([[GENAI_PROMPT]], device=dev),
+                 "slk": torch.tensor([GENAI_PROMPT], dtype=torch.int32, device=dev),
+                 "tot": torch.tensor([GENAI_PROMPT + 1], dtype=torch.int32, device=dev)}
+        for i in range(gcfg["nl"]):
+            for kv in "kv":
+                feeds[f"p{kv}{i}"] = torch.randn(shape, generator=gen, device=dev)
+        with torch.inference_mode():
+            gm(**feeds)
+            K.reset_launch_counts()
+            out_m = gm(**feeds)
+            torch.cuda.synchronize()
+            counted = moved(K.launch_counts())
+            out_f = gf(**feeds)
+            turns: dict = {"mesh": [], "free": []}
+            for which in ("free", "mesh", "mesh", "free"):  # in turns, one card
+                cm_ = gm if which == "mesh" else gf
+                turns[which].append(time_ms(lambda: cm_(**feeds), runs=20) * 1e3)
+            m_us, f_us = (statistics.median(turns[k]) for k in ("mesh", "free"))
+            m_dev, f_dev = graph_us(lambda: gm(**feeds)), graph_us(lambda: gf(**feeds))
+            prep_us = {}  # the host's input preparation of a call (`_prep` of every feed)
+            for which, cm_ in (("mesh", gm), ("free", gf)):
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    for n in cm_.input_order:
+                        cm_._prep(n, feeds[n])
+                torch.cuda.synchronize()
+                prep_us[which] = (time.perf_counter() - t0) * 1e4
+        n_nodes = 7 * gcfg["nl"] + 1
+        launches.setdefault("w4_gemm", {})["(b) the decode step over the mesh"] = \
+            counted.get("w4_gemm", 0)
+        checks.require(all(torch.equal(a, b) for a, b in zip(out_m, out_f))
+                       and counted == {"w4_gemm": n_nodes} and gm.stats["captured"],
+                       f"(b) the Phi-3-mini-width int4 decode step ({gcfg['nl']} layers) "
+                       f"compiled over the mesh with `_q`/`_s` column rules (compiled in "
+                       f"{t_compile:.1f} s with the mesh-free one): the mesh-free compile's "
+                       f"bits on {len(out_m)} outputs, kernel 7 {counted.get('w4_gemm', 0)} "
+                       f"times a step ({n_nodes} MatMulNBits), captured "
+                       f"{gm.stats['captured']}")
+        print(f"  (b) a decode step {m_us:.1f} us over the mesh against {f_us:.1f} us "
+              f"mesh-free (CUDA events, medians of 20 in turns: mesh {turns['mesh']}, "
+              f"mesh-free {turns['free']}; the caches not donated, as phase 35 times its "
+              f"step fed back with them donated); device {m_dev:.1f} / {f_dev:.1f} us (20 "
+              f"calls in one CUDA graph); the inputs' preparation {prep_us['mesh']:.1f} / "
+              f"{prep_us['free']:.1f} us a call (host clock, 100 calls)  ({card})")
+        del gm, gf, out_m, out_f, feeds
+        torch.cuda.empty_cache()
+
+        # (c) the daemon's engines at full width over the explicit mesh
+        model.mesh = mesh
+        free_model = SenseVoiceModel(cfg, params=model.params, fbank=model.fbank, device=dev)
+        det_m = Yolo26Model(Yolo26Config(), device=dev)
+        det_m.init(MESH_SEED)
+        asr, det = SenseVoiceEngine(model=model), Yolo26Engine(model=det_m, mesh=mesh)
+        free, free_det = SenseVoiceEngine(model=free_model), Yolo26Engine(model=det_m)
+        engines = {"asr": asr, "asr_batcher": MicroBatcher(asr.recognize_batch, 8, 5.0),
+                   "det": det, "det_batcher": MicroBatcher(det.detect_batch, 8, 5.0),
+                   "mesh": mesh, "mesh_tag": mesh_tag(mesh)}
+        batches = record_batches(engines["asr_batcher"])
+        httpd = serve(port=0, engines=engines)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        import threading
+
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            st, body, _ = http(url + "/healthz")
+            checks.require(st == 200 and json.loads(body) == {"ok": True, "mesh": "dp1xsp1xtp1"},
+                           f"(c) /healthz over the explicit mesh: {st} {body!r}")
+            rng = np.random.default_rng(MESH_SEED)
+            burst = [wav_bytes(synth_speechlike(MESH_SECONDS, rng)) for _ in range(MESH_BURST)]
+
+            def timed(w):
+                t0 = time.perf_counter()
+                r = http(url + "/recognize", w)
+                return r, (time.perf_counter() - t0) * 1e3
+
+            for n in (1, 2, 4, 8):  # every batch bucket's program captured first
+                asr.recognize_batch(burst[:n])
+            with concurrent.futures.ThreadPoolExecutor(MESH_BURST) as ex:
+                list(ex.map(timed, burst))
+                seen = len(batches)
+                K.reset_launch_counts()
+                rs = list(ex.map(timed, burst))
+                torch.cuda.synchronize()
+                served = moved(K.launch_counts())
+            formed = batches[seen:]
+            answers = {w: json.loads(b)["ids"] for w, ((st, b, _), _) in zip(burst, rs)
+                       if st == 200}
+            silence = wav_bytes(np.zeros(int(MESH_SECONDS * SR), np.float32))
+            alone_ok = free_ok = True
+            for b in formed:
+                for w in b:
+                    alone = [w] + [silence] * (len(b) - 1)
+                    alone_ok &= asr.recognize_batch(alone)[0] == answers.get(w)
+                    free_ok &= free.recognize_batch(alone)[0] == answers.get(w)
+            p50 = statistics.median(t for _, t in rs)
+            for k in ("sanm_stack_w8", "w8_gemm"):
+                launches.setdefault(k, {})["(c) a burst of 8 /recognize over the mesh"] = \
+                    served.get(k, 0)
+            checks.require(len(answers) == MESH_BURST and alone_ok and free_ok
+                           and served.get("w8_gemm", 0) > 0,
+                           f"(c) {MESH_BURST} concurrent {MESH_SECONDS:.0f} s /recognize on the "
+                           f"w8a16 engine over the mesh, in batches {[len(b) for b in formed]}: "
+                           f"each request's ids those of the same engine with it alone in a "
+                           f"batch of its size ({alone_ok}) and of the mesh-free engine "
+                           f"({free_ok}); launches {served}")
+            buf = io.BytesIO()
+            from PIL import Image
+
+            Image.fromarray(np.random.default_rng(MESH_SEED).integers(
+                0, 256, (480, 640, 3), dtype=np.uint8)).save(buf, "JPEG")
+            st, body, _ = http(url + "/detect", buf.getvalue())
+            checks.require(st == 200 and json.loads(body)["detections"]
+                           == json.loads(json.dumps(free_det.detect(buf.getvalue()))),
+                           f"(c) /detect over the mesh: {st}, the mesh-free engine's "
+                           f"detections")
+            print(f"  (c) a {MESH_SECONDS:.0f} s /recognize in a burst of {MESH_BURST}: "
+                  f"p50 {p50:.2f} ms (host clock, the batches {[len(b) for b in formed]})  "
+                  f"({card})")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            for k in ("asr_batcher", "det_batcher"):
+                engines[k].close()
+        del model, free_model, asr, free, det, free_det, det_m, engines
+        torch.cuda.empty_cache()
+
+        # (d) the six dryrun legs at their own sizes
+        dryrun_mesh_legs(checks, dev, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    two_rank_phase(checks, card)
+    print(f"  phase 42 in {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7658,6 +8280,7 @@ def main() -> int:
     tail_launches = op_tail_phase(checks, dev, card, cm10.stats["pattern_hits"])
     search_launches = search_phase(checks, dev, card)
     train_phase(checks, dev, card)
+    mesh_launches = mesh_phase(checks, dev, card)
 
     banner(None)
     if checks.failures:
@@ -7789,6 +8412,7 @@ def main() -> int:
          **({"phase38_launches": entry_launches[name]} if name in entry_launches else {}),
          **({"phase39_launches": tail_launches[name]} if name in tail_launches else {}),
          **({"phase40_launches": search_launches[name]} if name in search_launches else {}),
+         **({"phase42_launches": mesh_launches[name]} if name in mesh_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

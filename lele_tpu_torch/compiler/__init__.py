@@ -13,8 +13,18 @@ outputs returned as f32 (compiler/tracer.py). `donate=[input names]` is
 JAX's donation (runtime/engine.py): on a card the model's captured CUDA
 graph writes each such input's new value back into its static buffer. JAX's
 `precision="default"` needs no knob here: bf16 operands on cuDNN and cuBLAS
-are its counterpart. The JAX package's mesh, AOT and image-stem options have
-no counterpart here.
+are its counterpart. The JAX package's AOT and image-stem options have no
+counterpart here.
+
+`mesh` (a DeviceMesh over the default group's ranks, `parallel.make_mesh` or
+`parallel.plan_mesh`) with `batch_axis`, `seq_axis` and `param_rules` is
+JAX's placement (lele_tpu/compiler/__init__.py:239-242): every rank calls
+`compile_model` and traces its own program, over its rows and its shards
+of the rule-sharded params, with the collectives written out at their
+consumers (parallel/placement.py). The device is then the mesh's: a CUDA
+mesh's products run on the rank's card. Over a "data" axis each rank runs
+its own rows, so a graph whose outputs do not carry its rows at
+`batch_axis` is refused with ValueError.
 """
 
 from __future__ import annotations
@@ -64,7 +74,9 @@ class Compiler:
                 input_shapes: dict[str, Sequence[int]] | None = None,
                 dim_values: dict[str, int] | None = None,
                 device: torch.device | str | None = None,
-                compute: str | None = None, donate: Sequence[str] = ()) -> CompiledModel:
+                compute: str | None = None, donate: Sequence[str] = (), mesh=None,
+                batch_axis: int | None = None, seq_axis: int | None = None,
+                param_rules=None) -> CompiledModel:
         if compute not in (None, "bfloat16"):
             raise ValueError(f"compute={compute!r}: expected None or 'bfloat16'")
         if isinstance(model, (bytes, bytearray, memoryview)):
@@ -72,11 +84,22 @@ class Compiler:
         elif not isinstance(model, OnnxModel):
             model = OnnxModel.load(model)
         model = inline_model(model)  # local functions, flattened before tracing
-        device = torch.device(device) if device is not None else default_device()
         specs = resolve_input_specs(model, input_shapes, dim_values)
+        placement = None
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+            from ..parallel.placement import Placement
+
+            on = mesh_device(mesh)
+            if device is not None and torch.device(device).type != on.type:
+                raise ValueError(f"device={device!r} on a mesh of {mesh.device_type} ranks")
+            device = on
+            placement = Placement(mesh, model, specs, batch_axis, seq_axis, param_rules)
+        device = torch.device(device) if device is not None else default_device()
         tracer = GraphTracer(model, overrides=self._overrides,
                              patterns=self._patterns, strict=self._strict)
-        trace = tracer.build(specs, device, compute=torch.bfloat16 if compute else None)
+        trace = tracer.build(specs, device, compute=torch.bfloat16 if compute else None,
+                             placement=placement)
         return CompiledModel(trace, specs, input_order=model.input_names(),
                              output_names=model.output_names(), stats=tracer.stats,
                              donate=donate)
@@ -126,6 +149,10 @@ def compile_model(
     device: torch.device | str | None = None,
     compute: str | None = None,
     donate: Sequence[str] = (),
+    mesh=None,
+    batch_axis: int | None = None,
+    seq_axis: int | None = None,
+    param_rules=None,
 ) -> CompiledModel:
     c = Compiler()
     for k, v in (overrides or {}).items():
@@ -133,4 +160,4 @@ def compile_model(
     if patterns is not None:
         c.with_patterns(patterns)
     return c.with_strict(strict).compile(model, input_shapes, dim_values, device, compute,
-                                         donate)
+                                         donate, mesh, batch_axis, seq_axis, param_rules)

@@ -326,7 +326,9 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False,
 
     Eligibility is JAX's: bits 4, no g_idx, static weights, scales and zero
     points, a float activation, an even block of at most 512, K a multiple
-    of 2·block; anything else keeps the emitter (ops/contrib_ops.py). The
+    of 2·block; anything else keeps the emitter (ops/contrib_ops.py). Under
+    a mesh whose rules split `_q` / `_s` on N, the kernel runs on the rank's
+    columns and the output is gathered (parallel/placement.py). The
     kernel takes every such block in the form JAX's routing would (see
     kernels/w4_matmul.py). Each hit is counted twice in `pattern_hits`, by
     the pattern and by the tracer's walk, as the JAX package counts it."""
@@ -363,6 +365,16 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False,
     b_np = np.asarray(b)
     if b_np.size != N * K // 2 or b_np.dtype != np.uint8:
         return None
+    # under a mesh whose rules split the node's `_q` on N: the rank's
+    # columns (parallel/placement.py), gathered after the product
+    cut = None
+    if state.placement is not None:
+        cut = state.placement.nbits_cut([scope + n if n else "" for n in ins],
+                                        [a, b, sc, zp, gidx, bias], N)
+        if cut is False:
+            return None
+    if cut:
+        ax, N, (_, b_np, sc, zp, _, bias) = cut
     # host repack: ORT's K-adjacent nibble pairs → the kernel's K/2 planes
     bq = b_np.reshape(N, KB, block // 2)
     q = np.stack([bq & 0x0F, bq >> 4], axis=-1).reshape(N, K)
@@ -384,6 +396,10 @@ def matmul_nbits_w4(tracer, state, nodes, i, env, scope, f32: bool = False,
         bias = state.to_device(scope + ins[5] + "::w4b", np.asarray(bias))
     out = state.run(_nbits_w4_linear, a, packed_dev, s_dev, zc_dev, bias, K, N, block, f32,
                     plain)
+    if cut:
+        from ..parallel.placement import collect
+
+        out = collect(state, "gather", ax, out)
     state.pattern_hits["matmul_nbits_w4"] = state.pattern_hits.get("matmul_nbits_w4", 0) + 1
     return 1, {node.output[0]: out}
 
@@ -500,6 +516,9 @@ def qmoe_w4(tracer, state, nodes, i, env, scope, f32: bool = False, plain: bool 
         stacks.append((np.asarray(w), np.asarray(sc)))
     if stacks[0] is None or stacks[1] is None or not x.is_floating_point():
         return None
+    if state.placement is not None and any(
+            state.placement.param_spec(scope + n, env.get(n)) for n in ins[2:] if n):
+        return None  # expert-sharded stacks: the emitter on the rank's experts
     E = stacks[0][0].shape[0]
     rows = x.numel() // x.shape[-1]
     if rows * k > E or any(st is not None and (st[0].dtype != np.uint8 or st[0].ndim != 3)

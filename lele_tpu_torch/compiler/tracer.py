@@ -301,9 +301,9 @@ class Tape:
         the host. Such steps are a dynamic If's (`_IfStep`), which reads its
         condition on every replay, and a while loop's (`_WhileStep`), which
         reads it every iteration; a loop or scan step is capturable where
-        its body is."""
-        return all(st.fn.capturable for st in self.steps
-                   if isinstance(st.fn, _SubgraphStep))
+        its body is; a collective over a mesh axis (parallel/placement.py)
+        is capturable over NCCL, not over gloo."""
+        return all(getattr(st.fn, "capturable", True) for st in self.steps)
 
 
 def _step_name(st: _Step) -> str:
@@ -524,6 +524,17 @@ class TraceState:
     cse: dict = field(default_factory=dict)
     n_reused: int = 0
     compute: torch.dtype | None = None  # see the module docstring
+    # a mesh's placement (parallel/placement.py): rule-sharded params and
+    # the collectives at their consumers; None for one device
+    placement: Any = None
+
+    def hoist(self, name: str, v) -> torch.Tensor:
+        """A static input of a dynamic node on the device: `to_device`, or
+        under a placement this rank's shard of a rule-sharded param,
+        gathered whole on the tape."""
+        if self.placement is None:
+            return self.to_device(name, v)
+        return self.placement.hoist(self, name, v)
 
     def to_device(self, name: str, v) -> torch.Tensor:
         """A static value on the device, once per name (param hoisting)."""
@@ -627,6 +638,11 @@ class GraphTracer:
         # hoisted for it (a host value in a step would be an upload a call)
         static_pos = (set(opdef.static_args)
                       if opdef is not None and not (opdef.records and overridden) else set())
+        if state.placement is not None:  # a consumer of a rule-sharded param
+            out = state.placement.emit(self, state, node, label, ins, scope, emitter,
+                                       static_pos)
+            if out is not NotImplemented:
+                return out
         dyn_ins = []
         for i, v in enumerate(ins):
             if isinstance(v, TensorSeq):  # a sequence's static elements too
@@ -636,7 +652,7 @@ class GraphTracer:
             if v is None or not _is_static(v) or i in static_pos:
                 dyn_ins.append(v)
             else:
-                dyn_ins.append(state.to_device(scope + node.input[i], v))
+                dyn_ins.append(state.hoist(scope + node.input[i], v))
         # an override marked `records` records its own steps, as a recording
         # emitter does (the search ops' injected self-attention masks)
         records = ((opdef is not None and (opdef.records or subgraph) and not overridden)
@@ -937,26 +953,31 @@ class GraphTracer:
     def build(self, input_specs: dict[str, tuple[tuple, np.dtype]],
               device: torch.device | str,
               constants: dict[str, np.ndarray] | None = None,
-              compute: torch.dtype | None = None) -> TraceState:
+              compute: torch.dtype | None = None, placement=None) -> TraceState:
         """Walk the graph once at the given static input signature on
         `device` and return the trace: its tape (inputs in
         `model.input_names()` order, outputs in graph order), its device
         params and its stats. Graph inputs named in `constants` are bound to
         those host values: they fold like initializers and are not inputs
         of the tape. `compute` is the module docstring's compute dtype: the
-        tape then takes f32 inputs in that type."""
+        tape then takes f32 inputs in that type. `placement`
+        (parallel/placement.py) traces a mesh's rank: the inputs at this
+        rank's rows, rule-sharded params as this rank's shards."""
         graph = self.model.graph
         constants = constants or {}
         in_names = [n for n in self.model.input_names() if n not in constants]
         for n in in_names:
             if n not in input_specs:
                 raise ValueError(f"missing input spec for {n!r}")
-        state = TraceState(device=torch.device(device), strict=self.strict, compute=compute)
+        state = TraceState(device=torch.device(device), strict=self.strict, compute=compute,
+                           placement=placement)
         env: dict[str, Any] = {"": None}
         env.update((n, np.asarray(v)) for n, v in constants.items())
         with torch.inference_mode():
             for n in in_names:
                 shape, dt = input_specs[n]
+                if placement is not None:
+                    shape = placement.trace_shape(n, tuple(shape))
                 tdt = torch_dtype(dt)
                 if compute is not None and tdt == torch.float32:
                     tdt = compute

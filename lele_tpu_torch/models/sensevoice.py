@@ -499,12 +499,22 @@ class SenseVoiceModel:
     length, with the valid lengths a device input, so one program serves
     every length of a bucket. On a card each is one CUDA graph, captured at
     its first use (runtime/graphs.py); on the CPU it runs eagerly. The
-    `forward_*_fn()` functions are the uncaptured oracles."""
+    `forward_*_fn()` functions are the uncaptured oracles.
+
+    `mesh` (a DeviceMesh with a "data" axis; the daemon's `--mesh auto`) is
+    JAX's serving dp (lele_tpu/models/sensevoice.py:609-621): the params
+    are whole on every rank, the batched program's coalesced (batch, lens)
+    is split over "data" by `parallel.sharding.dp_put` (a batch that does
+    not divide the axis runs whole on every rank), each rank runs its rows
+    through the same program a rank's batch, and the (ids, masks) are
+    gathered. The driving rank of a daemon over ranks announces each such
+    batch to the others first (parallel/lockstep.py)."""
 
     cfg: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
     params: Params | None = None
     fbank: FbankFrontend | None = None
     device: torch.device | str | None = None
+    mesh: object = None
     programs: Programs | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -613,18 +623,35 @@ class SenseVoiceModel:
 
         return fn
 
-    def _run_ids(self, batch: np.ndarray, lens) -> tuple[torch.Tensor, torch.Tensor]:
+    def _run_ids(self, batch, lens) -> tuple[torch.Tensor, torch.Tensor]:
         """`_ids_fn` through the program of (B, n)."""
         if self.params is None:
             self.init()
-        return self.programs.run(("ids",) + batch.shape, self._ids_fn, batch,
-                                 np.asarray(lens, np.int64).reshape(-1), params=self.params)
+        lens = (lens.to(torch.int64).reshape(-1) if isinstance(lens, torch.Tensor)
+                else np.asarray(lens, np.int64).reshape(-1))
+        return self.programs.run(("ids",) + tuple(batch.shape), self._ids_fn, batch, lens,
+                                 params=self.params)
+
+    def mesh_ids(self, batch: np.ndarray, lens) -> list[torch.Tensor]:
+        """The batched program over `mesh` (every rank calls it on the whole
+        batch): this rank's rows, then the (ids, masks) of every row
+        (`parallel.sharding.dp_apply`)."""
+        from ..parallel.sharding import dp_apply
+
+        return dp_apply(self.mesh, self._run_ids, (np.asarray(batch, np.float32),
+                                                   np.asarray(lens, np.int64).reshape(-1)))
 
     def _batched_ids(self, batch: np.ndarray, lens: np.ndarray):
         """[B, n] padded PCM + [B] valid lengths → (per-frame ids [B, T] int32,
         masks [B, T]), numpy; the argmax runs on the device, so only the ids
-        and masks come back."""
-        ids, masks = self._run_ids(batch, lens)
+        and masks come back. Over a mesh, split over "data" (`mesh_ids`)."""
+        if self.mesh is not None:
+            from ..parallel import lockstep
+
+            lockstep.announce("asr", (batch, np.asarray(lens, np.int64)))
+            ids, masks = self.mesh_ids(batch, lens)
+        else:
+            ids, masks = self._run_ids(batch, lens)
         return ids.cpu().numpy(), masks.cpu().numpy()
 
     def _batched_window_ids(self, pieces, win: int):

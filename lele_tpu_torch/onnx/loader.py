@@ -380,6 +380,19 @@ class OnnxModel:
     def output_names(self) -> list[str]:
         return [vi.name for vi in self.graph.output]
 
+    def output_dims(self) -> dict[str, list[int | str] | None]:
+        """Each graph output's declared dims (dim_param strings for dynamic
+        dims, 0 for an unknown one), None where it declares no shape."""
+        out: dict[str, list[int | str] | None] = {}
+        for vi in self.graph.output:
+            tt = vi.type.tensor_type if vi.type else None
+            if tt is None or tt.shape is None:
+                out[vi.name] = None
+                continue
+            out[vi.name] = [d.dim_param if d.has("dim_param") else int(d.dim_value)
+                            for d in tt.shape.dim]
+        return out
+
     def input_info(self) -> list[tuple[str, int, list[int | str]]]:
         """[(name, onnx_dtype, dims)] with dim_param strings for dynamic dims."""
         out = []

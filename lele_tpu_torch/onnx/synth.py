@@ -38,6 +38,12 @@ com.microsoft::RotaryEmbedding, GroupQueryAttention over static cache
 buffers, SimplifiedLayerNormalization and SkipSimplifiedLayerNormalization,
 a SwiGLU MLP or (Phi-3.5-MoE) a router MatMul into QMoE. The generator is
 drawn in JAX's order, so a seed gives JAX's initializers and bytes.
+
+`build_mha_encoder` is `dryrun_multichip`'s multi-head-attention encoder
+(__graft_entry__._build_mha_encoder_bytes, the torch-export topology):
+LayerNorm, a fused qkv MatMul, per-head attention, the out and FFN MatMuls;
+its weights `wqkv_l*`, `wo_l*`, `w1_l*`, `w2_l*` are what the mesh legs'
+Megatron rules split. Same generator order, same bytes.
 """
 
 from __future__ import annotations
@@ -912,3 +918,55 @@ def build_whisper_search_graphs(p, n_layer: int, n_head: int, s0: int,
         inits,
     )
     return enc_graph, dec_graph
+
+
+def build_mha_encoder(rng, D: int, H: int, F: int, L: int) -> bytes:
+    """The L-layer MHA encoder graph, input x [B, T, D] (dims "B", "T")."""
+    hd = D // H
+    inits = {
+        "shape_heads": np.asarray([0, -1, H, hd], np.int64),
+        "shape_flat": np.asarray([0, -1, D], np.int64),
+        "inv_sqrt_hd": np.float32(1.0 / np.sqrt(hd)),
+    }
+    nodes = []
+    x = "x"
+    for li in range(L):
+        t = f"l{li}"
+        inits[f"wqkv_{t}"] = (rng.standard_normal((D, 3 * D)) / np.sqrt(D)).astype(np.float32)
+        inits[f"wo_{t}"] = (rng.standard_normal((D, D)) / np.sqrt(D)).astype(np.float32)
+        inits[f"w1_{t}"] = (rng.standard_normal((D, F)) / np.sqrt(D)).astype(np.float32)
+        inits[f"w2_{t}"] = (rng.standard_normal((F, D)) / np.sqrt(F)).astype(np.float32)
+        inits[f"g_{t}"] = np.ones(D, np.float32)
+        inits[f"b_{t}"] = np.zeros(D, np.float32)
+        nodes += [
+            ob.node("LayerNormalization", [x, f"g_{t}", f"b_{t}"], [f"ln_{t}"]),
+            ob.node("MatMul", [f"ln_{t}", f"wqkv_{t}"], [f"qkv_{t}"]),
+            ob.node("Split", [f"qkv_{t}"], [f"q_{t}", f"k_{t}", f"v_{t}"],
+                    axis=2, num_outputs=3),
+            ob.node("Reshape", [f"q_{t}", "shape_heads"], [f"qr_{t}"]),
+            ob.node("Transpose", [f"qr_{t}"], [f"qh_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("Reshape", [f"k_{t}", "shape_heads"], [f"kr_{t}"]),
+            ob.node("Transpose", [f"kr_{t}"], [f"kh_{t}"], perm=[0, 2, 3, 1]),
+            ob.node("Reshape", [f"v_{t}", "shape_heads"], [f"vr_{t}"]),
+            ob.node("Transpose", [f"vr_{t}"], [f"vh_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("MatMul", [f"qh_{t}", f"kh_{t}"], [f"sc_{t}"]),
+            ob.node("Mul", [f"sc_{t}", "inv_sqrt_hd"], [f"scs_{t}"]),
+            ob.node("Softmax", [f"scs_{t}"], [f"at_{t}"], axis=-1),
+            ob.node("MatMul", [f"at_{t}", f"vh_{t}"], [f"cx_{t}"]),
+            ob.node("Transpose", [f"cx_{t}"], [f"cxt_{t}"], perm=[0, 2, 1, 3]),
+            ob.node("Reshape", [f"cxt_{t}", "shape_flat"], [f"cxf_{t}"]),
+            ob.node("MatMul", [f"cxf_{t}", f"wo_{t}"], [f"ao_{t}"]),
+            ob.node("Add", [x, f"ao_{t}"], [f"x1_{t}"]),
+            ob.node("MatMul", [f"x1_{t}", f"w1_{t}"], [f"f1_{t}"]),
+            ob.node("Relu", [f"f1_{t}"], [f"fr_{t}"]),
+            ob.node("MatMul", [f"fr_{t}", f"w2_{t}"], [f"f2_{t}"]),
+            ob.node("Add", [f"x1_{t}", f"f2_{t}"], [f"x2_{t}"]),
+        ]
+        x = f"x2_{t}"
+    return ob.build_model_bytes(
+        nodes,
+        inputs=[ob.value_info("x", 1, ["B", "T", D])],
+        outputs=[ob.value_info(x, 1, ["B", "T", D])],
+        initializers=[ob.tensor_from_array(v, k) for k, v in inits.items()],
+        name="mha_encoder",
+    )

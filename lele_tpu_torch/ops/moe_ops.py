@@ -198,6 +198,18 @@ def qmoe(ctx: OpContext, x, router_probs, fc1_w, fc1_scales, fc1_b=None, fc2_w=N
                       None if fc3_w is None else (fc3_w, fc3_scales, fc3_b))
 
 
+def qmoe_local(ctx: OpContext, x, router_probs, fc1_w, fc1_scales, fc1_b=None, fc2_w=None,
+               fc2_scales=None, fc2_b=None, fc3_w=None, fc3_scales=None, fc3_b=None, *,
+               e0: int, n_experts: int):
+    """QMoE on a rank's experts e0 .. e0 + E_local - 1 of n_experts (the
+    stacks given are that share): its part of the combine, which the ranks'
+    all-reduce sums (parallel/placement.py)."""
+    bits = int(ctx.attr("expert_weight_bits", 4))
+    return _qmoe_core(ctx, x, router_probs, bits, 1 << (bits - 1),
+                      (fc1_w, fc1_scales, fc1_b), (fc2_w, fc2_scales, fc2_b),
+                      None if fc3_w is None else (fc3_w, fc3_scales, fc3_b), e0, n_experts)
+
+
 def _q_mm(x, wq, s, bits: int, zp: int, per_row: bool):
     """The quantised product, dequantising only the stack it is given. 4-bit:
     output columns 2j come from the low-nibble plane and 2j + 1 from the high
@@ -231,16 +243,26 @@ def _q_ffn(ctx, x, fc1, fc2, fc3, bits: int, zp: int, per_row: bool):
     return y
 
 
-def _qmoe_core(ctx, x, logits, bits: int, zp: int, fc1, fc2, fc3):
+def _qmoe_core(ctx, x, logits, bits: int, zp: int, fc1, fc2, fc3, e0: int = 0,
+               n_experts: int | None = None):
+    """The QMoE body. With `e0` / `n_experts` the stacks hold experts e0 ..
+    e0 + E_local - 1 of n_experts (a rank's share, parallel/placement.py):
+    the routing is over every expert and the output is this share's part of
+    the combine (the other experts' slots add nothing)."""
     orig_shape = x.shape
     hidden = orig_shape[-1]
     x2 = x.reshape(-1, hidden)
     rows = x2.shape[0]
-    n_experts = fc1[0].shape[0]
+    e_local = fc1[0].shape[0]
+    n_experts = n_experts or e_local
     weights, experts = _route(ctx, logits.reshape(rows, n_experts))
     k = weights.shape[-1]
     if rows * k <= n_experts:
         flat = experts.reshape(-1).long()
+        if e_local != n_experts:  # slots of other ranks' experts weigh nothing
+            mine = (flat >= e0) & (flat < e0 + e_local)
+            flat = torch.where(mine, flat - e0, torch.zeros_like(flat))
+            weights = weights * mine.reshape(weights.shape).to(weights.dtype)
 
         def pick(fc):
             w, s, b = fc
@@ -257,9 +279,9 @@ def _qmoe_core(ctx, x, logits, bits: int, zp: int, fc1, fc2, fc3):
             return w[e], s[e], None if b is None else b[e]
 
         out = torch.zeros((rows, hidden), dtype=torch.float32, device=x.device)
-        for e in range(n_experts):
+        for e in range(e_local):
             y = _q_ffn(ctx, x2, sl(fc1, e), sl(fc2, e), None if fc3 is None else sl(fc3, e),
                        bits, zp, per_row=False)
-            gate = torch.where(experts == e, weights, torch.zeros_like(weights)).sum(dim=-1)
+            gate = torch.where(experts == e0 + e, weights, torch.zeros_like(weights)).sum(dim=-1)
             out = out + y * gate[:, None].to(y.dtype)
     return out.to(x.dtype).reshape(orig_shape)

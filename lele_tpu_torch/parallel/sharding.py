@@ -154,3 +154,22 @@ def dp_put(mesh: DeviceMesh, arrays, axis: int = 0):
         out.append(distribute_tensor(t, mesh, to_placements(mesh, tuple(spec)),
                                      src_data_rank=None))
     return tuple(out)
+
+
+def dp_apply(mesh: DeviceMesh, fn, arrays, axis: int = 0) -> list:
+    """The serving dp of a batched program (JAX's `dp_put` then one global
+    program): every rank passes the whole batch, runs `fn` on its rows
+    (the shards `dp_put` would place) and gets `fn`'s outputs for every
+    row, gathered over "data". A batch that does not divide the axis runs
+    whole on every rank, as `dp_put` leaves it."""
+    from .spmd import _all_gather, mesh_axis
+
+    dev = mesh_device(mesh)
+    ts = [(a if isinstance(a, torch.Tensor) else array_to_tensor(a)).to(dev) for a in arrays]
+    ax = mesh_axis(mesh, "data")
+    n = ts[0].shape[axis]
+    if ax.group is None or n % ax.size:
+        return list(fn(*ts))
+    k = n // ax.size
+    outs = fn(*(t.narrow(axis, ax.rank * k, k).contiguous() for t in ts))
+    return [_all_gather(o.contiguous(), ax, [o.shape[axis]] * ax.size, axis) for o in outs]

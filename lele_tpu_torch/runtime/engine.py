@@ -21,6 +21,18 @@ in one CUDA graph (runtime/graphs.py):
   nothing is captured).
 - `replay()` is the step-by-step path: the oracle of the captured one.
 
+A trace built over a mesh (JAX's `mesh`, `batch_axis`, `seq_axis` and
+`param_rules`, lele_tpu/runtime/engine.py:27-30, 68-120) is one rank's
+program: `_prep(name, x)` gives this rank's shard of an input (JAX's
+`addressable_shards`), the params hold this rank's shards of the
+rule-sharded ones, and a call is SPMD: every rank passes the whole host
+input, runs its shard (seq-sharded inputs gathered over "seq" at the
+entry) and gets back the whole output, gathered over "data" where it
+depends on a data-sharded input (parallel/placement.py). An axis of size 1
+issues no collective, so a one-rank mesh captures one CUDA graph as
+without a mesh; a collective over gloo cannot be captured, so a tape that
+holds one takes step-by-step replay.
+
 A trace built with a compute dtype (JAX's `compute="bfloat16"`,
 lele_tpu/runtime/engine.py:48-57, 95-105) stores its large f32 params in
 that type; a call casts f32 inputs to it and returns outputs of that type
@@ -43,6 +55,8 @@ class CompiledModel:
                  input_order: Sequence[str], output_names: Sequence[str],
                  stats: dict | None = None, donate: Sequence[str] = ()):
         self.device = trace.device
+        self.placement = trace.placement
+        self.mesh = None if trace.placement is None else trace.placement.mesh
         self.params: dict[str, torch.Tensor] = trace.params
         self.input_specs = input_specs
         self.input_order = list(input_order)
@@ -55,7 +69,10 @@ class CompiledModel:
             self._dtypes = {n: self.compute if d == torch.float32 else d
                             for n, d in self._dtypes.items()}
         self.donated = self._match_donated(donate)
-        self.stats["capturable"] = self._tape.capturable
+        if self.placement is not None:
+            self._from_data = self.placement.outputs(self._tape, self.input_order,
+                                                     self.output_names)
+        self.stats["capturable"] = self._captures_structure()
         self.stats["captured"] = False
         self._program: Program | None = None
 
@@ -82,14 +99,26 @@ class CompiledModel:
 
     def _walk(self, inputs: Sequence[torch.Tensor]) -> list:
         """The tape on device inputs in input order (JAX `_walk_fn`): what a
-        capture records, and what an outer program calls inside its own."""
+        capture records, and what an outer program calls inside its own.
+        Over a mesh the inputs are this rank's shards and the outputs whole."""
+        pl = self.placement
+        if pl is not None:
+            inputs = [pl.enter(n, t) for n, t in zip(self.input_order, inputs)]
         outs = self._tape.replay(inputs)
+        if pl is not None:
+            outs = [pl.leave(o, d) for o, d in zip(outs, self._from_data)]
         if self.compute is not None:
             outs = [o.float() if isinstance(o, torch.Tensor) and o.dtype == self.compute
                     else o for o in outs]
         return outs
 
     def _prep(self, name: str, v) -> torch.Tensor:
+        """An input on the device in its type, checked against the compiled
+        shape; over a mesh, this rank's shard of it."""
+        t = self._whole(name, v)
+        return t if self.placement is None else self.placement.shard(name, t)
+
+    def _whole(self, name: str, v) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
             t = v.to(device=self.device, dtype=self._dtypes[name])
         else:
@@ -117,8 +146,12 @@ class CompiledModel:
         with torch.inference_mode():
             return self._walk(inputs)
 
+    def _captures_structure(self) -> bool:
+        return self._tape.capturable and (self.placement is None
+                                          or self.placement.capturable)
+
     def _captures(self) -> bool:
-        return self.device.type == "cuda" and self._tape.capturable
+        return self.device.type == "cuda" and self._captures_structure()
 
     def compile(self) -> "CompiledModel":
         """Capture the program ahead of the first call (JAX's `compile()`),
@@ -128,17 +161,25 @@ class CompiledModel:
                                device=self.device) for n in self.input_order))
         return self
 
+    def _local_shape(self, name: str) -> tuple:
+        shape = tuple(self.input_specs[name][0])
+        if self.placement is None:
+            return shape
+        return tuple(self.placement.shard(name, torch.empty(shape, device="meta")).shape)
+
     def __call__(self, *args, **kwargs) -> list[torch.Tensor]:
         if not self._captures() or torch.cuda.is_current_stream_capturing():
             # step by step, or into a capture already running (an outer one
             # records the steps)
             return self.replay(*args, **kwargs)
         vals = self._ordered(args, kwargs)
+        if self.placement is not None:  # this rank's shards
+            vals = [self._prep(n, v) for n, v in zip(self.input_order, vals)]
         vals = [v if isinstance(v, (torch.Tensor, np.ndarray))
                 else np.array(v, dtype=np.dtype(self.input_specs[n][1]))
                 for n, v in zip(self.input_order, vals)]
         if self._program is None:
-            examples = [torch.zeros(tuple(self.input_specs[n][0]), dtype=self._dtypes[n])
+            examples = [torch.zeros(self._local_shape(n), dtype=self._dtypes[n])
                         for n in self.input_order]
             index = {n: i for i, n in enumerate(self.input_order)}
             self._program = Program(

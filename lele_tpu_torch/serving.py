@@ -97,12 +97,20 @@ class Yolo26Engine:
     CUDA card). The forward is one program a batch bucket (JAX jits it): on
     a card one CUDA graph, captured at the bucket's first request with the
     model's params of that time, the images copied into its input buffer;
-    `model.forward_fn()` is the uncaptured oracle. JAX's `mesh`
-    (data-parallel serving) is not ported."""
+    `model.forward_fn()` is the uncaptured oracle.
+
+    `mesh` (a DeviceMesh with a "data" axis; the daemon's `--mesh auto`) is
+    JAX's serving dp (lele_tpu/serving.py:148-156): the params whole on
+    every rank, the padded batch split over "data" by `dp_put` (a batch
+    that does not divide the axis runs whole on every rank), each rank's
+    rows through the program of its batch, the scores and boxes gathered.
+    The driving rank of a daemon over ranks announces each batch first
+    (parallel/lockstep.py)."""
 
     model: Any = None
     conf_threshold: float = 0.25
     device: Any = None
+    mesh: Any = None
     programs: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -123,6 +131,14 @@ class Yolo26Engine:
         params, cfg = self.model.params, self.model.cfg
         return self.programs.run(("forward", x.shape), lambda: lambda img: yolo26_forward(
             params, img, cfg), x, params=params)
+
+    def mesh_forward(self, x: np.ndarray) -> list:
+        """`forward` over `mesh` (every rank calls it on the whole batch):
+        this rank's rows, then the (scores, boxes) of every row
+        (`parallel.sharding.dp_apply`)."""
+        from .parallel.sharding import dp_apply
+
+        return dp_apply(self.mesh, lambda xs: self.forward(xs)[:2], (x,))
 
     def _to_input(self, image) -> np.ndarray:
         from .utils.image import preprocess
@@ -157,7 +173,13 @@ class Yolo26Engine:
         n = len(images)
         x = self.batch(images)
         with CARD_LOCK:
-            outs = self.forward(x)
+            if self.mesh is not None:
+                from .parallel import lockstep
+
+                lockstep.announce("det", (x,))
+                outs = self.mesh_forward(x)
+            else:
+                outs = self.forward(x)
             scores, boxes = (o[:n].cpu().numpy() for o in outs[:2])
         return [decode_detections(scores[i : i + 1], boxes[i : i + 1], self.conf_threshold)
                 for i in range(n)]

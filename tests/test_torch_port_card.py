@@ -109,6 +109,14 @@ Training (chip_smoke phase 41) at dryrun_multichip's config: one train
 step's loss, gradients and update on the card against the port's CPU run,
 and remat's gradients the same bits as without it.
 
+The multi-device layer (chip_smoke phase 42) in an NCCL group of one rank
+(every mesh axis of size 1, so no collective runs): a GPipe pipeline
+stage of kernel 1 over a stacked w8 tree, 4 rows in 2 microbatches, the
+bits of one launch a row; the MHA encoder compiled over a one-rank mesh
+with Megatron rules and seq_axis, captured, the mesh-free compile's bits;
+the small GenAI decoder with `_q` / `_s` column rules, kernel 7 on the
+rank's columns, the mesh-free compile's bits.
+
 Every case needs the card and skips without one. The repository's conftest
 imports jax, which the card's machine does not have, so run this file there
 without it:
@@ -2175,3 +2183,67 @@ def test_remat_gradients_on_the_card(dev):
     loss_r, grads_r = value_and_grad(card, batch, SenseVoiceConfig(**cs.TRAIN_SMALL, remat=True))
     assert float(loss) == float(loss_r)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads_r))
+
+
+@pytest.fixture
+def nccl_one(dev, tmp_path):
+    """An NCCL process group of one rank on the card, destroyed after."""
+    import torch.distributed as dist
+
+    from lele_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_pipeline_stage_on_kernel_1(nccl_one):
+    """A one-stage GPipe pipeline whose stage runs kernel 1 a row over a
+    stacked w8 tree (2 layers, d 256): 4 rows of T = 21 in 2 microbatches,
+    the bits of one launch a row, 4 launches."""
+    from lele_tpu_torch.parallel import pipeline_apply, stack_stage_params
+    from lele_tpu_torch.parallel.pipeline import pipe_mesh
+
+    dev = nccl_one
+    st = cs.stack_tree("weight_int8", dev, n_layers=2, d_model=256, n_heads=4, ffn=512)
+    x = torch.randn((4, 21, 256), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    mask = torch.ones(21, device=dev)
+
+    def stage(p, mb):
+        return torch.stack([K.sanm_stack_w8(r, mask, p, 4, 11) for r in mb])
+
+    K.reset_launch_counts()
+    got = pipeline_apply(stage, stack_stage_params([st]), x, pipe_mesh(1), n_microbatch=2)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["sanm_stack_w8"] == 4
+    assert torch.equal(got, stage(st, x))
+
+
+@pytest.mark.cuda
+def test_compile_model_over_one_rank_nccl_mesh(nccl_one):
+    """The MHA encoder over a one-rank mesh with Megatron rules and
+    seq_axis: captured, the mesh-free compile's bits; the small GenAI
+    decoder with `_q` / `_s` column rules: kernel 7 a MatMulNBits node, the
+    mesh-free compile's bits."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.parallel import make_mesh
+
+    dev = nccl_one
+    mesh = make_mesh(1, seq=1)
+    bs, x, _, _ = cs.dryrun_onnx(2, 8)
+    cm = compile_model(bs, dim_values={"B": 2, "T": 8}, mesh=mesh, batch_axis=0, seq_axis=1,
+                       param_rules=cs.mha_rules)
+    ref = compile_model(bs, dim_values={"B": 2, "T": 8}, device=dev)
+    assert cm.device.type == "cuda"
+    assert np.array_equal(cm.run_np(x)[0], ref.run_np(x)[0]) and cm.stats["captured"]
+
+    g, feeds = cs.dryrun_genai(2)
+    gm = compile_model(g, mesh=mesh, param_rules=cs.nbits_rules)
+    gf = compile_model(g, device=dev)
+    gm.run_np(**feeds)
+    K.reset_launch_counts()
+    got = gm.run_np(**feeds)
+    assert K.launch_counts()["w4_gemm"] == gm.stats["pattern_hits"]["matmul_nbits_w4"] // 2
+    assert all(np.array_equal(a, b) for a, b in zip(got, gf.run_np(**feeds)))

@@ -220,7 +220,10 @@ def test_port_runs_without_jax():
     and slice 24: chip_smoke phase 40's int8 GPT-2 BeamSearch export at a
     small width, bound by bind_inputs, and its packed BERT stack; and slice
     25 (with optax and orbax blocked too): a remat train step, a checkpoint
-    saved and restored, and the planner's H100 plans."""
+    saved and restored, and the planner's H100 plans; and the multi-device
+    layer, in a one-rank gloo group: a pipeline of one stage, a compiled
+    graph over a one-rank mesh with param rules, and plan_serving_mesh's
+    (None, None)."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "sys.modules['optax'] = None; sys.modules['orbax'] = None\n"
@@ -562,6 +565,25 @@ def test_port_runs_without_jax():
         "from lele_tpu_torch.parallel.planner import H100, EncoderSpec, format_plans, plan_encoder\n"
         "assert 'dp' in format_plans(plan_encoder(EncoderSpec(batch=8, seq=96), 8, chip=H100))\n"
         "import lele_tpu_torch.parallel.spmd  # noqa: F401\n"
+        "import lele_tpu_torch.parallel.lockstep  # noqa: F401\n"
+        "from lele_tpu_torch.onnx import builder as mob\n"
+        "from lele_tpu_torch.parallel import init_distributed, make_mesh, pipeline_apply\n"
+        "from lele_tpu_torch.parallel import stack_stage_params\n"
+        "from lele_tpu_torch.parallel.pipeline import pipe_mesh\n"
+        "from lele_tpu_torch.server import plan_serving_mesh\n"
+        "with tempfile.TemporaryDirectory() as td:\n"
+        "    init_distributed(0, 1, f'file://{td}/rv', 'cpu')\n"
+        "    assert plan_serving_mesh() == (None, None)\n"
+        "    pw = stack_stage_params([{'w': torch.eye(4) * 2}])\n"
+        "    py = pipeline_apply(lambda p, mb: mb @ p['w'], pw, torch.ones(4, 4), pipe_mesh(1), 2)\n"
+        "    assert torch.equal(py, torch.full((4, 4), 2.0))\n"
+        "    mw = np.arange(12, dtype=np.float32).reshape(3, 4)\n"
+        "    mbs = mob.build_model_bytes([mob.node('MatMul', ['x', 'w'], ['y'])],\n"
+        "        inputs=[mob.value_info('x', 1, [2, 3])], outputs=[mob.value_info('y', 1, [2, 4])],\n"
+        "        initializers=[mob.tensor_from_array(mw, 'w')])\n"
+        "    mcm = compile_model(mbs, mesh=make_mesh(1), param_rules=lambda n, s: (None, 'model'))\n"
+        "    assert np.array_equal(mcm.run_np(np.ones((2, 3), np.float32))[0], np.ones((2, 3)) @ mw)\n"
+        "    torch.distributed.destroy_process_group()\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL', 'optax', 'orbax')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
