@@ -309,10 +309,20 @@
    daemon's full-width engines over a mesh (8 concurrent /recognize and a
    /detect, each request's ids alone and mesh-free), dryrun_multichip's six
    remaining legs, and two gloo ranks sharing the card for the tp legs;
-43. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
+43. the JAX package's last modules (`aot_phase`): phase 6's graph through
+   `python -m lele_tpu_torch.cli --aot --xc`, its four cold starts in fresh
+   processes (traced warm, the .pt2 program, the .xc bundle with an empty
+   build cache and nothing built, traced with nvcc), each the compiled
+   model's bits and kernels 4 and 5 once a call; the native w8a16 encoder
+   through save_aot_bundle / load_aot_bundle (kernels 1 and 2, the bits);
+   ResNet-50 and the SD block at each --precision; opcheck of the 12
+   registered ops on the card and the dispatcher's host cost; the native
+   WAV decoder against the Python parser;
+44. prints one JSON line of kernels (rows 4 and 6 count phase 34's launches
    too, row 7 phase 35's, row 11 phase 37's, rows 1, 2, 4, 5 and 10 phase
    38's, rows 4 and 5 phase 39's, row 5 phase 40's, rows 1, 2 and 7 phase
-   42's), the card, and last {"ok": true, "device": ...}.
+   42's, rows 1, 2, 4 and 5 phase 43's), the card, and last {"ok": true,
+   "device": ...}.
 
 Each phase's seconds follow its output ("[phase 7: 12.3 s]"). Exits
 non-zero, and prints no result, when there is no CUDA card or any check
@@ -324,6 +334,7 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 from itertools import cycle
@@ -5566,6 +5577,18 @@ def load_wrapper(path: Path):
     return getattr(mod, path.stem)
 
 
+def traced_copy(gen: Path, dest: Path) -> Path:
+    """The CLI's output in `gen` without its AOT bundle: the wrapper copied
+    (it reads its files beside itself) and the blob and graph linked, so the
+    wrapper traces the graph. → dest."""
+    dest.mkdir()
+    (dest / "PhaseSanm.py").write_bytes((gen / "PhaseSanm.py").read_bytes())
+    for f in gen.iterdir():
+        if f.suffix in (".bin", ".json", ".onnx"):
+            (dest / f.name).symlink_to(f)
+    return dest
+
+
 WRAPPER_RUN = """
 import json, sys, time
 import numpy as np
@@ -5587,16 +5610,18 @@ print(json.dumps({"counts": counts, "captured": m._cm.stats["captured"],
 """
 
 
-def entry_points_phase(checks, dev, card, graph: bytes, cm, feeds: dict) -> dict:
+def entry_points_phase(checks, dev, card, graph: bytes, cm, feeds: dict, gen: Path) -> dict:
     """Phase 38: the port's entry points at full width. The server twice
     (ThreadingHTTPServer on 127.0.0.1:0): build_engines()'s full-width JAX
     defaults, and engines on the main path (w8a16 SenseVoice, the fused
     Supertonic of tts.json, the default YOLO26); every route held to the
     engines' direct calls (`served_requests`), /recognize latencies at 1, 4
     and 8 clients on the main path (`latency_runs`). The CLI: phase 6's
-    int8 SAN-M graph through `python -m lele_tpu_torch.cli` in a
-    subprocess, its wrapper in a second fresh one (kernels 4 and 5 once a
-    call, the outputs `cm`'s bits on `feeds`); --quantize-weights against
+    int8 SAN-M graph through `python -m lele_tpu_torch.cli ... --aot --xc`
+    in a subprocess, writing to `gen` (phase 43 starts its AOT forms from
+    there), its wrapper traced in a second fresh one from a copy without
+    the bundle (`traced_copy`; kernels 4 and 5 once a call, the outputs
+    `cm`'s bits on `feeds`); --quantize-weights against
     f64 on its blob's dequantized weights, off the f32 output (the int8
     took), --quantize-dynamic the bits of
     quantize_dynamic + compile_model, build_model from a local model.toml.
@@ -5645,8 +5670,9 @@ def entry_points_phase(checks, dev, card, graph: bytes, cm, feeds: dict) -> dict
                                           for k, v in feeds.items()})
         t_cli = time.perf_counter()
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "lele_tpu_torch.cli", str(onnx_path), str(folder / "gen"),
-             "PhaseSanm", "--dim", f"T={t_pad}"], cwd=Path(__file__).resolve().parent,
+            [sys.executable, "-m", "lele_tpu_torch.cli", str(onnx_path), str(gen),
+             "PhaseSanm", "--dim", f"T={t_pad}", "--aot", "--xc"],
+            cwd=Path(__file__).resolve().parent,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
         t0 = time.perf_counter()
@@ -5663,13 +5689,14 @@ def entry_points_phase(checks, dev, card, graph: bytes, cm, feeds: dict) -> dict
 
         cli_out, _ = procs[0].communicate(timeout=300)
         t_cli = time.perf_counter() - t_cli
-        checks.require(procs[0].returncode == 0 and (folder / "gen" / "PhaseSanm.py").exists(),
+        checks.require(procs[0].returncode == 0 and (gen / "PhaseSanm.py").exists(),
                        f"python -m lele_tpu_torch.cli on the {len(graph) / 1e6:.1f} MB int8 "
                        f"SAN-M graph (--dim T={t_pad}): exit {procs[0].returncode} in "
                        f"{t_cli:.1f} s: {cli_out.strip().splitlines()[-2:]}")
         t_wrap = time.perf_counter()
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", WRAPPER_RUN, str(folder / "gen"), str(folder / "feeds.npz"),
+            [sys.executable, "-c", WRAPPER_RUN, str(traced_copy(gen, folder / "traced")),
+             str(folder / "feeds.npz"),
              str(folder / "outs.npz")], cwd=Path(__file__).resolve().parent,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
 
@@ -7749,6 +7776,403 @@ def mesh_phase(checks, dev, card) -> dict:
     return launches
 
 
+# phase 43: the last modules of the JAX package (ROADMAP §1.4): the AOT
+# forms of phase 6's compiled graph, the native model's AOT bundle, the
+# precisions, the registered ops and the native decoder
+AOT_RUN = """
+import json, sys, time
+t0 = time.perf_counter()
+mode, gen, feeds_path, out_path = sys.argv[1:5]
+sys.path.insert(0, gen)
+import numpy as np, torch
+from lele_tpu_torch import kernels as K
+from lele_tpu_torch.kernels import _build
+feeds = dict(np.load(feeds_path))
+torch.cuda.init()
+# torch's flags at TF32: each form must run at the precision it was built at
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+t_import = time.perf_counter() - t0
+aot = None
+if mode == "pt2":
+    from lele_tpu_torch.compiler.aot import load_exported
+    from lele_tpu_torch.runtime.artifact import load_flat
+    dev = torch.device("cuda", 0)
+    call = load_exported(gen + "/PhaseSanm.pt2")
+    params = load_flat(gen + "/PhaseSanm_weights", dev)
+    rest = [torch.as_tensor(feeds[n]).to(device=dev, dtype=getattr(torch, dt))
+            for n, dt in json.loads(sys.argv[5])]
+    run = lambda: call(params, (), rest)
+else:
+    from PhaseSanm import PhaseSanm
+    m = PhaseSanm()
+    aot = m.aot_loaded
+    run = lambda: m._cm(**feeds)
+torch.cuda.synchronize()
+t_model = time.perf_counter() - t0
+counts = []
+for i in range(3):
+    K.reset_launch_counts()
+    outs = run()
+    torch.cuda.synchronize()
+    if i == 0:
+        t_first = time.perf_counter() - t0
+    counts.append({k: v for k, v in K.launch_counts().items() if v})
+np.savez(out_path, *[o.cpu().numpy() for o in outs])
+print(json.dumps({"import_s": t_import, "model_s": t_model, "first_s": t_first,
+                  "aot_loaded": aot,
+                  "built": _build.BUILT, "counts": counts,
+                  "build_dir": str(_build.BUILD_DIR)}))
+"""
+
+NATIVE_AOT_RUN = """
+import json, sys, time
+t0 = time.perf_counter()
+prefix, feats_path, out_path = sys.argv[1:4]
+import numpy as np, torch
+from lele_tpu_torch import kernels as K
+from lele_tpu_torch.kernels import _build
+from lele_tpu_torch.runtime.artifact import load_aot_bundle
+# torch's flags at TF32: the call must run at the precision saved with it
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+fn, params = load_aot_bundle(prefix)
+feats = torch.from_numpy(np.load(feats_path)).cuda()
+K.reset_launch_counts()
+logits = fn(params, feats)
+torch.cuda.synchronize()
+t_first = time.perf_counter() - t0
+np.save(out_path, logits.cpu().numpy())
+print(json.dumps({"load_s": fn.load_s, "first_s": t_first, "built": _build.BUILT,
+                  "counts": {k: v for k, v in K.launch_counts().items() if v}}))
+"""
+
+MATMUL_PROBE = """
+import json, torch
+g = torch.Generator(device="cuda").manual_seed(0)
+a = torch.randn(4096, 4096, device="cuda", generator=g)
+b = torch.randn(4096, 4096, device="cuda", generator=g)
+ref = (a.double() @ b.double())
+out = {}
+def err(label):
+    torch.cuda.synchronize()
+    y = a @ b
+    out[label] = float((y.double() - ref).abs().max() / ref.abs().max())
+torch.backends.cuda.matmul.allow_tf32 = False
+err("allow_tf32 False (ieee)")
+torch.backends.cuda.matmul.allow_tf32 = True
+err("allow_tf32 True (tf32)")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("medium")
+err("set_float32_matmul_precision medium")
+torch.set_float32_matmul_precision("highest")
+try:
+    torch.backends.cuda.matmul.fp32_precision = "bf16"
+    err("fp32_precision bf16")
+except Exception as e:
+    out["fp32_precision bf16"] = f"refused: {e}"
+out["bf16 operands"] = float(((a.bfloat16() @ b.bfloat16()).double() - ref).abs().max()
+                             / ref.abs().max())
+print(json.dumps(out))
+"""
+
+
+def aot_phase(checks, dev, card, gen: Path, cm, feeds: dict, model) -> dict:
+    """Phase 43: the slice's paths at full width.
+
+    (a) phase 6's 50-layer int8 SAN-M graph as phase 38's `python -m
+    lele_tpu_torch.cli ... --aot --xc` subprocess wrote it to `gen`, then
+    four fresh processes: the wrapper traced from the graph with the warm build
+    directory; `load_exported(<Class>.pt2)` on the blob's params; the
+    wrapper with `<Class>.xc/` and `LELE_CACHE_DIR` an empty directory
+    (aot_loaded, no kernel built); the wrapper traced with an empty build
+    directory (nvcc runs). Each gives `cm`'s bits on `feeds`, kernels 4 and
+    5 once a call, and its seconds from start to a model and to the first
+    result. (b) the native w8a16 model's encoder (kernels 1 and 2) through
+    `save_aot_bundle` and `load_aot_bundle` in a fresh process: the
+    in-process program's and forward_fn's bits, the load seconds split.
+    The fresh processes set torch's flags to TF32, so each form must run at
+    the precision it was built at. (c) ResNet-50 f32 at N = 8 and the SD 1.5
+    block at each precision: time in a CUDA graph and max|d|/max|ref|
+    against "highest", and the "highest" model's `.pt2` run while torch's
+    flags allow TF32 gives its bits; a [4096, 4096]^2 product against f64
+    under each of torch's switches. (d) `torch.library.opcheck` on the
+    12 ops with CUDA tensors, and each op's host cost over its launch alone.
+    (e) 64 synthetic WAVs decoded by the native decoder and the Python
+    parser. → {kernel: {path: launches}}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lele_tpu_torch import kernels as K
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.compiler.aot import export_model, load_exported
+    from lele_tpu_torch.config import precision_scope
+    from lele_tpu_torch.models.sensevoice import sensevoice_encode
+    from lele_tpu_torch.runtime.artifact import canonical, export_program, save_aot_bundle
+    from lele_tpu_torch.runtime.dataloader import decode_wav_files
+    from lele_tpu_torch.utils.wav import encode_wav, read_wav
+
+    banner(f"== 43. AOT (--aot, --xc, load_aot_bundle), precisions, registered ops, the "
+           f"native decoder ({card})")
+    launches: dict[str, dict[str, int]] = {}
+    here = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    folder = Path(tmp.name)
+    try:
+        # (a) the compiled graph's four cold starts
+        t_ph = time.perf_counter()
+        np.savez(folder / "feeds.npz", **{k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                                          for k, v in feeds.items()})
+        want = [o.cpu().numpy() for o in cm(**feeds)]
+        mpath = gen / "PhaseSanm.xc" / "manifest.json"
+        manifest = json.loads(mpath.read_text()) if mpath.exists() else {}
+        checks.require((gen / "PhaseSanm.pt2").exists()
+                       and sorted(manifest.get("libraries", {})) == ["dq_gemm", "sanm_dql"]
+                       and manifest.get("device", "").startswith("sm_"),
+                       f"phase 38's cli --aot --xc wrote PhaseSanm.pt2 and PhaseSanm.xc/: "
+                       f"libraries {sorted(manifest.get('libraries', {}))}, device "
+                       f"{manifest.get('device')}, torch {manifest.get('torch')}, CUDA "
+                       f"{manifest.get('cuda')}")
+        traced = traced_copy(gen, folder / "gen_traced")
+        order = json.dumps([[n, str(cm._dtypes[n])[6:]] for n in cm.input_order])
+        runs = (("traced, warm build directory", "wrapper", traced, None),
+                ("load_exported(PhaseSanm.pt2), warm build directory", "pt2", gen, None),
+                ("PhaseSanm.xc/, empty LELE_CACHE_DIR", "wrapper", gen, folder / "cache_xc"),
+                ("traced, empty build directory (nvcc)", "wrapper", traced,
+                 folder / "cache_cold"))
+        rows = []
+        for i, (label, mode, where, cache) in enumerate(runs):
+            if cache is not None:
+                cache.mkdir()
+            env = {k: v for k, v in os.environ.items() if k != "LELE_CACHE_DIR"}
+            if cache is not None:
+                env["LELE_CACHE_DIR"] = str(cache)
+            out = folder / f"outs{i}.npz"
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-c", AOT_RUN, mode, str(where),
+                                str(folder / "feeds.npz"), str(out), order], cwd=here,
+                               capture_output=True, text=True, timeout=600, env=env)
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                checks.require(False, f"AOT run {label}: exit {p.returncode}: "
+                                      f"{p.stderr[-2000:]}")
+                continue
+            res = json.loads(p.stdout.strip().splitlines()[-1])
+            with np.load(out) as z:
+                got = [z[f"arr_{j}"] for j in range(len(z.files))]
+            bits = len(got) == len(want) and all(np.array_equal(g, w)
+                                                   for g, w in zip(got, want))
+            once = all(c.get("sanm_stack_dql") == 1 and c.get("dq_gemm") == 1
+                       for c in res["counts"])
+            ok = bits and once
+            if "xc" in label:
+                ok = ok and res["aot_loaded"] is True and res["built"] == []
+            if "nvcc" in label:
+                ok = ok and "sanm_dql" in res["built"]
+            checks.require(ok, f"AOT run {label}: the compiled model's bits {bits}; launches "
+                               f"a call {res['counts']}; aot_loaded {res['aot_loaded']}, "
+                               f"built {res['built']}")
+            rows.append((label, res, wall))
+            for k, v in res["counts"][0].items():
+                launches.setdefault(k, {})[f"43a {label}"] = v
+        for label, res, wall in rows:
+            print(f"  cold start, {label}: imports and the card {res['import_s']:.2f} s, "
+                  f"model {res['model_s']:.2f} s, first result "
+                  f"{res['first_s']:.2f} s from the script's start, process wall {wall:.2f} s"
+                  f"; built {res['built'] or 'nothing'}  ({card})")
+        print(f"  (a) done in {time.perf_counter() - t_ph:.1f} s")
+
+        # (b) the native model's encoder as a bundle
+        t_ph = time.perf_counter()
+        cfg = model.cfg
+        pcm = synth_speechlike(10.0, np.random.default_rng(SEED + 431))
+        feats = model.fbank(pcm).contiguous()
+
+        def encode(params, f):
+            mask = torch.ones((1, f.shape[0]), dtype=torch.float32, device=f.device)
+            return sensevoice_encode(params, f[None], mask, cfg)
+
+        t0 = time.perf_counter()
+        prog = export_program(encode, model.params, feats)
+        export_s = time.perf_counter() - t0
+        ops = sorted({n.target.name().split("::")[1].split(".")[0] for n in prog.graph.nodes
+                      if n.op == "call_function" and hasattr(n.target, "name")
+                      and n.target.name().startswith("lele_tpu_torch::")})
+        K.reset_launch_counts()
+        with torch.inference_mode(), precision_scope():  # what the bundle records
+            ref = prog.module()(canonical(model.params), feats)
+        torch.cuda.synchronize()
+        inproc = K.launch_counts()
+        eager = model.forward_fn()(model.params, pcm)
+        prefix = folder / "native" / "sv_w8"
+        prefix.parent.mkdir()
+        t0 = time.perf_counter()
+        save_aot_bundle(prefix, prog, model.params)
+        save_s = time.perf_counter() - t0
+        np.save(folder / "feats.npy", feats.cpu().numpy())
+        p = subprocess.run([sys.executable, "-c", NATIVE_AOT_RUN, str(prefix),
+                            str(folder / "feats.npy"), str(folder / "native_out.npy")],
+                           cwd=here, capture_output=True, text=True, timeout=600)
+        if p.returncode != 0:
+            checks.require(False, f"load_aot_bundle in a fresh process: {p.stderr[-2000:]}")
+        else:
+            res = json.loads(p.stdout.strip().splitlines()[-1])
+            got = np.load(folder / "native_out.npy")
+            bits = np.array_equal(got, ref.cpu().numpy())
+            eager_bits = torch.equal(ref, eager)
+            ok = (bits and eager_bits and ops == ["sanm_stack_w8", "w8_gemm"]
+                  and res["built"] == []
+                  and res["counts"] == {"w8_gemm": 1, "sanm_stack_w8": 1}
+                  and inproc["sanm_stack_w8"] == 1 and inproc["w8_gemm"] == 1)
+            checks.require(ok, f"native w8a16 encoder ({cfg.n_layers} layers, d{cfg.d_model}) "
+                               f"through save_aot_bundle / load_aot_bundle: the in-process "
+                               f"program's bits {bits} (and forward_fn's {eager_bits}); ops "
+                               f"{ops}; fresh process launches {res['counts']}, built "
+                               f"{res['built']}")
+            for k, v in res["counts"].items():
+                launches.setdefault(k, {})["43b load_aot_bundle"] = v
+            ls = res["load_s"]
+            print(f"  native bundle: export {export_s:.2f} s, save {save_s:.2f} s; fresh "
+                  f"process: program {ls['program']:.3f} s and params {ls['params']:.3f} s "
+                  f"(concurrent; {ls['total']:.3f} s both), first logits "
+                  f"{res['first_s']:.2f} s from the script's start  ({card})")
+        print(f"  (b) done in {time.perf_counter() - t_ph:.1f} s")
+
+        # (c) the precisions
+        t_ph = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", MATMUL_PROBE], cwd=here,
+                           capture_output=True, text=True, timeout=300)
+        probe = json.loads(p.stdout.strip().splitlines()[-1]) if p.returncode == 0 else {}
+        checks.require(p.returncode == 0, f"the [4096, 4096]^2 precision probe: "
+                                          f"{p.stderr[-1000:]}")
+        for k, v in probe.items():
+            print(f"  [4096, 4096]^2 f32 product vs f64, {k}: "
+                  f"{v if isinstance(v, str) else f'max|d|/max|ref| {v:.3e}'}  ({card})")
+        resnet, _ = resnet50_model()
+        xr = torch.from_numpy(np.random.default_rng(RESNET_SEED + 1).standard_normal(
+            (8, 3, 224, 224)).astype(np.float32)).to(dev)
+        sd, _ = sd_block_model()
+        b, side, C = SD_BLOCK["batch"], SD_BLOCK["side"], SD_BLOCK["channels"]
+        srng = np.random.default_rng(SD_SEED + 1)
+        sfeeds = {"h": torch.from_numpy(srng.standard_normal((b, side, side, C)).astype(
+            np.float32)).to(dev), "temb": torch.from_numpy(srng.standard_normal(
+                (b, C)).astype(np.float32)).to(dev)}
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        exported: list[str] = []
+        for label, bs, kw, fd in (("ResNet-50 f32, N = 8", resnet, {"dim_values": {"N": 8}},
+                                   {"data": xr}),
+                                  ("SD 1.5 UNet block f32", sd, {}, sfeeds)):
+            outs, times = {}, {}
+            for prec in ("highest", "high", "default"):
+                m = compile_model(bs, device=dev, strict=True, precision=prec, **kw).compile()
+                outs[prec] = m(**fd)[0].clone()
+                times[prec] = time_ms(lambda: m(**fd))
+                if prec == "highest":  # its export, run while torch's flags allow TF32
+                    call = load_exported(export_model(m, folder / f"prec{len(exported)}"))
+                    rest = [m._prep(n, fd[n]) for n in m.input_order]
+                    try:
+                        torch.backends.cuda.matmul.allow_tf32 = True
+                        torch.backends.cudnn.allow_tf32 = True
+                        got = call(m.params, (), rest)[0]
+                    finally:
+                        (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32) = flags
+                    exported.append(label)
+                    checks.require(call.precision == "highest" and torch.equal(got, outs[prec]),
+                                   f"{label}: its .pt2 at highest, loaded and run while torch's "
+                                   f"flags allow TF32, gives the tape's bits "
+                                   f"(saved precision {call.precision!r})")
+                same = (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) == flags
+                checks.require(m.stats["captured"] and same,
+                               f"{label} at {prec}: captured {m.stats['captured']}, torch's "
+                               f"TF32 flags restored after the capture and replay {same}")
+                del m
+            top = outs["highest"].abs().max().item()
+            parts = []
+            for prec in ("highest", "high", "default"):
+                rel = (outs[prec] - outs["highest"]).abs().max().item() / top
+                parts.append(f"{prec} {times[prec]:.4f} ms, max|d|/max|ref| {rel:.3e}")
+                checks.require(bool(torch.isfinite(outs[prec]).all()) and rel <= 1e-2,
+                               f"{label} at {prec}: finite, {rel:.3e} <= 1e-2 of highest's")
+            print(f"  {label}, in a CUDA graph: " + "; ".join(parts) + f"  ({card})")
+        print(f"  (c) done in {time.perf_counter() - t_ph:.1f} s")
+
+        # (d) the registered ops on the card
+        t_ph = time.perf_counter()
+        samples = K.op_samples(dev)
+        for name in sorted(K.KERNEL_WRAPPERS):
+            op = getattr(torch.ops.lele_tpu_torch, name).default
+            try:
+                res = torch.library.opcheck(op, samples[name])
+                ok = set(res.values()) == {"SUCCESS"}
+            except Exception as e:  # noqa: BLE001 - the check reports it
+                res, ok = f"{type(e).__name__}: {str(e)[:400]}", False
+            checks.require(ok, f"opcheck lele_tpu_torch::{name} on the card: {res}")
+        x1 = torch.randn((1, 512), device=dev).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (512, 2048), device=dev, dtype=torch.int8)
+        ws = torch.rand((2048,), device=dev) * 1e-3
+        xd = torch.randn((1, 512), device=dev)
+        colsum = wq.to(torch.int32).sum(0, dtype=torch.int32)
+        a_scale, a_zp = K.quant_matmul.dql_scale_zp(xd)
+        pairs = (("w8_matmul, x [1, 512] bf16 @ [512, 2048]",
+                  lambda: K.w8_matmul(x1, wq, ws),
+                  lambda: K.quant_matmul.w8_matmul_kernel(x1, wq, ws)),
+                 ("fused_dq_matmul, x [1, 512] @ [512, 2048]",
+                  lambda: K.fused_dq_matmul(xd, wq, colsum, a_scale, a_zp, 2.5e-3),
+                  lambda: K.quant_matmul.fused_dq_matmul_kernel(xd, wq, colsum, a_scale,
+                                                               a_zp, 2.5e-3)))
+        for label, via_op, direct in pairs:
+            t_op, t_direct = host_us(via_op), host_us(direct)
+            print(f"  {label}: {t_op:.2f} us of host time a call through the registered op, "
+                  f"{t_direct:.2f} us calling the launch directly: the dispatcher adds "
+                  f"{t_op - t_direct:.2f} us  ({card})")
+        print(f"  (d) done in {time.perf_counter() - t_ph:.1f} s")
+
+        # (e) the native decoder
+        t_ph = time.perf_counter()
+        wrng = np.random.default_rng(SEED + 435)
+        paths = []
+        for i in range(64):
+            p_ = folder / "wav" / f"w{i:02d}.wav"
+            p_.parent.mkdir(exist_ok=True)
+            p_.write_bytes(encode_wav(synth_speechlike(10.0, wrng), SR))
+            paths.append(p_)
+        n_bytes = sum(p_.stat().st_size for p_ in paths)
+        nat = decode_wav_files(paths)
+        py = [read_wav(p_, try_native=False) for p_ in paths]
+        same = all(s1 == s2 and np.array_equal(a1, a2) for (a1, s1), (a2, s2) in zip(nat, py))
+        t_nat = host_ms(lambda: decode_wav_files(paths), runs=5)
+        t_py = host_ms(lambda: [read_wav(p_, try_native=False) for p_ in paths], runs=5)
+        checks.require(same, "the native decoder gives the Python parser's samples on 64 WAVs")
+        print(f"  64 WAVs of 10 s (PCM16 mono, {n_bytes / 1e6:.1f} MB): native decode_wav_files "
+              f"{t_nat:.2f} ms ({n_bytes / t_nat / 1e3:.0f} MB/s, {640 / t_nat * 1e3:.0f} s of "
+              f"audio a second), the Python parser {t_py:.2f} ms ({n_bytes / t_py / 1e3:.0f} "
+              f"MB/s), {os.cpu_count()} host cores (host clock)  ({card})")
+        print(f"  (e) done in {time.perf_counter() - t_ph:.1f} s")
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Median host microseconds of one fn() call (an asynchronous launch),
+    over `calls` calls in blocks of 100 with a device sync between blocks."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(calls // 100):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e4)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
 def main() -> int:
     import torch
 
@@ -8276,11 +8700,18 @@ def main() -> int:
     genai_launches = genai_phase(checks, dev, card)
     ops_phase(checks, dev, card)
     quant_launches = quant_phase(checks, dev, card)
-    entry_launches = entry_points_phase(checks, dev, card, graph, cm10, inputs10)
+    import tempfile
+
+    shared = tempfile.TemporaryDirectory()  # phase 38's CLI output, phase 43's input
+    entry_launches = entry_points_phase(checks, dev, card, graph, cm10, inputs10,
+                                        Path(shared.name) / "gen")
     tail_launches = op_tail_phase(checks, dev, card, cm10.stats["pattern_hits"])
     search_launches = search_phase(checks, dev, card)
     train_phase(checks, dev, card)
     mesh_launches = mesh_phase(checks, dev, card)
+    aot_launches = aot_phase(checks, dev, card, Path(shared.name) / "gen", cm10, inputs10,
+                             model)
+    shared.cleanup()
 
     banner(None)
     if checks.failures:
@@ -8413,6 +8844,7 @@ def main() -> int:
          **({"phase39_launches": tail_launches[name]} if name in tail_launches else {}),
          **({"phase40_launches": search_launches[name]} if name in search_launches else {}),
          **({"phase42_launches": mesh_launches[name]} if name in mesh_launches else {}),
+         **({"phase43_launches": aot_launches[name]} if name in aot_launches else {}),
          **({"forms": forms[name]} if name in forms else {}),
          **({"library": library[name]} if name in library else {})}
         for name, (src, rep, tol, counts) in replaces.items()

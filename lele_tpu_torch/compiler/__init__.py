@@ -11,10 +11,13 @@ raises where there is none. `compute="bfloat16"` is the JAX package's
 compute policy: large f32 params stored in bf16, f32 inputs cast to it, bf16
 outputs returned as f32 (compiler/tracer.py). `donate=[input names]` is
 JAX's donation (runtime/engine.py): on a card the model's captured CUDA
-graph writes each such input's new value back into its static buffer. JAX's
-`precision="default"` needs no knob here: bf16 operands on cuDNN and cuBLAS
-are its counterpart. The JAX package's AOT and image-stem options have no
-counterpart here.
+graph writes each such input's new value back into its static buffer.
+`precision` ("default", "high" or "highest"; None takes
+`config.matmul_precision` at each walk) pins the precision of the model's
+plain f32 products and convs (config.py, runtime/engine.py); `strict=None`
+takes `config.strict`. The compiled model exports (`cm.lower()`,
+compiler/aot.py) and saves its AOT bundle (`cm.save_aot`). The JAX
+package's image-stem option (a TPU lane layout) has no counterpart here.
 
 `mesh` (a DeviceMesh over the default group's ranks, `parallel.make_mesh` or
 `parallel.plan_mesh`) with `batch_axis`, `seq_axis` and `param_rules` is
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..config import check_precision, config
 from ..onnx.functions import inline_model
 from ..onnx.loader import DTYPE_MAP, OnnxModel
 from ..runtime.engine import CompiledModel
@@ -46,7 +50,7 @@ class Compiler:
     def __init__(self):
         self._overrides: dict[str, Callable] = {}
         self._patterns: list | None = None
-        self._strict = False
+        self._strict: bool | None = None
 
     def with_override(self, op_type: str, fn: Callable) -> "Compiler":
         self._overrides[op_type] = fn
@@ -66,7 +70,7 @@ class Compiler:
         self._patterns = list(patterns)
         return self
 
-    def with_strict(self, strict: bool = True) -> "Compiler":
+    def with_strict(self, strict: bool | None = True) -> "Compiler":
         self._strict = strict
         return self
 
@@ -76,9 +80,10 @@ class Compiler:
                 device: torch.device | str | None = None,
                 compute: str | None = None, donate: Sequence[str] = (), mesh=None,
                 batch_axis: int | None = None, seq_axis: int | None = None,
-                param_rules=None) -> CompiledModel:
+                param_rules=None, precision: str | None = None) -> CompiledModel:
         if compute not in (None, "bfloat16"):
             raise ValueError(f"compute={compute!r}: expected None or 'bfloat16'")
+        check_precision(precision)
         if isinstance(model, (bytes, bytearray, memoryview)):
             model = OnnxModel.from_bytes(bytes(model))
         elif not isinstance(model, OnnxModel):
@@ -96,13 +101,14 @@ class Compiler:
             device = on
             placement = Placement(mesh, model, specs, batch_axis, seq_axis, param_rules)
         device = torch.device(device) if device is not None else default_device()
+        strict = config.strict if self._strict is None else self._strict
         tracer = GraphTracer(model, overrides=self._overrides,
-                             patterns=self._patterns, strict=self._strict)
+                             patterns=self._patterns, strict=strict)
         trace = tracer.build(specs, device, compute=torch.bfloat16 if compute else None,
                              placement=placement)
         return CompiledModel(trace, specs, input_order=model.input_names(),
                              output_names=model.output_names(), stats=tracer.stats,
-                             donate=donate)
+                             donate=donate, precision=precision)
 
 
 def resolve_input_specs(
@@ -144,7 +150,7 @@ def compile_model(
     input_shapes: dict[str, Sequence[int]] | None = None,
     dim_values: dict[str, int] | None = None,
     overrides: dict[str, Callable] | None = None,
-    strict: bool = False,
+    strict: bool | None = None,
     patterns: Sequence | None = None,
     device: torch.device | str | None = None,
     compute: str | None = None,
@@ -153,6 +159,7 @@ def compile_model(
     batch_axis: int | None = None,
     seq_axis: int | None = None,
     param_rules=None,
+    precision: str | None = None,
 ) -> CompiledModel:
     c = Compiler()
     for k, v in (overrides or {}).items():
@@ -160,4 +167,5 @@ def compile_model(
     if patterns is not None:
         c.with_patterns(patterns)
     return c.with_strict(strict).compile(model, input_shapes, dim_values, device, compute,
-                                         donate, mesh, batch_axis, seq_axis, param_rules)
+                                         donate, mesh, batch_axis, seq_axis, param_rules,
+                                         precision)

@@ -74,6 +74,7 @@ GraphProto once, record the device work, replay it per request.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import sys
 from collections import ChainMap
@@ -83,6 +84,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..config import config
 from ..onnx.loader import (Fp8Bits, OnnxModel, base_dir_scope, from_torch, tensor_to_array,
                            to_torch)
 from ..onnx.schema import Proto
@@ -278,9 +280,14 @@ class Tape:
         vals: list = [None] * self.n_slots
         for k, t in zip(self.inputs, inputs):
             vals[k] = t
+        subst = _SUBST
 
         def get(v):
-            return vals[v.k] if isinstance(v, _Slot) else v
+            if isinstance(v, _Slot):
+                return vals[v.k]
+            if subst and isinstance(v, torch.Tensor):
+                return subst.get(id(v), v)
+            return v
 
         for i, st in enumerate(self.steps):
             try:
@@ -304,6 +311,34 @@ class Tape:
         its body is; a collective over a mesh axis (parallel/placement.py)
         is capturable over NCCL, not over gloo."""
         return all(getattr(st.fn, "capturable", True) for st in self.steps)
+
+
+# constants of a trace replaced by other tensors, by id: what
+# `substituted_constants` sets while a replay runs (compiler/aot.py passes
+# the params in as the exported program's inputs through it)
+_SUBST: dict[int, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def substituted_constants(mapping: dict[int, torch.Tensor]):
+    """Inside, every replay (sub-tapes too) reads the tensor `mapping` gives
+    for a constant's id in place of the constant."""
+    if _SUBST:
+        raise RuntimeError("substituted_constants does not nest")
+    _SUBST.update(mapping)
+    try:
+        yield
+    finally:
+        _SUBST.clear()
+
+
+def first_uncapturable(tape: Tape) -> str | None:
+    """The name of the first step of `tape` that reads the host (a dynamic
+    If, a while loop), or None where the tape is capturable."""
+    for i, st in enumerate(tape.steps):
+        if not getattr(st.fn, "capturable", True):
+            return f"tape step {i}: {_step_name(st)}"
+    return None
 
 
 def _step_name(st: _Step) -> str:
@@ -558,7 +593,7 @@ class GraphTracer:
         model: OnnxModel,
         overrides: dict[str, Callable] | None = None,
         patterns: Sequence | None = None,
-        strict: bool = False,
+        strict: bool | None = None,
     ):
         self.model = model
         self.opset = model.opset
@@ -567,7 +602,7 @@ class GraphTracer:
 
         self.patterns = list(patterns) if patterns is not None else list(
             DEFAULT_PATTERNS)
-        self.strict = strict
+        self.strict = config.strict if strict is None else strict  # JAX's tracer.py:148
 
     # -- node execution ------------------------------------------------------
 

@@ -10,6 +10,13 @@ capture records what its launches added (and sets the counts back with
 `set_launch_counts`), and each replay adds that record once
 (`add_launch_counts`), so `launch_counts()` reads what the uncaptured path
 would, call by call.
+
+Each wrapper calls its kernel's registered op, `lele_tpu_torch::<name>`
+under the names of `KERNEL_WRAPPERS` (kernels/_library.py): the dispatcher
+sends a CPU tensor to the plain version and a CUDA tensor to the launch,
+and `torch.export` records the op as one node (compiler/aot.py).
+`OP_STEMS` names the kernel source each op launches; `op_samples(device)`
+gives each op's arguments at a small shape both routes take.
 """
 
 from .est_block import (  # noqa: F401
@@ -41,6 +48,7 @@ from .sanm_block import (  # noqa: F401
     sanm_stack_w8,
     sanm_stack_w8_plain,
 )
+from .samples import op_samples  # noqa: F401
 from .w4_matmul import (  # noqa: F401
     dequantize_int4,
     quantize_weight_int4,
@@ -61,6 +69,22 @@ KERNEL_WRAPPERS = {
     "est_block": estimator_blocks,
     "flash_attn": flash_attention,
     "int8_gemm": int8_matmul,
+}
+
+# the csrc/ source (kernels/_build.py stem) each registered op launches
+OP_STEMS = {
+    "w8_gemm": "w8_gemm",
+    "sanm_layer_w8": "sanm_layer",
+    "sanm_stack_w8": "sanm_stack",
+    "dq_gemm": "dq_gemm",
+    "sanm_stack_dql": "sanm_dql",
+    "lstm_seq": "lstm_seq",
+    "w4_gemm": "w4_gemm",
+    "sanm_stack_w4": "sanm_stack",
+    "gru_seq": "gru_seq",
+    "est_block": "est_block",
+    "flash_attn": "flash_attn",
+    "int8_gemm": "int8_gemm",
 }
 
 

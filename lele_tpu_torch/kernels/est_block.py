@@ -32,11 +32,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "est_block"
 _fn = None
 _LINEARS = ("q", "kv", "out", "ffn1", "ffn2")
+# the stack's tensors in the C entry's order
+_LEAVES = (("norm1", "g"), ("norm1", "b"), ("q", "w"), ("q", "b"), ("kv", "w"), ("kv", "b"),
+           ("out", "w"), ("out", "b"), ("norm2", "g"), ("norm2", "b"), ("ffn1", "w"),
+           ("ffn1", "b"), ("ffn2", "w"), ("ffn2", "b"))
 
 
 def kernel_takes(T: int, Tk: int, D: int, n_heads: int, F: int) -> bool:
@@ -159,10 +163,7 @@ def estimator_blocks_kernel(x: torch.Tensor, text_emb: torch.Tensor, latent_mask
         _fn = _build.bind(_STEM, "estimator_blocks", [P, P, P, P, I, I, I, I, I, I]
                           + [P] * 14 + [P] * 6 + [P])
     weights = []
-    for name, leaf in (("norm1", "g"), ("norm1", "b"), ("q", "w"), ("q", "b"), ("kv", "w"),
-                       ("kv", "b"), ("out", "w"), ("out", "b"), ("norm2", "g"),
-                       ("norm2", "b"), ("ffn1", "w"), ("ffn1", "b"), ("ffn2", "w"),
-                       ("ffn2", "b")):
+    for name, leaf in _LEAVES:
         t = stacked[name][leaf]
         want = torch.bfloat16 if name in _LINEARS and leaf == "w" else torch.float32
         if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
@@ -191,11 +192,33 @@ def estimator_blocks(x: torch.Tensor, text_emb: torch.Tensor, latent_mask: torch
                      text_mask: torch.Tensor, stacked, n_heads: int) -> torch.Tensor:
     """x f32 [T, D] (after the in/style/time/position projections), text_emb
     [Tk, D], latent_mask [T], text_mask [Tk], `stacked` from
-    `stack_est_blocks` → f32 [T, D] after all 2L blocks."""
-    if x.device.type == "cpu":
-        _check(x, text_emb, latent_mask, text_mask, stacked)
-        return estimator_blocks_plain(x, text_emb, latent_mask, text_mask, stacked, n_heads)
-    return estimator_blocks_kernel(x, text_emb, latent_mask, text_mask, stacked, n_heads)
+    `stack_est_blocks` → f32 [T, D] after all 2L blocks. Calls the
+    registered op `lele_tpu_torch::est_block` (kernels/_library.py), which
+    takes the stack as the list of its `_LEAVES`."""
+    return _OP(x, text_emb, latent_mask, text_mask,
+               [stacked[name][leaf] for name, leaf in _LEAVES], n_heads)
 
 
+def _tree(leaves) -> dict:
+    tree: dict = {}
+    for (name, leaf), t in zip(_LEAVES, leaves):
+        tree.setdefault(name, {})[leaf] = t
+    return tree
+
+
+def _plain(x, text_emb, latent_mask, text_mask, leaves, n_heads):
+    stacked = _tree(leaves)
+    _check(x, text_emb, latent_mask, text_mask, stacked)
+    return estimator_blocks_plain(x, text_emb, latent_mask, text_mask, stacked, n_heads)
+
+
+def _launch(x, text_emb, latent_mask, text_mask, leaves, n_heads):
+    return estimator_blocks_kernel(x, text_emb, latent_mask, text_mask, _tree(leaves),
+                                   n_heads)
+
+
+_OP = _library.register(
+    "est_block", "(Tensor x, Tensor text_emb, Tensor latent_mask, Tensor text_mask, "
+    "Tensor[] leaves, int n_heads) -> Tensor", _plain, _launch,
+    lambda x, *_: x.new_empty(x.shape, dtype=torch.float32))
 estimator_blocks.launches = 0

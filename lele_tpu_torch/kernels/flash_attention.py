@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "flash_attn"
 BOOL_MASK_VALUE = -1e9  # a False entry of a bool mask on this route
@@ -206,12 +206,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor | None = None, is_causal: bool = False,
                     scale: float | None = None) -> torch.Tensor:
     """q [B, H, Lq, D], k and v [B, KVH, Lk, D], an optional bool or float
-    mask broadcastable to [B, H, Lq, Lk] → [B, H, Lq, D] in q's dtype."""
-    if q.device.type == "cpu":
-        _check(q, k, v, mask, is_causal)
-        return flash_attention_plain(q, k, v, mask, is_causal, scale)
-    return flash_attention_kernel(q, k, v, mask, is_causal, scale)
+    mask broadcastable to [B, H, Lq, Lk] → [B, H, Lq, D] in q's dtype. Calls
+    the registered op `lele_tpu_torch::flash_attn` (kernels/_library.py)."""
+    return _OP(q, k, v, mask, bool(is_causal), None if scale is None else float(scale))
 
 
+def _plain(q, k, v, mask, is_causal, scale):
+    _check(q, k, v, mask, is_causal)
+    return flash_attention_plain(q, k, v, mask, is_causal, scale)
+
+
+_OP = _library.register(
+    "flash_attn", "(Tensor q, Tensor k, Tensor v, Tensor? mask, bool is_causal, float? scale) "
+    "-> Tensor", _plain, flash_attention_kernel, lambda q, *_: torch.empty_like(
+        q, memory_format=torch.contiguous_format))
 flash_attention.launches = 0
 flash_attention.last_visits = None

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "gru_seq"
 MAX_H = 1024
@@ -103,11 +103,23 @@ def gru_seq_kernel(xproj: torch.Tensor, rh: torch.Tensor, rb: torch.Tensor, h0: 
 def gru_seq(xproj: torch.Tensor, rh: torch.Tensor, rb: torch.Tensor, h0: torch.Tensor,
             linear_before_reset: bool = True):
     """xproj [S, B, 3H] (x @ Wx + Wb), rh [H, 3H] (R transposed), rb [3H]
-    (zeros if absent), h0 [B, H] → (hs [S, B, H], h_S [B, H]), f32."""
-    if xproj.device.type == "cpu":
-        _check(xproj, rh, rb, h0)
-        return gru_seq_plain(xproj, rh, rb, h0, linear_before_reset)
-    return gru_seq_kernel(xproj, rh, rb, h0, linear_before_reset)
+    (zeros if absent), h0 [B, H] → (hs [S, B, H], h_S [B, H]), f32. Calls
+    the registered op `lele_tpu_torch::gru_seq` (kernels/_library.py)."""
+    return _OP(xproj, rh, rb, h0, bool(linear_before_reset))
 
 
+def _plain(xproj, rh, rb, h0, linear_before_reset):
+    _check(xproj, rh, rb, h0)
+    return gru_seq_plain(xproj, rh, rb, h0, linear_before_reset)
+
+
+def _fake(xproj, rh, rb, h0, linear_before_reset):
+    S, B, H3 = xproj.shape
+    return (xproj.new_empty((S, B, H3 // 3), dtype=torch.float32),
+            xproj.new_empty((B, H3 // 3), dtype=torch.float32))
+
+
+_OP = _library.register(
+    "gru_seq", "(Tensor xproj, Tensor rh, Tensor rb, Tensor h0, bool linear_before_reset) "
+    "-> (Tensor, Tensor)", _plain, gru_seq_kernel, _fake)
 gru_seq.launches = 0

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "lstm_seq"
 MAX_H = 1024
@@ -111,11 +111,24 @@ def lstm_seq_kernel(xproj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
 
 def lstm_seq(xproj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
     """xproj [S, B, 4H] (x @ Wx + b), wh [H, 4H], h0 and c0 [B, H] →
-    (hs [S, B, H], h_S [B, H], c_S [B, H]), f32."""
-    if xproj.device.type == "cpu":
-        _check(xproj, wh, h0, c0)
-        return lstm_seq_plain(xproj, wh, h0, c0)
-    return lstm_seq_kernel(xproj, wh, h0, c0)
+    (hs [S, B, H], h_S [B, H], c_S [B, H]), f32. Calls the registered op
+    `lele_tpu_torch::lstm_seq` (kernels/_library.py)."""
+    return _OP(xproj, wh, h0, c0)
 
 
+def _plain(xproj, wh, h0, c0):
+    _check(xproj, wh, h0, c0)
+    return lstm_seq_plain(xproj, wh, h0, c0)
+
+
+def _fake(xproj, wh, h0, c0):
+    S, B, H4 = xproj.shape
+    state = xproj.new_empty((B, H4 // 4), dtype=torch.float32)
+    return (xproj.new_empty((S, B, H4 // 4), dtype=torch.float32), state,
+            torch.empty_like(state))
+
+
+_OP = _library.register(
+    "lstm_seq", "(Tensor xproj, Tensor wh, Tensor h0, Tensor c0) -> (Tensor, Tensor, Tensor)",
+    _plain, lstm_seq_kernel, _fake)
 lstm_seq.launches = 0

@@ -49,16 +49,18 @@ launch a call. On the main path it is the product of SenseVoice's
 dynamic-int8 linears (`quantized=True`) and of the MatMulInteger emitter,
 where JAX runs a plain XLA int8 dot.
 
-Each wrapper takes its plain version only for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises. `w8_matmul.launches`,
-`fused_dq_matmul.launches` and `int8_matmul.launches` count launches.
+Each wrapper calls its registered op (kernels/_library.py:
+`lele_tpu_torch::w8_gemm`, `::dq_gemm`, `::int8_gemm`), which takes the
+plain version only for a CPU tensor; for a CUDA tensor it launches the
+kernel or raises. `w8_matmul.launches`, `fused_dq_matmul.launches` and
+`int8_matmul.launches` count launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "w8_gemm"
 _AMODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,11 +155,18 @@ def w8_matmul_kernel(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -
 
 def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] bf16/f32, wq int8 [K, N], w_scale f32 [N] → f32 [M, N]."""
-    if x.device.type == "cpu":
-        return w8_matmul_plain(x, wq, w_scale)
-    return w8_matmul_kernel(x, wq, w_scale)
+    return _W8_OP(x, wq, w_scale)
 
 
+def _w8_fake(x, wq, w_scale):
+    # the launch stores bf16 x's output in rows padded to 16 bytes
+    N = wq.shape[1]
+    ld = -(-N // 4) * 4 if x.is_cuda and x.dtype == torch.bfloat16 else N
+    return x.new_empty((x.shape[0], ld), dtype=torch.float32)[:, :N]
+
+
+_W8_OP = _library.register("w8_gemm", "(Tensor x, Tensor wq, Tensor w_scale) -> Tensor",
+                           w8_matmul_plain, w8_matmul_kernel, _w8_fake)
 w8_matmul.launches = 0
 
 
@@ -268,12 +277,32 @@ def fused_dq_matmul(x: torch.Tensor, wq: torch.Tensor, w_colsum: torch.Tensor,
     """x f32 [M, K], wq i8 [K, N] (u8 weights pre-shifted by −128), w_colsum
     i32 [N], a_scale and a_zp f32 device scalars (from `dql_scale_zp`),
     w_scale a float or an f32 tensor of 1 or N values → f32 [M, N]."""
-    if x.device.type == "cpu":
-        _dq_check(x, wq, w_colsum, a_scale, a_zp, w_scale)
-        return fused_dq_matmul_plain(x, wq, w_colsum, a_scale, a_zp, w_scale)
-    return fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp, w_scale)
+    if isinstance(w_scale, torch.Tensor):
+        return _DQ_OP(x, wq, w_colsum, a_scale, a_zp, w_scale, 0.0)
+    return _DQ_OP(x, wq, w_colsum, a_scale, a_zp, None, float(w_scale))
 
 
+# the op takes w_scale as a tensor (w_scale_t) or, where that is None, a float
+
+
+def _dq_plain(x, wq, w_colsum, a_scale, a_zp, w_scale_t, w_scale_f):
+    w_scale = w_scale_f if w_scale_t is None else w_scale_t
+    _dq_check(x, wq, w_colsum, a_scale, a_zp, w_scale)
+    return fused_dq_matmul_plain(x, wq, w_colsum, a_scale, a_zp, w_scale)
+
+
+def _dq_launch(x, wq, w_colsum, a_scale, a_zp, w_scale_t, w_scale_f):
+    return fused_dq_matmul_kernel(x, wq, w_colsum, a_scale, a_zp,
+                                  w_scale_f if w_scale_t is None else w_scale_t)
+
+
+def _dq_fake(x, wq, *_):
+    return x.new_empty((x.shape[0], wq.shape[1]), dtype=torch.float32)
+
+
+_DQ_OP = _library.register(
+    "dq_gemm", "(Tensor x, Tensor wq, Tensor w_colsum, Tensor a_scale, Tensor a_zp, "
+    "Tensor? w_scale_t, float w_scale_f) -> Tensor", _dq_plain, _dq_launch, _dq_fake)
 fused_dq_matmul.launches = 0
 
 
@@ -323,10 +352,15 @@ def int8_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a i8 [M, K] @ b i8 [K, N] → i32 [M, N], exact."""
-    if a.device.type == "cpu":
-        _i8_check(a, b)
-        return int8_matmul_plain(a, b)
-    return int8_matmul_kernel(a, b)
+    return _I8_OP(a, b)
 
 
+def _i8_plain(a, b):
+    _i8_check(a, b)
+    return int8_matmul_plain(a, b)
+
+
+_I8_OP = _library.register(
+    "int8_gemm", "(Tensor a, Tensor b) -> Tensor", _i8_plain, int8_matmul_kernel,
+    lambda a, b: a.new_empty((a.shape[0], b.shape[1]), dtype=torch.int32))
 int8_matmul.launches = 0

@@ -50,7 +50,8 @@ Exact ONNX DynamicQuantizeLinear semantics (the compiled-ONNX path):
   oracle for each other.
 
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises. `sanm_layer_w8.launches` counts single
+it launches the kernel or raises (each wrapper calls its registered op,
+kernels/_library.py). `sanm_layer_w8.launches` counts single
 layers; `sanm_stack_w8.launches`, `sanm_stack_w4.launches` and
 `sanm_stack_dql.launches` count stack calls (one launch each).
 """
@@ -62,8 +63,9 @@ import math
 
 import torch
 
+from ..config import cudnn_tf32
 from ..params import tree_map
-from . import _build
+from . import _build, _library
 from .quant_matmul import dql_quantize, dql_scale_zp, w8_matmul_plain
 from .w4_matmul import _unpack_nibbles
 
@@ -353,29 +355,66 @@ def stack_phase_us(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int, f
     return ph
 
 
+# the registered ops (kernels/_library.py) take a layer tree as the list of
+# its `_LEAVES` (None for a missing bias), in the C entry's order
+
+
+def _flat(tree, fmt: str) -> list:
+    names = {"wq8": _FORMATS[fmt][0], "ws8": _FORMATS[fmt][1]}
+    return [tree.get(g, {}).get(names.get(n, n)) for g, n in _LEAVES]
+
+
+def _tree(leaves, fmt: str) -> dict:
+    names = {"wq8": _FORMATS[fmt][0], "ws8": _FORMATS[fmt][1]}
+    tree: dict = {}
+    for (g, n), t in zip(_LEAVES, leaves):
+        sub = tree.setdefault(g, {})
+        if t is not None:
+            sub[names.get(n, n)] = t
+    return tree
+
+
+def _like_x(x, *_):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
 def sanm_layer_w8(x: torch.Tensor, mask: torch.Tensor, lp, n_heads: int,
                   fsmn_k: int) -> torch.Tensor:
     """One SAN-M layer. x f32 [T, D]; mask f32 [T]; lp: layer params with
     w8-prepared linears (wq8/ws8/b), norms and fsmn. Returns f32 [T, D]."""
-    if x.device.type == "cpu":
-        return sanm_layer_w8_plain(x, mask, lp, n_heads, fsmn_k)
+    return _LAYER_OP(x, mask, _flat(lp, "w8"), n_heads, fsmn_k)
+
+
+def _layer_launch(x, mask, leaves, n_heads: int, fsmn_k: int):
     y = x.to(torch.float32).contiguous().clone()
-    return _launch_layer(y, mask, lp, n_heads, fsmn_k)
+    return _launch_layer(y, mask, _tree(leaves, "w8"), n_heads, fsmn_k)
+
+
+_LAYER_OP = _library.register(
+    "sanm_layer_w8", "(Tensor x, Tensor mask, Tensor?[] leaves, int n_heads, int fsmn_k) "
+    "-> Tensor", lambda x, mask, leaves, h, k: sanm_layer_w8_plain(
+        x, mask, _tree(leaves, "w8"), h, k), _layer_launch, _like_x)
 
 
 def sanm_stack_w8(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
                   fsmn_k: int) -> torch.Tensor:
     """The L-layer stack at batch 1. stacked: stack_layer_params' tree (a
     leading L axis on every leaf, w8-prepared linears). Returns f32 [T, D]."""
-    if x.device.type == "cpu":
-        return sanm_stack_w8_plain(x, mask, stacked, n_heads, fsmn_k)
+    return _STACK_W8_OP(x, mask, _flat(stacked, "w8"), n_heads, fsmn_k)
+
+
+def _stack_w8_launch(x, mask, leaves, n_heads: int, fsmn_k: int):
     # one [T, D] f32 activation buffer, updated in place by every layer
     y = x.to(torch.float32).contiguous().clone()
-    _launch_stack(y, mask, stacked, n_heads, fsmn_k, "w8")
+    _launch_stack(y, mask, _tree(leaves, "w8"), n_heads, fsmn_k, "w8")
     sanm_stack_w8.launches += 1
     return y
 
 
+_STACK_W8_OP = _library.register(
+    "sanm_stack_w8", "(Tensor x, Tensor mask, Tensor?[] leaves, int n_heads, int fsmn_k) "
+    "-> Tensor", lambda x, mask, leaves, h, k: sanm_stack_w8_plain(
+        x, mask, _tree(leaves, "w8"), h, k), _stack_w8_launch, _like_x)
 sanm_layer_w8.launches = 0
 sanm_stack_w8.launches = 0
 
@@ -422,8 +461,11 @@ def sanm_stack_w4(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
     dequantises as bf16(q·s), bf16 products, f32 sums; LN eps 1e-12; bf16
     attention with an f32 softmax, masked keys at (m − 1)·1e9; the FSMN over
     V·mask as shifted adds."""
-    if x.device.type == "cpu":
-        return sanm_stack_w4_plain(x, mask, stacked, n_heads, fsmn_k, group)
+    return _STACK_W4_OP(x, mask, _flat(stacked, "w4"), n_heads, fsmn_k, group)
+
+
+def _stack_w4_launch(x, mask, leaves, n_heads: int, fsmn_k: int, group: int):
+    stacked = _tree(leaves, "w4")
     _w4_groups(stacked, x.shape[1], group)
     # one [T, D] f32 activation buffer, updated in place by every layer
     y = x.to(torch.float32).contiguous().clone()
@@ -432,6 +474,10 @@ def sanm_stack_w4(x: torch.Tensor, mask: torch.Tensor, stacked, n_heads: int,
     return y
 
 
+_STACK_W4_OP = _library.register(
+    "sanm_stack_w4", "(Tensor x, Tensor mask, Tensor?[] leaves, int n_heads, int fsmn_k, "
+    "int group) -> Tensor", lambda x, mask, leaves, h, k, g: sanm_stack_w4_plain(
+        x, mask, _tree(leaves, "w4"), h, k, g), _stack_w4_launch, _like_x)
 sanm_stack_w4.launches = 0
 
 
@@ -482,7 +528,7 @@ def _fsmn_dql_plain(vm: torch.Tensor, w: torch.Tensor, pad_left: int) -> torch.T
     k, D = w.shape
     xt = torch.nn.functional.pad(vm.t()[None], (pad_left, k - 1 - pad_left))
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=cudnn_tf32()):
         out = torch.nn.functional.conv1d(xt, w.t().reshape(D, 1, k), groups=D)
     return out[0].t()
 
@@ -638,14 +684,42 @@ def sanm_stack_dql(x: torch.Tensor, attn_bias: torch.Tensor, vmask: torch.Tensor
     [L, 1, N]} under qkv/out/ffn1/ffn2, norm1/norm2 {"g", "b"} f32 [L, 1, D],
     fsmn f32 [L, k, D]. Returns f32 [T, D]. Both versions take the same
     operands, checked alike."""
-    if x.device.type == "cpu":
-        _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
-        return sanm_stack_dql_plain(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
-                                    pad_left, eps1, eps2, att_scale)
-    y = sanm_stack_dql_kernel(x, attn_bias, vmask, stacked, n_heads, fsmn_k,
+    leaves = [stacked[k][n] for k in _DQL_GROUPS for n in _DQL_LIN]
+    leaves += [stacked[k][n] for k in ("norm1", "norm2") for n in ("g", "b")]
+    return _DQL_OP(x, attn_bias, vmask, leaves + [stacked["fsmn"]], n_heads, fsmn_k,
+                   pad_left, float(eps1), float(eps2),
+                   None if att_scale is None else float(att_scale))
+
+
+_DQL_GROUPS = ("qkv", "out", "ffn1", "ffn2")
+
+
+def _dql_tree(leaves) -> dict:
+    it = iter(leaves)
+    tree = {k: {n: next(it) for n in _DQL_LIN} for k in _DQL_GROUPS}
+    tree.update({k: {n: next(it) for n in ("g", "b")} for k in ("norm1", "norm2")})
+    tree["fsmn"] = next(it)
+    return tree
+
+
+def _dql_plain(x, attn_bias, vmask, leaves, n_heads, fsmn_k, pad_left, eps1, eps2,
+               att_scale):
+    stacked = _dql_tree(leaves)
+    _dql_check(x, attn_bias, vmask, stacked, fsmn_k, pad_left)
+    return sanm_stack_dql_plain(x, attn_bias, vmask, stacked, n_heads, fsmn_k, pad_left,
+                                eps1, eps2, att_scale)
+
+
+def _dql_launch(x, attn_bias, vmask, leaves, n_heads, fsmn_k, pad_left, eps1, eps2,
+                att_scale):
+    y = sanm_stack_dql_kernel(x, attn_bias, vmask, _dql_tree(leaves), n_heads, fsmn_k,
                               pad_left, eps1, eps2, att_scale)
     sanm_stack_dql.launches += 1
     return y
 
 
+_DQL_OP = _library.register(
+    "sanm_stack_dql", "(Tensor x, Tensor attn_bias, Tensor vmask, Tensor[] leaves, "
+    "int n_heads, int fsmn_k, int pad_left, float eps1, float eps2, float? att_scale) "
+    "-> Tensor", _dql_plain, _dql_launch, _like_x)
 sanm_stack_dql.launches = 0

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 _STEM = "w4_gemm"
 _AMODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -200,10 +200,13 @@ def w4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """x [M, K] bf16/f32, packed int8 [K/2, N], scales f32 [K/group, N] →
     f32 [M, N] ≈ x @ dequantize_int4(packed, scales, group). With idx int32
     [M], packed [E, K/2, N] and scales [E, K/group, N]: row r against stack
-    idx[r]."""
-    if x.device.type == "cpu":
-        return w4_matmul_plain(x, packed, scales, group, idx)
-    return w4_matmul_kernel(x, packed, scales, group, idx)
+    idx[r]. Calls the registered op `lele_tpu_torch::w4_gemm`
+    (kernels/_library.py)."""
+    return _OP(x, packed, scales, group, idx)
 
 
+_OP = _library.register(
+    "w4_gemm", "(Tensor x, Tensor packed, Tensor scales, int group, Tensor? idx) -> Tensor",
+    w4_matmul_plain, w4_matmul_kernel,
+    lambda x, packed, *_: x.new_empty((x.shape[0], packed.shape[-1]), dtype=torch.float32))
 w4_matmul.launches = 0

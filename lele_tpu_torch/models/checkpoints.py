@@ -271,7 +271,8 @@ class YoloOnnx:
     Takes the ONNX file's path or its bytes, compiled for one [1, 3, img_size,
     img_size] input. `compute="bfloat16"` runs it under the JAX package's
     compute policy (bf16 weights and activations; f32 at the API); None
-    keeps f32, with cuDNN's TF32 off. `device` defaults to
+    keeps f32, with cuDNN's TF32 off; as in the JAX package, the bf16 route
+    also pins precision "default" (config.py). `device` defaults to
     `default_device()`, which raises where there is no CUDA card. JAX's
     image-stem rewrite (`pack_image_stem`, the TPU's space-to-depth lanes)
     has no counterpart: the port owes its outputs only."""
@@ -286,7 +287,8 @@ class YoloOnnx:
         # one input shape: on a card its graph is captured here, ahead of the
         # first image (`CompiledModel.compile`)
         self.cm = compile_model(model, input_shapes={name: (1, 3, img_size, img_size)},
-                                compute=compute, device=self.device).compile()
+                                compute=compute, device=self.device,
+                                precision="default" if compute else None).compile()
         self.img_size = img_size
 
     def forward(self, x_chw: np.ndarray) -> list[np.ndarray]:

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import cudnn_tf32
+from ..utils.consts import real_tensors
 from ..params import tree_map
 
 Params = dict[str, Any]
@@ -101,7 +103,7 @@ def conv1d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: 
         lo, hi = padding
     xt = F.pad(x.float().transpose(1, 2), (lo, hi))
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=cudnn_tf32()):
         y = F.conv1d(xt, w.float(), None, stride=stride, dilation=dilation, groups=groups)
     return y.transpose(1, 2) + p["b"]
 
@@ -126,8 +128,9 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: 
     runs channels_last: the padded NHWC tensor, permuted, already is that
     layout, and so is cuDNN's output, so neither side copies. cuDNN's TF32
     is on for a 16-bit `dtype` (its values are exact in TF32 and their
-    products exact in f32: the same arithmetic on tensor cores) and off
-    otherwise."""
+    products exact in f32: the same arithmetic on tensor cores), and
+    otherwise where the precision in force allows it (config.cudnn_tf32:
+    not at "highest", the default)."""
     w = p["w"]
     if padding == "SAME":
         pads = [same_pads(x.shape[1 + i], w.shape[2 + i], stride) for i in range(2)]
@@ -137,7 +140,7 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding="SAME", groups: 
         pads = padding
     (hl, hh), (wl, wh) = pads
     xp = F.pad(round_to(x, dtype), (0, 0, wl, wh, hl, hh))
-    tf32 = dtype in (torch.bfloat16, torch.float16)
+    tf32 = dtype in (torch.bfloat16, torch.float16) or cudnn_tf32()
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=tf32):
         y = F.conv2d(xp.permute(0, 3, 1, 2), round_to(w, dtype), None, stride=stride,
                      groups=groups)
@@ -161,7 +164,7 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Ten
     b = pad_len - a
     wt = w.float().flip(0).permute(1, 2, 0)  # [C_in, C_out, k]
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=cudnn_tf32()):
         y = F.conv_transpose1d(x.float().transpose(1, 2), wt, stride=stride,
                                padding=k - 1 - a, output_padding=max(b - a, 0))
     if b < a:
@@ -204,7 +207,8 @@ def positions_on(t: int, d: int, device: torch.device) -> torch.Tensor:
     per (t, d, device): one per bucket, as the JAX program bakes it in as a
     constant. Callers must not write to it. Never evicted: a captured graph
     reads it by address (the keys are bounded by the buckets)."""
-    return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
+    with real_tensors():
+        return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
 
 
 def count_params(p) -> int:

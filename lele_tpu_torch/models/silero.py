@@ -36,6 +36,7 @@ from .. import default_device
 from ..features.framing import frame_signal
 from ..kernels import lstm_seq, lstm_seq_plain
 from ..runtime.graphs import Programs
+from ..utils.consts import real_tensors
 from .common import Params, conv1d, init_conv1d, init_linear, init_lstm_cell, linear, lstm_cell
 
 
@@ -67,7 +68,8 @@ def _periodic_hann(n: int, device: torch.device) -> torch.Tensor:
     """The periodic Hann window on `device`, made once per (n, device): a
     host-made tensor inside a captured CUDA graph would be an upload each
     call, which a capture refuses. Callers must not write to it."""
-    return torch.from_numpy(np.hanning(n + 1)[:-1].astype(np.float32)).to(device)
+    with real_tensors():
+        return torch.from_numpy(np.hanning(n + 1)[:-1].astype(np.float32)).to(device)
 
 
 def silero_features(params: Params, chunks: torch.Tensor, cfg: SileroConfig,

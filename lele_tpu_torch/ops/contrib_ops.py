@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.consts import real_tensors
 from .attention_ops import _n_out, apply_rotary
 from .registry import OpContext, op
 
@@ -487,7 +488,8 @@ _LUTS: dict = {}  # (quant_type, device) → the table on that device, made once
 def _bnb4_lut(quant_type: int, device) -> torch.Tensor:
     key = (quant_type, str(device))
     if key not in _LUTS:
-        _LUTS[key] = torch.from_numpy(_FP4_LUT if quant_type == 0 else _NF4_LUT).to(device)
+        with real_tensors():
+            _LUTS[key] = torch.from_numpy(_FP4_LUT if quant_type == 0 else _NF4_LUT).to(device)
     return _LUTS[key]
 
 

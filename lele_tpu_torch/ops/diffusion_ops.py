@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import cudnn_tf32
 from .nn_ops import _CONV_FNS, _resolve_pads
 from .registry import OpContext, op
 
@@ -80,7 +81,7 @@ def nhwc_conv(ctx: OpContext, x, w, b=None):
     else:
         xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
         padding = 0
-    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=cudnn_tf32()):
         out = _CONV_FNS[rank](xc, w.to(x.dtype), None, stride=strides, padding=padding,
                               dilation=dilations, groups=ctx.attr("group", 1))
     out = torch.movedim(out, 1, -1)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import cudnn_tf32
+from ..utils.consts import real_tensors
 from ..kernels.gru import gru_seq, gru_seq_plain
 from ..kernels.gru import kernel_takes as gru_kernel_takes
 from ..kernels.lstm import kernel_takes, lstm_seq, lstm_seq_plain
@@ -66,7 +68,7 @@ def conv(ctx: OpContext, x, w, b=None):
     pads = _resolve_pads(ctx, tuple(x.shape), kshape, strides, dilations)
     xp = F.pad(x, _flat_pads(pads))
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=cudnn_tf32()):
         out = _CONV_FNS[rank](xp, w.to(x.dtype), None, stride=strides,
                               dilation=dilations, groups=group)
     if b is not None:
@@ -121,7 +123,7 @@ def conv_transpose(ctx: OpContext, x, w, b=None):
     out_pad = ctx.attr_ints("output_padding", [0] * rank)
     pads = _conv_transpose_pads(ctx, list(x.shape[2:]), kshape, strides, dilations, out_pad)
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=cudnn_tf32()):
         full = _CONV_T_FNS[rank](x, w.to(x.dtype), None, stride=strides, dilation=dilations,
                                  groups=ctx.attr("group", 1))
     # F.pad's negative widths crop; last dim first
@@ -476,7 +478,8 @@ def _kernel_gate_order(hidden: int) -> np.ndarray:
 def _gate_order_on(hidden: int, device: torch.device) -> torch.Tensor:
     """`_kernel_gate_order` on `device`, made once: a host-made index at every
     call would be an upload, which a captured CUDA graph refuses."""
-    return torch.from_numpy(_kernel_gate_order(hidden)).to(device)
+    with real_tensors():
+        return torch.from_numpy(_kernel_gate_order(hidden)).to(device)
 
 
 def _take(a, perm: np.ndarray, axis: int, hidden: int):

@@ -23,12 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import config
 from ..onnx.loader import DTYPE_MAP
 from .registry import OpContext, op, static_ints
 
-# JAX's default `config.rng_seed` (lele_tpu/config.py:31): the root of every
-# Random op's key
-RNG_SEED = 0
 
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -529,14 +527,14 @@ def rng_key(ctx: OpContext) -> int:
     """JAX's `_rng_key` (lele_tpu/ops/tensor_ops.py:430-448): an explicit
     `seed` attribute alone sets the stream (its float32 bits, so that +x and
     -x differ), else the crc32 of the node's tag (name, or first output),
-    each folded into RNG_SEED."""
+    each folded into `config.rng_seed`, read while tracing, as JAX reads it."""
     node_seed = ctx.attr("seed") if ctx.node is not None else None
     if node_seed is not None:
         fold = int(np.float32(node_seed).view(np.uint32))
     else:
         tag = (ctx.node.name or ctx.node.output[0]) if ctx.node is not None else ""
         fold = zlib.crc32(tag.encode())
-    return (RNG_SEED << 32) | fold
+    return (int(config.rng_seed) << 32) | fold
 
 
 def _random(ctx: OpContext, shape, dtype, normal: bool) -> np.ndarray:

@@ -6,8 +6,9 @@ while the card works on batch i, so audio IO never waits behind the card.
     for batch in loader:            # list of (np.float32 pcm, sr)
         model.transcribe_batch([p for p, _ in batch])
 
-Decoding is the port's pure-Python WAV parser (utils/wav.py), as in the JAX
-package when its native threaded decoder is not built.
+Decoding is the native threaded decoder (runtime/native.py): the files are
+read and decoded on a pool of C++ threads with the GIL released, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from ..utils.wav import read_wav
+from .native import get_native
 
 
 def decode_wav_files(paths: Sequence[str | Path]) -> list[tuple[np.ndarray, int]]:
-    """→ [(float32 mono pcm, sample_rate), ...]."""
-    return [read_wav(str(p)) for p in paths]
+    """→ [(float32 mono pcm, sample_rate), ...]; ValueError naming the first
+    file that does not decode."""
+    return [(np.frombuffer(b, np.float32), sr)
+            for b, sr in get_native().decode_wav_files([str(p) for p in paths])]
 
 
 class WavBatchLoader:

@@ -37,6 +37,22 @@ A trace built with a compute dtype (JAX's `compute="bfloat16"`,
 lele_tpu/runtime/engine.py:48-57, 95-105) stores its large f32 params in
 that type; a call casts f32 inputs to it and returns outputs of that type
 as f32, so the API stays f32 at the boundary.
+
+`precision` (JAX's `compile_model(precision=)`) pins the precision of the
+model's plain f32 products: every walk (the capture, an uncaptured replay,
+an export) runs inside `config.precision_scope(precision)`, which sets
+torch's TF32 flags and restores them after; None takes
+`config.matmul_precision` at the walk.
+
+AOT (JAX's `lower`, `save_aot`, `use_aot`, lele_tpu/runtime/engine.py:
+182-229): `lower()` exports the walk as a `torch.export` program with the
+params as inputs (compiler/aot.py); `save_aot(prefix)` writes it as the
+`<prefix>.xc/` bundle with its kernel libraries and the model's signature
+(runtime/artifact.py); `use_aot(prefix)` checks the bundle against this
+process and model, hands its libraries to the build, and swaps the tape for
+the loaded program (`ProgramTape`), which `compile()` then captures as
+before; `CompiledModel.from_aot(prefix, params)` builds the model from the
+bundle alone, without the graph or a trace.
 """
 
 from __future__ import annotations
@@ -46,14 +62,40 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..config import check_precision, precision_scope
 from ..ops.tensor_ops import torch_dtype
 from .graphs import Program
+
+
+class ProgramTape:
+    """A loaded exported program in the place of a trace's tape: `replay`
+    runs it on the model's current params (a host-free program, so it is
+    capturable)."""
+
+    capturable = True
+
+    def __init__(self, cm: "CompiledModel", program, out_meta: list):
+        from ..compiler.aot import program_call, signature
+
+        self.program = program
+        self.out_meta = out_meta
+        self._call = program_call(program, cm.precision)
+        self._cm = cm
+        self._donated, self._rest = signature(cm)
+
+    def replay(self, inputs) -> list:
+        by = dict(zip(self._cm.input_order, inputs))
+        return self._call(self._cm.params, [by[n] for n in self._donated],
+                          [by[n] for n in self._rest])
 
 
 class CompiledModel:
     def __init__(self, trace, input_specs: dict[str, tuple[tuple, Any]],
                  input_order: Sequence[str], output_names: Sequence[str],
-                 stats: dict | None = None, donate: Sequence[str] = ()):
+                 stats: dict | None = None, donate: Sequence[str] = (),
+                 precision: str | None = None):
+        check_precision(precision)
+        self.precision = precision
         self.device = trace.device
         self.placement = trace.placement
         self.mesh = None if trace.placement is None else trace.placement.mesh
@@ -104,7 +146,8 @@ class CompiledModel:
         pl = self.placement
         if pl is not None:
             inputs = [pl.enter(n, t) for n, t in zip(self.input_order, inputs)]
-        outs = self._tape.replay(inputs)
+        with precision_scope(self.precision):
+            outs = self._tape.replay(inputs)
         if pl is not None:
             outs = [pl.leave(o, d) for o, d in zip(outs, self._from_data)]
         if self.compute is not None:
@@ -192,3 +235,89 @@ class CompiledModel:
 
     def run_np(self, *args, **kwargs) -> list[np.ndarray]:
         return [o.cpu().numpy() for o in self(*args, **kwargs)]
+
+    # -- AOT -------------------------------------------------------------------
+
+    def lower(self):
+        """This model's program as a `torch.export.ExportedProgram` of
+        (params, donated, rest) (compiler/aot.py); ValueError for a tape
+        that reads the host or a program over a mesh."""
+        from ..compiler.aot import lower
+
+        return lower(self)
+
+    def aot_signature(self) -> dict:
+        """What a bundle records of this model, to rebuild and to check it."""
+        return {
+            "input_order": self.input_order,
+            "input_specs": {n: [list(self.input_specs[n][0]),
+                                np.dtype(self.input_specs[n][1]).name]
+                            for n in self.input_order},
+            "output_names": self.output_names,
+            "donate": list(self.donated),
+            "compute": None if self.compute is None else str(self.compute)[6:],
+            "precision": self.precision,
+            "params": sorted(self.params),
+            "out_meta": [[None if s is None else list(s), None if d is None else str(d)[6:]]
+                         for s, d in self._tape.out_meta],
+        }
+
+    def save_aot(self, path_prefix) -> None:
+        """Write <prefix>.xc/: the program, its kernel libraries and a
+        manifest pinned to this torch, CUDA and card (runtime/artifact.py).
+        The weights travel in the blob the CLI writes."""
+        from .artifact import save_aot_bundle
+
+        from ..compiler.aot import program_precision
+
+        save_aot_bundle(path_prefix, self.lower(), extra={"model": self.aot_signature()},
+                        precision=program_precision(self))
+
+    def use_aot(self, path_prefix) -> "CompiledModel":
+        """Run the bundle's program in place of the traced tape: raises
+        (artifact.AotMismatch) where it was made for another torch, CUDA,
+        card, kernel source or model signature."""
+        from .artifact import AotMismatch, load_aot_program
+
+        program, manifest = load_aot_program(path_prefix)
+        mine = self.aot_signature()
+        theirs = manifest.get("model", {})
+        wrong = [k for k in mine if k != "out_meta" and theirs.get(k) != mine[k]]
+        if wrong:
+            raise AotMismatch(f"{path_prefix}: the bundle's model differs in {wrong}")
+        self._tape = ProgramTape(self, program, self._tape.out_meta)
+        self._program = None
+        self.stats["aot"] = True
+        return self
+
+    @classmethod
+    def from_aot(cls, path_prefix, params: dict[str, torch.Tensor],
+                 manifest: dict | None = None) -> "CompiledModel":
+        """The model of a bundle, from its program and signature alone (no
+        graph, no trace), on `params` (by name, on the bundle's device);
+        raises artifact.AotMismatch as `use_aot` does, ValueError where the
+        params' names differ from the program's. `manifest`: the bundle's,
+        already checked (artifact.check_aot_bundle)."""
+        from types import SimpleNamespace
+
+        from ..compiler.aot import program_device
+        from .artifact import load_aot_program
+
+        program, manifest = load_aot_program(path_prefix, manifest)
+        m = manifest["model"]
+        if sorted(params) != m["params"]:
+            raise ValueError(f"{path_prefix}: params {sorted(params)[:8]}... are not the "
+                             f"program's {m['params'][:8]}...")
+        out_meta = [(None if s is None else tuple(s), None if d is None else getattr(torch, d))
+                    for s, d in m["out_meta"]]
+        device = program_device(program)
+        trace = SimpleNamespace(device=device, placement=None, params=params,
+                                tape=SimpleNamespace(out_meta=out_meta, capturable=True),
+                                compute=None if m["compute"] is None
+                                else getattr(torch, m["compute"]))
+        specs = {n: (tuple(shape), np.dtype(dt)) for n, (shape, dt) in m["input_specs"].items()}
+        cm = cls(trace, specs, m["input_order"], m["output_names"],
+                 stats={"aot": True, "n_params": len(params)}, donate=m["donate"],
+                 precision=m["precision"] or manifest.get("precision"))
+        cm._tape = ProgramTape(cm, program, out_meta)
+        return cm

@@ -58,7 +58,8 @@ card work meanwhile. So one thread at a time drives the card: a program's
 call on a card (and `Programs.run`'s choice of program) holds `CARD_LOCK`,
 a reentrant lock of the process, and the serving engines (serving.py) hold
 it around all of a request's card work, its eager steps and read-backs
-included.
+included. `config.precision_scope` holds it too, on the CPU as well: it
+sets torch's process-wide TF32 flags for the length of a walk.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
-"""Pure-Python WAV reader and writer (the port's copy of lele_tpu/utils/wav.py):
-RIFF PCM 8/16/24/32-bit and IEEE float in, mono-ized by averaging the
-channels; PCM16 mono out."""
+"""WAV reader and writer (the port's copy of lele_tpu/utils/wav.py): RIFF
+PCM 8/16/24/32-bit and IEEE float in, mono-ized by averaging the channels;
+PCM16 mono out. Reading goes through the native decoder
+(runtime/native.py, built with g++ at first use; a failed build raises)
+unless `try_native=False`, which keeps the pure-Python parser; both give
+the same samples."""
 
 from __future__ import annotations
 
@@ -10,13 +13,26 @@ from pathlib import Path
 import numpy as np
 
 
-def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
+def read_wav(path: str | Path, try_native: bool = True) -> tuple[np.ndarray, int]:
     """A WAV file → (mono float32 samples in [-1, 1], sample_rate)."""
-    return decode_wav_bytes(Path(path).read_bytes(), label=str(path))
+    return decode_wav_bytes(Path(path).read_bytes(), label=str(path), try_native=try_native)
 
 
-def decode_wav_bytes(data: bytes, label: str = "<bytes>") -> tuple[np.ndarray, int]:
+def decode_wav_bytes(data: bytes, label: str = "<bytes>",
+                     try_native: bool = True) -> tuple[np.ndarray, int]:
     """WAV bytes → (mono float32 samples in [-1, 1], sample_rate)."""
+    if try_native:
+        from ..runtime.native import get_native
+
+        try:
+            raw, sr = get_native().decode_wav(data)
+        except ValueError as e:
+            raise ValueError(f"{label}: {e}") from None
+        return np.frombuffer(raw, np.float32).copy(), sr
+    return _parse_wav(data, label)
+
+
+def _parse_wav(data: bytes, label: str) -> tuple[np.ndarray, int]:
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError(f"{label}: not a RIFF/WAVE file")
     pos = 12

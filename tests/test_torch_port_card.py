@@ -2247,3 +2247,185 @@ def test_compile_model_over_one_rank_nccl_mesh(nccl_one):
     got = gm.run_np(**feeds)
     assert K.launch_counts()["w4_gemm"] == gm.stats["pattern_hits"]["matmul_nbits_w4"] // 2
     assert all(np.array_equal(a, b) for a, b in zip(got, gf.run_np(**feeds)))
+
+
+# -- slice 27: registered ops, AOT, precision, the native decoder ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K.KERNEL_WRAPPERS))
+def test_registered_op_opcheck_on_the_card(dev, name):
+    op = getattr(torch.ops.lele_tpu_torch, name).default
+    res = torch.library.opcheck(op, K.op_samples(dev)[name])
+    assert set(res.values()) == {"SUCCESS"}, res
+
+
+def _small_sanm(dev):
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx.synth import build_sanm_int8_model
+
+    graph = build_sanm_int8_model(L=2, d=128, h=2, ffn=256, vocab=300, int8_head=True, seed=5)
+    cm = compile_model(graph, dim_values={"T": 64}, device=dev)
+    rng = np.random.default_rng(5)
+    feeds = {"speech": torch.from_numpy(rng.standard_normal((1, 64, 560)).astype(np.float32)
+                                        ).to(dev),
+             "speech_lengths": np.array([60]), "language": np.array([0], np.int32),
+             "textnorm": np.array([1], np.int32)}
+    return graph, cm, feeds
+
+
+@pytest.mark.cuda
+def test_exported_program_on_the_card_gives_the_tapes_bits(dev, tmp_path):
+    from lele_tpu_torch.compiler.aot import export_model, load_exported, program_ops
+
+    _, cm, feeds = _small_sanm(dev)
+    want = cm.replay(**feeds)
+    call = load_exported(export_model(cm, tmp_path / "sv"))
+    assert program_ops(call.program) == ["dq_gemm", "sanm_stack_dql"]
+    K.reset_launch_counts()
+    got = call(cm.params, (), [cm._prep(n, feeds[n]) for n in cm.input_order])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launch_counts().items() if v} == {"dq_gemm": 1,
+                                                                 "sanm_stack_dql": 1}
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_use_aot_captures_the_loaded_program(dev, tmp_path):
+    from lele_tpu_torch.runtime.engine import CompiledModel
+
+    _, cm, feeds = _small_sanm(dev)
+    want = [o.clone() for o in cm(**feeds)]
+    cm.save_aot(tmp_path / "sv")
+    manifest = json.loads((tmp_path / "sv.xc" / "manifest.json").read_text())
+    assert sorted(manifest["libraries"]) == ["dq_gemm", "sanm_dql"]
+    assert manifest["device"].startswith("sm_")
+    for m in (CompiledModel.from_aot(tmp_path / "sv", dict(cm.params)),
+              cm.use_aot(tmp_path / "sv")):
+        m.compile()
+        K.reset_launch_counts()
+        got = m(**feeds)
+        torch.cuda.synchronize()
+        assert m.stats["captured"]
+        assert {k: v for k, v in K.launch_counts().items() if v} == {"dq_gemm": 1,
+                                                                     "sanm_stack_dql": 1}
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_precision_takes_tf32_in_the_walk_and_restores_the_flags(dev):
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.onnx import builder as ob
+
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((1024, 1024)).astype(np.float32)
+    data = ob.build_model_bytes(
+        [ob.node("MatMul", ["x", "w"], ["y"])], inputs=[ob.value_info("x", 1, [512, 1024])],
+        outputs=[ob.value_info("y", 1, [512, 1024])], initializers=[ob.tensor_from_array(w, "w")])
+    x = torch.from_numpy(rng.standard_normal((512, 1024)).astype(np.float32)).to(dev)
+    ref = (x.double() @ torch.from_numpy(w).to(dev).double())
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    errs = {}
+    for prec in ("highest", "high", "default"):
+        cm = compile_model(data, device=dev, precision=prec).compile()
+        y = cm(x=x)[0]
+        assert cm.stats["captured"]
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+        errs[prec] = ((y.double() - ref).abs().max() / ref.abs().max()).item()
+    assert errs["highest"] < 1e-5 < errs["high"] < 1e-2
+    assert errs["default"] == errs["high"]  # no bf16 pass for f32 operands: TF32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pt2", "xc"])
+def test_loaded_conv_program_keeps_its_precision_on_the_card(dev, tmp_path, route):
+    """A conv graph compiled at "highest", exported and loaded, gives the
+    tape's bits while torch's flags allow TF32 (cuDNN's default), because
+    the call runs at the precision saved with the program; the same program
+    run bare at those flags differs (cuDNN takes TF32)."""
+    from lele_tpu_torch.compiler import compile_model
+    from lele_tpu_torch.compiler.aot import export_model, load_exported
+    from lele_tpu_torch.onnx import builder as ob
+    from lele_tpu_torch.runtime.artifact import load_aot_bundle
+
+    rng = np.random.default_rng(12)
+    w = (rng.standard_normal((128, 64, 3, 3)) * 0.05).astype(np.float32)
+    m = (rng.standard_normal((56, 64)) * 0.1).astype(np.float32)
+    data = ob.build_model_bytes(
+        [ob.node("Conv", ["x", "w"], ["c"], pads=[1, 1, 1, 1]),
+         ob.node("MatMul", ["c", "m"], ["y"])],
+        inputs=[ob.value_info("x", 1, [4, 64, 56, 56])],
+        outputs=[ob.value_info("y", 1, [4, 128, 56, 64])],
+        initializers=[ob.tensor_from_array(w, "w"), ob.tensor_from_array(m, "m")])
+    x = torch.from_numpy(rng.standard_normal((4, 64, 56, 56)).astype(np.float32)).to(dev)
+    cm = compile_model(data, device=dev, precision="highest")
+    want = cm.replay(x=x)[0]
+    if route == "pt2":
+        call = load_exported(export_model(cm, tmp_path / "c"))
+        run = lambda: call(cm.params, (), (x,))[0]  # noqa: E731
+        program = call.program
+    else:
+        cm.save_aot(tmp_path / "c")
+        fn, _ = load_aot_bundle(tmp_path / "c", params=False)
+        run = lambda: fn(dict(cm.params), (), (x,))[0]  # noqa: E731
+        program = fn.program
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        got = run()
+        bare = program.module()(dict(sorted(cm.params.items())), (), (x,))[0]
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert after == (True, True)
+    assert torch.equal(got, want)
+    assert not torch.equal(bare, want)
+
+
+@pytest.mark.cuda
+def test_native_bundle_on_the_card(dev, tmp_path):
+    from lele_tpu_torch.models import (SenseVoiceConfig, SenseVoiceModel, cast_big_params,
+                                       prepare_w8_params, stack_layer_params)
+    from lele_tpu_torch.models.sensevoice import sensevoice_encode
+    from lele_tpu_torch.runtime.artifact import (canonical, export_program, load_aot_bundle,
+                                                 save_aot_bundle)
+
+    cfg = SenseVoiceConfig(n_layers=2, d_model=256, n_heads=2, ffn_dim=512, vocab_size=300,
+                           weight_int8=True)
+    m = SenseVoiceModel(cfg, device=dev)
+    m.init(3)
+    m.params = stack_layer_params(prepare_w8_params(cast_big_params(m.params, torch.bfloat16)))
+    pcm = (np.random.default_rng(3).standard_normal(32000) * 0.1).astype(np.float32)
+    feats = m.fbank(pcm).contiguous()
+
+    def enc(p, f):
+        return sensevoice_encode(p, f[None], torch.ones((1, f.shape[0]), device=f.device), cfg)
+
+    prog = export_program(enc, m.params, feats)
+    with torch.inference_mode():
+        ref = prog.module()(canonical(m.params), feats)
+    save_aot_bundle(tmp_path / "nat", prog, m.params)
+    fn, params = load_aot_bundle(tmp_path / "nat")
+    K.reset_launch_counts()
+    got = fn(params, feats)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launch_counts().items() if v} == {"sanm_stack_w8": 1,
+                                                                 "w8_gemm": 1}
+    assert torch.equal(got, ref) and torch.equal(ref, m.forward_fn()(m.params, pcm))
+
+
+@pytest.mark.cuda
+def test_native_decoder_on_the_card_machine(dev, tmp_path):
+    from lele_tpu_torch.runtime.dataloader import decode_wav_files
+    from lele_tpu_torch.utils.wav import encode_wav, read_wav
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(6):
+        p = tmp_path / f"w{i}.wav"
+        p.write_bytes(encode_wav((rng.standard_normal(8000 + 77 * i) * 0.2).astype(np.float32),
+                                 16000))
+        paths.append(p)
+    for p, (x, sr) in zip(paths, decode_wav_files(paths)):
+        y, ysr = read_wav(p, try_native=False)
+        assert sr == ysr and np.array_equal(x, y)

@@ -1,7 +1,7 @@
 """The port's CLI (lele_tpu_torch/cli.py), generated wrapper and build tool
 (lele_tpu_torch/build_tool.py) against the JAX package's: JAX's
-tests/test_build_cli.py cases run on the port (its `--xc` case becomes a
-refusal), every wrapper held to the port's `compile_model` of the same
+tests/test_build_cli.py cases run on the port (its `--xc` case is in
+tests/test_torch_port_aot.py), every wrapper held to the port's `compile_model` of the same
 graph bit for bit and, for float graphs, to JAX's wrapper within 1e-5 of
 max(1, max|ref|); the quantized graphs the CLI writes are JAX's bytes
 (`--quantize-dynamic`) or JAX's graph node for node (`--quantize-static`,
@@ -101,20 +101,42 @@ def test_cli_compile_and_generated_wrapper(tmp_path):
 
 
 def test_cli_refuses_xc_aot_and_lower_precision(tmp_path, capsys):
-    """JAX's --xc case: the port has no XLA executable, so --xc (and --aot)
-    are refused with exit code 1 and a message naming the ROADMAP item, as
-    is a --precision other than highest; nothing is written."""
+    """What the CLI still refuses of these flags: a precision JAX's CLI does
+    not know, as argparse refuses it there (exit code 2), with nothing
+    written. (The name dates from when the port's CLI refused --xc, --aot
+    and every precision below "highest"; it takes them now:
+    test_cli_takes_xc_aot_and_each_precision.)"""
+    from lele_tpu.cli import main as j_main
+
     onnx_path = tmp_path / "xc_model.onnx"
     _write_toy_onnx(onnx_path)
     out = tmp_path / "gen_xc"
-    for flags in (["--xc"], ["--aot"], ["--precision", "default"], ["--precision", "high"]):
-        assert main([str(onnx_path), str(out), "PortXc", "--device", "cpu", *flags]) == 1
-        err = capsys.readouterr().err
-        assert "ROADMAP §1.2" in err, err
+    for argv, m in ((["--precision", "low"], main), (["--precision", "low"], j_main)):
+        with pytest.raises(SystemExit) as e:
+            m([str(onnx_path), str(out), *argv])
+        assert e.value.code == 2
     assert not out.exists()
-    assert main([str(onnx_path), str(out), "PortXc", "--device", "cpu",
-                  "--precision", "highest"]) == 0
-    assert (out / "PortXc.py").exists()
+
+
+def test_cli_takes_xc_aot_and_each_precision(tmp_path):
+    """JAX's --xc case: --xc, --aot and every --precision of JAX's CLI are
+    taken (exit code 0; the program, the bundle and the wrapper's PRECISION
+    written)."""
+    from lele_tpu_torch.config import config
+
+    onnx_path = tmp_path / "xc_model.onnx"
+    _write_toy_onnx(onnx_path)
+    out = tmp_path / "gen_xc"
+    try:
+        for flags, prec in ((["--xc"], "highest"), (["--aot"], "highest"),
+                            (["--precision", "default"], "default"),
+                            (["--precision", "high"], "high")):
+            config.matmul_precision = "highest"
+            assert main([str(onnx_path), str(out), "PortXc", "--device", "cpu", *flags]) == 0
+            assert _load(out / "PortXc.py").PRECISION == prec
+    finally:
+        config.matmul_precision = "highest"
+    assert (out / "PortXc.pt2").exists() and (out / "PortXc.xc" / "program.pt2").exists()
 
 
 def test_cli_main_errors(tmp_path):

@@ -223,7 +223,8 @@ def test_port_runs_without_jax():
     saved and restored, and the planner's H100 plans; and the multi-device
     layer, in a one-rank gloo group: a pipeline of one stage, a compiled
     graph over a one-rank mesh with param rules, and plan_serving_mesh's
-    (None, None)."""
+    (None, None); and slice 27: an AOT export of a compiled graph and its
+    load, a native model's bundle saved and loaded, and a native decode."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['lele_tpu'] = None\n"
         "sys.modules['optax'] = None; sys.modules['orbax'] = None\n"
@@ -584,6 +585,36 @@ def test_port_runs_without_jax():
         "    mcm = compile_model(mbs, mesh=make_mesh(1), param_rules=lambda n, s: (None, 'model'))\n"
         "    assert np.array_equal(mcm.run_np(np.ones((2, 3), np.float32))[0], np.ones((2, 3)) @ mw)\n"
         "    torch.distributed.destroy_process_group()\n"
+        "from lele_tpu_torch.compiler.aot import export_model, load_exported, program_ops\n"
+        "from lele_tpu_torch.runtime.artifact import (export_program, load_aot_bundle,\n"
+        "                                             save_aot_bundle)\n"
+        "from lele_tpu_torch.runtime.dataloader import decode_wav_files\n"
+        "from lele_tpu_torch.utils.wav import encode_wav, read_wav\n"
+        "from lele_tpu_torch.models.sensevoice import sensevoice_encode\n"
+        "ncfg = SenseVoiceConfig(n_layers=2, d_model=64, n_heads=2, ffn_dim=96, vocab_size=40,\n"
+        "                        weight_int8=True)\n"
+        "nm = SenseVoiceModel(ncfg, device='cpu'); nm.init(0)\n"
+        "nm.params = stack_layer_params(prepare_w8_params(cast_big_params(nm.params,\n"
+        "                                                                 torch.bfloat16)))\n"
+        "npcm = np.random.default_rng(3).standard_normal(20000).astype(np.float32) * 0.1\n"
+        "sv = SenseVoiceOnnx(build_sanm_int8_model(L=2, d=64, h=2, ffn=96, vocab=40,\n"
+        "                                          int8_head=True), device='cpu')\n"
+        "with tempfile.TemporaryDirectory() as td:\n"
+        "    xcm = sv._compiled(32)\n"
+        "    xin = sv._inputs(torch.zeros((1, 32, 560)), 30)\n"
+        "    call = load_exported(export_model(xcm, td + '/sv'))\n"
+        "    assert program_ops(call.program) == ['dq_gemm', 'sanm_stack_dql']\n"
+        "    order = [torch.as_tensor(np.asarray(xin[n])).to(xcm._dtypes[n])\n"
+        "             for n in xcm.input_order]\n"
+        "    assert torch.equal(call(xcm.params, (), order)[0], xcm(**xin)[0])\n"
+        "    feats = nm.fbank(npcm).contiguous()\n"
+        "    enc = lambda p, f: sensevoice_encode(p, f[None], torch.ones((1, f.shape[0])), ncfg)\n"
+        "    save_aot_bundle(td + '/nat', export_program(enc, nm.params, feats), nm.params)\n"
+        "    fn, lp = load_aot_bundle(td + '/nat')\n"
+        "    assert torch.equal(fn(lp, feats), nm.forward_fn()(nm.params, npcm))\n"
+        "    open(td + '/a.wav', 'wb').write(encode_wav(npcm[:8000], 16000))\n"
+        "    (wx, wsr), = decode_wav_files([td + '/a.wav'])\n"
+        "    assert wsr == 16000 and np.array_equal(wx, read_wav(td + '/a.wav', try_native=False)[0])\n"
         "assert not any(k.split('.')[0] in ('jax', 'lele_tpu', 'PIL', 'optax', 'orbax')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
